@@ -577,20 +577,19 @@ class EngineConfig:
     def _reject_unported(self) -> None:
         """Refuse the features this slice of the port does not serve.
 
-        The port runs the reference's synchronous serving path at the
-        default config: per-token decode steps, no dispatch-ahead
-        pipeline, one device, bf16/f32 KV, no speculation, no remote or
-        pulled prefill. Each refusal names the knob so a reference config
-        that uses it fails loudly instead of serving something else."""
+        The port runs the reference's synchronous serving path: per-token
+        decode steps or K-step bursts, ngram speculative decoding, no
+        dispatch-ahead pipeline, one device, bf16/f32 KV, no draft model,
+        no remote or pulled prefill. Each refusal names the knob so a
+        reference config that uses it fails loudly instead of serving
+        something else."""
         unported = []
-        if self.multi_step_decode > 1:
-            unported.append("multi_step_decode > 1 (fused decode bursts)")
         if self.decode_pipeline_depth >= 2 or self.device_finish == "on":
             unported.append(
                 "decode_pipeline_depth >= 2 / device_finish (pipelined "
                 "and chained decode)")
-        if self.spec_ngram_tokens or self.spec_draft_model:
-            unported.append("speculative decoding")
+        if self.spec_draft_model:
+            unported.append("spec_draft_model (draft-model speculation)")
         if self.sp_size > 1 or self.long_prefill_threshold_tokens:
             unported.append("sequence-parallel prefill")
         if max(self.tp_size, self.dp_size, self.ep_size, self.pp_size) > 1:
@@ -601,9 +600,6 @@ class EngineConfig:
             unported.append(f"kv_cache_dtype={self.kv_cache_dtype!r}")
         if self.model.quantization:
             unported.append(f"quantization={self.model.quantization!r}")
-        if self.fused_epilogue == "on":
-            unported.append(
-                "fused_epilogue='on' (the sampling epilogue kernel)")
         if self.dtype not in ("bfloat16", "float32"):
             unported.append(f"dtype={self.dtype!r}")
         if unported:

@@ -1,17 +1,20 @@
 """Continuous-batching scheduler: the synchronous serving path.
 
-The port of ``dynamo_tpu/engine/scheduler.py`` at the reference's default
-config (``multi_step_decode=1``, ``decode_pipeline_depth=1``): an asyncio
-loop interleaving batched, chunked, bucketed prefills with batched
-one-token decode steps over a fixed set of slots. Per-request state tracks
-paged blocks, chained block hashes (the prefix cache) and
-cooperative cancellation; KV OOM preempts a request back to the waiting
-queue and its re-prefill continues the emitted stream.
+The port of ``dynamo_tpu/engine/scheduler.py`` at the reference's
+synchronous config (``decode_pipeline_depth`` <= 1): an asyncio loop
+interleaving batched, chunked, bucketed prefills with batched decode over
+a fixed set of slots — one token per step, a fused K-step burst
+(``multi_step_decode``) while no prefill work waits, or an ngram
+speculative verify step (``spec_ngram_tokens``) while every active row is
+greedy and penalty-free. Per-request state tracks paged blocks, chained
+block hashes (the prefix cache) and cooperative cancellation; KV OOM
+preempts a request back to the waiting queue and its re-prefill continues
+the emitted stream.
 
 Not in this slice (later work, refused by ``EngineConfig``): pipelined and
-chained decode, speculative and guided decoding, sequence-parallel
-prefill, remote prefill, fabric pulls, migration, fault injection, the
-flight recorder and the stall watchdog.
+chained decode, draft-model speculation, guided decoding,
+sequence-parallel prefill, remote prefill, fabric pulls, migration, fault
+injection, the flight recorder and the stall watchdog.
 """
 
 from __future__ import annotations
@@ -42,6 +45,29 @@ logger = logging.getLogger(__name__)
 
 # trailing emitted tokens kept per request for the exact stop-sequence check
 SUFFIX_RING_W = 32
+
+
+def ngram_propose(history: List[int], match: int, k: int) -> List[int]:
+    """Prompt-lookup proposal: find the most recent earlier occurrence of
+    the trailing ``match``-gram in the sequence's own history and return
+    up to ``k`` tokens that followed it."""
+    n = len(history)
+    if n < match + 1 or k <= 0:
+        return []
+    tail = np.asarray(history[-match:], np.int64)
+    h = np.asarray(history, np.int64)
+    # windows over h[:-1]: every start i has at least one continuation
+    # token, and the trailing gram itself (start n-match) is excluded
+    win = np.lib.stride_tricks.sliding_window_view(h[:-1], match)
+    hits = np.nonzero((win == tail).all(axis=1))[0]
+    if hits.size == 0:
+        return []
+    # latest match whose continuation is full-length; else the earliest
+    # (longest) one — a repetitive tail would otherwise propose almost
+    # nothing because the most recent occurrence abuts the history end
+    full = hits[hits + match + k <= n]
+    i = int(full[-1]) if full.size else int(hits[0])
+    return [int(t) for t in history[i + match: i + match + k]]
 
 
 def prefill_bucket_cap(cfg: EngineConfig, rows: int = 1) -> Optional[int]:
@@ -239,6 +265,8 @@ class Scheduler:
         self.prefill_steps = 0
         self.decode_steps = 0
         self.preemptions = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
     # ---------- public API ----------
 
@@ -287,6 +315,8 @@ class Scheduler:
             "prefill_steps": self.prefill_steps,
             "decode_steps": self.decode_steps,
             "preemptions": self.preemptions,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
         }
 
     # ---------- helpers ----------
@@ -406,10 +436,22 @@ class Scheduler:
                 await self._prefill_chunk(loop, list(self.prefilling))
                 progressed = True
 
+            # decode every active slot: one token, an ngram speculative
+            # verify, or a fused K-step burst — prefill work pins K to 1 so
+            # chunked-prefill interleaving (bounded TTFT) is never traded
+            # for throughput
             active = [s for s in self.slots
                       if s is not None and s not in self.prefilling]
             if active:
-                await self._decode(loop, active)
+                runner_idle = not (self.prefilling or self.waiting)
+                if (self.config.spec_ngram_tokens > 0 and runner_idle
+                        and all(self._spec_eligible(er) for er in active)):
+                    await self._decode_spec(loop, active)
+                else:
+                    k_steps = self.config.multi_step_decode
+                    if k_steps > 1 and not runner_idle:
+                        k_steps = 1
+                    await self._decode(loop, active, k_steps)
                 progressed = True
 
             if not progressed:
@@ -599,15 +641,130 @@ class Scheduler:
             if er.finish is not None:
                 self._finish(er, er.finish, emit=False)
 
-    async def _decode(self, loop, active: List[EngineRequest]) -> None:
-        """One batched decode step over every active slot."""
+    def _spec_eligible(self, er: EngineRequest) -> bool:
+        """Speculative verify preserves the exact stream only for greedy,
+        penalty-free, bias-free requests that want no logprobs: the verify
+        step's raw argmax must equal what sequential sampling would pick,
+        and per-position logprobs are not computed."""
+        return (er.temperature == 0.0
+                and er.presence_penalty == 0.0
+                and er.frequency_penalty == 0.0
+                and er.repetition_penalty == 1.0
+                and not er.want_logprobs and er.logprobs_n == 0
+                and not er.req.sampling_options.logit_bias)
+
+    async def _decode_spec(self, loop, active: List[EngineRequest]) -> None:
+        """One speculative decode pass: propose up to K tokens per row from
+        the row's own history (ngram), verify all K + 1 positions in ONE
+        forward, and emit the accepted prefix plus the correction token.
+
+        Every proposed position's KV is written during the verify; the
+        slots of rejected positions are rewritten when decoding reaches
+        them again, and block registration only covers positions below the
+        host ``context_len``, which advances by accepted tokens only."""
+        cfg = self.config
+        b = cfg.max_batch_size
+        bs = cfg.kv_block_size
+        K = cfg.spec_ngram_tokens
+        S = K + 1
+        if any(er.context_len + S + 1 > cfg.max_model_len for er in active):
+            # a row is within K of the horizon; it finishes momentarily
+            return await self._decode(loop, active, 1)
+
+        # when nothing matches anywhere (non-repetitive output) the K+1-wide
+        # verify would be pure overhead: run the normal decode instead
+        props = {}
+        for er in active:
+            history = list(er.seq.token_ids) + [er.pending_token]
+            props[er.slot] = ngram_propose(history, cfg.spec_ngram_match, K)
+        if not any(props.values()):
+            return await self._decode(loop, active, cfg.multi_step_decode)
+
+        for er in list(active):
+            if not all(self._ensure_block_for(er, er.context_len + j)
+                       for j in range(S)):
+                logger.warning("KV OOM: preempting %s", er.request_id)
+                self._preempt(er)
+                active.remove(er)
+        if not active:
+            return
+
+        w = cfg.kv_width_bucket(max(len(er.block_ids) for er in active))
+        tokens = np.zeros((b, S), np.int32)
+        positions = np.zeros((b, S), np.int32)
+        slot_map = np.full((b, S), -1, np.int32)
+        btab = np.zeros((b, w), np.int32)
+        ctx_lens = np.ones(b, np.int32)
+        last_idx = np.zeros(b, np.int32)
+        for er in active:
+            i = er.slot
+            pos0 = er.context_len
+            row = [er.pending_token] + props[i]
+            tokens[i, : len(row)] = row
+            positions[i] = pos0 + np.arange(S)
+            for j in range(S):
+                pj = pos0 + j
+                slot_map[i, j] = er.block_ids[pj // bs] * bs + pj % bs
+            btab[i, : len(er.block_ids)] = er.block_ids
+            # causal masking is by absolute position, so a short row's junk
+            # keys past its proposal are invisible to its valid queries
+            ctx_lens[i] = pos0 + S
+            last_idx[i] = len(row) - 1
+
+        zf, zi = np.zeros(b, np.float32), np.zeros(b, np.int32)
+        *_, greedy_all = self.runner.step(
+            tokens, positions, btab, slot_map, ctx_lens, last_idx,
+            zf, zi, np.ones(b, np.float32),
+            min_p=zf, presence_penalty=zf, frequency_penalty=zf,
+            repetition_penalty=np.ones(b, np.float32),
+            seed_keys=np.zeros((b, 2), np.uint32), counters=zi,
+            sample_slots=np.arange(b, dtype=np.int32),
+            commit=np.zeros(b, bool),  # greedy rows: counts never consulted
+            want_top=False, want_greedy=True,
+        )
+        ga = await loop.run_in_executor(None, lambda: greedy_all.cpu().numpy())
+        self.steps += 1
+        self.decode_steps += 1
+
+        for er in active:
+            if er.finish is not None:
+                continue
+            prop = props[er.slot]
+            a = 0
+            while a < len(prop) and int(ga[er.slot, a]) == prop[a]:
+                a += 1
+            self.spec_proposed += len(prop)
+            self.spec_accepted += a
+            # emit the accepted prefix + the correction token, with the
+            # same pending-token discipline as every other decode path
+            for j in range(a + 1):
+                if er.finish is not None:
+                    break
+                token = int(ga[er.slot, j])
+                self._advance_row(er, token)
+                self._emit(er, token, None, None)
+                if er.finish is not None:
+                    self._finish(er, er.finish, emit=False)
+
+    async def _decode(self, loop, active: List[EngineRequest],
+                      k_steps: int = 1) -> None:
+        """One batched decode pass over every active slot: a single step,
+        or a K-step burst (``k_steps > 1``) whose K tokens per row reach
+        the host together."""
         cfg = self.config
         b = cfg.max_batch_size
         bs = cfg.kv_block_size
 
-        # each active sequence needs a block for its next position
+        # a burst writes K tokens of KV per row before the host sees any of
+        # them, so every row needs blocks for all K positions up front, and
+        # no row may run past the model-len horizon mid-burst (such rows
+        # finish within one burst anyway — step per token this pass)
+        if k_steps > 1 and any(
+                er.context_len + k_steps + 1 > cfg.max_model_len for er in active):
+            k_steps = 1
         for er in list(active):
-            if not self._ensure_block_for(er, er.context_len):
+            if not all(self._ensure_block_for(er, er.context_len + j)
+                       for j in range(k_steps)):
                 # out of memory: evict this request back to waiting
                 # (recompute later; its stream continues on re-prefill)
                 logger.warning("KV OOM: preempting %s", er.request_id)
@@ -640,16 +797,26 @@ class Scheduler:
         btab = hs.btab[:, :w].copy()
         # inactive rows sample with greedy settings: no noise is drawn for them
         temp = np.where(commit, hs.temp, 0.0).astype(np.float32)
+        want_top = any(er.logprobs_n > 0 for er in active)
 
-        next_tokens, lps, top_vals, top_ids, *_ = self.runner.step(
-            tokens, positions, btab, slot_map, ctx_lens, last_idx,
-            temp, hs.top_k, hs.top_p,
-            min_p=hs.min_p, presence_penalty=hs.pres,
-            frequency_penalty=hs.freq, repetition_penalty=hs.rep,
-            seed_keys=hs.keys, counters=ctrs,
-            sample_slots=np.arange(b, dtype=np.int32), commit=commit,
-            want_top=any(er.logprobs_n > 0 for er in active),
-        )
+        if k_steps > 1:
+            next_tokens, lps, top_vals, top_ids = self.runner.decode_burst(
+                tokens[:, 0], positions[:, 0], btab, temp, hs.top_k, hs.top_p,
+                min_p=hs.min_p, presence_penalty=hs.pres,
+                frequency_penalty=hs.freq, repetition_penalty=hs.rep,
+                seed_keys=hs.keys, counters=ctrs, commit=commit,
+                want_top=want_top,
+            )
+        else:
+            next_tokens, lps, top_vals, top_ids, *_ = self.runner.step(
+                tokens, positions, btab, slot_map, ctx_lens, last_idx,
+                temp, hs.top_k, hs.top_p,
+                min_p=hs.min_p, presence_penalty=hs.pres,
+                frequency_penalty=hs.freq, repetition_penalty=hs.rep,
+                seed_keys=hs.keys, counters=ctrs,
+                sample_slots=np.arange(b, dtype=np.int32), commit=commit,
+                want_top=want_top,
+            )
 
         def _sync_step():
             return (next_tokens.cpu().numpy(), lps.cpu().numpy(),
@@ -658,18 +825,26 @@ class Scheduler:
         toks, lpn, tv, ti = await loop.run_in_executor(None, _sync_step)
         self.steps += 1
         self.decode_steps += 1
-        for er in active:
-            if er.finish is not None:
-                continue
-            token = int(toks[er.slot])
-            self._advance_row(er, token)
-            self._emit(
-                er, token,
-                float(lpn[er.slot]) if er.want_logprobs else None,
-                self._top_row(er, tv, ti, er.slot),
-            )
-            if er.finish is not None:
-                self._finish(er, er.finish, emit=False)
+        if k_steps == 1:
+            # [B] → [1, B] so the emit loop below is one shape
+            toks, lpn, tv, ti = toks[None], lpn[None], tv[None], ti[None]
+
+        # emit in step order; a request that finishes at step j has its
+        # trailing burst tokens discarded — their KV went into its own
+        # unregistered blocks, which are freed with the request
+        for j in range(k_steps):
+            for er in active:
+                if er.finish is not None:
+                    continue
+                token = int(toks[j, er.slot])
+                self._advance_row(er, token)
+                self._emit(
+                    er, token,
+                    float(lpn[j, er.slot]) if er.want_logprobs else None,
+                    self._top_row(er, tv[j], ti[j], er.slot),
+                )
+                if er.finish is not None:
+                    self._finish(er, er.finish, emit=False)
 
     def _preempt(self, er: EngineRequest) -> None:
         """Return a request to the waiting queue, releasing its blocks.

@@ -31,6 +31,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "paged_decode": "paged_decode.cu",
     "paged_flash": "paged_flash.cu",
+    "paged_verify": "paged_verify.cu",
+    "sampling_epilogue": "sampling_epilogue.cu",
 }
 
 NVCC_FLAGS = [

@@ -9,9 +9,10 @@ same contract serves bucketed prefill (S > 1) and single-token decode
 GPU has no such constraint).
 
 Dispatch is keyed on the tensors' device: CPU tensors take the plain
-version (``paged_attention``), CUDA tensors take the decode kernel when
-S == 1 and the flash kernel when S > 1. There is no fallback from a kernel
-to the plain route on a CUDA device.
+version (``paged_attention``); CUDA tensors take the decode kernel when
+S == 1, the verify kernel when 1 < S <= 32 (the speculative verify tail,
+the reference's ``VERIFY_MAX_S``) and the flash kernel when S > 32. There
+is no fallback from a kernel to the plain route on a CUDA device.
 """
 
 from __future__ import annotations
@@ -152,12 +153,11 @@ def attention(
     """Paged-attention dispatch on the stacked cache.
 
     CPU tensors take the plain route. CUDA tensors take the decode kernel
-    (S == 1) or the flash kernel (S > 1); both index layer ``layer_idx``
-    of the stacked cache in place. The flash kernel assumes affine query
-    positions (``positions[:, s] == positions[:, 0] + s``), the
-    scheduler's layout — it also serves 1 < S <= 32, the reference's
-    verify-kernel range, under the same contract. The decode kernel
-    assumes the query sits at ``context_lens - 1``."""
+    (S == 1), the verify kernel (1 < S <= 32) or the flash kernel
+    (S > 32); each indexes layer ``layer_idx`` of the stacked cache in
+    place. The verify and flash kernels assume affine query positions
+    (``positions[:, s] == positions[:, 0] + s``), the scheduler's layout.
+    The decode kernel assumes the query sits at ``context_lens - 1``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type != "cuda":
@@ -180,6 +180,12 @@ def attention(
 
         return paged_decode_attention(
             q, k_cache, v_cache, block_tables, context_lens,
+            layer_idx=layer_idx, scale=scale, window=window)
+    from .paged_verify import VERIFY_MAX_S, paged_verify_attention
+
+    if q.shape[1] <= VERIFY_MAX_S:
+        return paged_verify_attention(
+            q, k_cache, v_cache, block_tables, positions[:, 0], context_lens,
             layer_idx=layer_idx, scale=scale, window=window)
     from .paged_flash import paged_flash_attention
 

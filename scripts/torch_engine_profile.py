@@ -3,13 +3,16 @@
 
 Serves the ``chip_smoke.py`` engine workload (Llama-3.2-1B shapes, seeded
 random bf16 weights, 8 concurrent token-id requests of 100-1500 prompt
-tokens and 32 new tokens each) through ``TorchServingEngine`` twice, with
-fresh prompts each time (same lengths, so no prefix-cache hits between
-waves): once untraced for the wall clock, once under ``torch.profiler``.
-It prints one JSON line with the untraced and traced wall times, the
-device's busy share in the traced window (the union of kernel intervals
-over the window), and device time by kernel family and by kernel name.
-The Chrome trace goes to ``chiprun_out/torch_engine_profile.json.gz``.
+tokens and 32 new tokens each) through ``TorchServingEngine``, once per
+sampling tail in the order unfused, fused, fused, unfused
+(``fused_epilogue`` "off" / "auto": the epilogue kernel on a card), each
+engine twice with fresh prompts (same lengths, so no prefix-cache hits
+between waves): once untraced for the wall clock, once under
+``torch.profiler``. It prints one JSON line with, per run, the untraced and
+traced wall times, the device's busy share in the traced window (the union
+of kernel intervals over the window), and device time by kernel family and
+by kernel name. The first fused run's Chrome trace goes to
+``chiprun_out/torch_engine_profile.json.gz``.
 
 Run on the card from the repository root: ``python3 scripts/torch_engine_profile.py``.
 """
@@ -32,6 +35,8 @@ import chip_smoke  # noqa: E402  (the workload and the engine config)
 FAMILIES = (
     ("paged_decode", ("paged_decode_kernel",)),
     ("paged_flash", ("paged_flash_kernel",)),
+    ("paged_verify", ("paged_verify_kernel",)),
+    ("sampling_epilogue", ("sampling_epilogue_kernel",)),
     ("gemm", ("gemm", "sm90_xmma", "cutlass", "gemv", "nvjet")),
     ("sort_topk", ("sort", "radix", "topk", "scan")),
     ("elementwise", ("elementwise", "vectorized", "reduce", "index", "copy",
@@ -59,22 +64,13 @@ def union_us(intervals):
     return total
 
 
-def main() -> int:
-    import torch
+def profile_run(torch, cfg, wave_a, wave_b, trace_path=None) -> dict:
+    """One engine: an untraced wave, then a traced one; its breakdown."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.serving import TorchServingEngine
 
-    if not torch.cuda.is_available():
-        print("no CUDA device is available", file=sys.stderr)
-        return 2
-    cfg = EngineConfig(model=ModelConfig(**chip_smoke.FLAGSHIP),
-                       seed=chip_smoke.SEED, **chip_smoke.ENGINE)
-    smi = chip_smoke.nvidia_smi_line()
-    wave_a, _ = chip_smoke._requests(np.random.default_rng(1))
-    wave_b, _ = chip_smoke._requests(np.random.default_rng(2))
-    out = {"card": smi}
+    out = {"fused_epilogue": cfg.fused_epilogue}
 
     async def run():
         engine = await TorchServingEngine.create(cfg, device="cuda")
@@ -99,6 +95,7 @@ def main() -> int:
         return prof
 
     prof = asyncio.run(run())
+    torch.cuda.empty_cache()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name, by_family = {}, {}
@@ -116,10 +113,34 @@ def main() -> int:
         by_family.items(), key=lambda kv: -kv[1])}
     out["top_kernels_ms"] = {k[:90]: v / 1e3 for k, v in sorted(
         by_name.items(), key=lambda kv: -kv[1])[:15]}
-    trace_dir = ROOT / "chiprun_out"
-    trace_dir.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(trace_dir / "torch_engine_profile.json.gz"))
-    print(json.dumps(out), flush=True)
+    if trace_path is not None:
+        trace_path.parent.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(trace_path))
+    return out
+
+
+def main() -> int:
+    import torch
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+
+    if not torch.cuda.is_available():
+        print("no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = chip_smoke.nvidia_smi_line()
+    wave_a, _ = chip_smoke._requests(np.random.default_rng(1))
+    wave_b, _ = chip_smoke._requests(np.random.default_rng(2))
+    trace = ROOT / "chiprun_out" / "torch_engine_profile.json.gz"
+    runs = []
+    for mode in ("off", "auto", "auto", "off"):
+        cfg = EngineConfig(model=ModelConfig(**chip_smoke.FLAGSHIP),
+                           seed=chip_smoke.SEED, fused_epilogue=mode,
+                           **chip_smoke.ENGINE)
+        first_fused = mode == "auto" and not any(
+            r["fused_epilogue"] == "auto" for r in runs)
+        runs.append(profile_run(torch, cfg, wave_a, wave_b,
+                                trace if first_fused else None))
+    print(json.dumps({"card": smi, "runs": runs}), flush=True)
     return 0
 
 

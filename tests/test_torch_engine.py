@@ -265,13 +265,18 @@ async def test_seeded_sampling_reproduces_and_validation(weights):
 
 def test_config_refuses_unported_features():
     model = ModelConfig(**TINY)
-    for kw in (dict(multi_step_decode=4), dict(decode_pipeline_depth=2),
-               dict(spec_ngram_tokens=2), dict(tp_size=2),
-               dict(kv_cache_dtype="fp8"), dict(fused_epilogue="on"),
+    for kw in (dict(spec_draft_model="draft", spec_draft_tokens=4),
+               dict(decode_pipeline_depth=2),
+               dict(device_finish="on", decode_pipeline_depth=2),
+               dict(tp_size=2), dict(kv_cache_dtype="fp8"),
                dict(host_kv_blocks=8)):
         with pytest.raises(NotImplementedError):
             EngineConfig(model=model, **kw)
-    EngineConfig(model=model, fused_epilogue="auto")  # runs the unfused tail
+    # served since the second slice: bursts, ngram speculation, the
+    # epilogue's route on any device
+    for kw in (dict(multi_step_decode=4), dict(spec_ngram_tokens=2),
+               dict(fused_epilogue="on"), dict(fused_epilogue="auto")):
+        EngineConfig(model=model, **kw)
     moe = EngineConfig(model=dataclasses.replace(model, num_experts=4))
     with pytest.raises(NotImplementedError):
         ModelRunner(moe, device="cpu")

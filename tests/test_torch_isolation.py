@@ -45,7 +45,10 @@ def test_blocked_names_match_exactly():
 
 def test_port_imports_without_jax_or_reference_package():
     mods = _port_modules() + ["chip_smoke"]
-    assert len(mods) >= 15
+    # every kernel module is among them (the imports of its wrapper count)
+    assert {"dynamo_tpu_torch.ops.epilogue", "dynamo_tpu_torch.ops.paged_verify",
+            "dynamo_tpu_torch.ops.paged_decode",
+            "dynamo_tpu_torch.ops.paged_flash"} <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         for m in list(sys.modules):
