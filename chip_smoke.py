@@ -7,7 +7,7 @@ It needs one CUDA device and the CUDA toolkit (``nvcc``); it imports
 nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
 
 1. ``device``  — the card's name and ``nvidia-smi`` name / power limit.
-2. ``build``   — builds the four kernels from ``dynamo_tpu_torch/csrc``
+2. ``build``   — builds the five kernels from ``dynamo_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once).
 3. ``kernels`` — holds each kernel against its plain PyTorch version at the
    Llama-3.2-1B shapes (H=32, KVH=8, D=64, bs=16, bf16, a 16-layer stacked
@@ -15,10 +15,12 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    prefill shapes (rows with their own base_pos and ctx, pad rows); verify
    at S 2, 5, 17 and 32 (padded proposals, a window, a pad row); the
    sampling epilogue at B 8 over V 128,256 in every sampling regime, with
-   the count commit in the kernel and outside it. It times kernel, plain
-   version, a PyTorch library call where one computes the same function
-   (SDPA over pre-gathered dense K/V, a yardstick only) and the card's
-   bound for the same work.
+   the count commit in the kernel and outside it; and the MLA decode
+   kernel at DeepSeek-V2-Lite's shapes (H 16, R 512, RD 64, a 27-layer
+   stacked latent cache, the decode contexts incl. a ctx-1 row). It times
+   kernel, plain version, a PyTorch library call where one computes the
+   same function (SDPA over pre-gathered dense keys, a yardstick only) and
+   the card's bound for the same work.
 4. ``engine``  — serves token-id requests through ``TorchServingEngine``
    at the full Llama-3.2-1B shapes with seeded random bf16 weights,
    checks every stream, the kernels' launch counts on that run, a repeated
@@ -28,6 +30,16 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    unfused sampling tail and 4-step decode bursts must stream wave 1
    identically; ngram speculation must stream its repeated-pattern prompts
    as without it, or part at a printed near-tie.
+6. ``engine_mla`` — DeepSeek-V2-Lite at full width and depth (27 layers:
+   MLA attention, a dense first layer, 26 routed-MoE layers with 2 shared
+   experts), built by ``ModelConfig.from_hf_config`` from its published
+   ``config.json`` values with seeded random bf16 weights: wave 1 and the
+   prefix-hit wave (streams, the MLA kernel's and the epilogue's launch
+   counts, peak memory), the decode step's time and device profile, wave 1
+   again on a 4-step-burst engine over the same weight tensors (identical
+   streams), and the logits of a prefill and a decode step at full width
+   and 2 layers against the CPU in f32. Twins within one wave may part
+   there: the reference's expert capacity at a decode batch of 8 is 1.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -38,6 +50,7 @@ numbers; the line before that the card's name and power limit.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import subprocess
 import sys
@@ -59,6 +72,28 @@ FLAGSHIP = dict(
                   "low_freq_factor": 1.0, "high_freq_factor": 4.0,
                   "original_max_position_embeddings": 8192},
 )
+# DeepSeek-V2-Lite (its published config.json): MLA with kv_lora_rank 512
+# and no q_lora, one dense first layer, then 26 MoE layers of 64 routed
+# experts (top 6, softmax, no top-k renormalisation, greedy routing) plus 2
+# shared experts; yarn rope (factor 40, both mscales 0.707); untied
+V2_LITE = {
+    "architectures": ["DeepseekV2ForCausalLM"], "vocab_size": 102400,
+    "hidden_size": 2048, "intermediate_size": 10944,
+    "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "n_routed_experts": 64, "num_experts_per_tok": 6, "n_shared_experts": 2,
+    "first_k_dense_replace": 1, "norm_topk_prob": False,
+    "scoring_func": "softmax", "topk_method": "greedy", "n_group": 1,
+    "topk_group": 1, "routed_scaling_factor": 1.0, "kv_lora_rank": 512,
+    "q_lora_rank": None, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+    "v_head_dim": 128, "rope_theta": 10000,
+    "rope_scaling": {"type": "yarn", "factor": 40,
+                     "original_max_position_embeddings": 4096,
+                     "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                     "mscale_all_dim": 0.707},
+    "max_position_embeddings": 163840, "rms_norm_eps": 1e-6,
+    "tie_word_embeddings": False, "attention_bias": False,
+}
 ENGINE = dict(max_batch_size=8, max_model_len=2048, kv_block_size=16,
               num_kv_blocks=1024, dtype="bfloat16",
               # small enough to chunk every long prompt over several steps
@@ -299,6 +334,8 @@ def kernel_phase(torch, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     entries["sampling_epilogue"] = _epilogue_cases(torch, dev)
+    _epilogue_cases(torch, dev, V2_LITE["vocab_size"])  # the MLA path's width
+    entries["mla_decode"] = _mla_cases(torch, dev)
     return entries
 
 
@@ -371,6 +408,77 @@ def _verify_cases(torch, dev, g, k, v, k32, v32, bt, ctx_l, layer):
                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
 
 
+def _mla_cases(torch, dev):
+    """The MLA decode kernel at DeepSeek-V2-Lite's shapes: B 8, H 16, R 512,
+    RD 64, bs 16, a 27-layer stacked latent cache at layer 13, the decode
+    phase's contexts (a ctx-1 row, page edges, a full 2048-key table),
+    against its f32 plain version within ATOL / RTOL. Times the kernel, the
+    plain version and, as the library yardstick, SDPA over the keys
+    [c | kr] pre-gathered to dense [B, H, T, 576] with c as the value."""
+    from dynamo_tpu_torch.ops import mla_decode as md
+
+    F = torch.nn.functional
+    L, N, BS, H, R, RD = 27, 1024, 16, 16, 512, 64
+    LAYER = 13
+    W = ENGINE["max_model_len"] // BS
+    scale = 0.11472  # V2-Lite's MLA softmax scale (models/deepseek.py)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    c = torch.randn(L, N, BS, 1, R, generator=g, device=dev).bfloat16()
+    kr = torch.randn(L, N, BS, 1, RD, generator=g, device=dev).bfloat16()
+    ctx_l = [1, 15, 16, 17, 513, 2048, 700, 1500]
+    B = len(ctx_l)
+    bt = torch.randperm(N, generator=g, device=dev)[: B * W].reshape(B, W).int()
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    q_lat = (torch.randn(B, 1, H, R, generator=g, device=dev) * 0.5).bfloat16()
+    q_rope = (torch.randn(B, 1, H, RD, generator=g, device=dev) * 0.5).bfloat16()
+    c32, kr32 = c.float(), kr.float()
+    out = md.mla_paged_decode_attention(q_lat, q_rope, c, kr, bt, ctx,
+                                        layer_idx=LAYER, scale=scale)
+    ref = md.mla_paged_decode_attention_ref(q_lat.float(), q_rope.float(), c32,
+                                            kr32, bt, ctx, LAYER, scale)
+    torch.cuda.synchronize()
+    err = check_close("mla_decode", out, ref)
+    plain_bf16 = md.mla_paged_decode_attention_ref(q_lat, q_rope, c, kr, bt, ctx,
+                                                   LAYER, scale)
+    ms = cuda_ms(lambda: md.mla_paged_decode_attention(
+        q_lat, q_rope, c, kr, bt, ctx, layer_idx=LAYER, scale=scale))
+    plain_ms = cuda_ms(lambda: md.mla_paged_decode_attention_ref(
+        q_lat.float(), q_rope.float(), c32, kr32, bt, ctx, LAYER, scale))
+    # library yardstick: SDPA over the keys pre-gathered to dense
+    T = max(ctx_l)
+    keys = torch.cat([c[LAYER][bt.long()].reshape(B, -1, R),
+                      kr[LAYER][bt.long()].reshape(B, -1, RD)], -1)[:, :T]
+    kd = keys[:, None].expand(B, H, T, R + RD).contiguous()
+    vd = keys[:, None, :, :R].expand(B, H, T, R).contiguous()
+    qd = torch.cat([q_lat, q_rope], -1).transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device=dev)[None, :] < ctx[:, None])[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=scale))
+    nkeys = int(np.sum(ctx_l))
+    # each live key once (c and kr), the queries, the output, the tables
+    nbytes = (nkeys * (R + RD) * 2 + B * H * (R + RD) * 2 + B * H * R * 2
+              + bt.numel() * 4 + B * 4)
+    flops = 2.0 * nkeys * H * ((R + RD) + R)
+    bound, by = _bound_ms(flops, nbytes)
+    kps = md._keys_per_split(q_lat, W * BS)
+    emit("kernels", kernel="mla_decode",
+         shape=dict(B=B, H=H, R=R, RD=RD, bs=BS, L=L, layer=LAYER, ctx=ctx_l,
+                    scale=scale),
+         max_err=err, plain_bf16_max_err=float((plain_bf16.float() - ref).abs().max()),
+         kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+         bound_by=by, keys_per_split=kps,
+         ctas=dict(grid=B * -(-W * BS // kps),
+                   live=sum(-(-n // kps) for n in ctx_l)))
+    del c, kr, c32, kr32, keys, kd, vd
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(name="mla_paged_decode_attention", route="cuda",
+                source="dynamo_tpu_torch/csrc/mla_decode.cu",
+                replaces="dynamo_tpu/ops/pallas_decode.py:376",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+
+
 # epilogue rows (B 8): the reference's mixed-regime set (greedy, top-k,
 # top-p, min-p with penalties, top-k + top-p with repetition, greedy), then
 # top-k 1 and a row with planted ties at the top-k and top-p cuts
@@ -416,8 +524,9 @@ def _topp_margins(torch, logits, samp, counts, seen, bias, slots):
     return out
 
 
-def _epilogue_cases(torch, dev):
-    """The epilogue kernel at B 8, V 128,256 over bf16 logits (normal * 4),
+def _epilogue_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
+    """The epilogue kernel at B 8 over V (128,256: Llama-3.2-1B; 102,400:
+    DeepSeek-V2-Lite) bf16 logits (normal * 4),
     with unique slots (the count commit in the kernel) and with pad rows
     sharing slot 0 (the commit outside), against its f32 plain version:
     tokens and counts equal in every row, logprobs within 1e-4. Times the
@@ -425,7 +534,7 @@ def _epilogue_cases(torch, dev):
     from dynamo_tpu_torch.engine.sampling import SamplingParams
     from dynamo_tpu_torch.ops import epilogue as ep
 
-    V, B = FLAGSHIP["vocab_size"], len(EPILOGUE_ROWS["temperature"])
+    B = len(EPILOGUE_ROWS["temperature"])
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     samp = SamplingParams(**{
         name: torch.tensor(vals, dtype=torch.int64 if name == "top_k"
@@ -510,12 +619,11 @@ def _epilogue_cases(torch, dev):
 # ----------------------------------------------------------------- engine
 
 
-def _requests(rng):
-    """Token-id prompts of 100-1500 tokens. Two share a 256-token prefix
+def _requests(rng, vocab=FLAGSHIP["vocab_size"]):
+    """Token-id prompts of 100-1500 tokens below ``vocab``. Two share a 256-token prefix
     (the second is served after the first, through the prefix cache); one
     greedy prompt and one seeded-temperature prompt appear twice in the
     same wave, so each twin pair must stream identically."""
-    vocab = FLAGSHIP["vocab_size"]
     lens = [1500, 100, 730, 1210, 420, 960]
     prompts = [[int(t) for t in rng.integers(0, vocab, n)] for n in lens]
     shared = prompts[2][:256]
@@ -615,23 +723,22 @@ async def _serve(engine, batch, new_tokens=None):
     return await asyncio.gather(*(one(p, s) for p, s in batch))
 
 
-def _check_logits(torch, engine, prompt_a, prompt_b):
-    """Logits of batched steps from the engine's runner (bf16, the kernels)
-    against the same forwards on the CPU in f32 through the plain route,
-    from the same weights, built as the scheduler builds its steps:
+def _check_logits(torch, cfg, arch, mcfg, device, params, prompt_a, prompt_b):
+    """Logits of batched steps on the card (bf16, the kernels) against the
+    same forwards on the CPU in f32 through the plain route, from the same
+    weights (``params`` on the card; ``arch`` the model family's module,
+    ``mcfg`` its config), built as the scheduler builds its steps for the
+    engine config ``cfg``:
 
     1. A's first 64 tokens and all of B as rows of one prefill step at
        bucket 64, padded to 4 rows (pad rows: base 0, ctx 1, table 0);
     2. A's tail at base_pos 64 beside one pad row;
     3. one decode step of both.
 
-    Only the valid positions of the real rows are compared. Runs after the
-    requests finished, on blocks 0.. of the runner's cache."""
+    Only the valid positions of the real rows are compared. Each side runs
+    on a fresh cache of its own."""
     from dynamo_tpu_torch.engine.scheduler import build_prefill_arrays
-    from dynamo_tpu_torch.models import llama
 
-    runner = engine.runner
-    cfg = runner.config
     bs, w = cfg.kv_block_size, cfg.blocks_per_seq
     na, nb = len(prompt_a), len(prompt_b)
     n_a = -(-(na + 1) // bs)
@@ -642,9 +749,11 @@ def _check_logits(torch, engine, prompt_a, prompt_b):
         return ({k: tree_map(fn, v) for k, v in tree.items()}
                 if isinstance(tree, dict) else fn(tree))
 
-    cpu_params = tree_map(lambda t: t.float().cpu(), runner.params)
-    cpu_cache = llama.init_kv_cache(cfg.model, blocks_b[-1] + 1, bs,
-                                    torch.float32, "cpu")
+    cpu_params = tree_map(lambda t: t.cpu().float(), params)
+    dtype = params["embed"].dtype
+    caches = {side: arch.init_kv_cache(mcfg, blocks_b[-1] + 1, bs, dt, dev)
+              for side, dt, dev in (("card", dtype, device),
+                                    ("cpu", torch.float32, "cpu"))}
 
     def pad_row(bucket):
         return (np.zeros((1, bucket), np.int32), np.zeros((1, bucket), np.int32),
@@ -669,17 +778,15 @@ def _check_logits(torch, engine, prompt_a, prompt_b):
 
     def forward_both(arrays, valid):  # valid: [(row, n_positions)]
         outs = []
-        for device, params, cache in ((runner.device, runner.params,
-                                       runner.kv_cache),
-                                      ("cpu", cpu_params, cpu_cache)):
-            t = [torch.as_tensor(np.asarray(a).astype(np.int32), device=device)
+        for side, dev, prm in (("card", device, params), ("cpu", "cpu", cpu_params)):
+            t = [torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
                  for a in arrays]
             with torch.inference_mode():
-                logits, _ = llama.forward(params, cfg.model, t[0], t[1], cache,
-                                          t[2], t[3], t[4])
+                logits, _ = arch.forward(prm, mcfg, t[0], t[1], caches[side],
+                                         t[2], t[3], t[4])
             logits = logits.float().cpu()
             if not bool(logits.isfinite().all()):
-                raise AssertionError(f"non-finite logits on {device} (pad rows too)")
+                raise AssertionError(f"non-finite logits on the {side} (pad rows too)")
             outs.append([logits[r, :n] for r, n in valid])
         g, c = (torch.cat(o) for o in outs)
         return float((g - c).norm() / c.norm()), outs[0], outs[1]
@@ -702,7 +809,8 @@ def _check_logits(torch, engine, prompt_a, prompt_b):
     return out
 
 
-KERNEL_MODULES = ("paged_decode", "paged_flash", "paged_verify", "epilogue")
+KERNEL_MODULES = ("paged_decode", "paged_flash", "paged_verify", "epilogue",
+                  "mla_decode")
 
 
 def _reset_launches():
@@ -719,12 +827,12 @@ def _read_launches():
             for name in KERNEL_MODULES}
 
 
-def _check_streams(results, new_tokens):
+def _check_streams(results, new_tokens, vocab=FLAGSHIP["vocab_size"]):
     for r in results:
         if len(r["tokens"]) != new_tokens or r["finish"] != "length":
             raise AssertionError(f"bad stream: {len(r['tokens'])} tokens, "
                                  f"finish {r['finish']}")
-        if max(r["tokens"]) >= FLAGSHIP["vocab_size"] or min(r["tokens"]) < 0:
+        if max(r["tokens"]) >= vocab or min(r["tokens"]) < 0:
             raise AssertionError("token id outside the vocabulary")
 
 
@@ -754,6 +862,7 @@ def engine_phase(torch, dev, smi):
        non-spec streams or parted at a printed near-tie."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.models import llama
 
     def config(**kw):
         return EngineConfig(model=ModelConfig(**FLAGSHIP), seed=SEED,
@@ -778,8 +887,10 @@ def engine_phase(torch, dev, smi):
             metrics = engine.metrics()
             peak = torch.cuda.max_memory_allocated(dev)
             spec_base = await _serve(engine, spec_reqs, SPEC_NEW_TOKENS)
-            logits = _check_logits(torch, engine, wave1[4][0][:100],
-                                   wave1[2][0][:40])
+            logits = _check_logits(
+                torch, engine.config, llama, engine.config.model,
+                engine.runner.device, engine.runner.params, wave1[4][0][:100],
+                wave1[2][0][:40])
         finally:
             await engine.close()
         return (setup_s, res1, res2, wall1, launches, metrics, peak, logits,
@@ -869,6 +980,192 @@ def engine_phase(torch, dev, smi):
                 paged_verify=launches_spec["paged_verify"])
 
 
+def _decode_step_profile(torch, runner, steps=5):
+    """Host-clock time of inert single-token decode steps at the engine's
+    batch (8 rows at the decode phase's contexts, every KV slot the drop
+    sentinel), the weight bytes a step must read (every parameter but the
+    embedding table, of which it gathers 8 rows), and a ``torch.profiler``
+    trace of 3 more steps: device-busy time (the union of kernel
+    intervals), events and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = runner.config
+    b, w = cfg.max_batch_size, cfg.blocks_per_seq
+    ctx = np.asarray([1, 15, 16, 17, 513, 2048, 700, 1500][:b], np.int32)
+    bt = np.arange(b * w, dtype=np.int32).reshape(b, w) % cfg.num_kv_blocks
+    z = np.zeros((b, 1), np.int32)
+    args = (z, (ctx - 1)[:, None], bt, np.full((b, 1), -1, np.int32), ctx,
+            np.zeros(b, np.int32), np.zeros(b, np.float32), np.zeros(b, np.int32),
+            np.ones(b, np.float32))
+
+    def step():
+        runner.step(*args, want_top=False)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        traced_s = time.monotonic() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy, end = 0.0, None
+    for s0, e0 in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if end is None or s0 > end:
+            busy, end = busy + e0 - s0, e0
+        elif e0 > end:
+            busy, end = busy + e0 - end, e0
+    weight_bytes = sum(
+        t.numel() * t.element_size()
+        for group in runner.params.values()
+        for t in (group.values() if isinstance(group, dict) else [group])
+    ) - runner.params["embed"].numel() * runner.params["embed"].element_size()
+    return dict(
+        step_ms=dict(mean=1e3 * float(np.mean(times)), min=1e3 * min(times),
+                     max=1e3 * max(times), n=steps),
+        weight_bytes=weight_bytes,
+        weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        traced_steps=3, traced_wall_ms=traced_s * 1e3,
+        device_busy_ms=busy / 1e3, device_busy_share=busy / (traced_s * 1e6),
+        device_events=len(kernels),
+        top_kernels_ms={k[:80]: v / 1e3 for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:10]})
+
+
+def engine_mla_phase(torch, dev, smi):
+    """DeepSeek-V2-Lite through ``TorchServingEngine`` at full width and
+    depth, from ``ModelConfig.from_hf_config`` of its published config, with
+    seeded random bf16 weights and the Llama engines' settings (``ENGINE``):
+
+    1. the main path (fused epilogue, single-token decode): wave 1 and the
+       prefix-hit wave 2 with ids below V2-Lite's vocabulary, launches
+       counted from 0 just before and read just after; the decode step's
+       time and profile; the logits of a prefill and a decode step at full
+       width and 2 layers (the dense layer and the first MoE layer of the
+       same weights) against the CPU in f32;
+    2. ``multi_step_decode=4`` on the same weight tensors: every request of
+       wave 1, served again, must stream identically.
+
+    The numbers are printed before the checks run."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.models import deepseek
+
+    mcfg = ModelConfig.from_hf_config(V2_LITE)
+    vocab = mcfg.vocab_size
+    layers = mcfg.num_layers
+
+    def config(**kw):
+        return EngineConfig(model=mcfg, seed=SEED, **dict(ENGINE, **kw))
+
+    wave1, wave2 = _requests(np.random.default_rng(SEED), vocab)
+
+    async def main_path():
+        t0 = time.monotonic()
+        engine = await TorchServingEngine.create(config(), device="cuda")
+        setup_s = time.monotonic() - t0
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_launches()
+            t1 = time.monotonic()
+            res1 = await _serve(engine, wave1)
+            wall1 = time.monotonic() - t1
+            res2 = await _serve(engine, wave2)
+            launches = _read_launches()
+            metrics = engine.metrics()
+            peak = torch.cuda.max_memory_allocated(dev)
+            step = _decode_step_profile(torch, engine.runner)
+            params = engine.runner.params
+            two = dataclasses.replace(mcfg, num_layers=2)   # 1 dense + 1 MoE
+            params2 = dict(params, layers={k: v[:1] for k, v in
+                                           params["layers"].items()})
+            logits = _check_logits(torch, engine.config, deepseek, two,
+                                   engine.runner.device, params2,
+                                   wave1[4][0][:100], wave1[2][0][:40])
+        finally:
+            await engine.close()
+        return (setup_s, res1, res2, wall1, launches, metrics, peak, step,
+                logits, params)
+
+    async def burst_path(params):
+        engine = await TorchServingEngine.create(
+            config(multi_step_decode=4), params=params, device="cuda")
+        try:
+            _reset_launches()
+            t0 = time.monotonic()
+            res = await _serve(engine, wave1)
+            wall = time.monotonic() - t0
+            launches = _read_launches()
+            metrics = engine.metrics()
+        finally:
+            await engine.close()
+        return res, wall, launches, metrics
+
+    (setup_s, res1, res2, wall1, launches, metrics, peak, step, logits,
+     params) = asyncio.run(main_path())
+    torch.cuda.empty_cache()
+    res_k4, wall_k4, launches_k4, metrics_k4 = asyncio.run(burst_path(params))
+    del params
+    torch.cuda.empty_cache()
+
+    def parts_at(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a["tokens"], b["tokens"]))
+                     if x != y), None)
+
+    ttfts = sorted(r["ttft_s"] for r in res1)
+    emit("engine_mla", model="DeepSeek-V2-Lite (published config.json), seeded "
+         "random bf16 weights", layers=layers, vocab=vocab,
+         config={k: v for k, v in ENGINE.items()},
+         requests=len(res1) + len(res2), new_tokens=NEW_TOKENS, setup_s=setup_s,
+         wave1_prompt_tokens=sum(len(p) for p, _ in wave1),
+         wave1_wall_s=wall1,
+         wave1_output_tokens_per_s=len(res1) * NEW_TOKENS / wall1,
+         ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2], max=ttfts[-1]),
+         peak_memory_bytes=peak, launches=launches, metrics=metrics,
+         twins_part_at=dict(greedy=parts_at(res1[0], res1[1]),
+                            seeded=parts_at(res1[2], res1[3])),
+         decode_step=step, logits_vs_cpu_f32_2_layers=logits,
+         burst=dict(k=4, streams_equal=sum(a["tokens"] == b["tokens"]
+                                           for a, b in zip(res1, res_k4)),
+                    wave1_wall_s=wall_k4,
+                    wave1_output_tokens_per_s=len(res_k4) * NEW_TOKENS / wall_k4,
+                    decode_steps=metrics_k4["decode_steps"], launches=launches_k4),
+         card=smi)
+
+    _check_streams(res1 + res2, NEW_TOKENS, vocab)
+    _check_streams(res_k4, NEW_TOKENS, vocab)
+    # twins in one wave may part: at a decode batch of 8 rows each expert
+    # holds one token (capacity int(8 * 6 * 2 / 64) = 1, the reference's
+    # routing), so the second twin loses every routed expert its first
+    # twin took. Repeated requests are held instead across engines: every
+    # request of wave 1, served again by a second engine over the same
+    # weight tensors (4-step bursts), must stream identically.
+    if [r["tokens"] for r in res_k4] != [r["tokens"] for r in res1]:
+        raise AssertionError("MLA: wave 1 on the multi_step_decode=4 engine "
+                             "streams differently from the K=1 engine")
+    _check_launches("mla main", launches, ("mla_decode", "epilogue"), layers)
+    _check_launches("mla burst", launches_k4, ("mla_decode", "epilogue"), layers)
+    if launches["paged_decode"] or launches["paged_flash"] or launches["paged_verify"]:
+        raise AssertionError(f"the MLA path launched a GQA attention kernel: {launches}")
+    if metrics["gpu_prefix_cache_hit_rate"] <= 0:
+        raise AssertionError("MLA: the shared-prefix request missed the prefix cache")
+    return dict(mla_decode=launches["mla_decode"])
+
+
 def main() -> int:
     import torch
 
@@ -899,6 +1196,10 @@ def main() -> int:
     entries = kernel_phase(torch, dev)
     torch.cuda.synchronize()
     launches = engine_phase(torch, dev, smi)
+    torch.cuda.synchronize()
+    gc.collect()  # the Llama engines' weights and caches go first
+    torch.cuda.empty_cache()
+    launches.update(engine_mla_phase(torch, dev, smi))
     torch.cuda.synchronize()
 
     kernels = []

@@ -7,6 +7,8 @@ and the speculative verify's S = K + 1 positions alike) and ``decode_burst``
 (K single-token steps with no host read of sampled tokens between them),
 each ending in the sampling tail — the fused epilogue kernel on a card
 (``fused_epilogue`` "auto" or "on"), the unfused PyTorch tail otherwise.
+The model family's module comes from ``models.resolve`` (Llama-family
+GQA, or DeepSeek MLA with routed experts), as in the reference.
 PyTorch runs eagerly, so there is no compiled-program cache; the KV cache
 and the sample state are updated in place. Not in this slice (later work):
 chained and pipelined decode (the device-finish burst), draft-model
@@ -22,7 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import llama
+from ..models import llama, resolve
 from ..ops.attention import check_attention_impl
 from ..ops.epilogue import fused_sampling_epilogue
 from .config import EngineConfig
@@ -109,7 +111,8 @@ class ModelRunner:
     def __init__(self, config: EngineConfig, params=None, device="cuda"):
         self.config = config
         cfg = config.model
-        llama.check_supported(cfg)
+        self.arch = resolve(cfg)   # the model family's module
+        self.arch.check_supported(cfg)
         self.device = resolve_device(device)
         check_attention_impl(cfg.attention_impl, self.device)
         self.fused_epilogue = resolve_fused_epilogue(config.fused_epilogue,
@@ -117,7 +120,7 @@ class ModelRunner:
         self.dtype = llama.torch_dtype(config.dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
-            params = llama.init_params(cfg, gen, self.dtype, self.device)
+            params = self.arch.init_params(cfg, gen, self.dtype, self.device)
         self.params = _to_device(params, self.device, self.dtype)
         self._reinit_device_state()
 
@@ -125,7 +128,7 @@ class ModelRunner:
         """The paged KV cache and the per-slot sample state (generated-
         token counts, prompt presence, logit_bias rows — [slots, V])."""
         cfg = self.config
-        self.kv_cache = llama.init_kv_cache(
+        self.kv_cache = self.arch.init_kv_cache(
             cfg.model, cfg.num_kv_blocks, cfg.kv_block_size, self.dtype,
             self.device)
         b, v = cfg.max_batch_size, cfg.model.vocab_size
@@ -195,7 +198,7 @@ class ModelRunner:
         gumbel = gumbel_noise(seed_keys, counters, cfg.vocab_size, self.device,
                               rows=np.nonzero(temperature > 0.0)[0])
 
-        hidden, self.kv_cache = llama.forward(
+        hidden, self.kv_cache = self.arch.forward(
             self.params, cfg, self._t(tokens), self._t(positions),
             self.kv_cache, self._t(block_tables, torch.int32),
             self._t(slot_mapping), self._t(context_lens, torch.int32),
@@ -206,14 +209,14 @@ class ModelRunner:
         prompt_lps = torch.zeros((b, s), dtype=torch.float32, device=self.device)
         greedy_all = torch.zeros((b, s), dtype=torch.int64, device=self.device)
         if want_prompt or want_greedy:
-            lg = llama.lm_logits(hidden, self.params, cfg)
+            lg = self.arch.lm_logits(hidden, self.params, cfg)
             if want_prompt:
                 tg = self._t(targets if targets is not None else np.zeros_like(tokens))
                 prompt_lps = torch.gather(
                     torch.log_softmax(lg.float(), dim=-1), 2, tg[..., None])[..., 0]
             greedy_all = torch.argmax(lg, dim=-1)
         rows = torch.arange(b, device=self.device)
-        last_logits = llama.lm_logits(
+        last_logits = self.arch.lm_logits(
             hidden[rows, self._t(last_idx)], self.params, cfg)   # [B, V]
         counts, seen, bias = self.sample_state
         # pad rows of a batched prefill share slot 0: the commit stays a
@@ -277,10 +280,10 @@ class ModelRunner:
             slot = torch.where(live, slot, torch.full_like(slot, -1))
             gumbel = gumbel_noise(seed_keys, counters + step_i, cfg.vocab_size,
                                   self.device, rows=sampled_rows)
-            hidden, self.kv_cache = llama.forward(
+            hidden, self.kv_cache = self.arch.forward(
                 self.params, cfg, toks[:, None], pos[:, None], self.kv_cache,
                 bt, slot[:, None], (pos + 1).int(), return_hidden=True)
-            logits = llama.lm_logits(hidden[:, 0], self.params, cfg)
+            logits = self.arch.lm_logits(hidden[:, 0], self.params, cfg)
             out = sample_and_logprobs(
                 cfg, logits, samp, gumbel, counts, seen, bias, slots, live,
                 want_top, fused=self.fused_epilogue, unique_slots=True)

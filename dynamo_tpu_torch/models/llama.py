@@ -49,6 +49,15 @@ def check_supported(cfg: ModelConfig) -> None:
             "not ported to the PyTorch engine yet: " + "; ".join(unported))
 
 
+def param_keys(cfg: ModelConfig):
+    """Per layer group, the keys a Llama-family param tree must hold (the
+    Qwen3 q/k norms are optional)."""
+    keys = {"ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up", "w_down"}
+    if cfg.attention_bias:
+        keys |= {"bq", "bk", "bv"}
+    return {"layers": keys}
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm computed in f32, returned in x's dtype (as the reference)."""
     dtype = x.dtype
@@ -57,12 +66,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (norm * weight.float()).to(dtype)
 
 
+def _yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    if factor <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
 def rope_frequencies(
     head_dim: int, theta: float, scaling: Optional[dict] = None
 ) -> Tuple[torch.Tensor, float]:
     """(inverse rope frequencies [hd/2] f32 on the CPU, attention factor)
-    with HF ``rope_scaling`` applied: default, "linear" and "llama3".
-    Yarn and longrope belong to later families' slices and raise."""
+    with HF ``rope_scaling`` applied: default, "linear", "llama3" and
+    "yarn" (DeepSeek-V2/V3: interpolated and extrapolated frequencies
+    blended over the beta_fast/beta_slow correction range, and the mscale
+    attention factor that cos/sin carry). Longrope belongs to a later
+    family's slice and raises, as does any unknown type."""
     inv_freq = 1.0 / (
         theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim)
     )
@@ -85,6 +103,41 @@ def rope_frequencies(
             wavelen < orig / high, inv_freq,            # high freq: keep
             torch.where(wavelen > orig / low, inv_freq / factor, scaled),
         ), 1.0
+    if kind == "yarn":
+        orig = float(scaling.get("original_max_position_embeddings", 4096))
+        beta_fast = float(scaling.get("beta_fast", 32.0))
+        beta_slow = float(scaling.get("beta_slow", 1.0))
+
+        def correction_dim(num_rotations: float) -> float:
+            return (head_dim / 2.0) * math.log(
+                orig / (num_rotations * 2.0 * math.pi)) / math.log(theta)
+
+        low = max(math.floor(correction_dim(beta_fast)), 0)
+        # clamped to head_dim - 1, not to the head_dim / 2 frequency count,
+        # as transformers does: the ramp's denominator must match or every
+        # mid-band blend shifts
+        high = min(math.ceil(correction_dim(beta_slow)), head_dim - 1)
+        if low == high:
+            high += 0.001  # avoid a zero-width ramp
+        ramp = ((torch.arange(head_dim // 2, dtype=torch.float32) - low)
+                / (high - low)).clamp(0.0, 1.0)
+        extrapolation_w = 1.0 - ramp   # high-frequency dims: keep as-is
+        inv = (inv_freq / factor) * (1.0 - extrapolation_w) \
+            + inv_freq * extrapolation_w
+        attention_factor = scaling.get("attention_factor")
+        if attention_factor is None:
+            mscale = float(scaling.get("mscale") or 0.0)
+            mscale_all = float(scaling.get("mscale_all_dim") or 0.0)
+            if mscale and mscale_all:
+                # DeepSeek: the ratio of the two mscale curves, taken only
+                # when both keys are present (transformers'
+                # _compute_yarn_parameters); the softmax scale carries the
+                # rest (models/deepseek.mla_softmax_scale)
+                attention_factor = (_yarn_mscale(factor, mscale)
+                                    / _yarn_mscale(factor, mscale_all))
+            else:
+                attention_factor = _yarn_mscale(factor)
+        return inv, float(attention_factor)
     raise NotImplementedError(f"rope_scaling type {kind!r} is not ported yet")
 
 
@@ -193,19 +246,22 @@ def qkv_prologue(cfg: ModelConfig, x: torch.Tensor, lp: Params, b: int,
 
 
 def run_layers(hidden: torch.Tensor, kv_cache: KVCache, layers: Params,
-               cfg: ModelConfig, attn_fn, mlp_fn=swiglu_mlp):
-    """The decoder layers as a Python loop; ``attn_fn(x, lp, k_all, v_all,
-    li)`` writes layer ``li`` of the stacked cache in place. Returns
-    (hidden, kv_cache)."""
+               cfg: ModelConfig, attn_fn, mlp_fn=swiglu_mlp, li0: int = 0):
+    """One stacked group of decoder layers as a Python loop; ``attn_fn(x,
+    lp, k_all, v_all, li)`` writes layer ``li`` of the stacked cache in
+    place. Families chain groups with different weights (DeepSeek: its
+    dense prefix, then its MoE layers) through one cache: ``li0`` is the
+    group's first cache layer. Returns (hidden, kv_cache, next_li)."""
     k_all, v_all = kv_cache
-    for li in range(next(iter(layers.values())).shape[0]):
-        lp = {name: w[li] for name, w in layers.items()}
+    n = next(iter(layers.values())).shape[0]
+    for i in range(n):
+        lp = {name: w[i] for name, w in layers.items()}
         x = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
-        delta, k_all, v_all = attn_fn(x, lp, k_all, v_all, li)
+        delta, k_all, v_all = attn_fn(x, lp, k_all, v_all, li0 + i)
         hidden = hidden + delta
         x = rms_norm(hidden, lp["ln2"], cfg.rms_norm_eps)
         hidden = hidden + mlp_fn(x, lp)
-    return hidden, (k_all, v_all)
+    return hidden, (k_all, v_all), li0 + n
 
 
 def lm_logits(hidden: torch.Tensor, params: Params, cfg: ModelConfig
@@ -249,8 +305,8 @@ def forward(
                          context_lens, layer_idx=li, sliding_window=window)
         return attn.reshape(b, s, h_heads * hd) @ lp["wo"], k_all, v_all
 
-    hidden, kv_cache = run_layers(hidden, kv_cache, params["layers"], cfg,
-                                  attn_fn)
+    hidden, kv_cache, _ = run_layers(hidden, kv_cache, params["layers"], cfg,
+                                     attn_fn)
     if return_hidden:
         return hidden, kv_cache
     return lm_logits(hidden, params, cfg), kv_cache

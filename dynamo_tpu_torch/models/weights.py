@@ -2,7 +2,8 @@
 into the port's tensors.
 
 The port keeps the reference's parameter names and layouts
-(``models/llama.py``), so the bridge is a plain copy of every leaf. The
+(``models/llama.py``, ``models/deepseek.py``), so the bridge is a plain
+copy of every leaf, checked against the family's keys. The
 caller hands in numpy arrays (e.g. ``jax.device_get(params)`` on the JAX
 side); this module never imports jax. bfloat16 leaves (numpy's
 ``ml_dtypes.bfloat16``) are reinterpreted bit for bit.
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from ..engine.config import ModelConfig
-from .llama import Params, check_supported, torch_dtype
+from . import resolve
+from .llama import Params, torch_dtype
 
 
 def to_tensor(arr, device="cpu", dtype=None) -> torch.Tensor:
@@ -34,7 +36,8 @@ def from_jax_params(np_params: Mapping[str, Any], cfg: ModelConfig,
     """The reference's params (nested dict of numpy arrays) as the port's
     params on ``device``, cast to ``dtype`` ("bfloat16" / "float32" / a
     torch dtype; None keeps each leaf's own)."""
-    check_supported(cfg)
+    family = resolve(cfg)
+    family.check_supported(cfg)
     td = torch_dtype(dtype) if dtype is not None else None
 
     def walk(tree):
@@ -43,9 +46,12 @@ def from_jax_params(np_params: Mapping[str, Any], cfg: ModelConfig,
         return to_tensor(tree, device, td)
 
     params = walk(np_params)
-    missing = {"embed", "layers", "final_norm"} - set(params)
+    groups = family.param_keys(cfg)
+    missing = ({"embed", "final_norm"} | set(groups)) - set(params)
+    if not cfg.tie_word_embeddings:
+        missing |= {"lm_head"} - set(params)
+    for group, keys in groups.items():
+        missing |= {f"{group}.{k}" for k in keys - set(params.get(group, {}))}
     if missing:
         raise ValueError(f"param tree lacks {sorted(missing)}")
-    if not cfg.tie_word_embeddings and "lm_head" not in params:
-        raise ValueError("untied config but no lm_head in the param tree")
     return params

@@ -33,6 +33,7 @@ SOURCES = {
     "paged_flash": "paged_flash.cu",
     "paged_verify": "paged_verify.cu",
     "sampling_epilogue": "sampling_epilogue.cu",
+    "mla_decode": "mla_decode.cu",
 }
 
 NVCC_FLAGS = [

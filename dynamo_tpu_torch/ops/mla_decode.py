@@ -1,0 +1,165 @@
+"""DeepSeek MLA single-token (decode) attention over the compressed latent
+cache: the CUDA kernel and its plain PyTorch version.
+
+Replaces the TPU kernel ``dynamo_tpu/ops/pallas_decode.py``
+(``mla_paged_decode_attention``, ``_mla_decode_kernel``). Scores are
+``scale * (q_lat . c + q_rope . kr)`` over the keys ``t < ctx`` of each
+row, and the output is ``softmax . c`` in the latent space [B, 1, H, R]
+(the caller applies W_uv). The kernel (``csrc/mla_decode.cu``) is bound by
+bytes on an H100: it stages each 64-key tile of ``[c | kr]`` in shared
+memory once for all the heads of its CTA and reuses the tile's ``c`` as
+the value; it splits each row's context over several CTAs and merges the
+partials in a second pass, so a decode batch of 8 still fills the card.
+See the source for the design.
+
+CPU tensors take ``mla_paged_decode_attention_ref``; CUDA tensors launch
+the kernel or raise. ``launches`` counts kernel launches (one per call
+that reached the card), so a run can show the serving path went through it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+launches = 0
+
+# the one latent / rope width built and checked on a card (DeepSeek-V2,
+# V2-Lite and V3 all use kv_lora_rank 512, qk_rope_head_dim 64)
+_RANK, _ROPE_DIM = 512, 64
+_TILE = 64       # keys per shared-memory tile (csrc/mla_decode.cu TK)
+_HEAD_GROUP = 16  # query heads per CTA (csrc/mla_decode.cu HG)
+
+
+def mla_paged_decode_attention_ref(
+    q_lat: torch.Tensor,         # [B, 1, H, R] latent-absorbed queries
+    q_rope: torch.Tensor,        # [B, 1, H, RD] post-RoPE decoupled queries
+    c_cache: torch.Tensor,       # [L, N, bs, 1, R] stacked latent cache
+    kr_cache: torch.Tensor,      # [L, N, bs, 1, RD] stacked rope-key cache
+    block_tables: torch.Tensor,  # [B, W]
+    context_lens: torch.Tensor,  # [B]
+    layer_idx: int = 0,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """The plain version: the gather formulation at S = 1 over layer
+    ``layer_idx`` of the stacked caches. Row b's query sits at
+    ``context_lens[b] - 1`` and sees the keys ``t < context_lens[b]``; a
+    row with ``ctx == 0`` outputs zeros, as the kernel does."""
+    b, _, h, r = q_lat.shape
+    l, n, bs = c_cache.shape[:3]
+    rd = kr_cache.shape[-1]
+    w = block_tables.shape[1]
+    bt = block_tables.long() + layer_idx * n
+    c = c_cache.reshape(l * n, bs, r)[bt].reshape(b, w * bs, r).to(q_lat.dtype)
+    kr = kr_cache.reshape(l * n, bs, rd)[bt].reshape(b, w * bs, rd).to(q_lat.dtype)
+    scores = (torch.einsum("bhr,btr->bht", q_lat[:, 0], c)
+              + torch.einsum("bhd,btd->bht", q_rope[:, 0], kr)) * scale
+    ctx = context_lens.long().to(q_lat.device)
+    mask = torch.arange(w * bs, device=q_lat.device)[None, None, :] < ctx[:, None, None]
+    scores = torch.where(mask, scores, torch.tensor(
+        torch.finfo(scores.dtype).min, dtype=scores.dtype, device=q_lat.device))
+    probs = torch.softmax(scores.float(), dim=-1).to(q_lat.dtype)
+    out = torch.einsum("bht,btr->bhr", probs, c)[:, None]
+    return out * (ctx > 0).to(out.dtype)[:, None, None, None]
+
+
+def _lib():
+    lib = _build.load("mla_decode")
+    fn = lib.mla_decode_bf16
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_inputs(q_lat, q_rope, c_cache, kr_cache, block_tables,
+                       context_lens):
+    b, s, h, r = q_lat.shape
+    if s != 1:
+        raise ValueError(f"MLA decode kernel takes one query token, got S={s}")
+    rd = q_rope.shape[-1]
+    if q_rope.shape != (b, 1, h, rd):
+        raise ValueError("q_rope does not match q_lat's [B, 1, H]")
+    if c_cache.dim() != 5 or kr_cache.dim() != 5 \
+            or c_cache.shape[:4] != kr_cache.shape[:4] or c_cache.shape[3] != 1:
+        raise ValueError("expected stacked caches [L, N, bs, 1, R] and "
+                         "[L, N, bs, 1, RD] over the same pages")
+    if (r, rd) != (_RANK, _ROPE_DIM) or c_cache.shape[-1] != r \
+            or kr_cache.shape[-1] != rd:
+        raise NotImplementedError(
+            f"MLA decode kernel: (R, RD) = ({r}, {rd}) is not "
+            f"({_RANK}, {_ROPE_DIM})")
+    for name, t in (("q_lat", q_lat), ("q_rope", q_rope), ("c_cache", c_cache),
+                    ("kr_cache", kr_cache)):
+        if t.dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"MLA decode kernel: {name} must be bfloat16 (got {t.dtype})")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"MLA decode kernel: {name} must be contiguous and "
+                             "16-byte aligned")
+        if t.device != q_lat.device:
+            raise ValueError(f"MLA decode kernel: {name} is on {t.device}, "
+                             f"q_lat on {q_lat.device}")
+    if block_tables.shape[0] != b or context_lens.shape != (b,):
+        raise ValueError("block_tables / context_lens do not match the batch")
+
+
+def _keys_per_split(q_lat: torch.Tensor, keys: int) -> int:
+    """Keys each CTA walks (a multiple of the tile): the fewest tiles that
+    keep the grid (rows x splits x head groups) within two CTAs per SM for
+    a full block table."""
+    sms = torch.cuda.get_device_properties(q_lat.device).multi_processor_count
+    b, _, h, _ = q_lat.shape
+    tiles = max(1, math.ceil(keys / _TILE))
+    ctas = b * tiles * math.ceil(h / _HEAD_GROUP)
+    return _TILE * max(1, math.ceil(ctas / (2 * sms)))
+
+
+def mla_paged_decode_attention(
+    q_lat: torch.Tensor,         # [B, 1, H, R]
+    q_rope: torch.Tensor,        # [B, 1, H, RD]
+    c_cache: torch.Tensor,       # [L, N, bs, 1, R] stacked, unpadded
+    kr_cache: torch.Tensor,      # [L, N, bs, 1, RD]
+    block_tables: torch.Tensor,  # [B, W] int32
+    context_lens: torch.Tensor,  # [B] int32
+    layer_idx: int = 0,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """MLA single-token attention over layer ``layer_idx`` of the stacked
+    compressed caches; returns the latent output [B, 1, H, R]."""
+    if q_lat.device.type != "cuda":
+        return mla_paged_decode_attention_ref(
+            q_lat, q_rope, c_cache, kr_cache, block_tables, context_lens,
+            layer_idx, scale)
+    global launches
+    _check_cuda_inputs(q_lat, q_rope, c_cache, kr_cache, block_tables,
+                       context_lens)
+    b, _, h, r = q_lat.shape
+    l, n, bs = c_cache.shape[:3]
+    if not 0 <= layer_idx < l:
+        raise ValueError(f"layer_idx {layer_idx} outside [0, {l})")
+    bt = block_tables.to(device=q_lat.device, dtype=torch.int32).contiguous()
+    ctx = context_lens.to(device=q_lat.device, dtype=torch.int32).contiguous()
+    w = bt.shape[1]
+    kps = _keys_per_split(q_lat, w * bs)
+    splits = max(1, math.ceil(w * bs / kps))
+    part_acc = torch.empty((b, splits, h, r), dtype=torch.float32,
+                           device=q_lat.device)
+    part_ml = torch.empty((b, splits, h, 2), dtype=torch.float32,
+                          device=q_lat.device)
+    out = torch.empty_like(q_lat)
+    rc = _lib()(
+        q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(),
+        kr_cache.data_ptr(), bt.data_ptr(), ctx.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), out.data_ptr(), b, h, r, q_rope.shape[-1], n, bs, w,
+        int(layer_idx), kps, splits, float(scale),
+        torch.cuda.current_stream(q_lat.device).cuda_stream,
+    )
+    _build.check(rc, "mla_decode_bf16")
+    launches += 1
+    return out

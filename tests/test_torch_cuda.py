@@ -3,13 +3,20 @@
 These tests need a CUDA device and ``nvcc``; elsewhere they skip (the
 decision is made inside each test, never at import). On the card run
 ``python -m pytest tests/test_torch_cuda.py -m cuda``; ``chip_smoke.py``
-covers the same ground at the full Llama-3.2-1B shapes.
+covers the same ground at the full Llama-3.2-1B and DeepSeek-V2-Lite
+shapes.
 """
 
 import pytest
 import torch
 
-from dynamo_tpu_torch.ops import epilogue, paged_decode, paged_flash, paged_verify
+from dynamo_tpu_torch.ops import (
+    epilogue,
+    mla_decode,
+    paged_decode,
+    paged_flash,
+    paged_verify,
+)
 
 # bf16 output rounding plus a different summation order than the f32
 # plain version
@@ -143,7 +150,7 @@ def _epilogue_inputs(g, b=8, v=1000, slots=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("v", [1000, 128256])
+@pytest.mark.parametrize("v", [1000, 102400, 128256])
 @pytest.mark.parametrize("alias", [True, False])
 def test_epilogue_kernel_matches_plain_version(v, alias):
     _need_cuda()
@@ -165,3 +172,30 @@ def test_epilogue_kernel_matches_plain_version(v, alias):
     assert tok.tolist() == tok_r.tolist()
     assert torch.equal(c_out, c_ref)
     torch.testing.assert_close(lps, lps_r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 20])
+def test_mla_decode_kernel_matches_plain_version(h):
+    """DeepSeek widths (R 512, RD 64) at a small batch: ragged contexts, a
+    ctx-1 row, a layer other than 0; 20 heads take a second, partial head
+    group."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    layers, n, bs = 3, 40, 16
+    c = torch.randn(layers, n, bs, 1, 512, generator=g, device="cuda").bfloat16()
+    kr = torch.randn(layers, n, bs, 1, 64, generator=g, device="cuda").bfloat16()
+    ctx = torch.tensor([1, 15, 16, 17, 130, 200], dtype=torch.int32, device="cuda")
+    # 13 pages cover ctx 200; rows may share pages (reads only)
+    bt = torch.randint(0, n, (6, 13), generator=g, device="cuda").int()
+    q_lat = torch.randn(6, 1, h, 512, generator=g, device="cuda").bfloat16()
+    q_rope = torch.randn(6, 1, h, 64, generator=g, device="cuda").bfloat16()
+    before = mla_decode.launches
+    out = mla_decode.mla_paged_decode_attention(q_lat, q_rope, c, kr, bt, ctx,
+                                                layer_idx=2, scale=0.11472)
+    ref = mla_decode.mla_paged_decode_attention_ref(
+        q_lat.float(), q_rope.float(), c.float(), kr.float(), bt, ctx, 2, 0.11472)
+    torch.cuda.synchronize()
+    assert mla_decode.launches == before + 1
+    assert out.float().isfinite().all()
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL)

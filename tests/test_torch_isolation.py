@@ -47,8 +47,9 @@ def test_port_imports_without_jax_or_reference_package():
     mods = _port_modules() + ["chip_smoke"]
     # every kernel module is among them (the imports of its wrapper count)
     assert {"dynamo_tpu_torch.ops.epilogue", "dynamo_tpu_torch.ops.paged_verify",
-            "dynamo_tpu_torch.ops.paged_decode",
-            "dynamo_tpu_torch.ops.paged_flash"} <= set(mods)
+            "dynamo_tpu_torch.ops.paged_decode", "dynamo_tpu_torch.ops.paged_flash",
+            "dynamo_tpu_torch.ops.mla_decode", "dynamo_tpu_torch.models.deepseek",
+            "dynamo_tpu_torch.models.mixtral"} <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         for m in list(sys.modules):

@@ -118,13 +118,16 @@ def test_rope_frequencies_match_jax():
     for scaling in (None, {"type": "linear", "factor": 4.0},
                     {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
                      "high_freq_factor": 4.0,
-                     "original_max_position_embeddings": 8192}):
+                     "original_max_position_embeddings": 8192},
+                    {"rope_type": "yarn", "factor": 4.0}):
         jf, ja = jax_llama.rope_frequencies(64, 500000.0, scaling)
         tf, ta = llama.rope_frequencies(64, 500000.0, scaling)
         np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-6)
         assert ta == ja
+    # yarn is served since the MLA slice (tests/test_torch_mla.py covers
+    # its variants); longrope belongs to a later family's slice
     with pytest.raises(NotImplementedError):
-        llama.rope_frequencies(64, 1e4, {"rope_type": "yarn", "factor": 4.0})
+        llama.rope_frequencies(64, 1e4, {"rope_type": "longrope", "factor": 4.0})
 
 
 def _jax_noise(keys, counters, v):
