@@ -7,15 +7,19 @@ It needs one CUDA device and the CUDA toolkit (``nvcc``); it imports
 nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
 
 1. ``device``  — the card's name and ``nvidia-smi`` name / power limit.
-2. ``build``   — builds the five kernels from ``dynamo_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once).
+2. ``build``   — builds the five kernel sources of
+   ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
 3. ``kernels`` — holds each kernel against its plain PyTorch version at the
    Llama-3.2-1B shapes (H=32, KVH=8, D=64, bs=16, bf16, a 16-layer stacked
    cache, layer_idx != 0): decode; flash, also at the engine's batched
    prefill shapes (rows with their own base_pos and ctx, pad rows); verify
    at S 2, 5, 17 and 32 (padded proposals, a window, a pad row); the
    sampling epilogue at B 8 over V 128,256 in every sampling regime, with
-   the count commit in the kernel and outside it; and the MLA decode
+   the count commit in the kernel and outside it, and in its ``finish``,
+   ``extra_bias`` and combined forms (stop ids below and above
+   ``min_new``, ``max_new``, the model-len horizon, matching and
+   non-matching suffixes of every length 1-8, a dead row, guided rows);
+   and the MLA decode
    kernel at DeepSeek-V2-Lite's shapes (H 16, R 512, RD 64, a 27-layer
    stacked latent cache, the decode contexts incl. a ctx-1 row). It times
    kernel, plain version, a PyTorch library call where one computes the
@@ -30,7 +34,19 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    unfused sampling tail and 4-step decode bursts must stream wave 1
    identically; ngram speculation must stream its repeated-pattern prompts
    as without it, or part at a printed near-tie.
-6. ``engine_mla`` — DeepSeek-V2-Lite at full width and depth (27 layers:
+6. ``engine_chain`` — the decode loop: the same Llama-3.2-1B weights
+   behind a synchronous engine, a dispatch-ahead engine
+   (``decode_pipeline_depth=2``, ``device_finish="off"``) and the chained
+   device-finish engine, all at ``multi_step_decode=4``: wave 1, then
+   requests that end on a hidden stop id, on a stop sequence, at
+   ``max_tokens`` on and off a burst boundary, and two guided-choice
+   requests sharing one choice list. Every stream must equal the
+   synchronous engine's in tokens and finish reason; every pipelined and
+   chained dispatch runs under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host sync inside a dispatch); the chain is longer than one burst,
+   rows finish on the device, each chained step launches the epilogue once
+   and the decode kernel once per layer, and no KV block stays in use.
+7. ``engine_mla`` — DeepSeek-V2-Lite at full width and depth (27 layers:
    MLA attention, a dense first layer, 26 routed-MoE layers with 2 shared
    experts), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights: wave 1 and the
@@ -44,7 +60,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
-numbers; the line before that the card's name and power limit.
+numbers (the epilogue twice: its plain form with the main path's launches,
+its ``finish`` + ``extra_bias`` form with the chained engine's); the line
+before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -335,6 +353,8 @@ def kernel_phase(torch, dev):
     torch.cuda.empty_cache()
     entries["sampling_epilogue"] = _epilogue_cases(torch, dev)
     _epilogue_cases(torch, dev, V2_LITE["vocab_size"])  # the MLA path's width
+    entries["sampling_epilogue_finish"] = _epilogue_finish_cases(torch, dev)
+    _epilogue_finish_cases(torch, dev, V2_LITE["vocab_size"])
     entries["mla_decode"] = _mla_cases(torch, dev)
     return entries
 
@@ -616,6 +636,180 @@ def _epilogue_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
                 library_ms=None)
 
 
+EPILOGUE_MAX_LEN = 2048   # ENGINE's max_model_len: the finish horizon
+
+
+def _finish_rows(torch, dev, tokens, live, V):
+    """The ``finish`` inputs of the epilogue cases, built around the
+    ``tokens`` the plain version samples, so that every verdict occurs:
+
+    row 0 a stop id hit at ``gen_n >= min_new``; row 1 the same hit below
+    ``min_new`` (no stop); row 2 ``gen_n`` reaching ``max_new``; row 3 at
+    the model-len horizon (``pos + 2 == max_model_len``) and row 4 one
+    short of it; row 6 dead (its ring and count must not move); rings with
+    ``-1`` pads (row 1 all pads but the pushed token). Row r watches a
+    matching suffix of length r + 1 and a non-matching one of length 8 - r
+    (every length 1-8 both ways); row 1's match is gated by ``min_new``,
+    rows 5 and 7 by ``gen_n`` below the sequence's length."""
+    from dynamo_tpu_torch.engine.sampling import (
+        STOP_ID_WIDTH,
+        STOP_SEQ_WIDTH,
+        SUFFIX_RING_W,
+        stop_seq_hash,
+    )
+
+    B = len(tokens)
+    rng = np.random.default_rng(SEED + 3)
+    ring = rng.integers(0, V, (B, SUFFIX_RING_W)).astype(np.int32)
+    ring[0, :20] = -1
+    ring[1, :] = -1
+    gen = np.array([3, 2, 6, 9, 9, 2, 9, 4], np.int32)
+    pos = np.array([40, 41, 42, EPILOGUE_MAX_LEN - 2, EPILOGUE_MAX_LEN - 3,
+                    43, 44, 45], np.int32)
+    min_new = np.array([0, 5, 0, 0, 0, 0, 0, 0], np.int32)
+    max_new = np.array([99, 99, 7, 99, 99, 99, 99, 99], np.int32)
+    stop_ids = np.full((B, STOP_ID_WIDTH), -1, np.int32)
+    stop_ids[0, :3] = [7, tokens[0], V - 1]
+    stop_ids[1, :1] = [tokens[1]]
+    stop_ids[6, 15] = tokens[6]
+    pushed = np.where(live[:, None], np.concatenate(
+        [ring[:, 1:], np.asarray(tokens, np.int32)[:, None]], 1), ring)
+    stop_hash = np.zeros((B, STOP_SEQ_WIDTH), np.int64)
+    stop_hlen = np.zeros((B, STOP_SEQ_WIDTH), np.int32)
+    for r in range(B):
+        n = r + 1
+        stop_hash[r, 1] = stop_seq_hash(pushed[r, SUFFIX_RING_W - n:])
+        stop_hlen[r, 1] = n
+        miss = [int(t) + 1 for t in pushed[r, SUFFIX_RING_W - (8 - r):]]
+        stop_hash[r, 3] = stop_seq_hash(miss)
+        stop_hlen[r, 3] = 8 - r
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        gen, pos, min_new, max_new, stop_ids, ring, stop_hash, stop_hlen))
+
+
+def _epilogue_finish_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
+    """The epilogue kernel's ``finish``, ``extra_bias`` and combined forms
+    at B 8 over V bf16 logits in the mixed sampling regimes, against the
+    plain version on the same inputs: tokens, counts, ``hard``, ``cand``
+    and ``ring_new`` exactly equal, logprobs within EPILOGUE_LP_TOL. The
+    guided mask lets greedy row 5 choose between two ids and sampled row 2
+    (top-p 0.9) among three. Times the combined form (CUDA events, 20
+    calls after 3 warmups), its plain version and its byte bound."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.ops import epilogue as ep
+
+    B = len(EPILOGUE_ROWS["temperature"])
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    samp = SamplingParams(**{
+        name: torch.tensor(vals, dtype=torch.int64 if name == "top_k"
+                           else torch.float32, device=dev)
+        for name, vals in EPILOGUE_ROWS.items()})
+    u = torch.rand(B, V, generator=g, device=dev).clamp_(min=1e-30)
+    gumbel = -torch.log(-torch.log(u))
+    logits = (torch.randn(B, V, generator=g, device=dev) * 4).bfloat16()
+    counts = torch.randint(0, 3, (B, V), generator=g, device=dev, dtype=torch.int32)
+    seen = torch.randint(0, 2, (B, V), generator=g, device=dev).bool()
+    bias = torch.randn(B, V, generator=g, device=dev) * 0.5
+    slots = torch.tensor([3, 0, 5, 1, 6, 2, 4, 7], device=dev)
+    live_l = [1, 1, 1, 1, 1, 1, 0, 1]
+    live = torch.tensor(live_l, device=dev).bool()
+    extra = torch.zeros(B, V, device=dev)
+    allowed = {5: [17, V - 2], 2: [5, 1000, V // 2]}
+    for r, ids in allowed.items():
+        extra[r] = -1e9
+        extra[r, ids] = 0.0
+    results, timed = {}, None
+    for form in ("finish", "extra_bias", "both"):
+        eb = extra if form != "finish" else None
+        tok0, _, _ = ep.fused_sampling_epilogue_ref(
+            logits, gumbel, samp, counts.clone(), seen, bias, slots, live,
+            extra_bias=eb)
+        fin = (_finish_rows(torch, dev, tok0.tolist(), np.asarray(live_l, bool), V)
+               if form != "extra_bias" else None)
+        c_ker, c_ref = counts.clone(), counts.clone()
+        out = ep.fused_sampling_epilogue(
+            logits, gumbel, samp, c_ker, seen, bias, slots, live,
+            extra_bias=eb, finish=fin, max_model_len=EPILOGUE_MAX_LEN)
+        ref = ep.fused_sampling_epilogue_ref(
+            logits, gumbel, samp, c_ref, seen, bias, slots, live,
+            extra_bias=eb, finish=fin, max_model_len=EPILOGUE_MAX_LEN)
+        torch.cuda.synchronize()
+        if len(out) != len(ref):
+            raise AssertionError(f"epilogue {form}: {len(out)} outputs")
+        if out[0].tolist() != ref[0].tolist():
+            raise AssertionError(
+                f"epilogue {form}: tokens differ (kernel {out[0].tolist()}, "
+                f"plain {ref[0].tolist()})")
+        if not torch.equal(c_ker, c_ref):
+            raise AssertionError(f"epilogue {form}: committed counts differ")
+        dead = slots[~live]
+        if not torch.equal(c_ker[dead], counts[dead]):
+            raise AssertionError(f"epilogue {form}: a dead row committed a count")
+        lp_err = float((out[1] - ref[1]).abs().max())
+        if not lp_err <= EPILOGUE_LP_TOL:
+            raise AssertionError(f"epilogue {form}: logprob error {lp_err:.3g}")
+        rec = dict(tokens=out[0].tolist(), logprob_max_err=lp_err)
+        if eb is not None:
+            for r, ids in allowed.items():
+                if int(out[0][r]) not in ids:
+                    raise AssertionError(
+                        f"epilogue {form}: guided row {r} took {int(out[0][r])}")
+        if fin is not None:
+            for name, a, b in zip(("hard", "cand", "ring_new"), out[3:], ref[3:]):
+                if not torch.equal(a, b.to(a.dtype)):
+                    raise AssertionError(
+                        f"epilogue {form}: {name} differs (kernel {a.tolist()}, "
+                        f"plain {b.tolist()})")
+            if not torch.equal(out[5][~live], fin[5][~live]):
+                raise AssertionError(f"epilogue {form}: a dead row's ring moved")
+            rec.update(hard=out[3].tolist(), cand=out[4].tolist())
+            if form == "finish":
+                # the cases are what the docstring says they are
+                want_hard = [True, False, True, True, False, False, True, False]
+                want_cand = [True, False, True, True, True, False, True, False]
+                if rec["hard"] != want_hard or rec["cand"] != want_cand:
+                    raise AssertionError(
+                        f"epilogue finish: verdicts {rec['hard']} {rec['cand']}, "
+                        f"want {want_hard} {want_cand}")
+        results[form] = rec
+        if form == "both":
+            timed = (eb, fin)
+    eb, fin = timed
+    nocommit = torch.zeros(B, dtype=torch.bool, device=dev)  # state stays put
+    ms = cuda_ms(lambda: ep.fused_sampling_epilogue(
+        logits, gumbel, samp, counts, seen, bias, slots, nocommit,
+        extra_bias=eb, finish=fin, max_model_len=EPILOGUE_MAX_LEN))
+    plain_ms = cuda_ms(lambda: ep.fused_sampling_epilogue_ref(
+        logits, gumbel, samp, counts, seen, bias, slots, nocommit,
+        extra_bias=eb, finish=fin, max_model_len=EPILOGUE_MAX_LEN))
+    ms_plain_form = cuda_ms(lambda: ep.fused_sampling_epilogue(
+        logits, gumbel, samp, counts, seen, bias, slots, nocommit))
+    # bytes: the plain form's (logits bf16, the slot's bias, counts and seen
+    # rows, the sampled rows' gumbel rows) plus one more [B, V] f32 read for
+    # extra_bias and the finish rows in and out
+    sampled = sum(t > 0 for t in EPILOGUE_ROWS["temperature"])
+    fin_bytes = sum(t.numel() * t.element_size() for t in fin) + B * (1 + 1 + 32 * 4)
+    nbytes = (B * V * (2 + 4 + 4 + 1 + 4) + sampled * V * 4 + B * (8 + 4)
+              + fin_bytes)
+    flops = B * V * 31.0      # the plain form's ~30 per element and the add
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    bound, by = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
+    emit("kernels", kernel="sampling_epilogue_finish",
+         shape=dict(B=B, V=V, logits="bf16", rows=EPILOGUE_ROWS, live=live_l,
+                    guided_rows={str(k): v for k, v in allowed.items()},
+                    max_model_len=EPILOGUE_MAX_LEN),
+         cases=results, kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
+         plain_form_kernel_ms=ms_plain_form, bound_ms=bound, bound_by=by, ctas=B)
+    torch.cuda.synchronize()
+    return dict(name="fused_sampling_epilogue[finish+extra_bias]", route="cuda",
+                source="dynamo_tpu_torch/csrc/sampling_epilogue.cu",
+                replaces="dynamo_tpu/ops/pallas_epilogue.py:281",
+                max_abs_err=max(r["logprob_max_err"] for r in results.values()),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
 # ----------------------------------------------------------------- engine
 
 
@@ -697,7 +891,11 @@ def _spec_agreement(torch, runner, requests, base, spec):
     return parted
 
 
-async def _serve(engine, batch, new_tokens=None):
+async def _serve_reqs(engine, reqs):
+    """Serve ``reqs`` (dicts: ``prompt``, ``samp``, ``stop`` and optional
+    ``eos``) concurrently; returns per request its tokens, finish reason
+    and time to the first token. A scheduler loop that died (a check that
+    raised inside a dispatch) ends the wait with its exception."""
     from dynamo_tpu_torch.protocols.common import (
         PreprocessedRequest,
         SamplingOptions,
@@ -705,12 +903,11 @@ async def _serve(engine, batch, new_tokens=None):
     )
     from dynamo_tpu_torch.runtime.engine import Context
 
-    async def one(prompt, samp):
+    async def one(r):
         req = PreprocessedRequest(
-            token_ids=prompt,
-            stop_conditions=StopConditions(max_tokens=new_tokens or NEW_TOKENS,
-                                           ignore_eos=True),
-            sampling_options=SamplingOptions(**samp))
+            token_ids=r["prompt"], eos_token_ids=r.get("eos") or [],
+            stop_conditions=StopConditions(**r["stop"]),
+            sampling_options=SamplingOptions(**r["samp"]))
         t0 = time.monotonic()
         ttft, toks, reasons = None, [], []
         async for out in engine.generate(Context(req)):
@@ -720,7 +917,23 @@ async def _serve(engine, batch, new_tokens=None):
             reasons.append(out.get("finish_reason"))
         return dict(tokens=toks, finish=reasons[-1], ttft_s=ttft)
 
-    return await asyncio.gather(*(one(p, s) for p, s in batch))
+    serving = asyncio.ensure_future(asyncio.gather(*(one(r) for r in reqs)))
+    loop_task = engine.scheduler._task
+    await asyncio.wait({serving, loop_task}, return_when=asyncio.FIRST_COMPLETED)
+    if not serving.done():
+        serving.cancel()
+        raise RuntimeError("the scheduler loop ended while requests were "
+                           "in flight") from loop_task.exception()
+    return serving.result()
+
+
+async def _serve(engine, batch, new_tokens=None):
+    """``batch`` of (prompt, sampling kwargs), ``new_tokens`` each, eos
+    ignored."""
+    return await _serve_reqs(engine, [
+        dict(prompt=p, samp=s, stop=dict(max_tokens=new_tokens or NEW_TOKENS,
+                                         ignore_eos=True))
+        for p, s in batch])
 
 
 def _check_logits(torch, cfg, arch, mcfg, device, params, prompt_a, prompt_b):
@@ -980,6 +1193,229 @@ def engine_phase(torch, dev, smi):
                 paged_verify=launches_spec["paged_verify"])
 
 
+# the decode loop's phase: dispatch-ahead bursts of 4 steps; guided
+# requests choose among these token-id sequences (two share a prefix; each
+# is long enough to span more than one burst)
+CHAIN = dict(decode_pipeline_depth=2, multi_step_decode=4)
+GUIDED_CHOICES = [list(range(1001, 1011)),
+                  [1001, 1002, 2000, 2001, 2002, 2003, 2004],
+                  list(range(3000, 3009))]
+
+
+def _chain_prompts(rng):
+    return [[int(t) for t in rng.integers(0, FLAGSHIP["vocab_size"], n)]
+            for n in (180, 240, 90, 310, 150, 120)]
+
+
+def _chain_requests(prompts, probe):
+    """Greedy requests that end every way the device can end them, built
+    around ``probe`` (each prompt's unconstrained greedy stream). Token 0
+    of a stream comes from the prefill; with 4-step bursts the bursts hold
+    tokens 1-4, 5-8, 9-12, ..."""
+    greedy = dict(temperature=0.0)
+    guided = dict(temperature=0.0, guided_choice_token_ids=GUIDED_CHOICES)
+    # the first token id from position 5 on that the stream has not shown
+    # before (a random-weight model repeats itself): the device meets it
+    # inside a burst, not the prefill's host check
+    fresh = next((j for j in range(5, len(probe[0]))
+                  if probe[0][j] not in probe[0][:j]), 9)
+    return [
+        # a hidden stop id
+        dict(prompt=prompts[0], samp=greedy, stop=dict(
+            max_tokens=NEW_TOKENS, ignore_eos=True,
+            stop_token_ids_hidden=[probe[0][fresh]])),
+        # a stop string by its canonical token sequence (tokens 5..7)
+        dict(prompt=prompts[1], samp=greedy, stop=dict(
+            max_tokens=NEW_TOKENS, ignore_eos=True, stop=["x"],
+            stop_token_seqs=[probe[1][5:8]])),
+        # max_tokens on a burst boundary (9 = 1 + 2 bursts) and off it
+        dict(prompt=prompts[2], samp=greedy,
+             stop=dict(max_tokens=9, ignore_eos=True)),
+        dict(prompt=prompts[3], samp=greedy,
+             stop=dict(max_tokens=11, ignore_eos=True)),
+        # two guided requests sharing one choice list (one device table)
+        dict(prompt=prompts[4], samp=guided, eos=[2],
+             stop=dict(max_tokens=NEW_TOKENS)),
+        dict(prompt=prompts[5], samp=guided, eos=[2],
+             stop=dict(max_tokens=NEW_TOKENS)),
+    ]
+
+
+def _guard_dispatches(torch, runner, layers, k_steps, on_card=True,
+                      attention="paged_decode"):
+    """Wrap the runner's programs so that each runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside a
+    dispatch raises), and count, per burst, the epilogue's and the decode
+    kernel's launches: a burst must launch the epilogue once a step and
+    the decode kernel (``attention``: ``paged_decode``, or ``mla_decode``
+    on the MLA path) once a layer a step. Draining a burst (the event
+    wait, reading the pinned buffers) is outside the guard. ``on_card``
+    false (a rehearsal on the CPU, where no kernel launches) only counts
+    the calls."""
+    import importlib
+
+    from dynamo_tpu_torch.ops import epilogue
+
+    paged_decode = importlib.import_module(f"dynamo_tpu_torch.ops.{attention}")
+    stats = dict(decode_burst_chained=0, decode_burst=0, step=0,
+                 stage_to_host=0, chained_epilogue_launches=0, bad=[])
+
+    def guard(name, burst):
+        fn = getattr(runner, name)
+
+        def wrapped(*args, **kw):
+            if not on_card:
+                stats[name] += 1
+                return fn(*args, **kw)
+            prev = torch.cuda.get_sync_debug_mode()
+            e0, d0 = epilogue.launches, paged_decode.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+            stats[name] += 1
+            got = (epilogue.launches - e0, paged_decode.launches - d0)
+            if burst and got != (k_steps, k_steps * layers):
+                stats["bad"].append((name, got))
+            if name == "decode_burst_chained":
+                stats["chained_epilogue_launches"] += got[0]
+            return out
+
+        setattr(runner, name, wrapped)
+
+    guard("decode_burst_chained", True)
+    guard("decode_burst", True)
+    guard("step", False)
+    guard("stage_to_host", False)
+    return stats
+
+
+def engine_chain_phase(torch, dev, smi):
+    """The decode loop on Llama-3.2-1B at full width and depth, three
+    engines over the same weight tensors, all with 4-step bursts:
+    synchronous, dispatch-ahead (``device_finish="off"``) and chained.
+    Each serves wave 1 of the engine phase, then the finish requests
+    (``_chain_requests``). The numbers are printed before the checks."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+
+    layers, k_steps = FLAGSHIP["num_layers"], CHAIN["multi_step_decode"]
+    on_card = torch.device(dev).type == "cuda"
+
+    def config(**kw):
+        return EngineConfig(model=ModelConfig(**FLAGSHIP), seed=SEED,
+                            **dict(ENGINE, **kw))
+
+    rng = np.random.default_rng(SEED)
+    wave1, _ = _requests(rng)
+    prompts = _chain_prompts(rng)
+
+    async def run(kw, params=None, probe=None, guarded=False):
+        engine = await TorchServingEngine.create(config(**kw), params=params,
+                                                 device=dev)
+        stats = (_guard_dispatches(torch, engine.runner, layers, k_steps,
+                                   on_card)
+                 if guarded else None)
+        try:
+            if probe is None:
+                probed = await _serve(engine, [(p, dict(temperature=0.0))
+                                               for p in prompts])
+                probe = [r["tokens"] for r in probed]
+            _reset_launches()
+            t0 = time.monotonic()
+            res1 = await _serve(engine, wave1)
+            wall = time.monotonic() - t0
+            res2 = await _serve_reqs(engine, _chain_requests(prompts, probe))
+            launches = _read_launches()
+            out = dict(res1=res1, res2=res2, wall=wall, launches=launches,
+                       metrics=engine.metrics(), stats=stats, probe=probe,
+                       blocks_in_use=engine.scheduler.allocator.used,
+                       params=engine.runner.params)
+        finally:
+            await engine.close()
+        return out
+
+    sync = asyncio.run(run(dict(multi_step_decode=k_steps)))
+    params, probe = sync["params"], sync["probe"]
+    piped = asyncio.run(run(dict(CHAIN, device_finish="off"), params, probe, True))
+    chained = asyncio.run(run(dict(CHAIN), params, probe, True))
+    del params
+    runs = dict(synchronous=sync, pipelined=piped, chained=chained)
+    for r in runs.values():
+        del r["params"]
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def summary(r):
+        ttfts = sorted(x["ttft_s"] for x in r["res1"])
+        m = r["metrics"]
+        return dict(
+            wave1_wall_s=r["wall"],
+            wave1_output_tokens_per_s=len(r["res1"]) * NEW_TOKENS / r["wall"],
+            # from the moment every request of the wave had its first token
+            wave1_decode_wall_s=r["wall"] - ttfts[-1],
+            ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2],
+                        max=ttfts[-1]),
+            decode_steps=m["decode_steps"], pipeline_bursts=m["pipeline_bursts"],
+            chain_len_max=m["chain_len_max"], chain_len_last=m["chain_len_last"],
+            device_finished_rows=m["device_finished_rows"],
+            sync_fallback=m["sync_fallback"], launches=r["launches"],
+            dispatches=r["stats"], blocks_in_use=r["blocks_in_use"],
+            finish_requests=[dict(n=len(x["tokens"]), finish=x["finish"])
+                             for x in r["res2"]])
+
+    emit("engine_chain", model="Llama-3.2-1B shapes, seeded random bf16 weights",
+         config=dict(ENGINE, **CHAIN), requests=len(wave1) + 6,
+         new_tokens=NEW_TOKENS, guided_choices=GUIDED_CHOICES,
+         engines={name: summary(r) for name, r in runs.items()}, card=smi)
+
+    _check_streams(sync["res1"], NEW_TOKENS)
+    want = [(x["tokens"], x["finish"]) for x in sync["res1"] + sync["res2"]]
+    for name in ("pipelined", "chained"):
+        r = runs[name]
+        got = [(x["tokens"], x["finish"]) for x in r["res1"] + r["res2"]]
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if bad:
+            raise AssertionError(
+                f"{name} engine: requests {bad} stream differently from the "
+                f"synchronous engine ({[got[i] for i in bad]} vs "
+                f"{[want[i] for i in bad]})")
+        if r["stats"]["bad"]:
+            raise AssertionError(
+                f"{name} engine: a burst did not launch the epilogue once a "
+                f"step and the decode kernel once a layer a step: "
+                f"{r['stats']['bad'][:4]}")
+        if r["blocks_in_use"]:
+            raise AssertionError(f"{name} engine: {r['blocks_in_use']} KV "
+                                 "blocks still in use after the run")
+        if on_card:
+            _check_launches(name, r["launches"],
+                            ("paged_decode", "paged_flash", "epilogue"))
+    # the finish requests ended as they were built to
+    fin = sync["res2"]
+    if fin[0]["finish"] != "stop" or fin[0]["tokens"] != probe[0][
+            : probe[0].index(fin[0]["tokens"][-1]) + 1]:
+        raise AssertionError(f"hidden stop id: {fin[0]}")
+    if fin[1]["finish"] != "stop" or fin[1]["tokens"][-3:] != probe[1][5:8]:
+        raise AssertionError(f"stop sequence: {fin[1]}")
+    if [(len(x["tokens"]), x["finish"]) for x in fin[2:4]] != [
+            (9, "length"), (11, "length")]:
+        raise AssertionError(f"max_tokens: {fin[2:4]}")
+    for x in fin[4:]:
+        if x["finish"] != "stop" or x["tokens"] not in GUIDED_CHOICES:
+            raise AssertionError(f"guided choice: {x}")
+    if piped["stats"]["decode_burst"] < 2 or piped["metrics"]["pipeline_bursts"] < 2:
+        raise AssertionError("the dispatch-ahead engine dispatched no bursts")
+    m = chained["metrics"]
+    if chained["stats"]["decode_burst_chained"] < 2 or m["chain_len_max"] <= 1:
+        raise AssertionError(f"the chain never grew past one burst: {m}")
+    if m["device_finished_rows"] <= 0:
+        raise AssertionError("no row finished on the device")
+    return dict(
+        sampling_epilogue_finish=chained["stats"]["chained_epilogue_launches"])
+
+
 def _decode_step_profile(torch, runner, steps=5):
     """Host-clock time of inert single-token decode steps at the engine's
     batch (8 rows at the decode phase's contexts, every KV slot the drop
@@ -1056,7 +1492,10 @@ def engine_mla_phase(torch, dev, smi):
        width and 2 layers (the dense layer and the first MoE layer of the
        same weights) against the CPU in f32;
     2. ``multi_step_decode=4`` on the same weight tensors: every request of
-       wave 1, served again, must stream identically.
+       wave 1, served again, must stream identically;
+    3. the chained decode loop (``CHAIN``) on the same weight tensors, every
+       dispatch under the sync guard: wave 1 must stream identically once
+       more, with a chain longer than one burst and no block left in use.
 
     The numbers are printed before the checks run."""
     import dataclasses
@@ -1101,16 +1540,19 @@ def engine_mla_phase(torch, dev, smi):
         return (setup_s, res1, res2, wall1, launches, metrics, peak, step,
                 logits, params)
 
-    async def burst_path(params):
+    async def burst_path(params, guarded=False, **kw):
         engine = await TorchServingEngine.create(
-            config(multi_step_decode=4), params=params, device="cuda")
+            config(multi_step_decode=4, **kw), params=params, device="cuda")
+        stats = (_guard_dispatches(torch, engine.runner, layers, 4,
+                                   attention="mla_decode") if guarded else None)
         try:
             _reset_launches()
             t0 = time.monotonic()
             res = await _serve(engine, wave1)
             wall = time.monotonic() - t0
             launches = _read_launches()
-            metrics = engine.metrics()
+            metrics = dict(engine.metrics(), dispatches=stats,
+                           blocks_in_use=engine.scheduler.allocator.used)
         finally:
             await engine.close()
         return res, wall, launches, metrics
@@ -1119,6 +1561,9 @@ def engine_mla_phase(torch, dev, smi):
      params) = asyncio.run(main_path())
     torch.cuda.empty_cache()
     res_k4, wall_k4, launches_k4, metrics_k4 = asyncio.run(burst_path(params))
+    torch.cuda.empty_cache()
+    res_ch, wall_ch, launches_ch, metrics_ch = asyncio.run(
+        burst_path(params, guarded=True, decode_pipeline_depth=2))
     del params
     torch.cuda.empty_cache()
 
@@ -1144,6 +1589,15 @@ def engine_mla_phase(torch, dev, smi):
                     wave1_wall_s=wall_k4,
                     wave1_output_tokens_per_s=len(res_k4) * NEW_TOKENS / wall_k4,
                     decode_steps=metrics_k4["decode_steps"], launches=launches_k4),
+         chained=dict(k=4, streams_equal=sum(a["tokens"] == b["tokens"]
+                                             for a, b in zip(res1, res_ch)),
+                      wave1_wall_s=wall_ch,
+                      wave1_output_tokens_per_s=len(res_ch) * NEW_TOKENS / wall_ch,
+                      **{k: metrics_ch[k] for k in (
+                          "decode_steps", "pipeline_bursts", "chain_len_max",
+                          "device_finished_rows", "sync_fallback", "dispatches",
+                          "blocks_in_use")},
+                      launches=launches_ch),
          card=smi)
 
     _check_streams(res1 + res2, NEW_TOKENS, vocab)
@@ -1159,6 +1613,14 @@ def engine_mla_phase(torch, dev, smi):
                              "streams differently from the K=1 engine")
     _check_launches("mla main", launches, ("mla_decode", "epilogue"), layers)
     _check_launches("mla burst", launches_k4, ("mla_decode", "epilogue"), layers)
+    _check_streams(res_ch, NEW_TOKENS, vocab)
+    if [r["tokens"] for r in res_ch] != [r["tokens"] for r in res1]:
+        raise AssertionError("MLA: wave 1 on the chained engine streams "
+                             "differently from the K=1 engine")
+    _check_launches("mla chained", launches_ch, ("mla_decode", "epilogue"), layers)
+    if (metrics_ch["dispatches"]["bad"] or metrics_ch["chain_len_max"] <= 1
+            or metrics_ch["blocks_in_use"]):
+        raise AssertionError(f"MLA chained engine: {metrics_ch}")
     if launches["paged_decode"] or launches["paged_flash"] or launches["paged_verify"]:
         raise AssertionError(f"the MLA path launched a GQA attention kernel: {launches}")
     if metrics["gpu_prefix_cache_hit_rate"] <= 0:
@@ -1166,9 +1628,23 @@ def engine_mla_phase(torch, dev, smi):
     return dict(mla_decode=launches["mla_decode"])
 
 
-def main() -> int:
+PHASES = ("kernels", "engine", "engine_chain", "engine_mla")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma-separated subset of %(default)s to run while working on "
+             "one of them; the result line then says partial")
+    phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
+    unknown = [p for p in phases if p not in PHASES]
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1193,21 +1669,28 @@ def main() -> int:
                     or "spill" in ln] for n, log in _build.build_log.items()})
     torch.cuda.synchronize()
 
-    entries = kernel_phase(torch, dev)
-    torch.cuda.synchronize()
-    launches = engine_phase(torch, dev, smi)
-    torch.cuda.synchronize()
-    gc.collect()  # the Llama engines' weights and caches go first
-    torch.cuda.empty_cache()
-    launches.update(engine_mla_phase(torch, dev, smi))
-    torch.cuda.synchronize()
+    entries, launches = {}, {}
+    if "kernels" in phases:
+        entries = kernel_phase(torch, dev)
+        torch.cuda.synchronize()
+    for name, phase in (("engine", engine_phase),
+                        ("engine_chain", engine_chain_phase),
+                        ("engine_mla", engine_mla_phase)):
+        if name in phases:
+            launches.update(phase(torch, dev, smi))
+            torch.cuda.synchronize()
+            gc.collect()  # the phase's weights and caches go first
+            torch.cuda.empty_cache()
 
-    kernels = []
-    for key, entry in entries.items():
-        kernels.append(dict(entry, launches=launches[key]))
+    kernels = [dict(entry, launches=launches.get(key))
+               for key, entry in entries.items()]
+    partial = len(phases) < len(PHASES)
+    if not partial and any(k["launches"] is None for k in kernels):
+        raise AssertionError(f"a kernel has no launch count: {kernels}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
+    print(json.dumps({"ok": True, **({"partial": phases} if partial else {}),
+                      "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

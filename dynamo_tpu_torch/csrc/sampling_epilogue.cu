@@ -1,12 +1,15 @@
 // Fused sampling epilogue: the whole per-row decode tail in one launch.
 //
 // Replaces the TPU kernel dynamo_tpu/ops/pallas_epilogue.py
-// (fused_sampling_epilogue / _epilogue_kernel) in its plain form (no
-// finish verdict, no guided extra bias). Per batch row it computes what
-// the plain version (dynamo_tpu_torch/engine/sampling.py `sample`, then
-// the chosen logprob and the count commit) computes:
+// (fused_sampling_epilogue / _epilogue_kernel) in all its forms: the plain
+// tail, the guided `extra_bias` and the chained burst's `finish` verdict.
+// Per batch row it computes what the plain version
+// (dynamo_tpu_torch/ops/epilogue.py `fused_sampling_epilogue_ref`:
+// engine/sampling.py `sample`, then the chosen logprob, the count commit
+// and the finish helpers) computes:
 //
-//   x = logits + bias[slot]; repetition / frequency / presence penalties
+//   x = logits + (bias[slot] + extra_bias[row], when given);
+//   repetition / frequency / presence penalties
 //   against counts[slot] and seen[slot]; greedy = argmax (lowest index);
 //   scaled = penalized / max(T, 1e-6); top-k keeps every value >= the k-th
 //   largest; min-p drops p < min_p * max p of softmax(scaled); top-p keeps
@@ -15,6 +18,18 @@
 //   is < top_p; token = argmax(gumbel + kept) (lowest index), or greedy
 //   when T <= 0; logprob = log_softmax(x)[token]; with alias_counts,
 //   counts[slot, token] += commit.
+//
+//   With `finish` (the chained burst), thread 0 of the row's CTA goes on, in
+//   the same launch: gen_n = gen + commit; hard = (gen_n >= min_new and the
+//   token is one of the row's stop ids) or gen_n >= max_new or
+//   pos + 2 >= max_model_len; the row's ring of trailing tokens shifts left
+//   and takes the token when the row commits, else stays; the rolling
+//   suffix hashes h_L = h_{L-1} + (uint32(ring[W - L]) + 1) * P^(L-1) run in
+//   uint32 with wraparound (P = 1000003; a -1 pad hashes as 0), and cand =
+//   any watched sequence with 0 < len <= MAX_SUFFIX, gen_n >= len,
+//   gen_n >= min_new and h_len == its target hash. A few dozen integer
+//   operations per row: a tail of the CTA that owns the row, no second
+//   kernel.
 //
 // The value path uses the plain version's f32 operations one for one
 // (__fadd_rn / __fmul_rn / __fdiv_rn: no contraction into FMAs), so the
@@ -377,7 +392,59 @@ __device__ __forceinline__ unsigned long long fixed_mass(float p) {
   return __float2ull_rn(__fmul_rn(p, MASS_SCALE));
 }
 
-template <typename LogitT>
+constexpr uint32_t HASH_P = 1000003u;  // engine/sampling.py _HASH_P
+constexpr int MAX_SUFFIX = 8;          // engine/sampling.py STOP_SEQ_MAX_LEN
+
+// The chained burst's per-row finish inputs and outputs (all null-free
+// when `on`).
+struct Finish {
+  int on;
+  const int* gen;                // [B] generated count before this token
+  const int* pos;                // [B] position the step's forward ran at
+  const int* min_new;            // [B]
+  const int* max_new;            // [B]
+  const int* stop_ids;           // [B, n_ids], -1 padded
+  const int* ring;               // [B, ring_w] trailing tokens, -1 padded
+  const long long* stop_hash;    // [B, n_seqs] targets (low 32 bits)
+  const int* stop_hlen;          // [B, n_seqs] lengths (0 = unused)
+  uint8_t* hard;                 // [B] out
+  uint8_t* cand;                 // [B] out
+  int* ring_out;                 // [B, ring_w] out
+  int n_ids, ring_w, n_seqs, max_model_len;
+};
+
+// One row's finish verdict, run by one thread after the token is chosen.
+__device__ void finish_row(const Finish& f, int b, int nt, bool live) {
+  const int gen_n = f.gen[b] + (live ? 1 : 0);
+  const int mn = f.min_new[b];
+  bool hit = false;
+  for (int j = 0; j < f.n_ids; ++j) hit |= f.stop_ids[b * f.n_ids + j] == nt;
+  f.hard[b] = (gen_n >= mn && hit) || gen_n >= f.max_new[b] ||
+              f.pos[b] + 2 >= f.max_model_len;
+  const int w = f.ring_w;
+  const int* rin = f.ring + (size_t)b * w;
+  int* rout = f.ring_out + (size_t)b * w;
+  for (int j = 0; j < w; ++j)
+    rout[j] = live ? (j + 1 < w ? rin[j + 1] : nt) : rin[j];
+  uint32_t h[MAX_SUFFIX + 1];
+  uint32_t p_pow = 1u;
+  h[0] = 0u;
+  for (int l = 1; l <= MAX_SUFFIX; ++l) {
+    const uint32_t t = l <= w ? (uint32_t)rout[w - l] + 1u : 0u;
+    h[l] = h[l - 1] + t * p_pow;
+    p_pow *= HASH_P;
+  }
+  bool cand = false;
+  for (int j = 0; j < f.n_seqs; ++j) {
+    const int len = f.stop_hlen[b * f.n_seqs + j];
+    if (len > 0 && len <= MAX_SUFFIX && gen_n >= len && gen_n >= mn &&
+        h[len] == (uint32_t)f.stop_hash[b * f.n_seqs + j])
+      cand = true;
+  }
+  f.cand[b] = cand;
+}
+
+template <typename LogitT, bool EXTRA>
 __global__ void __launch_bounds__(NT) sampling_epilogue_kernel(
     const LogitT* __restrict__ logits,       // [B, V]
     const float* __restrict__ gumbel,        // [B, V]
@@ -391,17 +458,19 @@ __global__ void __launch_bounds__(NT) sampling_epilogue_kernel(
     int* __restrict__ counts,                // [NS, V]
     const uint8_t* __restrict__ seen,        // [NS, V]
     const float* __restrict__ bias,          // [NS, V]
+    const float* __restrict__ extra,         // [B, V] when EXTRA
     const long long* __restrict__ slots,     // [B]
     const uint8_t* __restrict__ commit,      // [B]
     float* __restrict__ scratch,             // [B, V]
     long long* __restrict__ tokens_out,      // [B]
     float* __restrict__ lps_out,             // [B]
-    int V, int alias_counts) {
+    int V, int alias_counts, Finish fin) {
   __shared__ Shared sm;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const size_t srow = (size_t)slots[b] * V;
   const LogitT* lrow = logits + (size_t)b * V;
+  const float* erow = EXTRA ? extra + (size_t)b * V : nullptr;
   float* xrow = scratch + (size_t)b * V;
   const float temp = temperature[b];
   const bool greedy_row = temp <= 0.f;
@@ -420,7 +489,9 @@ __global__ void __launch_bounds__(NT) sampling_epilogue_kernel(
     for (int e = 0; e < U1; ++e) {
       const int i = c0 + e * NT + tid;
       if (i < V) {
-        x[e] = __fadd_rn(to_float(lrow[i]), bias[srow + i]);
+        float rb = bias[srow + i];
+        if (EXTRA) rb = __fadd_rn(rb, erow[i]);
+        x[e] = __fadd_rn(to_float(lrow[i]), rb);
         c[e] = counts[srow + i];
         sn[e] = seen[srow + i];
       }
@@ -592,21 +663,25 @@ __global__ void __launch_bounds__(NT) sampling_epilogue_kernel(
   if (tid == 0) {
     if (nt == INT_MAX) nt = 0;  // an all-NaN row: torch would pick a NaN
     tokens_out[b] = nt;
-    const float xn = __fadd_rn(to_float(lrow[nt]), bias[srow + nt]);
+    float rb = bias[srow + nt];
+    if (EXTRA) rb = __fadd_rn(rb, erow[nt]);
+    const float xn = __fadd_rn(to_float(lrow[nt]), rb);
     lps_out[b] = __fsub_rn(__fsub_rn(xn, lm), logf(ls));
-    if (alias_counts && commit[b]) atomicAdd(&counts[srow + nt], 1);
+    const bool live = commit[b];
+    if (alias_counts && live) atomicAdd(&counts[srow + nt], 1);
+    if (fin.on) finish_row(fin, b, nt, live);
   }
 }
 
-template <typename LogitT>
+template <typename LogitT, bool EXTRA>
 int launch(const void* logits, const void* gumbel, const void* temperature,
            const void* top_k, const void* top_p, const void* min_p,
            const void* presence, const void* frequency,
            const void* repetition, void* counts, const void* seen,
-           const void* bias, const void* slots, const void* commit,
-           void* scratch, void* tokens, void* lps, int B, int V,
-           int alias_counts, cudaStream_t stream) {
-  sampling_epilogue_kernel<LogitT><<<dim3(B), dim3(NT), 0, stream>>>(
+           const void* bias, const void* extra, const void* slots,
+           const void* commit, void* scratch, void* tokens, void* lps, int B,
+           int V, int alias_counts, const Finish& fin, cudaStream_t stream) {
+  sampling_epilogue_kernel<LogitT, EXTRA><<<dim3(B), dim3(NT), 0, stream>>>(
       static_cast<const LogitT*>(logits), static_cast<const float*>(gumbel),
       static_cast<const float*>(temperature),
       static_cast<const long long*>(top_k), static_cast<const float*>(top_p),
@@ -614,10 +689,10 @@ int launch(const void* logits, const void* gumbel, const void* temperature,
       static_cast<const float*>(frequency),
       static_cast<const float*>(repetition), static_cast<int*>(counts),
       static_cast<const uint8_t*>(seen), static_cast<const float*>(bias),
-      static_cast<const long long*>(slots),
+      static_cast<const float*>(extra), static_cast<const long long*>(slots),
       static_cast<const uint8_t*>(commit), static_cast<float*>(scratch),
       static_cast<long long*>(tokens), static_cast<float*>(lps), V,
-      alias_counts);
+      alias_counts, fin);
   return (int)cudaGetLastError();
 }
 
@@ -627,23 +702,50 @@ int launch(const void* logits, const void* gumbel, const void* temperature,
 // has checked dtypes, shapes, devices and contiguity: logits [B, V] bf16
 // (logits_bf16 = 1) or f32; gumbel and scratch [B, V] f32; the seven
 // sampling parameters [B] (top_k int64, the rest f32); counts / seen /
-// bias [NS, V] int32 / bool / f32; slots [B] int64 in [0, NS), unique
-// when alias_counts; commit [B] bool; tokens [B] int64; lps [B] f32.
+// bias [NS, V] int32 / bool / f32; extra [B, V] f32 or null; slots [B]
+// int64 in [0, NS), unique when alias_counts; commit [B] bool; tokens [B]
+// int64; lps [B] f32. With with_finish = 1: gen / pos / min_new / max_new
+// [B] int32, stop_ids [B, n_ids] int32, ring and ring_out [B, ring_w]
+// int32, stop_hash [B, n_seqs] int64 (values in [0, 2^32)), stop_hlen
+// [B, n_seqs] int32, hard / cand [B] bool; with with_finish = 0 they are
+// not read.
 extern "C" int sampling_epilogue(
     const void* logits, int logits_bf16, const void* gumbel,
     const void* temperature, const void* top_k, const void* top_p,
     const void* min_p, const void* presence, const void* frequency,
     const void* repetition, void* counts, const void* seen, const void* bias,
-    const void* slots, const void* commit, void* scratch, void* tokens,
-    void* lps, int B, int V, int alias_counts, void* stream) {
+    const void* extra, const void* slots, const void* commit, void* scratch,
+    void* tokens, void* lps, int B, int V, int alias_counts, int with_finish,
+    const void* gen, const void* pos, const void* min_new,
+    const void* max_new, const void* stop_ids, const void* ring,
+    const void* stop_hash, const void* stop_hlen, void* hard, void* cand,
+    void* ring_out, int n_ids, int ring_w, int n_seqs, int max_model_len,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Finish fin;
+  fin.on = with_finish;
+  fin.gen = static_cast<const int*>(gen);
+  fin.pos = static_cast<const int*>(pos);
+  fin.min_new = static_cast<const int*>(min_new);
+  fin.max_new = static_cast<const int*>(max_new);
+  fin.stop_ids = static_cast<const int*>(stop_ids);
+  fin.ring = static_cast<const int*>(ring);
+  fin.stop_hash = static_cast<const long long*>(stop_hash);
+  fin.stop_hlen = static_cast<const int*>(stop_hlen);
+  fin.hard = static_cast<uint8_t*>(hard);
+  fin.cand = static_cast<uint8_t*>(cand);
+  fin.ring_out = static_cast<int*>(ring_out);
+  fin.n_ids = n_ids;
+  fin.ring_w = ring_w;
+  fin.n_seqs = n_seqs;
+  fin.max_model_len = max_model_len;
+#define EPILOGUE_LAUNCH(T, E)                                                 \
+  launch<T, E>(logits, gumbel, temperature, top_k, top_p, min_p, presence,    \
+               frequency, repetition, counts, seen, bias, extra, slots,       \
+               commit, scratch, tokens, lps, B, V, alias_counts, fin, s)
   if (logits_bf16)
-    return launch<__nv_bfloat16>(logits, gumbel, temperature, top_k, top_p,
-                                 min_p, presence, frequency, repetition,
-                                 counts, seen, bias, slots, commit, scratch,
-                                 tokens, lps, B, V, alias_counts, s);
-  return launch<float>(logits, gumbel, temperature, top_k, top_p, min_p,
-                       presence, frequency, repetition, counts, seen, bias,
-                       slots, commit, scratch, tokens, lps, B, V,
-                       alias_counts, s);
+    return extra ? EPILOGUE_LAUNCH(__nv_bfloat16, true)
+                 : EPILOGUE_LAUNCH(__nv_bfloat16, false);
+  return extra ? EPILOGUE_LAUNCH(float, true) : EPILOGUE_LAUNCH(float, false);
+#undef EPILOGUE_LAUNCH
 }

@@ -1,7 +1,7 @@
 """Paged KV block allocator with prefix-cache reuse and LRU eviction.
 
 The port's copy of ``dynamo_tpu/engine/block_allocator.py``, reduced to
-what the synchronous serving path uses: no host-RAM offload tier, no
+what the serving path uses: no host-RAM offload tier, no
 pins/fences, no retention priorities and no KV event hooks (later slices).
 Semantics follow the reference's block manager (SURVEY.md §2.2,
 reference: lib/llm/src/kv/{manager,reuse,reserved}.rs) over the engine's
@@ -125,6 +125,22 @@ class BlockAllocator:
             return  # identical content already cached under another block
         self.by_hash[sequence_hash] = bid
         self.block_hash[bid] = sequence_hash
+
+    def rollback_tail(self, block_ids: List[int], keep: int) -> List[int]:
+        """Release the over-allocated tail of a sequence's block list.
+
+        The dispatch-ahead decode loop reserves block headroom before
+        every dispatch; a finish detected one burst late leaves the row
+        holding blocks whose only contents are over-decoded positions the
+        host never committed. Those tail blocks are anonymous
+        (registration only ever covers positions below the host
+        ``context_len``), so releasing them returns them straight to the
+        free list. Returns the retained prefix."""
+        keep = max(0, keep)
+        tail = block_ids[keep:]
+        if tail:
+            self.free_blocks(tail)
+        return block_ids[:keep]
 
     def free_blocks(self, block_ids: List[int]) -> None:
         """Release a sequence's references. Hashed blocks become reusable

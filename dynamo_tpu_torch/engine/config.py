@@ -575,19 +575,25 @@ class EngineConfig:
                 )
 
     def _reject_unported(self) -> None:
-        """Refuse the features this slice of the port does not serve.
+        """Refuse the features the port does not serve yet.
 
-        The port runs the reference's synchronous serving path: per-token
-        decode steps or K-step bursts, ngram speculative decoding, no
-        dispatch-ahead pipeline, one device, bf16/f32 KV, no draft model,
-        no remote or pulled prefill. Each refusal names the knob so a
+        Served: per-token decode steps and K-step bursts
+        (``multi_step_decode``), ngram speculative decoding on the
+        synchronous path, the dispatch-ahead pipeline
+        (``decode_pipeline_depth=2``) and the chained device-finish loop
+        on top of it (``device_finish``, with ``guided_device_table``,
+        ``guided_table_max_states`` and ``device_stop_strings`` as live
+        knobs), on one device with bf16 / f32 KV. Not served: the chained
+        propose-verify round (so the pipeline together with speculation),
+        draft models, sequence-parallel prefill, several devices, KV
+        tiers and pulls, quantization. Each refusal names the knob so a
         reference config that uses it fails loudly instead of serving
         something else."""
         unported = []
-        if self.decode_pipeline_depth >= 2 or self.device_finish == "on":
+        if self.decode_pipeline_depth >= 2 and self.spec_ngram_tokens > 0:
             unported.append(
-                "decode_pipeline_depth >= 2 / device_finish (pipelined "
-                "and chained decode)")
+                "decode_pipeline_depth >= 2 with spec_ngram_tokens > 0 (the "
+                "chained propose-verify round)")
         if self.spec_draft_model:
             unported.append("spec_draft_model (draft-model speculation)")
         if self.sp_size > 1 or self.long_prefill_threshold_tokens:

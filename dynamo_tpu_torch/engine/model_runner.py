@@ -1,19 +1,24 @@
 """The model runner: params, paged KV cache and sampling state on one
 device, and the programs the scheduler drives.
 
-The port of ``dynamo_tpu/engine/model_runner.py`` for the reference's
-synchronous serving path: one ``step`` (bucketed prefill, per-token decode
-and the speculative verify's S = K + 1 positions alike) and ``decode_burst``
-(K single-token steps with no host read of sampled tokens between them),
-each ending in the sampling tail — the fused epilogue kernel on a card
-(``fused_epilogue`` "auto" or "on"), the unfused PyTorch tail otherwise.
-The model family's module comes from ``models.resolve`` (Llama-family
-GQA, or DeepSeek MLA with routed experts), as in the reference.
-PyTorch runs eagerly, so there is no compiled-program cache; the KV cache
-and the sample state are updated in place. Not in this slice (later work):
-chained and pipelined decode (the device-finish burst), draft-model
-speculation, sequence-parallel prefill, embeddings, block gather/scatter
-for offload or migration, CUDA graphs and compile tracking.
+The port of ``dynamo_tpu/engine/model_runner.py``: one ``step`` (bucketed
+prefill, per-token decode and the speculative verify's S = K + 1 positions
+alike), ``decode_burst`` (K single-token steps with no host read of
+sampled tokens between them; its first tokens may be a device tensor, the
+dispatch-ahead carry) and ``decode_burst_chained`` (the same K steps with
+device-resident finish detection: finished rows freeze on the device and
+the carry feeds the next burst without a host round trip), each ending in
+the sampling tail — the fused epilogue kernel on a card (``fused_epilogue``
+"auto" or "on"), the unfused PyTorch tail otherwise. No program reads a
+device value on the host or blocks the host on the device: host arrays
+travel through pinned memory (``ops/transfer.py``), and ``stage_to_host``
+starts a burst's outputs on their way back. The model family's module
+comes from ``models.resolve`` (Llama-family GQA, or DeepSeek MLA with
+routed experts), as in the reference. PyTorch runs eagerly, so there is no
+compiled-program cache; the KV cache and the sample state are updated in
+place. Not in this slice (later work): the chained propose-verify round,
+draft-model speculation, sequence-parallel prefill, embeddings, block
+gather/scatter for offload or migration, CUDA graphs and compile tracking.
 """
 
 from __future__ import annotations
@@ -27,11 +32,18 @@ import torch
 from ..models import llama, resolve
 from ..ops.attention import check_attention_impl
 from ..ops.epilogue import fused_sampling_epilogue
+from ..ops.transfer import to_device, to_device_packed
 from .config import EngineConfig
 from .sampling import (
+    STOP_ID_WIDTH,
+    STOP_SEQ_WIDTH,
+    SUFFIX_RING_W,
     SamplingParams,
+    device_finish_mask,
     gumbel_noise,
+    ring_push,
     sample,
+    stop_candidate_mask,
     top_k_width,
     top_logprobs_for,
 )
@@ -64,15 +76,26 @@ def resolve_fused_epilogue(mode: str, device) -> bool:
 
 def sample_and_logprobs(cfg, last_logits, samp: SamplingParams, gumbel,
                         counts, seen, bias, sample_slots, commit, want_top,
-                        fused: bool = False, unique_slots: bool = True):
+                        fused: bool = False, unique_slots: bool = True,
+                        extra_bias=None, finish=None, max_model_len: int = 0):
     """The per-token tail shared by ``step`` and every burst iteration
     (the reference's ``_sample_and_logprobs``): penalty-aware sampling,
     the sampled token's logprob from the biased (unpenalized) logits, the
     optional top-K alternatives, and the count commit for rows whose
     sample is kept.
 
-    ``fused=True`` runs the sampling epilogue (``ops/epilogue.py``); the
-    top-K alternatives stay a ``torch.topk`` outside it.
+    ``extra_bias`` is an additive [B, V] term computed in the step (the
+    chained burst's guided mask from the device table); the synchronous
+    path expresses the same mask through the persistent ``bias`` rows, so
+    the two paths' logits and logprobs agree. ``finish`` (the chained
+    burst's carry rows ``(gen, pos, min_new, max_new, stop_ids, ring,
+    stop_hash, stop_hlen)``) appends the step's ``(hard, cand, ring_new)``
+    verdicts to the return.
+
+    ``fused=True`` runs the sampling epilogue (``ops/epilogue.py``), the
+    verdicts inside the same launch; the top-K alternatives stay a
+    ``torch.topk`` outside it. Unfused, the verdicts are composed from
+    ``ring_push``, ``device_finish_mask`` and ``stop_candidate_mask``.
     ``unique_slots=False`` marks call sites whose pad rows may share a
     live row's sample slot (the batched prefill step): the count commit
     then stays a scatter-add outside the kernel. Unfused, ``counts`` is
@@ -81,28 +104,75 @@ def sample_and_logprobs(cfg, last_logits, samp: SamplingParams, gumbel,
     count."""
     b = last_logits.shape[0]
     logp = None
+    verdicts = ()
     if fused:
-        next_tokens, lps, _ = fused_sampling_epilogue(
+        next_tokens, lps, _, *verdicts = fused_sampling_epilogue(
             last_logits, gumbel, samp, counts, seen, bias, sample_slots,
-            commit, alias_counts=unique_slots)
+            commit, alias_counts=unique_slots, extra_bias=extra_bias,
+            finish=finish, max_model_len=max_model_len)
     else:
         row_bias = bias[sample_slots]
+        if extra_bias is not None:
+            row_bias = row_bias + extra_bias
         next_tokens = sample(last_logits, samp, gumbel, counts[sample_slots],
                              seen[sample_slots], bias=row_bias)
         logp = torch.log_softmax(last_logits.float() + row_bias, dim=-1)
         lps = torch.gather(logp, 1, next_tokens[:, None])[:, 0]
         counts.index_put_((sample_slots, next_tokens), commit.to(counts.dtype),
                           accumulate=True)
+        if finish is not None:
+            gen, pos, min_new, max_new, stop_ids, ring, stop_hash, stop_hlen = finish
+            gen_n = gen + commit.to(gen.dtype)
+            ring_n = ring_push(ring, next_tokens, commit)
+            verdicts = (
+                device_finish_mask(next_tokens, gen_n, pos, stop_ids, min_new,
+                                   max_new, max_model_len),
+                stop_candidate_mask(ring_n, gen_n, min_new, stop_hash, stop_hlen),
+                ring_n)
     if want_top:
         if logp is None:
-            logp = torch.log_softmax(
-                last_logits.float() + bias[sample_slots], dim=-1)
+            row_bias = bias[sample_slots]
+            if extra_bias is not None:
+                row_bias = row_bias + extra_bias
+            logp = torch.log_softmax(last_logits.float() + row_bias, dim=-1)
         top_vals, top_ids = top_logprobs_for(last_logits, logp)
     else:
         kw = top_k_width(cfg.vocab_size)
         top_vals = torch.zeros((b, kw), dtype=torch.float32, device=lps.device)
         top_ids = torch.zeros((b, kw), dtype=torch.int64, device=lps.device)
-    return next_tokens, lps, top_vals, top_ids
+    return (next_tokens, lps, top_vals, top_ids) + tuple(verdicts)
+
+
+class HostCopy:
+    """A dispatched program's outputs on their way to the host.
+
+    On a card, ``non_blocking`` copies into pinned host buffers are
+    enqueued right behind the program on its stream and an event is
+    recorded after them: ``ready()`` probes the event and ``numpy()``
+    waits for it, never for work dispatched later (a ``.cpu()`` call would
+    queue behind every burst dispatched since, which would make a
+    dispatch-ahead loop serial in fact). On the CPU the tensors are ready
+    at once."""
+
+    def __init__(self, tensors):
+        self._event = None
+        if tensors[0].device.type == "cuda":
+            self._host = [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True) for t in tensors]
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def numpy(self):
+        """The outputs as numpy arrays; blocks until the copies landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return [t.numpy() for t in self._host]
 
 
 class ModelRunner:
@@ -139,7 +209,18 @@ class ModelRunner:
         )
 
     def _t(self, x, dtype=torch.int64) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+        """Host array (or a tensor already on the device) → device tensor,
+        without blocking the host on the device."""
+        return to_device(x, self.device, dtype)
+
+    def _tp(self, **specs):
+        """Several host arrays → device tensors in one transfer
+        (``name=(array, dtype)``; see ``to_device_packed``)."""
+        return to_device_packed(self.device, **specs)
+
+    def stage_to_host(self, *tensors: torch.Tensor) -> HostCopy:
+        """Start a dispatched program's outputs on their way to the host."""
+        return HostCopy(tensors)
 
     def _check_slots(self, sample_slots: np.ndarray) -> None:
         n = self.config.max_batch_size
@@ -198,10 +279,17 @@ class ModelRunner:
         gumbel = gumbel_noise(seed_keys, counters, cfg.vocab_size, self.device,
                               rows=np.nonzero(temperature > 0.0)[0])
 
+        i64, i32 = torch.int64, torch.int32
+        d = self._tp(
+            tokens=(tokens, i64), positions=(positions, i64),
+            block_tables=(block_tables, i32), slot_mapping=(slot_mapping, i64),
+            context_lens=(context_lens, i32), last_idx=(last_idx, i64),
+            sample_slots=(sample_slots, i64), commit=(commit, torch.bool),
+            targets=(targets if want_prompt and targets is not None
+                     else np.zeros((1, 1), np.int64), i64))
         hidden, self.kv_cache = self.arch.forward(
-            self.params, cfg, self._t(tokens), self._t(positions),
-            self.kv_cache, self._t(block_tables, torch.int32),
-            self._t(slot_mapping), self._t(context_lens, torch.int32),
+            self.params, cfg, d["tokens"], d["positions"], self.kv_cache,
+            d["block_tables"], d["slot_mapping"], d["context_lens"],
             return_hidden=True,
         )
         # the full-S [B, S, V] head runs only when a consumer needs every
@@ -211,26 +299,28 @@ class ModelRunner:
         if want_prompt or want_greedy:
             lg = self.arch.lm_logits(hidden, self.params, cfg)
             if want_prompt:
-                tg = self._t(targets if targets is not None else np.zeros_like(tokens))
+                tg = (d["targets"] if targets is not None
+                      else torch.zeros_like(d["tokens"]))
                 prompt_lps = torch.gather(
                     torch.log_softmax(lg.float(), dim=-1), 2, tg[..., None])[..., 0]
             greedy_all = torch.argmax(lg, dim=-1)
         rows = torch.arange(b, device=self.device)
         last_logits = self.arch.lm_logits(
-            hidden[rows, self._t(last_idx)], self.params, cfg)   # [B, V]
+            hidden[rows, d["last_idx"]], self.params, cfg)   # [B, V]
         counts, seen, bias = self.sample_state
         # pad rows of a batched prefill share slot 0: the commit stays a
         # scatter-add outside the epilogue kernel
         next_tokens, lps, top_vals, top_ids = sample_and_logprobs(
             cfg, last_logits, samp, gumbel, counts, seen, bias,
-            self._t(sample_slots), self._t(commit, torch.bool), want_top,
+            d["sample_slots"], d["commit"], want_top,
             fused=self.fused_epilogue, unique_slots=False)
         return next_tokens, lps, top_vals, top_ids, prompt_lps, greedy_all
 
     @torch.inference_mode()
     def decode_burst(
         self,
-        tokens0: np.ndarray,       # [B] pending token per row
+        tokens0,                   # [B] pending token per row: host array,
+                                   # or a device tensor (dispatch-ahead carry)
         positions0: np.ndarray,    # [B] its position
         block_tables: np.ndarray,  # [B, W] covering positions0 + K
         temperature: np.ndarray,
@@ -258,18 +348,18 @@ class ModelRunner:
         cfg = self.config.model
         k_steps = self.config.multi_step_decode
         bs = self.config.kv_block_size
-        b = len(tokens0)
+        b = len(positions0)
         temperature = np.asarray(temperature, np.float32)
         samp = SamplingParams.from_host(
             self.device, temperature, top_k, top_p, min_p, presence_penalty,
             frequency_penalty, repetition_penalty)
-        sampled_rows = np.nonzero(temperature > 0.0)[0]
+        # rows that do not commit never read their noise
+        sampled_rows = np.nonzero((temperature > 0.0) & np.asarray(commit, bool))[0]
         counters = np.asarray(counters, np.int64)
-        bt = self._t(block_tables, torch.int32)
-        live = self._t(commit, torch.bool)
+        d = self._tp(bt=(block_tables, torch.int32), live=(commit, torch.bool),
+                     toks=(tokens0, torch.int64), pos=(positions0, torch.int64))
+        bt, live, toks, pos = d["bt"], d["live"], d["toks"], d["pos"]
         slots = torch.arange(b, device=self.device)
-        toks = self._t(tokens0)
-        pos = self._t(positions0)
         counts, seen, bias = self.sample_state
         outs = []
         for step_i in range(k_steps):
@@ -291,12 +381,154 @@ class ModelRunner:
             toks, pos = out[0], pos + 1
         return tuple(torch.stack(parts) for parts in zip(*outs))
 
+    # guided device tables pad their state dim to this ladder, as the
+    # reference does (there each bucket is one compiled burst program)
+    GUIDED_STATE_BUCKETS = (1, 64, 256, 1024)
+
+    def guided_state_bucket(self, n_states: int) -> int:
+        for s in self.GUIDED_STATE_BUCKETS:
+            if n_states <= s:
+                return s
+        return self.GUIDED_STATE_BUCKETS[-1]
+
+    @torch.inference_mode()
+    def decode_burst_chained(
+        self,
+        tokens0,                   # [B] host array (chain start) or device carry
+        positions0,                # [B] likewise
+        gen0,                      # [B] generated-token counts, likewise
+        done0,                     # [B] bool done mask, likewise
+        block_tables: np.ndarray,  # [B, W]
+        temperature: np.ndarray,
+        top_k: np.ndarray,
+        top_p: np.ndarray,
+        *,
+        min_p: np.ndarray,
+        presence_penalty: np.ndarray,
+        frequency_penalty: np.ndarray,
+        repetition_penalty: np.ndarray,
+        seed_keys: np.ndarray,
+        counters: np.ndarray,      # [B] i32 noise counters of the first step
+        commit: np.ndarray,        # [B] row is a (live) chain member
+        stop_ids: np.ndarray,      # [B, STOP_ID_WIDTH] -1-padded stop set
+        min_new: np.ndarray,       # [B] i32
+        max_new: np.ndarray,       # [B] i32
+        ring0=None,                # [B, SUFFIX_RING_W] trailing tokens
+        gstate0=None,              # [B] guided table state (-1 unguided)
+        stop_hash=None,            # [B, STOP_SEQ_WIDTH] uint32 targets
+        stop_hlen=None,            # [B, STOP_SEQ_WIDTH] i32 lengths
+        gtable=None,               # [S, V] device table (None: no guided row)
+        want_top: bool = False,
+    ):
+        """One K-step burst with device-resident finish detection (the
+        reference's ``burst_df``).
+
+        Each step's finish verdict (eos / hidden stop id / ``max_new`` /
+        the model-len horizon, the stop-sequence suffix hash, the guided
+        table reaching DONE) is computed on the device. A row that
+        finishes FREEZES: its KV slot goes to -1 (no writes), its count
+        commit, ring and position stop, and its output lane emits ``-1`` /
+        ``0.0`` pads. The burst never ends early and reads no device value
+        on the host, so the scheduler chains dispatches off the returned
+        carry. Guided rows (``gstate >= 0``) take their mask from
+        ``gtable[gstate]`` through the tail's ``extra_bias`` and advance
+        their state on the sampled token.
+
+        ``counters`` replaces the reference's in-scan fold-in counter (the
+        carried ``gen``): a row that has not frozen has ``gen = counters +
+        step`` when the scheduler passes the chain-start count plus K per
+        dispatch, and a frozen row's draw is never read.
+
+        Returns ``(toks, lps, tvs, tis, carry)`` with [K, B]-leading
+        output tensors and ``carry`` the next dispatch's device-resident
+        ``(tokens, positions, gen, done, ring, gstate)``."""
+        cfg = self.config.model
+        k_steps = max(1, self.config.multi_step_decode)
+        bs = self.config.kv_block_size
+        max_len = self.config.max_model_len
+        b = block_tables.shape[0]
+        i32 = torch.int32
+        temperature = np.asarray(temperature, np.float32)
+        samp = SamplingParams.from_host(
+            self.device, temperature, top_k, top_p, min_p, presence_penalty,
+            frequency_penalty, repetition_penalty)
+        sampled_rows = np.nonzero((temperature > 0.0) & np.asarray(commit, bool))[0]
+        counters = np.asarray(counters, np.int64)
+        if ring0 is None:
+            ring0 = np.full((b, SUFFIX_RING_W), -1, np.int32)
+        if gstate0 is None:
+            gstate0 = np.full(b, -1, np.int32)
+        if stop_hash is None:
+            stop_hash = np.zeros((b, STOP_SEQ_WIDTH), np.uint32)
+        if stop_hlen is None:
+            stop_hlen = np.zeros((b, STOP_SEQ_WIDTH), np.int32)
+        i64 = torch.int64
+        d = self._tp(
+            bt=(block_tables, i32), member=(commit, torch.bool),
+            sids=(stop_ids, i32), mn=(min_new, i32), mx=(max_new, i32),
+            sh=(stop_hash, i64), sl=(stop_hlen, i32),
+            toks=(tokens0, i64), pos=(positions0, i64), gen=(gen0, i32),
+            done=(done0, torch.bool), ring=(ring0, i32), gstate=(gstate0, i64))
+        bt, member, sids, mn, mx, sh, sl = (
+            d[k] for k in ("bt", "member", "sids", "mn", "mx", "sh", "sl"))
+        toks, pos, gen, done, ring, gstate = (
+            d[k] for k in ("toks", "pos", "gen", "done", "ring", "gstate"))
+        slots = torch.arange(b, device=self.device)
+        counts, seen, bias = self.sample_state
+        outs = []
+        for step_i in range(k_steps):
+            live = member & ~done
+            blk = bt[slots, (pos // bs).clamp(max=bt.shape[1] - 1)]
+            slot = torch.where(live, blk.long() * bs + pos % bs, -1)
+            gumbel = gumbel_noise(seed_keys, counters + step_i, cfg.vocab_size,
+                                  self.device, rows=sampled_rows)
+            hidden, self.kv_cache = self.arch.forward(
+                self.params, cfg, toks[:, None], pos[:, None], self.kv_cache,
+                bt, slot[:, None], (pos + 1).int(), return_hidden=True)
+            logits = self.arch.lm_logits(hidden[:, 0], self.params, cfg)
+            gmask = None
+            if gtable is not None:
+                guided = gstate >= 0
+                sel = torch.where(guided, gstate, 0)
+                gmask = torch.where(guided[:, None] & (gtable[sel] < 0),
+                                    -1e9, 0.0).float()
+            nt, lp, tv, ti, hard, cand, ring = sample_and_logprobs(
+                cfg, logits, samp, gumbel, counts, seen, bias, slots, live,
+                want_top, fused=self.fused_epilogue, unique_slots=True,
+                extra_bias=gmask,
+                finish=(gen, pos.int(), mn, mx, sids, ring, sh, sl),
+                max_model_len=max_len)
+            gen = gen + live.to(i32)
+            newly = hard | cand
+            if gtable is not None:
+                # grammar advance on the sampled token: DONE (state 0)
+                # completes the constraint; a reject (< 0) is unreachable
+                # through the mask but freezes defensively. A hard finish
+                # wins, as the host checks finish before the guided advance
+                gnext = gtable[sel, nt].long()
+                newly = newly | (guided & ~hard & (gnext <= 0))
+            newly = live & newly
+            done = done | newly
+            # the finishing token still emits; later steps of a frozen row
+            # emit -1 pads
+            outs.append((torch.where(live, nt, -1), torch.where(live, lp, 0.0),
+                         tv, ti))
+            adv = live & ~newly
+            toks = torch.where(adv, nt, toks)
+            pos = torch.where(adv, pos + 1, pos)
+            if gtable is not None:
+                gstate = torch.where(adv & guided, gnext, gstate)
+        toks_o, lps_o, tvs, tis = (torch.stack(parts) for parts in zip(*outs))
+        return toks_o, lps_o, tvs, tis, (toks, pos, gen, done, ring, gstate)
+
     @torch.inference_mode()
     def set_sample_row(self, slot: int, prompt_ids, generated_ids=(),
-                       logit_bias=None) -> None:
+                       logit_bias=None, guided_mask=None) -> None:
         """Install sampling state for a slot at admission: prompt presence,
         generated-token counts (non-empty when resuming a preempted
-        stream) and the request's OpenAI logit_bias row."""
+        stream) and the request's OpenAI logit_bias row — plus, for guided
+        decoding, the initial token mask (``guided_mask``: dense [V] f32
+        the logit_bias entries add onto)."""
         v = self.config.model.vocab_size
         seen_row = np.zeros(v, bool)
         if len(prompt_ids):
@@ -306,28 +538,45 @@ class ModelRunner:
         if len(generated_ids):
             gids = np.asarray(generated_ids, np.int64)
             np.add.at(counts_row, gids[(gids >= 0) & (gids < v)], 1)
-        bias_row = np.zeros(v, np.float32)
+        bias_row = (np.asarray(guided_mask, np.float32).copy()
+                    if guided_mask is not None else np.zeros(v, np.float32))
         for tid, val in (logit_bias or {}).items():
             tid = int(tid)
             if 0 <= tid < v:
                 bias_row[tid] += float(val)
         counts, seen, bias = self.sample_state
-        counts[slot].copy_(torch.from_numpy(counts_row))
-        seen[slot].copy_(torch.from_numpy(seen_row))
-        bias[slot].copy_(torch.from_numpy(bias_row))
+        counts[slot].copy_(self._t(counts_row, torch.int32))
+        seen[slot].copy_(self._t(seen_row, torch.bool))
+        bias[slot].copy_(self._t(bias_row, torch.float32))
 
     @torch.inference_mode()
     def set_bias_row(self, slot: int, bias_row: np.ndarray) -> None:
-        """Replace ONE slot's sampler bias row."""
+        """Replace ONE slot's sampler bias row (guided decoding's token
+        mask; it also carries the request's logit_bias)."""
         self.sample_state[2][slot].copy_(
-            torch.as_tensor(np.asarray(bias_row, np.float32)))
+            self._t(np.asarray(bias_row, np.float32), torch.float32))
+
+    @torch.inference_mode()
+    def edit_bias_entries(self, slot: int, ids, vals) -> bool:
+        """Sparse update of ONE slot's bias row: ``row[ids] = vals``. A
+        guided mask changes only around a trie node (a handful of ids),
+        not across the vocabulary. Always applies (the reference returns
+        False past its largest compiled edit bucket; eager PyTorch has no
+        bucket)."""
+        if len(ids):
+            self.sample_state[2][slot].index_copy_(
+                0, self._t(np.asarray(ids, np.int64)),
+                self._t(np.asarray(vals, np.float32), torch.float32))
+        return True
 
     def warmup(self, decode_batch: Optional[int] = None) -> None:
         """Build the kernels (on a card) and run one inert step per prefill
         bucket, one decode step, one verify-shaped step (S = the ngram
-        proposal count + 1, or 2) and, with ``multi_step_decode > 1``, one
-        burst, so no first request pays for a kernel build or a
-        first-launch cost. Inert: every slot is the drop sentinel and
+        proposal count + 1, or 2), with ``multi_step_decode > 1`` or a
+        dispatch-ahead pipeline one burst, and with device finish one
+        chained burst (with a one-state guided table, so both forms of the
+        epilogue have launched), so no first request pays for a kernel
+        build or a first-launch cost. Inert: every slot is the drop sentinel and
         nothing commits, so the cache and the sample state keep their
         values."""
         if self.device.type == "cuda":
@@ -347,14 +596,25 @@ class ModelRunner:
                       np.zeros(rows, np.int32), np.zeros(rows, np.float32),
                       np.zeros(rows, np.int32), np.ones(rows, np.float32),
                       want_top=False, want_greedy=verify)
-        if self.config.multi_step_decode > 1:
-            zf, zi = np.zeros(b, np.float32), np.zeros(b, np.int32)
-            self.decode_burst(
-                zi, zi, np.zeros((b, w), np.int32), zf, zi, np.ones(b, np.float32),
-                min_p=zf, presence_penalty=zf, frequency_penalty=zf,
-                repetition_penalty=np.ones(b, np.float32),
-                seed_keys=np.zeros((b, 2), np.uint32), counters=zi,
-                commit=np.zeros(b, bool))
+        zf, zi = np.zeros(b, np.float32), np.zeros(b, np.int32)
+        inert = dict(
+            min_p=zf, presence_penalty=zf, frequency_penalty=zf,
+            repetition_penalty=np.ones(b, np.float32),
+            seed_keys=np.zeros((b, 2), np.uint32), counters=zi,
+            commit=np.zeros(b, bool))
+        pipelined = self.config.decode_pipeline_depth >= 2
+        if self.config.multi_step_decode > 1 or pipelined:
+            self.decode_burst(zi, zi, np.zeros((b, w), np.int32), zf, zi,
+                              np.ones(b, np.float32), **inert)
+        if pipelined and self.config.device_finish_enabled:
+            gtable = torch.full((1, self.config.model.vocab_size), -1,
+                                dtype=torch.int32, device=self.device)
+            for table in (None, gtable):
+                self.decode_burst_chained(
+                    zi, zi, zi, np.zeros(b, bool), np.zeros((b, w), np.int32),
+                    zf, zi, np.ones(b, np.float32),
+                    stop_ids=np.full((b, STOP_ID_WIDTH), -1, np.int32),
+                    min_new=zi, max_new=zi, gtable=table, **inert)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -1,7 +1,9 @@
 """Batched sampling: greedy / temperature / top-k / top-p / min-p plus
 presence, frequency and repetition penalties — all per slot.
 
-The port of ``dynamo_tpu/engine/sampling.py`` (the unfused sampling tail).
+The port of ``dynamo_tpu/engine/sampling.py``: the unfused sampling tail
+and the device-finish helpers of the chained decode burst (stop-id rows,
+the finish mask, the suffix ring and its rolling stop-sequence hashes).
 All parameters are per-row tensors, so one call serves every sampling
 configuration in the batch; temperature == 0 means greedy.
 
@@ -32,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.transfer import to_device_packed
 from ..protocols.common import SamplingOptions
 
 
@@ -51,22 +54,24 @@ class SamplingParams:
     def from_host(cls, device, temperature, top_k, top_p, min_p=None,
                   presence_penalty=None, frequency_penalty=None,
                   repetition_penalty=None) -> "SamplingParams":
-        """Build from host arrays (missing penalties/min_p → disabled)."""
+        """Build from host arrays (missing penalties/min_p → disabled),
+        sent to the device in one transfer."""
         b = len(temperature)
+        f32 = torch.float32
 
-        def f32(x, fill):
-            x = np.full(b, fill, np.float32) if x is None else x
-            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        def f(x, fill):
+            return (np.full(b, fill, np.float32) if x is None else x, f32)
 
-        return cls(
-            temperature=f32(temperature, 0.0),
-            top_k=torch.as_tensor(np.asarray(top_k, np.int64), device=device),
-            top_p=f32(top_p, 1.0),
-            min_p=f32(min_p, 0.0),
-            presence_penalty=f32(presence_penalty, 0.0),
-            frequency_penalty=f32(frequency_penalty, 0.0),
-            repetition_penalty=f32(repetition_penalty, 1.0),
-        )
+        return cls(**to_device_packed(
+            device,
+            temperature=f(temperature, 0.0),
+            top_k=(top_k, torch.int64),
+            top_p=f(top_p, 1.0),
+            min_p=f(min_p, 0.0),
+            presence_penalty=f(presence_penalty, 0.0),
+            frequency_penalty=f(frequency_penalty, 0.0),
+            repetition_penalty=f(repetition_penalty, 1.0),
+        ))
 
 
 def host_row(opts: SamplingOptions):
@@ -158,7 +163,7 @@ def sample(
     # temperature scaling (guard against 0 for the sampled branch)
     temp = torch.clamp(params.temperature, min=1e-6)[:, None]
     scaled = logits / temp
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = torch.full((), float("-inf"), device=logits.device)
 
     # top-k: mask everything below the k-th largest (k=0 → no-op)
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
@@ -184,6 +189,164 @@ def sample(
 
     sampled = torch.argmax(scaled + gumbel, dim=-1)
     return torch.where(params.temperature <= 0.0, greedy, sampled)
+
+
+# ---- device-resident finish detection (the chained decode burst) ----
+#
+# The chained burst evaluates each row's finish conditions on the device
+# so a finished row freezes in place instead of ending the burst. The
+# per-row stop-token set rides as a fixed-width id matrix; a request whose
+# set overflows the width keeps host-side finish checks (the scheduler's
+# "device-checkable" classification) and is counted there.
+
+# ids per row: eos ids + hidden stop ids, -1 padded
+STOP_ID_WIDTH = 16
+
+
+def stop_id_row(eos_ids, hidden_ids, ignore_eos: bool) -> Optional[np.ndarray]:
+    """One request's device stop-token row: the merged eos (unless
+    suppressed) + hidden-stop id set, -1 padded to ``STOP_ID_WIDTH``.
+    None when the set overflows the width: the request is not
+    device-checkable."""
+    ids = set() if ignore_eos else {int(t) for t in (eos_ids or [])}
+    ids |= {int(t) for t in (hidden_ids or [])}
+    if len(ids) > STOP_ID_WIDTH:
+        return None
+    row = np.full(STOP_ID_WIDTH, -1, np.int32)
+    row[: len(ids)] = sorted(ids)
+    return row
+
+
+def device_finish_mask(
+    tokens: torch.Tensor,     # [B] the step's sampled tokens
+    gen: torch.Tensor,        # [B] generated count INCLUDING this token
+    pos: torch.Tensor,        # [B] position the step's forward ran at
+    stop_ids: torch.Tensor,   # [B, STOP_ID_WIDTH], -1 padded
+    min_new: torch.Tensor,    # [B] min_tokens (suppresses eos/stop below)
+    max_new: torch.Tensor,    # [B] effective max_tokens
+    max_model_len: int,
+) -> torch.Tensor:
+    """Per-row finish verdict of one chained step, the device mirror of
+    ``Scheduler._check_finish``: at host-check time the committed context
+    is ``pos + 1`` (the pending token's KV was just written), so the
+    model-len bound reads ``pos + 2 >= max_model_len``. Token ids are
+    non-negative, so the -1 padding never matches."""
+    hit = (tokens[:, None] == stop_ids).any(dim=1)
+    stop = (gen >= min_new) & hit
+    length = (gen >= max_new) | (pos + 2 >= max_model_len)
+    return stop | length
+
+
+# ---- device-approximate stop strings (suffix ring + rolling hash) ----
+#
+# Stop STRINGS are a text-level condition the engine cannot evaluate
+# exactly (it holds no tokenizer), so chained rows use an approximation:
+# the preprocessor ships each stop string's canonical tokenization
+# (``StopConditions.stop_token_seqs``), the burst carries a ring of the
+# last SUFFIX_RING_W emitted tokens per row, and each step compares
+# rolling polynomial hashes of the ring's suffixes against the per-
+# sequence target hashes. A match freezes the row as a stop *candidate*;
+# the host confirms on drain with an exact token-suffix compare
+# (``Scheduler._check_finish`` runs it on every emitted token) and a hash
+# collision resumes the row.
+
+SUFFIX_RING_W = 32    # trailing tokens carried per row
+STOP_SEQ_WIDTH = 4    # stop sequences per row the device can watch
+STOP_SEQ_MAX_LEN = 8  # tokens per watched sequence
+
+_HASH_P = 1000003
+_M32 = 0xFFFFFFFF
+
+
+def stop_seq_hash(seq) -> int:
+    """Polynomial hash of one token sequence in uint32 with wraparound,
+    the host mirror of the rolling suffix hash. A token hashes as
+    ``uint32(token) + 1``."""
+    h = 0
+    for t in seq:
+        h = (h * _HASH_P + ((int(t) & _M32) + 1)) & _M32
+    return h
+
+
+def stop_seq_rows(seqs):
+    """Pack one request's stop token sequences into the device rows:
+    ``(hashes [STOP_SEQ_WIDTH] uint32, lens [STOP_SEQ_WIDTH] int32)``.
+    None when the set overflows the width / length bounds: the request is
+    not device-checkable (counted, never silent)."""
+    seqs = [tuple(int(t) for t in s) for s in (seqs or []) if s]
+    if not seqs or len(seqs) > STOP_SEQ_WIDTH:
+        return None
+    if any(len(s) > STOP_SEQ_MAX_LEN for s in seqs):
+        return None
+    hashes = np.zeros(STOP_SEQ_WIDTH, np.uint32)
+    lens = np.zeros(STOP_SEQ_WIDTH, np.int32)
+    for i, s in enumerate(seqs):
+        hashes[i] = stop_seq_hash(s)
+        lens[i] = len(s)
+    return hashes, lens
+
+
+def ring_init(tokens, width: int = SUFFIX_RING_W) -> np.ndarray:
+    """Host-side ring fill: the last ``width`` tokens of the emitted
+    history (prompt + generated, ending with the pending token), -1 padded
+    on the left. The chain-fill input of the burst carry."""
+    row = np.full(width, -1, np.int32)
+    tail = list(tokens)[-width:]
+    if tail:
+        row[-len(tail):] = tail
+    return row
+
+
+def ring_push(ring: torch.Tensor, tokens: torch.Tensor,
+              live: torch.Tensor) -> torch.Tensor:
+    """Shift each LIVE row's ring left and append its new token."""
+    shifted = torch.cat([ring[:, 1:], tokens[:, None].to(ring.dtype)], dim=1)
+    return torch.where(live[:, None], shifted, ring)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2^32`` for int64 ``a`` in [0, 2^32) and a constant ``c``
+    in [0, 2^32), with every intermediate below 2^49 (torch has no
+    dependable uint32 arithmetic, and an int64 product could overflow)."""
+    lo = (a & 0xFFFF) * c
+    hi = ((a >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def suffix_hashes(ring: torch.Tensor) -> torch.Tensor:
+    """[B, STOP_SEQ_MAX_LEN + 1] int64 rolling hashes (values in
+    [0, 2^32)) of the ring's trailing suffixes: column L is the hash of
+    the last L tokens (column 0 = 0). A -1 pad hashes as 0."""
+    b, w = ring.shape
+    toks = (ring.long() + 1) & _M32
+    cols = [torch.zeros(b, dtype=torch.int64, device=ring.device)]
+    p_pow = 1
+    for ell in range(1, STOP_SEQ_MAX_LEN + 1):
+        cols.append((cols[-1] + _mul32(toks[:, w - ell], p_pow)) & _M32)
+        p_pow = (p_pow * _HASH_P) & _M32
+    return torch.stack(cols, dim=1)
+
+
+def stop_candidate_mask(
+    ring: torch.Tensor,       # [B, W] trailing tokens INCLUDING this step's
+    gen: torch.Tensor,        # [B] generated count including this token
+    min_new: torch.Tensor,    # [B] min_tokens (suppresses stops below)
+    stop_hash: torch.Tensor,  # [B, STOP_SEQ_WIDTH] target hashes in [0, 2^32)
+    stop_len: torch.Tensor,   # [B, STOP_SEQ_WIDTH] lengths (0 = unused)
+) -> torch.Tensor:
+    """Per-row stop-STRING candidate verdict of one step: any watched
+    sequence whose length-L suffix hash matches, gated so the whole suffix
+    is generated output (gen >= L) and min_tokens is satisfied."""
+    hs = suffix_hashes(ring)                               # [B, L+1]
+    stop_len = stop_len.long()
+    sel = torch.gather(hs, 1, stop_len.clamp(0, STOP_SEQ_MAX_LEN))  # [B, NS]
+    cand = (
+        (stop_len > 0)
+        & (gen[:, None] >= stop_len)
+        & (gen[:, None] >= min_new[:, None])
+        & (sel == (stop_hash.long() & _M32))
+    )
+    return cand.any(dim=1)
 
 
 # alternatives returned with every step — covers OpenAI's top_logprobs (≤ 20)

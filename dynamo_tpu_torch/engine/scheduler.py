@@ -1,20 +1,37 @@
-"""Continuous-batching scheduler: the synchronous serving path.
+"""Continuous-batching scheduler: the synchronous path and the persistent
+decode loop.
 
-The port of ``dynamo_tpu/engine/scheduler.py`` at the reference's
-synchronous config (``decode_pipeline_depth`` <= 1): an asyncio loop
+The port of ``dynamo_tpu/engine/scheduler.py``: an asyncio loop
 interleaving batched, chunked, bucketed prefills with batched decode over
-a fixed set of slots — one token per step, a fused K-step burst
-(``multi_step_decode``) while no prefill work waits, or an ngram
+a fixed set of slots. A decode pass is one token per step, a fused K-step
+burst (``multi_step_decode``) while no prefill work waits, an ngram
 speculative verify step (``spec_ngram_tokens``) while every active row is
-greedy and penalty-free. Per-request state tracks paged blocks, chained
-block hashes (the prefix cache) and cooperative cancellation; KV OOM
+greedy and penalty-free, or, with ``decode_pipeline_depth=2``:
+
+- a dispatch-ahead burst (``_decode_pipelined``): burst k+1 goes to the
+  device before burst k's tokens are read on the host, finishes are
+  detected one burst late and the over-decoded tail is rolled back;
+- a chained burst (``_decode_chained``, ``device_finish``): bursts are
+  dispatched back to back off a device-resident carry, finished rows
+  freeze on the device (eos, hidden stop ids, ``max_tokens``, the
+  model-len horizon, stop sequences by suffix hash, guided choices by a
+  device transition table) and a queue of in-flight bursts drains
+  asynchronously. Every pass that could not chain is counted under a
+  named reason (``metrics()["sync_fallback"]``).
+
+A burst's outputs travel to the host through pinned buffers and an event
+recorded right behind the burst (``ModelRunner.stage_to_host``), so
+reconciling burst k never waits for burst k+1.
+
+Per-request state tracks paged blocks, chained block hashes (the prefix
+cache), the guided-choice cursor and cooperative cancellation; KV OOM
 preempts a request back to the waiting queue and its re-prefill continues
 the emitted stream.
 
-Not in this slice (later work, refused by ``EngineConfig``): pipelined and
-chained decode, draft-model speculation, guided decoding,
-sequence-parallel prefill, remote prefill, fabric pulls, migration, fault
-injection, the flight recorder and the stall watchdog.
+Not in this slice (later work, refused by ``EngineConfig`` or by the
+serving layer): the chained propose-verify round, draft-model speculation,
+guided JSON, sequence-parallel prefill, remote prefill, fabric pulls,
+migration, fault injection, the flight recorder and the stall watchdog.
 """
 
 from __future__ import annotations
@@ -24,7 +41,7 @@ import dataclasses
 import logging
 import time
 from collections import deque
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -38,13 +55,20 @@ from ..runtime.engine import AsyncEngineContext
 from ..tokens import TokenSequence
 from .block_allocator import BlockAllocator
 from .config import EngineConfig
-from .model_runner import ModelRunner
-from .sampling import host_row, seed_to_key
+from .guided import TrieConstraint, compile_device_table
+from .model_runner import HostCopy, ModelRunner
+from .sampling import (
+    STOP_ID_WIDTH,
+    STOP_SEQ_WIDTH,
+    SUFFIX_RING_W,
+    host_row,
+    ring_init,
+    seed_to_key,
+    stop_id_row,
+    stop_seq_rows,
+)
 
 logger = logging.getLogger(__name__)
-
-# trailing emitted tokens kept per request for the exact stop-sequence check
-SUFFIX_RING_W = 32
 
 
 def ngram_propose(history: List[int], match: int, k: int) -> List[int]:
@@ -145,19 +169,48 @@ class EngineRequest:
     # preemption-resume: generated tokens already emitted before preemption;
     # re-prefilled (prompt + resume_tokens) so the stream CONTINUES
     resume_tokens: List[int] = dataclasses.field(default_factory=list)
+    # guided decoding: the constraint cursor (a TrieConstraint built at
+    # admission from guided_choice_token_ids) and the token ids its mask
+    # currently allows (for sparse bias edits)
+    guided: Optional[object] = None
+    guided_allowed: List[int] = dataclasses.field(default_factory=list)
     # telemetry: monotonic time of the last token emission (0 = none yet)
     last_emit_t: float = 0.0
-    # the admission-time finish classification (see classify_finish)
+    # device-resident finish detection: the admission-time classification
+    # (see classify_finish) plus the packed device stop-id row of the
+    # chained burst. ``device_checkable`` means every finish condition is
+    # expressible on the device: eos / hidden stop ids within
+    # STOP_ID_WIDTH, and stop STRINGS only through their canonical token
+    # sequences within the suffix-ring bounds. ``chain_fallback`` names WHY
+    # a request is not checkable, so every sync pass is attributed. Guided
+    # decoding is checked live at dispatch (its device table compiles in an
+    # executor).
+    device_checkable: bool = False
+    chain_fallback: Optional[str] = None
+    device_frozen: bool = False  # finish came from the device mask
     fin_eos: frozenset = dataclasses.field(default_factory=frozenset)
     fin_stop: frozenset = dataclasses.field(default_factory=frozenset)
     fin_min_new: int = 0
     fin_max_new: int = 16384
+    fin_stop_row: Optional[np.ndarray] = None
+    # canonical stop-string token sequences (host-exact check in
+    # _check_finish on EVERY path) and their packed device hash rows
     fin_stop_seqs: tuple = ()
+    fin_stop_hash: Optional[np.ndarray] = None
+    fin_stop_hlen: Optional[np.ndarray] = None
     # trailing emitted tokens (prompt + generated, ending with the pending
-    # token): feeds the exact stop-sequence check
+    # token): the host mirror of the burst carry's suffix ring; feeds the
+    # exact stop-sequence check and the chain-fill ring
     ring_tail: deque = dataclasses.field(
         default_factory=lambda: deque(maxlen=SUFFIX_RING_W)
     )
+    # chain-transient flags: the guided bias row was reset to logit_bias
+    # only for a device-table chain (reinstalled at the barrier), and the
+    # row froze on a suffix-hash FALSE positive (resumes at the barrier)
+    chain_bias_reset: bool = False
+    chain_fp: bool = False
+    # memoized guided-table cache key
+    guided_key: Optional[tuple] = None
 
     def __post_init__(self):
         self.classify_finish()
@@ -174,11 +227,38 @@ class EngineRequest:
         self.fin_stop = frozenset(
             int(t) for t in (sc.stop_token_ids_hidden or [])
         )
-        seqs = [tuple(int(t) for t in s)
-                for s in (sc.stop_token_seqs or []) if s]
-        # canonical-tokenization stop strings are checked exactly on the
-        # host; text-level matching stays the detokenizer's job
-        self.fin_stop_seqs = tuple(seqs) if sc.stop and seqs else ()
+        row = stop_id_row(
+            self.req.eos_token_ids, sc.stop_token_ids_hidden, sc.ignore_eos
+        )
+        n = self.req.sampling_options.n
+        self.fin_stop_row = row
+        self.fin_stop_seqs = ()
+        self.fin_stop_hash = None
+        self.fin_stop_hlen = None
+        reason = None
+        if row is None:
+            reason = "stop_ids_overflow"
+        elif n is not None and n > 1:
+            reason = "n_gt_1"
+        if sc.stop:
+            seqs = [tuple(int(t) for t in s)
+                    for s in (sc.stop_token_seqs or []) if s]
+            if seqs and len(seqs) == len(sc.stop):
+                # the host-exact stop-sequence finish applies on EVERY path
+                # (sync and chained streams stay identical); the packed
+                # hash rows are the device approximation's inputs
+                self.fin_stop_seqs = tuple(seqs)
+                packed = stop_seq_rows(seqs)
+                if packed is not None:
+                    self.fin_stop_hash, self.fin_stop_hlen = packed
+                elif reason is None:
+                    reason = "stop_seqs_overflow"
+            elif reason is None:
+                # no canonical tokenizations shipped: text-level stops stay
+                # the detokenizer's concern
+                reason = "stop_seqs_unavailable"
+        self.chain_fallback = reason
+        self.device_checkable = reason is None
 
     @property
     def max_new(self) -> int:
@@ -210,6 +290,14 @@ class _HostBatchState:
         self.btab = np.zeros((b, cfg.blocks_per_seq), np.int32)
         # blocks of each row already mirrored into ``btab``
         self.synced_blocks = np.zeros(b, np.int32)
+        # device-finish state (membership-static, read by the chained
+        # burst): packed stop-token ids, the min/max token bounds and the
+        # stop-sequence suffix-hash targets
+        self.stop_ids = np.full((b, STOP_ID_WIDTH), -1, np.int32)
+        self.min_new = np.zeros(b, np.int32)
+        self.max_new = np.full(b, np.iinfo(np.int32).max, np.int32)
+        self.stop_hash = np.zeros((b, STOP_SEQ_WIDTH), np.uint32)
+        self.stop_hlen = np.zeros((b, STOP_SEQ_WIDTH), np.int32)
 
     def install(self, er: "EngineRequest") -> None:
         """(Re)write one slot's rows at admission / membership change."""
@@ -221,13 +309,21 @@ class _HostBatchState:
             er.repetition_penalty,
         )
         self.keys[i] = er.base_key
+        self.min_new[i] = er.fin_min_new
+        self.max_new[i] = min(er.fin_max_new, np.iinfo(np.int32).max)
+        self.stop_ids[i] = (
+            er.fin_stop_row if er.fin_stop_row is not None else -1)
+        self.stop_hash[i] = (
+            er.fin_stop_hash if er.fin_stop_hash is not None else 0)
+        self.stop_hlen[i] = (
+            er.fin_stop_hlen if er.fin_stop_hlen is not None else 0)
         n = len(er.block_ids)
         self.btab[i, :n] = er.block_ids
         self.btab[i, n:] = 0
         self.synced_blocks[i] = n
 
     def sync_blocks(self, er: "EngineRequest") -> None:
-        """Mirror a live row's grown block list."""
+        """Mirror a live row's grown (or rolled-back) block list."""
         i = er.slot
         n = len(er.block_ids)
         s = int(self.synced_blocks[i])
@@ -240,7 +336,37 @@ class _HostBatchState:
         self.synced_blocks[i] = n
 
 
+@dataclasses.dataclass
+class _InflightBurst:
+    """One dispatched-but-unreconciled decode burst.
+
+    Everything the host needs to reconcile the burst AFTER the next one is
+    dispatched: its outputs on their way to the host (``out``, read in one
+    executor hop, the loop's only host sync) and, for the dispatch-ahead
+    pipeline, the device-resident carry (``last_tokens``) the next burst
+    consumes without a host round trip."""
+
+    active: List["EngineRequest"]  # rows committed at dispatch
+    out: HostCopy                  # [K, B] tokens, logprobs, top vals / ids
+    k_steps: int
+    last_tokens: object            # device [B]: the next burst's tokens0
+    # chained (device-finish) bursts: _apply_burst takes frozen-row
+    # semantics (-1 pads skipped, device finishes counted)
+    device_finish: bool = False
+
+
 class Scheduler:
+    # bursts allowed in flight ahead of the asynchronous drain: beyond this
+    # the dispatcher waits out the oldest sync (the device has this many
+    # bursts queued, so it cannot run dry while the host catches up), and
+    # the per-burst output buffers stay bounded
+    CHAIN_MAX_INFLIGHT = 4
+    # compiled guided tables kept for at most this many distinct choice
+    # lists: each is a dense [states, vocab] int32. LRU; eviction is safe
+    # mid-chain because every chained pass re-checks presence before the
+    # dispatch reads the cache (a missing table just recompiles)
+    GUIDED_TABLE_CACHE = 16
+
     def __init__(self, runner: ModelRunner, config: EngineConfig):
         self.runner = runner
         self.config = config
@@ -267,6 +393,30 @@ class Scheduler:
         self.preemptions = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        # dispatch-ahead decode: the one burst in flight
+        self._inflight: Optional[_InflightBurst] = None
+        self.pipeline_bursts = 0
+        # the chained loop: bursts awaiting their drain (FIFO), the chain's
+        # members (fixed between barriers), its device carry, how many
+        # bursts it has dispatched, and each member's position and
+        # generated count when it opened (block headroom and the noise
+        # counters follow the chain's own dispatch count: the host's
+        # committed state lags by the whole drain queue)
+        self._chain: deque = deque()
+        self._chain_members: List[EngineRequest] = []
+        self._chain_carry = None
+        self._chain_dispatched = 0
+        self._chain_pos0: Dict[int, int] = {}
+        self._chain_gen0: Dict[int, int] = {}
+        self._chain_fp = False
+        self._last_chain_len = 0
+        self.chain_len_max = 0
+        self.device_finished_rows = 0
+        self.sync_fallback: Dict[str, int] = {}
+        # compiled guided device tables by choice list (None = past the
+        # state bound) and the executor compiles in flight
+        self._guided_tables: Dict[tuple, object] = {}
+        self._guided_table_futs: Dict[tuple, object] = {}
 
     # ---------- public API ----------
 
@@ -317,6 +467,11 @@ class Scheduler:
             "preemptions": self.preemptions,
             "spec_proposed": self.spec_proposed,
             "spec_accepted": self.spec_accepted,
+            "pipeline_bursts": self.pipeline_bursts,
+            "chain_len_last": self._chain_dispatched or self._last_chain_len,
+            "chain_len_max": max(self.chain_len_max, self._chain_dispatched),
+            "device_finished_rows": self.device_finished_rows,
+            "sync_fallback": dict(self.sync_fallback),
         }
 
     # ---------- helpers ----------
@@ -437,21 +592,63 @@ class Scheduler:
                 progressed = True
 
             # decode every active slot: one token, an ngram speculative
-            # verify, or a fused K-step burst — prefill work pins K to 1 so
-            # chunked-prefill interleaving (bounded TTFT) is never traded
-            # for throughput
+            # verify, a fused K-step burst, or — with the dispatch-ahead
+            # pipeline — a chained or pipelined burst. Prefill work pins K
+            # to 1 so chunked-prefill interleaving (bounded TTFT) is never
+            # traded for throughput
             active = [s for s in self.slots
                       if s is not None and s not in self.prefilling]
             if active:
                 runner_idle = not (self.prefilling or self.waiting)
-                if (self.config.spec_ngram_tokens > 0 and runner_idle
-                        and all(self._spec_eligible(er) for er in active)):
-                    await self._decode_spec(loop, active)
+                spec_now = (self.config.spec_ngram_tokens > 0 and runner_idle
+                            and all(self._spec_eligible(er) for er in active))
+                chain_on = (self.config.device_finish_enabled
+                            and self.config.decode_pipeline_depth >= 2)
+                if not spec_now and self._chain_ok(active, runner_idle):
+                    # persistent loop: chain the next burst off the device-
+                    # resident carry; finished rows freeze on the device
+                    # and drain asynchronously
+                    await self._decode_chained(loop, active)
                 else:
-                    k_steps = self.config.multi_step_decode
-                    if k_steps > 1 and not runner_idle:
-                        k_steps = 1
-                    await self._decode(loop, active, k_steps)
+                    if chain_on:
+                        # every pass that did not chain is named
+                        reason = self._chain_block_reason(active, runner_idle)
+                        if reason:
+                            self._note_sync_fallback(reason)
+                    await self._chain_barrier(loop)
+                    active = [er for er in active if er.finish is None]
+                    if (active and not spec_now
+                            and self._pipeline_ok(active, runner_idle)):
+                        # dispatch-ahead: burst k+1 goes to the device
+                        # before burst k's tokens are read on the host
+                        await self._decode_pipelined(loop, active)
+                    else:
+                        # sync barrier: reconcile the in-flight burst before
+                        # any non-pipelined dispatch (membership, masks or
+                        # the program's shape is changing)
+                        await self._drain_pipeline(loop)
+                        active = [er for er in active if er.finish is None]
+                        if not active:
+                            pass
+                        elif spec_now:
+                            await self._decode_spec(loop, active)
+                        else:
+                            k_steps = self.config.multi_step_decode
+                            if k_steps > 1 and not runner_idle:
+                                k_steps = 1
+                            await self._decode(loop, active, k_steps)
+                progressed = True
+            elif self._chain or self._chain_members:
+                # every chained row finished or was cancelled while the
+                # chain was still dispatching: reconcile the queue and
+                # close the chain (frozen rows' pads apply as no-ops)
+                await self._chain_barrier(loop)
+                progressed = True
+            elif self._inflight is not None:
+                # every pipelined row finished or was cancelled while its
+                # successor burst was in flight: reconcile the orphan (all
+                # rows skip at apply: pure over-decode, nothing emits)
+                await self._drain_pipeline(loop)
                 progressed = True
 
             if not progressed:
@@ -462,6 +659,11 @@ class Scheduler:
                     await asyncio.sleep(0.001)
             else:
                 await asyncio.sleep(0)  # let I/O run between steps
+
+        # stopping: reconcile any chained or dispatch-ahead burst so no
+        # sampled token is silently dropped and no device work abandoned
+        await self._chain_barrier(loop)
+        await self._drain_pipeline(loop)
 
     def _start_prefill(self, er: EngineRequest) -> None:
         """Claim a slot + KV blocks and enter the chunked-prefill state.
@@ -492,11 +694,32 @@ class Scheduler:
         self._host.install(er)
         er.seq = TokenSequence(tokens_all, block_size=self.config.kv_block_size)
         er.registered_blocks = 0
+        # guided decoding: (re)build the constraint and walk it past any
+        # already-emitted tokens (a resumed request continues mid-stream)
+        gids = er.req.sampling_options.guided_choice_token_ids
+        if gids:
+            er.guided = TrieConstraint(gids)
+            for t in er.resume_tokens:
+                if er.guided.advance(int(t)) != "ok":
+                    # derailed resume (tokens that never followed the mask:
+                    # unreachable in normal operation): an all-banned mask
+                    # would still emit one unconstrained token, so finish
+                    # the stream here instead
+                    self._finish(er, FinishReason.STOP)
+                    return
+            if not self._guided_allowed_ids(er):
+                # dead state: the vocabulary cannot express any legal
+                # continuation
+                self._finish(er, FinishReason.STOP)
+                return
         # penalty state for the slot: prompt presence + (on resume) counts
-        # of the already-generated tokens
+        # of the already-generated tokens (+ the guided mask for the FIRST
+        # sampled token: the prefill's final chunk samples it)
         self.runner.set_sample_row(
             slot, er.prompt, er.resume_tokens,
             logit_bias=er.req.sampling_options.logit_bias,
+            guided_mask=(
+                self._guided_mask(er) if er.guided is not None else None),
         )
         self.prefilling.append(er)
 
@@ -636,6 +859,7 @@ class Scheduler:
             er.generated += 1  # += not =: resumed requests keep their count
             er.ring_tail.append(token)
             er.finish = self._check_finish(er, token)
+            self._guided_after_token(er)
             self._emit(er, token, float(lpn[i]) if er.want_logprobs else None,
                        self._top_row(er, tv, ti, i), prompt_lps=prompt_lps)
             if er.finish is not None:
@@ -645,8 +869,9 @@ class Scheduler:
         """Speculative verify preserves the exact stream only for greedy,
         penalty-free, bias-free requests that want no logprobs: the verify
         step's raw argmax must equal what sequential sampling would pick,
-        and per-position logprobs are not computed."""
-        return (er.temperature == 0.0
+        and per-position logprobs are not computed. Guided rows are
+        excluded too: their mask changes every step."""
+        return (er.guided is None and er.temperature == 0.0
                 and er.presence_penalty == 0.0
                 and er.frequency_penalty == 0.0
                 and er.repetition_penalty == 1.0
@@ -762,6 +987,11 @@ class Scheduler:
         if k_steps > 1 and any(
                 er.context_len + k_steps + 1 > cfg.max_model_len for er in active):
             k_steps = 1
+        if any(er.guided is not None for er in active):
+            # guided rows rewrite their mask between tokens on the host; a
+            # fused burst would sample K tokens against one stale mask.
+            # This pins the WHOLE batch: all rows share one dispatch
+            k_steps = 1
         for er in list(active):
             if not all(self._ensure_block_for(er, er.context_len + j)
                        for j in range(k_steps)):
@@ -818,11 +1048,8 @@ class Scheduler:
                 want_top=want_top,
             )
 
-        def _sync_step():
-            return (next_tokens.cpu().numpy(), lps.cpu().numpy(),
-                    top_vals.cpu().numpy(), top_ids.cpu().numpy())
-
-        toks, lpn, tv, ti = await loop.run_in_executor(None, _sync_step)
+        out = self.runner.stage_to_host(next_tokens, lps, top_vals, top_ids)
+        toks, lpn, tv, ti = await loop.run_in_executor(None, out.numpy)
         self.steps += 1
         self.decode_steps += 1
         if k_steps == 1:
@@ -838,6 +1065,7 @@ class Scheduler:
                     continue
                 token = int(toks[j, er.slot])
                 self._advance_row(er, token)
+                self._guided_after_token(er)
                 self._emit(
                     er, token,
                     float(lpn[j, er.slot]) if er.want_logprobs else None,
@@ -845,6 +1073,594 @@ class Scheduler:
                 )
                 if er.finish is not None:
                     self._finish(er, er.finish, emit=False)
+
+    # ---------- dispatch-ahead decode (pipeline depth 2) ----------
+
+    def _pipeline_ok(self, active: List[EngineRequest],
+                     runner_idle: bool) -> bool:
+        """May this pass decode dispatch-ahead?
+
+        Guided decoding (per-token host mask edits), speculative decoding,
+        ``n > 1``, prefill / admission work and rows within two bursts of
+        the model-len horizon all force the synchronous path, selected per
+        pass, never mid-burst. A batch-membership surprise (a row active
+        now that was not in the dispatched burst) drains defensively."""
+        cfg = self.config
+        if cfg.decode_pipeline_depth < 2 or not runner_idle:
+            return False
+        if cfg.spec_ngram_tokens > 0:
+            return False
+        K = cfg.multi_step_decode
+        for er in active:
+            if er.guided is not None:
+                return False
+            n = er.req.sampling_options.n
+            if n is not None and n > 1:
+                return False
+            if er.context_len + 2 * K + 1 > cfg.max_model_len:
+                return False
+        infl = self._inflight
+        if infl is not None:
+            live = {id(er) for er in infl.active if er.finish is None}
+            if live != {id(er) for er in active}:
+                return False
+        return True
+
+    async def _decode_pipelined(self, loop,
+                                active: List[EngineRequest]) -> None:
+        """One pipelined pass: dispatch burst k+1, then reconcile burst k
+        on the host while k+1 runs on the device.
+
+        The carry (burst k's last sampled tokens) is a device tensor among
+        the burst's outputs, so burst k+1 consumes it without a host round
+        trip; the host then reads, streams and finish-checks burst k's
+        tokens during burst k+1's device time. Block headroom for ``2*K``
+        positions is reserved before every dispatch, so the in-flight
+        burst can never write to an unallocated slot; if the reservation
+        fails, the pipeline drains (sync barrier) and the synchronous
+        path, which owns preemption, takes the pass."""
+        cfg = self.config
+        b = cfg.max_batch_size
+        k_steps = cfg.multi_step_decode
+        infl = self._inflight
+        # the device is ``ahead`` tokens past the host's committed state
+        ahead = infl.k_steps if infl is not None else 0
+
+        for er in active:
+            # 2*K from the host context: covers the burst dispatched now
+            # (positions ahead..ahead+K-1 past the committed state) and
+            # keeps the invariant once reconciliation advances the host
+            if not all(self._ensure_block_for(er, er.context_len + j)
+                       for j in range(2 * k_steps)):
+                # KV OOM: preemption needs fully committed host state.
+                # Drain, then let the sync path preempt / decode this pass
+                await self._drain_pipeline(loop)
+                live = [e for e in active if e.finish is None]
+                if live:
+                    await self._decode(loop, live, k_steps)
+                return
+
+        hs = self._host
+        positions0 = np.zeros(b, np.int32)
+        ctrs = np.zeros(b, np.int32)
+        commit = np.zeros(b, bool)
+        for er in active:
+            i = er.slot
+            hs.sync_blocks(er)
+            positions0[i] = er.context_len + ahead
+            ctrs[i] = er.generated + ahead
+            commit[i] = True
+        w = cfg.kv_width_bucket(max(len(er.block_ids) for er in active))
+        btab = hs.btab[:, :w].copy()
+        if infl is None:
+            # pipeline fill (first burst after a drain): tokens from host
+            tokens0 = np.zeros(b, np.int32)
+            for er in active:
+                tokens0[er.slot] = er.pending_token
+        else:
+            tokens0 = infl.last_tokens  # device-resident carry
+        want_top = any(er.logprobs_n > 0 for er in active)
+
+        toks, lps, tv, ti = self.runner.decode_burst(
+            tokens0, positions0, btab, hs.temp, hs.top_k, hs.top_p,
+            min_p=hs.min_p, presence_penalty=hs.pres,
+            frequency_penalty=hs.freq, repetition_penalty=hs.rep,
+            seed_keys=hs.keys, counters=ctrs, commit=commit,
+            want_top=want_top,
+        )
+        self.steps += 1
+        self.decode_steps += 1
+        self.pipeline_bursts += 1
+        self._inflight = _InflightBurst(
+            active=list(active),
+            out=self.runner.stage_to_host(toks, lps, tv, ti),
+            k_steps=k_steps, last_tokens=toks[k_steps - 1],
+        )
+        if infl is not None:
+            # burst k+1 is on the device: reconcile burst k while it runs
+            await self._apply_burst(loop, infl)
+            if all(er.finish is not None for er in self._inflight.active):
+                # burst k finished every row: k+1 is pure over-decode.
+                # Reconcile it now instead of leaving an orphan in flight
+                await self._drain_pipeline(loop)
+
+    async def _apply_burst(self, loop, infl: _InflightBurst) -> None:
+        """Host half of the pipeline: wait for the burst's sampled tokens
+        (the decode loop's ONLY host sync, on the burst's own event), emit
+        them, run finish checks, and retro-invalidate rows that finished
+        one burst late."""
+        toks, lpn, tv, ti = await loop.run_in_executor(None, infl.out.numpy)
+        for j in range(infl.k_steps):
+            for er in infl.active:
+                if er.finish is not None:
+                    continue  # finished / cancelled: over-decode discarded
+                token = int(toks[j, er.slot])
+                if infl.device_finish and token < 0:
+                    if er.chain_fp:
+                        continue  # already flagged: resumes at the barrier
+                    if er.fin_stop_hash is not None:
+                        # the device's suffix-hash stop candidate froze this
+                        # row, but the host's EXACT token-suffix check
+                        # (_check_finish, run on every emitted token above)
+                        # never fired: a hash collision. Flag it: the chain
+                        # closes at the next pass and the row resumes from
+                        # its committed state (no token was lost: frozen
+                        # rows never over-decode)
+                        er.chain_fp = True
+                        self._chain_fp = True
+                        self._note_sync_fallback("stop_false_positive")
+                        continue
+                    # -1 pad: the device froze this row at an earlier step,
+                    # whose application above set er.finish. A pad with NO
+                    # host verdict means the device mask and the host
+                    # mirror diverged: finishing the row loudly beats
+                    # decoding a frozen zombie forever
+                    logger.error(
+                        "device froze %s without a host finish verdict "
+                        "(device_finish_mask / _check_finish mirror "
+                        "divergence?); forcing STOP", er.request_id)
+                    er.finish = FinishReason.STOP
+                    # emit=True: no preceding _emit carried the finish
+                    # reason, and the client must see one
+                    self._finish_pipelined(er, emit=True)
+                    continue
+                self._advance_row(er, token)
+                if infl.device_finish and er.guided is not None:
+                    # chained guided rows: advance the host cursor (verdicts
+                    # only: the device computed the mask; the barrier
+                    # reinstalls the host mask if needed)
+                    self._guided_after_token(er, edit=False)
+                self._emit(
+                    er, token,
+                    float(lpn[j, er.slot]) if er.want_logprobs else None,
+                    self._top_row(er, tv[j], ti[j], er.slot),
+                )
+                if er.finish is not None:
+                    if infl.device_finish:
+                        # the device's mask froze this row at exactly this
+                        # step: the host check is the mirror that names the
+                        # reason and finalizes the bookkeeping
+                        er.device_frozen = True
+                        self.device_finished_rows += 1
+                    self._finish_pipelined(er)
+
+    def _finish_pipelined(self, er: EngineRequest, emit: bool = False) -> None:
+        """A pipelined row finished (possibly one burst late): truncate the
+        over-decoded tokens (never emitted), roll the headroom blocks
+        holding only over-decoded KV back into the allocator and free the
+        slot.
+
+        The in-flight burst's writes to the rolled-back blocks are
+        harmless: the blocks are anonymous (never registered), and one
+        stream orders those writes before any later program's writes to a
+        reallocated slot."""
+        bs = self.config.kv_block_size
+        keep = -(-er.context_len // bs)  # blocks covering committed KV
+        er.block_ids = self.allocator.rollback_tail(er.block_ids, keep)
+        self._host.sync_blocks(er)
+        # emit=False on the normal path: the finishing token's _emit already
+        # carried the finish reason
+        self._finish(er, er.finish, emit=emit)
+
+    async def _drain_pipeline(self, loop) -> None:
+        """Sync barrier: reconcile the in-flight burst (if any) so every
+        synchronous consumer (preemption, prefill interleave, spec or
+        guided decode, shutdown) sees fully committed host state."""
+        infl, self._inflight = self._inflight, None
+        if infl is not None:
+            await self._apply_burst(loop, infl)
+
+    # ---------- persistent decode loop (config.device_finish) ----------
+
+    def _note_sync_fallback(self, reason: str) -> None:
+        self.sync_fallback[reason] = self.sync_fallback.get(reason, 0) + 1
+
+    def _chain_ok(self, active: List[EngineRequest],
+                  runner_idle: bool) -> bool:
+        return self._chain_block_reason(active, runner_idle) is None
+
+    def _chain_block_reason(self, active: List[EngineRequest],
+                            runner_idle: bool) -> Optional[str]:
+        """Why can this pass NOT chain a burst off the device carry? None
+        = it can. Stop-sequence rows chain through the suffix-hash
+        approximation and guided rows through a compiled device table;
+        what remains is named here and counted per sync pass
+        (``metrics()["sync_fallback"]``)."""
+        cfg = self.config
+        if not (cfg.device_finish_enabled
+                and cfg.decode_pipeline_depth >= 2):
+            return "disabled"
+        if not runner_idle:
+            return "not_idle"
+        if not active:
+            return "no_rows"
+        if self._chain_fp:
+            # a suffix-hash false positive froze a row the host must
+            # resume: close the chain first (the barrier clears this)
+            return "stop_false_positive"
+        if cfg.spec_ngram_tokens > 0:
+            return "speculation"  # the chained propose-verify round
+        tables = set()
+        for er in active:
+            if not er.device_checkable:
+                return er.chain_fallback or "not_checkable"
+            if er.fin_stop_seqs and not cfg.device_stop_strings:
+                return "stop_strings_disabled"
+            if er.guided is not None:
+                r = self._guided_chain_reason(er)
+                if r:
+                    return r
+                tables.add(id(self._guided_tables[
+                    self._guided_table_key(er)]))
+        if len(tables) > 1:
+            # the burst takes ONE transition table; requests sharing a
+            # choice list share a table, mixed lists wait for membership to
+            # separate them
+            return "guided_multi_grammar"
+        if self._chain_members:
+            member_ids = {id(m) for m in self._chain_members}
+            if any(id(er) not in member_ids for er in active):
+                return "membership"
+        return None
+
+    # ---------- guided device tables (engine/guided.py) ----------
+
+    def _guided_table_key(self, er: EngineRequest) -> tuple:
+        if er.guided_key is None:
+            eos = tuple(sorted(int(t) for t in (er.req.eos_token_ids or [])))
+            er.guided_key = (
+                "trie",
+                tuple(tuple(int(t) for t in c) for c in er.guided._choice_ids),
+                eos)
+        return er.guided_key
+
+    def _compile_guided_table(self, er: EngineRequest):
+        """Executor-side table compile (also called directly by tests).
+        Returns the DeviceGuidedTable or None (bound exceeded)."""
+        return compile_device_table(
+            er.guided, self.config.model.vocab_size,
+            er.req.eos_token_ids or [],
+            max_states=self.config.guided_table_max_states,
+        )
+
+    def _guided_chain_reason(self, er: EngineRequest) -> Optional[str]:
+        """Is this guided row chainable right now? Kicks the (executor)
+        table compile on first sight; the row is served on the sync path
+        until the table lands."""
+        if not self.config.guided_device_table:
+            return "guided_disabled"
+        key = self._guided_table_key(er)
+        if key in self._guided_tables:
+            # LRU touch + cap (re-checked every pass, so an evicted-then-
+            # needed table simply recompiles)
+            table = self._guided_tables.pop(key)
+            self._guided_tables[key] = table
+            while len(self._guided_tables) > self.GUIDED_TABLE_CACHE:
+                self._guided_tables.pop(next(iter(self._guided_tables)))
+            if table is None:
+                return "guided_table_bound"
+            if table.state_id(er.guided) is None:
+                # the cursor is in a state the BFS never reached: only a
+                # bug can produce this; stay on the sync path loudly
+                logger.warning(
+                    "guided cursor state unmapped in the device table for "
+                    "%s; keeping the sync path", er.request_id)
+                return "guided_state_unmapped"
+            return None
+        if key not in self._guided_table_futs:
+            # the per-state sweep must never run on the event loop
+            fut = asyncio.get_running_loop().run_in_executor(
+                None, self._compile_guided_table, er)
+
+            def _done(f, key=key):
+                try:
+                    self._guided_tables[key] = f.result()
+                except Exception:
+                    logger.exception("guided device-table compile failed")
+                    self._guided_tables[key] = None
+                self._guided_table_futs.pop(key, None)
+                self.wake.set()
+
+            fut.add_done_callback(_done)
+            self._guided_table_futs[key] = fut
+        return "guided_table_pending"
+
+    # ---------- the chain ----------
+
+    async def _apply_chain_head(self, loop) -> None:
+        """Reconcile the oldest queued chained burst (FIFO: token order
+        per row)."""
+        await self._apply_burst(loop, self._chain.popleft())
+
+    async def _chain_prologue(self, loop, active):
+        """The open / validate ladder of a chained pass: reconcile a
+        predating dispatch-ahead burst, open the chain if none is, and
+        resolve the live member list. Returns ``(active, live, members)``
+        or None: None means every fallback already ran and the caller just
+        returns."""
+        if self._inflight is not None:
+            # a plain dispatch-ahead burst predates this chain: reconcile
+            # it first so the chain starts from fully committed state
+            await self._drain_pipeline(loop)
+            active = [er for er in active if er.finish is None]
+            if not active:
+                return None
+        if not self._chain_members:
+            self._chain_members = list(active)
+            self._chain_carry = None
+            self._chain_dispatched = 0
+            self._chain_pos0 = {er.slot: er.context_len for er in active}
+            self._chain_gen0 = {er.slot: er.generated for er in active}
+        members = self._chain_members
+        live = [er for er in members if er.finish is None]
+        if not live:
+            await self._chain_barrier(loop)
+            return None
+        return active, live, members
+
+    async def _chain_reserve(self, loop, active, live, advance: int) -> bool:
+        """Block headroom for the chain's next dispatch: a never-frozen row
+        runs through position ``chain_pos0 + (n+1)*advance - 1``; reserve
+        one past that (the carry slot), capped at the model-len horizon
+        (the device freezes rows there; blocks past it are never touched).
+        False = KV OOM: preemption needs fully committed host state, so
+        the chain closed at a barrier and the pass already fell back to
+        one sync decode."""
+        cfg = self.config
+        n = self._chain_dispatched
+        for er in live:
+            limit = min(self._chain_pos0[er.slot] + (n + 1) * advance,
+                        cfg.max_model_len - 1)
+            if not self._ensure_block_for(er, limit):
+                self._note_sync_fallback("kv_oom")
+                await self._chain_barrier(loop)
+                rest = [er for er in active if er.finish is None]
+                if rest:
+                    await self._decode(loop, rest, advance)
+                return False
+            self._host.sync_blocks(er)
+        return True
+
+    def _chain_fill(self, live):
+        """The chain-fill carry from committed host state (the first
+        dispatch of a chain)."""
+        b = self.config.max_batch_size
+        tokens0 = np.zeros(b, np.int32)
+        positions0 = np.zeros(b, np.int32)
+        gen0 = np.zeros(b, np.int32)
+        done0 = np.zeros(b, bool)
+        ring0 = np.full((b, SUFFIX_RING_W), -1, np.int32)
+        gstate0 = np.full(b, -1, np.int32)
+        for er in live:
+            tokens0[er.slot] = er.pending_token
+            positions0[er.slot] = er.context_len
+            gen0[er.slot] = er.generated
+            ring0[er.slot] = ring_init(er.ring_tail)
+            if er.guided is not None:
+                gstate0[er.slot] = self._guided_tables[
+                    self._guided_table_key(er)].state_id(er.guided)
+        return tokens0, positions0, gen0, done0, ring0, gstate0
+
+    async def _chain_drain(self, loop, members) -> None:
+        """Asynchronous row drain after a chained dispatch: reconcile every
+        burst whose outputs already reached the host (never gating the
+        dispatch), enforce the in-flight bound, and close the chain when
+        every member finished (anything still queued is frozen
+        over-decode)."""
+        while self._chain and self._chain[0].out.ready():
+            await self._apply_chain_head(loop)
+        while len(self._chain) >= self.CHAIN_MAX_INFLIGHT:
+            await self._apply_chain_head(loop)
+        if all(er.finish is not None for er in members):
+            await self._chain_barrier(loop)
+
+    async def _decode_chained(self, loop,
+                              active: List[EngineRequest]) -> None:
+        """One persistent-loop pass: dispatch the next burst straight off
+        the device-resident carry, WITHOUT waiting for any previous
+        burst's host reconciliation, then drain whatever bursts have
+        already reached the host.
+
+        Finished rows freeze inside the burst (no sampling, no KV writes,
+        -1 pads out), so membership never changes mid-chain: the commit
+        mask marks members, the device ``done`` mask marks frozen rows,
+        and rows cancelled on the host simply drop out of the commit mask
+        at the next dispatch. Block headroom and the noise counters follow
+        the chain's own dispatch count (the host's committed state lags by
+        the whole drain queue); headroom is capped at the model-len
+        horizon, where the device's LENGTH check freezes rows, so
+        near-horizon rows stay chained instead of forcing sync."""
+        cfg = self.config
+        b = cfg.max_batch_size
+        k_steps = max(1, cfg.multi_step_decode)
+        opened = await self._chain_prologue(loop, active)
+        if opened is None:
+            return
+        active, live, members = opened
+        n = self._chain_dispatched
+        if not await self._chain_reserve(loop, active, live, k_steps):
+            return
+
+        hs = self._host
+        commit = np.zeros(b, bool)
+        ctrs = np.zeros(b, np.int32)
+        for er in members:
+            commit[er.slot] = er.finish is None
+            # a row that has not frozen has generated gen0 + n*K tokens
+            # when this burst starts; a frozen row's draw is never read
+            ctrs[er.slot] = self._chain_gen0[er.slot] + n * k_steps
+        w = cfg.kv_width_bucket(max(len(er.block_ids) for er in live))
+        btab = hs.btab[:, :w].copy()
+        want_top = any(er.logprobs_n > 0 for er in members)
+        # guided members ride the device transition table: ONE table per
+        # chain (_chain_block_reason enforced it), their bias rows reset to
+        # logit_bias only so the in-burst mask is not applied twice (the
+        # barrier reinstalls the host mask)
+        gtable_dev = None
+        guided_live = [er for er in live if er.guided is not None]
+        if guided_live:
+            table = self._guided_tables[
+                self._guided_table_key(guided_live[0])]
+            gtable_dev = table.device(
+                self.runner.guided_state_bucket(table.n_states),
+                self.runner.device)
+            for er in guided_live:
+                if not er.chain_bias_reset:
+                    self._set_plain_bias(er)
+                    er.chain_bias_reset = True
+        if self._chain_carry is None:
+            carry = self._chain_fill(live)
+        else:
+            carry = self._chain_carry
+        tokens0, positions0, gen0, done0, ring0, gstate0 = carry
+
+        toks, lps, tv, ti, self._chain_carry = self.runner.decode_burst_chained(
+            tokens0, positions0, gen0, done0, btab,
+            hs.temp, hs.top_k, hs.top_p,
+            min_p=hs.min_p, presence_penalty=hs.pres,
+            frequency_penalty=hs.freq, repetition_penalty=hs.rep,
+            seed_keys=hs.keys, counters=ctrs, commit=commit,
+            stop_ids=hs.stop_ids, min_new=hs.min_new, max_new=hs.max_new,
+            ring0=ring0, gstate0=gstate0,
+            stop_hash=hs.stop_hash, stop_hlen=hs.stop_hlen,
+            gtable=gtable_dev, want_top=want_top,
+        )
+        self._chain_dispatched += 1
+        self.steps += 1
+        self.decode_steps += 1
+        self.pipeline_bursts += 1
+        self._chain.append(_InflightBurst(
+            active=list(live),
+            out=self.runner.stage_to_host(toks, lps, tv, ti),
+            k_steps=k_steps, last_tokens=None, device_finish=True,
+        ))
+        await self._chain_drain(loop, members)
+
+    def _logit_bias_onto(self, er: EngineRequest, row: np.ndarray) -> np.ndarray:
+        """``row`` plus the request's logit_bias entries."""
+        for tid, bv in (er.req.sampling_options.logit_bias or {}).items():
+            tid = int(tid)
+            if 0 <= tid < len(row):
+                row[tid] += float(bv)
+        return row
+
+    def _set_plain_bias(self, er: EngineRequest) -> None:
+        """Reset one slot's bias row to the request's logit_bias alone: a
+        device-table chain computes the guided mask in the burst, so the
+        host-installed mask must not apply a second time."""
+        self.runner.set_bias_row(er.slot, self._logit_bias_onto(
+            er, np.zeros(self.config.model.vocab_size, np.float32)))
+
+    def _reinstall_guided_mask(self, er: EngineRequest) -> None:
+        """Back to host-masked guided decoding (chain closed): rebuild the
+        dense mask from the CURRENT cursor state. The drain advanced the
+        host cursor token by token, so it is exact."""
+        self.runner.set_bias_row(
+            er.slot, self._logit_bias_onto(er, self._guided_mask(er)))
+
+    async def _chain_barrier(self, loop) -> None:
+        """Host barrier: reconcile every queued chained burst and close
+        the chain, the ONLY place chain membership compacts. Runs before
+        admission-driven sync passes, preemption and shutdown."""
+        if not self._chain and not self._chain_members:
+            return
+        bursts = self._chain_dispatched
+        while self._chain:
+            await self._apply_chain_head(loop)
+        for er in self._chain_members:
+            er.chain_fp = False
+            if er.chain_bias_reset:
+                er.chain_bias_reset = False
+                if er.finish is None and er.guided is not None:
+                    self._reinstall_guided_mask(er)
+        if bursts:
+            self._last_chain_len = bursts
+            self.chain_len_max = max(self.chain_len_max, bursts)
+        self._chain_members = []
+        self._chain_carry = None
+        self._chain_dispatched = 0
+        self._chain_pos0 = {}
+        self._chain_gen0 = {}
+        self._chain_fp = False
+
+    # ---------- guided decoding on the synchronous path ----------
+
+    def _guided_allowed_ids(self, er: EngineRequest) -> List[int]:
+        """Token ids the constraint permits next, plus the eos ids wherever
+        the constrained output may legally end (a terminal trie node)."""
+        v = self.config.model.vocab_size
+        ids, at_end = er.guided.allowed()
+        allowed = [t for t in ids if 0 <= t < v]
+        if at_end:
+            allowed.extend(int(e) for e in er.req.eos_token_ids or []
+                           if 0 <= int(e) < v)
+        return allowed
+
+    def _guided_mask(self, er: EngineRequest) -> np.ndarray:
+        """Dense [V] additive mask for the NEXT sampled token: 0 for the
+        allowed ids, a large negative everywhere else. Used at admission
+        (set_sample_row); per-step updates edit sparsely instead."""
+        mask = np.full(self.config.model.vocab_size, -1e9, np.float32)
+        er.guided_allowed = self._guided_allowed_ids(er)
+        mask[er.guided_allowed] = 0.0
+        return mask
+
+    def _guided_after_token(self, er: EngineRequest,
+                            edit: bool = True) -> None:
+        """Advance the constraint past the just-sampled token; install the
+        next mask, or finish when the constraint completes. Runs between
+        _check_finish and _emit so the completing token still streams.
+
+        ``edit=False`` (the chained drain): advance the cursor and judge
+        verdicts only. The device computed this token's mask from the
+        transition table, and the barrier reinstalls the host mask if the
+        row ever returns to the sync path."""
+        if er.guided is None or er.finish is not None:
+            return
+        key_before = er.guided.state_key()
+        if er.guided.advance(er.pending_token) != "ok":
+            # "done": the final choice token. "derail": eos at a legal end
+            # point (eos is never in the constraint's own alphabet)
+            er.finish = FinishReason.STOP
+            return
+        if not edit or er.guided.state_key() == key_before:
+            return
+        # sparse edit: only the old node's and the new node's neighborhoods
+        # change: O(branching), not O(vocab), per token
+        user_bias = er.req.sampling_options.logit_bias or {}
+        new_allowed = self._guided_allowed_ids(er)
+        if not new_allowed:
+            # dead state mid-stream: stop at the valid prefix instead of
+            # emitting an unconstrained token through an all-banned mask
+            er.finish = FinishReason.STOP
+            return
+        new_set = set(new_allowed)
+        changed = list(new_set | set(er.guided_allowed))
+        vals = [(0.0 if t in new_set else -1e9)
+                + float(user_bias.get(t, 0.0))
+                for t in changed]
+        self.runner.edit_bias_entries(er.slot, changed, vals)
+        er.guided_allowed = new_allowed
 
     def _preempt(self, er: EngineRequest) -> None:
         """Return a request to the waiting queue, releasing its blocks.

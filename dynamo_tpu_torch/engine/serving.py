@@ -3,8 +3,14 @@
 The port of ``JaxServingEngine`` (``dynamo_tpu/engine/serving.py``): the
 token-level engine — ``PreprocessedRequest`` token ids in, streamed
 ``EngineOutput`` dicts out, the same interface the reference worker serves
-as ``in=dyn://... out=jax --token-level``. Not in this slice: n > 1
-fan-out, guided decoding, the stall watchdog.
+as ``in=dyn://... out=jax --token-level``. Served: sampling with
+penalties, logit_bias and logprobs, stop ids and canonical stop sequences
+(``stop_token_seqs``), guided choices by token ids
+(``guided_choice_token_ids``), on the synchronous path or, with
+``EngineConfig.decode_pipeline_depth=2``, the dispatch-ahead and chained
+device-finish decode loop. Refused by name: ``n > 1`` fan-out,
+``guided_json`` and ``guided_choice`` given as text (both need the
+tokenizer, a later slice). Not ported: the stall watchdog.
 """
 
 from __future__ import annotations
@@ -73,9 +79,14 @@ class TorchServingEngine(AsyncEngine):
         so = req.sampling_options
         if so.n is not None and so.n > 1:
             raise EngineError("n > 1 is not served by the PyTorch engine yet")
-        if so.guided_json or so.guided_choice or so.guided_choice_token_ids:
+        if so.guided_json:
             raise EngineError(
-                "guided decoding is not served by the PyTorch engine yet")
+                "guided_json is not served by the PyTorch engine yet (it "
+                "needs the tokenizer's piece table)")
+        if so.guided_choice and not so.guided_choice_token_ids:
+            raise EngineError(
+                "guided_choice without guided_choice_token_ids is not served "
+                "by the PyTorch engine (it holds no tokenizer)")
         if (req.stop_conditions.max_tokens == 0
                 and req.output_options.prompt_logprobs is None):
             # an empty completion: nothing to schedule

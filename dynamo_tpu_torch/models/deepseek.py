@@ -38,7 +38,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..engine.config import ModelConfig
-from ..ops.attention import kv_write_plan, scatter_kv_rows
+from ..ops.attention import alloc_kv_cache, kv_write_plan, scatter_kv_rows
 from .llama import (  # lm_logits: the final norm + head, as the runner reads it
     Params,
     apply_rope_cs,
@@ -177,9 +177,8 @@ def init_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     """Zeroed compressed cache: c_kv [L, N, bs, 1, R] and k_rope
     [L, N, bs, 1, RD], unpadded."""
     lead = (cfg.num_layers, num_blocks, block_size, 1)
-    return (torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype, device=device),
-            torch.zeros(lead + (cfg.qk_rope_head_dim,), dtype=dtype,
-                        device=device))
+    return (alloc_kv_cache(lead + (cfg.kv_lora_rank,), dtype, device),
+            alloc_kv_cache(lead + (cfg.qk_rope_head_dim,), dtype, device))
 
 
 def mla_paged_attention(
@@ -206,8 +205,8 @@ def mla_paged_attention(
     key_pos = torch.arange(t, device=q_lat.device)[None, None, :]
     mask = (key_pos <= q_positions.long()[:, :, None]) & (
         key_pos < context_lens.long()[:, None, None])
-    scores = torch.where(mask[:, :, None, :], scores, torch.tensor(
-        torch.finfo(scores.dtype).min, dtype=scores.dtype, device=q_lat.device))
+    scores = torch.where(mask[:, :, None, :], scores,
+                         torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores.float(), dim=-1).to(q_lat.dtype)
     return torch.einsum("bsht,btr->bshr", probs, c)
 
@@ -261,12 +260,12 @@ def make_mla_attn_fn(cfg: ModelConfig, b: int, s: int, positions,
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     scale = mla_softmax_scale(cfg)
     cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta, cfg.rope_scaling)
-    rows = slots = None
+    plan = None
 
     def attn_fn(x, lp, c_all, kr_all, li):
-        nonlocal rows, slots
-        if rows is None:
-            rows, slots = kv_write_plan(slot_mapping, c_all.shape[1] * c_all.shape[2])
+        nonlocal plan
+        if plan is None:
+            plan = kv_write_plan(slot_mapping, c_all.shape[1] * c_all.shape[2])
         if "w_uq" in lp:  # the query low-rank bottleneck (q_lora_rank > 0)
             cq = rms_norm(x @ lp["w_dq"], lp["ln_q"], cfg.rms_norm_eps)
             qfull = (cq @ lp["w_uq"]).reshape(b, s, h, nope + rope_d)
@@ -279,7 +278,7 @@ def make_mla_attn_fn(cfg: ModelConfig, b: int, s: int, positions,
         c_kv = rms_norm(x @ lp["w_dkv"], lp["ln_kv"], cfg.rms_norm_eps)
         kr = apply_rope_cs((x @ lp["w_kr"])[:, :, None, :], cos, sin)
         c_all, kr_all = scatter_kv_rows(c_all, kr_all, c_kv[:, :, None, :], kr,
-                                        rows, slots, li)
+                                        plan, li)
 
         # absorb W_uk into the query, attend over the latent cache
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope, lp["w_uk"])

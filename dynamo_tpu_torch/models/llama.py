@@ -14,13 +14,20 @@ as the reference leaves them to XLA.
 
 from __future__ import annotations
 
+import json
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..engine.config import ModelConfig
-from ..ops.attention import attention, kv_write_plan, scatter_kv_rows
+from ..ops.attention import (
+    alloc_kv_cache,
+    attention,
+    kv_write_plan,
+    scatter_kv_rows,
+)
+from ..ops.transfer import to_device
 
 Params = Dict[str, Any]
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # k, v: [L, N_blocks, bs, KVH, D]
@@ -141,12 +148,29 @@ def rope_frequencies(
     raise NotImplementedError(f"rope_scaling type {kind!r} is not ported yet")
 
 
+_ROPE_TABLES: Dict[tuple, Tuple[torch.Tensor, float]] = {}
+
+
+def _rope_table(head_dim: int, theta: float, scaling: Optional[dict], device):
+    """``rope_frequencies`` on ``device``, kept per (shape, scaling,
+    device): a forward neither recomputes the table nor copies it to the
+    card (a blocking copy would stall a dispatch-ahead decode loop)."""
+    key = (head_dim, float(theta),
+           json.dumps(scaling, sort_keys=True, default=str), str(device))
+    hit = _ROPE_TABLES.get(key)
+    if hit is None:
+        inv_freq, factor = rope_frequencies(head_dim, theta, scaling)
+        hit = _ROPE_TABLES[key] = (to_device(inv_freq, device), factor)
+    return hit
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  scaling: Optional[dict] = None):
     """(cos, sin) [B, S, 1, hd/2] f32 for ``positions`` [B, S] — computed
     once per forward and shared by every layer's q and k."""
-    inv_freq, attn_factor = rope_frequencies(head_dim, theta, scaling)
-    angles = positions.float()[..., None] * inv_freq.to(positions.device)
+    inv_freq, attn_factor = _rope_table(head_dim, theta, scaling,
+                                        positions.device)
+    angles = positions.float()[..., None] * inv_freq
     cos = torch.cos(angles)[:, :, None, :] * attn_factor
     sin = torch.sin(angles)[:, :, None, :] * attn_factor
     return cos, sin
@@ -212,11 +236,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                   dtype=torch.bfloat16, device="cpu") -> KVCache:
-    """Zeroed stacked cache pair [L, N, bs, KVH, head_dim] (unpadded)."""
+    """Zeroed stacked cache pair [L, N, bs, KVH, head_dim] (unpadded),
+    each with the spare row dropped writes go to (``alloc_kv_cache``)."""
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    return (alloc_kv_cache(shape, dtype, device),
+            alloc_kv_cache(shape, dtype, device))
 
 
 def swiglu_mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
@@ -295,12 +320,12 @@ def forward(
     hidden = params["embed"][tokens.long()]
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
     k_all, v_all = kv_cache
-    rows, slots = kv_write_plan(slot_mapping, k_all.shape[1] * k_all.shape[2])
+    plan = kv_write_plan(slot_mapping, k_all.shape[1] * k_all.shape[2])
     window = cfg.sliding_window or None
 
     def attn_fn(x, lp, k_all, v_all, li):
         q, k, v = qkv_prologue(cfg, x, lp, b, s, cos, sin)
-        k_all, v_all = scatter_kv_rows(k_all, v_all, k, v, rows, slots, li)
+        k_all, v_all = scatter_kv_rows(k_all, v_all, k, v, plan, li)
         attn = attention(q, k_all, v_all, block_tables, positions,
                          context_lens, layer_idx=li, sliding_window=window)
         return attn.reshape(b, s, h_heads * hd) @ lp["wo"], k_all, v_all

@@ -39,33 +39,117 @@ def check_attention_impl(impl: str, device) -> None:
         )
 
 
-def kv_write_plan(slot_mapping: torch.Tensor, per_layer: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(rows, slots): the flat token rows of ``new_k``/``new_v`` that are
-    written, and their slot within one layer. Computed once per forward
-    and shared by every layer's scatter.
+def alloc_kv_cache(shape, dtype, device) -> torch.Tensor:
+    """A zeroed stacked cache ``[L, N, bs, heads, dim]`` whose storage holds
+    one spare token row past its end. ``scatter_kv_rows`` sends dropped
+    rows there: no kernel, no gather and no later read ever sees it, and
+    the tensor the kernels and the tests see has exactly ``shape``."""
+    l, n, bs, heads, dim = shape
+    buf = torch.zeros((l * n * bs + 1, heads, dim), dtype=dtype, device=device)
+    return buf[:-1].view(shape)
+
+
+def _spare_view(cache: torch.Tensor):
+    """``cache`` flattened to token rows plus its spare row
+    (``alloc_kv_cache``), or None when its storage has none."""
+    heads, dim = cache.shape[-2:]
+    n_rows = cache.numel() // (heads * dim)
+    need = (cache.storage_offset() + (n_rows + 1) * heads * dim) * cache.element_size()
+    if not cache.is_contiguous() or cache.untyped_storage().nbytes() < need:
+        return None
+    return cache.as_strided((n_rows + 1, heads, dim), (heads * dim, dim, 1))
+
+
+class KVWritePlan:
+    """Where one forward's new K/V token rows go, computed once and shared
+    by every layer's scatter, at fixed shapes and with no host read (the
+    dispatch-ahead decode loop must not wait for the device).
 
     The reference drops the ``-1`` sentinel and every slot past the layer
     by mapping them past the end under ``mode="drop"``; torch has no drop
-    mode and a negative index wraps, so both are filtered out here."""
-    idx = slot_mapping.reshape(-1).long()
-    keep = (idx >= 0) & (idx < per_layer)
-    rows = torch.nonzero(keep).reshape(-1)
-    return rows, idx[rows]
+    mode and a negative index wraps. Two formulations, one result in the
+    cache:
+
+    - ``dst(n_layers)`` [L, B*S], for caches with a spare row
+      (``alloc_kv_cache``): kept rows go to their slot of the layer,
+      dropped rows to the spare row, which nothing reads.
+    - ``rows`` / ``slots`` / ``any_kept``, for any other cache: a dropped
+      row writes what the first kept row writes, to the same slot
+      (duplicates of one write carry one value); when no row is kept
+      (``any_kept`` false: an inert warmup step, a burst of frozen rows)
+      every row targets slot 0 and the scatter writes back what slot 0
+      already holds."""
+
+    def __init__(self, slot_mapping: torch.Tensor, per_layer: int):
+        self.per_layer = per_layer
+        self.idx = slot_mapping.reshape(-1).long()
+        self.keep = (self.idx >= 0) & (self.idx < per_layer)
+        self._dst = None
+        self._proxy = None
+        self._spare = {}
+
+    def dst(self, n_layers: int) -> torch.Tensor:
+        if self._dst is None or self._dst.shape[0] != n_layers:
+            base = torch.arange(n_layers, device=self.idx.device) * self.per_layer
+            self._dst = torch.where(self.keep[None, :],
+                                    self.idx[None, :] + base[:, None],
+                                    n_layers * self.per_layer)
+        return self._dst
+
+    def spare(self, cache: torch.Tensor):
+        """``_spare_view(cache)``, looked up once per forward."""
+        key = (cache.data_ptr(), cache.shape)
+        if key not in self._spare:
+            self._spare[key] = _spare_view(cache)
+        return self._spare[key]
+
+    def _proxied(self):
+        if self._proxy is None:
+            idx, keep = self.idx, self.keep
+            first = torch.argmax(keep.to(torch.int32))  # 0 when nothing is kept
+            rows = torch.where(
+                keep, torch.arange(idx.numel(), device=idx.device), first)
+            # (indexing by the 0-dim ``first`` would read it on the host)
+            any_kept = keep.any()
+            slots = torch.where(any_kept, idx[rows], torch.zeros_like(idx))
+            self._proxy = rows, slots, any_kept
+        return self._proxy
+
+    rows = property(lambda self: self._proxied()[0])
+    slots = property(lambda self: self._proxied()[1])
+    any_kept = property(lambda self: self._proxied()[2])
 
 
-def scatter_kv_rows(k_all, v_all, new_k, new_v, rows, slots, layer_idx: int):
-    """Write ``new_k/new_v`` rows ``rows`` into layer ``layer_idx`` of the
-    stacked cache at ``slots``, in place (``index_copy_``: no per-layer
-    slice of the cache is copied)."""
+def kv_write_plan(slot_mapping: torch.Tensor, per_layer: int) -> KVWritePlan:
+    """The forward's ``KVWritePlan`` for ``slot_mapping`` [B, S] (flat slot
+    within one layer; ``-1`` and slots past the layer drop)."""
+    return KVWritePlan(slot_mapping, per_layer)
+
+
+def scatter_kv_rows(k_all, v_all, new_k, new_v, plan: KVWritePlan,
+                    layer_idx: int):
+    """Write ``new_k/new_v`` [B, S, heads, dim] into layer ``layer_idx`` of
+    the stacked caches as ``plan`` says, in place (``index_copy_``: no
+    per-layer slice of a cache is copied)."""
     l, n, bs, kvh, dk = k_all.shape
     vh, dv = v_all.shape[-2:]
     per_layer = n * bs
+    src_k = new_k.reshape(-1, kvh, dk).to(k_all.dtype)
+    src_v = new_v.reshape(-1, vh, dv).to(v_all.dtype)
+    spare_k, spare_v = plan.spare(k_all), plan.spare(v_all)
+    if spare_k is not None and spare_v is not None:
+        dst = plan.dst(l)[layer_idx]
+        spare_k.index_copy_(0, dst, src_k)
+        spare_v.index_copy_(0, dst, src_v)
+        return k_all, v_all
     flat_k = k_all.view(l * per_layer, kvh, dk)
     flat_v = v_all.view(l * per_layer, vh, dv)
-    dst = slots + layer_idx * per_layer
-    flat_k.index_copy_(0, dst, new_k.reshape(-1, kvh, dk)[rows].to(k_all.dtype))
-    flat_v.index_copy_(0, dst, new_v.reshape(-1, vh, dv)[rows].to(v_all.dtype))
+    base = layer_idx * per_layer
+    dst = plan.slots + base
+    flat_k.index_copy_(0, dst, torch.where(plan.any_kept, src_k[plan.rows],
+                                           flat_k[base]))
+    flat_v.index_copy_(0, dst, torch.where(plan.any_kept, src_v[plan.rows],
+                                           flat_v[base]))
     return k_all, v_all
 
 
@@ -79,8 +163,8 @@ def scatter_kv_stacked(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write new K/V into one layer of the stacked cache, in place. The
     ``-1`` sentinel and slots past the layer are dropped."""
-    rows, slots = kv_write_plan(slot_mapping, k_all.shape[1] * k_all.shape[2])
-    return scatter_kv_rows(k_all, v_all, new_k, new_v, rows, slots, layer_idx)
+    plan = kv_write_plan(slot_mapping, k_all.shape[1] * k_all.shape[2])
+    return scatter_kv_rows(k_all, v_all, new_k, new_v, plan, layer_idx)
 
 
 def paged_attention(
@@ -123,9 +207,7 @@ def paged_attention(
     if sliding_window is not None:
         mask = mask & (key_pos > qp - int(sliding_window))
     mask = mask[:, :, None, None, :]                         # [B, S, 1, 1, T]
-    logits = torch.where(
-        mask, logits, torch.tensor(torch.finfo(logits.dtype).min,
-                                   dtype=logits.dtype, device=q.device))
+    logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
     if sinks is not None:
         sink_col = torch.as_tensor(sinks, dtype=logits.dtype,
                                    device=q.device).reshape(1, 1, kvh, groups, 1)

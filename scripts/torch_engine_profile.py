@@ -14,11 +14,21 @@ of kernel intervals over the window), and device time by kernel family and
 by kernel name. The first fused run's Chrome trace goes to
 ``chiprun_out/torch_engine_profile.json.gz``.
 
+With ``--decode-modes sync,pipelined,chained`` (any subset) it profiles the
+decode loop's modes instead, all with the fused tail and 4-step bursts:
+the synchronous engine, the dispatch-ahead engine
+(``decode_pipeline_depth=2``, ``device_finish="off"``) and the chained
+device-finish engine, in the order given and then reversed, and adds per
+run the device events per model step (a burst counts its 4 steps) and the
+loop's counters, so that the idle share of the modes can be set side by
+side.
+
 Run on the card from the repository root: ``python3 scripts/torch_engine_profile.py``.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import json
 import sys
@@ -70,7 +80,10 @@ def profile_run(torch, cfg, wave_a, wave_b, trace_path=None) -> dict:
 
     from dynamo_tpu_torch.engine.serving import TorchServingEngine
 
-    out = {"fused_epilogue": cfg.fused_epilogue}
+    out = {"fused_epilogue": cfg.fused_epilogue,
+           "decode_pipeline_depth": cfg.decode_pipeline_depth,
+           "device_finish": cfg.device_finish,
+           "multi_step_decode": cfg.multi_step_decode}
 
     async def run():
         engine = await TorchServingEngine.create(cfg, device="cuda")
@@ -89,7 +102,10 @@ def profile_run(torch, cfg, wave_a, wave_b, trace_path=None) -> dict:
                 out["traced_wall_s"] = time.monotonic() - t1
             steps1 = engine.metrics()
             out["traced_steps"] = {k: steps1[k] - steps0[k] for k in
-                                   ("prefill_steps", "decode_steps")}
+                                   ("prefill_steps", "decode_steps",
+                                    "pipeline_bursts", "device_finished_rows")}
+            out["chain_len_max"] = steps1["chain_len_max"]
+            out["sync_fallback"] = steps1["sync_fallback"]
         finally:
             await engine.close()
         return prof
@@ -107,6 +123,13 @@ def profile_run(torch, cfg, wave_a, wave_b, trace_path=None) -> dict:
     busy = union_us([(e.time_range.start, e.time_range.end) for e in kernels])
     wall_us = out["traced_wall_s"] * 1e6
     out["device_events"] = len(kernels)
+    # a decode pass is one model step, or multi_step_decode of them when it
+    # ran as a burst (every pass of the pipelined and chained modes does;
+    # the synchronous mode steps singly while prefill work waits, so its
+    # figure is a lower bound on events per step)
+    model_steps = (out["traced_steps"]["prefill_steps"]
+                   + out["traced_steps"]["decode_steps"] * cfg.multi_step_decode)
+    out["device_events_per_model_step"] = len(kernels) / max(model_steps, 1)
     out["device_busy_ms"] = busy / 1e3
     out["device_busy_share"] = busy / wall_us if wall_us else None
     out["device_ms_by_family"] = {k: v / 1e3 for k, v in sorted(
@@ -119,11 +142,26 @@ def profile_run(torch, cfg, wave_a, wave_b, trace_path=None) -> dict:
     return out
 
 
+DECODE_MODES = {
+    "sync": dict(multi_step_decode=4),
+    "pipelined": dict(multi_step_decode=4, decode_pipeline_depth=2,
+                      device_finish="off"),
+    "chained": dict(multi_step_decode=4, decode_pipeline_depth=2),
+}
+
+
 def main() -> int:
     import torch
 
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--decode-modes", default="",
+                    help="comma-separated subset of sync,pipelined,chained: "
+                         "profile the decode loop's modes instead of the tails")
+    modes = [m for m in ap.parse_args().decode_modes.split(",") if m]
+    if any(m not in DECODE_MODES for m in modes):
+        ap.error(f"unknown decode modes {modes}")
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 2
@@ -132,7 +170,15 @@ def main() -> int:
     wave_b, _ = chip_smoke._requests(np.random.default_rng(2))
     trace = ROOT / "chiprun_out" / "torch_engine_profile.json.gz"
     runs = []
-    for mode in ("off", "auto", "auto", "off"):
+    for name in modes + modes[::-1]:
+        cfg = EngineConfig(model=ModelConfig(**chip_smoke.FLAGSHIP),
+                           seed=chip_smoke.SEED,
+                           **dict(chip_smoke.ENGINE, **DECODE_MODES[name]))
+        run = profile_run(torch, cfg, wave_a, wave_b,
+                          trace if name == "chained" and not any(
+                              r.get("mode") == "chained" for r in runs) else None)
+        runs.append(dict(mode=name, **run))
+    for mode in () if modes else ("off", "auto", "auto", "off"):
         cfg = EngineConfig(model=ModelConfig(**chip_smoke.FLAGSHIP),
                            seed=chip_smoke.SEED, fused_epilogue=mode,
                            **chip_smoke.ENGINE)

@@ -175,6 +175,75 @@ def test_epilogue_kernel_matches_plain_version(v, alias):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["finish", "extra_bias", "both"])
+@pytest.mark.parametrize("v", [1000, 128256])
+def test_epilogue_kernel_forms_match_plain_version(v, form):
+    """The ``finish`` and ``extra_bias`` forms: tokens, counts, ``hard``,
+    ``cand`` and ``ring_new`` equal the plain version's exactly, logprobs
+    within 1e-4; a dead row moves neither its ring nor its counts."""
+    _need_cuda()
+    from dynamo_tpu_torch.engine.sampling import stop_seq_hash
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    logits, gumbel, samp, counts, seen, bias, slots = _epilogue_inputs(g, v=v)
+    b = logits.shape[0]
+    live = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], device=dev).bool()
+    extra = None
+    if form != "finish":
+        extra = torch.zeros(b, v, device=dev)
+        extra[5] = -1e9
+        extra[5, [17, v - 2]] = 0.0          # a guided row with two ids
+    tok0 = epilogue.fused_sampling_epilogue_ref(
+        logits, gumbel, samp, counts.clone(), seen, bias, slots, live,
+        extra_bias=extra)[0].tolist()
+    fin = None
+    if form != "extra_bias":
+        ring = torch.randint(0, v, (b, 32), generator=g, device=dev).int()
+        ring[0, :20] = -1
+        ring[1, :] = -1
+        pushed = torch.where(live[:, None], torch.cat(
+            [ring[:, 1:], torch.tensor(tok0, device=dev).int()[:, None]], 1), ring)
+        stop_ids = torch.full((b, 16), -1, dtype=torch.int32, device=dev)
+        stop_ids[0, 1], stop_ids[1, 0], stop_ids[6, 15] = tok0[0], tok0[1], tok0[6]
+        stop_hash = torch.zeros((b, 4), dtype=torch.int64, device=dev)
+        stop_hlen = torch.zeros((b, 4), dtype=torch.int32, device=dev)
+        for r in range(b):                   # matching suffixes, length 1..8
+            stop_hash[r, 2] = stop_seq_hash(pushed[r, 32 - (r + 1):].tolist())
+            stop_hlen[r, 2] = r + 1
+            stop_hash[r, 0] = stop_seq_hash([1, 2, 3])   # and one that is not
+            stop_hlen[r, 0] = 3
+        i32 = dict(dtype=torch.int32, device=dev)
+        fin = (torch.tensor([3, 2, 6, 9, 9, 2, 9, 4], **i32),
+               torch.tensor([40, 41, 42, 62, 61, 43, 44, 45], **i32),
+               torch.tensor([0, 5, 0, 0, 0, 0, 0, 0], **i32),
+               torch.tensor([99, 99, 7, 99, 99, 99, 99, 99], **i32),
+               stop_ids, ring, stop_hash, stop_hlen)
+    c_ker, c_ref = counts.clone(), counts.clone()
+    before = epilogue.launches
+    out = epilogue.fused_sampling_epilogue(
+        logits, gumbel, samp, c_ker, seen, bias, slots, live, extra_bias=extra,
+        finish=fin, max_model_len=64)
+    ref = epilogue.fused_sampling_epilogue_ref(
+        logits, gumbel, samp, c_ref, seen, bias, slots, live, extra_bias=extra,
+        finish=fin, max_model_len=64)
+    torch.cuda.synchronize()
+    assert epilogue.launches == before + 1     # one launch, whatever the form
+    assert len(out) == len(ref) == (3 if fin is None else 6)
+    assert out[0].tolist() == ref[0].tolist()
+    assert torch.equal(c_ker, c_ref) and torch.equal(c_ker[6], counts[6])
+    torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=1e-4)
+    if extra is not None:
+        assert int(out[0][5]) in (17, v - 2)
+    if fin is not None:
+        assert out[3].tolist() == ref[3].tolist() == [
+            True, False, True, True, False, False, True, False]
+        assert out[4].tolist() == ref[4].tolist() == [
+            True, False, True, True, True, False, True, False]
+        assert torch.equal(out[5], ref[5]) and torch.equal(out[5][6], fin[5][6])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h", [16, 20])
 def test_mla_decode_kernel_matches_plain_version(h):
     """DeepSeek widths (R 512, RD 64) at a small batch: ragged contexts, a

@@ -254,7 +254,10 @@ async def test_seeded_sampling_reproduces_and_validation(weights):
             PreprocessedRequest(token_ids=[600]),
             PreprocessedRequest(token_ids=[1], sampling_options=SamplingOptions(n=2)),
             PreprocessedRequest(token_ids=[1], sampling_options=SamplingOptions(
-                guided_choice=["a"], guided_choice_token_ids=[[5]])),
+                guided_json={"type": "object"})),
+            # choices given as text only: the engine holds no tokenizer
+            PreprocessedRequest(token_ids=[1], sampling_options=SamplingOptions(
+                guided_choice=["a"])),
         ):
             with pytest.raises(EngineError):
                 async for _ in engine.generate(Context(bad)):
@@ -266,17 +269,29 @@ async def test_seeded_sampling_reproduces_and_validation(weights):
 def test_config_refuses_unported_features():
     model = ModelConfig(**TINY)
     for kw in (dict(spec_draft_model="draft", spec_draft_tokens=4),
-               dict(decode_pipeline_depth=2),
-               dict(device_finish="on", decode_pipeline_depth=2),
+               # the chained propose-verify round is a later slice
+               dict(decode_pipeline_depth=2, spec_ngram_tokens=2),
+               dict(device_finish="on", decode_pipeline_depth=2,
+                    spec_ngram_tokens=4),
                dict(tp_size=2), dict(kv_cache_dtype="fp8"),
                dict(host_kv_blocks=8)):
         with pytest.raises(NotImplementedError):
             EngineConfig(model=model, **kw)
     # served since the second slice: bursts, ngram speculation, the
-    # epilogue's route on any device
+    # epilogue's route on any device; since the fourth: the dispatch-ahead
+    # pipeline and the chained device-finish loop with its knobs
     for kw in (dict(multi_step_decode=4), dict(spec_ngram_tokens=2),
-               dict(fused_epilogue="on"), dict(fused_epilogue="auto")):
+               dict(fused_epilogue="on"), dict(fused_epilogue="auto"),
+               dict(decode_pipeline_depth=2),
+               dict(decode_pipeline_depth=2, device_finish="off"),
+               dict(device_finish="on", decode_pipeline_depth=2,
+                    multi_step_decode=4, guided_device_table=False,
+                    guided_table_max_states=64, device_stop_strings=False)):
         EngineConfig(model=model, **kw)
+    assert EngineConfig(model=model, decode_pipeline_depth=2).device_finish_enabled
+    # "on" below the pipeline depth is an error, as in the reference
+    with pytest.raises(ValueError):
+        EngineConfig(model=model, device_finish="on")
     moe = EngineConfig(model=dataclasses.replace(model, num_experts=4))
     with pytest.raises(NotImplementedError):
         ModelRunner(moe, device="cpu")

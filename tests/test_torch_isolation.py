@@ -49,7 +49,25 @@ def test_port_imports_without_jax_or_reference_package():
     assert {"dynamo_tpu_torch.ops.epilogue", "dynamo_tpu_torch.ops.paged_verify",
             "dynamo_tpu_torch.ops.paged_decode", "dynamo_tpu_torch.ops.paged_flash",
             "dynamo_tpu_torch.ops.mla_decode", "dynamo_tpu_torch.models.deepseek",
-            "dynamo_tpu_torch.models.mixtral"} <= set(mods)
+            "dynamo_tpu_torch.models.mixtral", "dynamo_tpu_torch.engine.guided",
+            "dynamo_tpu_torch.ops.transfer"} <= set(mods)
+    _import_refusing_reference(mods)
+
+
+def test_guided_module_imports_without_jax_or_reference_package():
+    """``engine/guided.py`` alone (the reference's is imported by its
+    scheduler at module level): neither jax nor ``dynamo_tpu`` comes with
+    it, and the trie cursor works in that interpreter."""
+    _import_refusing_reference(["dynamo_tpu_torch.engine.guided"], """
+        from dynamo_tpu_torch.engine.guided import (
+            TrieConstraint, compile_device_table)
+        c = TrieConstraint([[4, 5], [4, 6, 7]])
+        assert c.advance(4) == "ok" and c.advance(5) == "done"
+        assert compile_device_table(c, 16, [2]).n_states == 4
+    """)
+
+
+def _import_refusing_reference(mods, then=""):
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         for m in list(sys.modules):
@@ -70,6 +88,7 @@ def test_port_imports_without_jax_or_reference_package():
         sys.path.insert(0, {str(REPO)!r})
         for m in {mods!r}:
             importlib.import_module(m)
+    """) + textwrap.dedent(then) + textwrap.dedent(f"""
         import torch
         assert not torch.cuda.is_initialized(), "an import initialised CUDA"
         bad = [m for m in sys.modules if blocked(m)]
