@@ -7,7 +7,7 @@ It needs one CUDA device and the CUDA toolkit (``nvcc``); it imports
 nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
 
 1. ``device``  — the card's name and ``nvidia-smi`` name / power limit.
-2. ``build``   — builds the five kernel sources of
+2. ``build``   — builds the six kernel sources of
    ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
 3. ``kernels`` — holds each kernel against its plain PyTorch version at the
    Llama-3.2-1B shapes (H=32, KVH=8, D=64, bs=16, bf16, a 16-layer stacked
@@ -21,7 +21,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    non-matching suffixes of every length 1-8, a dead row, guided rows);
    and the MLA decode
    kernel at DeepSeek-V2-Lite's shapes (H 16, R 512, RD 64, a 27-layer
-   stacked latent cache, the decode contexts incl. a ctx-1 row). It times
+   stacked latent cache, the decode contexts incl. a ctx-1 row); and the
+   sequence-parallel prefix partials kernel for 4 ranks of a 2,048-token
+   chunk over one broadcast block table, at prefixes 0 to 14,336. It times
    kernel, plain version, a PyTorch library call where one computes the
    same function (SDPA over pre-gathered dense keys, a yardstick only) and
    the card's bound for the same work.
@@ -56,6 +58,15 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    streams), and the logits of a prefill and a decode step at full width
    and 2 layers against the CPU in f32. Twins within one wave may part
    there: the reference's expert capacity at a decode batch of 8 is 1.
+8. ``engine_sp`` — sequence-parallel long-context prefill on Llama-3.2-1B
+   (16k context, ``sp_size`` 4, the ranks laid out on the one card): a
+   12,000- and a 6,000-token prompt on the SP ladder beside two short
+   prompts on the dense ladder, then a prefix-hit request, on a
+   synchronous SP engine, a dense engine and a chained SP engine over the
+   same weights; streams against the dense engine's (equal or parted at a
+   near-tie) and the chained engine's (equal), the 12k prompt's SP logits
+   against the dense ladder's on the card, kernel 6 once a layer per SP
+   chunk, every SP chunk under the sync guard, the early handoffs.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -348,6 +359,7 @@ def kernel_phase(torch, dev):
         library_ms=t["library_ms"])
     entries["paged_verify"] = _verify_cases(torch, dev, g, k, v, k32, v32,
                                             bt, ctx_l, LAYER)
+    entries["sp_prefix"] = _sp_prefix_cases(torch, dev, g, k, v, k32, v32, LAYER)
     del k, v, k32, v32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -426,6 +438,92 @@ def _verify_cases(torch, dev, g, k, v, k32, v32, bt, ctx_l, layer):
                 replaces="dynamo_tpu/ops/pallas_decode.py:634",
                 max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
+
+
+# kernel 6 at the engine_sp phase's chunk: 4 ranks of a 2,048-token chunk
+SP_RANKS, SP_ROWS = 4, 512
+SP_PREFIXES = (0, 1, 15, 16, 17, 8192, 14336)
+# tolerances of the prefix partials against the plain version on the same
+# bf16 values in f32 (only the summation order and the fast exp differ):
+# m to 1e-3 absolute + 1e-3 relative; l to 1e-3 relative + 1e-3; acc to
+# 1e-3 of its row's l (|acc| <= l * max|v|) + 1e-3 relative
+SP_PREFIX_TOL = 1e-3
+
+
+def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
+    """The prefix partials kernel (kernel 6) against its plain version at
+    the one-card SP call's shapes: q [4, 512, 32, 64] (4 ranks of a 2,048-
+    token chunk) over one block table row broadcast to the ranks, layer
+    ``layer`` of the 16-layer cache, at every prefix of ``SP_PREFIXES``
+    (the empty prefix exactly: m == -1e30, l == acc == 0). Timed at the
+    longest prefix beside the plain version, the bound (by operations) and
+    SDPA over the gathered prefix, non-causal: a yardstick that computes the
+    normalised output, not the partials, and that the port never calls."""
+    from dynamo_tpu_torch.ops import sp_prefix as spx
+
+    F = torch.nn.functional
+    L, N, BS, KVH, D = k.shape
+    H, R, S = FLAGSHIP["num_heads"], SP_RANKS, SP_ROWS
+    row = torch.randperm(N, generator=g, device=dev).int()[None]
+    bt = row.expand(R, N)                      # stride 0: no copy per rank
+    q = torch.randn(R, S, H, D, generator=g, device=dev).bfloat16()
+    tol = SP_PREFIX_TOL
+    errs = {}
+    for pfx in SP_PREFIXES:
+        acc, m, l = spx.paged_prefix_attention_partials(q, k, v, bt, pfx, layer)
+        if pfx == 0:
+            torch.cuda.synchronize()
+            if not (bool((m == spx.MASK_VALUE).all()) and bool((l == 0).all())
+                    and bool((acc == 0).all())):
+                raise AssertionError("sp prefix: the empty prefix is not "
+                                     "m = -1e30, l = acc = 0")
+            errs[pfx] = dict(m=0.0, l=0.0, acc=0.0)
+            continue
+        racc, rm, rl = spx.paged_prefix_attention_partials_ref(
+            q.float(), k32, v32, bt, pfx, layer)
+        torch.cuda.synchronize()
+        e = dict(m=(m - rm).abs(), l=(l - rl).abs(), acc=(acc - racc).abs())
+        bad = dict(m=e["m"] > tol + tol * rm.abs(),
+                   l=e["l"] > tol + tol * rl.abs(),
+                   acc=e["acc"] > tol * rl[..., None] + tol * racc.abs())
+        for name, b in bad.items():
+            if bool(b.any()) or not bool(e[name].isfinite().all()):
+                raise AssertionError(
+                    f"sp prefix {pfx}: {name} out of tolerance in "
+                    f"{int(b.sum())} elements, max |diff| {float(e[name].max()):.3g}")
+        errs[pfx] = {name: float(x.max()) for name, x in e.items()}
+        del racc, rm, rl
+    P = SP_PREFIXES[-1]
+    ms = cuda_ms(lambda: spx.paged_prefix_attention_partials(q, k, v, bt, P, layer))
+    plain_ms = cuda_ms(lambda: spx.paged_prefix_attention_partials_ref(
+        q.float(), k32, v32, bt, P, layer), iters=5, warmup=1)
+    pages = row[0, : -(-P // BS)].long()
+    kd = k[layer][pages].reshape(1, -1, KVH, D)[:, :P].transpose(1, 2)
+    vd = v[layer][pages].reshape(1, -1, KVH, D)[:, :P].transpose(1, 2)
+    kd = kd.repeat_interleave(H // KVH, dim=1).expand(R, H, P, D).contiguous()
+    vd = vd.repeat_interleave(H // KVH, dim=1).expand(R, H, P, D).contiguous()
+    qd = q.transpose(1, 2).contiguous()
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd))
+    flops = 4.0 * R * S * H * P * D
+    nbytes = (P * KVH * D * 2 * 2            # K and V of the prefix, once
+              + q.numel() * 2                # q in bf16
+              + q.numel() * 4 + 2 * R * S * H * 4)  # acc, m, l in f32
+    bound, by = _bound_ms(flops, nbytes)
+    torch.cuda.synchronize()
+    emit("kernels", kernel="sp_prefix",
+         shape=dict(ranks=R, S=S, H=H, KVH=KVH, D=D, bs=BS, L=L, layer=layer,
+                    W=N, prefixes=list(SP_PREFIXES)),
+         max_err=errs, tol=dict(m="1e-3 + 1e-3|ref|", l="1e-3 + 1e-3|ref|",
+                                acc="1e-3 l + 1e-3|ref|"),
+         timed_prefix=P, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+         bound_ms=bound, bound_by=by, ctas=(S // (64 // (H // KVH))) * KVH * R)
+    del kd, vd, qd
+    return dict(
+        name="paged_prefix_attention_partials", route="cuda",
+        source="dynamo_tpu_torch/csrc/sp_prefix.cu",
+        replaces="dynamo_tpu/ops/pallas_sp.py:232",
+        max_abs_err=max(max(e.values()) for e in errs.values()), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
 
 
 def _mla_cases(torch, dev):
@@ -1023,7 +1121,7 @@ def _check_logits(torch, cfg, arch, mcfg, device, params, prompt_a, prompt_b):
 
 
 KERNEL_MODULES = ("paged_decode", "paged_flash", "paged_verify", "epilogue",
-                  "mla_decode")
+                  "mla_decode", "sp_prefix")
 
 
 def _reset_launches():
@@ -1242,16 +1340,18 @@ def _chain_requests(prompts, probe):
 
 
 def _guard_dispatches(torch, runner, layers, k_steps, on_card=True,
-                      attention="paged_decode"):
+                      attention="paged_decode", sp=False):
     """Wrap the runner's programs so that each runs under
     ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside a
     dispatch raises), and count, per burst, the epilogue's and the decode
     kernel's launches: a burst must launch the epilogue once a step and
     the decode kernel (``attention``: ``paged_decode``, or ``mla_decode``
     on the MLA path) once a layer a step. Draining a burst (the event
-    wait, reading the pinned buffers) is outside the guard. ``on_card``
-    false (a rehearsal on the CPU, where no kernel launches) only counts
-    the calls."""
+    wait, reading the pinned buffers) is outside the guard. With ``sp``,
+    every SP chunk dispatch runs under the guard too, and its start, its
+    commit flag and its prefix-kernel and flash-kernel launches are
+    recorded (``sp_chunks``). ``on_card`` false (a rehearsal on the CPU,
+    where no kernel launches) only counts the calls."""
     import importlib
 
     from dynamo_tpu_torch.ops import epilogue
@@ -1288,6 +1388,29 @@ def _guard_dispatches(torch, runner, layers, k_steps, on_card=True,
     guard("decode_burst", True)
     guard("step", False)
     guard("stage_to_host", False)
+    if sp:
+        from dynamo_tpu_torch.ops import paged_flash, sp_prefix
+
+        stats["sp_chunks"] = []
+        chunk = runner.sp_prefill_chunk
+
+        def sp_wrapped(prompt, start, *args, **kw):
+            s0, f0 = sp_prefix.launches, paged_flash.launches
+            prev = torch.cuda.get_sync_debug_mode() if on_card else None
+            if on_card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = chunk(prompt, start, *args, **kw)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(prev)
+            stats["sp_chunks"].append(dict(
+                start=start, end=len(prompt), commit=kw.get("commit", False),
+                sp_prefix=sp_prefix.launches - s0,
+                paged_flash=paged_flash.launches - f0))
+            return out
+
+        runner.sp_prefill_chunk = sp_wrapped
     return stats
 
 
@@ -1416,6 +1539,17 @@ def engine_chain_phase(torch, dev, smi):
         sampling_epilogue_finish=chained["stats"]["chained_epilogue_launches"])
 
 
+def _busy_us(kernels):
+    """Device-busy microseconds: the union of the kernels' intervals."""
+    busy, end = 0.0, None
+    for s0, e0 in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if end is None or s0 > end:
+            busy, end = busy + e0 - s0, e0
+        elif e0 > end:
+            busy, end = busy + e0 - end, e0
+    return busy
+
+
 def _decode_step_profile(torch, runner, steps=5):
     """Host-clock time of inert single-token decode steps at the engine's
     batch (8 rows at the decode phase's contexts, every KV slot the drop
@@ -1457,12 +1591,7 @@ def _decode_step_profile(torch, runner, steps=5):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy, end = 0.0, None
-    for s0, e0 in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        if end is None or s0 > end:
-            busy, end = busy + e0 - s0, e0
-        elif e0 > end:
-            busy, end = busy + e0 - end, e0
+    busy = _busy_us(kernels)
     weight_bytes = sum(
         t.numel() * t.element_size()
         for group in runner.params.values()
@@ -1628,7 +1757,275 @@ def engine_mla_phase(torch, dev, smi):
     return dict(mla_decode=launches["mla_decode"])
 
 
-PHASES = ("kernels", "engine", "engine_chain", "engine_mla")
+# the sequence-parallel phase: Llama-3.2-1B with a 16k context and the SP
+# ladder at 4 ranks on the card. The SP chunk is 2,048 tokens (4 ranks x the
+# 512-token step budget); the threshold sits between the short prompts
+# (300, 900: dense ladder) and the prefix-hit request's 1,000-token suffix
+SP_ENGINE = dict(max_model_len=16384, num_kv_blocks=2048, multi_step_decode=4,
+                 sp_size=4, max_prefill_tokens_per_step=512,
+                 long_prefill_threshold_tokens=1000)
+# (prompt tokens, sampling): 6 SP chunks, 3 SP chunks, two dense prompts
+SP_WAVE = ((12000, dict(temperature=0.0)),
+           (6000, dict(temperature=0.8, seed=2024)),
+           (300, dict(temperature=0.0)), (900, dict(temperature=0.0)))
+# after the wave: the first 8,192 tokens of the 12k prompt + 1,000 new ones
+SP_SHARED, SP_EXTRA = 8192, 1000
+
+
+def _profiled(torch, fn):
+    """Run ``fn`` once under ``torch.profiler`` (after a synchronize) and
+    return its device time by kernel family (``sp_prefix`` the prefix
+    kernel, ``paged_flash`` the flash kernel, ``gemm`` the cuBLAS / CUTLASS
+    products incl. the ring's f32 einsums, ``other`` the rest), the
+    device-busy time (the union of kernel intervals), the traced wall and
+    the number of device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    fams = dict(sp_prefix=0.0, paged_flash=0.0, gemm=0.0, other=0.0)
+    for e in kernels:
+        low = e.name.lower()
+        fam = ("sp_prefix" if "sp_prefix" in low else
+               "paged_flash" if "paged_flash" in low else
+               "gemm" if any(k in low for k in ("gemm", "xmma", "cutlass",
+                                                 "nvjet", "gemv")) else "other")
+        fams[fam] += e.time_range.elapsed_us() / 1e3
+    busy = _busy_us(kernels)
+    return out, dict(device_ms_by_family=fams, device_busy_ms=busy / 1e3,
+                     traced_wall_ms=wall * 1e3, device_events=len(kernels))
+
+
+def _sp_logits(torch, runner, prompt, dense_step):
+    """The last-row logits of ``prompt`` on the card, through the SP ladder's
+    chunks (``sp_decoder_forward``, the runner's chunk shape) and through the
+    dense ladder's ``dense_step``-token chunks (``llama.forward``), each on
+    a fresh cache of its own, from the runner's weights. A CPU f32 forward
+    of a 12k prompt at full depth would take too long here; the dense
+    ladder's bf16 logits on the card are the reference instead. On a card
+    the last chunk of each ladder runs under ``torch.profiler``
+    (``_profiled``): where an SP chunk's time goes, beside the dense
+    ladder's step over the same last positions."""
+    from dynamo_tpu_torch.engine.model_runner import build_prefill_arrays
+    from dynamo_tpu_torch.models import llama
+
+    cfg, dev = runner.config, runner.device
+    mcfg, bs = cfg.model, cfg.kv_block_size
+    n = len(prompt)
+    blocks = list(range(-(-n // bs)))
+
+    def t(a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    on_card = torch.device(dev).type == "cuda"
+    profiles = {}
+
+    def run(name, fn, last):
+        if not (on_card and last):
+            return fn()
+        out, profiles[name] = _profiled(torch, fn)
+        return out
+
+    with torch.inference_mode():
+        cache = llama.init_kv_cache(mcfg, len(blocks), bs, runner.dtype, dev)
+        S = runner.sp_chunk_tokens
+        for start in range(0, n, S):
+            end = min(start + S, n)
+            tok, pos, bt, slots, _, _ = build_prefill_arrays(
+                cfg, prompt[:end], start, blocks, bucket=S)
+            hidden, cache = run("sp_last_chunk", lambda: llama.sp_decoder_forward(
+                runner.params, mcfg, t(tok), t(pos), cache, t(bt, torch.int32),
+                t(slots), end, start, cfg.sp_size), end == n)
+        profiles["sp_last_chunk_tokens"] = [start, end]
+        sp = llama.lm_logits(hidden[0, end - start - 1], runner.params, mcfg)
+        del cache
+        cache = llama.init_kv_cache(mcfg, len(blocks), bs, runner.dtype, dev)
+        for start in range(0, n, dense_step):
+            end = min(start + dense_step, n)
+            tok, pos, bt, slots, ctx, last = build_prefill_arrays(
+                cfg, prompt[:end], start, blocks, bucket=dense_step)
+            hidden, cache = run("dense_last_step", lambda: llama.forward(
+                runner.params, mcfg, t(tok), t(pos), cache, t(bt, torch.int32),
+                t(slots), t(ctx, torch.int32), return_hidden=True), end == n)
+        profiles["dense_last_step_tokens"] = [start, end]
+        dense = llama.lm_logits(hidden[0, int(last[0])], runner.params, mcfg)
+        del cache
+    sp, dense = sp.float().cpu(), dense.float().cpu()
+    return dict(rel_l2=float((sp - dense).norm() / dense.norm()),
+                argmax_equal=int(sp.argmax()) == int(dense.argmax()),
+                profiles=profiles)
+
+
+def engine_sp_phase(torch, dev, smi):
+    """Sequence-parallel long-context prefill on Llama-3.2-1B at full width
+    and depth (the seeded random bf16 weights), 16k context, ``sp_size`` 4
+    (the ranks laid out on the one card), three engines over the same weight
+    tensors, in turns: the synchronous SP engine, the dense engine
+    (``sp_size`` 1) and the chained SP engine (``decode_pipeline_depth`` 2).
+    Each serves ``SP_WAVE`` concurrently (two prompts on the SP ladder, two
+    short ones on the dense ladder decoding meanwhile), then a request that
+    shares the first 8,192 tokens of the 12k prompt, whose first SP chunk
+    starts at 8,192 on prefix-cache blocks. Launches are counted from 0
+    just before the wave and read just after the last request.
+
+    Checks: stream lengths and finish reasons; the SP streams equal the
+    dense engine's or part at a printed near-tie; the chained SP engine
+    streams exactly as the synchronous one; the 12k prompt's last-row
+    logits through the SP chunks within ``LOGITS_REL_L2`` of the dense
+    ladder's; kernel 6 launched once a layer per SP chunk and no flash
+    kernel inside an SP chunk; every SP chunk dispatch under
+    ``torch.cuda.set_sync_debug_mode("error")``; at least 3 early
+    handoffs; no KV block in use at the end. The numbers are printed before
+    the checks run."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+
+    layers, k_steps = FLAGSHIP["num_layers"], SP_ENGINE["multi_step_decode"]
+    on_card = torch.device(dev).type == "cuda"
+    vocab = FLAGSHIP["vocab_size"]
+
+    def config(**kw):
+        return EngineConfig(model=ModelConfig(**FLAGSHIP), seed=SEED,
+                            **dict(ENGINE, **dict(SP_ENGINE, **kw)))
+
+    rng = np.random.default_rng(SEED + 5)
+    wave = [([int(t) for t in rng.integers(0, vocab, n)], samp)
+            for n, samp in SP_WAVE]
+    hit = wave[0][0][:SP_SHARED] + [int(t) for t in rng.integers(0, vocab, SP_EXTRA)]
+    greedy = dict(temperature=0.0)
+
+    async def run(kw, params=None, keep_runner=False):
+        # the engine before this one goes first: each peak holds the shared
+        # weights and this engine's own cache, not an earlier engine's
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        engine = await TorchServingEngine.create(config(**kw), params=params,
+                                                 device=dev)
+        stats = _guard_dispatches(torch, engine.runner, layers, k_steps,
+                                  on_card, sp=True)
+        try:
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            _reset_launches()
+            t0 = time.monotonic()
+            res1 = await _serve(engine, wave)
+            wall = time.monotonic() - t0
+            res2 = await _serve(engine, [(hit, greedy)])
+            launches = _read_launches()
+            out = dict(res=res1 + res2, wall=wall, launches=launches,
+                       metrics=engine.metrics(), stats=stats,
+                       peak=torch.cuda.max_memory_allocated(dev) if on_card else None,
+                       blocks_in_use=engine.scheduler.allocator.used,
+                       params=engine.runner.params,
+                       runner=engine.runner if keep_runner else None)
+        finally:
+            await engine.close()
+        return out
+
+    sp = asyncio.run(run({}))
+    params = sp["params"]
+    dense = asyncio.run(run(dict(sp_size=1, long_prefill_threshold_tokens=0),
+                            params))
+    chained = asyncio.run(run(dict(decode_pipeline_depth=2), params,
+                              keep_runner=True))
+    runner = chained.pop("runner")
+    logits = _sp_logits(torch, runner, wave[0][0], ENGINE["max_prefill_tokens_per_step"])
+    requests = wave + [(hit, greedy)]
+    parted = _spec_agreement(torch, runner, requests, dense["res"], sp["res"])
+    del params, runner
+    runs = dict(sp=sp, dense=dense, sp_chained=chained)
+    for r in runs.values():
+        del r["params"]
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def summary(r):
+        wave_res = r["res"][:len(wave)]
+        ttfts = sorted(x["ttft_s"] for x in wave_res)
+        m = r["metrics"]
+        return dict(
+            wave_wall_s=r["wall"],
+            wave_output_tokens_per_s=len(wave_res) * NEW_TOKENS / r["wall"],
+            ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2],
+                        max=ttfts[-1]),
+            ttft_12k_s=wave_res[0]["ttft_s"], ttft_prefix_hit_s=r["res"][-1]["ttft_s"],
+            peak_memory_bytes=r["peak"],
+            prefill_steps=m["prefill_steps"], decode_steps=m["decode_steps"],
+            sp_chunks=m["sp_chunks"], sp_tokens=m["sp_tokens"],
+            sp_handoffs=m["sp_handoffs"], pipeline_bursts=m["pipeline_bursts"],
+            sync_fallback=m["sync_fallback"],
+            prefix_hit_rate=m["gpu_prefix_cache_hit_rate"],
+            launches=r["launches"], sp_chunk_dispatches=r["stats"]["sp_chunks"],
+            bad_bursts=r["stats"]["bad"], blocks_in_use=r["blocks_in_use"])
+
+    emit("engine_sp", model="Llama-3.2-1B shapes, seeded random bf16 weights",
+         config=dict(ENGINE, **SP_ENGINE),
+         wave=[dict(prompt_tokens=n, **samp) for n, samp in SP_WAVE],
+         prefix_hit=dict(shared=SP_SHARED, new=SP_EXTRA), new_tokens=NEW_TOKENS,
+         engines={name: summary(r) for name, r in runs.items()},
+         logits_12k_sp_vs_dense=logits, sp_vs_dense_parted=parted, card=smi)
+
+    for name, r in runs.items():
+        _check_streams(r["res"], NEW_TOKENS)
+        if r["blocks_in_use"]:
+            raise AssertionError(f"{name} engine: {r['blocks_in_use']} KV blocks "
+                                 "still in use after the run")
+        if r["stats"]["bad"]:
+            raise AssertionError(
+                f"{name} engine: a burst did not launch the epilogue once a "
+                f"step and the decode kernel once a layer a step: "
+                f"{r['stats']['bad'][:4]}")
+    got = [(x["tokens"], x["finish"]) for x in chained["res"]]
+    want = [(x["tokens"], x["finish"]) for x in sp["res"]]
+    if got != want:
+        raise AssertionError("the chained SP engine streams differently from "
+                             "the synchronous SP engine")
+    if not logits["rel_l2"] <= LOGITS_REL_L2:
+        raise AssertionError(f"12k prompt: SP logits vs the dense ladder's, "
+                             f"relative L2 {logits['rel_l2']:.4g} > {LOGITS_REL_L2}")
+    # 12,000 and 6,000 tokens in 2,048-token chunks, then the 1,000-token
+    # suffix of the prefix hit: 6 + 3 + 1
+    bucket = config().sp_prefill_bucket()
+    want_chunks = sum(-(-n // bucket) for n, _ in SP_WAVE
+                      if n >= SP_ENGINE["long_prefill_threshold_tokens"])
+    want_chunks += -(-SP_EXTRA // bucket)
+    for name in ("sp", "sp_chained"):
+        r = runs[name]
+        m, chunks = r["metrics"], r["stats"]["sp_chunks"]
+        if len(chunks) != m["sp_chunks"] or m["sp_chunks"] != want_chunks:
+            raise AssertionError(f"{name}: SP chunks {m['sp_chunks']} "
+                                 f"(dispatches seen {len(chunks)})")
+        if SP_SHARED not in [c["start"] for c in chunks]:
+            raise AssertionError(f"{name}: no SP chunk started at {SP_SHARED} "
+                                 f"(the prefix hit): {chunks}")
+        if m["sp_handoffs"] < 3:
+            raise AssertionError(f"{name}: {m['sp_handoffs']} early handoffs (< 3)")
+        if on_card:
+            launches = r["launches"]
+            if launches["sp_prefix"] != layers * m["sp_chunks"] or any(
+                    c["sp_prefix"] != layers or c["paged_flash"] for c in chunks):
+                raise AssertionError(
+                    f"{name}: kernel 6 launched {launches['sp_prefix']} times for "
+                    f"{m['sp_chunks']} SP chunks of {layers} layers, per chunk "
+                    f"{[(c['sp_prefix'], c['paged_flash']) for c in chunks]}")
+            if launches["paged_flash"] != layers * m["prefill_steps"]:
+                raise AssertionError(
+                    f"{name}: the flash kernel launched {launches['paged_flash']} "
+                    f"times for {m['prefill_steps']} dense prefill steps")
+            _check_launches(name, launches, ("paged_decode", "epilogue"))
+    if dense["metrics"]["sp_chunks"] or (on_card and dense["launches"]["sp_prefix"]):
+        raise AssertionError("the dense engine ran an SP chunk")
+    return dict(sp_prefix=sp["launches"]["sp_prefix"])
+
+
+PHASES = ("kernels", "engine", "engine_chain", "engine_mla", "engine_sp")
 
 
 def main(argv=None) -> int:
@@ -1675,7 +2072,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     for name, phase in (("engine", engine_phase),
                         ("engine_chain", engine_chain_phase),
-                        ("engine_mla", engine_mla_phase)):
+                        ("engine_mla", engine_mla_phase),
+                        ("engine_sp", engine_sp_phase)):
         if name in phases:
             launches.update(phase(torch, dev, smi))
             torch.cuda.synchronize()

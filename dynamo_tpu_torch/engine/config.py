@@ -284,15 +284,16 @@ class EngineConfig:
     dp_size: int = 1
     ep_size: int = 1
     tp_size: int = 1
-    # sequence parallelism for long-context prefill (parallel/sequence.py,
-    # docs/long_context.md): sp_size > 1 adds an ``sp`` mesh axis and
-    # compiles a sequence-parallel prefill program (``prefill_sp``) that
-    # shards ONE oversized prompt's tokens across the axis — ring
-    # attention over the chunk + the committed paged prefix — so a 128k
-    # prompt prefills across the slice instead of monopolizing one chip.
-    # Decode programs ignore the axis (their specs never name it), so an
-    # sp engine decodes exactly as before. Llama-family GQA dense trunks
-    # only (the ring kernel has no MLA/MoE/sliding-window variant yet).
+    # sequence parallelism for long-context prefill (parallel/sequence.py):
+    # sp_size > 1 routes ONE oversized prompt at a time through the
+    # sequence-parallel chunk ladder — ring attention over the chunk's
+    # fresh K/V merged with partials of the committed paged prefix. In the
+    # port the ``sp`` ranks are laid out on the one device as the leading
+    # dimension of the query shard (rank r owns chunk rows [r·S/sp,
+    # (r+1)·S/sp), the ring's rotation is a roll of that dimension); it is
+    # not a mesh of cards. Decode ignores it, so an sp engine decodes
+    # exactly as before. Llama-family GQA dense trunks only (no MLA, MoE,
+    # sliding window or softcap), and no tp/pp beside it.
     sp_size: int = 1
     # the admission class: prompts whose uncached suffix is at least this
     # long route to the sequence-parallel prefill program (local mesh) or,
@@ -536,6 +537,7 @@ class EngineConfig:
                     self.max_prefill_tokens_per_step
                     or self.prefill_buckets[-1]
                 )
+            self.check_sp_trunk()
         self._reject_unported()
         self.prefix_pull_min_blocks = max(1, self.prefix_pull_min_blocks)
         self.prefix_pull_timeout_s = max(0.1, self.prefix_pull_timeout_s)
@@ -583,10 +585,11 @@ class EngineConfig:
         (``decode_pipeline_depth=2``) and the chained device-finish loop
         on top of it (``device_finish``, with ``guided_device_table``,
         ``guided_table_max_states`` and ``device_stop_strings`` as live
-        knobs), on one device with bf16 / f32 KV. Not served: the chained
-        propose-verify round (so the pipeline together with speculation),
-        draft models, sequence-parallel prefill, several devices, KV
-        tiers and pulls, quantization. Each refusal names the knob so a
+        knobs), sequence-parallel prefill (``sp_size``, its ranks on the
+        one device), on one device with bf16 / f32 KV. Not served: the
+        chained propose-verify round (so the pipeline together with
+        speculation), draft models, several devices (so SP over TP heads),
+        KV tiers and pulls, quantization. Each refusal names the knob so a
         reference config that uses it fails loudly instead of serving
         something else."""
         unported = []
@@ -596,8 +599,14 @@ class EngineConfig:
                 "chained propose-verify round)")
         if self.spec_draft_model:
             unported.append("spec_draft_model (draft-model speculation)")
-        if self.sp_size > 1 or self.long_prefill_threshold_tokens:
-            unported.append("sequence-parallel prefill")
+        if self.sp_size == 1 and self.long_prefill_threshold_tokens:
+            unported.append(
+                "long_prefill_threshold_tokens with sp_size 1 (the disagg "
+                "prefill pool's admission class)")
+        if self.sp_size > 1 and self.tp_size > 1:
+            unported.append(
+                "sp_size > 1 with tp_size > 1 (the SP ring over "
+                "tensor-parallel heads, a rank per card)")
         if max(self.tp_size, self.dp_size, self.ep_size, self.pp_size) > 1:
             unported.append("multi-device parallelism (tp/dp/ep/pp)")
         if self.host_kv_blocks or self.cold_tier_blocks or self.prefix_pull:
@@ -612,6 +621,21 @@ class EngineConfig:
             raise NotImplementedError(
                 "not ported to the PyTorch engine yet: " + "; ".join(unported)
             )
+
+    def check_sp_trunk(self) -> None:
+        """Refuse, by name, the trunks the sequence-parallel chunk has no
+        form for (the reference's SP gate, ``model_runner.py:1003-1011``):
+        MLA, mixture-of-experts layers, sliding windows, logit softcaps."""
+        m = self.model
+        bad = [name for name, on in (
+            ("MLA attention (kv_lora_rank)", m.kv_lora_rank),
+            ("mixture-of-experts layers (num_experts)", m.num_experts),
+            ("sliding_window", m.sliding_window),
+            ("attn_logit_softcap", m.attn_logit_softcap)) if on]
+        if bad:
+            raise ValueError(
+                "sequence-parallel prefill (sp_size > 1) serves llama-family "
+                "GQA dense trunks only; this model has " + ", ".join(bad))
 
     @property
     def blocks_per_seq(self) -> int:

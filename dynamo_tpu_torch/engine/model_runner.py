@@ -16,15 +16,17 @@ starts a burst's outputs on their way back. The model family's module
 comes from ``models.resolve`` (Llama-family GQA, or DeepSeek MLA with
 routed experts), as in the reference. PyTorch runs eagerly, so there is no
 compiled-program cache; the KV cache and the sample state are updated in
-place. Not in this slice (later work): the chained propose-verify round,
-draft-model speculation, sequence-parallel prefill, embeddings, block
+place. With ``sp_size > 1`` the runner also owns the sequence-parallel
+prefill chunk (``sp_prefill_chunk``: one fixed ``[1, S]`` shape, the ``sp``
+ranks laid out on the one device). Not in this slice (later work): the
+chained propose-verify round, draft-model speculation, embeddings, block
 gather/scatter for offload or migration, CUDA graphs and compile tracking.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +145,31 @@ def sample_and_logprobs(cfg, last_logits, samp: SamplingParams, gumbel,
     return (next_tokens, lps, top_vals, top_ids) + tuple(verdicts)
 
 
+def build_prefill_arrays(cfg: EngineConfig, prompt: List[int], num_cached: int,
+                         block_ids: List[int], bucket: Optional[int] = None):
+    """Batch-of-1 arrays for one bucketed prefill step: (tokens, positions,
+    block_tables, slot_mapping, context_lens, last_idx) — the leading
+    arguments of ``ModelRunner.step``. Pass ``bucket`` to pad to a
+    caller-chosen bucket."""
+    suffix = prompt[num_cached:]
+    bucket = bucket or cfg.bucket_for(len(suffix))
+    w = cfg.blocks_per_seq
+    bs = cfg.kv_block_size
+
+    tokens = np.zeros((1, bucket), np.int32)
+    tokens[0, : len(suffix)] = suffix
+    positions = np.full((1, bucket), num_cached + len(suffix) - 1, np.int32)
+    positions[0, : len(suffix)] = np.arange(num_cached, len(prompt))
+    slot_map = np.full((1, bucket), -1, np.int32)
+    for i, pos in enumerate(range(num_cached, len(prompt))):
+        slot_map[0, i] = block_ids[pos // bs] * bs + pos % bs
+    btab = np.zeros((1, w), np.int32)
+    btab[0, : len(block_ids)] = block_ids
+    ctx_lens = np.asarray([len(prompt)], np.int32)
+    last_idx = np.asarray([len(suffix) - 1], np.int32)
+    return tokens, positions, btab, slot_map, ctx_lens, last_idx
+
+
 class HostCopy:
     """A dispatched program's outputs on their way to the host.
 
@@ -193,6 +220,30 @@ class ModelRunner:
             params = self.arch.init_params(cfg, gen, self.dtype, self.device)
         self.params = _to_device(params, self.device, self.dtype)
         self._reinit_device_state()
+        self._build_sp_prefill()
+
+    def _build_sp_prefill(self) -> None:
+        """The sequence-parallel prefill chunk's gate and fixed shape (the
+        reference's ``_build_sp_prefill``): llama-family GQA dense trunks
+        only (``check_sp_trunk``), one ``[1, sp_prefill_bucket()]`` chunk
+        over the full block-table width. The ``sp`` ranks are the leading
+        dimension of the chunk's query shard on this one device."""
+        cfg_e = self.config
+        self._sp_bucket = 0
+        if cfg_e.sp_size > 1:
+            cfg_e.check_sp_trunk()
+            self._sp_bucket = cfg_e.sp_prefill_bucket()
+
+    @property
+    def sp_ready(self) -> bool:
+        """Is the sequence-parallel prefill chunk served? (The scheduler
+        gates the SP ladder on this.)"""
+        return self._sp_bucket > 0
+
+    @property
+    def sp_chunk_tokens(self) -> int:
+        """Tokens one SP chunk advances (the fixed chunk shape)."""
+        return self._sp_bucket
 
     def _reinit_device_state(self) -> None:
         """The paged KV cache and the per-slot sample state (generated-
@@ -380,6 +431,98 @@ class ModelRunner:
             outs.append(out)
             toks, pos = out[0], pos + 1
         return tuple(torch.stack(parts) for parts in zip(*outs))
+
+    def sp_prefill_chunk(
+        self,
+        prompt,                    # full token list UP TO the chunk end
+        start: int,                # the chunk's first position (KV before
+        block_ids,                 #   it is already committed)
+        *,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        min_p: float = 0.0,
+        presence_penalty: float = 0.0,
+        frequency_penalty: float = 0.0,
+        repetition_penalty: float = 1.0,
+        seed_keys=None,            # [2] u32 per-request key
+        counters: int = 0,
+        sample_slot: int = 0,
+        commit: bool = False,      # the final chunk samples and commits
+        want_top: bool = False,
+    ):
+        """Dispatch ONE sequence-parallel chunk (``[start, len(prompt))``, at
+        most ``sp_chunk_tokens`` tokens) and, on the final chunk
+        (``commit``), the sampling tail on its last valid row. Returns
+        ``(next_tokens, lps, top_vals, top_ids)`` device tensors on the
+        final chunk and None on the others: nothing reads a non-final
+        chunk's outputs, so its head and tail are skipped. Dispatch-only:
+        nothing is read back from the device."""
+        tokens, positions, btab, slot_map, _, _ = build_prefill_arrays(
+            self.config, prompt, start, block_ids, bucket=self._sp_bucket)
+        return self._sp_dispatch(
+            tokens, positions, slot_map, btab, start, len(prompt),
+            len(prompt) - start - 1, tail=commit, commit=commit,
+            temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p,
+            presence_penalty=presence_penalty,
+            frequency_penalty=frequency_penalty,
+            repetition_penalty=repetition_penalty, seed_keys=seed_keys,
+            counters=counters, sample_slot=sample_slot, want_top=want_top)
+
+    @torch.inference_mode()
+    def _sp_dispatch(self, tokens, positions, slot_map, btab, chunk_start: int,
+                     context_len: int, last: int, *, tail: bool,
+                     commit: bool = False, temperature: float = 0.0,
+                     top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0,
+                     presence_penalty: float = 0.0,
+                     frequency_penalty: float = 0.0,
+                     repetition_penalty: float = 1.0, seed_keys=None,
+                     counters: int = 0, sample_slot: int = 0,
+                     want_top: bool = False):
+        """The SP chunk from its host arrays (``sp_prefill_chunk``'s shape):
+        the trunk, then with ``tail`` the head and the sampling tail on row
+        ``last``."""
+        cfg = self.config.model
+        i64, i32 = torch.int64, torch.int32
+        # one packed pinned transfer: no blocking copy inside the dispatch
+        d = self._tp(tokens=(tokens, i64), positions=(positions, i64),
+                     slot_mapping=(slot_map, i64), block_tables=(btab, i32),
+                     last=(np.asarray([last]), i64),
+                     slot=(np.asarray([sample_slot]), i64),
+                     commit=(np.asarray([commit]), torch.bool))
+        hidden, self.kv_cache = llama.sp_decoder_forward(
+            self.params, cfg, d["tokens"], d["positions"], self.kv_cache,
+            d["block_tables"], d["slot_mapping"], context_len, chunk_start,
+            self.config.sp_size)
+        if not tail:
+            return None
+        temp = np.asarray([temperature], np.float32)
+        samp = SamplingParams.from_host(
+            self.device, temp, np.asarray([top_k]), np.asarray([top_p]),
+            np.asarray([min_p], np.float32),
+            np.asarray([presence_penalty], np.float32),
+            np.asarray([frequency_penalty], np.float32),
+            np.asarray([repetition_penalty], np.float32))
+        if seed_keys is None:
+            seed_keys = np.zeros(2, np.uint32)
+        gumbel = gumbel_noise(np.asarray(seed_keys, np.uint32)[None],
+                              np.asarray([counters]), cfg.vocab_size,
+                              self.device, rows=np.nonzero(temp > 0.0)[0])
+        last_logits = llama.lm_logits(hidden[0, d["last"]], self.params, cfg)
+        counts, seen, bias = self.sample_state
+        return sample_and_logprobs(
+            cfg, last_logits, samp, gumbel, counts, seen, bias, d["slot"],
+            d["commit"], want_top, fused=self.fused_epilogue, unique_slots=True)
+
+    @torch.inference_mode()
+    def handoff_tokens(self, next_tokens: torch.Tensor, slot: int) -> torch.Tensor:
+        """[B] first tokens of a decode burst with the final SP chunk's
+        sampled token at ``slot`` and 0 elsewhere, composed on the device
+        (the early decode handoff never reads the token on the host)."""
+        b = self.config.max_batch_size
+        tok0 = torch.zeros(b, dtype=torch.int64, device=self.device)
+        tok0[slot: slot + 1].copy_(next_tokens[:1])
+        return tok0
 
     # guided device tables pad their state dim to this ladder, as the
     # reference does (there each bucket is one compiled burst program)
@@ -572,8 +715,9 @@ class ModelRunner:
     def warmup(self, decode_batch: Optional[int] = None) -> None:
         """Build the kernels (on a card) and run one inert step per prefill
         bucket, one decode step, one verify-shaped step (S = the ngram
-        proposal count + 1, or 2), with ``multi_step_decode > 1`` or a
-        dispatch-ahead pipeline one burst, and with device finish one
+        proposal count + 1, or 2), with ``sp_size > 1`` one SP chunk, with
+        ``multi_step_decode > 1`` or a dispatch-ahead pipeline (or the SP
+        ladder's decode handoff) one burst, and with device finish one
         chained burst (with a one-state guided table, so both forms of the
         epilogue have launched), so no first request pays for a kernel
         build or a first-launch cost. Inert: every slot is the drop sentinel and
@@ -603,9 +747,16 @@ class ModelRunner:
             seed_keys=np.zeros((b, 2), np.uint32), counters=zi,
             commit=np.zeros(b, bool))
         pipelined = self.config.decode_pipeline_depth >= 2
-        if self.config.multi_step_decode > 1 or pipelined:
+        if self.config.multi_step_decode > 1 or pipelined or self.sp_ready:
             self.decode_burst(zi, zi, np.zeros((b, w), np.int32), zf, zi,
                               np.ones(b, np.float32), **inert)
+        if self.sp_ready:
+            # the SP chunk, inert: every slot is the drop sentinel and the
+            # tail runs without a commit
+            S, w = self._sp_bucket, self.config.blocks_per_seq
+            z = np.zeros((1, S), np.int32)
+            self._sp_dispatch(z, z, np.full((1, S), -1, np.int32),
+                              np.zeros((1, w), np.int32), 0, 1, 0, tail=True)
         if pipelined and self.config.device_finish_enabled:
             gtable = torch.full((1, self.config.model.vocab_size), -1,
                                 dtype=torch.int32, device=self.device)

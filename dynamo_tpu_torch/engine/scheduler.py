@@ -23,6 +23,13 @@ A burst's outputs travel to the host through pinned buffers and an event
 recorded right behind the burst (``ModelRunner.stage_to_host``), so
 reconciling burst k never waits for burst k+1.
 
+With ``sp_size > 1`` a prompt whose uncached suffix reaches
+``long_prefill_threshold_tokens`` takes the sequence-parallel ladder
+instead: one prompt at a time advances one SP chunk per pass, dispatch-only,
+while the other streams keep decoding; its final chunk's sampled token
+feeds a decode burst on the device (the early handoff) before the one host
+sync that drains both.
+
 Per-request state tracks paged blocks, chained block hashes (the prefix
 cache), the guided-choice cursor and cooperative cancellation; KV OOM
 preempts a request back to the waiting queue and its re-prefill continues
@@ -30,8 +37,9 @@ the emitted stream.
 
 Not in this slice (later work, refused by ``EngineConfig`` or by the
 serving layer): the chained propose-verify round, draft-model speculation,
-guided JSON, sequence-parallel prefill, remote prefill, fabric pulls,
-migration, fault injection, the flight recorder and the stall watchdog.
+guided JSON, remote prefill (so the SP ladder in a disagg prefill worker),
+fabric pulls, migration, fault injection, the flight recorder and the stall
+watchdog.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from ..tokens import TokenSequence
 from .block_allocator import BlockAllocator
 from .config import EngineConfig
 from .guided import TrieConstraint, compile_device_table
-from .model_runner import HostCopy, ModelRunner
+from .model_runner import HostCopy, ModelRunner, build_prefill_arrays
 from .sampling import (
     STOP_ID_WIDTH,
     STOP_SEQ_WIDTH,
@@ -103,31 +111,6 @@ def prefill_bucket_cap(cfg: EngineConfig, rows: int = 1) -> Optional[int]:
         return cfg.prefill_buckets[-1]
     allowed = [b for b in cfg.prefill_buckets if rows * b <= budget]
     return allowed[-1] if allowed else None
-
-
-def build_prefill_arrays(cfg: EngineConfig, prompt: List[int], num_cached: int,
-                         block_ids: List[int], bucket: Optional[int] = None):
-    """Batch-of-1 arrays for one bucketed prefill step: (tokens, positions,
-    block_tables, slot_mapping, context_lens, last_idx) — the leading
-    arguments of ``ModelRunner.step``. Pass ``bucket`` to pad to a
-    caller-chosen bucket."""
-    suffix = prompt[num_cached:]
-    bucket = bucket or cfg.bucket_for(len(suffix))
-    w = cfg.blocks_per_seq
-    bs = cfg.kv_block_size
-
-    tokens = np.zeros((1, bucket), np.int32)
-    tokens[0, : len(suffix)] = suffix
-    positions = np.full((1, bucket), num_cached + len(suffix) - 1, np.int32)
-    positions[0, : len(suffix)] = np.arange(num_cached, len(prompt))
-    slot_map = np.full((1, bucket), -1, np.int32)
-    for i, pos in enumerate(range(num_cached, len(prompt))):
-        slot_map[0, i] = block_ids[pos // bs] * bs + pos % bs
-    btab = np.zeros((1, w), np.int32)
-    btab[0, : len(block_ids)] = block_ids
-    ctx_lens = np.asarray([len(prompt)], np.int32)
-    last_idx = np.asarray([len(suffix) - 1], np.int32)
-    return tokens, positions, btab, slot_map, ctx_lens, last_idx
 
 
 @dataclasses.dataclass
@@ -380,6 +363,14 @@ class Scheduler:
         # the prefill BATCH: up to max_prefill_batch requests whose chunked
         # prefills run as rows of one step
         self.prefilling: List[EngineRequest] = []
+        # sequence-parallel long-context prefill (config.sp_size > 1):
+        # admissions past long_prefill_threshold_tokens queue here and
+        # advance one SP chunk per loop pass; one prompt (``sp_active``)
+        # owns the ranks at a time (the chunk is batch-of-1 by
+        # construction). The reference's ladder record (``_SpPrefill``) adds
+        # only timings for its telemetry, which is not ported
+        self.sp_queue: List[EngineRequest] = []
+        self.sp_active: Optional[EngineRequest] = None
         self.wake = asyncio.Event()
         self._rng = np.random.default_rng(config.seed)
         self._task: Optional[asyncio.Task] = None
@@ -393,6 +384,9 @@ class Scheduler:
         self.preemptions = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        self.sp_chunks = 0
+        self.sp_tokens = 0
+        self.sp_handoffs = 0
         # dispatch-ahead decode: the one burst in flight
         self._inflight: Optional[_InflightBurst] = None
         self.pipeline_bursts = 0
@@ -467,6 +461,9 @@ class Scheduler:
             "preemptions": self.preemptions,
             "spec_proposed": self.spec_proposed,
             "spec_accepted": self.spec_accepted,
+            "sp_chunks": self.sp_chunks,
+            "sp_tokens": self.sp_tokens,
+            "sp_handoffs": self.sp_handoffs,
             "pipeline_bursts": self.pipeline_bursts,
             "chain_len_last": self._chain_dispatched or self._last_chain_len,
             "chain_len_max": max(self.chain_len_max, self._chain_dispatched),
@@ -570,11 +567,19 @@ class Scheduler:
                 if er.ctx.is_stopped:
                     if er in self.prefilling:
                         self.prefilling.remove(er)
+                    self._sp_drop(er)
                     self._finish(er, FinishReason.CANCELLED)
 
-            # local admission: claim a slot + blocks, join the prefill batch
+            # local admission: claim a slot + blocks, join the prefill batch.
+            # Both ladders honour the prefill-batch cap: SP admissions hold
+            # their WHOLE prompt's blocks while the single-owner ladder serves
+            # one prompt at a time, so an unbounded sp_queue would pin the
+            # block pool idle; oversize backlogs wait block-free in `waiting`
+            cap = self.config.max_prefill_batch
             while (self.waiting
-                   and len(self.prefilling) < self.config.max_prefill_batch
+                   and len(self.prefilling) < cap
+                   and (len(self.sp_queue)
+                        + (1 if self.sp_active is not None else 0) < cap)
                    and self._free_slot() is not None):
                 er = self.waiting[0]
                 try:
@@ -591,15 +596,28 @@ class Scheduler:
                 await self._prefill_chunk(loop, list(self.prefilling))
                 progressed = True
 
+            # the sequence-parallel ladder: one chunk per pass (dispatch-only
+            # until the final chunk), so decode gaps stay bounded while a
+            # long prompt prefills
+            if self.sp_active is not None or self.sp_queue:
+                if await self._sp_advance(loop):
+                    progressed = True
+
             # decode every active slot: one token, an ngram speculative
             # verify, a fused K-step burst, or — with the dispatch-ahead
             # pipeline — a chained or pipelined burst. Prefill work pins K
             # to 1 so chunked-prefill interleaving (bounded TTFT) is never
             # traded for throughput
             active = [s for s in self.slots
-                      if s is not None and s not in self.prefilling]
+                      if s is not None and s not in self.prefilling
+                      and not self._is_sp(s)]
             if active:
-                runner_idle = not (self.prefilling or self.waiting)
+                # an SP ladder at work sends the chained and dispatch-ahead
+                # modes to the synchronous path ("not_idle"), as in the
+                # reference
+                runner_idle = not (self.prefilling or self.waiting
+                                   or self.sp_active is not None
+                                   or self.sp_queue)
                 spec_now = (self.config.spec_ngram_tokens > 0 and runner_idle
                             and all(self._spec_eligible(er) for er in active))
                 chain_on = (self.config.device_finish_enabled
@@ -721,7 +739,173 @@ class Scheduler:
             guided_mask=(
                 self._guided_mask(er) if er.guided is not None else None),
         )
-        self.prefilling.append(er)
+        if self._sp_eligible(er):
+            # the long-context admission class: the SP ranks prefill this
+            # one prompt, a chunk per pass
+            self.sp_queue.append(er)
+        else:
+            self.prefilling.append(er)
+
+    # ---------- sequence-parallel long-context prefill ----------
+
+    def _sp_eligible(self, er: EngineRequest) -> bool:
+        """Route this admission to the SP ladder? The SP chunk is served
+        (``sp_size > 1``, a supported trunk), the uncached suffix reaches
+        the threshold, and the request needs no prompt logprobs (the SP
+        chunk runs no full-S head)."""
+        cfg = self.config
+        if not (getattr(self.runner, "sp_ready", False)
+                and cfg.long_prefill_threshold_tokens > 0):
+            return False
+        suffix = len(er.prefill_tokens) - er.num_cached
+        if suffix < cfg.long_prefill_threshold_tokens:
+            return False
+        return not (er.want_prompt_lps and not er.prompt_lps_emitted)
+
+    def _is_sp(self, er: EngineRequest) -> bool:
+        return self.sp_active is er or er in self.sp_queue
+
+    def _sp_drop(self, er: EngineRequest) -> None:
+        """Remove a cancelled request from the SP ladder. A chunk already
+        dispatched only writes the request's own blocks, which are freed
+        with it: nothing leaks."""
+        if self.sp_active is er:
+            self.sp_active = None
+        if er in self.sp_queue:
+            self.sp_queue.remove(er)
+
+    async def _sp_advance(self, loop) -> bool:
+        """One pass of the SP ladder: dispatch the active request's next
+        chunk (dispatch-only: the device runs ahead while the loop serves
+        decode), register the blocks it completes in the prefix cache, and
+        on the final chunk run the early decode handoff and the drain."""
+        er = self.sp_active
+        while er is None and self.sp_queue:
+            er = self.sp_queue.pop(0)
+            if er.finish is not None or er.ctx.is_stopped:
+                er = None
+        self.sp_active = er
+        if er is None:
+            return False
+        if er.finish is not None or er.ctx.is_stopped:
+            self.sp_active = None
+            if er.finish is None:
+                self._finish(er, FinishReason.CANCELLED)
+            return True
+        total = len(er.prefill_tokens)
+        start = er.prefill_pos
+        end = min(start + self.runner.sp_chunk_tokens, total)
+        final = end >= total
+        outs = self.runner.sp_prefill_chunk(
+            er.prefill_tokens[:end], start, er.block_ids,
+            temperature=er.temperature, top_k=er.top_k, top_p=er.top_p,
+            min_p=er.min_p, presence_penalty=er.presence_penalty,
+            frequency_penalty=er.frequency_penalty,
+            repetition_penalty=er.repetition_penalty,
+            seed_keys=er.base_key, counters=er.generated,
+            sample_slot=er.slot, commit=final,
+            want_top=final and er.logprobs_n > 0,
+        )
+        self.steps += 1
+        self.sp_chunks += 1
+        self.sp_tokens += end - start
+        er.prefill_pos = end
+        er.context_len = end
+        # the chunk's blocks become matchable as soon as its write is
+        # dispatched: stream order puts it before any later read
+        self._register_completed_blocks(er)
+        if not final:
+            return True
+        try:
+            await self._sp_finish(loop, er, outs)
+        finally:
+            self.sp_active = None
+        return True
+
+    async def _sp_finish(self, loop, er: EngineRequest, outs) -> None:
+        """Early decode handoff and drain of a finished SP ladder.
+
+        The final chunk's sampled token is still on the device. When the
+        request can take a plain decode burst, one is dispatched at once
+        with that token composed into its row ON THE DEVICE, so the first
+        burst is queued before any host read of the prefill outputs. One
+        executor sync drains both; emission follows the dense path's rules
+        (tokens past a finish are discarded with the request's blocks)."""
+        cfg = self.config
+        next_tokens, lps, top_vals, top_ids = outs
+        pf = self.runner.stage_to_host(next_tokens, lps, top_vals, top_ids)
+        hs = self._host
+        b = cfg.max_batch_size
+        ctx0 = er.context_len  # the first sampled token's position
+        k_steps = cfg.multi_step_decode
+        burst = None
+        can_burst = (
+            er.guided is None
+            and er.max_new > 1
+            and ctx0 + k_steps + 1 <= cfg.max_model_len
+            and all(self._ensure_block_for(er, ctx0 + j)
+                    for j in range(k_steps))
+        )
+        if can_burst:
+            hs.sync_blocks(er)
+            w = cfg.kv_width_bucket(len(er.block_ids))
+            btab = hs.btab[:, :w].copy()
+            pos0 = np.zeros(b, np.int32)
+            pos0[er.slot] = ctx0
+            ctrs = np.zeros(b, np.int32)
+            ctrs[er.slot] = er.generated + 1  # after the prefill's token
+            commit = np.zeros(b, bool)
+            commit[er.slot] = True
+            temp = np.where(commit, hs.temp, 0.0).astype(np.float32)
+            toks, lpb, tvb, tib = self.runner.decode_burst(
+                self.runner.handoff_tokens(next_tokens, er.slot), pos0, btab,
+                temp, hs.top_k, hs.top_p,
+                min_p=hs.min_p, presence_penalty=hs.pres,
+                frequency_penalty=hs.freq, repetition_penalty=hs.rep,
+                seed_keys=hs.keys, counters=ctrs, commit=commit,
+                want_top=er.logprobs_n > 0,
+            )
+            burst = self.runner.stage_to_host(toks, lpb, tvb, tib)
+            self.steps += 1
+            self.decode_steps += 1
+            self.sp_handoffs += 1
+
+        def _sync():
+            out = pf.numpy()
+            if burst is not None:
+                out = out + burst.numpy()
+            return out
+
+        synced = await loop.run_in_executor(None, _sync)
+        toks_pf, lps_pf, tv_pf, ti_pf = synced[:4]
+        er.ctx.add_stage("prefill")
+        token = int(toks_pf[0])
+        er.pending_token = token
+        er.generated += 1
+        er.ring_tail.append(token)
+        er.finish = self._check_finish(er, token)
+        self._guided_after_token(er)
+        self._emit(er, token, float(lps_pf[0]) if er.want_logprobs else None,
+                   self._top_row(er, tv_pf, ti_pf, 0))
+        if er.finish is not None:
+            # trailing burst tokens (if any) are over-decode into the
+            # request's own blocks, freed with it
+            self._finish(er, er.finish, emit=False)
+            return
+        if burst is None:
+            return
+        toks_b, lps_b, tv_b, ti_b = synced[4:]
+        for j in range(k_steps):
+            if er.finish is not None or er.ctx.is_stopped:
+                break
+            tok_j = int(toks_b[j, er.slot])
+            self._advance_row(er, tok_j)
+            self._guided_after_token(er)
+            self._emit(er, tok_j,
+                       float(lps_b[j, er.slot]) if er.want_logprobs else None,
+                       self._top_row(er, tv_b[j], ti_b[j], er.slot))
+            if er.finish is not None:
+                self._finish(er, er.finish, emit=False)
 
     async def _prefill_chunk(self, loop, ers: List[EngineRequest]) -> None:
         """ONE batched prefill step: every prefilling request advances a

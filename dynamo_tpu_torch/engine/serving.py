@@ -8,7 +8,10 @@ penalties, logit_bias and logprobs, stop ids and canonical stop sequences
 (``stop_token_seqs``), guided choices by token ids
 (``guided_choice_token_ids``), on the synchronous path or, with
 ``EngineConfig.decode_pipeline_depth=2``, the dispatch-ahead and chained
-device-finish decode loop. Refused by name: ``n > 1`` fan-out,
+device-finish decode loop, and with ``EngineConfig.sp_size > 1`` the
+sequence-parallel prefill ladder for long prompts (its ranks laid out on
+the one device; the reference's ``sequence_parallel_size`` flag is this
+config field). Refused by name: ``n > 1`` fan-out,
 ``guided_json`` and ``guided_choice`` given as text (both need the
 tokenizer, a later slice). Not ported: the stall watchdog.
 """

@@ -28,6 +28,7 @@ from ..ops.attention import (
     scatter_kv_rows,
 )
 from ..ops.transfer import to_device
+from ..parallel.sequence import sp_chunk_attention
 
 Params = Dict[str, Any]
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # k, v: [L, N_blocks, bs, KVH, D]
@@ -287,6 +288,58 @@ def run_layers(hidden: torch.Tensor, kv_cache: KVCache, layers: Params,
         x = rms_norm(hidden, lp["ln2"], cfg.rms_norm_eps)
         hidden = hidden + mlp_fn(x, lp)
     return hidden, (k_all, v_all), li0 + n
+
+
+def make_sp_gqa_attn_fn(cfg: ModelConfig, b: int, s: int, cos, sin, plan,
+                        block_tables: torch.Tensor, chunk_start: int,
+                        context_len: int, sp: int):
+    """The sequence-parallel sibling of ``forward``'s attention: QKV, RoPE
+    and the MLP are position-local, attention is one ring pass over the
+    chunk's fresh K/V merged with the committed paged prefix
+    (``parallel/sequence.sp_chunk_attention``), and the fresh K/V scatter
+    into the paged cache as the dense path does. B is 1 by construction:
+    one oversized prompt owns the ranks."""
+    h_heads, hd = cfg.num_heads, cfg.head_dim
+
+    def attn_fn(x, lp, k_all, v_all, li):
+        q, k, v = qkv_prologue(cfg, x, lp, b, s, cos, sin)
+        # the prefix is read from the INCOMING cache, before the scatter, as
+        # the reference does; the chunk's own slots are masked there anyway
+        attn = sp_chunk_attention(q, k, v, k_all, v_all, block_tables,
+                                  chunk_start, context_len, li, sp)
+        k_all, v_all = scatter_kv_rows(k_all, v_all, k, v, plan, li)
+        return attn.reshape(b, s, h_heads * hd) @ lp["wo"], k_all, v_all
+
+    return attn_fn
+
+
+def sp_decoder_forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [1, S] one chunk
+    positions: torch.Tensor,     # [1, S] absolute positions (pad → repeat last)
+    kv_cache: KVCache,
+    block_tables: torch.Tensor,  # [1, W] int32
+    slot_mapping: torch.Tensor,  # [1, S] flat cache slot per token; -1 drops
+    context_len: int,            # valid tokens incl. this chunk
+    chunk_start: int,            # the chunk's first absolute position
+    sp: int,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One sequence-parallel prefill chunk through the GQA trunk. Returns
+    (pre-final-norm hidden [1, S, D], the cache, updated in place): the
+    engine samples from the last valid position through ``lm_logits``, as
+    the dense step does."""
+    b, s = tokens.shape
+    hidden = params["embed"][tokens.long()]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+    k_all = kv_cache[0]
+    plan = kv_write_plan(slot_mapping, k_all.shape[1] * k_all.shape[2])
+    attn_fn = make_sp_gqa_attn_fn(cfg, b, s, cos, sin, plan, block_tables,
+                                  chunk_start, context_len, sp)
+    hidden, kv_cache, _ = run_layers(hidden, kv_cache, params["layers"], cfg,
+                                     attn_fn)
+    return hidden, kv_cache
 
 
 def lm_logits(hidden: torch.Tensor, params: Params, cfg: ModelConfig

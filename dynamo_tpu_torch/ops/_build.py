@@ -34,6 +34,7 @@ SOURCES = {
     "paged_verify": "paged_verify.cu",
     "sampling_epilogue": "sampling_epilogue.cu",
     "mla_decode": "mla_decode.cu",
+    "sp_prefix": "sp_prefix.cu",
 }
 
 NVCC_FLAGS = [

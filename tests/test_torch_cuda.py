@@ -16,6 +16,7 @@ from dynamo_tpu_torch.ops import (
     paged_decode,
     paged_flash,
     paged_verify,
+    sp_prefix,
 )
 
 # bf16 output rounding plus a different summation order than the f32
@@ -268,3 +269,34 @@ def test_mla_decode_kernel_matches_plain_version(h):
     assert mla_decode.launches == before + 1
     assert out.float().isfinite().all()
     torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix_len", [0, 1, 15, 16, 17, 160])
+def test_sp_prefix_kernel_matches_plain_version(prefix_len):
+    """The prefix partials kernel for 4 ranks sharing one broadcast block
+    table row (stride 0), a partial last page and a partial query tile
+    (S 20 = 16 + 4 positions at G 4), layer 2. The same bf16 values on both
+    sides in f32: only the summation order differs (m to 1e-4; l and acc to
+    1e-3 of their scale). The empty prefix is exact."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    k, v = _cache(g)
+    row = torch.randperm(40, generator=g, device="cuda")[:10].int()[None]
+    bt = row.expand(4, 10)
+    q = torch.randn(4, 20, 8, 64, generator=g, device="cuda").bfloat16()
+    before = sp_prefix.launches
+    acc, m, l = sp_prefix.paged_prefix_attention_partials(
+        q, k, v, bt, prefix_len, 2)
+    ref = sp_prefix.paged_prefix_attention_partials_ref(
+        q.float(), k.float(), v.float(), bt, prefix_len, 2)
+    torch.cuda.synchronize()
+    assert sp_prefix.launches == before + 1
+    if prefix_len == 0:
+        assert (m == sp_prefix.MASK_VALUE).all()
+        assert (l == 0).all() and (acc == 0).all()
+        return
+    torch.testing.assert_close(m, ref[1], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, ref[2], atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(acc, ref[0], atol=1e-3 * float(ref[0].abs().max()),
+                               rtol=1e-3)

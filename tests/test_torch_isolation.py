@@ -50,7 +50,9 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.ops.paged_decode", "dynamo_tpu_torch.ops.paged_flash",
             "dynamo_tpu_torch.ops.mla_decode", "dynamo_tpu_torch.models.deepseek",
             "dynamo_tpu_torch.models.mixtral", "dynamo_tpu_torch.engine.guided",
-            "dynamo_tpu_torch.ops.transfer"} <= set(mods)
+            "dynamo_tpu_torch.ops.transfer", "dynamo_tpu_torch.ops.sp_prefix",
+            "dynamo_tpu_torch.parallel.ring_attention",
+            "dynamo_tpu_torch.parallel.sequence"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -64,6 +66,24 @@ def test_guided_module_imports_without_jax_or_reference_package():
         c = TrieConstraint([[4, 5], [4, 6, 7]])
         assert c.advance(4) == "ok" and c.advance(5) == "done"
         assert compile_device_table(c, 16, [2]).n_states == 4
+    """)
+
+
+def test_sp_modules_import_without_jax_or_reference_package():
+    """The sequence-parallel modules alone: neither jax nor ``dynamo_tpu``
+    comes with them, and the ring runs in that interpreter."""
+    _import_refusing_reference([
+        "dynamo_tpu_torch.parallel.ring_attention",
+        "dynamo_tpu_torch.parallel.sequence", "dynamo_tpu_torch.ops.sp_prefix",
+    ], """
+        import torch
+        from dynamo_tpu_torch.parallel.ring_attention import (
+            dense_reference, ring_attention)
+        q = torch.randn(1, 8, 4, 16)
+        k = torch.randn(1, 8, 2, 16)
+        pos = torch.arange(8)[None]
+        torch.testing.assert_close(ring_attention(q, k, k, pos, pos, 4),
+                                   dense_reference(q, k, k, pos, pos))
     """)
 
 
