@@ -23,10 +23,14 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    kernel at DeepSeek-V2-Lite's shapes (H 16, R 512, RD 64, a 27-layer
    stacked latent cache, the decode contexts incl. a ctx-1 row); and the
    sequence-parallel prefix partials kernel for 4 ranks of a 2,048-token
-   chunk over one broadcast block table, at prefixes 0 to 14,336. It times
-   kernel, plain version, a PyTorch library call where one computes the
-   same function (SDPA over pre-gathered dense keys, a yardstick only) and
-   the card's bound for the same work.
+   chunk over one broadcast block table, at prefixes 0 to 14,336. Flash
+   and the prefix partials (one tensor-core core) are also held at head_dim
+   128 (H 32, KVH 8), and flash also at the dense ladder's long step of
+   ``engine_sp`` (S 512 at position 11,776, ctx 12,000: the query tiles
+   past ctx must come back as zeros). It times kernel, plain version, a
+   PyTorch library call where one computes the same function (SDPA over
+   pre-gathered dense keys, a yardstick only) and the card's bound for the
+   same work.
 4. ``engine``  — serves token-id requests through ``TorchServingEngine``
    at the full Llama-3.2-1B shapes with seeded random bf16 weights,
    checks every stream, the kernels' launch counts on that run, a repeated
@@ -206,8 +210,58 @@ def _bound_ms(flops: float, nbytes: float):
     return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes")
 
 
+# engine_sp's dense ladder, last step of the 12k prompt: (base_pos, ctx)
+LONG_DENSE_STEP, LONG_DENSE_PAGES = (11776, 12000), 750
+
+
+def _flash_check(torch, pf, name, k, v, k32, v32, layer, qf, btp, basep, ctxp,
+                 rows):
+    """One flash call against the f32 plain version: every row finite, the
+    rows below ctx within ATOL / RTOL, and every query tile that starts at
+    or past its row's ctx exactly zero (the kernel skips it). Returns the
+    max error."""
+    B, S, H, _ = qf.shape
+    out = pf.paged_flash_attention(qf, k, v, btp, basep, ctxp, layer_idx=layer)
+    ref = pf.paged_flash_attention_ref(qf.float(), k32, v32, btp, basep, ctxp,
+                                       layer)
+    torch.cuda.synchronize()
+    if not bool(out.float().isfinite().all()):
+        raise AssertionError(f"flash {name}: non-finite output (pad rows too)")
+    bq = 64 // (H // k.shape[3])  # query positions per CTA
+    errs = []
+    for i, (base, c) in enumerate(rows):
+        nv = min(S, c - base)  # rows past ctx are discarded by the caller
+        errs.append(check_close(f"flash {name} row {i}", out[i, :nv], ref[i, :nv]))
+        dead = -(-max(nv, 0) // bq) * bq
+        if dead < S and bool(out[i, dead:].any()):
+            raise AssertionError(f"flash {name} row {i}: a query tile past "
+                                 f"ctx is not zero")
+    return max(errs)
+
+
+def _flash_d128(torch, pf, dev):
+    """The flash kernel at head_dim 128 (H 32, KVH 8): the prefix-hit case
+    (S 512 at base 256, ctx 768) and a padded tail over a 4-layer cache,
+    held against the f32 plain version at ATOL / RTOL and timed."""
+    L, N, BS, KVH, D, H, layer = 4, 256, 16, 8, 128, 32, 2
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    k = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    k32, v32 = k.float(), v.float()
+    rows = [(256, 768), (0, 300)]
+    qf = torch.randn(len(rows), 512, H, D, generator=g, device=dev).bfloat16()
+    btp = torch.randperm(N, generator=g, device=dev)[:2 * 48].reshape(2, 48).int()
+    basep = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+    ctxp = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    err = _flash_check(torch, pf, "d128", k, v, k32, v32, layer, qf, btp,
+                       basep, ctxp, rows)
+    t = _flash_timing(torch, pf, k, v, k32, v32, layer, qf[:1], btp[:1],
+                      basep[:1], ctxp[:1], 512, rows[:1])
+    return err, t
+
+
 def _flash_timing(torch, pf, k, v, k32, v32, layer, qf, btp, basep, ctxp, S,
-                  rows, ref):
+                  rows):
     """Kernel, plain (f32) and SDPA-yardstick times of one flash call, its
     bound from the keys this call's valid query rows see, and the plain
     version's own error when run in bf16."""
@@ -219,6 +273,8 @@ def _flash_timing(torch, pf, k, v, k32, v32, layer, qf, btp, basep, ctxp, S,
                                                   layer_idx=layer))
     plain_ms = cuda_ms(lambda: pf.paged_flash_attention_ref(
         qf.float(), k32, v32, btp, basep, ctxp, layer))
+    ref = pf.paged_flash_attention_ref(qf.float(), k32, v32, btp, basep, ctxp,
+                                       layer)
     plain_bf16 = pf.paged_flash_attention_ref(qf, k, v, btp, basep, ctxp, layer)
     # library yardstick: SDPA over each row's K/V pre-gathered to dense
     T = max(c for _, c in rows)
@@ -318,45 +374,50 @@ def kernel_phase(torch, dev):
              ("batch8_s64", 64, [(0, 64), (256, 320), (128, 168), (1984, 2048),
                                  (64, 100), (1472, 1500), None, None]),
              ("batch4_s128", 128, [(0, 128), (384, 512), (1024, 1100), None])]
+    # the dense ladder's last step of engine_sp's 12k prompt: 224 real
+    # tokens in a 512-row bucket over a 750-page block table (its own
+    # generator, so the cases above keep their inputs)
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 1)
+    long_case = ("long_dense_step", 512, [LONG_DENSE_STEP], LONG_DENSE_PAGES)
     max_errs, inputs = {}, {}
-    for name, S, rows in cases:
+    for name, S, rows, *pages in cases + [long_case]:
+        gen = g2 if pages else g
         B = len(rows)
         pad = torch.tensor([r is None for r in rows], device=dev)
         rows = [r or (0, 1) for r in rows]
-        qf = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+        qf = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
         basep = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
         ctxp = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
-        btp = bt[:B].clone()
-        btp[pad] = 0
-        out = pf.paged_flash_attention(qf, k, v, btp, basep, ctxp, layer_idx=LAYER)
-        ref = pf.paged_flash_attention_ref(qf.float(), k32, v32, btp, basep,
-                                           ctxp, LAYER)
-        torch.cuda.synchronize()
-        if not bool(out.float().isfinite().all()):
-            raise AssertionError(f"flash {name}: non-finite output (pad rows too)")
-        errs = []
-        for i, (base, c) in enumerate(rows):
-            nv = min(S, c - base)  # rows past ctx are discarded by the caller
-            errs.append(check_close(f"flash {name} row {i}", out[i, :nv],
-                                    ref[i, :nv]))
-        max_errs[name] = max(errs)
-        inputs[name] = (qf, btp, basep, ctxp, S, rows, ref)
+        if pages:
+            btp = torch.randperm(N, generator=gen, device=dev)[:pages[0]][None].int()
+        else:
+            btp = bt[:B].clone()
+            btp[pad] = 0
+        max_errs[name] = _flash_check(torch, pf, name, k, v, k32, v32, LAYER,
+                                      qf, btp, basep, ctxp, rows)
+        inputs[name] = (qf, btp, basep, ctxp, S, rows)
     timings = {name: _flash_timing(torch, pf, k, v, k32, v32, LAYER,
                                    *inputs[name])
-               for name in ("prefix_hit", "batch4_s128")}
+               for name in ("prefix_hit", "batch4_s128", "long_dense_step")}
+    max_errs["d128"], timings["d128_prefix_hit"] = _flash_d128(torch, pf, dev)
     emit("kernels", kernel="paged_flash",
          shape=dict(H=H, KVH=KVH, D=D, bs=BS, L=L, layer=LAYER,
-                    cases={name: dict(S=S, rows=rows) for name, S, rows in cases}),
+                    cases={name: dict(S=S, rows=rows)
+                           for name, S, rows, *_ in cases + [long_case]}),
          max_err=max_errs, timed=timings)
-    # the line's entry: the engine's own batched chunk (4 rows at S 128)
-    t = timings["batch4_s128"]
+    # the line's entry: the engine's own batched chunk (4 rows at S 128),
+    # and beside it the long dense step
+    t, tl = timings["batch4_s128"], timings["long_dense_step"]
     entries["paged_flash"] = dict(
         name="paged_flash_attention", route="cuda",
         source="dynamo_tpu_torch/csrc/paged_flash.cu",
         replaces="dynamo_tpu/ops/pallas_attention.py:254",
         max_abs_err=max(max_errs.values()), ms=t["kernel_ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=t["library_ms"])
+        library_ms=t["library_ms"],
+        long_dense_step=dict(ms=tl["kernel_ms"], plain_ms=tl["plain_ms"],
+                             bound_ms=tl["bound_ms"], bound_by=tl["bound_by"],
+                             library_ms=tl["library_ms"]))
     entries["paged_verify"] = _verify_cases(torch, dev, g, k, v, k32, v32,
                                             bt, ctx_l, LAYER)
     entries["sp_prefix"] = _sp_prefix_cases(torch, dev, g, k, v, k32, v32, LAYER)
@@ -450,6 +511,56 @@ SP_PREFIXES = (0, 1, 15, 16, 17, 8192, 14336)
 SP_PREFIX_TOL = 1e-3
 
 
+def _sp_prefix_check(torch, spx, q, k, v, k32, v32, bt, pfx, layer):
+    """One kernel 6 call against the f32 plain version at SP_PREFIX_TOL
+    (the empty prefix exactly); returns the max errors of m, l and acc."""
+    tol = SP_PREFIX_TOL
+    acc, m, l = spx.paged_prefix_attention_partials(q, k, v, bt, pfx, layer)
+    if pfx == 0:
+        torch.cuda.synchronize()
+        if not (bool((m == spx.MASK_VALUE).all()) and bool((l == 0).all())
+                and bool((acc == 0).all())):
+            raise AssertionError("sp prefix: the empty prefix is not "
+                                 "m = -1e30, l = acc = 0")
+        return dict(m=0.0, l=0.0, acc=0.0)
+    racc, rm, rl = spx.paged_prefix_attention_partials_ref(
+        q.float(), k32, v32, bt, pfx, layer)
+    torch.cuda.synchronize()
+    e = dict(m=(m - rm).abs(), l=(l - rl).abs(), acc=(acc - racc).abs())
+    bad = dict(m=e["m"] > tol + tol * rm.abs(),
+               l=e["l"] > tol + tol * rl.abs(),
+               acc=e["acc"] > tol * rl[..., None] + tol * racc.abs())
+    for name, b in bad.items():
+        if bool(b.any()) or not bool(e[name].isfinite().all()):
+            raise AssertionError(
+                f"sp prefix {pfx} (D {q.shape[-1]}): {name} out of tolerance "
+                f"in {int(b.sum())} elements, max |diff| {float(e[name].max()):.3g}")
+    return {name: float(x.max()) for name, x in e.items()}
+
+
+def _sp_prefix_d128(torch, spx, dev):
+    """Kernel 6 at head_dim 128 (H 32, KVH 8) for the SP call's 4 ranks of
+    512 rows over one broadcast block-table row of a 4-layer cache, at a
+    prefix inside the second page and at 8,192 keys, held against the f32
+    plain version at SP_PREFIX_TOL; the second timed beside its bound."""
+    L, N, BS, KVH, D, H, layer = 4, 1024, 16, 8, 128, 32, 2
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    k = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    k32, v32 = k.float(), v.float()
+    bt = torch.randperm(N, generator=g, device=dev).int()[None].expand(SP_RANKS, N)
+    q = torch.randn(SP_RANKS, SP_ROWS, H, D, generator=g, device=dev).bfloat16()
+    errs = {f"d128_{pfx}": _sp_prefix_check(torch, spx, q, k, v, k32, v32, bt,
+                                            pfx, layer)
+            for pfx in (17, 8192)}
+    ms = cuda_ms(lambda: spx.paged_prefix_attention_partials(q, k, v, bt, 8192,
+                                                             layer))
+    bound, by = _bound_ms(4.0 * SP_RANKS * SP_ROWS * H * 8192 * D,
+                          8192 * KVH * D * 2 * 2 + q.numel() * 6
+                          + 2 * SP_RANKS * SP_ROWS * H * 4)
+    return errs, dict(prefix=8192, kernel_ms=ms, bound_ms=bound, bound_by=by)
+
+
 def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
     """The prefix partials kernel (kernel 6) against its plain version at
     the one-card SP call's shapes: q [4, 512, 32, 64] (4 ranks of a 2,048-
@@ -467,32 +578,10 @@ def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
     row = torch.randperm(N, generator=g, device=dev).int()[None]
     bt = row.expand(R, N)                      # stride 0: no copy per rank
     q = torch.randn(R, S, H, D, generator=g, device=dev).bfloat16()
-    tol = SP_PREFIX_TOL
-    errs = {}
-    for pfx in SP_PREFIXES:
-        acc, m, l = spx.paged_prefix_attention_partials(q, k, v, bt, pfx, layer)
-        if pfx == 0:
-            torch.cuda.synchronize()
-            if not (bool((m == spx.MASK_VALUE).all()) and bool((l == 0).all())
-                    and bool((acc == 0).all())):
-                raise AssertionError("sp prefix: the empty prefix is not "
-                                     "m = -1e30, l = acc = 0")
-            errs[pfx] = dict(m=0.0, l=0.0, acc=0.0)
-            continue
-        racc, rm, rl = spx.paged_prefix_attention_partials_ref(
-            q.float(), k32, v32, bt, pfx, layer)
-        torch.cuda.synchronize()
-        e = dict(m=(m - rm).abs(), l=(l - rl).abs(), acc=(acc - racc).abs())
-        bad = dict(m=e["m"] > tol + tol * rm.abs(),
-                   l=e["l"] > tol + tol * rl.abs(),
-                   acc=e["acc"] > tol * rl[..., None] + tol * racc.abs())
-        for name, b in bad.items():
-            if bool(b.any()) or not bool(e[name].isfinite().all()):
-                raise AssertionError(
-                    f"sp prefix {pfx}: {name} out of tolerance in "
-                    f"{int(b.sum())} elements, max |diff| {float(e[name].max()):.3g}")
-        errs[pfx] = {name: float(x.max()) for name, x in e.items()}
-        del racc, rm, rl
+    errs = {pfx: _sp_prefix_check(torch, spx, q, k, v, k32, v32, bt, pfx, layer)
+            for pfx in SP_PREFIXES}
+    d128_errs, d128_timed = _sp_prefix_d128(torch, spx, dev)
+    errs.update(d128_errs)
     P = SP_PREFIXES[-1]
     ms = cuda_ms(lambda: spx.paged_prefix_attention_partials(q, k, v, bt, P, layer))
     plain_ms = cuda_ms(lambda: spx.paged_prefix_attention_partials_ref(
@@ -516,7 +605,9 @@ def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
          max_err=errs, tol=dict(m="1e-3 + 1e-3|ref|", l="1e-3 + 1e-3|ref|",
                                 acc="1e-3 l + 1e-3|ref|"),
          timed_prefix=P, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-         bound_ms=bound, bound_by=by, ctas=(S // (64 // (H // KVH))) * KVH * R)
+         d128_timed=d128_timed,
+         bound_ms=bound, bound_by=by,
+         ctas=-(-S // (spx._ROWS_PER_CTA // (H // KVH))) * KVH * R)
     del kd, vd, qd
     return dict(
         name="paged_prefix_attention_partials", route="cuda",

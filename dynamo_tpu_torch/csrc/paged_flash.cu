@@ -6,7 +6,8 @@
 // position base_pos[b] + s and sees key j iff j <= qpos, j < ctx[b] and
 // j > qpos - window (pallas_attention.py:94-95); a row with no visible key
 // outputs zeros (the l == 0 guard, :142). Rows past ctx give values the
-// caller discards, never NaN.
+// caller discards, never NaN: a query tile whose first position is at or
+// past ctx writes zeros and reads nothing.
 //
 // What bounds it on an H100: for a long chunk, operations — each K/V tile
 // is reused by every query row of the CTA, so the FLOPs per byte grow with
@@ -14,47 +15,33 @@
 // inside the CTA over only the keys the CTA's query tile can see (from the
 // window's first visible key to min(ctx - 1, last query position)).
 //
-// Design: one CTA (128 threads) per (query tile, KV head, batch row). Its
-// 64 rows are (query position, group head) pairs — 64 / G positions times
-// the G query heads that share the KV head — so one K/V tile in shared
-// memory (64 keys, f32) feeds all of them. Each thread owns an 8-row by
-// 4-key block of the score tile and an 8-row by D/16-column block of the
-// output; the online-softmax row statistics are reduced across the 16
-// threads of a row group with warp shuffles. The math is scalar f32 FMAs:
-// a first version that is simple and right. Tensor-core tiles (mma.sync or
-// wgmma) and TMA-fed double buffering are later work.
+// Design: one CTA (one warpgroup) per (query tile, KV head, batch row); its
+// 64 rows are (query position, group head) pairs, 64 / G positions times
+// the G query heads that share the KV head (one warpgroup: a short chunk
+// or a chunk with few live query tiles keeps more CTAs). The tile loop is
+// the shared tensor-core core of paged_attn_tc.cuh (cp.async ring, wgmma
+// bf16 products with f32 accumulators, online softmax on the fragments)
+// with the causal / ctx / window mask; P is rounded to bf16 before P V, as
+// the reference rounds it to the value dtype (pallas_attention.py:122). The
+// epilogue divides by l and stores bf16.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (dynamo_tpu_torch/ops/_build.py); plain C entry
 //        point below, bound with ctypes by dynamo_tpu_torch/ops/paged_flash.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_attn_tc.cuh"
 
 namespace {
 
-constexpr int R = 64;     // query rows per CTA: (position, group head)
-constexpr int TK = 64;    // keys per shared-memory tile
-constexpr int NT = 128;   // threads per CTA
-constexpr int VEC = 8;    // bf16 elements per 16-byte load
-constexpr int RPT = 8;    // rows per thread
-constexpr int KPT = 4;    // keys per thread in the score tile
+using namespace paged_attn_tc;
 
-__device__ __forceinline__ void load_bf16x8(const __nv_bfloat16* src,
-                                            float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < VEC / 2; ++e) {
-    const float2 f = __bfloat1622float2(p[e]);
-    dst[2 * e] = f.x;
-    dst[2 * e + 1] = f.y;
-  }
-}
+// warpgroups a CTA
+constexpr int kWG = 1;
+constexpr int kRows = cta_rows<kWG>();
+constexpr int kThreads = cta_threads<kWG>();
 
 template <int D>
-__global__ void __launch_bounds__(NT) paged_flash_kernel(
+__global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
     const __nv_bfloat16* __restrict__ q,    // [B, S, H, D]
     const __nv_bfloat16* __restrict__ kc,   // [L, N, bs, KVH, D]
     const __nv_bfloat16* __restrict__ vc,   // [L, N, bs, KVH, D]
@@ -64,165 +51,52 @@ __global__ void __launch_bounds__(NT) paged_flash_kernel(
     __nv_bfloat16* __restrict__ out,        // [B, S, H, D]
     int S, int H, int KVH, int N, int bs, int W, int layer, int window,
     float scale) {
-  constexpr int QS = D + 1;    // padded Q row (two row groups per warp)
-  constexpr int KTS = TK + 1;  // padded transposed-K row
-  constexpr int PS = TK + 1;   // padded P row
-  constexpr int DC = D / 16;   // output columns per thread
-  constexpr int VPR = D / VEC;
-  extern __shared__ float smem[];
-  float* q_s = smem;            // [R][QS]
-  float* kt_s = q_s + R * QS;   // [D][KTS]  (K transposed)
-  float* v_s = kt_s + D * KTS;  // [TK][D]
-  float* p_s = v_s + TK * D;    // [R][PS]
-
+  extern __shared__ unsigned char smem[];
   const int G = H / KVH;
-  const int BQ = R / G;  // query positions per CTA
+  const int BQ = kRows / G;  // query positions per CTA
   const int s0 = blockIdx.x * BQ;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int rb = tid >> 4;  // row group: rows rb*8 .. rb*8+7
-  const int cx = tid & 15;
   const int ctx = ctx_lens[b];
   const int base = base_pos[b];
+  const int s_end = min(s0 + BQ, S);
 
-  for (int i = tid; i < R * VPR; i += NT) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    const int s = s0 + r / G, g = r % G;
-    float f[VEC];
-    if (s < S) {
-      load_bf16x8(q + (((size_t)b * S + s) * H + kvh * G + g) * D + c, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) f[e] = 0.f;
+  if (base + s0 >= ctx) {
+    // every row of the tile lies past ctx: the caller discards them
+    constexpr int CH = D / 8;
+    for (int i = threadIdx.x; i < kRows * CH; i += kThreads) {
+      const int r = i / CH, c = i % CH;
+      const int s = s0 + r / G;
+      if (s >= s_end) continue;
+      *reinterpret_cast<uint4*>(
+          out + (((size_t)b * S + s) * H + kvh * G + r % G) * D + c * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
     }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) q_s[r * QS + c + e] = f[e];
+    return;
   }
 
+  Problem p{q, kc, vc, bt + (size_t)b * W, S, H, KVH, G, N, bs, layer,
+            b, kvh, s0, scale};
   // the keys this query tile can see at all
-  const int s_last = min(s0 + BQ, S) - 1;
   const int k_lo = max(0, base + s0 - window + 1);
-  const int k_hi = min(ctx - 1, base + s_last);  // inclusive
+  const int k_hi = min(ctx - 1, base + s_end - 1);  // inclusive
+  RowState<D> st;
+  attend<D, kWG, /*kCausal=*/true, /*kSplitP=*/false>(p, base, window, k_lo,
+                                                 k_hi + 1, smem, st);
 
-  int qpos[RPT];
-  float m[RPT], l[RPT], acc[RPT][DC];
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    qpos[i] = base + s0 + (rb * RPT + i) / G;
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  const size_t tok_stride = (size_t)KVH * D;
-  const size_t layer_base =
-      (size_t)layer * N * bs * tok_stride + (size_t)kvh * D;
-
-  for (int t0 = k_lo; t0 <= k_hi; t0 += TK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < TK * VPR; i += NT) {
-      const int j = i / VPR, c = (i % VPR) * VEC;
-      const int pos = t0 + j;
-      float kf[VEC], vf[VEC];
-      if (pos <= k_hi) {
-        const int blk = bt[(size_t)b * W + pos / bs];
-        const size_t off =
-            layer_base + ((size_t)blk * bs + pos % bs) * tok_stride + c;
-        load_bf16x8(kc + off, kf);
-        load_bf16x8(vc + off, vf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        kt_s[(c + e) * KTS + j] = kf[e];
-        v_s[j * D + c + e] = vf[e];
-      }
-    }
-    __syncthreads();
-
-    float sc[RPT][KPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int kk = 0; kk < KPT; ++kk) sc[i][kk] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kv[KPT];
-#pragma unroll
-      for (int kk = 0; kk < KPT; ++kk) kv[kk] = kt_s[d * KTS + cx + 16 * kk];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float qv = q_s[(rb * RPT + i) * QS + d];
-#pragma unroll
-        for (int kk = 0; kk < KPT; ++kk) sc[i][kk] = fmaf(qv, kv[kk], sc[i][kk]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int kk = 0; kk < KPT; ++kk) {
-        const int kp = t0 + cx + 16 * kk;
-        const bool ok = kp <= k_hi && kp <= qpos[i] && kp > qpos[i] - window;
-        sc[i][kk] = ok ? sc[i][kk] * scale : -INFINITY;
-        tmax = fmaxf(tmax, sc[i][kk]);
-      }
-      // the 16 threads of a row group are 16 consecutive lanes of one warp
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_new = fmaxf(m[i], tmax);
-      // a row with no visible key yet keeps p = 0 (no -inf - -inf NaN)
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = __expf(m[i] - m_use);
-      float psum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KPT; ++kk) {
-        const float p =
-            sc[i][kk] == -INFINITY ? 0.f : __expf(sc[i][kk] - m_use);
-        p_s[(rb * RPT + i) * PS + cx + 16 * kk] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l[i] = l[i] * alpha + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncwarp();  // a row group's P rows are written by its own warp
-
-#pragma unroll 4
-    for (int j = 0; j < TK; ++j) {
-      float vv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = v_s[j * D + cx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float p = p_s[(rb * RPT + i) * PS + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rb * RPT + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = (threadIdx.x >> 5) * 16 + (lane >> 2) + 8 * i;
     const int s = s0 + r / G;
-    if (s >= S) continue;
-    const int g = r % G;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    __nv_bfloat16* orow = out + (((size_t)b * S + s) * H + kvh * G + g) * D;
+    if (s >= s_end) continue;
+    const float inv = st.l[i] > 0.f ? 1.f / st.l[i] : 0.f;
+    __nv_bfloat16* orow =
+        out + (((size_t)b * S + s) * H + kvh * G + r % G) * D + (lane & 3) * 2;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      orow[cx + 16 * c] = __float2bfloat16(acc[i][c] * inv);
+    for (int t = 0; t < D / 8; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(orow + t * 8) = __floats2bfloat162_rn(
+          st.o[t][2 * i] * inv, st.o[t][2 * i + 1] * inv);
   }
 }
 
@@ -231,17 +105,15 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
            const void* base, const void* ctx, void* out, int B, int S, int H,
            int KVH, int N, int bs, int W, int layer, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)R * (D + 1) +
-                                       (size_t)D * (TK + 1) +
-                                       (size_t)TK * D + (size_t)R * (TK + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  constexpr int smem = smem_bytes<D, kWG>();
+  cudaError_t err = allow_smem_once(
+      reinterpret_cast<const void*>(paged_flash_tc_kernel<D>), smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KVH;
-  const int BQ = R / G;
+  const int BQ = kRows / G;
   const dim3 grid((S + BQ - 1) / BQ, KVH, B);
-  paged_flash_kernel<D><<<grid, dim3(NT), smem, stream>>>(
+  paged_flash_tc_kernel<D><<<grid, dim3(kThreads), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(bt),
@@ -254,9 +126,9 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
-// has checked types, shapes, contiguity, 16-byte alignment and that the
-// group size G = H / KVH divides 64. Only head_dim 64 (Llama-3.2-1B) is
-// instantiated.
+// has checked types, shapes, contiguity, 16-byte alignment, that head_dim
+// is 64 or 128 (the two instantiations) and that the group size
+// G = H / KVH divides 64.
 extern "C" int paged_flash_bf16(const void* q, const void* k, const void* v,
                                 const void* bt, const void* base,
                                 const void* ctx, void* out, int B, int S,
@@ -267,5 +139,8 @@ extern "C" int paged_flash_bf16(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch<64>(q, k, v, bt, base, ctx, out, B, S, H, KVH, N, bs, W,
                       layer, window, scale, s);
+  if (D == 128)
+    return launch<128>(q, k, v, bt, base, ctx, out, B, S, H, KVH, N, bs, W,
+                       layer, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@ Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a build
 takes seconds. Libraries are built at first use into
 ``dynamo_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-the source, so a changed source rebuilds and an unchanged one loads the
-library already there. ``build()`` starts one ``nvcc`` per missing source,
-all at once, and waits for them together.
+the source and the ``csrc`` headers it includes, so a changed source or
+header rebuilds and an unchanged one loads the library already there.
+``build()`` starts one ``nvcc`` per missing source, all at once, and
+waits for them together.
 
 Nothing here runs at import time: the module imports on a machine without
 ``nvcc`` (the CPU tests), and only a kernel launch on a CUDA tensor builds.
@@ -17,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -63,10 +65,29 @@ def nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and every file under ``CSRC`` it includes with quotes,
+    recursively, each once, in include order."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep.exists():
+            _sources(dep, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of kernel ``name``, named by a hash of its source, the
+    headers it includes and the flags: an edited header rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(CSRC / SOURCES[name], []):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

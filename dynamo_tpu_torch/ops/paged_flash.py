@@ -4,9 +4,11 @@ kernel and its plain PyTorch version.
 Replaces the TPU kernel ``dynamo_tpu/ops/pallas_attention.py``
 (``paged_flash_attention``, ``_kernel``). Query positions are affine: token
 s of row b sits at ``base_pos[b] + s``; pad rows past the true suffix give
-values the caller discards. The kernel (``csrc/paged_flash.cu``) is bound by
+values the caller discards (a query tile that starts past ctx is written
+as zeros without reading a key). The kernel (``csrc/paged_flash.cu``, on
+the tensor-core tile loop of ``csrc/paged_attn_tc.cuh``) is bound by
 operations for a long chunk: each K/V tile staged in shared memory is
-reused by every query row of the CTA; see the source for the design.
+reused by every query row of the CTA; see the sources for the design.
 
 CPU tensors take ``paged_flash_attention_ref``; CUDA tensors launch the
 kernel or raise. ``launches`` counts kernel launches.
@@ -24,8 +26,9 @@ from .attention import NO_WINDOW, paged_attention
 
 launches = 0
 
-# the one head_dim built and checked on a card (Llama-3.2-1B)
-_HEAD_DIM = 64
+# the head_dims the library instantiates (Llama-3.2-1B: 64; 128 for the
+# 8B/70B-class models)
+_HEAD_DIMS = (64, 128)
 _ROWS_PER_CTA = 64  # query rows (position, group head) per CTA in the kernel
 
 
@@ -79,8 +82,9 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
             raise ValueError(f"flash kernel: {name} must be contiguous and 16-byte aligned")
         if t.device != q.device:
             raise ValueError(f"flash kernel: {name} is on {t.device}, q on {q.device}")
-    if k_cache.shape[-1] != d or d != _HEAD_DIM:
-        raise NotImplementedError(f"flash kernel: head_dim {d} is not {_HEAD_DIM}")
+    if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash kernel: head_dim {d} is not one of {_HEAD_DIMS}")
     if h % kvh or _ROWS_PER_CTA % (h // kvh):
         raise NotImplementedError(
             f"flash kernel: group size {h}/{kvh} must divide {_ROWS_PER_CTA}")

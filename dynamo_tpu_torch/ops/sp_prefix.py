@@ -17,9 +17,14 @@ the caller empties them at the merge.
 On one device the ``sp`` ranks are the batch dimension: each rank's call
 of the reference is one row of the kernel's grid, and every rank reads the
 same block table (``block_tables.expand(sp, W)``: a stride-0 row, not a
-copy). The kernel (``csrc/sp_prefix.cu``) is bound by operations at the
-engine's shapes: each K/V tile in shared memory serves the 64 (query,
-group head) rows of a CTA; see the source for the design.
+copy). The kernel (``csrc/sp_prefix.cu``) runs the tensor-core tile loop
+of ``csrc/paged_attn_tc.cuh``: a CTA is two warpgroups over 128 (query,
+group head) rows, K/V tiles of 64 keys arrive through a cp.async ring,
+S = Q·Kᵀ and O += P·V are bf16 ``wgmma`` products with f32 accumulators,
+and P enters P·V as bf16 hi + lo, ~16 bits (the reference rounds P to
+bf16 once, an error of the order of the 1e-3 to which ``acc`` is held
+against the f32 plain version). It is bound by operations at the
+engine's shapes; see the sources.
 
 CPU tensors take ``paged_prefix_attention_partials_ref``; CUDA tensors
 launch the kernel or raise. ``prefix_len`` and ``layer_idx`` are host
@@ -43,9 +48,10 @@ launches = 0
 # meets -inf − -inf
 MASK_VALUE = -1e30
 
-# the one head_dim built and checked on a card (Llama-3.2-1B)
-_HEAD_DIM = 64
-_ROWS_PER_CTA = 64  # (query position, group head) rows per CTA in the kernel
+# the head_dims the library instantiates (Llama-3.2-1B: 64; 128 for the
+# 8B/70B-class models)
+_HEAD_DIMS = (64, 128)
+_ROWS_PER_CTA = 128  # (query position, group head) rows per CTA in the kernel
 
 
 def paged_prefix_attention_partials_ref(
@@ -114,9 +120,9 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, prefix_len,
         if t.device != q.device:
             raise ValueError(
                 f"sp prefix kernel: {name} is on {t.device}, q on {q.device}")
-    if k_cache.shape[-1] != d or d != _HEAD_DIM:
+    if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
         raise NotImplementedError(
-            f"sp prefix kernel: head_dim {d} is not {_HEAD_DIM}")
+            f"sp prefix kernel: head_dim {d} is not one of {_HEAD_DIMS}")
     if h % kvh or _ROWS_PER_CTA % (h // kvh):
         raise NotImplementedError(
             f"sp prefix kernel: group size {h}/{kvh} must divide {_ROWS_PER_CTA}")

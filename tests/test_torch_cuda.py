@@ -62,25 +62,63 @@ def test_decode_kernel_matches_plain_version(window):
     (32, [(0, 32), (20, 52), (48, 60), None]),
 ])
 def test_flash_kernel_matches_plain_version(s, rows):
+    _flash_case(s, rows, d=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,rows", [
+    (64, [(20, 84)]),
+    (32, [(0, 32), (20, 52), (48, 60), None]),
+])
+def test_flash_kernel_matches_plain_version_d128(s, rows):
+    """head_dim 128, the library's second instantiation."""
+    _flash_case(s, rows, d=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh,window", [(8, 1, 20), (8, 8, 9), (16, 2, 33)])
+def test_flash_kernel_window_and_group_sizes(h, kvh, window):
+    """A sliding window (the window's first tile is masked) at group sizes
+    8, 1 and 8 over two KV heads: 8, 64 and 8 query positions a CTA."""
+    _flash_case(76, [(20, 96), (0, 50)], d=64, h=h, kvh=kvh, window=window)
+
+
+def _flash_case(s, rows, d, h=8, kvh=2, seed=1, window=paged_flash.NO_WINDOW):
+    """One flash launch against the f32 plain version: every row finite,
+    the rows below ctx within ATOL / RTOL. Returns the output."""
     _need_cuda()
-    g = torch.Generator(device="cuda").manual_seed(1)
-    k, v = _cache(g)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, v = _cache(g, kvh=kvh, d=d)
     n = len(rows)
     bt = torch.randperm(40, generator=g, device="cuda")[: n * 6].reshape(n, 6).int()
     bt[[i for i, r in enumerate(rows) if r is None]] = 0
     rows = [r or (0, 1) for r in rows]
-    q = torch.randn(n, s, 8, 64, generator=g, device="cuda").bfloat16()
+    q = torch.randn(n, s, h, d, generator=g, device="cuda").bfloat16()
     b = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
     c = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
-    out = paged_flash.paged_flash_attention(q, k, v, bt, b, c, layer_idx=1)
+    before = paged_flash.launches
+    out = paged_flash.paged_flash_attention(q, k, v, bt, b, c, layer_idx=1,
+                                            window=window)
     ref = paged_flash.paged_flash_attention_ref(
-        q.float(), k.float(), v.float(), bt, b, c, 1)
+        q.float(), k.float(), v.float(), bt, b, c, 1, None, window)
     torch.cuda.synchronize()
+    assert paged_flash.launches == before + 1
     assert out.float().isfinite().all()
     for i, (base, ctx) in enumerate(rows):
         valid = min(s, ctx - base)
         torch.testing.assert_close(out[i, :valid].float(), ref[i, :valid],
                                    atol=ATOL, rtol=RTOL)
+    return out
+
+
+@pytest.mark.cuda
+def test_flash_kernel_zeroes_query_tiles_past_ctx():
+    """S 512 at G 1 (64 query positions a CTA) with ctx - base = 40: ctx
+    ends inside the first of 8 query tiles. The 40 valid rows match the
+    plain version, every row is finite, and the 7 tiles that start past
+    ctx are written as zeros without reading a key."""
+    out = _flash_case(512, [(20, 60)], d=64, h=2, kvh=2, seed=7)
+    assert not out[0, 64:].any()
 
 
 @pytest.mark.cuda
@@ -276,15 +314,27 @@ def test_mla_decode_kernel_matches_plain_version(h):
 def test_sp_prefix_kernel_matches_plain_version(prefix_len):
     """The prefix partials kernel for 4 ranks sharing one broadcast block
     table row (stride 0), a partial last page and a partial query tile
-    (S 20 = 16 + 4 positions at G 4), layer 2. The same bf16 values on both
+    (S 20 of the 32 positions a CTA holds at G 4), layer 2. The same bf16 values on both
     sides in f32: only the summation order differs (m to 1e-4; l and acc to
     1e-3 of their scale). The empty prefix is exact."""
+    _sp_prefix_case(prefix_len, d=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix_len", [0, 17, 160])
+def test_sp_prefix_kernel_matches_plain_version_d128(prefix_len):
+    """head_dim 128, the library's second instantiation, at the same
+    tolerances."""
+    _sp_prefix_case(prefix_len, d=128)
+
+
+def _sp_prefix_case(prefix_len, d):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(5)
-    k, v = _cache(g)
+    k, v = _cache(g, d=d)
     row = torch.randperm(40, generator=g, device="cuda")[:10].int()[None]
     bt = row.expand(4, 10)
-    q = torch.randn(4, 20, 8, 64, generator=g, device="cuda").bfloat16()
+    q = torch.randn(4, 20, 8, d, generator=g, device="cuda").bfloat16()
     before = sp_prefix.launches
     acc, m, l = sp_prefix.paged_prefix_attention_partials(
         q, k, v, bt, prefix_len, 2)

@@ -28,10 +28,10 @@ L, H, KVH, D, BS = 2, 4, 2, 16, 8
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _case(rng, b, w, n_blocks=None):
+def _case(rng, b, w, n_blocks=None, d=D):
     n_blocks = n_blocks or b * w + 3
-    k = rng.standard_normal((L, n_blocks, BS, KVH, D)).astype(np.float32)
-    v = rng.standard_normal((L, n_blocks, BS, KVH, D)).astype(np.float32)
+    k = rng.standard_normal((L, n_blocks, BS, KVH, d)).astype(np.float32)
+    v = rng.standard_normal((L, n_blocks, BS, KVH, d)).astype(np.float32)
     bt = rng.permutation(n_blocks)[: b * w].reshape(b, w).astype(np.int32)
     return k, v, bt
 
@@ -100,8 +100,9 @@ def test_decode_plain_version_matches_pallas_interpret(window):
     assert paged_decode.launches == 0  # CPU tensors never launch the kernel
 
 
+@pytest.mark.parametrize("head_dim", [D, 128])  # 128: the kernel's second width
 @pytest.mark.parametrize("window", [None, 7])
-def test_flash_plain_version_matches_pallas_interpret(window):
+def test_flash_plain_version_matches_pallas_interpret(window, head_dim):
     rng = np.random.default_rng(3)
     s, w = 16, 6
     # base_pos 0 (ctx = S), a prefix hit (base > 0, ctx = base + S), a
@@ -110,9 +111,9 @@ def test_flash_plain_version_matches_pallas_interpret(window):
     base = np.array([0, 11, 5, 0], np.int32)
     ctx = np.array([16, 27, 12, 1], np.int32)
     b = len(base)
-    k, v, bt = _case(rng, b, w)
+    k, v, bt = _case(rng, b, w, d=head_dim)
     bt[-1] = 0
-    q = rng.standard_normal((b, s, H, D)).astype(np.float32)
+    q = rng.standard_normal((b, s, H, head_dim)).astype(np.float32)
     ref = np.asarray(jax_flash(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
         jnp.asarray(base), jnp.asarray(ctx), layer_idx=jnp.int32(1),

@@ -78,11 +78,11 @@ def _t(x):
 _PFX = dict(b=2, s=8, h=4, kvh=2, d=16, L=3, N=12, bs=4, W=5)
 
 
-def _prefix_case(seed=0):
+def _prefix_case(seed=0, d=_PFX["d"]):
     c = _PFX
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((c["b"], c["s"], c["h"], c["d"])).astype(np.float32)
-    shape = (c["L"], c["N"], c["bs"], c["kvh"], c["d"])
+    q = rng.standard_normal((c["b"], c["s"], c["h"], d)).astype(np.float32)
+    shape = (c["L"], c["N"], c["bs"], c["kvh"], d)
     kc = rng.standard_normal(shape).astype(np.float32)
     vc = rng.standard_normal(shape).astype(np.float32)
     bt = rng.permutation(c["N"])[: c["b"] * c["W"]].reshape(
@@ -90,13 +90,14 @@ def _prefix_case(seed=0):
     return q, kc, vc, bt
 
 
+@pytest.mark.parametrize("head_dim", [_PFX["d"], 128])  # 128: the kernel's second width
 @pytest.mark.parametrize("prefix_len", [0, 1, 3, 4, 5, 20],
                          ids=["empty", "one", "bs-1", "bs", "bs+1", "W*bs"])
-def test_prefix_partials_match_pallas_interpret(prefix_len):
+def test_prefix_partials_match_pallas_interpret(prefix_len, head_dim):
     """The plain version (what CPU tensors take) against the reference's
     Pallas kernel in interpret mode, layer 2 of a 3-layer stacked cache,
     a partial last page and the whole table; f32 to 1e-5."""
-    q, kc, vc, bt = _prefix_case()
+    q, kc, vc, bt = _prefix_case(d=head_dim)
     ja, jm, jl = jax_prefix_partials(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt),
         prefix_len, 2, interpret=True)
