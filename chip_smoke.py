@@ -11,9 +11,14 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
 3. ``kernels`` — holds each kernel against its plain PyTorch version at the
    Llama-3.2-1B shapes (H=32, KVH=8, D=64, bs=16, bf16, a 16-layer stacked
-   cache, layer_idx != 0): decode; flash, also at the engine's batched
+   cache, layer_idx != 0): decode, also at its splits' edges (ctx 0, one
+   key under, at and over a 256-key split, a window crossing one), at
+   group sizes 1, 4 and 8, at head_dim 128 and at ``engine_sp``'s
+   long-context decode batch; flash, also at the engine's batched
    prefill shapes (rows with their own base_pos and ctx, pad rows); verify
-   at S 2, 5, 17 and 32 (padded proposals, a window, a pad row); the
+   at S 2, 5, 17 and 32 (padded proposals, a window, a pad row), and at
+   the splits' edges, group sizes 1, 4 and 8 and head_dim 128; decode and
+   verify twice on the same inputs (bit-identical); the
    sampling epilogue at B 8 over V 128,256 in every sampling regime, with
    the count commit in the kernel and outside it, and in its ``finish``,
    ``extra_bias`` and combined forms (stop ids below and above
@@ -30,7 +35,10 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    past ctx must come back as zeros). It times kernel, plain version, a
    PyTorch library call where one computes the same function (SDPA over
    pre-gathered dense keys, a yardstick only) and the card's bound for the
-   same work.
+   same work; decode, verify, flash, MLA decode and their SDPA yardsticks
+   by a CUDA graph's replay (``graph_ms``: device time, beside the eager
+   ``cuda_ms`` that includes the wrapper's host time), the rest by
+   ``cuda_ms``.
 4. ``engine``  — serves token-id requests through ``TorchServingEngine``
    at the full Llama-3.2-1B shapes with seeded random bf16 weights,
    checks every stream, the kernels' launch counts on that run, a repeated
@@ -182,6 +190,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, warmup: int = 3, replays: int = 5) -> float:
+    """Mean device milliseconds per call: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events. A kernel
+    that takes tens of microseconds runs faster than its Python wrapper can
+    launch it, so ``cuda_ms`` of it times the host; the replay does not."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: a wrapper may set a function attribute while capturing
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def check_close(name: str, got, ref) -> float:
     """max |got - ref|, raising unless |diff| <= ATOL + RTOL * |ref|."""
     diff = (got.float() - ref.float()).abs()
@@ -269,8 +308,10 @@ def _flash_timing(torch, pf, k, v, k32, v32, layer, qf, btp, basep, ctxp, S,
     dev = qf.device
     B, _, H, D = qf.shape
     KVH = k.shape[3]
-    ms = cuda_ms(lambda: pf.paged_flash_attention(qf, k, v, btp, basep, ctxp,
-                                                  layer_idx=layer))
+    ms = graph_ms(lambda: pf.paged_flash_attention(qf, k, v, btp, basep, ctxp,
+                                                   layer_idx=layer))
+    eager_ms = cuda_ms(lambda: pf.paged_flash_attention(qf, k, v, btp, basep,
+                                                        ctxp, layer_idx=layer))
     plain_ms = cuda_ms(lambda: pf.paged_flash_attention_ref(
         qf.float(), k32, v32, btp, basep, ctxp, layer))
     ref = pf.paged_flash_attention_ref(qf.float(), k32, v32, btp, basep, ctxp,
@@ -286,7 +327,7 @@ def _flash_timing(torch, pf, k, v, k32, v32, layer, qf, btp, basep, ctxp, S,
     keys = torch.arange(T, device=dev)[None, None, :]
     mask = ((keys <= qpos) & (keys < ctxp.long()[:, None, None]))[:, None]
     qd = qf.transpose(1, 2).contiguous()
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
     flops, kv_bytes, plain_err = 0.0, 0, 0.0
     for i, (base, c) in enumerate(rows):
         nv = min(S, c - base)
@@ -296,18 +337,17 @@ def _flash_timing(torch, pf, k, v, k32, v32, layer, qf, btp, basep, ctxp, S,
             (plain_bf16[i, :nv].float() - ref[i, :nv]).abs().max()))
     bound, by = _bound_ms(flops, 2 * qf.numel() * 2 + kv_bytes)
     torch.cuda.synchronize()
-    return dict(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+    return dict(kernel_ms=ms, kernel_ms_eager=eager_ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
                 bound_ms=bound, bound_by=by, plain_bf16_max_err=plain_err,
                 ctas=-(-S // (64 // (H // KVH))) * KVH * B)
 
 
 def kernel_phase(torch, dev):
-    from dynamo_tpu_torch.ops import paged_decode as pd
     from dynamo_tpu_torch.ops import paged_flash as pf
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
-    F = torch.nn.functional
     L, N, BS, KVH, D, H = 16, 1024, 16, 8, 64, 32
     LAYER = 7
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -321,46 +361,9 @@ def kernel_phase(torch, dev):
     ctx_l = [1, 15, 16, 17, 513, 2048, 700, 1500]
     B = len(ctx_l)
     bt = torch.randperm(N, generator=g, device=dev)[: B * W].reshape(B, W).int()
-    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
     q = torch.randn(B, 1, H, D, generator=g, device=dev).bfloat16()
-    errs = {}
-    for window in (pd.NO_WINDOW, 256):
-        out = pd.paged_decode_attention(q, k, v, bt, ctx, layer_idx=LAYER,
-                                        window=window)
-        ref = pd.paged_decode_attention_ref(q.float(), k32, v32, bt, ctx,
-                                            LAYER, None, window)
-        torch.cuda.synchronize()
-        errs[window] = check_close(f"decode window={window}", out, ref)
-    plain_bf16 = pd.paged_decode_attention_ref(q, k, v, bt, ctx, LAYER)
-    ref = pd.paged_decode_attention_ref(q.float(), k32, v32, bt, ctx, LAYER)
-    ms = cuda_ms(lambda: pd.paged_decode_attention(q, k, v, bt, ctx, layer_idx=LAYER))
-    plain_ms = cuda_ms(lambda: pd.paged_decode_attention_ref(
-        q.float(), k32, v32, bt, ctx, LAYER))
-    # library yardstick: SDPA over K/V pre-gathered into dense [B, H, T, D]
-    T = W * BS
-    kd = k[LAYER][bt.long()].reshape(B, T, KVH, D).transpose(1, 2)
-    vd = v[LAYER][bt.long()].reshape(B, T, KVH, D).transpose(1, 2)
-    kd = kd.repeat_interleave(H // KVH, dim=1).contiguous()
-    vd = vd.repeat_interleave(H // KVH, dim=1).contiguous()
-    mask = (torch.arange(T, device=dev)[None, :] < ctx[:, None])[:, None, None, :]
-    qd = q.transpose(1, 2).contiguous()
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
-    keys = np.asarray(ctx_l, np.int64)
-    nbytes = 2 * q.numel() * 2 + keys.sum() * KVH * D * 2 * 2
-    flops = 4.0 * D * H * keys.sum()
-    bound, by = _bound_ms(flops, nbytes)
-    emit("kernels", kernel="paged_decode", shape=dict(B=B, H=H, KVH=KVH, D=D,
-         bs=BS, L=L, layer=LAYER, ctx=ctx_l), max_err=errs[pd.NO_WINDOW],
-         max_err_window256=errs[256],
-         plain_bf16_max_err=float((plain_bf16.float() - ref).abs().max()),
-         kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-         bound_by=by, ctas=B * KVH, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
-    entries["paged_decode"] = dict(
-        name="paged_decode_attention", route="cuda",
-        source="dynamo_tpu_torch/csrc/paged_decode.cu",
-        replaces="dynamo_tpu/ops/pallas_decode.py:742",
-        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    entries["paged_decode"] = _decode_cases(torch, dev, k, v, k32, v32, bt,
+                                            ctx_l, q, LAYER)
     torch.cuda.synchronize()
 
     # ---- flash: one row at S 64 and 512 from position 0, a prefix hit and
@@ -432,17 +435,240 @@ def kernel_phase(torch, dev):
     return entries
 
 
+def _sdpa_decode_ms(torch, q, k, layer, bt, ctx_l, v):
+    """SDPA over each row's K/V pre-gathered to dense [B, H, T, D], masked
+    past ctx: the decode kernel's library yardstick (device time, graph
+    replay)."""
+    F = torch.nn.functional
+    B, _, H, D = q.shape
+    KVH = k.shape[3]
+    T = max(ctx_l)
+    kd = k[layer][bt.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+    vd = v[layer][bt.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+    kd = kd.repeat_interleave(H // KVH, dim=1).contiguous()
+    vd = vd.repeat_interleave(H // KVH, dim=1).contiguous()
+    ctx = torch.tensor(ctx_l, device=q.device)
+    mask = (torch.arange(T, device=q.device)[None, :] < ctx[:, None])[:, None, None, :]
+    qd = q.transpose(1, 2).contiguous()
+    return graph_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
+
+
+def _layers_ms(fn, layers, timer=cuda_ms):
+    """Mean ms of ``fn(layer)`` with the layer cycling through the stacked
+    cache, so a call finds its keys in device memory as a model's forward
+    does (the L2 holds 50 MB; one layer of the timed shapes fits in it)."""
+    it = iter(range(1 << 30))
+    return timer(lambda: fn(next(it) % layers))
+
+
+def _split_ctas(ctx_l, table_keys, kvh, window=1 << 30, S=1, base_l=None):
+    """(launched, live) CTAs of the split-KV grid for these rows: a split
+    is live when its chunk meets the row's key range."""
+    from dynamo_tpu_torch.ops import splitkv
+
+    chunk, splits = splitkv.plan(table_keys)
+    live = 0
+    for i, c in enumerate(ctx_l):
+        base = c - 1 if base_l is None else base_l[i]
+        lo, hi = max(0, base - window + 1), min(c - 1, base + S - 1)
+        live += hi // chunk - lo // chunk + 1 if hi >= lo else 0
+    return splits * kvh * len(ctx_l), live * kvh
+
+
+def _decode_check(torch, pd, name, q, k, v, k32, v32, bt, ctx, layer,
+                  window=None):
+    """One decode call against the f32 plain version at ATOL / RTOL, and a
+    second call on the same inputs bit-identical to the first. Returns the
+    max error."""
+    window = pd.NO_WINDOW if window is None else window
+    out = pd.paged_decode_attention(q, k, v, bt, ctx, layer_idx=layer,
+                                    window=window)
+    again = pd.paged_decode_attention(q, k, v, bt, ctx, layer_idx=layer,
+                                      window=window)
+    ref = pd.paged_decode_attention_ref(q.float(), k32, v32, bt, ctx, layer,
+                                        None, window)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"decode {name}: two calls on the same inputs "
+                             "are not bit-identical")
+    return check_close(f"decode {name}", out, ref)
+
+
+# the split-KV edges of the engine's 2,048-key table (256-key splits): one
+# key under, at and over a split, a row with no key, the full table
+DECODE_EDGE_CTX = [0, 255, 256, 257, 511, 513, 1300, 2048]
+DECODE_WINDOW = 300  # crosses a split at ctx 513 and 1300
+# engine_sp's decode batch while its 12k prompt decodes: 4 rows over a
+# 1,024-page table (max_model_len 16,384, 32 splits of 512 keys)
+LONG_DECODE_CTX, LONG_DECODE_PAGES = [12032, 6032, 332, 932], 1024
+
+
+def _decode_cases(torch, dev, k, v, k32, v32, bt, ctx_l, q, layer):
+    """The decode kernel against its f32 plain version, each case twice
+    (bit-identical): the timed shape with and without a window; the split
+    edges with and without a window crossing a split; group sizes 1, 4 and
+    8 at head_dim 64 and 128 (H / KVH over 8 KV heads); and the long
+    context decode batch of ``engine_sp``, timed too."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+
+    B, _, H, D = q.shape
+    L, N, BS, KVH, _ = k.shape
+    W = bt.shape[1]
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    errs = {}
+    for window in (pd.NO_WINDOW, 256):
+        errs[f"timed_w{window}"] = _decode_check(
+            torch, pd, f"window={window}", q, k, v, k32, v32, bt, ctx, layer,
+            window)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    ctx_e = torch.tensor(DECODE_EDGE_CTX, dtype=torch.int32, device=dev)
+    for h in (8, 32, 64):  # G 1, 4, 8
+        qe = torch.randn(B, 1, h, D, generator=g, device=dev).bfloat16()
+        for window in (pd.NO_WINDOW, DECODE_WINDOW):
+            errs[f"edges_h{h}_w{window}"] = _decode_check(
+                torch, pd, f"edges H={h} window={window}", qe, k, v, k32, v32,
+                bt, ctx_e, layer, window)
+    # head_dim 128 over a 4-layer cache
+    L2, N2 = 4, 256
+    k2 = torch.randn(L2, N2, BS, KVH, 128, generator=g, device=dev).bfloat16()
+    v2 = torch.randn(L2, N2, BS, KVH, 128, generator=g, device=dev).bfloat16()
+    k2_32, v2_32 = k2.float(), v2.float()
+    bt2 = torch.stack([torch.randperm(N2, generator=g, device=dev)[:W]
+                       for _ in range(B)]).int()
+    for h in (8, 32, 64):
+        q2 = torch.randn(B, 1, h, 128, generator=g, device=dev).bfloat16()
+        for window in (pd.NO_WINDOW, DECODE_WINDOW):
+            errs[f"d128_h{h}_w{window}"] = _decode_check(
+                torch, pd, f"head_dim 128 H={h} window={window}", q2, k2, v2,
+                k2_32, v2_32, bt2, ctx_e, 2, window)
+    q2 = torch.randn(B, 1, H, 128, generator=g, device=dev).bfloat16()
+    d128_ms = _layers_ms(lambda li: pd.paged_decode_attention(
+        q2, k2, v2, bt2, ctx_e, layer_idx=li), L2, graph_ms)
+    del k2, v2, k2_32, v2_32
+
+    # the timed shape
+    plain_bf16 = pd.paged_decode_attention_ref(q, k, v, bt, ctx, layer)
+    ref = pd.paged_decode_attention_ref(q.float(), k32, v32, bt, ctx, layer)
+    ms = graph_ms(lambda: pd.paged_decode_attention(q, k, v, bt, ctx,
+                                                    layer_idx=layer))
+    eager_ms = cuda_ms(lambda: pd.paged_decode_attention(q, k, v, bt, ctx,
+                                                         layer_idx=layer))
+    layers_ms = _layers_ms(lambda li: pd.paged_decode_attention(
+        q, k, v, bt, ctx, layer_idx=li), L, graph_ms)
+    plain_ms = cuda_ms(lambda: pd.paged_decode_attention_ref(
+        q.float(), k32, v32, bt, ctx, layer))
+    lib_ms = _sdpa_decode_ms(torch, q, k, layer, bt, ctx_l, v)
+    keys = np.asarray(ctx_l, np.int64)
+    bound, by = _bound_ms(4.0 * D * H * keys.sum(),
+                          2 * q.numel() * 2 + keys.sum() * KVH * D * 2 * 2)
+    ctas, live = _split_ctas(ctx_l, W * BS, KVH)
+
+    # engine_sp's long-context decode batch: its own 4-layer cache of
+    # 2,048 pages, the rows' live pages distinct, as the engine lays them
+    gl = torch.Generator(device=dev).manual_seed(SEED + 4)
+    Ll, Nl = 4, 2048
+    kl = torch.randn(Ll, Nl, BS, KVH, D, generator=gl, device=dev).bfloat16()
+    vl = torch.randn(Ll, Nl, BS, KVH, D, generator=gl, device=dev).bfloat16()
+    perm = torch.randperm(Nl, generator=gl, device=dev).int()
+    btl = torch.zeros(len(LONG_DECODE_CTX), LONG_DECODE_PAGES, dtype=torch.int32,
+                      device=dev)
+    at = 0
+    for i, c in enumerate(LONG_DECODE_CTX):
+        n_pg = -(-c // BS)
+        btl[i, :n_pg] = perm[at:at + n_pg]
+        at += n_pg
+    ctxl = torch.tensor(LONG_DECODE_CTX, dtype=torch.int32, device=dev)
+    ql = torch.randn(len(LONG_DECODE_CTX), 1, H, D, generator=gl,
+                     device=dev).bfloat16()
+    kl32, vl32 = kl.float(), vl.float()
+    errs["long_context"] = _decode_check(torch, pd, "long context", ql, kl, vl,
+                                         kl32, vl32, btl, ctxl, 1)
+    long_ms = graph_ms(lambda: pd.paged_decode_attention(ql, kl, vl, btl, ctxl,
+                                                         layer_idx=1))
+    long_layers_ms = _layers_ms(lambda li: pd.paged_decode_attention(
+        ql, kl, vl, btl, ctxl, layer_idx=li), Ll, graph_ms)
+    long_plain_ms = cuda_ms(lambda: pd.paged_decode_attention_ref(
+        ql.float(), kl32, vl32, btl, ctxl, 1), iters=5, warmup=1)
+    del kl32, vl32
+    long_lib_ms = _sdpa_decode_ms(torch, ql, kl, 1, btl, LONG_DECODE_CTX, vl)
+    keys_l = np.asarray(LONG_DECODE_CTX, np.int64)
+    long_bound, long_by = _bound_ms(
+        4.0 * D * H * keys_l.sum(),
+        2 * ql.numel() * 2 + keys_l.sum() * KVH * D * 2 * 2)
+    long_ctas = _split_ctas(LONG_DECODE_CTX, LONG_DECODE_PAGES * BS, KVH)
+    del kl, vl
+    torch.cuda.synchronize()
+    long = dict(ms=long_ms, ms_layers_rotated=long_layers_ms,
+                plain_ms=long_plain_ms, bound_ms=long_bound, bound_by=long_by,
+                library_ms=long_lib_ms)
+    emit("kernels", kernel="paged_decode", shape=dict(
+         B=B, H=H, KVH=KVH, D=D, bs=BS, L=L, layer=layer, ctx=ctx_l,
+         edges=DECODE_EDGE_CTX, window=DECODE_WINDOW, groups=[1, 4, 8],
+         head_dims=[64, 128], long_context=dict(ctx=LONG_DECODE_CTX,
+                                                pages=LONG_DECODE_PAGES)),
+         max_err=errs, bit_identical=True,
+         plain_bf16_max_err=float((plain_bf16.float() - ref).abs().max()),
+         kernel_ms=ms, kernel_ms_layers_rotated=layers_ms,
+         kernel_ms_eager=eager_ms, plain_ms=plain_ms,
+         library_ms=lib_ms, bound_ms=bound, bound_by=by, ctas=ctas,
+         live_ctas=live, d128_ms_layers_rotated=d128_ms,
+         long_context=dict(long, ctas=long_ctas[0], live_ctas=long_ctas[1]),
+         sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    return dict(
+        name="paged_decode_attention", route="cuda",
+        source="dynamo_tpu_torch/csrc/paged_decode.cu",
+        core="dynamo_tpu_torch/csrc/paged_splitkv.cuh",
+        replaces="dynamo_tpu/ops/pallas_decode.py:742",
+        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=lib_ms, long_context=long)
+
+
+def _verify_check(torch, pv, name, q, k, v, k32, v32, bt, base, ctx, layer,
+                  window=None):
+    """One verify call against the f32 plain version: every row finite, the
+    valid rows (base + s < ctx) within ATOL / RTOL, and a second call on the
+    same inputs bit-identical to the first. Returns the max error."""
+    window = pv.NO_WINDOW if window is None else window
+    out = pv.paged_verify_attention(q, k, v, bt, base, ctx, layer_idx=layer,
+                                    window=window)
+    again = pv.paged_verify_attention(q, k, v, bt, base, ctx, layer_idx=layer,
+                                      window=window)
+    ref = pv.paged_verify_attention_ref(q.float(), k32, v32, bt, base, ctx,
+                                        layer, None, window)
+    torch.cuda.synchronize()
+    if not bool(out.float().isfinite().all()):
+        raise AssertionError(f"verify {name}: non-finite output")
+    if not torch.equal(out, again):
+        raise AssertionError(f"verify {name}: two calls on the same inputs "
+                             "are not bit-identical")
+    return max(check_close(f"verify {name} row {i}", out[i, : c - b],
+                           ref[i, : c - b])
+               for i, (b, c) in enumerate(zip(base.tolist(), ctx.tolist()))
+               if c > b)
+
+
+# verify rows (base, ctx) at the edges of a 256-key split: the tail ends one
+# key under, at and over the split, starts at it, crosses the next; a pad
+# row (base 0, ctx 1, table 0) last
+VERIFY_EDGE_ROWS = [(250, 255), (251, 256), (252, 257), (256, 261),
+                    (254, 259), (509, 514), (1296, 1301), (0, 1)]
+
+
 def _verify_cases(torch, dev, g, k, v, k32, v32, bt, ctx_l, layer):
     """The verify kernel at S 2, 5, 17 and 32 over the decode phase's
     contexts (each row's tail ends at its ctx: base = max(ctx - S, 0), so
     short rows are padded proposals) plus a pad row (base 0, ctx 1, table
-    0); S 5 (the engine's K + 1 = 5) also with window 256. Every valid row
-    (base + s < ctx) is held against the f32 plain version; S 5 is timed."""
+    0); S 5 (the engine's K + 1 = 5) also with window 256. Then the split
+    edges (``VERIFY_EDGE_ROWS``) with and without a window crossing a split,
+    at group sizes 1, 4 and 8 and head_dim 64 and 128 (S 5 and 16; S 32 at
+    G 1 and 4). Every valid row (base + s < ctx) is held against the f32
+    plain version and every call is made twice (bit-identical); S 5 is
+    timed."""
     from dynamo_tpu_torch.ops import paged_verify as pv
 
     F = torch.nn.functional
     H, D = 32, 64
-    KVH = k.shape[3]
+    L, N, BS, KVH, _ = k.shape
     B = len(ctx_l) + 1
     btv = torch.cat([bt, torch.zeros_like(bt[:1])])
     ctx = torch.tensor(ctx_l + [1], dtype=torch.int32, device=dev)
@@ -451,23 +677,51 @@ def _verify_cases(torch, dev, g, k, v, k32, v32, bt, ctx_l, layer):
         base = torch.clamp(ctx - S, min=0)
         q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
         for window in ((pv.NO_WINDOW, 256) if S == 5 else (pv.NO_WINDOW,)):
-            out = pv.paged_verify_attention(q, k, v, btv, base, ctx,
-                                            layer_idx=layer, window=window)
-            ref = pv.paged_verify_attention_ref(q.float(), k32, v32, btv, base,
-                                                ctx, layer, None, window)
-            torch.cuda.synchronize()
-            if not bool(out.float().isfinite().all()):
-                raise AssertionError(f"verify S={S}: non-finite output")
-            errs[f"S{S}" + ("" if window == pv.NO_WINDOW else f"_w{window}")] = max(
-                check_close(f"verify S={S} window={window} row {i}",
-                            out[i, : int(c - b)], ref[i, : int(c - b)])
-                for i, (b, c) in enumerate(zip(base.tolist(), ctx.tolist())))
+            errs[f"S{S}" + ("" if window == pv.NO_WINDOW else f"_w{window}")] = (
+                _verify_check(torch, pv, f"S={S} window={window}", q, k, v,
+                              k32, v32, btv, base, ctx, layer, window))
         if S == 5:
             timed = (q, base)
+
+    # split edges, group sizes and head_dim 128 (their own generator, so
+    # the timed inputs above stay as they were)
+    ge = torch.Generator(device=dev).manual_seed(SEED + 5)
+    Be = len(VERIFY_EDGE_ROWS)
+    base_e = torch.tensor([r[0] for r in VERIFY_EDGE_ROWS], dtype=torch.int32,
+                          device=dev)
+    ctx_e = torch.tensor([r[1] for r in VERIFY_EDGE_ROWS], dtype=torch.int32,
+                         device=dev)
+    bt_e = btv[:Be].clone()
+    bt_e[-1] = 0
+    L2, N2 = 4, 256
+    k2 = torch.randn(L2, N2, BS, KVH, 128, generator=ge, device=dev).bfloat16()
+    v2 = torch.randn(L2, N2, BS, KVH, 128, generator=ge, device=dev).bfloat16()
+    k2_32, v2_32 = k2.float(), v2.float()
+    bt2 = torch.stack([torch.randperm(N2, generator=ge, device=dev)[:bt.shape[1]]
+                       for _ in range(Be)]).int()
+    bt2[-1] = 0
+    caches = {64: (k, v, k32, v32, bt_e, layer), 128: (k2, v2, k2_32, v2_32, bt2, 2)}
+    for d, (kc, vc, kc32, vc32, btc, li) in caches.items():
+        for h in (8, 32, 64):  # G 1, 4, 8
+            for S in ((5, 32) if h < 64 else (5, 16)):
+                qe = torch.randn(Be, S, h, d, generator=ge, device=dev).bfloat16()
+                for window in (pv.NO_WINDOW, DECODE_WINDOW):
+                    errs[f"edges_d{d}_h{h}_S{S}_w{window}"] = _verify_check(
+                        torch, pv, f"edges D={d} H={h} S={S} window={window}",
+                        qe, kc, vc, kc32, vc32, btc, base_e, ctx_e, li, window)
+    q2 = torch.randn(Be, 5, H, 128, generator=ge, device=dev).bfloat16()
+    d128_ms = _layers_ms(lambda li: pv.paged_verify_attention(
+        q2, k2, v2, bt2, base_e, ctx_e, layer_idx=li), L2, graph_ms)
+    del k2, v2, k2_32, v2_32
+
     q, base = timed
     S = q.shape[1]
-    ms = cuda_ms(lambda: pv.paged_verify_attention(q, k, v, btv, base, ctx,
-                                                   layer_idx=layer))
+    ms = graph_ms(lambda: pv.paged_verify_attention(q, k, v, btv, base, ctx,
+                                                    layer_idx=layer))
+    eager_ms = cuda_ms(lambda: pv.paged_verify_attention(q, k, v, btv, base,
+                                                         ctx, layer_idx=layer))
+    layers_ms = _layers_ms(lambda li: pv.paged_verify_attention(
+        q, k, v, btv, base, ctx, layer_idx=li), L, graph_ms)
     plain_ms = cuda_ms(lambda: pv.paged_verify_attention_ref(
         q.float(), k32, v32, btv, base, ctx, layer))
     # library yardstick: SDPA over K/V pre-gathered to dense, causal by
@@ -481,21 +735,29 @@ def _verify_cases(torch, dev, g, k, v, k32, v32, bt, ctx_l, layer):
     keys = torch.arange(T, device=dev)[None, None, :]
     mask = ((keys <= qpos) & (keys < ctx.long()[:, None, None]))[:, None]
     qd = q.transpose(1, 2).contiguous()
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
     flops, kv_bytes = 0.0, 0
     for b, c in zip(base.tolist(), ctx.tolist()):
         nv = c - b
         flops += 4.0 * D * H * _visible(b + np.arange(nv), c, 1 << 30).sum()
         kv_bytes += min(c, b + S) * KVH * D * 2 * 2
     bound, by = _bound_ms(flops, 2 * q.numel() * 2 + kv_bytes)
+    ctas, live = _split_ctas(ctx.tolist(), bt.shape[1] * BS, KVH, S=S,
+                             base_l=base.tolist())
     emit("kernels", kernel="paged_verify",
          shape=dict(B=B, S=[2, 5, 17, 32], H=H, KVH=KVH, D=D, layer=layer,
-                    ctx=ctx.tolist(), pad_row="base 0, ctx 1, table 0"),
-         max_err=errs, timed_S=S, kernel_ms=ms, plain_ms=plain_ms,
-         library_ms=lib_ms, bound_ms=bound, bound_by=by, ctas=B * KVH)
+                    ctx=ctx.tolist(), pad_row="base 0, ctx 1, table 0",
+                    edges=VERIFY_EDGE_ROWS, window=DECODE_WINDOW,
+                    groups=[1, 4, 8], head_dims=[64, 128]),
+         max_err=errs, bit_identical=True, timed_S=S, kernel_ms=ms,
+         kernel_ms_layers_rotated=layers_ms, kernel_ms_eager=eager_ms,
+         plain_ms=plain_ms,
+         library_ms=lib_ms, bound_ms=bound, bound_by=by, ctas=ctas,
+         live_ctas=live, d128_ms_layers_rotated=d128_ms)
     torch.cuda.synchronize()
     return dict(name="paged_verify_attention", route="cuda",
                 source="dynamo_tpu_torch/csrc/paged_verify.cu",
+                core="dynamo_tpu_torch/csrc/paged_splitkv.cuh",
                 replaces="dynamo_tpu/ops/pallas_decode.py:634",
                 max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
@@ -649,7 +911,9 @@ def _mla_cases(torch, dev):
     err = check_close("mla_decode", out, ref)
     plain_bf16 = md.mla_paged_decode_attention_ref(q_lat, q_rope, c, kr, bt, ctx,
                                                    LAYER, scale)
-    ms = cuda_ms(lambda: md.mla_paged_decode_attention(
+    ms = graph_ms(lambda: md.mla_paged_decode_attention(
+        q_lat, q_rope, c, kr, bt, ctx, layer_idx=LAYER, scale=scale))
+    eager_ms = cuda_ms(lambda: md.mla_paged_decode_attention(
         q_lat, q_rope, c, kr, bt, ctx, layer_idx=LAYER, scale=scale))
     plain_ms = cuda_ms(lambda: md.mla_paged_decode_attention_ref(
         q_lat.float(), q_rope.float(), c32, kr32, bt, ctx, LAYER, scale))
@@ -661,7 +925,7 @@ def _mla_cases(torch, dev):
     vd = keys[:, None, :, :R].expand(B, H, T, R).contiguous()
     qd = torch.cat([q_lat, q_rope], -1).transpose(1, 2).contiguous()
     mask = (torch.arange(T, device=dev)[None, :] < ctx[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, scale=scale))
     nkeys = int(np.sum(ctx_l))
     # each live key once (c and kr), the queries, the output, the tables
@@ -674,7 +938,7 @@ def _mla_cases(torch, dev):
          shape=dict(B=B, H=H, R=R, RD=RD, bs=BS, L=L, layer=LAYER, ctx=ctx_l,
                     scale=scale),
          max_err=err, plain_bf16_max_err=float((plain_bf16.float() - ref).abs().max()),
-         kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+         kernel_ms=ms, kernel_ms_eager=eager_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
          bound_by=by, keys_per_split=kps,
          ctas=dict(grid=B * -(-W * BS // kps),
                    live=sum(-(-n // kps) for n in ctx_l)))
@@ -1293,10 +1557,11 @@ def engine_phase(torch, dev, smi):
                 torch, engine.config, llama, engine.config.model,
                 engine.runner.device, engine.runner.params, wave1[4][0][:100],
                 wave1[2][0][:40])
+            step = _decode_step_profile(torch, engine.runner)
         finally:
             await engine.close()
         return (setup_s, res1, res2, wall1, launches, metrics, peak, logits,
-                spec_base)
+                spec_base, step)
 
     async def other_path(kw, batch, new_tokens=None, spec_base=None):
         engine = await TorchServingEngine.create(config(**kw), device="cuda")
@@ -1315,7 +1580,7 @@ def engine_phase(torch, dev, smi):
         return res, wall, launches, metrics, parted
 
     (setup_s, res1, res2, wall1, launches, metrics, peak, logits,
-     spec_base) = asyncio.run(main_path())
+     spec_base, step) = asyncio.run(main_path())
     torch.cuda.empty_cache()
     _check_streams(res1 + res2, NEW_TOKENS)
     _check_streams(spec_base, SPEC_NEW_TOKENS)
@@ -1360,7 +1625,7 @@ def engine_phase(torch, dev, smi):
          ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2],
                      max=ttfts[-1]),
          peak_memory_bytes=peak, launches=launches, metrics=metrics,
-         logits_vs_cpu_f32=logits, card=smi)
+         decode_step=step, logits_vs_cpu_f32=logits, card=smi)
     emit("engine_paths",
          unfused=dict(streams_identical=True, launches=launches_off),
          burst=dict(k=4, streams_identical=True, wave1_wall_s=wall_k4,
@@ -1641,18 +1906,20 @@ def _busy_us(kernels):
     return busy
 
 
-def _decode_step_profile(torch, runner, steps=5):
+def _decode_step_profile(torch, runner, steps=5,
+                         ctx=(1, 15, 16, 17, 513, 2048, 700, 1500)):
     """Host-clock time of inert single-token decode steps at the engine's
-    batch (8 rows at the decode phase's contexts, every KV slot the drop
-    sentinel), the weight bytes a step must read (every parameter but the
-    embedding table, of which it gathers 8 rows), and a ``torch.profiler``
-    trace of 3 more steps: device-busy time (the union of kernel
-    intervals), events and the top kernels."""
+    batch (8 rows at ``ctx``, by default the decode phase's contexts, every
+    KV slot the drop sentinel), the weight bytes a step must read (every
+    parameter but the embedding table, of which it gathers 8 rows), and a
+    ``torch.profiler`` trace of 3 more steps: device-busy time (the union of
+    kernel intervals), events, the top kernels and the split-KV decode
+    kernel's time and share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = runner.config
     b, w = cfg.max_batch_size, cfg.blocks_per_seq
-    ctx = np.asarray([1, 15, 16, 17, 513, 2048, 700, 1500][:b], np.int32)
+    ctx = np.asarray(list(ctx)[:b], np.int32)
     bt = np.arange(b * w, dtype=np.int32).reshape(b, w) % cfg.num_kv_blocks
     z = np.zeros((b, 1), np.int32)
     args = (z, (ctx - 1)[:, None], bt, np.full((b, 1), -1, np.int32), ctx,
@@ -1683,6 +1950,7 @@ def _decode_step_profile(torch, runner, steps=5):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = _busy_us(kernels)
+    decode_us = sum(v for k, v in by_name.items() if "splitkv_kernel" in k)
     weight_bytes = sum(
         t.numel() * t.element_size()
         for group in runner.params.values()
@@ -1695,7 +1963,8 @@ def _decode_step_profile(torch, runner, steps=5):
         weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
         traced_steps=3, traced_wall_ms=traced_s * 1e3,
         device_busy_ms=busy / 1e3, device_busy_share=busy / (traced_s * 1e6),
-        device_events=len(kernels),
+        device_events=len(kernels), decode_kernel_ms=decode_us / 1e3,
+        decode_kernel_share_of_busy=decode_us / busy if busy else None,
         top_kernels_ms={k[:80]: v / 1e3 for k, v in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:10]})
 
@@ -2027,6 +2296,9 @@ def engine_sp_phase(torch, dev, smi):
     chained = asyncio.run(run(dict(decode_pipeline_depth=2), params,
                               keep_runner=True))
     runner = chained.pop("runner")
+    # a decode step at the wave's contexts while its 12k prompt decodes
+    step = (_decode_step_profile(torch, runner, ctx=LONG_DECODE_CTX + [1] * 4)
+            if on_card else None)
     logits = _sp_logits(torch, runner, wave[0][0], ENGINE["max_prefill_tokens_per_step"])
     requests = wave + [(hit, greedy)]
     parted = _spec_agreement(torch, runner, requests, dense["res"], sp["res"])
@@ -2061,7 +2333,8 @@ def engine_sp_phase(torch, dev, smi):
          wave=[dict(prompt_tokens=n, **samp) for n, samp in SP_WAVE],
          prefix_hit=dict(shared=SP_SHARED, new=SP_EXTRA), new_tokens=NEW_TOKENS,
          engines={name: summary(r) for name, r in runs.items()},
-         logits_12k_sp_vs_dense=logits, sp_vs_dense_parted=parted, card=smi)
+         decode_step=step, logits_12k_sp_vs_dense=logits,
+         sp_vs_dense_parted=parted, card=smi)
 
     for name, r in runs.items():
         _check_streams(r["res"], NEW_TOKENS)

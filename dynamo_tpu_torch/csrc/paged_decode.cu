@@ -1,207 +1,69 @@
 // Single-token (decode) GQA attention over the stacked paged KV cache.
 //
 // Replaces the TPU kernel dynamo_tpu/ops/pallas_decode.py
-// (paged_decode_attention / _decode_kernel). It computes the same
-// function: the query of batch row b sits at position ctx[b] - 1 and sees
-// every cached key at positions [max(ctx - window, 0), ctx); the walk
-// covers only those live pages, with an online softmax and f32
-// accumulation; a row with no visible key (ctx == 0) outputs zeros (the
-// reference's l == 0 guard); the output is bf16.
+// (paged_decode_attention :658 / its pallas_call :742, _decode_kernel). It
+// computes the same function: the query of batch row b sits at position
+// ctx[b] - 1 and sees every cached key at positions [max(ctx - window, 0),
+// ctx); online softmax with f32 accumulation, P rounded to bf16 before P V
+// as the reference rounds it to the value dtype; a row with no visible key
+// (ctx == 0) outputs zeros (the reference's l == 0 guard); the output is
+// bf16.
 //
-// What bounds it on an H100: bytes. Each (row, KV head) reads its context's
-// K and V once (2 * ctx * D * 2 bytes) and does ~4 FLOPs per byte read, far
-// below the ~295 FLOP/byte the card needs to be compute bound. The design
-// reads each K/V element from device memory exactly once per query head
-// group: one CTA per (batch row, KV head) loads the G query heads of the
-// group once and stages each 64-key tile of K and V in shared memory,
-// where all G heads (one warp each) reuse it. The layer is a runtime index
-// into the stacked cache, so no per-layer slice is ever copied.
+// What bounds it on an H100: bytes. Each (row, KV head) reads its live
+// context's K and V once (2 * keys * D * 2 bytes) and does ~4 G FLOPs per
+// byte read (G = 4 on Llama-3.2-1B), far below the ~295 FLOP/byte the card
+// needs to be compute bound.
 //
-// Known limits of this first version (later work): one CTA walks the whole
-// context of its (row, head), so the card holds only B * KVH CTAs (64 at
-// batch 8 on Llama-3.2-1B shapes, under the 132 SMs); splitting the walk
-// across CTAs (flash-decoding) and overlapping the next tile's loads with
-// this tile's math (cp.async / TMA double buffering) would both raise the
-// achieved bandwidth.
+// Design: the split-KV core of paged_splitkv.cuh at S = 1, its G rows one
+// 16-row tile (G <= 16; up to 128 rows in more tiles). The grid is (split,
+// KV head, batch row), fixed by the block table's width, so a long context
+// is walked by many CTAs at once; each CTA streams its chunk's pages
+// through a cp.async ring, its four warps score 16 keys of each 64-key tile
+// on the tensor cores (mma.sync), and the last split to finish merges the
+// splits' f32 partials in split order, so the output is bit-identical from
+// call to call. The layer is a runtime index into the stacked cache, so no
+// per-layer slice is ever copied.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (dynamo_tpu_torch/ops/_build.py); plain C entry
 //        point below, bound with ctypes by dynamo_tpu_torch/ops/paged_decode.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int TK = 64;   // keys per shared-memory tile
-constexpr int VEC = 8;   // bf16 elements per 16-byte load
-
-template <int D>
-__global__ void paged_decode_kernel(
-    const __nv_bfloat16* __restrict__ q,    // [B, H, D]
-    const __nv_bfloat16* __restrict__ kc,   // [L, N, bs, KVH, D]
-    const __nv_bfloat16* __restrict__ vc,   // [L, N, bs, KVH, D]
-    const int* __restrict__ bt,             // [B, W]
-    const int* __restrict__ ctx_lens,       // [B]
-    __nv_bfloat16* __restrict__ out,        // [B, H, D]
-    int H, int KVH, int N, int bs, int W, int layer, int window,
-    float scale) {
-  constexpr int DPL = D / 32;   // output elements per lane
-  constexpr int KS = D + 1;     // padded K row: lane j reads row j bank-free
-  constexpr int VPR = D / VEC;  // 16-byte vectors per K/V row
-  constexpr int KPL = TK / 32;  // keys per lane in the score pass
-  extern __shared__ float smem[];
-  const int G = H / KVH;
-  float* q_s = smem;            // [G][D]
-  float* k_s = q_s + G * D;     // [TK][KS]
-  float* v_s = k_s + TK * KS;   // [TK][D]
-  float* p_s = v_s + TK * D;    // [G][TK]
-
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nthreads = blockDim.x;
-  const int ctx = ctx_lens[b];
-
-  for (int i = tid; i < G * D; i += nthreads) {
-    const int g = i / D, d = i % D;
-    q_s[i] = __bfloat162float(q[((size_t)b * H + kvh * G + g) * D + d]);
-  }
-
-  const int win_start = max(ctx - window, 0);
-  const size_t tok_stride = (size_t)KVH * D;
-  const size_t layer_base =
-      (size_t)layer * N * bs * tok_stride + (size_t)kvh * D;
-
-  float m = -INFINITY, l = 0.f;
-  float acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-
-  // every tile starts at a visible key (t0 in [win_start, ctx)), so each
-  // tile's running max is finite
-  for (int t0 = win_start; t0 < ctx; t0 += TK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < TK * VPR; i += nthreads) {
-      const int r = i / VPR, c = (i % VPR) * VEC;
-      const int pos = t0 + r;
-      float kf[VEC], vf[VEC];
-      if (pos < ctx) {
-        const int blk = bt[(size_t)b * W + pos / bs];
-        const size_t off =
-            layer_base + ((size_t)blk * bs + pos % bs) * tok_stride + c;
-        const uint4 kraw = *reinterpret_cast<const uint4*>(kc + off);
-        const uint4 vraw = *reinterpret_cast<const uint4*>(vc + off);
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kraw);
-        const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vraw);
-#pragma unroll
-        for (int e = 0; e < VEC / 2; ++e) {
-          const float2 kk = __bfloat1622float2(k2[e]);
-          const float2 vv = __bfloat1622float2(v2[e]);
-          kf[2 * e] = kk.x; kf[2 * e + 1] = kk.y;
-          vf[2 * e] = vv.x; vf[2 * e + 1] = vv.y;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        k_s[r * KS + c + e] = kf[e];
-        v_s[r * D + c + e] = vf[e];
-      }
-    }
-    __syncthreads();
-    if (warp < G) {
-      const float* qr = q_s + warp * D;
-      float s[KPL];
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int kk = 0; kk < KPL; ++kk) {
-        const int j = lane + 32 * kk;
-        const float* kr = k_s + j * KS;
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s[kk] = (t0 + j < ctx) ? dot * scale : -INFINITY;
-        tmax = fmaxf(tmax, s[kk]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_new = fmaxf(m, tmax);
-      const float alpha = __expf(m - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KPL; ++kk) {
-        const int j = lane + 32 * kk;
-        const float p = (t0 + j < ctx) ? __expf(s[kk] - m_new) : 0.f;
-        p_s[warp * TK + j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l = l * alpha + psum;
-      m = m_new;
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-      const float* pr = p_s + warp * TK;
-      for (int j = 0; j < TK; ++j) {
-        const float p = pr[j];
-        const float* vr = v_s + j * D + lane;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, vr[32 * i], acc[i]);
-      }
-    }
-  }
-  if (warp < G) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    __nv_bfloat16* orow = out + ((size_t)b * H + kvh * G + warp) * D;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      orow[lane + 32 * i] = __float2bfloat16(acc[i] * inv);
-  }
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* bt,
-           const void* ctx, void* out, int B, int H, int KVH, int N, int bs,
-           int W, int layer, int window, float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  const size_t smem =
-      sizeof(float) * ((size_t)G * D + (size_t)TK * (D + 1) +
-                       (size_t)TK * D + (size_t)G * TK);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_kernel<D><<<dim3(B, KVH), dim3(32 * G), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(bt),
-      static_cast<const int*>(ctx), static_cast<__nv_bfloat16*>(out), H, KVH,
-      N, bs, W, layer, window, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "paged_splitkv.cuh"
 
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
-// has checked types, shapes, contiguity and 16-byte alignment. Only
-// head_dim 64 (Llama-3.2-1B) is instantiated.
+// has checked types, shapes, contiguity, 16-byte alignment and the group
+// size (G <= 128); it allocates the workspace `ws` (f32, B * KVH * nsplit
+// * G * (D + 2)) and passes its device's counter buffer `cnt` (>= B * KVH
+// ints, zero between calls), both unused when nsplit == 1. head_dim 64 and
+// 128 are instantiated.
 extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* bt, const void* ctx, void* out,
-                                 int B, int H, int KVH, int D, int N, int bs,
-                                 int W, int layer, int window, float scale,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, bt, ctx, out, B, H, KVH, N, bs, W, layer,
-                      window, scale, s);
-  return (int)cudaErrorInvalidValue;
+                                 void* ws, void* cnt, int B, int H, int KVH,
+                                 int D, int N, int bs, int W, int layer,
+                                 int window, int chunk, int nsplit,
+                                 float scale, void* stream) {
+  if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
+  paged_splitkv::Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.kc = static_cast<const __nv_bfloat16*>(k);
+  p.vc = static_cast<const __nv_bfloat16*>(v);
+  p.bt = static_cast<const int*>(bt);
+  p.base_pos = nullptr;  // decode: the query sits at ctx - 1
+  p.ctx_lens = static_cast<const int*>(ctx);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ws = static_cast<float*>(ws);
+  p.cnt = static_cast<int*>(cnt);
+  p.S = 1;
+  p.H = H;
+  p.KVH = KVH;
+  p.G = H / KVH;
+  p.N = N;
+  p.bs = bs;
+  p.W = W;
+  p.layer = layer;
+  p.window = window;
+  p.chunk = chunk;
+  p.scale = scale;
+  return paged_splitkv::launch_any(p, B, D, nsplit,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,591 @@
+// The split-KV ("flash-decoding") core shared by the two short-query
+// attention kernels: csrc/paged_decode.cu (S = 1, TPU kernel
+// dynamo_tpu/ops/pallas_decode.py::paged_decode_attention) and
+// csrc/paged_verify.cu (1 < S <= 32, pallas_decode.py::paged_verify_attention).
+//
+// The function. Query token s of batch row b sits at position base + s
+// (decode: base = ctx - 1) and sees key j iff j <= base + s, j < ctx and
+// j > base + s - window. A CTA's rows are (query position, group head)
+// pairs, r = s * G + g, so every K/V tile it stages feeds all S * G rows of
+// its KV head; a row with no visible key outputs zeros, never NaN.
+//
+// What bounds it on an H100: bytes. Each live K/V element is read once and
+// does at most 4 * S * G FLOPs (<= 128 FLOP/byte at S * G = 128, ~16 at
+// decode), under the ~295 FLOP/byte at which the card turns compute bound.
+// So the design keeps enough CTAs in flight and enough copies outstanding
+// to stream the live pages, and spends few instructions on the products.
+//
+// Grid: (split, KV head, batch row), from tensor shapes only. The block
+// table's width W * bs is cut into chunks of `chunk` keys (a multiple of
+// the 64-key tile; ops/splitkv.py picks it), one CTA a chunk. Each CTA
+// reads ctx (and base) on the device and computes the range every row of
+// its KV head can see, [k_lo, k_hi] = [max(0, base - window + 1),
+// min(ctx - 1, base + S - 1)]; a CTA whose chunk lies outside it exits at
+// once. Nothing on the host reads ctx, so a launch needs no sync and can be
+// captured in a CUDA graph.
+//
+// Inside a CTA (4 warps; 8 for 128 rows). The chunk's block-table entries
+// are read once into shared memory. K and V tiles of 64 keys x D stay bf16:
+// cp.async copies of 16 bytes into a ring of kStages stages, chunks
+// XOR-swizzled by row % 8 so that ldmatrix reads them without bank
+// conflicts; the copies of the next tiles are in flight while this tile's
+// products run. Q K^T and P V run on the tensor cores as
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) with ldmatrix (.trans for V),
+// the S * G rows padded to M tiles of 16 rows: wgmma's 64-row tile would
+// leave most rows idle at decode's G = 4. With one or two row tiles the
+// warps split each tile's keys among themselves (16 or 32 keys a warp), so
+// all four warps compute; each keeps its own online softmax (f32, log2
+// domain) and its own accumulators, and the warps merge in shared memory
+// at the end. P is rounded to bf16 before P V, as the reference rounds it
+// to the value dtype; l is summed from f32 P. Only tiles at the range's
+// edges and on the causal diagonal or the window's edge are masked.
+//
+// Merging the splits. A chunk that holds the whole range writes the bf16
+// output itself. Otherwise each live split writes its unnormalised
+// (m, l, acc) in f32 to a workspace the wrapper allocates, and the last
+// CTA of the (row, KV head) to finish (a __threadfence and an atomic
+// counter; the counters live in a buffer the wrapper keeps zeroed, and the
+// last CTA sets its counter back to 0) merges every live split in split
+// order and writes the output. No float atomics: the result does not depend
+// on which CTA finishes last, so repeated calls are bit-identical. One
+// launch a call.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+// Everything here has internal linkage: the two kernels' libraries each
+// include this header, and a function-local static of an inline function
+// with external linkage (the per-device shared-memory attribute record of
+// `launch`) would be one object across both loaded libraries while each
+// library holds its own kernel.
+namespace paged_splitkv {
+namespace {
+
+constexpr int kKeys = 64;   // keys per K/V tile
+constexpr int kStages = 3;  // cp.async ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxRows = 128;  // S * G rows a CTA holds: 8 row tiles
+
+// M row tiles of 16 rows: warps split a tile's keys while there are few
+// row tiles (M 1: 4 warps x 16 keys; M 2: 2 x 2 warps x 32 keys), and own
+// one row tile each over all 64 keys from M 4 on
+__host__ __device__ constexpr int key_groups(int m) {
+  return m == 1 ? 4 : m == 2 ? 2 : 1;
+}
+__host__ __device__ constexpr int cta_threads(int m) {
+  return 32 * m * key_groups(m);
+}
+
+// The launch's arguments. base_pos == nullptr: decode (base = ctx - 1,
+// S = 1).
+struct Params {
+  const __nv_bfloat16* q;   // [B, S, H, D]
+  const __nv_bfloat16* kc;  // [L, N, bs, KVH, D]
+  const __nv_bfloat16* vc;  // [L, N, bs, KVH, D]
+  const int* bt;            // [B, W]
+  const int* base_pos;      // [B] or nullptr
+  const int* ctx_lens;      // [B]
+  __nv_bfloat16* out;       // [B, S, H, D]
+  float* ws;                // [B, KVH, nsplit, S * G, D + 2] f32 partials
+  int* cnt;                 // [>= B * KVH] split counters, zero between calls
+  int S, H, KVH, G, N, bs, W, layer, window, chunk;
+  float scale;
+};
+
+// ------------------------------------------------------------------ PTX
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; !valid writes 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and r[i] holds (row lane / 4, columns 2 (lane % 4) + {0, 1})
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16 x 8, f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------- helpers
+
+// two floats -> bf16x2 (lo in the low half), round to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four floats -> bf16 at dst (8-byte aligned)
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a,
+                                             float b, float c, float d) {
+  uint2 v;
+  v.x = pack_bf16(a, b);
+  v.y = pack_bf16(c, d);
+  *reinterpret_cast<uint2*>(dst) = v;
+}
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a tile of rows of
+// D bf16: chunks XOR-swizzled by row % 8, so the 8 rows an ldmatrix reads
+// at one chunk index fall on 8 distinct bank groups
+template <int D>
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return (uint32_t)(row * (D * 2) + ((chunk ^ (row & 7)) << 4));
+}
+
+// dynamic shared memory: Q (16 M rows), the K and V rings, the merge's row
+// statistics, the last-CTA flag, then the chunk's block-table entries
+template <int D, int M>
+__host__ __device__ constexpr int smem_fixed() {
+  return 16 * M * D * 2 + 2 * kStages * kKeys * D * 2 + 2 * kMaxRows * 4 + 16;
+}
+template <int D, int M>
+inline size_t smem_bytes(int chunk, int bs) {
+  return (size_t)smem_fixed<D, M>() + (size_t)(chunk / bs + 2) * 4;
+}
+
+// ------------------------------------------------------------- the kernel
+
+template <int D, int M>
+__global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
+    const Params p) {
+  constexpr int WK = key_groups(M);    // warps sharing a row tile
+  constexpr int NT = cta_threads(M);
+  constexpr int KW = kKeys / WK;       // keys a warp scores per tile
+  constexpr int NTL = KW / 8;          // its 8-key score tiles
+  constexpr int CH = D / 8;            // 16-byte chunks per row
+  constexpr int DT = D / 8;            // 8-column output tiles
+  constexpr int ROWS = 16 * M;
+  constexpr uint32_t kTile = kKeys * D * 2;
+  constexpr int DS = D + 4;            // f32 row stride of the warps' dump
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int rt = warp / WK, kg = warp % WK;  // row tile, key group
+  const int S = p.S, G = p.G, R = S * G;
+  const int ctx = p.ctx_lens[b];
+  const int base = p.base_pos ? p.base_pos[b] : ctx - 1;
+  const int k_lo = max(0, base - p.window + 1);
+  const int k_hi = min(ctx - 1, base + S - 1);  // inclusive
+
+  // output row r = s * G + g: query s, head kvh * G + g
+  auto out_row = [&](int r) {
+    return p.out + (((size_t)b * S + r / G) * p.H + kvh * G + r % G) * D;
+  };
+
+  if (k_hi < k_lo) {  // no key visible to any row: split 0 writes zeros
+    if (split == 0)
+      for (int i = tid; i < R * (D / 4); i += NT)
+        store_bf16x4(out_row(i / (D / 4)) + (i % (D / 4)) * 4, 0.f, 0.f, 0.f,
+                     0.f);
+    return;
+  }
+  const int sp_lo = k_lo / p.chunk, sp_hi = k_hi / p.chunk;
+  if (split < sp_lo || split > sp_hi) return;
+  const int nlive = sp_hi - sp_lo + 1;
+  const int key_begin = max(k_lo, split * p.chunk);
+  const int key_end = min(k_hi + 1, (split + 1) * p.chunk);
+
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t k_s = q_s + ROWS * D * 2;
+  const uint32_t v_s = k_s + kStages * kTile;
+  float* stat_s = reinterpret_cast<float*>(smem + (v_s + kStages * kTile - q_s));
+  int* flag_s = reinterpret_cast<int*>(stat_s + 2 * kMaxRows);
+  int* pages_s = flag_s + 4;
+
+  // Q: row r is (query r / G, head kvh * G + r % G); zeros past S * G
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r < R;
+    const __nv_bfloat16* src =
+        p.q + (((size_t)b * S + (ok ? r / G : 0)) * p.H + kvh * G +
+               (ok ? r % G : 0)) * D + c * 8;
+    cp_async16(q_s + swz<D>(r, c), src, ok);
+  }
+  cp_async_commit();
+
+  // the chunk's block-table entries, once
+  const int pg0 = key_begin / p.bs;
+  const int npg = (key_end - 1) / p.bs - pg0 + 1;
+  const int* btab = p.bt + (size_t)b * p.W + pg0;
+  for (int i = tid; i < npg; i += NT) pages_s[i] = btab[i];
+  __syncthreads();
+
+  const size_t tok = (size_t)p.KVH * D;
+  const size_t layer_off =
+      (size_t)p.layer * p.N * p.bs * tok + (size_t)kvh * D;
+  const __nv_bfloat16* kl = p.kc + layer_off;
+  const __nv_bfloat16* vl = p.vc + layer_off;
+  const int t_first = key_begin / kKeys * kKeys;
+  const int nt = (key_end - t_first + kKeys - 1) / kKeys;
+
+  // tile it into ring stage `stage`; keys outside [key_begin, key_end)
+  // are zero-filled and never read
+  auto load_tile = [&](int it, int stage) {
+    const int t0 = t_first + it * kKeys;
+#pragma unroll
+    for (int j = 0; j < kKeys * CH / NT; ++j) {
+      const int i = tid + j * NT;
+      const int r = i / CH, c = i % CH;
+      const int pos = t0 + r;
+      const bool ok = pos >= key_begin && pos < key_end;
+      size_t off = 0;
+      if (ok) {
+        const int page = pos / p.bs;
+        off = ((size_t)pages_s[page - pg0] * p.bs + (pos - page * p.bs)) *
+                  tok + c * 8;
+      }
+      cp_async16(k_s + stage * kTile + swz<D>(r, c), kl + off, ok);
+      cp_async16(v_s + stage * kTile + swz<D>(r, c), vl + off, ok);
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nt) load_tile(st, st);
+    cp_async_commit();
+  }
+
+  // Q's A fragments for the warp's row tile, held across the walk
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qa[kk], q_s + swz<D>(rt * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+
+  // this thread's rows rt * 16 + g4 + 8 i: their visible key bounds
+  int hi[2], lo[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = (rt * 16 + g4 + 8 * i) / G;
+    hi[i] = base + s;
+    lo[i] = base + s - p.window + 1;
+  }
+  const int hi_min = base, lo_max = base + S - p.window;  // over the rows
+  const float sl2 = p.scale * kLog2e;
+
+  float o[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < nt; ++it) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile it landed
+    __syncthreads();               // everyone's; the oldest stage is free
+    {
+      const int nx = it + kStages - 1;
+      if (nx < nt) load_tile(nx, nx % kStages);
+      cp_async_commit();
+    }
+    const int stage = it % kStages;
+    const uint32_t kb = k_s + stage * kTile;
+    const uint32_t vb = v_s + stage * kTile;
+    const int t0 = t_first + it * kKeys;
+    const int kw0 = kg * KW;  // the warp's first key in the tile
+
+    // S = Q K^T over the warp's KW keys: K's rows are keys (K-major), so
+    // ldmatrix without transpose gives the col-major B fragments of two
+    // 8-key tiles at once
+    float sc[NTL][4];
+#pragma unroll
+    for (int n = 0; n < NTL; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < NTL / 2; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(kf, kb + swz<D>(kw0 + np * 16 + (lane >> 4) * 8 + (lane & 7),
+                                kk * 2 + ((lane >> 3) & 1)));
+        mma_bf16(sc[2 * np], qa[kk], kf[0], kf[1]);
+        mma_bf16(sc[2 * np + 1], qa[kk], kf[2], kf[3]);
+      }
+
+    const bool need_mask = t0 < key_begin || t0 + kKeys > key_end ||
+                           t0 + kKeys - 1 > hi_min || t0 < lo_max;
+    if (need_mask) {
+#pragma unroll
+      for (int n = 0; n < NTL; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = t0 + kw0 + n * 8 + t4 * 2 + (e & 1);
+          const int i = e >> 1;
+          if (!(j >= key_begin && j < key_end && j <= hi[i] && j >= lo[i]))
+            sc[n][e] = -INFINITY;
+        }
+    }
+
+    // online softmax in the log2 domain; the row max over the 4 lanes
+    // that share a row
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NTL; ++n)
+        mx = fmaxf(mx, fmaxf(sc[n][2 * i], sc[n][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * sl2);
+      // a row with no visible key yet keeps p = 0 (no -inf - -inf)
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = ex2(m[i] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NTL; ++n)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          sc[n][e] = ex2(fmaf(sc[n][e], sl2, -m_use));
+          sum += sc[n][e];
+        }
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int t = 0; t < DT; ++t) {
+        o[t][2 * i] *= alpha;
+        o[t][2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P V: the accumulators of two 8-key tiles are the A fragment of
+    // one 16-key step; V's rows are keys, so ldmatrix .trans gives its B
+    // fragments for two 8-column output tiles at once
+#pragma unroll
+    for (int kk = 0; kk < KW / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, vb + swz<D>(kw0 + kk * 16 + (lane & 7) +
+                                      ((lane >> 3) & 1) * 8,
+                                  dp * 2 + (lane >> 4)));
+        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+
+  // the warps' (m, l, acc) into shared memory over the K ring, then one
+  // pass merges the key groups of each row
+  __syncthreads();  // every warp is done with the ring
+  float* dump_o = reinterpret_cast<float*>(smem + (k_s - q_s));  // [WK][ROWS][DS]
+  float* dump_m = dump_o + WK * ROWS * DS;                       // [WK][ROWS]
+  float* dump_l = dump_m + WK * ROWS;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rt * 16 + g4 + 8 * i;
+    float* orow = dump_o + (kg * ROWS + r) * DS + t4 * 2;
+#pragma unroll
+    for (int t = 0; t < DT; ++t)
+      *reinterpret_cast<float2*>(orow + t * 8) =
+          make_float2(o[t][2 * i], o[t][2 * i + 1]);
+    if (t4 == 0) {
+      dump_m[kg * ROWS + r] = m[i];
+      dump_l[kg * ROWS + r] = l[i];
+    }
+  }
+  __syncthreads();
+
+  const size_t part = ((size_t)b * p.KVH + kvh) * nsplit;  // (b, kvh)'s first split
+  float* ws_o = p.ws + (part + split) * R * D;  // [R][D]
+  float2* ws_ml = reinterpret_cast<float2*>(
+      p.ws + (size_t)gridDim.z * p.KVH * nsplit * R * D);  // [.., nsplit, R]
+  for (int i = tid; i < R * (D / 4); i += NT) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < WK; ++k) mx = fmaxf(mx, dump_m[k * ROWS + r]);
+    float ls = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < WK; ++k) {
+      const float mk = dump_m[k * ROWS + r];
+      const float w = mk == -INFINITY ? 0.f : ex2(mk - mx);
+      ls += w * dump_l[k * ROWS + r];
+      const float4 ov =
+          *reinterpret_cast<const float4*>(dump_o + (k * ROWS + r) * DS + c);
+      acc[0] += w * ov.x;
+      acc[1] += w * ov.y;
+      acc[2] += w * ov.z;
+      acc[3] += w * ov.w;
+    }
+    if (nlive == 1) {
+      const float inv = ls > 0.f ? 1.f / ls : 0.f;
+      store_bf16x4(out_row(r) + c, acc[0] * inv, acc[1] * inv, acc[2] * inv,
+                   acc[3] * inv);
+    } else {
+      *reinterpret_cast<float4*>(ws_o + (size_t)r * D + c) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+      if (c == 0) ws_ml[(part + split) * R + r] = make_float2(mx, ls);
+    }
+  }
+  if (nlive == 1) return;
+
+  // the last live split of this (row, KV head) to finish merges them all
+  __threadfence();  // this CTA's partials are visible device-wide ...
+  __syncthreads();  // ... before its thread 0 counts it
+  if (tid == 0) {
+    const int done = atomicAdd(p.cnt + (size_t)b * p.KVH + kvh, 1);
+    flag_s[0] = done == nlive - 1;
+  }
+  __syncthreads();
+  if (!flag_s[0]) return;
+  __threadfence();
+
+  // per row: the max over the splits and 1 / l, in split order
+  float* row_m = stat_s;
+  float* row_inv = stat_s + kMaxRows;
+  for (int r = tid; r < R; r += NT) {
+    float mx = -INFINITY;
+    for (int sp = sp_lo; sp <= sp_hi; ++sp)
+      mx = fmaxf(mx, __ldcg(&ws_ml[(part + sp) * R + r]).x);
+    float ls = 0.f;
+    for (int sp = sp_lo; sp <= sp_hi; ++sp) {
+      const float2 ml = __ldcg(&ws_ml[(part + sp) * R + r]);
+      ls += ml.x == -INFINITY ? 0.f : ex2(ml.x - mx) * ml.y;
+    }
+    row_m[r] = mx;
+    row_inv[r] = ls > 0.f ? 1.f / ls : 0.f;
+  }
+  __syncthreads();
+  for (int i = tid; i < R * (D / 4); i += NT) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const float mx = row_m[r];
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int sp = sp_lo; sp <= sp_hi; ++sp) {
+      const float ms = __ldcg(&ws_ml[(part + sp) * R + r]).x;
+      if (ms == -INFINITY) continue;
+      const float w = ex2(ms - mx);
+      const float4 ov = __ldcg(reinterpret_cast<const float4*>(
+          p.ws + ((part + sp) * R + r) * D + c));
+      acc[0] += w * ov.x;
+      acc[1] += w * ov.y;
+      acc[2] += w * ov.z;
+      acc[3] += w * ov.w;
+    }
+    const float inv = row_inv[r];
+    store_bf16x4(out_row(r) + c, acc[0] * inv, acc[1] * inv, acc[2] * inv,
+                 acc[3] * inv);
+  }
+  if (tid == 0) p.cnt[(size_t)b * p.KVH + kvh] = 0;  // ready for the next call
+}
+
+// --------------------------------------------------------------- launch
+
+// cudaFuncSetAttribute when this launch needs more dynamic shared memory
+// than the function was last allowed on this device (the attribute belongs
+// to the device's context), not on every launch
+inline cudaError_t allow_smem(const void* fn, int bytes,
+                              std::atomic<int> (&allowed)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && allowed[dev].load(std::memory_order_acquire) >= bytes)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) {
+    int cur = allowed[dev].load(std::memory_order_acquire);
+    while (cur < bytes && !allowed[dev].compare_exchange_weak(cur, bytes)) {
+    }
+  }
+  return err;
+}
+
+template <int D, int M>
+cudaError_t launch(const Params& p, int B, int nsplit, cudaStream_t stream) {
+  static std::atomic<int> allowed[64];
+  const int smem = (int)smem_bytes<D, M>(p.chunk, p.bs);
+  cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(splitkv_kernel<D, M>), smem, allowed);
+  if (err != cudaSuccess) return err;
+  splitkv_kernel<D, M><<<dim3(nsplit, p.KVH, B), dim3(cta_threads(M)), smem,
+                         stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Checks what the kernel assumes and launches the instantiation for
+// (D, row tiles). Returns cudaGetLastError() after the launch.
+inline int launch_any(const Params& p, int B, int D, int nsplit,
+                      cudaStream_t stream) {
+  const int rows = p.S * p.G;
+  if (B <= 0 || p.S <= 0 || p.G <= 0 || rows > kMaxRows || p.chunk <= 0 ||
+      p.chunk % kKeys || p.bs <= 0 || nsplit <= 0 ||
+      (long long)nsplit * p.chunk < (long long)p.W * p.bs ||
+      (nsplit > 1 && (p.ws == nullptr || p.cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int m = rows <= 16 ? 1 : rows <= 32 ? 2 : rows <= 64 ? 4 : 8;
+#define SPLITKV_CASE(DD, MM) \
+  if (D == DD && m == MM) return (int)launch<DD, MM>(p, B, nsplit, stream);
+  SPLITKV_CASE(64, 1) SPLITKV_CASE(64, 2) SPLITKV_CASE(64, 4)
+  SPLITKV_CASE(64, 8) SPLITKV_CASE(128, 1) SPLITKV_CASE(128, 2)
+  SPLITKV_CASE(128, 4) SPLITKV_CASE(128, 8)
+#undef SPLITKV_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace paged_splitkv

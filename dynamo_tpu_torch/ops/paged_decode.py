@@ -3,9 +3,11 @@ PyTorch version.
 
 Replaces the TPU kernel ``dynamo_tpu/ops/pallas_decode.py``
 (``paged_decode_attention``, ``_decode_kernel``). The kernel
-(``csrc/paged_decode.cu``) is bound by bytes on an H100: it reads each live
-K/V element of a (row, KV head) once and reuses it from shared memory for
-every query head of the group; see the source for the design.
+(``csrc/paged_decode.cu`` on the split-KV core ``csrc/paged_splitkv.cuh``)
+is bound by bytes on an H100: each live K/V element of a (row, KV head) is
+read once, by one of the CTAs that split the row's context, and reused
+from shared memory by every query head of the group; see the source for
+the design and ``splitkv.py`` for the launch plan.
 
 CPU tensors take ``paged_decode_attention_ref``; CUDA tensors launch the
 kernel or raise. ``launches`` counts kernel launches (one per call that
@@ -19,13 +21,14 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, splitkv
 from .attention import NO_WINDOW, paged_attention
 
 launches = 0
 
-# the one head_dim built and checked on a card (Llama-3.2-1B)
-_HEAD_DIM = 64
+# the head_dims the kernel instantiates (Llama-3.2-1B has 64; Llama-3-8B,
+# Qwen and Mistral 128)
+_HEAD_DIMS = (64, 128)
 
 
 def paged_decode_attention_ref(
@@ -59,8 +62,8 @@ def _lib():
     fn = lib.paged_decode_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                       i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -81,10 +84,13 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, context_lens):
             raise ValueError(f"decode kernel: {name} must be contiguous and 16-byte aligned")
         if t.device != q.device:
             raise ValueError(f"decode kernel: {name} is on {t.device}, q on {q.device}")
-    if k_cache.shape[-1] != d or d != _HEAD_DIM:
-        raise NotImplementedError(f"decode kernel: head_dim {d} is not {_HEAD_DIM}")
-    if h % kvh or h // kvh > 32:
-        raise NotImplementedError(f"decode kernel: {h} heads over {kvh} KV heads")
+    if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
+        raise NotImplementedError(
+            f"decode kernel: head_dim {d} is not one of {_HEAD_DIMS}")
+    if h % kvh or h // kvh > splitkv.MAX_ROWS:
+        raise NotImplementedError(
+            f"decode kernel: {h} heads over {kvh} KV heads (a group of at "
+            f"most {splitkv.MAX_ROWS})")
     if block_tables.shape[0] != b or context_lens.shape != (b,):
         raise ValueError("block_tables / context_lens do not match the batch")
 
@@ -116,10 +122,14 @@ def paged_decode_attention(
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    chunk, splits = splitkv.plan(bt.shape[1] * bs)
+    ws = splitkv.workspace(q.device, b, kvh, splits, h // kvh, d)
+    cnt = splitkv.counters(q.device, b * kvh)
     rc = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
-        ctx.data_ptr(), out.data_ptr(), b, h, kvh, d, n, bs, bt.shape[1],
-        int(layer_idx), int(min(window, NO_WINDOW)), float(scale),
+        ctx.data_ptr(), out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, h,
+        kvh, d, n, bs, bt.shape[1], int(layer_idx),
+        int(min(window, NO_WINDOW)), chunk, splits, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "paged_decode_bf16")

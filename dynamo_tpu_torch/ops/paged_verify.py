@@ -5,9 +5,11 @@ Replaces the TPU kernel ``dynamo_tpu/ops/pallas_decode.py``
 (``paged_verify_attention``, ``_verify_kernel``). Query positions are
 affine, as for the flash kernel: token s of row b sits at
 ``base_pos[b] + s``; rows past ``context_lens`` give values the caller
-discards. The kernel (``csrc/paged_verify.cu``) is bound by bytes on an
-H100: one CTA per (KV head, batch row) stages each K/V tile once for all
-S * G query rows of the group; see the source for the design.
+discards. The kernel (``csrc/paged_verify.cu`` on the split-KV core
+``csrc/paged_splitkv.cuh``) is bound by bytes on an H100: the CTAs that
+split a row's keys stage each K/V tile once for all S * G query rows of
+the group; see the source for the design and ``splitkv.py`` for the
+launch plan.
 
 CPU tensors take ``paged_verify_attention_ref``; CUDA tensors launch the
 kernel or raise. ``launches`` counts kernel launches.
@@ -20,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, splitkv
 from .attention import NO_WINDOW, paged_attention
 
 launches = 0
@@ -28,9 +30,9 @@ launches = 0
 # largest query tail the verify kernel serves; longer chunks take the flash
 # kernel (the reference's VERIFY_MAX_S; spec rounds are K + 1 <= 17)
 VERIFY_MAX_S = 32
-# the one head_dim built and checked on a card (Llama-3.2-1B)
-_HEAD_DIM = 64
-_ROWS_PER_CTA = 128  # S * G query rows the kernel holds per CTA
+# the head_dims the kernel instantiates (Llama-3.2-1B has 64; Llama-3-8B,
+# Qwen and Mistral 128)
+_HEAD_DIMS = (64, 128)
 
 
 def paged_verify_attention_ref(
@@ -64,8 +66,8 @@ def _lib():
     fn = lib.paged_verify_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -87,12 +89,13 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
             raise ValueError(f"verify kernel: {name} must be contiguous and 16-byte aligned")
         if t.device != q.device:
             raise ValueError(f"verify kernel: {name} is on {t.device}, q on {q.device}")
-    if k_cache.shape[-1] != d or d != _HEAD_DIM:
-        raise NotImplementedError(f"verify kernel: head_dim {d} is not {_HEAD_DIM}")
-    if h % kvh or s * (h // kvh) > _ROWS_PER_CTA:
+    if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
+        raise NotImplementedError(
+            f"verify kernel: head_dim {d} is not one of {_HEAD_DIMS}")
+    if h % kvh or s * (h // kvh) > splitkv.MAX_ROWS:
         raise NotImplementedError(
             f"verify kernel: S={s} times group size {h}/{kvh} exceeds "
-            f"{_ROWS_PER_CTA} rows per CTA")
+            f"{splitkv.MAX_ROWS} rows per CTA")
     if (block_tables.shape[0] != b or base_pos.shape != (b,)
             or context_lens.shape != (b,)):
         raise ValueError("block_tables / base_pos / context_lens do not match the batch")
@@ -128,11 +131,15 @@ def paged_verify_attention(
     base = base_pos.to(device=q.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    chunk, splits = splitkv.plan(bt.shape[1] * bs)
+    ws = splitkv.workspace(q.device, b, kvh, splits, s * (h // kvh), d)
+    cnt = splitkv.counters(q.device, b * kvh)
     rc = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
-        base.data_ptr(), ctx.data_ptr(), out.data_ptr(), b, s, h, kvh, d, n,
-        bs, bt.shape[1], int(layer_idx), int(min(window, NO_WINDOW)),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        base.data_ptr(), ctx.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        cnt.data_ptr(), b, s, h, kvh, d, n, bs, bt.shape[1], int(layer_idx),
+        int(min(window, NO_WINDOW)), chunk, splits, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "paged_verify_bf16")
     launches += 1

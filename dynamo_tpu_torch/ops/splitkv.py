@@ -1,0 +1,62 @@
+"""The launch plan of the split-KV core (``csrc/paged_splitkv.cuh``) that
+the decode and verify kernels share.
+
+The grid of both kernels is (split, KV head, batch row). The number of
+splits comes from the block table's width only, never from
+``context_lens`` or ``base_pos``: reading those on the host would be a
+sync, and a grid fixed by shapes is what a CUDA-graph capture needs. Each
+split is a chunk of at least ``MIN_CHUNK`` keys (a multiple of the kernel's
+64-key tile), and a table is cut into at most ``MAX_SPLITS`` chunks, so a
+16,384-token table launches 32 splits, not 64 of mostly empty CTAs.
+
+When a row's keys span several splits, each writes f32 partials to a
+workspace the wrapper allocates per call, and the last split to finish
+merges them; it finds out it is last from a counter per (batch row, KV
+head) in a buffer kept here per device, zeroed once when allocated and
+set back to 0 by every merge. Launches on one device run on one stream at
+a time (the engine's), so the kernels share that buffer.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+TILE_KEYS = 64    # the kernel's K/V tile
+MIN_CHUNK = 256   # keys a split covers at least
+MAX_SPLITS = 32
+MAX_ROWS = 128    # (query position, group head) rows a CTA holds: S * G
+
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def plan(table_keys: int) -> Tuple[int, int]:
+    """(chunk, splits) for a block table of ``table_keys`` = W * bs keys:
+    ``chunk`` a multiple of 64 and ``chunk * splits >= table_keys``."""
+    per_split = -(-max(table_keys, 1) // MAX_SPLITS)
+    chunk = max(MIN_CHUNK, -(-per_split // TILE_KEYS) * TILE_KEYS)
+    return chunk, -(-max(table_keys, 1) // chunk)
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's split counters, at least ``n`` of them, all zero
+    between launches. A larger buffer replaces a smaller one (zeroed on
+    the device, no host sync)."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
+
+
+def workspace(device: torch.device, batch: int, kv_heads: int, splits: int,
+              rows: int, head_dim: int) -> torch.Tensor:
+    """f32 partials of every (batch row, KV head, split, query row): acc
+    [.., D], then (m, l) pairs; empty when a call has one split."""
+    if splits == 1:
+        return torch.empty(0, dtype=torch.float32, device=device)
+    return torch.empty(batch * kv_heads * splits * rows * (head_dim + 2),
+                       dtype=torch.float32, device=device)

@@ -54,6 +54,78 @@ def test_decode_kernel_matches_plain_version(window):
     torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL)
 
 
+# the split-KV edges of a 768-key table (three 256-key splits): one key
+# under, at and over a split, a row with no key, the full table
+SPLIT_EDGE_CTX = [0, 255, 256, 257, 511, 513, 700, 768]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h", [2, 8, 16, 256])  # G 1, 4, 8, 128 over two KV heads
+@pytest.mark.parametrize("window", [paged_decode.NO_WINDOW, 300])
+def test_decode_kernel_split_edges(d, h, window):
+    """Contexts at the splits' edges, a window that crosses a split, group
+    sizes 1, 4, 8 and 128 (one to eight 16-row tiles), head_dim 64 and 128;
+    two calls bit-identical."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    k, v = _cache(g, blocks=400, d=d)
+    n = len(SPLIT_EDGE_CTX)
+    bt = torch.randperm(400, generator=g, device="cuda")[: n * 48].reshape(n, 48).int()
+    ctx = torch.tensor(SPLIT_EDGE_CTX, dtype=torch.int32, device="cuda")
+    q = torch.randn(n, 1, h, d, generator=g, device="cuda").bfloat16()
+    before = paged_decode.launches
+    out = paged_decode.paged_decode_attention(q, k, v, bt, ctx, layer_idx=2,
+                                              window=window)
+    again = paged_decode.paged_decode_attention(q, k, v, bt, ctx, layer_idx=2,
+                                                window=window)
+    ref = paged_decode.paged_decode_attention_ref(
+        q.float(), k.float(), v.float(), bt, ctx, 2, None, window)
+    torch.cuda.synchronize()
+    assert paged_decode.launches == before + 2
+    assert torch.equal(out, again)
+    assert not out[0].any()  # ctx 0: zeros
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,s", [(2, 32), (8, 5), (8, 32), (16, 16)])
+@pytest.mark.parametrize("window", [paged_verify.NO_WINDOW, 300])
+def test_verify_kernel_split_edges(d, h, s, window):
+    """Verify tails that end one key under, at and over a 256-key split,
+    start at one or cross one, a pad row; a window that crosses a split;
+    group sizes 1, 4 and 8 up to 128 rows a CTA, head_dim 64 and 128; two
+    calls bit-identical."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    k, v = _cache(g, blocks=400, d=d)
+    rows = [(255 - s, 255), (256 - s, 256), (257 - s, 257), (256, 256 + s),
+            (500, 500 + s), (700, 700 + s - 1), None]
+    n = len(rows)
+    bt = torch.randperm(400, generator=g, device="cuda")[: n * 48].reshape(n, 48).int()
+    bt[-1] = 0
+    rows = [r or (0, 1) for r in rows]
+    q = torch.randn(n, s, h, d, generator=g, device="cuda").bfloat16()
+    b = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
+    c = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
+    before = paged_verify.launches
+    out = paged_verify.paged_verify_attention(q, k, v, bt, b, c, layer_idx=1,
+                                              window=window)
+    again = paged_verify.paged_verify_attention(q, k, v, bt, b, c, layer_idx=1,
+                                                window=window)
+    ref = paged_verify.paged_verify_attention_ref(
+        q.float(), k.float(), v.float(), bt, b, c, 1, None, window)
+    torch.cuda.synchronize()
+    assert paged_verify.launches == before + 2
+    assert torch.equal(out, again)
+    assert out.float().isfinite().all()
+    for i, (base, ctx) in enumerate(rows):
+        valid = min(s, ctx - base)
+        torch.testing.assert_close(out[i, :valid].float(), ref[i, :valid],
+                                   atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,rows", [
     (40, [(0, 40)]), (64, [(20, 84)]), (64, [(0, 30)]),

@@ -81,13 +81,14 @@ def test_paged_attention_matches_jax(window):
     np.testing.assert_allclose(got2.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("head_dim", [D, 128])  # 128: the kernel's second width
 @pytest.mark.parametrize("window", [None, 6])
-def test_decode_plain_version_matches_pallas_interpret(window):
+def test_decode_plain_version_matches_pallas_interpret(window, head_dim):
     rng = np.random.default_rng(2)
     ctx = np.array([1, BS - 1, BS, BS + 1], np.int32)
     b, w = len(ctx), 3
-    k, v, bt = _case(rng, b, w)
-    q = rng.standard_normal((b, 1, H, D)).astype(np.float32)
+    k, v, bt = _case(rng, b, w, d=head_dim)
+    q = rng.standard_normal((b, 1, H, head_dim)).astype(np.float32)
     for li in range(L):
         ref = jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          jnp.asarray(bt), jnp.asarray(ctx),

@@ -3,7 +3,8 @@ decode bursts against the JAX package, plus stream equalities within the
 port.
 
 - ``paged_verify_attention_ref`` against the Pallas verify kernel in
-  interpret mode (S in {2, 5, 17, 32}, a window, a padded row), f32;
+  interpret mode (S in {2, 5, 17, 32}, a window, a padded row, head_dim 16
+  and 128), f32;
 - ``ngram_propose`` against the reference's;
 - whole-engine greedy streams of ``TorchServingEngine`` equal
   ``JaxServingEngine``'s with ngram speculation and with 4-step bursts;
@@ -57,9 +58,10 @@ BASE = dict(max_batch_size=4, max_model_len=128, kv_block_size=8,
             num_kv_blocks=64, dtype="float32")
 
 
+@pytest.mark.parametrize("head_dim", [D, 128])  # 128: the kernel's second width
 @pytest.mark.parametrize("s", [2, 5, 17, 32])
 @pytest.mark.parametrize("window", [None, 6])
-def test_verify_plain_version_matches_pallas_interpret(s, window):
+def test_verify_plain_version_matches_pallas_interpret(s, window, head_dim):
     rng = np.random.default_rng(s)
     w = 9
     # a row from a long context, a short one, a padded proposal (ctx <
@@ -69,11 +71,11 @@ def test_verify_plain_version_matches_pallas_interpret(s, window):
     ctx = np.array([40 + s, 3 + s, 20 + s - 1, 1], np.int32)
     b = len(base)
     n_blocks = b * w + 3
-    k = rng.standard_normal((L, n_blocks, BS, KVH, D)).astype(np.float32)
-    v = rng.standard_normal((L, n_blocks, BS, KVH, D)).astype(np.float32)
+    k = rng.standard_normal((L, n_blocks, BS, KVH, head_dim)).astype(np.float32)
+    v = rng.standard_normal((L, n_blocks, BS, KVH, head_dim)).astype(np.float32)
     bt = rng.permutation(n_blocks)[: b * w].reshape(b, w).astype(np.int32)
     bt[-1] = 0
-    q = rng.standard_normal((b, s, H, D)).astype(np.float32)
+    q = rng.standard_normal((b, s, H, head_dim)).astype(np.float32)
     ref = np.asarray(jax_verify(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
         jnp.asarray(base), jnp.asarray(ctx), layer_idx=jnp.int32(1),
