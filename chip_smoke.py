@@ -35,15 +35,16 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    past ctx must come back as zeros). It times kernel, plain version, a
    PyTorch library call where one computes the same function (SDPA over
    pre-gathered dense keys, a yardstick only) and the card's bound for the
-   same work; decode, verify, flash, MLA decode and their SDPA yardsticks
-   by a CUDA graph's replay (``graph_ms``: device time, beside the eager
-   ``cuda_ms`` that includes the wrapper's host time), the rest by
-   ``cuda_ms``.
+   same work; decode, verify, flash, MLA decode, the sampling epilogue
+   and the SDPA yardsticks by a CUDA graph's replay (``graph_ms``: device
+   time, beside the eager ``cuda_ms`` that includes the wrapper's host
+   time), the rest by ``cuda_ms``.
 4. ``engine``  — serves token-id requests through ``TorchServingEngine``
    at the full Llama-3.2-1B shapes with seeded random bf16 weights,
    checks every stream, the kernels' launch counts on that run, a repeated
-   request, and the logits of batched prefill and decode steps against the
-   same forwards on the CPU in f32.
+   request, the logits of batched prefill and decode steps against the
+   same forwards on the CPU in f32, and a profiled decode step (the decode
+   and epilogue kernels' shares of its device-busy time).
 5. ``engine_paths`` — the same weights behind three more engines: the
    unfused sampling tail and 4-step decode bursts must stream wave 1
    identically; ngram speculation must stream its repeated-pattern prompts
@@ -65,7 +66,8 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    experts), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights: wave 1 and the
    prefix-hit wave (streams, the MLA kernel's and the epilogue's launch
-   counts, peak memory), the decode step's time and device profile, wave 1
+   counts, peak memory), the decode step's time and device profile (the
+   MLA and epilogue kernels' shares of its busy time), wave 1
    again on a 4-step-burst engine over the same weight tensors (identical
    streams), and the logits of a prefill and a decode step at full width
    and 2 layers against the CPU in f32. Twins within one wave may part
@@ -933,15 +935,15 @@ def _mla_cases(torch, dev):
               + bt.numel() * 4 + B * 4)
     flops = 2.0 * nkeys * H * ((R + RD) + R)
     bound, by = _bound_ms(flops, nbytes)
-    kps = md._keys_per_split(q_lat, W * BS)
+    chunk, splits, cluster = md.plan(W * BS)
     emit("kernels", kernel="mla_decode",
          shape=dict(B=B, H=H, R=R, RD=RD, bs=BS, L=L, layer=LAYER, ctx=ctx_l,
                     scale=scale),
          max_err=err, plain_bf16_max_err=float((plain_bf16.float() - ref).abs().max()),
          kernel_ms=ms, kernel_ms_eager=eager_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-         bound_by=by, keys_per_split=kps,
-         ctas=dict(grid=B * -(-W * BS // kps),
-                   live=sum(-(-n // kps) for n in ctx_l)))
+         bound_by=by, chunk=chunk, splits=splits, cluster=cluster,
+         ctas=dict(grid=B * splits * -(-H // md.HEAD_GROUP),
+                   live=sum(-(-n // chunk) for n in ctx_l)))
     del c, kr, c32, kr32, keys, kd, vd
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1003,7 +1005,8 @@ def _epilogue_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
     with unique slots (the count commit in the kernel) and with pad rows
     sharing slot 0 (the commit outside), against its f32 plain version:
     tokens and counts equal in every row, logprobs within 1e-4. Times the
-    kernel and, as its plain time, the unfused tail on the same inputs."""
+    kernel (by a CUDA graph's replay, and eagerly by CUDA events) and, as
+    its plain time, the unfused tail on the same inputs."""
     from dynamo_tpu_torch.engine.sampling import SamplingParams
     from dynamo_tpu_torch.ops import epilogue as ep
 
@@ -1062,7 +1065,9 @@ def _epilogue_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
             timing_inputs = (logits, seen, bias, slots, counts)
     logits, seen, bias, slots, counts = timing_inputs
     nocommit = torch.zeros(B, dtype=torch.bool, device=dev)  # counts stay put
-    ms = cuda_ms(lambda: ep.fused_sampling_epilogue(
+    ms = graph_ms(lambda: ep.fused_sampling_epilogue(
+        logits, gumbel, samp, counts, seen, bias, slots, nocommit))
+    eager_ms = cuda_ms(lambda: ep.fused_sampling_epilogue(
         logits, gumbel, samp, counts, seen, bias, slots, nocommit))
     plain_ms = cuda_ms(lambda: ep.fused_sampling_epilogue_ref(
         logits, gumbel, samp, counts, seen, bias, slots, nocommit))
@@ -1078,8 +1083,9 @@ def _epilogue_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
     bound, by = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
     emit("kernels", kernel="sampling_epilogue",
          shape=dict(B=B, V=V, logits="bf16", rows=EPILOGUE_ROWS),
-         cases=results, kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
-         bound_ms=bound, bound_by=by, ctas=B)
+         cases=results, kernel_ms=ms, kernel_ms_eager=eager_ms,
+         plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
+         ctas=B * ep.CLUSTER, cluster_plan=ep.cluster_plan(V))
     torch.cuda.synchronize()
     return dict(name="fused_sampling_epilogue", route="cuda",
                 source="dynamo_tpu_torch/csrc/sampling_epilogue.cu",
@@ -1146,8 +1152,9 @@ def _epilogue_finish_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
     plain version on the same inputs: tokens, counts, ``hard``, ``cand``
     and ``ring_new`` exactly equal, logprobs within EPILOGUE_LP_TOL. The
     guided mask lets greedy row 5 choose between two ids and sampled row 2
-    (top-p 0.9) among three. Times the combined form (CUDA events, 20
-    calls after 3 warmups), its plain version and its byte bound."""
+    (top-p 0.9) among three. Times the combined form (by a CUDA graph's
+    replay, and eagerly by CUDA events), its plain version and its byte
+    bound."""
     from dynamo_tpu_torch.engine.sampling import SamplingParams
     from dynamo_tpu_torch.ops import epilogue as ep
 
@@ -1229,13 +1236,16 @@ def _epilogue_finish_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
             timed = (eb, fin)
     eb, fin = timed
     nocommit = torch.zeros(B, dtype=torch.bool, device=dev)  # state stays put
-    ms = cuda_ms(lambda: ep.fused_sampling_epilogue(
+    ms = graph_ms(lambda: ep.fused_sampling_epilogue(
+        logits, gumbel, samp, counts, seen, bias, slots, nocommit,
+        extra_bias=eb, finish=fin, max_model_len=EPILOGUE_MAX_LEN))
+    eager_ms = cuda_ms(lambda: ep.fused_sampling_epilogue(
         logits, gumbel, samp, counts, seen, bias, slots, nocommit,
         extra_bias=eb, finish=fin, max_model_len=EPILOGUE_MAX_LEN))
     plain_ms = cuda_ms(lambda: ep.fused_sampling_epilogue_ref(
         logits, gumbel, samp, counts, seen, bias, slots, nocommit,
         extra_bias=eb, finish=fin, max_model_len=EPILOGUE_MAX_LEN))
-    ms_plain_form = cuda_ms(lambda: ep.fused_sampling_epilogue(
+    ms_plain_form = graph_ms(lambda: ep.fused_sampling_epilogue(
         logits, gumbel, samp, counts, seen, bias, slots, nocommit))
     # bytes: the plain form's (logits bf16, the slot's bias, counts and seen
     # rows, the sampled rows' gumbel rows) plus one more [B, V] f32 read for
@@ -1252,8 +1262,10 @@ def _epilogue_finish_cases(torch, dev, V=FLAGSHIP["vocab_size"]):
          shape=dict(B=B, V=V, logits="bf16", rows=EPILOGUE_ROWS, live=live_l,
                     guided_rows={str(k): v for k, v in allowed.items()},
                     max_model_len=EPILOGUE_MAX_LEN),
-         cases=results, kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
-         plain_form_kernel_ms=ms_plain_form, bound_ms=bound, bound_by=by, ctas=B)
+         cases=results, kernel_ms=ms, kernel_ms_eager=eager_ms,
+         plain_ms=plain_ms, library_ms=None,
+         plain_form_kernel_ms=ms_plain_form, bound_ms=bound, bound_by=by,
+         ctas=B * ep.CLUSTER)
     torch.cuda.synchronize()
     return dict(name="fused_sampling_epilogue[finish+extra_bias]", route="cuda",
                 source="dynamo_tpu_torch/csrc/sampling_epilogue.cu",
@@ -1641,6 +1653,9 @@ def engine_phase(torch, dev, smi):
                        a["tokens"] == b["tokens"]
                        for a, b in zip(spec_base, res_spec)),
                    parted=parted, launches=launches_spec))
+    if not (step["decode_kernel_ms"] > 0 and step["epilogue_kernel_ms"] > 0):
+        raise AssertionError(f"the profiled decode step shows no decode or "
+                             f"epilogue kernel: {step['top_kernels_ms']}")
     return dict(paged_decode=launches["paged_decode"],
                 paged_flash=launches["paged_flash"],
                 sampling_epilogue=launches["epilogue"],
@@ -1913,8 +1928,9 @@ def _decode_step_profile(torch, runner, steps=5,
     KV slot the drop sentinel), the weight bytes a step must read (every
     parameter but the embedding table, of which it gathers 8 rows), and a
     ``torch.profiler`` trace of 3 more steps: device-busy time (the union of
-    kernel intervals), events, the top kernels and the split-KV decode
-    kernel's time and share of the busy time."""
+    kernel intervals), events, the top kernels, and the time and share of
+    the busy time of the split-KV decode kernel, the MLA decode kernel and
+    the sampling epilogue kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = runner.config
@@ -1950,7 +1966,13 @@ def _decode_step_profile(torch, runner, steps=5,
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = _busy_us(kernels)
-    decode_us = sum(v for k, v in by_name.items() if "splitkv_kernel" in k)
+
+    def family_us(tag):
+        return sum(v for k, v in by_name.items() if tag in k)
+
+    decode_us = family_us("splitkv_kernel")
+    mla_us = family_us("mla_decode_kernel")
+    epilogue_us = family_us("sampling_epilogue_kernel")
     weight_bytes = sum(
         t.numel() * t.element_size()
         for group in runner.params.values()
@@ -1965,6 +1987,10 @@ def _decode_step_profile(torch, runner, steps=5,
         device_busy_ms=busy / 1e3, device_busy_share=busy / (traced_s * 1e6),
         device_events=len(kernels), decode_kernel_ms=decode_us / 1e3,
         decode_kernel_share_of_busy=decode_us / busy if busy else None,
+        mla_kernel_ms=mla_us / 1e3,
+        mla_kernel_share_of_busy=mla_us / busy if busy else None,
+        epilogue_kernel_ms=epilogue_us / 1e3,
+        epilogue_kernel_share_of_busy=epilogue_us / busy if busy else None,
         top_kernels_ms={k[:80]: v / 1e3 for k, v in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:10]})
 
@@ -2114,6 +2140,9 @@ def engine_mla_phase(torch, dev, smi):
         raise AssertionError(f"the MLA path launched a GQA attention kernel: {launches}")
     if metrics["gpu_prefix_cache_hit_rate"] <= 0:
         raise AssertionError("MLA: the shared-prefix request missed the prefix cache")
+    if not (step["mla_kernel_ms"] > 0 and step["epilogue_kernel_ms"] > 0):
+        raise AssertionError(f"MLA: the profiled decode step shows no MLA or "
+                             f"epilogue kernel: {step['top_kernels_ms']}")
     return dict(mla_decode=launches["mla_decode"])
 
 

@@ -393,9 +393,12 @@ class ModelRunner:
         device (-1 for rows that do not commit), draws its gumbel noise
         with counters ``counters + step`` and runs the epilogue with the
         count commit in place (slots are ``arange``). The tail, the noise
-        and the kernels are those of single steps, so the stream equals K
-        single steps'. Returns (tokens, logprobs, top_vals, top_ids) as
-        [K, B]-leading device tensors."""
+        and the kernels are those of single steps, and an inactive row holds
+        its first token and position through the burst as the pads of
+        single steps do, so the stream equals K single steps' (also on a
+        MoE trunk, where a row's experts depend on the rows before it).
+        Returns (tokens, logprobs, top_vals, top_ids) as [K, B]-leading
+        device tensors."""
         cfg = self.config.model
         k_steps = self.config.multi_step_decode
         bs = self.config.kv_block_size
@@ -429,7 +432,11 @@ class ModelRunner:
                 cfg, logits, samp, gumbel, counts, seen, bias, slots, live,
                 want_top, fused=self.fused_epilogue, unique_slots=True)
             outs.append(out)
-            toks, pos = out[0], pos + 1
+            # an inactive row stays the pad a single step carries: on a
+            # MoE trunk whose experts hold one token each, a pad that moved
+            # on would take other experts from the rows after it
+            toks = torch.where(live, out[0], toks)
+            pos = torch.where(live, pos + 1, pos)
         return tuple(torch.stack(parts) for parts in zip(*outs))
 
     def sp_prefill_chunk(

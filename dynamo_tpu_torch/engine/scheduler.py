@@ -1171,6 +1171,14 @@ class Scheduler:
         if k_steps > 1 and any(
                 er.context_len + k_steps + 1 > cfg.max_model_len for er in active):
             k_steps = 1
+        # nor may a row reach max_tokens mid-burst: it would ride the rest
+        # of the burst live where single steps carry a pad, and on a MoE
+        # trunk whose experts hold one token each the rows after it would
+        # route differently (with inactive rows held as pads by the runner,
+        # a burst is then exactly K single steps)
+        if k_steps > 1 and any(er.fin_max_new - er.generated < k_steps
+                               for er in active):
+            k_steps = 1
         if any(er.guided is not None for er in active):
             # guided rows rewrite their mask between tokens on the host; a
             # fused burst would sample K tokens against one stale mask.

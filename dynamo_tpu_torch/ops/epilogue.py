@@ -23,6 +23,12 @@ a pad row adds 0.
 CPU tensors take ``fused_sampling_epilogue_ref``; CUDA tensors launch the
 kernel (``csrc/sampling_epilogue.cu``) or raise. ``launches`` counts
 kernel launches.
+
+The kernel runs one thread-block cluster of ``CLUSTER`` CTAs per batch
+row, each holding a contiguous slice of the row in its shared memory
+(``cluster_plan``), so the vocabulary it takes is bounded by what a CTA's
+shared memory holds; a larger one raises ``NotImplementedError`` before
+anything is built or launched.
 """
 
 from __future__ import annotations
@@ -42,6 +48,28 @@ from ..engine.sampling import (
 from . import _build
 
 launches = 0
+
+CLUSTER = 8                # CTAs a row (csrc/sampling_epilogue.cu CS)
+_SMEM_FIXED = 28672        # the kernel's per-CTA state (FIXED_BYTES)
+_SMEM_MAX = 232448         # an H100 CTA's dynamic shared memory
+# the largest vocabulary whose slice (f32, a multiple of 8 entries) and
+# compacted list (u16) fit
+MAX_VOCAB = CLUSTER * ((_SMEM_MAX - _SMEM_FIXED) // 6 // 8 * 8)
+
+
+def cluster_plan(vocab: int) -> Tuple[int, int, int]:
+    """(CTAs a row, entries of the row each CTA holds, dynamic shared
+    memory bytes a CTA needs) at ``vocab``; raises ``NotImplementedError``
+    when the slice does not fit a CTA's shared memory."""
+    if not 0 < vocab <= MAX_VOCAB:
+        raise NotImplementedError(
+            f"epilogue kernel: vocabulary {vocab} is outside 1..{MAX_VOCAB} "
+            f"(a row's slice over a cluster of {CLUSTER} CTAs must fit a "
+            "CTA's shared memory)")
+    per_cta = -(-vocab // CLUSTER)
+    slice_len = -(-per_cta // 8) * 8   # a multiple of 8 entries
+    smem = -(-(_SMEM_FIXED + 6 * slice_len) // 16) * 16
+    return CLUSTER, slice_len, smem
 
 
 def fused_sampling_epilogue_ref(
@@ -93,7 +121,7 @@ def _lib():
     fn = lib.sampling_epilogue
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, i] + [p] * 17 + [i] * 4 + [p] * 11 + [i] * 4 + [p])
+        fn.argtypes = ([p, i] + [p] * 16 + [i] * 4 + [p] * 11 + [i] * 4 + [p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -136,6 +164,7 @@ def fused_sampling_epilogue(
     if last_logits.dim() != 2:
         raise ValueError("epilogue: last_logits must be [B, V]")
     b, v = last_logits.shape
+    cluster_plan(v)
     if last_logits.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
             f"epilogue: logits must be bfloat16 or float32 (got {last_logits.dtype})")
@@ -162,7 +191,6 @@ def fused_sampling_epilogue(
         ("repetition_penalty", f32))]
     slots = _device_row(sample_slots, torch.int64, dev, "sample_slots", b)
     com = _device_row(commit, torch.bool, dev, "commit", b)
-    scratch = torch.empty((b, v), dtype=f32, device=dev)
     tokens = torch.empty(b, dtype=torch.int64, device=dev)
     lps = torch.empty(b, dtype=f32, device=dev)
     fin, fin_out, dims = [None] * 8, [None] * 3, (0, 0, 0)
@@ -190,7 +218,7 @@ def fused_sampling_epilogue(
         logits.data_ptr(), int(logits.dtype == torch.bfloat16), gum.data_ptr(),
         *(t.data_ptr() for t in rows), counts.data_ptr(), seen.data_ptr(),
         bias.data_ptr(), ptr(extra), slots.data_ptr(), com.data_ptr(),
-        scratch.data_ptr(), tokens.data_ptr(), lps.data_ptr(), b, v,
+        tokens.data_ptr(), lps.data_ptr(), b, v,
         int(bool(alias_counts)), int(finish is not None),
         *(ptr(t) for t in fin), *(ptr(t) for t in fin_out), *dims,
         int(max_model_len), torch.cuda.current_stream(dev).cuda_stream,

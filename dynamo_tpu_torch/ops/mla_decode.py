@@ -7,10 +7,19 @@ Replaces the TPU kernel ``dynamo_tpu/ops/pallas_decode.py``
 row, and the output is ``softmax . c`` in the latent space [B, 1, H, R]
 (the caller applies W_uv). The kernel (``csrc/mla_decode.cu``) is bound by
 bytes on an H100: it stages each 64-key tile of ``[c | kr]`` in shared
-memory once for all the heads of its CTA and reuses the tile's ``c`` as
-the value; it splits each row's context over several CTAs and merges the
-partials in a second pass, so a decode batch of 8 still fills the card.
-See the source for the design.
+memory once for a group of 16 heads, runs both products on the tensor
+cores and reuses the tile's ``c`` as the value; it splits each row's
+context over several CTAs, which merge their partials through the
+distributed shared memory of a thread-block cluster (and, past one
+cluster, the last cluster of a row merges the clusters' partials) in the
+same launch. See the source for the design.
+
+The launch plan (``plan``) comes from the block table's width only, never
+from ``context_lens``: reading those on the host would be a sync, and a
+grid fixed by shapes can be captured in a CUDA graph. The counters that
+find a row's last cluster are the split-KV core's (``splitkv.counters``);
+the f32 workspace of the clusters' partials is kept here per device and
+grows when a call needs more.
 
 CPU tensors take ``mla_paged_decode_attention_ref``; CUDA tensors launch
 the kernel or raise. ``launches`` counts kernel launches (one per call
@@ -20,19 +29,23 @@ that reached the card), so a run can show the serving path went through it.
 from __future__ import annotations
 
 import ctypes
-import math
+from typing import Dict, Tuple
 
 import torch
 
-from . import _build
+from . import _build, splitkv
 
 launches = 0
 
 # the one latent / rope width built and checked on a card (DeepSeek-V2,
 # V2-Lite and V3 all use kv_lora_rank 512, qk_rope_head_dim 64)
 _RANK, _ROPE_DIM = 512, 64
-_TILE = 64       # keys per shared-memory tile (csrc/mla_decode.cu TK)
-_HEAD_GROUP = 16  # query heads per CTA (csrc/mla_decode.cu HG)
+TILE_KEYS = 64    # keys per shared-memory tile (csrc/mla_decode.cu TK)
+HEAD_GROUP = 16   # query heads per CTA (csrc/mla_decode.cu HG)
+CHUNK = 128       # keys a split covers
+CLUSTER = 8       # splits a thread-block cluster merges (csrc/mla_decode.cu CL_MAX)
+
+_workspaces: Dict[torch.device, torch.Tensor] = {}
 
 
 def mla_paged_decode_attention_ref(
@@ -72,7 +85,7 @@ def _lib():
     fn = lib.mla_decode_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -109,15 +122,30 @@ def _check_cuda_inputs(q_lat, q_rope, c_cache, kr_cache, block_tables,
         raise ValueError("block_tables / context_lens do not match the batch")
 
 
-def _keys_per_split(q_lat: torch.Tensor, keys: int) -> int:
-    """Keys each CTA walks (a multiple of the tile): the fewest tiles that
-    keep the grid (rows x splits x head groups) within two CTAs per SM for
-    a full block table."""
-    sms = torch.cuda.get_device_properties(q_lat.device).multi_processor_count
-    b, _, h, _ = q_lat.shape
-    tiles = max(1, math.ceil(keys / _TILE))
-    ctas = b * tiles * math.ceil(h / _HEAD_GROUP)
-    return _TILE * max(1, math.ceil(ctas / (2 * sms)))
+def plan(table_keys: int) -> Tuple[int, int, int]:
+    """(chunk, splits, cluster) for a block table of ``table_keys`` = W * bs
+    keys: splits of ``CHUNK`` keys, in clusters of ``CLUSTER`` consecutive
+    splits that merge through distributed shared memory (so ``splits`` is
+    a multiple of it; the splits past the table exit at once). A row's
+    split boundaries and merge order do not depend on the table's width,
+    so the same row gives the same bits whatever width a caller pads its
+    tables to."""
+    splits = -(-max(table_keys, 1) // CHUNK)
+    return CHUNK, -(-splits // CLUSTER) * CLUSTER, CLUSTER
+
+
+def workspace(device: torch.device, batch: int, groups: int,
+              clusters: int) -> torch.Tensor:
+    """The device's f32 partials of the clusters, at least ``batch * groups
+    * clusters * 16 * (R + 2)`` of them: kept between calls (launches on
+    one device run on one stream at a time), replaced by a larger buffer
+    when a call needs more. Its contents need no initialising."""
+    n = batch * groups * clusters * HEAD_GROUP * (_RANK + 2)
+    buf = _workspaces.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=device)
+        _workspaces[device] = buf
+    return buf
 
 
 def mla_paged_decode_attention(
@@ -146,18 +174,16 @@ def mla_paged_decode_attention(
     bt = block_tables.to(device=q_lat.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q_lat.device, dtype=torch.int32).contiguous()
     w = bt.shape[1]
-    kps = _keys_per_split(q_lat, w * bs)
-    splits = max(1, math.ceil(w * bs / kps))
-    part_acc = torch.empty((b, splits, h, r), dtype=torch.float32,
-                           device=q_lat.device)
-    part_ml = torch.empty((b, splits, h, 2), dtype=torch.float32,
-                          device=q_lat.device)
+    chunk, splits, cluster = plan(w * bs)
+    groups = -(-h // HEAD_GROUP)
+    ws = workspace(q_lat.device, b, groups, splits // cluster)
+    cnt = splitkv.counters(q_lat.device, b * groups)
     out = torch.empty_like(q_lat)
     rc = _lib()(
         q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(),
-        kr_cache.data_ptr(), bt.data_ptr(), ctx.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), out.data_ptr(), b, h, r, q_rope.shape[-1], n, bs, w,
-        int(layer_idx), kps, splits, float(scale),
+        kr_cache.data_ptr(), bt.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), cnt.data_ptr(), b, h, r, q_rope.shape[-1], n, bs, w,
+        int(layer_idx), chunk, splits, cluster, float(scale),
         torch.cuda.current_stream(q_lat.device).cuda_stream,
     )
     _build.check(rc, "mla_decode_bf16")

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time two or more builds of the attention kernels in turns.
+"""Time two or more builds of the port's kernels in turns.
 
 Each argument names a build and the ``csrc`` directory it is built from:
 ``python3 scripts/kernel_ab.py parent=_chipcheck/parent/dynamo_tpu_torch/csrc
 change=dynamo_tpu_torch/csrc``. Every directory's ``paged_flash.cu``,
-``sp_prefix.cu``, ``paged_decode.cu`` and ``paged_verify.cu`` (with the
-headers they include) are compiled with the port's ``nvcc`` flags into a
+``sp_prefix.cu``, ``paged_decode.cu``, ``paged_verify.cu``,
+``mla_decode.cu`` and ``sampling_epilogue.cu`` (with the headers they
+include) are compiled with the port's ``nvcc`` flags into a
 temporary directory, and the port's wrappers are pointed at each build in
 turn: builds in order, then in reverse (parent, change, change, parent for
 two), each timed at these shapes:
@@ -23,16 +24,27 @@ two), each timed at these shapes:
   6,032, 332, 932 over a 1,024-page table, distinct pages of a 4-layer
   cache), layer 1, and ``decode_long_context_layers`` cycling the 4;
 - ``verify_s5``: verify at S 5 over the decode contexts plus a pad row,
-  layer 7, and ``verify_s5_layers``.
+  layer 7, and ``verify_s5_layers``;
+- ``mla_decode_b8``: the MLA decode kernel at ``chip_smoke``'s shape (B 8,
+  H 16, the decode contexts over 128-page tables of a 27-layer latent
+  cache), layer 13, and ``mla_decode_b8_layers`` cycling the 27;
+- ``epilogue_b8_v128256`` and ``epilogue_b8_v102400``: the sampling
+  epilogue's plain form at ``chip_smoke``'s rows (``EPILOGUE_ROWS``), B 8,
+  bf16 logits, no count commit; ``epilogue_finish_extra_b8_v128256``: its
+  ``finish`` + ``extra_bias`` form (a guided row, ``chip_smoke``'s finish
+  rows).
 
-Prefill shapes are timed with ``chip_smoke.cuda_ms``, decode and verify
-with ``chip_smoke.graph_ms`` (device time). Prints one JSON line per
-shape: the times of each build (ms, one a turn),
-the largest difference between the first two builds' outputs, and the
-card. Needs one CUDA device and ``nvcc``. A build's C entry points are
-called by parameter name, read from its source: an older build whose
-entry takes fewer arguments (the decode and verify kernels before the
-split-KV core took no workspace) gets the ones it names.
+Prefill shapes are timed with ``chip_smoke.cuda_ms``, the others with
+``chip_smoke.graph_ms`` (device time). Prints one JSON line per shape: the
+times of each build (ms, one a turn), the largest difference between the
+first two builds' outputs (the epilogue's logprobs, and its tokens when
+they differ), and the card. Needs one CUDA device and ``nvcc``. A build's
+C entry points are called by parameter name, read from its source: an
+older build whose entry takes other arguments gets the ones it names,
+those the wrappers no longer pass made by ``LEGACY`` (the MLA kernel's
+partials and keys per split before it merged in one launch, the
+epilogue's scratch row before it held the row in a cluster's shared
+memory).
 """
 
 from __future__ import annotations
@@ -46,6 +58,8 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -55,9 +69,49 @@ KERNELS = {
     "sp_prefix": ("sp_prefix", "sp_prefix_partials_bf16"),
     "paged_decode": ("paged_decode", "paged_decode_bf16"),
     "paged_verify": ("paged_verify", "paged_verify_bf16"),
+    "mla_decode": ("mla_decode", "mla_decode_bf16"),
+    "sampling_epilogue": ("epilogue", "sampling_epilogue"),
 }
 _CTYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
            "float": ctypes.c_float}
+_buffers = {}
+
+
+def _buffer(shape):
+    """An f32 device buffer kept per shape (allocated outside any capture)."""
+    import torch
+
+    if shape not in _buffers:
+        _buffers[shape] = torch.empty(shape, dtype=torch.float32, device="cuda")
+    return _buffers[shape].data_ptr()
+
+
+def _legacy_mla(named, params):
+    """The MLA entry before the one-launch kernel took its own partials
+    (part_acc [B, splits, H, R], part_ml [B, splits, H, 2]) and keys per
+    split from the SM count instead of the workspace, counters and chunk."""
+    import torch
+
+    b, h, r = named["B"], named["H"], named["R"]
+    keys = named["W"] * named["bs"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-keys // 64)
+    kps = 64 * max(1, -(-(b * tiles * -(-h // 16)) // (2 * sms)))
+    splits = -(-keys // kps)
+    return dict(kps=kps, splits=splits,
+                part_acc=_buffer((b, splits, h, r)),
+                part_ml=_buffer((b, splits, h, 2)))
+
+
+def _legacy_epilogue(named, params):
+    """The epilogue entry before the cluster kernel took a [B, V] f32
+    scratch row."""
+    return dict(scratch=_buffer((named["B"], named["V"])))
+
+
+# C entry → the arguments an older entry takes that the wrappers no longer
+# pass (or pass with another meaning), from the ones they pass, by name
+LEGACY = {"mla_decode_bf16": _legacy_mla, "sampling_epilogue": _legacy_epilogue}
 
 
 def entry_params(source: str, entry: str):
@@ -92,14 +146,22 @@ def build(name: str, csrc: Path, out: Path, current: Path):
         fn.restype = ctypes.c_int
         wanted = [n for _, n in entry_params(
             (current / f"{kernel}.cu").read_text(), entry)]
-        missing = [n for _, n in params if n not in wanted]
-        if missing:
+        names = [n for _, n in params]
+        legacy = LEGACY.get(entry) if set(names) - set(wanted) else None
+        missing = [n for n in names if n not in wanted]
+        if missing and legacy is None:
             raise SystemExit(f"{name}: {entry} takes {missing}, which the "
                              "wrapper does not pass")
-        idx = [wanted.index(n) for _, n in params]
-        fns[kernel] = (lambda fn=fn, idx=idx:
-                       lambda *args: fn(*[args[i] for i in idx]))()
+
+        def call(*args, fn=fn, names=names, wanted=wanted, legacy=legacy):
+            named = dict(zip(wanted, args))
+            if legacy is not None:
+                named.update(legacy(named, names))
+            return fn(*[named[n] for n in names])
+
+        fns[kernel] = call
     return fns
+
 
 
 def main(argv=None) -> int:
@@ -115,7 +177,10 @@ def main(argv=None) -> int:
     import importlib
 
     import chip_smoke as cs
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
     from dynamo_tpu_torch.ops import _build
+    from dynamo_tpu_torch.ops import epilogue as ep
+    from dynamo_tpu_torch.ops import mla_decode as md
     from dynamo_tpu_torch.ops import paged_decode as pd
     from dynamo_tpu_torch.ops import paged_flash as pf
     from dynamo_tpu_torch.ops import paged_verify as pv
@@ -165,6 +230,39 @@ def main(argv=None) -> int:
         at += n_pg
     ctxlc = torch.tensor(cs.LONG_DECODE_CTX, dtype=torch.int32, device=dev)
     qlc = torch.randn(4, 1, H, D, generator=g, device=dev).bfloat16()
+    # MLA decode at chip_smoke's shape: V2-Lite's 16 heads, a 27-layer
+    # stacked latent cache, the decode contexts over 128-page tables
+    ML = 27
+    cm = torch.randn(ML, N, BS, 1, 512, generator=g, device=dev).bfloat16()
+    krm = torch.randn(ML, N, BS, 1, 64, generator=g, device=dev).bfloat16()
+    qlm = (torch.randn(8, 1, 16, 512, generator=g, device=dev) * 0.5).bfloat16()
+    qrm = (torch.randn(8, 1, 16, 64, generator=g, device=dev) * 0.5).bfloat16()
+    # the epilogue at chip_smoke's rows, B 8, bf16 logits, no count commit
+    samp = SamplingParams(**{
+        name: torch.tensor(vals, dtype=torch.int64 if name == "top_k"
+                           else torch.float32, device=dev)
+        for name, vals in cs.EPILOGUE_ROWS.items()})
+    slots = torch.tensor([3, 0, 5, 1, 6, 2, 4, 7], device=dev)
+    nocommit = torch.zeros(8, dtype=torch.bool, device=dev)
+
+    def epilogue_inputs(V):
+        logits = (torch.randn(8, V, generator=g, device=dev) * 4).bfloat16()
+        u = torch.rand(8, V, generator=g, device=dev).clamp_(min=1e-30)
+        counts = torch.randint(0, 3, (8, V), generator=g, device=dev,
+                               dtype=torch.int32)
+        seen = torch.randint(0, 2, (8, V), generator=g, device=dev).bool()
+        bias = torch.randn(8, V, generator=g, device=dev) * 0.5
+        return logits, -torch.log(-torch.log(u)), samp, counts, seen, bias, slots
+
+    e128 = epilogue_inputs(128256)
+    e102 = epilogue_inputs(102400)
+    extra = torch.zeros(8, 128256, device=dev)
+    extra[5] = -1e9
+    extra[5, [17, 128254]] = 0.0
+    live = torch.ones(8, dtype=torch.bool, device=dev)
+    tok0 = ep.fused_sampling_epilogue_ref(*e128[:3], e128[3].clone(), *e128[4:],
+                                          live, extra_bias=extra)[0]
+    fin = cs._finish_rows(torch, dev, tok0.tolist(), np.ones(8, bool), 128256)
     turn = iter(range(1 << 30))
 
     def cycling(fn, layers):
@@ -190,6 +288,17 @@ def main(argv=None) -> int:
             qv, k, v, btv, basev, ctxv, layer_idx=7),
         "verify_s5_layers": cycling(lambda li: pv.paged_verify_attention(
             qv, k, v, btv, basev, ctxv, layer_idx=li), L),
+        "mla_decode_b8": lambda: md.mla_paged_decode_attention(
+            qlm, qrm, cm, krm, btd, ctx_d, layer_idx=13, scale=0.11472),
+        "mla_decode_b8_layers": cycling(lambda li: md.mla_paged_decode_attention(
+            qlm, qrm, cm, krm, btd, ctx_d, layer_idx=li, scale=0.11472), ML),
+        "epilogue_b8_v128256": lambda: ep.fused_sampling_epilogue(
+            *e128, nocommit)[:2],
+        "epilogue_b8_v102400": lambda: ep.fused_sampling_epilogue(
+            *e102, nocommit)[:2],
+        "epilogue_finish_extra_b8_v128256": lambda: ep.fused_sampling_epilogue(
+            *e128, nocommit, extra_bias=extra, finish=fin,
+            max_model_len=cs.EPILOGUE_MAX_LEN)[:2],
     }
     names = list(builds)
     times = {s: {n: [] for n in names} for s in shapes}
@@ -202,7 +311,8 @@ def main(argv=None) -> int:
         for shape, fn in shapes.items():
             # decode and verify run faster than their wrappers launch them:
             # their device time comes from a CUDA graph's replay
-            timer = cs.graph_ms if shape.startswith(("decode", "verify")) else cs.cuda_ms
+            timer = (cs.graph_ms if shape.startswith(
+                ("decode", "verify", "mla", "epilogue")) else cs.cuda_ms)
             times[shape][name].append(timer(fn))
             if not shape.endswith("_layers"):
                 outs.setdefault((shape, name), fn())
@@ -214,6 +324,11 @@ def main(argv=None) -> int:
                               "card": card}), flush=True)
             continue
         a, b = (outs[(shape, n)] for n in (names * 2)[:2])
+        if shape.startswith("epilogue"):  # tokens must agree; logprobs
+            if not torch.equal(a[0], b[0]):
+                print(json.dumps({"shape": shape, "tokens_differ": [
+                    a[0].tolist(), b[0].tolist()]}), flush=True)
+            a, b = a[1], b[1]
         # flash rows past ctx are discarded by the caller: compare the rest
         if shape == "flash_long_dense_step":
             a, b = [x[0, :cs.LONG_DENSE_STEP[1] - cs.LONG_DENSE_STEP[0]]

@@ -7,14 +7,23 @@ and the split-KV launch plan, on the CPU (no ``nvcc``, no card).
 - the flash, prefix-partials, decode and verify wrappers accept the
   head_dims their library instantiates (64 and 128) and refuse others by
   name before any launch (``_check_cuda_inputs`` on CPU tensors);
-- ``splitkv.plan`` cuts a block table into splits from its width alone.
+- ``splitkv.plan`` cuts a block table into splits from its width alone;
+- the MLA decode kernel's plan cuts a row the same at every table width
+  (128-key splits in clusters of 8), its counters and workspace are kept
+  per device and grow;
+- the sampling epilogue's cluster plan (slice a CTA, shared memory a CTA)
+  and its vocabulary limit, with no library loaded.
 """
+
+import inspect
 
 import pytest
 import torch
 
 from dynamo_tpu_torch.ops import (
     _build,
+    epilogue,
+    mla_decode,
     paged_decode,
     paged_flash,
     paged_verify,
@@ -149,3 +158,72 @@ def test_splitkv_counters_grow_zeroed():
     assert bigger.numel() > first.numel() and not bigger.any()
     assert splitkv.workspace(dev, 2, 2, 1, 4, 64).numel() == 0
     assert splitkv.workspace(dev, 2, 2, 3, 4, 64).numel() == 2 * 2 * 3 * 4 * 66
+
+
+@pytest.mark.parametrize("table_keys,splits", [
+    (48, 8),          # a short table: one split holds keys, 7 exit at once
+    (768, 8),
+    (2048, 16),       # the engine's max_model_len 2,048 (V2-Lite's cell)
+    (16384, 128),
+    (163840, 1280),   # DeepSeek-V3's 160k context
+])
+def test_mla_plan_follows_the_table_width(table_keys, splits):
+    chunk, got, cluster = mla_decode.plan(table_keys)
+    assert (chunk, got, cluster) == (mla_decode.CHUNK, splits, mla_decode.CLUSTER)
+    assert chunk % mla_decode.TILE_KEYS == 0 and got % cluster == 0
+    assert chunk * got >= table_keys
+    # at most the last cluster holds splits past the table
+    assert (got - cluster) * chunk < table_keys
+
+
+def test_mla_plan_never_reads_context_lengths():
+    """The grid comes from shapes: ``plan`` takes the table width and
+    nothing else, and the wrapper calls it with that."""
+    assert list(inspect.signature(mla_decode.plan).parameters) == ["table_keys"]
+    src = inspect.getsource(mla_decode.mla_paged_decode_attention)
+    assert "plan(w * bs)" in src
+
+
+def test_mla_plan_cuts_a_row_the_same_at_every_table_width():
+    """The K=1 step and the decode bursts pad their block tables to other
+    widths: a row's split boundaries (chunk) and merge groups (cluster)
+    must not follow the width, or the two would round its output apart."""
+    shapes = {mla_decode.plan(w * 16)[::2] for w in range(1, 2049)}
+    assert shapes == {(mla_decode.CHUNK, mla_decode.CLUSTER)}
+
+
+def test_mla_counters_and_workspace_grow_zeroed():
+    dev = torch.device("cpu")
+    cnt = splitkv.counters(dev, 8 * 8)   # B 8 rows x 8 head groups (H 128)
+    assert cnt.dtype == torch.int32 and cnt.numel() >= 64 and not cnt.any()
+    more = splitkv.counters(dev, cnt.numel() + 1)
+    assert more.numel() > cnt.numel() and not more.any()
+    ws = mla_decode.workspace(dev, 8, 1, 8)
+    assert ws.dtype == torch.float32 and ws.numel() == 8 * 8 * 16 * 514
+    assert mla_decode.workspace(dev, 2, 1, 8) is ws      # kept, large enough
+    big = mla_decode.workspace(dev, 8, 8, 8)
+    assert big.numel() == 8 * 8 * 8 * 16 * 514 and mla_decode.workspace(dev, 1, 1, 1) is big
+
+
+@pytest.mark.parametrize("vocab,slice_len,smem", [
+    (1000, 128, 28672 + 6 * 128),
+    (32000, 4000, 28672 + 24000),
+    (102400, 12800, 28672 + 76800),     # DeepSeek-V2-Lite
+    (128256, 16032, 28672 + 96192),     # Llama-3.2-1B: 64 KB of f32 a CTA
+    (151936, 18992, 28672 + 113952),    # Qwen2
+    (256000, 32000, 28672 + 192000),    # Gemma
+])
+def test_epilogue_cluster_plan(vocab, slice_len, smem):
+    cluster, sl, nbytes = epilogue.cluster_plan(vocab)
+    assert (cluster, sl, nbytes) == (8, slice_len, smem)
+    assert nbytes % 16 == 0 and nbytes <= 232448
+    assert sl % 8 == 0 and cluster * sl >= vocab > cluster * (sl - 8)
+
+
+def test_epilogue_vocabulary_limit_raises_by_name_with_no_library_loaded(monkeypatch):
+    monkeypatch.setattr(_build, "_libs", {})
+    assert epilogue.cluster_plan(epilogue.MAX_VOCAB)[2] <= 232448
+    for vocab in (epilogue.MAX_VOCAB + 1, 1 << 20, 0):
+        with pytest.raises(NotImplementedError, match=f"vocabulary {vocab} "):
+            epilogue.cluster_plan(vocab)
+    assert _build._libs == {}

@@ -7,6 +7,8 @@ covers the same ground at the full Llama-3.2-1B and DeepSeek-V2-Lite
 shapes.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -422,3 +424,257 @@ def _sp_prefix_case(prefix_len, d):
     torch.testing.assert_close(l, ref[2], atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(acc, ref[0], atol=1e-3 * float(ref[0].abs().max()),
                                rtol=1e-3)
+
+
+# the MLA split plan's edges in a 1,280-key table (80 pages of 16: ten
+# 128-key splits in two clusters of 8): no key, one, a tile's edges, a
+# split's last key and the first of the next, a cluster's last key and the
+# first of the next cluster, the full table, and a context past the table
+# (only the table's keys count)
+MLA_EDGE_CTX = [0, 1, 63, 64, 65, 128, 129, 1024, 1025, 1280, 1300]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctx", MLA_EDGE_CTX)
+@pytest.mark.parametrize("h", [16, 20, 128])
+def test_mla_decode_kernel_split_and_tile_edges(h, ctx):
+    """One row at the tile, split and cluster edges, at 16 heads (one
+    group), 20 (a ragged second group) and 128 (DeepSeek-V2/V3: eight
+    groups); two calls bit-identical; ctx 0 gives zeros."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    layers, n, bs, w = 2, 96, 16, 80
+    c = torch.randn(layers, n, bs, 1, 512, generator=g, device="cuda").bfloat16()
+    kr = torch.randn(layers, n, bs, 1, 64, generator=g, device="cuda").bfloat16()
+    bt = torch.randperm(n, generator=g, device="cuda")[:w][None].int()
+    ctx_t = torch.tensor([ctx], dtype=torch.int32, device="cuda")
+    q_lat = torch.randn(1, 1, h, 512, generator=g, device="cuda").bfloat16()
+    q_rope = torch.randn(1, 1, h, 64, generator=g, device="cuda").bfloat16()
+    assert mla_decode.plan(w * bs) == (128, 16, 8)
+    before = mla_decode.launches
+    out = mla_decode.mla_paged_decode_attention(q_lat, q_rope, c, kr, bt, ctx_t,
+                                                layer_idx=1, scale=0.11472)
+    again = mla_decode.mla_paged_decode_attention(q_lat, q_rope, c, kr, bt, ctx_t,
+                                                  layer_idx=1, scale=0.11472)
+    ref = mla_decode.mla_paged_decode_attention_ref(
+        q_lat.float(), q_rope.float(), c.float(), kr.float(), bt, ctx_t, 1, 0.11472)
+    torch.cuda.synchronize()
+    assert mla_decode.launches == before + 2
+    assert torch.equal(out, again)
+    if ctx == 0:
+        assert not out.any()
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL)
+
+
+# 50,257 (GPT-2's) is not a multiple of 8: the kernel reads it an entry at a time
+EPILOGUE_WIDTHS = [1000, 32000, 50257, 102400, 128256, 151936, 256000]
+
+
+def _cluster_epilogue_inputs(g, b, v):
+    """``b`` rows cycling the mixed regimes of ``_epilogue_inputs``, row 0
+    the tie row (top-k 12, top-p 0.55): 10 tokens tied at the top around
+    the first CTA-slice boundary (the top-p cut falls inside them, so ties
+    on both sides of it are counted in index order) and 5 tied at the top-k
+    cut around the second boundary."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+
+    dev = "cuda"
+    _, sl, _ = epilogue.cluster_plan(v)
+    logits = (torch.randn(b, v, generator=g, device=dev) * 4).bfloat16()
+    counts = torch.randint(0, 3, (b, v), generator=g, device=dev, dtype=torch.int32)
+    seen = torch.randint(0, 2, (b, v), generator=g, device=dev).bool()
+    bias = torch.randn(b, v, generator=g, device=dev) * 0.5
+    row = torch.full((v,), -20.0, device=dev)
+    row[sl - 5:sl + 5] = 8.0
+    row[2 * sl - 2:2 * sl + 3] = 6.0
+    logits[0] = row.bfloat16()
+    counts[0], seen[0], bias[0] = 0, False, 0.0
+    regime = [(r + 7) % 8 for r in range(b)]
+
+    def f(vals, dtype=torch.float32):
+        return torch.tensor([vals[i] for i in regime], dtype=dtype, device=dev)
+
+    samp = SamplingParams(
+        temperature=f([0.0, 0.7, 1.0, 1.3, 0.9, 0.0, 0.8, 1.0]),
+        top_k=f([0, 5, 0, 0, 3, 0, 1, 12], torch.int64),
+        top_p=f([1.0, 1.0, 0.9, 1.0, 0.8, 1.0, 1.0, 0.55]),
+        min_p=f([0.0, 0.0, 0.0, 0.2, 0.05, 0.0, 0.0, 0.0]),
+        presence_penalty=f([0.0, 0.5, 0.0, 1.1, 0.0, 0.0, 0.0, 0.0]),
+        frequency_penalty=f([0.0, 0.0, 0.3, 0.2, 0.0, 0.0, 0.0, 0.0]),
+        repetition_penalty=f([1.0, 1.2, 1.0, 1.05, 1.3, 1.0, 1.0, 1.0]),
+    )
+    u = torch.rand(b, v, generator=g, device=dev).clamp_(min=1e-30)
+    gumbel = -torch.log(-torch.log(u))
+    return logits, gumbel, samp, counts, seen, bias, torch.arange(b, device=dev)
+
+
+def _cluster_finish_rows(g, tokens, live, v):
+    """Finish carry rows for ``tokens``: a stop id hit on even rows, a
+    matching suffix of length 1-8 and a non-matching one on every row,
+    ``max_new`` reached every third row, the horizon every fifth."""
+    from dynamo_tpu_torch.engine.sampling import stop_seq_hash
+
+    dev = "cuda"
+    b = len(tokens)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ring = torch.randint(0, v, (b, 32), generator=g, device=dev).int()
+    ring[0, :20] = -1
+    tok = torch.tensor(tokens, **i32)
+    pushed = torch.where(live[:, None], torch.cat([ring[:, 1:], tok[:, None]], 1), ring)
+    stop_ids = torch.full((b, 16), -1, **i32)
+    stop_ids[::2, 3] = tok[::2]
+    stop_hash = torch.zeros((b, 4), dtype=torch.int64, device=dev)
+    stop_hlen = torch.zeros((b, 4), **i32)
+    for r in range(b):
+        n = r % 8 + 1
+        stop_hash[r, 1] = stop_seq_hash(pushed[r, 32 - n:].tolist())
+        stop_hlen[r, 1] = n
+        stop_hash[r, 3] = stop_seq_hash([1, 2, 3])
+        stop_hlen[r, 3] = 3
+    rows = torch.arange(b, device=dev)
+    gen = (rows % 10).int()
+    pos = torch.where(rows % 5 == 0, 62, 40).int()
+    min_new = torch.where(rows % 4 == 2, 9, 0).int()
+    max_new = torch.where(rows % 3 == 0, gen + 1, 99).int()
+    return gen, pos, min_new, max_new, stop_ids, ring, stop_hash, stop_hlen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["plain", "finish", "extra_bias", "both"])
+@pytest.mark.parametrize("b", [1, 8, 33])
+@pytest.mark.parametrize("v", EPILOGUE_WIDTHS)
+def test_epilogue_cluster_kernel_widths_and_batches(v, b, form):
+    """Every vocabulary from 1,000 to 256,000 (Gemma's) at batch 1, 8 and
+    33 in every form (one width not a multiple of 8): tokens, counts and the finish outputs equal the
+    plain version's, logprobs within 1e-4, two calls bit-identical; the
+    tie row straddles CTA-slice boundaries at both cuts."""
+    _need_cuda()
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(7)
+    logits, gumbel, samp, counts, seen, bias, slots = _cluster_epilogue_inputs(g, b, v)
+    live = torch.arange(b, device=dev) % 7 != 6
+    extra = None
+    if form in ("extra_bias", "both"):
+        extra = torch.zeros(b, v, device=dev)
+        extra[b - 1] = -1e9
+        extra[b - 1, [17, v - 2]] = 0.0      # a guided row with two ids
+    fin = None
+    if form in ("finish", "both"):
+        tok0 = epilogue.fused_sampling_epilogue_ref(
+            logits, gumbel, samp, counts.clone(), seen, bias, slots, live,
+            extra_bias=extra)[0].tolist()
+        fin = _cluster_finish_rows(g, tok0, live, v)
+    outs = []
+    for _ in range(2):
+        c_ker = counts.clone()
+        before = epilogue.launches
+        out = epilogue.fused_sampling_epilogue(
+            logits, gumbel, samp, c_ker, seen, bias, slots, live,
+            extra_bias=extra, finish=fin, max_model_len=64)
+        assert epilogue.launches == before + 1
+        outs.append(out)
+    c_ref = counts.clone()
+    ref = epilogue.fused_sampling_epilogue_ref(
+        logits, gumbel, samp, c_ref, seen, bias, slots, live,
+        extra_bias=extra, finish=fin, max_model_len=64)
+    torch.cuda.synchronize()
+    out, again = outs
+    assert len(out) == len(ref) == (3 if fin is None else 6)
+    for a, a2 in zip(out, again):
+        assert torch.equal(a, a2)
+    assert out[0].tolist() == ref[0].tolist()
+    assert torch.equal(out[2], c_ref)
+    torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=1e-4)
+    if extra is not None:
+        assert int(out[0][b - 1]) in (17, v - 2)
+    if fin is not None:
+        for a, r in zip(out[3:], ref[3:]):
+            assert torch.equal(a, r.to(a.dtype))
+    if extra is None or b > 1:
+        # the tie row keeps the 6 highest indices of the 10 top ties, one
+        # in the first CTA's slice and five in the second's
+        _, sl, _ = epilogue.cluster_plan(v)
+        assert sl - 1 <= int(out[0][0]) <= sl + 4
+
+
+@pytest.mark.cuda
+def test_epilogue_cluster_plan_matches_the_library():
+    """The wrapper's copy of the cluster plan is the library's."""
+    _need_cuda()
+    from dynamo_tpu_torch.ops import _build
+
+    lib = _build.load("sampling_epilogue")
+    lib.sampling_epilogue_smem_bytes.restype = ctypes.c_longlong
+    assert lib.sampling_epilogue_cluster_size() == epilogue.CLUSTER
+    for v in EPILOGUE_WIDTHS + [1, 7, epilogue.MAX_VOCAB]:
+        assert lib.sampling_epilogue_smem_bytes(v) == epilogue.cluster_plan(v)[2]
+    assert lib.sampling_epilogue_smem_bytes(epilogue.MAX_VOCAB + 1) == -1
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_refuses_a_vocabulary_above_the_limit():
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    v = epilogue.MAX_VOCAB + 1
+    logits, gumbel, samp, counts, seen, bias, slots = _epilogue_inputs(g, b=8, v=v)
+    before = epilogue.launches
+    with pytest.raises(NotImplementedError, match=f"vocabulary {v} "):
+        epilogue.fused_sampling_epilogue(
+            logits, gumbel, samp, counts, seen, bias, slots,
+            torch.ones(8, dtype=torch.bool, device="cuda"))
+    assert epilogue.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [1000, 128256])
+def test_epilogue_topk_candidate_bound_edges(v):
+    """Rows around the kernel's candidate bound (the k-th largest of the
+    cluster's 128 warp maxima) and its two selection paths (rank 0 over a
+    gathered candidate list, or the whole cluster over its slices): top-k
+    128 and 129, 1 and 300, a row whose 3,000 top values tie across every
+    CTA slice (top-k 5, and top-k 5 with top-p 0.3 cutting inside the
+    ties), min-p over the candidates, a flat row (temperature 4) under
+    top-p 0.95 whose nucleus the candidates cannot hold, min-p alone, and
+    top-p over a row biased to -1e9 but for three ids (as a guided row);
+    tokens and counts equal the plain version's, logprobs within 1e-4."""
+    _need_cuda()
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(9)
+    b = 11
+    logits = (torch.randn(b, v, generator=g, device=dev) * 4).bfloat16()
+    ties = torch.randperm(v, generator=g, device=dev)[:min(3000, v // 2)]
+    for r in (3, 4):
+        row = torch.randn(v, generator=g, device=dev) - 10.0
+        row[ties] = 5.0
+        logits[r] = row.bfloat16()
+    counts = torch.zeros(b, v, dtype=torch.int32, device=dev)
+    seen = torch.zeros(b, v, dtype=torch.bool, device=dev)
+    bias = torch.zeros(b, v, device=dev)
+    allowed = [3, v // 2, v - 1]
+    bias[10] = -1e9
+    bias[10, allowed] = 0.0
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    samp = SamplingParams(
+        temperature=f([1.0, 0.8, 1.2, 1.0, 1.0, 0.7, 1.0, 0.9, 4.0, 1.0, 1.0]),
+        top_k=torch.tensor([128, 129, 1, 5, 5, 40, 128, 300, 0, 0, 0], device=dev),
+        top_p=f([1.0, 1.0, 1.0, 1.0, 0.3, 0.9, 0.5, 1.0, 0.95, 1.0, 0.9]),
+        min_p=f([0.0, 0.0, 0.0, 0.0, 0.0, 0.1, 0.0, 0.05, 0.0, 0.3, 0.0]),
+        presence_penalty=f([0.0] * b), frequency_penalty=f([0.0] * b),
+        repetition_penalty=f([1.0] * b))
+    u = torch.rand(b, v, generator=g, device=dev).clamp_(min=1e-30)
+    gumbel = -torch.log(-torch.log(u))
+    slots = torch.arange(b, device=dev)
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    c_ker, c_ref = counts.clone(), counts.clone()
+    tok, lps, _ = epilogue.fused_sampling_epilogue(
+        logits, gumbel, samp, c_ker, seen, bias, slots, live)
+    tok_r, lps_r, _ = epilogue.fused_sampling_epilogue_ref(
+        logits, gumbel, samp, c_ref, seen, bias, slots, live)
+    torch.cuda.synchronize()
+    assert tok.tolist() == tok_r.tolist()
+    assert torch.equal(c_ker, c_ref)
+    torch.testing.assert_close(lps, lps_r, atol=1e-4, rtol=1e-4)
+    assert int(tok[3]) in ties.tolist() and int(tok[4]) in ties.tolist()
+    assert int(tok[10]) in allowed

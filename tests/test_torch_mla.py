@@ -373,6 +373,46 @@ async def test_capacity_one_decode_parts_twins_as_the_reference_does():
     assert got[0] != got[1]
 
 
+@pytest.mark.asyncio
+@pytest.mark.parametrize("seed", [5, 8, 11])
+async def test_capacity_one_bursts_stream_as_single_steps(seed):
+    """32 experts, top 4, decode batch 4: capacity 1, so a row's experts
+    depend on the rows before it. The first two requests end early and
+    ride the later bursts as inactive rows ahead of the live ones: a K = 4
+    burst streams every request as K = 1 single steps do, because its
+    inactive rows stay the pads the single steps carry."""
+    kw = dict(TINY, num_experts=32, num_experts_per_tok=4, moe_intermediate_size=8)
+    _, jparams = _jax_params(kw, seed=seed)
+    cfg = ModelConfig(**kw)
+    params = from_jax_params(jax.device_get(jparams), cfg, "cpu", "float32")
+    prompts = _prompts(seed + 1, [9, 6, 14, 11])
+    max_tokens = [2, 5, 16, 16]
+
+    async def streams(**over):
+        eng = await TorchServingEngine.create(
+            EngineConfig(model=cfg, **dict(ENGINE, **over)), params=params,
+            device="cpu", warmup=False)
+
+        async def one(p, n):
+            req = PreprocessedRequest(
+                token_ids=p, stop_conditions=StopConditions(max_tokens=n,
+                                                            ignore_eos=True),
+                sampling_options=SamplingOptions(temperature=0.0))
+            toks = []
+            async for out in eng.generate(Context(req)):
+                toks.extend(out["token_ids"])
+            return toks
+        try:
+            return await asyncio.gather(*(one(p, n) for p, n in zip(prompts, max_tokens)))
+        finally:
+            await eng.close()
+
+    single = await streams()
+    burst = await streams(multi_step_decode=4)
+    assert [len(s) for s in single] == max_tokens
+    assert burst == single
+
+
 def test_runner_serves_mla_and_refuses_other_moe_families():
     """The runner resolves the family: MLA + MoE builds its own params and
     unpadded cache; a Mixtral-style MoE config still refuses."""
