@@ -7,7 +7,9 @@
 // ctx); online softmax with f32 accumulation, P rounded to bf16 before P V
 // as the reference rounds it to the value dtype; a row with no visible key
 // (ctx == 0) outputs zeros (the reference's l == 0 guard); the output is
-// bf16.
+// bf16. With `sinks` (GPT-OSS; f32 [H], head order kvh * G + g), each head's
+// learned logit joins its softmax denominator as a virtual key with no value
+// (pallas_decode.py:205-211); nullptr means no sink.
 //
 // What bounds it on an H100: bytes. Each (row, KV head) reads its live
 // context's K and V once (2 * keys * D * 2 bytes) and does ~4 G FLOPs per
@@ -34,11 +36,12 @@
 // has checked types, shapes, contiguity, 16-byte alignment and the group
 // size (G <= 128); it allocates the workspace `ws` (f32, B * KVH * nsplit
 // * G * (D + 2)) and passes its device's counter buffer `cnt` (>= B * KVH
-// ints, zero between calls), both unused when nsplit == 1. head_dim 64 and
-// 128 are instantiated.
+// ints, zero between calls), both unused when nsplit == 1. `sinks` is f32
+// [H] or nullptr. head_dim 64 and 128 are instantiated.
 extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
-                                 const void* bt, const void* ctx, void* out,
-                                 void* ws, void* cnt, int B, int H, int KVH,
+                                 const void* bt, const void* ctx,
+                                 const void* sinks, void* out, void* ws,
+                                 void* cnt, int B, int H, int KVH,
                                  int D, int N, int bs, int W, int layer,
                                  int window, int chunk, int nsplit,
                                  float scale, void* stream) {
@@ -50,10 +53,12 @@ extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
   p.bt = static_cast<const int*>(bt);
   p.base_pos = nullptr;  // decode: the query sits at ctx - 1
   p.ctx_lens = static_cast<const int*>(ctx);
+  p.sinks = static_cast<const float*>(sinks);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.ws = static_cast<float*>(ws);
   p.cnt = static_cast<int*>(cnt);
   p.S = 1;
+  p.Sq = 1;
   p.H = H;
   p.KVH = KVH;
   p.G = H / KVH;

@@ -7,7 +7,12 @@
 // j > qpos - window (pallas_attention.py:94-95); a row with no visible key
 // outputs zeros (the l == 0 guard, :142). Rows past ctx give values the
 // caller discards, never NaN: a query tile whose first position is at or
-// past ctx writes zeros and reads nothing.
+// past ctx writes zeros and reads nothing. With `sinks` (GPT-OSS; f32 [H],
+// head order kvh * G + g), each head's learned logit joins its softmax
+// denominator as a virtual key with no value (pallas_attention.py:135-143):
+// at the finalize, l <- l * 2^(m - m') + 2^(sink * log2 e - m') with the
+// shift m' = max(m, sink * log2 e), so neither term overflows and a row with
+// no visible key still writes 0.
 //
 // What bounds it on an H100: for a long chunk, operations — each K/V tile
 // is reused by every query row of the CTA, so the FLOPs per byte grow with
@@ -48,6 +53,7 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
     const int* __restrict__ bt,             // [B, W]
     const int* __restrict__ base_pos,       // [B]
     const int* __restrict__ ctx_lens,       // [B]
+    const float* __restrict__ sinks,        // [H] or nullptr
     __nv_bfloat16* __restrict__ out,        // [B, S, H, D]
     int S, int H, int KVH, int N, int bs, int W, int layer, int window,
     float scale) {
@@ -90,7 +96,13 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
     const int r = (threadIdx.x >> 5) * 16 + (lane >> 2) + 8 * i;
     const int s = s0 + r / G;
     if (s >= s_end) continue;
-    const float inv = st.l[i] > 0.f ? 1.f / st.l[i] : 0.f;
+    float inv = st.l[i] > 0.f ? 1.f / st.l[i] : 0.f;
+    if (sinks) {
+      const float sk = sinks[kvh * G + r % G] * kLog2e;
+      const float sh = fmaxf(st.m[i], sk);
+      const float w = st.m[i] == -INFINITY ? 0.f : ex2(st.m[i] - sh);
+      inv = w / (st.l[i] * w + ex2(sk - sh));
+    }
     __nv_bfloat16* orow =
         out + (((size_t)b * S + s) * H + kvh * G + r % G) * D + (lane & 3) * 2;
 #pragma unroll
@@ -102,9 +114,9 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* bt,
-           const void* base, const void* ctx, void* out, int B, int S, int H,
-           int KVH, int N, int bs, int W, int layer, int window, float scale,
-           cudaStream_t stream) {
+           const void* base, const void* ctx, const void* sinks, void* out,
+           int B, int S, int H, int KVH, int N, int bs, int W, int layer,
+           int window, float scale, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   constexpr int smem = smem_bytes<D, kWG>();
   cudaError_t err = allow_smem_once(
@@ -118,8 +130,8 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(bt),
       static_cast<const int*>(base), static_cast<const int*>(ctx),
-      static_cast<__nv_bfloat16*>(out), S, H, KVH, N, bs, W, layer, window,
-      scale);
+      static_cast<const float*>(sinks), static_cast<__nv_bfloat16*>(out), S,
+      H, KVH, N, bs, W, layer, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -128,19 +140,19 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
 // has checked types, shapes, contiguity, 16-byte alignment, that head_dim
 // is 64 or 128 (the two instantiations) and that the group size
-// G = H / KVH divides 64.
+// G = H / KVH divides 64. `sinks` is f32 [H] or nullptr.
 extern "C" int paged_flash_bf16(const void* q, const void* k, const void* v,
                                 const void* bt, const void* base,
-                                const void* ctx, void* out, int B, int S,
-                                int H, int KVH, int D, int N, int bs, int W,
-                                int layer, int window, float scale,
-                                void* stream) {
+                                const void* ctx, const void* sinks, void* out,
+                                int B, int S, int H, int KVH, int D, int N,
+                                int bs, int W, int layer, int window,
+                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, bt, base, ctx, out, B, S, H, KVH, N, bs, W,
-                      layer, window, scale, s);
+    return launch<64>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, N, bs,
+                      W, layer, window, scale, s);
   if (D == 128)
-    return launch<128>(q, k, v, bt, base, ctx, out, B, S, H, KVH, N, bs, W,
-                       layer, window, scale, s);
+    return launch<128>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, N,
+                       bs, W, layer, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

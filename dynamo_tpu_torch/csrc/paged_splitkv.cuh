@@ -6,8 +6,11 @@
 // The function. Query token s of batch row b sits at position base + s
 // (decode: base = ctx - 1) and sees key j iff j <= base + s, j < ctx and
 // j > base + s - window. A CTA's rows are (query position, group head)
-// pairs, r = s * G + g, so every K/V tile it stages feeds all S * G rows of
-// its KV head; a row with no visible key outputs zeros, never NaN.
+// pairs, r = s * G + g, so every K/V tile it stages feeds all its rows of
+// its KV head; a row with no visible key outputs zeros, never NaN. With
+// `sinks` (GPT-OSS), head h's learned logit joins each row's softmax as a
+// virtual key with no value: only the denominator grows, by exp(sink - m)
+// (pallas_decode.py:205-211 and :527-537).
 //
 // What bounds it on an H100: bytes. Each live K/V element is read once and
 // does at most 4 * S * G FLOPs (<= 128 FLOP/byte at S * G = 128, ~16 at
@@ -15,7 +18,12 @@
 // So the design keeps enough CTAs in flight and enough copies outstanding
 // to stream the live pages, and spends few instructions on the products.
 //
-// Grid: (split, KV head, batch row), from tensor shapes only. The block
+// Grid: (split, query part x KV head, batch row), from tensor shapes only.
+// A CTA holds Sq query positions (Sq * G <= 128 rows); the S queries of a
+// row are cut into ceil(S / Sq) parts, each its own CTA over the same keys
+// (GPT-OSS's verify at S 17 and G 8: 136 rows, two parts of 9 and 8
+// positions), and a part is for the rest of this note a row of its own
+// with its own base (base + the part's first query). The block
 // table's width W * bs is cut into chunks of `chunk` keys (a multiple of
 // the 64-key tile; ops/splitkv.py picks it), one CTA a chunk. Each CTA
 // reads ctx (and base) on the device and computes the range every row of
@@ -49,6 +57,12 @@
 // order and writes the output. No float atomics: the result does not depend
 // on which CTA finishes last, so repeated calls are bit-identical. One
 // launch a call.
+//
+// The sink enters once a row, at whichever of the two exits writes it: the
+// single live split's store, or the last split's merge. Scores live in the
+// log2 domain, so the sink enters as sink * log2(e), and the shift is
+// max(m, sink * log2 e): neither exponential overflows when a sink exceeds
+// every score, and a row with no visible key (m = -inf) still writes 0.
 
 #pragma once
 
@@ -69,7 +83,7 @@ namespace {
 constexpr int kKeys = 64;   // keys per K/V tile
 constexpr int kStages = 3;  // cp.async ring depth
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxRows = 128;  // S * G rows a CTA holds: 8 row tiles
+constexpr int kMaxRows = 128;  // Sq * G rows a CTA holds: 8 row tiles
 
 // M row tiles of 16 rows: warps split a tile's keys while there are few
 // row tiles (M 1: 4 warps x 16 keys; M 2: 2 x 2 warps x 32 keys), and own
@@ -82,7 +96,7 @@ __host__ __device__ constexpr int cta_threads(int m) {
 }
 
 // The launch's arguments. base_pos == nullptr: decode (base = ctx - 1,
-// S = 1).
+// S = 1). sinks == nullptr: no sink.
 struct Params {
   const __nv_bfloat16* q;   // [B, S, H, D]
   const __nv_bfloat16* kc;  // [L, N, bs, KVH, D]
@@ -91,9 +105,11 @@ struct Params {
   const int* base_pos;      // [B] or nullptr
   const int* ctx_lens;      // [B]
   __nv_bfloat16* out;       // [B, S, H, D]
-  float* ws;                // [B, KVH, nsplit, S * G, D + 2] f32 partials
-  int* cnt;                 // [>= B * KVH] split counters, zero between calls
-  int S, H, KVH, G, N, bs, W, layer, window, chunk;
+  const float* sinks;       // [H] sink logits or nullptr
+  float* ws;                // [B, parts * KVH, nsplit, Sq * G, D + 2] f32
+  int* cnt;                 // [>= B * parts * KVH] split counters, zero
+                            // between calls
+  int S, Sq, H, KVH, G, N, bs, W, layer, window, chunk;
   float scale;
 };
 
@@ -191,6 +207,16 @@ inline size_t smem_bytes(int chunk, int bs) {
   return (size_t)smem_fixed<D, M>() + (size_t)(chunk / bs + 2) * 4;
 }
 
+// the sink of head `head` in the log2 domain, or -inf without sinks
+__device__ __forceinline__ float sink_l2(const Params& p, int head) {
+  return p.sinks ? p.sinks[head] * kLog2e : -INFINITY;
+}
+
+// exp2(x - shift), 0 for x = -inf (a split or a row with no visible key)
+__device__ __forceinline__ float ex2_from(float x, float shift) {
+  return x == -INFINITY ? 0.f : ex2(x - shift);
+}
+
 // ------------------------------------------------------------- the kernel
 
 template <int D, int M>
@@ -207,20 +233,23 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   constexpr int DS = D + 4;            // f32 row stride of the warps' dump
   extern __shared__ __align__(128) unsigned char smem[];
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y % p.KVH, s0 = blockIdx.y / p.KVH * p.Sq;
   const int nsplit = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
   const int rt = warp / WK, kg = warp % WK;  // row tile, key group
-  const int S = p.S, G = p.G, R = S * G;
+  // this CTA's query positions s0 .. s0 + S - 1; RS the workspace's rows
+  const int S = min(p.Sq, p.S - s0), G = p.G, R = S * G, RS = p.Sq * G;
   const int ctx = p.ctx_lens[b];
-  const int base = p.base_pos ? p.base_pos[b] : ctx - 1;
+  const int base = (p.base_pos ? p.base_pos[b] : ctx - 1) + s0;
   const int k_lo = max(0, base - p.window + 1);
   const int k_hi = min(ctx - 1, base + S - 1);  // inclusive
 
-  // output row r = s * G + g: query s, head kvh * G + g
+  // output row r = s * G + g: query s0 + s, head kvh * G + g
   auto out_row = [&](int r) {
-    return p.out + (((size_t)b * S + r / G) * p.H + kvh * G + r % G) * D;
+    return p.out + (((size_t)b * p.S + s0 + r / G) * p.H + kvh * G + r % G) *
+                       D;
   };
 
   if (k_hi < k_lo) {  // no key visible to any row: split 0 writes zeros
@@ -243,12 +272,12 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   int* flag_s = reinterpret_cast<int*>(stat_s + 2 * kMaxRows);
   int* pages_s = flag_s + 4;
 
-  // Q: row r is (query r / G, head kvh * G + r % G); zeros past S * G
+  // Q: row r is (query s0 + r / G, head kvh * G + r % G); zeros past R
   for (int i = tid; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = i % CH;
     const bool ok = r < R;
     const __nv_bfloat16* src =
-        p.q + (((size_t)b * S + (ok ? r / G : 0)) * p.H + kvh * G +
+        p.q + (((size_t)b * p.S + s0 + (ok ? r / G : 0)) * p.H + kvh * G +
                (ok ? r % G : 0)) * D + c * 8;
     cp_async16(q_s + swz<D>(r, c), src, ok);
   }
@@ -450,10 +479,12 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   }
   __syncthreads();
 
-  const size_t part = ((size_t)b * p.KVH + kvh) * nsplit;  // (b, kvh)'s first split
-  float* ws_o = p.ws + (part + split) * R * D;  // [R][D]
+  // (b, part, kvh)'s counter and first split
+  const size_t row_id = (size_t)b * gridDim.y + blockIdx.y;
+  const size_t part = row_id * nsplit;
+  float* ws_o = p.ws + (part + split) * RS * D;  // [RS][D]
   float2* ws_ml = reinterpret_cast<float2*>(
-      p.ws + (size_t)gridDim.z * p.KVH * nsplit * R * D);  // [.., nsplit, R]
+      p.ws + (size_t)gridDim.z * gridDim.y * nsplit * RS * D);  // [.., nsplit, RS]
   for (int i = tid; i < R * (D / 4); i += NT) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float mx = -INFINITY;
@@ -473,13 +504,18 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
       acc[3] += w * ov.w;
     }
     if (nlive == 1) {
-      const float inv = ls > 0.f ? 1.f / ls : 0.f;
+      // the sink's term: the row rescaled to the shift max(mx, sink)
+      const float sk = sink_l2(p, kvh * G + r % G);
+      const float sh = fmaxf(mx, sk);
+      const float w = p.sinks ? ex2_from(mx, sh) : 1.f;
+      ls = ls * w + ex2_from(sk, sh);
+      const float inv = ls > 0.f ? w / ls : 0.f;
       store_bf16x4(out_row(r) + c, acc[0] * inv, acc[1] * inv, acc[2] * inv,
                    acc[3] * inv);
     } else {
       *reinterpret_cast<float4*>(ws_o + (size_t)r * D + c) =
           make_float4(acc[0], acc[1], acc[2], acc[3]);
-      if (c == 0) ws_ml[(part + split) * R + r] = make_float2(mx, ls);
+      if (c == 0) ws_ml[(part + split) * RS + r] = make_float2(mx, ls);
     }
   }
   if (nlive == 1) return;
@@ -488,24 +524,26 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   __threadfence();  // this CTA's partials are visible device-wide ...
   __syncthreads();  // ... before its thread 0 counts it
   if (tid == 0) {
-    const int done = atomicAdd(p.cnt + (size_t)b * p.KVH + kvh, 1);
+    const int done = atomicAdd(p.cnt + row_id, 1);
     flag_s[0] = done == nlive - 1;
   }
   __syncthreads();
   if (!flag_s[0]) return;
   __threadfence();
 
-  // per row: the max over the splits and 1 / l, in split order
+  // per row: the shift (the max over the splits and the sink) and 1 / l,
+  // in split order
   float* row_m = stat_s;
   float* row_inv = stat_s + kMaxRows;
   for (int r = tid; r < R; r += NT) {
-    float mx = -INFINITY;
+    const float sk = sink_l2(p, kvh * G + r % G);
+    float mx = sk;
     for (int sp = sp_lo; sp <= sp_hi; ++sp)
-      mx = fmaxf(mx, __ldcg(&ws_ml[(part + sp) * R + r]).x);
-    float ls = 0.f;
+      mx = fmaxf(mx, __ldcg(&ws_ml[(part + sp) * RS + r]).x);
+    float ls = ex2_from(sk, mx);
     for (int sp = sp_lo; sp <= sp_hi; ++sp) {
-      const float2 ml = __ldcg(&ws_ml[(part + sp) * R + r]);
-      ls += ml.x == -INFINITY ? 0.f : ex2(ml.x - mx) * ml.y;
+      const float2 ml = __ldcg(&ws_ml[(part + sp) * RS + r]);
+      ls += ex2_from(ml.x, mx) * ml.y;
     }
     row_m[r] = mx;
     row_inv[r] = ls > 0.f ? 1.f / ls : 0.f;
@@ -516,11 +554,11 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
     const float mx = row_m[r];
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int sp = sp_lo; sp <= sp_hi; ++sp) {
-      const float ms = __ldcg(&ws_ml[(part + sp) * R + r]).x;
+      const float ms = __ldcg(&ws_ml[(part + sp) * RS + r]).x;
       if (ms == -INFINITY) continue;
       const float w = ex2(ms - mx);
       const float4 ov = __ldcg(reinterpret_cast<const float4*>(
-          p.ws + ((part + sp) * R + r) * D + c));
+          p.ws + ((part + sp) * RS + r) * D + c));
       acc[0] += w * ov.x;
       acc[1] += w * ov.y;
       acc[2] += w * ov.z;
@@ -530,7 +568,7 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
     store_bf16x4(out_row(r) + c, acc[0] * inv, acc[1] * inv, acc[2] * inv,
                  acc[3] * inv);
   }
-  if (tid == 0) p.cnt[(size_t)b * p.KVH + kvh] = 0;  // ready for the next call
+  if (tid == 0) p.cnt[row_id] = 0;  // ready for the next call
 }
 
 // --------------------------------------------------------------- launch
@@ -562,8 +600,9 @@ cudaError_t launch(const Params& p, int B, int nsplit, cudaStream_t stream) {
   cudaError_t err = allow_smem(
       reinterpret_cast<const void*>(splitkv_kernel<D, M>), smem, allowed);
   if (err != cudaSuccess) return err;
-  splitkv_kernel<D, M><<<dim3(nsplit, p.KVH, B), dim3(cta_threads(M)), smem,
-                         stream>>>(p);
+  const int parts = (p.S + p.Sq - 1) / p.Sq;
+  splitkv_kernel<D, M><<<dim3(nsplit, parts * p.KVH, B), dim3(cta_threads(M)),
+                         smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -571,8 +610,9 @@ cudaError_t launch(const Params& p, int B, int nsplit, cudaStream_t stream) {
 // (D, row tiles). Returns cudaGetLastError() after the launch.
 inline int launch_any(const Params& p, int B, int D, int nsplit,
                       cudaStream_t stream) {
-  const int rows = p.S * p.G;
-  if (B <= 0 || p.S <= 0 || p.G <= 0 || rows > kMaxRows || p.chunk <= 0 ||
+  const int rows = p.Sq * p.G;
+  if (B <= 0 || p.S <= 0 || p.Sq <= 0 || p.Sq > p.S || p.G <= 0 ||
+      rows > kMaxRows || p.chunk <= 0 ||
       p.chunk % kKeys || p.bs <= 0 || nsplit <= 0 ||
       (long long)nsplit * p.chunk < (long long)p.W * p.bs ||
       (nsplit > 1 && (p.ws == nullptr || p.cnt == nullptr)))

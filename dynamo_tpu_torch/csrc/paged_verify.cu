@@ -11,17 +11,22 @@
 // read once for all S queries; P is rounded to bf16 before P V, as the
 // reference rounds it to the value dtype. A row with no visible key
 // outputs zeros, never NaN (rows past ctx are discarded by the caller).
+// With `sinks` (GPT-OSS; f32 [H], head order kvh * G + g), each head's
+// learned logit joins its softmax denominator as a virtual key with no value
+// (pallas_decode.py:527-537); nullptr means no sink.
 //
-// What bounds it on an H100: bytes. The CTA's S * G query rows (at most
-// 32 * 4 = 128) reuse each K/V element staged in shared memory, so the
-// work is at most ~128 FLOPs per byte read, under the ~295 FLOP/byte at
-// which the card turns compute bound.
+// What bounds it on an H100: bytes. The CTA's Sq * G query rows (at most
+// 128) reuse each K/V element staged in shared memory, so the work is at
+// most ~128 FLOPs per byte read, under the ~295 FLOP/byte at which the
+// card turns compute bound.
 //
 // Design: the split-KV core of paged_splitkv.cuh with its rows the
 // (query position, group head) pairs r = s * G + g, padded to 16-row
 // tiles (S 5 at G 4: 20 rows, two tiles, each scored by two warps over 32
-// keys of every 64-key tile). The grid is (split, KV head, batch row),
-// fixed by the block table's width; K and V stay bf16 in a cp.async ring
+// keys of every 64-key tile). A row's S queries are cut into parts of Sq
+// positions with Sq * G <= 128 (S 17 at G 8: parts of 9 and 8 positions,
+// two CTAs over the same keys). The grid is (split, part x KV head, batch
+// row), fixed by the block table's width and S; K and V stay bf16 in a cp.async ring
 // and both products run on the tensor cores (mma.sync, ldmatrix); the last
 // split to finish merges the splits' f32 partials in split order.
 //
@@ -32,15 +37,18 @@
 #include "paged_splitkv.cuh"
 
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
-// has checked types, shapes, contiguity, 16-byte alignment, 1 < S <= 32
-// and S * (H / KVH) <= 128; it allocates the workspace `ws` (f32, B * KVH
-// * nsplit * S * G * (D + 2)) and passes its device's counter buffer `cnt`
-// (>= B * KVH ints, zero between calls), both unused when nsplit == 1.
-// head_dim 64 and 128 are instantiated.
+// has checked types, shapes, contiguity, 16-byte alignment, 1 < S <= 32,
+// H / KVH <= 128 and Sq * (H / KVH) <= 128 (ops/splitkv.py query_parts
+// picks Sq); it allocates the workspace `ws` (f32, B * parts * KVH * nsplit
+// * Sq * G * (D + 2)) and passes its device's counter buffer `cnt`
+// (>= B * parts * KVH ints, zero between calls), both unused when
+// nsplit == 1. `sinks` is f32 [H] or nullptr. head_dim 64 and 128 are
+// instantiated.
 extern "C" int paged_verify_bf16(const void* q, const void* k, const void* v,
                                  const void* bt, const void* base,
-                                 const void* ctx, void* out, void* ws,
-                                 void* cnt, int B, int S, int H, int KVH,
+                                 const void* ctx, const void* sinks,
+                                 void* out, void* ws, void* cnt, int B, int S,
+                                 int Sq, int H, int KVH,
                                  int D, int N, int bs, int W, int layer,
                                  int window, int chunk, int nsplit,
                                  float scale, void* stream) {
@@ -52,10 +60,12 @@ extern "C" int paged_verify_bf16(const void* q, const void* k, const void* v,
   p.bt = static_cast<const int*>(bt);
   p.base_pos = static_cast<const int*>(base);
   p.ctx_lens = static_cast<const int*>(ctx);
+  p.sinks = static_cast<const float*>(sinks);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.ws = static_cast<float*>(ws);
   p.cnt = static_cast<int*>(cnt);
   p.S = S;
+  p.Sq = Sq;
   p.H = H;
   p.KVH = KVH;
   p.G = H / KVH;

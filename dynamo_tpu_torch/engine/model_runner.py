@@ -395,10 +395,12 @@ class ModelRunner:
         count commit in place (slots are ``arange``). The tail, the noise
         and the kernels are those of single steps, and an inactive row holds
         its first token and position through the burst as the pads of
-        single steps do, so the stream equals K single steps' (also on a
-        MoE trunk, where a row's experts depend on the rows before it).
-        Returns (tokens, logprobs, top_vals, top_ids) as [K, B]-leading
-        device tensors."""
+        single steps do. A row that finishes inside the burst rides on
+        live: the dispatch-ahead pipeline and the SP handoff take this
+        form, and the synchronous scheduler's bursts take
+        ``decode_burst_chained``, which freezes it (on a MoE trunk a row's
+        experts depend on the rows before it). Returns (tokens, logprobs,
+        top_vals, top_ids) as [K, B]-leading device tensors."""
         cfg = self.config.model
         k_steps = self.config.multi_step_decode
         bs = self.config.kv_block_size
@@ -724,12 +726,13 @@ class ModelRunner:
         bucket, one decode step, one verify-shaped step (S = the ngram
         proposal count + 1, or 2), with ``sp_size > 1`` one SP chunk, with
         ``multi_step_decode > 1`` or a dispatch-ahead pipeline (or the SP
-        ladder's decode handoff) one burst, and with device finish one
-        chained burst (with a one-state guided table, so both forms of the
-        epilogue have launched), so no first request pays for a kernel
-        build or a first-launch cost. Inert: every slot is the drop sentinel and
-        nothing commits, so the cache and the sample state keep their
-        values."""
+        ladder's decode handoff) one burst, and with ``multi_step_decode >
+        1`` (the synchronous bursts freeze finished rows on the device) or
+        device finish one chained burst (with a one-state guided table, so
+        both forms of the epilogue have launched), so no first request pays
+        for a kernel build or a first-launch cost. Inert: every slot is the
+        drop sentinel and nothing commits, so the cache and the sample
+        state keep their values."""
         if self.device.type == "cuda":
             from ..ops import _build
 
@@ -764,7 +767,7 @@ class ModelRunner:
             z = np.zeros((1, S), np.int32)
             self._sp_dispatch(z, z, np.full((1, S), -1, np.int32),
                               np.zeros((1, w), np.int32), 0, 1, 0, tail=True)
-        if pipelined and self.config.device_finish_enabled:
+        if self.config.multi_step_decode > 1 or self.config.device_finish_enabled:
             gtable = torch.full((1, self.config.model.vocab_size), -1,
                                 dtype=torch.int32, device=self.device)
             for table in (None, gtable):

@@ -1171,12 +1171,14 @@ class Scheduler:
         if k_steps > 1 and any(
                 er.context_len + k_steps + 1 > cfg.max_model_len for er in active):
             k_steps = 1
-        # nor may a row reach max_tokens mid-burst: it would ride the rest
-        # of the burst live where single steps carry a pad, and on a MoE
-        # trunk whose experts hold one token each the rows after it would
-        # route differently (with inactive rows held as pads by the runner,
-        # a burst is then exactly K single steps)
-        if k_steps > 1 and any(er.fin_max_new - er.generated < k_steps
+        # a row that finishes inside a burst (eos, a hidden stop id, a stop
+        # sequence, max_tokens) freezes on the device for the rest of it:
+        # no KV write, no expert slot, as the pad single steps carry. On a
+        # MoE trunk whose experts hold one token each, a finished row that
+        # rode on live would take experts from the rows after it, so a row
+        # whose finish the device cannot see in full steps per token
+        if k_steps > 1 and any(er.chain_fallback in ("stop_ids_overflow",
+                                                     "stop_seqs_overflow")
                                for er in active):
             k_steps = 1
         if any(er.guided is not None for er in active):
@@ -1222,13 +1224,21 @@ class Scheduler:
         want_top = any(er.logprobs_n > 0 for er in active)
 
         if k_steps > 1:
-            next_tokens, lps, top_vals, top_ids = self.runner.decode_burst(
-                tokens[:, 0], positions[:, 0], btab, temp, hs.top_k, hs.top_p,
-                min_p=hs.min_p, presence_penalty=hs.pres,
-                frequency_penalty=hs.freq, repetition_penalty=hs.rep,
-                seed_keys=hs.keys, counters=ctrs, commit=commit,
-                want_top=want_top,
-            )
+            # the chained burst's device finish, from committed host state:
+            # frozen rows emit -1 pads
+            ring0 = np.full((b, SUFFIX_RING_W), -1, np.int32)
+            for er in active:
+                ring0[er.slot] = ring_init(er.ring_tail)
+            next_tokens, lps, top_vals, top_ids, _ = (
+                self.runner.decode_burst_chained(
+                    tokens[:, 0], positions[:, 0], ctrs, np.zeros(b, bool),
+                    btab, temp, hs.top_k, hs.top_p,
+                    min_p=hs.min_p, presence_penalty=hs.pres,
+                    frequency_penalty=hs.freq, repetition_penalty=hs.rep,
+                    seed_keys=hs.keys, counters=ctrs, commit=commit,
+                    stop_ids=hs.stop_ids, min_new=hs.min_new,
+                    max_new=hs.max_new, ring0=ring0, stop_hash=hs.stop_hash,
+                    stop_hlen=hs.stop_hlen, want_top=want_top))
         else:
             next_tokens, lps, top_vals, top_ids, *_ = self.runner.step(
                 tokens, positions, btab, slot_map, ctx_lens, last_idx,
@@ -1248,14 +1258,17 @@ class Scheduler:
             # [B] → [1, B] so the emit loop below is one shape
             toks, lpn, tv, ti = toks[None], lpn[None], tv[None], ti[None]
 
-        # emit in step order; a request that finishes at step j has its
-        # trailing burst tokens discarded — their KV went into its own
-        # unregistered blocks, which are freed with the request
+        # emit in step order; a request that finishes at step j froze there
+        # (its later lanes are -1 pads). A pad with no host finish is a
+        # suffix-hash false positive: the row resumes at the next pass from
+        # its committed state
         for j in range(k_steps):
             for er in active:
                 if er.finish is not None:
                     continue
                 token = int(toks[j, er.slot])
+                if token < 0:
+                    continue
                 self._advance_row(er, token)
                 self._guided_after_token(er)
                 self._emit(

@@ -5,8 +5,9 @@ Each family module exposes the same surface — ``check_supported(cfg)``,
 ``init_kv_cache(cfg, n, bs, dtype, device)``, ``forward(params, cfg, ...)``
 and ``lm_logits(hidden, params, cfg)`` — so the engine
 (``engine/model_runner.py``) is architecture-agnostic. The port serves
-Llama-family dense GQA (``llama``) and DeepSeek-class MLA with routed
-experts (``deepseek``); the reference's other families raise.
+Llama-family dense GQA (``llama``), DeepSeek-class MLA with routed
+experts (``deepseek``) and GPT-OSS (``gptoss``: sinks, alternating windows,
+routed GLU experts); the reference's other families raise.
 """
 
 from __future__ import annotations
@@ -21,7 +22,11 @@ def resolve(cfg: ModelConfig):
         from . import deepseek
 
         return deepseek
-    if cfg.model_family in ("gptoss", "gemma2"):
+    if cfg.model_family == "gptoss":
+        from . import gptoss
+
+        return gptoss
+    if cfg.model_family == "gemma2":
         family = cfg.model_family
     elif cfg.num_experts > 0:
         family = "mixtral"

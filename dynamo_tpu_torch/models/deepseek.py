@@ -43,6 +43,7 @@ from .llama import (  # lm_logits: the final norm + head, as the runner reads it
     Params,
     apply_rope_cs,
     lm_logits,
+    normal_slices,
     rms_norm,
     rope_cos_sin,
     run_layers,
@@ -116,12 +117,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     n_dense, n_moe = _split_layer_counts(cfg)
 
     def w(shape, fan_in):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for part in (out if len(shape) > 2 else (out,)):
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   dtype=torch.float32, device=generator.device)
-                       * fan_in ** -0.5)
-        return out
+        return normal_slices(shape, fan_in, generator, dtype, device)
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)

@@ -193,6 +193,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return apply_rope_cs(x, cos, sin)
 
 
+def normal_slices(shape, fan_in: int, generator: torch.Generator, dtype,
+                  device) -> torch.Tensor:
+    """normal(0, fan_in^-0.5) of ``shape`` in ``dtype`` on ``device``,
+    drawn from ``generator`` on the generator's device one leading slice at
+    a time, so the f32 transient is one slice: a whole stacked expert leaf
+    would not fit in f32 beside the rest of a large model (GPT-OSS-20b's
+    ``w_gate_up`` is 12.7 G elements)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in (out if len(shape) > 2 else (out,)):
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               dtype=torch.float32, device=generator.device)
+                   * fan_in ** -0.5)
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cpu") -> Params:
     """Random-init params with the reference's shapes and layout (tests,
@@ -243,6 +258,15 @@ def init_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
              cfg.head_dim)
     return (alloc_kv_cache(shape, dtype, device),
             alloc_kv_cache(shape, dtype, device))
+
+
+def alternating_window(cfg: ModelConfig, li: int) -> Optional[int]:
+    """The sliding window of global layer ``li`` for families whose layers
+    alternate sliding and full attention starting sliding at layer 0
+    (GPT-OSS; the reference's ``alternating_window``): ``cfg.sliding_window``
+    on even layers, no window (None) on odd ones and when the family has
+    none."""
+    return cfg.sliding_window if cfg.sliding_window and li % 2 == 0 else None
 
 
 def swiglu_mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:

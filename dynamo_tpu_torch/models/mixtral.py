@@ -2,13 +2,14 @@
 
 The port of the routed-MoE part of ``dynamo_tpu/models/mixtral.py``:
 ``expert_capacity``, ``_dispatch_combine``, ``moe_mlp`` and
-``make_moe_mlp_fn`` (with DeepSeek's always-on shared experts). The
+``make_moe_mlp_fn`` (with DeepSeek's always-on shared experts), and
+``gptoss_moe`` (GPT-OSS's biased router and clamped GLU experts). The
 reference's dense (GShard/Switch) formulation is kept: routing gives every
 (token, expert) pair a queue position, tokens past an expert's capacity
 are dropped for that expert (their residual stream still flows), and the
 expert products are batched matmuls over [E, C, D], as XLA computes them
-in the reference. The Mixtral trunk itself (its ``forward``), expert
-parallelism (``ep_axis``) and GPT-OSS experts belong to later slices.
+in the reference. The Mixtral trunk itself (its ``forward``) and expert
+parallelism (``ep_axis``) belong to later slices.
 """
 
 from __future__ import annotations
@@ -122,6 +123,41 @@ def moe_mlp(
     x_e = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)      # [E, C, D]
     h = F.silu(torch.bmm(x_e, w_gate)) * torch.bmm(x_e, w_up)      # [E, C, I]
     y_e = torch.bmm(h, w_down)                                     # [E, C, D]
+    return torch.einsum("tec,ecd->td", combine.to(x.dtype), y_e)
+
+
+def gptoss_moe(
+    x: torch.Tensor,          # [T, D] flattened tokens
+    router_w: torch.Tensor,   # [D, E]
+    router_b: torch.Tensor,   # [E]
+    w_gate_up: torch.Tensor,  # [E, D, 2I] (gate/up interleaved on the last dim)
+    b_gate_up: torch.Tensor,  # [E, 2I]
+    w_down: torch.Tensor,     # [E, I, D]
+    b_down: torch.Tensor,     # [E, D]
+    top_k: int,
+    capacity: int,
+    valid: Optional[torch.Tensor] = None,  # [T] 1.0 = real token, 0.0 = pad
+    alpha: float = 1.702,
+    limit: float = 7.0,
+) -> torch.Tensor:
+    """GPT-OSS routed experts (the reference's ``gptoss_moe``): the router's
+    bias takes part in both selection and the combine weights, softmaxed
+    over the selected top-k only; each expert is a clamped sigmoid GLU
+    (gate <= limit, up in [-limit, limit], ``(up + 1) * gate *
+    sigmoid(alpha * gate)``) over one fused projection whose gate and up
+    columns interleave, and every projection has its bias. Dispatch,
+    capacity and drop order are ``moe_mlp``'s."""
+    e = router_w.shape[1]
+    logits = (x @ router_w).float() + router_b.float()             # [T, E]
+    gate_vals, gate_idx = torch.topk(logits, top_k, dim=-1, sorted=True)
+    gate_vals = torch.softmax(gate_vals, dim=-1)
+    dispatch, combine = _dispatch_combine(gate_vals, gate_idx, e, capacity, valid)
+    x_e = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)      # [E, C, D]
+    gu = torch.bmm(x_e, w_gate_up) + b_gate_up[:, None, :]         # [E, C, 2I]
+    gate = gu[..., 0::2].clamp(max=limit)
+    up = gu[..., 1::2].clamp(-limit, limit)
+    h = (up + 1.0) * (gate * torch.sigmoid(gate * alpha))
+    y_e = torch.bmm(h, w_down) + b_down[:, None, :]                 # [E, C, D]
     return torch.einsum("tec,ecd->td", combine.to(x.dtype), y_e)
 
 

@@ -2,8 +2,8 @@
 into the port's tensors.
 
 The port keeps the reference's parameter names and layouts
-(``models/llama.py``, ``models/deepseek.py``), so the bridge is a plain
-copy of every leaf, checked against the family's keys. The
+(``models/llama.py``, ``models/deepseek.py``, ``models/gptoss.py``), so the
+bridge is a plain copy of every leaf, checked against the family's keys. The
 caller hands in numpy arrays (e.g. ``jax.device_get(params)`` on the JAX
 side); this module never imports jax. bfloat16 leaves (numpy's
 ``ml_dtypes.bfloat16``) are reinterpreted bit for bit.

@@ -11,8 +11,10 @@ GPU has no such constraint).
 Dispatch is keyed on the tensors' device: CPU tensors take the plain
 version (``paged_attention``); CUDA tensors take the decode kernel when
 S == 1, the verify kernel when 1 < S <= 32 (the speculative verify tail,
-the reference's ``VERIFY_MAX_S``) and the flash kernel when S > 32. There
-is no fallback from a kernel to the plain route on a CUDA device.
+the reference's ``VERIFY_MAX_S``) and the flash kernel when S > 32, each
+with or without GPT-OSS's attention sinks; logit softcapping (Gemma-2) has
+no kernel form yet and raises on a card. There is no fallback from a kernel
+to the plain route on a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,6 +25,17 @@ import torch
 
 # "no window": a sentinel wider than any context (the reference's 2**30)
 NO_WINDOW = 1 << 30
+
+
+def kernel_sinks(sinks, heads: int, device):
+    """The sink logits as the kernels take them: f32 [H] contiguous on
+    ``device``, head order ``kvh * G + g`` (the reference's order,
+    ``pallas_decode.py:737-739``); None stays None."""
+    if sinks is None:
+        return None
+    if sinks.numel() != heads:
+        raise ValueError(f"sinks hold {sinks.numel()} logits for {heads} heads")
+    return sinks.reshape(heads).to(device=device, dtype=torch.float32).contiguous()
 
 
 def check_attention_impl(impl: str, device) -> None:
@@ -237,7 +250,7 @@ def attention(
     CPU tensors take the plain route. CUDA tensors take the decode kernel
     (S == 1), the verify kernel (1 < S <= 32) or the flash kernel
     (S > 32); each indexes layer ``layer_idx`` of the stacked cache in
-    place. The verify and flash kernels assume affine query positions
+    place, and takes ``sinks`` ([H] logits, head order ``kvh * G + g``). The verify and flash kernels assume affine query positions
     (``positions[:, s] == positions[:, 0] + s``), the scheduler's layout.
     The decode kernel assumes the query sits at ``context_lens - 1``."""
     if scale is None:
@@ -252,25 +265,24 @@ def attention(
             q, kf, vf, block_tables.long() + layer_idx * n_blocks, positions,
             context_lens, scale=scale, softcap=softcap,
             sliding_window=sliding_window, sinks=sinks)
-    if softcap or sinks is not None:
+    if softcap:
         raise NotImplementedError(
-            "softcap and sinks variants of the attention kernels are not "
-            "ported yet")
+            "the softcap variant of the attention kernels is not ported yet")
     window = NO_WINDOW if sliding_window is None else int(sliding_window)
     if q.shape[1] == 1:
         from .paged_decode import paged_decode_attention
 
         return paged_decode_attention(
             q, k_cache, v_cache, block_tables, context_lens,
-            layer_idx=layer_idx, scale=scale, window=window)
+            layer_idx=layer_idx, scale=scale, window=window, sinks=sinks)
     from .paged_verify import VERIFY_MAX_S, paged_verify_attention
 
     if q.shape[1] <= VERIFY_MAX_S:
         return paged_verify_attention(
             q, k_cache, v_cache, block_tables, positions[:, 0], context_lens,
-            layer_idx=layer_idx, scale=scale, window=window)
+            layer_idx=layer_idx, scale=scale, window=window, sinks=sinks)
     from .paged_flash import paged_flash_attention
 
     return paged_flash_attention(
         q, k_cache, v_cache, block_tables, positions[:, 0], context_lens,
-        layer_idx=layer_idx, scale=scale, window=window)
+        layer_idx=layer_idx, scale=scale, window=window, sinks=sinks)

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from . import _build, splitkv
-from .attention import NO_WINDOW, paged_attention
+from .attention import NO_WINDOW, kernel_sinks, paged_attention
 
 launches = 0
 
@@ -40,10 +40,12 @@ def paged_decode_attention_ref(
     layer_idx: int = 0,
     scale: Optional[float] = None,
     window: int = NO_WINDOW,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain version: the query of row b sits at ``context_lens[b] - 1``
-    and sees keys in ``[max(ctx - window, 0), ctx)``; a row with
-    ``ctx == 0`` outputs zeros, as the kernel does."""
+    and sees keys in ``[max(ctx - window, 0), ctx)``, with ``sinks`` [H] in
+    each head's softmax denominator; a row with ``ctx == 0`` outputs zeros,
+    as the kernel does."""
     l, n_blocks = k_cache.shape[:2]
     ctx = context_lens.long()
     out = paged_attention(
@@ -52,7 +54,7 @@ def paged_decode_attention_ref(
         v_cache.reshape((l * n_blocks,) + v_cache.shape[2:]),
         block_tables.long() + layer_idx * n_blocks,
         (ctx - 1)[:, None], ctx, scale=scale,
-        sliding_window=None if window >= NO_WINDOW else window,
+        sliding_window=None if window >= NO_WINDOW else window, sinks=sinks,
     )
     return out * (ctx > 0).to(out.dtype)[:, None, None, None]
 
@@ -62,8 +64,8 @@ def _lib():
     fn = lib.paged_decode_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                       i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -104,6 +106,7 @@ def paged_decode_attention(
     layer_idx: int = 0,
     scale: Optional[float] = None,
     window: int = NO_WINDOW,     # sliding window; NO_WINDOW = off
+    sinks: Optional[torch.Tensor] = None,  # [H] sink logits; None = off
 ) -> torch.Tensor:
     """Single-token paged attention over layer ``layer_idx`` of the stacked
     cache; returns [B, 1, H, D]."""
@@ -112,7 +115,7 @@ def paged_decode_attention(
     if q.device.type != "cuda":
         return paged_decode_attention_ref(
             q, k_cache, v_cache, block_tables, context_lens, layer_idx,
-            scale, window)
+            scale, window, sinks)
     global launches
     _check_cuda_inputs(q, k_cache, v_cache, block_tables, context_lens)
     b, _, h, d = q.shape
@@ -121,14 +124,16 @@ def paged_decode_attention(
         raise ValueError(f"layer_idx {layer_idx} outside [0, {l})")
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    sk = kernel_sinks(sinks, h, q.device)
     out = torch.empty_like(q)
     chunk, splits = splitkv.plan(bt.shape[1] * bs)
     ws = splitkv.workspace(q.device, b, kvh, splits, h // kvh, d)
     cnt = splitkv.counters(q.device, b * kvh)
     rc = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
-        ctx.data_ptr(), out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, h,
-        kvh, d, n, bs, bt.shape[1], int(layer_idx),
+        ctx.data_ptr(), None if sk is None else sk.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), cnt.data_ptr(), b, h, kvh, d, n, bs, bt.shape[1],
+        int(layer_idx),
         int(min(window, NO_WINDOW)), chunk, splits, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import NO_WINDOW, paged_attention
+from .attention import NO_WINDOW, kernel_sinks, paged_attention
 
 launches = 0
 
@@ -42,8 +42,10 @@ def paged_flash_attention_ref(
     layer_idx: int = 0,
     scale: Optional[float] = None,
     window: int = NO_WINDOW,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The plain version under the kernel's affine-position contract."""
+    """The plain version under the kernel's affine-position contract, with
+    ``sinks`` [H] in each head's softmax denominator."""
     l, n_blocks = k_cache.shape[:2]
     s = q.shape[1]
     positions = base_pos.long()[:, None] + torch.arange(s, device=q.device)[None, :]
@@ -53,7 +55,7 @@ def paged_flash_attention_ref(
         v_cache.reshape((l * n_blocks,) + v_cache.shape[2:]),
         block_tables.long() + layer_idx * n_blocks,
         positions, context_lens, scale=scale,
-        sliding_window=None if window >= NO_WINDOW else window,
+        sliding_window=None if window >= NO_WINDOW else window, sinks=sinks,
     )
 
 
@@ -62,8 +64,8 @@ def _lib():
     fn = lib.paged_flash_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                       i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -103,6 +105,7 @@ def paged_flash_attention(
     layer_idx: int = 0,
     scale: Optional[float] = None,
     window: int = NO_WINDOW,     # sliding window; NO_WINDOW = off
+    sinks: Optional[torch.Tensor] = None,  # [H] sink logits; None = off
 ) -> torch.Tensor:
     """Causal attention of an S-token chunk over layer ``layer_idx`` of the
     stacked cache; returns [B, S, H, D]."""
@@ -111,7 +114,7 @@ def paged_flash_attention(
     if q.device.type != "cuda":
         return paged_flash_attention_ref(
             q, k_cache, v_cache, block_tables, base_pos, context_lens,
-            layer_idx, scale, window)
+            layer_idx, scale, window, sinks)
     global launches
     _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
                        context_lens)
@@ -122,10 +125,12 @@ def paged_flash_attention(
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     base = base_pos.to(device=q.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    sk = kernel_sinks(sinks, h, q.device)
     out = torch.empty_like(q)
     rc = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
-        base.data_ptr(), ctx.data_ptr(), out.data_ptr(), b, s, h, kvh, d, n,
+        base.data_ptr(), ctx.data_ptr(), None if sk is None else sk.data_ptr(),
+        out.data_ptr(), b, s, h, kvh, d, n,
         bs, bt.shape[1], int(layer_idx), int(min(window, NO_WINDOW)),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -8,8 +8,9 @@ affine, as for the flash kernel: token s of row b sits at
 discards. The kernel (``csrc/paged_verify.cu`` on the split-KV core
 ``csrc/paged_splitkv.cuh``) is bound by bytes on an H100: the CTAs that
 split a row's keys stage each K/V tile once for all S * G query rows of
-the group; see the source for the design and ``splitkv.py`` for the
-launch plan.
+the group (a tail of more than 128 rows, S 17 at G 8, is cut into query
+parts of their own CTAs); see the source for the design and ``splitkv.py``
+for the launch plan.
 
 CPU tensors take ``paged_verify_attention_ref``; CUDA tensors launch the
 kernel or raise. ``launches`` counts kernel launches.
@@ -23,7 +24,7 @@ from typing import Optional
 import torch
 
 from . import _build, splitkv
-from .attention import NO_WINDOW, paged_attention
+from .attention import NO_WINDOW, kernel_sinks, paged_attention
 
 launches = 0
 
@@ -45,9 +46,11 @@ def paged_verify_attention_ref(
     layer_idx: int = 0,
     scale: Optional[float] = None,
     window: int = NO_WINDOW,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain version: query s of row b at ``base_pos[b] + s`` sees key
-    j iff j <= base + s, j < ctx and j > base + s - window."""
+    j iff j <= base + s, j < ctx and j > base + s - window; ``sinks`` [H]
+    join each head's softmax denominator."""
     l, n_blocks = k_cache.shape[:2]
     s = q.shape[1]
     positions = base_pos.long()[:, None] + torch.arange(s, device=q.device)[None, :]
@@ -57,7 +60,7 @@ def paged_verify_attention_ref(
         v_cache.reshape((l * n_blocks,) + v_cache.shape[2:]),
         block_tables.long() + layer_idx * n_blocks,
         positions, context_lens, scale=scale,
-        sliding_window=None if window >= NO_WINDOW else window,
+        sliding_window=None if window >= NO_WINDOW else window, sinks=sinks,
     )
 
 
@@ -66,8 +69,8 @@ def _lib():
     fn = lib.paged_verify_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                       i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -92,10 +95,10 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
     if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
         raise NotImplementedError(
             f"verify kernel: head_dim {d} is not one of {_HEAD_DIMS}")
-    if h % kvh or s * (h // kvh) > splitkv.MAX_ROWS:
+    if h % kvh or h // kvh > splitkv.MAX_ROWS:
         raise NotImplementedError(
-            f"verify kernel: S={s} times group size {h}/{kvh} exceeds "
-            f"{splitkv.MAX_ROWS} rows per CTA")
+            f"verify kernel: {h} heads over {kvh} KV heads (a group of at "
+            f"most {splitkv.MAX_ROWS})")
     if (block_tables.shape[0] != b or base_pos.shape != (b,)
             or context_lens.shape != (b,)):
         raise ValueError("block_tables / base_pos / context_lens do not match the batch")
@@ -111,6 +114,7 @@ def paged_verify_attention(
     layer_idx: int = 0,
     scale: Optional[float] = None,
     window: int = NO_WINDOW,     # sliding window; NO_WINDOW = off
+    sinks: Optional[torch.Tensor] = None,  # [H] sink logits; None = off
 ) -> torch.Tensor:
     """Causal attention of an S-token verify tail over layer ``layer_idx``
     of the stacked cache; returns [B, S, H, D]."""
@@ -119,7 +123,7 @@ def paged_verify_attention(
     if q.device.type != "cuda":
         return paged_verify_attention_ref(
             q, k_cache, v_cache, block_tables, base_pos, context_lens,
-            layer_idx, scale, window)
+            layer_idx, scale, window, sinks)
     global launches
     _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
                        context_lens)
@@ -130,14 +134,17 @@ def paged_verify_attention(
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     base = base_pos.to(device=q.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    sk = kernel_sinks(sinks, h, q.device)
     out = torch.empty_like(q)
     chunk, splits = splitkv.plan(bt.shape[1] * bs)
-    ws = splitkv.workspace(q.device, b, kvh, splits, s * (h // kvh), d)
-    cnt = splitkv.counters(q.device, b * kvh)
+    sq, parts = splitkv.query_parts(s, h // kvh)
+    ws = splitkv.workspace(q.device, b, parts * kvh, splits, sq * (h // kvh), d)
+    cnt = splitkv.counters(q.device, b * parts * kvh)
     rc = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
-        base.data_ptr(), ctx.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        cnt.data_ptr(), b, s, h, kvh, d, n, bs, bt.shape[1], int(layer_idx),
+        base.data_ptr(), ctx.data_ptr(), None if sk is None else sk.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, s, sq, h, kvh, d, n,
+        bs, bt.shape[1], int(layer_idx),
         int(min(window, NO_WINDOW)), chunk, splits, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -1,8 +1,12 @@
 """The launch plan of the split-KV core (``csrc/paged_splitkv.cuh``) that
 the decode and verify kernels share.
 
-The grid of both kernels is (split, KV head, batch row). The number of
-splits comes from the block table's width only, never from
+The grid of both kernels is (split, query part x KV head, batch row). A
+CTA holds ``Sq`` query positions of its row, at most ``MAX_ROWS`` rows of
+(position, group head) pairs; a verify tail with more rows (S 17 at G 8:
+136) is cut into parts of ``Sq`` positions (``query_parts``), each a CTA
+over the same keys. The number of splits comes from the block table's
+width only, never from
 ``context_lens`` or ``base_pos``: reading those on the host would be a
 sync, and a grid fixed by shapes is what a CUDA-graph capture needs. Each
 split is a chunk of at least ``MIN_CHUNK`` keys (a multiple of the kernel's
@@ -11,8 +15,8 @@ split is a chunk of at least ``MIN_CHUNK`` keys (a multiple of the kernel's
 
 When a row's keys span several splits, each writes f32 partials to a
 workspace the wrapper allocates per call, and the last split to finish
-merges them; it finds out it is last from a counter per (batch row, KV
-head) in a buffer kept here per device, zeroed once when allocated and
+merges them; it finds out it is last from a counter per (batch row, query
+part, KV head) in a buffer kept here per device, zeroed once when allocated and
 set back to 0 by every merge. Launches on one device run on one stream at
 a time (the engine's), so the kernels share that buffer.
 """
@@ -27,7 +31,7 @@ import torch
 TILE_KEYS = 64    # the kernel's K/V tile
 MIN_CHUNK = 256   # keys a split covers at least
 MAX_SPLITS = 32
-MAX_ROWS = 128    # (query position, group head) rows a CTA holds: S * G
+MAX_ROWS = 128    # (query position, group head) rows a CTA holds: Sq * G
 
 _counters: Dict[torch.device, torch.Tensor] = {}
 
@@ -41,6 +45,15 @@ def plan(table_keys: int) -> Tuple[int, int]:
     return chunk, -(-max(table_keys, 1) // chunk)
 
 
+def query_parts(s: int, g: int) -> Tuple[int, int]:
+    """(Sq, parts) for S queries of G group heads: the fewest parts of at
+    most ``MAX_ROWS`` rows each, their sizes balanced (S 17 at G 8: parts of
+    9 and 8 positions). The caller checks ``g <= MAX_ROWS``."""
+    parts = -(-s // max(1, min(s, MAX_ROWS // g)))
+    sq = -(-s // parts)
+    return sq, -(-s // sq)
+
+
 def counters(device: torch.device, n: int) -> torch.Tensor:
     """The device's split counters, at least ``n`` of them, all zero
     between launches. A larger buffer replaces a smaller one (zeroed on
@@ -52,11 +65,12 @@ def counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def workspace(device: torch.device, batch: int, kv_heads: int, splits: int,
+def workspace(device: torch.device, batch: int, ctas: int, splits: int,
               rows: int, head_dim: int) -> torch.Tensor:
-    """f32 partials of every (batch row, KV head, split, query row): acc
-    [.., D], then (m, l) pairs; empty when a call has one split."""
+    """f32 partials of every (batch row, query part x KV head = ``ctas``,
+    split, query row): acc [.., D], then (m, l) pairs; empty when a call has
+    one split."""
     if splits == 1:
         return torch.empty(0, dtype=torch.float32, device=device)
-    return torch.empty(batch * kv_heads * splits * rows * (head_dim + 2),
+    return torch.empty(batch * ctas * splits * rows * (head_dim + 2),
                        dtype=torch.float32, device=device)

@@ -122,6 +122,23 @@ def test_verify_guard_accepts_instantiated_head_dims(d):
     paged_verify._check_cuda_inputs(q[:, :5].contiguous(), k, v, bt, base, ctx)
 
 
+@pytest.mark.parametrize("s", [17, 32])
+def test_verify_guard_takes_tails_past_the_rows_of_a_cta(s):
+    """S 17 and 32 at G 8 (136 and 256 rows) are served in query parts."""
+    q, k, v, bt, base, ctx = _flash_inputs(64, h=16)
+    paged_verify._check_cuda_inputs(q[:, :s].contiguous(), k, v, bt, base, ctx)
+
+
+@pytest.mark.parametrize("s,g,sq,parts", [
+    (1, 8, 1, 1), (5, 8, 5, 1), (16, 8, 16, 1),
+    (17, 8, 9, 2),     # gpt-oss-20b's ngram verify at K 16: 136 rows
+    (32, 8, 16, 2), (32, 4, 32, 1), (5, 64, 2, 3), (2, 128, 1, 2),
+])
+def test_splitkv_query_parts(s, g, sq, parts):
+    assert splitkv.query_parts(s, g) == (sq, parts)
+    assert sq * g <= splitkv.MAX_ROWS and sq * parts >= s > sq * (parts - 1)
+
+
 def test_guards_refuse_head_dim_96_by_name():
     q, k, v, bt, base, ctx = _flash_inputs(96)
     with pytest.raises(NotImplementedError, match="head_dim 96"):
@@ -211,6 +228,7 @@ def test_mla_counters_and_workspace_grow_zeroed():
     (102400, 12800, 28672 + 76800),     # DeepSeek-V2-Lite
     (128256, 16032, 28672 + 96192),     # Llama-3.2-1B: 64 KB of f32 a CTA
     (151936, 18992, 28672 + 113952),    # Qwen2
+    (201088, 25136, 28672 + 150816),    # gpt-oss-20b
     (256000, 32000, 28672 + 192000),    # Gemma
 ])
 def test_epilogue_cluster_plan(vocab, slice_len, smem):

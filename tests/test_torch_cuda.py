@@ -467,7 +467,7 @@ def test_mla_decode_kernel_split_and_tile_edges(h, ctx):
 
 
 # 50,257 (GPT-2's) is not a multiple of 8: the kernel reads it an entry at a time
-EPILOGUE_WIDTHS = [1000, 32000, 50257, 102400, 128256, 151936, 256000]
+EPILOGUE_WIDTHS = [1000, 32000, 50257, 102400, 128256, 151936, 201088, 256000]
 
 
 def _cluster_epilogue_inputs(g, b, v):
@@ -678,3 +678,102 @@ def test_epilogue_topk_candidate_bound_edges(v):
     torch.testing.assert_close(lps, lps_r, atol=1e-4, rtol=1e-4)
     assert int(tok[3]) in ties.tolist() and int(tok[4]) in ties.tolist()
     assert int(tok[10]) in allowed
+
+
+# GPT-OSS's attention sinks: 16 heads over 2 KV heads (G 8, gpt-oss-20b's
+# group), sinks ~ N(0, 4^2) so some lie above every score (scores ~ N(0, 1))
+def _sinks(g, h=16):
+    return torch.randn(h, generator=g, device="cuda") * 4.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [paged_decode.NO_WINDOW, 128])
+def test_decode_kernel_sinks_at_split_edges(window):
+    """The sink form at the splits' edges (one exit per split count: a
+    single live split stores, several merge), a ctx-0 row of zeros; two
+    calls bit-identical."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    k, v = _cache(g, blocks=400)
+    n = len(SPLIT_EDGE_CTX)
+    bt = torch.randperm(400, generator=g, device="cuda")[: n * 48].reshape(n, 48).int()
+    ctx = torch.tensor(SPLIT_EDGE_CTX, dtype=torch.int32, device="cuda")
+    q = torch.randn(n, 1, 16, 64, generator=g, device="cuda").bfloat16()
+    sinks = _sinks(g)
+    out = paged_decode.paged_decode_attention(q, k, v, bt, ctx, layer_idx=2,
+                                              window=window, sinks=sinks)
+    again = paged_decode.paged_decode_attention(q, k, v, bt, ctx, layer_idx=2,
+                                                window=window, sinks=sinks)
+    ref = paged_decode.paged_decode_attention_ref(
+        q.float(), k.float(), v.float(), bt, ctx, 2, None, window, sinks)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert not out[0].any()  # ctx 0: zeros
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [5, 17, 32])  # G 8: 40, 136 and 256 rows
+@pytest.mark.parametrize("window", [paged_verify.NO_WINDOW, 128])
+@pytest.mark.parametrize("with_sinks", [False, True])
+def test_verify_kernel_query_parts_and_sinks(s, window, with_sinks):
+    """At G 8, S 17 and 32 need more than the 128 rows of a CTA: the tail is
+    cut into two query parts over the same keys. Split edges, a pad row;
+    two calls bit-identical; with and without sinks."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    k, v = _cache(g, blocks=400)
+    rows = [(255 - s, 255), (256 - s, 256), (257 - s, 257), (500, 500 + s),
+            (700, 700 + s - 1), None]
+    n = len(rows)
+    bt = torch.randperm(400, generator=g, device="cuda")[: n * 48].reshape(n, 48).int()
+    bt[-1] = 0
+    rows = [r or (0, 1) for r in rows]
+    q = torch.randn(n, s, 16, 64, generator=g, device="cuda").bfloat16()
+    b = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
+    c = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
+    sinks = _sinks(g) if with_sinks else None
+    out = paged_verify.paged_verify_attention(q, k, v, bt, b, c, layer_idx=1,
+                                              window=window, sinks=sinks)
+    again = paged_verify.paged_verify_attention(q, k, v, bt, b, c, layer_idx=1,
+                                                window=window, sinks=sinks)
+    ref = paged_verify.paged_verify_attention_ref(
+        q.float(), k.float(), v.float(), bt, b, c, 1, None, window, sinks)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert out.float().isfinite().all()
+    for i, (base, ctx) in enumerate(rows):
+        valid = min(s, ctx - base)
+        torch.testing.assert_close(out[i, :valid].float(), ref[i, :valid],
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [paged_flash.NO_WINDOW, 20])
+def test_flash_kernel_sinks(window):
+    """The sink form over a batched prefill step (from 0, a prefix hit, a
+    padded tail, a pad row) at G 8."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    k, v = _cache(g)
+    rows = [(0, 40), (20, 84), (48, 60), None]
+    n, s = len(rows), 64
+    bt = torch.randperm(40, generator=g, device="cuda")[: n * 6].reshape(n, 6).int()
+    bt[-1] = 0
+    rows = [r or (0, 1) for r in rows]
+    q = torch.randn(n, s, 16, 64, generator=g, device="cuda").bfloat16()
+    b = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
+    c = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
+    sinks = _sinks(g)
+    before = paged_flash.launches
+    out = paged_flash.paged_flash_attention(q, k, v, bt, b, c, layer_idx=1,
+                                            window=window, sinks=sinks)
+    ref = paged_flash.paged_flash_attention_ref(
+        q.float(), k.float(), v.float(), bt, b, c, 1, None, window, sinks)
+    torch.cuda.synchronize()
+    assert paged_flash.launches == before + 1
+    assert out.float().isfinite().all()
+    for i, (base, ctx) in enumerate(rows):
+        valid = min(s, ctx - base)
+        torch.testing.assert_close(out[i, :valid].float(), ref[i, :valid],
+                                   atol=ATOL, rtol=RTOL)
