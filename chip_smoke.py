@@ -8,7 +8,8 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
 
 1. ``device``  — the card's name and ``nvidia-smi`` name / power limit.
 2. ``build``   — builds the six kernel sources of
-   ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
+   ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), with
+   ptxas's registers and spills of every instantiation.
 3. ``kernels`` — holds each kernel against its plain PyTorch version at the
    Llama-3.2-1B shapes (H=32, KVH=8, D=64, bs=16, bf16, a 16-layer stacked
    cache, layer_idx != 0): decode, also at its splits' edges (ctx 0, one
@@ -35,7 +36,17 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    query parts) with a pad row, flash at the engine's batched prefill
    steps), each timed beside its no-sink form and an SDPA call with one
    zero key whose mask is the sink, and the epilogue's forms at
-   gpt-oss-20b's vocabulary of 201,088. Flash
+   gpt-oss-20b's vocabulary of 201,088; and the softcap form of decode,
+   verify and flash at gemma-2-9b's attention (head_dim 256, H 16, KVH 8,
+   scale 256^-0.5, cap 50, the 4,096-token window and none, 8,192-key
+   tables at contexts 1 to 8,192; decode, verify at S 5 and 32 with a pad
+   row, flash at the engine's batched chunk and at the 5,000-token
+   prompt's long step), again at a cap of 5 over queries scaled by 4
+   (where the cap binds; the share of scores beyond cap / 2 is printed),
+   and at gemma-2-27b's head_dim 128 (H 32, KVH 16, scale 144^-0.5), each
+   timed beside its no-softcap form (no PyTorch call computes a softcapped
+   softmax: SDPA without the cap stands beside it as such), and the
+   epilogue at gemma-2-9b's 256,000. Flash
    and the prefix partials (one tensor-core core) are also held at head_dim
    128 (H 32, KVH 8), and flash also at the dense ladder's long step of
    ``engine_sp`` (S 512 at position 11,776, ctx 12,000: the query tiles
@@ -91,7 +102,22 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    chained dispatches under the sync guard), and the spec prompts without
    and with ngram speculation (verify launches; equal or parted at a
    near-tie, routing pinned).
-9. ``engine_sp`` — sequence-parallel long-context prefill on Llama-3.2-1B
+9. ``engine_gemma2`` — gemma-2-9b at full width and depth (42 layers,
+   9.24 B parameters: head_dim 256, attention logits capped at 50 and
+   final logits at 30, 4,096-token windows on the even layers, sandwich
+   norms, GeGLU, a tied 256,000 vocabulary), built by
+   ``ModelConfig.from_hf_config`` from its published ``config.json``
+   values with seeded random bf16 weights and non-zero norms, at its
+   8,192 positions: wave 1 with a 5,000-token prompt past the window and
+   the prefix-hit wave (streams, twins, the decode, flash and epilogue
+   launch counts, peak memory), a profiled decode step, 2-layer logits
+   against the CPU in f32 (a batched prefill step, a decode step, and the
+   5,000-token prompt's last position, which must also move with the
+   window off), wave 1 again on a 4-step-burst and a chained engine over
+   the same weight tensors (identical streams, the chained dispatches
+   under the sync guard), and the spec prompts without and with ngram
+   speculation (verify launches; equal or parted at a near-tie).
+10. ``engine_sp`` — sequence-parallel long-context prefill on Llama-3.2-1B
    (16k context, ``sp_size`` 4, the ranks laid out on the one card): a
    12,000- and a 6,000-token prompt on the SP ladder beside two short
    prompts on the dense ladder, then a prefix-hit request, on a
@@ -107,7 +133,8 @@ non-zero exit. The last line is the machine-readable result
 numbers (the epilogue twice a vocabulary: its plain form with the main
 path's launches, its ``finish`` + ``extra_bias`` form with the chained
 engine's; the sink forms and the epilogue at V 201,088 with the gpt-oss
-paths' launches); the line before that the card's name and power limit.
+paths' launches, the softcap forms and the epilogue at V 256,000 with the
+gemma-2 paths'); the line before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -179,6 +206,24 @@ GPT_OSS_20B = {
     "tie_word_embeddings": False, "hidden_act": "silu",
     "eos_token_id": 200002, "pad_token_id": 199999,
 }
+# gemma-2-9b (its published config.json; the family reads the embedding
+# as its head whatever the tie flag): 42 layers alternating a 4,096-token
+# sliding window (even layers) and full attention, 16 query heads over 8 KV
+# heads of dim 256 scaled by query_pre_attn_scalar 256, attention logits
+# capped at 50 and final logits at 30, sandwich norms, GeGLU, tied 256,000
+# vocabulary: 9,241,705,984 parameters, 18.48 GB in bf16
+GEMMA_2_9B = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "vocab_size": 256000, "hidden_size": 3584, "intermediate_size": 14336,
+    "num_hidden_layers": 42, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "head_dim": 256,
+    "max_position_embeddings": 8192, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "sliding_window": 4096, "sliding_window_size": 4096,
+    "query_pre_attn_scalar": 256, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "attention_bias": False,
+    "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+}
 ENGINE = dict(max_batch_size=8, max_model_len=2048, kv_block_size=16,
               num_kv_blocks=1024, dtype="bfloat16",
               # small enough to chunk every long prompt over several steps
@@ -203,6 +248,37 @@ ATOL, RTOL = 1e-2, 1e-2
 # weights: relative L2 error of the logits. bf16 activations through 16
 # layers stay near 1e-2; a wrong attention result anywhere gives O(1)
 LOGITS_REL_L2 = 5e-2
+
+
+def _ptxas_summary(log: str):
+    """nvcc's ``-Xptxas=-v`` report as one line per kernel instantiation:
+    ``name<template arguments>: registers, spill stores, spill loads``
+    (a bool argument as 0 / 1: the split-KV and flash kernels' last one is
+    the softcap)."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"([A-Za-z_]+_kernel)", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)  # ints and bools
+            ty = re.search(r"I(f|13__nv_bfloat16)L", mangled)
+            if ty:
+                args = [ty.group(1).replace("13__nv_", "")] + args
+            name = (base.group(1) if base else mangled) + (
+                f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -298,16 +374,17 @@ LONG_DENSE_STEP, LONG_DENSE_PAGES = (11776, 12000), 750
 
 
 def _flash_check(torch, pf, name, k, v, k32, v32, layer, qf, btp, basep, ctxp,
-                 rows, window=1 << 30, sinks=None):
+                 rows, window=1 << 30, sinks=None, scale=None, softcap=0.0):
     """One flash call against the f32 plain version: every row finite, the
     rows below ctx within ATOL / RTOL, and every query tile that starts at
     or past its row's ctx exactly zero (the kernel skips it). Returns the
     max error."""
     B, S, H, _ = qf.shape
     out = pf.paged_flash_attention(qf, k, v, btp, basep, ctxp, layer_idx=layer,
-                                   window=window, sinks=sinks)
+                                   window=window, sinks=sinks, scale=scale,
+                                   softcap=softcap)
     ref = pf.paged_flash_attention_ref(qf.float(), k32, v32, btp, basep, ctxp,
-                                       layer, None, window, sinks)
+                                       layer, scale, window, sinks, softcap)
     torch.cuda.synchronize()
     if not bool(out.float().isfinite().all()):
         raise AssertionError(f"flash {name}: non-finite output (pad rows too)")
@@ -478,12 +555,16 @@ def kernel_phase(torch, dev):
     _epilogue_finish_cases(torch, dev, V2_LITE["vocab_size"])
     entries["mla_decode"] = _mla_cases(torch, dev)
     entries.update(_sink_cases(torch, dev))
-    # kernel 3 at gpt-oss-20b's vocabulary of 201,088
-    gv = GPT_OSS_20B["vocab_size"]
-    for key, fn in (("sampling_epilogue_gptoss", _epilogue_cases),
-                    ("sampling_epilogue_finish_gptoss", _epilogue_finish_cases)):
-        entry = fn(torch, dev, gv)
-        entries[key] = dict(entry, name=f"{entry['name']}[V={gv}]")
+    entries.update(_softcap_cases(torch, dev))
+    # kernel 3 at gpt-oss-20b's vocabulary of 201,088 and gemma-2-9b's of
+    # 256,000
+    for fam, model in (("gptoss", GPT_OSS_20B), ("gemma2", GEMMA_2_9B)):
+        gv = model["vocab_size"]
+        for key, fn in ((f"sampling_epilogue_{fam}", _epilogue_cases),
+                        (f"sampling_epilogue_finish_{fam}",
+                         _epilogue_finish_cases)):
+            entry = fn(torch, dev, gv)
+            entries[key] = dict(entry, name=f"{entry['name']}[V={gv}]")
     return entries
 
 
@@ -528,17 +609,17 @@ def _split_ctas(ctx_l, table_keys, kvh, window=1 << 30, S=1, base_l=None):
 
 
 def _decode_check(torch, pd, name, q, k, v, k32, v32, bt, ctx, layer,
-                  window=None, sinks=None):
+                  window=None, sinks=None, scale=None, softcap=0.0):
     """One decode call against the f32 plain version at ATOL / RTOL, and a
     second call on the same inputs bit-identical to the first. Returns the
     max error."""
     window = pd.NO_WINDOW if window is None else window
-    out = pd.paged_decode_attention(q, k, v, bt, ctx, layer_idx=layer,
-                                    window=window, sinks=sinks)
-    again = pd.paged_decode_attention(q, k, v, bt, ctx, layer_idx=layer,
-                                      window=window, sinks=sinks)
+    kw = dict(layer_idx=layer, window=window, sinks=sinks, scale=scale,
+              softcap=softcap)
+    out = pd.paged_decode_attention(q, k, v, bt, ctx, **kw)
+    again = pd.paged_decode_attention(q, k, v, bt, ctx, **kw)
     ref = pd.paged_decode_attention_ref(q.float(), k32, v32, bt, ctx, layer,
-                                        None, window, sinks)
+                                        scale, window, sinks, softcap)
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"decode {name}: two calls on the same inputs "
@@ -676,17 +757,17 @@ def _decode_cases(torch, dev, k, v, k32, v32, bt, ctx_l, q, layer):
 
 
 def _verify_check(torch, pv, name, q, k, v, k32, v32, bt, base, ctx, layer,
-                  window=None, sinks=None):
+                  window=None, sinks=None, scale=None, softcap=0.0):
     """One verify call against the f32 plain version: every row finite, the
     valid rows (base + s < ctx) within ATOL / RTOL, and a second call on the
     same inputs bit-identical to the first. Returns the max error."""
     window = pv.NO_WINDOW if window is None else window
-    out = pv.paged_verify_attention(q, k, v, bt, base, ctx, layer_idx=layer,
-                                    window=window, sinks=sinks)
-    again = pv.paged_verify_attention(q, k, v, bt, base, ctx, layer_idx=layer,
-                                      window=window, sinks=sinks)
+    kw = dict(layer_idx=layer, window=window, sinks=sinks, scale=scale,
+              softcap=softcap)
+    out = pv.paged_verify_attention(q, k, v, bt, base, ctx, **kw)
+    again = pv.paged_verify_attention(q, k, v, bt, base, ctx, **kw)
     ref = pv.paged_verify_attention_ref(q.float(), k32, v32, bt, base, ctx,
-                                        layer, None, window, sinks)
+                                        layer, scale, window, sinks, softcap)
     torch.cuda.synchronize()
     if not bool(out.float().isfinite().all()):
         raise AssertionError(f"verify {name}: non-finite output")
@@ -996,15 +1077,19 @@ def _sdpa_sink(torch, q, k, v, layer, bt, base, ctx, sinks, window, ref,
 
 def _attn_bound(D, H, KVH, q, base_l, ctx_l, S, window):
     """The card's bound for one attention call: 4 D H FLOPs a visible
-    (query, key) pair; q and the output once, each key and value a row's
-    queries see once, the sinks."""
-    flops, kv_bytes = 0.0, 0
+    (query, key) pair; the live query rows (those below ctx: the kernels
+    skip the rest and the caller discards them) and their outputs once,
+    each key and value a row's queries see once, the sinks."""
+    flops, kv_bytes, live = 0.0, 0, 0
     for b, c in zip(base_l, ctx_l):
-        vis = _visible(b + np.arange(S), c, window)
+        qpos = b + np.arange(S)
+        vis = _visible(qpos, c, window) * (qpos < c)
         flops += 4.0 * D * H * vis.sum()
+        live += int((qpos < c).sum())
         lo, hi = max(0, b - window + 1), min(c - 1, b + S - 1)
         kv_bytes += max(hi - lo + 1, 0) * KVH * D * 2 * 2
-    return _bound_ms(flops, 2 * q.numel() * 2 + kv_bytes + H * 4)
+    return _bound_ms(flops, 2 * live * H * D * q.element_size() + kv_bytes
+                     + H * 4)
 
 
 def _sink_cases(torch, dev):
@@ -1189,6 +1274,307 @@ def _sink_cases(torch, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
+
+
+# Gemma-2's softcap forms of kernels 1, 4 and 2 at gemma-2-9b's attention:
+# 16 query heads over 8 KV heads of dim 256 (G 2), scale 256^-0.5, its
+# attention cap of 50 and the 4,096-token window of its even layers, over
+# 8,192-token tables (its max_position_embeddings) at contexts on both
+# sides of the window; then a cap of 5 over queries scaled by 4 (scores
+# ~N(0, 4^2): the cap binds, where at 50 over scores ~N(0, 1) it is nearly
+# the identity); and the head_dim 128 form at gemma-2-27b's attention (32
+# heads over 16, scale 144^-0.5). The flash long step is the 5,000-token
+# prompt's last chunk of the engine phase (S 512 at base 4,608, 392 rows
+# below ctx).
+SOFTCAP_H, SOFTCAP_KVH, SOFTCAP_D, SOFTCAP_CAP, SOFTCAP_WINDOW = 16, 8, 256, 50.0, 4096
+SOFTCAP_SCALE = 256 ** -0.5
+SOFTCAP_BINDING, SOFTCAP_BINDING_Q = 5.0, 4.0
+SOFTCAP_CTX = [1, 15, 16, 17, 513, 4096, 4097, 5000, 8192]
+SOFTCAP_PAGES = 512
+SOFTCAP_LONG_STEP = (4608, 5000)
+SOFTCAP_27B = dict(H=32, KVH=16, D=128, scale=144 ** -0.5)
+
+
+def _beyond_half_cap(torch, q, k32, layer, bt, base, ctx, window, scale, cap):
+    """The share of visible (query, head, key) scores, scaled, whose
+    magnitude exceeds cap / 2 (where tanh is far from the identity)."""
+    B, S, H, D = q.shape
+    KVH = k32.shape[3]
+    T = int(max(ctx.tolist()))
+    n_beyond, n_vis = 0, 0
+    for b in range(B):  # a row at a time: the score tensor stays small
+        kd = k32[layer][bt[b].long()].reshape(-1, KVH, D)[:T]
+        sc = torch.einsum("skgd,tkd->skgt",
+                          q[b].float().reshape(S, KVH, -1, D), kd) * scale
+        vis = _visible_mask(torch, base[b:b + 1], ctx[b:b + 1], S, T,
+                            window)[0][:, None, None, :]
+        n_beyond += int(((sc.abs() > cap / 2) & vis).sum())
+        n_vis += int(vis.sum()) * H
+    return n_beyond / max(n_vis, 1)
+
+
+def _sdpa_no_softcap(torch, q, k, v, layer, bt, base, ctx, window, scale):
+    """SDPA over each row's K/V pre-gathered to dense [B, H, T, D] with the
+    causal and window mask, no cap: the no-softcap form's yardstick (device
+    ms by graph replay). No PyTorch call computes a softcapped softmax."""
+    F = torch.nn.functional
+    B, S, H, D = q.shape
+    KVH = k.shape[3]
+    T = int(max(ctx.tolist()))
+
+    def dense(c):
+        x = c[layer][bt.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+        return x.repeat_interleave(H // KVH, dim=1).contiguous()
+
+    kd, vd = dense(k), dense(v)
+    mask = _visible_mask(torch, base, ctx, S, T, window)[:, None]
+    qd = q.transpose(1, 2).contiguous()
+    ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=scale))
+    del kd, vd
+    return ms
+
+
+def _softcap_cases(torch, dev):
+    """Kernels 1, 4 and 2 in their softcap form at head_dim 256
+    (gemma-2-9b's attention) and 128 (gemma-2-27b's), each call held
+    against its f32 plain version at ATOL / RTOL (decode and verify twice,
+    bit-identical), with no window and with the 4,096-token window, at the
+    cap of 50 and at a binding cap of 5:
+
+    - decode at ``SOFTCAP_CTX`` (1 to 8,192 keys over 8,192-key tables);
+    - verify at S 5 and 32 (10 and 64 rows a CTA) over the same rows and a
+      pad row (base 0, ctx 1, table 0);
+    - flash at the engine's batched chunk (4 rows at S 128, a pad row) and
+      at the long step of the engine phase's 5,000-token prompt.
+
+    Each timed call gives the softcap form's ``graph_ms`` beside the
+    no-softcap form at the same shape (and the windowed form), the plain
+    version's time, the bound and the no-softcap SDPA yardstick. Returns the
+    kernels-line entries."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_flash as pf
+    from dynamo_tpu_torch.ops import paged_verify as pv
+
+    H, KVH, D, scale = SOFTCAP_H, SOFTCAP_KVH, SOFTCAP_D, SOFTCAP_SCALE
+    cap, cap5, win, NW = SOFTCAP_CAP, SOFTCAP_BINDING, SOFTCAP_WINDOW, pd.NO_WINDOW
+    L, BS, layer, W = 4, 16, 3, SOFTCAP_PAGES
+    B = len(SOFTCAP_CTX)
+    N = B * W + 8
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    k = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    k32, v32 = k.float(), v.float()
+    bt = torch.randperm(N, generator=g, device=dev)[:B * W].reshape(B, W).int()
+    ctx_l = list(SOFTCAP_CTX)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    out, shares = {}, {}
+    forms = ((f"cap{cap:g}", cap, 1.0), (f"cap{cap5:g}", cap5, SOFTCAP_BINDING_Q))
+
+    def timed(fn, fn_nocap, fn_window, fn_plain):
+        return dict(ms=graph_ms(fn), no_softcap_ms=graph_ms(fn_nocap),
+                    window4096_ms=graph_ms(fn_window),
+                    plain_ms=cuda_ms(fn_plain, iters=5, warmup=1))
+
+    def entry(kernel, src, replaces, errs, t, bound, by, lib_ms):
+        return dict(name=f"{kernel}[softcap,D{D}]", route="cuda", source=src,
+                    replaces=replaces, max_abs_err=max(errs.values()),
+                    ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bound,
+                    bound_by=by, library_ms=None,
+                    no_softcap_ms=t["no_softcap_ms"],
+                    window4096_ms=t["window4096_ms"],
+                    sdpa_no_softcap_ms=lib_ms)
+
+    # ---- decode
+    q = torch.randn(B, 1, H, D, generator=g, device=dev).bfloat16()
+    errs = {}
+    for tag, c, qs in forms:
+        qq = (q.float() * qs).bfloat16()
+        for window in (NW, win):
+            errs[f"{tag}_w{window}"] = _decode_check(
+                torch, pd, f"softcap {tag} window={window}", qq, k, v, k32, v32,
+                bt, ctx, layer, window, scale=scale, softcap=c)
+            shares[f"decode_{tag}_w{window}"] = _beyond_half_cap(
+                torch, qq, k32, layer, bt, ctx - 1, ctx, window, scale, c)
+    kw = dict(layer_idx=layer, scale=scale)
+    t = timed(lambda: pd.paged_decode_attention(q, k, v, bt, ctx, softcap=cap, **kw),
+              lambda: pd.paged_decode_attention(q, k, v, bt, ctx, **kw),
+              lambda: pd.paged_decode_attention(q, k, v, bt, ctx, softcap=cap,
+                                                window=win, **kw),
+              lambda: pd.paged_decode_attention_ref(q.float(), k32, v32, bt, ctx,
+                                                    layer, scale, NW, None, cap))
+    lib_ms = _sdpa_no_softcap(torch, q, k, v, layer, bt, ctx - 1, ctx, NW, scale)
+    bound, by = _attn_bound(D, H, KVH, q, [c - 1 for c in ctx_l], ctx_l, 1, NW)
+    emit("kernels", kernel="paged_decode[softcap]",
+         shape=dict(B=B, H=H, KVH=KVH, D=D, bs=BS, L=L, layer=layer, ctx=ctx_l,
+                    pages=W, scale=scale, caps=[cap, cap5],
+                    binding_q_scale=SOFTCAP_BINDING_Q, window=win),
+         max_err=errs, bit_identical=True, timed=dict(
+             t, cap=cap, bound_ms=bound, bound_by=by, library_ms=None,
+             sdpa_no_softcap_ms=lib_ms))
+    out["paged_decode_softcap"] = entry(
+        "paged_decode_attention", "dynamo_tpu_torch/csrc/paged_decode.cu",
+        "dynamo_tpu/ops/pallas_decode.py:742", errs, t, bound, by, lib_ms)
+
+    # ---- verify: the decode rows and a pad row (base 0, ctx 1, table 0)
+    errs = {}
+    btv = torch.cat([bt, torch.zeros_like(bt[:1])])
+    ctxv = torch.tensor(ctx_l + [1], dtype=torch.int32, device=dev)
+    timed_in = None
+    for S in (5, 32):
+        base = torch.clamp(ctxv - S, min=0)
+        qv = torch.randn(B + 1, S, H, D, generator=g, device=dev).bfloat16()
+        for tag, c, qs in forms:
+            qq = (qv.float() * qs).bfloat16()
+            for window in (NW, win):
+                errs[f"S{S}_{tag}_w{window}"] = _verify_check(
+                    torch, pv, f"softcap S={S} {tag} window={window}", qq, k, v,
+                    k32, v32, btv, base, ctxv, layer, window, scale=scale,
+                    softcap=c)
+                shares[f"verify_S{S}_{tag}_w{window}"] = _beyond_half_cap(
+                    torch, qq, k32, layer, btv, base, ctxv, window, scale, c)
+        if S == 5:
+            timed_in = (qv, base)
+    qv, base = timed_in
+    t = timed(lambda: pv.paged_verify_attention(qv, k, v, btv, base, ctxv,
+                                                softcap=cap, **kw),
+              lambda: pv.paged_verify_attention(qv, k, v, btv, base, ctxv, **kw),
+              lambda: pv.paged_verify_attention(qv, k, v, btv, base, ctxv,
+                                                softcap=cap, window=win, **kw),
+              lambda: pv.paged_verify_attention_ref(
+                  qv.float(), k32, v32, btv, base, ctxv, layer, scale, NW, None,
+                  cap))
+    lib_ms = _sdpa_no_softcap(torch, qv, k, v, layer, btv, base, ctxv, NW, scale)
+    bound, by = _attn_bound(D, H, KVH, qv, base.tolist(), ctxv.tolist(), 5, NW)
+    emit("kernels", kernel="paged_verify[softcap]",
+         shape=dict(B=B + 1, S=[5, 32], H=H, KVH=KVH, D=D, layer=layer,
+                    ctx=ctxv.tolist(), pad_row="base 0, ctx 1, table 0",
+                    scale=scale, caps=[cap, cap5], window=win),
+         max_err=errs, bit_identical=True, timed=dict(
+             t, S=5, cap=cap, bound_ms=bound, bound_by=by, library_ms=None,
+             sdpa_no_softcap_ms=lib_ms))
+    out["paged_verify_softcap"] = entry(
+        "paged_verify_attention", "dynamo_tpu_torch/csrc/paged_verify.cu",
+        "dynamo_tpu/ops/pallas_decode.py:634", errs, t, bound, by, lib_ms)
+
+    # ---- flash: the engine's batched chunk (a pad row: base 0, ctx 1,
+    # table 0) and the 5,000-token prompt's long step
+    errs, inputs = {}, {}
+    cases = [("batch4_s128", 128, [(0, 128), (384, 512), (1024, 1100), None]),
+             ("long_step", 512, [SOFTCAP_LONG_STEP])]
+    for name, S, rows in cases:
+        nb = len(rows)
+        pad = torch.tensor([r is None for r in rows], device=dev)
+        rows = [r or (0, 1) for r in rows]
+        qf = torch.randn(nb, S, H, D, generator=g, device=dev).bfloat16()
+        basep = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+        ctxp = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+        btp = bt[-nb:].clone()  # the long step takes the 8,192-key row
+        btp[pad] = 0
+        for tag, c, qs in forms:
+            qq = (qf.float() * qs).bfloat16()
+            for window in (NW, win):
+                errs[f"{name}_{tag}_w{window}"] = _flash_check(
+                    torch, pf, f"softcap {name} {tag} window={window}", k, v,
+                    k32, v32, layer, qq, btp, basep, ctxp, rows, window,
+                    scale=scale, softcap=c)
+                shares[f"flash_{name}_{tag}_w{window}"] = _beyond_half_cap(
+                    torch, qq, k32, layer, btp, basep, ctxp, window, scale, c)
+        inputs[name] = (qf, btp, basep, ctxp, S, rows)
+    flash_t = {}
+    for name in ("batch4_s128", "long_step"):
+        qf, btp, basep, ctxp, S, rows = inputs[name]
+        t = timed(lambda: pf.paged_flash_attention(qf, k, v, btp, basep, ctxp,
+                                                   softcap=cap, **kw),
+                  lambda: pf.paged_flash_attention(qf, k, v, btp, basep, ctxp, **kw),
+                  lambda: pf.paged_flash_attention(qf, k, v, btp, basep, ctxp,
+                                                   softcap=cap, window=win, **kw),
+                  lambda: pf.paged_flash_attention_ref(
+                      qf.float(), k32, v32, btp, basep, ctxp, layer, scale, NW,
+                      None, cap))
+        t["sdpa_no_softcap_ms"] = _sdpa_no_softcap(
+            torch, qf, k, v, layer, btp, basep, ctxp, NW, scale)
+        t["bound_ms"], t["bound_by"] = _attn_bound(
+            D, H, KVH, qf, basep.tolist(), ctxp.tolist(), S, NW)
+        flash_t[name] = t
+    emit("kernels", kernel="paged_flash[softcap]",
+         shape=dict(H=H, KVH=KVH, D=D, bs=BS, L=L, layer=layer, scale=scale,
+                    caps=[cap, cap5], window=win,
+                    cases={name: dict(S=S, rows=rows) for name, S, rows in cases}),
+         max_err=errs, timed=dict(flash_t, cap=cap, library_ms=None))
+    t = flash_t["batch4_s128"]
+    out["paged_flash_softcap"] = dict(
+        entry("paged_flash_attention", "dynamo_tpu_torch/csrc/paged_flash.cu",
+              "dynamo_tpu/ops/pallas_attention.py:254", errs, t, t["bound_ms"],
+              t["bound_by"], t["sdpa_no_softcap_ms"]),
+        long_step={key: flash_t["long_step"][key] for key in (
+            "ms", "no_softcap_ms", "window4096_ms", "plain_ms", "bound_ms",
+            "bound_by", "sdpa_no_softcap_ms")})
+    emit("kernels", kernel="softcap_scores_beyond_half_cap", share=shares)
+    del k, v, k32, v32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _softcap_d128(torch, dev)
+    return out
+
+
+def _softcap_d128(torch, dev):
+    """The softcap form at head_dim 128 (gemma-2-27b: 32 heads over 16 KV
+    heads, scale 144^-0.5, cap 50 and the binding 5): decode over the
+    engine's decode contexts, verify at S 5 and flash at the batched chunk
+    over a 4-layer cache of 128-page tables, each held against its f32
+    plain version; decode timed beside its no-softcap form."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_flash as pf
+    from dynamo_tpu_torch.ops import paged_verify as pv
+
+    H, KVH, D, scale = (SOFTCAP_27B[k] for k in ("H", "KVH", "D", "scale"))
+    L, N, BS, layer, W, NW = 4, 1100, 16, 2, 128, pd.NO_WINDOW
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    k = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    k32, v32 = k.float(), v.float()
+    ctx_l = [1, 15, 16, 17, 513, 2048, 700, 1500]
+    B = len(ctx_l)
+    bt = torch.randperm(N, generator=g, device=dev)[:B * W].reshape(B, W).int()
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    q = torch.randn(B, 1, H, D, generator=g, device=dev).bfloat16()
+    qv = torch.randn(B, 5, H, D, generator=g, device=dev).bfloat16()
+    base_v = torch.clamp(ctx - 5, min=0)
+    rows = [(0, 128), (384, 512), (1024, 1100), (0, 1)]
+    qf = torch.randn(4, 128, H, D, generator=g, device=dev).bfloat16()
+    btf = bt[:4].clone()
+    btf[3] = 0
+    basef = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+    ctxf = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    errs = {}
+    for c, qs in ((SOFTCAP_CAP, 1.0), (SOFTCAP_BINDING, SOFTCAP_BINDING_Q)):
+        for window in (NW, 300):
+            tag = f"cap{c:g}_w{window}"
+            kw = dict(scale=scale, softcap=c)
+            errs[f"decode_{tag}"] = _decode_check(
+                torch, pd, f"d128 softcap {tag}", (q.float() * qs).bfloat16(),
+                k, v, k32, v32, bt, ctx, layer, window, **kw)
+            errs[f"verify_{tag}"] = _verify_check(
+                torch, pv, f"d128 softcap {tag}", (qv.float() * qs).bfloat16(),
+                k, v, k32, v32, bt, base_v, ctx, layer, window, **kw)
+            errs[f"flash_{tag}"] = _flash_check(
+                torch, pf, f"d128 softcap {tag}", k, v, k32, v32, layer,
+                (qf.float() * qs).bfloat16(), btf, basef, ctxf, rows, window,
+                **kw)
+    kw = dict(layer_idx=layer, scale=scale)
+    ms = graph_ms(lambda: pd.paged_decode_attention(q, k, v, bt, ctx,
+                                                    softcap=SOFTCAP_CAP, **kw))
+    no_cap_ms = graph_ms(lambda: pd.paged_decode_attention(q, k, v, bt, ctx, **kw))
+    emit("kernels", kernel="softcap[D128]",
+         shape=dict(B=B, H=H, KVH=KVH, D=D, scale=scale, ctx=ctx_l, pages=W,
+                    verify_S=5, flash_rows=rows, window=300,
+                    caps=[SOFTCAP_CAP, SOFTCAP_BINDING]),
+         max_err=errs, bit_identical=True, decode_ms=ms,
+         decode_no_softcap_ms=no_cap_ms)
+    del k, v, k32, v32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def _mla_cases(torch, dev):
@@ -2711,6 +3097,340 @@ def engine_gptoss_phase(torch, dev, smi):
                 paged_verify_sinks=launches_spec["paged_verify"])
 
 
+# gemma-2-9b's engines: its 8,192 positions, the KV cache sized to the
+# wave (336 KB of KV a token over 42 layers: 2,560 blocks of 16 tokens hold
+# 40,960 tokens in 14.1 GB)
+GEMMA_ENGINE = dict(max_model_len=8192, num_kv_blocks=2560)
+# the five norms the reference inits to 0 (its 1 + w form, so zeros would
+# leave the weights untested): drawn N(0, 0.1^2)
+GEMMA_NORMS = ("ln1", "ln_post_attn", "ln_pre_mlp", "ln_post_mlp")
+GEMMA_NORM_SCALE = 0.1
+# wave 1's last request: a prompt past the 4,096-token window
+GEMMA_LONG_PROMPT = 5000
+# the decode step's rows: both sides of the window, a full 8,192-key row
+GEMMA_DECODE_CTX = (1, 15, 16, 17, 513, 4097, 5000, 8192)
+# the long prompt's window must move its 2-layer logits this many times
+# further than the card's rounding moves them from the f32 forward
+GEMMA_WINDOW_MARGIN = 3.0
+# spec prompts whose ngram drafts the model rejects (``_spec_traps``): the
+# random trunk's greedy streams fall into cycles the lookup predicts exactly
+GEMMA_SPEC_TRAPS = 2
+
+
+def _gemma2_params(torch, mcfg, dev):
+    """gemma-2-9b's weights drawn from the seed on ``dev``, every norm
+    N(0, ``GEMMA_NORM_SCALE``^2)."""
+    from dynamo_tpu_torch.models import gemma2
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = gemma2.init_params(mcfg, gen, torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    for t in [params["layers"][n] for n in GEMMA_NORMS] + [params["final_norm"]]:
+        t.copy_(torch.randn(t.shape, generator=g, device=dev) * GEMMA_NORM_SCALE)
+    return params
+
+
+def _prompt_logits(torch, arch, mcfg, params, prompt, device, dtype,
+                   chunk=512):
+    """The last position's logits of ``prompt`` [V] (f32, on the CPU): the
+    prompt through ``arch.forward`` in chunks of ``chunk`` tokens (the
+    engine's prefill step: the flash kernel on a card) over a fresh cache
+    on ``device``, whose block ``i`` holds positions 16 i .. 16 i + 15."""
+    bs = 16
+    n = len(prompt)
+    nb = -(-n // bs)
+    cache = arch.init_kv_cache(mcfg, nb, bs, dtype, device)
+    bt = torch.arange(nb, dtype=torch.int32, device=device)[None]
+    toks = torch.tensor([prompt], dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        for start in range(0, n, chunk):
+            end = min(n, start + chunk)
+            pos = torch.arange(start, end, dtype=torch.int32, device=device)[None]
+            hidden, cache = arch.forward(
+                params, mcfg, toks[:, start:end], pos, cache, bt, pos,
+                torch.tensor([end], dtype=torch.int32, device=device),
+                return_hidden=True)
+        return arch.lm_logits(hidden[:, -1], params, mcfg)[0].float().cpu()
+
+
+def _spec_traps(torch, arch, mcfg, params, device, n=GEMMA_SPEC_TRAPS,
+                tries=8):
+    """Greedy requests whose ngram drafts the model contradicts, so the
+    spec engine's verify rejects and rolls back. Each prompt is random
+    tokens ending in (u, v), with earlier plants (u, v, t, r1..r4) for
+    each greedy token t the model has given after the prompt (a forward
+    through ``_prompt_logits``), planted again until the model's token is
+    one of them: after it the lookup proposes that plant's random r1..r4.
+    Raises if no plant holds within ``tries`` forwards."""
+    rng = np.random.default_rng(SEED + 11)
+    vocab = mcfg.vocab_size
+    out = []
+    for _ in range(n):
+        body = [int(t) for t in rng.integers(0, vocab, 300)]
+        tail = [int(t) for t in rng.integers(0, vocab, 2)]
+        plants = {}
+        for _ in range(tries):
+            prompt = (body[:100] + [x for p in plants.values() for x in p]
+                      + body[100:] + tail)
+            t = int(_prompt_logits(torch, arch, mcfg, params, prompt, device,
+                                   params["embed"].dtype).argmax())
+            if t in plants:
+                out.append((prompt, dict(temperature=0.0)))
+                break
+            plants[t] = tail + [t] + [int(x) for x in rng.integers(0, vocab, 4)]
+        else:
+            raise AssertionError(f"gemma-2 spec trap: no plant held in {tries} "
+                                 f"forwards: {list(plants)}")
+    return out
+
+
+def _window_logits(torch, arch, mcfg, params, prompt, device):
+    """The ``GEMMA_LONG_PROMPT`` check at 2 layers (one windowed, one
+    full): the last position's logits on the card (bf16, the flash kernel)
+    against the CPU's f32 forward of the same weights, and against the card
+    with the window off. Returns both relative L2 distances."""
+    import dataclasses
+
+    two = dataclasses.replace(mcfg, num_layers=2)
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    cpu2 = {k: ({n: t.cpu().float() for n, t in v.items()}
+                if isinstance(v, dict) else v.cpu().float())
+            for k, v in p2.items()}
+    dt = params["embed"].dtype
+    card = _prompt_logits(torch, arch, two, p2, prompt, device, dt)
+    cpu = _prompt_logits(torch, arch, two, cpu2, prompt, "cpu", torch.float32)
+    del cpu2
+    no_window = _prompt_logits(
+        torch, arch, dataclasses.replace(two, sliding_window=0), p2, prompt,
+        device, dt)
+    return dict(prompt_tokens=len(prompt), window=mcfg.sliding_window,
+                card_vs_cpu_f32_rel_l2=float((card - cpu).norm() / cpu.norm()),
+                window_off_vs_on_rel_l2=float((no_window - card).norm()
+                                              / card.norm()),
+                argmax_equal=int(card.argmax()) == int(cpu.argmax()))
+
+
+def engine_gemma2_phase(torch, dev, smi):
+    """gemma-2-9b through ``TorchServingEngine`` at full width and depth
+    (42 layers, 9.24 B parameters), from ``ModelConfig.from_hf_config`` of
+    its published config, with seeded random bf16 weights (every norm
+    non-zero), the engines' settings (``ENGINE``) at its 8,192 positions
+    (``GEMMA_ENGINE``), one set of weight tensors behind five engines:
+
+    1. the main path (fused epilogue, single-token decode): wave 1 (its last
+       prompt of ``GEMMA_LONG_PROMPT`` tokens, past the window) and the
+       prefix-hit wave 2, launches counted from 0 just before and read just
+       after; a profiled decode step; the logits of a batched prefill step
+       and a decode step at full width and 2 layers (one windowed, one
+       full) against the CPU in f32, and the long prompt's last logits
+       against the CPU and against the card with the window off;
+    2. ``multi_step_decode=4``: wave 1 must stream identically;
+    3. the chained decode loop (``CHAIN``), every dispatch under the sync
+       guard: wave 1 must stream identically, with a chain longer than one
+       burst and no block left in use;
+    4. and 5. the spec prompts, the last ``GEMMA_SPEC_TRAPS`` of them
+       replaced by ``_spec_traps``, without and with ngram speculation
+       (``SPEC``): equal, or parted at a printed near-tie, with at least
+       one proposal rejected.
+
+    The numbers are printed before the checks run."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.models import gemma2
+
+    on_card = torch.device(dev).type == "cuda"
+    mcfg = ModelConfig.from_hf_config(GEMMA_2_9B)
+    vocab, layers = mcfg.vocab_size, mcfg.num_layers
+
+    def config(**kw):
+        return EngineConfig(model=mcfg, seed=SEED,
+                            **dict(ENGINE, **GEMMA_ENGINE, **kw))
+
+    rng = np.random.default_rng(SEED)
+    wave1, wave2 = _requests(rng, vocab)
+    long_prompt = [int(t) for t in rng.integers(0, vocab, GEMMA_LONG_PROMPT)]
+    wave1[-1] = (long_prompt, wave1[-1][1])
+    spec_reqs = _spec_requests(rng)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = _gemma2_params(torch, mcfg, dev)
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for grp in params.values()
+                   for t in (grp.values() if isinstance(grp, dict) else [grp]))
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+
+    async def main_path():
+        t0 = time.monotonic()
+        engine = await TorchServingEngine.create(config(), params=params,
+                                                 device=dev)
+        setup_s = time.monotonic() - t0
+        try:
+            _reset_launches()
+            t1 = time.monotonic()
+            res1 = await _serve(engine, wave1)
+            wall1 = time.monotonic() - t1
+            res2 = await _serve(engine, wave2)
+            launches = _read_launches()
+            metrics = engine.metrics()
+            step = (_decode_step_profile(torch, engine.runner,
+                                         ctx=GEMMA_DECODE_CTX)
+                    if on_card else None)
+            two = dataclasses.replace(mcfg, num_layers=2)
+            lay2 = {k: v[:2] for k, v in params["layers"].items()}
+            logits = _check_logits(
+                torch, engine.config, gemma2, two, engine.runner.device,
+                dict(params, layers=lay2), wave1[4][0][:100], wave1[2][0][:40])
+            logits["long_prompt"] = _window_logits(
+                torch, gemma2, mcfg, params, long_prompt, engine.runner.device)
+        finally:
+            await engine.close()
+        return setup_s, res1, res2, wall1, launches, metrics, step, logits
+
+    async def other_path(kw, batch, new_tokens=None, guarded=False,
+                         spec_base=None):
+        gc.collect()  # the engine before frees its 14.1 GB cache first
+        engine = await TorchServingEngine.create(config(**kw), params=params,
+                                                 device=dev)
+        stats = (_guard_dispatches(torch, engine.runner, layers, 4, on_card)
+                 if guarded else None)
+        try:
+            _reset_launches()
+            t0 = time.monotonic()
+            res = await _serve(engine, batch, new_tokens)
+            wall = time.monotonic() - t0
+            launches = _read_launches()
+            metrics = dict(engine.metrics(), dispatches=stats,
+                           blocks_in_use=engine.scheduler.allocator.used)
+            parted = (None if spec_base is None else
+                      _spec_agreement(torch, engine.runner, batch, spec_base, res))
+        finally:
+            await engine.close()
+        if on_card:
+            torch.cuda.empty_cache()
+        return res, wall, launches, metrics, parted
+
+    (setup_s, res1, res2, wall1, launches, metrics, step,
+     logits) = asyncio.run(main_path())
+    res_k4, wall_k4, launches_k4, metrics_k4, _ = asyncio.run(
+        other_path(dict(multi_step_decode=4), wave1))
+    res_ch, wall_ch, launches_ch, metrics_ch, _ = asyncio.run(
+        other_path(CHAIN, wave1, guarded=True))
+    gc.collect()
+    # the traps take the last pattern prompts' places: a request left
+    # waiting for a slot keeps the scheduler from speculating
+    spec_reqs = (spec_reqs[:len(spec_reqs) - GEMMA_SPEC_TRAPS]
+                 + _spec_traps(torch, gemma2, mcfg, params, dev))
+    spec_base, _, _, _, _ = asyncio.run(other_path({}, spec_reqs, SPEC_NEW_TOKENS))
+    res_spec, wall_spec, launches_spec, metrics_spec, parted = asyncio.run(
+        other_path(SPEC, spec_reqs, SPEC_NEW_TOKENS, spec_base=spec_base))
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    if step is not None:
+        step["weight_bound_ms_with_tied_head"] = (
+            (step["weight_bytes"] + embed_bytes) / HBM_BYTES_PER_S * 1e3)
+
+    def parts_at(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a["tokens"], b["tokens"]))
+                     if x != y), None)
+
+    ttfts = sorted(r["ttft_s"] for r in res1)
+    emit("engine_gemma2", model="gemma-2-9b (published config.json), seeded "
+         "random bf16 weights, non-zero norms", layers=layers, vocab=vocab,
+         parameters=n_params, init_s=init_s, norm_scale=GEMMA_NORM_SCALE,
+         config=dict(ENGINE, **GEMMA_ENGINE),
+         requests=len(res1) + len(res2), new_tokens=NEW_TOKENS, setup_s=setup_s,
+         wave1_prompt_tokens=sum(len(p) for p, _ in wave1), wave1_wall_s=wall1,
+         wave1_output_tokens_per_s=len(res1) * NEW_TOKENS / wall1,
+         ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2], max=ttfts[-1],
+                     long_prompt=res1[-1]["ttft_s"]),
+         finishes=sorted({(len(r["tokens"]), r["finish"]) for r in res1 + res2}),
+         peak_memory_bytes=peak, launches=launches, metrics=metrics,
+         twins_part_at=dict(greedy=parts_at(res1[0], res1[1]),
+                            seeded=parts_at(res1[2], res1[3])),
+         decode_step=step, logits_vs_cpu_f32_2_layers=logits,
+         burst=dict(k=4, streams_equal=sum(a["tokens"] == b["tokens"]
+                                           for a, b in zip(res1, res_k4)),
+                    wave1_wall_s=wall_k4,
+                    wave1_output_tokens_per_s=len(res_k4) * NEW_TOKENS / wall_k4,
+                    decode_steps=metrics_k4["decode_steps"], launches=launches_k4),
+         chained=dict(k=4, streams_equal=sum(a["tokens"] == b["tokens"]
+                                             for a, b in zip(res1, res_ch)),
+                      wave1_wall_s=wall_ch,
+                      wave1_output_tokens_per_s=len(res_ch) * NEW_TOKENS / wall_ch,
+                      **{k: metrics_ch[k] for k in (
+                          "decode_steps", "pipeline_bursts", "chain_len_max",
+                          "device_finished_rows", "sync_fallback", "dispatches",
+                          "blocks_in_use")},
+                      launches=launches_ch),
+         spec=dict(**SPEC, requests=len(spec_reqs), traps=GEMMA_SPEC_TRAPS,
+                   new_tokens=SPEC_NEW_TOKENS, proposed=metrics_spec["spec_proposed"],
+                   accepted=metrics_spec["spec_accepted"],
+                   decode_steps=metrics_spec["decode_steps"], wall_s=wall_spec,
+                   streams_equal=sum(a["tokens"] == b["tokens"]
+                                     for a, b in zip(spec_base, res_spec)),
+                   parted=parted, launches=launches_spec),
+         card=smi)
+
+    _check_streams(res1 + res2, NEW_TOKENS, vocab)
+    _check_streams(res_k4 + res_ch, NEW_TOKENS, vocab)
+    _check_streams(spec_base + res_spec, SPEC_NEW_TOKENS, vocab)
+    if res1[0]["tokens"] != res1[1]["tokens"]:
+        raise AssertionError("gemma-2: the greedy twins streamed differently")
+    if res1[2]["tokens"] != res1[3]["tokens"]:
+        raise AssertionError("gemma-2: the seeded twins streamed differently")
+    tokens1 = [r["tokens"] for r in res1]
+    if [r["tokens"] for r in res_k4] != tokens1:
+        raise AssertionError("gemma-2: wave 1 on the multi_step_decode=4 "
+                             "engine streams differently from the K=1 engine")
+    if [r["tokens"] for r in res_ch] != tokens1:
+        raise AssertionError("gemma-2: wave 1 on the chained engine streams "
+                             "differently from the K=1 engine")
+    if (metrics_ch["dispatches"]["bad"] or metrics_ch["chain_len_max"] <= 1
+            or metrics_ch["blocks_in_use"]):
+        raise AssertionError(f"gemma-2 chained engine: {metrics_ch}")
+    if metrics["gpu_prefix_cache_hit_rate"] <= 0:
+        raise AssertionError("gemma-2: the shared-prefix request missed the "
+                             "prefix cache")
+    if metrics_spec["spec_proposed"] <= 0:
+        raise AssertionError("gemma-2: ngram speculation proposed nothing")
+    if not metrics_spec["spec_accepted"] < metrics_spec["spec_proposed"]:
+        raise AssertionError("gemma-2: the spec engine accepted every proposal, "
+                             "so verify never rejected a draft")
+    lp = logits["long_prompt"]
+    if not lp["card_vs_cpu_f32_rel_l2"] <= LOGITS_REL_L2:
+        raise AssertionError(f"gemma-2 long prompt: card vs CPU {lp}")
+    # the window binds: turning it off moves the logits well past the
+    # card's own distance from the f32 forward
+    if not lp["window_off_vs_on_rel_l2"] > max(
+            GEMMA_WINDOW_MARGIN * lp["card_vs_cpu_f32_rel_l2"], LOGITS_REL_L2):
+        raise AssertionError(f"gemma-2 long prompt: the window does not bind {lp}")
+    if on_card:
+        _check_launches("gemma-2 main", launches,
+                        ("paged_decode", "paged_flash", "epilogue"), layers)
+        _check_launches("gemma-2 burst", launches_k4,
+                        ("paged_decode", "epilogue"), layers)
+        _check_launches("gemma-2 chained", launches_ch,
+                        ("paged_decode", "epilogue"), layers)
+        _check_launches("gemma-2 spec", launches_spec, ("paged_verify",), layers)
+        if launches["mla_decode"] or launches["sp_prefix"]:
+            raise AssertionError(f"the gemma-2 path launched a foreign kernel: "
+                                 f"{launches}")
+        if not (step["decode_kernel_ms"] > 0 and step["epilogue_kernel_ms"] > 0):
+            raise AssertionError(f"gemma-2: the profiled decode step shows no "
+                                 f"decode or epilogue kernel: "
+                                 f"{step['top_kernels_ms']}")
+    return dict(paged_decode_softcap=launches["paged_decode"],
+                paged_flash_softcap=launches["paged_flash"],
+                sampling_epilogue_gemma2=launches["epilogue"],
+                sampling_epilogue_finish_gemma2=launches_ch["epilogue"],
+                paged_verify_softcap=launches_spec["paged_verify"])
+
+
 # the sequence-parallel phase: Llama-3.2-1B with a 16k context and the SP
 # ladder at 4 ranks on the card. The SP chunk is 2,048 tokens (4 ranks x the
 # 512-token step budget); the threshold sits between the short prompts
@@ -2984,7 +3704,7 @@ def engine_sp_phase(torch, dev, smi):
 
 
 PHASES = ("kernels", "engine", "engine_chain", "engine_mla", "engine_gptoss",
-          "engine_sp")
+          "engine_gemma2", "engine_sp")
 
 
 def main(argv=None) -> int:
@@ -3021,8 +3741,7 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     seconds = _build.build()
     emit("build", seconds=time.monotonic() - t0, per_kernel=seconds,
-         ptxas={n: [ln.strip() for ln in log.splitlines() if "registers" in ln
-                    or "spill" in ln] for n, log in _build.build_log.items()})
+         ptxas={n: _ptxas_summary(log) for n, log in _build.build_log.items()})
     torch.cuda.synchronize()
 
     entries, launches = {}, {}
@@ -3033,6 +3752,7 @@ def main(argv=None) -> int:
                         ("engine_chain", engine_chain_phase),
                         ("engine_mla", engine_mla_phase),
                         ("engine_gptoss", engine_gptoss_phase),
+                        ("engine_gemma2", engine_gemma2_phase),
                         ("engine_sp", engine_sp_phase)):
         if name in phases:
             launches.update(phase(torch, dev, smi))

@@ -46,7 +46,24 @@
 // lane keeps a partial row sum (l), summed over the 4 lanes once at the
 // end. l is taken in f32 before P is rounded, as the reference does. Only
 // tiles that need it are masked: the causal diagonal, the window's first
-// tile and the tail of the key range.
+// tile and the tail of the key range. A softcap (Gemma-2; 0 = off) turns
+// each raw score into cap * tanh(scale * q.k / cap) times log2 e before
+// the mask, so a masked key stays -inf (pallas_attention.py:109-110), and
+// the softmax then takes the tile with a factor of 1; tanh is
+// 1 - 2 / (2^(2 x log2 e) + 1) on ex2.approx, as in paged_splitkv.cuh.
+//
+// head_dim 256 (Gemma-2-9b): Q K^T is 16 k-steps, and P V is two
+// m64n128k16 products a 16-key step, one a 128-column half of V and of
+// the accumulator. One warpgroup then holds 64 x 256 f32 in registers
+// (128 a thread) beside 64 keys of scores: ptxas keeps a few
+// loop-invariant values on the stack (4 bytes without the cap, 8 with it,
+// reloaded once a 64-key tile), and the variants that spill nothing
+// (32-key sub-steps, with or without descriptors built by offset) ran
+// 10-25% slower on an H100 (PERF.md). It takes (64 + 6 * 64) * 512 +
+// 1,024 = 230,400 bytes of shared memory, within the card's 232,448; two
+// warpgroups (sp_prefix.cu) would not fit, so the partials kernel stays at
+// 64 and 128. The softcap is a template argument (kCap): the walk without
+// it is the one it was before.
 //
 // What bounds these kernels on an H100: operations for a long chunk (every
 // staged K/V tile is reused by 64 * kWG rows). A warpgroup does not
@@ -221,6 +238,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// tanh x = 1 - 2 / (e^(2x) + 1), e^(2x) on ex2.approx; the exponent is
+// clamped so the sum stays finite (tanh is 1 in f32 well before)
+__device__ __forceinline__ float tanh_ex2(float x) {
+  const float e = ex2(fminf(2.f * kLog2e * x, 64.f));
+  return 1.f - __fdividef(2.f, e + 1.f);
+}
+
 // two floats -> bf16x2 (lo in the low half), round to nearest
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -235,6 +259,24 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<uint32_t*>(&h);
   lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+// O (64 x D) += P (64 x 16, registers) * V's 16 rows at `vrow` of a stage
+// (N-major: the transpose bit; its 64-column groups kKeys * 128 bytes
+// apart): one m64nDk16 product up to D 128, two m64n128k16 at D 256, each
+// on its half of the columns and of the accumulator
+template <int D>
+__device__ __forceinline__ void pv_wgmma(float (&o)[D / 8][4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t vrow) {
+  if constexpr (D <= 128) {
+    wgmma_rs<1>(o, a, desc_sw128(vrow, kKeys * 128, 1024));
+  } else {
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+      wgmma_rs<1>(*reinterpret_cast<float(*)[16][4]>(&o[16 * h]), a,
+                  desc_sw128(vrow + h * 2 * kKeys * 128, kKeys * 128, 1024));
+  }
 }
 
 // byte offset of 16-byte chunk `chunk` of row `row` in a tile of `rows`
@@ -256,6 +298,7 @@ struct Problem {
   int S, H, KVH, G, N, bs, layer;
   int b, kvh, s0;  // batch row, KV head, first query index of the CTA
   float scale;
+  float softcap;   // 0: off
 };
 
 // What a thread holds after the loop: rows r0 = 16 * warp + lane / 4 and
@@ -274,7 +317,7 @@ struct RowState {
 // r / G, position base + s) sees key j iff j <= base + s and j > base + s -
 // window; otherwise every key of the range counts. Keys past key_end are
 // zero-filled and masked.
-template <int D, int kWG, bool kCausal, bool kSplitP>
+template <int D, int kWG, bool kCausal, bool kSplitP, bool kCap = false>
 __device__ __forceinline__ void attend(const Problem& p, int base, int window,
                                        int key_begin, int key_end,
                                        unsigned char* smem_raw,
@@ -365,7 +408,11 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
     hi_min = base + p.s0;
     lo_max = base + s_last - window + 1;
   }
-  const float sl2 = p.scale * kLog2e;
+  // capped scores are already in the log2 domain; kCap is a template
+  // argument, so the walk without a cap is the one it was before
+  const float sl2 = kCap ? 1.f : p.scale * kLog2e;
+  const float cap_in = kCap ? p.scale / p.softcap : 0.f;
+  const float cap_l2 = p.softcap * kLog2e;
 
   for (int it = 0; it < nt; ++it) {
     cp_async_wait<kStages - 2>();  // this thread's copies of tile it landed
@@ -404,6 +451,13 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
+    if (kCap) {  // before the mask: a masked key stays -inf
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[n][e] = cap_l2 * tanh_ex2(sc[n][e] * cap_in);
+    }
 
     const bool need_mask =
         t0 + kKeys > key_end ||
@@ -471,9 +525,8 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      const uint64_t dv = desc_sw128(vb + kk * 16 * 128, kKeys * 128, 1024);
-      wgmma_rs<1>(st.o, a[kk], dv);
-      if (kSplitP) wgmma_rs<1>(st.o, alo[kk], dv);
+      pv_wgmma<D>(st.o, a[kk], vb + kk * 16 * 128);
+      if (kSplitP) pv_wgmma<D>(st.o, alo[kk], vb + kk * 16 * 128);
     }
     wgmma_commit();
     wgmma_wait<0>();

@@ -7,7 +7,9 @@
 // ctx); online softmax with f32 accumulation, P rounded to bf16 before P V
 // as the reference rounds it to the value dtype; a row with no visible key
 // (ctx == 0) outputs zeros (the reference's l == 0 guard); the output is
-// bf16. With `sinks` (GPT-OSS; f32 [H], head order kvh * G + g), each head's
+// bf16. With `softcap` > 0 (Gemma-2) the scaled score becomes
+// cap * tanh(score / cap) before the mask (pallas_decode.py:181-183). With
+// `sinks` (GPT-OSS; f32 [H], head order kvh * G + g), each head's
 // learned logit joins its softmax denominator as a virtual key with no value
 // (pallas_decode.py:205-211); nullptr means no sink.
 //
@@ -17,7 +19,8 @@
 // needs to be compute bound.
 //
 // Design: the split-KV core of paged_splitkv.cuh at S = 1, its G rows one
-// 16-row tile (G <= 16; up to 128 rows in more tiles). The grid is (split,
+// 16-row tile (G <= 16; up to 128 rows in more tiles, up to 16 at
+// head_dim 256). The grid is (split,
 // KV head, batch row), fixed by the block table's width, so a long context
 // is walked by many CTAs at once; each CTA streams its chunk's pages
 // through a cp.async ring, its four warps score 16 keys of each 64-key tile
@@ -34,17 +37,18 @@
 
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
 // has checked types, shapes, contiguity, 16-byte alignment and the group
-// size (G <= 128); it allocates the workspace `ws` (f32, B * KVH * nsplit
+// size (G <= 128, 16 at head_dim 256); it allocates the workspace `ws` (f32, B * KVH * nsplit
 // * G * (D + 2)) and passes its device's counter buffer `cnt` (>= B * KVH
 // ints, zero between calls), both unused when nsplit == 1. `sinks` is f32
-// [H] or nullptr. head_dim 64 and 128 are instantiated.
+// [H] or nullptr. `softcap` > 0 caps the scores (0 = off). head_dim 64, 128
+// and 256 are instantiated.
 extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* bt, const void* ctx,
                                  const void* sinks, void* out, void* ws,
                                  void* cnt, int B, int H, int KVH,
                                  int D, int N, int bs, int W, int layer,
                                  int window, int chunk, int nsplit,
-                                 float scale, void* stream) {
+                                 float scale, float softcap, void* stream) {
   if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
   paged_splitkv::Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -69,6 +73,7 @@ extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
   p.window = window;
   p.chunk = chunk;
   p.scale = scale;
+  p.softcap = softcap;
   return paged_splitkv::launch_any(p, B, D, nsplit,
                                    static_cast<cudaStream_t>(stream));
 }

@@ -12,7 +12,9 @@
 // denominator as a virtual key with no value (pallas_attention.py:135-143):
 // at the finalize, l <- l * 2^(m - m') + 2^(sink * log2 e - m') with the
 // shift m' = max(m, sink * log2 e), so neither term overflows and a row with
-// no visible key still writes 0.
+// no visible key still writes 0. With `softcap` > 0 (Gemma-2) the scaled
+// score becomes cap * tanh(score / cap) before the mask
+// (pallas_attention.py:109-110).
 //
 // What bounds it on an H100: for a long chunk, operations — each K/V tile
 // is reused by every query row of the CTA, so the FLOPs per byte grow with
@@ -45,7 +47,7 @@ constexpr int kWG = 1;
 constexpr int kRows = cta_rows<kWG>();
 constexpr int kThreads = cta_threads<kWG>();
 
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
     const __nv_bfloat16* __restrict__ q,    // [B, S, H, D]
     const __nv_bfloat16* __restrict__ kc,   // [L, N, bs, KVH, D]
@@ -56,7 +58,7 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
     const float* __restrict__ sinks,        // [H] or nullptr
     __nv_bfloat16* __restrict__ out,        // [B, S, H, D]
     int S, int H, int KVH, int N, int bs, int W, int layer, int window,
-    float scale) {
+    float scale, float softcap) {
   extern __shared__ unsigned char smem[];
   const int G = H / KVH;
   const int BQ = kRows / G;  // query positions per CTA
@@ -82,13 +84,13 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
   }
 
   Problem p{q, kc, vc, bt + (size_t)b * W, S, H, KVH, G, N, bs, layer,
-            b, kvh, s0, scale};
+            b, kvh, s0, scale, softcap};
   // the keys this query tile can see at all
   const int k_lo = max(0, base + s0 - window + 1);
   const int k_hi = min(ctx - 1, base + s_end - 1);  // inclusive
   RowState<D> st;
-  attend<D, kWG, /*kCausal=*/true, /*kSplitP=*/false>(p, base, window, k_lo,
-                                                 k_hi + 1, smem, st);
+  attend<D, kWG, /*kCausal=*/true, /*kSplitP=*/false, kCap>(
+      p, base, window, k_lo, k_hi + 1, smem, st);
 
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -116,22 +118,26 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* bt,
            const void* base, const void* ctx, const void* sinks, void* out,
            int B, int S, int H, int KVH, int N, int bs, int W, int layer,
-           int window, float scale, cudaStream_t stream) {
-  static std::atomic<unsigned long long> smem_set{0};
+           int window, float scale, float softcap, cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_set[2];
   constexpr int smem = smem_bytes<D, kWG>();
-  cudaError_t err = allow_smem_once(
-      reinterpret_cast<const void*>(paged_flash_tc_kernel<D>), smem, smem_set);
+  static_assert(smem <= 232448, "a CTA's shared memory must fit an H100");
+  const bool cap = softcap > 0.f;
+  const auto kernel =
+      cap ? paged_flash_tc_kernel<D, true> : paged_flash_tc_kernel<D, false>;
+  cudaError_t err = allow_smem_once(reinterpret_cast<const void*>(kernel),
+                                    smem, smem_set[cap]);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KVH;
   const int BQ = kRows / G;
   const dim3 grid((S + BQ - 1) / BQ, KVH, B);
-  paged_flash_tc_kernel<D><<<grid, dim3(kThreads), smem, stream>>>(
+  kernel<<<grid, dim3(kThreads), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(bt),
       static_cast<const int*>(base), static_cast<const int*>(ctx),
       static_cast<const float*>(sinks), static_cast<__nv_bfloat16*>(out), S,
-      H, KVH, N, bs, W, layer, window, scale);
+      H, KVH, N, bs, W, layer, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -139,20 +145,24 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
 
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
 // has checked types, shapes, contiguity, 16-byte alignment, that head_dim
-// is 64 or 128 (the two instantiations) and that the group size
-// G = H / KVH divides 64. `sinks` is f32 [H] or nullptr.
+// is 64, 128 or 256 (the three instantiations) and that the group size
+// G = H / KVH divides 64. `sinks` is f32 [H] or nullptr; `softcap` > 0 caps
+// the scores (0 = off).
 extern "C" int paged_flash_bf16(const void* q, const void* k, const void* v,
                                 const void* bt, const void* base,
                                 const void* ctx, const void* sinks, void* out,
                                 int B, int S, int H, int KVH, int D, int N,
                                 int bs, int W, int layer, int window,
-                                float scale, void* stream) {
+                                float scale, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch<64>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, N, bs,
-                      W, layer, window, scale, s);
+                      W, layer, window, scale, softcap, s);
   if (D == 128)
     return launch<128>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, N,
-                       bs, W, layer, window, scale, s);
+                       bs, W, layer, window, scale, softcap, s);
+  if (D == 256)
+    return launch<256>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, N,
+                       bs, W, layer, window, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

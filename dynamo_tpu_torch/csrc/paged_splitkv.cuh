@@ -63,6 +63,31 @@
 // log2 domain, so the sink enters as sink * log2(e), and the shift is
 // max(m, sink * log2 e): neither exponential overflows when a sink exceeds
 // every score, and a row with no visible key (m = -inf) still writes 0.
+//
+// The softcap (Gemma-2; 0 = off) replaces the scaled score by
+// cap * tanh(scale * q.k / cap) (pallas_decode.py:181-183 and :506-507).
+// It is applied to the raw dot products of each tile, in natural-log
+// units times log2 e, before the mask: a masked key must stay -inf, which
+// tanh would turn into -cap. The capped tile is then already in the log2
+// domain, so the softmax takes it with a factor of 1 where it otherwise
+// folds scale * log2 e in. The cap is a template argument: the forms
+// without it compile to the walk they had before it existed. tanh is 1 - 2 / (2^(2 x log2 e) + 1) on ex2.approx:
+// measured on an H100 over scores in [-200, 200] at a cap of 50, its
+// largest error is 1.2e-5 of a logit, against 5.2e-6 for tanhf and 4.0e-4
+// for tanh.approx.f32, which ran ~5% faster in flash at head_dim 256 and
+// no faster here (scripts/softcap_tanh_error.py; PERF.md).
+//
+// head_dim 256 (Gemma-2-9b). A warp's 16 x 256 f32 accumulator is 128
+// registers a thread, so a CTA holds one 16-row tile (its four warps
+// split each tile's keys, 16 keys a warp): with two or more row tiles a
+// warp scores 32 or 64 keys at a time and ptxas spilled at 255 registers
+// (ops/splitkv.py cuts the S * G rows into query parts of at most 16; a
+// group of more than 16 heads is refused). The warps read Q's fragments
+// from shared memory at each k-step instead of holding them (D / 16 x 4 =
+// 64 more registers). The three-stage ring of 64-key tiles is then 192 KB,
+// which leaves room for a split's block-table entries up to ~6,600 pages
+// (ops/splitkv.py refuses a larger split by name; two stages ran 4-5%
+// slower). At 64 and 128 all of it stays as it was.
 
 #pragma once
 
@@ -94,6 +119,13 @@ __host__ __device__ constexpr int key_groups(int m) {
 __host__ __device__ constexpr int cta_threads(int m) {
   return 32 * m * key_groups(m);
 }
+// (query position, group head) rows a CTA holds: one 16-row tile at
+// head_dim 256 (see the note above), kMaxRows below
+__host__ __device__ constexpr int max_rows(int d) {
+  return d >= 256 ? 16 : kMaxRows;
+}
+// the dynamic shared memory a CTA may take on an H100 (227 KB)
+constexpr int kSmemLimit = 232448;
 
 // The launch's arguments. base_pos == nullptr: decode (base = ctx - 1,
 // S = 1). sinks == nullptr: no sink.
@@ -111,6 +143,7 @@ struct Params {
                             // between calls
   int S, Sq, H, KVH, G, N, bs, W, layer, window, chunk;
   float scale;
+  float softcap;            // 0: off
 };
 
 // ------------------------------------------------------------------ PTX
@@ -171,6 +204,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// tanh x = 1 - 2 / (e^(2x) + 1), e^(2x) on ex2.approx; the exponent is
+// clamped so the sum stays finite (tanh is 1 in f32 well before)
+__device__ __forceinline__ float tanh_ex2(float x) {
+  const float e = ex2(fminf(2.f * kLog2e * x, 64.f));
+  return 1.f - __fdividef(2.f, e + 1.f);
+}
+
 // ---------------------------------------------------------------- helpers
 
 // two floats -> bf16x2 (lo in the low half), round to nearest
@@ -198,6 +238,7 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk) {
 
 // dynamic shared memory: Q (16 M rows), the K and V rings, the merge's row
 // statistics, the last-CTA flag, then the chunk's block-table entries
+// (ops/splitkv.py smem_bytes mirrors it)
 template <int D, int M>
 __host__ __device__ constexpr int smem_fixed() {
   return 16 * M * D * 2 + 2 * kStages * kKeys * D * 2 + 2 * kMaxRows * 4 + 16;
@@ -219,7 +260,7 @@ __device__ __forceinline__ float ex2_from(float x, float shift) {
 
 // ------------------------------------------------------------- the kernel
 
-template <int D, int M>
+template <int D, int M, bool kCap>
 __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
     const Params p) {
   constexpr int WK = key_groups(M);    // warps sharing a row tile
@@ -231,6 +272,7 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   constexpr int ROWS = 16 * M;
   constexpr uint32_t kTile = kKeys * D * 2;
   constexpr int DS = D + 4;            // f32 row stride of the warps' dump
+  constexpr bool kHoldQ = D <= 128;    // Q's fragments in registers
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int split = blockIdx.x, b = blockIdx.z;
@@ -325,13 +367,18 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
     cp_async_commit();
   }
 
-  // Q's A fragments for the warp's row tile, held across the walk
+  // Q's A fragments for the warp's row tile: held across the walk up to
+  // head_dim 128, read from shared memory at each k-step at 256
   cp_async_wait<kStages - 1>();
   __syncthreads();
-  uint32_t qa[D / 16][4];
+  auto q_frag = [&](uint32_t(&r)[4], int kk) {
+    ldsm_x4(r, q_s + swz<D>(rt * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+  };
+  uint32_t qa[kHoldQ ? D / 16 : 1][4];
+  if (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qa[kk], q_s + swz<D>(rt * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+    for (int kk = 0; kk < (kHoldQ ? D / 16 : 0); ++kk) q_frag(qa[kk], kk);
+  }
 
   // this thread's rows rt * 16 + g4 + 8 i: their visible key bounds
   int hi[2], lo[2];
@@ -342,7 +389,10 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
     lo[i] = base + s - p.window + 1;
   }
   const int hi_min = base, lo_max = base + S - p.window;  // over the rows
-  const float sl2 = p.scale * kLog2e;
+  // capped scores are already in the log2 domain (see the note above)
+  const float sl2 = kCap ? 1.f : p.scale * kLog2e;
+  const float cap_in = kCap ? p.scale / p.softcap : 0.f;
+  const float cap_l2 = p.softcap * kLog2e;
 
   float o[DT][4];
 #pragma unroll
@@ -374,15 +424,25 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int qi = kHoldQ ? kk : 0;
+      if (!kHoldQ) q_frag(qa[0], kk);
 #pragma unroll
       for (int np = 0; np < NTL / 2; ++np) {
         uint32_t kf[4];
         ldsm_x4(kf, kb + swz<D>(kw0 + np * 16 + (lane >> 4) * 8 + (lane & 7),
                                 kk * 2 + ((lane >> 3) & 1)));
-        mma_bf16(sc[2 * np], qa[kk], kf[0], kf[1]);
-        mma_bf16(sc[2 * np + 1], qa[kk], kf[2], kf[3]);
+        mma_bf16(sc[2 * np], qa[qi], kf[0], kf[1]);
+        mma_bf16(sc[2 * np + 1], qa[qi], kf[2], kf[3]);
       }
+    }
+    if (kCap) {  // before the mask: a masked key stays -inf
+#pragma unroll
+      for (int n = 0; n < NTL; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[n][e] = cap_l2 * tanh_ex2(sc[n][e] * cap_in);
+    }
 
     const bool need_mask = t0 < key_begin || t0 + kKeys > key_end ||
                            t0 + kKeys - 1 > hi_min || t0 < lo_max;
@@ -593,16 +653,22 @@ inline cudaError_t allow_smem(const void* fn, int bytes,
   return err;
 }
 
-template <int D, int M>
+template <int D, int M, bool kCap>
 cudaError_t launch(const Params& p, int B, int nsplit, cudaStream_t stream) {
+  static_assert(2 * kStages * kKeys * D * 2 >=
+                    key_groups(M) * 16 * M * ((D + 4) * 4 + 8),
+                "the warps' dump must fit over the ring");
   static std::atomic<int> allowed[64];
-  const int smem = (int)smem_bytes<D, M>(p.chunk, p.bs);
+  const size_t bytes = smem_bytes<D, M>(p.chunk, p.bs);
+  if (bytes > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  const int smem = (int)bytes;
   cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(splitkv_kernel<D, M>), smem, allowed);
+      reinterpret_cast<const void*>(splitkv_kernel<D, M, kCap>), smem,
+      allowed);
   if (err != cudaSuccess) return err;
   const int parts = (p.S + p.Sq - 1) / p.Sq;
-  splitkv_kernel<D, M><<<dim3(nsplit, parts * p.KVH, B), dim3(cta_threads(M)),
-                         smem, stream>>>(p);
+  splitkv_kernel<D, M, kCap><<<dim3(nsplit, parts * p.KVH, B),
+                               dim3(cta_threads(M)), smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -612,17 +678,19 @@ inline int launch_any(const Params& p, int B, int D, int nsplit,
                       cudaStream_t stream) {
   const int rows = p.Sq * p.G;
   if (B <= 0 || p.S <= 0 || p.Sq <= 0 || p.Sq > p.S || p.G <= 0 ||
-      rows > kMaxRows || p.chunk <= 0 ||
+      rows > max_rows(D) || p.chunk <= 0 ||
       p.chunk % kKeys || p.bs <= 0 || nsplit <= 0 ||
       (long long)nsplit * p.chunk < (long long)p.W * p.bs ||
       (nsplit > 1 && (p.ws == nullptr || p.cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int m = rows <= 16 ? 1 : rows <= 32 ? 2 : rows <= 64 ? 4 : 8;
-#define SPLITKV_CASE(DD, MM) \
-  if (D == DD && m == MM) return (int)launch<DD, MM>(p, B, nsplit, stream);
+#define SPLITKV_CASE(DD, MM)                                            \
+  if (D == DD && m == MM)                                               \
+    return (int)(p.softcap > 0.f ? launch<DD, MM, true>(p, B, nsplit, stream) \
+                                 : launch<DD, MM, false>(p, B, nsplit, stream));
   SPLITKV_CASE(64, 1) SPLITKV_CASE(64, 2) SPLITKV_CASE(64, 4)
   SPLITKV_CASE(64, 8) SPLITKV_CASE(128, 1) SPLITKV_CASE(128, 2)
-  SPLITKV_CASE(128, 4) SPLITKV_CASE(128, 8)
+  SPLITKV_CASE(128, 4) SPLITKV_CASE(128, 8) SPLITKV_CASE(256, 1)
 #undef SPLITKV_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,8 @@
 // read once for all S queries; P is rounded to bf16 before P V, as the
 // reference rounds it to the value dtype. A row with no visible key
 // outputs zeros, never NaN (rows past ctx are discarded by the caller).
-// With `sinks` (GPT-OSS; f32 [H], head order kvh * G + g), each head's
+// With `softcap` > 0 (Gemma-2) the scaled score becomes cap * tanh(score /
+// cap) before the mask (pallas_decode.py:506-507). With `sinks` (GPT-OSS; f32 [H], head order kvh * G + g), each head's
 // learned logit joins its softmax denominator as a virtual key with no value
 // (pallas_decode.py:527-537); nullptr means no sink.
 //
@@ -24,8 +25,9 @@
 // (query position, group head) pairs r = s * G + g, padded to 16-row
 // tiles (S 5 at G 4: 20 rows, two tiles, each scored by two warps over 32
 // keys of every 64-key tile). A row's S queries are cut into parts of Sq
-// positions with Sq * G <= 128 (S 17 at G 8: parts of 9 and 8 positions,
-// two CTAs over the same keys). The grid is (split, part x KV head, batch
+// positions with Sq * G <= 128, 16 at head_dim 256 (S 17 at G 8: parts of
+// 9 and 8 positions, two CTAs over the same keys; at G 2 and head_dim 256:
+// 6, 6 and 5). The grid is (split, part x KV head, batch
 // row), fixed by the block table's width and S; K and V stay bf16 in a cp.async ring
 // and both products run on the tensor cores (mma.sync, ldmatrix); the last
 // split to finish merges the splits' f32 partials in split order.
@@ -38,12 +40,12 @@
 
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
 // has checked types, shapes, contiguity, 16-byte alignment, 1 < S <= 32,
-// H / KVH <= 128 and Sq * (H / KVH) <= 128 (ops/splitkv.py query_parts
-// picks Sq); it allocates the workspace `ws` (f32, B * parts * KVH * nsplit
+// H / KVH and Sq * (H / KVH) <= 128, 16 at head_dim 256 (ops/splitkv.py
+// query_parts picks Sq); it allocates the workspace `ws` (f32, B * parts * KVH * nsplit
 // * Sq * G * (D + 2)) and passes its device's counter buffer `cnt`
 // (>= B * parts * KVH ints, zero between calls), both unused when
-// nsplit == 1. `sinks` is f32 [H] or nullptr. head_dim 64 and 128 are
-// instantiated.
+// nsplit == 1. `sinks` is f32 [H] or nullptr. `softcap` > 0 caps the
+// scores (0 = off). head_dim 64, 128 and 256 are instantiated.
 extern "C" int paged_verify_bf16(const void* q, const void* k, const void* v,
                                  const void* bt, const void* base,
                                  const void* ctx, const void* sinks,
@@ -51,7 +53,7 @@ extern "C" int paged_verify_bf16(const void* q, const void* k, const void* v,
                                  int Sq, int H, int KVH,
                                  int D, int N, int bs, int W, int layer,
                                  int window, int chunk, int nsplit,
-                                 float scale, void* stream) {
+                                 float scale, float softcap, void* stream) {
   if (KVH <= 0 || H % KVH || S < 2) return (int)cudaErrorInvalidValue;
   paged_splitkv::Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -76,6 +78,7 @@ extern "C" int paged_verify_bf16(const void* q, const void* k, const void* v,
   p.window = window;
   p.chunk = chunk;
   p.scale = scale;
+  p.softcap = softcap;
   return paged_splitkv::launch_any(p, B, D, nsplit,
                                    static_cast<cudaStream_t>(stream));
 }

@@ -13,10 +13,10 @@ the sampling tail — the fused epilogue kernel on a card (``fused_epilogue``
 device value on the host or blocks the host on the device: host arrays
 travel through pinned memory (``ops/transfer.py``), and ``stage_to_host``
 starts a burst's outputs on their way back. The model family's module
-comes from ``models.resolve`` (Llama-family GQA, or DeepSeek MLA with
-routed experts), as in the reference. PyTorch runs eagerly, so there is no
-compiled-program cache; the KV cache and the sample state are updated in
-place. With ``sp_size > 1`` the runner also owns the sequence-parallel
+comes from ``models.resolve`` (Llama-family GQA, DeepSeek MLA with routed
+experts, GPT-OSS, Gemma-2), as in the reference. PyTorch runs eagerly, so
+there is no compiled-program cache; the KV cache and the sample state are
+updated in place. With ``sp_size > 1`` the runner also owns the sequence-parallel
 prefill chunk (``sp_prefill_chunk``: one fixed ``[1, S]`` shape, the ``sp``
 ranks laid out on the one device). Not in this slice (later work): the
 chained propose-verify round, draft-model speculation, embeddings, block
@@ -212,6 +212,12 @@ class ModelRunner:
         self.arch.check_supported(cfg)
         self.device = resolve_device(device)
         check_attention_impl(cfg.attention_impl, self.device)
+        if self.device.type == "cuda" and config.dtype != "bfloat16":
+            # the attention kernels take bf16 only; the CPU keeps f32 for
+            # the differential tests
+            raise NotImplementedError(
+                f"dtype={config.dtype!r} on a CUDA device: the port's "
+                "attention kernels take bfloat16 only")
         self.fused_epilogue = resolve_fused_epilogue(config.fused_epilogue,
                                                      self.device)
         self.dtype = llama.torch_dtype(config.dtype)
@@ -499,6 +505,9 @@ class ModelRunner:
                      last=(np.asarray([last]), i64),
                      slot=(np.asarray([sample_slot]), i64),
                      commit=(np.asarray([commit]), torch.bool))
+        # llama's trunk and tail: check_sp_trunk admits llama-family dense
+        # GQA trunks only (no window, no softcap), so no other family
+        # reaches this path
         hidden, self.kv_cache = llama.sp_decoder_forward(
             self.params, cfg, d["tokens"], d["positions"], self.kv_cache,
             d["block_tables"], d["slot_mapping"], context_len, chunk_start,

@@ -6,8 +6,10 @@ Each family module exposes the same surface — ``check_supported(cfg)``,
 and ``lm_logits(hidden, params, cfg)`` — so the engine
 (``engine/model_runner.py``) is architecture-agnostic. The port serves
 Llama-family dense GQA (``llama``), DeepSeek-class MLA with routed
-experts (``deepseek``) and GPT-OSS (``gptoss``: sinks, alternating windows,
-routed GLU experts); the reference's other families raise.
+experts (``deepseek``), GPT-OSS (``gptoss``: sinks, alternating windows,
+routed GLU experts) and Gemma-2 (``gemma2``: sandwich norms, GeGLU,
+softcapped alternating-window attention); the Mixtral / Qwen3-MoE trunk
+raises.
 """
 
 from __future__ import annotations
@@ -27,12 +29,12 @@ def resolve(cfg: ModelConfig):
 
         return gptoss
     if cfg.model_family == "gemma2":
-        family = cfg.model_family
-    elif cfg.num_experts > 0:
-        family = "mixtral"
-    else:
-        from . import llama
+        from . import gemma2
 
-        return llama
-    raise NotImplementedError(
-        f"model family {family!r} is not ported to the PyTorch engine yet")
+        return gemma2
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "model family 'mixtral' is not ported to the PyTorch engine yet")
+    from . import llama
+
+    return llama

@@ -2,7 +2,8 @@
 into the port's tensors.
 
 The port keeps the reference's parameter names and layouts
-(``models/llama.py``, ``models/deepseek.py``, ``models/gptoss.py``), so the
+(``models/llama.py``, ``models/deepseek.py``, ``models/gptoss.py``,
+``models/gemma2.py``), so the
 bridge is a plain copy of every leaf, checked against the family's keys. The
 caller hands in numpy arrays (e.g. ``jax.device_get(params)`` on the JAX
 side); this module never imports jax. bfloat16 leaves (numpy's
@@ -48,7 +49,9 @@ def from_jax_params(np_params: Mapping[str, Any], cfg: ModelConfig,
     params = walk(np_params)
     groups = family.param_keys(cfg)
     missing = ({"embed", "final_norm"} | set(groups)) - set(params)
-    if not cfg.tie_word_embeddings:
+    # gemma-2 reads the embedding unless the tree holds an lm_head, whatever
+    # the tie flag (the reference's gemma2 does so)
+    if not cfg.tie_word_embeddings and cfg.model_family != "gemma2":
         missing |= {"lm_head"} - set(params)
     for group, keys in groups.items():
         missing |= {f"{group}.{k}" for k in keys - set(params.get(group, {}))}

@@ -12,9 +12,8 @@ Dispatch is keyed on the tensors' device: CPU tensors take the plain
 version (``paged_attention``); CUDA tensors take the decode kernel when
 S == 1, the verify kernel when 1 < S <= 32 (the speculative verify tail,
 the reference's ``VERIFY_MAX_S``) and the flash kernel when S > 32, each
-with or without GPT-OSS's attention sinks; logit softcapping (Gemma-2) has
-no kernel form yet and raises on a card. There is no fallback from a kernel
-to the plain route on a CUDA device.
+with or without GPT-OSS's attention sinks and Gemma-2's logit softcap.
+There is no fallback from a kernel to the plain route on a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +35,15 @@ def kernel_sinks(sinks, heads: int, device):
     if sinks.numel() != heads:
         raise ValueError(f"sinks hold {sinks.numel()} logits for {heads} heads")
     return sinks.reshape(heads).to(device=device, dtype=torch.float32).contiguous()
+
+
+def kernel_softcap(softcap) -> float:
+    """The logit softcap as the kernels take it: a float, 0 for off; a
+    negative or non-finite cap raises."""
+    cap = float(softcap or 0.0)
+    if not 0.0 <= cap < float("inf"):
+        raise ValueError(f"softcap must be a finite cap >= 0 (0 = off), got {softcap}")
+    return cap
 
 
 def check_attention_impl(impl: str, device) -> None:
@@ -250,7 +258,8 @@ def attention(
     CPU tensors take the plain route. CUDA tensors take the decode kernel
     (S == 1), the verify kernel (1 < S <= 32) or the flash kernel
     (S > 32); each indexes layer ``layer_idx`` of the stacked cache in
-    place, and takes ``sinks`` ([H] logits, head order ``kvh * G + g``). The verify and flash kernels assume affine query positions
+    place, and takes ``sinks`` ([H] logits, head order ``kvh * G + g``) and
+    ``softcap``. The verify and flash kernels assume affine query positions
     (``positions[:, s] == positions[:, 0] + s``), the scheduler's layout.
     The decode kernel assumes the query sits at ``context_lens - 1``."""
     if scale is None:
@@ -265,24 +274,21 @@ def attention(
             q, kf, vf, block_tables.long() + layer_idx * n_blocks, positions,
             context_lens, scale=scale, softcap=softcap,
             sliding_window=sliding_window, sinks=sinks)
-    if softcap:
-        raise NotImplementedError(
-            "the softcap variant of the attention kernels is not ported yet")
     window = NO_WINDOW if sliding_window is None else int(sliding_window)
+    kw = dict(layer_idx=layer_idx, scale=scale, window=window, sinks=sinks,
+              softcap=softcap)
     if q.shape[1] == 1:
         from .paged_decode import paged_decode_attention
 
         return paged_decode_attention(
-            q, k_cache, v_cache, block_tables, context_lens,
-            layer_idx=layer_idx, scale=scale, window=window, sinks=sinks)
+            q, k_cache, v_cache, block_tables, context_lens, **kw)
     from .paged_verify import VERIFY_MAX_S, paged_verify_attention
 
     if q.shape[1] <= VERIFY_MAX_S:
         return paged_verify_attention(
             q, k_cache, v_cache, block_tables, positions[:, 0], context_lens,
-            layer_idx=layer_idx, scale=scale, window=window, sinks=sinks)
+            **kw)
     from .paged_flash import paged_flash_attention
 
     return paged_flash_attention(
-        q, k_cache, v_cache, block_tables, positions[:, 0], context_lens,
-        layer_idx=layer_idx, scale=scale, window=window, sinks=sinks)
+        q, k_cache, v_cache, block_tables, positions[:, 0], context_lens, **kw)

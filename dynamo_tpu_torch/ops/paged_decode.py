@@ -22,13 +22,13 @@ from typing import Optional
 import torch
 
 from . import _build, splitkv
-from .attention import NO_WINDOW, kernel_sinks, paged_attention
+from .attention import NO_WINDOW, kernel_sinks, kernel_softcap, paged_attention
 
 launches = 0
 
 # the head_dims the kernel instantiates (Llama-3.2-1B has 64; Llama-3-8B,
-# Qwen and Mistral 128)
-_HEAD_DIMS = (64, 128)
+# Qwen and Mistral 128; Gemma-2-9b 256)
+_HEAD_DIMS = (64, 128, 256)
 
 
 def paged_decode_attention_ref(
@@ -41,11 +41,13 @@ def paged_decode_attention_ref(
     scale: Optional[float] = None,
     window: int = NO_WINDOW,
     sinks: Optional[torch.Tensor] = None,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """The plain version: the query of row b sits at ``context_lens[b] - 1``
     and sees keys in ``[max(ctx - window, 0), ctx)``, with ``sinks`` [H] in
-    each head's softmax denominator; a row with ``ctx == 0`` outputs zeros,
-    as the kernel does."""
+    each head's softmax denominator and the scaled scores capped at
+    ``softcap`` (0 = off); a row with ``ctx == 0`` outputs zeros, as the
+    kernel does."""
     l, n_blocks = k_cache.shape[:2]
     ctx = context_lens.long()
     out = paged_attention(
@@ -55,6 +57,7 @@ def paged_decode_attention_ref(
         block_tables.long() + layer_idx * n_blocks,
         (ctx - 1)[:, None], ctx, scale=scale,
         sliding_window=None if window >= NO_WINDOW else window, sinks=sinks,
+        softcap=softcap,
     )
     return out * (ctx > 0).to(out.dtype)[:, None, None, None]
 
@@ -65,7 +68,7 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       i, i, i, ctypes.c_float, p]
+                       i, i, i, ctypes.c_float, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -89,10 +92,10 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, context_lens):
     if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
         raise NotImplementedError(
             f"decode kernel: head_dim {d} is not one of {_HEAD_DIMS}")
-    if h % kvh or h // kvh > splitkv.MAX_ROWS:
+    if h % kvh or h // kvh > splitkv.max_rows(d):
         raise NotImplementedError(
             f"decode kernel: {h} heads over {kvh} KV heads (a group of at "
-            f"most {splitkv.MAX_ROWS})")
+            f"most {splitkv.max_rows(d)} at head_dim {d})")
     if block_tables.shape[0] != b or context_lens.shape != (b,):
         raise ValueError("block_tables / context_lens do not match the batch")
 
@@ -107,6 +110,7 @@ def paged_decode_attention(
     scale: Optional[float] = None,
     window: int = NO_WINDOW,     # sliding window; NO_WINDOW = off
     sinks: Optional[torch.Tensor] = None,  # [H] sink logits; None = off
+    softcap: float = 0.0,        # scores <- cap * tanh(scores / cap); 0 = off
 ) -> torch.Tensor:
     """Single-token paged attention over layer ``layer_idx`` of the stacked
     cache; returns [B, 1, H, D]."""
@@ -115,7 +119,7 @@ def paged_decode_attention(
     if q.device.type != "cuda":
         return paged_decode_attention_ref(
             q, k_cache, v_cache, block_tables, context_lens, layer_idx,
-            scale, window, sinks)
+            scale, window, sinks, softcap)
     global launches
     _check_cuda_inputs(q, k_cache, v_cache, block_tables, context_lens)
     b, _, h, d = q.shape
@@ -125,8 +129,10 @@ def paged_decode_attention(
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
     sk = kernel_sinks(sinks, h, q.device)
+    cap = kernel_softcap(softcap)
     out = torch.empty_like(q)
     chunk, splits = splitkv.plan(bt.shape[1] * bs)
+    splitkv.check_fits("decode kernel", d, h // kvh, chunk, bs)
     ws = splitkv.workspace(q.device, b, kvh, splits, h // kvh, d)
     cnt = splitkv.counters(q.device, b * kvh)
     rc = _lib()(
@@ -134,7 +140,7 @@ def paged_decode_attention(
         ctx.data_ptr(), None if sk is None else sk.data_ptr(), out.data_ptr(),
         ws.data_ptr(), cnt.data_ptr(), b, h, kvh, d, n, bs, bt.shape[1],
         int(layer_idx),
-        int(min(window, NO_WINDOW)), chunk, splits, float(scale),
+        int(min(window, NO_WINDOW)), chunk, splits, float(scale), cap,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "paged_decode_bf16")

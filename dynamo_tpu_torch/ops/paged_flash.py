@@ -22,14 +22,23 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import NO_WINDOW, kernel_sinks, paged_attention
+from .attention import NO_WINDOW, kernel_sinks, kernel_softcap, paged_attention
 
 launches = 0
 
 # the head_dims the library instantiates (Llama-3.2-1B: 64; 128 for the
-# 8B/70B-class models)
-_HEAD_DIMS = (64, 128)
+# 8B/70B-class models; Gemma-2-9b 256)
+_HEAD_DIMS = (64, 128, 256)
 _ROWS_PER_CTA = 64  # query rows (position, group head) per CTA in the kernel
+
+
+def smem_bytes(head_dim: int, warpgroups: int = 1) -> int:
+    """Dynamic shared memory of a CTA of the tensor-core core
+    (``paged_attn_tc.cuh`` ``smem_bytes<D, kWG>``): Q's 64 rows a warpgroup
+    and three 64-key K and V stages in bf16, plus 1 KB to align. Flash runs
+    one warpgroup (230,400 bytes at head_dim 256, within the card's
+    232,448), the prefix partials two (``sp_prefix``: 263,168 at 256)."""
+    return (64 * warpgroups + 6 * 64) * head_dim * 2 + 1024
 
 
 def paged_flash_attention_ref(
@@ -43,9 +52,11 @@ def paged_flash_attention_ref(
     scale: Optional[float] = None,
     window: int = NO_WINDOW,
     sinks: Optional[torch.Tensor] = None,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """The plain version under the kernel's affine-position contract, with
-    ``sinks`` [H] in each head's softmax denominator."""
+    ``sinks`` [H] in each head's softmax denominator and the scaled scores
+    capped at ``softcap`` (0 = off)."""
     l, n_blocks = k_cache.shape[:2]
     s = q.shape[1]
     positions = base_pos.long()[:, None] + torch.arange(s, device=q.device)[None, :]
@@ -56,6 +67,7 @@ def paged_flash_attention_ref(
         block_tables.long() + layer_idx * n_blocks,
         positions, context_lens, scale=scale,
         sliding_window=None if window >= NO_WINDOW else window, sinks=sinks,
+        softcap=softcap,
     )
 
 
@@ -65,7 +77,7 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                       i, ctypes.c_float, p]
+                       i, ctypes.c_float, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -106,6 +118,7 @@ def paged_flash_attention(
     scale: Optional[float] = None,
     window: int = NO_WINDOW,     # sliding window; NO_WINDOW = off
     sinks: Optional[torch.Tensor] = None,  # [H] sink logits; None = off
+    softcap: float = 0.0,        # scores <- cap * tanh(scores / cap); 0 = off
 ) -> torch.Tensor:
     """Causal attention of an S-token chunk over layer ``layer_idx`` of the
     stacked cache; returns [B, S, H, D]."""
@@ -114,7 +127,7 @@ def paged_flash_attention(
     if q.device.type != "cuda":
         return paged_flash_attention_ref(
             q, k_cache, v_cache, block_tables, base_pos, context_lens,
-            layer_idx, scale, window, sinks)
+            layer_idx, scale, window, sinks, softcap)
     global launches
     _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
                        context_lens)
@@ -126,13 +139,14 @@ def paged_flash_attention(
     base = base_pos.to(device=q.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
     sk = kernel_sinks(sinks, h, q.device)
+    cap = kernel_softcap(softcap)
     out = torch.empty_like(q)
     rc = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
         base.data_ptr(), ctx.data_ptr(), None if sk is None else sk.data_ptr(),
         out.data_ptr(), b, s, h, kvh, d, n,
         bs, bt.shape[1], int(layer_idx), int(min(window, NO_WINDOW)),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), cap, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "paged_flash_bf16")
     launches += 1

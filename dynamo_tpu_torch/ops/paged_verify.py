@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from . import _build, splitkv
-from .attention import NO_WINDOW, kernel_sinks, paged_attention
+from .attention import NO_WINDOW, kernel_sinks, kernel_softcap, paged_attention
 
 launches = 0
 
@@ -32,8 +32,8 @@ launches = 0
 # kernel (the reference's VERIFY_MAX_S; spec rounds are K + 1 <= 17)
 VERIFY_MAX_S = 32
 # the head_dims the kernel instantiates (Llama-3.2-1B has 64; Llama-3-8B,
-# Qwen and Mistral 128)
-_HEAD_DIMS = (64, 128)
+# Qwen and Mistral 128; Gemma-2-9b 256)
+_HEAD_DIMS = (64, 128, 256)
 
 
 def paged_verify_attention_ref(
@@ -47,10 +47,12 @@ def paged_verify_attention_ref(
     scale: Optional[float] = None,
     window: int = NO_WINDOW,
     sinks: Optional[torch.Tensor] = None,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """The plain version: query s of row b at ``base_pos[b] + s`` sees key
     j iff j <= base + s, j < ctx and j > base + s - window; ``sinks`` [H]
-    join each head's softmax denominator."""
+    join each head's softmax denominator; the scaled scores are capped at
+    ``softcap`` (0 = off)."""
     l, n_blocks = k_cache.shape[:2]
     s = q.shape[1]
     positions = base_pos.long()[:, None] + torch.arange(s, device=q.device)[None, :]
@@ -61,6 +63,7 @@ def paged_verify_attention_ref(
         block_tables.long() + layer_idx * n_blocks,
         positions, context_lens, scale=scale,
         sliding_window=None if window >= NO_WINDOW else window, sinks=sinks,
+        softcap=softcap,
     )
 
 
@@ -70,7 +73,7 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       i, i, i, i, i, i, ctypes.c_float, p]
+                       i, i, i, i, i, i, ctypes.c_float, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -95,10 +98,10 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
     if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
         raise NotImplementedError(
             f"verify kernel: head_dim {d} is not one of {_HEAD_DIMS}")
-    if h % kvh or h // kvh > splitkv.MAX_ROWS:
+    if h % kvh or h // kvh > splitkv.max_rows(d):
         raise NotImplementedError(
             f"verify kernel: {h} heads over {kvh} KV heads (a group of at "
-            f"most {splitkv.MAX_ROWS})")
+            f"most {splitkv.max_rows(d)} at head_dim {d})")
     if (block_tables.shape[0] != b or base_pos.shape != (b,)
             or context_lens.shape != (b,)):
         raise ValueError("block_tables / base_pos / context_lens do not match the batch")
@@ -115,6 +118,7 @@ def paged_verify_attention(
     scale: Optional[float] = None,
     window: int = NO_WINDOW,     # sliding window; NO_WINDOW = off
     sinks: Optional[torch.Tensor] = None,  # [H] sink logits; None = off
+    softcap: float = 0.0,        # scores <- cap * tanh(scores / cap); 0 = off
 ) -> torch.Tensor:
     """Causal attention of an S-token verify tail over layer ``layer_idx``
     of the stacked cache; returns [B, S, H, D]."""
@@ -123,7 +127,7 @@ def paged_verify_attention(
     if q.device.type != "cuda":
         return paged_verify_attention_ref(
             q, k_cache, v_cache, block_tables, base_pos, context_lens,
-            layer_idx, scale, window, sinks)
+            layer_idx, scale, window, sinks, softcap)
     global launches
     _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
                        context_lens)
@@ -135,9 +139,11 @@ def paged_verify_attention(
     base = base_pos.to(device=q.device, dtype=torch.int32).contiguous()
     ctx = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
     sk = kernel_sinks(sinks, h, q.device)
+    cap = kernel_softcap(softcap)
     out = torch.empty_like(q)
     chunk, splits = splitkv.plan(bt.shape[1] * bs)
-    sq, parts = splitkv.query_parts(s, h // kvh)
+    sq, parts = splitkv.query_parts(s, h // kvh, splitkv.max_rows(d))
+    splitkv.check_fits("verify kernel", d, sq * (h // kvh), chunk, bs)
     ws = splitkv.workspace(q.device, b, parts * kvh, splits, sq * (h // kvh), d)
     cnt = splitkv.counters(q.device, b * parts * kvh)
     rc = _lib()(
@@ -145,7 +151,7 @@ def paged_verify_attention(
         base.data_ptr(), ctx.data_ptr(), None if sk is None else sk.data_ptr(),
         out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, s, sq, h, kvh, d, n,
         bs, bt.shape[1], int(layer_idx),
-        int(min(window, NO_WINDOW)), chunk, splits, float(scale),
+        int(min(window, NO_WINDOW)), chunk, splits, float(scale), cap,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "paged_verify_bf16")

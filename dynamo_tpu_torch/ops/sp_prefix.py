@@ -49,7 +49,8 @@ launches = 0
 MASK_VALUE = -1e30
 
 # the head_dims the library instantiates (Llama-3.2-1B: 64; 128 for the
-# 8B/70B-class models)
+# 8B/70B-class models). Not 256: a CTA of two warpgroups would need
+# 263,168 bytes of shared memory (``paged_flash.smem_bytes(256, 2)``)
 _HEAD_DIMS = (64, 128)
 _ROWS_PER_CTA = 128  # (query position, group head) rows per CTA in the kernel
 

@@ -19,6 +19,11 @@ merges them; it finds out it is last from a counter per (batch row, query
 part, KV head) in a buffer kept here per device, zeroed once when allocated and
 set back to 0 by every merge. Launches on one device run on one stream at
 a time (the engine's), so the kernels share that buffer.
+
+``smem_bytes`` mirrors the kernel's shared-memory layout, so a wrapper
+refuses by name a shape that would not fit a CTA on the card (at head_dim
+256 a split of more than ~6,600 block-table entries), before a launch
+could fail.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ TILE_KEYS = 64    # the kernel's K/V tile
 MIN_CHUNK = 256   # keys a split covers at least
 MAX_SPLITS = 32
 MAX_ROWS = 128    # (query position, group head) rows a CTA holds: Sq * G
+MAX_ROWS_D256 = 16  # ... at head_dim 256: one row tile (more spilled)
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA may take on an H100
 
 _counters: Dict[torch.device, torch.Tensor] = {}
 
@@ -45,13 +52,43 @@ def plan(table_keys: int) -> Tuple[int, int]:
     return chunk, -(-max(table_keys, 1) // chunk)
 
 
-def query_parts(s: int, g: int) -> Tuple[int, int]:
+def max_rows(head_dim: int) -> int:
+    """The (query position, group head) rows a CTA holds at ``head_dim``:
+    one 16-row tile at 256, eight below (``paged_splitkv.cuh``)."""
+    return MAX_ROWS_D256 if head_dim >= 256 else MAX_ROWS
+
+
+def query_parts(s: int, g: int, rows: int = MAX_ROWS) -> Tuple[int, int]:
     """(Sq, parts) for S queries of G group heads: the fewest parts of at
-    most ``MAX_ROWS`` rows each, their sizes balanced (S 17 at G 8: parts of
-    9 and 8 positions). The caller checks ``g <= MAX_ROWS``."""
-    parts = -(-s // max(1, min(s, MAX_ROWS // g)))
+    most ``rows`` rows each, their sizes balanced (S 17 at G 8: parts of 9
+    and 8 positions; at head_dim 256's 16 rows, S 17 at G 2: 6, 6 and 5).
+    The caller checks ``g <= rows``."""
+    parts = -(-s // max(1, min(s, rows // g)))
     sq = -(-s // parts)
     return sq, -(-s // sq)
+
+
+def smem_bytes(head_dim: int, rows: int, chunk: int, bs: int) -> int:
+    """Dynamic shared memory of one CTA of the split-KV core
+    (``paged_splitkv.cuh`` ``smem_bytes``): Q padded to 16-row tiles, the
+    three-stage K and V rings of 64-key tiles, the merge's row statistics
+    and flag, and the chunk's block-table entries."""
+    tiles = 1 if rows <= 16 else 2 if rows <= 32 else 4 if rows <= 64 else 8
+    return (16 * tiles * head_dim * 2 + 2 * 3 * TILE_KEYS * head_dim * 2
+            + 2 * MAX_ROWS * 4 + 16 + (chunk // bs + 2) * 4)
+
+
+def check_fits(kernel: str, head_dim: int, rows: int, chunk: int,
+               bs: int) -> None:
+    """Raise, naming ``kernel`` and the shape, when a CTA of ``rows`` rows
+    over ``chunk``-key splits of ``bs``-token pages would not fit the
+    card's shared memory."""
+    need = smem_bytes(head_dim, rows, chunk, bs)
+    if need > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"{kernel}: head_dim {head_dim} with {rows} rows a CTA over "
+            f"{chunk}-key splits of {bs}-token pages needs {need} bytes of "
+            f"shared memory (> {SMEM_LIMIT})")
 
 
 def counters(device: torch.device, n: int) -> torch.Tensor:

@@ -25,6 +25,16 @@ two), each timed at these shapes:
   cache), layer 1, and ``decode_long_context_layers`` cycling the 4;
 - ``verify_s5``: verify at S 5 over the decode contexts plus a pad row,
   layer 7, and ``verify_s5_layers``;
+- ``decode_b8_d128``, ``verify_s5_d128`` and ``flash_batch4_s128_d128``:
+  the same rows at head_dim 128 (H 32, KVH 8) over a 4-layer cache of
+  256 pages, layer 2;
+- ``decode_b8_d256``, ``verify_s5_d256``, ``verify_s17_d256``,
+  ``flash_batch4_s128_d256`` and ``flash_long_step_d256`` (S 512 at base
+  4,608, ctx 5,000: ``chip_smoke``'s 5,000-token prompt's last chunk): the
+  same rows in gemma-2-9b's attention form
+  (H 16, KVH 8, head_dim 256, scale 256^-0.5, softcap 50) over a 2-layer
+  cache of 1,024 pages, layer 1 (builds from before head_dim 256 cannot
+  run them: pick shapes with ``--shapes``);
 - ``mla_decode_b8``: the MLA decode kernel at ``chip_smoke``'s shape (B 8,
   H 16, the decode contexts over 128-page tables of a 27-layer latent
   cache), layer 13, and ``mla_decode_b8_layers`` cycling the 27;
@@ -34,8 +44,11 @@ two), each timed at these shapes:
   ``finish`` + ``extra_bias`` form (a guided row, ``chip_smoke``'s finish
   rows).
 
-Prefill shapes are timed with ``chip_smoke.cuda_ms``, the others with
-``chip_smoke.graph_ms`` (device time). Prints one JSON line per shape: the
+``--shapes a,b`` times only those shapes, ``--kernels k`` builds only
+those kernels from each tree. Kernel 6 (``sp_prefix_14336``) is timed
+with ``chip_smoke.cuda_ms``, every other shape with ``chip_smoke.graph_ms``
+(device time by a CUDA graph's replay: eager times of calls under ~0.1 ms
+are the wrapper's launch rate, and swing by tens of percent). Prints one JSON line per shape: the
 times of each build (ms, one a turn), the largest difference between the
 first two builds' outputs (the epilogue's logprobs, and its tokens when
 they differ), and the card. Needs one CUDA device and ``nvcc``. A build's
@@ -126,13 +139,14 @@ def entry_params(source: str, entry: str):
     return params
 
 
-def build(name: str, csrc: Path, out: Path, current: Path):
-    """The kernels of ``csrc`` as ctypes functions taking the arguments of
-    ``current``'s entry points (the ones the wrappers pass), by name."""
+def build(name: str, csrc: Path, out: Path, current: Path, kernels):
+    """The ``kernels`` of ``csrc`` as ctypes functions taking the arguments
+    of ``current``'s entry points (the ones the wrappers pass), by name."""
     from dynamo_tpu_torch.ops import _build
 
     fns = {}
-    for kernel, (_, entry) in KERNELS.items():
+    for kernel in kernels:
+        entry = KERNELS[kernel][1]
         src = csrc / f"{kernel}.cu"
         so = out / f"{name}-{kernel}.so"
         res = subprocess.run(
@@ -167,6 +181,11 @@ def build(name: str, csrc: Path, out: Path, current: Path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("builds", nargs="+", metavar="NAME=CSRC_DIR")
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated subset of the shapes to time")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="the kernels to build from each tree (the others "
+                         "run the port's own build)")
     args = ap.parse_args(argv)
     import torch
 
@@ -187,10 +206,11 @@ def main(argv=None) -> int:
     from dynamo_tpu_torch.ops import sp_prefix as spx
 
     tmp = Path(tempfile.mkdtemp(prefix="kernel_ab-"))
+    kernels = args.kernels.split(",")
     builds = {}
     for spec in args.builds:
         name, _, csrc = spec.partition("=")
-        builds[name] = build(name, Path(csrc), tmp, _build.CSRC)
+        builds[name] = build(name, Path(csrc), tmp, _build.CSRC, kernels)
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
@@ -230,6 +250,31 @@ def main(argv=None) -> int:
         at += n_pg
     ctxlc = torch.tensor(cs.LONG_DECODE_CTX, dtype=torch.int32, device=dev)
     qlc = torch.randn(4, 1, H, D, generator=g, device=dev).bfloat16()
+    # head_dim 128: the decode, verify and flash rows over a 4-layer cache
+    k128 = torch.randn(4, 256, BS, KVH, 128, generator=g, device=dev).bfloat16()
+    v128 = torch.randn(4, 256, BS, KVH, 128, generator=g, device=dev).bfloat16()
+    bt128 = torch.stack([torch.randperm(256, generator=g, device=dev)[:128]
+                         for _ in range(9)]).int()
+    bt128[8] = 0
+    qd128 = torch.randn(8, 1, H, 128, generator=g, device=dev).bfloat16()
+    qv128 = torch.randn(9, 5, H, 128, generator=g, device=dev).bfloat16()
+    qb128 = torch.randn(4, 128, H, 128, generator=g, device=dev).bfloat16()
+    btb128 = bt128[:4].clone()
+    btb128[3] = 0
+    # gemma-2-9b's attention form: head_dim 256, G 2, softcap 50
+    k256 = torch.randn(2, N, BS, KVH, 256, generator=g, device=dev).bfloat16()
+    v256 = torch.randn(2, N, BS, KVH, 256, generator=g, device=dev).bfloat16()
+    gem = dict(layer_idx=1, scale=256 ** -0.5, softcap=50.0)
+    qd256 = torch.randn(8, 1, 16, 256, generator=g, device=dev).bfloat16()
+    qv256 = torch.randn(9, 5, 16, 256, generator=g, device=dev).bfloat16()
+    q17_256 = torch.randn(9, 17, 16, 256, generator=g, device=dev).bfloat16()
+    base17 = torch.clamp(ctxv - 17, min=0)
+    qb256 = torch.randn(4, 128, 16, 256, generator=g, device=dev).bfloat16()
+    ql256 = torch.randn(1, 512, 16, 256, generator=g, device=dev).bfloat16()
+    basel256 = torch.tensor([cs.SOFTCAP_LONG_STEP[0]], dtype=torch.int32,
+                            device=dev)
+    ctxl256 = torch.tensor([cs.SOFTCAP_LONG_STEP[1]], dtype=torch.int32,
+                           device=dev)
     # MLA decode at chip_smoke's shape: V2-Lite's 16 heads, a 27-layer
     # stacked latent cache, the decode contexts over 128-page tables
     ML = 27
@@ -288,6 +333,22 @@ def main(argv=None) -> int:
             qv, k, v, btv, basev, ctxv, layer_idx=7),
         "verify_s5_layers": cycling(lambda li: pv.paged_verify_attention(
             qv, k, v, btv, basev, ctxv, layer_idx=li), L),
+        "decode_b8_d128": lambda: pd.paged_decode_attention(
+            qd128, k128, v128, bt128[:8], ctx_d, layer_idx=2),
+        "verify_s5_d128": lambda: pv.paged_verify_attention(
+            qv128, k128, v128, bt128, basev, ctxv, layer_idx=2),
+        "flash_batch4_s128_d128": lambda: pf.paged_flash_attention(
+            qb128, k128, v128, btb128, baseb, ctxb, layer_idx=2),
+        "decode_b8_d256": lambda: pd.paged_decode_attention(
+            qd256, k256, v256, btd, ctx_d, **gem),
+        "verify_s5_d256": lambda: pv.paged_verify_attention(
+            qv256, k256, v256, btv, basev, ctxv, **gem),
+        "verify_s17_d256": lambda: pv.paged_verify_attention(
+            q17_256, k256, v256, btv, base17, ctxv, **gem),
+        "flash_batch4_s128_d256": lambda: pf.paged_flash_attention(
+            qb256, k256, v256, btb, baseb, ctxb, **gem),
+        "flash_long_step_d256": lambda: pf.paged_flash_attention(
+            ql256, k256, v256, btl, basel256, ctxl256, **gem),
         "mla_decode_b8": lambda: md.mla_paged_decode_attention(
             qlm, qrm, cm, krm, btd, ctx_d, layer_idx=13, scale=0.11472),
         "mla_decode_b8_layers": cycling(lambda li: md.mla_paged_decode_attention(
@@ -300,19 +361,20 @@ def main(argv=None) -> int:
             *e128, nocommit, extra_bias=extra, finish=fin,
             max_model_len=cs.EPILOGUE_MAX_LEN)[:2],
     }
+    if args.shapes:
+        shapes = {name: shapes[name] for name in args.shapes.split(",")}
     names = list(builds)
     times = {s: {n: [] for n in names} for s in shapes}
     outs = {}
-    wrappers = {kernel: importlib.import_module(f"dynamo_tpu_torch.ops.{mod}")
-                for kernel, (mod, _) in KERNELS.items()}
+    wrappers = {kernel: importlib.import_module(
+        f"dynamo_tpu_torch.ops.{KERNELS[kernel][0]}") for kernel in kernels}
     for name in names + names[::-1]:
         for kernel, mod in wrappers.items():
             mod._lib = lambda fn=builds[name][kernel]: fn
         for shape, fn in shapes.items():
-            # decode and verify run faster than their wrappers launch them:
-            # their device time comes from a CUDA graph's replay
-            timer = (cs.graph_ms if shape.startswith(
-                ("decode", "verify", "mla", "epilogue")) else cs.cuda_ms)
+            # most kernels run faster than their wrappers launch them: their
+            # device time comes from a CUDA graph's replay
+            timer = cs.cuda_ms if shape.startswith("sp_prefix") else cs.graph_ms
             times[shape][name].append(timer(fn))
             if not shape.endswith("_layers"):
                 outs.setdefault((shape, name), fn())
@@ -333,9 +395,12 @@ def main(argv=None) -> int:
         if shape == "flash_long_dense_step":
             a, b = [x[0, :cs.LONG_DENSE_STEP[1] - cs.LONG_DENSE_STEP[0]]
                     for x in (a, b)]
-        if shape == "flash_batch4_s128":
+        if shape == "flash_long_step_d256":
+            a, b = [x[0, :cs.SOFTCAP_LONG_STEP[1] - cs.SOFTCAP_LONG_STEP[0]]
+                    for x in (a, b)]
+        if shape.startswith("flash_batch4_s128"):
             a, b = [torch.cat([x[0], x[1], x[2, :76]]) for x in (a, b)]
-        if shape == "verify_s5":  # the pad row's queries past ctx
+        if shape.startswith("verify_s"):  # the pad row's queries past ctx
             a, b = a[:-1], b[:-1]
         print(json.dumps({"shape": shape, "ms": times[shape],
                           "max_abs_diff_first_two": float(

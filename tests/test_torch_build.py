@@ -5,9 +5,13 @@ and the split-KV launch plan, on the CPU (no ``nvcc``, no card).
   every ``csrc`` header the source includes, so an edited header rebuilds
   (checked on a temporary ``CSRC``);
 - the flash, prefix-partials, decode and verify wrappers accept the
-  head_dims their library instantiates (64 and 128) and refuse others by
-  name before any launch (``_check_cuda_inputs`` on CPU tensors);
+  head_dims their library instantiates (64, 128 and, but for the
+  prefix partials, 256) and refuse others by name before any launch
+  (``_check_cuda_inputs`` on CPU tensors);
 - ``splitkv.plan`` cuts a block table into splits from its width alone;
+- the split-KV and flash CTAs' shared memory stays under the card's limit
+  at every shape the wrappers accept, head_dim 256 included, and a split-KV
+  shape past it raises by name;
 - the MLA decode kernel's plan cuts a row the same at every table width
   (128-key splits in clusters of 8), its counters and workspace are kept
   per device and grow;
@@ -87,7 +91,7 @@ def _flash_inputs(d, h=8, kvh=2):
     return q, k, k.clone(), bt, pos, pos + 1
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_guard_accepts_instantiated_head_dims(d):
     paged_flash._check_cuda_inputs(*_flash_inputs(d))
 
@@ -98,7 +102,7 @@ def test_sp_prefix_guard_accepts_instantiated_head_dims(d):
     sp_prefix._check_cuda_inputs(q, k, v, bt, 17, 2)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_decode_guard_accepts_instantiated_head_dims(d):
     q, k, v, bt, _, ctx = _flash_inputs(d)
     paged_decode._check_cuda_inputs(q[:, :1].contiguous(), k, v, bt, ctx)
@@ -116,7 +120,7 @@ def test_decode_guard_takes_groups_up_to_the_rows_of_a_cta(h, ok):
             paged_decode._check_cuda_inputs(*args)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_verify_guard_accepts_instantiated_head_dims(d):
     q, k, v, bt, base, ctx = _flash_inputs(d)
     paged_verify._check_cuda_inputs(q[:, :5].contiguous(), k, v, bt, base, ctx)
@@ -129,14 +133,29 @@ def test_verify_guard_takes_tails_past_the_rows_of_a_cta(s):
     paged_verify._check_cuda_inputs(q[:, :s].contiguous(), k, v, bt, base, ctx)
 
 
-@pytest.mark.parametrize("s,g,sq,parts", [
-    (1, 8, 1, 1), (5, 8, 5, 1), (16, 8, 16, 1),
-    (17, 8, 9, 2),     # gpt-oss-20b's ngram verify at K 16: 136 rows
-    (32, 8, 16, 2), (32, 4, 32, 1), (5, 64, 2, 3), (2, 128, 1, 2),
+@pytest.mark.parametrize("s,g,rows,sq,parts", [
+    (1, 8, 128, 1, 1), (5, 8, 128, 5, 1), (16, 8, 128, 16, 1),
+    (17, 8, 128, 9, 2),   # gpt-oss-20b's ngram verify at K 16: 136 rows
+    (32, 8, 128, 16, 2), (32, 4, 128, 32, 1), (5, 64, 128, 2, 3),
+    (2, 128, 128, 1, 2),
+    # head_dim 256 (gemma-2-9b, G 2): one 16-row tile a CTA
+    (5, 2, 16, 5, 1), (17, 2, 16, 6, 3), (32, 2, 16, 8, 4), (3, 16, 16, 1, 3),
 ])
-def test_splitkv_query_parts(s, g, sq, parts):
-    assert splitkv.query_parts(s, g) == (sq, parts)
-    assert sq * g <= splitkv.MAX_ROWS and sq * parts >= s > sq * (parts - 1)
+def test_splitkv_query_parts(s, g, rows, sq, parts):
+    assert splitkv.query_parts(s, g, rows) == (sq, parts)
+    assert sq * g <= rows and sq * parts >= s > sq * (parts - 1)
+    if rows == splitkv.MAX_ROWS:
+        assert splitkv.query_parts(s, g) == (sq, parts)
+
+
+def test_splitkv_rows_a_cta_by_head_dim():
+    assert [splitkv.max_rows(d) for d in (64, 128, 256)] == [128, 128, 16]
+    q, k, v, bt, _, ctx = _flash_inputs(256, h=34, kvh=2)  # G 17
+    with pytest.raises(NotImplementedError, match="at most 16 at head_dim 256"):
+        paged_decode._check_cuda_inputs(q[:, :1].contiguous(), k, v, bt, ctx)
+    q, k, v, bt, base, ctx = _flash_inputs(256, h=32, kvh=2)  # G 16
+    paged_decode._check_cuda_inputs(q[:, :1].contiguous(), k, v, bt, ctx)
+    paged_verify._check_cuda_inputs(q[:, :32].contiguous(), k, v, bt, base, ctx)
 
 
 def test_guards_refuse_head_dim_96_by_name():
@@ -149,6 +168,57 @@ def test_guards_refuse_head_dim_96_by_name():
         paged_decode._check_cuda_inputs(q[:, :1].contiguous(), k, v, bt, ctx)
     with pytest.raises(NotImplementedError, match="head_dim 96"):
         paged_verify._check_cuda_inputs(q[:, :5].contiguous(), k, v, bt, base, ctx)
+
+
+def test_sp_prefix_guard_refuses_head_dim_256_by_name():
+    """Two warpgroups of the tensor-core core at head_dim 256 would take
+    more shared memory than a CTA has; flash's one warpgroup fits."""
+    q, k, v, bt, _, _ = _flash_inputs(256)
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        sp_prefix._check_cuda_inputs(q, k, v, bt, 17, 2)
+    assert paged_flash.smem_bytes(256, 2) == 263168 > splitkv.SMEM_LIMIT
+    assert paged_flash.smem_bytes(256) == 230400
+
+
+@pytest.mark.parametrize("d", paged_flash._HEAD_DIMS)
+def test_flash_smem_fits_at_every_head_dim(d):
+    assert paged_flash.smem_bytes(d) <= splitkv.SMEM_LIMIT
+    if d in sp_prefix._HEAD_DIMS:
+        assert paged_flash.smem_bytes(d, 2) <= splitkv.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", paged_decode._HEAD_DIMS)
+@pytest.mark.parametrize("bs", [1, 16, 64])
+def test_splitkv_smem_fits_every_accepted_shape(d, bs):
+    """Every (query position, group head) row count a CTA takes (1 to
+    128: one to eight 16-row tiles) over the splits of every table up to
+    128k keys a row (gemma-2-9b: 8,192 at bs 16), within the card's shared
+    memory (at head_dim 256 a CTA holds 16 rows)."""
+    widest = 0
+    for rows in (r for r in (1, 2, 16, 17, 32, 33, 64, 65, 128)
+                 if r <= splitkv.max_rows(d)):
+        for table_keys in (16, 2048, 8192, 16384, 131072):
+            chunk, _ = splitkv.plan(table_keys)
+            need = splitkv.smem_bytes(d, rows, chunk, bs)
+            splitkv.check_fits("decode kernel", d, rows, chunk, bs)
+            widest = max(widest, need)
+    assert widest <= splitkv.SMEM_LIMIT
+    # the layout of the header at 16 rows over 256-key splits of 16-token
+    # pages: Q, the K and V rings, statistics, flag, 18 table entries
+    assert splitkv.smem_bytes(d, 16, 256, 16) == (
+        32 * d + 2 * 3 * 64 * d * 2 + 1024 + 16 + 18 * 4)
+
+
+def test_splitkv_shape_past_the_shared_memory_raises_by_name():
+    """One-token pages and a 1M-key table: a split's 32,770 block-table
+    entries do not fit beside head_dim 256's ring; 4,098 (a 128k-key
+    table) do."""
+    chunk, _ = splitkv.plan(1 << 20)
+    assert splitkv.smem_bytes(256, 16, chunk, 1) > splitkv.SMEM_LIMIT
+    with pytest.raises(NotImplementedError,
+                       match="verify kernel: head_dim 256 with 16 rows"):
+        splitkv.check_fits("verify kernel", 256, 16, chunk, 1)
+    splitkv.check_fits("verify kernel", 256, 16, splitkv.plan(1 << 17)[0], 1)
 
 
 @pytest.mark.parametrize("table_keys,chunk,splits", [

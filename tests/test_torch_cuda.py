@@ -777,3 +777,121 @@ def test_flash_kernel_sinks(window):
         valid = min(s, ctx - base)
         torch.testing.assert_close(out[i, :valid].float(), ref[i, :valid],
                                    atol=ATOL, rtol=RTOL)
+
+
+# Gemma-2's logit softcap: q scaled so the scores are ~N(0, 4^2) and a cap
+# of 5 binds (tanh of most scores is far from linear); head_dim 256 with
+# and without it (gemma-2-9b), 64 and 128 with it
+SOFTCAP_FORMS = [(64, 5.0), (128, 5.0), (256, 5.0), (256, 0.0)]
+
+
+def _softcap_q(g, shape):
+    return (torch.randn(shape, generator=g, device="cuda") * 4.0).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,cap", SOFTCAP_FORMS)
+@pytest.mark.parametrize("h", [4, 16])  # G 2 (gemma-2-9b) and 8
+@pytest.mark.parametrize("window", [paged_decode.NO_WINDOW, 300])
+def test_decode_kernel_softcap_and_d256_at_split_edges(d, cap, h, window):
+    """The softcap and head_dim-256 forms at the splits' edges, a window
+    that crosses a split, a ctx-0 row of zeros; two calls bit-identical."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    k, v = _cache(g, blocks=400, d=d)
+    n = len(SPLIT_EDGE_CTX)
+    bt = torch.randperm(400, generator=g, device="cuda")[: n * 48].reshape(n, 48).int()
+    ctx = torch.tensor(SPLIT_EDGE_CTX, dtype=torch.int32, device="cuda")
+    q = _softcap_q(g, (n, 1, h, d))
+    kw = dict(layer_idx=2, window=window, softcap=cap)
+    before = paged_decode.launches
+    out = paged_decode.paged_decode_attention(q, k, v, bt, ctx, **kw)
+    again = paged_decode.paged_decode_attention(q, k, v, bt, ctx, **kw)
+    ref = paged_decode.paged_decode_attention_ref(
+        q.float(), k.float(), v.float(), bt, ctx, 2, None, window, None, cap)
+    torch.cuda.synchronize()
+    assert paged_decode.launches == before + 2
+    assert torch.equal(out, again)
+    assert not out[0].any()  # ctx 0: zeros
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,cap", SOFTCAP_FORMS)
+@pytest.mark.parametrize("h,s", [(4, 5), (4, 32), (16, 17)])  # 10, 64, 136 rows
+@pytest.mark.parametrize("window", [paged_verify.NO_WINDOW, 300])
+def test_verify_kernel_softcap_and_d256_at_split_edges(d, cap, h, s, window):
+    """Verify tails at a 256-key split's edges and a pad row in the softcap
+    and head_dim-256 forms, up to 64 rows a CTA and two query parts; two
+    calls bit-identical."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    k, v = _cache(g, blocks=400, d=d)
+    rows = [(255 - s, 255), (256 - s, 256), (257 - s, 257), (256, 256 + s),
+            (700, 700 + s - 1), None]
+    n = len(rows)
+    bt = torch.randperm(400, generator=g, device="cuda")[: n * 48].reshape(n, 48).int()
+    bt[-1] = 0
+    rows = [r or (0, 1) for r in rows]
+    q = _softcap_q(g, (n, s, h, d))
+    b = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
+    c = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
+    kw = dict(layer_idx=1, window=window, softcap=cap)
+    out = paged_verify.paged_verify_attention(q, k, v, bt, b, c, **kw)
+    again = paged_verify.paged_verify_attention(q, k, v, bt, b, c, **kw)
+    ref = paged_verify.paged_verify_attention_ref(
+        q.float(), k.float(), v.float(), bt, b, c, 1, None, window, None, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert out.float().isfinite().all()
+    for i, (base, ctx) in enumerate(rows):
+        valid = min(s, ctx - base)
+        torch.testing.assert_close(out[i, :valid].float(), ref[i, :valid],
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,cap", SOFTCAP_FORMS)
+@pytest.mark.parametrize("window", [paged_flash.NO_WINDOW, 20])
+def test_flash_kernel_softcap_and_d256(d, cap, window):
+    """The softcap and head_dim-256 forms over a batched prefill step (from
+    0, a prefix hit, a padded tail, a pad row) at G 2."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    k, v = _cache(g, d=d)
+    rows = [(0, 40), (20, 84), (48, 60), None]
+    n, s = len(rows), 64
+    bt = torch.randperm(40, generator=g, device="cuda")[: n * 6].reshape(n, 6).int()
+    bt[-1] = 0
+    rows = [r or (0, 1) for r in rows]
+    q = _softcap_q(g, (n, s, 4, d))
+    b = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
+    c = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
+    before = paged_flash.launches
+    out = paged_flash.paged_flash_attention(q, k, v, bt, b, c, layer_idx=1,
+                                            window=window, softcap=cap)
+    ref = paged_flash.paged_flash_attention_ref(
+        q.float(), k.float(), v.float(), bt, b, c, 1, None, window, None, cap)
+    torch.cuda.synchronize()
+    assert paged_flash.launches == before + 1
+    assert out.float().isfinite().all()
+    for i, (base, ctx) in enumerate(rows):
+        valid = min(s, ctx - base)
+        torch.testing.assert_close(out[i, :valid].float(), ref[i, :valid],
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_sp_prefix_kernel_refuses_head_dim_256_by_name():
+    """Two warpgroups at head_dim 256 would need 263,168 bytes of shared
+    memory: the partials kernel keeps 64 and 128 and refuses 256 before
+    any launch."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(24)
+    k, v = _cache(g, d=256)
+    q = torch.randn(2, 64, 4, 256, generator=g, device="cuda").bfloat16()
+    bt = torch.zeros(2, 6, dtype=torch.int32, device="cuda")
+    before = sp_prefix.launches
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        sp_prefix.paged_prefix_attention_partials(q, k, v, bt, 17, 1)
+    assert sp_prefix.launches == before

@@ -295,3 +295,18 @@ def test_config_refuses_unported_features():
     moe = EngineConfig(model=dataclasses.replace(model, num_experts=4))
     with pytest.raises(NotImplementedError):
         ModelRunner(moe, device="cpu")
+
+
+def test_runner_refuses_float32_on_a_card_by_name(monkeypatch):
+    """The attention kernels take bf16 only: a runner built on a CUDA
+    device with ``dtype="float32"`` raises by name before it allocates
+    anything (here the card is faked: the check needs none), while the CPU
+    keeps f32 for the differential tests."""
+    import torch
+
+    model = ModelConfig(**TINY)
+    assert ModelRunner(EngineConfig(model=model, **BASE), device="cpu").dtype \
+        == torch.float32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="dtype='float32' on a CUDA"):
+        ModelRunner(EngineConfig(model=model, **BASE), device="cuda")
