@@ -46,7 +46,13 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    and at gemma-2-27b's head_dim 128 (H 32, KVH 16, scale 144^-0.5), each
    timed beside its no-softcap form (no PyTorch call computes a softcapped
    softmax: SDPA without the cap stands beside it as such), and the
-   epilogue at gemma-2-9b's 256,000. Flash
+   epilogue at gemma-2-9b's 256,000; decode, verify and flash at head_dim
+   128 over the MoE families' caches (``MOE_ATTENTION``: Qwen3-30B-A3B's
+   32 heads over 4 KV heads and 48 layers, Mixtral-8x7B's 32 over 8 and
+   32 layers; decode at the split edges and the engine's contexts, verify
+   at S 5 and 17 with a pad row, flash at the engine's batched prefill
+   steps), and the epilogue at their vocabularies of 151,936 and 32,000
+   in every form. Flash
    and the prefix partials (one tensor-core core) are also held at head_dim
    128 (H 32, KVH 8), and flash also at the dense ladder's long step of
    ``engine_sp`` (S 512 at position 11,776, ctx 12,000: the query tiles
@@ -117,7 +123,30 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the same weight tensors (identical streams, the chained dispatches
    under the sync guard), and the spec prompts without and with ngram
    speculation (verify launches; equal or parted at a near-tie).
-10. ``engine_sp`` — sequence-parallel long-context prefill on Llama-3.2-1B
+10. ``engine_qwen3moe`` — Qwen3-30B-A3B at full width and depth (48
+   layers, 30.53 B parameters: 128 experts top 8, per-head q/k norms,
+   G 8 at head_dim 128, an untied 151,936 vocabulary), built by
+   ``ModelConfig.from_hf_config`` from its published ``config.json``
+   values with seeded random bf16 weights and seeded non-unit q/k norms:
+   wave 1 and the prefix-hit wave (streams, the decode, flash and epilogue
+   launch counts, peak memory), a profiled decode step, the 2-layer logits
+   against the CPU in f32 (routing pinned at no drop and held; free and
+   reported), wave 1 again on a 4-step-burst and a chained engine over the
+   same weight tensors (identical streams, the chained dispatches under
+   the sync guard), and the spec prompts without and with ngram
+   speculation (verify launches; routing pinned).
+11. ``engine_mixtral_int8`` — Mixtral-8x7B at full width and all 32 layers
+   in int8 (46.70 B parameters, 8 experts top 2, G 4 at head_dim 128, a
+   32,000 vocabulary), from its published ``config.json`` values with
+   ``quantization="int8"``: the weights are quantized slice by slice as
+   they are drawn (93 GB in bf16 would not fit), and every ``QUANT_KEYS``
+   leaf on the card must be int8. Wave 1 and the prefix-hit wave, a
+   profiled decode step with the step's dequantising conversions timed as
+   a line of their own, the 2-layer logits against the CPU in f32 from the
+   same ``q`` and ``scale`` (routing pinned and held; free and reported),
+   and wave 1 again on a 4-step-burst and a chained engine (identical
+   streams).
+12. ``engine_sp`` — sequence-parallel long-context prefill on Llama-3.2-1B
    (16k context, ``sp_size`` 4, the ranks laid out on the one card): a
    12,000- and a 6,000-token prompt on the SP ladder beside two short
    prompts on the dense ladder, then a prefix-hit request, on a
@@ -134,12 +163,15 @@ numbers (the epilogue twice a vocabulary: its plain form with the main
 path's launches, its ``finish`` + ``extra_bias`` form with the chained
 engine's; the sink forms and the epilogue at V 201,088 with the gpt-oss
 paths' launches, the softcap forms and the epilogue at V 256,000 with the
-gemma-2 paths'); the line before that the card's name and power limit.
+gemma-2 paths', the head_dim-128 forms and the epilogue at V 151,936 and
+32,000 with the Qwen3-MoE and Mixtral paths'); the line before that the
+card's name and power limit.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import gc
 import json
 import subprocess
@@ -223,6 +255,37 @@ GEMMA_2_9B = {
     "final_logit_softcapping": 30.0, "hidden_act": "gelu_pytorch_tanh",
     "hidden_activation": "gelu_pytorch_tanh", "attention_bias": False,
     "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+}
+# Qwen3-30B-A3B (its published config.json): 48 layers, 32 query heads over
+# 4 KV heads of dim 128 with per-head q/k norms, 128 experts top 8 of
+# width 768 (top-k renormalised), rope theta 1e6, no window, untied 151,936
+# vocabulary: 30.53 B parameters, 61.1 GB in bf16
+QWEN3_30B_A3B = {
+    "architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe",
+    "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 6144,
+    "moe_intermediate_size": 768, "num_hidden_layers": 48,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "head_dim": 128,
+    "num_experts": 128, "num_experts_per_tok": 8, "norm_topk_prob": True,
+    "decoder_sparse_step": 1, "mlp_only_layers": [],
+    "max_position_embeddings": 40960, "rope_theta": 1000000.0,
+    "rope_scaling": None, "rms_norm_eps": 1e-6, "tie_word_embeddings": False,
+    "attention_bias": False, "sliding_window": None,
+    "use_sliding_window": False, "hidden_act": "silu",
+    "bos_token_id": 151643, "eos_token_id": 151645,
+}
+# Mixtral-8x7B (its published config.json): 32 layers, 32 query heads over
+# 8 KV heads of dim 128, 8 experts top 2 of width 14,336, rope theta 1e6,
+# no window, untied 32,000 vocabulary: 46.70 B parameters, 93.4 GB in bf16,
+# 46.7 GB in int8
+MIXTRAL_8X7B = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "max_position_embeddings": 32768,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-5, "sliding_window": None,
+    "tie_word_embeddings": False, "hidden_act": "silu",
+    "bos_token_id": 1, "eos_token_id": 2,
 }
 ENGINE = dict(max_batch_size=8, max_model_len=2048, kv_block_size=16,
               num_kv_blocks=1024, dtype="bfloat16",
@@ -556,9 +619,12 @@ def kernel_phase(torch, dev):
     entries["mla_decode"] = _mla_cases(torch, dev)
     entries.update(_sink_cases(torch, dev))
     entries.update(_softcap_cases(torch, dev))
-    # kernel 3 at gpt-oss-20b's vocabulary of 201,088 and gemma-2-9b's of
-    # 256,000
-    for fam, model in (("gptoss", GPT_OSS_20B), ("gemma2", GEMMA_2_9B)):
+    for family in MOE_ATTENTION:
+        entries.update(_moe_attention_cases(torch, dev, family))
+    # kernel 3 at gpt-oss-20b's vocabulary of 201,088, gemma-2-9b's of
+    # 256,000, Qwen3-30B-A3B's of 151,936 and Mixtral-8x7B's of 32,000
+    for fam, model in (("gptoss", GPT_OSS_20B), ("gemma2", GEMMA_2_9B),
+                       ("qwen3moe", QWEN3_30B_A3B), ("mixtral", MIXTRAL_8X7B)):
         gv = model["vocab_size"]
         for key, fn in ((f"sampling_epilogue_{fam}", _epilogue_cases),
                         (f"sampling_epilogue_finish_{fam}",
@@ -1577,6 +1643,178 @@ def _softcap_d128(torch, dev):
     torch.cuda.empty_cache()
 
 
+# the MoE families' attention at head_dim 128: Qwen3-30B-A3B (32 heads over
+# 4 KV heads, G 8, 48 layers) and Mixtral-8x7B (32 over 8, G 4, 32 layers),
+# neither windowed nor capped; (H, KVH, layers, with verify)
+MOE_ATTENTION = {"qwen3moe": (32, 4, 48, True), "mixtral": (32, 8, 32, False)}
+
+
+def _moe_attention_cases(torch, dev, family):
+    """Kernels 1, 2 and 4 at a MoE family's attention (``MOE_ATTENTION``),
+    each call held against its f32 plain version at ATOL / RTOL (decode and
+    verify twice, bit-identical), over a cache of the family's depth:
+
+    - decode at the split edges (``DECODE_EDGE_CTX``) and at the engine's
+      decode contexts, the latter timed;
+    - verify at S 5 (the spec engine's K + 1) and 17 (136 rows at G 8: two
+      query parts) over the engine's decode contexts and a pad row, S 5
+      timed (the Qwen3 family's spec engine runs it);
+    - flash at the engine's batched prefill steps (8 rows at S 64, 4 at
+      S 128, pad rows), the second timed.
+
+    Each timed call gives its ``graph_ms``, the plain version's time, the
+    bound and an SDPA yardstick over pre-gathered dense keys. Returns the
+    kernels-line entries."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_flash as pf
+    from dynamo_tpu_torch.ops import paged_verify as pv
+
+    F = torch.nn.functional
+    H, KVH, L, with_verify = MOE_ATTENTION[family]
+    N, BS, D, layer = 1024, 16, 128, L // 2 + 1
+    NW = pd.NO_WINDOW
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    k = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    k32, v32 = k[layer:layer + 1].float(), v[layer:layer + 1].float()
+    W = ENGINE["max_model_len"] // BS
+    bt = torch.randperm(N, generator=g, device=dev)[:8 * W].reshape(8, W).int()
+    ctx_l = [1, 15, 16, 17, 513, 2048, 700, 1500]
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    shape = dict(H=H, KVH=KVH, D=D, bs=BS, L=L, layer=layer)
+    out = {}
+
+    def entry(kernel, source, core, replaces, errs, ms, plain_ms, lib_ms,
+              bound, by):
+        return dict(name=f"{kernel}[{family}]", route="cuda", source=source,
+                    core=core, replaces=replaces,
+                    max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=lib_ms)
+
+    def sdpa_ms(q, btab, base, cc, S):
+        T = int(max(cc.tolist()))
+        B = q.shape[0]
+        kd = k[layer][btab.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+        vd = v[layer][btab.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+        kd = kd.repeat_interleave(H // KVH, dim=1).contiguous()
+        vd = vd.repeat_interleave(H // KVH, dim=1).contiguous()
+        mask = _visible_mask(torch, base, cc, S, T, 1 << 30)[:, None]
+        qd = q.transpose(1, 2).contiguous()
+        return graph_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+
+    # ---- decode (the f32 cache copies hold the tested layer only: layer 0
+    # of k32 / v32 is the cache's ``layer``)
+    errs = {}
+    ctx_e = torch.tensor(DECODE_EDGE_CTX, dtype=torch.int32, device=dev)
+    qe = torch.randn(8, 1, H, D, generator=g, device=dev).bfloat16()
+    q = torch.randn(8, 1, H, D, generator=g, device=dev).bfloat16()
+    for name, qq, cc in (("edges", qe, ctx_e), ("engine", q, ctx)):
+        out_k = pd.paged_decode_attention(qq, k, v, bt, cc, layer_idx=layer)
+        again = pd.paged_decode_attention(qq, k, v, bt, cc, layer_idx=layer)
+        ref = pd.paged_decode_attention_ref(qq.float(), k32, v32, bt, cc, 0)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, again):
+            raise AssertionError(f"decode [{family}] {name}: two calls are not "
+                                 "bit-identical")
+        errs[name] = check_close(f"decode [{family}] {name}", out_k, ref)
+    ms = graph_ms(lambda: pd.paged_decode_attention(q, k, v, bt, ctx,
+                                                    layer_idx=layer))
+    plain_ms = cuda_ms(lambda: pd.paged_decode_attention_ref(
+        q.float(), k32, v32, bt, ctx, 0), iters=5, warmup=1)
+    lib_ms = _sdpa_decode_ms(torch, q, k, layer, bt, ctx_l, v)
+    bound, by = _attn_bound(D, H, KVH, q, [c - 1 for c in ctx_l], ctx_l, 1, NW)
+    emit("kernels", kernel=f"paged_decode[{family}]",
+         shape=dict(shape, B=8, edges=DECODE_EDGE_CTX, ctx=ctx_l),
+         max_err=errs, bit_identical=True, kernel_ms=ms, plain_ms=plain_ms,
+         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    out[f"paged_decode_{family}"] = entry(
+        "paged_decode_attention", "dynamo_tpu_torch/csrc/paged_decode.cu",
+        "dynamo_tpu_torch/csrc/paged_splitkv.cuh",
+        "dynamo_tpu/ops/pallas_decode.py:742", errs, ms, plain_ms, lib_ms,
+        bound, by)
+
+    # ---- verify: the engine's decode rows and a pad row (base 0, ctx 1,
+    # table 0)
+    if with_verify:
+        errs, timed = {}, None
+        btv = torch.cat([bt, torch.zeros_like(bt[:1])])
+        ctxv = torch.tensor(ctx_l + [1], dtype=torch.int32, device=dev)
+        for S in (17, 5):
+            base = torch.clamp(ctxv - S, min=0)
+            qv = torch.randn(9, S, H, D, generator=g, device=dev).bfloat16()
+            kw = dict(layer_idx=layer)
+            o1 = pv.paged_verify_attention(qv, k, v, btv, base, ctxv, **kw)
+            o2 = pv.paged_verify_attention(qv, k, v, btv, base, ctxv, **kw)
+            ref = pv.paged_verify_attention_ref(qv.float(), k32, v32, btv, base,
+                                                ctxv, 0)
+            torch.cuda.synchronize()
+            if not (torch.equal(o1, o2) and bool(o1.float().isfinite().all())):
+                raise AssertionError(f"verify [{family}] S={S}: not bit-identical "
+                                     "or not finite")
+            errs[f"S{S}"] = max(
+                check_close(f"verify [{family}] S={S} row {i}", o1[i, :c - b],
+                            ref[i, :c - b])
+                for i, (b, c) in enumerate(zip(base.tolist(), ctxv.tolist()))
+                if c > b)
+            timed = (qv, base, S)
+        qv, base, S = timed
+        ms = graph_ms(lambda: pv.paged_verify_attention(qv, k, v, btv, base, ctxv,
+                                                        layer_idx=layer))
+        plain_ms = cuda_ms(lambda: pv.paged_verify_attention_ref(
+            qv.float(), k32, v32, btv, base, ctxv, 0), iters=5, warmup=1)
+        lib_ms = sdpa_ms(qv, btv, base, ctxv, S)
+        bound, by = _attn_bound(D, H, KVH, qv, base.tolist(), ctxv.tolist(), S, NW)
+        emit("kernels", kernel=f"paged_verify[{family}]",
+             shape=dict(shape, B=9, S=[5, 17], ctx=ctxv.tolist(),
+                        pad_row="base 0, ctx 1, table 0"),
+             max_err=errs, bit_identical=True, timed_S=S, kernel_ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        out[f"paged_verify_{family}"] = entry(
+            "paged_verify_attention", "dynamo_tpu_torch/csrc/paged_verify.cu",
+            "dynamo_tpu_torch/csrc/paged_splitkv.cuh",
+            "dynamo_tpu/ops/pallas_decode.py:634", errs, ms, plain_ms, lib_ms,
+            bound, by)
+
+    # ---- flash: the engine's batched prefill steps (512-token budget), pad
+    # rows as the scheduler pads the row ladder (base 0, ctx 1, table 0)
+    errs = {}
+    cases = [("batch8_s64", 64, [(0, 64), (256, 320), (128, 168), (1984, 2048),
+                                 (64, 100), (1472, 1500), None, None]),
+             ("batch4_s128", 128, [(0, 128), (384, 512), (1024, 1100), None])]
+    for name, S, rows in cases:
+        B = len(rows)
+        pad = torch.tensor([r is None for r in rows], device=dev)
+        rows = [r or (0, 1) for r in rows]
+        qf = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+        basep = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+        ctxp = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+        btp = bt[:B].clone()
+        btp[pad] = 0
+        errs[name] = _flash_check(torch, pf, f"[{family}] {name}", k[layer:],
+                                  v[layer:], k32, v32, 0, qf, btp, basep, ctxp,
+                                  rows)
+    ms = graph_ms(lambda: pf.paged_flash_attention(qf, k, v, btp, basep, ctxp,
+                                                   layer_idx=layer))
+    plain_ms = cuda_ms(lambda: pf.paged_flash_attention_ref(
+        qf.float(), k32, v32, btp, basep, ctxp, 0), iters=5, warmup=1)
+    lib_ms = sdpa_ms(qf, btp, basep, ctxp, S)
+    bound, by = _attn_bound(D, H, KVH, qf, basep.tolist(), ctxp.tolist(), S, NW)
+    emit("kernels", kernel=f"paged_flash[{family}]",
+         shape=dict(shape, cases={n: dict(S=s_, rows=r) for n, s_, r in cases}),
+         max_err=errs, timed_case="batch4_s128", kernel_ms=ms,
+         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    out[f"paged_flash_{family}"] = entry(
+        "paged_flash_attention", "dynamo_tpu_torch/csrc/paged_flash.cu",
+        "dynamo_tpu_torch/csrc/paged_attn_tc.cuh",
+        "dynamo_tpu/ops/pallas_attention.py:254", errs, ms, plain_ms, lib_ms,
+        bound, by)
+    del k, v, k32, v32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mla_cases(torch, dev):
     """The MLA decode kernel at DeepSeek-V2-Lite's shapes: B 8, H 16, R 512,
     RD 64, bs 16, a 27-layer stacked latent cache at layer 13, the decode
@@ -2121,11 +2359,16 @@ def _check_logits(torch, cfg, arch, mcfg, device, params, prompt_a, prompt_b,
     blocks_a = list(range(n_a))
     blocks_b = list(range(n_a, n_a + -(-(nb + 1) // bs)))
 
+    from dynamo_tpu_torch.models.quant import QuantizedWeight
+
     def tree_map(fn, tree):
         return ({k: tree_map(fn, v) for k, v in tree.items()}
                 if isinstance(tree, dict) else fn(tree))
 
-    cpu_params = tree_map(lambda t: t.cpu().float(), params)
+    # an int8 leaf goes to the CPU as it is: the f32 forward there computes
+    # from the same q and scale
+    cpu_params = tree_map(lambda t: t.to("cpu") if isinstance(t, QuantizedWeight)
+                          else t.cpu().float(), params)
     dtype = params["embed"].dtype
     caches = {side: arch.init_kv_cache(mcfg, blocks_b[-1] + 1, bs, dt, dev)
               for side, dt, dev in (("card", dtype, device),
@@ -2608,6 +2851,15 @@ def engine_chain_phase(torch, dev, smi):
         sampling_epilogue_finish=chained["stats"]["chained_epilogue_launches"])
 
 
+def _tree_bytes(tree) -> int:
+    """Bytes of a param tree's leaves; an int8 leaf counts its ``q`` (one
+    byte a weight) and its f32 ``scale``."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    parts = (tree.q, tree.scale) if hasattr(tree, "scale") else (tree,)
+    return sum(t.numel() * t.element_size() for t in parts)
+
+
 def _busy_us(kernels):
     """Device-busy microseconds: the union of the kernels' intervals."""
     busy, end = 0.0, None
@@ -2626,10 +2878,12 @@ def _decode_step_profile(torch, runner, steps=5,
     KV slot the drop sentinel), the weight bytes a step must read (every
     parameter but the embedding table, of which it gathers 8 rows), and a
     ``torch.profiler`` trace of 3 more steps: device-busy time (the union of
-    kernel intervals), events, the top kernels, and the time and share of
-    the busy time of the split-KV decode kernel, the MLA decode kernel and
-    the sampling epilogue kernel (and the flash kernel's time, 0 in a
-    decode step)."""
+    kernel intervals), events, the top kernels (summed by their names'
+    first 80 characters), and the time and share of the busy time of the
+    split-KV decode kernel, the MLA decode kernel and the sampling epilogue
+    kernel (and the flash kernel's time, 0 in a decode step), and the time
+    of PyTorch's copy kernels (``direct_copy_kernel_cuda``: dtype
+    conversions and copies; an int8 trunk's dequantisation runs there)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = runner.config
@@ -2665,6 +2919,9 @@ def _decode_step_profile(torch, runner, steps=5,
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = _busy_us(kernels)
+    short = {}
+    for k, v in by_name.items():
+        short[k[:80]] = short.get(k[:80], 0.0) + v
 
     def family_us(tag):
         return sum(v for k, v in by_name.items() if tag in k)
@@ -2673,11 +2930,9 @@ def _decode_step_profile(torch, runner, steps=5,
     flash_us = family_us("paged_flash_tc_kernel")
     mla_us = family_us("mla_decode_kernel")
     epilogue_us = family_us("sampling_epilogue_kernel")
-    weight_bytes = sum(
-        t.numel() * t.element_size()
-        for group in runner.params.values()
-        for t in (group.values() if isinstance(group, dict) else [group])
-    ) - runner.params["embed"].numel() * runner.params["embed"].element_size()
+    copy_us = family_us("direct_copy_kernel_cuda")
+    weight_bytes = (_tree_bytes(runner.params)
+                    - _tree_bytes({"embed": runner.params["embed"]}))
     return dict(
         step_ms=dict(mean=1e3 * float(np.mean(times)), min=1e3 * min(times),
                      max=1e3 * max(times), n=steps),
@@ -2692,8 +2947,10 @@ def _decode_step_profile(torch, runner, steps=5,
         mla_kernel_share_of_busy=mla_us / busy if busy else None,
         epilogue_kernel_ms=epilogue_us / 1e3,
         epilogue_kernel_share_of_busy=epilogue_us / busy if busy else None,
-        top_kernels_ms={k[:80]: v / 1e3 for k, v in sorted(
-            by_name.items(), key=lambda kv: -kv[1])[:10]})
+        copy_kernel_ms=copy_us / 1e3,
+        copy_kernel_share_of_busy=copy_us / busy if busy else None,
+        top_kernels_ms={k: v / 1e3 for k, v in sorted(
+            short.items(), key=lambda kv: -kv[1])[:10]})
 
 
 def engine_mla_phase(torch, dev, smi):
@@ -3431,6 +3688,337 @@ def engine_gemma2_phase(torch, dev, smi):
                 paged_verify_softcap=launches_spec["paged_verify"])
 
 
+# The MoE family's cells: Qwen3-30B-A3B in bf16 (seeded non-unit q/k norms
+# [L, 128], as its checkpoint carries them) and Mixtral-8x7B in int8 (its
+# weights quantized slice by slice as they are drawn), each at full width
+# and depth. (published config, quantization, spec engines)
+MOE_CELLS = {"qwen3moe": (QWEN3_30B_A3B, None, True),
+             "mixtral_int8": (MIXTRAL_8X7B, "int8", False)}
+MOE_QK_NORM_SCALE = 0.2   # q/k norms drawn 1 + N(0, 0.2^2)
+
+
+def _moe_params(torch, mcfg, dev, qk_norms):
+    """The family's weights drawn from the seed on ``dev`` (int8 as they
+    are drawn when ``mcfg.quantization`` asks), with seeded non-unit q/k
+    norms when ``qk_norms``."""
+    from dynamo_tpu_torch.models import mixtral
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = mixtral.init_params(mcfg, gen, torch.bfloat16, dev)
+    if qk_norms:
+        g = torch.Generator(device=dev).manual_seed(SEED + 12)
+        shape = (mcfg.num_layers, mcfg.head_dim)
+        for name in ("q_norm", "k_norm"):
+            params["layers"][name] = (
+                1.0 + MOE_QK_NORM_SCALE * torch.randn(
+                    shape, generator=g, device=dev)).bfloat16()
+    return params
+
+
+def _pinned_moe_routing(torch, params):
+    """``params`` sharing every tensor but the router: weights 0 and a
+    ``router_bias`` leaf of distinct values, which steers selection only
+    (``moe_mlp``), so every token takes the same top-k experts (the last
+    k) at equal combine weights whatever the rounding; run at a capacity
+    factor of E / k (``dataclasses.replace`` of the config), no token is
+    dropped."""
+    lay = params["layers"]
+    l, _, e = lay["router"].shape
+    bias = torch.linspace(0.0, 3.0, e, device=lay["router"].device)
+    return dict(params, layers=dict(
+        lay, router=torch.zeros_like(lay["router"]),
+        router_bias=bias.to(lay["router"].dtype).expand(l, e)))
+
+
+def _dequant_profile(torch, params):
+    """The dequantizing conversions one decode step makes (``q.to(bf16)``
+    of every int8 leaf once: each layer's slice in its layer, the head once),
+    timed by CUDA events over every layer, with the bytes they move (int8
+    read, bf16 written)."""
+    from dynamo_tpu_torch.models.quant import QuantizedWeight
+
+    stacks = [w for w in params["layers"].values()
+              if isinstance(w, QuantizedWeight)]
+    head = params.get("lm_head")
+    layers = next(iter(params["layers"].values())).shape[0]
+
+    def convert():   # a layer's slices at a time, as the forward does
+        for i in range(layers):
+            for w in stacks:
+                w.q[i].to(torch.bfloat16)
+        if isinstance(head, QuantizedWeight):
+            head.q.to(torch.bfloat16)
+
+    ms = cuda_ms(convert, iters=3, warmup=1)
+    nbytes = 3 * (sum(w.q.numel() for w in stacks)
+                  + (head.q.numel() if isinstance(head, QuantizedWeight) else 0))
+    return dict(ms=ms, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def engine_moe_phase(torch, dev, smi, cell):
+    """One MoE-family cell (``MOE_CELLS``) through ``TorchServingEngine`` at
+    full width and depth, from ``ModelConfig.from_hf_config`` of its
+    published config, with seeded random weights and the engines' settings
+    (``ENGINE``), one set of weight tensors behind every engine:
+
+    1. the main path (fused epilogue, single-token decode): wave 1 and the
+       prefix-hit wave 2, launches counted from 0 just before and read just
+       after; a profiled decode step (for int8, the dequantizing conversions
+       of a step timed as a line of their own); the logits of a batched
+       prefill step and a decode step at full width and 2 layers against
+       the CPU in f32 over the same weights (int8: the same ``q`` and
+       ``scale``), with the routing pinned (held) and free (reported);
+    2. ``multi_step_decode=4``: wave 1 must stream identically;
+    3. the chained decode loop (``CHAIN``), every dispatch under the sync
+       guard: wave 1 must stream identically, with a chain longer than one
+       burst and no block left in use;
+    4. and 5. (Qwen3-30B-A3B) the spec prompts, the last
+       ``GEMMA_SPEC_TRAPS`` of them replaced by ``_spec_traps``, without
+       and with ngram speculation (``SPEC``) with the routing pinned at a
+       capacity where no token drops: equal, or parted at a printed
+       near-tie, with at least one proposal rejected.
+
+    For int8 every ``QUANT_KEYS`` leaf on the card must be int8. The numbers
+    are printed before the checks run."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.models import mixtral
+    from dynamo_tpu_torch.models.quant import QUANT_KEYS, QuantizedWeight
+
+    hf, quantization, with_spec = MOE_CELLS[cell]
+    on_card = torch.device(dev).type == "cuda"
+    mcfg = dataclasses.replace(ModelConfig.from_hf_config(hf),
+                               quantization=quantization)
+    vocab, layers = mcfg.vocab_size, mcfg.num_layers
+    # every expert holds every token of a step at this capacity factor
+    no_drop = dataclasses.replace(
+        mcfg, moe_capacity_factor=mcfg.num_experts / mcfg.num_experts_per_tok)
+
+    def config(model=mcfg, **kw):
+        return EngineConfig(model=model, seed=SEED, **dict(ENGINE, **kw))
+
+    rng = np.random.default_rng(SEED)
+    wave1, wave2 = _requests(rng, vocab)
+    spec_reqs = _spec_requests(rng)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = _moe_params(torch, mcfg, dev, qk_norms=quantization is None)
+    init_s = time.monotonic() - t0
+    pinned = _pinned_moe_routing(torch, params)
+    n_params = sum((t.q if isinstance(t, QuantizedWeight) else t).numel()
+                   for grp in params.values()
+                   for t in (grp.values() if isinstance(grp, dict) else [grp]))
+    weight_bytes = _tree_bytes(params)
+
+    async def main_path():
+        t0 = time.monotonic()
+        engine = await TorchServingEngine.create(config(), params=params,
+                                                 device=dev)
+        setup_s = time.monotonic() - t0
+        try:
+            served = engine.runner.params
+            leaves = dict(served["layers"], **{k: v for k, v in served.items()
+                                               if k != "layers"})
+            not_int8 = sorted(
+                k for k, t in leaves.items()
+                if quantization and k in QUANT_KEYS
+                and not (isinstance(t, QuantizedWeight) and t.q.is_cuda == on_card
+                         and t.q.dtype == torch.int8
+                         and t.scale.dtype == torch.float32))
+            _reset_launches()
+            t1 = time.monotonic()
+            res1 = await _serve(engine, wave1)
+            wall1 = time.monotonic() - t1
+            res2 = await _serve(engine, wave2)
+            launches = _read_launches()
+            metrics = engine.metrics()
+            step = _decode_step_profile(torch, engine.runner) if on_card else None
+            if step is not None and quantization:
+                step["dequant"] = _dequant_profile(torch, served)
+            # 2 layers of the same weights: the routing free at the engine's
+            # capacity (reported), pinned at no drop (held)
+            prompts = (wave1[4][0][:100], wave1[2][0][:40])
+            by_routing = {}
+            for name, prm, model in (("free", params, mcfg),
+                                     ("pinned", pinned, no_drop)):
+                lay2 = {k: v[:2] for k, v in prm["layers"].items()}
+                by_routing[name] = _check_logits(
+                    torch, engine.config, mixtral,
+                    dataclasses.replace(model, num_layers=2),
+                    engine.runner.device, dict(prm, layers=lay2), *prompts,
+                    limit=LOGITS_REL_L2 if name == "pinned" else None)
+                gc.collect()
+            logits = dict(by_routing["pinned"], free_routing=by_routing["free"])
+        finally:
+            await engine.close()
+        return (setup_s, res1, res2, wall1, launches, metrics, step, logits,
+                not_int8)
+
+    async def other_path(kw, batch, new_tokens=None, model=mcfg, prm=None,
+                         guarded=False, spec_base=None):
+        gc.collect()  # the engine before frees its cache first
+        engine = await TorchServingEngine.create(config(model, **kw),
+                                                 params=prm or params,
+                                                 device=dev)
+        stats = (_guard_dispatches(torch, engine.runner, layers, 4, on_card)
+                 if guarded else None)
+        try:
+            _reset_launches()
+            t0 = time.monotonic()
+            res = await _serve(engine, batch, new_tokens)
+            wall = time.monotonic() - t0
+            launches = _read_launches()
+            metrics = dict(engine.metrics(), dispatches=stats,
+                           blocks_in_use=engine.scheduler.allocator.used)
+            parted = (None if spec_base is None else
+                      _spec_agreement(torch, engine.runner, batch, spec_base, res))
+        finally:
+            await engine.close()
+        if on_card:
+            torch.cuda.empty_cache()
+        return res, wall, launches, metrics, parted
+
+    (setup_s, res1, res2, wall1, launches, metrics, step, logits,
+     not_int8) = asyncio.run(main_path())
+    res_k4, wall_k4, launches_k4, metrics_k4, _ = asyncio.run(
+        other_path(dict(multi_step_decode=4), wave1))
+    res_ch, wall_ch, launches_ch, metrics_ch, _ = asyncio.run(
+        other_path(CHAIN, wave1, guarded=True))
+    spec = None
+    if with_spec:
+        # as on gemma-2: the random trunk accepts every pattern draft (384 of
+        # 384 on the card), so the last prompts are traps whose drafts the
+        # model contradicts, and the phase fails unless verify rejects one
+        gc.collect()
+        spec_reqs = (spec_reqs[:len(spec_reqs) - GEMMA_SPEC_TRAPS]
+                     + _spec_traps(torch, mixtral, no_drop, pinned, dev))
+        spec_base, _, _, _, _ = asyncio.run(
+            other_path({}, spec_reqs, SPEC_NEW_TOKENS, no_drop, pinned))
+        res_spec, wall_spec, launches_spec, metrics_spec, parted = asyncio.run(
+            other_path(SPEC, spec_reqs, SPEC_NEW_TOKENS, no_drop, pinned,
+                       spec_base=spec_base))
+        spec = dict(**SPEC, moe_capacity_factor=no_drop.moe_capacity_factor,
+                    routing="pinned", requests=len(spec_reqs),
+                    traps=GEMMA_SPEC_TRAPS,
+                    new_tokens=SPEC_NEW_TOKENS,
+                    proposed=metrics_spec["spec_proposed"],
+                    accepted=metrics_spec["spec_accepted"],
+                    decode_steps=metrics_spec["decode_steps"], wall_s=wall_spec,
+                    streams_equal=sum(a["tokens"] == b["tokens"]
+                                      for a, b in zip(spec_base, res_spec)),
+                    parted=parted, launches=launches_spec)
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    del params, pinned
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def parts_at(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a["tokens"], b["tokens"]))
+                     if x != y), None)
+
+    ttfts = sorted(r["ttft_s"] for r in res1)
+    emit(f"engine_{cell}", model=f"{hf['architectures'][0]} (published "
+         f"config.json), seeded random weights"
+         + (", quantized to int8 slice by slice at init" if quantization
+            else " in bf16, non-unit q/k norms"),
+         layers=layers, vocab=vocab, experts=mcfg.num_experts,
+         top_k=mcfg.num_experts_per_tok, quantization=quantization,
+         parameters=n_params, weight_bytes=weight_bytes, init_s=init_s,
+         config={k: v for k, v in ENGINE.items()},
+         requests=len(res1) + len(res2), new_tokens=NEW_TOKENS, setup_s=setup_s,
+         wave1_prompt_tokens=sum(len(p) for p, _ in wave1), wave1_wall_s=wall1,
+         wave1_output_tokens_per_s=len(res1) * NEW_TOKENS / wall1,
+         ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2], max=ttfts[-1]),
+         finishes=sorted({(len(r["tokens"]), r["finish"]) for r in res1 + res2}),
+         peak_memory_bytes=peak, launches=launches, metrics=metrics,
+         quant_leaves_not_int8=not_int8,
+         twins_part_at=dict(greedy=parts_at(res1[0], res1[1]),
+                            seeded=parts_at(res1[2], res1[3])),
+         decode_step=step, logits_vs_cpu_f32_2_layers=logits,
+         burst=dict(k=4, streams_equal=sum(a["tokens"] == b["tokens"]
+                                           for a, b in zip(res1, res_k4)),
+                    wave1_wall_s=wall_k4,
+                    wave1_output_tokens_per_s=len(res_k4) * NEW_TOKENS / wall_k4,
+                    decode_steps=metrics_k4["decode_steps"], launches=launches_k4),
+         chained=dict(k=4, streams_equal=sum(a["tokens"] == b["tokens"]
+                                             for a, b in zip(res1, res_ch)),
+                      wave1_wall_s=wall_ch,
+                      wave1_output_tokens_per_s=len(res_ch) * NEW_TOKENS / wall_ch,
+                      **{k: metrics_ch[k] for k in (
+                          "decode_steps", "pipeline_bursts", "chain_len_max",
+                          "device_finished_rows", "sync_fallback", "dispatches",
+                          "blocks_in_use")},
+                      launches=launches_ch),
+         spec=spec, card=smi)
+    if step is not None and quantization:
+        dq = step["dequant"]
+        emit(f"engine_{cell}_dequant", per_decode_step_ms=dq["ms"],
+             share_of_step=dq["ms"] / step["step_ms"]["mean"],
+             bytes=dq["bytes"], bound_ms=dq["bound_ms"],
+             copy_kernels_in_the_trace_ms_per_step=step["copy_kernel_ms"]
+             / step["traced_steps"],
+             copy_kernels_share_of_device_busy=step["copy_kernel_share_of_busy"],
+             weight_bound_ms_int8=step["weight_bound_ms"], card=smi)
+
+    name = hf["architectures"][0]
+    if not_int8:
+        raise AssertionError(f"{name}: quantized leaves not int8 on the card: "
+                             f"{not_int8}")
+    _check_streams(res1 + res2, NEW_TOKENS, vocab)
+    _check_streams(res_k4 + res_ch, NEW_TOKENS, vocab)
+    # twins in one wave may part (the reference's expert capacity at a
+    # decode batch of 8); repeated requests are held across engines over
+    # the same weight tensors instead
+    tokens1 = [r["tokens"] for r in res1]
+    if [r["tokens"] for r in res_k4] != tokens1:
+        raise AssertionError(f"{name}: wave 1 on the multi_step_decode=4 "
+                             "engine streams differently from the K=1 engine")
+    if [r["tokens"] for r in res_ch] != tokens1:
+        raise AssertionError(f"{name}: wave 1 on the chained engine streams "
+                             "differently from the K=1 engine")
+    if (metrics_ch["dispatches"]["bad"] or metrics_ch["chain_len_max"] <= 1
+            or metrics_ch["blocks_in_use"]):
+        raise AssertionError(f"{name} chained engine: {metrics_ch}")
+    if metrics["gpu_prefix_cache_hit_rate"] <= 0:
+        raise AssertionError(f"{name}: the shared-prefix request missed the "
+                             "prefix cache")
+    if with_spec:
+        _check_streams(spec_base + res_spec, SPEC_NEW_TOKENS, vocab)
+        if metrics_spec["spec_proposed"] <= 0:
+            raise AssertionError(f"{name}: ngram speculation proposed nothing")
+        if not metrics_spec["spec_accepted"] < metrics_spec["spec_proposed"]:
+            raise AssertionError(f"{name}: the spec engine accepted every "
+                                 "proposal, so verify never rejected a draft")
+    if on_card:
+        _check_launches(f"{name} main", launches,
+                        ("paged_decode", "paged_flash", "epilogue"), layers)
+        _check_launches(f"{name} burst", launches_k4,
+                        ("paged_decode", "epilogue"), layers)
+        _check_launches(f"{name} chained", launches_ch,
+                        ("paged_decode", "epilogue"), layers)
+        if with_spec:
+            _check_launches(f"{name} spec", launches_spec, ("paged_verify",),
+                            layers)
+        if launches["mla_decode"] or launches["sp_prefix"]:
+            raise AssertionError(f"the {name} path launched a foreign kernel: "
+                                 f"{launches}")
+        if not (step["decode_kernel_ms"] > 0 and step["epilogue_kernel_ms"] > 0):
+            raise AssertionError(f"{name}: the profiled decode step shows no "
+                                 f"decode or epilogue kernel: "
+                                 f"{step['top_kernels_ms']}")
+    family = cell.split("_")[0]
+    out = {f"paged_decode_{family}": launches["paged_decode"],
+           f"paged_flash_{family}": launches["paged_flash"],
+           f"sampling_epilogue_{family}": launches["epilogue"],
+           f"sampling_epilogue_finish_{family}": launches_ch["epilogue"]}
+    if with_spec:
+        out[f"paged_verify_{family}"] = launches_spec["paged_verify"]
+    return out
+
+
 # the sequence-parallel phase: Llama-3.2-1B with a 16k context and the SP
 # ladder at 4 ranks on the card. The SP chunk is 2,048 tokens (4 ranks x the
 # 512-token step budget); the threshold sits between the short prompts
@@ -3704,7 +4292,7 @@ def engine_sp_phase(torch, dev, smi):
 
 
 PHASES = ("kernels", "engine", "engine_chain", "engine_mla", "engine_gptoss",
-          "engine_gemma2", "engine_sp")
+          "engine_gemma2", "engine_qwen3moe", "engine_mixtral_int8", "engine_sp")
 
 
 def main(argv=None) -> int:
@@ -3753,6 +4341,11 @@ def main(argv=None) -> int:
                         ("engine_mla", engine_mla_phase),
                         ("engine_gptoss", engine_gptoss_phase),
                         ("engine_gemma2", engine_gemma2_phase),
+                        ("engine_qwen3moe",
+                         functools.partial(engine_moe_phase, cell="qwen3moe")),
+                        ("engine_mixtral_int8",
+                         functools.partial(engine_moe_phase,
+                                           cell="mixtral_int8")),
                         ("engine_sp", engine_sp_phase)):
         if name in phases:
             launches.update(phase(torch, dev, smi))

@@ -246,6 +246,16 @@ class ModelConfig:
             return cls.from_hf_config(json.load(f))
 
 
+def check_quantization(model: ModelConfig) -> None:
+    """The reference's config-only quantization check
+    (``dynamo_tpu/engine/model_runner.py``), run before any weight is drawn
+    or loaded: int8 weight-only is the one scheme."""
+    if model.quantization and model.quantization != "int8":
+        raise ValueError(
+            f"unknown quantization {model.quantization!r} (only int8)"
+        )
+
+
 def default_prefill_buckets(max_len: int) -> List[int]:
     """Powers of two up to max_len — each bucket is one compiled program."""
     buckets = []
@@ -586,12 +596,15 @@ class EngineConfig:
         on top of it (``device_finish``, with ``guided_device_table``,
         ``guided_table_max_states`` and ``device_stop_strings`` as live
         knobs), sequence-parallel prefill (``sp_size``, its ranks on the
-        one device), on one device with bf16 / f32 KV. Not served: the
-        chained propose-verify round (so the pipeline together with
-        speculation), draft models, several devices (so SP over TP heads),
-        KV tiers and pulls, quantization. Each refusal names the knob so a
-        reference config that uses it fails loudly instead of serving
-        something else."""
+        one device), on one device with bf16 / f32 KV, the weights in the
+        activation dtype or in int8 (``quantization="int8"``; any other
+        scheme raises ``ValueError`` by name, as in the reference). Not
+        served: the chained propose-verify round (so the pipeline together
+        with speculation), draft models, several devices (so SP over TP
+        heads), KV tiers and pulls, an fp8 KV cache. Each refusal names
+        the knob so a reference config that uses it fails loudly instead of
+        serving something else."""
+        check_quantization(self.model)
         unported = []
         if self.decode_pipeline_depth >= 2 and self.spec_ngram_tokens > 0:
             unported.append(
@@ -613,8 +626,6 @@ class EngineConfig:
             unported.append("KV offload tiers and prefix pulls")
         if self.kv_cache_dtype != "auto":
             unported.append(f"kv_cache_dtype={self.kv_cache_dtype!r}")
-        if self.model.quantization:
-            unported.append(f"quantization={self.model.quantization!r}")
         if self.dtype not in ("bfloat16", "float32"):
             unported.append(f"dtype={self.dtype!r}")
         if unported:

@@ -14,7 +14,9 @@ device value on the host or blocks the host on the device: host arrays
 travel through pinned memory (``ops/transfer.py``), and ``stage_to_host``
 starts a burst's outputs on their way back. The model family's module
 comes from ``models.resolve`` (Llama-family GQA, DeepSeek MLA with routed
-experts, GPT-OSS, Gemma-2), as in the reference. PyTorch runs eagerly, so
+experts, GPT-OSS, Mixtral / Qwen3-MoE, Gemma-2), as in the reference; with
+``quantization="int8"`` the matmul weights are quantized after init, as the
+reference does (``models/quant.py``). PyTorch runs eagerly, so
 there is no compiled-program cache; the KV cache and the sample state are
 updated in place. With ``sp_size > 1`` the runner also owns the sequence-parallel
 prefill chunk (``sp_prefill_chunk``: one fixed ``[1, S]`` shape, the ``sp``
@@ -31,11 +33,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import llama, resolve
+from ..models import llama, quant, resolve
 from ..ops.attention import check_attention_impl
 from ..ops.epilogue import fused_sampling_epilogue
 from ..ops.transfer import to_device, to_device_packed
-from .config import EngineConfig
+from .config import EngineConfig, check_quantization
 from .sampling import (
     STOP_ID_WIDTH,
     STOP_SEQ_WIDTH,
@@ -221,10 +223,16 @@ class ModelRunner:
         self.fused_epilogue = resolve_fused_epilogue(config.fused_epilogue,
                                                      self.device)
         self.dtype = llama.torch_dtype(config.dtype)
+        check_quantization(cfg)   # before any weight is drawn
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             params = self.arch.init_params(cfg, gen, self.dtype, self.device)
-        self.params = _to_device(params, self.device, self.dtype)
+        params = _to_device(params, self.device, self.dtype)
+        if cfg.quantization:
+            # leaves a family's init already quantized as it drew them
+            # (the Mixtral family's stacks) stay as they are
+            params = quant.quantize_params(params)
+        self.params = params
         self._reinit_device_state()
         self._build_sp_prefill()
 
@@ -790,6 +798,11 @@ class ModelRunner:
 
 
 def _to_device(tree, device, dtype):
+    """The param tree on ``device``, every leaf in ``dtype`` but a quantized
+    one, whose int8 ``q`` and f32 ``scale`` keep their dtypes (cast to bf16
+    it would serve full precision at twice the bytes)."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, quant.QuantizedWeight):
+        return tree.to(device)
     return tree.to(device=device, dtype=dtype)

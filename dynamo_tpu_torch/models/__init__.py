@@ -7,9 +7,10 @@ and ``lm_logits(hidden, params, cfg)`` — so the engine
 (``engine/model_runner.py``) is architecture-agnostic. The port serves
 Llama-family dense GQA (``llama``), DeepSeek-class MLA with routed
 experts (``deepseek``), GPT-OSS (``gptoss``: sinks, alternating windows,
-routed GLU experts) and Gemma-2 (``gemma2``: sandwich norms, GeGLU,
-softcapped alternating-window attention); the Mixtral / Qwen3-MoE trunk
-raises.
+routed GLU experts), the Mixtral / Qwen3-MoE trunk (``mixtral``: the Llama
+trunk with routed SwiGLU experts) and Gemma-2 (``gemma2``: sandwich norms,
+GeGLU, softcapped alternating-window attention). Every family serves its
+weights in int8 too (``ModelConfig.quantization``, ``models/quant.py``).
 """
 
 from __future__ import annotations
@@ -28,13 +29,14 @@ def resolve(cfg: ModelConfig):
         from . import gptoss
 
         return gptoss
+    if cfg.num_experts > 0:
+        from . import mixtral
+
+        return mixtral
     if cfg.model_family == "gemma2":
         from . import gemma2
 
         return gemma2
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "model family 'mixtral' is not ported to the PyTorch engine yet")
     from . import llama
 
     return llama

@@ -51,6 +51,7 @@ from .llama import (  # lm_logits: the final norm + head, as the runner reads it
 )
 from .llama import _yarn_mscale
 from .mixtral import make_moe_mlp_fn
+from .quant import dense
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # (latent c_kv, shared k_rope)
 
@@ -263,15 +264,15 @@ def make_mla_attn_fn(cfg: ModelConfig, b: int, s: int, positions,
         if plan is None:
             plan = kv_write_plan(slot_mapping, c_all.shape[1] * c_all.shape[2])
         if "w_uq" in lp:  # the query low-rank bottleneck (q_lora_rank > 0)
-            cq = rms_norm(x @ lp["w_dq"], lp["ln_q"], cfg.rms_norm_eps)
-            qfull = (cq @ lp["w_uq"]).reshape(b, s, h, nope + rope_d)
+            cq = rms_norm(dense(x, lp["w_dq"]), lp["ln_q"], cfg.rms_norm_eps)
+            qfull = dense(cq, lp["w_uq"]).reshape(b, s, h, nope + rope_d)
         else:
-            qfull = (x @ lp["wq"]).reshape(b, s, h, nope + rope_d)
+            qfull = dense(x, lp["wq"]).reshape(b, s, h, nope + rope_d)
         q_nope, q_rope = qfull[..., :nope], qfull[..., nope:]
         q_rope = apply_rope_cs(q_rope, cos, sin)
 
         # compressed KV state of the new tokens, written into layer li
-        c_kv = rms_norm(x @ lp["w_dkv"], lp["ln_kv"], cfg.rms_norm_eps)
+        c_kv = rms_norm(dense(x, lp["w_dkv"]), lp["ln_kv"], cfg.rms_norm_eps)
         kr = apply_rope_cs((x @ lp["w_kr"])[:, :, None, :], cos, sin)
         c_all, kr_all = scatter_kv_rows(c_all, kr_all, c_kv[:, :, None, :], kr,
                                         plan, li)
@@ -281,7 +282,7 @@ def make_mla_attn_fn(cfg: ModelConfig, b: int, s: int, positions,
         o_lat = mla_attention(q_lat, q_rope, c_all, kr_all, li, block_tables,
                               positions, context_lens, scale)
         o = torch.einsum("bshr,rhv->bshv", o_lat, lp["w_uv"])
-        return o.reshape(b, s, -1) @ lp["wo"], c_all, kr_all
+        return dense(o.reshape(b, s, -1), lp["wo"]), c_all, kr_all
 
     return attn_fn
 

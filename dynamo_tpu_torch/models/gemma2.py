@@ -42,6 +42,7 @@ from .llama import (  # the cache layout and the rope tables are llama's
     normal_slices,
     rope_cos_sin,
 )
+from .quant import dense
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -126,8 +127,8 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
     """GeGLU: tanh-approximated gelu on the gate."""
-    gate = torch.nn.functional.gelu(x @ lp["w_gate"], approximate="tanh")
-    return (gate * (x @ lp["w_up"])) @ lp["w_down"]
+    gate = torch.nn.functional.gelu(dense(x, lp["w_gate"]), approximate="tanh")
+    return dense(gate * dense(x, lp["w_up"]), lp["w_down"])
 
 
 def run_layers(hidden: torch.Tensor, kv_cache: KVCache, layers: Params,
@@ -154,7 +155,8 @@ def lm_logits(hidden: torch.Tensor, params: Params, cfg: ModelConfig
     has one) and the final softcap, over any [..., D] slice."""
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
     lm_head = params.get("lm_head")
-    logits = hidden @ (params["embed"].T if lm_head is None else lm_head)
+    logits = (hidden @ params["embed"].T if lm_head is None
+              else dense(hidden, lm_head))
     cap = cfg.final_logit_softcap
     if cap:
         logits = cap * torch.tanh(logits / cap)
@@ -187,15 +189,15 @@ def forward(
     plan = kv_write_plan(slot_mapping, k_all.shape[1] * k_all.shape[2])
 
     def attn_fn(x, lp, k_all, v_all, li):
-        q = apply_rope_cs((x @ lp["wq"]).reshape(b, s, h, hd), cos, sin)
-        k = apply_rope_cs((x @ lp["wk"]).reshape(b, s, kvh, hd), cos, sin)
-        v = (x @ lp["wv"]).reshape(b, s, kvh, hd)
+        q = apply_rope_cs(dense(x, lp["wq"]).reshape(b, s, h, hd), cos, sin)
+        k = apply_rope_cs(dense(x, lp["wk"]).reshape(b, s, kvh, hd), cos, sin)
+        v = dense(x, lp["wv"]).reshape(b, s, kvh, hd)
         k_all, v_all = scatter_kv_rows(k_all, v_all, k, v, plan, li)
         attn = attention(q, k_all, v_all, block_tables, positions,
                          context_lens, layer_idx=li, scale=scale,
                          softcap=cfg.attn_logit_softcap,
                          sliding_window=alternating_window(cfg, li))
-        return attn.reshape(b, s, h * hd) @ lp["wo"], k_all, v_all
+        return dense(attn.reshape(b, s, h * hd), lp["wo"]), k_all, v_all
 
     hidden, kv_cache = run_layers(hidden, kv_cache, params["layers"], cfg,
                                   attn_fn)

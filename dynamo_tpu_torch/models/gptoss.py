@@ -43,6 +43,7 @@ from .llama import (  # the cache layout and the final norm + head are llama's
     run_layers,
 )
 from .mixtral import expert_capacity, gptoss_moe
+from .quant import dense
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -169,7 +170,7 @@ def forward(
                          context_lens, layer_idx=li,
                          sliding_window=alternating_window(cfg, li),
                          sinks=lp["sinks"])
-        delta = attn.reshape(b, s, h_heads * hd) @ lp["wo"] + lp["bo"]
+        delta = dense(attn.reshape(b, s, h_heads * hd), lp["wo"]) + lp["bo"]
         return delta, k_all, v_all
 
     hidden, kv_cache, _ = run_layers(hidden, kv_cache, params["layers"], cfg,

@@ -29,6 +29,7 @@ from ..ops.attention import (
 )
 from ..ops.transfer import to_device
 from ..parallel.sequence import sp_chunk_attention
+from .quant import QuantizedWeight, dense, quantize_int8
 
 Params = Dict[str, Any]
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # k, v: [L, N_blocks, bs, KVH, D]
@@ -194,17 +195,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 def normal_slices(shape, fan_in: int, generator: torch.Generator, dtype,
-                  device) -> torch.Tensor:
+                  device, quantize: bool = False):
     """normal(0, fan_in^-0.5) of ``shape`` in ``dtype`` on ``device``,
     drawn from ``generator`` on the generator's device one leading slice at
     a time, so the f32 transient is one slice: a whole stacked expert leaf
     would not fit in f32 beside the rest of a large model (GPT-OSS-20b's
-    ``w_gate_up`` is 12.7 G elements)."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for part in (out if len(shape) > 2 else (out,)):
-        part.copy_(torch.randn(part.shape, generator=generator,
-                               dtype=torch.float32, device=generator.device)
-                   * fan_in ** -0.5)
+    ``w_gate_up`` is 12.7 G elements).
+
+    With ``quantize``, each slice is rounded to ``dtype`` and quantized into
+    an int8 stack as it is drawn (``quant.quantize_int8``), so the leaf
+    never exists whole in ``dtype`` (Mixtral-8x7B is 93 GB in bf16). The
+    scale is taken over the in axis only, so the result equals the whole
+    ``dtype`` leaf quantized at once."""
+    def draw(part_shape):
+        return (torch.randn(part_shape, generator=generator,
+                            dtype=torch.float32, device=generator.device)
+                * fan_in ** -0.5)
+
+    if not quantize:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for part in (out if len(shape) > 2 else (out,)):
+            part.copy_(draw(part.shape))
+        return out
+    out = QuantizedWeight(
+        torch.empty(shape, dtype=torch.int8, device=device),
+        torch.empty((*shape[:-2], shape[-1]), dtype=torch.float32,
+                    device=device))
+    for i in (range(shape[0]) if len(shape) > 2 else (slice(None),)):
+        part = out[i]
+        w = quantize_int8(draw(part.shape).to(device=device, dtype=dtype))
+        part.q.copy_(w.q)
+        part.scale.copy_(w.scale)
     return out
 
 
@@ -270,8 +291,8 @@ def alternating_window(cfg: ModelConfig, li: int) -> Optional[int]:
 
 
 def swiglu_mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
-    gate = torch.nn.functional.silu(x @ lp["w_gate"])
-    return (gate * (x @ lp["w_up"])) @ lp["w_down"]
+    gate = torch.nn.functional.silu(dense(x, lp["w_gate"]))
+    return dense(gate * dense(x, lp["w_up"]), lp["w_down"])
 
 
 def qkv_prologue(cfg: ModelConfig, x: torch.Tensor, lp: Params, b: int,
@@ -279,9 +300,9 @@ def qkv_prologue(cfg: ModelConfig, x: torch.Tensor, lp: Params, b: int,
     """The per-layer QKV head: projections (+ Qwen2 biases), head reshape,
     Qwen3 per-head norms, RoPE."""
     h_heads, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ lp["wq"]
-    k = x @ lp["wk"]
-    v = x @ lp["wv"]
+    q = dense(x, lp["wq"])
+    k = dense(x, lp["wk"])
+    v = dense(x, lp["wv"])
     if "bq" in lp:  # Qwen2-family qkv biases, pre-rope
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -332,7 +353,7 @@ def make_sp_gqa_attn_fn(cfg: ModelConfig, b: int, s: int, cos, sin, plan,
         attn = sp_chunk_attention(q, k, v, k_all, v_all, block_tables,
                                   chunk_start, context_len, li, sp)
         k_all, v_all = scatter_kv_rows(k_all, v_all, k, v, plan, li)
-        return attn.reshape(b, s, h_heads * hd) @ lp["wo"], k_all, v_all
+        return dense(attn.reshape(b, s, h_heads * hd), lp["wo"]), k_all, v_all
 
     return attn_fn
 
@@ -374,7 +395,7 @@ def lm_logits(hidden: torch.Tensor, params: Params, cfg: ModelConfig
     lm_head = params.get("lm_head")
     if lm_head is None:
         return hidden @ params["embed"].T
-    return hidden @ lm_head
+    return dense(hidden, lm_head)
 
 
 def forward(
@@ -387,11 +408,12 @@ def forward(
     slot_mapping: torch.Tensor,  # [B, S] flat cache slot per token; -1 drops
     context_lens: torch.Tensor,  # [B] valid tokens incl. the ones being written
     return_hidden: bool = False,
+    mlp_fn=swiglu_mlp,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Embed → layers (RoPE, paged-KV scatter, GQA attention, SwiGLU) →
-    logits [B, S, V], or the pre-final-norm hidden [B, S, D] with
-    ``return_hidden``. The cache tensors are updated in place and also
-    returned."""
+    """Embed → layers (RoPE, paged-KV scatter, GQA attention, ``mlp_fn``:
+    SwiGLU, or the Mixtral family's routed experts) → logits [B, S, V], or
+    the pre-final-norm hidden [B, S, D] with ``return_hidden``. The cache
+    tensors are updated in place and also returned."""
     b, s = tokens.shape
     h_heads, hd = cfg.num_heads, cfg.head_dim
     hidden = params["embed"][tokens.long()]
@@ -405,10 +427,10 @@ def forward(
         k_all, v_all = scatter_kv_rows(k_all, v_all, k, v, plan, li)
         attn = attention(q, k_all, v_all, block_tables, positions,
                          context_lens, layer_idx=li, sliding_window=window)
-        return attn.reshape(b, s, h_heads * hd) @ lp["wo"], k_all, v_all
+        return dense(attn.reshape(b, s, h_heads * hd), lp["wo"]), k_all, v_all
 
     hidden, kv_cache, _ = run_layers(hidden, kv_cache, params["layers"], cfg,
-                                     attn_fn)
+                                     attn_fn, mlp_fn)
     if return_hidden:
         return hidden, kv_cache
     return lm_logits(hidden, params, cfg), kv_cache

@@ -1,25 +1,47 @@
-"""Top-k routed mixture of experts, in PyTorch.
+"""The Mixtral / Qwen3-MoE family and top-k routed mixture of experts, in
+PyTorch.
 
-The port of the routed-MoE part of ``dynamo_tpu/models/mixtral.py``:
-``expert_capacity``, ``_dispatch_combine``, ``moe_mlp`` and
-``make_moe_mlp_fn`` (with DeepSeek's always-on shared experts), and
-``gptoss_moe`` (GPT-OSS's biased router and clamped GLU experts). The
-reference's dense (GShard/Switch) formulation is kept: routing gives every
-(token, expert) pair a queue position, tokens past an expert's capacity
-are dropped for that expert (their residual stream still flows), and the
-expert products are batched matmuls over [E, C, D], as XLA computes them
-in the reference. The Mixtral trunk itself (its ``forward``) and expert
-parallelism (``ep_axis``) belong to later slices.
+The port of ``dynamo_tpu/models/mixtral.py``:
+
+- the family surface (``check_supported``, ``param_keys``, ``init_params``,
+  ``init_kv_cache``, ``forward``, ``lm_logits``): the Llama trunk
+  (``models/llama.py``: GQA, RoPE, the paged KV cache, the decode, verify
+  and flash kernels on a card; Qwen3's per-head q/k norms when the tree
+  holds them) with the routed experts as its MLP;
+- the routed-MoE part shared with DeepSeek and GPT-OSS:
+  ``expert_capacity``, ``_dispatch_combine``, ``moe_mlp`` and
+  ``make_moe_mlp_fn`` (with DeepSeek's always-on shared experts), and
+  ``gptoss_moe`` (GPT-OSS's biased router and clamped GLU experts).
+
+The reference's dense (GShard/Switch) formulation is kept: routing gives
+every (token, expert) pair a queue position, tokens past an expert's
+capacity are dropped for that expert (their residual stream still flows),
+and the expert products are batched matmuls over [E, C, D], as XLA
+computes them in the reference (``quant.expert_bmm``: int8 stacks too).
+Expert parallelism (``ep_axis``) belongs to a later slice.
+
+Parameters keep the reference's names and layouts: ``layers`` holds
+``ln1``, ``wq`` [L, D, H*hd], ``wk`` / ``wv`` [L, D, KVH*hd], ``wo``
+[L, H*hd, D], ``ln2``, ``router`` [L, D, E], ``w_gate`` / ``w_up``
+[L, E, D, I] and ``w_down`` [L, E, I, D], with optional ``q_norm`` /
+``k_norm`` [L, hd] (Qwen3-MoE, from a checkpoint) and ``bq`` / ``bk`` /
+``bv``; beside them ``embed`` [V, D], ``final_norm`` [D] and, unless the
+embeddings are tied, ``lm_head`` [D, V].
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..engine.config import ModelConfig
+from . import llama
+from .llama import Params, init_kv_cache, lm_logits, normal_slices  # noqa: F401
+from .quant import QUANT_KEYS, dense, expert_bmm
+
+KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 
 def expert_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -121,8 +143,8 @@ def moe_mlp(
 
     dispatch, combine = _dispatch_combine(gate_vals, gate_idx, e, capacity, valid)
     x_e = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)      # [E, C, D]
-    h = F.silu(torch.bmm(x_e, w_gate)) * torch.bmm(x_e, w_up)      # [E, C, I]
-    y_e = torch.bmm(h, w_down)                                     # [E, C, D]
+    h = F.silu(expert_bmm(x_e, w_gate)) * expert_bmm(x_e, w_up)    # [E, C, I]
+    y_e = expert_bmm(h, w_down)                                    # [E, C, D]
     return torch.einsum("tec,ecd->td", combine.to(x.dtype), y_e)
 
 
@@ -153,11 +175,11 @@ def gptoss_moe(
     gate_vals = torch.softmax(gate_vals, dim=-1)
     dispatch, combine = _dispatch_combine(gate_vals, gate_idx, e, capacity, valid)
     x_e = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)      # [E, C, D]
-    gu = torch.bmm(x_e, w_gate_up) + b_gate_up[:, None, :]         # [E, C, 2I]
+    gu = expert_bmm(x_e, w_gate_up) + b_gate_up[:, None, :]        # [E, C, 2I]
     gate = gu[..., 0::2].clamp(max=limit)
     up = gu[..., 1::2].clamp(-limit, limit)
     h = (up + 1.0) * (gate * torch.sigmoid(gate * alpha))
-    y_e = torch.bmm(h, w_down) + b_down[:, None, :]                 # [E, C, D]
+    y_e = expert_bmm(h, w_down) + b_down[:, None, :]                # [E, C, D]
     return torch.einsum("tec,ecd->td", combine.to(x.dtype), y_e)
 
 
@@ -185,8 +207,108 @@ def make_moe_mlp_fn(cfg: ModelConfig, b: int, s: int,
             topk_group=cfg.topk_group,
         ).reshape(b, s, -1)
         if "w_sh_gate" in lp:
-            gate = F.silu(x @ lp["w_sh_gate"])
-            y = y + (gate * (x @ lp["w_sh_up"])) @ lp["w_sh_down"]
+            gate = F.silu(dense(x, lp["w_sh_gate"]))
+            y = y + dense(gate * dense(x, lp["w_sh_up"]), lp["w_sh_down"])
         return y
 
     return mlp
+
+
+_LAYER_KEYS = {"ln1", "wq", "wk", "wv", "wo", "ln2", "router", "w_gate",
+               "w_up", "w_down"}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse configs this family module does not serve."""
+    unported = []
+    if cfg.model_family:
+        unported.append(f"model family {cfg.model_family!r}")
+    if not cfg.num_experts:
+        unported.append("a dense MLP (num_experts 0: the llama family)")
+    if cfg.kv_lora_rank:
+        unported.append("MLA attention")
+    if cfg.attn_logit_softcap or cfg.final_logit_softcap:
+        unported.append("logit softcapping")
+    if unported:
+        raise NotImplementedError(
+            "not served by the Mixtral family: " + "; ".join(unported))
+
+
+def param_keys(cfg: ModelConfig) -> Dict[str, set]:
+    """Per layer group, the keys a Mixtral-family param tree must hold (the
+    Qwen3 q/k norms are optional; the Qwen2-style biases are required when
+    the config has them)."""
+    keys = set(_LAYER_KEYS)
+    if cfg.attention_bias:
+        keys |= {"bq", "bk", "bv"}
+    return {"layers": keys}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.bfloat16, device="cpu") -> Params:
+    """Random-init params with the reference's shapes and names:
+    normal(0, fan_in^-0.5) weights drawn from ``generator`` a layer slice at
+    a time (``llama.normal_slices``), unit norms, zero biases; no q/k norms
+    (a Qwen3-MoE checkpoint brings them). With ``cfg.quantization`` the
+    ``quant.QUANT_KEYS`` leaves are quantized to int8 slice by slice as
+    they are drawn, so a tree too large for the card in ``dtype``
+    (Mixtral-8x7B: 93 GB in bf16) is never held whole in it."""
+    check_supported(cfg)
+    l, d_model = cfg.num_layers, cfg.hidden_size
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    e = cfg.num_experts
+    quantized = QUANT_KEYS if cfg.quantization else frozenset()
+
+    def w(name, shape, fan_in):
+        return normal_slices(shape, fan_in, generator, dtype, device,
+                             quantize=name in quantized)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    layers = {
+        "ln1": ones((l, d_model)),
+        "wq": w("wq", (l, d_model, h * hd), d_model),
+        "wk": w("wk", (l, d_model, kvh * hd), d_model),
+        "wv": w("wv", (l, d_model, kvh * hd), d_model),
+        "wo": w("wo", (l, h * hd, d_model), h * hd),
+        "ln2": ones((l, d_model)),
+        "router": w("router", (l, d_model, e), d_model),
+        "w_gate": w("w_gate", (l, e, d_model, inter), d_model),
+        "w_up": w("w_up", (l, e, d_model, inter), d_model),
+        "w_down": w("w_down", (l, e, inter, d_model), inter),
+    }
+    if cfg.attention_bias:
+        for name, width in (("bq", h * hd), ("bk", kvh * hd), ("bv", kvh * hd)):
+            layers[name] = torch.zeros((l, width), dtype=dtype, device=device)
+    params: Params = {
+        "embed": w("embed", (cfg.vocab_size, d_model), d_model),
+        "layers": layers,
+        "final_norm": ones((d_model,)),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w("lm_head", (d_model, cfg.vocab_size), d_model)
+    return params
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [B, S]
+    positions: torch.Tensor,     # [B, S] absolute positions (pad → repeat last)
+    kv_cache: KVCache,
+    block_tables: torch.Tensor,  # [B, W]
+    slot_mapping: torch.Tensor,  # [B, S] flat cache slot per token; -1 drops
+    context_lens: torch.Tensor,  # [B] valid tokens incl. the ones being written
+    return_hidden: bool = False,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Logits [B, S, V] (or the pre-final-norm hidden with
+    ``return_hidden``) and the cache, updated in place: the Llama trunk with
+    the routed experts as its MLP. Bucket-padding tokens (slot_mapping < 0)
+    claim no expert slots."""
+    b, s = tokens.shape
+    return llama.forward(params, cfg, tokens, positions, kv_cache,
+                         block_tables, slot_mapping, context_lens,
+                         return_hidden=return_hidden,
+                         mlp_fn=make_moe_mlp_fn(cfg, b, s, slot_mapping))

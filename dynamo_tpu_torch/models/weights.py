@@ -3,11 +3,14 @@ into the port's tensors.
 
 The port keeps the reference's parameter names and layouts
 (``models/llama.py``, ``models/deepseek.py``, ``models/gptoss.py``,
-``models/gemma2.py``), so the
-bridge is a plain copy of every leaf, checked against the family's keys. The
-caller hands in numpy arrays (e.g. ``jax.device_get(params)`` on the JAX
-side); this module never imports jax. bfloat16 leaves (numpy's
-``ml_dtypes.bfloat16``) are reinterpreted bit for bit.
+``models/mixtral.py``, ``models/gemma2.py``), so the bridge is a plain copy
+of every leaf, checked against the family's keys. The caller hands in numpy
+arrays (e.g. ``jax.device_get(params)`` on the JAX side); this module never
+imports jax. bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) are
+reinterpreted bit for bit. A quantized leaf of the reference (its
+``QuantizedWeight``: after ``jax.device_get`` an object with numpy ``q``
+and ``scale``) becomes the port's ``QuantizedWeight`` with its int8 ``q``
+and f32 ``scale`` as they are.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from ..engine.config import ModelConfig
 from . import resolve
 from .llama import Params, torch_dtype
+from .quant import QuantizedWeight
 
 
 def to_tensor(arr, device="cpu", dtype=None) -> torch.Tensor:
@@ -44,6 +48,10 @@ def from_jax_params(np_params: Mapping[str, Any], cfg: ModelConfig,
     def walk(tree):
         if isinstance(tree, Mapping):
             return {k: walk(v) for k, v in tree.items()}
+        if hasattr(tree, "q") and hasattr(tree, "scale"):
+            # a quantized leaf: its dtypes are the scheme's, not ``dtype``
+            return QuantizedWeight(to_tensor(tree.q, device),
+                                   to_tensor(tree.scale, device))
         return to_tensor(tree, device, td)
 
     params = walk(np_params)

@@ -263,7 +263,7 @@ def _epilogue_inputs(g, b=8, v=1000, slots=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("v", [1000, 102400, 128256])
+@pytest.mark.parametrize("v", [1000, 32000, 102400, 128256, 151936])
 @pytest.mark.parametrize("alias", [True, False])
 def test_epilogue_kernel_matches_plain_version(v, alias):
     _need_cuda()
@@ -895,3 +895,95 @@ def test_sp_prefix_kernel_refuses_head_dim_256_by_name():
     with pytest.raises(NotImplementedError, match="head_dim 256"):
         sp_prefix.paged_prefix_attention_partials(q, k, v, bt, 17, 1)
     assert sp_prefix.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mixtral", "llama"])
+def test_quantized_tiny_engine_serves_through_the_kernels(family):
+    """An int8 engine on the card (a tiny Mixtral-family or Llama trunk,
+    head_dim 64): every quantized leaf stays int8 on the card, greedy
+    requests stream through the decode, flash and epilogue kernels, and a
+    prefill's logits stay within 5e-2 relative L2 of the CPU's f32 forward
+    over the same ``q`` and ``scale`` (the Mixtral trunk's routing pinned:
+    a bf16 rounding can flip a top-2 choice, a jump rather than a near
+    tie)."""
+    _need_cuda()
+    import asyncio
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.models import quant
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    experts = dict(num_experts=4, num_experts_per_tok=2) if family == "mixtral" else {}
+    model = ModelConfig(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                        quantization="int8", **experts)
+    cfg = EngineConfig(model=model, max_batch_size=4, max_model_len=256,
+                       kv_block_size=16, num_kv_blocks=64, dtype="bfloat16")
+    prompts = [[int(t) for t in torch.randint(3, 1000, (n,),
+                                              generator=torch.Generator().manual_seed(n))]
+               for n in (40, 90, 7)]
+
+    async def serve():
+        engine = await TorchServingEngine.create(cfg, device="cuda", warmup=False)
+        try:
+            async def one(p):
+                req = PreprocessedRequest(
+                    token_ids=p, stop_conditions=StopConditions(
+                        max_tokens=8, ignore_eos=True),
+                    sampling_options=SamplingOptions(temperature=0.0))
+                toks = []
+                async for out in engine.generate(Context(req)):
+                    toks.extend(out["token_ids"])
+                return toks
+            return engine.runner, await asyncio.gather(*(one(p) for p in prompts))
+        finally:
+            await engine.close()
+
+    launches = (paged_decode.launches, paged_flash.launches, epilogue.launches)
+    runner, streams = asyncio.run(serve())
+    assert all(len(t) == 8 for t in streams)
+    assert paged_decode.launches > launches[0]
+    assert paged_flash.launches > launches[1]
+    assert epilogue.launches > launches[2]
+    layers = runner.params["layers"]
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        assert layers[name].q.dtype == torch.int8 and layers[name].q.is_cuda
+    assert isinstance(runner.params["lm_head"], quant.QuantizedWeight)
+
+    def cpu_tree(tree):
+        if isinstance(tree, dict):
+            return {k: cpu_tree(v) for k, v in tree.items()}
+        if isinstance(tree, quant.QuantizedWeight):
+            return tree.to("cpu")
+        return tree.float().cpu()
+
+    arch = runner.arch
+    params = runner.params
+    if family == "mixtral":
+        lay = params["layers"]
+        bias = torch.linspace(0.0, 3.0, 4, device="cuda").bfloat16()
+        params = dict(params, layers=dict(
+            lay, router=torch.zeros_like(lay["router"]),
+            router_bias=bias.expand(lay["router"].shape[0], 4)))
+    n = 40
+    bt = torch.arange(4, dtype=torch.int32)[None]
+    pos = torch.arange(n, dtype=torch.int32)[None]
+    ctx = torch.tensor([n], dtype=torch.int32)
+    out = {}
+    for dev, prm, dt in (("cuda", params, torch.bfloat16),
+                         ("cpu", cpu_tree(params), torch.float32)):
+        cache = arch.init_kv_cache(model, 8, 16, dt, dev)
+        toks = torch.tensor([prompts[0]], dtype=torch.int32)
+        with torch.inference_mode():
+            logits, _ = arch.forward(prm, model, toks.to(dev), pos.to(dev),
+                                     cache, bt.to(dev), pos.to(dev), ctx.to(dev))
+        out[dev] = logits.float().cpu()
+    rel = (out["cuda"] - out["cpu"]).norm() / out["cpu"].norm()
+    assert float(rel) < 5e-2

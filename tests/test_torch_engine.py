@@ -292,9 +292,13 @@ def test_config_refuses_unported_features():
     # "on" below the pipeline depth is an error, as in the reference
     with pytest.raises(ValueError):
         EngineConfig(model=model, device_finish="on")
+    # a MoE config builds the Mixtral family; int8 weights are served, any other scheme is refused by name before
+    # a weight is drawn, as in the reference
     moe = EngineConfig(model=dataclasses.replace(model, num_experts=4))
-    with pytest.raises(NotImplementedError):
-        ModelRunner(moe, device="cpu")
+    assert ModelRunner(moe, device="cpu").arch.__name__.endswith("mixtral")
+    EngineConfig(model=dataclasses.replace(model, quantization="int8"))
+    with pytest.raises(ValueError, match="unknown quantization 'fp8'"):
+        EngineConfig(model=dataclasses.replace(model, quantization="fp8"))
 
 
 def test_runner_refuses_float32_on_a_card_by_name(monkeypatch):

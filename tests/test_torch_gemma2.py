@@ -43,7 +43,7 @@ from dynamo_tpu.protocols.common import StopConditions as JaxStop
 from dynamo_tpu.runtime.engine import Context as JaxContext
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 from dynamo_tpu_torch.engine.serving import TorchServingEngine
-from dynamo_tpu_torch.models import gemma2, llama, resolve
+from dynamo_tpu_torch.models import gemma2, llama, mixtral, resolve
 from dynamo_tpu_torch.models.weights import from_jax_params
 from dynamo_tpu_torch.ops import paged_decode, paged_flash, paged_verify
 from dynamo_tpu_torch.protocols.common import (
@@ -270,13 +270,13 @@ def test_softcap_attention_plain_version_matches_pallas_interpret(case, d):
 
 def test_alternating_window_and_resolve():
     """Even layers windowed, odd ones not; gemma2 resolves to the new
-    module while a Mixtral-style MoE config still raises by name."""
+    module, a Mixtral-style MoE config to mixtral, and the gemma2 module
+    refuses experts by name."""
     _, cfg = _configs(TINY)
     assert [llama.alternating_window(cfg, li) for li in range(4)] == [6, None, 6, None]
     assert resolve(cfg) is gemma2
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
-                            num_kv_heads=1, num_experts=4))
+    assert resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
+                               num_kv_heads=1, num_experts=4)) is mixtral
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         gemma2.check_supported(dataclasses.replace(cfg, num_experts=4))
 

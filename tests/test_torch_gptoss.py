@@ -44,7 +44,7 @@ from dynamo_tpu.protocols.common import StopConditions as JaxStop
 from dynamo_tpu.runtime.engine import Context as JaxContext
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 from dynamo_tpu_torch.engine.serving import TorchServingEngine
-from dynamo_tpu_torch.models import gemma2, gptoss, llama, resolve
+from dynamo_tpu_torch.models import gemma2, gptoss, llama, mixtral, resolve
 from dynamo_tpu_torch.models.mixtral import gptoss_moe
 from dynamo_tpu_torch.models.weights import from_jax_params
 from dynamo_tpu_torch.ops import paged_decode, paged_flash, paged_verify
@@ -185,14 +185,13 @@ def test_gptoss_forward_prefill_then_decode_matches_jax():
 
 def test_alternating_window_and_resolve():
     """Even layers windowed, odd ones not; gptoss resolves to the new module,
-    gemma2 to its own, and a Mixtral-style MoE config still raises by name."""
+    gemma2 to its own, and a Mixtral-style MoE config to mixtral."""
     _, cfg = _configs(TINY)
     assert [llama.alternating_window(cfg, li) for li in range(4)] == [4, None, 4, None]
     assert llama.alternating_window(dataclasses.replace(cfg, sliding_window=0), 0) is None
     assert resolve(cfg) is gptoss
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
-                            num_kv_heads=1, num_experts=4))
+    assert resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
+                               num_kv_heads=1, num_experts=4)) is mixtral
     assert resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
                                num_kv_heads=1, model_family="gemma2")) is gemma2
     with pytest.raises(NotImplementedError, match="softcapping"):

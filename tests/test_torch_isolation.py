@@ -49,7 +49,8 @@ def test_port_imports_without_jax_or_reference_package():
     assert {"dynamo_tpu_torch.ops.epilogue", "dynamo_tpu_torch.ops.paged_verify",
             "dynamo_tpu_torch.ops.paged_decode", "dynamo_tpu_torch.ops.paged_flash",
             "dynamo_tpu_torch.ops.mla_decode", "dynamo_tpu_torch.models.deepseek",
-            "dynamo_tpu_torch.models.mixtral", "dynamo_tpu_torch.engine.guided",
+            "dynamo_tpu_torch.models.mixtral", "dynamo_tpu_torch.models.quant",
+            "dynamo_tpu_torch.engine.guided",
             "dynamo_tpu_torch.ops.transfer", "dynamo_tpu_torch.ops.sp_prefix",
             "dynamo_tpu_torch.parallel.ring_attention",
             "dynamo_tpu_torch.parallel.sequence"} <= set(mods)
@@ -84,6 +85,24 @@ def test_sp_modules_import_without_jax_or_reference_package():
         pos = torch.arange(8)[None]
         torch.testing.assert_close(ring_attention(q, k, k, pos, pos, 4),
                                    dense_reference(q, k, k, pos, pos))
+    """)
+
+
+def test_quant_and_mixtral_modules_import_without_jax_or_reference_package():
+    """``models/quant.py`` and ``models/mixtral.py`` alone: neither jax nor
+    ``dynamo_tpu`` comes with them, and a quantized expert product runs in
+    that interpreter."""
+    _import_refusing_reference([
+        "dynamo_tpu_torch.models.quant", "dynamo_tpu_torch.models.mixtral",
+    ], """
+        import torch
+        from dynamo_tpu_torch.models.quant import expert_bmm, quantize_int8
+        w = torch.randn(2, 8, 4)
+        x = torch.randn(2, 3, 8)
+        qw = quantize_int8(w)
+        assert qw.q.dtype == torch.int8 and qw[1].shape == (8, 4)
+        err = (expert_bmm(x, qw) - torch.bmm(x, w)).abs().max()
+        assert float(err) < 0.1, float(err)
     """)
 
 

@@ -34,7 +34,7 @@ from dynamo_tpu.runtime.engine import Context as JaxContext
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
 from dynamo_tpu_torch.engine.serving import TorchServingEngine
-from dynamo_tpu_torch.models import deepseek, gemma2, gptoss, llama, resolve
+from dynamo_tpu_torch.models import deepseek, gemma2, gptoss, llama, mixtral, resolve
 from dynamo_tpu_torch.models.weights import from_jax_params
 from dynamo_tpu_torch.ops import mla_decode
 from dynamo_tpu_torch.protocols.common import (
@@ -229,9 +229,8 @@ def test_resolve_and_weight_bridge_checks():
     assert resolve(cfg) is deepseek
     assert resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
                                num_kv_heads=1)) is llama
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
-                            num_kv_heads=1, num_experts=4))
+    assert resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
+                               num_kv_heads=1, num_experts=4)) is mixtral
     assert resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
                                num_kv_heads=1, model_family="gemma2")) is gemma2
     assert resolve(ModelConfig(vocab_size=64, hidden_size=32, num_heads=2,
@@ -417,7 +416,8 @@ async def test_capacity_one_bursts_stream_as_single_steps(seed):
 
 def test_runner_serves_mla_and_refuses_other_moe_families():
     """The runner resolves the family: MLA + MoE builds its own params and
-    unpadded cache; a Mixtral-style MoE config still refuses."""
+    unpadded cache; a Mixtral-style MoE config builds the mixtral family,
+    whose module refuses the MLA config."""
     cfg = EngineConfig(model=ModelConfig(**TINY), **ENGINE)
     runner = ModelRunner(cfg, device="cpu")
     assert runner.arch is deepseek
@@ -427,5 +427,6 @@ def test_runner_serves_mla_and_refuses_other_moe_families():
     mix = dataclasses.replace(cfg, model=ModelConfig(
         vocab_size=64, hidden_size=32, num_heads=2, num_kv_heads=1,
         num_experts=4))
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        ModelRunner(mix, device="cpu")
+    assert ModelRunner(mix, device="cpu").arch is mixtral
+    with pytest.raises(NotImplementedError, match="MLA attention"):
+        mixtral.check_supported(cfg.model)
