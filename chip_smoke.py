@@ -155,6 +155,29 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    near-tie) and the chained engine's (equal), the 12k prompt's SP logits
    against the dense ladder's on the card, kernel 6 once a layer per SP
    chunk, every SP chunk under the sync guard, the early handoffs.
+13. ``engine_http`` — the OpenAI front at the full Llama-3.2-1B shapes in
+   bf16: a model directory written here (``write_model_dir``: the HF
+   ``config.json``, Llama-3's chat template, a synthetic byte-level BPE
+   ``tokenizer.json`` over all 128,256 ids with Llama-3's ``Split``
+   pattern and ``ignore_merges``), the engine built by
+   ``cli.run.build_engine`` (the chained decode loop over 128 KV blocks, so
+   the wave preempts) and served by ``HttpService`` on a free port. A
+   stdlib client sends at once 8 streamed greedy chats (prompts of 100 to
+   1,500 tokens), 2 non-streamed completions, a top-5 logprobs request, a
+   penalised one, one with a stop string, an ``n = 2`` sampled one and one
+   that disconnects after 4 chunks, and reads /v1/models, /health and
+   /metrics. Every stream is held token for token against a roomy engine
+   over the same directory and seed (fed the prompt ids the front
+   annotated; ``n = 2`` against two requests seeded ``seed`` and
+   ``seed + 1``), its text against the tokenizer's decode of its ids, its
+   logprobs within 2e-2; /metrics must show preemptions, one TTFT sample a
+   request and no KV block in use, the launch counts the decode, flash and
+   epilogue kernels (the epilogue in its plain and ``finish`` forms). The
+   edge's TTFT and inter-token gaps a request, the front's share of TTFT
+   and the tokenizer's encode cost a token are printed. Then the CLI
+   itself: ``python3 -m dynamo_tpu_torch.cli.run in=http out=torch`` in a
+   subprocess (on the card by default) answers /health and a chat request
+   and exits 0 on SIGINT.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -164,7 +187,9 @@ path's launches, its ``finish`` + ``extra_bias`` form with the chained
 engine's; the sink forms and the epilogue at V 201,088 with the gpt-oss
 paths' launches, the softcap forms and the epilogue at V 256,000 with the
 gemma-2 paths', the head_dim-128 forms and the epilogue at V 151,936 and
-32,000 with the Qwen3-MoE and Mixtral paths'); the line before that the
+32,000 with the Qwen3-MoE and Mixtral paths'; the decode, flash and
+epilogue entries also carry ``launches_engine_http``, the HTTP path's own
+counts); the line before that the
 card's name and power limit.
 """
 
@@ -2437,13 +2462,19 @@ def _reset_launches():
 
     for name in KERNEL_MODULES:
         importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches = 0
+    importlib.import_module("dynamo_tpu_torch.ops.epilogue").launches_finish = 0
 
 
 def _read_launches():
+    """Each kernel module's launch count, and the epilogue's ``finish``
+    form's among them (``epilogue_finish``)."""
     import importlib
 
-    return {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches
-            for name in KERNEL_MODULES}
+    out = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches
+           for name in KERNEL_MODULES}
+    out["epilogue_finish"] = importlib.import_module(
+        "dynamo_tpu_torch.ops.epilogue").launches_finish
+    return out
 
 
 def _check_streams(results, new_tokens, vocab=FLAGSHIP["vocab_size"]):
@@ -4291,8 +4322,754 @@ def engine_sp_phase(torch, dev, smi):
     return dict(sp_prefix=sp["launches"]["sp_prefix"])
 
 
+# ------------------------------------------------------------ engine_http
+
+# Llama-3's published pre-tokenizer pattern and chat template (the
+# Meta-Llama-3-8B-Instruct tokenizer files)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
+                r"\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_CHAT_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + "
+    "'<|end_header_id|>\n\n'+ message['content'] | trim + '<|eot_id|>' %}"
+    "{% if loop.index0 == 0 %}{% set content = bos_token + content %}"
+    "{% endif %}{{ content }}{% endfor %}{% if add_generation_prompt %}"
+    "{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}{% endif %}")
+LLAMA3_SPECIAL = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                  128004: "<|finetune_right_pad_id|>",
+                  128006: "<|start_header_id|>", 128007: "<|end_header_id|>",
+                  128008: "<|eom_id|>", 128009: "<|eot_id|>",
+                  128010: "<|python_tag|>"}
+TOKEN_MAX_CHARS = 16   # the longest synthetic merge, in byte-level chars
+
+
+def _byte_level_alphabet():
+    """GPT-2's byte → printable character table, in byte order."""
+    bs = list(range(33, 127)) + list(range(161, 173)) + list(range(174, 256))
+    cs = bs[:]
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + len(cs) - 188)
+    table = dict(zip(bs, cs))
+    return [chr(table[b]) for b in range(256)]
+
+
+def synthetic_tokenizer(vocab_size=FLAGSHIP["vocab_size"], seed=SEED,
+                        n_special=256) -> dict:
+    """A byte-level BPE ``tokenizer.json`` over ``vocab_size`` ids in
+    Llama-3's layout: 256 byte symbols, then merges drawn from ``seed``
+    (each new token the concatenation of two existing tokens of at most
+    ``TOKEN_MAX_CHARS`` together, so encoding is valid BPE and every id
+    decodes to bytes), then ``n_special`` special tokens (Llama-3's named
+    ones, reserved ones in the gaps); Llama-3's ``Split`` pattern and
+    ``ignore_merges``."""
+    rng = np.random.default_rng(seed)
+    vocab_list = _byte_level_alphabet()
+    vocab = {t: i for i, t in enumerate(vocab_list)}
+    space = vocab_list[ord(" ")]
+    # half the merges grow a word by a letter (words: a leading space or
+    # not, then ASCII letters), so text made of such words encodes as a
+    # word a token; the other half join any two tokens
+    letters = [vocab_list[b] for b in range(256)
+               if chr(b).isascii() and chr(b).isalpha()]
+    words = letters + [space]
+    merges = []
+    n_regular = vocab_size - n_special
+    while len(vocab_list) < n_regular:
+        draws = rng.random((4096, 3))
+        for word, u, v in draws:
+            if word < 0.5:
+                ta = words[int(u * len(words))]
+                tb = letters[int(v * len(letters))]
+            else:
+                ta = vocab_list[int(u * len(vocab_list))]
+                tb = vocab_list[int(v * len(vocab_list))]
+            t = ta + tb
+            if len(t) > TOKEN_MAX_CHARS or t in vocab:
+                continue
+            vocab[t] = len(vocab_list)
+            vocab_list.append(t)
+            merges.append([ta, tb])
+            if word < 0.5 and len(t) < TOKEN_MAX_CHARS:
+                words.append(t)
+            if len(vocab_list) == n_regular:
+                break
+    specials = {i: LLAMA3_SPECIAL.get(i, f"<|reserved_special_token_{i - n_regular}|>")
+                for i in range(n_regular, vocab_size)}
+    added = [dict(id=i, content=t, single_word=False, lstrip=False,
+                  rstrip=False, normalized=False, special=True)
+             for i, t in specials.items()]
+    for i, t in specials.items():
+        vocab[t] = i
+    bos = specials.get(128000, specials[n_regular])
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [vocab[bos]],
+                                      "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": True, "vocab": vocab, "merges": merges},
+    }
+
+
+def write_model_dir(path, seed=SEED) -> str:
+    """The model directory ``engine_http`` serves: ``config.json`` from
+    ``FLAGSHIP`` in the HF layout, ``tokenizer_config.json`` with
+    Llama-3's chat template, and ``synthetic_tokenizer``'s
+    ``tokenizer.json``. No checkpoint: the engine draws seeded random
+    weights (``--allow-random-weights``)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    f = FLAGSHIP
+    config = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": f["vocab_size"], "hidden_size": f["hidden_size"],
+        "intermediate_size": f["intermediate_size"],
+        "num_hidden_layers": f["num_layers"],
+        "num_attention_heads": f["num_heads"],
+        "num_key_value_heads": f["num_kv_heads"], "head_dim": f["head_dim"],
+        "rope_theta": f["rope_theta"],
+        "max_position_embeddings": f["max_position_embeddings"],
+        "tie_word_embeddings": f["tie_word_embeddings"],
+        "rope_scaling": f["rope_scaling"], "rms_norm_eps": 1e-5,
+        "hidden_act": "silu", "attention_bias": False,
+        "bos_token_id": 128000, "eos_token_id": 128009,
+        "torch_dtype": "bfloat16"}
+    (path / "config.json").write_text(json.dumps(config, indent=1))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+        "chat_template": LLAMA3_CHAT_TEMPLATE}, indent=1))
+    (path / "tokenizer.json").write_text(
+        json.dumps(synthetic_tokenizer(seed=seed), ensure_ascii=False),
+        encoding="utf-8")
+    return str(path)
+
+
+# the server of engine_http: the chained decode loop over so few KV blocks
+# that its wave preempts (the roomy engine gets HTTP_ROOMY_BLOCKS)
+HTTP_SERVER = dict(max_model_len=2048, num_kv_blocks=128, kv_block_size=16,
+                   max_batch_size=8, decode_pipeline_depth=2)
+HTTP_ROOMY_BLOCKS = 1024
+HTTP_PREFILL = dict(max_prefill_tokens_per_step=512)
+HTTP_PROMPTS = (1500, 100, 730, 1210, 420, 960, 1100, 250)  # words (tokens)
+HTTP_NEW_TOKENS = 32
+HTTP_SEED = 1234
+HTTP_LOGPROB_TOL = 2e-2
+HTTP_DISCONNECT_AFTER = 4      # chunks read before the client goes away
+HTTP_CLI_TIMEOUT_S = 300
+HTTP_WAVE_TIMEOUT_S = 240
+HTTP_DEVICE = "cuda"           # a CPU rehearsal sets "cpu"
+
+
+def _word_ids(tok):
+    """The synthetic vocabulary's ' word' tokens (a space, then ASCII
+    letters): text made of them encodes back to the same ids."""
+    import re
+
+    return [i for i in range(tok.vocab_size)
+            if re.fullmatch(r" [A-Za-z]+", tok.decode([i]) or "")]
+
+
+def _cli_flags(model_dir, extra_path, **kw):
+    """``cli.run``'s flags for ``model_dir`` with the engine settings
+    ``kw`` (HTTP_SERVER's keys)."""
+    from dynamo_tpu_torch.cli import run
+
+    args = ["--model-path", model_dir, "--model-name", "llama-3.2-1b-random",
+            "--allow-random-weights", "--extra-engine-args", extra_path,
+            "--http-host", "127.0.0.1", "--http-port", "0",
+            "--device", HTTP_DEVICE]
+    for k, v in kw.items():
+        args += ["--" + k.replace("_", "-"), str(v)]
+    return run.parse_flags(args)
+
+
+async def http_request(port, method, path, body=None, disconnect_after=None,
+                       headers=None):
+    """One HTTP/1.1 request over asyncio streams: (status, headers, body,
+    events). For an SSE answer ``events`` holds (arrival seconds since the
+    request was sent, payload) per ``data:`` event, and ``body`` the raw
+    stream; ``disconnect_after`` closes the connection after that many
+    events."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = b"" if body is None else json.dumps(body).encode()
+    head = [f"{method} {path} HTTP/1.1", "Host: 127.0.0.1",
+            "Connection: close", f"Content-Length: {len(data)}",
+            "Content-Type: application/json"]
+    head += [f"{k}: {v}" for k, v in (headers or {}).items()]
+    t0 = time.monotonic()
+    writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + data)
+    await writer.drain()
+    try:
+        status_line, *lines = (await reader.readuntil(b"\r\n\r\n")).decode(
+            "latin-1").split("\r\n")
+        status = int(status_line.split()[1])
+        hdrs = {k.lower(): v.strip() for k, _, v in
+                (line.partition(":") for line in lines if line)}
+        events, raw = [], b""
+        if hdrs.get("transfer-encoding") == "chunked":
+            pending = b""
+            while True:
+                size = int((await reader.readline()).split(b";")[0], 16)
+                if size == 0:
+                    break
+                chunk = await reader.readexactly(size)
+                await reader.readexactly(2)
+                now = time.monotonic() - t0
+                raw += chunk
+                pending += chunk
+                while b"\n\n" in pending:
+                    event, pending = pending.split(b"\n\n", 1)
+                    for line in event.decode().splitlines():
+                        if line.startswith("data: "):
+                            payload = line[6:]
+                            events.append((now, None if payload == "[DONE]"
+                                           else json.loads(payload)))
+                if disconnect_after and len(events) >= disconnect_after:
+                    return status, hdrs, raw, events
+            return status, hdrs, raw, events
+        raw = await reader.readexactly(int(hdrs.get("content-length", 0)))
+        hdrs["elapsed_s"] = time.monotonic() - t0
+        return status, hdrs, raw, events
+    finally:
+        writer.close()
+
+
+def _stream_record(events, chat):
+    """Token ids (from the logprob entries' token strings: the caller maps
+    them), text, logprobs, finish reason, TTFT and inter-token gaps of one
+    SSE stream of a single choice."""
+    text, toks, lps, finish, times = "", [], [], None, []
+    for t, c in events:
+        if c is None or not c.get("choices"):
+            continue
+        ch = c["choices"][0]
+        piece = (ch.get("delta") or {}).get("content") if chat else ch.get("text")
+        if piece:
+            text += piece
+            times.append(t)
+        lp = ch.get("logprobs")
+        if chat and lp and lp.get("content"):
+            toks += [e["token"] for e in lp["content"]]
+            lps += [e["logprob"] for e in lp["content"]]
+            if not piece:
+                times.append(t)
+        elif not chat and lp:
+            toks += lp["tokens"]
+            lps += lp["token_logprobs"]
+        if ch.get("finish_reason"):
+            finish = ch["finish_reason"]
+    gaps = np.diff(times) if len(times) > 1 else np.zeros(1)
+    return dict(text=text, tokens=toks, logprobs=lps, finish=finish,
+                ttft_s=times[0] if times else None,
+                itl_median_s=float(np.median(gaps)), itl_max_s=float(gaps.max()))
+
+
+def _metric(text, name, labels=""):
+    """The value of one sample of a Prometheus exposition."""
+    for line in text.splitlines():
+        key, _, value = line.rpartition(" ")
+        if key == name + labels:
+            return float(value)
+    raise AssertionError(f"{name}{labels} not on /metrics")
+
+
+async def _guarded(wave, engine, timeout_s=HTTP_WAVE_TIMEOUT_S):
+    """Await ``wave`` while ``engine``'s scheduler loop lives: a loop that
+    died ends the wait with its exception, and a wave that outlasts
+    ``timeout_s`` prints every task's stack and the scheduler's state."""
+    import faulthandler
+
+    wave = asyncio.ensure_future(wave)
+    loop_task = engine.scheduler._task
+
+    async def progress():
+        while True:
+            await asyncio.sleep(20)
+            m = engine.metrics()
+            print(f"wave: steps {m['steps']}, preemptions {m['preemptions']}, "
+                  f"active {m['request_active_slots']}, waiting "
+                  f"{m['num_requests_waiting']}, kv {m['kv_active_blocks']}",
+                  file=sys.stderr, flush=True)
+    ticker = asyncio.ensure_future(progress())
+    # a loop blocked in native code cannot time out by itself: every
+    # thread's stack, then exit
+    faulthandler.dump_traceback_later(timeout_s + 30, exit=True)
+    try:
+        done, _ = await asyncio.wait({wave, loop_task}, timeout=timeout_s,
+                                     return_when=asyncio.FIRST_COMPLETED)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        ticker.cancel()
+    if wave in done:
+        return wave.result()
+    wave.cancel()
+    if loop_task in done:
+        raise RuntimeError("the scheduler loop ended while requests were in "
+                           "flight") from loop_task.exception()
+    sched = engine.scheduler
+    print(f"wave stalled after {timeout_s} s: metrics {engine.metrics()}, "
+          f"waiting {[er.request_id for er in sched.waiting]}, slots "
+          f"{[(er.request_id, er.context_len, er.generated, len(er.block_ids)) for er in sched.slots if er is not None]}",
+          file=sys.stderr, flush=True)
+    for task in asyncio.all_tasks():
+        task.print_stack(file=sys.stderr)
+    raise TimeoutError(f"the HTTP wave did not end within {timeout_s} s")
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 unit in the last place at ``x`` (8 significant bits)."""
+    return 2.0 ** (int(np.floor(np.log2(max(abs(x), 2.0 ** -126)))) - 7)
+
+
+def _chosen_logits(torch, runner, prompt, tokens):
+    """The logit of each of ``tokens`` after ``prompt`` and the tokens
+    before it: one plain forward of the whole sequence on blocks 0.. of
+    the (idle) runner's cache, through its model family."""
+    arch, cfg, dev = runner.arch, runner.config, runner.device
+    seq = list(prompt) + list(tokens)
+    n = len(seq)
+    nb = -(-n // cfg.kv_block_size)
+    bt = torch.zeros((1, cfg.blocks_per_seq), dtype=torch.int32, device=dev)
+    bt[0, :nb] = torch.arange(nb, device=dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    with torch.inference_mode():
+        hidden, _ = arch.forward(
+            runner.params, cfg.model,
+            torch.tensor([seq], dtype=torch.int32, device=dev), pos,
+            runner.kv_cache, bt, pos, torch.tensor([n], device=dev).int(),
+            return_hidden=True)
+        lg = arch.lm_logits(hidden[0, len(prompt) - 1:n - 1], runner.params,
+                            cfg.model).float()
+        idx = torch.tensor(list(tokens), device=dev)[:, None]
+        return lg.gather(1, idx)[:, 0].cpu().tolist()
+
+
+def _held_text(streamed, full):
+    """The streamed text is the decode of the stream's ids, but for a tail
+    the incremental decoder holds while it ends in an incomplete UTF-8
+    sequence."""
+    return streamed == full or (full.startswith(streamed)
+                                and full.endswith("�"))
+
+
+def engine_http_phase(torch, dev, smi):
+    """The OpenAI front on the card: a model directory written here
+    (``write_model_dir``), the engine built by ``cli.run.build_engine`` and
+    served by ``HttpService``, a concurrent wave of HTTP requests from a
+    stdlib client, held against a roomy engine over the same directory and
+    seed, then the CLI itself in a subprocess."""
+    import dataclasses
+    import tempfile
+
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+    from dynamo_tpu_torch.protocols.annotated import ANNOTATION_TOKEN_IDS
+    from dynamo_tpu_torch.protocols.openai import (
+        ChatCompletionRequest,
+        CompletionRequest,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    tmp = tempfile.TemporaryDirectory(prefix="engine_http_")
+    t0 = time.monotonic()
+    model_dir = write_model_dir(Path(tmp.name) / "llama-3.2-1b-random")
+    extra = Path(tmp.name) / "extra.json"
+    extra.write_text(json.dumps(HTTP_PREFILL))
+    write_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    tok = HFTokenizer.from_pretrained_dir(model_dir)
+    load_s = time.monotonic() - t0
+    words = _word_ids(tok)
+    rng = np.random.default_rng(SEED)
+
+    def words_text(n):
+        return tok.decode([words[int(i)] for i in rng.integers(0, len(words), n)])
+
+    prompts = [words_text(n) for n in HTTP_PROMPTS]
+    # tokenizer cost: a fresh tokenizer's first encode (cold BPE cache) and
+    # a second one, per prompt token
+    cold = HFTokenizer.from_pretrained_dir(model_dir)
+    t0 = time.perf_counter()
+    n_tok = sum(len(cold.encode(p)) for p in prompts)
+    cold_us = (time.perf_counter() - t0) / n_tok * 1e6
+    t0 = time.perf_counter()
+    for p in prompts:
+        cold.encode(p)
+    warm_us = (time.perf_counter() - t0) / n_tok * 1e6
+    del cold
+
+    greedy = dict(temperature=0.0, max_tokens=HTTP_NEW_TOKENS, ignore_eos=True)
+    ann = dict(nvext={"annotations": [ANNOTATION_TOKEN_IDS]})
+
+    def chat(content, **kw):
+        return dict(model="llama-3.2-1b-random", stream=True,
+                    messages=[{"role": "user", "content": content}], **kw)
+
+    reqs = {f"greedy{i}": ("chat", chat(p, logprobs=True, **greedy, **ann))
+            for i, p in enumerate(prompts)}
+    reqs["completion0"] = ("completion", dict(
+        model="llama-3.2-1b-random", prompt=words_text(300), logprobs=0,
+        **greedy))
+    reqs["completion1"] = ("completion", dict(
+        model="llama-3.2-1b-random", prompt=words_text(640), logprobs=0,
+        **greedy))
+    reqs["logprobs"] = ("chat", chat(words_text(180), logprobs=True,
+                                     top_logprobs=5, **greedy, **ann))
+    reqs["penalties"] = ("chat", chat(words_text(220), logprobs=True,
+                                      frequency_penalty=0.5,
+                                      presence_penalty=0.3, **greedy, **ann))
+    reqs["stop"] = ("chat", chat(words_text(160), logprobs=True, **greedy, **ann))
+    reqs["n2"] = ("chat", chat(words_text(140), logprobs=True, n=2,
+                               temperature=0.8, seed=HTTP_SEED,
+                               max_tokens=HTTP_NEW_TOKENS, ignore_eos=True,
+                               **ann))
+    disconnect = chat(words_text(200), max_tokens=400, temperature=0.0,
+                      ignore_eos=True)
+
+    def preprocessed(pre, kind, body):
+        cls = ChatCompletionRequest if kind == "chat" else CompletionRequest
+        b = dict(body)
+        fn = pre.preprocess_chat if kind == "chat" else pre.preprocess_completion
+        return fn(cls.model_validate(b))
+
+    async def serve_roomy(engine, pre_reqs):
+        async def one(pr):
+            toks, lps = [], []
+            async for out in engine.generate(Context(pr)):
+                toks += out["token_ids"]
+                lps += [lp["logprob"] for lp in out.get("logprobs") or []]
+            return toks, lps
+        return await _guarded(asyncio.gather(*(one(pr) for pr in pre_reqs)),
+                              engine)
+
+    async def main():
+        # the roomy engine first: it picks the stop request's stop string
+        # from its own greedy text
+        roomy = await TorchServingEngine.create(
+            mdc=run.load_mdc(_cli_flags(model_dir, str(extra))),
+            flags=_cli_flags(model_dir, str(extra), **dict(
+                HTTP_SERVER, num_kv_blocks=HTTP_ROOMY_BLOCKS)), device=HTTP_DEVICE)
+        pipe, mdc = await run.build_engine(
+            "torch", _cli_flags(model_dir, str(extra), **HTTP_SERVER))
+        pre = pipe.operator
+        try:
+            stop_pr = preprocessed(pre, "chat", reqs["stop"][1])
+            (stop_ids, stop_lps), = await serve_roomy(roomy, [stop_pr])
+            prompt_lens["stop"] = len(stop_pr.token_ids)
+            stop_text = tok.decode(stop_ids)
+            k = next(i for i in range(len(stop_text) // 2, len(stop_text) - 3)
+                     if "�" not in stop_text[i:i + 3]
+                     and stop_text[i:i + 3].strip())
+            reqs["stop"][1]["stop"] = [stop_text[k:k + 3]]
+
+            core = pipe.core_engine
+            engine_times = {}
+            generate = core.generate
+
+            async def timed(request):
+                rid = request.context.trace_id
+                rec = engine_times.setdefault(rid, {"in": time.monotonic()})
+                rec.setdefault("contexts", []).append(request.context)
+                async for out in generate(request):
+                    if out.get("token_ids") and "first" not in rec:
+                        rec["first"] = time.monotonic()
+                    yield out
+            core.generate = timed
+
+            manager = ModelManager()
+            manager.add_chat_model("llama-3.2-1b-random", pipe)
+            manager.add_completion_model("llama-3.2-1b-random", pipe)
+            service = HttpService(manager, "127.0.0.1", 0)
+            service.metrics.register_callback_gauges("dynamo_engine", core.metrics)
+            await service.start()
+            port = service.port
+            try:
+                _, _, models, _ = await http_request(port, "GET", "/v1/models")
+                _, _, health, _ = await http_request(port, "GET", "/health")
+                _reset_launches()
+                t_wave = time.monotonic()
+                sent = {name: http_request(
+                    port, "POST", "/v1/chat/completions" if kind == "chat"
+                    else "/v1/completions", body,
+                    headers={"X-Request-Id": name})
+                    for name, (kind, body) in reqs.items()}
+                sent["disconnect"] = http_request(
+                    port, "POST", "/v1/chat/completions", disconnect,
+                    disconnect_after=HTTP_DISCONNECT_AFTER,
+                    headers={"X-Request-Id": "disconnect"})
+                answers = dict(zip(sent, await _guarded(
+                    asyncio.gather(*sent.values()), core)))
+                dropped = answers.pop("disconnect")
+                wave_s = time.monotonic() - t_wave
+                for _ in range(600):  # the dropped request is reaped
+                    m = core.metrics()
+                    if not m["kv_active_blocks"] and not m["request_active_slots"]:
+                        break
+                    await asyncio.sleep(0.05)
+                launches = _read_launches()
+                _, _, metrics_raw, _ = await http_request(port, "GET", "/metrics")
+            finally:
+                await service.stop()
+            core_metrics = core.metrics()
+            await pipe.close()
+            if HTTP_DEVICE == "cuda":
+                torch.cuda.empty_cache()
+            # the same requests on the roomy engine: the prompt ids the
+            # front annotated (completions: the preprocessor's), the same
+            # options; n = 2 as two n = 1 requests seeded seed and seed + 1
+            roomy_reqs, keys = [], []
+            for name, (kind, body) in reqs.items():
+                if name == "stop":  # served above, before the stop was set
+                    continue
+                pr = preprocessed(pre, kind, body)
+                prompt_lens[name] = len(pr.token_ids)
+                if kind == "chat":
+                    ann_line = next(
+                        line for line in answers[name][2].decode().split("\n")
+                        if line.startswith(": "))
+                    ids = json.loads(ann_line[2:])
+                    if ids != pr.token_ids:
+                        raise AssertionError(f"{name}: annotated prompt ids differ "
+                                             "from the preprocessor's")
+                    pr = dataclasses.replace(pr, token_ids=ids)
+                if name == "n2":
+                    for i in range(2):
+                        roomy_reqs.append(dataclasses.replace(
+                            pr, sampling_options=dataclasses.replace(
+                                pr.sampling_options, n=1, seed=HTTP_SEED + i)))
+                        keys.append((name, i))
+                else:
+                    roomy_reqs.append(pr)
+                    keys.append((name, None))
+            roomy_out = dict(zip(keys, await serve_roomy(roomy, roomy_reqs)))
+            roomy_out[("stop", None)] = (stop_ids, stop_lps)
+            # a preempted stream re-prefilled its generated tokens: its later
+            # logits may differ from the roomy engine's by one bf16 rounding,
+            # so its bound needs each chosen token's logit (one forward of
+            # the whole sequence on the idle roomy runner)
+            prompts_by = {k: pr.token_ids for k, pr in zip(keys, roomy_reqs)}
+            prompts_by[("stop", None)] = stop_pr.token_ids
+            for key, (toks, _) in roomy_out.items():
+                if any(s == "preempted" for ctx in engine_times.get(
+                        key[0], {}).get("contexts", []) for s, _ in ctx.stages):
+                    chosen_logits[key] = _chosen_logits(
+                        torch, roomy.runner, prompts_by[key], toks)
+        finally:
+            await roomy.close()
+        return (models, health, answers, dropped, wave_s, launches,
+                metrics_raw.decode(), core_metrics, engine_times, roomy_out)
+
+    prompt_lens, chosen_logits = {}, {}
+    (models, health, answers, dropped, wave_s, launches, metrics_text,
+     core_metrics, engine_times, roomy_out) = asyncio.run(main())
+
+    # ---- checks
+    if json.loads(health)["status"] != "ok" or json.loads(models)["data"][0][
+            "id"] != "llama-3.2-1b-random":
+        raise AssertionError(f"/health or /v1/models: {health} {models}")
+    per_request, lp_fail = {}, []
+    for name, (kind, body) in reqs.items():
+        status, hdrs, raw, events = answers[name]
+        if status != 200:
+            raise AssertionError(f"{name}: HTTP {status}: {raw[:400]}")
+        if kind == "completion":
+            resp = json.loads(raw)
+            events = [(hdrs["elapsed_s"], dict(choices=resp["choices"]))]
+        choices = sorted({(c or {}).get("choices", [{}])[0].get("index", 0)
+                          for _, c in events if c and c.get("choices")})
+        for ci in (choices if name == "n2" else [None]):
+            evs = [(t, c) for t, c in events if ci is None or (
+                c and c.get("choices") and c["choices"][0]["index"] == ci)]
+            rec = _stream_record(evs, kind == "chat")
+            ids = [tok.token_to_id(t) for t in rec["tokens"]]
+            want_ids, want_lps = roomy_out[(name, ci)]
+            if name == "stop":
+                if rec["finish"] != "stop" or want_ids[:len(ids)] != ids:
+                    raise AssertionError(
+                        f"stop: finish {rec['finish']}, ids {ids} vs {want_ids}")
+                full = tok.decode(want_ids)
+                cut = full.find(body["stop"][0])
+                if cut < 0 or rec["text"] != full[:cut]:
+                    raise AssertionError(f"stop: text {rec['text']!r} vs "
+                                         f"{full!r} cut at {body['stop']}")
+            else:
+                if ids != want_ids:
+                    raise AssertionError(
+                        f"{name}{'' if ci is None else f'[{ci}]'}: the server's "
+                        f"stream differs from the roomy engine's: {ids} vs "
+                        f"{want_ids}")
+                if not _held_text(rec["text"], tok.decode(ids)):
+                    raise AssertionError(f"{name}: text {rec['text']!r} is not "
+                                         f"the decode of its ids")
+                if rec["finish"] != "length":
+                    raise AssertionError(f"{name}: finish {rec['finish']}")
+            diffs = [abs(a - b) for a, b in zip(rec["logprobs"], want_lps)]
+            lp_err = max(diffs) if diffs else None
+            et = engine_times.get(name, {})
+            preempted = (name, ci) in chosen_logits
+            # the bound: HTTP_LOGPROB_TOL, plus one bf16 unit of the chosen
+            # token's logit on a stream that was preempted and re-prefilled
+            bounds = [HTTP_LOGPROB_TOL + (_bf16_ulp(chosen_logits[(name, ci)][i])
+                                          if preempted else 0.0)
+                      for i in range(len(diffs))]
+            over = [(i, a, b, bound) for i, (a, b, bound) in enumerate(
+                zip(rec["logprobs"], want_lps, bounds)) if abs(a - b) > bound]
+            if lp_err is None or over:
+                lp_fail.append(dict(request=name, choice=ci, max_abs=lp_err,
+                                    preempted=preempted, over=over))
+            engine_ttft = (et["first"] - et["in"]) if "first" in et else None
+            streamed = kind == "chat"
+            per_request[name if ci is None else f"{name}[{ci}]"] = dict(
+                prompt_tokens=prompt_lens[name],
+                ttft_s=rec["ttft_s"] if streamed else None,
+                response_s=None if streamed else rec["ttft_s"],
+                engine_ttft_s=engine_ttft,
+                front_ttft_share_s=(rec["ttft_s"] - engine_ttft
+                                    if streamed and engine_ttft is not None
+                                    else None),
+                itl_median_s=rec["itl_median_s"] if streamed else None,
+                itl_max_s=rec["itl_max_s"] if streamed else None,
+                preempted=preempted,
+                logprob_max_err=lp_err, tokens=len(ids))
+    top = [c for _, c in answers["logprobs"][3] if c and c.get("choices")
+           and (c["choices"][0].get("logprobs") or {}).get("content")]
+    if not all(len(e["top_logprobs"]) == 5 for c in top
+               for e in c["choices"][0]["logprobs"]["content"]):
+        raise AssertionError("top_logprobs=5 did not give 5 alternatives")
+    d_status, _, _, d_events = dropped
+    if d_status != 200 or len(d_events) < HTTP_DISCONNECT_AFTER:
+        raise AssertionError(f"the disconnecting request got {d_status}, "
+                             f"{len(d_events)} events")
+    preemptions = _metric(metrics_text, "dynamo_engine_preemptions")
+    served = len(reqs) + 1
+    ttft_count = _metric(metrics_text,
+                         "dynamo_http_service_time_to_first_token_seconds_count",
+                         '{model="llama-3.2-1b-random"}')
+    disconnects = _metric(metrics_text, "dynamo_http_service_requests_total",
+                          '{model="llama-3.2-1b-random",status="disconnect"}')
+    if preemptions <= 0:
+        raise AssertionError("the small-KV server did not preempt")
+    if ttft_count != served or disconnects != 1:
+        raise AssertionError(f"/metrics: {ttft_count} TTFT samples for {served} "
+                             f"requests, {disconnects} disconnects")
+    if core_metrics["kv_active_blocks"] or _metric(
+            metrics_text, "dynamo_engine_kv_active_blocks"):
+        raise AssertionError(f"KV blocks still in use after the wave: "
+                             f"{core_metrics['kv_active_blocks']}")
+    _check_launches("http", launches, ("paged_decode", "paged_flash", "epilogue"))
+    plain = launches["epilogue"] - launches["epilogue_finish"]
+    if launches["epilogue_finish"] <= 0 or plain <= 0:
+        raise AssertionError(f"the epilogue's plain ({plain}) and finish "
+                             f"({launches['epilogue_finish']}) forms must both "
+                             "launch on the HTTP path")
+
+    # ---- the CLI itself, on the card by default
+    cli = _cli_run(model_dir, str(extra))
+    tmp.cleanup()
+    ttfts = [r["ttft_s"] for r in per_request.values() if r["ttft_s"] is not None]
+    emit("engine_http", model="Llama-3.2-1B shapes, seeded random bf16 weights, "
+         "synthetic 128,256-id byte-level BPE", server=HTTP_SERVER,
+         roomy_kv_blocks=HTTP_ROOMY_BLOCKS, http_requests=served,
+         engine_requests=len(roomy_out) + 1, wave_s=wave_s,
+         model_dir_write_s=write_s, tokenizer_load_s=load_s,
+         encode_us_per_token=dict(cold=cold_us, warm=warm_us,
+                                  prompt_tokens=n_tok),
+         edge=per_request,
+         ttft_s=dict(min=min(ttfts), median=float(np.median(ttfts)),
+                     max=max(ttfts)),
+         front_share_s=dict(
+             median=float(np.median([r["front_ttft_share_s"]
+                                     for r in per_request.values()
+                                     if r["front_ttft_share_s"] is not None]))),
+         preemptions=preemptions, ttft_samples=ttft_count,
+         kv_active_blocks_after=core_metrics["kv_active_blocks"],
+         launches=launches, epilogue_plain=plain,
+         epilogue_finish=launches["epilogue_finish"], cli=cli,
+         logprob_over_tol=lp_fail, card=smi)
+    if lp_fail:
+        raise AssertionError(f"logprobs differ from the roomy engine's by more "
+                             f"than {HTTP_LOGPROB_TOL}: {lp_fail}")
+    return dict(paged_decode=launches["paged_decode"],
+                paged_flash=launches["paged_flash"],
+                sampling_epilogue=plain,
+                sampling_epilogue_finish=launches["epilogue_finish"])
+
+
+def _cli_run(model_dir, extra_path):
+    """``python3 -m dynamo_tpu_torch.cli.run in=http out=torch`` as a user
+    starts it (on the card by default): wait for /health, one chat
+    request, SIGINT, exit code 0."""
+    import signal
+
+    args = [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "in=http",
+            "out=torch", "--model-path", model_dir, "--allow-random-weights",
+            "--extra-engine-args", extra_path, "--max-model-len", "2048",
+            "--num-kv-blocks", "1024", "--http-host", "127.0.0.1",
+            "--http-port", "0"]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(args, cwd=str(ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        line = ""
+        while "listening on" not in line:
+            line = proc.stdout.readline()
+            if (not line and proc.poll() is not None) or (
+                    time.monotonic() - t0 > HTTP_CLI_TIMEOUT_S):
+                raise AssertionError(f"the CLI did not start: {line!r} "
+                                     f"{proc.stderr.read()[-3000:]}")
+        port = int(line.strip().rsplit(":", 1)[1])
+        startup_s = time.monotonic() - t0
+
+        async def ask():
+            h = await http_request(port, "GET", "/health")
+            r = await http_request(port, "POST", "/v1/chat/completions", dict(
+                model="llama-3.2-1b-random", max_tokens=8, temperature=0.0,
+                messages=[{"role": "user", "content": "hello there"}]))
+            return h, r
+        (h_status, _, _, _), (status, _, raw, _) = asyncio.run(ask())
+        body = json.loads(raw)
+        if h_status != 200 or status != 200 or body["usage"]["completion_tokens"] < 1:
+            raise AssertionError(f"the CLI answered {h_status} / {status}: {raw[:300]}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"the CLI exited {rc} on SIGINT: "
+                                 f"{proc.stderr.read()[-3000:]}")
+        return dict(startup_s=startup_s, exit_code=rc,
+                    completion_tokens=body["usage"]["completion_tokens"],
+                    total_s=time.monotonic() - t0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 PHASES = ("kernels", "engine", "engine_chain", "engine_mla", "engine_gptoss",
-          "engine_gemma2", "engine_qwen3moe", "engine_mixtral_int8", "engine_sp")
+          "engine_gemma2", "engine_qwen3moe", "engine_mixtral_int8", "engine_sp",
+          "engine_http")
 
 
 def main(argv=None) -> int:
@@ -4352,8 +5129,17 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             gc.collect()  # the phase's weights and caches go first
             torch.cuda.empty_cache()
+    http_launches = {}
+    if "engine_http" in phases:
+        # the OpenAI front's path: its own counts, beside the main path's
+        http_launches = engine_http_phase(torch, dev, smi)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    kernels = [dict(entry, launches=launches.get(key))
+    kernels = [dict(entry, launches=launches.get(key),
+                    **({"launches_engine_http": http_launches[key]}
+                       if key in http_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     if not partial and any(k["launches"] is None for k in kernels):

@@ -204,6 +204,16 @@ class HostCopy:
         return [t.numpy() for t in self._host]
 
 
+def _table_ctx(pos: torch.Tensor, bt: torch.Tensor, bs: int) -> torch.Tensor:
+    """A burst step's context lengths, ``pos + 1``, held within the block
+    table: a row that does not commit (frozen, or no longer a member) can
+    sit past the table, which is sized to the live rows, and an attention
+    kernel reads ``ceil(ctx / bs)`` entries of its row (past the width:
+    out of bounds). The live rows' blocks are reserved, so only rows whose
+    token and KV write are discarded move."""
+    return torch.clamp(pos + 1, max=bt.shape[1] * bs).int()
+
+
 class ModelRunner:
     """Owns params, the KV cache and the sample state on ``device``."""
 
@@ -442,7 +452,7 @@ class ModelRunner:
                                   self.device, rows=sampled_rows)
             hidden, self.kv_cache = self.arch.forward(
                 self.params, cfg, toks[:, None], pos[:, None], self.kv_cache,
-                bt, slot[:, None], (pos + 1).int(), return_hidden=True)
+                bt, slot[:, None], _table_ctx(pos, bt, bs), return_hidden=True)
             logits = self.arch.lm_logits(hidden[:, 0], self.params, cfg)
             out = sample_and_logprobs(
                 cfg, logits, samp, gumbel, counts, seen, bias, slots, live,
@@ -653,7 +663,7 @@ class ModelRunner:
                                   self.device, rows=sampled_rows)
             hidden, self.kv_cache = self.arch.forward(
                 self.params, cfg, toks[:, None], pos[:, None], self.kv_cache,
-                bt, slot[:, None], (pos + 1).int(), return_hidden=True)
+                bt, slot[:, None], _table_ctx(pos, bt, bs), return_hidden=True)
             logits = self.arch.lm_logits(hidden[:, 0], self.params, cfg)
             gmask = None
             if gtable is not None:

@@ -2,31 +2,123 @@
 
 The port of ``JaxServingEngine`` (``dynamo_tpu/engine/serving.py``): the
 token-level engine — ``PreprocessedRequest`` token ids in, streamed
-``EngineOutput`` dicts out, the same interface the reference worker serves
-as ``in=dyn://... out=jax --token-level``. Served: sampling with
-penalties, logit_bias and logprobs, stop ids and canonical stop sequences
-(``stop_token_seqs``), guided choices by token ids
-(``guided_choice_token_ids``), on the synchronous path or, with
+``EngineOutput`` dicts out, the interface the OpenAI front's preprocessor
+and backend stages drive (``cli/run.py``, ``out=torch``) and the reference
+worker serves as ``in=dyn://... out=jax --token-level``. Served: sampling
+with penalties, logit_bias and logprobs, stop ids and canonical stop
+sequences (``stop_token_seqs``), guided choices by token ids
+(``guided_choice_token_ids``, which the preprocessor tokenizes), ``n > 1``
+as n independent requests (each seed offset by its choice index, each
+delta tagged with its choice), on the synchronous path or, with
 ``EngineConfig.decode_pipeline_depth=2``, the dispatch-ahead and chained
 device-finish decode loop, and with ``EngineConfig.sp_size > 1`` the
 sequence-parallel prefill ladder for long prompts (its ranks laid out on
 the one device; the reference's ``sequence_parallel_size`` flag is this
-config field). Refused by name: ``n > 1`` fan-out,
-``guided_json`` and ``guided_choice`` given as text (both need the
-tokenizer, a later slice). Not ported: the stall watchdog.
+config field). ``create`` takes an ``EngineConfig``, or a model card and
+the CLI's flags (``engine_config_from_mdc``). Refused by name:
+``guided_json`` (it needs the tokenizer's piece table) and
+``guided_choice`` given as text without its token ids. Not ported: the
+stall watchdog and the safetensors loader (a model directory serves seeded
+random weights, as the reference does with ``allow_random_weights``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import glob
+import json
+import os
 import uuid
-from typing import Any, AsyncIterator
+from typing import Any, AsyncIterator, Optional
 
 from ..protocols.common import EngineOutput, FinishReason, PreprocessedRequest
-from ..runtime.engine import AsyncEngine, Context, EngineError
-from .config import EngineConfig
+from ..runtime.engine import AsyncEngine, AsyncEngineContext, Context, EngineError
+from .config import EngineConfig, ModelConfig
 from .model_runner import ModelRunner
 from .scheduler import EngineRequest, Scheduler
+
+
+def engine_config_from_mdc(mdc, flags=None, extra=None) -> EngineConfig:
+    """The one place MDC + CLI flags become an EngineConfig (the reference's
+    ``engine_config_from_mdc`` for the flags the port's CLI takes; every
+    other engine knob comes through ``extra``, and the ones the port does
+    not serve are refused by ``EngineConfig`` when set).
+
+    ``extra`` is the ``--extra-engine-args`` JSON passthrough: keys naming
+    ModelConfig fields override the model config, keys naming EngineConfig
+    fields override the engine config; unknown keys are rejected loudly.
+    """
+    model_cfg = ModelConfig.from_hf_config(mdc.config) if mdc.config else ModelConfig()
+    if getattr(flags, "quantization", None):
+        model_cfg.quantization = flags.quantization
+    if extra is None:
+        extra = load_extra_engine_args(flags)
+    extra = dict(extra or {})
+    model_extra = {}
+    engine_extra = {}
+    model_fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    engine_fields = {f.name for f in dataclasses.fields(EngineConfig)}
+    for key, value in extra.items():
+        if key in model_fields:
+            model_extra[key] = value
+        elif key in engine_fields and key != "model":
+            engine_extra[key] = value
+        else:
+            raise ValueError(
+                f"--extra-engine-args key {key!r} matches no ModelConfig or "
+                f"EngineConfig field"
+            )
+    if model_extra:
+        # replace (not setattr) so __post_init__ re-validates/derives
+        model_cfg = dataclasses.replace(model_cfg, **model_extra)
+    return _apply_engine_extra(engine_extra, EngineConfig(
+        model=model_cfg,
+        max_batch_size=getattr(flags, "max_batch_size", 8),
+        max_model_len=getattr(flags, "max_model_len", None)
+        or min(mdc.context_length, model_cfg.max_position_embeddings),
+        kv_block_size=mdc.kv_block_size,
+        num_kv_blocks=getattr(flags, "num_kv_blocks", None) or 2048,
+        decode_pipeline_depth=getattr(flags, "decode_pipeline_depth", 1) or 1,
+        allow_random_weights=getattr(flags, "allow_random_weights", False),
+    ))
+
+
+def load_extra_engine_args(flags) -> dict:
+    """--extra-engine-args <file.json> → dict."""
+    path = getattr(flags, "extra_engine_args", None)
+    if not path:
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def _apply_engine_extra(extra: dict, cfg: EngineConfig) -> EngineConfig:
+    """Apply --extra-engine-args EngineConfig overrides after construction
+    (a max_model_len override without a bucket list drops the derived
+    buckets, so the new length gets its own ladder)."""
+    if not extra:
+        return cfg
+    if "max_model_len" in extra and "prefill_buckets" not in extra:
+        extra = dict(extra, prefill_buckets=None)
+    return dataclasses.replace(cfg, **extra)
+
+
+def check_random_weights(model_dir: Optional[str], config: EngineConfig) -> None:
+    """The reference's weight rule for a model directory: a checkpoint is
+    loaded (the port has no loader yet, so it raises by name); without one
+    the engine draws seeded random weights only when asked to."""
+    if model_dir is None:
+        return
+    if glob.glob(os.path.join(model_dir, "*.safetensors")):
+        raise NotImplementedError(
+            f"{model_dir} holds a safetensors checkpoint: the PyTorch port "
+            "has no checkpoint loader yet (it serves seeded random weights)")
+    if not config.allow_random_weights:
+        raise FileNotFoundError(
+            f"no *.safetensors under {model_dir}; the engine will not "
+            "silently serve random weights — set allow_random_weights "
+            "(--allow-random-weights)")
 
 
 class TorchServingEngine(AsyncEngine):
@@ -39,15 +131,27 @@ class TorchServingEngine(AsyncEngine):
     @classmethod
     async def create(
         cls,
-        engine_config: EngineConfig,
+        engine_config: Optional[EngineConfig] = None,
         params=None,
         device="cuda",
         warmup: bool = True,
+        *,
+        mdc=None,
+        flags=None,
     ) -> "TorchServingEngine":
         """Build the runner on ``device`` (default "cuda", which raises when
         no card is present), warm it up (builds the kernels on a card) and
         start the scheduler loop. ``params`` in the reference layout; None
-        draws seeded random weights (``engine_config.seed``)."""
+        draws seeded random weights (``engine_config.seed``). Without an
+        ``engine_config`` it comes from the model card ``mdc`` and the CLI
+        ``flags`` (``engine_config_from_mdc``), and the card's directory
+        must allow random weights (``check_random_weights``)."""
+        if engine_config is None:
+            if mdc is None:
+                raise ValueError("create needs an engine_config or a model card")
+            engine_config = engine_config_from_mdc(mdc, flags)
+        if mdc is not None and params is None:
+            check_random_weights(mdc.model_path, engine_config)
         loop = asyncio.get_running_loop()
         runner = await loop.run_in_executor(
             None, lambda: ModelRunner(engine_config, params=params,
@@ -80,8 +184,6 @@ class TorchServingEngine(AsyncEngine):
         if bad is not None:
             raise EngineError(f"prompt token id {bad} outside vocab [0, {vocab})")
         so = req.sampling_options
-        if so.n is not None and so.n > 1:
-            raise EngineError("n > 1 is not served by the PyTorch engine yet")
         if so.guided_json:
             raise EngineError(
                 "guided_json is not served by the PyTorch engine yet (it "
@@ -90,6 +192,15 @@ class TorchServingEngine(AsyncEngine):
             raise EngineError(
                 "guided_choice without guided_choice_token_ids is not served "
                 "by the PyTorch engine (it holds no tokenizer)")
+        if so.n is not None and so.n > 1:
+            # n independent n = 1 scheduler requests (the reference's
+            # engine-level fan-out): seeds offset by the choice index, each
+            # delta tagged with its choice
+            if so.n > 20:  # OpenAI's cap; also bounds the fan-out
+                raise EngineError("n must be <= 20")
+            async for out in self._generate_fanout(request, req, so.n):
+                yield out
+            return
         if (req.stop_conditions.max_tokens == 0
                 and req.output_options.prompt_logprobs is None):
             # an empty completion: nothing to schedule
@@ -113,6 +224,62 @@ class TorchServingEngine(AsyncEngine):
         finally:
             # consumer went away (stop/kill/break) — the scheduler reaps it
             request.context.stop_generating()
+
+    async def _generate_fanout(self, request: Context[Any],
+                               req: PreprocessedRequest, n: int):
+        """n>1 as n independent n=1 scheduler requests sharing the caller's
+        cancellation; deltas interleave in completion order, each stamped
+        with its choice index, and the stream ends when every choice's
+        sentinel arrived."""
+        base_seed = req.sampling_options.seed
+        child_ctxs = [AsyncEngineContext(trace_id=request.context.trace_id)
+                      for _ in range(n)]
+
+        async def relay_stop() -> None:
+            await request.context.wait_stopped()
+            for c in child_ctxs:
+                c.stop_generating()
+
+        relay = asyncio.ensure_future(relay_stop())
+        base_id = request.id or uuid.uuid4().hex
+        children = [EngineRequest(
+            request_id=f"{base_id}#{i}",
+            prompt=list(req.token_ids),
+            req=dataclasses.replace(req, sampling_options=dataclasses.replace(
+                req.sampling_options, n=1,
+                seed=(base_seed + i) if base_seed is not None else None)),
+            ctx=child_ctxs[i],
+            out_queue=asyncio.Queue(),
+        ) for i in range(n)]
+        merged: asyncio.Queue = asyncio.Queue()
+
+        async def pump(i: int, er: EngineRequest):
+            while True:
+                out = await er.out_queue.get()
+                await merged.put((i, out))
+                if out is None:
+                    return
+
+        tasks = [asyncio.ensure_future(pump(i, er))
+                 for i, er in enumerate(children)]
+        for er in children:
+            self.scheduler.add_request(er)
+        open_choices = n
+        try:
+            while open_choices:
+                i, out = await merged.get()
+                if out is None:
+                    open_choices -= 1
+                    continue
+                out.choice = i
+                yield out.to_wire()
+        finally:
+            for t in tasks:
+                t.cancel()
+            relay.cancel()
+            for c in child_ctxs:
+                c.stop_generating()
+            request.context.merge_stages_from(child_ctxs)
 
     def metrics(self) -> dict:
         return self.scheduler.metrics()

@@ -48,6 +48,7 @@ from ..engine.sampling import (
 from . import _build
 
 launches = 0
+launches_finish = 0   # the launches of the ``finish`` form among them
 
 CLUSTER = 8                # CTAs a row (csrc/sampling_epilogue.cu CS)
 _SMEM_FIXED = 28672        # the kernel's per-CTA state (FIXED_BYTES)
@@ -159,7 +160,7 @@ def fused_sampling_epilogue(
         return fused_sampling_epilogue_ref(
             last_logits, gumbel, samp, counts, seen, bias, sample_slots,
             commit, alias_counts, extra_bias, finish, max_model_len)
-    global launches
+    global launches, launches_finish
     dev = last_logits.device
     if last_logits.dim() != 2:
         raise ValueError("epilogue: last_logits must be [B, V]")
@@ -225,6 +226,8 @@ def fused_sampling_epilogue(
     )
     _build.check(rc, "sampling_epilogue")
     launches += 1
+    if finish is not None:
+        launches_finish += 1
     if not alias_counts:
         counts.index_put_((slots, tokens), com.to(counts.dtype), accumulate=True)
     if finish is None:

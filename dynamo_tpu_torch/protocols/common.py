@@ -243,3 +243,15 @@ class EngineOutput:
             migrated=d.get("migrated"),
             choice=d.get("choice"),
         )
+
+
+@dataclasses.dataclass
+class BackendOutput:
+    """EngineOutput after the detokenizer stage: adds clean text deltas."""
+
+    token_ids: List[int]
+    text: Optional[str]
+    finish_reason: Optional[FinishReason] = None
+    logprobs: Optional[List[TokenLogprob]] = None
+    prompt_logprobs: Optional[List[Optional[float]]] = None
+    cum_tokens: int = 0

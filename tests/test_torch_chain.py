@@ -582,6 +582,41 @@ def test_kv_budget_closes_the_chain_before_preemption(weights):
     assert used == 0
 
 
+def test_chained_rows_attend_within_their_block_table(weights, monkeypatch):
+    """A long row that finishes first stays a frozen member of the chain
+    while two short rows keep decoding, and the chain's block table narrows
+    to the live rows' width: every forward's context lengths must stay
+    within the table it is given (a CUDA kernel reads ``ceil(ctx / bs)``
+    table entries, so a frozen row past the width read out of bounds: an
+    illegal address on the card), and the streams equal the synchronous
+    engine's."""
+    from dynamo_tpu_torch.models import llama as torch_llama
+
+    rng = np.random.default_rng(11)
+    reqs = [dict(prompt=[int(t) for t in rng.integers(3, 512, 100)],
+                 stop=dict(max_tokens=2, ignore_eos=True))] + [
+        dict(prompt=[int(t) for t in rng.integers(3, 512, 5)],
+             stop=dict(max_tokens=40, ignore_eos=True)) for _ in range(2)]
+    want, _, _ = asyncio.run(_serve_torch(weights, BASE, reqs))
+    forward = torch_llama.forward
+    beyond = []
+
+    def checked(params, cfg, tokens, positions, kv_cache, block_tables,
+                slot_mapping, context_lens, **kw):
+        width = block_tables.shape[1] * BASE["kv_block_size"]
+        beyond.append(int((context_lens > width).sum()))
+        return forward(params, cfg, tokens, positions, kv_cache, block_tables,
+                       slot_mapping, context_lens, **kw)
+
+    monkeypatch.setattr(torch_llama, "forward", checked)
+    got, metrics, used = asyncio.run(_serve_torch(weights, dict(BASE, **LOOP),
+                                                  reqs))
+    assert [(t, f) for t, _, f in got] == [(t, f) for t, _, f in want]
+    assert metrics["chain_len_max"] > 1 and beyond
+    assert sum(beyond) == 0, beyond
+    assert used == 0
+
+
 def test_to_device_passes_tensors_through_and_converts():
     """The transfer helper: host arrays (uint32 too) become tensors of the
     asked type, and a tensor already on the device passes through."""

@@ -987,3 +987,70 @@ def test_quantized_tiny_engine_serves_through_the_kernels(family):
         out[dev] = logits.float().cpu()
     rel = (out["cuda"] - out["cpu"]).norm() / out["cpu"].norm()
     assert float(rel) < 5e-2
+
+
+@pytest.mark.cuda
+def test_http_front_round_trip_on_the_card(tmp_path):
+    """The OpenAI front in process on the card: ``cli.run.build_engine``
+    over a tiny model directory (the synthetic byte-level BPE of
+    ``chip_smoke``, 1,000 ids), ``HttpService`` on a free port, a streamed
+    chat and a non-streamed completion from the stdlib client, through the
+    decode, flash and epilogue kernels, and no KV block left in use."""
+    _need_cuda()
+    import asyncio
+    import json
+
+    import chip_smoke
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
+
+    spec = chip_smoke.synthetic_tokenizer(vocab_size=1000, n_special=8)
+    specials = [t["content"] for t in spec["added_tokens"]]
+    (tmp_path / "tokenizer.json").write_text(json.dumps(spec), encoding="utf-8")
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps(dict(
+        chat_template=chip_smoke.LLAMA3_CHAT_TEMPLATE, bos_token=specials[0],
+        eos_token=specials[1])))
+    (tmp_path / "config.json").write_text(json.dumps(dict(
+        model_type="llama", vocab_size=1000, hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, head_dim=64, max_position_embeddings=512,
+        bos_token_id=992, eos_token_id=993)))
+    flags = run.parse_flags([
+        "--model-path", str(tmp_path), "--model-name", "tiny",
+        "--allow-random-weights", "--max-model-len", "256",
+        "--num-kv-blocks", "64", "--decode-pipeline-depth", "2"])
+
+    async def serve():
+        pipe, _ = await run.build_engine("torch", flags)
+        manager = ModelManager()
+        manager.add_chat_model("tiny", pipe)
+        manager.add_completion_model("tiny", pipe)
+        service = HttpService(manager, "127.0.0.1", 0)
+        await service.start()
+        try:
+            chat = await chip_smoke.http_request(
+                service.port, "POST", "/v1/chat/completions", dict(
+                    model="tiny", stream=True, max_tokens=12, temperature=0.0,
+                    ignore_eos=True, logprobs=True,
+                    messages=[{"role": "user", "content": "hello there"}]))
+            done = await chip_smoke.http_request(
+                service.port, "POST", "/v1/completions", dict(
+                    model="tiny", prompt="abc " * 40, max_tokens=6,
+                    ignore_eos=True))
+            return chat, done, pipe.core_engine.metrics()
+        finally:
+            await service.stop()
+            await pipe.close()
+
+    launches = (paged_decode.launches, paged_flash.launches, epilogue.launches)
+    (status, _, _, events), (status2, _, raw, _), metrics = asyncio.run(serve())
+    assert status == status2 == 200
+    entries = [e for _, c in events if c and c.get("choices")
+               for e in ((c["choices"][0].get("logprobs") or {}).get("content")
+                         or [])]
+    assert len(entries) == 12
+    assert json.loads(raw)["usage"]["completion_tokens"] == 6
+    assert paged_decode.launches > launches[0]
+    assert paged_flash.launches > launches[1]
+    assert epilogue.launches > launches[2]
+    assert metrics["kv_active_blocks"] == 0

@@ -252,7 +252,8 @@ async def test_seeded_sampling_reproduces_and_validation(weights):
         for bad in (
             PreprocessedRequest(token_ids=[]),
             PreprocessedRequest(token_ids=[600]),
-            PreprocessedRequest(token_ids=[1], sampling_options=SamplingOptions(n=2)),
+            # n > 1 is served (a fan-out); above OpenAI's cap of 20 it is not
+            PreprocessedRequest(token_ids=[1], sampling_options=SamplingOptions(n=21)),
             PreprocessedRequest(token_ids=[1], sampling_options=SamplingOptions(
                 guided_json={"type": "object"})),
             # choices given as text only: the engine holds no tokenizer

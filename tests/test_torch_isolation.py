@@ -1,11 +1,16 @@
-"""The port imports neither jax nor anything of the JAX package.
+"""The port imports neither jax nor anything of the JAX package, nor the
+packages it does not depend on.
 
 ``tests/conftest.py`` imports jax into every test process, so the import
 check runs in a fresh interpreter: a ``sys.meta_path`` finder refuses
 ``jax``, ``jaxlib`` and ``dynamo_tpu``/``dynamo_tpu.*`` (``dynamo_tpu_torch``
-is allowed), then every module of ``dynamo_tpu_torch`` and ``chip_smoke``
-is imported, and CUDA must not have been initialised by any import. A
-static scan of the import statements backs it up.
+is allowed), and the packages the reference's front stands on that the
+port does not depend on (``aiohttp``, ``pydantic``, ``tokenizers``,
+``regex``, ``msgpack``, ``safetensors``, ``transformers``; ``jinja2``, a
+requirement of torch, stays allowed), then every module of
+``dynamo_tpu_torch`` and ``chip_smoke`` is imported, and CUDA must not have
+been initialised by any import. A static scan of the import statements
+backs it up.
 """
 
 import ast
@@ -30,9 +35,12 @@ def _port_modules():
     return mods
 
 
+REFUSED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "tokenizers",
+           "regex", "msgpack", "safetensors", "transformers")
+
+
 def _blocked(name: str) -> bool:
-    return (name in ("jax", "jaxlib", "dynamo_tpu")
-            or name.startswith(("jax.", "jaxlib.", "dynamo_tpu.")))
+    return name.split(".")[0] in REFUSED
 
 
 def test_blocked_names_match_exactly():
@@ -41,6 +49,10 @@ def test_blocked_names_match_exactly():
     assert not _blocked("dynamo_tpu_torch")
     assert not _blocked("dynamo_tpu_torch.ops.attention")
     assert not _blocked("jaxtyping")
+    for name in ("aiohttp.web", "pydantic", "tokenizers.models", "regex",
+                 "msgpack", "safetensors.torch", "transformers"):
+        assert _blocked(name)
+    assert not _blocked("jinja2") and not _blocked("regexp")
 
 
 def test_port_imports_without_jax_or_reference_package():
@@ -53,7 +65,11 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.engine.guided",
             "dynamo_tpu_torch.ops.transfer", "dynamo_tpu_torch.ops.sp_prefix",
             "dynamo_tpu_torch.parallel.ring_attention",
-            "dynamo_tpu_torch.parallel.sequence"} <= set(mods)
+            "dynamo_tpu_torch.parallel.sequence",
+            "dynamo_tpu_torch.llm.tokenizer", "dynamo_tpu_torch.llm.preprocessor",
+            "dynamo_tpu_torch.llm.backend", "dynamo_tpu_torch.http.service",
+            "dynamo_tpu_torch.protocols.openai", "dynamo_tpu_torch.cli.run",
+            "dynamo_tpu_torch.telemetry.registry"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -110,12 +126,11 @@ def _import_refusing_reference(mods, then=""):
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         for m in list(sys.modules):
-            if m in ("jax", "jaxlib") or m.startswith(("jax.", "jaxlib.")):
+            if m.split(".")[0] in {REFUSED!r} and m.split(".")[0] != "dynamo_tpu":
                 del sys.modules[m]
 
         def blocked(name):
-            return (name in ("jax", "jaxlib", "dynamo_tpu")
-                    or name.startswith(("jax.", "jaxlib.", "dynamo_tpu.")))
+            return name.split(".")[0] in {REFUSED!r}
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
