@@ -52,7 +52,14 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    32 layers; decode at the split edges and the engine's contexts, verify
    at S 5 and 17 with a pad row, flash at the engine's batched prefill
    steps), and the epilogue at their vocabularies of 151,936 and 32,000
-   in every form. Flash
+   in every form; and the fp8 forms of decode, verify, flash and MLA decode
+   over e4m3 caches (``FP8_SHAPES``: Llama-3.2-1B's attention, Qwen3's
+   head_dim 128, gemma-2-9b's softcap at head_dim 256, gpt-oss-20b's sinks
+   with its window; V2-Lite's MLA), each held against its f32 plain
+   version and bit for bit against its bf16 form over the caches upcast to
+   bf16, and timed beside it (the bound with one byte a K/V element; no
+   PyTorch call reads e4m3 pages, so SDPA over the upcast caches stands
+   beside it). Flash
    and the prefix partials (one tensor-core core) are also held at head_dim
    128 (H 32, KVH 8), and flash also at the dense ladder's long step of
    ``engine_sp`` (S 512 at position 11,776, ctx 12,000: the query tiles
@@ -85,7 +92,18 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    (no host sync inside a dispatch); the chain is longer than one burst,
    rows finish on the device, each chained step launches the epilogue once
    and the decode kernel once per layer, and no KV block stays in use.
-7. ``engine_mla`` — DeepSeek-V2-Lite at full width and depth (27 layers:
+7. ``engine_fp8`` — Llama-3.2-1B at full width and depth over an fp8
+   (e4m3) KV cache (``kv_cache_dtype="fp8"``): wave 1 and the prefix-hit
+   wave, the spec prompts with and without ngram speculation (verify's fp8
+   form; equal or parted at a printed near-tie), and the synchronous and
+   chained 4-step-burst engines over wave 1 and the finish requests (equal;
+   the chained dispatches under the sync guard), all on one set of weight
+   tensors. Only the fp8 forms of decode, flash and verify launch; the
+   cache is e4m3, half the bytes of a bf16 engine's on the same weights;
+   the logits of a prompt stay within ``FP8_LOGITS_REL_L2`` of the bf16
+   cache's; the card's e4m3 writes of ``FP8_WRITE_VALUES`` give the CPU's
+   bytes; no KV block stays in use.
+8. ``engine_mla`` — DeepSeek-V2-Lite at full width and depth (27 layers:
    MLA attention, a dense first layer, 26 routed-MoE layers with 2 shared
    experts), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights: wave 1 and the
@@ -94,9 +112,12 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    MLA and epilogue kernels' shares of its busy time), wave 1
    again on a 4-step-burst engine over the same weight tensors (identical
    streams), and the logits of a prefill and a decode step at full width
-   and 2 layers against the CPU in f32. Twins within one wave may part
-   there: the reference's expert capacity at a decode batch of 8 is 1.
-8. ``engine_gptoss`` — gpt-oss-20b at full width and depth (24 layers,
+   and 2 layers against the CPU in f32; then an fp8-cache engine over the
+   same weight tensors (wave 1 and the prefix-hit wave through the MLA
+   kernel's fp8 form and the dense S > 1 gather over e4m3 pages). Twins
+   within one wave may part there: the reference's expert capacity at a
+   decode batch of 8 is 1.
+9. ``engine_gptoss`` — gpt-oss-20b at full width and depth (24 layers,
    20.9 B parameters: sinks, alternating 128-token windows, 32 experts top
    4), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights and seeded
@@ -108,7 +129,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    chained dispatches under the sync guard), and the spec prompts without
    and with ngram speculation (verify launches; equal or parted at a
    near-tie, routing pinned).
-9. ``engine_gemma2`` — gemma-2-9b at full width and depth (42 layers,
+10. ``engine_gemma2`` — gemma-2-9b at full width and depth (42 layers,
    9.24 B parameters: head_dim 256, attention logits capped at 50 and
    final logits at 30, 4,096-token windows on the even layers, sandwich
    norms, GeGLU, a tied 256,000 vocabulary), built by
@@ -123,7 +144,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the same weight tensors (identical streams, the chained dispatches
    under the sync guard), and the spec prompts without and with ngram
    speculation (verify launches; equal or parted at a near-tie).
-10. ``engine_qwen3moe`` — Qwen3-30B-A3B at full width and depth (48
+11. ``engine_qwen3moe`` — Qwen3-30B-A3B at full width and depth (48
    layers, 30.53 B parameters: 128 experts top 8, per-head q/k norms,
    G 8 at head_dim 128, an untied 151,936 vocabulary), built by
    ``ModelConfig.from_hf_config`` from its published ``config.json``
@@ -135,7 +156,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    same weight tensors (identical streams, the chained dispatches under
    the sync guard), and the spec prompts without and with ngram
    speculation (verify launches; routing pinned).
-11. ``engine_mixtral_int8`` — Mixtral-8x7B at full width and all 32 layers
+12. ``engine_mixtral_int8`` — Mixtral-8x7B at full width and all 32 layers
    in int8 (46.70 B parameters, 8 experts top 2, G 4 at head_dim 128, a
    32,000 vocabulary), from its published ``config.json`` values with
    ``quantization="int8"``: the weights are quantized slice by slice as
@@ -146,7 +167,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    same ``q`` and ``scale`` (routing pinned and held; free and reported),
    and wave 1 again on a 4-step-burst and a chained engine (identical
    streams).
-12. ``engine_sp`` — sequence-parallel long-context prefill on Llama-3.2-1B
+13. ``engine_sp`` — sequence-parallel long-context prefill on Llama-3.2-1B
    (16k context, ``sp_size`` 4, the ranks laid out on the one card): a
    12,000- and a 6,000-token prompt on the SP ladder beside two short
    prompts on the dense ladder, then a prefix-hit request, on a
@@ -155,7 +176,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    near-tie) and the chained engine's (equal), the 12k prompt's SP logits
    against the dense ladder's on the card, kernel 6 once a layer per SP
    chunk, every SP chunk under the sync guard, the early handoffs.
-13. ``engine_http`` — the OpenAI front at the full Llama-3.2-1B shapes in
+14. ``engine_http`` — the OpenAI front at the full Llama-3.2-1B shapes in
    bf16: a model directory written here (``write_model_dir``: the HF
    ``config.json``, Llama-3's chat template, a synthetic byte-level BPE
    ``tokenizer.json`` over all 128,256 ids with Llama-3's ``Split``
@@ -187,7 +208,8 @@ path's launches, its ``finish`` + ``extra_bias`` form with the chained
 engine's; the sink forms and the epilogue at V 201,088 with the gpt-oss
 paths' launches, the softcap forms and the epilogue at V 256,000 with the
 gemma-2 paths', the head_dim-128 forms and the epilogue at V 151,936 and
-32,000 with the Qwen3-MoE and Mixtral paths'; the decode, flash and
+32,000 with the Qwen3-MoE and Mixtral paths', the fp8 forms with the
+``engine_fp8`` paths' and the MLA fp8 engine's; the decode, flash and
 epilogue entries also carry ``launches_engine_http``, the HTTP path's own
 counts); the line before that the
 card's name and power limit.
@@ -646,6 +668,7 @@ def kernel_phase(torch, dev):
     entries.update(_softcap_cases(torch, dev))
     for family in MOE_ATTENTION:
         entries.update(_moe_attention_cases(torch, dev, family))
+    entries.update(_fp8_cases(torch, dev))
     # kernel 3 at gpt-oss-20b's vocabulary of 201,088, gemma-2-9b's of
     # 256,000, Qwen3-30B-A3B's of 151,936 and Mixtral-8x7B's of 32,000
     for fam, model in (("gptoss", GPT_OSS_20B), ("gemma2", GEMMA_2_9B),
@@ -1166,11 +1189,13 @@ def _sdpa_sink(torch, q, k, v, layer, bt, base, ctx, sinks, window, ref,
     return ms, err
 
 
-def _attn_bound(D, H, KVH, q, base_l, ctx_l, S, window):
+def _attn_bound(D, H, KVH, q, base_l, ctx_l, S, window, kv_bytes=2):
     """The card's bound for one attention call: 4 D H FLOPs a visible
     (query, key) pair; the live query rows (those below ctx: the kernels
     skip the rest and the caller discards them) and their outputs once,
-    each key and value a row's queries see once, the sinks."""
+    each key and value a row's queries see once (``kv_bytes`` an element:
+    1 for an e4m3 cache), the sinks."""
+    kv_el = kv_bytes
     flops, kv_bytes, live = 0.0, 0, 0
     for b, c in zip(base_l, ctx_l):
         qpos = b + np.arange(S)
@@ -1178,7 +1203,7 @@ def _attn_bound(D, H, KVH, q, base_l, ctx_l, S, window):
         flops += 4.0 * D * H * vis.sum()
         live += int((qpos < c).sum())
         lo, hi = max(0, b - window + 1), min(c - 1, b + S - 1)
-        kv_bytes += max(hi - lo + 1, 0) * KVH * D * 2 * 2
+        kv_bytes += max(hi - lo + 1, 0) * KVH * D * 2 * kv_el
     return _bound_ms(flops, 2 * live * H * D * q.element_size() + kv_bytes
                      + H * 4)
 
@@ -1913,6 +1938,220 @@ def _mla_cases(torch, dev):
                 bound_by=by, library_ms=lib_ms)
 
 
+# the fp8 forms' attention shapes: (name, H, KVH, D, window, sinks, softcap,
+# scale): Llama-3.2-1B (the engine_fp8 path), Qwen3-30B-A3B's head_dim 128
+# (Mixtral-8x7B's too), gemma-2-9b's softcap at head_dim 256 with its
+# 4,096-token window, gpt-oss-20b's sinks with its 128-token window
+FP8_SHAPES = (
+    ("llama_d64", 32, 8, 64, None, False, 0.0, None),
+    ("qwen3moe_d128", 32, 4, 128, None, False, 0.0, None),
+    ("gemma2_d256_cap50", 16, 8, 256, 4096, False, 50.0, SOFTCAP_SCALE),
+    ("gptoss_sinks_w128", 64, 8, 64, SINK_WINDOW, True, 0.0, None),
+)
+FP8_LAYERS, FP8_PAGES = 4, 1024
+
+
+def _fp8_call(torch, kind, q, k, v, bt, base, ctx, **kw):
+    """One call of the ``kind`` kernel (decode, verify, flash) on the card."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_flash as pf
+    from dynamo_tpu_torch.ops import paged_verify as pv
+
+    if kind == "decode":
+        return pd.paged_decode_attention(q, k, v, bt, ctx, **kw)
+    fn = pv.paged_verify_attention if kind == "verify" else pf.paged_flash_attention
+    return fn(q, k, v, bt, base, ctx, **kw)
+
+
+def _fp8_plain(torch, kind, q, k, v, bt, base, ctx, layer, scale, window,
+               sinks, softcap):
+    """The plain version of the ``kind`` kernel (f32 here)."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_flash as pf
+    from dynamo_tpu_torch.ops import paged_verify as pv
+
+    if kind == "decode":
+        return pd.paged_decode_attention_ref(q, k, v, bt, ctx, layer, scale,
+                                             window, sinks, softcap)
+    fn = (pv.paged_verify_attention_ref if kind == "verify"
+          else pf.paged_flash_attention_ref)
+    return fn(q, k, v, bt, base, ctx, layer, scale, window, sinks, softcap)
+
+
+def _fp8_cases(torch, dev):
+    """The fp8 forms of kernels 1, 4 and 2 (decode, verify, flash) at the
+    ``FP8_SHAPES``, over e4m3 caches of ``FP8_LAYERS`` layers, and kernel
+    5's (MLA decode) at DeepSeek-V2-Lite's. Each call is held against its
+    plain version in f32 over the same e4m3 values (ATOL / RTOL), and bit
+    for bit against the bf16 form over the caches upcast to bf16; both
+    forms are timed by graph replay at the same shape. Shapes: decode at
+    the engine's decode contexts (B 8, 2,048-key tables); verify at S 5
+    (the spec engine's K + 1) over the same rows (ctx 1 is a pad row);
+    flash at the engine's batched chunk (4 rows at S 128, a pad row). The
+    bound counts one byte a K/V element. No PyTorch call reads e4m3 pages:
+    ``library_ms`` is null, and SDPA over the caches upcast to bf16 (no cap,
+    no sink) stands beside it as ``sdpa_over_upcast_bf16_ms``. Returns the
+    kernels-line entries: the Llama-3.2-1B shape's numbers (the
+    ``engine_fp8`` path's), the other shapes under ``forms``."""
+    NW = 1 << 30
+    W = ENGINE["max_model_len"] // 16
+    ctx_l = [1, 15, 16, 17, 513, 2048, 700, 1500]
+    flash_rows = [(0, 128), (384, 512), (1024, 1100), (0, 1)]
+    cases = dict(
+        decode=(1, [c - 1 for c in ctx_l], ctx_l),
+        verify=(5, [max(0, c - 5) for c in ctx_l], ctx_l),
+        flash=(128, [r[0] for r in flash_rows], [r[1] for r in flash_rows]))
+    results = {k: {} for k in cases}
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for name, H, KVH, D, window, with_sinks, cap, scale in FP8_SHAPES:
+        shape = (FP8_LAYERS, FP8_PAGES, 16, KVH, D)
+        k8 = torch.randn(shape, generator=g, device=dev).to(torch.float8_e4m3fn)
+        v8 = torch.randn(shape, generator=g, device=dev).to(torch.float8_e4m3fn)
+        kb, vb = k8.to(torch.bfloat16), v8.to(torch.bfloat16)
+        k32, v32 = kb.float(), vb.float()
+        sinks = (torch.randn(H, generator=g, device=dev) * SINK_SCALE
+                 if with_sinks else None)
+        win = window or NW
+        sc = scale or D ** -0.5
+        layer = 2
+        kw = dict(layer_idx=layer, window=win, sinks=sinks, softcap=cap,
+                  scale=sc)
+        bt_all = torch.randperm(FP8_PAGES, generator=g, device=dev)[
+            :8 * W].reshape(8, W).int()
+        for kind, (S, base_l, c_l) in cases.items():
+            B = len(c_l)
+            bt = bt_all[:B].clone()
+            if kind == "flash":
+                bt[-1] = 0  # the pad row reads block 0
+            base = torch.tensor(base_l, dtype=torch.int32, device=dev)
+            ctx = torch.tensor(c_l, dtype=torch.int32, device=dev)
+            q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+            out8 = _fp8_call(torch, kind, q, k8, v8, bt, base, ctx, **kw)
+            again = _fp8_call(torch, kind, q, k8, v8, bt, base, ctx, **kw)
+            outb = _fp8_call(torch, kind, q, kb, vb, bt, base, ctx, **kw)
+            ref = _fp8_plain(torch, kind, q.float(), k32, v32, bt, base, ctx,
+                             layer, sc, win, sinks, cap)
+            torch.cuda.synchronize()
+            if not (torch.equal(out8, again) and torch.equal(out8, outb)):
+                raise AssertionError(
+                    f"{kind} fp8 {name}: not bit-equal to itself and to the "
+                    f"bf16 form over the upcast cache (max |diff| "
+                    f"{float((out8.float() - outb.float()).abs().max()):.3g})")
+            valid = [1 if kind == "decode" else max(0, min(S, c - b))
+                     for b, c in zip(base_l, c_l)]
+            err = max(check_close(f"{kind} fp8 {name} row {i}", out8[i, :n],
+                                  ref[i, :n])
+                      for i, n in enumerate(valid) if n > 0)
+            ms = graph_ms(lambda: _fp8_call(torch, kind, q, k8, v8, bt, base,
+                                            ctx, **kw))
+            bf16_ms = graph_ms(lambda: _fp8_call(torch, kind, q, kb, vb, bt,
+                                                 base, ctx, **kw))
+            plain_ms = cuda_ms(lambda: _fp8_plain(
+                torch, kind, q.float(), k32, v32, bt, base, ctx, layer, sc,
+                win, sinks, cap), iters=5, warmup=1)
+            sdpa_ms = _sdpa_no_softcap(torch, q, kb, vb, layer, bt, base, ctx,
+                                       win, sc)
+            bound, by = _attn_bound(D, H, KVH, q, base_l, c_l, S, win,
+                                    kv_bytes=1)
+            bound_bf16, _ = _attn_bound(D, H, KVH, q, base_l, c_l, S, win)
+            results[kind][name] = dict(
+                max_abs_err=err, ms=ms, bf16_form_ms=bf16_ms,
+                plain_ms=plain_ms, library_ms=None,
+                sdpa_over_upcast_bf16_ms=sdpa_ms, bound_ms=bound,
+                bound_by=by, bf16_bound_ms=bound_bf16,
+                bit_equal_to_bf16_form=True,
+                shape=dict(B=B, S=S, H=H, KVH=KVH, D=D, window=window,
+                           sinks=with_sinks, softcap=cap, scale=sc))
+        del k8, v8, kb, vb, k32, v32
+        torch.cuda.empty_cache()
+    emit("kernels", kernel="fp8_forms", layers=FP8_LAYERS, pages=FP8_PAGES,
+         decode_ctx=ctx_l, verify_S=5, flash_rows=flash_rows, **results)
+    entries = {}
+    for kind, mod, src, core, line in (
+            ("decode", "paged_decode", "paged_decode.cu", "paged_splitkv.cuh",
+             "dynamo_tpu/ops/pallas_decode.py:742"),
+            ("verify", "paged_verify", "paged_verify.cu", "paged_splitkv.cuh",
+             "dynamo_tpu/ops/pallas_decode.py:634"),
+            ("flash", "paged_flash", "paged_flash.cu", "paged_attn_tc.cuh",
+             "dynamo_tpu/ops/pallas_attention.py:254")):
+        main = results[kind]["llama_d64"]
+        entries[f"{mod}_fp8"] = dict(
+            name=f"{mod}_attention[fp8]", route="cuda",
+            source=f"dynamo_tpu_torch/csrc/{src}",
+            core=f"dynamo_tpu_torch/csrc/{core}",
+            upcast="dynamo_tpu_torch/csrc/kv_fp8.cuh", replaces=line,
+            **{k: main[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "sdpa_over_upcast_bf16_ms", "bf16_form_ms")},
+            forms={n: {k: r[k] for k in ("max_abs_err", "ms", "bf16_form_ms",
+                                         "bound_ms", "bound_by",
+                                         "sdpa_over_upcast_bf16_ms")}
+                   for n, r in results[kind].items() if n != "llama_d64"})
+    entries["mla_decode_fp8"] = _mla_fp8_case(torch, dev)
+    return entries
+
+
+def _mla_fp8_case(torch, dev):
+    """Kernel 5's fp8 form at DeepSeek-V2-Lite's shapes (``_mla_cases``'):
+    e4m3 latent and rope caches of 27 layers, held against the f32 plain
+    version and bit for bit against the bf16 form over the upcast caches;
+    both forms timed by graph replay, the bound with one byte a key
+    element."""
+    from dynamo_tpu_torch.ops import mla_decode as md
+
+    L, N, BS, H, R, RD = 27, 1024, 16, 16, 512, 64
+    LAYER, scale = 13, 0.11472
+    W = ENGINE["max_model_len"] // BS
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    c8 = torch.randn(L, N, BS, 1, R, generator=g, device=dev).to(torch.float8_e4m3fn)
+    kr8 = torch.randn(L, N, BS, 1, RD, generator=g, device=dev).to(torch.float8_e4m3fn)
+    cb, krb = c8.to(torch.bfloat16), kr8.to(torch.bfloat16)
+    ctx_l = [1, 15, 16, 17, 513, 2048, 700, 1500]
+    B = len(ctx_l)
+    bt = torch.randperm(N, generator=g, device=dev)[: B * W].reshape(B, W).int()
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    q_lat = (torch.randn(B, 1, H, R, generator=g, device=dev) * 0.5).bfloat16()
+    q_rope = (torch.randn(B, 1, H, RD, generator=g, device=dev) * 0.5).bfloat16()
+
+    def call(c, kr):
+        return md.mla_paged_decode_attention(q_lat, q_rope, c, kr, bt, ctx,
+                                             layer_idx=LAYER, scale=scale)
+
+    out8, again, outb = call(c8, kr8), call(c8, kr8), call(cb, krb)
+    ref = md.mla_paged_decode_attention_ref(q_lat.float(), q_rope.float(),
+                                            cb.float(), krb.float(), bt, ctx,
+                                            LAYER, scale)
+    torch.cuda.synchronize()
+    if not (torch.equal(out8, again) and torch.equal(out8, outb)):
+        raise AssertionError("mla_decode fp8: not bit-equal to itself and to "
+                             "the bf16 form over the upcast caches")
+    err = check_close("mla_decode fp8", out8, ref)
+    ms = graph_ms(lambda: call(c8, kr8))
+    bf16_ms = graph_ms(lambda: call(cb, krb))
+    plain_ms = cuda_ms(lambda: md.mla_paged_decode_attention_ref(
+        q_lat.float(), q_rope.float(), cb.float(), krb.float(), bt, ctx, LAYER,
+        scale), iters=3, warmup=1)
+    nkeys = int(np.sum(ctx_l))
+    flops = 2.0 * nkeys * H * ((R + RD) + R)
+    small = B * H * (R + RD) * 2 + B * H * R * 2 + bt.numel() * 4 + B * 4
+    bound, by = _bound_ms(flops, nkeys * (R + RD) + small)
+    bound_bf16, _ = _bound_ms(flops, nkeys * (R + RD) * 2 + small)
+    emit("kernels", kernel="mla_decode_fp8",
+         shape=dict(B=B, H=H, R=R, RD=RD, bs=BS, L=L, layer=LAYER, ctx=ctx_l,
+                    scale=scale),
+         max_err=err, bit_equal_to_bf16_form=True, kernel_ms=ms,
+         bf16_form_ms=bf16_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+         bf16_bound_ms=bound_bf16)
+    del c8, kr8, cb, krb
+    torch.cuda.empty_cache()
+    return dict(name="mla_paged_decode_attention[fp8]", route="cuda",
+                source="dynamo_tpu_torch/csrc/mla_decode.cu",
+                upcast="dynamo_tpu_torch/csrc/kv_fp8.cuh",
+                replaces="dynamo_tpu/ops/pallas_decode.py:376",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None, bf16_form_ms=bf16_ms)
+
+
 # epilogue rows (B 8): the reference's mixed-regime set (greedy, top-k,
 # top-p, min-p with penalties, top-k + top-p with repetition, greedy), then
 # top-k 1 and a row with planted ties at the top-k and top-p cuts
@@ -2455,6 +2694,8 @@ def _check_logits(torch, cfg, arch, mcfg, device, params, prompt_a, prompt_b,
 
 KERNEL_MODULES = ("paged_decode", "paged_flash", "paged_verify", "epilogue",
                   "mla_decode", "sp_prefix")
+# the modules whose kernels have an fp8 form (``launches_fp8``)
+FP8_MODULES = ("paged_decode", "paged_flash", "paged_verify", "mla_decode")
 
 
 def _reset_launches():
@@ -2462,16 +2703,22 @@ def _reset_launches():
 
     for name in KERNEL_MODULES:
         importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches = 0
+    for name in FP8_MODULES:
+        importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches_fp8 = 0
     importlib.import_module("dynamo_tpu_torch.ops.epilogue").launches_finish = 0
 
 
 def _read_launches():
-    """Each kernel module's launch count, and the epilogue's ``finish``
-    form's among them (``epilogue_finish``)."""
+    """Each kernel module's launch count (of its bf16 form where it has an
+    fp8 one), the fp8 forms' as ``<module>_fp8``, and the epilogue's
+    ``finish`` form's among its own (``epilogue_finish``)."""
     import importlib
 
     out = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches
            for name in KERNEL_MODULES}
+    for name in FP8_MODULES:
+        out[f"{name}_fp8"] = importlib.import_module(
+            f"dynamo_tpu_torch.ops.{name}").launches_fp8
     out["epilogue_finish"] = importlib.import_module(
         "dynamo_tpu_torch.ops.epilogue").launches_finish
     return out
@@ -2491,7 +2738,7 @@ def _check_launches(path, launches, kernels, layers=FLAGSHIP["num_layers"]):
     per layer per forward."""
     for name in kernels:
         n = launches[name]
-        per_layer = name != "epilogue"
+        per_layer = not name.startswith("epilogue")
         if n <= 0 or (per_layer and n % layers):
             raise AssertionError(
                 f"{name} launched {n} times on the {path} path (want > 0"
@@ -2683,7 +2930,7 @@ def _chain_requests(prompts, probe):
 
 
 def _guard_dispatches(torch, runner, layers, k_steps, on_card=True,
-                      attention="paged_decode", sp=False):
+                      attention="paged_decode", sp=False, counter="launches"):
     """Wrap the runner's programs so that each runs under
     ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside a
     dispatch raises), and count, per burst, the epilogue's and the decode
@@ -2694,7 +2941,8 @@ def _guard_dispatches(torch, runner, layers, k_steps, on_card=True,
     every SP chunk dispatch runs under the guard too, and its start, its
     commit flag and its prefix-kernel and flash-kernel launches are
     recorded (``sp_chunks``). ``on_card`` false (a rehearsal on the CPU,
-    where no kernel launches) only counts the calls."""
+    where no kernel launches) only counts the calls. ``counter`` names the
+    attention module's count to read (``launches_fp8`` on an fp8 path)."""
     import importlib
 
     from dynamo_tpu_torch.ops import epilogue
@@ -2711,14 +2959,14 @@ def _guard_dispatches(torch, runner, layers, k_steps, on_card=True,
                 stats[name] += 1
                 return fn(*args, **kw)
             prev = torch.cuda.get_sync_debug_mode()
-            e0, d0 = epilogue.launches, paged_decode.launches
+            e0, d0 = epilogue.launches, getattr(paged_decode, counter)
             torch.cuda.set_sync_debug_mode("error")
             try:
                 out = fn(*args, **kw)
             finally:
                 torch.cuda.set_sync_debug_mode(prev)
             stats[name] += 1
-            got = (epilogue.launches - e0, paged_decode.launches - d0)
+            got = (epilogue.launches - e0, getattr(paged_decode, counter) - d0)
             if burst and got != (k_steps, k_steps * layers):
                 stats["bad"].append((name, got))
             if name == "decode_burst_chained":
@@ -2882,6 +3130,253 @@ def engine_chain_phase(torch, dev, smi):
         sampling_epilogue_finish=chained["stats"]["chained_epilogue_launches"])
 
 
+# fp8 against bf16 KV, logits of one prompt on the same weights: relative
+# L2 error. e4m3 rounds each K and V element to within 2^-4 of itself;
+# through 16 layers the logits move by a few percent (the reference
+# measured 0.043 on DeepSeek, 0.042 on a GQA trunk,
+# dynamo_tpu/engine/model_runner.py:213-221); a K/V page read wrong, or a
+# write lost, moves them by O(1)
+FP8_LOGITS_REL_L2 = 0.25
+# values whose e4m3 bytes the card's write must give as the CPU's: normals,
+# subnormals and what rounds into them, +-0, 448-464 (round to 448) and
+# past 464 (saturate to +-448)
+FP8_WRITE_VALUES = (0.0, -0.0, 2.0 ** -9, -3 * 2.0 ** -9, 2.0 ** -10,
+                    1.5 * 2.0 ** -10, 0.3, -1.0625, 17.0, 240.0, 448.0, 460.0,
+                    464.0, -464.0, 500.0, -1e4, float("inf"), float("-inf"))
+
+
+def _cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in cache)
+
+
+def _fp8_write_bytes(torch, dev):
+    """The e4m3 bytes ``scatter_kv_stacked`` writes for ``FP8_WRITE_VALUES``
+    (and seeded normals) in bf16 on ``dev``, as a CPU uint8 tensor."""
+    from dynamo_tpu_torch.ops.attention import FP8, alloc_kv_cache, scatter_kv_stacked
+
+    g = torch.Generator().manual_seed(SEED)
+    new = (torch.randn(2, 4, 8, 64, generator=g) * 30).bfloat16()
+    new.view(-1)[:len(FP8_WRITE_VALUES)] = torch.tensor(FP8_WRITE_VALUES).bfloat16()
+    shape = (2, 4, 16, 8, 64)
+    k, v = alloc_kv_cache(shape, FP8, dev), alloc_kv_cache(shape, FP8, dev)
+    slots = torch.tensor([[0, 5, -1, 17], [63, 64, 33, 2]], device=dev)
+    scatter_kv_stacked(k, v, new.to(dev), new.to(dev), slots, 1)
+    return k.view(torch.uint8).cpu()
+
+
+def engine_fp8_phase(torch, dev, smi):
+    """Llama-3.2-1B at full width and depth with an fp8 (e4m3) KV cache,
+    seeded random bf16 weights, every path's launches counted from 0 just
+    before its requests and read just after:
+
+    1. the main path (``kv_cache_dtype="fp8"``, single-token decode): wave
+       1 and the prefix-hit wave 2, the spec prompts without speculation and
+       the finish requests' probe; the cache's element size and bytes;
+    2. a bf16-KV engine on the same weight tensors: its cache's bytes and
+       the logits of one prompt, held against the fp8 engine's;
+    3. ngram speculation (``SPEC``) over the fp8 cache: verify's fp8 form;
+       streams equal the fp8 engine's or part at a printed near-tie;
+    4. the chained decode loop (``CHAIN``) over the fp8 cache, every
+       dispatch under the sync guard, against a synchronous 4-step-burst
+       fp8 engine: wave 1 and the finish requests stream identically.
+
+    The fp8 forms of the decode, flash and verify kernels must launch and
+    their bf16 forms must not; no KV block stays in use; the card's e4m3
+    writes of a fixed set of values give the CPU's bytes."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+
+    layers, k_steps = FLAGSHIP["num_layers"], CHAIN["multi_step_decode"]
+
+    def config(kv="fp8", **kw):
+        return EngineConfig(model=ModelConfig(**FLAGSHIP), seed=SEED,
+                            kv_cache_dtype=kv, **dict(ENGINE, **kw))
+
+    rng = np.random.default_rng(SEED)
+    wave1, wave2 = _requests(rng)
+    spec_reqs = _spec_requests(rng)
+    prompts = _chain_prompts(rng)
+    logit_prompt = wave1[4][0][:100]
+
+    async def main_path():
+        t0 = time.monotonic()
+        engine = await TorchServingEngine.create(config(), device="cuda")
+        setup_s = time.monotonic() - t0
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_launches()
+            t1 = time.monotonic()
+            res1 = await _serve(engine, wave1)
+            wall1 = time.monotonic() - t1
+            res2 = await _serve(engine, wave2)
+            launches = _read_launches()
+            metrics = engine.metrics()
+            peak = torch.cuda.max_memory_allocated(dev)
+            spec_base = await _serve(engine, spec_reqs, SPEC_NEW_TOKENS)
+            probed = await _serve(engine, [(p, dict(temperature=0.0))
+                                           for p in prompts])
+            cache = engine.runner.kv_cache
+            out = dict(setup_s=setup_s, res1=res1, res2=res2, wall1=wall1,
+                       launches=launches, metrics=metrics, peak=peak,
+                       spec_base=spec_base,
+                       probe=[r["tokens"] for r in probed],
+                       element_size=[t.element_size() for t in cache],
+                       dtype=[str(t.dtype) for t in cache],
+                       cache_bytes=_cache_bytes(cache),
+                       blocks_in_use=engine.scheduler.allocator.used,
+                       logits=_last_logits(torch, engine.runner, logit_prompt),
+                       params=engine.runner.params)
+        finally:
+            await engine.close()
+        return out
+
+    async def bf16_logits(params):
+        engine = await TorchServingEngine.create(config(kv="auto"),
+                                                 params=params, device="cuda")
+        try:
+            return (_last_logits(torch, engine.runner, logit_prompt),
+                    _cache_bytes(engine.runner.kv_cache),
+                    [str(t.dtype) for t in engine.runner.kv_cache])
+        finally:
+            await engine.close()
+
+    async def path(kw, reqs, params, new_tokens=None, spec_base=None,
+                   guarded=False):
+        engine = await TorchServingEngine.create(config(**kw), params=params,
+                                                 device="cuda")
+        stats = (_guard_dispatches(torch, engine.runner, layers, k_steps,
+                                   counter="launches_fp8") if guarded else None)
+        try:
+            _reset_launches()
+            t0 = time.monotonic()
+            if spec_base is not None:
+                res = await _serve(engine, reqs, new_tokens)
+            else:
+                res = (await _serve(engine, wave1)
+                       + await _serve_reqs(engine, reqs))
+            wall = time.monotonic() - t0
+            launches = _read_launches()
+            parted = (None if spec_base is None else
+                      _spec_agreement(torch, engine.runner, reqs, spec_base, res))
+            metrics = dict(engine.metrics(), dispatches=stats,
+                           blocks_in_use=engine.scheduler.allocator.used)
+        finally:
+            await engine.close()
+        torch.cuda.empty_cache()
+        return dict(res=res, wall=wall, launches=launches, parted=parted,
+                    metrics=metrics)
+
+    main = asyncio.run(main_path())
+    params = main.pop("params")
+    torch.cuda.empty_cache()
+    logits_bf16, bf16_bytes, bf16_dtype = asyncio.run(bf16_logits(params))
+    torch.cuda.empty_cache()
+    spec = asyncio.run(path(SPEC, spec_reqs, params, SPEC_NEW_TOKENS,
+                            main["spec_base"]))
+    finish_reqs = _chain_requests(prompts, main["probe"])
+    sync = asyncio.run(path(dict(multi_step_decode=k_steps), finish_reqs, params))
+    chained = asyncio.run(path(CHAIN, finish_reqs, params, guarded=True))
+    del params
+    torch.cuda.empty_cache()
+    lg8 = main.pop("logits")
+    diff = (lg8 - logits_bf16).abs()
+    logits = dict(max_abs_diff=float(diff.max()),
+                  rel_l2=float((lg8 - logits_bf16).norm() / logits_bf16.norm()),
+                  max_abs_logit_bf16=float(logits_bf16.abs().max()),
+                  argmax_equal=int(lg8.argmax()) == int(logits_bf16.argmax()),
+                  limit_rel_l2=FP8_LOGITS_REL_L2, prompt_tokens=len(logit_prompt))
+    writes_card = _fp8_write_bytes(torch, dev)
+    writes_cpu = _fp8_write_bytes(torch, "cpu")
+    torch.cuda.synchronize()
+    ttfts = sorted(r["ttft_s"] for r in main["res1"])
+
+    def chain_summary(r):
+        m = r["metrics"]
+        return dict(wall_s=r["wall"], launches=r["launches"],
+                    **{k: m[k] for k in ("decode_steps", "pipeline_bursts",
+                                         "chain_len_max", "device_finished_rows",
+                                         "sync_fallback", "dispatches",
+                                         "blocks_in_use")},
+                    finish_requests=[dict(n=len(x["tokens"]), finish=x["finish"])
+                                     for x in r["res"][len(wave1):]])
+
+    emit("engine_fp8", model="Llama-3.2-1B shapes, seeded random bf16 weights, "
+         "fp8 (e4m3) KV cache", config=dict(ENGINE, kv_cache_dtype="fp8"),
+         requests=len(main["res1"]) + len(main["res2"]), new_tokens=NEW_TOKENS,
+         setup_s=main["setup_s"],
+         wave1_prompt_tokens=sum(len(p) for p, _ in wave1),
+         wave1_wall_s=main["wall1"],
+         wave1_output_tokens_per_s=len(main["res1"]) * NEW_TOKENS / main["wall1"],
+         ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2], max=ttfts[-1]),
+         peak_memory_bytes=main["peak"], launches=main["launches"],
+         metrics=main["metrics"], blocks_in_use=main["blocks_in_use"],
+         cache=dict(dtype=main["dtype"], element_size=main["element_size"],
+                    bytes=main["cache_bytes"], bf16_engine_bytes=bf16_bytes,
+                    bf16_engine_dtype=bf16_dtype),
+         logits_vs_bf16_kv=logits,
+         writes_card_equal_cpu=bool(torch.equal(writes_card, writes_cpu)),
+         spec=dict(**SPEC, requests=len(spec_reqs), new_tokens=SPEC_NEW_TOKENS,
+                   proposed=spec["metrics"]["spec_proposed"],
+                   accepted=spec["metrics"]["spec_accepted"],
+                   wall_s=spec["wall"], streams_equal=sum(
+                       a["tokens"] == b["tokens"]
+                       for a, b in zip(main["spec_base"], spec["res"])),
+                   parted=spec["parted"], launches=spec["launches"],
+                   blocks_in_use=spec["metrics"]["blocks_in_use"]),
+         synchronous_k4=chain_summary(sync), chained=chain_summary(chained),
+         card=smi)
+
+    _check_streams(main["res1"] + main["res2"], NEW_TOKENS)
+    _check_streams(main["spec_base"] + spec["res"], SPEC_NEW_TOKENS)
+    res1 = main["res1"]
+    if res1[0]["tokens"] != res1[1]["tokens"] or res1[2]["tokens"] != res1[3]["tokens"]:
+        raise AssertionError("fp8: repeated requests in one wave streamed differently")
+    if main["metrics"]["gpu_prefix_cache_hit_rate"] <= 0:
+        raise AssertionError("fp8: the shared-prefix request missed the prefix cache")
+    if main["element_size"] != [1, 1] or main["dtype"] != ["torch.float8_e4m3fn"] * 2:
+        raise AssertionError(f"fp8: the cache is {main['dtype']}")
+    if 2 * main["cache_bytes"] != bf16_bytes:
+        raise AssertionError(f"fp8: the cache holds {main['cache_bytes']} bytes, "
+                             f"the bf16 engine's {bf16_bytes}")
+    if not logits["rel_l2"] <= FP8_LOGITS_REL_L2:
+        raise AssertionError(f"fp8: logits {logits}")
+    if not torch.equal(writes_card, writes_cpu):
+        raise AssertionError("fp8: the card's e4m3 writes differ from the CPU's")
+    _check_launches("fp8 main", main["launches"],
+                    ("paged_decode_fp8", "paged_flash_fp8", "epilogue"))
+    _check_launches("fp8 spec", spec["launches"], ("paged_verify_fp8",))
+    if spec["metrics"]["spec_proposed"] <= 0:
+        raise AssertionError("fp8: ngram speculation proposed nothing")
+    for name, r in (("main", main), ("spec", spec), ("synchronous", sync),
+                    ("chained", chained)):
+        bf16 = {k: r["launches"][k] for k in ("paged_decode", "paged_flash",
+                                               "paged_verify")}
+        if any(bf16.values()):
+            raise AssertionError(f"fp8 {name} path launched a bf16 form: {bf16}")
+        used = r["blocks_in_use"] if name == "main" else r["metrics"]["blocks_in_use"]
+        if used:
+            raise AssertionError(f"fp8 {name}: {used} KV blocks still in use")
+    _check_streams(sync["res"][:len(wave1)], NEW_TOKENS)
+    want = [(x["tokens"], x["finish"]) for x in sync["res"]]
+    got = [(x["tokens"], x["finish"]) for x in chained["res"]]
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"fp8: the chained engine's requests {bad} stream "
+                             "differently from the synchronous engine's")
+    m = chained["metrics"]
+    if m["dispatches"]["bad"] or m["chain_len_max"] <= 1 or m["device_finished_rows"] <= 0:
+        raise AssertionError(f"fp8 chained engine: {m}")
+    _check_launches("fp8 chained", chained["launches"],
+                    ("paged_decode_fp8", "paged_flash_fp8", "epilogue"))
+    fin = sync["res"][len(wave1):]
+    if [x["finish"] for x in fin] != ["stop", "stop", "length", "length", "stop",
+                                      "stop"]:
+        raise AssertionError(f"fp8: finish requests ended {fin}")
+    return dict(paged_decode_fp8=main["launches"]["paged_decode_fp8"],
+                paged_flash_fp8=main["launches"]["paged_flash_fp8"],
+                paged_verify_fp8=spec["launches"]["paged_verify_fp8"])
+
+
 def _tree_bytes(tree) -> int:
     """Bytes of a param tree's leaves; an int8 leaf counts its ``q`` (one
     byte a weight) and its f32 ``scale``."""
@@ -2999,7 +3494,12 @@ def engine_mla_phase(torch, dev, smi):
        wave 1, served again, must stream identically;
     3. the chained decode loop (``CHAIN``) on the same weight tensors, every
        dispatch under the sync guard: wave 1 must stream identically once
-       more, with a chain longer than one burst and no block left in use.
+       more, with a chain longer than one burst and no block left in use;
+    4. an fp8 (e4m3) KV cache on the same weight tensors
+       (``kv_cache_dtype="fp8"``): wave 1 and the prefix-hit wave through
+       the MLA kernel's fp8 form (its bf16 form and the GQA kernels never
+       launch) and the dense S > 1 gather over e4m3 pages; streams of their
+       length, half the bf16 cache's bytes, no block left in use.
 
     The numbers are printed before the checks run."""
     import dataclasses
@@ -3061,6 +3561,26 @@ def engine_mla_phase(torch, dev, smi):
             await engine.close()
         return res, wall, launches, metrics
 
+    async def fp8_path(params):
+        engine = await TorchServingEngine.create(
+            config(kv_cache_dtype="fp8"), params=params, device="cuda")
+        try:
+            _reset_launches()
+            t0 = time.monotonic()
+            res = await _serve(engine, wave1)
+            wall = time.monotonic() - t0
+            res_b = await _serve(engine, wave2)
+            launches = _read_launches()
+            cache = engine.runner.kv_cache
+            out = dict(res=res, res2=res_b, wall=wall, launches=launches,
+                       metrics=engine.metrics(),
+                       blocks_in_use=engine.scheduler.allocator.used,
+                       dtype=[str(t.dtype) for t in cache],
+                       cache_bytes=_cache_bytes(cache))
+        finally:
+            await engine.close()
+        return out
+
     (setup_s, res1, res2, wall1, launches, metrics, peak, step, logits,
      params) = asyncio.run(main_path())
     torch.cuda.empty_cache()
@@ -3068,8 +3588,14 @@ def engine_mla_phase(torch, dev, smi):
     torch.cuda.empty_cache()
     res_ch, wall_ch, launches_ch, metrics_ch = asyncio.run(
         burst_path(params, guarded=True, decode_pipeline_depth=2))
+    torch.cuda.empty_cache()
+    fp8 = asyncio.run(fp8_path(params))
     del params
     torch.cuda.empty_cache()
+    # the bf16 engines' cache, from the config's shapes (deepseek.init_kv_cache)
+    fp8["bf16_cache_bytes"] = (2 * layers * ENGINE["num_kv_blocks"]
+                               * ENGINE["kv_block_size"]
+                               * (mcfg.kv_lora_rank + mcfg.qk_rope_head_dim))
 
     def parts_at(a, b):
         return next((i for i, (x, y) in enumerate(zip(a["tokens"], b["tokens"]))
@@ -3102,8 +3628,34 @@ def engine_mla_phase(torch, dev, smi):
                           "device_finished_rows", "sync_fallback", "dispatches",
                           "blocks_in_use")},
                       launches=launches_ch),
+         fp8=dict(kv_cache_dtype="fp8", dtype=fp8["dtype"],
+                  cache_bytes=fp8["cache_bytes"],
+                  bf16_cache_bytes=fp8["bf16_cache_bytes"],
+                  wave1_wall_s=fp8["wall"],
+                  wave1_output_tokens_per_s=len(fp8["res"]) * NEW_TOKENS / fp8["wall"],
+                  streams_equal_bf16=sum(a["tokens"] == b["tokens"]
+                                         for a, b in zip(res1, fp8["res"])),
+                  decode_steps=fp8["metrics"]["decode_steps"],
+                  prefix_hit_rate=fp8["metrics"]["gpu_prefix_cache_hit_rate"],
+                  blocks_in_use=fp8["blocks_in_use"], launches=fp8["launches"]),
          card=smi)
 
+    _check_streams(fp8["res"] + fp8["res2"], NEW_TOKENS, vocab)
+    _check_launches("mla fp8", fp8["launches"], ("mla_decode_fp8", "epilogue"),
+                    layers)
+    if any(fp8["launches"][k] for k in ("mla_decode", "paged_decode",
+                                        "paged_flash", "paged_verify",
+                                        "paged_decode_fp8", "paged_flash_fp8",
+                                        "paged_verify_fp8")):
+        raise AssertionError(f"the MLA fp8 path launched another attention "
+                             f"form: {fp8['launches']}")
+    if (fp8["dtype"] != ["torch.float8_e4m3fn"] * 2
+            or 2 * fp8["cache_bytes"] != fp8["bf16_cache_bytes"]):
+        raise AssertionError(f"MLA fp8 cache: {fp8['dtype']}, "
+                             f"{fp8['cache_bytes']} bytes")
+    if fp8["blocks_in_use"] or fp8["metrics"]["gpu_prefix_cache_hit_rate"] <= 0:
+        raise AssertionError(f"MLA fp8 engine: {fp8['blocks_in_use']} blocks in "
+                             f"use, metrics {fp8['metrics']}")
     _check_streams(res1 + res2, NEW_TOKENS, vocab)
     _check_streams(res_k4, NEW_TOKENS, vocab)
     # twins in one wave may part: at a decode batch of 8 rows each expert
@@ -3132,7 +3684,8 @@ def engine_mla_phase(torch, dev, smi):
     if not (step["mla_kernel_ms"] > 0 and step["epilogue_kernel_ms"] > 0):
         raise AssertionError(f"MLA: the profiled decode step shows no MLA or "
                              f"epilogue kernel: {step['top_kernels_ms']}")
-    return dict(mla_decode=launches["mla_decode"])
+    return dict(mla_decode=launches["mla_decode"],
+                mla_decode_fp8=fp8["launches"]["mla_decode_fp8"])
 
 
 # gpt-oss-20b's sinks and biases: the reference inits them to zero, which
@@ -5067,9 +5620,9 @@ def _cli_run(model_dir, extra_path):
             proc.wait()
 
 
-PHASES = ("kernels", "engine", "engine_chain", "engine_mla", "engine_gptoss",
-          "engine_gemma2", "engine_qwen3moe", "engine_mixtral_int8", "engine_sp",
-          "engine_http")
+PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
+          "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
+          "engine_mixtral_int8", "engine_sp", "engine_http")
 
 
 def main(argv=None) -> int:
@@ -5096,6 +5649,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the dynamo_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 3
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     emit("device", name=torch.cuda.get_device_name(0),
@@ -5115,6 +5669,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     for name, phase in (("engine", engine_phase),
                         ("engine_chain", engine_chain_phase),
+                        ("engine_fp8", engine_fp8_phase),
                         ("engine_mla", engine_mla_phase),
                         ("engine_gptoss", engine_gptoss_phase),
                         ("engine_gemma2", engine_gemma2_phase),
@@ -5144,6 +5699,7 @@ def main(argv=None) -> int:
     partial = len(phases) < len(PHASES)
     if not partial and any(k["launches"] is None for k in kernels):
         raise AssertionError(f"a kernel has no launch count: {kernels}")
+    emit("done", seconds=time.monotonic() - t_start, phases=phases)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, **({"partial": phases} if partial else {}),

@@ -14,6 +14,8 @@ Examples:
       --allow-random-weights --http-port 8080
   python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
       --allow-random-weights --device cpu --extra-engine-args f32.json
+  python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
+      --allow-random-weights --kv-cache-dtype fp8
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ REFUSED_FLAGS = (
     "--engine-init-timeout-s", "--host-kv-blocks", "--multi-step-decode",
     "--device-finish", "--fused-epilogue", "--guided-table-max-states",
     "--no-guided-device-table", "--no-device-stop-strings",
-    "--disagg-stream-depth", "--kv-cache-dtype", "--spec-ngram-tokens",
+    "--disagg-stream-depth", "--spec-ngram-tokens",
     "--spec-draft-model", "--spec-draft-tokens", "--spec-ngram-match",
     "--remote-prefill", "--max-local-prefill-length",
     "--max-prefill-queue-size", "--advertise-host", "--kv-transfer",
@@ -98,6 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode-pipeline-depth", type=int, default=1,
                    help="2 = dispatch-ahead and chained decode loop")
     p.add_argument("--quantization", choices=["int8"], default=None)
+    p.add_argument("--kv-cache-dtype", choices=["auto", "fp8"],
+                   default="auto",
+                   help="paged KV cache storage dtype: fp8 (e4m3, no scale) "
+                        "halves the decode KV stream and doubles cache "
+                        "capacity")
     p.add_argument("--num-kv-blocks", type=int, default=2048)
     p.add_argument("--allow-random-weights", action="store_true",
                    help="serve seeded random weights from a model directory "

@@ -68,7 +68,19 @@
 // each of its CTAs its own columns. No float atomics: two calls are
 // bit-identical.
 //
-// Limits: R == 512 and RD == 64 (DeepSeek-V2, V2-Lite and V3), bf16.
+// fp8 caches (kFp8; c and kr both e4m3, mla_decode_fp8; the TPU kernel's
+// fp8 specialization, pallas_decode.py:278-281). The 216 KB bf16 ring
+// leaves no room for a second one, so the fp8 form keeps 3 e4m3 stages of
+// [c | kr] (36 KB each, rows unswizzled) and ONE bf16 tile: after the
+// barrier that publishes tile it, every thread upcasts its 16-byte e4m3
+// chunks into the bf16 tile at the swizzled places the bf16 ring would
+// hold them (csrc/kv_fp8.cuh), and a second barrier publishes it; Q is
+// staged in that bf16 tile before the walk. The products read the same
+// bf16 tile as the bf16 form, so the result is bit for bit the bf16
+// form's over the caches upcast to bf16, from half the bytes.
+//
+// Limits: R == 512 and RD == 64 (DeepSeek-V2, V2-Lite and V3); c and kr
+// both bf16 or both e4m3; Q and the output bf16.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (dynamo_tpu_torch/ops/_build.py); plain C entry
@@ -81,6 +93,8 @@
 #include <cooperative_groups.h>
 
 #include <atomic>
+
+#include "kv_fp8.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -99,36 +113,53 @@ constexpr int KSTEPS = D / 16;    // k-steps of the score product (36)
 constexpr int KHALF = KSTEPS / 2; // a warp's k-steps (18)
 constexpr uint32_t ROW_BYTES = D * 2;            // 1,152
 constexpr uint32_t TILE_BYTES = TK * ROW_BYTES;  // 73,728
+constexpr uint32_t ROW8 = D;                     // an e4m3 key row (576)
+constexpr uint32_t TILE8 = TK * ROW8;            // 36,864
+constexpr int CH8 = D / 16;                      // 16-byte e4m3 chunks a row (36)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kRank = R, kRopeDim = RD;  // for the C entry, whose R / RD are arguments
 
-// dynamic shared memory: the ring (Q staged in its last stage before the
-// walk; after it, the CTA's partial for the cluster merge), P [16 x 64]
-// bf16, the score hand-over [4 key groups][2][32 lanes] float4, the row
-// maxima and the l sums [8 warps][16], the last-cluster flag, then the
-// chunk's token table (one int a key)
-constexpr int OFF_P = STAGES * TILE_BYTES;
-constexpr int OFF_X = OFF_P + HG * TK * 2;
-constexpr int OFF_RED = OFF_X + 4 * 2 * 32 * 16;
-constexpr int OFF_LSUM = OFF_RED + NW * HG * 4;
-constexpr int OFF_FLAG = OFF_LSUM + NW * HG * 4;
-constexpr int OFF_TOK = OFF_FLAG + 16;
+// dynamic shared memory: the ring (bf16: 3 stages, Q staged in the last
+// before the walk; fp8: the bf16 tile, Q staged in it, then 3 e4m3
+// stages; after the walk, the CTA's partial for the cluster merge), P
+// [16 x 64] bf16, the score hand-over [4 key groups][2][32 lanes] float4,
+// the row maxima and the l sums [8 warps][16], the last-cluster flag, then
+// the chunk's token table (one int a key)
+template <bool kFp8>
+struct Layout {
+  static constexpr int RING = kFp8 ? TILE_BYTES + STAGES * TILE8
+                                   : STAGES * TILE_BYTES;
+  static constexpr int OFF_P = RING;
+  static constexpr int OFF_X = OFF_P + HG * TK * 2;
+  static constexpr int OFF_RED = OFF_X + 4 * 2 * 32 * 16;
+  static constexpr int OFF_LSUM = OFF_RED + NW * HG * 4;
+  static constexpr int OFF_FLAG = OFF_LSUM + NW * HG * 4;
+  static constexpr int OFF_TOK = OFF_FLAG + 16;
+};
 constexpr int MAX_SMEM = 232448;  // an H100 CTA's dynamic shared memory
 constexpr int CL_MAX = 8;         // CTAs a cluster (portable)
 constexpr int OS = R + 4;         // f32 row stride of a CTA's partial
 
 static_assert(TK * (R / 8) % NT == 0 && TK * (RD / 8) % NT == 0,
               "a tile's copies split evenly");
-static_assert(HG * OS * 4 + HG * 8 <= STAGES * TILE_BYTES,
+static_assert(TK * (R / 16) % NT == 0 && TK * (RD / 16) % NT == 0 &&
+                  TK * CH8 % NT == 0,
+              "an e4m3 tile's copies and upcasts split evenly");
+static_assert(HG * OS * 4 + HG * 8 <= Layout<true>::RING &&
+                  HG * OS * 4 + HG * 8 <= Layout<false>::RING,
               "the partial fits the ring");
 
-inline size_t smem_bytes(int chunk) { return (size_t)OFF_TOK + (size_t)chunk * 4; }
+inline size_t smem_bytes(int chunk, bool fp8) {
+  return (size_t)(fp8 ? Layout<true>::OFF_TOK : Layout<false>::OFF_TOK) +
+         (size_t)chunk * 4;
+}
 
+// c and kr hold bf16, or e4m3 in the fp8 form
 struct Params {
   const __nv_bfloat16* q_lat;   // [B, H, R]
   const __nv_bfloat16* q_rope;  // [B, H, RD]
-  const __nv_bfloat16* c;       // [L, N, bs, R]
-  const __nv_bfloat16* kr;      // [L, N, bs, RD]
+  const void* c;                // [L, N, bs, R]
+  const void* kr;               // [L, N, bs, RD]
   const int* bt;                // [B, W]
   const int* ctx_lens;          // [B]
   __nv_bfloat16* out;           // [B, H, R]
@@ -219,7 +250,12 @@ __device__ __forceinline__ uint32_t pswz(int row, int chunk) {
 
 // ------------------------------------------------------------- the kernel
 
+template <bool kFp8>
 __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(const Params p) {
+  using LY = Layout<kFp8>;
+  constexpr int OFF_P = LY::OFF_P, OFF_X = LY::OFF_X, OFF_RED = LY::OFF_RED;
+  constexpr int OFF_LSUM = LY::OFF_LSUM, OFF_FLAG = LY::OFF_FLAG;
+  constexpr int OFF_TOK = LY::OFF_TOK;
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
   const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
@@ -271,7 +307,10 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(const Params p) {
     const int key_end = min(ctx, key_begin + p.chunk);
     const int nt = (key_end - key_begin + TK - 1) / TK;
     const uint32_t s0 = smem_u32(smem);
-    const uint32_t q_s = s0 + (STAGES - 1) * TILE_BYTES;
+    // bf16: Q in the last stage (the walk's first loads fill the others);
+    // fp8: Q in the bf16 tile, first overwritten after the loop's barrier
+    const uint32_t q_s = kFp8 ? s0 : s0 + (STAGES - 1) * TILE_BYTES;
+    const uint32_t r8_s = s0 + TILE_BYTES;  // the e4m3 ring (kFp8)
     const uint32_t p_s = s0 + OFF_P;
 
     // Q: the group's heads, [q_lat | q_rope], zeros past H
@@ -299,13 +338,39 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(const Params p) {
     // t / 8 + 32 j); keys at or past key_end are zeros
     auto load_tile = [&](int it, int stage) {
       const int r0 = it * TK;
+      if constexpr (kFp8) {
+        // e4m3 rows of [c | kr], unswizzled: c as 32 chunks a key (thread
+        // t takes chunk t % 32 of keys t / 32 + 8 j), kr as 4 (chunk t % 4
+        // of key t / 4)
+        const uint32_t dst = r8_s + stage * TILE8;
+        const uint8_t* c8 = static_cast<const uint8_t*>(p.c);
+        const uint8_t* kr8 = static_cast<const uint8_t*>(p.kr);
+#pragma unroll
+        for (int j = 0; j < TK * (R / 16) / NT; ++j) {
+          const int r = (tid >> 5) + j * (NT / 32), c = tid & 31;
+          const bool ok = key_begin + r0 + r < key_end;
+          const uint8_t* src = ok ? c8 + (tok0 + tok_s[r0 + r]) * R + c * 16 : c8;
+          cp_async16(dst + r * ROW8 + c * 16, src, ok);
+        }
+#pragma unroll
+        for (int j = 0; j < TK * (RD / 16) / NT; ++j) {
+          const int r = (tid >> 2) + j * (NT / 4), c = tid & 3;
+          const bool ok = key_begin + r0 + r < key_end;
+          const uint8_t* src =
+              ok ? kr8 + (tok0 + tok_s[r0 + r]) * RD + c * 16 : kr8;
+          cp_async16(dst + r * ROW8 + R + c * 16, src, ok);
+        }
+        return;
+      }
       const uint32_t dst = s0 + stage * TILE_BYTES;
+      const __nv_bfloat16* cb = static_cast<const __nv_bfloat16*>(p.c);
+      const __nv_bfloat16* krb = static_cast<const __nv_bfloat16*>(p.kr);
 #pragma unroll
       for (int j = 0; j < TK * (R / 8) / NT; ++j) {
         const int r = (tid >> 6) + j * (NT / 64), c = tid & 63;
         const bool ok = key_begin + r0 + r < key_end;
         const __nv_bfloat16* src =
-            ok ? p.c + (tok0 + tok_s[r0 + r]) * R + c * 8 : p.c;
+            ok ? cb + (tok0 + tok_s[r0 + r]) * R + c * 8 : cb;
         cp_async16(dst + swz(r, c), src, ok);
       }
 #pragma unroll
@@ -313,8 +378,21 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(const Params p) {
         const int r = (tid >> 3) + j * (NT / 8), c = tid & 7;
         const bool ok = key_begin + r0 + r < key_end;
         const __nv_bfloat16* src =
-            ok ? p.kr + (tok0 + tok_s[r0 + r]) * RD + c * 8 : p.kr;
+            ok ? krb + (tok0 + tok_s[r0 + r]) * RD + c * 8 : krb;
         cp_async16(dst + swz(r, R / 8 + c), src, ok);
+      }
+    };
+
+    // (kFp8) e4m3 stage `stage` -> the bf16 tile: e4m3 chunk cc of key r
+    // (c's 32, then kr's 4) is bf16 chunks 2 cc and 2 cc + 1, at their
+    // swizzled places
+    auto upcast_tile = [&](int stage) {
+#pragma unroll
+      for (int j = 0; j < TK * CH8 / NT; ++j) {
+        const int i = tid + j * NT;
+        const int r = i / CH8, cc = i % CH8;
+        kv_fp8::upcast16(smem + (r8_s - s0) + stage * TILE8 + r * ROW8 + cc * 16,
+                         smem + swz(r, 2 * cc), smem + swz(r, 2 * cc + 1));
       }
     };
 
@@ -345,7 +423,11 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(const Params p) {
         if (nx < nt) load_tile(nx, nx % STAGES);
         cp_async_commit();
       }
-      const uint32_t kb = s0 + (it % STAGES) * TILE_BYTES;
+      if constexpr (kFp8) {
+        upcast_tile(it % STAGES);  // the barrier above freed the bf16 tile
+        __syncthreads();           // ... and this one publishes it
+      }
+      const uint32_t kb = s0 + (kFp8 ? 0 : (it % STAGES) * TILE_BYTES);
       const int t0 = key_begin + it * TK;
 
       // partial scores: this warp's 18 k-steps against keys 16 kg .. +15
@@ -586,15 +668,15 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(const Params p) {
 
 // cudaFuncSetAttribute when this launch needs more dynamic shared memory
 // than the function was last allowed on this device, not on every launch
-std::atomic<int> allowed_smem[64];
-
+template <bool kFp8>
 cudaError_t allow_smem(int bytes) {
+  static std::atomic<int> allowed_smem[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && allowed_smem[dev].load(std::memory_order_acquire) >= bytes)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(mla_decode_kernel,
+  err = cudaFuncSetAttribute(mla_decode_kernel<kFp8>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < 64) {
     int cur = allowed_smem[dev].load(std::memory_order_acquire);
@@ -604,35 +686,28 @@ cudaError_t allow_smem(int bytes) {
   return err;
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the one launch (0 = launched). The
-// wrapper has checked types, shapes, contiguity and 16-byte alignment;
-// `chunk` (a multiple of 64), `splits` (a multiple of `cluster`, 8) come
-// from the table width (ops/mla_decode.py `plan`); ws holds B * ceil(H / 16) * (splits / cluster) * 16 * (R + 2)
-// f32 and cnt at least B * ceil(H / 16) zeroed ints when splits > cluster.
-// Only R = 512, RD = 64 is instantiated.
-extern "C" int mla_decode_bf16(const void* q_lat, const void* q_rope,
-                               const void* c, const void* kr, const void* bt,
-                               const void* ctx, void* out, void* ws, void* cnt,
-                               int B, int H, int R, int RD, int N, int bs,
-                               int W, int layer, int chunk, int splits,
-                               int cluster, float scale, void* stream) {
+// the one launch of the bf16 (kFp8 false) or fp8 form
+template <bool kFp8>
+int mla_decode(const void* q_lat, const void* q_rope, const void* c,
+               const void* kr, const void* bt, const void* ctx, void* out,
+               void* ws, void* cnt, int B, int H, int R, int RD, int N, int bs,
+               int W, int layer, int chunk, int splits, int cluster,
+               float scale, void* stream) {
   if (R != kRank || RD != kRopeDim || B <= 0 || H <= 0 || bs <= 0 ||
       chunk <= 0 || chunk % TK || splits <= 0 ||
       cluster != CL_MAX ||
       splits % cluster || (long long)splits * chunk < (long long)W * bs ||
       (splits > cluster && (ws == nullptr || cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(chunk);
+  const size_t smem = smem_bytes(chunk, kFp8);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem((int)smem);
+  cudaError_t err = allow_smem<kFp8>((int)smem);
   if (err != cudaSuccess) return (int)err;
   Params p;
   p.q_lat = static_cast<const __nv_bfloat16*>(q_lat);
   p.q_rope = static_cast<const __nv_bfloat16*>(q_rope);
-  p.c = static_cast<const __nv_bfloat16*>(c);
-  p.kr = static_cast<const __nv_bfloat16*>(kr);
+  p.c = c;
+  p.kr = kr;
   p.bt = static_cast<const int*>(bt);
   p.ctx_lens = static_cast<const int*>(ctx);
   p.out = static_cast<__nv_bfloat16*>(out);
@@ -657,7 +732,39 @@ extern "C" int mla_decode_bf16(const void* q_lat, const void* q_rope,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, mla_decode_kernel, p);
+  err = cudaLaunchKernelEx(&cfg, mla_decode_kernel<kFp8>, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the one launch (0 = launched). The
+// wrapper has checked types, shapes, contiguity and 16-byte alignment;
+// `chunk` (a multiple of 64), `splits` (a multiple of `cluster`, 8) come
+// from the table width (ops/mla_decode.py `plan`); ws holds B * ceil(H / 16) * (splits / cluster) * 16 * (R + 2)
+// f32 and cnt at least B * ceil(H / 16) zeroed ints when splits > cluster.
+// Only R = 512, RD = 64 is instantiated. q_lat, q_rope and out are bf16; c
+// and kr are bf16 here ...
+extern "C" int mla_decode_bf16(const void* q_lat, const void* q_rope,
+                               const void* c, const void* kr, const void* bt,
+                               const void* ctx, void* out, void* ws, void* cnt,
+                               int B, int H, int R, int RD, int N, int bs,
+                               int W, int layer, int chunk, int splits,
+                               int cluster, float scale, void* stream) {
+  return mla_decode<false>(q_lat, q_rope, c, kr, bt, ctx, out, ws, cnt, B, H,
+                           R, RD, N, bs, W, layer, chunk, splits, cluster,
+                           scale, stream);
+}
+
+// ... and e4m3 (torch.float8_e4m3fn, no scale) here.
+extern "C" int mla_decode_fp8(const void* q_lat, const void* q_rope,
+                              const void* c, const void* kr, const void* bt,
+                              const void* ctx, void* out, void* ws, void* cnt,
+                              int B, int H, int R, int RD, int N, int bs,
+                              int W, int layer, int chunk, int splits,
+                              int cluster, float scale, void* stream) {
+  return mla_decode<true>(q_lat, q_rope, c, kr, bt, ctx, out, ws, cnt, B, H,
+                          R, RD, N, bs, W, layer, chunk, splits, cluster,
+                          scale, stream);
 }

@@ -72,6 +72,17 @@
 // serialise every wgmma and ran slower); the overlap comes from the other
 // warpgroups and CTAs on the SM. See PERF.md for the measured share of the
 // bound.
+//
+// fp8 caches (kFp8; e4m3 K and V; the flash kernel's fp8 form). The ring
+// holds kStages e4m3 tiles of K and of V beside one bf16 K and one bf16 V
+// tile: after the barrier that publishes tile it, every thread upcasts
+// its 16-byte e4m3 chunks into the bf16 tiles at the 128-byte-swizzled
+// places the bf16 ring would hold them (csrc/kv_fp8.cuh), fences the
+// generic-proxy writes for wgmma (fence.proxy.async) and a second barrier
+// publishes them. The products read the same bf16 tile as the bf16 form
+// does, so the result is bit for bit the bf16 form's over the cache upcast
+// to bf16. At head_dim 256: 32 KB of Q, 64 KB of bf16 tiles and 96 KB of
+// e4m3 ring, 197,632 bytes with the alignment (the bf16 form's 230,400).
 
 #pragma once
 
@@ -81,6 +92,8 @@
 
 #include <atomic>
 #include <climits>
+
+#include "kv_fp8.cuh"
 
 namespace paged_attn_tc {
 
@@ -100,10 +113,14 @@ __host__ __device__ constexpr int cta_threads() {
   return 128 * kWG;
 }
 
-// Q, then kStages K tiles, then kStages V tiles; +1 KB to align the base
-template <int D, int kWG>
+// Q, then kStages K tiles, then kStages V tiles; +1 KB to align the base.
+// kFp8: Q, one bf16 K and one bf16 V tile, then kStages e4m3 K tiles and
+// kStages e4m3 V tiles
+template <int D, int kWG, bool kFp8 = false>
 __host__ __device__ constexpr int smem_bytes() {
-  return (cta_rows<kWG>() + 2 * kStages * kKeys) * D * 2 + 1024;
+  return kFp8 ? (cta_rows<kWG>() + 2 * kKeys) * D * 2 +
+                    2 * kStages * kKeys * D + 1024
+              : (cta_rows<kWG>() + 2 * kStages * kKeys) * D * 2 + 1024;
 }
 
 // ------------------------------------------------------------------ PTX
@@ -289,11 +306,12 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk, int rows) {
 
 // --------------------------------------------------------------- the loop
 
-// One CTA's problem: the query rows it owns and where its keys live.
+// One CTA's problem: the query rows it owns and where its keys live (kc /
+// vc bf16, or e4m3 in the fp8 form).
 struct Problem {
   const __nv_bfloat16* q;   // [B, S, H, D]
-  const __nv_bfloat16* kc;  // [L, N, bs, KVH, D]
-  const __nv_bfloat16* vc;  // [L, N, bs, KVH, D]
+  const void* kc;           // [L, N, bs, KVH, D]
+  const void* vc;           // [L, N, bs, KVH, D]
   const int* btab;          // this batch row's block table
   int S, H, KVH, G, N, bs, layer;
   int b, kvh, s0;  // batch row, KV head, first query index of the CTA
@@ -317,7 +335,8 @@ struct RowState {
 // r / G, position base + s) sees key j iff j <= base + s and j > base + s -
 // window; otherwise every key of the range counts. Keys past key_end are
 // zero-filled and masked.
-template <int D, int kWG, bool kCausal, bool kSplitP, bool kCap = false>
+template <int D, int kWG, bool kCausal, bool kSplitP, bool kCap = false,
+          bool kFp8 = false>
 __device__ __forceinline__ void attend(const Problem& p, int base, int window,
                                        int key_begin, int key_end,
                                        unsigned char* smem_raw,
@@ -326,6 +345,9 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
   constexpr int KS = D / 16;   // k-steps of Q K^T
   constexpr int DT = D / 8;    // 8-column output tiles
   constexpr uint32_t kTile = kKeys * D * 2;
+  constexpr uint32_t kTile8 = kKeys * D;     // an e4m3 tile
+  constexpr int CH8 = D / 16;                // 16-byte chunks per e4m3 row
+  constexpr int kBufs = kFp8 ? 1 : kStages;  // bf16 K (and V) tiles
   constexpr int kRows = cta_rows<kWG>(), kThreads = cta_threads<kWG>();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad = lane >> 2, t4 = lane & 3;
@@ -345,9 +367,13 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
                                    : 0;
   if (nt == 0) return;
 
-  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t base_s = smem_u32(smem_raw);
+  const uint32_t q_s = (base_s + 1023u) & ~1023u;
   const uint32_t k_s = q_s + kRows * D * 2;
-  const uint32_t v_s = k_s + kStages * kTile;
+  const uint32_t v_s = k_s + kBufs * kTile;
+  const uint32_t k8_s = v_s + kBufs * kTile;  // the e4m3 rings (kFp8)
+  const uint32_t v8_s = k8_s + kStages * kTile8;
+  auto sm = [&](uint32_t a) { return smem_raw + (a - base_s); };
 
   // Q: row r is (query s0 + r / G, head kvh * G + r % G); zeros past S
   for (int i = tid; i < kRows * CH; i += kThreads) {
@@ -363,8 +389,10 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
   const size_t tok = (size_t)p.KVH * D;
   const size_t layer_off =
       (size_t)p.layer * p.N * p.bs * tok + (size_t)p.kvh * D;
-  const __nv_bfloat16* kl = p.kc + layer_off;
-  const __nv_bfloat16* vl = p.vc + layer_off;
+  const __nv_bfloat16* kl = static_cast<const __nv_bfloat16*>(p.kc) + layer_off;
+  const __nv_bfloat16* vl = static_cast<const __nv_bfloat16*>(p.vc) + layer_off;
+  const uint8_t* kl8 = static_cast<const uint8_t*>(p.kc) + layer_off;
+  const uint8_t* vl8 = static_cast<const uint8_t*>(p.vc) + layer_off;
 
   auto load_tile = [&](int it, int stage) {
     const int t0 = t_first + it * kKeys;
@@ -372,6 +400,24 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
     const int npg = (min(t0 + kKeys, key_end) - 1) / p.bs - pg0 + 1;
     // a lane a page: the tile's block-table entries, read once per warp
     const int mine = lane < npg ? p.btab[pg0 + lane] : 0;
+    if constexpr (kFp8) {  // 16 e4m3 a copy, rows unswizzled
+#pragma unroll
+      for (int j = 0; j < kKeys * CH8 / kThreads; ++j) {
+        const int i = tid + j * kThreads;
+        const int r = i / CH8, c = i % CH8;
+        const int pos = t0 + r;
+        const bool ok = pos < key_end;
+        const int page = pos / p.bs;
+        int blk = __shfl_sync(0xffffffffu, mine, (page - pg0) & 31);
+        if (ok && page - pg0 >= 32) blk = p.btab[page];  // bs < 2 only
+        const size_t off =
+            ok ? ((size_t)blk * p.bs + (pos - page * p.bs)) * tok + c * 16 : 0;
+        const uint32_t dst = stage * kTile8 + r * D + c * 16;
+        cp_async16(k8_s + dst, kl8 + off, ok);
+        cp_async16(v8_s + dst, vl8 + off, ok);
+      }
+      return;
+    }
 #pragma unroll
     for (int j = 0; j < kKeys * CH / kThreads; ++j) {
       const int i = tid + j * kThreads;
@@ -385,6 +431,21 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
           ok ? ((size_t)blk * p.bs + (pos - page * p.bs)) * tok + c * 8 : 0;
       cp_async16(k_s + stage * kTile + swz(r, c, kKeys), kl + off, ok);
       cp_async16(v_s + stage * kTile + swz(r, c, kKeys), vl + off, ok);
+    }
+  };
+
+  // (kFp8) e4m3 stage `stage` -> the bf16 K and V tiles: e4m3 chunk c of
+  // row r is bf16 chunks 2c and 2c + 1, at their swizzled places
+  auto upcast_tile = [&](int stage) {
+#pragma unroll
+    for (int j = 0; j < kKeys * CH8 / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / CH8, c = i % CH8;
+      const uint32_t src = stage * kTile8 + r * D + c * 16;
+      kv_fp8::upcast16(sm(k8_s + src), sm(k_s + swz(r, 2 * c, kKeys)),
+                       sm(k_s + swz(r, 2 * c + 1, kKeys)));
+      kv_fp8::upcast16(sm(v8_s + src), sm(v_s + swz(r, 2 * c, kKeys)),
+                       sm(v_s + swz(r, 2 * c + 1, kKeys)));
     }
   };
 
@@ -423,7 +484,14 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
       if (nx < nt) load_tile(nx, nx % kStages);
       cp_async_commit();
     }
-    const int stage = it % kStages;
+    if constexpr (kFp8) {
+      // every warpgroup's products of tile it - 1 were waited for before
+      // the barrier above, so the bf16 tiles are free
+      upcast_tile(it % kStages);
+      fence_proxy_async();  // the generic-proxy writes, visible to wgmma
+      __syncthreads();
+    }
+    const int stage = kFp8 ? 0 : it % kStages;
     const uint32_t kb = k_s + stage * kTile;
     const uint32_t vb = v_s + stage * kTile;
     const int t0 = t_first + it * kKeys;

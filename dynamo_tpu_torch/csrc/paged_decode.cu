@@ -29,31 +29,30 @@
 // call to call. The layer is a runtime index into the stacked cache, so no
 // per-layer slice is ever copied.
 //
+// The fp8 form (paged_decode_fp8) reads e4m3 K/V pages: the core's ring
+// holds e4m3 tiles and upcasts each to the bf16 tile the products read
+// (paged_splitkv.cuh, kv_fp8.cuh), so it computes bit for bit what the bf16
+// form computes over the cache upcast to bf16, from half the bytes; it
+// replaces the TPU kernel's fp8 specialization (pallas_decode.py:165-168).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (dynamo_tpu_torch/ops/_build.py); plain C entry
 //        point below, bound with ctypes by dynamo_tpu_torch/ops/paged_decode.py.
 
 #include "paged_splitkv.cuh"
 
-// Returns cudaGetLastError() after the launch (0 = launched). The wrapper
-// has checked types, shapes, contiguity, 16-byte alignment and the group
-// size (G <= 128, 16 at head_dim 256); it allocates the workspace `ws` (f32, B * KVH * nsplit
-// * G * (D + 2)) and passes its device's counter buffer `cnt` (>= B * KVH
-// ints, zero between calls), both unused when nsplit == 1. `sinks` is f32
-// [H] or nullptr. `softcap` > 0 caps the scores (0 = off). head_dim 64, 128
-// and 256 are instantiated.
-extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
-                                 const void* bt, const void* ctx,
-                                 const void* sinks, void* out, void* ws,
-                                 void* cnt, int B, int H, int KVH,
-                                 int D, int N, int bs, int W, int layer,
-                                 int window, int chunk, int nsplit,
-                                 float scale, float softcap, void* stream) {
+namespace {
+
+int decode(const void* q, const void* k, const void* v, const void* bt,
+           const void* ctx, const void* sinks, void* out, void* ws, void* cnt,
+           int B, int H, int KVH, int D, int N, int bs, int W, int layer,
+           int window, int chunk, int nsplit, float scale, float softcap,
+           bool fp8, void* stream) {
   if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
   paged_splitkv::Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.kc = static_cast<const __nv_bfloat16*>(k);
-  p.vc = static_cast<const __nv_bfloat16*>(v);
+  p.kc = k;
+  p.vc = v;
   p.bt = static_cast<const int*>(bt);
   p.base_pos = nullptr;  // decode: the query sits at ctx - 1
   p.ctx_lens = static_cast<const int*>(ctx);
@@ -74,6 +73,38 @@ extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
   p.chunk = chunk;
   p.scale = scale;
   p.softcap = softcap;
-  return paged_splitkv::launch_any(p, B, D, nsplit,
+  return paged_splitkv::launch_any(p, B, D, nsplit, fp8,
                                    static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 = launched). The wrapper
+// has checked types, shapes, contiguity, 16-byte alignment and the group
+// size (G <= 128, 16 at head_dim 256); it allocates the workspace `ws` (f32, B * KVH * nsplit
+// * G * (D + 2)) and passes its device's counter buffer `cnt` (>= B * KVH
+// ints, zero between calls), both unused when nsplit == 1. `sinks` is f32
+// [H] or nullptr. `softcap` > 0 caps the scores (0 = off). head_dim 64, 128
+// and 256 are instantiated. q and out are bf16; k and v are bf16 here ...
+extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
+                                 const void* bt, const void* ctx,
+                                 const void* sinks, void* out, void* ws,
+                                 void* cnt, int B, int H, int KVH,
+                                 int D, int N, int bs, int W, int layer,
+                                 int window, int chunk, int nsplit,
+                                 float scale, float softcap, void* stream) {
+  return decode(q, k, v, bt, ctx, sinks, out, ws, cnt, B, H, KVH, D, N, bs, W,
+                layer, window, chunk, nsplit, scale, softcap, false, stream);
+}
+
+// ... and e4m3 (torch.float8_e4m3fn, no scale) here.
+extern "C" int paged_decode_fp8(const void* q, const void* k, const void* v,
+                                const void* bt, const void* ctx,
+                                const void* sinks, void* out, void* ws,
+                                void* cnt, int B, int H, int KVH,
+                                int D, int N, int bs, int W, int layer,
+                                int window, int chunk, int nsplit,
+                                float scale, float softcap, void* stream) {
+  return decode(q, k, v, bt, ctx, sinks, out, ws, cnt, B, H, KVH, D, N, bs, W,
+                layer, window, chunk, nsplit, scale, softcap, true, stream);
 }

@@ -32,6 +32,13 @@
 // the reference rounds it to the value dtype (pallas_attention.py:122). The
 // epilogue divides by l and stores bf16.
 //
+// The fp8 form (paged_flash_fp8) reads e4m3 K/V pages: the core's ring
+// holds e4m3 tiles and upcasts each into the bf16 tile the wgmma products
+// read (paged_attn_tc.cuh, kv_fp8.cuh), so it computes bit for bit what
+// the bf16 form computes over the cache upcast to bf16, from half the
+// bytes; it replaces the TPU kernel's fp8 specialization
+// (pallas_attention.py:100-102).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (dynamo_tpu_torch/ops/_build.py); plain C entry
 //        point below, bound with ctypes by dynamo_tpu_torch/ops/paged_flash.py.
@@ -47,11 +54,11 @@ constexpr int kWG = 1;
 constexpr int kRows = cta_rows<kWG>();
 constexpr int kThreads = cta_threads<kWG>();
 
-template <int D, bool kCap>
+template <int D, bool kCap, bool kFp8>
 __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
     const __nv_bfloat16* __restrict__ q,    // [B, S, H, D]
-    const __nv_bfloat16* __restrict__ kc,   // [L, N, bs, KVH, D]
-    const __nv_bfloat16* __restrict__ vc,   // [L, N, bs, KVH, D]
+    const void* __restrict__ kc,            // [L, N, bs, KVH, D] bf16 / e4m3
+    const void* __restrict__ vc,            // [L, N, bs, KVH, D]
     const int* __restrict__ bt,             // [B, W]
     const int* __restrict__ base_pos,       // [B]
     const int* __restrict__ ctx_lens,       // [B]
@@ -89,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
   const int k_lo = max(0, base + s0 - window + 1);
   const int k_hi = min(ctx - 1, base + s_end - 1);  // inclusive
   RowState<D> st;
-  attend<D, kWG, /*kCausal=*/true, /*kSplitP=*/false, kCap>(
+  attend<D, kWG, /*kCausal=*/true, /*kSplitP=*/false, kCap, kFp8>(
       p, base, window, k_lo, k_hi + 1, smem, st);
 
   const int lane = threadIdx.x & 31;
@@ -114,17 +121,17 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
   }
 }
 
-template <int D>
+template <int D, bool kFp8>
 int launch(const void* q, const void* k, const void* v, const void* bt,
            const void* base, const void* ctx, const void* sinks, void* out,
            int B, int S, int H, int KVH, int N, int bs, int W, int layer,
            int window, float scale, float softcap, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set[2];
-  constexpr int smem = smem_bytes<D, kWG>();
+  constexpr int smem = smem_bytes<D, kWG, kFp8>();
   static_assert(smem <= 232448, "a CTA's shared memory must fit an H100");
   const bool cap = softcap > 0.f;
-  const auto kernel =
-      cap ? paged_flash_tc_kernel<D, true> : paged_flash_tc_kernel<D, false>;
+  const auto kernel = cap ? paged_flash_tc_kernel<D, true, kFp8>
+                          : paged_flash_tc_kernel<D, false, kFp8>;
   cudaError_t err = allow_smem_once(reinterpret_cast<const void*>(kernel),
                                     smem, smem_set[cap]);
   if (err != cudaSuccess) return (int)err;
@@ -132,13 +139,29 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
   const int BQ = kRows / G;
   const dim3 grid((S + BQ - 1) / BQ, KVH, B);
   kernel<<<grid, dim3(kThreads), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(bt),
+      static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const int*>(bt),
       static_cast<const int*>(base), static_cast<const int*>(ctx),
       static_cast<const float*>(sinks), static_cast<__nv_bfloat16*>(out), S,
       H, KVH, N, bs, W, layer, window, scale, softcap);
   return (int)cudaGetLastError();
+}
+
+template <bool kFp8>
+int flash(const void* q, const void* k, const void* v, const void* bt,
+          const void* base, const void* ctx, const void* sinks, void* out,
+          int B, int S, int H, int KVH, int D, int N, int bs, int W, int layer,
+          int window, float scale, float softcap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch<64, kFp8>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH,
+                            N, bs, W, layer, window, scale, softcap, s);
+  if (D == 128)
+    return launch<128, kFp8>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH,
+                             N, bs, W, layer, window, scale, softcap, s);
+  if (D == 256)
+    return launch<256, kFp8>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH,
+                             N, bs, W, layer, window, scale, softcap, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -147,22 +170,24 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
 // has checked types, shapes, contiguity, 16-byte alignment, that head_dim
 // is 64, 128 or 256 (the three instantiations) and that the group size
 // G = H / KVH divides 64. `sinks` is f32 [H] or nullptr; `softcap` > 0 caps
-// the scores (0 = off).
+// the scores (0 = off). q and out are bf16; k and v are bf16 here ...
 extern "C" int paged_flash_bf16(const void* q, const void* k, const void* v,
                                 const void* bt, const void* base,
                                 const void* ctx, const void* sinks, void* out,
                                 int B, int S, int H, int KVH, int D, int N,
                                 int bs, int W, int layer, int window,
                                 float scale, float softcap, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, N, bs,
-                      W, layer, window, scale, softcap, s);
-  if (D == 128)
-    return launch<128>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, N,
-                       bs, W, layer, window, scale, softcap, s);
-  if (D == 256)
-    return launch<256>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, N,
-                       bs, W, layer, window, scale, softcap, s);
-  return (int)cudaErrorInvalidValue;
+  return flash<false>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, D, N,
+                      bs, W, layer, window, scale, softcap, stream);
+}
+
+// ... and e4m3 (torch.float8_e4m3fn, no scale) here.
+extern "C" int paged_flash_fp8(const void* q, const void* k, const void* v,
+                               const void* bt, const void* base,
+                               const void* ctx, const void* sinks, void* out,
+                               int B, int S, int H, int KVH, int D, int N,
+                               int bs, int W, int layer, int window,
+                               float scale, float softcap, void* stream) {
+  return flash<true>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH, D, N,
+                     bs, W, layer, window, scale, softcap, stream);
 }

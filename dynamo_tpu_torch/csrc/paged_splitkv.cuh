@@ -88,6 +88,18 @@
 // which leaves room for a split's block-table entries up to ~6,600 pages
 // (ops/splitkv.py refuses a larger split by name; two stages ran 4-5%
 // slower). At 64 and 128 all of it stays as it was.
+//
+// fp8 caches (kFp8; e4m3 K and V, the reference's kv_cache_dtype="fp8").
+// The ring holds kStages e4m3 tiles of K and of V (half the bytes of a
+// bf16 stage), and one bf16 K and one bf16 V tile: after the barrier that
+// publishes tile it, every thread upcasts its 16-byte e4m3 chunks of that
+// tile into the bf16 tiles at the swizzled places the bf16 ring would hold
+// them (csrc/kv_fp8.cuh), and a second barrier publishes them to the
+// products. The rest of the walk is the bf16 form's, so the fp8 form over
+// an e4m3 cache is bit for bit the bf16 form over the cache upcast to
+// bf16, and it reads half the bytes. Its shared memory is 5 bf16 tiles'
+// worth against 6: at head_dim 256, 160 KB of ring beside the bf16 form's
+// 192 KB. Q, the output, the sinks and the workspace stay bf16 / f32.
 
 #pragma once
 
@@ -96,6 +108,8 @@
 #include <stdint.h>
 
 #include <atomic>
+
+#include "kv_fp8.cuh"
 
 // Everything here has internal linkage: the two kernels' libraries each
 // include this header, and a function-local static of an inline function
@@ -128,11 +142,12 @@ __host__ __device__ constexpr int max_rows(int d) {
 constexpr int kSmemLimit = 232448;
 
 // The launch's arguments. base_pos == nullptr: decode (base = ctx - 1,
-// S = 1). sinks == nullptr: no sink.
+// S = 1). sinks == nullptr: no sink. kc / vc hold bf16, or e4m3 in the
+// fp8 form.
 struct Params {
   const __nv_bfloat16* q;   // [B, S, H, D]
-  const __nv_bfloat16* kc;  // [L, N, bs, KVH, D]
-  const __nv_bfloat16* vc;  // [L, N, bs, KVH, D]
+  const void* kc;           // [L, N, bs, KVH, D]
+  const void* vc;           // [L, N, bs, KVH, D]
   const int* bt;            // [B, W]
   const int* base_pos;      // [B] or nullptr
   const int* ctx_lens;      // [B]
@@ -236,16 +251,24 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return (uint32_t)(row * (D * 2) + ((chunk ^ (row & 7)) << 4));
 }
 
+// the K and V rings: kStages bf16 tiles each, or (kFp8) one bf16 tile
+// each and kStages e4m3 tiles each
+template <int D, bool kFp8>
+__host__ __device__ constexpr int ring_bytes() {
+  return kFp8 ? 2 * kKeys * D * 2 + 2 * kStages * kKeys * D
+              : 2 * kStages * kKeys * D * 2;
+}
+
 // dynamic shared memory: Q (16 M rows), the K and V rings, the merge's row
 // statistics, the last-CTA flag, then the chunk's block-table entries
 // (ops/splitkv.py smem_bytes mirrors it)
-template <int D, int M>
+template <int D, int M, bool kFp8>
 __host__ __device__ constexpr int smem_fixed() {
-  return 16 * M * D * 2 + 2 * kStages * kKeys * D * 2 + 2 * kMaxRows * 4 + 16;
+  return 16 * M * D * 2 + ring_bytes<D, kFp8>() + 2 * kMaxRows * 4 + 16;
 }
-template <int D, int M>
+template <int D, int M, bool kFp8>
 inline size_t smem_bytes(int chunk, int bs) {
-  return (size_t)smem_fixed<D, M>() + (size_t)(chunk / bs + 2) * 4;
+  return (size_t)smem_fixed<D, M, kFp8>() + (size_t)(chunk / bs + 2) * 4;
 }
 
 // the sink of head `head` in the log2 domain, or -inf without sinks
@@ -260,7 +283,7 @@ __device__ __forceinline__ float ex2_from(float x, float shift) {
 
 // ------------------------------------------------------------- the kernel
 
-template <int D, int M, bool kCap>
+template <int D, int M, bool kCap, bool kFp8>
 __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
     const Params p) {
   constexpr int WK = key_groups(M);    // warps sharing a row tile
@@ -271,6 +294,9 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   constexpr int DT = D / 8;            // 8-column output tiles
   constexpr int ROWS = 16 * M;
   constexpr uint32_t kTile = kKeys * D * 2;
+  constexpr uint32_t kTile8 = kKeys * D;  // an e4m3 tile
+  constexpr int CH8 = D / 16;          // 16-byte chunks per e4m3 row
+  constexpr int kBufs = kFp8 ? 1 : kStages;  // bf16 K (and V) tiles
   constexpr int DS = D + 4;            // f32 row stride of the warps' dump
   constexpr bool kHoldQ = D <= 128;    // Q's fragments in registers
   extern __shared__ __align__(128) unsigned char smem[];
@@ -309,8 +335,12 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
 
   const uint32_t q_s = smem_u32(smem);
   const uint32_t k_s = q_s + ROWS * D * 2;
-  const uint32_t v_s = k_s + kStages * kTile;
-  float* stat_s = reinterpret_cast<float*>(smem + (v_s + kStages * kTile - q_s));
+  const uint32_t v_s = k_s + kBufs * kTile;
+  const uint32_t k8_s = v_s + kBufs * kTile;  // the e4m3 rings (kFp8)
+  const uint32_t v8_s = k8_s + kStages * kTile8;
+  auto sm = [&](uint32_t a) { return smem + (a - q_s); };  // generic pointer
+  float* stat_s =
+      reinterpret_cast<float*>(smem + ROWS * D * 2 + ring_bytes<D, kFp8>());
   int* flag_s = reinterpret_cast<int*>(stat_s + 2 * kMaxRows);
   int* pages_s = flag_s + 4;
 
@@ -335,8 +365,10 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   const size_t tok = (size_t)p.KVH * D;
   const size_t layer_off =
       (size_t)p.layer * p.N * p.bs * tok + (size_t)kvh * D;
-  const __nv_bfloat16* kl = p.kc + layer_off;
-  const __nv_bfloat16* vl = p.vc + layer_off;
+  const __nv_bfloat16* kl = static_cast<const __nv_bfloat16*>(p.kc) + layer_off;
+  const __nv_bfloat16* vl = static_cast<const __nv_bfloat16*>(p.vc) + layer_off;
+  const uint8_t* kl8 = static_cast<const uint8_t*>(p.kc) + layer_off;
+  const uint8_t* vl8 = static_cast<const uint8_t*>(p.vc) + layer_off;
   const int t_first = key_begin / kKeys * kKeys;
   const int nt = (key_end - t_first + kKeys - 1) / kKeys;
 
@@ -344,6 +376,25 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   // are zero-filled and never read
   auto load_tile = [&](int it, int stage) {
     const int t0 = t_first + it * kKeys;
+    if constexpr (kFp8) {  // 16 e4m3 a copy, rows unswizzled
+#pragma unroll
+      for (int j = 0; j < kKeys * CH8 / NT; ++j) {
+        const int i = tid + j * NT;
+        const int r = i / CH8, c = i % CH8;
+        const int pos = t0 + r;
+        const bool ok = pos >= key_begin && pos < key_end;
+        size_t off = 0;
+        if (ok) {
+          const int page = pos / p.bs;
+          off = ((size_t)pages_s[page - pg0] * p.bs + (pos - page * p.bs)) *
+                    tok + c * 16;
+        }
+        const uint32_t dst = stage * kTile8 + r * D + c * 16;
+        cp_async16(k8_s + dst, kl8 + off, ok);
+        cp_async16(v8_s + dst, vl8 + off, ok);
+      }
+      return;
+    }
 #pragma unroll
     for (int j = 0; j < kKeys * CH / NT; ++j) {
       const int i = tid + j * NT;
@@ -358,6 +409,21 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
       }
       cp_async16(k_s + stage * kTile + swz<D>(r, c), kl + off, ok);
       cp_async16(v_s + stage * kTile + swz<D>(r, c), vl + off, ok);
+    }
+  };
+
+  // (kFp8) e4m3 stage `stage` -> the bf16 K and V tiles: e4m3 chunk c of
+  // row r is bf16 chunks 2c and 2c + 1, at their swizzled places
+  auto upcast_tile = [&](int stage) {
+#pragma unroll
+    for (int j = 0; j < kKeys * CH8 / NT; ++j) {
+      const int i = tid + j * NT;
+      const int r = i / CH8, c = i % CH8;
+      const uint32_t src = stage * kTile8 + r * D + c * 16;
+      kv_fp8::upcast16(sm(k8_s + src), sm(k_s + swz<D>(r, 2 * c)),
+                       sm(k_s + swz<D>(r, 2 * c + 1)));
+      kv_fp8::upcast16(sm(v8_s + src), sm(v_s + swz<D>(r, 2 * c)),
+                       sm(v_s + swz<D>(r, 2 * c + 1)));
     }
   };
 
@@ -409,7 +475,11 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
       if (nx < nt) load_tile(nx, nx % kStages);
       cp_async_commit();
     }
-    const int stage = it % kStages;
+    if constexpr (kFp8) {
+      upcast_tile(it % kStages);  // the barrier above freed the bf16 tiles
+      __syncthreads();            // ... and this one publishes them
+    }
+    const int stage = kFp8 ? 0 : it % kStages;
     const uint32_t kb = k_s + stage * kTile;
     const uint32_t vb = v_s + stage * kTile;
     const int t0 = t_first + it * kKeys;
@@ -653,28 +723,41 @@ inline cudaError_t allow_smem(const void* fn, int bytes,
   return err;
 }
 
-template <int D, int M, bool kCap>
+template <int D, int M, bool kCap, bool kFp8>
 cudaError_t launch(const Params& p, int B, int nsplit, cudaStream_t stream) {
-  static_assert(2 * kStages * kKeys * D * 2 >=
+  static_assert(ring_bytes<D, kFp8>() >=
                     key_groups(M) * 16 * M * ((D + 4) * 4 + 8),
                 "the warps' dump must fit over the ring");
   static std::atomic<int> allowed[64];
-  const size_t bytes = smem_bytes<D, M>(p.chunk, p.bs);
+  const size_t bytes = smem_bytes<D, M, kFp8>(p.chunk, p.bs);
   if (bytes > (size_t)kSmemLimit) return cudaErrorInvalidValue;
   const int smem = (int)bytes;
   cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(splitkv_kernel<D, M, kCap>), smem,
+      reinterpret_cast<const void*>(splitkv_kernel<D, M, kCap, kFp8>), smem,
       allowed);
   if (err != cudaSuccess) return err;
   const int parts = (p.S + p.Sq - 1) / p.Sq;
-  splitkv_kernel<D, M, kCap><<<dim3(nsplit, parts * p.KVH, B),
-                               dim3(cta_threads(M)), smem, stream>>>(p);
+  splitkv_kernel<D, M, kCap, kFp8><<<dim3(nsplit, parts * p.KVH, B),
+                                     dim3(cta_threads(M)), smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// the softcap and cache-type forms of (D, row tiles)
+template <int D, int M>
+cudaError_t launch_form(const Params& p, int B, int nsplit, bool fp8,
+                        cudaStream_t stream) {
+  const bool cap = p.softcap > 0.f;
+  if (fp8)
+    return cap ? launch<D, M, true, true>(p, B, nsplit, stream)
+               : launch<D, M, false, true>(p, B, nsplit, stream);
+  return cap ? launch<D, M, true, false>(p, B, nsplit, stream)
+             : launch<D, M, false, false>(p, B, nsplit, stream);
+}
+
 // Checks what the kernel assumes and launches the instantiation for
-// (D, row tiles). Returns cudaGetLastError() after the launch.
-inline int launch_any(const Params& p, int B, int D, int nsplit,
+// (D, row tiles, softcap, e4m3 or bf16 caches). Returns cudaGetLastError()
+// after the launch.
+inline int launch_any(const Params& p, int B, int D, int nsplit, bool fp8,
                       cudaStream_t stream) {
   const int rows = p.Sq * p.G;
   if (B <= 0 || p.S <= 0 || p.Sq <= 0 || p.Sq > p.S || p.G <= 0 ||
@@ -684,10 +767,9 @@ inline int launch_any(const Params& p, int B, int D, int nsplit,
       (nsplit > 1 && (p.ws == nullptr || p.cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int m = rows <= 16 ? 1 : rows <= 32 ? 2 : rows <= 64 ? 4 : 8;
-#define SPLITKV_CASE(DD, MM)                                            \
-  if (D == DD && m == MM)                                               \
-    return (int)(p.softcap > 0.f ? launch<DD, MM, true>(p, B, nsplit, stream) \
-                                 : launch<DD, MM, false>(p, B, nsplit, stream));
+#define SPLITKV_CASE(DD, MM) \
+  if (D == DD && m == MM)    \
+    return (int)launch_form<DD, MM>(p, B, nsplit, fp8, stream);
   SPLITKV_CASE(64, 1) SPLITKV_CASE(64, 2) SPLITKV_CASE(64, 4)
   SPLITKV_CASE(64, 8) SPLITKV_CASE(128, 1) SPLITKV_CASE(128, 2)
   SPLITKV_CASE(128, 4) SPLITKV_CASE(128, 8) SPLITKV_CASE(256, 1)

@@ -256,6 +256,15 @@ def check_quantization(model: ModelConfig) -> None:
         )
 
 
+def check_kv_cache_dtype(kv_cache_dtype: str) -> None:
+    """The reference's check of ``EngineConfig.kv_cache_dtype``
+    (``dynamo_tpu/engine/model_runner.py:208-212``): "auto" or "fp8"."""
+    if kv_cache_dtype not in ("auto", "fp8"):
+        raise ValueError(
+            f"unknown kv_cache_dtype {kv_cache_dtype!r} (auto | fp8)"
+        )
+
+
 def default_prefill_buckets(max_len: int) -> List[int]:
     """Powers of two up to max_len — each bucket is one compiled program."""
     buckets = []
@@ -281,8 +290,13 @@ class EngineConfig:
     # doubles cache capacity for ~6% elementwise KV error (the standard
     # serving lever the reference's engines expose as kv_cache_dtype).
     # Unscaled e4m3: post-rope K and V are O(1), well inside its ±448
-    # range. GQA families only (the MLA latent is too quantization-
-    # sensitive; ModelRunner rejects the combination).
+    # range (a write clamps to it: ops/attention.to_cache_dtype). Every
+    # family, MLA included: the reference measured the e4m3 noise on
+    # MLA's latent + rope cache to match the GQA path's (rel logit error
+    # 0.043 against 0.042, argmax flips 0.10 against 0.10;
+    # dynamo_tpu/engine/model_runner.py:213-221), and its MLA decode
+    # kernel has its own fp8 form, as the port's has (mla_decode_fp8).
+    # Sequence-parallel prefill with fp8 waits for kernel 6's fp8 form.
     kv_cache_dtype: str = "auto"
     # mesh axes: pipeline stages x data-parallel replicas x expert-parallel
     # x tensor-parallel. pp > 1 stages the dense trunk over a collective
@@ -596,15 +610,18 @@ class EngineConfig:
         on top of it (``device_finish``, with ``guided_device_table``,
         ``guided_table_max_states`` and ``device_stop_strings`` as live
         knobs), sequence-parallel prefill (``sp_size``, its ranks on the
-        one device), on one device with bf16 / f32 KV, the weights in the
-        activation dtype or in int8 (``quantization="int8"``; any other
-        scheme raises ``ValueError`` by name, as in the reference). Not
-        served: the chained propose-verify round (so the pipeline together
-        with speculation), draft models, several devices (so SP over TP
-        heads), KV tiers and pulls, an fp8 KV cache. Each refusal names
-        the knob so a reference config that uses it fails loudly instead of
-        serving something else."""
+        one device), on one device with a KV cache in the activation dtype
+        or in fp8 (``kv_cache_dtype="fp8"``; any other value raises the
+        reference's ``ValueError``), the weights in the activation dtype
+        or in int8 (``quantization="int8"``; any other scheme raises
+        ``ValueError`` by name, as in the reference). Not served: the
+        chained propose-verify round (so the pipeline together with
+        speculation), draft models, several devices (so SP over TP heads),
+        KV tiers and pulls, sequence-parallel prefill over an fp8 cache.
+        Each refusal names the knob so a reference config that uses it
+        fails loudly instead of serving something else."""
         check_quantization(self.model)
+        check_kv_cache_dtype(self.kv_cache_dtype)
         unported = []
         if self.decode_pipeline_depth >= 2 and self.spec_ngram_tokens > 0:
             unported.append(
@@ -624,8 +641,10 @@ class EngineConfig:
             unported.append("multi-device parallelism (tp/dp/ep/pp)")
         if self.host_kv_blocks or self.cold_tier_blocks or self.prefix_pull:
             unported.append("KV offload tiers and prefix pulls")
-        if self.kv_cache_dtype != "auto":
-            unported.append(f"kv_cache_dtype={self.kv_cache_dtype!r}")
+        if self.sp_size > 1 and self.kv_cache_dtype == "fp8":
+            unported.append(
+                "sp_size > 1 with kv_cache_dtype='fp8' (kernel 6's fp8 form: "
+                "the sequence-parallel prefix partials over e4m3 pages)")
         if self.dtype not in ("bfloat16", "float32"):
             unported.append(f"dtype={self.dtype!r}")
         if unported:

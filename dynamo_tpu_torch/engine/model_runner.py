@@ -34,10 +34,10 @@ import numpy as np
 import torch
 
 from ..models import llama, quant, resolve
-from ..ops.attention import check_attention_impl
+from ..ops.attention import FP8, check_attention_impl
 from ..ops.epilogue import fused_sampling_epilogue
 from ..ops.transfer import to_device, to_device_packed
-from .config import EngineConfig, check_quantization
+from .config import EngineConfig, check_kv_cache_dtype, check_quantization
 from .sampling import (
     STOP_ID_WIDTH,
     STOP_SEQ_WIDTH,
@@ -233,6 +233,10 @@ class ModelRunner:
         self.fused_epilogue = resolve_fused_epilogue(config.fused_epilogue,
                                                      self.device)
         self.dtype = llama.torch_dtype(config.dtype)
+        # the KV cache's storage dtype: the activation dtype, or e4m3 with
+        # no scale (every write casts into it, every read upcasts)
+        check_kv_cache_dtype(config.kv_cache_dtype)
+        self.kv_dtype = FP8 if config.kv_cache_dtype == "fp8" else self.dtype
         check_quantization(cfg)   # before any weight is drawn
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
@@ -274,7 +278,7 @@ class ModelRunner:
         token counts, prompt presence, logit_bias rows — [slots, V])."""
         cfg = self.config
         self.kv_cache = self.arch.init_kv_cache(
-            cfg.model, cfg.num_kv_blocks, cfg.kv_block_size, self.dtype,
+            cfg.model, cfg.num_kv_blocks, cfg.kv_block_size, self.kv_dtype,
             self.device)
         b, v = cfg.max_batch_size, cfg.model.vocab_size
         self.sample_state = (

@@ -81,6 +81,7 @@ def engine_config_from_mdc(mdc, flags=None, extra=None) -> EngineConfig:
         num_kv_blocks=getattr(flags, "num_kv_blocks", None) or 2048,
         decode_pipeline_depth=getattr(flags, "decode_pipeline_depth", 1) or 1,
         allow_random_weights=getattr(flags, "allow_random_weights", False),
+        kv_cache_dtype=getattr(flags, "kv_cache_dtype", "auto") or "auto",
     ))
 
 

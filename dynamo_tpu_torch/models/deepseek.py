@@ -38,7 +38,12 @@ from typing import Dict, Tuple
 import torch
 
 from ..engine.config import ModelConfig
-from ..ops.attention import alloc_kv_cache, kv_write_plan, scatter_kv_rows
+from ..ops.attention import (
+    alloc_kv_cache,
+    gather_pages,
+    kv_write_plan,
+    scatter_kv_rows,
+)
 from .llama import (  # lm_logits: the final norm + head, as the runner reads it
     Params,
     apply_rope_cs,
@@ -172,7 +177,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def init_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                   dtype=torch.bfloat16, device="cpu") -> KVCache:
     """Zeroed compressed cache: c_kv [L, N, bs, 1, R] and k_rope
-    [L, N, bs, 1, RD], unpadded."""
+    [L, N, bs, 1, RD], unpadded, both in ``dtype`` (the activation dtype,
+    or ``torch.float8_e4m3fn`` for an fp8 cache)."""
     lead = (cfg.num_layers, num_blocks, block_size, 1)
     return (alloc_kv_cache(lead + (cfg.kv_lora_rank,), dtype, device),
             alloc_kv_cache(lead + (cfg.qk_rope_head_dim,), dtype, device))
@@ -195,8 +201,10 @@ def mla_paged_attention(
     _, block_size, _, rd = kr_cache.shape
     t = block_tables.shape[1] * block_size
     bt = block_tables.long()
-    c = c_cache[bt].reshape(b, t, r).to(q_lat.dtype)
-    kr = kr_cache[bt].reshape(b, t, rd).to(q_lat.dtype)
+    # upcast from the cache storage dtype (an fp8 cache is gathered
+    # through its bytes: gather_pages)
+    c = gather_pages(c_cache, bt).reshape(b, t, r).to(q_lat.dtype)
+    kr = gather_pages(kr_cache, bt).reshape(b, t, rd).to(q_lat.dtype)
     scores = (torch.einsum("bshr,btr->bsht", q_lat, c)
               + torch.einsum("bshd,btd->bsht", q_rope, kr)) * scale
     key_pos = torch.arange(t, device=q_lat.device)[None, None, :]

@@ -273,8 +273,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                   dtype=torch.bfloat16, device="cpu") -> KVCache:
-    """Zeroed stacked cache pair [L, N, bs, KVH, head_dim] (unpadded),
-    each with the spare row dropped writes go to (``alloc_kv_cache``)."""
+    """Zeroed stacked cache pair [L, N, bs, KVH, head_dim] (unpadded) in
+    ``dtype`` (the activation dtype, or ``torch.float8_e4m3fn`` for an fp8
+    cache), each with the spare row dropped writes go to
+    (``alloc_kv_cache``)."""
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.head_dim)
     return (alloc_kv_cache(shape, dtype, device),

@@ -14,6 +14,12 @@ S == 1, the verify kernel when 1 < S <= 32 (the speculative verify tail,
 the reference's ``VERIFY_MAX_S``) and the flash kernel when S > 32, each
 with or without GPT-OSS's attention sinks and Gemma-2's logit softcap.
 There is no fallback from a kernel to the plain route on a CUDA device.
+
+A cache holds the activation dtype or, with ``kv_cache_dtype="fp8"``,
+``torch.float8_e4m3fn`` with no scale, as in the reference: every write
+casts into it (``to_cache_dtype``) and every read upcasts. The kernels
+then launch their fp8 forms (``kernel_form``), which read the e4m3 pages
+and upcast them on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +30,51 @@ import torch
 
 # "no window": a sentinel wider than any context (the reference's 2**30)
 NO_WINDOW = 1 << 30
+
+# the fp8 KV cache's storage type and its largest finite value
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0
+
+
+def to_cache_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` cast to a cache's storage ``dtype``. Into e4m3 the values are
+    clamped to +-448 first: every |x| <= 464 gives the reference's byte
+    (``astype(float8_e4m3fn)``), and a larger one saturates to +-448 where
+    the reference stores NaN, which would poison every later token of the
+    row and of every request sharing the block through the prefix cache. The
+    clamp makes that the rule on every device and torch version, whatever
+    their own cast does out of range."""
+    if dtype == FP8:
+        return x.clamp(-FP8_MAX, FP8_MAX).to(dtype)
+    return x.to(dtype)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """An e4m3 tensor as its uint8 view (the writes and gathers run on the
+    bytes: torch has no fp8 ``index_copy_`` on the CPU); others as they are."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
+def gather_pages(cache: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``cache[idx]``, through the bytes for an e4m3 cache."""
+    return _bytes(cache)[idx].view(cache.dtype)
+
+
+def kernel_form(kernel: str, q: torch.Tensor, *caches: torch.Tensor) -> str:
+    """The form of ``kernel`` that reads ``caches``: "bf16" for bfloat16
+    caches, "fp8" for e4m3 ones (all of one type); ``q`` must be bfloat16.
+    Anything else raises by name."""
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"{kernel}: the queries must be bfloat16 (got {q.dtype})")
+    dtypes = {c.dtype for c in caches}
+    if dtypes == {torch.bfloat16}:
+        return "bf16"
+    if dtypes == {FP8}:
+        return "fp8"
+    raise NotImplementedError(
+        f"{kernel}: the caches must be all bfloat16 or all float8_e4m3fn "
+        f"(got {sorted(map(str, dtypes))})")
 
 
 def kernel_sinks(sinks, heads: int, device):
@@ -66,7 +117,11 @@ def alloc_kv_cache(shape, dtype, device) -> torch.Tensor:
     rows there: no kernel, no gather and no later read ever sees it, and
     the tensor the kernels and the tests see has exactly ``shape``."""
     l, n, bs, heads, dim = shape
-    buf = torch.zeros((l * n * bs + 1, heads, dim), dtype=dtype, device=device)
+    rows = (l * n * bs + 1, heads, dim)
+    if dtype == FP8:  # zero bytes are +0.0 in e4m3
+        buf = torch.zeros(rows, dtype=torch.uint8, device=device).view(FP8)
+    else:
+        buf = torch.zeros(rows, dtype=dtype, device=device)
     return buf[:-1].view(shape)
 
 
@@ -151,20 +206,22 @@ def scatter_kv_rows(k_all, v_all, new_k, new_v, plan: KVWritePlan,
                     layer_idx: int):
     """Write ``new_k/new_v`` [B, S, heads, dim] into layer ``layer_idx`` of
     the stacked caches as ``plan`` says, in place (``index_copy_``: no
-    per-layer slice of a cache is copied)."""
+    per-layer slice of a cache is copied). The values are cast to the
+    cache's dtype (``to_cache_dtype``); an e4m3 cache is written through
+    its bytes, on either route."""
     l, n, bs, kvh, dk = k_all.shape
     vh, dv = v_all.shape[-2:]
     per_layer = n * bs
-    src_k = new_k.reshape(-1, kvh, dk).to(k_all.dtype)
-    src_v = new_v.reshape(-1, vh, dv).to(v_all.dtype)
+    src_k = _bytes(to_cache_dtype(new_k.reshape(-1, kvh, dk), k_all.dtype))
+    src_v = _bytes(to_cache_dtype(new_v.reshape(-1, vh, dv), v_all.dtype))
     spare_k, spare_v = plan.spare(k_all), plan.spare(v_all)
     if spare_k is not None and spare_v is not None:
         dst = plan.dst(l)[layer_idx]
-        spare_k.index_copy_(0, dst, src_k)
-        spare_v.index_copy_(0, dst, src_v)
+        _bytes(spare_k).index_copy_(0, dst, src_k)
+        _bytes(spare_v).index_copy_(0, dst, src_v)
         return k_all, v_all
-    flat_k = k_all.view(l * per_layer, kvh, dk)
-    flat_v = v_all.view(l * per_layer, vh, dv)
+    flat_k = _bytes(k_all).view(l * per_layer, kvh, dk)
+    flat_v = _bytes(v_all).view(l * per_layer, vh, dv)
     base = layer_idx * per_layer
     dst = plan.slots + base
     flat_k.index_copy_(0, dst, torch.where(plan.any_kept, src_k[plan.rows],
@@ -214,8 +271,8 @@ def paged_attention(
         scale = d ** -0.5
     bt = block_tables.long()
     # gather: [B, W, bs, KVH, D] → [B, W*bs, KVH, D], upcast to q's dtype
-    k = k_cache[bt].reshape(b, w * block_size, kvh, d).to(q.dtype)
-    v = v_cache[bt].reshape(b, w * block_size, kvh, d).to(q.dtype)
+    k = gather_pages(k_cache, bt).reshape(b, w * block_size, kvh, d).to(q.dtype)
+    v = gather_pages(v_cache, bt).reshape(b, w * block_size, kvh, d).to(q.dtype)
 
     qg = q.reshape(b, s, kvh, groups, d)
     logits = torch.einsum("bskgd,btkd->bskgt", qg * scale, k)

@@ -21,9 +21,15 @@ find a row's last cluster are the split-KV core's (``splitkv.counters``);
 the f32 workspace of the clusters' partials is kept here per device and
 grows when a call needs more.
 
+The kernel has a bf16 and an fp8 form: e4m3 caches (``c`` and ``kr``
+both; ``kv_cache_dtype="fp8"``) launch ``mla_decode_fp8``, which reads the
+e4m3 pages and upcasts them on the card (the TPU kernel's fp8
+specialization, ``pallas_decode.py:278-281``).
+
 CPU tensors take ``mla_paged_decode_attention_ref``; CUDA tensors launch
-the kernel or raise. ``launches`` counts kernel launches (one per call
-that reached the card), so a run can show the serving path went through it.
+the kernel or raise. ``launches`` counts launches of the bf16 form and
+``launches_fp8`` of the fp8 form (one per call that reached the card), so
+a run can show the serving path went through it.
 """
 
 from __future__ import annotations
@@ -34,8 +40,10 @@ from typing import Dict, Tuple
 import torch
 
 from . import _build, splitkv
+from .attention import gather_pages, kernel_form
 
 launches = 0
+launches_fp8 = 0
 
 # the one latent / rope width built and checked on a card (DeepSeek-V2,
 # V2-Lite and V3 all use kv_lora_rank 512, qk_rope_head_dim 64)
@@ -67,8 +75,10 @@ def mla_paged_decode_attention_ref(
     rd = kr_cache.shape[-1]
     w = block_tables.shape[1]
     bt = block_tables.long() + layer_idx * n
-    c = c_cache.reshape(l * n, bs, r)[bt].reshape(b, w * bs, r).to(q_lat.dtype)
-    kr = kr_cache.reshape(l * n, bs, rd)[bt].reshape(b, w * bs, rd).to(q_lat.dtype)
+    c = gather_pages(c_cache.reshape(l * n, bs, r), bt).reshape(
+        b, w * bs, r).to(q_lat.dtype)
+    kr = gather_pages(kr_cache.reshape(l * n, bs, rd), bt).reshape(
+        b, w * bs, rd).to(q_lat.dtype)
     scores = (torch.einsum("bhr,btr->bht", q_lat[:, 0], c)
               + torch.einsum("bhd,btd->bht", q_rope[:, 0], kr)) * scale
     ctx = context_lens.long().to(q_lat.device)
@@ -80,9 +90,9 @@ def mla_paged_decode_attention_ref(
     return out * (ctx > 0).to(out.dtype)[:, None, None, None]
 
 
-def _lib():
+def _lib(form: str):
     lib = _build.load("mla_decode")
-    fn = lib.mla_decode_bf16
+    fn = getattr(lib, f"mla_decode_{form}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, p]
@@ -107,11 +117,12 @@ def _check_cuda_inputs(q_lat, q_rope, c_cache, kr_cache, block_tables,
         raise NotImplementedError(
             f"MLA decode kernel: (R, RD) = ({r}, {rd}) is not "
             f"({_RANK}, {_ROPE_DIM})")
+    form = kernel_form("MLA decode kernel", q_lat, c_cache, kr_cache)
+    if q_rope.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"MLA decode kernel: q_rope must be bfloat16 (got {q_rope.dtype})")
     for name, t in (("q_lat", q_lat), ("q_rope", q_rope), ("c_cache", c_cache),
                     ("kr_cache", kr_cache)):
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"MLA decode kernel: {name} must be bfloat16 (got {t.dtype})")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"MLA decode kernel: {name} must be contiguous and "
                              "16-byte aligned")
@@ -120,6 +131,7 @@ def _check_cuda_inputs(q_lat, q_rope, c_cache, kr_cache, block_tables,
                              f"q_lat on {q_lat.device}")
     if block_tables.shape[0] != b or context_lens.shape != (b,):
         raise ValueError("block_tables / context_lens do not match the batch")
+    return form
 
 
 def plan(table_keys: int) -> Tuple[int, int, int]:
@@ -164,9 +176,9 @@ def mla_paged_decode_attention(
         return mla_paged_decode_attention_ref(
             q_lat, q_rope, c_cache, kr_cache, block_tables, context_lens,
             layer_idx, scale)
-    global launches
-    _check_cuda_inputs(q_lat, q_rope, c_cache, kr_cache, block_tables,
-                       context_lens)
+    global launches, launches_fp8
+    form = _check_cuda_inputs(q_lat, q_rope, c_cache, kr_cache, block_tables,
+                              context_lens)
     b, _, h, r = q_lat.shape
     l, n, bs = c_cache.shape[:3]
     if not 0 <= layer_idx < l:
@@ -179,13 +191,16 @@ def mla_paged_decode_attention(
     ws = workspace(q_lat.device, b, groups, splits // cluster)
     cnt = splitkv.counters(q_lat.device, b * groups)
     out = torch.empty_like(q_lat)
-    rc = _lib()(
+    rc = _lib(form)(
         q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(),
         kr_cache.data_ptr(), bt.data_ptr(), ctx.data_ptr(), out.data_ptr(),
         ws.data_ptr(), cnt.data_ptr(), b, h, r, q_rope.shape[-1], n, bs, w,
         int(layer_idx), chunk, splits, cluster, float(scale),
         torch.cuda.current_stream(q_lat.device).cuda_stream,
     )
-    _build.check(rc, "mla_decode_bf16")
-    launches += 1
+    _build.check(rc, f"mla_decode_{form}")
+    if form == "fp8":
+        launches_fp8 += 1
+    else:
+        launches += 1
     return out

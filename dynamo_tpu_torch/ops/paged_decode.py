@@ -9,9 +9,15 @@ read once, by one of the CTAs that split the row's context, and reused
 from shared memory by every query head of the group; see the source for
 the design and ``splitkv.py`` for the launch plan.
 
+The kernel has a bf16 and an fp8 form: e4m3 caches (``kv_cache_dtype=
+"fp8"``) launch ``paged_decode_fp8``, which reads the e4m3 pages and
+upcasts them on the card (the TPU kernel's fp8 specialization,
+``pallas_decode.py:165-168``); bf16 caches launch ``paged_decode_bf16``.
+
 CPU tensors take ``paged_decode_attention_ref``; CUDA tensors launch the
-kernel or raise. ``launches`` counts kernel launches (one per call that
-reached the card), so a run can show the serving path went through it.
+kernel or raise. ``launches`` counts launches of the bf16 form and
+``launches_fp8`` of the fp8 form (one per call that reached the card), so
+a run can show the serving path went through it.
 """
 
 from __future__ import annotations
@@ -22,9 +28,16 @@ from typing import Optional
 import torch
 
 from . import _build, splitkv
-from .attention import NO_WINDOW, kernel_sinks, kernel_softcap, paged_attention
+from .attention import (
+    NO_WINDOW,
+    kernel_form,
+    kernel_sinks,
+    kernel_softcap,
+    paged_attention,
+)
 
 launches = 0
+launches_fp8 = 0
 
 # the head_dims the kernel instantiates (Llama-3.2-1B has 64; Llama-3-8B,
 # Qwen and Mistral 128; Gemma-2-9b 256)
@@ -62,9 +75,9 @@ def paged_decode_attention_ref(
     return out * (ctx > 0).to(out.dtype)[:, None, None, None]
 
 
-def _lib():
+def _lib(form: str):
     lib = _build.load("paged_decode")
-    fn = lib.paged_decode_bf16
+    fn = getattr(lib, f"paged_decode_{form}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
@@ -80,11 +93,8 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, context_lens):
     if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
         raise ValueError("expected stacked caches [L, N, bs, KVH, D] of one shape")
     kvh = k_cache.shape[3]
+    form = kernel_form("decode kernel", q, k_cache, v_cache)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"decode kernel: {name} must be bfloat16 (got {t.dtype}); "
-                "fp8 caches are not ported yet")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"decode kernel: {name} must be contiguous and 16-byte aligned")
         if t.device != q.device:
@@ -98,6 +108,7 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, context_lens):
             f"most {splitkv.max_rows(d)} at head_dim {d})")
     if block_tables.shape[0] != b or context_lens.shape != (b,):
         raise ValueError("block_tables / context_lens do not match the batch")
+    return form
 
 
 def paged_decode_attention(
@@ -120,8 +131,8 @@ def paged_decode_attention(
         return paged_decode_attention_ref(
             q, k_cache, v_cache, block_tables, context_lens, layer_idx,
             scale, window, sinks, softcap)
-    global launches
-    _check_cuda_inputs(q, k_cache, v_cache, block_tables, context_lens)
+    global launches, launches_fp8
+    form = _check_cuda_inputs(q, k_cache, v_cache, block_tables, context_lens)
     b, _, h, d = q.shape
     l, n, bs, kvh, _ = k_cache.shape
     if not 0 <= layer_idx < l:
@@ -132,10 +143,11 @@ def paged_decode_attention(
     cap = kernel_softcap(softcap)
     out = torch.empty_like(q)
     chunk, splits = splitkv.plan(bt.shape[1] * bs)
-    splitkv.check_fits("decode kernel", d, h // kvh, chunk, bs)
+    splitkv.check_fits("decode kernel", d, h // kvh, chunk, bs,
+                       k_cache.element_size())
     ws = splitkv.workspace(q.device, b, kvh, splits, h // kvh, d)
     cnt = splitkv.counters(q.device, b * kvh)
-    rc = _lib()(
+    rc = _lib(form)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
         ctx.data_ptr(), None if sk is None else sk.data_ptr(), out.data_ptr(),
         ws.data_ptr(), cnt.data_ptr(), b, h, kvh, d, n, bs, bt.shape[1],
@@ -143,6 +155,9 @@ def paged_decode_attention(
         int(min(window, NO_WINDOW)), chunk, splits, float(scale), cap,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "paged_decode_bf16")
-    launches += 1
+    _build.check(rc, f"paged_decode_{form}")
+    if form == "fp8":
+        launches_fp8 += 1
+    else:
+        launches += 1
     return out

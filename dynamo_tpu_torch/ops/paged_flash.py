@@ -10,8 +10,13 @@ the tensor-core tile loop of ``csrc/paged_attn_tc.cuh``) is bound by
 operations for a long chunk: each K/V tile staged in shared memory is
 reused by every query row of the CTA; see the sources for the design.
 
+The kernel has a bf16 and an fp8 form: e4m3 caches launch
+``paged_flash_fp8``, which reads the e4m3 pages and upcasts them on the
+card (the TPU kernel's fp8 specialization, ``pallas_attention.py:100-102``).
+
 CPU tensors take ``paged_flash_attention_ref``; CUDA tensors launch the
-kernel or raise. ``launches`` counts kernel launches.
+kernel or raise. ``launches`` counts launches of the bf16 form,
+``launches_fp8`` of the fp8 form.
 """
 
 from __future__ import annotations
@@ -22,9 +27,16 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import NO_WINDOW, kernel_sinks, kernel_softcap, paged_attention
+from .attention import (
+    NO_WINDOW,
+    kernel_form,
+    kernel_sinks,
+    kernel_softcap,
+    paged_attention,
+)
 
 launches = 0
+launches_fp8 = 0
 
 # the head_dims the library instantiates (Llama-3.2-1B: 64; 128 for the
 # 8B/70B-class models; Gemma-2-9b 256)
@@ -33,11 +45,12 @@ _ROWS_PER_CTA = 64  # query rows (position, group head) per CTA in the kernel
 
 
 def smem_bytes(head_dim: int, warpgroups: int = 1) -> int:
-    """Dynamic shared memory of a CTA of the tensor-core core
+    """Dynamic shared memory of a CTA of the tensor-core core's bf16 form
     (``paged_attn_tc.cuh`` ``smem_bytes<D, kWG>``): Q's 64 rows a warpgroup
     and three 64-key K and V stages in bf16, plus 1 KB to align. Flash runs
     one warpgroup (230,400 bytes at head_dim 256, within the card's
-    232,448), the prefix partials two (``sp_prefix``: 263,168 at 256)."""
+    232,448), the prefix partials two (``sp_prefix``: 263,168 at 256). The
+    fp8 form holds one bf16 K and V tile beside three e4m3 stages, less."""
     return (64 * warpgroups + 6 * 64) * head_dim * 2 + 1024
 
 
@@ -71,9 +84,9 @@ def paged_flash_attention_ref(
     )
 
 
-def _lib():
+def _lib(form: str):
     lib = _build.load("paged_flash")
-    fn = lib.paged_flash_bf16
+    fn = getattr(lib, f"paged_flash_{form}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
@@ -88,10 +101,8 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
     if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
         raise ValueError("expected stacked caches [L, N, bs, KVH, D] of one shape")
     kvh = k_cache.shape[3]
+    form = kernel_form("flash kernel", q, k_cache, v_cache)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"flash kernel: {name} must be bfloat16 (got {t.dtype})")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash kernel: {name} must be contiguous and 16-byte aligned")
         if t.device != q.device:
@@ -105,6 +116,7 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
     if (block_tables.shape[0] != b or base_pos.shape != (b,)
             or context_lens.shape != (b,)):
         raise ValueError("block_tables / base_pos / context_lens do not match the batch")
+    return form
 
 
 def paged_flash_attention(
@@ -128,9 +140,9 @@ def paged_flash_attention(
         return paged_flash_attention_ref(
             q, k_cache, v_cache, block_tables, base_pos, context_lens,
             layer_idx, scale, window, sinks, softcap)
-    global launches
-    _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
-                       context_lens)
+    global launches, launches_fp8
+    form = _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
+                              context_lens)
     b, s, h, d = q.shape
     l, n, bs, kvh, _ = k_cache.shape
     if not 0 <= layer_idx < l:
@@ -141,13 +153,16 @@ def paged_flash_attention(
     sk = kernel_sinks(sinks, h, q.device)
     cap = kernel_softcap(softcap)
     out = torch.empty_like(q)
-    rc = _lib()(
+    rc = _lib(form)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
         base.data_ptr(), ctx.data_ptr(), None if sk is None else sk.data_ptr(),
         out.data_ptr(), b, s, h, kvh, d, n,
         bs, bt.shape[1], int(layer_idx), int(min(window, NO_WINDOW)),
         float(scale), cap, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "paged_flash_bf16")
-    launches += 1
+    _build.check(rc, f"paged_flash_{form}")
+    if form == "fp8":
+        launches_fp8 += 1
+    else:
+        launches += 1
     return out

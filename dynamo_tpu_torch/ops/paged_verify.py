@@ -12,8 +12,13 @@ the group (a tail of more than 128 rows, S 17 at G 8, is cut into query
 parts of their own CTAs); see the source for the design and ``splitkv.py``
 for the launch plan.
 
+The kernel has a bf16 and an fp8 form: e4m3 caches launch
+``paged_verify_fp8``, which reads the e4m3 pages and upcasts them on the
+card (the TPU kernel's fp8 specialization, ``pallas_decode.py:492-493``).
+
 CPU tensors take ``paged_verify_attention_ref``; CUDA tensors launch the
-kernel or raise. ``launches`` counts kernel launches.
+kernel or raise. ``launches`` counts launches of the bf16 form,
+``launches_fp8`` of the fp8 form.
 """
 
 from __future__ import annotations
@@ -24,9 +29,16 @@ from typing import Optional
 import torch
 
 from . import _build, splitkv
-from .attention import NO_WINDOW, kernel_sinks, kernel_softcap, paged_attention
+from .attention import (
+    NO_WINDOW,
+    kernel_form,
+    kernel_sinks,
+    kernel_softcap,
+    paged_attention,
+)
 
 launches = 0
+launches_fp8 = 0
 
 # largest query tail the verify kernel serves; longer chunks take the flash
 # kernel (the reference's VERIFY_MAX_S; spec rounds are K + 1 <= 17)
@@ -67,9 +79,9 @@ def paged_verify_attention_ref(
     )
 
 
-def _lib():
+def _lib(form: str):
     lib = _build.load("paged_verify")
-    fn = lib.paged_verify_bf16
+    fn = getattr(lib, f"paged_verify_{form}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
@@ -86,11 +98,8 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
     if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
         raise ValueError("expected stacked caches [L, N, bs, KVH, D] of one shape")
     kvh = k_cache.shape[3]
+    form = kernel_form("verify kernel", q, k_cache, v_cache)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"verify kernel: {name} must be bfloat16 (got {t.dtype}); "
-                "fp8 caches are not ported yet")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"verify kernel: {name} must be contiguous and 16-byte aligned")
         if t.device != q.device:
@@ -105,6 +114,7 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
     if (block_tables.shape[0] != b or base_pos.shape != (b,)
             or context_lens.shape != (b,)):
         raise ValueError("block_tables / base_pos / context_lens do not match the batch")
+    return form
 
 
 def paged_verify_attention(
@@ -128,9 +138,9 @@ def paged_verify_attention(
         return paged_verify_attention_ref(
             q, k_cache, v_cache, block_tables, base_pos, context_lens,
             layer_idx, scale, window, sinks, softcap)
-    global launches
-    _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
-                       context_lens)
+    global launches, launches_fp8
+    form = _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
+                              context_lens)
     b, s, h, d = q.shape
     l, n, bs, kvh, _ = k_cache.shape
     if not 0 <= layer_idx < l:
@@ -143,10 +153,11 @@ def paged_verify_attention(
     out = torch.empty_like(q)
     chunk, splits = splitkv.plan(bt.shape[1] * bs)
     sq, parts = splitkv.query_parts(s, h // kvh, splitkv.max_rows(d))
-    splitkv.check_fits("verify kernel", d, sq * (h // kvh), chunk, bs)
+    splitkv.check_fits("verify kernel", d, sq * (h // kvh), chunk, bs,
+                       k_cache.element_size())
     ws = splitkv.workspace(q.device, b, parts * kvh, splits, sq * (h // kvh), d)
     cnt = splitkv.counters(q.device, b * parts * kvh)
-    rc = _lib()(
+    rc = _lib(form)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bt.data_ptr(),
         base.data_ptr(), ctx.data_ptr(), None if sk is None else sk.data_ptr(),
         out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, s, sq, h, kvh, d, n,
@@ -154,6 +165,9 @@ def paged_verify_attention(
         int(min(window, NO_WINDOW)), chunk, splits, float(scale), cap,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "paged_verify_bf16")
-    launches += 1
+    _build.check(rc, f"paged_verify_{form}")
+    if form == "fp8":
+        launches_fp8 += 1
+    else:
+        launches += 1
     return out

@@ -114,7 +114,8 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, prefix_len,
         if t.dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"sp prefix kernel: {name} must be bfloat16 (got {t.dtype}); "
-                "fp8 caches are not ported yet")
+                "its fp8 form (e4m3 caches, pallas_sp.py:127-129) is not "
+                "ported yet")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 f"sp prefix kernel: {name} must be contiguous and 16-byte aligned")

@@ -68,22 +68,26 @@ def query_parts(s: int, g: int, rows: int = MAX_ROWS) -> Tuple[int, int]:
     return sq, -(-s // sq)
 
 
-def smem_bytes(head_dim: int, rows: int, chunk: int, bs: int) -> int:
+def smem_bytes(head_dim: int, rows: int, chunk: int, bs: int,
+               kv_bytes: int = 2) -> int:
     """Dynamic shared memory of one CTA of the split-KV core
     (``paged_splitkv.cuh`` ``smem_bytes``): Q padded to 16-row tiles, the
-    three-stage K and V rings of 64-key tiles, the merge's row statistics
-    and flag, and the chunk's block-table entries."""
+    three-stage K and V rings of 64-key tiles (``kv_bytes`` 1, the fp8
+    form: three e4m3 stages and one bf16 tile each), the merge's row
+    statistics and flag, and the chunk's block-table entries."""
     tiles = 1 if rows <= 16 else 2 if rows <= 32 else 4 if rows <= 64 else 8
-    return (16 * tiles * head_dim * 2 + 2 * 3 * TILE_KEYS * head_dim * 2
+    tile = TILE_KEYS * head_dim
+    ring = 2 * (tile * 2 + 3 * tile) if kv_bytes == 1 else 2 * 3 * tile * 2
+    return (16 * tiles * head_dim * 2 + ring
             + 2 * MAX_ROWS * 4 + 16 + (chunk // bs + 2) * 4)
 
 
 def check_fits(kernel: str, head_dim: int, rows: int, chunk: int,
-               bs: int) -> None:
+               bs: int, kv_bytes: int = 2) -> None:
     """Raise, naming ``kernel`` and the shape, when a CTA of ``rows`` rows
     over ``chunk``-key splits of ``bs``-token pages would not fit the
-    card's shared memory."""
-    need = smem_bytes(head_dim, rows, chunk, bs)
+    card's shared memory (``kv_bytes`` the cache's element size)."""
+    need = smem_bytes(head_dim, rows, chunk, bs, kv_bytes)
     if need > SMEM_LIMIT:
         raise NotImplementedError(
             f"{kernel}: head_dim {head_dim} with {rows} rows a CTA over "

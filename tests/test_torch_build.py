@@ -74,13 +74,14 @@ def test_library_path_survives_an_include_cycle(csrc):
 def test_prefill_kernels_share_the_tensor_core_header():
     for name in ("paged_flash", "sp_prefix"):
         deps = [p.name for p in _build._sources(_build.CSRC / _build.SOURCES[name], [])]
-        assert deps == [_build.SOURCES[name], "paged_attn_tc.cuh"]
+        # the e4m3 upcast of the fp8 forms comes in through the core
+        assert deps == [_build.SOURCES[name], "paged_attn_tc.cuh", "kv_fp8.cuh"]
 
 
 def test_decode_and_verify_share_the_splitkv_header():
     for name in ("paged_decode", "paged_verify"):
         deps = [p.name for p in _build._sources(_build.CSRC / _build.SOURCES[name], [])]
-        assert deps == [_build.SOURCES[name], "paged_splitkv.cuh"]
+        assert deps == [_build.SOURCES[name], "paged_splitkv.cuh", "kv_fp8.cuh"]
 
 
 def _flash_inputs(d, h=8, kvh=2):
@@ -187,26 +188,30 @@ def test_flash_smem_fits_at_every_head_dim(d):
         assert paged_flash.smem_bytes(d, 2) <= splitkv.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("kv_bytes", [2, 1])  # bf16 and e4m3 caches
 @pytest.mark.parametrize("d", paged_decode._HEAD_DIMS)
 @pytest.mark.parametrize("bs", [1, 16, 64])
-def test_splitkv_smem_fits_every_accepted_shape(d, bs):
+def test_splitkv_smem_fits_every_accepted_shape(d, bs, kv_bytes):
     """Every (query position, group head) row count a CTA takes (1 to
     128: one to eight 16-row tiles) over the splits of every table up to
     128k keys a row (gemma-2-9b: 8,192 at bs 16), within the card's shared
-    memory (at head_dim 256 a CTA holds 16 rows)."""
+    memory (at head_dim 256 a CTA holds 16 rows), in the bf16 form and the
+    fp8 form (three e4m3 stages and one bf16 tile each of K and V)."""
     widest = 0
     for rows in (r for r in (1, 2, 16, 17, 32, 33, 64, 65, 128)
                  if r <= splitkv.max_rows(d)):
         for table_keys in (16, 2048, 8192, 16384, 131072):
             chunk, _ = splitkv.plan(table_keys)
-            need = splitkv.smem_bytes(d, rows, chunk, bs)
-            splitkv.check_fits("decode kernel", d, rows, chunk, bs)
+            need = splitkv.smem_bytes(d, rows, chunk, bs, kv_bytes)
+            splitkv.check_fits("decode kernel", d, rows, chunk, bs, kv_bytes)
             widest = max(widest, need)
     assert widest <= splitkv.SMEM_LIMIT
     # the layout of the header at 16 rows over 256-key splits of 16-token
     # pages: Q, the K and V rings, statistics, flag, 18 table entries
-    assert splitkv.smem_bytes(d, 16, 256, 16) == (
-        32 * d + 2 * 3 * 64 * d * 2 + 1024 + 16 + 18 * 4)
+    ring = (2 * 64 * d * 2 + 2 * 3 * 64 * d if kv_bytes == 1
+            else 2 * 3 * 64 * d * 2)
+    assert splitkv.smem_bytes(d, 16, 256, 16, kv_bytes) == (
+        32 * d + ring + 1024 + 16 + 18 * 4)
 
 
 def test_splitkv_shape_past_the_shared_memory_raises_by_name():

@@ -1054,3 +1054,135 @@ def test_http_front_round_trip_on_the_card(tmp_path):
     assert paged_flash.launches > launches[1]
     assert epilogue.launches > launches[2]
     assert metrics["kv_active_blocks"] == 0
+
+
+# ------------------------------------------------------- fp8 (e4m3) caches
+
+FP8 = torch.float8_e4m3fn
+
+
+def _fp8_caches(g, layers=3, blocks=400, bs=16, kvh=2, d=64):
+    """e4m3 K and V caches and their upcast bf16 copies (exact)."""
+    shape = (layers, blocks, bs, kvh, d)
+    k8, v8 = (torch.randn(shape, generator=g, device="cuda").to(FP8)
+              for _ in range(2))
+    return k8, v8, k8.to(torch.bfloat16), v8.to(torch.bfloat16)
+
+
+FP8_FORMS = {"plain": {}, "window_sinks": dict(window=300, sinks=True),
+             "softcap": dict(softcap=5.0, scale=0.25)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(FP8_FORMS))
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("kind", ["decode", "verify", "flash"])
+def test_fp8_forms_equal_the_bf16_forms_over_the_upcast_cache(kind, d, form):
+    """Each attention kernel's fp8 form over e4m3 caches returns bit for bit
+    what its bf16 form returns over the caches upcast to bf16 (every e4m3
+    value is a bf16 value and only the producer differs), at the split-KV
+    edges of a 768-key table, with a window and sinks, a binding softcap, or
+    neither; it launches the fp8 symbol and not the bf16 one, and stays
+    within ATOL / RTOL of the f32 plain version."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    k8, v8, kb, vb = _fp8_caches(g, d=d)
+    opts = FP8_FORMS[form]
+    h = 8  # G 4 over two KV heads
+    kw = dict(layer_idx=2, window=opts.get("window", paged_decode.NO_WINDOW),
+              softcap=opts.get("softcap", 0.0),
+              scale=opts.get("scale", 1.0) * d ** -0.5,
+              sinks=(torch.randn(h, generator=g, device="cuda") * 2
+                     if opts.get("sinks") else None))
+    ctx_l = SPLIT_EDGE_CTX
+    n = len(ctx_l)
+    bt = torch.randperm(400, generator=g, device="cuda")[: n * 48].reshape(n, 48).int()
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+    if kind == "decode":
+        mod, s = paged_decode, 1
+        kernel, ref_fn = mod.paged_decode_attention, mod.paged_decode_attention_ref
+        base = ctx - 1
+        args = (bt, ctx)
+    else:
+        mod = paged_verify if kind == "verify" else paged_flash
+        s = 17 if kind == "verify" else 64
+        kernel, ref_fn = ((mod.paged_verify_attention, mod.paged_verify_attention_ref)
+                          if kind == "verify" else
+                          (mod.paged_flash_attention, mod.paged_flash_attention_ref))
+        base = torch.clamp(ctx - s, min=0)
+        args = (bt, base, ctx)
+    q = torch.randn(n, s, h, d, generator=g, device="cuda").bfloat16()
+
+    def run(k, v, fn):
+        if fn is kernel:
+            return fn(q, k, v, *args, **kw)
+        return fn(q.float(), k, v, *args, kw["layer_idx"], kw["scale"],
+                  kw["window"], kw["sinks"], kw["softcap"])
+
+    before = (mod.launches, mod.launches_fp8)
+    out8 = run(k8, v8, kernel)
+    outb = run(kb, vb, kernel)
+    ref = run(kb.float(), vb.float(), ref_fn)
+    torch.cuda.synchronize()
+    assert (mod.launches, mod.launches_fp8) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out8, outb)
+    for i, c in enumerate(ctx_l):  # rows past ctx are discarded by the caller
+        nv = 1 if kind == "decode" else max(0, min(s, c - int(base[i])))
+        torch.testing.assert_close(out8[i, :nv].float(), ref[i, :nv],
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctx", [0, 1, 65, 129, 1025, 1280])
+@pytest.mark.parametrize("h", [16, 20])
+def test_mla_fp8_form_equals_the_bf16_form_over_the_upcast_cache(h, ctx):
+    """The MLA kernel's fp8 form over e4m3 latent and rope caches equals its
+    bf16 form over the caches upcast to bf16, bit for bit, at its tile,
+    split and cluster edges; the fp8 symbol launches, not the bf16 one."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    layers, n, bs, w = 2, 96, 16, 80
+    c8 = torch.randn(layers, n, bs, 1, 512, generator=g, device="cuda").to(FP8)
+    kr8 = torch.randn(layers, n, bs, 1, 64, generator=g, device="cuda").to(FP8)
+    bt = torch.randperm(n, generator=g, device="cuda")[:w][None].int()
+    ctx_t = torch.tensor([ctx], dtype=torch.int32, device="cuda")
+    q_lat = torch.randn(1, 1, h, 512, generator=g, device="cuda").bfloat16()
+    q_rope = torch.randn(1, 1, h, 64, generator=g, device="cuda").bfloat16()
+    before = (mla_decode.launches, mla_decode.launches_fp8)
+    out8 = mla_decode.mla_paged_decode_attention(q_lat, q_rope, c8, kr8, bt,
+                                                 ctx_t, layer_idx=1, scale=0.11472)
+    outb = mla_decode.mla_paged_decode_attention(
+        q_lat, q_rope, c8.to(torch.bfloat16), kr8.to(torch.bfloat16), bt, ctx_t,
+        layer_idx=1, scale=0.11472)
+    ref = mla_decode.mla_paged_decode_attention_ref(
+        q_lat.float(), q_rope.float(), c8.float(), kr8.float(), bt, ctx_t, 1,
+        0.11472)
+    torch.cuda.synchronize()
+    assert (mla_decode.launches, mla_decode.launches_fp8) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out8, outb)
+    torch.testing.assert_close(out8.float(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_fp8_writes_on_the_card_give_the_cpu_bytes():
+    """``scatter_kv_stacked`` into e4m3 caches on the card writes the bytes
+    the CPU writes for the same bf16 values: normals, subnormals, +-0,
+    448-464 and the saturated values past 464."""
+    _need_cuda()
+    from dynamo_tpu_torch.ops.attention import alloc_kv_cache, scatter_kv_stacked
+
+    g = torch.Generator().manual_seed(11)
+    shape = (2, 4, 16, 2, 64)
+    new = (torch.randn(2, 6, 2, 64, generator=g) * 50).bfloat16()
+    new.view(-1)[:12] = torch.tensor(
+        [0.0, -0.0, 2 ** -9, 3 * 2 ** -9, 2 ** -10, 448.0, 460.0, 464.0,
+         -464.0, 500.0, -1e4, float("inf")]).bfloat16()
+    slots = torch.tensor([[3, -1, 17, 64, 0, 5], [70, 39, 8, -1, 21, 22]])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        k, v = alloc_kv_cache(shape, FP8, dev), alloc_kv_cache(shape, FP8, dev)
+        scatter_kv_stacked(k, v, new.to(dev), new.to(dev), slots.to(dev), 1)
+        out[dev] = k.view(torch.uint8).cpu()
+    torch.cuda.synchronize()
+    assert torch.equal(out["cpu"], out["cuda"])

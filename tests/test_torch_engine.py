@@ -274,15 +274,19 @@ def test_config_refuses_unported_features():
                dict(decode_pipeline_depth=2, spec_ngram_tokens=2),
                dict(device_finish="on", decode_pipeline_depth=2,
                     spec_ngram_tokens=4),
-               dict(tp_size=2), dict(kv_cache_dtype="fp8"),
-               dict(host_kv_blocks=8)):
+               dict(tp_size=2), dict(host_kv_blocks=8)):
         with pytest.raises(NotImplementedError):
             EngineConfig(model=model, **kw)
+    # an fp8 KV cache is served (below); a cache dtype the reference does
+    # not know raises its ValueError
+    with pytest.raises(ValueError, match="unknown kv_cache_dtype"):
+        EngineConfig(model=model, kv_cache_dtype="int8")
     # served since the second slice: bursts, ngram speculation, the
     # epilogue's route on any device; since the fourth: the dispatch-ahead
     # pipeline and the chained device-finish loop with its knobs
     for kw in (dict(multi_step_decode=4), dict(spec_ngram_tokens=2),
                dict(fused_epilogue="on"), dict(fused_epilogue="auto"),
+               dict(kv_cache_dtype="fp8"),
                dict(decode_pipeline_depth=2),
                dict(decode_pipeline_depth=2, device_finish="off"),
                dict(device_finish="on", decode_pipeline_depth=2,

@@ -315,8 +315,8 @@ def test_quantized_runner_keeps_int8_leaves(family):
 
 def test_unknown_schemes_and_fp8_kv_are_refused_by_name(monkeypatch):
     """Any scheme but int8 raises the reference's ValueError when the
-    config is built and again in the runner before a weight is drawn; an
-    fp8 KV cache stays refused by name."""
+    config is built and again in the runner before a weight is drawn; int8
+    weights beside an fp8 KV cache are served."""
     _, cfg = _configs("mixtral")
     for scheme in ("fp8", "int4", "awq"):
         with pytest.raises(ValueError,
@@ -332,9 +332,13 @@ def test_unknown_schemes_and_fp8_kv_are_refused_by_name(monkeypatch):
     monkeypatch.setattr(mixtral, "init_params", drew)
     with pytest.raises(ValueError, match="unknown quantization 'gptq'"):
         ModelRunner(econf, device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_cache_dtype='fp8'"):
-        EngineConfig(model=dataclasses.replace(cfg, quantization="int8"),
-                     kv_cache_dtype="fp8")
+    monkeypatch.undo()
+    both = ModelRunner(EngineConfig(
+        model=dataclasses.replace(cfg, quantization="int8"), max_model_len=64,
+        num_kv_blocks=16, dtype="float32", kv_cache_dtype="fp8"), device="cpu")
+    assert all(t.dtype == torch.float8_e4m3fn for t in both.kv_cache)
+    assert any(isinstance(v, quant.QuantizedWeight)
+               for v in both.params["layers"].values())
 
 
 async def _streams(engine, req_cls, ctx_cls, stop_cls, samp_cls, prompts):
