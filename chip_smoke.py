@@ -52,7 +52,12 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    32 layers; decode at the split edges and the engine's contexts, verify
    at S 5 and 17 with a pad row, flash at the engine's batched prefill
    steps), and the epilogue at their vocabularies of 151,936 and 32,000
-   in every form; and the fp8 forms of decode, verify, flash and MLA decode
+   in every form; decode, verify and flash the same way at Qwen2.5-7B's
+   G 7 (H 28, KVH 4, D 128, 28 layers) and the epilogue at its 152,064;
+   flash (bf16 and fp8) and the prefix partials at the GQA groups that
+   leave spare rows in a tensor-core CTA (``ODD_GROUPS``: G 7 and
+   Qwen2.5-32B's G 5, H 40, KVH 8): flash at the batched chunk and the
+   long step, the prefix partials at every ``SP_PREFIXES`` edge; and the fp8 forms of decode, verify, flash and MLA decode
    over e4m3 caches (``FP8_SHAPES``: Llama-3.2-1B's attention, Qwen3's
    head_dim 128, gemma-2-9b's softcap at head_dim 256, gpt-oss-20b's sinks
    with its window; V2-Lite's MLA), each held against its f32 plain
@@ -199,6 +204,19 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    itself: ``python3 -m dynamo_tpu_torch.cli.run in=http out=torch`` in a
    subprocess (on the card by default) answers /health and a chat request
    and exits 0 on SIGINT.
+15. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
+   depth (its published ``config.json``: G 7, qkv biases, V 152,064) with
+   seeded random bf16 weights written as a 4-shard HF safetensors
+   snapshot (``write_safetensors_snapshot``) and loaded by
+   ``ModelRunner(model_dir=...)``: every leaf equal to the drawn one, the
+   write and load seconds, load GB/s, the load's device and host peaks;
+   wave 1, the prefix-hit wave and the spec prompts (launch counts), the
+   2-layer logits against the CPU in f32; then the CLI with
+   ``--model-path`` and no ``--allow-random-weights`` in a subprocess
+   serving wave 1 and the spec prompts over /v1/completions (greedy
+   streams equal the in-process engine's or part at a near-tie); then
+   Llama-3.2-1B as one GGUF file (Q8_0, ``write_gguf_llama_q8``) served
+   by the CLI the same way against an engine given d * q directly.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -208,8 +226,11 @@ path's launches, its ``finish`` + ``extra_bias`` form with the chained
 engine's; the sink forms and the epilogue at V 201,088 with the gpt-oss
 paths' launches, the softcap forms and the epilogue at V 256,000 with the
 gemma-2 paths', the head_dim-128 forms and the epilogue at V 151,936 and
-32,000 with the Qwen3-MoE and Mixtral paths', the fp8 forms with the
-``engine_fp8`` paths' and the MLA fp8 engine's; the decode, flash and
+32,000 with the Qwen3-MoE and Mixtral paths', the G 7 forms and the
+epilogue at V 152,064 with ``engine_load``'s, the fp8 forms with the
+``engine_fp8`` paths' and the MLA fp8 engine's; the forms no cell runs —
+G 5, flash's fp8 form and the prefix partials at G 7 and 5 — with a count
+of 0 and a ``path`` saying so; the decode, flash and
 epilogue entries also carry ``launches_engine_http``, the HTTP path's own
 counts); the line before that the
 card's name and power limit.
@@ -221,6 +242,7 @@ import asyncio
 import functools
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -668,6 +690,7 @@ def kernel_phase(torch, dev):
     entries.update(_softcap_cases(torch, dev))
     for family in MOE_ATTENTION:
         entries.update(_moe_attention_cases(torch, dev, family))
+    entries.update(_odd_group_cases(torch, dev, entries))
     entries.update(_fp8_cases(torch, dev))
     # kernel 3 at gpt-oss-20b's vocabulary of 201,088, gemma-2-9b's of
     # 256,000, Qwen3-30B-A3B's of 151,936 and Mixtral-8x7B's of 32,000
@@ -679,6 +702,10 @@ def kernel_phase(torch, dev):
                          _epilogue_finish_cases)):
             entry = fn(torch, dev, gv)
             entries[key] = dict(entry, name=f"{entry['name']}[V={gv}]")
+    # and at Qwen2.5-7B's 152,064 (engine_load's main path: the plain form)
+    gv = QWEN25_7B["vocab_size"]
+    entry = _epilogue_cases(torch, dev, gv)
+    entries["sampling_epilogue_qwen25"] = dict(entry, name=f"{entry['name']}[V={gv}]")
     return entries
 
 
@@ -1070,31 +1097,29 @@ def _sp_prefix_d128(torch, spx, dev):
     return errs, dict(prefix=8192, kernel_ms=ms, bound_ms=bound, bound_by=by)
 
 
-def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
+def _sp_prefix_run(torch, spx, g, k, v, k32, v32, layer, H):
     """The prefix partials kernel (kernel 6) against its plain version at
-    the one-card SP call's shapes: q [4, 512, 32, 64] (4 ranks of a 2,048-
+    the one-card SP call's shapes for ``H`` query heads over the cache
+    ``k`` / ``v`` [L, N, bs, KVH, D]: q [4, 512, H, D] (4 ranks of a 2,048-
     token chunk) over one block table row broadcast to the ranks, layer
-    ``layer`` of the 16-layer cache, at every prefix of ``SP_PREFIXES``
-    (the empty prefix exactly: m == -1e30, l == acc == 0). Timed at the
-    longest prefix beside the plain version, the bound (by operations) and
-    SDPA over the gathered prefix, non-causal: a yardstick that computes the
-    normalised output, not the partials, and that the port never calls."""
-    from dynamo_tpu_torch.ops import sp_prefix as spx
-
+    ``layer``, at every prefix of ``SP_PREFIXES`` (the empty prefix
+    exactly: m == -1e30, l == acc == 0). Timed by CUDA events at the
+    longest prefix beside the plain version, the bound and SDPA over the
+    gathered prefix, non-causal: a yardstick that computes the normalised
+    output, not the partials, and that the port never calls. Returns the
+    max errors by prefix and the timings."""
     F = torch.nn.functional
     L, N, BS, KVH, D = k.shape
-    H, R, S = FLAGSHIP["num_heads"], SP_RANKS, SP_ROWS
-    row = torch.randperm(N, generator=g, device=dev).int()[None]
+    R, S = SP_RANKS, SP_ROWS
+    row = torch.randperm(N, generator=g, device=k.device).int()[None]
     bt = row.expand(R, N)                      # stride 0: no copy per rank
-    q = torch.randn(R, S, H, D, generator=g, device=dev).bfloat16()
+    q = torch.randn(R, S, H, D, generator=g, device=k.device).bfloat16()
     errs = {pfx: _sp_prefix_check(torch, spx, q, k, v, k32, v32, bt, pfx, layer)
             for pfx in SP_PREFIXES}
-    d128_errs, d128_timed = _sp_prefix_d128(torch, spx, dev)
-    errs.update(d128_errs)
     P = SP_PREFIXES[-1]
     ms = cuda_ms(lambda: spx.paged_prefix_attention_partials(q, k, v, bt, P, layer))
     plain_ms = cuda_ms(lambda: spx.paged_prefix_attention_partials_ref(
-        q.float(), k32, v32, bt, P, layer), iters=5, warmup=1)
+        q.float(), k32, v32, bt, P, layer), iters=3, warmup=1)
     pages = row[0, : -(-P // BS)].long()
     kd = k[layer][pages].reshape(1, -1, KVH, D)[:, :P].transpose(1, 2)
     vd = v[layer][pages].reshape(1, -1, KVH, D)[:, :P].transpose(1, 2)
@@ -1108,22 +1133,35 @@ def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
               + q.numel() * 4 + 2 * R * S * H * 4)  # acc, m, l in f32
     bound, by = _bound_ms(flops, nbytes)
     torch.cuda.synchronize()
+    del kd, vd, qd
+    return errs, dict(timed_prefix=P, kernel_ms=ms, plain_ms=plain_ms,
+                      library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                      ctas=-(-S // (spx._ROWS_PER_CTA // (H // KVH))) * KVH * R)
+
+
+def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
+    """Kernel 6 at Llama-3.2-1B's heads over the 16-layer cache
+    (``_sp_prefix_run``) and at head_dim 128 (``_sp_prefix_d128``)."""
+    from dynamo_tpu_torch.ops import sp_prefix as spx
+
+    L, N, BS, KVH, D = k.shape
+    H = FLAGSHIP["num_heads"]
+    errs, t = _sp_prefix_run(torch, spx, g, k, v, k32, v32, layer, H)
+    d128_errs, d128_timed = _sp_prefix_d128(torch, spx, dev)
+    errs.update(d128_errs)
     emit("kernels", kernel="sp_prefix",
-         shape=dict(ranks=R, S=S, H=H, KVH=KVH, D=D, bs=BS, L=L, layer=layer,
-                    W=N, prefixes=list(SP_PREFIXES)),
+         shape=dict(ranks=SP_RANKS, S=SP_ROWS, H=H, KVH=KVH, D=D, bs=BS, L=L,
+                    layer=layer, W=N, prefixes=list(SP_PREFIXES)),
          max_err=errs, tol=dict(m="1e-3 + 1e-3|ref|", l="1e-3 + 1e-3|ref|",
                                 acc="1e-3 l + 1e-3|ref|"),
-         timed_prefix=P, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-         d128_timed=d128_timed,
-         bound_ms=bound, bound_by=by,
-         ctas=-(-S // (spx._ROWS_PER_CTA // (H // KVH))) * KVH * R)
-    del kd, vd, qd
+         **t, d128_timed=d128_timed)
     return dict(
         name="paged_prefix_attention_partials", route="cuda",
         source="dynamo_tpu_torch/csrc/sp_prefix.cu",
         replaces="dynamo_tpu/ops/pallas_sp.py:232",
-        max_abs_err=max(max(e.values()) for e in errs.values()), ms=ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        max_abs_err=max(max(e.values()) for e in errs.values()),
+        ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"])
 
 
 # the sink form of kernels 1, 4 and 2 at gpt-oss-20b's attention: 64 query
@@ -1696,7 +1734,9 @@ def _softcap_d128(torch, dev):
 # the MoE families' attention at head_dim 128: Qwen3-30B-A3B (32 heads over
 # 4 KV heads, G 8, 48 layers) and Mixtral-8x7B (32 over 8, G 4, 32 layers),
 # neither windowed nor capped; (H, KVH, layers, with verify)
-MOE_ATTENTION = {"qwen3moe": (32, 4, 48, True), "mixtral": (32, 8, 32, False)}
+MOE_ATTENTION = {"qwen3moe": (32, 4, 48, True), "mixtral": (32, 8, 32, False),
+                 # dense, but the same cases: Qwen2.5-7B's G 7 (engine_load)
+                 "qwen25": (28, 4, 28, True)}
 
 
 def _moe_attention_cases(torch, dev, family):
@@ -1865,6 +1905,122 @@ def _moe_attention_cases(torch, dev, family):
     return out
 
 
+# GQA groups that leave spare rows in a tensor-core CTA (kernels 2 and 6):
+# Qwen2.5-7B's 28 query heads over 4 KV heads (G 7: flash holds 9 positions,
+# 63 of 64 rows; the prefix partials 18, 126 of 128) and Qwen2.5-32B's 40
+# over 8 (G 5: 12 and 60 of 64; 25 and 125 of 128), head_dim 128
+ODD_GROUPS = {"qwen25": (28, 4), "qwen25_32b": (40, 8)}
+ODD_LAYERS, ODD_PAGES = 4, 1024
+
+
+def _odd_group_cases(torch, dev, decode_entries):
+    """Kernels 2 (bf16 and fp8) and 6 at ``ODD_GROUPS``, over 4-layer
+    caches of e4m3 values (the bf16 cache their exact upcast), layer 2:
+
+    - flash at the engine's batched chunk (``batch4_s128``: 4 rows at S 128,
+      a pad row) and the dense ladder's long step (S 512 at 11,776, ctx
+      12,000: the query tiles past ctx must be zero), held against the f32
+      plain version and timed by graph replay (``_flash_check``,
+      ``_flash_timing``); its fp8 form by ``_fp8_form``;
+    - the prefix partials by ``_sp_prefix_run``.
+
+    ``decode_entries`` holds the G 7 flash entry of ``_moe_attention_cases``
+    (``paged_flash_qwen25``), which gains the long step. Returns the
+    kernels-line entries of the forms no cell of this script serves (G 5;
+    flash's fp8 form and kernel 6 at G 7): their ``launches`` is null and
+    ``path`` says why."""
+    from dynamo_tpu_torch.ops import paged_flash as pf
+    from dynamo_tpu_torch.ops import sp_prefix as spx
+
+    D, layer = 128, 2
+    kw = dict(layer_idx=layer, window=1 << 30, sinks=None, softcap=0.0,
+              scale=D ** -0.5)
+    src = "dynamo_tpu_torch/csrc/"
+    off_path = dict(launches=None, path="kernels phase only: no cell of this "
+                    "script serves this form")
+    entries = {}
+    for fam, (H, KVH) in ODD_GROUPS.items():
+        g = torch.Generator(device=dev).manual_seed(SEED + 40)
+        shape = (ODD_LAYERS, ODD_PAGES, 16, KVH, D)
+        k8 = torch.randn(shape, generator=g, device=dev).to(torch.float8_e4m3fn)
+        v8 = torch.randn(shape, generator=g, device=dev).to(torch.float8_e4m3fn)
+        k, v = k8.to(torch.bfloat16), v8.to(torch.bfloat16)
+        k32, v32 = k.float(), v.float()
+        W = ENGINE["max_model_len"] // 16
+        bt = torch.randperm(ODD_PAGES, generator=g, device=dev)[:4 * W].reshape(4, W).int()
+        bt[-1] = 0
+        chunk = [(0, 128), (384, 512), (1024, 1100), (0, 1)]
+        long_bt = torch.randperm(ODD_PAGES, generator=g, device=dev)[
+            :LONG_DENSE_PAGES][None].int()
+        flash, fp8 = {}, {}
+        for name, S, rows, btp in (("batch4_s128", 128, chunk, bt),
+                                   ("long_dense_step", 512, [LONG_DENSE_STEP],
+                                    long_bt)):
+            qf = torch.randn(len(rows), S, H, D, generator=g, device=dev).bfloat16()
+            base_l, c_l = [r[0] for r in rows], [r[1] for r in rows]
+            basep = torch.tensor(base_l, dtype=torch.int32, device=dev)
+            ctxp = torch.tensor(c_l, dtype=torch.int32, device=dev)
+            err = _flash_check(torch, pf, f"[{fam}] {name}", k, v, k32, v32,
+                               layer, qf, btp, basep, ctxp, rows)
+            t = _flash_timing(torch, pf, k, v, k32, v32, layer, qf, btp, basep,
+                              ctxp, S, rows)
+            flash[name] = dict(t, max_abs_err=err)
+            fp8[name] = _fp8_form(torch, "flash", f"[{fam}] {name}", qf, k8, v8,
+                                  k, v, k32, v32, btp, base_l, c_l, kw)
+        sp_errs, sp = _sp_prefix_run(torch, spx, g, k, v, k32, v32, layer, H)
+        del k, v, k8, v8, k32, v32
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        G = H // KVH
+        emit("kernels", kernel=f"odd_group[{fam}]",
+             shape=dict(H=H, KVH=KVH, G=G, D=D, L=ODD_LAYERS, layer=layer,
+                        flash_positions_a_cta=64 // G,
+                        flash_spare_rows=64 - 64 // G * G,
+                        sp_positions_a_cta=128 // G,
+                        sp_spare_rows=128 - 128 // G * G,
+                        chunk=chunk, long_step=LONG_DENSE_STEP,
+                        sp_prefixes=list(SP_PREFIXES)),
+             flash=flash, flash_fp8=fp8, sp_prefix=dict(max_err=sp_errs, **sp),
+             card=nvidia_smi_line())
+        t, tl = flash["batch4_s128"], flash["long_dense_step"]
+        long_step = dict(ms=tl["kernel_ms"], plain_ms=tl["plain_ms"],
+                         bound_ms=tl["bound_ms"], bound_by=tl["bound_by"],
+                         library_ms=tl["library_ms"],
+                         max_abs_err=tl["max_abs_err"])
+        if fam == "qwen25":
+            decode_entries["paged_flash_qwen25"]["long_dense_step"] = long_step
+        else:
+            entries[f"paged_flash_{fam}"] = dict(
+                name=f"paged_flash_attention[{fam}]", route="cuda",
+                source=src + "paged_flash.cu", core=src + "paged_attn_tc.cuh",
+                replaces="dynamo_tpu/ops/pallas_attention.py:254",
+                max_abs_err=max(t["max_abs_err"], tl["max_abs_err"]),
+                ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=t["library_ms"], long_dense_step=long_step,
+                **off_path)
+        f8, f8l = fp8["batch4_s128"], fp8["long_dense_step"]
+        keys = ("ms", "bf16_form_ms", "plain_ms", "bound_ms", "bound_by",
+                "sdpa_over_upcast_bf16_ms")
+        entries[f"paged_flash_fp8_{fam}"] = dict(
+            name=f"paged_flash_attention[fp8,{fam}]", route="cuda",
+            source=src + "paged_flash.cu", core=src + "paged_attn_tc.cuh",
+            upcast=src + "kv_fp8.cuh",
+            replaces="dynamo_tpu/ops/pallas_attention.py:254",
+            max_abs_err=max(f8["max_abs_err"], f8l["max_abs_err"]),
+            library_ms=None, **{k_: f8[k_] for k_ in keys},
+            long_dense_step={k_: f8l[k_] for k_ in keys}, **off_path)
+        entries[f"sp_prefix_{fam}"] = dict(
+            name=f"paged_prefix_attention_partials[{fam}]", route="cuda",
+            source=src + "sp_prefix.cu", core=src + "paged_attn_tc.cuh",
+            replaces="dynamo_tpu/ops/pallas_sp.py:232",
+            max_abs_err=max(max(e.values()) for e in sp_errs.values()),
+            ms=sp["kernel_ms"], plain_ms=sp["plain_ms"],
+            bound_ms=sp["bound_ms"], bound_by=sp["bound_by"],
+            library_ms=sp["library_ms"], **off_path)
+    return entries
+
+
 def _mla_cases(torch, dev):
     """The MLA decode kernel at DeepSeek-V2-Lite's shapes: B 8, H 16, R 512,
     RD 64, bs 16, a 27-layer stacked latent cache at layer 13, the decode
@@ -1978,6 +2134,54 @@ def _fp8_plain(torch, kind, q, k, v, bt, base, ctx, layer, scale, window,
     return fn(q, k, v, bt, base, ctx, layer, scale, window, sinks, softcap)
 
 
+def _fp8_form(torch, kind, name, q, k8, v8, kb, vb, k32, v32, bt, base_l,
+              c_l, kw):
+    """One fp8 call of the ``kind`` kernel over the e4m3 caches ``k8`` /
+    ``v8``: bit for bit equal to itself and to the bf16 form over the upcast
+    caches ``kb`` / ``vb``, and within ATOL / RTOL of the f32 plain version
+    on each row's valid queries; both forms timed by graph replay beside
+    the plain version, SDPA over the upcast K/V (``library_ms`` is null: no
+    PyTorch call reads e4m3 pages) and the bound with 1-byte K/V."""
+    dev = q.device
+    B, S, H, D = q.shape
+    KVH = k8.shape[3]
+    layer, sc, win = kw["layer_idx"], kw["scale"], kw["window"]
+    sinks, cap = kw["sinks"], kw["softcap"]
+    base = torch.tensor(base_l, dtype=torch.int32, device=dev)
+    ctx = torch.tensor(c_l, dtype=torch.int32, device=dev)
+    out8 = _fp8_call(torch, kind, q, k8, v8, bt, base, ctx, **kw)
+    again = _fp8_call(torch, kind, q, k8, v8, bt, base, ctx, **kw)
+    outb = _fp8_call(torch, kind, q, kb, vb, bt, base, ctx, **kw)
+    ref = _fp8_plain(torch, kind, q.float(), k32, v32, bt, base, ctx,
+                     layer, sc, win, sinks, cap)
+    torch.cuda.synchronize()
+    if not (torch.equal(out8, again) and torch.equal(out8, outb)):
+        raise AssertionError(
+            f"{kind} fp8 {name}: not bit-equal to itself and to the "
+            f"bf16 form over the upcast cache (max |diff| "
+            f"{float((out8.float() - outb.float()).abs().max()):.3g})")
+    valid = [1 if kind == "decode" else max(0, min(S, c - b))
+             for b, c in zip(base_l, c_l)]
+    err = max(check_close(f"{kind} fp8 {name} row {i}", out8[i, :n],
+                          ref[i, :n])
+              for i, n in enumerate(valid) if n > 0)
+    del out8, again, outb, ref
+    ms = graph_ms(lambda: _fp8_call(torch, kind, q, k8, v8, bt, base, ctx, **kw))
+    bf16_ms = graph_ms(lambda: _fp8_call(torch, kind, q, kb, vb, bt, base,
+                                         ctx, **kw))
+    plain_ms = cuda_ms(lambda: _fp8_plain(
+        torch, kind, q.float(), k32, v32, bt, base, ctx, layer, sc, win,
+        sinks, cap), iters=5, warmup=1)
+    sdpa_ms = _sdpa_no_softcap(torch, q, kb, vb, layer, bt, base, ctx, win, sc)
+    bound, by = _attn_bound(D, H, KVH, q, base_l, c_l, S, win, kv_bytes=1)
+    bound_bf16, _ = _attn_bound(D, H, KVH, q, base_l, c_l, S, win)
+    return dict(max_abs_err=err, ms=ms, bf16_form_ms=bf16_ms,
+                plain_ms=plain_ms, library_ms=None,
+                sdpa_over_upcast_bf16_ms=sdpa_ms, bound_ms=bound,
+                bound_by=by, bf16_bound_ms=bound_bf16,
+                bit_equal_to_bf16_form=True)
+
+
 def _fp8_cases(torch, dev):
     """The fp8 forms of kernels 1, 4 and 2 (decode, verify, flash) at the
     ``FP8_SHAPES``, over e4m3 caches of ``FP8_LAYERS`` layers, and kernel
@@ -2023,43 +2227,10 @@ def _fp8_cases(torch, dev):
             bt = bt_all[:B].clone()
             if kind == "flash":
                 bt[-1] = 0  # the pad row reads block 0
-            base = torch.tensor(base_l, dtype=torch.int32, device=dev)
-            ctx = torch.tensor(c_l, dtype=torch.int32, device=dev)
             q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
-            out8 = _fp8_call(torch, kind, q, k8, v8, bt, base, ctx, **kw)
-            again = _fp8_call(torch, kind, q, k8, v8, bt, base, ctx, **kw)
-            outb = _fp8_call(torch, kind, q, kb, vb, bt, base, ctx, **kw)
-            ref = _fp8_plain(torch, kind, q.float(), k32, v32, bt, base, ctx,
-                             layer, sc, win, sinks, cap)
-            torch.cuda.synchronize()
-            if not (torch.equal(out8, again) and torch.equal(out8, outb)):
-                raise AssertionError(
-                    f"{kind} fp8 {name}: not bit-equal to itself and to the "
-                    f"bf16 form over the upcast cache (max |diff| "
-                    f"{float((out8.float() - outb.float()).abs().max()):.3g})")
-            valid = [1 if kind == "decode" else max(0, min(S, c - b))
-                     for b, c in zip(base_l, c_l)]
-            err = max(check_close(f"{kind} fp8 {name} row {i}", out8[i, :n],
-                                  ref[i, :n])
-                      for i, n in enumerate(valid) if n > 0)
-            ms = graph_ms(lambda: _fp8_call(torch, kind, q, k8, v8, bt, base,
-                                            ctx, **kw))
-            bf16_ms = graph_ms(lambda: _fp8_call(torch, kind, q, kb, vb, bt,
-                                                 base, ctx, **kw))
-            plain_ms = cuda_ms(lambda: _fp8_plain(
-                torch, kind, q.float(), k32, v32, bt, base, ctx, layer, sc,
-                win, sinks, cap), iters=5, warmup=1)
-            sdpa_ms = _sdpa_no_softcap(torch, q, kb, vb, layer, bt, base, ctx,
-                                       win, sc)
-            bound, by = _attn_bound(D, H, KVH, q, base_l, c_l, S, win,
-                                    kv_bytes=1)
-            bound_bf16, _ = _attn_bound(D, H, KVH, q, base_l, c_l, S, win)
             results[kind][name] = dict(
-                max_abs_err=err, ms=ms, bf16_form_ms=bf16_ms,
-                plain_ms=plain_ms, library_ms=None,
-                sdpa_over_upcast_bf16_ms=sdpa_ms, bound_ms=bound,
-                bound_by=by, bf16_bound_ms=bound_bf16,
-                bit_equal_to_bf16_form=True,
+                _fp8_form(torch, kind, name, q, k8, v8, kb, vb, k32, v32, bt,
+                          base_l, c_l, kw),
                 shape=dict(B=B, S=S, H=H, KVH=KVH, D=D, window=window,
                            sinks=with_sinks, softcap=cap, scale=sc))
         del k8, v8, kb, vb, k32, v32
@@ -4909,14 +5080,14 @@ def _byte_level_alphabet():
 
 
 def synthetic_tokenizer(vocab_size=FLAGSHIP["vocab_size"], seed=SEED,
-                        n_special=256) -> dict:
+                        n_special=256, special_names=None) -> dict:
     """A byte-level BPE ``tokenizer.json`` over ``vocab_size`` ids in
     Llama-3's layout: 256 byte symbols, then merges drawn from ``seed``
     (each new token the concatenation of two existing tokens of at most
     ``TOKEN_MAX_CHARS`` together, so encoding is valid BPE and every id
-    decodes to bytes), then ``n_special`` special tokens (Llama-3's named
-    ones, reserved ones in the gaps); Llama-3's ``Split`` pattern and
-    ``ignore_merges``."""
+    decodes to bytes), then ``n_special`` special tokens (``special_names``
+    by id, Llama-3's named ones by default; reserved ones in the gaps);
+    Llama-3's ``Split`` pattern and ``ignore_merges``."""
     rng = np.random.default_rng(seed)
     vocab_list = _byte_level_alphabet()
     vocab = {t: i for i, t in enumerate(vocab_list)}
@@ -4948,7 +5119,8 @@ def synthetic_tokenizer(vocab_size=FLAGSHIP["vocab_size"], seed=SEED,
                 words.append(t)
             if len(vocab_list) == n_regular:
                 break
-    specials = {i: LLAMA3_SPECIAL.get(i, f"<|reserved_special_token_{i - n_regular}|>")
+    names = LLAMA3_SPECIAL if special_names is None else special_names
+    specials = {i: names.get(i, f"<|reserved_special_token_{i - n_regular}|>")
                 for i in range(n_regular, vocab_size)}
     added = [dict(id=i, content=t, single_word=False, lstrip=False,
                   rstrip=False, normalized=False, special=True)
@@ -5620,9 +5792,714 @@ def _cli_run(model_dir, extra_path):
             proc.wait()
 
 
+# ------------------------------------------------------------- engine_load
+
+# Qwen2.5-7B (its published config.json): 28 layers, 28 query heads over 4
+# KV heads of dim 128 (G 7), qkv biases, SwiGLU 18,944 wide, rope theta 1e6,
+# RMS eps 1e-6, no sliding window, an untied 152,064 vocabulary: 7.62 B
+# parameters, 15.2 GB in bf16
+QWEN25_7B = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+    "vocab_size": 152064, "hidden_size": 3584, "intermediate_size": 18944,
+    "num_hidden_layers": 28, "num_attention_heads": 28,
+    "num_key_value_heads": 4, "max_position_embeddings": 131072,
+    "max_window_layers": 28, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+    "sliding_window": 131072, "use_sliding_window": False,
+    "tie_word_embeddings": False, "hidden_act": "silu",
+    "attention_dropout": 0.0, "bos_token_id": 151643,
+    "eos_token_id": 151643, "torch_dtype": "bfloat16",
+}
+QWEN_SPECIAL = {151643: "<|endoftext|>", 151644: "<|im_start|>",
+                151645: "<|im_end|>"}
+QWEN_CHAT_TEMPLATE = (
+    "{% for m in messages %}<|im_start|>{{ m['role'] }}\n{{ m['content'] }}"
+    "<|im_end|>\n{% endfor %}{% if add_generation_prompt %}<|im_start|>"
+    "assistant\n{% endif %}")
+LOAD_SHARDS = 4
+LOAD_DRAWN_SCALE = 0.1   # qkv biases N(0, 0.1^2), norms 1 + N(0, 0.1^2)
+LOAD_CLI_TIMEOUT_S = 600
+# the CLI's flags (a CPU rehearsal appends "--device", "cpu")
+LOAD_CLI_FLAGS = ["--max-model-len", str(ENGINE["max_model_len"]),
+                  "--num-kv-blocks", str(ENGINE["num_kv_blocks"]),
+                  "--kv-block-size", str(ENGINE["kv_block_size"])]
+LOAD_EXTRA = dict(max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"])
+ST_DTYPE_NAMES = {"torch.bfloat16": "BF16"}
+GGUF_Q8_0, GGUF_F32 = 8, 0
+
+
+def _qwen2_hf_tensors(params, layers):
+    """(HF name, the tensor on the card in HF's [out, in] layout: a view of
+    the port's leaf) of a Qwen2 checkpoint."""
+    out = [("model.embed_tokens.weight", params["embed"]),
+           ("model.norm.weight", params["final_norm"]),
+           ("lm_head.weight", params["lm_head"].T)]
+    lay = params["layers"]
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", lay["ln1"][i]),
+                (p + "post_attention_layernorm.weight", lay["ln2"][i])]
+        for key, name in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                          ("wo", "o_proj")):
+            out.append((p + f"self_attn.{name}.weight", lay[key][i].T))
+        for key, name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+            out.append((p + f"self_attn.{name}.bias", lay[key][i]))
+        for key, name in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                          ("w_down", "down_proj")):
+            out.append((p + f"mlp.{name}.weight", lay[key][i].T))
+    return out
+
+
+def _host_bytes(t):
+    """A card tensor's bytes on the host as a numpy view of its one copy."""
+    import torch
+
+    return t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+
+
+def _page_cache_bytes():
+    """``Cached`` of /proc/meminfo in bytes (None where absent)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("Cached:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def _mount_of(path):
+    """The (mount point, filesystem type) of /proc/mounts that holds
+    ``path``."""
+    best = ("", None)
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                mnt, fs = parts[1], parts[2]
+                if (str(path) + "/").startswith(mnt.rstrip("/") + "/") and \
+                        len(mnt) >= len(best[0]):
+                    best = (mnt, fs)
+    except OSError:
+        pass
+    return best
+
+
+def evict_page_cache(paths):
+    """Ask the kernel to drop ``paths``' pages (synced by their writer) from
+    the page cache, ``posix_fadvise(POSIX_FADV_DONTNEED)`` on each; returns
+    the page cache's bytes before and after: whether the advice took shows
+    there (a user-space kernel or a memory-backed filesystem may keep the
+    pages)."""
+    before = _page_cache_bytes()
+    for p in paths:
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    after = _page_cache_bytes()
+    return dict(page_cache_before_bytes=before, page_cache_after_bytes=after,
+                dropped_bytes=None if None in (before, after) else before - after,
+                mount=_mount_of(Path(paths[0]).parent))
+
+
+def write_safetensors_snapshot(path, tensors, shards=LOAD_SHARDS) -> int:
+    """An HF safetensors snapshot of ``tensors`` ((name, tensor on the card)
+    pairs): ``shards`` files of about equal bytes, each an 8-byte header
+    length, the JSON header (dtype, shape, data_offsets a tensor) and the
+    tensors' bytes, one tensor on the host at a time, synced to disk; and
+    the ``model.safetensors.index.json`` weight map. Returns the bytes."""
+    import struct
+
+    sizes = [t.numel() * t.element_size() for _, t in tensors]
+    total, acc = sum(sizes), 0
+    groups = [[] for _ in range(shards)]
+    for (name, t), n in zip(tensors, sizes):
+        groups[min(shards - 1, acc * shards // total)].append((name, t, n))
+        acc += n
+    weight_map = {}
+    for i, group in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        header, off = {}, 0
+        for name, t, n in group:
+            header[name] = {"dtype": ST_DTYPE_NAMES[str(t.dtype)],
+                            "shape": list(t.shape),
+                            "data_offsets": [off, off + n]}
+            weight_map[name] = fname
+            off += n
+        head = json.dumps(header).encode()
+        head += b" " * ((-len(head)) % 8)
+        with open(Path(path) / fname, "wb") as f:
+            f.write(struct.pack("<Q", len(head)) + head)
+            for _, t, _ in group:
+                f.write(_host_bytes(t))
+            f.flush()
+            os.fsync(f.fileno())  # on disk: its pages can leave the cache
+    (Path(path) / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def _q8_0(torch, w):
+    """llama.cpp's Q8_0 of an [out, in] weight on the card: per 32-value
+    block of a row, d = max |x| / 127 stored in f16 and q = round(x / d) in
+    int8. Returns (the blocks' bytes as a uint8 [blocks, 34] tensor on the
+    card: d then q, in row order; the dequantized d * q as bf16 [out, in],
+    the weight a loader of the file gets)."""
+    x = w.float().reshape(-1, 32)
+    amax = x.abs().amax(dim=1, keepdim=True)
+    d = amax / torch.full_like(amax, 127.0)
+    q = torch.where(d > 0, x / torch.where(d > 0, d, torch.ones_like(d)),
+                    torch.zeros_like(x)).round_().clamp_(-127, 127)
+    d16 = d.half()
+    blocks = torch.cat([d16.view(torch.uint8), q.to(torch.int8).view(torch.uint8)],
+                       dim=1)
+    dq = (d16.float() * q).reshape(w.shape).bfloat16()
+    return blocks, dq
+
+
+def _gguf_permute(w, n_head):
+    """llama.cpp's converter's q/k row permutation of an [out, in] weight."""
+    out, inner = w.shape
+    return (w.reshape(n_head, 2, out // n_head // 2, inner).transpose(1, 2)
+            .reshape(out, inner))
+
+
+def _gguf_value(vtype, v) -> bytes:
+    import struct
+
+    if vtype == 8:       # string
+        raw = v.encode()
+        return struct.pack("<Q", len(raw)) + raw
+    if vtype == 9:       # array (item type, values)
+        item, vals = v
+        return struct.pack("<IQ", item, len(vals)) + b"".join(
+            _gguf_value(item, x) for x in vals)
+    return struct.pack({4: "<I", 5: "<i", 6: "<f"}[vtype], v)
+
+
+def write_gguf_llama_q8(torch, path, mcfg, params, tokenizer_spec):
+    """A llama.cpp-style GGUF v3 file of the Llama tree ``params`` (on the
+    card, tied embeddings): every matmul weight in Q8_0 (q and k rows
+    permuted as llama.cpp's converter does), the norms in F32, the ``gpt2``
+    tokenizer kind from ``tokenizer_spec``'s vocabulary and merges (its
+    added tokens CONTROL). Returns (bytes written, the tree a loader of the
+    file gets: every Q8_0 leaf replaced by d * q)."""
+    import struct
+
+    lay = params["layers"]
+    vocab = tokenizer_spec["model"]["vocab"]
+    tokens = [t for t, _ in sorted(vocab.items(), key=lambda kv: kv[1])]
+    specials = {t["content"] for t in tokenizer_spec["added_tokens"]}
+    meta = [("general.architecture", 8, "llama"),
+            ("general.name", 8, "llama-3.2-1b-q8_0-random"),
+            ("general.alignment", 4, 32),
+            ("llama.context_length", 4, mcfg.max_position_embeddings),
+            ("llama.embedding_length", 4, mcfg.hidden_size),
+            ("llama.block_count", 4, mcfg.num_layers),
+            ("llama.feed_forward_length", 4, mcfg.intermediate_size),
+            ("llama.attention.head_count", 4, mcfg.num_heads),
+            ("llama.attention.head_count_kv", 4, mcfg.num_kv_heads),
+            ("llama.attention.key_length", 4, mcfg.head_dim),
+            ("llama.rope.freq_base", 6, mcfg.rope_theta),
+            ("llama.attention.layer_norm_rms_epsilon", 6, mcfg.rms_norm_eps),
+            ("tokenizer.ggml.model", 8, "gpt2"),
+            ("tokenizer.ggml.tokens", 9, (8, tokens)),
+            ("tokenizer.ggml.token_type", 9,
+             (5, [3 if t in specials else 1 for t in tokens])),
+            ("tokenizer.ggml.merges", 9,
+             (8, [" ".join(m) for m in tokenizer_spec["model"]["merges"]])),
+            # Llama-3's <|begin_of_text|> and <|eot_id|>: 128,000 and 128,009
+            ("tokenizer.ggml.bos_token_id", 4, len(tokens) - 256),
+            ("tokenizer.ggml.eos_token_id", 4, len(tokens) - 247),
+            ("tokenizer.chat_template", 8, LLAMA3_CHAT_TEMPLATE)]
+    loaded = {"final_norm": params["final_norm"],
+              "layers": {k: lay[k] for k in ("ln1", "ln2")}}
+    # (name, ggml type, numpy shape [out, in], card tensor or its q8 bytes)
+    items = [("output_norm.weight", GGUF_F32, params["final_norm"])]
+    blocks, loaded["embed"] = _q8_0(torch, params["embed"])
+    items.append(("token_embd.weight", GGUF_Q8_0, (params["embed"].shape, blocks)))
+    for key in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        loaded["layers"][key] = torch.empty_like(lay[key])
+    for i in range(mcfg.num_layers):
+        items += [(f"blk.{i}.attn_norm.weight", GGUF_F32, lay["ln1"][i]),
+                  (f"blk.{i}.ffn_norm.weight", GGUF_F32, lay["ln2"][i])]
+        for key, name, heads in (("wq", "attn_q", mcfg.num_heads),
+                                 ("wk", "attn_k", mcfg.num_kv_heads),
+                                 ("wv", "attn_v", 0), ("wo", "attn_output", 0),
+                                 ("w_gate", "ffn_gate", 0), ("w_up", "ffn_up", 0),
+                                 ("w_down", "ffn_down", 0)):
+            w = lay[key][i].T  # [out, in]
+            blocks, dq = _q8_0(torch, w)
+            loaded["layers"][key][i].copy_(dq.T)
+            if heads:  # the file holds the permuted rows (row-wise blocks)
+                blocks = _gguf_permute(blocks.reshape(w.shape[0], -1), heads)
+            items.append((f"blk.{i}.{name}.weight", GGUF_Q8_0, (w.shape, blocks)))
+    descs, off = [], 0
+    for name, kind, t in items:
+        shape = tuple(t.shape) if kind == GGUF_F32 else tuple(t[0])
+        n = (t.numel() * 4 if kind == GGUF_F32
+             else t[1].numel())
+        descs.append((name, tuple(reversed(shape)), kind, off))
+        off += n + (-n) % 32
+    total = 0
+    with open(path, "wb") as f:
+        f.write(b"GGUF" + struct.pack("<IQQ", 3, len(descs), len(meta)))
+        for key, vtype, v in meta:
+            f.write(_gguf_value(8, key) + struct.pack("<I", vtype)
+                    + _gguf_value(vtype, v))
+        for name, ne, kind, o in descs:
+            f.write(_gguf_value(8, name) + struct.pack("<I", len(ne))
+                    + b"".join(struct.pack("<Q", d) for d in ne)
+                    + struct.pack("<IQ", kind, o))
+        f.write(b"\0" * ((-f.tell()) % 32))
+        for name, kind, t in items:
+            raw = _host_bytes(t.float() if kind == GGUF_F32 else t[1])
+            f.write(raw)
+            f.write(b"\0" * ((-raw.size) % 32))
+        total = f.tell()
+    return total, loaded
+
+
+class RssPeak:
+    """The resident set of process ``pid`` ("self": this one) while the
+    ``with`` block runs: ``VmRSS`` and ``RssFile`` (mapped file pages) of
+    ``/proc/<pid>/status`` sampled every 5 ms on a thread; ``before`` and
+    ``peak`` in bytes (empty where the kernel reports neither). Sampled,
+    because ``getrusage``'s peak under a user-space kernel (gVisor) need not
+    be the process's."""
+
+    KEYS = ("VmRSS", "RssFile")
+
+    def __init__(self, pid="self"):
+        self.path = f"/proc/{pid}/status"
+        self.before, self.peak = self._read(), {}
+
+    def _read(self):
+        out = {}
+        try:
+            with open(self.path) as f:
+                for line in f:
+                    key, _, value = line.partition(":")
+                    if key in self.KEYS:
+                        out[key] = int(value.split()[0]) * 1024
+        except OSError:
+            pass
+        return out
+
+    def _run(self):
+        while not self._stop.is_set():
+            for key, value in self._read().items():
+                self.peak[key] = max(self.peak.get(key, 0), value)
+            self._stop.wait(0.005)
+
+    def __enter__(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+async def _cli_completions(port, model, batch, new_tokens, vocab_ids):
+    """``batch`` ((prompt ids, sampling kwargs) pairs) as streamed
+    /v1/completions requests with token-id prompts, ``new_tokens`` each,
+    sent at once; per request its token ids (the logprob entries' token
+    strings through ``vocab_ids``), finish reason and TTFT."""
+    async def one(prompt, samp):
+        status, _, raw, events = await http_request(
+            port, "POST", "/v1/completions", dict(
+                model=model, prompt=prompt, max_tokens=new_tokens, stream=True,
+                logprobs=0, ignore_eos=True, **samp))
+        if status != 200:
+            raise AssertionError(f"the CLI answered {status}: {raw[:300]}")
+        rec = _stream_record(events, chat=False)
+        return dict(tokens=[vocab_ids[t] for t in rec["tokens"]],
+                    finish=rec["finish"], ttft_s=rec["ttft_s"])
+    return await asyncio.gather(*(one(p, s) for p, s in batch))
+
+
+def _cli_serve(model_path, model_name, extra, waves, vocab_ids):
+    """``python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path
+    <model_path>`` (no ``--allow-random-weights``: the checkpoint is loaded)
+    in a subprocess on the card: each of ``waves`` ((batch, new tokens)
+    pairs) in turn over HTTP (``_cli_completions``), then SIGINT and exit
+    code 0. Returns the waves'
+    records, the seconds to /health answering (the load included) and the
+    child's sampled resident set from its start to /health."""
+    import signal
+    import tempfile
+
+    tmp = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
+    json.dump(extra, tmp)
+    tmp.close()
+    args = [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "in=http",
+            "out=torch", "--model-path", model_path, "--model-name", model_name,
+            "--extra-engine-args", tmp.name, "--http-host", "127.0.0.1",
+            "--http-port", "0", *LOAD_CLI_FLAGS]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(args, cwd=str(ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        line = ""
+        with RssPeak(proc.pid) as rss:
+            while "listening on" not in line:
+                line = proc.stdout.readline()
+                if (not line and proc.poll() is not None) or (
+                        time.monotonic() - t0 > LOAD_CLI_TIMEOUT_S):
+                    raise AssertionError(f"the CLI did not start: {line!r} "
+                                         f"{proc.stderr.read()[-3000:]}")
+        port = int(line.strip().rsplit(":", 1)[1])
+        startup_s = time.monotonic() - t0
+        out, walls = [], []
+        for batch, new_tokens in waves:
+            t1 = time.monotonic()
+            out.append(asyncio.run(_cli_completions(port, model_name, batch,
+                                                    new_tokens, vocab_ids)))
+            walls.append(time.monotonic() - t1)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"the CLI exited {rc} on SIGINT: "
+                                 f"{proc.stderr.read()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        Path(tmp.name).unlink()
+    return out, dict(startup_s=startup_s, wave_wall_s=walls, exit_code=rc,
+                     startup_peak_rss_bytes=rss.peak)
+
+
+def _held_greedy(torch, runner, requests, base, got, label):
+    """``got`` streams against ``base`` (the same requests in-process): the
+    greedy ones equal, or parted at a near-tie (``_spec_agreement``'s rule,
+    on ``runner``); the sampled ones counted. Returns (greedy equal,
+    greedy parted records, sampled equal, sampled count)."""
+    greedy = [i for i, (_, s) in enumerate(requests) if s["temperature"] == 0]
+    sampled = [i for i in range(len(requests)) if i not in greedy]
+    for r in got:
+        if len(r["tokens"]) != NEW_TOKENS and len(r["tokens"]) != SPEC_NEW_TOKENS:
+            raise AssertionError(f"{label}: a stream of {len(r['tokens'])} tokens")
+    parted = _spec_agreement(torch, runner, [requests[i] for i in greedy],
+                             [base[i] for i in greedy], [got[i] for i in greedy])
+    return (sum(base[i]["tokens"] == got[i]["tokens"] for i in greedy), parted,
+            sum(base[i]["tokens"] == got[i]["tokens"] for i in sampled),
+            len(sampled))
+
+
+def engine_load_phase(torch, dev, smi):
+    """Checkpoints from files, on the card (the port's loader,
+    ``models/loader.py``):
+
+    1. Qwen2.5-7B at full width and depth from its published config
+       (``QWEN25_7B``: G 7, qkv biases, V 152,064): weights drawn on the
+       card from the seed (non-zero biases, non-unit norms), written as a
+       4-shard HF safetensors snapshot (HF names, [out, in], the index file,
+       a synthetic 152,064-id ``tokenizer.json`` with Qwen's specials and a
+       ChatML ``tokenizer_config.json``) in a temporary directory, synced,
+       its shards' pages advised out of the page cache
+       (``evict_page_cache``, which reports whether they left), loaded by
+       ``ModelRunner(model_dir=...)``: every leaf ``torch.equal`` to the
+       drawn one; the bytes, write and load seconds, load GB/s, peak device
+       memory of the load against the parameter bytes, the host's peak RSS
+       during the load; then loaded again from the page cache the first
+       load filled (``load_warm_s``);
+    2. the main path over the loaded leaves (``TorchServingEngine``, the
+       fused epilogue): wave 1 and the prefix-hit wave, launches counted
+       from 0 after the engine's warmup and read just after; a profiled
+       decode step (``_decode_step_profile``); 2-layer logits against the
+       CPU in f32; the spec prompts without and with ngram speculation
+       (verify launches, counted the same way);
+    3. the CLI in a subprocess with ``--model-path`` and no
+       ``--allow-random-weights`` (ngram speculation on, by
+       ``--extra-engine-args``): wave 1 and the spec prompts over
+       /v1/completions; every greedy stream equals the in-process engine's
+       or parts at a near-tie;
+    4. Llama-3.2-1B at full width and depth as one GGUF file (Q8_0
+       weights, F32 norms, the ``gpt2`` tokenizer kind from
+       ``engine_http``'s synthetic vocabulary and merges) served by the CLI
+       with ``--model-path m.gguf``: wave 1's greedy streams equal an
+       in-process engine's given d * q directly, or part at a near-tie.
+
+    The temporary files are removed in ``finally``. Returns the main path's
+    launch counts under the Qwen2.5 kernels-line keys."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="engine_load_"))
+    try:
+        return _engine_load(torch, dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _engine_load(torch, dev, smi, tmp):
+    import dataclasses
+
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.model_runner import ModelRunner
+    from dynamo_tpu_torch.engine.serving import (
+        TorchServingEngine,
+        engine_config_from_mdc,
+    )
+    from dynamo_tpu_torch.models import llama
+
+    on_card = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    hf = dict(QWEN25_7B)
+    snap = tmp / "qwen2.5-7b-random"
+    snap.mkdir()
+    (snap / "config.json").write_text(json.dumps(hf, indent=1))
+    tok_spec = synthetic_tokenizer(hf["vocab_size"],
+                                   n_special=hf["vocab_size"] - min(QWEN_SPECIAL),
+                                   special_names=QWEN_SPECIAL)
+    (snap / "tokenizer.json").write_text(json.dumps(tok_spec, ensure_ascii=False),
+                                         encoding="utf-8")
+    (snap / "tokenizer_config.json").write_text(json.dumps({
+        "bos_token": None, "eos_token": "<|endoftext|>",
+        "chat_template": QWEN_CHAT_TEMPLATE}))
+    vocab_ids = tok_spec["model"]["vocab"]
+    mcfg = ModelConfig.from_hf_config(hf)
+    layers, vocab = mcfg.num_layers, mcfg.vocab_size
+    flags = run.parse_flags(["--model-path", str(snap), *LOAD_CLI_FLAGS])
+    mdc = run.load_mdc(flags)
+    cfg = engine_config_from_mdc(mdc, flags, extra=LOAD_EXTRA)
+
+    # ---- 1. draw, write, load
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    drawn = llama.init_params(mcfg, gen, torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    lay = drawn["layers"]
+    for key in ("bq", "bk", "bv"):
+        lay[key].copy_(torch.randn(lay[key].shape, generator=g, device=dev)
+                       * LOAD_DRAWN_SCALE)
+    for key in ("ln1", "ln2"):
+        lay[key].copy_(1 + torch.randn(lay[key].shape, generator=g, device=dev)
+                       * LOAD_DRAWN_SCALE)
+    n_params = sum(t.numel() for grp in drawn.values()
+                   for t in (grp.values() if isinstance(grp, dict) else [grp]))
+    param_bytes = _tree_bytes(drawn)
+    sync()
+    t0 = time.monotonic()
+    written = write_safetensors_snapshot(snap, _qwen2_hf_tensors(drawn, layers))
+    write_s = time.monotonic() - t0
+    shards = sorted(p.name for p in snap.glob("*.safetensors"))
+    gc.collect()
+    sync()
+    evicted = evict_page_cache([str(snap / n) for n in shards])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if on_card else 0
+    with RssPeak() as rss:
+        t0 = time.monotonic()
+        runner = ModelRunner(cfg, device=dev, model_dir=str(snap))
+        sync()
+        load_s = time.monotonic() - t0
+    load_peak = (torch.cuda.max_memory_allocated(dev) - before) if on_card else None
+    kv_bytes = _cache_bytes(runner.kv_cache)
+    loaded = runner.params
+
+    def flat(p):
+        return dict(p["layers"], **{k: v for k, v in p.items() if k != "layers"})
+    unequal = sorted(k for k, v in flat(drawn).items()
+                     if not torch.equal(v, flat(loaded)[k]))
+    if sorted(flat(drawn)) != sorted(flat(loaded)):
+        unequal.append(f"keys {sorted(flat(drawn))} != {sorted(flat(loaded))}")
+    del drawn, lay
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same load again, from the page cache the first one filled
+    cache_after_load = _page_cache_bytes()
+    sync()
+    t0 = time.monotonic()
+    warm = ModelRunner(cfg, device=dev, model_dir=str(snap))
+    sync()
+    load_warm_s = time.monotonic() - t0
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 2. the main path over the loaded leaves
+    rng = np.random.default_rng(SEED)
+    wave1, wave2 = _requests(rng, vocab)
+    spec_reqs = _spec_requests(rng)
+
+    async def serve(kw, batches, new_tokens=None, count=False, profile=False):
+        """``batches`` in turn on an engine over the loaded leaves; with
+        ``count`` the launches from 0 after the engine's warmup to the last
+        batch's end."""
+        gc.collect()
+        engine = await TorchServingEngine.create(
+            dataclasses.replace(cfg, **kw), params=loaded, device=dev)
+        try:
+            if count:
+                _reset_launches()
+            res, walls = [], []
+            for batch in batches:
+                t0 = time.monotonic()
+                res.append(await _serve(engine, batch, new_tokens))
+                walls.append(time.monotonic() - t0)
+            launches = _read_launches() if count else None
+            step = (_decode_step_profile(torch, engine.runner)
+                    if profile and on_card else None)
+            metrics = dict(engine.metrics(), decode_step=step)
+        finally:
+            await engine.close()
+        return res, walls, launches, metrics
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    (res1, res2), (wall1, _), launches, metrics = asyncio.run(
+        serve({}, [wave1, wave2], count=True, profile=True))
+    step = metrics.pop("decode_step")
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    prompts = (wave1[4][0][:100], wave1[2][0][:40])
+    lay2 = {k: v[:2] for k, v in loaded["layers"].items()}
+    logits = _check_logits(torch, cfg, llama,
+                           dataclasses.replace(mcfg, num_layers=2),
+                           runner.device, dict(loaded, layers=lay2), *prompts)
+    (spec_base,), _, _, _ = asyncio.run(serve({}, [spec_reqs], SPEC_NEW_TOKENS))
+    (res_spec,), (wall_spec,), launches_spec, metrics_spec = asyncio.run(
+        serve(SPEC, [spec_reqs], SPEC_NEW_TOKENS, count=True))
+    parted_spec = _spec_agreement(torch, runner, spec_reqs, spec_base, res_spec)
+
+    # ---- 3. the CLI over the snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    (cli_w1, cli_spec), cli = _cli_serve(
+        str(snap), "qwen2.5-7b-random", dict(LOAD_EXTRA, **SPEC),
+        [(wave1, NEW_TOKENS), (spec_reqs, SPEC_NEW_TOKENS)], vocab_ids)
+    held_w1 = _held_greedy(torch, runner, wave1, res1, cli_w1, "CLI wave 1")
+    held_spec = _held_greedy(torch, runner, spec_reqs, spec_base, cli_spec,
+                             "CLI spec wave")
+    del runner, loaded, lay2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4. Llama-3.2-1B as a GGUF file (Q8_0)
+    gguf_path = tmp / "llama-3.2-1b-q8_0.gguf"
+    g_hf = {k: v for k, v in FLAGSHIP.items() if k != "rope_scaling"}
+    gcfg0 = ModelConfig(**g_hf, rms_norm_eps=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    g_params = llama.init_params(gcfg0, gen, torch.bfloat16, dev)
+    t0 = time.monotonic()
+    spec128 = synthetic_tokenizer(FLAGSHIP["vocab_size"], seed=SEED)
+    gguf_bytes, g_loaded = write_gguf_llama_q8(torch, gguf_path, gcfg0,
+                                               g_params, spec128)
+    gguf_write_s = time.monotonic() - t0
+    del g_params
+    g_flags = run.parse_flags(["--model-path", str(gguf_path), *LOAD_CLI_FLAGS])
+    g_mdc = run.load_mdc(g_flags)
+    g_cfg = engine_config_from_mdc(g_mdc, g_flags, extra=LOAD_EXTRA)
+    for field in ("vocab_size", "hidden_size", "intermediate_size", "num_layers",
+                  "num_heads", "num_kv_heads", "head_dim", "tie_word_embeddings"):
+        if getattr(g_cfg.model, field) != getattr(gcfg0, field):
+            raise AssertionError(f"GGUF config {field}: "
+                                 f"{getattr(g_cfg.model, field)} != "
+                                 f"{getattr(gcfg0, field)}")
+    g_rng = np.random.default_rng(SEED + 2)
+    g_wave1, _ = _requests(g_rng, g_cfg.model.vocab_size)
+
+    async def serve_gguf():
+        engine = await TorchServingEngine.create(g_cfg, params=g_loaded,
+                                                 device=dev)
+        try:
+            return await _serve(engine, g_wave1), engine.runner
+        finally:
+            await engine.close()
+    g_res, g_runner = asyncio.run(serve_gguf())
+    (g_cli,), g_cli_info = _cli_serve(str(gguf_path), "llama-3.2-1b-q8_0",
+                                      LOAD_EXTRA, [(g_wave1, NEW_TOKENS)],
+                                      spec128["model"]["vocab"])
+    held_gguf = _held_greedy(torch, g_runner, g_wave1, g_res, g_cli, "GGUF CLI")
+    del g_runner, g_loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ttfts = sorted(r["ttft_s"] for r in res1)
+    cli_ttfts = sorted(r["ttft_s"] for r in cli_w1)
+    emit("engine_load", model="Qwen2ForCausalLM (Qwen2.5-7B published "
+         "config.json), seeded random bf16 weights written as an HF "
+         "safetensors snapshot and loaded by ModelRunner(model_dir=...)",
+         layers=layers, vocab=vocab, parameters=n_params,
+         parameter_bytes=param_bytes, snapshot_bytes=written,
+         shards=shards, write_s=write_s, page_cache_eviction=evicted,
+         page_cache_after_load_bytes=cache_after_load, load_s=load_s,
+         load_gb_per_s=written / load_s / 1e9, load_warm_s=load_warm_s,
+         load_warm_gb_per_s=written / load_warm_s / 1e9,
+         load_peak_device_bytes_over_before=load_peak,
+         load_kv_cache_bytes=kv_bytes,
+         load_peak_device_bytes_past_params_and_cache=(
+             None if load_peak is None else load_peak - param_bytes - kv_bytes),
+         host_rss_before_load_bytes=rss.before,
+         host_rss_peak_during_load_bytes=rss.peak,
+         leaves_equal_to_drawn=not unequal,
+         config={k: getattr(cfg, k) for k in (
+             "max_batch_size", "max_model_len", "kv_block_size",
+             "num_kv_blocks", "max_prefill_tokens_per_step")},
+         requests=len(res1) + len(res2), new_tokens=NEW_TOKENS,
+         wave1_prompt_tokens=sum(len(p) for p, _ in wave1), wave1_wall_s=wall1,
+         wave1_output_tokens_per_s=len(res1) * NEW_TOKENS / wall1,
+         ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2],
+                     max=ttfts[-1]),
+         peak_memory_bytes=peak, launches=launches, metrics=metrics,
+         decode_step=step, logits_vs_cpu_f32_2_layers=logits,
+         spec=dict(**SPEC, requests=len(spec_reqs), new_tokens=SPEC_NEW_TOKENS,
+                   proposed=metrics_spec["spec_proposed"],
+                   accepted=metrics_spec["spec_accepted"], wall_s=wall_spec,
+                   streams_equal=sum(a["tokens"] == b["tokens"]
+                                     for a, b in zip(spec_base, res_spec)),
+                   parted=parted_spec, launches=launches_spec),
+         cli=dict(cli, wave1_ttft_s=dict(min=cli_ttfts[0],
+                                         median=cli_ttfts[len(cli_ttfts) // 2],
+                                         max=cli_ttfts[-1]),
+                  wave1_greedy_equal=held_w1[0], wave1_greedy_parted=held_w1[1],
+                  wave1_sampled_equal=f"{held_w1[2]}/{held_w1[3]}",
+                  spec_greedy_equal=held_spec[0], spec_parted=held_spec[1]),
+         gguf=dict(model="Llama-3.2-1B shapes (no llama3 rope scaling: a GGUF "
+                   "holds it as a rope_freqs tensor the loader does not read), "
+                   "Q8_0 weights, F32 norms, gpt2 tokenizer kind",
+                   bytes=gguf_bytes, write_s=gguf_write_s,
+                   cli=g_cli_info, greedy_equal=held_gguf[0],
+                   greedy_parted=held_gguf[1],
+                   sampled_equal=f"{held_gguf[2]}/{held_gguf[3]}"),
+         card=smi)
+
+    # ---- checks
+    if unequal:
+        raise AssertionError(f"loaded leaves differ from the drawn ones: {unequal}")
+    _check_streams(res1 + res2, NEW_TOKENS, vocab)
+    _check_streams(spec_base + res_spec, SPEC_NEW_TOKENS, vocab)
+    if metrics["gpu_prefix_cache_hit_rate"] <= 0:
+        raise AssertionError("Qwen2.5-7B: the shared-prefix request missed "
+                             "the prefix cache")
+    if metrics_spec["spec_proposed"] <= 0:
+        raise AssertionError("Qwen2.5-7B: ngram speculation proposed nothing")
+    if on_card:
+        _check_launches("Qwen2.5-7B main", launches,
+                        ("paged_decode", "paged_flash", "epilogue"), layers)
+        _check_launches("Qwen2.5-7B spec", launches_spec, ("paged_verify",),
+                        layers)
+        if launches["mla_decode"] or launches["sp_prefix"]:
+            raise AssertionError(f"the Qwen2.5-7B path launched a foreign "
+                                 f"kernel: {launches}")
+    return {"paged_decode_qwen25": launches["paged_decode"],
+            "paged_flash_qwen25": launches["paged_flash"],
+            "sampling_epilogue_qwen25": launches["epilogue"],
+            "paged_verify_qwen25": launches_spec["paged_verify"]}
+
+
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
-          "engine_mixtral_int8", "engine_sp", "engine_http")
+          "engine_mixtral_int8", "engine_sp", "engine_http", "engine_load")
 
 
 def main(argv=None) -> int:
@@ -5691,13 +6568,20 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
+    if "engine_load" in phases:
+        launches.update(engine_load_phase(torch, dev, smi))
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
 
     kernels = [dict(entry, launches=launches.get(key),
                     **({"launches_engine_http": http_launches[key]}
                        if key in http_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
-    if not partial and any(k["launches"] is None for k in kernels):
+    # a form no cell serves (``path`` says so) has no count: null
+    if not partial and any(k["launches"] is None and "path" not in k
+                           for k in kernels):
         raise AssertionError(f"a kernel has no launch count: {kernels}")
     emit("done", seconds=time.monotonic() - t_start, phases=phases)
     print(smi, flush=True)

@@ -9,7 +9,14 @@ runs on the card unless ``--device cpu`` asks for the CPU; without a card
 the default raises, it does not fall back. Every other input, output and
 reference flag is refused by name.
 
+A ``--model-path`` directory holding a safetensors checkpoint, or a
+``.gguf`` file, is loaded (``models/loader.py``); a directory without one
+serves seeded random weights only with ``--allow-random-weights``.
+
 Examples:
+  python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
+      --http-port 8080
+  python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path m.gguf
   python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
       --allow-random-weights --http-port 8080
   python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
@@ -85,7 +92,8 @@ def parse_io(args: List[str]):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dynamo_tpu_torch run", add_help=True)
-    p.add_argument("--model-path", default=None, help="HF snapshot dir")
+    p.add_argument("--model-path", default=None,
+                   help="HF snapshot dir or a .gguf file")
     p.add_argument("--model-name", default=None, help="served model name")
     p.add_argument("--http-host", default="0.0.0.0")
     p.add_argument("--http-port", type=int, default=8080)
@@ -129,7 +137,10 @@ def load_mdc(flags):
     if not flags.model_path:
         raise SystemExit("this mode requires --model-path")
     if flags.model_path.endswith(".gguf"):
-        raise SystemExit("GGUF models are not ported yet (HF directories only)")
+        from ..llm.gguf import mdc_from_gguf
+
+        return mdc_from_gguf(flags.model_path, flags.model_name,
+                             kv_block_size=flags.kv_block_size)
     return ModelDeploymentCard.from_local_path(
         flags.model_path, flags.model_name, kv_block_size=flags.kv_block_size
     )

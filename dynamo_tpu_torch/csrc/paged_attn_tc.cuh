@@ -6,10 +6,14 @@
 //
 // A CTA is kWG warpgroups (128 threads, 4 warps each) over 64 * kWG rows
 // of (query position, group head) pairs of one (batch row, KV head):
-// 64 * kWG / G query positions times the G query heads that share the KV
-// head, so every K/V tile staged in shared memory feeds all G heads (and
-// every warpgroup). Warp w owns rows 16w .. 16w + 15; each warpgroup runs
-// its own products on its 64 rows.
+// floor(64 * kWG / G) whole query positions times the G query heads that
+// share the KV head, so every K/V tile staged in shared memory feeds all G
+// heads (and every warpgroup). Any G up to 64 * kWG: when G does not
+// divide the rows (Qwen2.5-7B's G 7: 9 positions, 63 rows and one spare in
+// a flash CTA; 18 positions and 2 spare in a two-warpgroup CTA), the spare
+// rows at the end load zeros for Q and the kernels store nothing of them
+// (their query index lies past the CTA's positions). Warp w owns rows
+// 16w .. 16w + 15; each warpgroup runs its own products on its 64 rows.
 //
 // Loads. Q (64 * kWG rows x D) and the K and V tiles (64 keys x D) are
 // copied into shared memory by cp.async, 16 bytes a thread, into a ring of
@@ -376,10 +380,12 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
   auto sm = [&](uint32_t a) { return smem_raw + (a - base_s); };
 
   // Q: row r is (query s0 + r / G, head kvh * G + r % G); zeros past S
+  // and in the spare rows past the CTA's whole positions
+  const int q_rows = kRows / p.G * p.G;
   for (int i = tid; i < kRows * CH; i += kThreads) {
     const int r = i / CH, c = i % CH;
     const int s = p.s0 + r / p.G;
-    const bool ok = s < p.S;
+    const bool ok = r < q_rows && s < p.S;
     const __nv_bfloat16* src =
         p.q + (((size_t)p.b * p.S + (ok ? s : 0)) * p.H + p.kvh * p.G +
                r % p.G) * D + c * 8;

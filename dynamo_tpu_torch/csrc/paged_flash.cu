@@ -23,9 +23,11 @@
 // window's first visible key to min(ctx - 1, last query position)).
 //
 // Design: one CTA (one warpgroup) per (query tile, KV head, batch row); its
-// 64 rows are (query position, group head) pairs, 64 / G positions times
-// the G query heads that share the KV head (one warpgroup: a short chunk
-// or a chunk with few live query tiles keeps more CTAs). The tile loop is
+// 64 rows are (query position, group head) pairs, floor(64 / G) positions
+// times the G query heads that share the KV head, any G up to 64 (G 7: 9
+// positions and one spare row, which loads zeros and stores nothing; one
+// warpgroup: a short chunk or a chunk with few live query tiles keeps more
+// CTAs). The tile loop is
 // the shared tensor-core core of paged_attn_tc.cuh (cp.async ring, wgmma
 // bf16 products with f32 accumulators, online softmax on the fragments)
 // with the causal / ctx / window mask; P is rounded to bf16 before P V, as
@@ -68,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
     float scale, float softcap) {
   extern __shared__ unsigned char smem[];
   const int G = H / KVH;
-  const int BQ = kRows / G;  // query positions per CTA
+  const int BQ = kRows / G;  // whole query positions per CTA
   const int s0 = blockIdx.x * BQ;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -81,7 +83,7 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
     constexpr int CH = D / 8;
     for (int i = threadIdx.x; i < kRows * CH; i += kThreads) {
       const int r = i / CH, c = i % CH;
-      const int s = s0 + r / G;
+      const int s = s0 + r / G;  // a spare row's lies past s_end
       if (s >= s_end) continue;
       *reinterpret_cast<uint4*>(
           out + (((size_t)b * S + s) * H + kvh * G + r % G) * D + c * 8) =
@@ -103,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) paged_flash_tc_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = (threadIdx.x >> 5) * 16 + (lane >> 2) + 8 * i;
-    const int s = s0 + r / G;
+    const int s = s0 + r / G;  // a spare row's lies past s_end
     if (s >= s_end) continue;
     float inv = st.l[i] > 0.f ? 1.f / st.l[i] : 0.f;
     if (sinks) {
@@ -169,7 +171,7 @@ int flash(const void* q, const void* k, const void* v, const void* bt,
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
 // has checked types, shapes, contiguity, 16-byte alignment, that head_dim
 // is 64, 128 or 256 (the three instantiations) and that the group size
-// G = H / KVH divides 64. `sinks` is f32 [H] or nullptr; `softcap` > 0 caps
+// G = H / KVH is at most 64. `sinks` is f32 [H] or nullptr; `softcap` > 0 caps
 // the scores (0 = off). q and out are bf16; k and v are bf16 here ...
 extern "C" int paged_flash_bf16(const void* q, const void* k, const void* v,
                                 const void* bt, const void* base,

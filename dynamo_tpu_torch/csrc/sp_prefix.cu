@@ -18,7 +18,9 @@
 // becomes a loop inside the CTA over 64-key tiles of the prefix.
 //
 // Design: one CTA per (query tile, KV head, batch row) of TWO warpgroups,
-// 128 rows of (query position, group head) pairs, 64 a warpgroup, both
+// 128 rows of (query position, group head) pairs, 64 a warpgroup (floor(128
+// / G) whole positions at any G up to 128; G 5: 25 positions and 3 spare
+// rows, which load zeros and store nothing), both
 // reading every K/V stage (measured against one warpgroup of 64 rows on an
 // H100: 0.98 against 1.23 ms at the SP chunk's shape; PERF.md). The tile
 // loop is the shared tensor-core core of paged_attn_tc.cuh (cp.async
@@ -64,7 +66,7 @@ __global__ void __launch_bounds__(kThreads) sp_prefix_tc_kernel(
     int layer, float scale) {
   extern __shared__ unsigned char smem[];
   const int G = H / KVH;
-  const int BQ = kRows / G;  // query positions per CTA
+  const int BQ = kRows / G;  // whole query positions per CTA
   const int s0 = blockIdx.x * BQ;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -75,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) sp_prefix_tc_kernel(
     constexpr int CH = D / 4;  // 16-byte chunks of an f32 row
     for (int i = threadIdx.x; i < kRows * CH; i += kThreads) {
       const int r = i / CH, c = i % CH;
-      const int s = s0 + r / G;
+      const int s = s0 + r / G;  // a spare row's lies past s_end
       if (s >= s_end) continue;
       const size_t row = ((size_t)b * S + s) * H + kvh * G + r % G;
       *reinterpret_cast<float4*>(acc_out + row * D + c * 4) =
@@ -98,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) sp_prefix_tc_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = (threadIdx.x >> 5) * 16 + (lane >> 2) + 8 * i;
-    const int s = s0 + r / G;
+    const int s = s0 + r / G;  // a spare row's lies past s_end
     if (s >= s_end) continue;
     const size_t row = ((size_t)b * S + s) * H + kvh * G + r % G;
     float* arow = acc_out + row * D + (lane & 3) * 2;
@@ -142,7 +144,7 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
 // has checked types, shapes, contiguity, 16-byte alignment, that head_dim
 // is 64 or 128 (the two instantiations), that the group size G = H / KVH
-// divides 128, that prefix_len fits the block table (W pages of bs keys)
+// is at most 128, that prefix_len fits the block table (W pages of bs keys)
 // and that layer is in range.
 extern "C" int sp_prefix_partials_bf16(const void* q, const void* k,
                                        const void* v, const void* bt,

@@ -239,9 +239,11 @@ class ModelConfig:
 
     @classmethod
     def from_model_dir(cls, model_dir: str) -> "ModelConfig":
-        """HF snapshot dir (config.json)."""
+        """HF snapshot dir (config.json) or a .gguf file (its metadata)."""
         if model_dir.endswith(".gguf"):
-            raise NotImplementedError("GGUF checkpoints are not ported yet")
+            from ..llm.gguf import model_config_from_gguf, read_gguf
+
+            return model_config_from_gguf(read_gguf(model_dir))
         with open(os.path.join(model_dir, "config.json")) as f:
             return cls.from_hf_config(json.load(f))
 

@@ -14,9 +14,11 @@ device value on the host or blocks the host on the device: host arrays
 travel through pinned memory (``ops/transfer.py``), and ``stage_to_host``
 starts a burst's outputs on their way back. The model family's module
 comes from ``models.resolve`` (Llama-family GQA, DeepSeek MLA with routed
-experts, GPT-OSS, Mixtral / Qwen3-MoE, Gemma-2), as in the reference; with
-``quantization="int8"`` the matmul weights are quantized after init, as the
-reference does (``models/quant.py``). PyTorch runs eagerly, so
+experts, GPT-OSS, Mixtral / Qwen3-MoE, Gemma-2), as in the reference; its
+weights come from ``model_dir``'s checkpoint (``models/loader.py``: an HF
+safetensors snapshot or a ``.gguf``) or are drawn from the seed; with
+``quantization="int8"`` the matmul weights are quantized (as a checkpoint's
+leaves land, or after init), as the reference does (``models/quant.py``). PyTorch runs eagerly, so
 there is no compiled-program cache; the KV cache and the sample state are
 updated in place. With ``sp_size > 1`` the runner also owns the sequence-parallel
 prefill chunk (``sp_prefill_chunk``: one fixed ``[1, S]`` shape, the ``sp``
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..models import llama, quant, resolve
+from ..models.loader import load_checkpoint_params, resolve_weights
 from ..ops.attention import FP8, check_attention_impl
 from ..ops.epilogue import fused_sampling_epilogue
 from ..ops.transfer import to_device, to_device_packed
@@ -217,7 +220,8 @@ def _table_ctx(pos: torch.Tensor, bt: torch.Tensor, bs: int) -> torch.Tensor:
 class ModelRunner:
     """Owns params, the KV cache and the sample state on ``device``."""
 
-    def __init__(self, config: EngineConfig, params=None, device="cuda"):
+    def __init__(self, config: EngineConfig, params=None, device="cuda",
+                 model_dir: Optional[str] = None):
         self.config = config
         cfg = config.model
         self.arch = resolve(cfg)   # the model family's module
@@ -237,14 +241,21 @@ class ModelRunner:
         # no scale (every write casts into it, every read upcasts)
         check_kv_cache_dtype(config.kv_cache_dtype)
         self.kv_dtype = FP8 if config.kv_cache_dtype == "fp8" else self.dtype
-        check_quantization(cfg)   # before any weight is drawn
+        check_quantization(cfg)   # before any weight is drawn or read
+        if params is None and model_dir is not None and resolve_weights(
+                model_dir, config.allow_random_weights):
+            # raises for a family without a loader: a checkpoint never
+            # turns into random weights
+            params = load_checkpoint_params(model_dir, cfg, self.arch,
+                                            self.dtype, self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             params = self.arch.init_params(cfg, gen, self.dtype, self.device)
         params = _to_device(params, self.device, self.dtype)
         if cfg.quantization:
-            # leaves a family's init already quantized as it drew them
-            # (the Mixtral family's stacks) stay as they are
+            # leaves already quantized (a loaded checkpoint's, quantized as
+            # they landed, or the Mixtral family's stacks, as they were
+            # drawn) stay as they are
             params = quant.quantize_params(params)
         self.params = params
         self._reinit_device_state()

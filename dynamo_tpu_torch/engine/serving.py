@@ -17,23 +17,24 @@ the one device; the reference's ``sequence_parallel_size`` flag is this
 config field). ``create`` takes an ``EngineConfig``, or a model card and
 the CLI's flags (``engine_config_from_mdc``). Refused by name:
 ``guided_json`` (it needs the tokenizer's piece table) and
-``guided_choice`` given as text without its token ids. Not ported: the
-stall watchdog and the safetensors loader (a model directory serves seeded
-random weights, as the reference does with ``allow_random_weights``).
+``guided_choice`` given as text without its token ids. A model card's
+directory (or ``.gguf``) is loaded by the runner (``models/loader.py``);
+without a checkpoint it serves seeded random weights only with
+``allow_random_weights``, as the reference does. Not ported: the stall
+watchdog.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
-import glob
 import json
-import os
 import uuid
 from typing import Any, AsyncIterator, Optional
 
 from ..protocols.common import EngineOutput, FinishReason, PreprocessedRequest
 from ..runtime.engine import AsyncEngine, AsyncEngineContext, Context, EngineError
+from ..models.loader import resolve_weights
 from .config import EngineConfig, ModelConfig
 from .model_runner import ModelRunner
 from .scheduler import EngineRequest, Scheduler
@@ -106,20 +107,10 @@ def _apply_engine_extra(extra: dict, cfg: EngineConfig) -> EngineConfig:
 
 
 def check_random_weights(model_dir: Optional[str], config: EngineConfig) -> None:
-    """The reference's weight rule for a model directory: a checkpoint is
-    loaded (the port has no loader yet, so it raises by name); without one
-    the engine draws seeded random weights only when asked to."""
-    if model_dir is None:
-        return
-    if glob.glob(os.path.join(model_dir, "*.safetensors")):
-        raise NotImplementedError(
-            f"{model_dir} holds a safetensors checkpoint: the PyTorch port "
-            "has no checkpoint loader yet (it serves seeded random weights)")
-    if not config.allow_random_weights:
-        raise FileNotFoundError(
-            f"no *.safetensors under {model_dir}; the engine will not "
-            "silently serve random weights — set allow_random_weights "
-            "(--allow-random-weights)")
+    """The reference's weight rule for a model directory, checked before a
+    model is built (``models.loader.resolve_weights``)."""
+    if model_dir is not None:
+        resolve_weights(model_dir, config.allow_random_weights)
 
 
 class TorchServingEngine(AsyncEngine):
@@ -143,20 +134,21 @@ class TorchServingEngine(AsyncEngine):
         """Build the runner on ``device`` (default "cuda", which raises when
         no card is present), warm it up (builds the kernels on a card) and
         start the scheduler loop. ``params`` in the reference layout; None
-        draws seeded random weights (``engine_config.seed``). Without an
-        ``engine_config`` it comes from the model card ``mdc`` and the CLI
-        ``flags`` (``engine_config_from_mdc``), and the card's directory
-        must allow random weights (``check_random_weights``)."""
+        with no model card draws seeded random weights
+        (``engine_config.seed``). Without an ``engine_config`` it comes from
+        the model card ``mdc`` and the CLI ``flags``
+        (``engine_config_from_mdc``). The card's directory (or ``.gguf``)
+        is loaded (``ModelRunner(model_dir=...)``) or, without a checkpoint,
+        must allow random weights (``models.loader.resolve_weights``)."""
         if engine_config is None:
             if mdc is None:
                 raise ValueError("create needs an engine_config or a model card")
             engine_config = engine_config_from_mdc(mdc, flags)
-        if mdc is not None and params is None:
-            check_random_weights(mdc.model_path, engine_config)
+        model_dir = mdc.model_path if mdc is not None and params is None else None
         loop = asyncio.get_running_loop()
         runner = await loop.run_in_executor(
             None, lambda: ModelRunner(engine_config, params=params,
-                                      device=device))
+                                      device=device, model_dir=model_dir))
         if warmup:
             await loop.run_in_executor(None, runner.warmup)
         scheduler = Scheduler(runner, engine_config)

@@ -8,7 +8,9 @@ and computes what ``tokenizers`` computes, id for id and character for
 character, for the forms the served families use:
 
 - model: ``BPE`` (``byte_fallback``, ``ignore_merges``, ``fuse_unk``,
-  ``unk_token``; merges as "a b" strings or pairs);
+  ``unk_token``; merges as "a b" strings or pairs) and ``Unigram``
+  (``unk_id``, ``byte_fallback``: the best-scoring segmentation, the
+  SentencePiece-semantics tokenizers of GGUF files, ``spm_unigram_spec``);
 - normalizers: ``NFC``, ``NFKC``, ``NFD``, ``NFKD``, ``Prepend``,
   ``Replace``, ``Sequence``;
 - pre-tokenizers: ``ByteLevel`` (``add_prefix_space``, ``use_regex``),
@@ -34,6 +36,7 @@ Possessive quantifiers and atomic groups need Python 3.11.
 
 from __future__ import annotations
 
+import bisect
 import functools
 import heapq
 import json
@@ -658,10 +661,165 @@ class BPE:
         return list(hit)
 
 
+# ----------------------------------------------------------------- Unigram
+
+class Unigram:
+    """tokenizers' Unigram model (its ``encode_optimized``): the
+    segmentation of highest total score over the pieces (Viterbi; ties keep
+    the first path found, shorter pieces first), a character no
+    one-character piece covers taking the unknown id at the lowest score
+    less 10; consecutive unknowns fused into one piece; a piece outside the
+    vocabulary becomes its ``<0xXX>`` byte pieces (``byte_fallback``) or
+    the unknown id."""
+
+    K_UNK_PENALTY = 10.0
+
+    def __init__(self, spec: dict):
+        pieces = spec.get("vocab") or []
+        self.unk_id = spec.get("unk_id")
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
+        self.scores = [float(sc) for _, sc in pieces]
+        self.vocab: Dict[str, int] = {}
+        for i, (piece, _) in enumerate(pieces):
+            self.vocab[piece] = i      # a repeated piece: its last id
+        self.vocab_r: Dict[int, str] = {i: p for i, (p, _) in enumerate(pieces)}
+        self.min_score = min(self.scores, default=float("inf"))
+        self.max_len = max((len(p) for p in self.vocab), default=1)
+        self._cache: Dict[str, List[int]] = {}
+
+    def _segment(self, text: str) -> List[str]:
+        n = len(text)
+        unk_score = self.min_score - self.K_UNK_PENALTY
+        score = [0.0] * (n + 1)
+        start: List[Optional[int]] = [None] * (n + 1)
+        node = [0] * (n + 1)
+        for i in range(n):
+            here = score[i]
+            single = False
+            for j in range(i + 1, min(n, i + self.max_len) + 1):
+                tid = self.vocab.get(text[i:j])
+                if tid is None:
+                    continue
+                cand = self.scores[tid] + here
+                if start[j] is None or cand > score[j]:
+                    score[j], start[j], node[j] = cand, i, tid
+                if j == i + 1:
+                    single = True
+            if not single:
+                if self.unk_id is None:
+                    raise ValueError("Unigram model has no unk_id for a "
+                                     f"character outside it: {text[i]!r}")
+                cand = unk_score + here
+                if start[i + 1] is None or cand > score[i + 1]:
+                    score[i + 1], start[i + 1], node[i + 1] = cand, i, self.unk_id
+        out: List[str] = []
+        fused: List[str] = []
+        end = n
+        while end > 0:
+            begin = start[end]
+            if self.unk_id is not None and node[end] == self.unk_id:
+                fused.append(text[begin:end])
+            else:
+                if fused:
+                    out.append("".join(reversed(fused)))
+                    fused = []
+                out.append(text[begin:end])
+            end = begin
+        if fused:
+            out.append("".join(reversed(fused)))
+        return out[::-1]
+
+    def tokenize(self, word: str) -> List[int]:
+        hit = self._cache.get(word)
+        if hit is not None:
+            return list(hit)
+        ids: List[int] = []
+        for piece in self._segment(word):
+            tid = self.vocab.get(piece)
+            if tid is None and self.byte_fallback:
+                byte_ids = [self.vocab.get(f"<0x{b:02X}>") for b in piece.encode()]
+                if all(b is not None for b in byte_ids):
+                    ids.extend(byte_ids)
+                    continue
+            if tid is None:
+                if self.unk_id is None:
+                    raise ValueError(f"piece {piece!r} is outside the Unigram "
+                                     "vocabulary and there is no unk_id")
+                tid = self.unk_id
+            ids.append(tid)
+        if len(self._cache) < 100_000:
+            self._cache[word] = ids
+        return list(ids)
+
+
+# SentencePiece piece types (sentencepiece.proto; GGUF's token_type reuses
+# them): the ones the tokenizer treats apart from normal pieces
+SPM_UNKNOWN, SPM_CONTROL, SPM_USER_DEFINED = 2, 3, 4
+
+
+def spm_added_tokens(tokens, types) -> List[dict]:
+    """``added_tokens`` entries for a SentencePiece-typed vocabulary (the
+    reference's ``add_spm_added_tokens``): CONTROL pieces special,
+    USER_DEFINED pieces matched whole and visible in decode, neither
+    normalized; each keeps its vocabulary id (a repeated piece its last)."""
+    ids = {t: i for i, t in enumerate(tokens)}
+    out, seen = [], set()
+    for kind, special in ((SPM_CONTROL, True), (SPM_USER_DEFINED, False)):
+        for i, t in enumerate(types):
+            if t == kind and tokens[i] not in seen:
+                seen.add(tokens[i])
+                out.append(dict(id=ids[tokens[i]], content=tokens[i],
+                                single_word=False, lstrip=False, rstrip=False,
+                                normalized=False, special=special))
+    return out
+
+
+def spm_unigram_spec(tokens, scores, types, unk_id=None) -> dict:
+    """The ``tokenizer.json`` of a SentencePiece-semantics Unigram tokenizer
+    (the reference's ``build_unigram_tokenizer``): the ▁ whitespace
+    convention (prepend ▁, spaces to ▁; on the way out ▁ to a space, byte
+    fallback, fuse, one leading space stripped), byte fallback, and the
+    SPM added tokens."""
+    if unk_id is None:
+        unk_id = next((i for i, t in enumerate(types) if t == SPM_UNKNOWN), 0)
+    return {
+        "model": {"type": "Unigram", "unk_id": int(unk_id),
+                  "vocab": [[t, float(sc)] for t, sc in zip(tokens, scores)],
+                  "byte_fallback": True},
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "added_tokens": spm_added_tokens(tokens, types),
+    }
+
+
 # --------------------------------------------------------------- tokenizer
 
+# Other_Alphabetic code points outside the letter, mark and Nl categories
+# (the circled and squared Latin letters) and Join_Control (ZWNJ, ZWJ)
+_WORD_EXTRA = ((0x200C, 0x200D), (0x24B6, 0x24E9), (0x1F130, 0x1F149),
+               (0x1F150, 0x1F169), (0x1F170, 0x1F189))
+
+
+@functools.lru_cache(maxsize=None)
+def _word_ranges() -> Tuple[List[int], List[int]]:
+    """(starts, ends) of the code points of Rust's Unicode ``\\w``, which
+    ``tokenizers`` tests at a ``single_word`` added token's edges:
+    Alphabetic (letters, Nl, Other_Alphabetic), every mark, Nd, Pc and
+    Join_Control."""
+    ranges = _merge([r for name in ("L", "M", "Nd", "Nl", "Pc")
+                     for r in property_ranges(name)] + list(_WORD_EXTRA))
+    return [lo for lo, _ in ranges], [hi for _, hi in ranges]
+
+
 def _is_word_char(c: str) -> bool:
-    return c.isalnum() or c == "_"
+    starts, ends = _word_ranges()
+    i = bisect.bisect_right(starts, ord(c)) - 1
+    return i >= 0 and ord(c) <= ends[i]
 
 
 class Tokenizer:
@@ -670,15 +828,15 @@ class Tokenizer:
     def __init__(self, spec: dict):
         model = spec.get("model") or {}
         kind = model.get("type", "BPE" if "merges" in model else None)
-        if kind != "BPE":
+        if kind not in ("BPE", "Unigram"):
             raise NotImplementedError(
                 f"tokenizer model {kind!r} is not supported by the port's "
-                "tokenizer (BPE only; Unigram and WordPiece are still to port)")
+                "tokenizer (BPE and Unigram; WordPiece is still to port)")
         if spec.get("truncation") or spec.get("padding"):
             raise NotImplementedError(
                 "tokenizer.json truncation / padding is not supported by the "
                 "port's tokenizer")
-        self.model = BPE(model)
+        self.model = BPE(model) if kind == "BPE" else Unigram(model)
         self.normalizer = _normalizer(spec.get("normalizer"))
         self.pre_tokenizer = _pre_tokenizer(spec.get("pre_tokenizer"))
         self.decoder = _decoder(spec.get("decoder"))
@@ -862,10 +1020,12 @@ class HFTokenizer:
 
     @classmethod
     def from_model_path(cls, model_path: str) -> "HFTokenizer":
-        """An HF snapshot dir (tokenizer.json); a .gguf file raises."""
+        """An HF snapshot dir (tokenizer.json) or a .gguf file (its
+        vocabulary rebuilt from the GGUF metadata, ``llm/gguf.py``)."""
         if model_path.endswith(".gguf"):
-            raise NotImplementedError(
-                "GGUF tokenizers are not ported yet (tokenizer.json only)")
+            from .gguf import read_gguf, tokenizer_from_gguf
+
+            return cls(tokenizer_from_gguf(read_gguf(model_path)))
         return cls.from_pretrained_dir(model_path)
 
     def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:

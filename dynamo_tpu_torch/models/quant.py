@@ -56,7 +56,11 @@ def quantize_int8(w: torch.Tensor) -> QuantizedWeight:
     axis, so quantising a stacked leaf slice by slice gives the whole
     leaf's result."""
     a = w.to(torch.float32, copy=True)
-    scale = torch.clamp(a.abs().amax(dim=-2) / 127.0, min=1e-8)
+    amax = a.abs().amax(dim=-2)
+    # a tensor divisor: PyTorch's CUDA kernels divide by a Python scalar as
+    # a multiply by its reciprocal, which rounds differently from the
+    # reference's true division (one ulp of some scales on the card)
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
     a.div_(scale[..., None, :]).round_().clamp_(-127, 127)
     return QuantizedWeight(q=a.to(torch.int8), scale=scale)
 

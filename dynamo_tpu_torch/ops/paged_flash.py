@@ -110,9 +110,10 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, base_pos,
     if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
         raise NotImplementedError(
             f"flash kernel: head_dim {d} is not one of {_HEAD_DIMS}")
-    if h % kvh or _ROWS_PER_CTA % (h // kvh):
+    if h % kvh or h // kvh > _ROWS_PER_CTA:
         raise NotImplementedError(
-            f"flash kernel: group size {h}/{kvh} must divide {_ROWS_PER_CTA}")
+            f"flash kernel: {h} heads over {kvh} KV heads (a group of at "
+            f"most {_ROWS_PER_CTA}, the rows of a CTA)")
     if (block_tables.shape[0] != b or base_pos.shape != (b,)
             or context_lens.shape != (b,)):
         raise ValueError("block_tables / base_pos / context_lens do not match the batch")

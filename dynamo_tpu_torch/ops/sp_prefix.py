@@ -125,9 +125,10 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, prefix_len,
     if k_cache.shape[-1] != d or d not in _HEAD_DIMS:
         raise NotImplementedError(
             f"sp prefix kernel: head_dim {d} is not one of {_HEAD_DIMS}")
-    if h % kvh or _ROWS_PER_CTA % (h // kvh):
+    if h % kvh or h // kvh > _ROWS_PER_CTA:
         raise NotImplementedError(
-            f"sp prefix kernel: group size {h}/{kvh} must divide {_ROWS_PER_CTA}")
+            f"sp prefix kernel: {h} heads over {kvh} KV heads (a group of at "
+            f"most {_ROWS_PER_CTA}, the rows of a CTA)")
     if (block_tables.dim() != 2 or block_tables.shape[0] != b
             or block_tables.dtype != torch.int32
             or block_tables.device != q.device

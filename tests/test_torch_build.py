@@ -7,7 +7,8 @@ and the split-KV launch plan, on the CPU (no ``nvcc``, no card).
 - the flash, prefix-partials, decode and verify wrappers accept the
   head_dims their library instantiates (64, 128 and, but for the
   prefix partials, 256) and refuse others by name before any launch
-  (``_check_cuda_inputs`` on CPU tensors);
+  (``_check_cuda_inputs`` on CPU tensors); flash and the prefix partials
+  take any GQA group up to a CTA's rows (64, 128), 5 and 7 among them;
 - ``splitkv.plan`` cuts a block table into splits from its width alone;
 - the split-KV and flash CTAs' shared memory stays under the card's limit
   at every shape the wrappers accept, head_dim 256 included, and a split-KV
@@ -101,6 +102,30 @@ def test_flash_guard_accepts_instantiated_head_dims(d):
 def test_sp_prefix_guard_accepts_instantiated_head_dims(d):
     q, k, v, bt, _, _ = _flash_inputs(d)
     sp_prefix._check_cuda_inputs(q, k, v, bt, 17, 2)
+
+
+@pytest.mark.parametrize("g,ok", [(5, True), (7, True), (64, True),
+                                  (65, False)])
+def test_flash_guard_takes_any_group_up_to_the_rows_of_a_cta(g, ok):
+    """Any G up to a CTA's 64 rows: a G that does not divide them (Qwen2.5's
+    7, Qwen2.5-32B's 5) leaves spare rows in the CTA."""
+    args = _flash_inputs(64, h=2 * g)
+    if ok:
+        paged_flash._check_cuda_inputs(*args)
+    else:
+        with pytest.raises(NotImplementedError, match="at most 64"):
+            paged_flash._check_cuda_inputs(*args)
+
+
+@pytest.mark.parametrize("g,ok", [(5, True), (7, True), (128, True),
+                                  (129, False)])
+def test_sp_prefix_guard_takes_any_group_up_to_the_rows_of_a_cta(g, ok):
+    q, k, v, bt, _, _ = _flash_inputs(64, h=2 * g)
+    if ok:
+        sp_prefix._check_cuda_inputs(q, k, v, bt, 17, 2)
+    else:
+        with pytest.raises(NotImplementedError, match="at most 128"):
+            sp_prefix._check_cuda_inputs(q, k, v, bt, 17, 2)
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])

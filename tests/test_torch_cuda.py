@@ -402,13 +402,13 @@ def test_sp_prefix_kernel_matches_plain_version_d128(prefix_len):
     _sp_prefix_case(prefix_len, d=128)
 
 
-def _sp_prefix_case(prefix_len, d):
+def _sp_prefix_case(prefix_len, d, h=8):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(5)
     k, v = _cache(g, d=d)
     row = torch.randperm(40, generator=g, device="cuda")[:10].int()[None]
     bt = row.expand(4, 10)
-    q = torch.randn(4, 20, 8, d, generator=g, device="cuda").bfloat16()
+    q = torch.randn(4, 20, h, d, generator=g, device="cuda").bfloat16()
     before = sp_prefix.launches
     acc, m, l = sp_prefix.paged_prefix_attention_partials(
         q, k, v, bt, prefix_len, 2)
@@ -1186,3 +1186,130 @@ def test_fp8_writes_on_the_card_give_the_cpu_bytes():
         out[dev] = k.view(torch.uint8).cpu()
     torch.cuda.synchronize()
     assert torch.equal(out["cpu"], out["cuda"])
+
+
+# ------------------------------------------- GQA groups that leave spare rows
+
+# Qwen2.5-7B's 7 query heads a KV head and Qwen2.5-32B's 5, over two KV
+# heads: flash holds 9 and 12 positions a CTA (63 and 60 of 64 rows), the
+# prefix partials 18 and 25 (126 and 125 of 128)
+ODD_GROUPS = [(14, 2), (10, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh", ODD_GROUPS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [paged_flash.NO_WINDOW, 20])
+def test_flash_kernel_groups_that_leave_spare_rows(h, kvh, d, window):
+    """A batched step (from 0, a prefix hit, a padded tail, a pad row) at
+    G 7 and 5: every valid row within ATOL / RTOL of the plain version, and
+    the query tiles past ctx zero."""
+    out = _flash_case(76, [(20, 96), (0, 50), (30, 40), None], d=d, h=h,
+                      kvh=kvh, window=window)
+    bq = 64 // (h // kvh)
+    assert not out[2, -(-10 // bq) * bq:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh", ODD_GROUPS)
+def test_flash_fp8_form_groups_that_leave_spare_rows(h, kvh):
+    """The fp8 form at G 7 and 5 equals the bf16 form over the cache upcast
+    to bf16, bit for bit."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    k8, v8, kb, vb = _fp8_caches(g, d=128)
+    bt = torch.randperm(400, generator=g, device="cuda")[:12].reshape(2, 6).int()
+    q = torch.randn(2, 40, h, 128, generator=g, device="cuda").bfloat16()
+    b = torch.tensor([0, 30], dtype=torch.int32, device="cuda")
+    c = torch.tensor([40, 70], dtype=torch.int32, device="cuda")
+    out8 = paged_flash.paged_flash_attention(q, k8, v8, bt, b, c, layer_idx=1)
+    outb = paged_flash.paged_flash_attention(q, kb, vb, bt, b, c, layer_idx=1)
+    ref = paged_flash.paged_flash_attention_ref(
+        q.float(), kb.float(), vb.float(), bt, b, c, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out8, outb)
+    torch.testing.assert_close(out8.float(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [14, 10])
+@pytest.mark.parametrize("prefix_len", [0, 17, 160])
+def test_sp_prefix_kernel_groups_that_leave_spare_rows(h, prefix_len):
+    _sp_prefix_case(prefix_len, d=128, h=h)
+
+
+def _write_safetensors(path, tensors):
+    """A safetensors file by its format (8-byte header length, JSON
+    header, the tensors' bytes): the card's machine has no writer."""
+    import json
+    import struct
+
+    header, blobs, off = {}, [], 0
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    for name, t in tensors.items():
+        raw = t.contiguous().view(torch.uint8).reshape(-1).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * ((-len(head)) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantization", [None, "int8"])
+def test_safetensors_round_trip_onto_the_card(tmp_path, quantization):
+    """A tiny Qwen2-shaped checkpoint (G 7, qkv biases) loaded onto the card
+    equals the CPU's load leaf for bit (int8: ``q`` and ``scale`` too), and
+    the runner on the card serves it."""
+    _need_cuda()
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.model_runner import ModelRunner
+    from dynamo_tpu_torch.models import loader, resolve
+    from dynamo_tpu_torch.models.quant import QuantizedWeight
+
+    cfg = ModelConfig.from_hf_config({
+        "architectures": ["Qwen2ForCausalLM"], "vocab_size": 256,
+        "hidden_size": 112, "intermediate_size": 64, "num_hidden_layers": 2,
+        "num_attention_heads": 14, "num_key_value_heads": 2,
+        "tie_word_embeddings": False})
+    cfg.quantization = quantization
+    g = torch.Generator().manual_seed(0)
+    tensors = {"model.embed_tokens.weight": torch.randn(256, 112, generator=g),
+               "model.norm.weight": torch.ones(112),
+               "lm_head.weight": torch.randn(256, 112, generator=g).bfloat16()}
+    shapes = {"self_attn.q_proj": (112, 112), "self_attn.k_proj": (16, 112),
+              "self_attn.v_proj": (16, 112), "self_attn.o_proj": (112, 112),
+              "mlp.gate_proj": (64, 112), "mlp.up_proj": (64, 112),
+              "mlp.down_proj": (112, 64)}
+    for i in range(2):
+        p = f"model.layers.{i}."
+        tensors[p + "input_layernorm.weight"] = torch.rand(112, generator=g)
+        tensors[p + "post_attention_layernorm.weight"] = torch.rand(112, generator=g)
+        for name, shape in shapes.items():
+            tensors[p + name + ".weight"] = (
+                torch.randn(shape, generator=g) * 0.1).bfloat16()
+        for name in ("q_proj", "k_proj", "v_proj"):
+            tensors[p + f"self_attn.{name}.bias"] = torch.randn(
+                shapes[f"self_attn.{name}"][0], generator=g)
+    _write_safetensors(tmp_path / "model.safetensors", tensors)
+    cpu = loader.load_llama_params(str(tmp_path), cfg, torch.bfloat16, "cpu")
+    card = loader.load_llama_params(str(tmp_path), cfg, torch.bfloat16, "cuda")
+    flat = dict(card["layers"], **{k: v for k, v in card.items() if k != "layers"})
+    want = dict(cpu["layers"], **{k: v for k, v in cpu.items() if k != "layers"})
+    assert sorted(flat) == sorted(want)
+    for name, leaf in want.items():
+        got = flat[name]
+        if isinstance(leaf, QuantizedWeight):
+            assert got.q.is_cuda and torch.equal(got.q.cpu(), leaf.q), name
+            assert torch.equal(got.scale.cpu(), leaf.scale), name
+        else:
+            assert got.is_cuda and torch.equal(got.cpu(), leaf), name
+    runner = ModelRunner(EngineConfig(model=cfg, max_batch_size=1,
+                                      max_model_len=64, kv_block_size=16,
+                                      num_kv_blocks=8),
+                         model_dir=str(tmp_path))
+    assert resolve(cfg).__name__.endswith("llama")
+    assert runner.params["layers"]["bq"].is_cuda

@@ -18,6 +18,7 @@ import asyncio
 import json
 import os
 import signal
+import struct
 import subprocess
 import sys
 import time
@@ -440,8 +441,14 @@ def test_random_weights_need_the_flag_and_a_checkpoint_is_refused(tmp_path):
         64, 32, 64)
     with pytest.raises(FileNotFoundError, match="allow_random_weights"):
         check_random_weights(d, cfg)
-    (Path(d) / "model.safetensors").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="checkpoint loader"):
+    # a checkpoint is loaded now: an empty or truncated shard is refused
+    # with a parse error that names the file, before a model is built
+    shard = Path(d) / "model.safetensors"
+    shard.write_bytes(b"")
+    with pytest.raises(ValueError, match="model.safetensors"):
+        check_random_weights(d, cfg)
+    shard.write_bytes(struct.pack("<Q", 64) + b'{"w": {"dtype": "F32"')
+    with pytest.raises(ValueError, match="model.safetensors"):
         check_random_weights(d, cfg)
     with pytest.raises(ValueError, match="matches no ModelConfig"):
         engine_config_from_mdc(mdc, flags, extra={"nope": 1})

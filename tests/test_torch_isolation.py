@@ -6,7 +6,9 @@ check runs in a fresh interpreter: a ``sys.meta_path`` finder refuses
 ``jax``, ``jaxlib`` and ``dynamo_tpu``/``dynamo_tpu.*`` (``dynamo_tpu_torch``
 is allowed), and the packages the reference's front stands on that the
 port does not depend on (``aiohttp``, ``pydantic``, ``tokenizers``,
-``regex``, ``msgpack``, ``safetensors``, ``transformers``; ``jinja2``, a
+``regex``, ``msgpack``, ``safetensors``, ``transformers``, ``gguf``,
+``ml_dtypes``: the checkpoint loader reads safetensors and GGUF files on the
+standard library; ``jinja2``, a
 requirement of torch, stays allowed), then every module of
 ``dynamo_tpu_torch`` and ``chip_smoke`` is imported, and CUDA must not have
 been initialised by any import. A static scan of the import statements
@@ -36,7 +38,8 @@ def _port_modules():
 
 
 REFUSED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "tokenizers",
-           "regex", "msgpack", "safetensors", "transformers")
+           "regex", "msgpack", "safetensors", "transformers", "gguf",
+           "ml_dtypes")
 
 
 def _blocked(name: str) -> bool:
@@ -50,7 +53,8 @@ def test_blocked_names_match_exactly():
     assert not _blocked("dynamo_tpu_torch.ops.attention")
     assert not _blocked("jaxtyping")
     for name in ("aiohttp.web", "pydantic", "tokenizers.models", "regex",
-                 "msgpack", "safetensors.torch", "transformers"):
+                 "msgpack", "safetensors.torch", "transformers", "gguf",
+                 "ml_dtypes"):
         assert _blocked(name)
     assert not _blocked("jinja2") and not _blocked("regexp")
 
@@ -69,7 +73,9 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.llm.tokenizer", "dynamo_tpu_torch.llm.preprocessor",
             "dynamo_tpu_torch.llm.backend", "dynamo_tpu_torch.http.service",
             "dynamo_tpu_torch.protocols.openai", "dynamo_tpu_torch.cli.run",
-            "dynamo_tpu_torch.telemetry.registry"} <= set(mods)
+            "dynamo_tpu_torch.telemetry.registry",
+            "dynamo_tpu_torch.models.loader", "dynamo_tpu_torch.llm.gguf",
+            "dynamo_tpu_torch.llm.gguf_tensors"} <= set(mods)
     _import_refusing_reference(mods)
 
 

@@ -130,6 +130,34 @@ def test_flash_plain_version_matches_pallas_interpret(window, head_dim):
     assert paged_flash.launches == 0
 
 
+@pytest.mark.parametrize("h,kvh", [(14, 2), (10, 2)])  # G 7 and G 5
+def test_flash_plain_version_matches_pallas_interpret_at_odd_groups(h, kvh):
+    """Qwen2.5's GQA groups (G 7, Qwen2.5-32B's G 5), whose query positions
+    do not fill the kernel's 64-row CTA: the plain version against the
+    reference's kernel (any G) in interpret mode, at head_dim 128."""
+    rng = np.random.default_rng(8)
+    s, w, d = 16, 6, 128
+    base = np.array([0, 11, 0], np.int32)
+    ctx = np.array([16, 27, 1], np.int32)
+    b = len(base)
+    k = rng.standard_normal((L, b * w + 3, BS, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((L, b * w + 3, BS, kvh, d)).astype(np.float32)
+    bt = rng.permutation(b * w + 3)[: b * w].reshape(b, w).astype(np.int32)
+    bt[-1] = 0
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    ref = np.asarray(jax_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+        jnp.asarray(base), jnp.asarray(ctx), layer_idx=jnp.int32(1),
+        q_chunk=8, interpret=True))
+    got = paged_flash.paged_flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(bt), torch.from_numpy(base), torch.from_numpy(ctx),
+        layer_idx=1).numpy()
+    for i in range(b):
+        valid = ctx[i] - base[i]
+        np.testing.assert_allclose(got[i, :valid], ref[i, :valid], **TOL)
+
+
 def test_attention_impl_resolution():
     for impl in ("auto", "xla", "pallas"):
         check_attention_impl(impl, "cpu")

@@ -111,6 +111,29 @@ def test_prefix_partials_match_pallas_interpret(prefix_len, head_dim):
         assert (m == MASK_VALUE).all() and (l == 0).all() and (acc == 0).all()
 
 
+@pytest.mark.parametrize("h", [14, 10])  # G 7 and G 5 over 2 KV heads
+def test_prefix_partials_match_pallas_interpret_at_odd_groups(h):
+    """Qwen2.5's GQA groups, which leave spare rows in the kernel's
+    128-row CTA: the plain version against the reference's kernel (any G)
+    in interpret mode, head_dim 128, a partial last page."""
+    c = _PFX
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((c["b"], c["s"], h, 128)).astype(np.float32)
+    shape = (c["L"], c["N"], c["bs"], c["kvh"], 128)
+    kc = rng.standard_normal(shape).astype(np.float32)
+    vc = rng.standard_normal(shape).astype(np.float32)
+    bt = rng.permutation(c["N"])[: c["b"] * c["W"]].reshape(
+        c["b"], c["W"]).astype(np.int32)
+    ja, jm, jl = jax_prefix_partials(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt),
+        17, 2, interpret=True)
+    acc, m, l = paged_prefix_attention_partials(
+        _t(q), _t(kc), _t(vc), _t(bt), 17, 2)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(ja), **TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), **TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), **TOL)
+
+
 def test_prefix_partials_take_a_broadcast_block_table():
     """The ranks share one block table as a stride-0 row: the result is
     the per-rank call's, row for row."""

@@ -273,7 +273,7 @@ def test_split_behaviors_match_tokenizers(behavior, invert):
 
 
 @pytest.mark.parametrize("spec,name", [
-    ({"model": {"type": "Unigram", "vocab": []}}, "Unigram"),
+    ({"model": {"type": "WordLevel", "vocab": {}}}, "WordLevel"),
     ({"model": {"type": "WordPiece", "vocab": {}}}, "WordPiece"),
     ({"model": {"type": "BPE", "vocab": {}, "merges": []},
       "pre_tokenizer": {"type": "Whitespace"}}, "Whitespace"),
@@ -295,6 +295,26 @@ def test_unsupported_forms_raise_by_name(spec, name):
         port.Tokenizer(spec)
 
 
+# the characters at a single_word added token's edge: Devanagari vowel
+# sign (Mc), a nonspacing mark, a circled letter (So, Other_Alphabetic), an
+# underscore (Pc), ZWJ, Arabic-Indic 3 (Nd), Roman numeral 12 (Nl), one
+# half (No), a hyphen, a space, a Latin letter, a Han ideograph
+WORD_EDGES = ["\u0947", "\u0301", "\u24d0", "_", "\u200d", "\u0663",
+              "\u216b", "\u00bd", "-", " ", "x", "\u4e2d"]
+
+
+@pytest.mark.parametrize("edge", WORD_EDGES)
+def test_single_word_edges_follow_tokenizers_word_characters(edge):
+    """``single_word`` matches only between non-word characters, with
+    ``tokenizers``' Unicode ``\\w`` (marks, Other_Alphabetic, Pc,
+    Join_Control count; No does not)."""
+    ref = _llama3_style()
+    tok = port.Tokenizer(json.loads(ref.to_str()))
+    for text in (f"{edge}word", f"word{edge}", f"a{edge}word{edge}b"):
+        assert tok.encode(text, add_special_tokens=False) == ref.encode(
+            text, add_special_tokens=False).ids, repr(text)
+
+
 def test_post_processor_raises_only_with_special_tokens():
     spec = json.loads(build_tiny_tokenizer().to_str())
     spec["post_processor"] = {"type": "BertProcessing", "sep": ["</s>", 2],
@@ -306,11 +326,20 @@ def test_post_processor_raises_only_with_special_tokens():
 
 
 def test_sentencepiece_only_directory_and_gguf_raise_by_name(tmp_path):
+    """A SentencePiece ``tokenizer.model`` alone still raises by name (its
+    protobuf reader is not ported); a GGUF file's tokenizer loads."""
+    from test_torch_gguf import ARR, STR, write_gguf
+
     (tmp_path / "tokenizer.model").write_bytes(b"\x00")
     with pytest.raises(NotImplementedError, match="tokenizer.model"):
         port.HFTokenizer.from_pretrained_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="GGUF"):
-        port.HFTokenizer.from_model_path(str(tmp_path / "m.gguf"))
+    path = str(tmp_path / "m.gguf")
+    write_gguf(path, [("general.architecture", STR, "llama"),
+                      ("tokenizer.ggml.model", STR, "gpt2"),
+                      ("tokenizer.ggml.tokens", ARR, (STR, ["a", "b", "ab"])),
+                      ("tokenizer.ggml.merges", ARR, (STR, ["a b"]))])
+    tok = port.HFTokenizer.from_model_path(path)
+    assert tok.encode("abab") == [2, 2] and tok.decode([2, 0]) == "aba"
     with pytest.raises(FileNotFoundError):
         port.HFTokenizer.from_pretrained_dir(str(tmp_path / "missing"))
 
