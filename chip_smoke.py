@@ -64,7 +64,8 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    version and bit for bit against its bf16 form over the caches upcast to
    bf16, and timed beside it (the bound with one byte a K/V element; no
    PyTorch call reads e4m3 pages, so SDPA over the upcast caches stands
-   beside it). Flash
+   beside it); kernel 6's fp8 form the same way at the SP call's shapes
+   (Llama-3.2-1B's heads, D 64) and at G 7 (``ODD_GROUPS``). Flash
    and the prefix partials (one tensor-core core) are also held at head_dim
    128 (H 32, KVH 8), and flash also at the dense ladder's long step of
    ``engine_sp`` (S 512 at position 11,776, ctx 12,000: the query tiles
@@ -180,7 +181,10 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    same weights; streams against the dense engine's (equal or parted at a
    near-tie) and the chained engine's (equal), the 12k prompt's SP logits
    against the dense ladder's on the card, kernel 6 once a layer per SP
-   chunk, every SP chunk under the sync guard, the early handoffs.
+   chunk, every SP chunk under the sync guard, the early handoffs; then an
+   SP engine over an fp8 (e4m3) cache on the same weights and prompts:
+   kernel 6's fp8 form once a layer per SP chunk (no bf16 form launches),
+   its greedy streams equal the bf16 SP engine's or part at a near-tie.
 14. ``engine_http`` — the OpenAI front at the full Llama-3.2-1B shapes in
    bf16: a model directory written here (``write_model_dir``: the HF
    ``config.json``, Llama-3's chat template, a synthetic byte-level BPE
@@ -204,7 +208,22 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    itself: ``python3 -m dynamo_tpu_torch.cli.run in=http out=torch`` in a
    subprocess (on the card by default) answers /health and a chat request
    and exits 0 on SIGINT.
-15. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
+15. ``engine_graph`` — the distributed inference graph, each role a
+   subprocess on the one card as a user starts it: a dynstore broker, two
+   ``--token-level`` workers (Llama-3.2-1B at full width and depth, random
+   weights, ``engine_http``'s synthetic tokenizer), an ``out=processor
+   --router-mode kv`` processor and a round-robin one, each behind an
+   ``in=http out=none`` frontend that discovers its model. Groups sharing
+   a 1,024-token prefix: each leader alone, its followers once the
+   router's index holds its blocks (read from the stats scrapes); every
+   follower must land on its leader's worker; streams equal an
+   in-process engine's or part at a near-tie; a seeded sampled request
+   gives the same tokens on both workers; a 12,000-token prefill expires
+   no lease; after SIGKILL of one worker, requests complete on the
+   survivor within the lease TTL plus a margin; no KV block stays in use.
+   Prints the followers' TTFT under kv and round-robin routing in turns,
+   the routing decision's µs and the events' lag.
+16. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
    depth (its published ``config.json``: G 7, qkv biases, V 152,064) with
    seeded random bf16 weights written as a 4-shard HF safetensors
    snapshot (``write_safetensors_snapshot``) and loaded by
@@ -232,7 +251,8 @@ epilogue at V 152,064 with ``engine_load``'s, the fp8 forms with the
 G 5, flash's fp8 form and the prefix partials at G 7 and 5 — with a count
 of 0 and a ``path`` saying so; the decode, flash and
 epilogue entries also carry ``launches_engine_http``, the HTTP path's own
-counts); the line before that the
+counts, and ``launches_engine_graph``, the graph's workers'; kernel 6's
+fp8 form has the fp8 SP engine's launches); the line before that the
 card's name and power limit.
 """
 
@@ -677,7 +697,7 @@ def kernel_phase(torch, dev):
                              library_ms=tl["library_ms"]))
     entries["paged_verify"] = _verify_cases(torch, dev, g, k, v, k32, v32,
                                             bt, ctx_l, LAYER)
-    entries["sp_prefix"] = _sp_prefix_cases(torch, dev, g, k, v, k32, v32, LAYER)
+    entries.update(_sp_prefix_cases(torch, dev, g, k, v, k32, v32, LAYER))
     del k, v, k32, v32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1139,6 +1159,77 @@ def _sp_prefix_run(torch, spx, g, k, v, k32, v32, layer, H):
                       ctas=-(-S // (spx._ROWS_PER_CTA // (H // KVH))) * KVH * R)
 
 
+def _sp_prefix_fp8_run(torch, spx, g, k8, v8, layer, H):
+    """Kernel 6's fp8 form over the e4m3 caches ``k8`` / ``v8`` at
+    ``_sp_prefix_run``'s shapes (4 ranks of 512 rows, one broadcast block
+    table row, every ``SP_PREFIXES`` edge): held against the f32 plain
+    version at SP_PREFIX_TOL and bit for bit against the bf16 form over the
+    caches upcast to bf16 (every e4m3 value is a bf16 value; only the
+    producer differs), then timed at the longest prefix beside the bf16
+    form, the plain version (which upcasts the e4m3 pages it gathers),
+    SDPA over the upcast caches (a yardstick: no PyTorch call reads e4m3
+    pages, so ``library_ms`` is null) and the bound with one byte a K/V
+    element. Returns the max errors by prefix and the timings."""
+    F = torch.nn.functional
+    L, N, BS, KVH, D = k8.shape
+    R, S = SP_RANKS, SP_ROWS
+    kb, vb = k8.to(torch.bfloat16), v8.to(torch.bfloat16)
+    k32, v32 = kb.float(), vb.float()
+    row = torch.randperm(N, generator=g, device=k8.device).int()[None]
+    bt = row.expand(R, N)
+    q = torch.randn(R, S, H, D, generator=g, device=k8.device).bfloat16()
+    errs = {}
+    for pfx in SP_PREFIXES:
+        errs[pfx] = _sp_prefix_check(torch, spx, q, k8, v8, k32, v32, bt, pfx,
+                                     layer)
+        a8 = spx.paged_prefix_attention_partials(q, k8, v8, bt, pfx, layer)
+        ab = spx.paged_prefix_attention_partials(q, kb, vb, bt, pfx, layer)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a8, ab)):
+            raise AssertionError(
+                f"sp prefix fp8 {pfx} (D {D}, G {H // KVH}): not bit-equal to "
+                "the bf16 form over the upcast cache")
+        del a8, ab
+    P = SP_PREFIXES[-1]
+    ms = cuda_ms(lambda: spx.paged_prefix_attention_partials(q, k8, v8, bt, P, layer))
+    bf16_ms = cuda_ms(lambda: spx.paged_prefix_attention_partials(
+        q, kb, vb, bt, P, layer))
+    plain_ms = cuda_ms(lambda: spx.paged_prefix_attention_partials_ref(
+        q.float(), k8, v8, bt, P, layer), iters=3, warmup=1)
+    pages = row[0, : -(-P // BS)].long()
+    kd = kb[layer][pages].reshape(1, -1, KVH, D)[:, :P].transpose(1, 2)
+    vd = vb[layer][pages].reshape(1, -1, KVH, D)[:, :P].transpose(1, 2)
+    kd = kd.repeat_interleave(H // KVH, dim=1).expand(R, H, P, D).contiguous()
+    vd = vd.repeat_interleave(H // KVH, dim=1).expand(R, H, P, D).contiguous()
+    qd = q.transpose(1, 2).contiguous()
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd))
+    flops = 4.0 * R * S * H * P * D
+    nbytes = (P * KVH * D * 1 * 2            # e4m3 K and V of the prefix, once
+              + q.numel() * 2                # q in bf16
+              + q.numel() * 4 + 2 * R * S * H * 4)  # acc, m, l in f32
+    bound, by = _bound_ms(flops, nbytes)
+    torch.cuda.synchronize()
+    del kd, vd, qd, kb, vb, k32, v32
+    return errs, dict(timed_prefix=P, kernel_ms=ms, bf16_form_ms=bf16_ms,
+                      plain_ms=plain_ms, library_ms=None,
+                      sdpa_over_upcast_bf16_ms=sdpa_ms, bound_ms=bound,
+                      bound_by=by, bit_equal_to_bf16_form=True)
+
+
+def _sp_prefix_fp8_entry(errs, t, **extra):
+    """The kernels-line entry of kernel 6's fp8 form from
+    ``_sp_prefix_fp8_run``'s numbers."""
+    src = "dynamo_tpu_torch/csrc/"
+    return dict(
+        route="cuda", source=src + "sp_prefix.cu",
+        core=src + "paged_attn_tc.cuh", upcast=src + "kv_fp8.cuh",
+        replaces="dynamo_tpu/ops/pallas_sp.py:232",
+        max_abs_err=max(max(e.values()) for e in errs.values()),
+        **{k: t[k] for k in ("ms", "bf16_form_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms",
+                             "sdpa_over_upcast_bf16_ms")}, **extra)
+
+
 def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
     """Kernel 6 at Llama-3.2-1B's heads over the 16-layer cache
     (``_sp_prefix_run``) and at head_dim 128 (``_sp_prefix_d128``)."""
@@ -1155,13 +1246,28 @@ def _sp_prefix_cases(torch, dev, g, k, v, k32, v32, layer):
          max_err=errs, tol=dict(m="1e-3 + 1e-3|ref|", l="1e-3 + 1e-3|ref|",
                                 acc="1e-3 l + 1e-3|ref|"),
          **t, d128_timed=d128_timed)
-    return dict(
+    # the fp8 form over an e4m3 cache of the same shape (the engine_sp fp8
+    # engine's path)
+    k8 = torch.randn(k.shape, generator=g, device=dev).to(torch.float8_e4m3fn)
+    v8 = torch.randn(k.shape, generator=g, device=dev).to(torch.float8_e4m3fn)
+    errs8, t8 = _sp_prefix_fp8_run(torch, spx, g, k8, v8, layer, H)
+    del k8, v8
+    torch.cuda.empty_cache()
+    emit("kernels", kernel="sp_prefix_fp8",
+         shape=dict(ranks=SP_RANKS, S=SP_ROWS, H=H, KVH=KVH, D=D, bs=BS, L=L,
+                    layer=layer, W=N, prefixes=list(SP_PREFIXES)),
+         max_err=errs8, **t8, card=nvidia_smi_line())
+    entries = dict(sp_prefix=dict(
         name="paged_prefix_attention_partials", route="cuda",
         source="dynamo_tpu_torch/csrc/sp_prefix.cu",
         replaces="dynamo_tpu/ops/pallas_sp.py:232",
         max_abs_err=max(max(e.values()) for e in errs.values()),
         ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=t["library_ms"])
+        bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    entries["sp_prefix_fp8"] = _sp_prefix_fp8_entry(
+        errs8, dict(t8, ms=t8["kernel_ms"]),
+        name="paged_prefix_attention_partials[fp8]")
+    return entries
 
 
 # the sink form of kernels 1, 4 and 2 at gpt-oss-20b's attention: 64 query
@@ -1968,7 +2074,15 @@ def _odd_group_cases(torch, dev, decode_entries):
             fp8[name] = _fp8_form(torch, "flash", f"[{fam}] {name}", qf, k8, v8,
                                   k, v, k32, v32, btp, base_l, c_l, kw)
         sp_errs, sp = _sp_prefix_run(torch, spx, g, k, v, k32, v32, layer, H)
-        del k, v, k8, v8, k32, v32
+        del k, v, k32, v32
+        sp8 = None
+        if fam == "qwen25":  # kernel 6's fp8 form at G 7
+            sp8_errs, sp8 = _sp_prefix_fp8_run(torch, spx, g, k8, v8, layer, H)
+            entries[f"sp_prefix_fp8_{fam}"] = _sp_prefix_fp8_entry(
+                sp8_errs, dict(sp8, ms=sp8["kernel_ms"]),
+                name=f"paged_prefix_attention_partials[fp8,{fam}]", **off_path)
+            sp8 = dict(max_err=sp8_errs, **sp8)
+        del k8, v8
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         G = H // KVH
@@ -1981,7 +2095,7 @@ def _odd_group_cases(torch, dev, decode_entries):
                         chunk=chunk, long_step=LONG_DENSE_STEP,
                         sp_prefixes=list(SP_PREFIXES)),
              flash=flash, flash_fp8=fp8, sp_prefix=dict(max_err=sp_errs, **sp),
-             card=nvidia_smi_line())
+             sp_prefix_fp8=sp8, card=nvidia_smi_line())
         t, tl = flash["batch4_s128"], flash["long_dense_step"]
         long_step = dict(ms=tl["kernel_ms"], plain_ms=tl["plain_ms"],
                          bound_ms=tl["bound_ms"], bound_by=tl["bound_by"],
@@ -2866,7 +2980,8 @@ def _check_logits(torch, cfg, arch, mcfg, device, params, prompt_a, prompt_b,
 KERNEL_MODULES = ("paged_decode", "paged_flash", "paged_verify", "epilogue",
                   "mla_decode", "sp_prefix")
 # the modules whose kernels have an fp8 form (``launches_fp8``)
-FP8_MODULES = ("paged_decode", "paged_flash", "paged_verify", "mla_decode")
+FP8_MODULES = ("paged_decode", "paged_flash", "paged_verify", "mla_decode",
+               "sp_prefix")
 
 
 def _reset_launches():
@@ -3156,8 +3271,11 @@ def _guard_dispatches(torch, runner, layers, k_steps, on_card=True,
         stats["sp_chunks"] = []
         chunk = runner.sp_prefill_chunk
 
+        def both(mod):  # the bf16 and the fp8 form's launches
+            return mod.launches + mod.launches_fp8
+
         def sp_wrapped(prompt, start, *args, **kw):
-            s0, f0 = sp_prefix.launches, paged_flash.launches
+            s0, f0 = both(sp_prefix), both(paged_flash)
             prev = torch.cuda.get_sync_debug_mode() if on_card else None
             if on_card:
                 torch.cuda.set_sync_debug_mode("error")
@@ -3168,8 +3286,8 @@ def _guard_dispatches(torch, runner, layers, k_steps, on_card=True,
                     torch.cuda.set_sync_debug_mode(prev)
             stats["sp_chunks"].append(dict(
                 start=start, end=len(prompt), commit=kw.get("commit", False),
-                sp_prefix=sp_prefix.launches - s0,
-                paged_flash=paged_flash.launches - f0))
+                sp_prefix=both(sp_prefix) - s0,
+                paged_flash=both(paged_flash) - f0))
             return out
 
         runner.sp_prefill_chunk = sp_wrapped
@@ -4925,8 +5043,10 @@ def engine_sp_phase(torch, dev, smi):
             torch.cuda.empty_cache()
         engine = await TorchServingEngine.create(config(**kw), params=params,
                                                  device=dev)
+        counter = ("launches_fp8" if kw.get("kv_cache_dtype") == "fp8"
+                   else "launches")
         stats = _guard_dispatches(torch, engine.runner, layers, k_steps,
-                                  on_card, sp=True)
+                                  on_card, sp=True, counter=counter)
         try:
             if on_card:
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -4950,6 +5070,8 @@ def engine_sp_phase(torch, dev, smi):
     params = sp["params"]
     dense = asyncio.run(run(dict(sp_size=1, long_prefill_threshold_tokens=0),
                             params))
+    # the same prompts over an fp8 (e4m3) cache: kernel 6's fp8 form
+    fp8 = asyncio.run(run(dict(kv_cache_dtype="fp8"), params))
     chained = asyncio.run(run(dict(decode_pipeline_depth=2), params,
                               keep_runner=True))
     runner = chained.pop("runner")
@@ -4959,8 +5081,16 @@ def engine_sp_phase(torch, dev, smi):
     logits = _sp_logits(torch, runner, wave[0][0], ENGINE["max_prefill_tokens_per_step"])
     requests = wave + [(hit, greedy)]
     parted = _spec_agreement(torch, runner, requests, dense["res"], sp["res"])
+    # the fp8 SP engine's greedy streams against the bf16 SP engine's: equal
+    # or parted at a near-tie of the bf16 logits (the e4m3 cache's error is
+    # ~6% an element); the seeded sampled stream is checked for its length
+    greedy_i = [i for i, (_, samp) in enumerate(requests)
+                if samp["temperature"] == 0.0]
+    fp8_parted = _spec_agreement(
+        torch, runner, [requests[i] for i in greedy_i],
+        [sp["res"][i] for i in greedy_i], [fp8["res"][i] for i in greedy_i])
     del params, runner
-    runs = dict(sp=sp, dense=dense, sp_chained=chained)
+    runs = dict(sp=sp, dense=dense, sp_chained=chained, sp_fp8=fp8)
     for r in runs.values():
         del r["params"]
     if on_card:
@@ -4991,7 +5121,8 @@ def engine_sp_phase(torch, dev, smi):
          prefix_hit=dict(shared=SP_SHARED, new=SP_EXTRA), new_tokens=NEW_TOKENS,
          engines={name: summary(r) for name, r in runs.items()},
          decode_step=step, logits_12k_sp_vs_dense=logits,
-         sp_vs_dense_parted=parted, card=smi)
+         sp_vs_dense_parted=parted, fp8_vs_bf16_sp_parted=fp8_parted,
+         card=smi)
 
     for name, r in runs.items():
         _check_streams(r["res"], NEW_TOKENS)
@@ -5017,8 +5148,9 @@ def engine_sp_phase(torch, dev, smi):
     want_chunks = sum(-(-n // bucket) for n, _ in SP_WAVE
                       if n >= SP_ENGINE["long_prefill_threshold_tokens"])
     want_chunks += -(-SP_EXTRA // bucket)
-    for name in ("sp", "sp_chained"):
+    for name in ("sp", "sp_chained", "sp_fp8"):
         r = runs[name]
+        sfx = "_fp8" if name == "sp_fp8" else ""
         m, chunks = r["metrics"], r["stats"]["sp_chunks"]
         if len(chunks) != m["sp_chunks"] or m["sp_chunks"] != want_chunks:
             raise AssertionError(f"{name}: SP chunks {m['sp_chunks']} "
@@ -5030,20 +5162,28 @@ def engine_sp_phase(torch, dev, smi):
             raise AssertionError(f"{name}: {m['sp_handoffs']} early handoffs (< 3)")
         if on_card:
             launches = r["launches"]
-            if launches["sp_prefix"] != layers * m["sp_chunks"] or any(
+            other = "" if sfx else "_fp8"  # the form this engine must not run
+            if launches["sp_prefix" + sfx] != layers * m["sp_chunks"] or any(
                     c["sp_prefix"] != layers or c["paged_flash"] for c in chunks):
                 raise AssertionError(
-                    f"{name}: kernel 6 launched {launches['sp_prefix']} times for "
-                    f"{m['sp_chunks']} SP chunks of {layers} layers, per chunk "
+                    f"{name}: kernel 6 launched {launches['sp_prefix' + sfx]} "
+                    f"times for {m['sp_chunks']} SP chunks of {layers} layers, "
+                    f"per chunk "
                     f"{[(c['sp_prefix'], c['paged_flash']) for c in chunks]}")
-            if launches["paged_flash"] != layers * m["prefill_steps"]:
+            if launches["paged_flash" + sfx] != layers * m["prefill_steps"]:
                 raise AssertionError(
-                    f"{name}: the flash kernel launched {launches['paged_flash']} "
-                    f"times for {m['prefill_steps']} dense prefill steps")
-            _check_launches(name, launches, ("paged_decode", "epilogue"))
+                    f"{name}: the flash kernel launched "
+                    f"{launches['paged_flash' + sfx]} times for "
+                    f"{m['prefill_steps']} dense prefill steps")
+            if any(launches[k + other] for k in ("sp_prefix", "paged_flash",
+                                                 "paged_decode")):
+                raise AssertionError(f"{name}: a kernel's other form launched: "
+                                     f"{launches}")
+            _check_launches(name, launches, ("paged_decode" + sfx, "epilogue"))
     if dense["metrics"]["sp_chunks"] or (on_card and dense["launches"]["sp_prefix"]):
         raise AssertionError("the dense engine ran an SP chunk")
-    return dict(sp_prefix=sp["launches"]["sp_prefix"])
+    return dict(sp_prefix=sp["launches"]["sp_prefix"],
+                sp_prefix_fp8=fp8["launches"]["sp_prefix_fp8"])
 
 
 # ------------------------------------------------------------ engine_http
@@ -5792,6 +5932,485 @@ def _cli_run(model_dir, extra_path):
             proc.wait()
 
 
+# ------------------------------------------------------------ engine_graph
+
+# the inference graph on the one card: a dynstore broker, two token-level
+# workers (Llama-3.2-1B at full width and depth, random weights, the
+# synthetic tokenizer of engine_http), a KV-routing processor and a
+# round-robin one beside it, each with a pure frontend that discovers its
+# model (a model's registration is by name within a namespace, so the
+# round-robin pair registers in a namespace of its own)
+GRAPH_NS = "graph"
+GRAPH_RR_NS = "graph_rr"
+GRAPH_WORKER_FLAGS = ["--max-model-len", "16384", "--num-kv-blocks", "1024",
+                      "--kv-block-size", "16"]
+GRAPH_GROUPS, GRAPH_FOLLOWERS = 4, 3
+GRAPH_PREFIX, GRAPH_TAIL = 1024, 64   # tokens (words of one token each)
+GRAPH_AFTER_KILL = 4
+GRAPH_LONG_PROMPT = 12000
+# the primary lease's TTL (DynStoreClient.grant_lease's default): a killed
+# worker's requests must run on the survivor within it plus the margin
+GRAPH_LEASE_TTL_S, GRAPH_MARGIN_S = 10.0, 20.0
+GRAPH_START_TIMEOUT_S = 300
+GRAPH_TIMEOUT_S = 400
+GRAPH_SEED = 4321
+GRAPH_SAMPLED = dict(temperature=0.8, seed=77)
+GRAPH_DEVICE = "cuda"                 # a CPU rehearsal sets "cpu"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_role(args, name, logdir):
+    """One role of the graph as a user starts it (``python3 -m ...`` from
+    the checkout's root); stderr goes to ``<logdir>/<name>.log``."""
+    err = open(Path(logdir) / f"{name}.log", "w")
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    proc.role, proc.log = name, Path(logdir) / f"{name}.log"
+    err.close()
+    return proc
+
+
+def _role_tail(proc) -> str:
+    return proc.log.read_text(errors="replace")[-3000:]
+
+
+def _await_line(proc, needle, deadline):
+    while True:
+        line = proc.stdout.readline()
+        if needle in line:
+            return line
+        if (not line and proc.poll() is not None) or time.monotonic() > deadline:
+            raise AssertionError(f"{proc.role} did not print {needle!r} "
+                                 f"(rc {proc.poll()}): {_role_tail(proc)}")
+
+
+def _graph_chat(model, content, **kw):
+    from dynamo_tpu_torch.protocols.annotated import ANNOTATION_TOKEN_IDS
+
+    return dict(model=model, stream=True, max_tokens=NEW_TOKENS,
+                temperature=0.0, ignore_eos=True, logprobs=True,
+                nvext={"annotations": [ANNOTATION_TOKEN_IDS]},
+                messages=[{"role": "user", "content": content}], **kw)
+
+
+async def _graph_ask(port, body, tok):
+    """One chat request through the frontend: its stream record with the
+    token ids (from the logprob entries) and the prompt ids the front
+    annotated."""
+    status, _, raw, events = await http_request(
+        port, "POST", "/v1/chat/completions", body)
+    if status != 200:
+        raise AssertionError(f"graph: HTTP {status}: {raw[:400]}")
+    rec = _stream_record(events, True)
+    rec["ids"] = [tok.token_to_id(t) for t in rec["tokens"]]
+    ann = next(line for line in raw.decode().split("\n") if line.startswith(": "))
+    rec["prompt_ids"] = json.loads(ann[2:])
+    return rec
+
+
+async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids):
+    """The graph's traffic and checks, from a client of the broker of its
+    own (the workers' and the processor's stats scrape, a watch on the
+    workers' registrations) and an HTTP client of the frontend."""
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.client import Client
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.discovery import WatchEventType
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    drt = await DistributedRuntime.connect("127.0.0.1", store)
+    ns = drt.namespace(GRAPH_NS)
+    backend = ns.component("backend").endpoint("generate")
+    wclient = await Client(backend).start()
+    pclient = await Client(ns.component("processor").endpoint("chat")).start()
+    await wclient.wait_for_instances(2, timeout=60)
+    await pclient.wait_for_instances(1, timeout=60)
+    # every registration the broker drops (a lease that expired) is seen here
+    _, watcher = await drt.discovery.watch_prefix(
+        backend.component.etcd_prefix() + "generate:")
+    deletes = []
+
+    async def watch():
+        async for ev in watcher:
+            if ev.type == WatchEventType.DELETE:
+                deletes.append((time.monotonic(), ev.key))
+
+    watch_task = asyncio.ensure_future(watch())
+
+    async def wstats():
+        return {iid: s for iid, s in (await wclient.scrape_stats(timeout=5.0)).items()}
+
+    async def pstats():
+        s = await pclient.scrape_stats(timeout=5.0)
+        return next(iter(s.values()))["data"]
+
+    async def settled():
+        """The router's index holds every event the workers published (the
+        same count on two reads 50 ms apart) and it has both loads."""
+        last = None
+        while True:
+            ws, ps = await wstats(), await pstats()
+            pub = sum(s["data"]["kv_events_published"] for s in ws.values())
+            now = (pub, ps["events_applied"])
+            if (now == last and ps["events_applied"] >= pub
+                    and len(ps["workers_with_metrics"]) == len(ws)):
+                return
+            last = now
+            await asyncio.sleep(0.05)
+
+    for mode, port in ports.items():  # each frontend discovered its model
+        for _ in range(600):
+            _, _, models, _ = await http_request(port, "GET", "/v1/models")
+            if [m["id"] for m in json.loads(models)["data"]] == ["llama"]:
+                break
+            await asyncio.sleep(0.1)
+        else:
+            raise AssertionError(f"the {mode} frontend did not discover the "
+                                 f"model: {models}")
+    await settled()
+
+    def served(before, after):
+        return {i: after[i]["requests_total"] - before.get(i, {}).get(
+            "requests_total", 0) for i in after}
+
+    async def wave(mode, at_once=True):
+        """GRAPH_GROUPS groups through the ``mode`` frontend: each leader
+        alone, then its followers at once (or one by one) after the
+        router's index holds the leader's blocks."""
+        port = ports[mode]
+        groups = []
+        for g in range(GRAPH_GROUPS):
+            prefix = words_text(GRAPH_PREFIX)
+            bodies = [_graph_chat("llama", prefix + words_text(GRAPH_TAIL))
+                      for _ in range(1 + GRAPH_FOLLOWERS)]
+            before = await wstats()
+            lead = await _graph_ask(port, bodies[0], tok)
+            after = await wstats()
+            leader = [i for i, n in served(before, after).items() if n]
+            await settled()
+            before = after
+            t0 = time.monotonic()
+            if at_once:
+                follow = await asyncio.gather(*(_graph_ask(port, b, tok)
+                                                for b in bodies[1:]))
+            else:
+                follow = []
+                for b in bodies[1:]:
+                    follow.append(await _graph_ask(port, b, tok))
+                    await settled()
+            wall = time.monotonic() - t0
+            after = await wstats()
+            await settled()
+            hits = {i: after[i]["data"]["prefix_hit_tokens"]
+                    - before[i]["data"]["prefix_hit_tokens"] for i in after}
+            groups.append(dict(leader=leader, followers=served(before, after),
+                               follower_prefix_hit_tokens=hits,
+                               records=[lead] + list(follow), follower_wall_s=wall))
+        return groups
+
+    launches0 = {i: s["data"]["launches"] for i, s in (await wstats()).items()}
+    kv = await wave("kv")
+    launches1 = {i: s["data"]["launches"] for i, s in (await wstats()).items()}
+    turns = {"kv": [kv], "round_robin": [], "kv_one_by_one": [],
+             "round_robin_one_by_one": []}
+    for mode in ("round_robin", "round_robin", "kv"):  # in turns: kv rr rr kv
+        turns[mode].append(await wave(mode))
+    # the followers one after another: the prefix hit without three
+    # followers meeting in one worker's steps
+    for mode in ("kv", "round_robin", "round_robin", "kv"):
+        turns[f"{mode}_one_by_one"].append(await wave(mode, at_once=False))
+
+    # a seeded sampled request straight to each worker
+    sampled_prompt = [128000] + tok.encode(words_text(200))
+    sampled = {}
+    for iid in worker_ids.values():
+        req = PreprocessedRequest(
+            token_ids=sampled_prompt,
+            stop_conditions=StopConditions(max_tokens=NEW_TOKENS, ignore_eos=True),
+            sampling_options=SamplingOptions(**GRAPH_SAMPLED))
+        rec = await wclient.direct(req.to_wire(), iid)
+        sampled[iid] = [t async for out in rec for t in out["token_ids"]]
+
+    # a long prefill on one worker: its lease must survive it
+    long_iid = worker_ids["worker0"]
+    req = PreprocessedRequest(
+        token_ids=[128000] + tok.encode(words_text(GRAPH_LONG_PROMPT - 1)),
+        stop_conditions=StopConditions(max_tokens=4, ignore_eos=True),
+        sampling_options=SamplingOptions(temperature=0.0))
+    t0 = time.monotonic()
+    rec = await wclient.direct(req.to_wire(), long_iid)
+    long_tokens = [t async for out in rec for t in out["token_ids"]]
+    long_s = time.monotonic() - t0
+    long_prompt_tokens = len(req.token_ids)
+
+    # no worker keeps a KV block (a finished stream is reaped first)
+    for _ in range(100):
+        ws = await wstats()
+        blocks = {i: s["data"]["kv_active_blocks"] for i, s in ws.items()}
+        if not any(blocks.values()):
+            break
+        await asyncio.sleep(0.05)
+    expiries_before_kill = list(deletes)
+    router_before_kill = await pstats()
+
+    # worker1 dies (SIGKILL): its connection drops and the broker expires its
+    # lease; requests go on, on the survivor
+    victim, survivor = worker_ids["worker1"], worker_ids["worker0"]
+    before = await wstats()
+    t_kill = time.monotonic()
+    procs["worker1"].kill()
+    while victim in wclient.instances:
+        await asyncio.sleep(0.01)
+    gone_s = time.monotonic() - t_kill
+    prompts = [words_text(GRAPH_PREFIX + GRAPH_TAIL) for _ in range(GRAPH_AFTER_KILL)]
+    after_kill = await asyncio.gather(*(
+        _graph_ask(ports["kv"], _graph_chat("llama", p), tok) for p in prompts))
+    recovered_s = time.monotonic() - t_kill
+    after = await wstats()
+    blocks_after = {i: s["data"]["kv_active_blocks"] for i, s in after.items()}
+    router = await pstats()
+    watch_task.cancel()
+    watcher.cancel()
+    await wclient.close()
+    await pclient.close()
+    await drt.close()
+    return dict(turns=turns, launches0=launches0, launches1=launches1,
+                sampled=sampled, long_s=long_s, long_tokens=long_tokens,
+                long_prompt_tokens=long_prompt_tokens, blocks=blocks,
+                expiries_before_kill=expiries_before_kill, gone_s=gone_s,
+                after_kill=after_kill, recovered_s=recovered_s,
+                served_after_kill=served(before, after),
+                blocks_after_kill=blocks_after, router=router,
+                router_before_kill=router_before_kill, victim=victim,
+                survivor=survivor)
+
+
+def engine_graph_phase(torch, dev, smi):
+    """The distributed inference graph on the one card, each role a
+    subprocess started as a user starts it: ``python3 -m
+    dynamo_tpu_torch.runtime.transports.dynstore``, two ``in=dyn://...
+    out=torch --token-level`` workers (Llama-3.2-1B at full width and
+    depth with random weights and engine_http's synthetic 128,256-id
+    tokenizer, 1,024 KV blocks each), an ``out=processor --router-mode kv``
+    processor and a ``--router-mode round_robin`` one beside it, and an
+    ``in=http out=none`` frontend whose ``ModelWatcher`` discovers both.
+    The kernels were built before the workers start.
+
+    Traffic: waves of GRAPH_GROUPS groups, each a 1,024-token shared prefix
+    with GRAPH_FOLLOWERS + 1 unique 64-token tails: the leader alone, the
+    followers at once once the router's index holds every event the workers
+    published (the processor's and the workers' stats scrape: observable
+    state, no sleeps). One kv wave is checked; then rr, rr, kv waves in
+    turns time the followers' TTFT under each mode, and kv, rr, rr, kv
+    waves with the followers sent one by one. Then a seeded sampled
+    request straight to each worker, a 12,000-token prefill on one, and
+    SIGKILL of the other, after which GRAPH_AFTER_KILL requests must run on
+    the survivor.
+
+    Fails unless: every follower of the checked wave is served by its
+    leader's worker (requests_total and prefix_hit_tokens of the workers'
+    stats); every stream has NEW_TOKENS tokens and finish "length"; the
+    greedy streams equal an in-process engine's over the same directory
+    (fed the prompt ids the front annotated) or part at a near-tie; the
+    seeded sampled request gives the same tokens on both workers; no lease
+    expired before the kill (the long prefill did not starve a keepalive);
+    the requests after the kill complete on the survivor within
+    GRAPH_LEASE_TTL_S + GRAPH_MARGIN_S of it; no worker keeps a KV block;
+    every role but the killed worker exits 0 on SIGINT. Prints the
+    followers' TTFT by mode, the routing decision's µs, the events' lag,
+    the workers' kernel launches on the checked wave."""
+    import tempfile
+
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+
+    tmp = tempfile.TemporaryDirectory(prefix="engine_graph_")
+    model_dir = write_model_dir(Path(tmp.name) / "llama-3.2-1b-random")
+    tok = HFTokenizer.from_pretrained_dir(model_dir)
+    words = _word_ids(tok)
+    rng = np.random.default_rng(GRAPH_SEED)
+
+    def words_text(n):
+        return tok.decode([words[int(i)] for i in rng.integers(0, len(words), n)])
+
+    store = _free_port()
+    common = ["--model-path", model_dir, "--model-name", "llama",
+              "--store-port", str(store), "--kv-block-size", "16"]
+    worker_ep = f"dyn://{GRAPH_NS}.backend.generate"
+    procs = {}
+    t0 = time.monotonic()
+    try:
+        procs["dynstore"] = _spawn_role(
+            ["dynamo_tpu_torch.runtime.transports.dynstore", "--host",
+             "127.0.0.1", "--port", str(store)], "dynstore", tmp.name)
+        deadline = time.monotonic() + GRAPH_START_TIMEOUT_S
+        import socket
+
+        while True:  # the broker listens before any client dials it
+            try:
+                socket.create_connection(("127.0.0.1", store), 1).close()
+                break
+            except OSError:
+                if procs["dynstore"].poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"dynstore did not start: "
+                                         f"{_role_tail(procs['dynstore'])}")
+                time.sleep(0.05)
+        for i in range(2):
+            procs[f"worker{i}"] = _spawn_role(
+                ["dynamo_tpu_torch.cli.run", f"in={worker_ep}", "out=torch",
+                 "--token-level", "--namespace", GRAPH_NS,
+                 "--allow-random-weights", "--device", GRAPH_DEVICE,
+                 *GRAPH_WORKER_FLAGS, *common], f"worker{i}", tmp.name)
+        modes = (("kv", "processor", GRAPH_NS),
+                 ("round_robin", "processor_rr", GRAPH_RR_NS))
+        for mode, comp, ns in modes:
+            procs[f"processor_{mode}"] = _spawn_role(
+                ["dynamo_tpu_torch.cli.run", f"in=dyn://{GRAPH_NS}.{comp}.chat",
+                 "out=processor", "--worker-endpoint", worker_ep,
+                 "--router-mode", mode, "--namespace", ns, *common],
+                f"processor_{mode}", tmp.name)
+            procs[f"frontend_{mode}"] = _spawn_role(
+                ["dynamo_tpu_torch.cli.run", "in=http", "out=none",
+                 "--store-port", str(store), "--namespace", ns,
+                 "--http-host", "127.0.0.1", "--http-port", "0"],
+                f"frontend_{mode}", tmp.name)
+        worker_ids, ports = {}, {}
+        for i in range(2):
+            line = _await_line(procs[f"worker{i}"], "token-level worker", deadline)
+            worker_ids[f"worker{i}"] = line.split()[2]
+        for mode, _, _ in modes:
+            _await_line(procs[f"processor_{mode}"], "processor serving", deadline)
+            line = _await_line(procs[f"frontend_{mode}"], "listening on", deadline)
+            ports[mode] = int(line.strip().rsplit(":", 1)[1])
+        startup_s = time.monotonic() - t0
+        out = asyncio.run(asyncio.wait_for(
+            _graph_traffic(ports, store, tok, words_text, procs, worker_ids),
+            GRAPH_TIMEOUT_S))
+        exits = {}
+        for name in reversed(list(procs)):  # the frontends first, the broker last
+            p = procs[name]
+            if p.poll() is None:
+                p.send_signal(__import__("signal").SIGINT)
+            exits[name] = p.wait(timeout=60)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = {name: _role_tail(p) for name, p in procs.items()}
+
+    # ---- the same greedy requests on an in-process engine over the directory
+    checked = [r for g in out["turns"]["kv"][0] for r in g["records"]]
+    flags = run.parse_flags(["--model-path", model_dir, "--allow-random-weights",
+                             "--device", GRAPH_DEVICE, *GRAPH_WORKER_FLAGS])
+    requests = [(r["prompt_ids"], dict(temperature=0.0)) for r in checked]
+
+    async def inproc():
+        engine = await TorchServingEngine.create(
+            mdc=run.load_mdc(flags), flags=flags, device=GRAPH_DEVICE)
+        try:
+            res = await _serve(engine, requests)
+            graph = [dict(tokens=r["ids"]) for r in checked]
+            parted = _spec_agreement(torch, engine.runner, requests, res, graph)
+            return res, parted
+        finally:
+            await engine.close()
+
+    base, parted = asyncio.run(inproc())
+    tmp.cleanup()
+
+    def ttfts(waves):
+        xs = sorted(r["ttft_s"] for w in waves for g in w for r in g["records"][1:])
+        return dict(n=len(xs), median=xs[len(xs) // 2], min=xs[0], max=xs[-1],
+                    mean=float(np.mean(xs)))
+
+    delta = {iid: {k: out["launches1"][iid][k] - out["launches0"][iid][k]
+                   for k in out["launches1"][iid]} for iid in out["launches1"]}
+    wave1 = out["turns"]["kv"][0]
+    emit("engine_graph", model="Llama-3.2-1B shapes, seeded random bf16 weights",
+         roles=list(procs), workers=worker_ids, startup_s=startup_s,
+         groups=GRAPH_GROUPS, followers=GRAPH_FOLLOWERS,
+         prefix_tokens=GRAPH_PREFIX, tail_tokens=GRAPH_TAIL,
+         routing=[dict(leader=g["leader"], followers=g["followers"],
+                       follower_prefix_hit_tokens=g["follower_prefix_hit_tokens"])
+                  for g in wave1],
+         follower_ttft_s={mode: ttfts(w) for mode, w in out["turns"].items()},
+         follower_ttft_by_turn_s={
+             mode: [ttfts([w])["median"] for w in ws]
+             for mode, ws in out["turns"].items()},
+         router_decision_us=out["router"]["decision_us"],
+         router_event_lag_ms=out["router"]["event_lag_ms"],
+         router_decisions=out["router"]["decisions"],
+         router_indexer_blocks=out["router_before_kill"]["indexer_blocks"],
+         kernel_launches_wave1=delta, greedy_parted=parted,
+         sampled_equal=len(set(map(tuple, out["sampled"].values()))) == 1,
+         long_prefill=dict(prompt_tokens=out["long_prompt_tokens"],
+                           seconds=out["long_s"]),
+         lease_expiries_before_kill=len(out["expiries_before_kill"]),
+         kill=dict(victim=out["victim"], registration_gone_s=out["gone_s"],
+                   requests_done_s=out["recovered_s"],
+                   served=out["served_after_kill"]),
+         kv_blocks_in_use=out["blocks"], kv_blocks_after_kill=out["blocks_after_kill"],
+         exits=exits, card=smi)
+
+    # ---- checks
+    bad = [(g["leader"], g["followers"]) for g in wave1
+           if len(g["leader"]) != 1 or g["followers"].get(g["leader"][0]) != GRAPH_FOLLOWERS]
+    if bad:
+        raise AssertionError(f"graph: followers not routed to their leader's "
+                             f"worker: {bad}")
+    for g in wave1:
+        if g["follower_prefix_hit_tokens"][g["leader"][0]] < GRAPH_FOLLOWERS * GRAPH_PREFIX // 2:
+            raise AssertionError(f"graph: the leader's worker hit only "
+                                 f"{g['follower_prefix_hit_tokens']} prefix tokens")
+    every = [r for ws in out["turns"].values() for w in ws for g in w
+             for r in g["records"]] + list(out["after_kill"])
+    for r in every:
+        if len(r["ids"]) != NEW_TOKENS or r["finish"] != "length":
+            raise AssertionError(f"graph: a stream of {len(r['ids'])} tokens, "
+                                 f"finish {r['finish']}")
+    _check_streams(base, NEW_TOKENS)
+    if len(set(map(tuple, out["sampled"].values()))) != 1:
+        raise AssertionError(f"graph: the seeded sampled request differs "
+                             f"between the workers: {out['sampled']}")
+    if out["expiries_before_kill"]:
+        raise AssertionError(f"graph: a lease expired before the kill: "
+                             f"{out['expiries_before_kill']}")
+    if len(out["long_tokens"]) != 4:
+        raise AssertionError("graph: the long prefill did not finish")
+    if any(out["blocks"].values()) or any(out["blocks_after_kill"].values()):
+        raise AssertionError(f"graph: KV blocks left in use: {out['blocks']} "
+                             f"{out['blocks_after_kill']}")
+    if not out["recovered_s"] <= GRAPH_LEASE_TTL_S + GRAPH_MARGIN_S:
+        raise AssertionError(f"graph: the requests after the kill took "
+                             f"{out['recovered_s']:.1f} s")
+    if out["served_after_kill"] != {out["survivor"]: GRAPH_AFTER_KILL}:
+        raise AssertionError(f"graph: after the kill: {out['served_after_kill']}")
+    if any(rc != 0 for name, rc in exits.items() if name != "worker1"):
+        raise AssertionError(f"graph: exit codes {exits}: {logs}")
+    if exits.get("worker1") != -9:
+        raise AssertionError(f"graph: the killed worker exited {exits.get('worker1')}")
+    totals = {k: sum(d[k] for d in delta.values()) for k in
+              ("paged_decode", "paged_flash", "epilogue")}
+    if GRAPH_DEVICE == "cuda" and not all(totals.values()):
+        raise AssertionError(f"graph: a kernel did not launch in the workers: {delta}")
+    return dict(paged_decode=totals["paged_decode"],
+                paged_flash=totals["paged_flash"],
+                sampling_epilogue=totals["epilogue"])
+
+
 # ------------------------------------------------------------- engine_load
 
 # Qwen2.5-7B (its published config.json): 28 layers, 28 query heads over 4
@@ -6499,7 +7118,8 @@ def _engine_load(torch, dev, smi, tmp):
 
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
-          "engine_mixtral_int8", "engine_sp", "engine_http", "engine_load")
+          "engine_mixtral_int8", "engine_sp", "engine_http", "engine_graph",
+          "engine_load")
 
 
 def main(argv=None) -> int:
@@ -6568,6 +7188,13 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
+    graph_launches = {}
+    if "engine_graph" in phases:
+        # the inference graph's workers (subprocesses): their own counts
+        graph_launches = engine_graph_phase(torch, dev, smi)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
     if "engine_load" in phases:
         launches.update(engine_load_phase(torch, dev, smi))
         torch.cuda.synchronize()
@@ -6576,7 +7203,9 @@ def main(argv=None) -> int:
 
     kernels = [dict(entry, launches=launches.get(key),
                     **({"launches_engine_http": http_launches[key]}
-                       if key in http_launches else {}))
+                       if key in http_launches else {}),
+                    **({"launches_engine_graph": graph_launches[key]}
+                       if key in graph_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     # a form no cell serves (``path`` says so) has no count: null

@@ -1,13 +1,30 @@
 """serve CLI: ``python3 -m dynamo_tpu_torch.cli.run in=<src> out=<engine> [flags]``.
 
-The port's copy of ``dynamo_tpu/cli/run.py`` for one process serving the
+The port's copy of ``dynamo_tpu/cli/run.py``. One process serving the
 OpenAI front: ``in=http`` (the HTTP service) or ``in=text`` (a prompt on
 stdin) over ``out=torch`` (``TorchServingEngine`` behind the preprocessor
 and the detokenizing backend), ``out=echo_core`` (the same stages over the
 token echo engine) or ``out=echo_full`` (the OpenAI-level echo). The engine
 runs on the card unless ``--device cpu`` asks for the CPU; without a card
-the default raises, it does not fall back. Every other input, output and
-reference flag is refused by name.
+the default raises, it does not fall back.
+
+The distributed inference graph, over a dynstore broker (``python3 -m
+dynamo_tpu_torch.runtime.transports.dynstore --port P``, then
+``--store-port P`` on every role):
+
+- ``in=dyn://ns.comp.ep out=torch``: an OpenAI-level worker (preprocess,
+  engine and detokenize here), registered as a model;
+- ``in=dyn://ns.comp.ep out=torch --token-level``: an engine worker
+  serving token-level requests, publishing its KV events and serving its
+  load (``ForwardPassMetrics``) on its stats scrape;
+- ``in=dyn://ns.comp.ep out=processor --worker-endpoint dyn://...
+  --router-mode {round_robin,random,kv}``: preprocess here, route to the
+  token-level workers (``kv``: by the KV-aware router), detokenize here;
+  registered as a model;
+- ``in=http out=none``: a pure frontend whose models come from the
+  discovery plane (``ModelWatcher``).
+
+Every other input, output and reference flag is refused by name.
 
 A ``--model-path`` directory holding a safetensors checkpoint, or a
 ``.gguf`` file, is loaded (``models/loader.py``); a directory without one
@@ -18,11 +35,15 @@ Examples:
       --http-port 8080
   python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path m.gguf
   python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
-      --allow-random-weights --http-port 8080
-  python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
       --allow-random-weights --device cpu --extra-engine-args f32.json
   python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
       --allow-random-weights --kv-cache-dtype fp8
+  python3 -m dynamo_tpu_torch.cli.run in=dyn://public.backend.generate \\
+      out=torch --token-level --model-path <dir> --store-port 4871
+  python3 -m dynamo_tpu_torch.cli.run in=dyn://public.processor.chat \\
+      out=processor --worker-endpoint dyn://public.backend.generate \\
+      --router-mode kv --model-path <dir> --store-port 4871
+  python3 -m dynamo_tpu_torch.cli.run in=http out=none --store-port 4871
 """
 
 from __future__ import annotations
@@ -36,20 +57,20 @@ from typing import List
 
 logger = logging.getLogger(__name__)
 
-INPUTS = ("http", "text")
-ENGINES = ("torch", "echo_core", "echo_full")
+INPUTS = ("http", "text")  # and dyn://ns.comp.ep (a worker role)
+ENGINES = ("torch", "echo_core", "echo_full", "none", "processor")
+ROUTER_MODES = ("round_robin", "random", "kv")
 GRACEFUL_SHUTDOWN_S = 30.0
 
 # the reference's flags this CLI does not take (each raises by name): the
 # engine knobs among them are EngineConfig fields that --extra-engine-args
-# sets; the rest (distribution, recovery, planning, tenants, telemetry)
-# are not ported
+# sets; the rest (multi-device, disaggregation, recovery, planning,
+# tenants, telemetry sidecars) are not ported
 REFUSED_FLAGS = (
-    "--store-host", "--store-port", "--namespace", "--router-mode",
     "--tensor-parallel-size", "--expert-parallel-size",
     "--data-parallel-size", "--pipeline-parallel-size",
     "--sequence-parallel-size", "--long-prefill-threshold-tokens",
-    "--token-level", "--worker-endpoint", "--isolate-engine",
+    "--isolate-engine",
     "--engine-heartbeat-s", "--engine-heartbeat-misses",
     "--engine-init-timeout-s", "--host-kv-blocks", "--multi-step-decode",
     "--device-finish", "--fused-epilogue", "--guided-table-max-states",
@@ -73,7 +94,7 @@ REFUSED_FLAGS = (
     "--trace-ttl-s", "--trace-capacity", "--served-alias", "--model-tenants",
     "--tenant-rps", "--tenant-tps", "--tenant-burst-s", "--tenant-quotas",
     "--pool-scale-to-zero-idle-s", "--pool-cold-start-deadline-s",
-    "--pool-cooldown-s", "--router-staleness-bound-s", "--metrics-port",
+    "--pool-cooldown-s", "--metrics-port",
 )
 
 
@@ -117,6 +138,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--allow-random-weights", action="store_true",
                    help="serve seeded random weights from a model directory "
                         "without a checkpoint")
+    # the distributed graph (in=dyn://..., out=processor, out=none)
+    p.add_argument("--store-host", default="127.0.0.1", help="dynstore host")
+    p.add_argument("--store-port", type=int, default=None,
+                   help="dynstore port (distributed mode)")
+    p.add_argument("--namespace", default="public")
+    p.add_argument("--router-mode", choices=ROUTER_MODES,
+                   default="round_robin",
+                   help="how a processor (or a pure frontend) picks a worker: "
+                        "kv = the KV-aware router")
+    p.add_argument("--token-level", action="store_true",
+                   help="in=dyn:// worker serving token-level requests "
+                        "(publishes KV events and load metrics)")
+    p.add_argument("--worker-endpoint", default=None,
+                   help="dyn://ns.comp.ep of token-level workers (processor role)")
+    p.add_argument("--router-staleness-bound-s", type=float, default=0.0,
+                   help="the KV router skips a worker whose scraped load is "
+                        "older than this (0 = off)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -167,6 +205,12 @@ async def build_engine(engine_spec: str, flags):
         raise SystemExit(
             f"out={engine_spec} is not served by the PyTorch port (served: "
             f"{', '.join(ENGINES)})")
+    if engine_spec == "none":
+        # pure frontend: models come exclusively from the discovery watcher
+        return None, None
+    if engine_spec == "processor":
+        raise SystemExit("out=processor is a worker role: give it "
+                         "in=dyn://ns.comp.ep")
     if engine_spec == "echo_full":
         from ..llm.engines.echo import EchoEngineFull
 
@@ -192,22 +236,38 @@ async def build_engine(engine_spec: str, flags):
 async def run_http(flags, engine, mdc) -> None:
     """Serve until SIGINT / SIGTERM: the first drains in-flight requests
     (up to ``GRACEFUL_SHUTDOWN_S``), a second exits at once."""
-    from ..http.service import HttpService, ModelManager
+    from ..http.service import HttpService, ModelManager, ModelWatcher
 
     manager = ModelManager()
-    name = flags.model_name or (mdc.display_name if mdc else "echo")
-    manager.add_chat_model(name, engine)
-    if mdc is not None:  # pipeline engines dispatch chat AND completions
-        manager.add_completion_model(name, engine)
-    manager.set_metadata(
-        name,
-        model_type="both" if mdc is not None else "chat",
-        max_model_len=mdc.context_length if mdc is not None else None,
-    )
+    if engine is not None:
+        name = flags.model_name or (mdc.display_name if mdc else "echo")
+        manager.add_chat_model(name, engine)
+        if mdc is not None:  # pipeline engines dispatch chat AND completions
+            manager.add_completion_model(name, engine)
+        manager.set_metadata(
+            name,
+            model_type="both" if mdc is not None else "chat",
+            max_model_len=mdc.context_length if mdc is not None else None,
+        )
     service = HttpService(manager, flags.http_host, flags.http_port)
     if hasattr(engine, "engine_metrics"):
         service.metrics.register_callback_gauges(
             "dynamo_engine", engine.engine_metrics)
+    watcher = drt = None
+    if flags.store_port is not None:
+        from ..runtime.client import RouterMode
+        from ..runtime.component import DistributedRuntime
+
+        drt = await DistributedRuntime.connect(flags.store_host, flags.store_port)
+        # the frontend routes each model's OpenAI-level instances (a
+        # processor's, or workers'); "kv" picks round-robin here: a
+        # KV-aware pick needs token ids, which only a processor has
+        watcher = ModelWatcher(drt, manager, flags.namespace,
+                               RouterMode(flags.router_mode))
+        await watcher.start()
+    elif engine is None:
+        raise SystemExit("out=none serves the models it discovers: give it "
+                         "--store-port")
     await service.start()
     print(f"listening on http://{flags.http_host}:{service.port}", flush=True)
     stop_event = asyncio.Event()
@@ -234,7 +294,11 @@ async def run_http(flags, engine, mdc) -> None:
             await asyncio.sleep(0.1)
     finally:
         await service.stop()
-        await engine.close()
+        if watcher is not None:
+            await watcher.stop()
+            await drt.close()
+        if engine is not None:
+            await engine.close()
 
 
 async def run_text(flags, engine, mdc) -> None:
@@ -269,12 +333,182 @@ async def run_text(flags, engine, mdc) -> None:
         await engine.close()
 
 
+def _kernel_launches() -> dict:
+    """Each kernel wrapper's launch count in this process (its bf16 form's
+    where it has an fp8 one, which counts as ``<module>_fp8``; the
+    epilogue's ``finish`` form as ``epilogue_finish``)."""
+    import importlib
+
+    out = {}
+    for name in ("paged_decode", "paged_flash", "paged_verify", "epilogue",
+                 "mla_decode", "sp_prefix"):
+        mod = importlib.import_module(f"{__package__.rsplit('.', 1)[0]}.ops.{name}")
+        out[name] = mod.launches
+        if hasattr(mod, "launches_fp8"):
+            out[f"{name}_fp8"] = mod.launches_fp8
+        if hasattr(mod, "launches_finish"):
+            out[f"{name}_finish"] = mod.launches_finish
+    return out
+
+
+async def run_worker(flags, engine_spec: str, path: str) -> None:
+    """Distributed worker roles (in=dyn://ns.comp.ep), the reference's
+    ``run_worker`` without its sidecars (metrics port, KV fabric,
+    self-healing, incidents):
+
+    - default: full OpenAI-level worker (preprocess+engine+detokenize here)
+    - --token-level: engine worker serving PreprocessedRequests, publishing
+      KV events + ForwardPassMetrics for KV-aware routers
+    - out=processor: preprocess + route to --worker-endpoint workers
+      (KV-aware with --router-mode kv); its stats scrape answers the
+      router's ``stats()``
+    """
+    import uuid
+
+    from ..http.service import parse_endpoint_path, register_model
+    from ..runtime.component import DistributedRuntime
+    from ..runtime.engine import Context
+
+    if flags.store_port is None:
+        raise SystemExit("in=dyn:// requires --store-port")
+    if engine_spec == "none":
+        raise SystemExit("out=none is only valid with in=http (pure frontend)")
+    if engine_spec not in ENGINES:
+        raise SystemExit(
+            f"out={engine_spec} is not served by the PyTorch port (served: "
+            f"{', '.join(ENGINES)})")
+    ns_name, comp, ep_name = parse_endpoint_path(path)
+    drt = await DistributedRuntime.connect(flags.store_host, flags.store_port)
+    endpoint = drt.namespace(ns_name).component(comp).endpoint(ep_name)
+    closers = []
+
+    def make_openai_handler(engine):
+        async def handler(payload, ctx):
+            from ..protocols.annotated import Annotated
+            from ..protocols.openai import ChatCompletionRequest, CompletionRequest
+
+            cls = ChatCompletionRequest if "messages" in payload else CompletionRequest
+            async for chunk in engine.generate(Context(cls.model_validate(payload), ctx)):
+                if isinstance(chunk, Annotated):
+                    yield chunk.to_wire()
+                else:
+                    yield chunk if isinstance(chunk, dict) else chunk.model_dump(exclude_none=True)
+
+        return handler
+
+    if engine_spec == "processor":
+        from ..kv_router.router import KvRouter
+        from ..llm.processor import build_processor_pipeline
+        from ..runtime.client import Client, RouterMode
+
+        if not flags.worker_endpoint:
+            raise SystemExit("out=processor requires --worker-endpoint")
+        mdc = load_mdc(flags)
+        wns, wcomp, wep = parse_endpoint_path(flags.worker_endpoint)
+        w_endpoint = drt.namespace(wns).component(wcomp).endpoint(wep)
+        client = Client(
+            w_endpoint,
+            RouterMode.ROUND_ROBIN if flags.router_mode == "kv"
+            else RouterMode(flags.router_mode),
+        )
+        router = None
+        if flags.router_mode == "kv":
+            router = await KvRouter(
+                w_endpoint.component, client, block_size=flags.kv_block_size,
+                staleness_bound_s=flags.router_staleness_bound_s,
+            ).start()
+        else:
+            await client.start()
+        engine = build_processor_pipeline(mdc, client, router)
+        closers.append(engine.close)
+        name = flags.model_name or mdc.display_name
+        serving = await endpoint.serve(
+            make_openai_handler(engine), span_source="processor",
+            metadata={"model": name},
+            stats_handler=router.stats if router is not None else None)
+        await register_model(drt, flags.namespace, name, path, model_type="both",
+                             mdc={"context_length": mdc.context_length})
+        print(f"processor serving {path} (model={name} → {flags.worker_endpoint})", flush=True)
+
+    elif flags.token_level:
+        from ..kv_router.publisher import KvEventPublisher, KvMetricsPublisher
+
+        mdc = load_mdc(flags)
+        instance_id = f"w-{uuid.uuid4().hex[:12]}"
+        publisher = KvEventPublisher(endpoint.component, instance_id)
+        publisher.start()
+        if engine_spec == "torch":
+            from ..engine.serving import TorchServingEngine
+
+            core = await TorchServingEngine.create(
+                mdc=mdc, flags=flags, device=flags.device,
+                events=publisher.as_sink())
+        else:
+            core = await build_core_engine(engine_spec, flags, mdc)
+        closers.append(core.close)
+
+        async def handler(payload, ctx):
+            async for out in core.generate(Context(payload, ctx)):
+                yield out
+
+        base_metrics = core.metrics if hasattr(core, "metrics") else dict
+        launches = _kernel_launches if engine_spec == "torch" else dict
+
+        def metrics_fn():
+            # the engine's load, the events handed to the broker, and the
+            # kernels' launch counts of this process
+            return dict(base_metrics(), kv_events_published=publisher.published,
+                        launches=launches())
+
+        model_name = flags.model_name or mdc.display_name
+        serving = await endpoint.serve(
+            handler,
+            instance_id=instance_id,
+            stats_handler=KvMetricsPublisher(metrics_fn).stats_handler,
+            span_source="decode_engine",
+            metadata={"model": model_name},
+        )
+        print(f"token-level worker {instance_id} serving {path}", flush=True)
+
+    else:
+        engine, mdc = await build_engine(engine_spec, flags)
+        if engine is not None and hasattr(engine, "close"):
+            closers.append(engine.close)
+        name = flags.model_name or (mdc.display_name if mdc else "echo")
+        serving = await endpoint.serve(make_openai_handler(engine),
+                                       metadata={"model": name})
+        model_type = "both" if mdc is not None else "chat"
+        await register_model(
+            drt, flags.namespace, name, path, model_type=model_type,
+            mdc={"context_length": mdc.context_length} if mdc else None,
+        )
+        print(f"worker serving {path} (model={name})", flush=True)
+
+    stop_event = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            loop.add_signal_handler(sig, stop_event.set)
+        except (NotImplementedError, RuntimeError):
+            pass
+    try:
+        await stop_event.wait()
+    finally:
+        await serving.stop()
+        for close in closers:
+            await close()
+        await drt.close()
+
+
 async def amain(argv: List[str]) -> None:
     src, engine_spec, rest = parse_io(argv)
     flags = parse_flags(rest)
     logging.basicConfig(
         level=logging.DEBUG if flags.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if src.startswith("dyn://"):
+        await run_worker(flags, engine_spec, src)
+        return
     if src not in INPUTS:
         raise SystemExit(
             f"in={src} is not served by the PyTorch port (served: "

@@ -36,6 +36,14 @@
 // The block table's row stride is an argument: the caller passes one row
 // broadcast over the ranks (stride 0) instead of a copy per rank.
 //
+// The fp8 form (sp_prefix_partials_fp8) reads an e4m3 cache (no scale):
+// the ring holds e4m3 tiles and each landed tile is upcast into the one
+// bf16 K and V tile the products read (kv_fp8.cuh, the core's kFp8 walk,
+// as the flash kernel's fp8 form does), so it computes bit for bit what
+// the bf16 form computes over the cache upcast to bf16, from half the
+// bytes. It replaces the TPU kernel's fp8 upcast (pallas_sp.py:127-129).
+// Two warpgroups at head_dim 128 take 115,712 bytes of shared memory.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (dynamo_tpu_torch/ops/_build.py); plain C entry
 //        point below, bound with ctypes by dynamo_tpu_torch/ops/sp_prefix.py.
@@ -53,11 +61,11 @@ constexpr int kThreads = cta_threads<kWG>();
 
 constexpr float MASK_VALUE = -1e30f;
 
-template <int D>
+template <int D, bool kFp8>
 __global__ void __launch_bounds__(kThreads) sp_prefix_tc_kernel(
     const __nv_bfloat16* __restrict__ q,    // [B, S, H, D]
-    const __nv_bfloat16* __restrict__ kc,   // [L, N, bs, KVH, D]
-    const __nv_bfloat16* __restrict__ vc,   // [L, N, bs, KVH, D]
+    const void* __restrict__ kc,            // [L, N, bs, KVH, D] bf16 / e4m3
+    const void* __restrict__ vc,            // [L, N, bs, KVH, D]
     const int* __restrict__ bt,             // row b at bt + b * bt_stride
     float* __restrict__ acc_out,            // [B, S, H, D] = [B, S, KVH, G, D]
     float* __restrict__ m_out,              // [B, S, H]
@@ -93,8 +101,8 @@ __global__ void __launch_bounds__(kThreads) sp_prefix_tc_kernel(
   Problem p{q, kc, vc, bt + (size_t)b * bt_stride, S, H, KVH, G, N, bs,
             layer, b, kvh, s0, scale};
   RowState<D> st;
-  attend<D, kWG, /*kCausal=*/false, /*kSplitP=*/true>(p, 0, 0, 0, prefix_len,
-                                                 smem, st);
+  attend<D, kWG, /*kCausal=*/false, /*kSplitP=*/true, /*kCap=*/false, kFp8>(
+      p, 0, 0, 0, prefix_len, smem, st);
 
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -116,27 +124,42 @@ __global__ void __launch_bounds__(kThreads) sp_prefix_tc_kernel(
   }
 }
 
-template <int D>
+template <int D, bool kFp8>
 int launch(const void* q, const void* k, const void* v, const void* bt,
            void* acc, void* m, void* l, int B, int S, int H, int KVH, int N,
            int bs, int bt_stride, int prefix_len, int layer, float scale,
            cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
-  constexpr int smem = smem_bytes<D, kWG>();
+  constexpr int smem = smem_bytes<D, kWG, kFp8>();
+  static_assert(smem <= 232448, "a CTA's shared memory must fit an H100");
   cudaError_t err = allow_smem_once(
-      reinterpret_cast<const void*>(sp_prefix_tc_kernel<D>), smem, smem_set);
+      reinterpret_cast<const void*>(sp_prefix_tc_kernel<D, kFp8>), smem,
+      smem_set);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KVH;
   const int BQ = kRows / G;
   const dim3 grid((S + BQ - 1) / BQ, KVH, B);
-  sp_prefix_tc_kernel<D><<<grid, dim3(kThreads), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(bt),
+  sp_prefix_tc_kernel<D, kFp8><<<grid, dim3(kThreads), smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const int*>(bt),
       static_cast<float*>(acc), static_cast<float*>(m),
       static_cast<float*>(l), S, H, KVH, N, bs, bt_stride, prefix_len, layer,
       scale);
   return (int)cudaGetLastError();
+}
+
+template <bool kFp8>
+int partials(const void* q, const void* k, const void* v, const void* bt,
+             void* acc, void* m, void* l, int B, int S, int H, int KVH, int D,
+             int N, int bs, int bt_stride, int prefix_len, int layer,
+             float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch<64, kFp8>(q, k, v, bt, acc, m, l, B, S, H, KVH, N, bs,
+                            bt_stride, prefix_len, layer, scale, s);
+  if (D == 128)
+    return launch<128, kFp8>(q, k, v, bt, acc, m, l, B, S, H, KVH, N, bs,
+                             bt_stride, prefix_len, layer, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -145,7 +168,7 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
 // has checked types, shapes, contiguity, 16-byte alignment, that head_dim
 // is 64 or 128 (the two instantiations), that the group size G = H / KVH
 // is at most 128, that prefix_len fits the block table (W pages of bs keys)
-// and that layer is in range.
+// and that layer is in range. q is bf16; k and v are bf16 here ...
 extern "C" int sp_prefix_partials_bf16(const void* q, const void* k,
                                        const void* v, const void* bt,
                                        void* acc, void* m, void* l, int B,
@@ -154,12 +177,19 @@ extern "C" int sp_prefix_partials_bf16(const void* q, const void* k,
                                        int prefix_len, int layer, float scale,
                                        void* stream) {
   (void)W;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, bt, acc, m, l, B, S, H, KVH, N, bs, bt_stride,
-                      prefix_len, layer, scale, s);
-  if (D == 128)
-    return launch<128>(q, k, v, bt, acc, m, l, B, S, H, KVH, N, bs, bt_stride,
-                       prefix_len, layer, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return partials<false>(q, k, v, bt, acc, m, l, B, S, H, KVH, D, N, bs,
+                         bt_stride, prefix_len, layer, scale, stream);
+}
+
+// ... and e4m3 (torch.float8_e4m3fn, no scale) here.
+extern "C" int sp_prefix_partials_fp8(const void* q, const void* k,
+                                      const void* v, const void* bt,
+                                      void* acc, void* m, void* l, int B,
+                                      int S, int H, int KVH, int D, int N,
+                                      int bs, int W, int bt_stride,
+                                      int prefix_len, int layer, float scale,
+                                      void* stream) {
+  (void)W;
+  return partials<true>(q, k, v, bt, acc, m, l, B, S, H, KVH, D, N, bs,
+                        bt_stride, prefix_len, layer, scale, stream);
 }

@@ -1,8 +1,12 @@
 """Paged KV block allocator with prefix-cache reuse and LRU eviction.
 
 The port's copy of ``dynamo_tpu/engine/block_allocator.py``, reduced to
-what the serving path uses: no host-RAM offload tier, no
-pins/fences, no retention priorities and no KV event hooks (later slices).
+what the serving path uses: no host-RAM offload tier, no pins/fences and
+no retention priorities (``allocate_n``, ``pin_blocks`` / ``unpin_blocks``
+and ``set_priority`` are later slices). KV events go to a ``KvEventSink``
+at the reference's sites: a block registered complete is stored, an
+evicted or released hashed block is removed (the worker's KV publisher
+turns them into the router's events).
 Semantics follow the reference's block manager (SURVEY.md §2.2,
 reference: lib/llm/src/kv/{manager,reuse,reserved}.rs) over the engine's
 flat block-id space:
@@ -18,18 +22,37 @@ flat block-id space:
 
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..tokens import compute_block_hashes
 
 
+@dataclasses.dataclass
+class KvEventSink:
+    """Engine-side KV event hooks (no-op by default).
+
+    The ``_cold`` pair announces cold-tier residency in the reference
+    (kv/cold_tier.py spills/evictions); the port has no cold tier yet, so
+    nothing calls it here."""
+
+    on_stored: Callable[[List[int], Optional[int]], None] = lambda hashes, parent: None
+    on_removed: Callable[[List[int]], None] = lambda hashes: None
+    on_stored_cold: Callable[[List[int], Optional[int]], None] = (
+        lambda hashes, parent: None
+    )
+    on_removed_cold: Callable[[List[int]], None] = lambda hashes: None
+
+
 class BlockAllocator:
     def __init__(self, num_blocks: int, block_size: int,
-                 enable_prefix_caching: bool = True):
+                 enable_prefix_caching: bool = True,
+                 events: Optional[KvEventSink] = None):
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.enable_prefix_caching = enable_prefix_caching
+        self.events = events or KvEventSink()
         self.free: List[int] = list(range(num_blocks - 1, -1, -1))  # pop() → block 0 first
         # sequence_hash → block id (cached, complete blocks)
         self.by_hash: Dict[int, int] = {}
@@ -59,6 +82,7 @@ class BlockAllocator:
             h = self.block_hash.pop(bid, None)
             if h is not None:
                 self.by_hash.pop(h, None)
+                self.events.on_removed([h])
             return bid
         raise MemoryError("KV cache exhausted")
 
@@ -116,7 +140,8 @@ class BlockAllocator:
         self.refcount[bid] = self.refcount.get(bid, 0) + 1
         return bid
 
-    def register_complete(self, bid: int, sequence_hash: int) -> None:
+    def register_complete(self, bid: int, sequence_hash: int,
+                          parent_hash: Optional[int]) -> None:
         """A block is now full with known content — make it matchable."""
         if not self.enable_prefix_caching:
             return
@@ -125,6 +150,7 @@ class BlockAllocator:
             return  # identical content already cached under another block
         self.by_hash[sequence_hash] = bid
         self.block_hash[bid] = sequence_hash
+        self.events.on_stored([sequence_hash], parent_hash)
 
     def rollback_tail(self, block_ids: List[int], keep: int) -> List[int]:
         """Release the over-allocated tail of a sequence's block list.
@@ -146,6 +172,7 @@ class BlockAllocator:
         """Release a sequence's references. Hashed blocks become reusable
         (still matchable until evicted); anonymous blocks go to the free
         list."""
+        removed_hashes: List[int] = []
         for bid in block_ids:
             rc = self.refcount.get(bid, 0) - 1
             if rc > 0:
@@ -158,4 +185,7 @@ class BlockAllocator:
                 h = self.block_hash.pop(bid, None)
                 if h is not None:
                     self.by_hash.pop(h, None)
+                    removed_hashes.append(h)
                 self.free.append(bid)
+        if removed_hashes:
+            self.events.on_removed(removed_hashes)

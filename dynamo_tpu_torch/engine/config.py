@@ -298,7 +298,8 @@ class EngineConfig:
     # 0.043 against 0.042, argmax flips 0.10 against 0.10;
     # dynamo_tpu/engine/model_runner.py:213-221), and its MLA decode
     # kernel has its own fp8 form, as the port's has (mla_decode_fp8).
-    # Sequence-parallel prefill with fp8 waits for kernel 6's fp8 form.
+    # Sequence-parallel prefill reads an fp8 prefix through kernel 6's fp8
+    # form (sp_prefix_partials_fp8).
     kv_cache_dtype: str = "auto"
     # mesh axes: pipeline stages x data-parallel replicas x expert-parallel
     # x tensor-parallel. pp > 1 stages the dense trunk over a collective
@@ -619,7 +620,7 @@ class EngineConfig:
         ``ValueError`` by name, as in the reference). Not served: the
         chained propose-verify round (so the pipeline together with
         speculation), draft models, several devices (so SP over TP heads),
-        KV tiers and pulls, sequence-parallel prefill over an fp8 cache.
+        KV tiers and pulls.
         Each refusal names the knob so a reference config that uses it
         fails loudly instead of serving something else."""
         check_quantization(self.model)
@@ -643,10 +644,6 @@ class EngineConfig:
             unported.append("multi-device parallelism (tp/dp/ep/pp)")
         if self.host_kv_blocks or self.cold_tier_blocks or self.prefix_pull:
             unported.append("KV offload tiers and prefix pulls")
-        if self.sp_size > 1 and self.kv_cache_dtype == "fp8":
-            unported.append(
-                "sp_size > 1 with kv_cache_dtype='fp8' (kernel 6's fp8 form: "
-                "the sequence-parallel prefix partials over e4m3 pages)")
         if self.dtype not in ("bfloat16", "float32"):
             unported.append(f"dtype={self.dtype!r}")
         if unported:

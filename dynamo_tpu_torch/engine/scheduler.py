@@ -61,7 +61,7 @@ from ..protocols.common import (
 )
 from ..runtime.engine import AsyncEngineContext
 from ..tokens import TokenSequence
-from .block_allocator import BlockAllocator
+from .block_allocator import BlockAllocator, KvEventSink
 from .config import EngineConfig
 from .guided import TrieConstraint, compile_device_table
 from .model_runner import HostCopy, ModelRunner, build_prefill_arrays
@@ -350,12 +350,15 @@ class Scheduler:
     # dispatch reads the cache (a missing table just recompiles)
     GUIDED_TABLE_CACHE = 16
 
-    def __init__(self, runner: ModelRunner, config: EngineConfig):
+    def __init__(self, runner: ModelRunner, config: EngineConfig,
+                 events: Optional[KvEventSink] = None):
         self.runner = runner
         self.config = config
+        # KV events (a worker's publisher): stored on registration, removed
+        # on eviction or release, as the reference's allocator emits them
         self.allocator = BlockAllocator(
             config.num_kv_blocks, config.kv_block_size,
-            config.enable_prefix_caching,
+            config.enable_prefix_caching, events,
         )
         self.waiting: deque = deque()
         self._host = _HostBatchState(config)
@@ -455,6 +458,10 @@ class Scheduler:
                 self.prefix_hit_tokens / self.prefix_total_tokens
                 if self.prefix_total_tokens else 0.0
             ),
+            # the counts behind the rate: a router's scrape reads which
+            # worker served a prefix from its cache
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_total_tokens": self.prefix_total_tokens,
             "steps": self.steps,
             "prefill_steps": self.prefill_steps,
             "decode_steps": self.decode_steps,
@@ -548,7 +555,8 @@ class Scheduler:
                          len(er.seq.blocks))
         for i in range(er.registered_blocks, n_complete):
             blk = er.seq.blocks[i]
-            self.allocator.register_complete(er.block_ids[i], blk.sequence_hash)
+            self.allocator.register_complete(
+                er.block_ids[i], blk.sequence_hash, blk.parent_sequence_hash)
         er.registered_blocks = max(er.registered_blocks, n_complete)
 
     # ---------- the loop ----------

@@ -35,6 +35,7 @@ from typing import Any, AsyncIterator, Optional
 from ..protocols.common import EngineOutput, FinishReason, PreprocessedRequest
 from ..runtime.engine import AsyncEngine, AsyncEngineContext, Context, EngineError
 from ..models.loader import resolve_weights
+from .block_allocator import KvEventSink
 from .config import EngineConfig, ModelConfig
 from .model_runner import ModelRunner
 from .scheduler import EngineRequest, Scheduler
@@ -130,6 +131,7 @@ class TorchServingEngine(AsyncEngine):
         *,
         mdc=None,
         flags=None,
+        events: Optional[KvEventSink] = None,
     ) -> "TorchServingEngine":
         """Build the runner on ``device`` (default "cuda", which raises when
         no card is present), warm it up (builds the kernels on a card) and
@@ -139,7 +141,9 @@ class TorchServingEngine(AsyncEngine):
         the model card ``mdc`` and the CLI ``flags``
         (``engine_config_from_mdc``). The card's directory (or ``.gguf``)
         is loaded (``ModelRunner(model_dir=...)``) or, without a checkpoint,
-        must allow random weights (``models.loader.resolve_weights``)."""
+        must allow random weights (``models.loader.resolve_weights``).
+        ``events`` receives the allocator's KV events (a token-level
+        worker's ``KvEventPublisher.as_sink()``)."""
         if engine_config is None:
             if mdc is None:
                 raise ValueError("create needs an engine_config or a model card")
@@ -151,7 +155,7 @@ class TorchServingEngine(AsyncEngine):
                                       device=device, model_dir=model_dir))
         if warmup:
             await loop.run_in_executor(None, runner.warmup)
-        scheduler = Scheduler(runner, engine_config)
+        scheduler = Scheduler(runner, engine_config, events)
         engine = cls(runner, scheduler, engine_config)
         scheduler.start()
         return engine

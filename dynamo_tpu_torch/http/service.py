@@ -12,9 +12,15 @@ the reference's.
 Routes: POST /v1/chat/completions, POST /v1/completions, POST
 /v1/embeddings (501: no embedder yet), GET /v1/models, GET /metrics,
 GET /health. A client that goes away mid-stream stops its request.
-Not ported yet: the model registry's aliases and tenants, admission,
-quotas and pools, the discovery watcher, and the /debug, /admin and /fleet
-routes.
+
+Discovery (the reference's ``register_model`` / ``ModelWatcher``): a
+worker or processor registers its model under the discovery plane's
+``{namespace}/models/`` prefix, lease-scoped, and a frontend's
+``ModelWatcher`` adds a routed ``Client`` for each registration and drops
+it when the registration goes (the worker's lease expired). Not ported
+yet: the model registry's fleet cards (``register_model``'s ``card``, so
+aliases, tenants and per-model pools), admission, quotas and pools, and
+the /debug, /admin and /fleet routes.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ from ..protocols.openai import (
     aggregate_chat_stream,
     aggregate_completion_stream,
 )
+from ..runtime.client import Client, RouterMode
+from ..runtime.discovery import WatchEventType
 from ..runtime.engine import (
     AsyncEngine,
     AsyncEngineContext,
@@ -43,6 +51,7 @@ from ..runtime.engine import (
     EngineDrainingError,
     EngineError,
 )
+from ..runtime.wire import packb, unpackb
 from .metrics import ServiceMetrics
 
 logger = logging.getLogger(__name__)
@@ -53,6 +62,7 @@ _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             503: "Service Unavailable"}
 MAX_HEADER_BYTES = 64 * 1024
 MAX_BODY_BYTES = 64 * 1024 * 1024
+MODEL_REGISTRY_PREFIX = "models/"  # under the http namespace
 
 
 class ModelManager:
@@ -73,6 +83,11 @@ class ModelManager:
 
     def add_completion_model(self, name: str, engine: AsyncEngine) -> None:
         self.completion_engines[name] = engine
+
+    def remove_model(self, name: str) -> None:
+        self.chat_engines.pop(name, None)
+        self.completion_engines.pop(name, None)
+        self.metadata.pop(name, None)  # a re-registration starts clean
 
     def resolve(self, model: str) -> Optional[str]:
         """Requested name → served name, or None."""
@@ -553,3 +568,151 @@ def _has_payload(chunk: Any) -> bool:
         if (choice.get("delta") or {}).get("content") or choice.get("text"):
             return True
     return False
+
+
+# ---------- model registry + discovery watcher ----------
+
+
+def model_registry_key(namespace: str, model_type: str, name: str) -> str:
+    return f"{namespace}/{MODEL_REGISTRY_PREFIX}{model_type}/{name}"
+
+
+async def register_model(
+    drt,
+    namespace: str,
+    name: str,
+    endpoint_path: str,
+    model_type: str = "chat",
+    mdc: Optional[dict] = None,
+    lease_scoped: bool = True,
+) -> None:
+    """Register a served model in the discovery plane (llmctl analog).
+
+    ``endpoint_path`` is a dyn://ns.comp.ep address whose workers accept
+    OpenAI-level requests (preprocessing is worker-side, as in the
+    reference's v0.1.1 layout). The reference's ``card`` (the fleet card
+    of its model registry) is not taken: the registry is not ported.
+    """
+    entry = {"name": name, "endpoint": endpoint_path, "model_type": model_type}
+    if mdc:
+        entry["mdc"] = mdc
+    lease = await drt.discovery.primary_lease() if lease_scoped else None
+    await drt.discovery.kv_put(
+        model_registry_key(namespace, model_type, name),
+        packb(entry),
+        lease_id=lease.id if lease else None,
+    )
+
+
+async def list_models(drt, namespace: str) -> list:
+    kvs = await drt.discovery.kv_get_prefix(f"{namespace}/{MODEL_REGISTRY_PREFIX}")
+    return [unpackb(v) for v in kvs.values()]
+
+
+def parse_endpoint_path(path: str):
+    """'dyn://ns.comp.ep' → (ns, comp, ep)."""
+    body = path[len("dyn://"):] if path.startswith("dyn://") else path
+    parts = body.split(".")
+    if len(parts) != 3:
+        raise ValueError(f"bad endpoint path {path!r}; want dyn://ns.comp.ep")
+    return parts[0], parts[1], parts[2]
+
+
+class ModelWatcher:
+    """Hot-add/remove models from discovery-plane registrations. The
+    reference's fleet cards (aliases, tenants, per-model pools) are left
+    out: every registration serves the whole endpoint, as a card-less one
+    does there."""
+
+    def __init__(
+        self,
+        drt,
+        manager: ModelManager,
+        namespace: str = "public",
+        router_mode: RouterMode = RouterMode.ROUND_ROBIN,
+    ):
+        self.drt = drt
+        self.manager = manager
+        self.namespace = namespace
+        self.router_mode = router_mode
+        self._clients: Dict[str, Client] = {}
+        self._task: Optional[asyncio.Task] = None
+        self._watcher = None
+        # strong refs to in-flight client.close() tasks spawned from the
+        # sync delete path: a bare ensure_future can be GC'd mid-close
+        # and would drop any close() exception on the floor
+        self._closing: set = set()
+
+    async def start(self) -> None:
+        prefix = f"{self.namespace}/{MODEL_REGISTRY_PREFIX}"
+        snapshot, watcher = await self.drt.discovery.watch_prefix(prefix)
+        self._watcher = watcher
+        for key, value in snapshot.items():
+            await self._handle_put(key, value)
+        self._task = self.drt.runtime.spawn(self._loop(watcher))
+
+    async def _loop(self, watcher) -> None:
+        async for ev in watcher:
+            try:
+                if ev.type == WatchEventType.PUT:
+                    await self._handle_put(ev.key, ev.value)
+                else:
+                    self._handle_delete(ev.key)
+            except Exception:
+                logger.exception("model watcher failed on %s", ev.key)
+
+    async def _handle_put(self, key: str, value: bytes) -> None:
+        entry = unpackb(value)
+        name = entry["name"]
+        ns, comp, ep = parse_endpoint_path(entry["endpoint"])
+        endpoint = self.drt.namespace(ns).component(comp).endpoint(ep)
+        client = await Client(endpoint, self.router_mode).start()
+        previous = self._clients.pop(name, None)
+        if previous is not None:
+            # re-registration PUT: release the old client's watch task
+            # instead of leaking one per worker churn event
+            await previous.close()
+        # start clean: a narrowed model_type must not leave the closed
+        # client behind in the other engine map, nor stale metadata
+        self.manager.remove_model(name)
+        self._clients[name] = client
+        model_type = entry.get("model_type", "chat")
+        self.manager.set_metadata(
+            name,
+            model_type=model_type,
+            max_model_len=(entry.get("mdc") or {}).get("context_length"),
+        )
+        if model_type in ("chat", "both"):
+            self.manager.add_chat_model(name, client)
+        if model_type in ("completions", "both"):
+            self.manager.add_completion_model(name, client)
+        logger.info("model %s → %s registered (%s)", name, entry["endpoint"], model_type)
+
+    def _handle_delete(self, key: str) -> None:
+        name = key.rsplit("/", 1)[-1]
+        self.manager.remove_model(name)
+        client = self._clients.pop(name, None)
+        if client is not None:
+            task = asyncio.ensure_future(client.close())
+            self._closing.add(task)
+
+            def _done(t: asyncio.Task, model: str = name) -> None:
+                self._closing.discard(t)
+                if not t.cancelled() and t.exception() is not None:
+                    logger.warning("closing client for removed model %s "
+                                   "failed: %s", model, t.exception())
+
+            task.add_done_callback(_done)
+        logger.info("model %s removed", name)
+
+    async def stop(self) -> None:
+        if self._watcher is not None:
+            self._watcher.cancel()
+        if self._task is not None:
+            self._task.cancel()
+        # drain close() tasks spawned by deletes racing shutdown, so their
+        # exceptions are observed before the loop is torn down under them
+        if self._closing:
+            await asyncio.gather(*list(self._closing), return_exceptions=True)
+        for client in self._clients.values():
+            await client.close()

@@ -26,10 +26,17 @@ bf16 once, an error of the order of the 1e-3 to which ``acc`` is held
 against the f32 plain version). It is bound by operations at the
 engine's shapes; see the sources.
 
+The kernel has a bf16 and an fp8 form: e4m3 caches (no scale) launch
+``sp_prefix_partials_fp8``, which reads the e4m3 pages and upcasts them on
+the card (the TPU kernel's upcast, ``pallas_sp.py:127-129``), bit for bit
+the bf16 form over the cache upcast to bf16. The plain version upcasts the
+gathered bytes as the other plain versions do.
+
 CPU tensors take ``paged_prefix_attention_partials_ref``; CUDA tensors
 launch the kernel or raise. ``prefix_len`` and ``layer_idx`` are host
 ints, passed as kernel arguments, so a launch reads nothing back from the
-card. ``launches`` counts kernel launches.
+card. ``launches`` counts launches of the bf16 form, ``launches_fp8`` of
+the fp8 form.
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ from typing import Optional
 import torch
 
 from . import _build
+from .attention import gather_pages, kernel_form
 
 launches = 0
+launches_fp8 = 0
 
 # the reference's MASK_VALUE (pallas_decode.py:39): the running max of a row
 # that saw no key. Finite, so the caller's exp(m_p − max(m_r, m_p)) never
@@ -82,8 +91,8 @@ def paged_prefix_attention_partials_ref(
     if npages == 0:
         return acc, m, l
     bt = block_tables[:, :npages].long()
-    k = k_cache[li][bt].reshape(b, npages * bs, kvh, d).float()
-    v = v_cache[li][bt].reshape(b, npages * bs, kvh, d).float()
+    k = gather_pages(k_cache[li], bt).reshape(b, npages * bs, kvh, d).float()
+    v = gather_pages(v_cache[li], bt).reshape(b, npages * bs, kvh, d).float()
     qs = q.reshape(b, s, kvh, g, d).float()
     sc = torch.einsum("bskgd,btkd->bskgt", qs, k) * scale
     live = torch.arange(npages * bs, device=q.device) < pfx
@@ -93,9 +102,9 @@ def paged_prefix_attention_partials_ref(
     return torch.einsum("bskgt,btkd->bskgd", p, v), m, p.sum(dim=-1)
 
 
-def _lib():
+def _lib(form: str):
     lib = _build.load("sp_prefix")
-    fn = lib.sp_prefix_partials_bf16
+    fn = getattr(lib, f"sp_prefix_partials_{form}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
@@ -110,12 +119,8 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, prefix_len,
     if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
         raise ValueError("expected stacked caches [L, N, bs, KVH, D] of one shape")
     l, n, bs, kvh, _ = k_cache.shape
+    form = kernel_form("sp prefix kernel", q, k_cache, v_cache)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"sp prefix kernel: {name} must be bfloat16 (got {t.dtype}); "
-                "its fp8 form (e4m3 caches, pallas_sp.py:127-129) is not "
-                "ported yet")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 f"sp prefix kernel: {name} must be contiguous and 16-byte aligned")
@@ -144,6 +149,7 @@ def _check_cuda_inputs(q, k_cache, v_cache, block_tables, prefix_len,
                          f"{block_tables.shape[1] * bs} positions")
     if not 0 <= layer_idx < l:
         raise ValueError(f"layer_idx {layer_idx} outside [0, {l})")
+    return form
 
 
 def paged_prefix_attention_partials(
@@ -164,22 +170,25 @@ def paged_prefix_attention_partials(
     if q.device.type != "cuda":
         return paged_prefix_attention_partials_ref(
             q, k_cache, v_cache, block_tables, prefix_len, layer_idx, scale)
-    global launches
+    global launches, launches_fp8
     layer_idx = 0 if layer_idx is None else layer_idx
-    _check_cuda_inputs(q, k_cache, v_cache, block_tables, prefix_len, layer_idx)
+    form = _check_cuda_inputs(q, k_cache, v_cache, block_tables, prefix_len, layer_idx)
     b, s, h, d = q.shape
     l, n, bs, kvh, _ = k_cache.shape
     g = h // kvh
     acc = torch.empty((b, s, kvh, g, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, s, kvh, g), dtype=torch.float32, device=q.device)
     lsum = torch.empty((b, s, kvh, g), dtype=torch.float32, device=q.device)
-    rc = _lib()(
+    rc = _lib(form)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), acc.data_ptr(), m.data_ptr(), lsum.data_ptr(),
         b, s, h, kvh, d, n, bs, block_tables.shape[1],
         block_tables.stride(0), int(prefix_len), int(layer_idx), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "sp_prefix_partials_bf16")
-    launches += 1
+    _build.check(rc, f"sp_prefix_partials_{form}")
+    if form == "fp8":
+        launches_fp8 += 1
+    else:
+        launches += 1
     return acc, m, lsum

@@ -14,7 +14,11 @@ cache. Both key sources fold into ONE online softmax:
   in place from the paged cache by the prefix kernel
   (``ops/sp_prefix.paged_prefix_attention_partials``; its plain version on
   the CPU), the ranks stacked as the kernel's batch rows over one
-  broadcast block table.
+  broadcast block table. An fp8 (e4m3) cache takes the kernel's fp8 form,
+  which upcasts the pages as it reads them (the reference upcasts fp8
+  storage to the compute dtype, ``parallel/sequence.py:159``, and in its
+  prefix kernel, ``ops/pallas_sp.py:127-129``); the fresh K/V of the ring
+  stay in the compute dtype, as there.
 
 The two partial sets merge exp-weighted and normalise once. Prefix keys
 are exactly the cache slots ``< chunk_start``: the chunk's own slots are

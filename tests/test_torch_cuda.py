@@ -1238,6 +1238,40 @@ def test_sp_prefix_kernel_groups_that_leave_spare_rows(h, prefix_len):
     _sp_prefix_case(prefix_len, d=128, h=h)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix_len", [0, 17, 160])
+@pytest.mark.parametrize("h", [8, 14], ids=["G4", "G7"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sp_prefix_fp8_form_equals_the_bf16_form_over_the_upcast_cache(
+        d, h, prefix_len):
+    """Kernel 6's fp8 form over e4m3 caches returns bit for bit what its
+    bf16 form returns over the caches upcast to bf16, for 4 ranks on one
+    broadcast block table row, at head_dim 64 and 128 and G 4 and 7; it
+    launches the fp8 symbol and not the bf16 one, and stays within the
+    bf16 form's tolerances of the f32 plain version."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    k8, v8, kb, vb = _fp8_caches(g, d=d)
+    row = torch.randperm(400, generator=g, device="cuda")[:10].int()[None]
+    bt = row.expand(4, 10)
+    q = torch.randn(4, 20, h, d, generator=g, device="cuda").bfloat16()
+    before = (sp_prefix.launches, sp_prefix.launches_fp8)
+    out8 = sp_prefix.paged_prefix_attention_partials(q, k8, v8, bt, prefix_len, 2)
+    outb = sp_prefix.paged_prefix_attention_partials(q, kb, vb, bt, prefix_len, 2)
+    ref = sp_prefix.paged_prefix_attention_partials_ref(
+        q.float(), k8, v8, bt, prefix_len, 2)
+    torch.cuda.synchronize()
+    assert (sp_prefix.launches, sp_prefix.launches_fp8) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(out8, outb):
+        assert torch.equal(a, b)
+    if prefix_len:
+        torch.testing.assert_close(out8[1], ref[1], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(out8[2], ref[2], atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(
+            out8[0], ref[0], atol=1e-3 * float(ref[0].abs().max()), rtol=1e-3)
+
+
 def _write_safetensors(path, tensors):
     """A safetensors file by its format (8-byte header length, JSON
     header, the tensors' bytes): the card's machine has no writer."""

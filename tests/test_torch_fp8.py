@@ -409,18 +409,55 @@ def test_fp8_is_accepted_and_an_unknown_cache_dtype_raises_the_reference_error()
 
 
 def test_sequence_parallel_prefill_with_fp8_is_refused_by_name():
+    """SP prefill over an fp8 cache is served now (kernel 6's fp8 form):
+    the config takes it and the kernel's guard routes e4m3 caches to the
+    fp8 entry. What stays refused is refused by name: a mixed pair of
+    caches, and head_dim 256 in either form."""
     _, mcfg = _configs("llama")
-    with pytest.raises(NotImplementedError, match="kernel 6's fp8 form"):
-        EngineConfig(model=mcfg, sp_size=4, long_prefill_threshold_tokens=64,
-                     max_model_len=256, kv_cache_dtype="fp8")
     EngineConfig(model=mcfg, sp_size=4, long_prefill_threshold_tokens=64,
-                 max_model_len=256)
-    # and the kernel's own guard names the missing form
+                 max_model_len=256, kv_cache_dtype="fp8")
     q = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16)
-    k = torch.zeros(2, 4, BS, 2, 64, dtype=torch.bfloat16).to(FP8)
-    with pytest.raises(NotImplementedError, match="fp8 form"):
-        sp_prefix._check_cuda_inputs(q, k, k, torch.zeros(1, 4, dtype=torch.int32),
-                                     8, 0)
+    k = torch.zeros(2, 4, BS, 2, 64, dtype=torch.bfloat16)
+    bt = torch.zeros(1, 4, dtype=torch.int32)
+    assert sp_prefix._check_cuda_inputs(q, k, k, bt, 8, 0) == "bf16"
+    assert sp_prefix._check_cuda_inputs(q, k.to(FP8), k.to(FP8), bt, 8, 0) == "fp8"
+    with pytest.raises(NotImplementedError, match="all bfloat16 or all float8_e4m3fn"):
+        sp_prefix._check_cuda_inputs(q, k.to(FP8), k, bt, 8, 0)
+    q256 = torch.zeros(1, 4, 4, 256, dtype=torch.bfloat16)
+    k256 = torch.zeros(2, 4, BS, 2, 256, dtype=torch.bfloat16).to(FP8)
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        sp_prefix._check_cuda_inputs(q256, k256, k256, bt, 8, 0)
+
+
+@pytest.mark.parametrize("heads", [8, 14], ids=["G4", "G7"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp8_prefix_partials_plain_version_matches_pallas_interpret(d, heads):
+    """Kernel 6's plain version over e4m3 caches against the reference's
+    prefix kernel in interpret mode over the same bytes (it upcasts each
+    page, ``pallas_sp.py:127-129``), at head_dim 64 and 128 and GQA groups
+    4 and 7 over 2 KV heads, layer 2 of a stacked cache, a partial last
+    page; f32 to ``OP_TOL``. CPU tensors never launch the kernel."""
+    from dynamo_tpu.ops.pallas_sp import (
+        paged_prefix_attention_partials as jax_prefix_partials,
+    )
+
+    rng = np.random.default_rng(zlib.crc32(f"sp-{d}-{heads}".encode()))
+    b, s, kvh, layers, n, w = 2, 8, 2, 3, 12, 5
+    q = rng.standard_normal((b, s, heads, d)).astype(np.float32)
+    k = rng.standard_normal((layers, n, BS, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((layers, n, BS, kvh, d)).astype(np.float32)
+    bt = rng.permutation(n)[: b * w].reshape(b, w).astype(np.int32)
+    jk, tk = _both_fp8(k)
+    jv, tv = _both_fp8(v)
+    pfx = 2 * BS + 3
+    ja, jm, jl = jax_prefix_partials(jnp.asarray(q), jk, jv, jnp.asarray(bt),
+                                     pfx, 2, interpret=True)
+    acc, m, l = sp_prefix.paged_prefix_attention_partials(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(bt), pfx, 2)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(ja), **OP_TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), **OP_TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), **OP_TOL)
+    assert sp_prefix.launches == sp_prefix.launches_fp8 == 0
 
 
 def test_cli_kv_cache_dtype_reaches_the_engine_config_as_in_the_reference():

@@ -75,7 +75,19 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.protocols.openai", "dynamo_tpu_torch.cli.run",
             "dynamo_tpu_torch.telemetry.registry",
             "dynamo_tpu_torch.models.loader", "dynamo_tpu_torch.llm.gguf",
-            "dynamo_tpu_torch.llm.gguf_tensors"} <= set(mods)
+            "dynamo_tpu_torch.llm.gguf_tensors",
+            # the distributed layer: its wire is the port's own codec, so
+            # msgpack (refused above) is never imported
+            "dynamo_tpu_torch.runtime.wire", "dynamo_tpu_torch.runtime.discovery",
+            "dynamo_tpu_torch.runtime.messaging", "dynamo_tpu_torch.runtime.network",
+            "dynamo_tpu_torch.runtime.component", "dynamo_tpu_torch.runtime.client",
+            "dynamo_tpu_torch.runtime.transports.memory",
+            "dynamo_tpu_torch.runtime.transports.dynstore",
+            "dynamo_tpu_torch.kv_router.protocols", "dynamo_tpu_torch.kv_router.indexer",
+            "dynamo_tpu_torch.kv_router.publisher", "dynamo_tpu_torch.kv_router.scheduler",
+            "dynamo_tpu_torch.kv_router.metrics_aggregator",
+            "dynamo_tpu_torch.kv_router.router",
+            "dynamo_tpu_torch.llm.processor"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -176,3 +188,58 @@ def test_static_scan_finds_no_jax_or_reference_imports():
                 continue
             offenders += [f"{path.name}: {n}" for n in names if _blocked(n)]
     assert not offenders, offenders
+
+
+def test_dynstore_runs_as_a_module_without_msgpack():
+    """``python -m dynamo_tpu_torch.runtime.transports.dynstore`` in an
+    interpreter that refuses ``msgpack``, ``jax`` and ``dynamo_tpu``: the
+    reference's client (msgpack on its side) puts and gets a key through
+    it, and the broker exits 0 on SIGINT."""
+    import asyncio
+    import signal
+    import socket
+
+    from dynamo_tpu.runtime.transports.dynstore import DynStoreClient
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = textwrap.dedent(f"""
+        import importlib.abc, runpy, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {REFUSED!r}:
+                    raise ImportError("refused import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        sys.path.insert(0, {str(REPO)!r})
+        sys.argv = ["dynstore", "--host", "127.0.0.1", "--port", "{port}"]
+        runpy.run_module("dynamo_tpu_torch.runtime.transports.dynstore",
+                         run_name="__main__")
+        assert "msgpack" not in sys.modules
+    """)
+    proc = subprocess.Popen([sys.executable, "-c", script], cwd=str(REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        async def talk():
+            for _ in range(200):
+                try:
+                    client = await DynStoreClient("127.0.0.1", port).connect()
+                    break
+                except OSError:
+                    await asyncio.sleep(0.05)
+            await client.kv_put("a/b", b"\x00\x01")
+            got = await client.kv_get("a/b")
+            await client.close()
+            return got
+
+        assert asyncio.run(asyncio.wait_for(talk(), 30)) == b"\x00\x01"
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0, proc.stderr.read()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

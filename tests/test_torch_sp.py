@@ -394,6 +394,51 @@ def test_sp_engine_matches_jax_engine_and_dense_ladder(weights):
     assert sp_used == dense_used == j_used == 0
 
 
+def test_fp8_sp_engine_matches_jax_engine(weights):
+    """SP prefill over an fp8 (e4m3) cache: greedy streams of the port's SP
+    engine (sp 4) equal ``JaxServingEngine(sp_size=4,
+    kv_cache_dtype="fp8")``'s on a 200-token prompt (2 chunks read the
+    e4m3 prefix through kernel 6's fp8 plain version) and a short dense
+    one; both write the same e4m3 bytes and compute in f32."""
+    prompts = (_prompt(200), _prompt(20))
+
+    async def jax_run():
+        cfg = JaxEngineConfig(model=JaxModelConfig(**TINY),
+                              **_sp_kw(4, kv_cache_dtype="fp8"))
+        engine = await JaxServingEngine.create(
+            types.SimpleNamespace(model_path=None), engine_config=cfg,
+            params=weights[0], warmup=False)
+        try:
+            out = []
+            for p in prompts:
+                req = JaxRequest(token_ids=p,
+                                 stop_conditions=JaxStop(max_tokens=16,
+                                                         ignore_eos=True),
+                                 sampling_options=JaxSampling(temperature=0.0))
+                toks = []
+                async for o in engine.generate(JaxContext(req)):
+                    toks.extend(o["token_ids"])
+                out.append(toks)
+            return out
+        finally:
+            await engine.close()
+
+    async def torch_run():
+        engine = await _torch_engine(weights, 4, kv_cache_dtype="fp8")
+        try:
+            assert engine.runner.kv_dtype == torch.float8_e4m3fn
+            out = [await _collect(engine, p, GREEDY) for p in prompts]
+            return out, engine.metrics(), engine.scheduler.allocator.used
+        finally:
+            await engine.close()
+
+    want = asyncio.run(jax_run())
+    got, m, used = asyncio.run(torch_run())
+    assert [t for t, _ in got] == want
+    assert all(len(t) == 16 and f == "length" for t, f in got)
+    assert m["sp_chunks"] >= 2 and used == 0
+
+
 def test_sp_early_handoff_dispatches_before_the_drain(weights):
     """The first decode burst takes the final chunk's token as a device
     tensor, and is dispatched before the host reads the final chunk's
