@@ -223,7 +223,22 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    survivor within the lease TTL plus a margin; no KV block stays in use.
    Prints the followers' TTFT under kv and round-robin routing in turns,
    the routing decision's µs and the events' lag.
-16. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
+16. ``engine_disagg`` — disaggregated prefill and decode on Llama-3.2-1B at
+   full width and depth. Leg A in one process, over a bf16 and an fp8
+   cache: a decode engine whose coordinator talks over a ``MemoryHub`` to
+   a prefill worker with a runner of its own on the card; the installed
+   blocks byte-equal to the prefill worker's, every decode dispatch and
+   install free of host syncs, streams equal a local engine's or part at
+   a near-tie. Leg B, the CLI roles as subprocesses (broker, a
+   ``--remote-prefill`` decode worker, an ``in=prefill`` worker with the
+   SP ladder, a KV-routing processor, a frontend): four turns, remote and
+   local by the router's live key, each with 4 streamed chats beside a
+   12,000- and a 3,000-word prompt; remote prefills counted, bytes
+   reckoned, the SP ladder's launches, no fallback or nack, no block left
+   in use. Prints per turn the long prompts' TTFT, the short streams'
+   largest gap while they prefilled and the transfer's bytes, frames,
+   duration and exposed seconds.
+17. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
    depth (its published ``config.json``: G 7, qkv biases, V 152,064) with
    seeded random bf16 weights written as a 4-shard HF safetensors
    snapshot (``write_safetensors_snapshot``) and loaded by
@@ -251,7 +266,9 @@ epilogue at V 152,064 with ``engine_load``'s, the fp8 forms with the
 G 5, flash's fp8 form and the prefix partials at G 7 and 5 — with a count
 of 0 and a ``path`` saying so; the decode, flash and
 epilogue entries also carry ``launches_engine_http``, the HTTP path's own
-counts, and ``launches_engine_graph``, the graph's workers'; kernel 6's
+counts, and ``launches_engine_graph``, the graph's workers'; they and
+kernel 6 carry ``launches_engine_disagg``, the disaggregated pair's two
+workers' (decode and flash's fp8 forms: leg A's fp8 pair); kernel 6's
 fp8 form has the fp8 SP engine's launches); the line before that the
 card's name and power limit.
 """
@@ -3129,7 +3146,7 @@ def engine_phase(torch, dev, smi):
         other_path(SPEC, spec_reqs, SPEC_NEW_TOKENS, spec_base))
     _check_streams(res_spec, SPEC_NEW_TOKENS)
     _check_launches("spec", launches_spec, ("paged_verify",))
-    if metrics_spec["spec_proposed"] <= 0:
+    if metrics_spec["spec_proposed_tokens"] <= 0:
         raise AssertionError("ngram speculation proposed nothing")
 
     ttfts = sorted(r["ttft_s"] for r in res1)
@@ -3151,8 +3168,8 @@ def engine_phase(torch, dev, smi):
                     launches=launches_k4),
          spec=dict(**SPEC, requests=len(spec_reqs), new_tokens=SPEC_NEW_TOKENS,
                    prompt_tokens=sum(len(p) for p, _ in spec_reqs),
-                   proposed=metrics_spec["spec_proposed"],
-                   accepted=metrics_spec["spec_accepted"],
+                   proposed=metrics_spec["spec_proposed_tokens"],
+                   accepted=metrics_spec["spec_accepted_tokens"],
                    decode_steps=metrics_spec["decode_steps"],
                    wall_s=wall_spec, streams_equal=sum(
                        a["tokens"] == b["tokens"]
@@ -3360,8 +3377,10 @@ def engine_chain_phase(torch, dev, smi):
             wave1_decode_wall_s=r["wall"] - ttfts[-1],
             ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2],
                         max=ttfts[-1]),
-            decode_steps=m["decode_steps"], pipeline_bursts=m["pipeline_bursts"],
-            chain_len_max=m["chain_len_max"], chain_len_last=m["chain_len_last"],
+            decode_steps=m["decode_steps"],
+            decode_pipeline_bursts=m.get("decode_pipeline_bursts"),
+            chain_len_max=m["chain_len_max"],
+            decode_burst_chain_length=m.get("decode_burst_chain_length"),
             device_finished_rows=m["device_finished_rows"],
             sync_fallback=m["sync_fallback"], launches=r["launches"],
             dispatches=r["stats"], blocks_in_use=r["blocks_in_use"],
@@ -3408,7 +3427,7 @@ def engine_chain_phase(torch, dev, smi):
     for x in fin[4:]:
         if x["finish"] != "stop" or x["tokens"] not in GUIDED_CHOICES:
             raise AssertionError(f"guided choice: {x}")
-    if piped["stats"]["decode_burst"] < 2 or piped["metrics"]["pipeline_bursts"] < 2:
+    if piped["stats"]["decode_burst"] < 2 or piped["metrics"]["decode_pipeline_bursts"] < 2:
         raise AssertionError("the dispatch-ahead engine dispatched no bursts")
     m = chained["metrics"]
     if chained["stats"]["decode_burst_chained"] < 2 or m["chain_len_max"] <= 1:
@@ -3582,7 +3601,7 @@ def engine_fp8_phase(torch, dev, smi):
     def chain_summary(r):
         m = r["metrics"]
         return dict(wall_s=r["wall"], launches=r["launches"],
-                    **{k: m[k] for k in ("decode_steps", "pipeline_bursts",
+                    **{k: m.get(k) for k in ("decode_steps", "decode_pipeline_bursts",
                                          "chain_len_max", "device_finished_rows",
                                          "sync_fallback", "dispatches",
                                          "blocks_in_use")},
@@ -3605,8 +3624,8 @@ def engine_fp8_phase(torch, dev, smi):
          logits_vs_bf16_kv=logits,
          writes_card_equal_cpu=bool(torch.equal(writes_card, writes_cpu)),
          spec=dict(**SPEC, requests=len(spec_reqs), new_tokens=SPEC_NEW_TOKENS,
-                   proposed=spec["metrics"]["spec_proposed"],
-                   accepted=spec["metrics"]["spec_accepted"],
+                   proposed=spec["metrics"]["spec_proposed_tokens"],
+                   accepted=spec["metrics"]["spec_accepted_tokens"],
                    wall_s=spec["wall"], streams_equal=sum(
                        a["tokens"] == b["tokens"]
                        for a, b in zip(main["spec_base"], spec["res"])),
@@ -3634,7 +3653,7 @@ def engine_fp8_phase(torch, dev, smi):
     _check_launches("fp8 main", main["launches"],
                     ("paged_decode_fp8", "paged_flash_fp8", "epilogue"))
     _check_launches("fp8 spec", spec["launches"], ("paged_verify_fp8",))
-    if spec["metrics"]["spec_proposed"] <= 0:
+    if spec["metrics"]["spec_proposed_tokens"] <= 0:
         raise AssertionError("fp8: ngram speculation proposed nothing")
     for name, r in (("main", main), ("spec", spec), ("synchronous", sync),
                     ("chained", chained)):
@@ -3913,7 +3932,7 @@ def engine_mla_phase(torch, dev, smi):
                       wave1_wall_s=wall_ch,
                       wave1_output_tokens_per_s=len(res_ch) * NEW_TOKENS / wall_ch,
                       **{k: metrics_ch[k] for k in (
-                          "decode_steps", "pipeline_bursts", "chain_len_max",
+                          "decode_steps", "decode_pipeline_bursts", "chain_len_max",
                           "device_finished_rows", "sync_fallback", "dispatches",
                           "blocks_in_use")},
                       launches=launches_ch),
@@ -4169,15 +4188,15 @@ def engine_gptoss_phase(torch, dev, smi):
                       wave1_wall_s=wall_ch,
                       wave1_output_tokens_per_s=len(res_ch) * NEW_TOKENS / wall_ch,
                       **{k: metrics_ch[k] for k in (
-                          "decode_steps", "pipeline_bursts", "chain_len_max",
+                          "decode_steps", "decode_pipeline_bursts", "chain_len_max",
                           "device_finished_rows", "sync_fallback", "dispatches",
                           "blocks_in_use")},
                       launches=launches_ch),
          spec=dict(**SPEC, moe_capacity_factor=GPTOSS_NO_DROP,
                    routing="pinned",
                    requests=len(spec_reqs), new_tokens=SPEC_NEW_TOKENS,
-                   proposed=metrics_spec["spec_proposed"],
-                   accepted=metrics_spec["spec_accepted"],
+                   proposed=metrics_spec["spec_proposed_tokens"],
+                   accepted=metrics_spec["spec_accepted_tokens"],
                    decode_steps=metrics_spec["decode_steps"], wall_s=wall_spec,
                    streams_equal=sum(a["tokens"] == b["tokens"]
                                      for a, b in zip(spec_base, res_spec)),
@@ -4203,7 +4222,7 @@ def engine_gptoss_phase(torch, dev, smi):
     if metrics["gpu_prefix_cache_hit_rate"] <= 0:
         raise AssertionError("gpt-oss: the shared-prefix request missed the "
                              "prefix cache")
-    if metrics_spec["spec_proposed"] <= 0:
+    if metrics_spec["spec_proposed_tokens"] <= 0:
         raise AssertionError("gpt-oss: ngram speculation proposed nothing")
     if on_card:
         _check_launches("gpt-oss main", launches,
@@ -4493,13 +4512,13 @@ def engine_gemma2_phase(torch, dev, smi):
                       wave1_wall_s=wall_ch,
                       wave1_output_tokens_per_s=len(res_ch) * NEW_TOKENS / wall_ch,
                       **{k: metrics_ch[k] for k in (
-                          "decode_steps", "pipeline_bursts", "chain_len_max",
+                          "decode_steps", "decode_pipeline_bursts", "chain_len_max",
                           "device_finished_rows", "sync_fallback", "dispatches",
                           "blocks_in_use")},
                       launches=launches_ch),
          spec=dict(**SPEC, requests=len(spec_reqs), traps=GEMMA_SPEC_TRAPS,
-                   new_tokens=SPEC_NEW_TOKENS, proposed=metrics_spec["spec_proposed"],
-                   accepted=metrics_spec["spec_accepted"],
+                   new_tokens=SPEC_NEW_TOKENS, proposed=metrics_spec["spec_proposed_tokens"],
+                   accepted=metrics_spec["spec_accepted_tokens"],
                    decode_steps=metrics_spec["decode_steps"], wall_s=wall_spec,
                    streams_equal=sum(a["tokens"] == b["tokens"]
                                      for a, b in zip(spec_base, res_spec)),
@@ -4526,9 +4545,9 @@ def engine_gemma2_phase(torch, dev, smi):
     if metrics["gpu_prefix_cache_hit_rate"] <= 0:
         raise AssertionError("gemma-2: the shared-prefix request missed the "
                              "prefix cache")
-    if metrics_spec["spec_proposed"] <= 0:
+    if metrics_spec["spec_proposed_tokens"] <= 0:
         raise AssertionError("gemma-2: ngram speculation proposed nothing")
-    if not metrics_spec["spec_accepted"] < metrics_spec["spec_proposed"]:
+    if not metrics_spec["spec_accepted_tokens"] < metrics_spec["spec_proposed_tokens"]:
         raise AssertionError("gemma-2: the spec engine accepted every proposal, "
                              "so verify never rejected a draft")
     lp = logits["long_prompt"]
@@ -4777,8 +4796,8 @@ def engine_moe_phase(torch, dev, smi, cell):
                     routing="pinned", requests=len(spec_reqs),
                     traps=GEMMA_SPEC_TRAPS,
                     new_tokens=SPEC_NEW_TOKENS,
-                    proposed=metrics_spec["spec_proposed"],
-                    accepted=metrics_spec["spec_accepted"],
+                    proposed=metrics_spec["spec_proposed_tokens"],
+                    accepted=metrics_spec["spec_accepted_tokens"],
                     decode_steps=metrics_spec["decode_steps"], wall_s=wall_spec,
                     streams_equal=sum(a["tokens"] == b["tokens"]
                                       for a, b in zip(spec_base, res_spec)),
@@ -4821,7 +4840,7 @@ def engine_moe_phase(torch, dev, smi, cell):
                       wave1_wall_s=wall_ch,
                       wave1_output_tokens_per_s=len(res_ch) * NEW_TOKENS / wall_ch,
                       **{k: metrics_ch[k] for k in (
-                          "decode_steps", "pipeline_bursts", "chain_len_max",
+                          "decode_steps", "decode_pipeline_bursts", "chain_len_max",
                           "device_finished_rows", "sync_fallback", "dispatches",
                           "blocks_in_use")},
                       launches=launches_ch),
@@ -4860,9 +4879,9 @@ def engine_moe_phase(torch, dev, smi, cell):
                              "prefix cache")
     if with_spec:
         _check_streams(spec_base + res_spec, SPEC_NEW_TOKENS, vocab)
-        if metrics_spec["spec_proposed"] <= 0:
+        if metrics_spec["spec_proposed_tokens"] <= 0:
             raise AssertionError(f"{name}: ngram speculation proposed nothing")
-        if not metrics_spec["spec_accepted"] < metrics_spec["spec_proposed"]:
+        if not metrics_spec["spec_accepted_tokens"] < metrics_spec["spec_proposed_tokens"]:
             raise AssertionError(f"{name}: the spec engine accepted every "
                                  "proposal, so verify never rejected a draft")
     if on_card:
@@ -5109,7 +5128,8 @@ def engine_sp_phase(torch, dev, smi):
             peak_memory_bytes=r["peak"],
             prefill_steps=m["prefill_steps"], decode_steps=m["decode_steps"],
             sp_chunks=m["sp_chunks"], sp_tokens=m["sp_tokens"],
-            sp_handoffs=m["sp_handoffs"], pipeline_bursts=m["pipeline_bursts"],
+            sp_handoffs=m["sp_handoffs"],
+            decode_pipeline_bursts=m.get("decode_pipeline_bursts"),
             sync_fallback=m["sync_fallback"],
             prefix_hit_rate=m["gpu_prefix_cache_hit_rate"],
             launches=r["launches"], sp_chunk_dispatches=r["stats"]["sp_chunks"],
@@ -6411,6 +6431,571 @@ def engine_graph_phase(torch, dev, smi):
                 sampling_epilogue=totals["epilogue"])
 
 
+# ------------------------------------------------------------ engine_disagg
+
+# disaggregated prefill and decode on the one card, Llama-3.2-1B at full
+# width and depth (random weights; one KV block of it is 16 layers x 16
+# tokens x 8 KV heads x 64 x 2 bytes x K and V = 524,288 bytes)
+DISAGG_NS = "disagg"
+DISAGG_MAX_LOCAL = 1000        # a remote turn's router threshold (tokens)
+DISAGG_ALL_LOCAL = 100000      # a local turn's: nothing goes remote
+# max_prefill_queue_size: above the two long prompts a turn sends, since
+# the cached depth may count a push twice (a refresh that reads the pushed
+# item before the submit's optimistic increment), as the reference's does
+DISAGG_QUEUE = 4
+DISAGG_BLOCK_BYTES = (FLAGSHIP["num_layers"] * 16 * FLAGSHIP["num_kv_heads"]
+                      * FLAGSHIP["head_dim"] * 2 * 2)
+# leg A (one process): two prompts past the threshold, two short ones
+# decoding (DISAGG_LEG_A_NEW tokens) while their installs land
+DISAGG_ENGINE = dict(ENGINE, max_model_len=4096)
+DISAGG_LEG_A = (200, 400, 1500, 3000)
+DISAGG_LEG_A_NEW = (256, 256, NEW_TOKENS, NEW_TOKENS)
+# leg B (the CLI roles): the prefill worker's SP ladder (4 ranks x 512 rows
+# a chunk, as engine_sp) past 4,096 uncached tokens
+DISAGG_WORKER_FLAGS = ["--max-model-len", "16384", "--num-kv-blocks", "2048",
+                       "--kv-block-size", "16"]
+DISAGG_PREFILL_EXTRA = dict(sp_size=4, long_prefill_threshold_tokens=4096,
+                            max_prefill_tokens_per_step=512)
+DISAGG_TURNS = ("remote", "local", "remote", "local")
+DISAGG_SHORT = (100, 250, 420, 600)   # words of the 4 streamed chats
+DISAGG_SHORT_NEW = 128
+DISAGG_LONG = (12000, 3000)           # words of the two long prompts
+DISAGG_LONG_NEW = 32
+DISAGG_LONG_AFTER_S = 0.5
+DISAGG_START_TIMEOUT_S = 300
+DISAGG_TIMEOUT_S = 400
+DISAGG_SEED = 1616
+DISAGG_DEVICE = "cuda"                # a CPU rehearsal sets "cpu"
+
+
+def _disagg_leg_a(torch, dev, smi, kv, params):
+    """One process: a ``TorchServingEngine`` whose coordinator talks over a
+    ``MemoryHub`` to a ``PrefillWorker`` with a runner of its own on the
+    same card (the same weight tensors), against a local engine over the
+    same requests. Returns the checks' inputs and the weights."""
+    from dynamo_tpu_torch.disagg import (
+        DisaggRouter,
+        PrefillWorker,
+        RemotePrefillCoordinator,
+    )
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.model_runner import ModelRunner
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.transports.memory import MemoryHub
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = EngineConfig(model=ModelConfig(**FLAGSHIP), seed=SEED,
+                       **dict(DISAGG_ENGINE, kv_cache_dtype=kv))
+    rng = np.random.default_rng(DISAGG_SEED)
+    requests = [([int(t) for t in rng.integers(0, FLAGSHIP["vocab_size"], n)],
+                 dict(temperature=0.0)) for n in DISAGG_LEG_A]
+    reqs = [dict(prompt=p, samp=samp, stop=dict(max_tokens=n, ignore_eos=True))
+            for (p, samp), n in zip(requests, DISAGG_LEG_A_NEW)]
+
+    async def local():
+        engine = await TorchServingEngine.create(cfg, params=params, device=dev)
+        try:
+            return await _serve_reqs(engine, reqs), engine.runner.params
+        finally:
+            await engine.close()
+
+    base, params = asyncio.run(local())
+
+    async def disagg():
+        hub = MemoryHub()
+        drt, drt_p = (DistributedRuntime.in_process(hub),
+                      DistributedRuntime.in_process(hub))
+        box = {}
+
+        async def factory(runner):
+            box["coord"] = await RemotePrefillCoordinator(
+                drt, runner, router=DisaggRouter(
+                    max_local_prefill_length=DISAGG_MAX_LOCAL,
+                    max_prefill_queue_size=DISAGG_QUEUE),
+                depth_refresh_s=0.05).start()
+            return box["coord"]
+
+        engine = await TorchServingEngine.create(
+            cfg, params=params, device=dev, disagg_factory=factory)
+        runner_p = ModelRunner(cfg, params=params, device=dev)
+        worker = PrefillWorker(drt_p, runner_p, cfg)
+        # the prefill side's frames (its own copy of each block, gathered
+        # right after the chunk that completed it) and the decode side's
+        # blocks gathered right after each install
+        sent, gathered, installed = [], [], []
+        ship, gather = worker._ship, runner_p.gather_blocks_device
+
+        async def ship_rec(pipe, rpr, block_ids, lo, hi):
+            for i in range(lo, hi, pipe.frame_blocks):
+                sent.append(list(rpr.block_ids[i: min(i + pipe.frame_blocks, hi)]))
+            await ship(pipe, rpr, block_ids, lo, hi)
+
+        def gather_rec(ids):
+            out = gather(ids)
+            gathered.append(out)
+            return out
+
+        worker._ship, runner_p.gather_blocks_device = ship_rec, gather_rec
+        attention, counter = (("paged_decode", "launches_fp8") if kv == "fp8"
+                              else ("paged_decode", "launches"))
+        stats = _guard_dispatches(torch, engine.runner, FLAGSHIP["num_layers"],
+                                  cfg.multi_step_decode, on_card,
+                                  attention=attention, counter=counter)
+        scatter = engine.runner.scatter_blocks
+        stats["installs"] = stats["installs_while_decoding"] = 0
+
+        def scatter_guarded(ids, k, v):
+            prev = torch.cuda.get_sync_debug_mode() if on_card else None
+            if on_card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                scatter(ids, k, v)
+                installed.append((list(ids), engine.runner.gather_blocks_device(ids)))
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(prev)
+            stats["installs"] += 1
+            stats["installs_while_decoding"] += int(any(engine.scheduler.slots))
+
+        engine.runner.scatter_blocks = scatter_guarded
+        task = asyncio.ensure_future(worker.run())
+        try:
+            _reset_launches()
+            t0 = time.monotonic()
+            res = await _serve_reqs(engine, reqs)
+            wall = time.monotonic() - t0
+            launches = _read_launches()
+            metrics, wm = engine.metrics(), worker.metrics()
+            used = dict(decode=engine.scheduler.allocator.used,
+                        prefill=worker.allocator.used)
+        finally:
+            worker.stop()
+            await task
+            await worker.close()
+            await engine.close()
+            await drt_p.close()
+            await drt.close()
+        # every installed block against the prefill worker's copy, bytes
+        decode_copy = {}
+        for ids, (k, v) in installed:
+            for j, b in enumerate(ids):
+                decode_copy[b] = (k[:, j], v[:, j])
+        compared = mismatched = 0
+        for dst, (k, v) in zip(sent, gathered):
+            for j, b in enumerate(dst):
+                dk, dv = decode_copy[b]
+                compared += 1
+                if not (torch.equal(dk.view(torch.uint8), k[:, j].view(torch.uint8))
+                        and torch.equal(dv.view(torch.uint8),
+                                        v[:, j].view(torch.uint8))):
+                    mismatched += 1
+        parted = _spec_agreement(torch, runner_p, requests, base, res)
+        return dict(res=res, wall=wall, launches=launches, metrics=metrics,
+                    worker=wm, used=used, stats=stats, compared=compared,
+                    mismatched=mismatched, frames=len(sent), parted=parted)
+
+    out = asyncio.run(disagg())
+    out["base"] = base
+    expect_blocks = sum(-(-n // 16) for n in DISAGG_LEG_A if n > DISAGG_MAX_LOCAL)
+    m, wm = out["metrics"], out["worker"]
+    emit("engine_disagg", leg="A", kv_cache_dtype=kv,
+         requests=list(DISAGG_LEG_A), wall_s=out["wall"],
+         ttft_s=[r["ttft_s"] for r in out["res"]],
+         local_ttft_s=[r["ttft_s"] for r in base],
+         remote_completed=m["remote_prefill_completed"],
+         failures=m["remote_prefill_failures"], nacks=m["kv_transfer_nacks"],
+         bytes_received=m["kv_transfer_bytes_received"],
+         bytes_shipped=wm["transfer_bytes_total"],
+         frames=wm["transfer_frames_total"], transfers=wm["transfers"],
+         blocks_compared=out["compared"], blocks_mismatched=out["mismatched"],
+         installs=out["stats"]["installs"],
+         installs_while_decoding=out["stats"]["installs_while_decoding"],
+         guarded_steps=out["stats"]["step"], bad_bursts=out["stats"]["bad"],
+         greedy_parted=out["parted"], kv_blocks_in_use=out["used"],
+         launches=out["launches"], card=smi)
+    if m["remote_prefill_completed"] != 2 or m["remote_prefill_failures"] \
+            or m["kv_transfer_nacks"] or wm["nacks_total"]:
+        raise AssertionError(f"disagg leg A ({kv}): {m} {wm}")
+    if out["compared"] != expect_blocks or out["mismatched"]:
+        raise AssertionError(
+            f"disagg leg A ({kv}): {out['mismatched']} of {out['compared']} "
+            f"installed blocks differ from the prefill worker's (want "
+            f"{expect_blocks} compared)")
+    if not (wm["transfer_bytes_total"] == m["kv_transfer_bytes_received"]
+            == expect_blocks * _kv_block_bytes(kv)):
+        raise AssertionError(f"disagg leg A ({kv}): bytes {wm} {m}")
+    if out["stats"]["bad"]:
+        raise AssertionError(f"disagg leg A ({kv}): bursts {out['stats']['bad']}")
+    if not out["stats"]["installs_while_decoding"]:
+        raise AssertionError(f"disagg leg A ({kv}): no install landed while a "
+                             f"stream decoded")
+    if any(out["used"].values()):
+        raise AssertionError(f"disagg leg A ({kv}): blocks in use {out['used']}")
+    for r, n in zip(out["res"], DISAGG_LEG_A_NEW):
+        _check_streams([r], n)
+    if on_card:
+        sfx = "_fp8" if kv == "fp8" else ""
+        lc = out["launches"]
+        if not (lc["paged_decode" + sfx] and lc["paged_flash" + sfx]
+                and lc["epilogue"]):
+            raise AssertionError(f"disagg leg A ({kv}): launches {lc}")
+    return out, params
+
+
+def _kv_block_bytes(kv):
+    return DISAGG_BLOCK_BYTES // 2 if kv == "fp8" else DISAGG_BLOCK_BYTES
+
+
+async def _disagg_ask(port, body, tok):
+    """One chat request: its stream record, the prompt ids the front
+    annotated, the token ids, and each chunk's arrival on this process's
+    monotonic clock."""
+    t0 = time.monotonic()
+    status, _, raw, events = await http_request(
+        port, "POST", "/v1/chat/completions", body)
+    if status != 200:
+        raise AssertionError(f"disagg: HTTP {status}: {raw[:400]}")
+    rec = _stream_record(events, True)
+    rec["ids"] = [tok.token_to_id(t) for t in rec["tokens"]]
+    ann = next(line for line in raw.decode().split("\n") if line.startswith(": "))
+    rec["prompt_ids"] = json.loads(ann[2:])
+    rec["arrivals"] = [t0 + t for t, c in events if c and c.get("choices")]
+    rec["sent"] = t0
+    return rec
+
+
+async def _disagg_traffic(port, store, tok, words_text):
+    """The four turns through the frontend, switched by the router's
+    discovery key, with the workers' stats scraped around each."""
+    from dynamo_tpu_torch.disagg import DisaggRouter
+    from dynamo_tpu_torch.runtime.client import Client
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+
+    drt = await DistributedRuntime.connect("127.0.0.1", store)
+    ns = drt.namespace(DISAGG_NS)
+    dclient = await Client(ns.component("backend").endpoint("generate")).start()
+    pclient = await Client(ns.component("prefill").endpoint("stats")).start()
+    await dclient.wait_for_instances(1, timeout=60)
+    await pclient.wait_for_instances(1, timeout=60)
+
+    async def stats(client):
+        s = await client.scrape_stats(timeout=10.0)
+        return next(iter(s.values()))["data"]
+
+    for _ in range(600):  # the frontend discovered the model
+        _, _, models, _ = await http_request(port, "GET", "/v1/models")
+        if [m["id"] for m in json.loads(models)["data"]] == ["llama"]:
+            break
+        await asyncio.sleep(0.1)
+    else:
+        raise AssertionError(f"disagg: the frontend found no model: {models}")
+
+    def body(text, n):
+        return dict(_graph_chat("llama", text), max_tokens=n)
+
+    turns = []
+    d_first, p_first = await stats(dclient), await stats(pclient)
+    for mode in DISAGG_TURNS:
+        await DisaggRouter.publish_config(
+            drt.discovery, DISAGG_NS, "llama",
+            max_local_prefill_length=(DISAGG_MAX_LOCAL if mode == "remote"
+                                      else DISAGG_ALL_LOCAL),
+            max_prefill_queue_size=DISAGG_QUEUE)
+        await asyncio.sleep(0.5)  # the watch delivers the key
+        d0, p0 = await stats(dclient), await stats(pclient)
+        shorts = [asyncio.ensure_future(_disagg_ask(
+            port, body(words_text(n), DISAGG_SHORT_NEW), tok))
+            for n in DISAGG_SHORT]
+        await asyncio.sleep(DISAGG_LONG_AFTER_S)
+        mid_text = words_text(DISAGG_LONG[1])
+        longs = await asyncio.gather(
+            _disagg_ask(port, body(words_text(DISAGG_LONG[0]), DISAGG_LONG_NEW), tok),
+            _disagg_ask(port, body(mid_text, DISAGG_LONG_NEW), tok))
+        shorts = await asyncio.gather(*shorts)
+        # the 3,000-word prompt again: its prefix hit on the decode side
+        # leaves a suffix under the threshold, so it prefills locally
+        again = await _disagg_ask(port, body(mid_text, DISAGG_LONG_NEW), tok)
+        d1, p1 = await stats(dclient), await stats(pclient)
+        turns.append(dict(mode=mode, shorts=shorts, longs=longs, again=again,
+                          d0=d0, d1=d1, p0=p0, p1=p1))
+    blocks = {}
+    for _ in range(100):  # finished streams are reaped first
+        d, p = await stats(dclient), await stats(pclient)
+        blocks = dict(decode=d["kv_active_blocks"], prefill=p["kv_active_blocks"])
+        if not any(blocks.values()):
+            break
+        await asyncio.sleep(0.05)
+    await dclient.close()
+    await pclient.close()
+    await drt.close()
+    return dict(turns=turns, blocks=blocks, d_first=d_first, p_first=p_first,
+                d_last=d, p_last=p)
+
+
+def _disagg_turn_line(t):
+    """A turn's printed numbers: the long prompts' edge TTFT, the short
+    streams' largest gap between chunks while the long prompts were in
+    prefill (from their send to their last first token), the transfer's
+    bytes, frames, duration and exposed seconds (the prefill worker's
+    records of this turn's remote prefills)."""
+    long_send = min(r["sent"] for r in t["longs"])
+    long_first = max(r["arrivals"][0] for r in t["longs"])
+    gap = 0.0
+    for r in t["shorts"]:
+        a = r["arrivals"]
+        for x, y in zip(a, a[1:]):
+            if y > long_send and x < long_first:
+                gap = max(gap, y - x)
+    d0, d1, p0, p1 = t["d0"], t["d1"], t["p0"], t["p1"]
+    n = p1["prefills_total"] - p0["prefills_total"]
+    new = p1["transfers"][len(p1["transfers"]) - n:] if n else []
+    return dict(
+        mode=t["mode"],
+        long_ttft_s=[r["ttft_s"] for r in t["longs"]],
+        long_prompt_tokens=[len(r["prompt_ids"]) for r in t["longs"]],
+        again_ttft_s=t["again"]["ttft_s"],
+        short_max_gap_during_long_prefill_s=gap,
+        short_itl_median_s=float(np.median([r["itl_median_s"] for r in t["shorts"]])),
+        remote_completed=(d1["remote_prefill_completed"]
+                          - d0["remote_prefill_completed"]),
+        bytes_shipped=p1["transfer_bytes_total"] - p0["transfer_bytes_total"],
+        bytes_received=(d1["kv_transfer_bytes_received"]
+                        - d0["kv_transfer_bytes_received"]),
+        frames=p1["transfer_frames_total"] - p0["transfer_frames_total"],
+        sp_prefills=p1["sp_prefills_total"] - p0["sp_prefills_total"],
+        transfers=[{k: x[k] for k in ("prompt_tokens", "shipped_blocks", "sp",
+                                      "chunks", "bytes", "frames", "compute_s",
+                                      "duration_s", "exposed_s")} for x in new],
+        sp_prefix_launches=(p1["launches"]["sp_prefix"]
+                            - p0["launches"]["sp_prefix"]))
+
+
+def engine_disagg_phase(torch, dev, smi):
+    """Disaggregated prefill and decode on the one card, Llama-3.2-1B at
+    full width and depth with seeded random bf16 weights.
+
+    Leg A, in this process, over a bf16 and then an fp8 (e4m3) cache: a
+    ``TorchServingEngine`` whose ``RemotePrefillCoordinator`` talks over a
+    ``MemoryHub`` to a ``PrefillWorker`` with a runner of its own on the
+    card (the same weight tensors), ``max_local_prefill_length`` 1,000,
+    prompts of 200, 400, 1,500 and 3,000 tokens at once. Fails unless the
+    two long prompts complete remotely with no failure and no nack; every
+    block the decode side installed is byte-equal to the prefill worker's
+    copy (gathered on both sides right at the transfer); the bytes are the
+    blocks x the cache's block bytes; every decode-side dispatch and every
+    install ran under ``set_sync_debug_mode("error")``; greedy streams equal
+    a local engine's or part at a near-tie; no KV block stays in use.
+
+    Leg B, the CLI roles as subprocesses on the card as a user starts them:
+    a dynstore broker; a decode worker (``--token-level --remote-prefill
+    --max-local-prefill-length 1000``, 2,048 blocks, max_model_len 16,384);
+    a prefill worker (``in=prefill``; ``sp_size`` 4 and
+    ``long_prefill_threshold_tokens`` 4,096 through
+    ``--extra-engine-args``); a KV-routing processor; an ``in=http
+    out=none`` frontend. Four turns, remote, local, remote, local, switched
+    by publishing the ``DisaggRouter`` key (1,000 / 100,000) with no role
+    restarted: 4 streamed greedy chats of 100-600 words (128 new tokens),
+    0.5 s later a 12,000- and a 3,000-word prompt (32 new tokens), then the
+    3,000-word prompt again (a prefix hit: local). Fails unless
+    ``remote_prefill_completed`` moves by 2 in each remote turn and 0 in
+    each local one; the shipped bytes equal the received bytes and the
+    prompts' blocks x 524,288; the 12,000-word prompt took the prefill
+    worker's SP ladder (``sp_prefix`` launches); every greedy stream equals
+    an in-process engine's or parts at a near-tie; no fallback, no nack,
+    no KV block left in use; every role exits 0 on SIGINT. Prints per turn
+    the long prompts' edge TTFT, the short streams' largest gap while they
+    prefilled, the transfer's bytes, frames, duration and exposed seconds.
+
+    Returns the CLI path's launches (the two workers' together) of the
+    decode, flash, epilogue and prefix-partials kernels, and Leg A's fp8
+    forms of decode and flash."""
+    import tempfile
+
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.monotonic()
+    leg_a, params = _disagg_leg_a(torch, dev, smi, "auto", None)
+    leg_a8, params = _disagg_leg_a(torch, dev, smi, "fp8", params)
+    del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t_leg_b = time.monotonic()
+
+    tmp = tempfile.TemporaryDirectory(prefix="engine_disagg_")
+    model_dir = write_model_dir(Path(tmp.name) / "llama-3.2-1b-random")
+    extra = Path(tmp.name) / "prefill.json"
+    extra.write_text(json.dumps(DISAGG_PREFILL_EXTRA))
+    tok = HFTokenizer.from_pretrained_dir(model_dir)
+    words = _word_ids(tok)
+    rng = np.random.default_rng(DISAGG_SEED)
+
+    def words_text(n):
+        return tok.decode([words[int(i)] for i in rng.integers(0, len(words), n)])
+
+    store = _free_port()
+    common = ["--model-path", model_dir, "--model-name", "llama",
+              "--store-port", str(store), "--namespace", DISAGG_NS,
+              "--kv-block-size", "16"]
+    engine_flags = ["--allow-random-weights", "--device", DISAGG_DEVICE,
+                    *DISAGG_WORKER_FLAGS]
+    worker_ep = f"dyn://{DISAGG_NS}.backend.generate"
+    procs = {}
+    t0 = time.monotonic()
+    try:
+        procs["dynstore"] = _spawn_role(
+            ["dynamo_tpu_torch.runtime.transports.dynstore", "--host",
+             "127.0.0.1", "--port", str(store)], "dynstore", tmp.name)
+        deadline = time.monotonic() + DISAGG_START_TIMEOUT_S
+        import socket
+
+        while True:  # the broker listens before any client dials it
+            try:
+                socket.create_connection(("127.0.0.1", store), 1).close()
+                break
+            except OSError:
+                if procs["dynstore"].poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"dynstore did not start: "
+                                         f"{_role_tail(procs['dynstore'])}")
+                time.sleep(0.05)
+        procs["decode"] = _spawn_role(
+            ["dynamo_tpu_torch.cli.run", f"in={worker_ep}", "out=torch",
+             "--token-level", "--remote-prefill", "--max-local-prefill-length",
+             str(DISAGG_MAX_LOCAL), "--max-prefill-queue-size",
+             str(DISAGG_QUEUE), *engine_flags, *common], "decode", tmp.name)
+        procs["prefill"] = _spawn_role(
+            ["dynamo_tpu_torch.cli.run", "in=prefill", "out=torch",
+             "--extra-engine-args", str(extra), *engine_flags, *common],
+            "prefill", tmp.name)
+        procs["processor"] = _spawn_role(
+            ["dynamo_tpu_torch.cli.run", f"in=dyn://{DISAGG_NS}.processor.chat",
+             "out=processor", "--worker-endpoint", worker_ep,
+             "--router-mode", "kv", *common], "processor", tmp.name)
+        procs["frontend"] = _spawn_role(
+            ["dynamo_tpu_torch.cli.run", "in=http", "out=none",
+             "--store-port", str(store), "--namespace", DISAGG_NS,
+             "--http-host", "127.0.0.1", "--http-port", "0"],
+            "frontend", tmp.name)
+        _await_line(procs["decode"], "token-level worker", deadline)
+        _await_line(procs["prefill"], "prefill worker consuming", deadline)
+        _await_line(procs["processor"], "processor serving", deadline)
+        line = _await_line(procs["frontend"], "listening on", deadline)
+        port = int(line.strip().rsplit(":", 1)[1])
+        startup_s = time.monotonic() - t0
+        out = asyncio.run(asyncio.wait_for(
+            _disagg_traffic(port, store, tok, words_text), DISAGG_TIMEOUT_S))
+        exits = {}
+        for name in reversed(list(procs)):  # the frontend first, the broker last
+            p = procs[name]
+            if p.poll() is None:
+                p.send_signal(__import__("signal").SIGINT)
+            exits[name] = p.wait(timeout=60)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = {name: _role_tail(p) for name, p in procs.items()}
+    t_inproc = time.monotonic()
+
+    # ---- the same greedy requests on an in-process engine over the directory
+    every = [r for t in out["turns"] for r in (*t["shorts"], *t["longs"], t["again"])]
+    flags = run.parse_flags(["--model-path", model_dir, "--allow-random-weights",
+                             "--device", DISAGG_DEVICE, *DISAGG_WORKER_FLAGS])
+    requests = [(r["prompt_ids"], dict(temperature=0.0)) for r in every]
+
+    async def inproc():
+        engine = await TorchServingEngine.create(
+            mdc=run.load_mdc(flags), flags=flags, device=DISAGG_DEVICE)
+        try:
+            res = []
+            for t in out["turns"]:  # a turn's shorts at once, then its longs
+                for group, n in ((t["shorts"], DISAGG_SHORT_NEW),
+                                 ((*t["longs"], t["again"]), DISAGG_LONG_NEW)):
+                    res += await _serve(engine, [(r["prompt_ids"], dict(
+                        temperature=0.0)) for r in group], n)
+            parted = _spec_agreement(torch, engine.runner, requests, res,
+                                     [dict(tokens=r["ids"]) for r in every])
+            return res, parted
+        finally:
+            await engine.close()
+
+    base, parted = asyncio.run(inproc())
+    tmp.cleanup()
+
+    lines = [_disagg_turn_line(t) for t in out["turns"]]
+    d_first, d_last = out["d_first"], out["d_last"]
+    p_first, p_last = out["p_first"], out["p_last"]
+    launches = {}
+    for key, mod in (("paged_decode", "paged_decode"), ("paged_flash", "paged_flash"),
+                     ("sampling_epilogue", "epilogue"), ("sp_prefix", "sp_prefix")):
+        launches[key] = sum(last["launches"][mod] - first["launches"][mod]
+                            for first, last in ((d_first, d_last), (p_first, p_last)))
+    per_role = {role: {k: last["launches"][k] - first["launches"][k]
+                       for k in ("paged_decode", "paged_flash", "epilogue",
+                                 "sp_prefix")}
+                for role, first, last in (("decode", d_first, d_last),
+                                          ("prefill", p_first, p_last))}
+    emit("engine_disagg", leg="B",
+         model="Llama-3.2-1B shapes, seeded random bf16 weights",
+         roles=list(procs), startup_s=startup_s, turns=lines,
+         greedy_parted=parted, kv_blocks_in_use=out["blocks"],
+         failures=d_last["remote_prefill_failures"],
+         nacks=dict(decode=d_last["kv_transfer_nacks"],
+                    prefill=p_last["nacks_total"]),
+         max_live_host_frames=p_last["max_live_host_frames"],
+         launches=per_role, exits=exits,
+         seconds=dict(leg_a=t_leg_b - t_phase, leg_b=t_inproc - t_leg_b,
+                      inproc_check=time.monotonic() - t_inproc),
+         card=smi)
+
+    # ---- checks
+    for t, line in zip(out["turns"], lines):
+        want = 2 if t["mode"] == "remote" else 0
+        if line["remote_completed"] != want:
+            raise AssertionError(f"disagg: a {t['mode']} turn completed "
+                                 f"{line['remote_completed']} remote prefills")
+        blocks = sum(-(-len(r["prompt_ids"]) // 16) for r in t["longs"])
+        if t["mode"] == "remote" and not (
+                line["bytes_shipped"] == line["bytes_received"]
+                == blocks * DISAGG_BLOCK_BYTES):
+            raise AssertionError(
+                f"disagg: shipped {line['bytes_shipped']} B, received "
+                f"{line['bytes_received']} B, want {blocks} x "
+                f"{DISAGG_BLOCK_BYTES}")
+        if t["mode"] == "local" and (line["bytes_shipped"] or line["bytes_received"]):
+            raise AssertionError(f"disagg: a local turn moved bytes: {line}")
+        if t["mode"] == "remote" and (line["sp_prefills"] != 1
+                                      or line["sp_prefix_launches"] <= 0
+                                      and DISAGG_DEVICE == "cuda"):
+            raise AssertionError(f"disagg: the 12,000-word prompt did not take "
+                                 f"the prefill worker's SP ladder: {line}")
+    for r in every:
+        if len(r["ids"]) not in (DISAGG_SHORT_NEW, DISAGG_LONG_NEW) \
+                or r["finish"] != "length":
+            raise AssertionError(f"disagg: a stream of {len(r['ids'])} tokens, "
+                                 f"finish {r['finish']}")
+    if d_last["remote_prefill_failures"] or d_last["kv_transfer_nacks"] \
+            or p_last["nacks_total"]:
+        raise AssertionError(f"disagg: a fallback or a nack: {d_last} {p_last}")
+    if any(out["blocks"].values()):
+        raise AssertionError(f"disagg: KV blocks left in use: {out['blocks']}")
+    if any(rc != 0 for rc in exits.values()):
+        raise AssertionError(f"disagg: exit codes {exits}: {logs}")
+    if DISAGG_DEVICE == "cuda" and not all(launches.values()):
+        raise AssertionError(f"disagg: a kernel did not launch: {per_role}")
+    out = dict(launches)
+    if on_card:
+        lc = leg_a8["launches"]
+        out.update(paged_decode_fp8=lc["paged_decode_fp8"],
+                   paged_flash_fp8=lc["paged_flash_fp8"])
+    return out
+
+
 # ------------------------------------------------------------- engine_load
 
 # Qwen2.5-7B (its published config.json): 28 layers, 28 query heads over 4
@@ -7072,8 +7657,8 @@ def _engine_load(torch, dev, smi, tmp):
          peak_memory_bytes=peak, launches=launches, metrics=metrics,
          decode_step=step, logits_vs_cpu_f32_2_layers=logits,
          spec=dict(**SPEC, requests=len(spec_reqs), new_tokens=SPEC_NEW_TOKENS,
-                   proposed=metrics_spec["spec_proposed"],
-                   accepted=metrics_spec["spec_accepted"], wall_s=wall_spec,
+                   proposed=metrics_spec["spec_proposed_tokens"],
+                   accepted=metrics_spec["spec_accepted_tokens"], wall_s=wall_spec,
                    streams_equal=sum(a["tokens"] == b["tokens"]
                                      for a, b in zip(spec_base, res_spec)),
                    parted=parted_spec, launches=launches_spec),
@@ -7100,7 +7685,7 @@ def _engine_load(torch, dev, smi, tmp):
     if metrics["gpu_prefix_cache_hit_rate"] <= 0:
         raise AssertionError("Qwen2.5-7B: the shared-prefix request missed "
                              "the prefix cache")
-    if metrics_spec["spec_proposed"] <= 0:
+    if metrics_spec["spec_proposed_tokens"] <= 0:
         raise AssertionError("Qwen2.5-7B: ngram speculation proposed nothing")
     if on_card:
         _check_launches("Qwen2.5-7B main", launches,
@@ -7119,7 +7704,7 @@ def _engine_load(torch, dev, smi, tmp):
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
           "engine_mixtral_int8", "engine_sp", "engine_http", "engine_graph",
-          "engine_load")
+          "engine_disagg", "engine_load")
 
 
 def main(argv=None) -> int:
@@ -7195,6 +7780,14 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
+    disagg_launches = {}
+    if "engine_disagg" in phases:
+        # the disaggregated pair (the CLI path's two workers; leg A's fp8
+        # forms): their own counts
+        disagg_launches = engine_disagg_phase(torch, dev, smi)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
     if "engine_load" in phases:
         launches.update(engine_load_phase(torch, dev, smi))
         torch.cuda.synchronize()
@@ -7205,7 +7798,9 @@ def main(argv=None) -> int:
                     **({"launches_engine_http": http_launches[key]}
                        if key in http_launches else {}),
                     **({"launches_engine_graph": graph_launches[key]}
-                       if key in graph_launches else {}))
+                       if key in graph_launches else {}),
+                    **({"launches_engine_disagg": disagg_launches[key]}
+                       if key in disagg_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     # a form no cell serves (``path`` says so) has no count: null

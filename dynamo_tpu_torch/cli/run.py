@@ -24,6 +24,14 @@ dynamo_tpu_torch.runtime.transports.dynstore --port P``, then
 - ``in=http out=none``: a pure frontend whose models come from the
   discovery plane (``ModelWatcher``).
 
+Disaggregated prefill and decode: a token-level worker started with
+``--remote-prefill`` sends prompts whose uncached part exceeds
+``--max-local-prefill-length`` (live-tunable: ``DisaggRouter``'s discovery
+key) through the namespace's prefill queue while it holds fewer than
+``--max-prefill-queue-size`` items; ``in=prefill out=torch`` runs a prefill
+worker that computes them and streams their KV blocks back over TCP
+(``--kv-transfer tcp``, the one transfer the port serves).
+
 Every other input, output and reference flag is refused by name.
 
 A ``--model-path`` directory holding a safetensors checkpoint, or a
@@ -44,6 +52,11 @@ Examples:
       out=processor --worker-endpoint dyn://public.backend.generate \\
       --router-mode kv --model-path <dir> --store-port 4871
   python3 -m dynamo_tpu_torch.cli.run in=http out=none --store-port 4871
+  python3 -m dynamo_tpu_torch.cli.run in=dyn://public.backend.generate \\
+      out=torch --token-level --remote-prefill --model-path <dir> \\
+      --store-port 4871
+  python3 -m dynamo_tpu_torch.cli.run in=prefill out=torch \\
+      --model-path <dir> --store-port 4871
 """
 
 from __future__ import annotations
@@ -57,28 +70,25 @@ from typing import List
 
 logger = logging.getLogger(__name__)
 
-INPUTS = ("http", "text")  # and dyn://ns.comp.ep (a worker role)
+INPUTS = ("http", "text")  # and dyn://ns.comp.ep and prefill (worker roles)
 ENGINES = ("torch", "echo_core", "echo_full", "none", "processor")
 ROUTER_MODES = ("round_robin", "random", "kv")
 GRACEFUL_SHUTDOWN_S = 30.0
 
 # the reference's flags this CLI does not take (each raises by name): the
 # engine knobs among them are EngineConfig fields that --extra-engine-args
-# sets; the rest (multi-device, disaggregation, recovery, planning,
-# tenants, telemetry sidecars) are not ported
+# sets; the rest (multi-device, the ici transfer plane, recovery,
+# planning, tenants, telemetry sidecars) are not ported
 REFUSED_FLAGS = (
     "--tensor-parallel-size", "--expert-parallel-size",
     "--data-parallel-size", "--pipeline-parallel-size",
-    "--sequence-parallel-size", "--long-prefill-threshold-tokens",
-    "--isolate-engine",
+    "--sequence-parallel-size", "--isolate-engine",
     "--engine-heartbeat-s", "--engine-heartbeat-misses",
     "--engine-init-timeout-s", "--host-kv-blocks", "--multi-step-decode",
     "--device-finish", "--fused-epilogue", "--guided-table-max-states",
     "--no-guided-device-table", "--no-device-stop-strings",
-    "--disagg-stream-depth", "--spec-ngram-tokens",
+    "--spec-ngram-tokens",
     "--spec-draft-model", "--spec-draft-tokens", "--spec-ngram-match",
-    "--remote-prefill", "--max-local-prefill-length",
-    "--max-prefill-queue-size", "--advertise-host", "--kv-transfer",
     "--ici-sender-rank", "--ici-receiver-rank", "--num-nodes", "--node-rank",
     "--leader-addr", "--profile-dir", "--profiler-port", "--flight-dir",
     "--watchdog-stall-s", "--self-heal", "--drain-grace-s", "--respawn-max",
@@ -155,6 +165,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--router-staleness-bound-s", type=float, default=0.0,
                    help="the KV router skips a worker whose scraped load is "
                         "older than this (0 = off)")
+    # disaggregated prefill and decode (--token-level decode workers and
+    # in=prefill prefill workers)
+    p.add_argument("--remote-prefill", action="store_true",
+                   help="decode worker: send long prefills to the prefill queue")
+    p.add_argument("--max-local-prefill-length", type=int, default=1000,
+                   help="uncached prompt tokens above this go remote")
+    p.add_argument("--max-prefill-queue-size", type=int, default=2,
+                   help="prefill locally while the queue is this deep")
+    p.add_argument("--advertise-host", default="127.0.0.1",
+                   help="host other workers use to reach this worker's KV "
+                        "transfer server")
+    p.add_argument("--kv-transfer", default="tcp",
+                   help="KV block payload path: tcp (through host memory); "
+                        "ici is not ported")
+    p.add_argument("--disagg-stream-depth", type=int, default=2,
+                   help="prefill worker: KV frames in flight (2 overlaps a "
+                        "frame's copy with the previous one's write)")
+    p.add_argument("--long-prefill-threshold-tokens", type=int, default=0,
+                   help="admission class: prompts whose uncached suffix is "
+                        "at least this long take the SP ladder or, on a "
+                        "--remote-prefill worker, prefer the prefill pool")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -166,7 +197,12 @@ def parse_flags(rest: List[str]):
             raise SystemExit(
                 f"{name} is not served by the PyTorch port's CLI (an engine "
                 "field goes through --extra-engine-args)")
-    return build_parser().parse_args(rest)
+    flags = build_parser().parse_args(rest)
+    if flags.kv_transfer != "tcp":
+        raise SystemExit(
+            f"--kv-transfer {flags.kv_transfer} is not served by the PyTorch "
+            "port (served: tcp; the ici collective plane is not ported)")
+    return flags
 
 
 def load_mdc(flags):
@@ -351,6 +387,87 @@ def _kernel_launches() -> dict:
     return out
 
 
+def _disagg_factory(flags, drt, component: str):
+    """A ``--remote-prefill`` decode worker's coordinator factory (None
+    without the flag): the router's thresholds from the flags, live-tunable
+    through its discovery key; the transfer server advertised at
+    ``--advertise-host``."""
+    if not flags.remote_prefill:
+        return None
+
+    async def factory(runner):
+        from ..disagg import DisaggRouter, RemotePrefillCoordinator
+
+        router = DisaggRouter(
+            max_local_prefill_length=flags.max_local_prefill_length,
+            max_prefill_queue_size=flags.max_prefill_queue_size,
+            model_name=flags.model_name, namespace=flags.namespace)
+        return await RemotePrefillCoordinator(
+            drt, runner, namespace=flags.namespace, component=component,
+            router=router, advertise_host=flags.advertise_host).start()
+
+    return factory
+
+
+async def run_prefill(flags) -> None:
+    """The prefill worker role (``in=prefill out=torch``): consumes the
+    namespace's prefill queue and streams each prompt's KV to the decode
+    worker that enqueued it. Its stats (prefills, tokens, transfer bytes
+    and frames, each transfer's duration and exposed seconds, the kernels'
+    launches) answer the stats scrape of ``dyn://<ns>.prefill.stats``, as a
+    token-level worker's do."""
+    import uuid
+
+    from ..disagg import PrefillWorker
+    from ..engine.model_runner import ModelRunner
+    from ..engine.serving import engine_config_from_mdc
+    from ..runtime.component import DistributedRuntime
+
+    if flags.store_port is None:
+        raise SystemExit("in=prefill requires --store-port")
+    mdc = load_mdc(flags)
+    engine_config = engine_config_from_mdc(mdc, flags)
+    drt = await DistributedRuntime.connect(flags.store_host, flags.store_port)
+    loop = asyncio.get_running_loop()
+    runner = await loop.run_in_executor(None, lambda: ModelRunner(
+        engine_config, device=flags.device, model_dir=mdc.model_path))
+    await loop.run_in_executor(None, runner.warmup)
+    worker = PrefillWorker(drt, runner, engine_config, namespace=flags.namespace)
+
+    async def no_requests(payload, ctx):
+        raise RuntimeError("the prefill worker's endpoint serves stats only")
+        yield  # an async generator, as endpoint handlers are
+
+    endpoint = drt.namespace(flags.namespace).component("prefill").endpoint("stats")
+    serving = await endpoint.serve(
+        no_requests, instance_id=f"prefill-{uuid.uuid4().hex[:12]}",
+        stats_handler=lambda: dict(worker.metrics(),
+                                   launches=_kernel_launches()))
+    task = asyncio.ensure_future(worker.run())
+    print(f"prefill worker consuming {worker.queue.name}", flush=True)
+    stop_event = asyncio.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            loop.add_signal_handler(sig, stop_event.set)
+        except (NotImplementedError, RuntimeError):
+            pass
+    try:
+        await asyncio.wait([task, asyncio.ensure_future(stop_event.wait())],
+                           return_when=asyncio.FIRST_COMPLETED)
+        if task.done():
+            task.result()  # the worker's loop never ends on its own
+    finally:
+        worker.stop()
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+        await serving.stop()
+        await worker.close()
+        await drt.close()
+
+
 async def run_worker(flags, engine_spec: str, path: str) -> None:
     """Distributed worker roles (in=dyn://ns.comp.ep), the reference's
     ``run_worker`` without its sidecars (metrics port, KV fabric,
@@ -442,7 +559,8 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
 
             core = await TorchServingEngine.create(
                 mdc=mdc, flags=flags, device=flags.device,
-                events=publisher.as_sink())
+                events=publisher.as_sink(),
+                disagg_factory=_disagg_factory(flags, drt, comp))
         else:
             core = await build_core_engine(engine_spec, flags, mdc)
         closers.append(core.close)
@@ -506,8 +624,18 @@ async def amain(argv: List[str]) -> None:
     logging.basicConfig(
         level=logging.DEBUG if flags.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if flags.remote_prefill and not (src.startswith("dyn://")
+                                     and flags.token_level
+                                     and engine_spec == "torch"):
+        raise SystemExit("--remote-prefill is served by a token-level decode "
+                         "worker: in=dyn://ns.comp.ep out=torch --token-level")
     if src.startswith("dyn://"):
         await run_worker(flags, engine_spec, src)
+        return
+    if src == "prefill":
+        if engine_spec != "torch":
+            raise SystemExit(f"in=prefill serves out=torch, not out={engine_spec}")
+        await run_prefill(flags)
         return
     if src not in INPUTS:
         raise SystemExit(

@@ -613,7 +613,9 @@ class EngineConfig:
         on top of it (``device_finish``, with ``guided_device_table``,
         ``guided_table_max_states`` and ``device_stop_strings`` as live
         knobs), sequence-parallel prefill (``sp_size``, its ranks on the
-        one device), on one device with a KV cache in the activation dtype
+        one device), disaggregated prefill (``disagg_stream_depth``, and
+        ``long_prefill_threshold_tokens`` at ``sp_size`` 1: the prefill
+        pool's admission class), on one device with a KV cache in the activation dtype
         or in fp8 (``kv_cache_dtype="fp8"``; any other value raises the
         reference's ``ValueError``), the weights in the activation dtype
         or in int8 (``quantization="int8"``; any other scheme raises
@@ -632,10 +634,6 @@ class EngineConfig:
                 "chained propose-verify round)")
         if self.spec_draft_model:
             unported.append("spec_draft_model (draft-model speculation)")
-        if self.sp_size == 1 and self.long_prefill_threshold_tokens:
-            unported.append(
-                "long_prefill_threshold_tokens with sp_size 1 (the disagg "
-                "prefill pool's admission class)")
         if self.sp_size > 1 and self.tp_size > 1:
             unported.append(
                 "sp_size > 1 with tp_size > 1 (the SP ring over "

@@ -22,9 +22,12 @@ leaves land, or after init), as the reference does (``models/quant.py``). PyTorc
 there is no compiled-program cache; the KV cache and the sample state are
 updated in place. With ``sp_size > 1`` the runner also owns the sequence-parallel
 prefill chunk (``sp_prefill_chunk``: one fixed ``[1, S]`` shape, the ``sp``
-ranks laid out on the one device). Not in this slice (later work): the
-chained propose-verify round, draft-model speculation, embeddings, block
-gather/scatter for offload or migration, CUDA graphs and compile tracking.
+ranks laid out on the one device). The block ops (``gather_blocks_device``,
+``blocks_to_host``, ``scatter_blocks``) move whole KV blocks of the cache
+pair in and out for the disaggregated transfer, ordered on the runner's
+stream with its programs. Not in this slice (later work): the chained
+propose-verify round, draft-model speculation, embeddings, CUDA graphs and
+compile tracking.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 
 from ..models import llama, quant, resolve
 from ..models.loader import load_checkpoint_params, resolve_weights
-from ..ops.attention import FP8, check_attention_impl
+from ..ops.attention import FP8, _bytes, check_attention_impl
 from ..ops.epilogue import fused_sampling_epilogue
 from ..ops.transfer import to_device, to_device_packed
 from .config import EngineConfig, check_kv_cache_dtype, check_quantization
@@ -200,11 +203,15 @@ class HostCopy:
     def ready(self) -> bool:
         return self._event is None or self._event.query()
 
-    def numpy(self):
-        """The outputs as numpy arrays; blocks until the copies landed."""
+    def tensors(self) -> List[torch.Tensor]:
+        """The outputs as host tensors; blocks until the copies landed."""
         if self._event is not None:
             self._event.synchronize()
-        return [t.numpy() for t in self._host]
+        return self._host
+
+    def numpy(self):
+        """The outputs as numpy arrays; blocks until the copies landed."""
+        return [t.numpy() for t in self.tensors()]
 
 
 def _table_ctx(pos: torch.Tensor, bt: torch.Tensor, bs: int) -> torch.Tensor:
@@ -574,6 +581,74 @@ class ModelRunner:
         tok0 = torch.zeros(b, dtype=torch.int64, device=self.device)
         tok0[slot: slot + 1].copy_(next_tokens[:1])
         return tok0
+
+    # ---------- KV block ops (the disaggregated transfer) ----------
+
+    def _block_index(self, block_ids) -> torch.Tensor:
+        """Block ids, checked on the host against the cache's blocks (the
+        spare row dropped writes go to lies past them, so no id reaches it),
+        as a device index."""
+        ids = np.asarray(list(block_ids), np.int64)
+        n = self.config.num_kv_blocks
+        if ids.size == 0 or ids.min() < 0 or ids.max() >= n:
+            raise ValueError(f"block ids outside [0, {n}): {ids.tolist()}")
+        return self._t(ids)
+
+    @torch.inference_mode()
+    def gather_blocks_device(self, block_ids) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The cache pair's blocks ``block_ids`` as device tensors
+        ``[L, n, bs, ...]`` (the Llama family's K and V; MLA's ``c_kv`` and
+        ``k_rope``, whose last dims differ). Dispatch-only: an
+        ``index_select`` on dim 1 on the runner's stream, so it reads what
+        every step dispatched before it wrote; an e4m3 cache is gathered
+        through its bytes."""
+        ids = self._block_index(block_ids)
+        return tuple(_bytes(c).index_select(1, ids).view(c.dtype)
+                     for c in self.kv_cache)
+
+    def blocks_to_host(self, k_dev: torch.Tensor, v_dev: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Host copies of one gathered block frame: copied into pinned
+        memory behind the gather and waited on through that copy's own
+        event (never a device-wide synchronize)."""
+        k, v = self.stage_blocks_to_host(k_dev, v_dev).tensors()
+        return k.view(k_dev.dtype), v.view(v_dev.dtype)
+
+    def stage_blocks_to_host(self, k_dev: torch.Tensor, v_dev: torch.Tensor
+                             ) -> HostCopy:
+        """Start a gathered frame's copy to the host (its bytes; an e4m3
+        frame is viewed back by the reader). Dispatch-only."""
+        return HostCopy((_bytes(k_dev), _bytes(v_dev)))
+
+    def gather_blocks(self, block_ids) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``gather_blocks_device`` then ``blocks_to_host``."""
+        return self.blocks_to_host(*self.gather_blocks_device(block_ids))
+
+    def stage_blocks(self, k: torch.Tensor, v: torch.Tensor):
+        """Received host blocks in pinned memory on a card (so the copy in
+        ``scatter_blocks`` does not block); as they are on the CPU. Touches
+        no runner state: any thread may call it."""
+        if self.device.type != "cuda":
+            return k, v
+        return k.pin_memory(), v.pin_memory()
+
+    @torch.inference_mode()
+    def scatter_blocks(self, block_ids, k_blocks: torch.Tensor,
+                       v_blocks: torch.Tensor) -> None:
+        """Write blocks ``[L, n, bs, ...]`` (host or device tensors of the
+        cache's dtype and block shape, else ``ValueError``) into the cache
+        pair at ``block_ids``: one ``index_copy_`` on dim 1 each, after a
+        pinned ``non_blocking`` copy to the card, both on the runner's
+        stream, so they are ordered against ``step``."""
+        ids = self._block_index(block_ids)
+        for cache, blocks in zip(self.kv_cache, (k_blocks, v_blocks)):
+            want = (cache.shape[0], len(ids), *cache.shape[2:])
+            if tuple(blocks.shape) != want or blocks.dtype != cache.dtype:
+                raise ValueError(
+                    f"blocks {tuple(blocks.shape)} {blocks.dtype} do not fit "
+                    f"the cache's {want} {cache.dtype}")
+            src = to_device(blocks, self.device)
+            _bytes(cache).index_copy_(1, ids, _bytes(src))
 
     # guided device tables pad their state dim to this ladder, as the
     # reference does (there each bucket is one compiled burst program)

@@ -30,6 +30,13 @@ while the other streams keep decoding; its final chunk's sampled token
 feeds a decode burst on the device (the early handoff) before the one host
 sync that drains both.
 
+With a ``RemotePrefillCoordinator`` (``disagg``), a prompt the router
+sends to the prefill pool holds its blocks in ``pending_remote`` until the
+prefill worker has streamed its KV into them and committed the first
+token; the row then enters the decode loop as a local prefill's would
+(``_install_remote``). Past the coordinator's timeout the request falls
+back to a local prefill.
+
 Per-request state tracks paged blocks, chained block hashes (the prefix
 cache), the guided-choice cursor and cooperative cancellation; KV OOM
 preempts a request back to the waiting queue and its re-prefill continues
@@ -37,9 +44,8 @@ the emitted stream.
 
 Not in this slice (later work, refused by ``EngineConfig`` or by the
 serving layer): the chained propose-verify round, draft-model speculation,
-guided JSON, remote prefill (so the SP ladder in a disagg prefill worker),
-fabric pulls, migration, fault injection, the flight recorder and the stall
-watchdog.
+guided JSON, fabric pulls, migration, fault injection, the flight recorder
+and the stall watchdog.
 """
 
 from __future__ import annotations
@@ -194,6 +200,13 @@ class EngineRequest:
     chain_fp: bool = False
     # memoized guided-table cache key
     guided_key: Optional[tuple] = None
+    # disaggregated prefill: the commit's future, its deadline (past it the
+    # request falls back to a local prefill), one remote attempt per
+    # request, and the backoff after a rejection on the prefix-hit term
+    remote_future: Optional[asyncio.Future] = None
+    remote_deadline: float = 0.0
+    remote_attempted: bool = False
+    remote_backoff_until: float = 0.0
 
     def __post_init__(self):
         self.classify_finish()
@@ -351,9 +364,14 @@ class Scheduler:
     GUIDED_TABLE_CACHE = 16
 
     def __init__(self, runner: ModelRunner, config: EngineConfig,
-                 events: Optional[KvEventSink] = None):
+                 events: Optional[KvEventSink] = None, disagg=None):
         self.runner = runner
         self.config = config
+        # Optional[RemotePrefillCoordinator]: conditional remote prefill
+        self.disagg = disagg
+        # requests whose prefill runs on a prefill worker (blocks held,
+        # waiting for the commit)
+        self.pending_remote: List[EngineRequest] = []
         # KV events (a worker's publisher): stored on registration, removed
         # on eviction or release, as the reference's allocator emits them
         self.allocator = BlockAllocator(
@@ -425,6 +443,12 @@ class Scheduler:
         self.wake.set()
         if self._task:
             await self._task
+        for er in self.pending_remote:
+            self.disagg.cancel(er.request_id)
+            self._finish(er, FinishReason.CANCELLED)
+        self.pending_remote.clear()
+        if self.disagg is not None:
+            await self.disagg.close()
 
     def add_request(self, er: EngineRequest) -> None:
         so = er.req.sampling_options
@@ -446,18 +470,24 @@ class Scheduler:
         self.wake.set()
 
     def metrics(self) -> dict:
+        """The reference's keys under the reference's conditions (each
+        feature's counters only while the feature is on; ``draining``
+        always, False until recovery is ported; the coordinator's
+        ``remote_prefill_*`` keys with a disagg coordinator), beside the
+        port's own counters that no reference key carries."""
         active = sum(1 for s in self.slots if s is not None)
-        return {
+        out = {
             "request_active_slots": active,
             "request_total_slots": self.config.max_batch_size,
             "kv_active_blocks": self.allocator.used,
             "kv_total_blocks": self.allocator.num_blocks,
-            "num_requests_waiting": len(self.waiting),
+            "num_requests_waiting": len(self.waiting) + len(self.pending_remote),
             "gpu_cache_usage_perc": self.allocator.usage(),
             "gpu_prefix_cache_hit_rate": (
                 self.prefix_hit_tokens / self.prefix_total_tokens
                 if self.prefix_total_tokens else 0.0
             ),
+            "draining": False,
             # the counts behind the rate: a router's scrape reads which
             # worker served a prefix from its cache
             "prefix_hit_tokens": self.prefix_hit_tokens,
@@ -466,17 +496,24 @@ class Scheduler:
             "prefill_steps": self.prefill_steps,
             "decode_steps": self.decode_steps,
             "preemptions": self.preemptions,
-            "spec_proposed": self.spec_proposed,
-            "spec_accepted": self.spec_accepted,
             "sp_chunks": self.sp_chunks,
             "sp_tokens": self.sp_tokens,
             "sp_handoffs": self.sp_handoffs,
-            "pipeline_bursts": self.pipeline_bursts,
-            "chain_len_last": self._chain_dispatched or self._last_chain_len,
             "chain_len_max": max(self.chain_len_max, self._chain_dispatched),
             "device_finished_rows": self.device_finished_rows,
             "sync_fallback": dict(self.sync_fallback),
         }
+        if self.config.spec_ngram_tokens:
+            out["spec_proposed_tokens"] = self.spec_proposed
+            out["spec_accepted_tokens"] = self.spec_accepted
+        if self.config.decode_pipeline_depth >= 2:
+            out["decode_pipeline_bursts"] = self.pipeline_bursts
+        if self.config.device_finish_enabled:
+            out["decode_burst_chain_length"] = (
+                self._chain_dispatched or self._last_chain_len)
+        if self.disagg is not None:
+            out.update(self.disagg.metrics())
+        return out
 
     # ---------- helpers ----------
 
@@ -578,6 +615,26 @@ class Scheduler:
                     self._sp_drop(er)
                     self._finish(er, FinishReason.CANCELLED)
 
+            # remote prefill completions, cancellations and timeouts
+            if self.pending_remote:
+                progressed |= self._reap_remote()
+
+            # remote admission first: a prompt the router sends to the
+            # prefill pool only holds blocks here until its commit
+            unrouted = set()
+            if self.disagg is not None:
+                seen = list(self.waiting)
+                for er in seen:
+                    if len(self.pending_remote) >= self.config.max_batch_size:
+                        break
+                    if await self._try_submit_remote(er):
+                        self.waiting.remove(er)
+                        progressed = True
+                # a request that arrived while a submit awaited its push has
+                # not met the router yet: it waits for the next pass rather
+                # than being prefilled here by default
+                unrouted = {id(er) for er in self.waiting} - {id(er) for er in seen}
+
             # local admission: claim a slot + blocks, join the prefill batch.
             # Both ladders honour the prefill-batch cap: SP admissions hold
             # their WHOLE prompt's blocks while the single-owner ladder serves
@@ -585,6 +642,7 @@ class Scheduler:
             # block pool idle; oversize backlogs wait block-free in `waiting`
             cap = self.config.max_prefill_batch
             while (self.waiting
+                   and id(self.waiting[0]) not in unrouted
                    and len(self.prefilling) < cap
                    and (len(self.sp_queue)
                         + (1 if self.sp_active is not None else 0) < cap)
@@ -680,7 +738,15 @@ class Scheduler:
             if not progressed:
                 self.wake.clear()
                 if not self.waiting and not any(self.slots):
-                    await self.wake.wait()
+                    if self.pending_remote:
+                        # wake on a commit; the bounded wait keeps the
+                        # remote deadlines checked
+                        try:
+                            await asyncio.wait_for(self.wake.wait(), 0.5)
+                        except asyncio.TimeoutError:
+                            pass
+                    else:
+                        await self.wake.wait()
                 else:
                     await asyncio.sleep(0.001)
             else:
@@ -753,6 +819,155 @@ class Scheduler:
             self.sp_queue.append(er)
         else:
             self.prefilling.append(er)
+
+    # ---------- disaggregated prefill (decode side) ----------
+
+    async def _try_submit_remote(self, er: EngineRequest) -> bool:
+        """Conditional disagg: enqueue this prompt for a remote prefill?
+        The reference's decision point: the router's verdict from the
+        prompt length, the prefix-hit length and the queue depth, after the
+        requests only the local path serves are kept local."""
+        if er.remote_attempted:
+            return False  # one remote attempt; a fallback prefills locally
+        if time.monotonic() < er.remote_backoff_until:
+            return False
+        if er.resume_tokens:
+            # a preempted stream: only the local path re-prefills prompt +
+            # resume_tokens
+            return False
+        if er.want_prompt_lps:
+            # prompt logprobs need every position's logits on this engine
+            return False
+        so = er.req.sampling_options
+        if so.guided_choice_token_ids or so.guided_json or er.guided is not None:
+            # the remote prefill samples the first token without the mask
+            return False
+        # the long-prefill admission class: past the threshold, prompts
+        # prefer the prefill pool whatever the router says, unless this
+        # engine runs the SP ladder itself
+        threshold = self.config.long_prefill_threshold_tokens
+        force_long = (threshold > 0
+                      and not self.runner.sp_ready
+                      and len(er.prompt) >= threshold)
+        # a larger prefix hit only shrinks the suffix: a prompt that does
+        # not qualify with hit 0 never does (saves hashing it every pass)
+        if not force_long and not self.disagg.decide(len(er.prompt), 0):
+            return False
+        probe = self.allocator.probe_prefix(er.prompt)
+        prefix_hit = len(probe[1]) * self.config.kv_block_size
+        if force_long and len(er.prompt) - prefix_hit < threshold:
+            force_long = False
+        if not force_long and not self.disagg.decide(len(er.prompt), prefix_hit):
+            # not permanent: cached prefixes are evicted and the threshold
+            # is live-tunable; back off instead of probing every pass
+            er.remote_backoff_until = time.monotonic() + 0.25
+            return False
+        er.remote_attempted = True
+        try:
+            er.block_ids, er.num_cached = self.allocator.allocate_prompt(
+                er.prompt, probe=probe)
+        except MemoryError:
+            return False
+        try:
+            er.remote_future = await self.disagg.submit(
+                er.request_id, er.prompt, er.block_ids, er.num_cached,
+                temperature=er.temperature, top_k=er.top_k, top_p=er.top_p,
+                min_p=er.min_p, presence_penalty=er.presence_penalty,
+                frequency_penalty=er.frequency_penalty,
+                repetition_penalty=er.repetition_penalty, seed=so.seed,
+                want_logprobs=er.want_logprobs, logprobs_n=er.logprobs_n,
+                logit_bias=so.logit_bias, trace_id=er.ctx.trace_id or "")
+        except Exception:
+            # queue unreachable: release and let the local path take it
+            logger.exception("remote prefill submit failed for %s; going "
+                             "local", er.request_id)
+            self.allocator.free_blocks(er.block_ids)
+            er.block_ids = []
+            er.num_cached = 0
+            return False
+        self.prefix_hit_tokens += er.num_cached
+        self.prefix_total_tokens += len(er.prompt)
+        er.ctx.add_stage("admission")
+        er.remote_deadline = time.monotonic() + self.disagg.prefill_timeout_s
+        er.remote_future.add_done_callback(lambda _f: self.wake.set())
+        self.pending_remote.append(er)
+        return True
+
+    def _reap_remote(self) -> bool:
+        """Install committed remote prefills; handle cancels and timeouts."""
+        progressed = False
+        now = time.monotonic()
+        for er in list(self.pending_remote):
+            if er.ctx.is_stopped:
+                self.pending_remote.remove(er)
+                self.disagg.cancel(er.request_id)
+                self._finish(er, FinishReason.CANCELLED)
+                progressed = True
+                continue
+            fut = er.remote_future
+            if fut.done() and not fut.cancelled():
+                slot = self._free_slot()
+                if slot is None:
+                    break  # keep the completion order; wait for a slot
+                self.pending_remote.remove(er)
+                self._install_remote(er, slot)
+                progressed = True
+            elif now > er.remote_deadline:
+                # the prefill worker is lost or the queue starved: the
+                # blocks go back and the request prefills locally, first in
+                # line
+                logger.warning("remote prefill timeout for %s; local "
+                               "fallback", er.request_id)
+                self.pending_remote.remove(er)
+                self.disagg.cancel(er.request_id, reason="timeout")
+                # the local admission counts the prompt's prefix hit anew
+                self.prefix_hit_tokens -= er.num_cached
+                self.prefix_total_tokens -= len(er.prompt)
+                self.allocator.free_blocks(er.block_ids)
+                er.block_ids = []
+                er.num_cached = 0
+                er.remote_future = None
+                er.ctx.add_stage("remote_fallback")
+                self.waiting.appendleft(er)
+                progressed = True
+        return progressed
+
+    def _install_remote(self, er: EngineRequest, slot: int) -> None:
+        """A remote prefill committed: its KV blocks are in this cache and
+        its first token was sampled there. Enter the decode loop as a local
+        prefill's final chunk leaves a row (host batch state, sample row,
+        the prefix cache and its KV events, the suffix ring)."""
+        token, lp, top = er.remote_future.result()
+        er.ctx.add_stage("remote_prefill")
+        er.remote_future = None
+        er.slot = slot
+        self.slots[slot] = er
+        self._host.install(er)
+        er.prefill_tokens = er.prompt
+        er.prefill_pos = len(er.prompt)
+        er.context_len = len(er.prompt)
+        er.pending_token = token
+        er.generated = 1
+        # penalty state for the decode steps this slot is entering
+        self.runner.set_sample_row(
+            slot, er.prompt, [token],
+            logit_bias=er.req.sampling_options.logit_bias)
+        er.seq = TokenSequence(er.prompt, block_size=self.config.kv_block_size)
+        er.registered_blocks = 0
+        # the remotely filled blocks become matchable and publish their
+        # stored events (a KV router learns of them here)
+        self._register_completed_blocks(er)
+        er.ring_tail.clear()
+        er.ring_tail.extend(er.prompt[-SUFFIX_RING_W:])
+        er.ring_tail.append(token)
+        er.finish = self._check_finish(er, token)
+        if top and er.want_logprobs and er.logprobs_n > 0:
+            top = dict(list(top.items())[: er.logprobs_n])
+        else:
+            top = None
+        self._emit(er, token, lp if er.want_logprobs else None, top)
+        if er.finish is not None:
+            self._finish(er, er.finish, emit=False)
 
     # ---------- sequence-parallel long-context prefill ----------
 
@@ -1012,19 +1227,20 @@ class Scheduler:
         if not finals:
             return
 
+        # the outputs start to the host behind the step (pinned copies and
+        # an event each), and an executor waits on those events: no
+        # device-wide sync, which a concurrent dispatch guarded against
+        # host syncs (an install landing, another engine's burst) would see
+        staged = self.runner.stage_to_host(next_tokens, lps, top_vals, top_ids)
+        parts = {i: [(self.runner.stage_to_host(row), cnt)
+                     for row, cnt in plan[i][0].prompt_lp_parts]
+                 for i in finals if plan[i][0].prompt_lp_parts}
+
         def _to_host():
-            # device→host transfers off the event loop
-            plists = {
-                i: [
-                    float(x)
-                    for row, cnt in plan[i][0].prompt_lp_parts
-                    for x in row.cpu().numpy()[0, :cnt]
-                ]
-                for i in finals
-                if plan[i][0].prompt_lp_parts
-            }
-            return (next_tokens.cpu().numpy(), lps.cpu().numpy(),
-                    top_vals.cpu().numpy(), top_ids.cpu().numpy(), plists)
+            plists = {i: [float(x) for part, cnt in rows
+                          for x in part.numpy()[0][0, :cnt]]
+                      for i, rows in parts.items()}
+            return (*staged.numpy(), plists)
 
         toks, lpn, tv, ti, plists = await loop.run_in_executor(None, _to_host)
         for i in finals:

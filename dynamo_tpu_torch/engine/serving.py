@@ -15,7 +15,9 @@ device-finish decode loop, and with ``EngineConfig.sp_size > 1`` the
 sequence-parallel prefill ladder for long prompts (its ranks laid out on
 the one device; the reference's ``sequence_parallel_size`` flag is this
 config field). ``create`` takes an ``EngineConfig``, or a model card and
-the CLI's flags (``engine_config_from_mdc``). Refused by name:
+the CLI's flags (``engine_config_from_mdc``). With a ``disagg_factory``
+the engine is a disaggregated decode worker: long prompts prefill on the
+prefill pool and their KV streams back into this cache. Refused by name:
 ``guided_json`` (it needs the tokenizer's piece table) and
 ``guided_choice`` given as text without its token ids. A model card's
 directory (or ``.gguf``) is loaded by the runner (``models/loader.py``);
@@ -84,6 +86,9 @@ def engine_config_from_mdc(mdc, flags=None, extra=None) -> EngineConfig:
         decode_pipeline_depth=getattr(flags, "decode_pipeline_depth", 1) or 1,
         allow_random_weights=getattr(flags, "allow_random_weights", False),
         kv_cache_dtype=getattr(flags, "kv_cache_dtype", "auto") or "auto",
+        long_prefill_threshold_tokens=getattr(
+            flags, "long_prefill_threshold_tokens", 0) or 0,
+        disagg_stream_depth=getattr(flags, "disagg_stream_depth", None) or 2,
     ))
 
 
@@ -132,6 +137,7 @@ class TorchServingEngine(AsyncEngine):
         mdc=None,
         flags=None,
         events: Optional[KvEventSink] = None,
+        disagg_factory=None,
     ) -> "TorchServingEngine":
         """Build the runner on ``device`` (default "cuda", which raises when
         no card is present), warm it up (builds the kernels on a card) and
@@ -143,7 +149,10 @@ class TorchServingEngine(AsyncEngine):
         is loaded (``ModelRunner(model_dir=...)``) or, without a checkpoint,
         must allow random weights (``models.loader.resolve_weights``).
         ``events`` receives the allocator's KV events (a token-level
-        worker's ``KvEventPublisher.as_sink()``)."""
+        worker's ``KvEventPublisher.as_sink()``). ``disagg_factory(runner)``
+        (a coroutine function returning a started
+        ``RemotePrefillCoordinator``) turns on conditional remote prefill;
+        draft-model speculation is refused with it, as in the reference."""
         if engine_config is None:
             if mdc is None:
                 raise ValueError("create needs an engine_config or a model card")
@@ -153,9 +162,18 @@ class TorchServingEngine(AsyncEngine):
         runner = await loop.run_in_executor(
             None, lambda: ModelRunner(engine_config, params=params,
                                       device=device, model_dir=model_dir))
+        disagg = None
+        if disagg_factory is not None:
+            if engine_config.spec_draft_model:
+                raise ValueError(
+                    "spec_draft_model is incompatible with disaggregated "
+                    "remote prefill: remotely computed KV never passes "
+                    "through the draft model, so its mirror cache would be "
+                    "stale for every remote-prefilled request")
+            disagg = await disagg_factory(runner)
         if warmup:
             await loop.run_in_executor(None, runner.warmup)
-        scheduler = Scheduler(runner, engine_config, events)
+        scheduler = Scheduler(runner, engine_config, events, disagg=disagg)
         engine = cls(runner, scheduler, engine_config)
         scheduler.start()
         return engine

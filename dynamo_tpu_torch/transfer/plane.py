@@ -1,0 +1,143 @@
+"""Transfer-plane core: the poison set, the bounded frame pipe and the
+backend negotiation.
+
+The port's copy of ``dynamo_tpu/transfer/plane.py`` for the disagg plane:
+
+- ``PoisonSet``: request ids whose payload stream can no longer be
+  trusted (a frame lost, unauthorized, of another cache layout, or a
+  connection that died mid-stream); their commit is nacked, because
+  resuming over blocks that were never scattered corrupts the stream.
+  TTL and a logged cap bound it.
+- ``FramePipe``: the conveyor between a chunk loop and one wire pump;
+  ``maxsize=1`` plus the pump's one-frame lookahead bound live host
+  frames at two regardless of sequence length. Its counters (bytes,
+  frames, ``first_frame_t``, ``max_live_host_frames``) are what the
+  reference's ``TransferMetrics`` family records; the port keeps them as
+  plain counters in the owners' ``metrics()`` (it has no metrics
+  registry yet).
+- ``negotiate_backend``: the payload path for one peer pair. The port
+  serves ``tcp`` only; the ``ici`` collective plane is refused by name.
+
+Not ported: the flight-recorder events and the connection-drop chaos seam.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import Dict, Optional
+
+logger = logging.getLogger(__name__)
+
+# dropped-payload bookkeeping: ids leave when their commit is nacked; a
+# request that never commits would otherwise stay forever. The TTL is far
+# past any commit delay (the decode side's prefill timeout is 120 s), so
+# expiry never un-poisons a commit that could still arrive; the count cap
+# is a last resort and LOGS what it evicts
+MAX_DROPPED = 4096
+DROPPED_TTL_S = 600.0
+
+
+class PoisonSet:
+    """Request ids whose payload stream can no longer be trusted
+    (insertion-ordered, so TTL expiry is a prefix scan)."""
+
+    def __init__(self, plane: str):
+        self.plane = plane
+        self._dropped: Dict[str, float] = {}
+
+    def __len__(self) -> int:
+        return len(self._dropped)
+
+    def __contains__(self, request_id: str) -> bool:
+        return request_id in self._dropped
+
+    def mark(self, request_id: str, reason: str = "") -> None:
+        now = time.monotonic()
+        logger.warning("%s transfer: poisoning %s (%s)", self.plane,
+                       request_id, reason or "dropped frame")
+        self._dropped.pop(request_id, None)
+        self._dropped[request_id] = now
+        for rid, t in list(self._dropped.items()):
+            if now - t <= DROPPED_TTL_S:
+                break
+            del self._dropped[rid]
+        while len(self._dropped) > MAX_DROPPED:
+            rid, _ = next(iter(self._dropped.items()))
+            del self._dropped[rid]
+            logger.error(
+                "dropped-payload set over cap (%d); evicting %s: a late "
+                "commit for it would now be accepted", MAX_DROPPED, rid)
+
+    def pop(self, request_id: str) -> bool:
+        """Consume a poison mark at commit time: True → nack."""
+        return self._dropped.pop(request_id, None) is not None
+
+
+class FramePipe:
+    """Bounded conveyor between the chunk loop and one transfer pump.
+
+    The producer dispatches device gathers (their host copies started
+    behind them) and enqueues ``(staged, dst_ids)`` frames; the pump
+    drains them to the wire. ``maxsize=1`` plus the pump's one-frame
+    lookahead bound live host frames at two."""
+
+    def __init__(self, depth: int, frame_blocks: int):
+        self.depth = depth  # 1 = strictly serial frames, 2 = double-buffered
+        self.frame_blocks = frame_blocks  # max KV blocks per frame
+        self.q: asyncio.Queue = asyncio.Queue(maxsize=1)
+        self.closed = False  # the pump consumed the end-of-stream sentinel
+        self.error: Optional[BaseException] = None
+        self.nbytes = 0
+        self.frames = 0
+        self.first_frame_t: Optional[float] = None
+        self.live_host_frames = 0
+        self.max_live_host_frames = 0
+        self.task: Optional[asyncio.Task] = None
+
+    async def put(self, frame) -> None:
+        if self.error is not None:
+            raise self.error
+        if self.first_frame_t is None:
+            self.first_frame_t = time.monotonic()
+        await self.q.put(frame)
+        # the pump may have failed while we were blocked on the queue
+        if self.error is not None:
+            raise self.error
+
+    async def drain(self) -> int:
+        """Flush: every enqueued frame is on the wire (or the pump's
+        failure is re-raised). Awaited before the commit frame."""
+        await self.q.put(None)
+        await self.task
+        if self.error is not None:
+            raise self.error
+        return self.nbytes
+
+    async def shutdown(self) -> None:
+        """Abnormal-exit cleanup: the happy path joined the pump through
+        ``drain``; anything else is an error or cancel path where the
+        connection goes down anyway, so cancel outright."""
+        if self.task is not None and not self.task.done():
+            self.task.cancel()
+            try:
+                await self.task
+            except asyncio.CancelledError:
+                pass
+
+
+def negotiate_backend(descriptor: Optional[dict], ici=None,
+                      peer_role: str = "receiver") -> str:
+    """The payload backend for one peer pair: ``tcp``, the one the port
+    serves. A collective plane (``ici``) is refused by name; so is a peer
+    whose descriptor offers no tcp."""
+    if ici is not None:
+        raise NotImplementedError(
+            "the ici transfer backend (a device-to-device collective plane) "
+            "is not ported to the PyTorch engine; use --kv-transfer tcp")
+    modes = (descriptor or {}).get("modes") or ("tcp",)
+    if "tcp" not in modes:
+        raise ValueError(f"the {peer_role} offers no tcp transfer "
+                         f"(modes {list(modes)})")
+    return "tcp"

@@ -101,9 +101,10 @@ def profile_run(torch, cfg, wave_a, wave_b, trace_path=None) -> dict:
                 torch.cuda.synchronize()
                 out["traced_wall_s"] = time.monotonic() - t1
             steps1 = engine.metrics()
-            out["traced_steps"] = {k: steps1[k] - steps0[k] for k in
-                                   ("prefill_steps", "decode_steps",
-                                    "pipeline_bursts", "device_finished_rows")}
+            out["traced_steps"] = {k: steps1.get(k, 0) - steps0.get(k, 0)
+                                   for k in ("prefill_steps", "decode_steps",
+                                             "decode_pipeline_bursts",
+                                             "device_finished_rows")}
             out["chain_len_max"] = steps1["chain_len_max"]
             out["sync_fallback"] = steps1["sync_fallback"]
         finally:

@@ -436,7 +436,7 @@ def test_chained_engine_streams_match_jax_engine(weights, probe):
     assert len(toks[8]) == 11
     # the chain engaged, rows froze on the device, nothing leaked, and every
     # pass that did not chain has a named reason
-    assert metrics["chain_len_max"] > 1 and metrics["pipeline_bursts"] > 2
+    assert metrics["chain_len_max"] > 1 and metrics["decode_pipeline_bursts"] > 2
     assert metrics["device_finished_rows"] > 0
     assert used == 0
     assert metrics["sync_fallback"].get("not_idle", 0) > 0
@@ -518,11 +518,12 @@ def test_decode_modes_stream_identically_within_port(weights, probe,
         # guided and stop-string rows keep the chain closed, by name
         assert fb.get("guided_disabled", 0) + fb.get("stop_strings_disabled", 0) > 0
     elif mode == "pipelined":
-        assert metrics["pipeline_bursts"] > 0
+        assert metrics["decode_pipeline_bursts"] > 0
         # no chain to fall back from: nothing is counted
         assert metrics["chain_len_max"] == 0 and fb == {}
     else:
-        assert metrics["pipeline_bursts"] == 0 and fb == {}
+        # no dispatch-ahead pipeline: its counter is not served at all
+        assert "decode_pipeline_bursts" not in metrics and fb == {}
 
 
 def test_hash_collision_resumes_with_the_same_stream(weights, probe, monkeypatch):

@@ -1347,3 +1347,43 @@ def test_safetensors_round_trip_onto_the_card(tmp_path, quantization):
                          model_dir=str(tmp_path))
     assert resolve(cfg).__name__.endswith("llama")
     assert runner.params["layers"]["bq"].is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["auto", "fp8"])
+def test_block_ops_on_the_card_round_trip_without_a_host_sync(kv):
+    """The disagg block ops on a card: scatter host blocks (pinned, staged
+    through ``stage_blocks``) under ``set_sync_debug_mode("error")`` (no
+    host sync), gather them back (dispatch-only too): the same bytes; an
+    untouched block reads back zero."""
+    _need_cuda()
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.model_runner import ModelRunner
+
+    cfg = EngineConfig(
+        model=ModelConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
+                          num_layers=2, num_heads=4, num_kv_heads=2,
+                          max_position_embeddings=512),
+        max_batch_size=2, max_model_len=256, kv_block_size=16,
+        num_kv_blocks=32, kv_cache_dtype=kv)
+    card = ModelRunner(cfg, device="cuda")
+    k0, v0 = card.kv_cache
+    ids = [5, 1, 30]
+    shape = (k0.shape[0], len(ids), *k0.shape[2:])
+    g = torch.Generator().manual_seed(0)
+    k = torch.randn(shape, generator=g).to(k0.dtype)
+    v = torch.randn(shape, generator=g).to(v0.dtype)
+    ks, vs = card.stage_blocks(k, v)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card.scatter_blocks(ids, ks, vs)
+        kd, vd = card.gather_blocks_device(ids)
+        staged = card.stage_blocks_to_host(kd, vd)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    kh, vh = staged.tensors()
+    assert torch.equal(kh, k.view(torch.uint8) if kv == "fp8" else k)
+    assert torch.equal(vh, v.view(torch.uint8) if kv == "fp8" else v)
+    k2, v2 = card.blocks_to_host(*card.gather_blocks_device([0]))
+    assert not k2.view(torch.uint8).any() and not v2.view(torch.uint8).any()

@@ -580,7 +580,7 @@ async def test_fp8_greedy_streams_match_jax_engine(name):
     if "prefix_hit" in name:
         assert metrics["gpu_prefix_cache_hit_rate"] > 0
     if "spec" in name:
-        assert metrics["spec_proposed"] > 0 and metrics["spec_accepted"] > 0
+        assert metrics["spec_proposed_tokens"] > 0 and metrics["spec_accepted_tokens"] > 0
     if "burst4" in name:
         assert metrics["decode_steps"] < max_tokens - 1
 

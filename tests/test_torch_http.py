@@ -416,9 +416,9 @@ def test_cli_without_device_raises_on_a_machine_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("args,needle", [
-    (["in=prefill", "out=torch"], "in=prefill"),
+    (["in=stdin", "out=torch"], "in=stdin"),
     (["in=http", "out=jax"], "out=jax"),
-    (["in=http", "out=torch", "--remote-prefill"], "--remote-prefill"),
+    (["in=http", "out=torch", "--kv-transfer", "ici"], "--kv-transfer"),
     (["in=http", "out=torch", "--self-heal"], "--self-heal"),
 ])
 def test_cli_refuses_unported_inputs_outputs_and_flags_by_name(args, needle):

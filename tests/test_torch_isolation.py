@@ -87,7 +87,14 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.kv_router.publisher", "dynamo_tpu_torch.kv_router.scheduler",
             "dynamo_tpu_torch.kv_router.metrics_aggregator",
             "dynamo_tpu_torch.kv_router.router",
-            "dynamo_tpu_torch.llm.processor"} <= set(mods)
+            "dynamo_tpu_torch.llm.processor",
+            # the disagg layer: headers in the port's codec, blocks as raw
+            # bytes viewed as torch dtypes, so neither msgpack nor ml_dtypes
+            "dynamo_tpu_torch.transfer.framing", "dynamo_tpu_torch.transfer.tcp",
+            "dynamo_tpu_torch.transfer.plane", "dynamo_tpu_torch.disagg.protocols",
+            "dynamo_tpu_torch.disagg.router", "dynamo_tpu_torch.disagg.transfer",
+            "dynamo_tpu_torch.disagg.coordinator",
+            "dynamo_tpu_torch.disagg.prefill_worker"} <= set(mods)
     _import_refusing_reference(mods)
 
 

@@ -577,7 +577,7 @@ def test_chained_sp_engine_streams_as_the_synchronous_one(weights):
     assert chained == sync == dense
     assert m_sync["sp_chunks"] >= 3 and m_ch["sp_chunks"] == m_sync["sp_chunks"]
     assert m_ch["sync_fallback"].get("not_idle", 0) > 0
-    assert m_ch["pipeline_bursts"] > 0
+    assert m_ch["decode_pipeline_bursts"] > 0
     assert u_sync == u_ch == 0
 
 
@@ -640,13 +640,13 @@ DEEPSEEK = dict(TINY, kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=16,
 @pytest.mark.parametrize("model_kw,engine_kw,err,words", [
     ({}, dict(tp_size=2), NotImplementedError, "tp_size"),
     ({}, dict(pp_size=2), ValueError, "pipeline"),
-    ({}, dict(sp_size=1, long_prefill_threshold_tokens=64),
-     NotImplementedError, "disagg prefill pool"),
+    ({}, dict(decode_pipeline_depth=2, spec_ngram_tokens=4),
+     NotImplementedError, "chained propose-verify round"),
     (DEEPSEEK, {}, ValueError, "MLA"),
     (dict(num_experts=4), {}, ValueError, "mixture-of-experts"),
     (dict(sliding_window=64), {}, ValueError, "sliding_window"),
     (dict(attn_logit_softcap=30.0), {}, ValueError, "attn_logit_softcap"),
-], ids=["tp", "pp", "threshold_without_sp", "deepseek_mla", "moe", "window",
+], ids=["tp", "pp", "propose_verify_round", "deepseek_mla", "moe", "window",
         "softcap"])
 def test_config_refuses_what_sp_does_not_serve(model_kw, engine_kw, err, words):
     mcfg = ModelConfig(**dict(TINY, **model_kw))
@@ -657,3 +657,13 @@ def test_config_refuses_what_sp_does_not_serve(model_kw, engine_kw, err, words):
     if model_kw:
         # the same trunk without SP is accepted: the refusal is SP's own
         EngineConfig(model=mcfg, **_sp_kw(1))
+
+
+def test_threshold_at_sp_size_1_is_accepted():
+    """The long-prefill admission class without SP (a disagg decode
+    worker's: past the threshold, prompts prefer the prefill pool) is
+    served; such a runner serves no SP chunk."""
+    cfg = EngineConfig(model=ModelConfig(**TINY),
+                       **_sp_kw(1, long_prefill_threshold_tokens=64))
+    assert cfg.long_prefill_threshold_tokens == 64 and cfg.sp_size == 1
+    assert not ModelRunner(cfg, device="cpu").sp_ready

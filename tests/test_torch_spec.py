@@ -179,8 +179,8 @@ async def test_spec_greedy_streams_match_jax_engine_and_accept(weights):
     want = await _jax_greedy(weights, cfg_kw, GREEDY_PROMPTS, 20)
     got, metrics = await _torch_outputs(weights, cfg_kw, _greedy_requests(20))
     assert [t for t, _ in got] == want
-    assert metrics["spec_proposed"] > 0
-    assert metrics["spec_accepted"] > 0
+    assert metrics["spec_proposed_tokens"] > 0
+    assert metrics["spec_accepted_tokens"] > 0
 
 
 @pytest.mark.asyncio
