@@ -8,8 +8,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
 
 1. ``device``  — the card's name and ``nvidia-smi`` name / power limit.
 2. ``build``   — builds the six kernel sources of
-   ``dynamo_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), with
-   ptxas's registers and spills of every instantiation.
+   ``dynamo_tpu_torch/csrc`` and its host checksum (``host_xxh64.cpp``, the
+   cold KV tier's; one ``nvcc`` per source, all at once), with ptxas's
+   registers and spills of every instantiation.
 3. ``kernels`` — holds each kernel against its plain PyTorch version at the
    Llama-3.2-1B shapes (H=32, KVH=8, D=64, bs=16, bf16, a 16-layer stacked
    cache, layer_idx != 0): decode, also at its splits' edges (ctx 0, one
@@ -210,8 +211,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    and exits 0 on SIGINT.
 15. ``engine_graph`` — the distributed inference graph, each role a
    subprocess on the one card as a user starts it: a dynstore broker, two
-   ``--token-level`` workers (Llama-3.2-1B at full width and depth, random
-   weights, ``engine_http``'s synthetic tokenizer), an ``out=processor
+   ``--token-level --prefix-pull`` workers (Llama-3.2-1B at full width and
+   depth, random weights, ``engine_http``'s synthetic tokenizer; each
+   drops its first pull serve), an ``out=processor
    --router-mode kv`` processor and a round-robin one, each behind an
    ``in=http out=none`` frontend that discovers its model. Groups sharing
    a 1,024-token prefix: each leader alone, its followers once the
@@ -221,8 +223,11 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    gives the same tokens on both workers; a 12,000-token prefill expires
    no lease; after SIGKILL of one worker, requests complete on the
    survivor within the lease TTL plus a margin; no KV block stays in use.
+   Round-robin followers beside their leader's worker pull the shared
+   prefix over the transfer plane (each whole), the dropped serves fall
+   back to a local recompute, streams as above, no pinned block left.
    Prints the followers' TTFT under kv and round-robin routing in turns,
-   the routing decision's µs and the events' lag.
+   the routing decision's µs, the events' lag and the pulls' counters.
 16. ``engine_disagg`` — disaggregated prefill and decode on Llama-3.2-1B at
    full width and depth. Leg A in one process, over a bf16 and an fp8
    cache: a decode engine whose coordinator talks over a ``MemoryHub`` to
@@ -238,7 +243,19 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    in use. Prints per turn the long prompts' TTFT, the short streams'
    largest gap while they prefilled and the transfer's bytes, frames,
    duration and exposed seconds.
-17. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
+17. ``engine_kv_tiers`` — the multi-tier KV block manager on Llama-3.2-1B
+   at full width and depth in one process: 1,024 HBM blocks, a 1,024-slot
+   pinned host slab and a 2,048-block cold tier; six 6,000-token prompts
+   push blocks HBM → host → cold (every dispatch, offload and restore
+   under the sync guard), then a host restore and a cold pull on that
+   engine, a rehydrate on a fresh engine over the same cold directory, a
+   corrupted file (a miss, never installed) on another, and a host restore
+   over an e4m3 cache: restored and rehydrated blocks byte-equal to the
+   first written, streams equal or parted at a near-tie, nothing left
+   pinned or in use, the native xxh64 equal to its plain version. Prints
+   the tiers' counters, offload and restore GB/s, the cold tier's MB/s and
+   the checksum's share.
+18. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
    depth (its published ``config.json``: G 7, qkv biases, V 152,064) with
    seeded random bf16 weights written as a 4-shard HF safetensors
    snapshot (``write_safetensors_snapshot``) and loaded by
@@ -268,7 +285,9 @@ of 0 and a ``path`` saying so; the decode, flash and
 epilogue entries also carry ``launches_engine_http``, the HTTP path's own
 counts, and ``launches_engine_graph``, the graph's workers'; they and
 kernel 6 carry ``launches_engine_disagg``, the disaggregated pair's two
-workers' (decode and flash's fp8 forms: leg A's fp8 pair); kernel 6's
+workers' (decode and flash's fp8 forms: leg A's fp8 pair); decode, flash
+and the epilogue carry ``launches_engine_kv_tiers``, the tiers' engines'
+(decode and flash's fp8 forms: the e4m3 engine's); kernel 6's
 fp8 form has the fp8 SP engine's launches); the line before that the
 card's name and power limit.
 """
@@ -5976,6 +5995,11 @@ GRAPH_TIMEOUT_S = 400
 GRAPH_SEED = 4321
 GRAPH_SAMPLED = dict(temperature=0.8, seed=77)
 GRAPH_DEVICE = "cuda"                 # a CPU rehearsal sets "cpu"
+# leg B of the KV tiers: both workers serve and pull prefixes (the cluster
+# KV fabric), and each drops its first pull serve mid-stream once (the
+# fault the puller must fall back from)
+GRAPH_PULL_FLAGS = ["--prefix-pull"]
+GRAPH_PULL_FAULT = {"DYN_FAULT": "transfer_conn_drop:once"}
 
 
 def _free_port() -> int:
@@ -5986,12 +6010,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn_role(args, name, logdir):
+def _spawn_role(args, name, logdir, env=None):
     """One role of the graph as a user starts it (``python3 -m ...`` from
-    the checkout's root); stderr goes to ``<logdir>/<name>.log``."""
+    the checkout's root, ``env`` added to this process's environment);
+    stderr goes to ``<logdir>/<name>.log``."""
     err = open(Path(logdir) / f"{name}.log", "w")
     proc = subprocess.Popen([sys.executable, "-m", *args], cwd=str(ROOT),
-                            stdout=subprocess.PIPE, stderr=err, text=True)
+                            stdout=subprocess.PIPE, stderr=err, text=True,
+                            env=dict(os.environ, **(env or {})))
     proc.role, proc.log = name, Path(logdir) / f"{name}.log"
     err.close()
     return proc
@@ -6151,16 +6177,31 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids):
     for mode in ("kv", "round_robin", "round_robin", "kv"):
         turns[f"{mode}_one_by_one"].append(await wave(mode, at_once=False))
 
-    # a seeded sampled request straight to each worker
+    # the cluster KV fabric's counters after the waves: the round-robin
+    # followers that landed beside their leader's worker pulled its prefix
+    fabric = {iid: s["data"].get("kv_fabric") for iid, s in (await wstats()).items()}
+
+    # a seeded sampled request straight to each worker, at once: sent one
+    # after the other, the second worker would pull the first one's prefix
+    # (--prefix-pull) and compute only its tail over the pulled blocks, a
+    # route whose bf16 rounding (the verify kernel on a short tail against
+    # one flash chunk) moves a temperature-0.8 stream; at once, neither has
+    # the other's KV events at admission, and each computes the prompt whole
     sampled_prompt = [128000] + tok.encode(words_text(200))
-    sampled = {}
-    for iid in worker_ids.values():
+
+    async def sample(iid):
         req = PreprocessedRequest(
             token_ids=sampled_prompt,
             stop_conditions=StopConditions(max_tokens=NEW_TOKENS, ignore_eos=True),
             sampling_options=SamplingOptions(**GRAPH_SAMPLED))
         rec = await wclient.direct(req.to_wire(), iid)
-        sampled[iid] = [t async for out in rec for t in out["token_ids"]]
+        return iid, [t async for out in rec for t in out["token_ids"]]
+
+    fab_before = {iid: (s["data"].get("kv_fabric") or {}).get("pull_commits", 0)
+                  for iid, s in (await wstats()).items()}
+    sampled = dict(await asyncio.gather(*(sample(i) for i in worker_ids.values())))
+    sampled_pulls = {iid: (s["data"].get("kv_fabric") or {}).get("pull_commits", 0)
+                     - fab_before.get(iid, 0) for iid, s in (await wstats()).items()}
 
     # a long prefill on one worker: its lease must survive it
     long_iid = worker_ids["worker0"]
@@ -6206,6 +6247,7 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids):
     await pclient.close()
     await drt.close()
     return dict(turns=turns, launches0=launches0, launches1=launches1,
+                fabric=fabric, sampled_pulls=sampled_pulls,
                 sampled=sampled, long_s=long_s, long_tokens=long_tokens,
                 long_prompt_tokens=long_prompt_tokens, blocks=blocks,
                 expiries_before_kill=expiries_before_kill, gone_s=gone_s,
@@ -6222,8 +6264,10 @@ def engine_graph_phase(torch, dev, smi):
     dynamo_tpu_torch.runtime.transports.dynstore``, two ``in=dyn://...
     out=torch --token-level`` workers (Llama-3.2-1B at full width and
     depth with random weights and engine_http's synthetic 128,256-id
-    tokenizer, 1,024 KV blocks each), an ``out=processor --router-mode kv``
-    processor and a ``--router-mode round_robin`` one beside it, and an
+    tokenizer, 1,024 KV blocks each, ``--prefix-pull``: the cluster KV
+    fabric, each worker's first pull serve dropped by
+    ``DYN_FAULT=transfer_conn_drop:once``), an ``out=processor --router-mode
+    kv`` processor and a ``--router-mode round_robin`` one beside it, and an
     ``in=http out=none`` frontend whose ``ModelWatcher`` discovers both.
     The kernels were built before the workers start.
 
@@ -6234,7 +6278,9 @@ def engine_graph_phase(torch, dev, smi):
     state, no sleeps). One kv wave is checked; then rr, rr, kv waves in
     turns time the followers' TTFT under each mode, and kv, rr, rr, kv
     waves with the followers sent one by one. Then a seeded sampled
-    request straight to each worker, a 12,000-token prefill on one, and
+    request straight to each worker, at once (in turn, the second would
+    pull the first's prefix and compute only its tail, on another kernel
+    route), a 12,000-token prefill on one, and
     SIGKILL of the other, after which GRAPH_AFTER_KILL requests must run on
     the survivor.
 
@@ -6247,9 +6293,17 @@ def engine_graph_phase(torch, dev, smi):
     expired before the kill (the long prefill did not starve a keepalive);
     the requests after the kill complete on the survivor within
     GRAPH_LEASE_TTL_S + GRAPH_MARGIN_S of it; no worker keeps a KV block;
-    every role but the killed worker exits 0 on SIGINT. Prints the
-    followers' TTFT by mode, the routing decision's µs, the events' lag,
-    the workers' kernel launches on the checked wave."""
+    every role but the killed worker exits 0 on SIGINT. Leg B (the fabric):
+    a round-robin follower that lands beside its leader's worker pulls the
+    shared prefix; every committed pull brought the whole shared prefix
+    (the leader's and the follower's prompt ids share it, in blocks); each
+    dropped serve fell back to a local recompute (a fallback named
+    "error", nothing else); the first round-robin wave's streams (pulled
+    and fallen back) equal the in-process engine's or part at a near-tie;
+    no worker keeps a pinned block. Prints the followers' TTFT by mode, the
+    routing decision's µs, the events' lag, the workers' kernel launches on
+    the checked wave, and the pulls' counts, blocks, bytes and seconds
+    beside the kv wave leaders' TTFT (a local prefill of the prefix)."""
     import tempfile
 
     from dynamo_tpu_torch.cli import run
@@ -6292,7 +6346,8 @@ def engine_graph_phase(torch, dev, smi):
                 ["dynamo_tpu_torch.cli.run", f"in={worker_ep}", "out=torch",
                  "--token-level", "--namespace", GRAPH_NS,
                  "--allow-random-weights", "--device", GRAPH_DEVICE,
-                 *GRAPH_WORKER_FLAGS, *common], f"worker{i}", tmp.name)
+                 *GRAPH_WORKER_FLAGS, *GRAPH_PULL_FLAGS, *common],
+                f"worker{i}", tmp.name, env=GRAPH_PULL_FAULT)
         modes = (("kv", "processor", GRAPH_NS),
                  ("round_robin", "processor_rr", GRAPH_RR_NS))
         for mode, comp, ns in modes:
@@ -6332,7 +6387,10 @@ def engine_graph_phase(torch, dev, smi):
     logs = {name: _role_tail(p) for name, p in procs.items()}
 
     # ---- the same greedy requests on an in-process engine over the directory
-    checked = [r for g in out["turns"]["kv"][0] for r in g["records"]]
+    # (the checked kv wave, and the round-robin waves whose followers pulled
+    # their prefix or fell back from a dropped pull)
+    checked = [r for w in (out["turns"]["kv"][:1] + out["turns"]["round_robin"][:1])
+               for g in w for r in g["records"]]
     flags = run.parse_flags(["--model-path", model_dir, "--allow-random-weights",
                              "--device", GRAPH_DEVICE, *GRAPH_WORKER_FLAGS])
     requests = [(r["prompt_ids"], dict(temperature=0.0)) for r in checked]
@@ -6359,6 +6417,24 @@ def engine_graph_phase(torch, dev, smi):
     delta = {iid: {k: out["launches1"][iid][k] - out["launches0"][iid][k]
                    for k in out["launches1"][iid]} for iid in out["launches1"]}
     wave1 = out["turns"]["kv"][0]
+    # the pulls: each committed one brought the whole shared prefix, in
+    # blocks (a round-robin group's leader and follower prompt ids share it)
+    fab = {iid: f for iid, f in out["fabric"].items() if f}
+    shared = set()
+    for w in out["turns"]["round_robin"] + out["turns"]["round_robin_one_by_one"]:
+        for g in w:
+            lead = g["records"][0]["prompt_ids"]
+            for r in g["records"][1:]:
+                n = next((j for j, (a, b) in enumerate(zip(lead, r["prompt_ids"]))
+                          if a != b), min(len(lead), len(r["prompt_ids"])))
+                shared.add(n // 16)
+    pulls = [r for f in fab.values() for r in f["recent"]]
+    fallbacks = {}
+    for f in fab.values():
+        for reason, n in f["pull_fallbacks"].items():
+            fallbacks[reason] = fallbacks.get(reason, 0) + n
+    leader_ttft = [g["records"][0]["ttft_s"] for w in out["turns"]["kv"]
+                   for g in w]
     emit("engine_graph", model="Llama-3.2-1B shapes, seeded random bf16 weights",
          roles=list(procs), workers=worker_ids, startup_s=startup_s,
          groups=GRAPH_GROUPS, followers=GRAPH_FOLLOWERS,
@@ -6375,7 +6451,20 @@ def engine_graph_phase(torch, dev, smi):
          router_decisions=out["router"]["decisions"],
          router_indexer_blocks=out["router_before_kill"]["indexer_blocks"],
          kernel_launches_wave1=delta, greedy_parted=parted,
+         prefix_pulls=dict(
+             commits={iid: f["pull_commits"] for iid, f in fab.items()},
+             fallbacks={iid: f["pull_fallbacks"] for iid, f in fab.items()},
+             pulls={iid: f["pulls"] for iid, f in fab.items()},
+             bytes={iid: f["pull_bytes"] for iid, f in fab.items()},
+             served={iid: (f["serves"], f["served_blocks"])
+                     for iid, f in fab.items()},
+             shared_prefix_blocks=sorted(shared),
+             pull_s=[r["seconds"] for r in pulls if r["outcome"] == "committed"],
+             pull_blocks=[r["served"] for r in pulls if r["outcome"] == "committed"],
+             kv_leader_ttft_s=leader_ttft,
+             pinned_blocks={iid: f["pinned_blocks"] for iid, f in fab.items()}),
          sampled_equal=len(set(map(tuple, out["sampled"].values()))) == 1,
+         sampled_pulls=out["sampled_pulls"],
          long_prefill=dict(prompt_tokens=out["long_prompt_tokens"],
                            seconds=out["long_s"]),
          lease_expiries_before_kill=len(out["expiries_before_kill"]),
@@ -6404,7 +6493,8 @@ def engine_graph_phase(torch, dev, smi):
     _check_streams(base, NEW_TOKENS)
     if len(set(map(tuple, out["sampled"].values()))) != 1:
         raise AssertionError(f"graph: the seeded sampled request differs "
-                             f"between the workers: {out['sampled']}")
+                             f"between the workers: {out['sampled']} (pulls "
+                             f"it made: {out['sampled_pulls']})")
     if out["expiries_before_kill"]:
         raise AssertionError(f"graph: a lease expired before the kill: "
                              f"{out['expiries_before_kill']}")
@@ -6422,6 +6512,20 @@ def engine_graph_phase(torch, dev, smi):
         raise AssertionError(f"graph: exit codes {exits}: {logs}")
     if exits.get("worker1") != -9:
         raise AssertionError(f"graph: the killed worker exited {exits.get('worker1')}")
+    committed = [r for r in pulls if r["outcome"] == "committed"]
+    # each worker drops its first serve: one fallback a direction pulls go
+    if (len(fab) != 2 or not committed or set(fallbacks) != {"error"}
+            or not 1 <= fallbacks["error"] <= 2):
+        raise AssertionError(f"graph: prefix pulls {len(committed)} committed, "
+                             f"fallbacks {fallbacks} (want the dropped serves'): "
+                             f"{fab}")
+    bad = [r for r in committed if r["served"] != r["asked"]
+           or r["served"] not in shared]
+    if bad:
+        raise AssertionError(f"graph: pulls that did not bring the shared "
+                             f"prefix ({sorted(shared)} blocks): {bad}")
+    if any(f["pinned_blocks"] for f in fab.values()):
+        raise AssertionError(f"graph: pinned blocks left: {fab}")
     totals = {k: sum(d[k] for d in delta.values()) for k in
               ("paged_decode", "paged_flash", "epilogue")}
     if GRAPH_DEVICE == "cuda" and not all(totals.values()):
@@ -6994,6 +7098,473 @@ def engine_disagg_phase(torch, dev, smi):
         out.update(paged_decode_fp8=lc["paged_decode_fp8"],
                    paged_flash_fp8=lc["paged_flash_fp8"])
     return out
+
+
+# ----------------------------------------------------------- engine_kv_tiers
+
+# the multi-tier KV block manager on the one card, Llama-3.2-1B at full width
+# and depth (random weights; a block is 524,288 bytes in bf16): 1,024 HBM
+# blocks, a 1,024-slot pinned host slab, a 2,048-block cold tier in a
+# temporary directory; six distinct 6,000-token prompts (2,250 complete
+# blocks) push blocks from HBM to the host tier and about 200 on to the
+# cold tier
+TIERS_ENGINE = dict(ENGINE, max_model_len=8192, num_kv_blocks=1024,
+                    host_kv_blocks=1024, cold_tier_blocks=2048,
+                    prefix_pull_min_blocks=1)
+TIERS_PROMPT = 6000
+TIERS_PROMPTS = 6
+TIERS_FP8_PROMPTS = 4          # the e4m3 cache's pass (HBM overflows once)
+TIERS_NEW = 16
+TIERS_RATE_BLOCKS = 256        # blocks a timed offload / restore moves
+TIERS_XXH64_SIZES = (0, 1, 3, 31, 32, 33, 100, 4096, 524288)
+TIERS_SEED = 1717
+
+
+def _same_bytes(torch, a, b) -> bool:
+    return torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                       b.contiguous().view(-1).view(torch.uint8))
+
+
+def _tier_blocks(engine, hashes):
+    """Host copies ([L, n, ...] K and V) of the engine's HBM blocks of
+    ``hashes``, gathered now."""
+    alloc = engine.scheduler.allocator
+    return engine.runner.gather_blocks([alloc.by_hash[h] for h in hashes])
+
+
+def _residency(engine, chain):
+    """Where each block of a prompt's chain sits: 'hbm', 'host', 'cold' or
+    '-' (the first tier that holds it)."""
+    alloc = engine.scheduler.allocator
+    fab = engine.scheduler.fabric
+    out = []
+    for h in chain:
+        out.append("hbm" if h in alloc.by_hash
+                   else "host" if alloc.tier2 is not None and alloc.tier2.has(h)
+                   else "cold" if fab is not None and fab.cold is not None
+                   and fab.cold.has(h) else "-")
+    return out
+
+
+def _run_length(res, tier) -> int:
+    n = 0
+    while n < len(res) and res[n] == tier:
+        n += 1
+    return n
+
+
+def _tier_rates(torch, engine, n, rounds=2):
+    """Timed offloads of ``n`` blocks and timed restores of them into the
+    same slots (the bytes they hold), on an idle engine, ``rounds`` times
+    (the first pays the pinned staging buffers' allocation). An offload is
+    split into its dispatch (the gather, the block-major transpose and the
+    copy into pinned memory queued), the device's part (a synchronize: the
+    copy landed) and the drain (filing the blocks into a pinned slab of its
+    own); a restore into the host gather of the slots into a pinned frame
+    (the restore's runs of slots, timed alone beside it) and the whole
+    (with the copy to the card and the scatter). Seconds and GB/s."""
+    from dynamo_tpu_torch.kv import KvHostTier
+    from dynamo_tpu_torch.kv.host_tier import _runs
+    from dynamo_tpu_torch.ops.attention import _bytes
+
+    runner = engine.runner
+    on_card = runner.device.type == "cuda"
+    tier = KvHostTier(runner, n)
+    ids = list(range(n))
+    nbytes = sum(c[:, :1].numel() * c.element_size() for c in runner.kv_cache) * n
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = []
+    for r in range(rounds):
+        hashes = [(1 << 40) + r * n + i for i in ids]
+        sync()
+        t0 = time.perf_counter()
+        tier.offload_batch(list(zip(hashes, ids)))
+        t1 = time.perf_counter()
+        sync()
+        t2 = time.perf_counter()
+        tier.drain()
+        t3 = time.perf_counter()
+        runs = _runs(enumerate(tier.store[h] for h in hashes))
+        bufs = [torch.empty((n, *s.shape[1:]), dtype=_bytes(s).dtype,
+                            pin_memory=on_card) for s in tier.slabs]
+        t4 = time.perf_counter()
+        for s, buf in zip(tier.slabs, bufs):
+            for d, src, k in runs:
+                buf[d:d + k].copy_(_bytes(s)[src:src + k])
+        t5 = time.perf_counter()
+        sync()
+        tier.restore(hashes, ids)
+        sync()
+        t6 = time.perf_counter()
+        out.append(dict(
+            offload_dispatch_ms=(t1 - t0) * 1e3, offload_device_ms=(t2 - t1) * 1e3,
+            offload_drain_ms=(t3 - t2) * 1e3, offload_s=t3 - t0,
+            offload_gb_s=nbytes / (t3 - t0) / 1e9,
+            restore_host_gather_ms=(t5 - t4) * 1e3, restore_s=t6 - t5,
+            restore_gb_s=nbytes / (t6 - t5) / 1e9))
+    return dict(blocks=n, bytes=nbytes, rounds=out,
+                slab_pinned=all(s.is_pinned() for s in tier.slabs) if on_card
+                else None)
+
+
+def _kv_tiers_xxh64(torch):
+    """The native host xxh64 against its plain version on random payloads
+    (the split between K and V at a third), and its time on one block."""
+    from dynamo_tpu_torch.ops import host_xxh64
+
+    rng = np.random.default_rng(TIERS_SEED)
+    checked = 0
+    for n in TIERS_XXH64_SIZES:
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        for seed in (0, 2**64 - 1):
+            a, b = data[: n // 3], data[n // 3:]
+            got = host_xxh64.xxh64_pair(a, b, seed)
+            want = host_xxh64.xxh64_pair_ref(a, b, seed)
+            if got != want:
+                raise AssertionError(f"kv_tiers: native xxh64 {got:#x} != plain "
+                                     f"{want:#x} over {n} bytes (seed {seed})")
+            checked += 1
+    block = rng.integers(0, 256, 524288, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        host_xxh64.xxh64_pair(block[:262144], block[262144:])
+    native_ms = (time.perf_counter() - t0) / 20 * 1e3
+    t0 = time.perf_counter()
+    host_xxh64.xxh64_pair_ref(block[:262144], block[262144:])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return dict(payloads_checked=checked, native_ms_per_block=native_ms,
+                plain_ms_per_block=plain_ms)
+
+
+async def _tiers_serve_one(engine, r):
+    return (await _serve_reqs(engine, [r]))[0]
+
+
+def engine_kv_tiers_phase(torch, dev, smi):
+    """The multi-tier KV block manager on the one card: Llama-3.2-1B at full
+    width and depth with seeded random bf16 weights, 1,024 HBM blocks, a
+    1,024-block host tier (one pinned slab) and a 2,048-block cold tier in
+    a temporary directory, in this process.
+
+    1. Six distinct 6,000-token prompts, one at a time, 16 greedy tokens
+       each: 2,250 complete blocks move HBM → host → cold. Each prompt's
+       blocks are captured right after it (still in HBM). Every dispatch,
+       offload and restore runs under ``set_sync_debug_mode("error")``;
+       dispatches made while offloads are staged are counted.
+    2. The prompt with the longest run of blocks in the host tier again:
+       they restore (the prompt's last block recomputes: one token must stay
+       uncached); then the prompt with the longest run in the cold tier:
+       the run is pulled (the fabric's cold source), the rest recomputes.
+    3. A fresh engine (empty HBM and host tiers) over the same cold
+       directory: the prompt with the longest cold run rehydrates.
+    4. Another fresh engine: one file of that run corrupted; it must be a
+       miss (quarantined, counted), never installed, the pull committing
+       only the verified blocks before it, the rest recomputed.
+    5. An e4m3 cache (host tier only): four prompts, then the one with the
+       longest host run again: it restores.
+
+    Fails unless every restored or rehydrated block is byte-equal to the
+    block first written; every repeated stream equals its first pass or
+    parts at a near-tie; no host sync in a guarded dispatch; some dispatch
+    ran while offloads were staged; no pinned and no used block is left;
+    the native xxh64 equals the plain one; decode, flash and the epilogue
+    launched (the fp8 forms on the e4m3 engine). Prints each tier's
+    counters, the offload and restore GB/s of a timed 256-block move, the
+    cold tier's write and read MB/s with the checksum's share, and the
+    native checksum's time on one block against the plain one's."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.monotonic()
+    bs = TIERS_ENGINE["kv_block_size"]
+    xxh = _kv_tiers_xxh64(torch) if on_card else None
+    rng = np.random.default_rng(TIERS_SEED)
+    prompts = [[int(t) for t in rng.integers(0, FLAGSHIP["vocab_size"],
+                                             TIERS_PROMPT)]
+               for _ in range(TIERS_PROMPTS)]
+    chains = [compute_block_hashes(p, bs) for p in prompts]
+    reqs = [dict(prompt=p, samp=dict(temperature=0.0),
+                 stop=dict(max_tokens=TIERS_NEW, ignore_eos=True))
+            for p in prompts]
+    tmp = tempfile.TemporaryDirectory(prefix="engine_kv_tiers_")
+    cold_dir = str(Path(tmp.name) / "cold")
+
+    def cfg(kv="auto", **over):
+        kw = dict(TIERS_ENGINE, cold_tier_dir=cold_dir, kv_cache_dtype=kv)
+        kw.update(over)
+        return EngineConfig(model=ModelConfig(**FLAGSHIP), seed=SEED, **kw)
+
+    def compare(first, again, idx):
+        """Blocks ``idx`` of a first-pass capture against ``again``'s n
+        blocks: the count that differ."""
+        bad = 0
+        for c in range(2):
+            for j, i in enumerate(idx):
+                bad += not _same_bytes(torch, first[c][:, i], again[c][:, j])
+        return bad
+
+    def leaks(engine):
+        a = engine.scheduler.allocator
+        return dict(pinned=len(a.pinned), used=a.used)
+
+    # ---- 1-2: one engine, the first pass, the host restore, the cold pull
+    async def engine_one():
+        engine = await TorchServingEngine.create(cfg(), device=dev)
+        runner, tier = engine.runner, engine.scheduler.allocator.tier2
+        stats = _guard_dispatches(torch, runner, FLAGSHIP["num_layers"], 1, on_card)
+        staged = dict(dispatches=0, with_staged=0)
+        for name in ("step", "decode_burst"):
+            def counted(*a, fn=getattr(runner, name), **kw):
+                staged["dispatches"] += 1
+                staged["with_staged"] += bool(tier._staged)
+                return fn(*a, **kw)
+            setattr(runner, name, counted)
+        guarded = dict(offload_batch=0, restore=0)
+        for name in ("offload_batch", "restore"):
+            def under_guard(*a, fn=getattr(tier, name), name=name, **kw):
+                prev = torch.cuda.get_sync_debug_mode() if on_card else None
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode(prev)
+                    guarded[name] += 1
+            setattr(tier, name, under_guard)
+        try:
+            _reset_launches()
+            t0 = time.monotonic()
+            first_streams, first = [], []
+            for r, chain in zip(reqs, chains):
+                first_streams.append(await _tiers_serve_one(engine, r))
+                first.append(_tier_blocks(engine, chain))
+            first_s = time.monotonic() - t0
+            await engine.scheduler.fabric.cold.close()  # the spills landed
+            where = [_residency(engine, c) for c in chains]
+            # the longest host run (ties: the most recent prompt) and the
+            # longest cold run, each from the prompt's first block
+            host_i = max(range(len(where)),
+                         key=lambda i: (_run_length(where[i], "host"), i))
+            cold_i = max(range(len(where)),
+                         key=lambda i: _run_length(where[i], "cold"))
+            m0 = engine.metrics()
+            again_host = await _tiers_serve_one(engine, reqs[host_i])
+            restored = engine.metrics()["host_kv_restored_total"] \
+                - m0["host_kv_restored_total"]
+            host_blocks = _tier_blocks(engine, chains[host_i][:restored])
+            s0 = engine.scheduler.fabric_stats()
+            # the host restore spilled more: the run the pull will take
+            cold_run = min(_run_length(_residency(engine, chains[cold_i]), "cold"),
+                           (TIERS_PROMPT - 1) // bs)
+            t1 = time.monotonic()
+            again_cold = await _tiers_serve_one(engine, reqs[cold_i])
+            cold_pull_s = time.monotonic() - t1
+            s1 = engine.scheduler.fabric_stats()
+            pulled = s1["recent"][-1]["served"] if s1["recent"] else 0
+            cold_blocks = _tier_blocks(engine, chains[cold_i][:pulled])
+            launches = _read_launches()
+            await engine.scheduler.fabric.cold.close()
+            rates = _tier_rates(torch, engine, TIERS_RATE_BLOCKS)
+            parted = _spec_agreement(
+                torch, runner, [(prompts[host_i], {}), (prompts[cold_i], {})],
+                [first_streams[host_i], first_streams[cold_i]],
+                [again_host, again_cold])
+            cold = engine.scheduler.fabric.cold
+            out = dict(
+                first_s=first_s, where={i: {t: w.count(t) for t in set(w)}
+                                        for i, w in enumerate(where)},
+                host_i=host_i, cold_i=cold_i, cold_run=cold_run,
+                restored=restored, pulled=pulled, cold_pull_s=cold_pull_s,
+                host_bad=compare(first[host_i], host_blocks, range(restored)),
+                cold_bad=compare(first[cold_i], cold_blocks, range(pulled)),
+                pull_commits=s1["pull_commits"] - s0["pull_commits"],
+                parted=parted, stats=stats, staged=staged, guarded=guarded,
+                launches=launches, metrics=engine.metrics(),
+                fabric=engine.scheduler.fabric_stats(), rates=rates,
+                cold_io=dict(put_bytes=cold.put_bytes, put_s=cold.put_s,
+                             get_bytes=cold.get_bytes, get_s=cold.get_s,
+                             checksum_s=cold.checksum_s),
+                streams=[len(r["tokens"]) for r in
+                         first_streams + [again_host, again_cold]],
+                finishes=[r["finish"] for r in
+                          first_streams + [again_host, again_cold]])
+        finally:
+            await engine.close()
+        out["leaks"] = leaks(engine)
+        return out, first, first_streams, engine.runner.params
+
+    one, first, first_streams, params = asyncio.run(engine_one())
+
+    # ---- 3-4: fresh engines over the cold directory
+    async def fresh(corrupt: bool):
+        engine = await TorchServingEngine.create(cfg(), params=params,
+                                                 device=dev, warmup=False)
+        try:
+            cold = engine.scheduler.fabric.cold
+            cold.refresh()
+            where = [_residency(engine, c) for c in chains]
+            i = max(range(len(where)), key=lambda j: _run_length(where[j], "cold"))
+            # a pull leaves one prompt token uncached
+            run = min(_run_length(where[i], "cold"), (TIERS_PROMPT - 1) // bs)
+            victim = None
+            if corrupt:
+                c = run // 2
+                victim = Path(cold.dir) / f"{chains[i][c] & (2**64 - 1):016x}.kvb"
+                raw = bytearray(victim.read_bytes())
+                raw[-1] ^= 0xFF
+                victim.write_bytes(bytes(raw))
+            t0 = time.monotonic()
+            again = await _tiers_serve_one(engine, reqs[i])
+            pull_s = time.monotonic() - t0
+            s = engine.scheduler.fabric_stats()
+            pulled = s["recent"][-1]["served"] if s["recent"] else 0
+            blocks = _tier_blocks(engine, chains[i][:pulled])
+            parted = _spec_agreement(torch, engine.runner, [(prompts[i], {})],
+                                     [first_streams[i]], [again])
+            out = dict(prompt=i, cold_run=run, pulled=pulled, seconds=pull_s,
+                       bad=compare(first[i], blocks, range(pulled)),
+                       parted=parted, fabric=s, metrics=engine.metrics(),
+                       victim_left=victim.exists() if victim else None,
+                       victim_index=run // 2 if corrupt else None,
+                       tokens=len(again["tokens"]), finish=again["finish"])
+        finally:
+            await engine.close()
+        out["leaks"] = leaks(engine)
+        return out
+
+    rehydrate = asyncio.run(fresh(False))
+    corrupt = asyncio.run(fresh(True))
+
+    # ---- 5: the host restore over an e4m3 cache
+    async def fp8():
+        engine = await TorchServingEngine.create(
+            cfg("fp8", cold_tier_blocks=0, cold_tier_dir=""), params=params,
+            device=dev, warmup=False)
+        try:
+            _reset_launches()
+            streams, caps = [], []
+            for r, chain in zip(reqs[:TIERS_FP8_PROMPTS], chains):
+                streams.append(await _tiers_serve_one(engine, r))
+                caps.append(_tier_blocks(engine, chain))
+            where = [_residency(engine, c) for c in chains[:TIERS_FP8_PROMPTS]]
+            i = max(range(len(where)),
+                    key=lambda j: (_run_length(where[j], "host"), j))
+            m0 = engine.metrics()["host_kv_restored_total"]
+            again = await _tiers_serve_one(engine, reqs[i])
+            restored = engine.metrics()["host_kv_restored_total"] - m0
+            blocks = _tier_blocks(engine, chains[i][:restored])
+            launches = _read_launches()
+            parted = _spec_agreement(torch, engine.runner, [(prompts[i], {})],
+                                     [streams[i]], [again])
+            out = dict(prompt=i, restored=restored,
+                       bad=compare(caps[i], blocks, range(restored)),
+                       kv_dtype=str(engine.runner.kv_cache[0].dtype),
+                       parted=parted, launches=launches,
+                       metrics=engine.metrics(), tokens=len(again["tokens"]),
+                       finish=again["finish"])
+        finally:
+            await engine.close()
+        out["leaks"] = leaks(engine)
+        return out
+
+    e4m3 = asyncio.run(fp8())
+    tmp.cleanup()
+
+    m, io = one["metrics"], one["cold_io"]
+    block_bytes = sum(
+        FLAGSHIP["num_layers"] * bs * FLAGSHIP["num_kv_heads"]
+        * FLAGSHIP["head_dim"] * 2 for _ in range(2))
+    emit("engine_kv_tiers",
+         model="Llama-3.2-1B shapes, seeded random bf16 weights",
+         prompts=[TIERS_PROMPT] * TIERS_PROMPTS, new_tokens=TIERS_NEW,
+         hbm_blocks=TIERS_ENGINE["num_kv_blocks"],
+         host_blocks=TIERS_ENGINE["host_kv_blocks"],
+         cold_blocks=TIERS_ENGINE["cold_tier_blocks"],
+         block_bytes=block_bytes, first_pass_s=one["first_s"],
+         residency_after_first_pass=one["where"],
+         host_restore=dict(prompt=one["host_i"], blocks_restored=one["restored"],
+                           blocks_mismatched=one["host_bad"]),
+         cold_pull=dict(prompt=one["cold_i"], cold_run=one["cold_run"],
+                        blocks_pulled=one["pulled"],
+                        blocks_mismatched=one["cold_bad"],
+                        request_s=one["cold_pull_s"]),
+         rehydrate_fresh_engine={k: rehydrate[k] for k in (
+             "prompt", "cold_run", "pulled", "bad", "seconds", "leaks")},
+         corrupt_file={k: corrupt[k] for k in (
+             "prompt", "cold_run", "victim_index", "pulled", "bad",
+             "victim_left", "leaks")} | {"cold": corrupt["fabric"].get("cold")},
+         e4m3_host_restore={k: e4m3[k] for k in (
+             "prompt", "restored", "bad", "kv_dtype", "leaks")},
+         greedy_parted=dict(first=one["parted"], rehydrate=rehydrate["parted"],
+                            corrupt=corrupt["parted"], e4m3=e4m3["parted"]),
+         guarded_steps=one["stats"]["step"], bad_bursts=one["stats"]["bad"],
+         guarded_offloads=one["guarded"]["offload_batch"],
+         guarded_restores=one["guarded"]["restore"],
+         dispatches_with_staged_offloads=one["staged"]["with_staged"],
+         dispatches=one["staged"]["dispatches"],
+         host_tier={k: v for k, v in m.items() if k.startswith("host_kv")},
+         cold_tier=dict({k: v for k, v in m.items() if k.startswith("cold_kv")},
+                        **(one["fabric"].get("cold") or {})),
+         fabric=dict(pulls=one["fabric"]["pulls"],
+                     pull_commits=one["fabric"]["pull_commits"],
+                     pull_fallbacks=one["fabric"]["pull_fallbacks"]),
+         offload_restore=one["rates"],
+         cold_write_mb_s=io["put_bytes"] / io["put_s"] / 1e6 if io["put_s"] else None,
+         cold_read_mb_s=io["get_bytes"] / io["get_s"] / 1e6 if io["get_s"] else None,
+         cold_checksum_share=(io["checksum_s"] / (io["put_s"] + io["get_s"])
+                              if io["put_s"] + io["get_s"] else None),
+         cold_io=io, native_xxh64=xxh, launches=one["launches"],
+         launches_e4m3=e4m3["launches"], kv_blocks_left=dict(
+             first=one["leaks"], rehydrate=rehydrate["leaks"],
+             corrupt=corrupt["leaks"], e4m3=e4m3["leaks"]),
+         seconds=time.monotonic() - t_phase, card=smi)
+
+    # ---- checks
+    if not one["restored"] or one["host_bad"]:
+        raise AssertionError(f"kv_tiers: host restore {one['restored']} blocks, "
+                             f"{one['host_bad']} differ")
+    if (not one["pulled"] or one["pulled"] != one["cold_run"]
+            or one["cold_bad"] or one["pull_commits"] != 1):
+        raise AssertionError(f"kv_tiers: cold pull {one['pulled']} blocks, "
+                             f"{one['cold_bad']} differ, {one['pull_commits']} commits")
+    if not rehydrate["pulled"] or rehydrate["bad"] \
+            or rehydrate["pulled"] != rehydrate["cold_run"]:
+        raise AssertionError(f"kv_tiers: rehydrate {rehydrate}")
+    if (corrupt["pulled"] != corrupt["victim_index"] or corrupt["bad"]
+            or corrupt["victim_left"]
+            or (corrupt["fabric"].get("cold") or {}).get("misses") != {"corrupt": 1}):
+        raise AssertionError(f"kv_tiers: the corrupt file: {corrupt}")
+    if not e4m3["restored"] or e4m3["bad"] or "float8" not in e4m3["kv_dtype"]:
+        raise AssertionError(f"kv_tiers: e4m3 host restore {e4m3}")
+    if one["stats"]["bad"] or not one["staged"]["with_staged"] \
+            or not one["guarded"]["offload_batch"] or not one["guarded"]["restore"]:
+        raise AssertionError(f"kv_tiers: guard {one['stats']} {one['staged']} "
+                             f"{one['guarded']}")
+    for name, lk in dict(first=one["leaks"], rehydrate=rehydrate["leaks"],
+                         corrupt=corrupt["leaks"], e4m3=e4m3["leaks"]).items():
+        if lk != dict(pinned=0, used=0):
+            raise AssertionError(f"kv_tiers: {name} left blocks {lk}")
+    if any(n != TIERS_NEW for n in one["streams"]) or any(
+            f != "length" for f in one["finishes"]):
+        raise AssertionError(f"kv_tiers: streams {one['streams']} {one['finishes']}")
+    for r in (rehydrate, corrupt, e4m3):
+        if r["tokens"] != TIERS_NEW or r["finish"] != "length":
+            raise AssertionError(f"kv_tiers: a stream of {r['tokens']} tokens")
+    if on_card:
+        lc, l8 = one["launches"], e4m3["launches"]
+        if not (lc["paged_decode"] and lc["paged_flash"] and lc["epilogue"]
+                and l8["paged_decode_fp8"] and l8["paged_flash_fp8"]):
+            raise AssertionError(f"kv_tiers: launches {lc} {l8}")
+    lc, l8 = one["launches"], e4m3["launches"]
+    return dict(paged_decode=lc["paged_decode"], paged_flash=lc["paged_flash"],
+                sampling_epilogue=lc["epilogue"],
+                paged_decode_fp8=l8["paged_decode_fp8"],
+                paged_flash_fp8=l8["paged_flash_fp8"])
 
 
 # ------------------------------------------------------------- engine_load
@@ -7704,7 +8275,7 @@ def _engine_load(torch, dev, smi, tmp):
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
           "engine_mixtral_int8", "engine_sp", "engine_http", "engine_graph",
-          "engine_disagg", "engine_load")
+          "engine_disagg", "engine_kv_tiers", "engine_load")
 
 
 def main(argv=None) -> int:
@@ -7788,6 +8359,14 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
+    tiers_launches = {}
+    if "engine_kv_tiers" in phases:
+        # the KV tiers' engines (host restore, cold pull and rehydrate; the
+        # e4m3 engine's fp8 forms): their own counts
+        tiers_launches = engine_kv_tiers_phase(torch, dev, smi)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
     if "engine_load" in phases:
         launches.update(engine_load_phase(torch, dev, smi))
         torch.cuda.synchronize()
@@ -7800,7 +8379,9 @@ def main(argv=None) -> int:
                     **({"launches_engine_graph": graph_launches[key]}
                        if key in graph_launches else {}),
                     **({"launches_engine_disagg": disagg_launches[key]}
-                       if key in disagg_launches else {}))
+                       if key in disagg_launches else {}),
+                    **({"launches_engine_kv_tiers": tiers_launches[key]}
+                       if key in tiers_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     # a form no cell serves (``path`` says so) has no count: null

@@ -32,6 +32,15 @@ key) through the namespace's prefill queue while it holds fewer than
 worker that computes them and streams their KV blocks back over TCP
 (``--kv-transfer tcp``, the one transfer the port serves).
 
+The KV tiers and the cluster KV fabric: ``--host-kv-blocks`` offloads
+evicted HBM blocks to a pinned host slab, ``--cold-tier-dir`` /
+``--cold-tier-blocks`` spill the host tier's evictions to checksummed
+files any worker sharing the directory rehydrates, and a ``--token-level``
+worker started with ``--prefix-pull`` serves its blocks to peers (its pull
+server registers under ``kv/fabric.fabric_key``) and pulls a prefix a peer
+holds instead of recomputing it (its ownership view rides the component's
+KV event stream).
+
 Every other input, output and reference flag is refused by name.
 
 A ``--model-path`` directory holding a safetensors checkpoint, or a
@@ -84,7 +93,7 @@ REFUSED_FLAGS = (
     "--data-parallel-size", "--pipeline-parallel-size",
     "--sequence-parallel-size", "--isolate-engine",
     "--engine-heartbeat-s", "--engine-heartbeat-misses",
-    "--engine-init-timeout-s", "--host-kv-blocks", "--multi-step-decode",
+    "--engine-init-timeout-s", "--multi-step-decode",
     "--device-finish", "--fused-epilogue", "--guided-table-max-states",
     "--no-guided-device-table", "--no-device-stop-strings",
     "--spec-ngram-tokens",
@@ -93,8 +102,7 @@ REFUSED_FLAGS = (
     "--leader-addr", "--profile-dir", "--profiler-port", "--flight-dir",
     "--watchdog-stall-s", "--self-heal", "--drain-grace-s", "--respawn-max",
     "--respawn-backoff-s", "--migrate-peers", "--migrate-port",
-    "--prefix-pull", "--prefix-pull-min-blocks", "--prefix-pull-timeout-s",
-    "--cold-tier-dir", "--cold-tier-blocks", "--admission-limit",
+    "--admission-limit",
     "--admission-queue-depth", "--admission-queue-timeout-s", "--planner",
     "--planner-interval-s", "--planner-min-replicas",
     "--planner-max-replicas", "--planner-cooldown-s",
@@ -186,6 +194,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="admission class: prompts whose uncached suffix is "
                         "at least this long take the SP ladder or, on a "
                         "--remote-prefill worker, prefer the prefill pool")
+    # the KV tiers and the cluster KV fabric (kv/)
+    p.add_argument("--host-kv-blocks", type=int, default=0,
+                   help="host-RAM KV offload tier capacity in blocks (0 = off)")
+    p.add_argument("--prefix-pull", action="store_true",
+                   help="cluster KV fabric: on a prefix another worker holds "
+                        "(learned from the component's KV event stream), PULL "
+                        "its committed KV blocks over the transfer plane "
+                        "instead of recomputing them; a failed pull falls back "
+                        "to a local recompute with the same stream")
+    p.add_argument("--prefix-pull-min-blocks", type=int, default=2,
+                   help="minimum remote or cold extension (blocks past the "
+                        "local hit) worth a pull")
+    p.add_argument("--prefix-pull-timeout-s", type=float, default=30.0,
+                   help="per-pull deadline before the local-recompute "
+                        "fallback takes over")
+    p.add_argument("--cold-tier-dir", default="",
+                   help="content-addressed cold KV tier: spill host-tier-"
+                        "evicted blocks to checksummed files in this directory "
+                        "(any worker sharing it, a respawned one included, "
+                        "rehydrates them); requires --host-kv-blocks > 0")
+    p.add_argument("--cold-tier-blocks", type=int, default=0,
+                   help="cold-tier capacity in blocks (0 = off; set together "
+                        "with --cold-tier-dir)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -263,6 +294,9 @@ async def build_engine(engine_spec: str, flags):
         [OpenAIPreprocessor(mdc, tokenizer), Backend(tokenizer)], core
     )
     pipe.core_engine = core
+    if getattr(core, "registry", None) is not None:
+        # the KV tiers' and the fabric's instruments, on the same /metrics
+        pipe.engine_registry = core.registry
     if hasattr(core, "metrics"):
         # surfaced on /metrics as dynamo_engine_* gauges (run_http)
         pipe.engine_metrics = core.metrics
@@ -289,6 +323,8 @@ async def run_http(flags, engine, mdc) -> None:
     if hasattr(engine, "engine_metrics"):
         service.metrics.register_callback_gauges(
             "dynamo_engine", engine.engine_metrics)
+    if getattr(engine, "engine_registry", None) is not None:
+        service.metrics.registry.attach(engine.engine_registry)
     watcher = drt = None
     if flags.store_port is not None:
         from ..runtime.client import RouterMode
@@ -409,6 +445,135 @@ def _disagg_factory(flags, drt, component: str):
     return factory
 
 
+def _pool_scope_peers(peers: dict, endpoint_records: dict,
+                      model: str = "") -> tuple:
+    """Filter a fabric peer-descriptor map to this worker's model pool.
+
+    Several model pools can share one component (clients and the KV router
+    partition a shared component's instances by the ``model`` metadata of
+    their lease-scoped endpoint records), but the fabric's descriptor
+    prefix is component-wide: without this filter a pull could splice
+    another model's KV blocks into this pool's cache. Peers with no
+    endpoint record yet or no model metadata (single-pool deployments) are
+    kept: missing metadata is a wildcard. Returns ``(scoped, live)``,
+    ``live`` being every instance id holding an endpoint record (the
+    ownership view's prune set, pool-agnostic: liveness is the lease's)."""
+    from ..runtime.wire import unpackb
+
+    pool_of: dict = {}
+    for key, raw in endpoint_records.items():
+        wid = key.rsplit(":", 1)[-1]
+        try:
+            pool_of[wid] = unpackb(raw).get("model")
+        except Exception:
+            logger.debug("unreadable endpoint record for %s; treating its "
+                         "pool as wildcard", wid, exc_info=True)
+            pool_of[wid] = None
+    scoped = {wid: desc for wid, desc in peers.items()
+              if not model or pool_of.get(wid) in (None, model)}
+    return scoped, set(pool_of)
+
+
+# the fabric's peer descriptors are re-read from discovery this often
+FABRIC_PEER_REFRESH_S = 5.0
+
+
+async def _setup_kv_fabric(flags, core, drt=None, component: str = "backend",
+                           endpoint=None, instance_id: str = "",
+                           model: str = ""):
+    """Cluster-KV-fabric wiring for a token-level worker.
+
+    The engine built its fabric half (``Scheduler.fabric``: the cold tier
+    and the pull machinery) from the EngineConfig knobs; this attaches the
+    cluster half: the pull SERVER (advertised in discovery under
+    ``fabric_key``), the peer descriptors (refreshed on a cadence) and the
+    ownership view (the component's KV event stream, the events the router
+    indexes). Returns the fabric or None."""
+    from ..kv.fabric import fabric_key
+    from ..kv_router.protocols import KV_EVENT_SUBJECT, RouterEvent
+    from ..runtime.wire import packb, unpackb
+
+    scheduler = getattr(core, "scheduler", None)
+    fabric = getattr(scheduler, "fabric", None) if scheduler else None
+    if fabric is None:
+        return None
+    if instance_id:
+        # the ownership view keys workers by the id the KV event publisher
+        # stamps, so this worker's own events are skipped and peer scores
+        # map onto descriptors
+        fabric.engine_id = instance_id
+    if fabric.cold is not None:
+        # respawn-warm: prime the cold index off the loop so the first
+        # request after a respawn sees the spilled prefixes
+        n = await asyncio.get_running_loop().run_in_executor(
+            None, fabric.cold.refresh)
+        if n:
+            logger.info("cold tier primed: %d resident blocks", n)
+    if not fabric.peer_pull:
+        # cold tier only: local spill was the opt-in, not networking
+        return fabric
+    server = await fabric.serve(host=flags.advertise_host)
+    if drt is None or endpoint is None:
+        return fabric
+    key = fabric_key(flags.namespace, component, fabric.engine_id)
+    desc = packb(dict(server.descriptor, engine_id=fabric.engine_id))
+    lease = await drt.discovery.primary_lease()
+    await drt.discovery.kv_put(key, desc, lease_id=lease.id)
+
+    peer_cache: dict = {}
+
+    async def refresh_peers():
+        kvs = await drt.discovery.kv_get_prefix(
+            fabric_key(flags.namespace, component, ""))
+        peers = {}
+        for v in kvs.values():
+            d = unpackb(v)
+            wid = d.get("engine_id")
+            if wid and wid != fabric.engine_id:
+                peers[wid] = d
+        # prune dead workers from the ownership view: liveness is the
+        # lease-scoped ENDPOINT registry (keyed by the id KV events carry),
+        # which also carries pool membership
+        eps = await drt.discovery.kv_get_prefix(endpoint.component.etcd_prefix())
+        peers, live = _pool_scope_peers(peers, eps, model)
+        peer_cache.clear()
+        peer_cache.update(peers)
+        for wid in list(fabric.indexer.worker_ids):
+            if wid != fabric.engine_id and wid not in live:
+                fabric.remove_worker(wid)
+
+    async def refresh_loop():
+        while True:
+            try:
+                await refresh_peers()
+            except Exception:
+                # a discovery hiccup keeps the last known pool: a pull to a
+                # dead descriptor just falls back to a recompute
+                logger.debug("fabric peer refresh failed", exc_info=True)
+            await asyncio.sleep(FABRIC_PEER_REFRESH_S)
+
+    try:
+        await refresh_peers()
+    except Exception:
+        logger.warning("initial fabric peer discovery failed; starting with "
+                       "no peers", exc_info=True)
+    fabric.peers = (lambda: peer_cache)
+    fabric.hold_task(drt.runtime.spawn(refresh_loop()))
+    # the ownership view rides the event subject the KV router consumes;
+    # apply_event skips this worker's own events
+    sub = await endpoint.component.subscribe_event(KV_EVENT_SUBJECT)
+
+    async def consume_events():
+        async for msg in sub:
+            try:
+                fabric.apply_event(RouterEvent.from_wire(unpackb(msg.payload)))
+            except Exception:
+                logger.exception("bad kv event on the fabric feed")
+
+    fabric.hold_task(drt.runtime.spawn(consume_events()))
+    return fabric
+
+
 async def run_prefill(flags) -> None:
     """The prefill worker role (``in=prefill out=torch``): consumes the
     namespace's prefill queue and streams each prompt's KV to the decode
@@ -470,12 +635,13 @@ async def run_prefill(flags) -> None:
 
 async def run_worker(flags, engine_spec: str, path: str) -> None:
     """Distributed worker roles (in=dyn://ns.comp.ep), the reference's
-    ``run_worker`` without its sidecars (metrics port, KV fabric,
-    self-healing, incidents):
+    ``run_worker`` without its sidecars (metrics port, self-healing,
+    incidents):
 
     - default: full OpenAI-level worker (preprocess+engine+detokenize here)
     - --token-level: engine worker serving PreprocessedRequests, publishing
-      KV events + ForwardPassMetrics for KV-aware routers
+      KV events + ForwardPassMetrics for KV-aware routers, and with the KV
+      tiers or ``--prefix-pull`` the cluster KV fabric's wiring
     - out=processor: preprocess + route to --worker-endpoint workers
       (KV-aware with --router-mode kv); its stats scrape answers the
       router's ``stats()``
@@ -572,11 +738,17 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
         base_metrics = core.metrics if hasattr(core, "metrics") else dict
         launches = _kernel_launches if engine_spec == "torch" else dict
 
+        scheduler = getattr(core, "scheduler", None)
+
         def metrics_fn():
-            # the engine's load, the events handed to the broker, and the
-            # kernels' launch counts of this process
-            return dict(base_metrics(), kv_events_published=publisher.published,
-                        launches=launches())
+            # the engine's load, the events handed to the broker, the
+            # kernels' launch counts of this process and, with the KV
+            # fabric, its pull counters
+            out = dict(base_metrics(), kv_events_published=publisher.published,
+                       launches=launches())
+            if getattr(scheduler, "fabric", None) is not None:
+                out["kv_fabric"] = scheduler.fabric_stats()
+            return out
 
         model_name = flags.model_name or mdc.display_name
         serving = await endpoint.serve(
@@ -586,6 +758,11 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
             span_source="decode_engine",
             metadata={"model": model_name},
         )
+        # the cluster KV fabric: pull server, peer view, ownership feed,
+        # keyed by the instance id the KV event publisher stamps
+        await _setup_kv_fabric(flags, core, drt=drt, component=comp,
+                               endpoint=endpoint, instance_id=instance_id,
+                               model=model_name)
         print(f"token-level worker {instance_id} serving {path}", flush=True)
 
     else:

@@ -7,8 +7,9 @@ prefill workers pop the queue, compute the KV with the port's kernels and
 stream the blocks into the decode worker's cache over TCP through host
 memory (``PrefillWorker``, ``KvTransferServer`` / ``KvTransferClient``).
 The queue is the runtime's work queue (ack and visibility redelivery);
-the transfer descriptor sits in the discovery plane. Not ported: the ici
-collective backend and prefix pulls, refused by name.
+the transfer descriptor sits in the discovery plane. The transfer server
+also serves the cluster KV fabric's prefix pulls (``kv/fabric.py``). Not
+ported: the ici collective backend, refused by name.
 """
 
 from .coordinator import RemotePrefillCoordinator

@@ -17,8 +17,17 @@ prefill at the coordinator's timeout).
 
 A frame whose dtype or block shape differs from this cache's is refused
 by name and poisons its request, never reinterpreted. Refused by name too:
-the ``ici_blocks`` frame (the collective backend) and the ``pull`` frame
-(prefix pulls of the cluster KV fabric), which are not ported.
+the ``ici_blocks`` frame (the collective backend), which is not ported.
+
+Read-only block serve (the cluster KV fabric, ``kv/fabric.py``) rides the
+same framing the other way: a peer asks for a sequence-hash chain and this
+engine streams whatever prefix run of it it still holds::
+
+  → {type: "pull", hashes, chunk_blocks, backend?, trace_id?}
+  ← {type: "pull_blocks", shape, dtype, k_bytes, v_bytes [, v_shape]} <k> <v>
+  ← {type: "pull_end", served}
+
+A server without a ``pull_source`` answers ``pull_end`` with 0 served.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..transfer.framing import dtype_name, pack_frame, read_exact, read_header
-from ..transfer.plane import PoisonSet
+from ..transfer.plane import PoisonSet, maybe_drop_connection
 from ..transfer.tcp import TcpBackend
 
 logger = logging.getLogger(__name__)
@@ -82,6 +91,7 @@ class KvTransferServer:
         authorize: Optional[Callable[[str, Sequence[int]], bool]] = None,
         host: str = "127.0.0.1",
         layout: Optional[dict] = None,
+        pull_source=None,  # Optional[Callable[[List[int]], PullGrant]]
     ):
         # scatter(request_id, block_ids, k, v) may return an awaitable; an
         # async scatter MUST re-validate the request after any await (the
@@ -96,6 +106,13 @@ class KvTransferServer:
         # this cache's layout (``cache_layout``): published, and held
         # against every block frame; None accepts any (tests)
         self.layout = layout
+        # read-only block serve (the cluster KV fabric): pull_source(hashes)
+        # resolves and PINS the longest locally held run of a hash chain
+        # and returns a grant whose gather_frame packs wire frames off the
+        # loop; its release() unpins and runs exactly once, in the serve's
+        # finally, so a connection dying mid-serve never leaves blocks fenced
+        self.pull_source = pull_source
+        self.pulls_served = 0
         self._poison = PoisonSet("disagg")
         self.frames_received = 0
         self.bytes_received = 0
@@ -111,7 +128,8 @@ class KvTransferServer:
 
     @property
     def descriptor(self) -> dict:
-        return {"host": self.host, "port": self.port, "modes": ["tcp"],
+        modes = ["tcp"] + (["pull"] if self.pull_source is not None else [])
+        return {"host": self.host, "port": self.port, "modes": modes,
                 **(self.layout or {})}
 
     async def _handle(self, reader: asyncio.StreamReader,
@@ -172,13 +190,15 @@ class KvTransferServer:
                         header.get("spans"))
                     writer.write(struct.pack(">I", 1) + b"\x01")
                     await writer.drain()
-                elif mtype in ("ici_blocks", "pull"):
-                    what = ("the ici collective backend" if mtype == "ici_blocks"
-                            else "prefix pulls (the cluster KV fabric)")
-                    logger.error("refusing a %r frame: %s is not ported to "
-                                 "the PyTorch engine", mtype, what)
-                    if mtype == "ici_blocks":
-                        streaming.add(header["request_id"])
+                elif mtype == "pull":
+                    # read-only block serve: stream the longest locally
+                    # resident run of the requested chain on THIS connection
+                    await self._serve_pull(header, writer)
+                elif mtype == "ici_blocks":
+                    logger.error("refusing an 'ici_blocks' frame: the ici "
+                                 "collective backend is not ported to the "
+                                 "PyTorch engine")
+                    streaming.add(header["request_id"])
                     return
                 else:
                     logger.error("unknown transfer frame type %r", mtype)
@@ -195,6 +215,45 @@ class KvTransferServer:
                 self._poison.mark(rid, reason="conn_death")
             self._writers.discard(writer)
             writer.close()
+
+    async def _serve_pull(self, header: dict,
+                          writer: asyncio.StreamWriter) -> None:
+        """Serve one ``pull`` frame: the longest locally held run of the
+        requested chain as chunk frames, then a ``pull_end`` trailer.
+
+        Strictly read-only: the grant pins its HBM blocks and is released
+        in the ``finally``, so a puller that vanishes mid-stream costs this
+        engine nothing but the frames already sent. The gathers dispatch
+        here; the host waits and the byte packing ride the executor."""
+        hashes = [int(h) for h in header.get("hashes") or []]
+        chunk = max(1, int(header.get("chunk_blocks", 16)))
+        grant = self.pull_source(hashes) if self.pull_source else None
+        if grant is None:
+            pack_frame(writer, {"type": "pull_end", "served": 0})
+            await writer.drain()
+            return
+        try:
+            n = len(grant)
+            for lo in range(0, n, chunk):
+                if maybe_drop_connection():
+                    # fault site: the serving side dies mid-stream; the
+                    # puller falls back to a local recompute with its
+                    # reservation freed and nothing registered
+                    writer.close()
+                    return
+                hi = min(lo + chunk, n)
+                kb, vb, shape, dtype, v_shape = await grant.gather_frame(lo, hi)
+                frame = {"type": "pull_blocks", "shape": shape, "dtype": dtype,
+                         "k_bytes": len(kb), "v_bytes": len(vb)}
+                if v_shape != shape:
+                    frame["v_shape"] = v_shape
+                pack_frame(writer, frame, kb, vb)
+                await writer.drain()
+            pack_frame(writer, {"type": "pull_end", "served": n})
+            await writer.drain()
+            self.pulls_served += 1
+        finally:
+            grant.release()
 
     async def close(self) -> None:
         if self._server is not None:

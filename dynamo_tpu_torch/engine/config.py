@@ -615,14 +615,15 @@ class EngineConfig:
         knobs), sequence-parallel prefill (``sp_size``, its ranks on the
         one device), disaggregated prefill (``disagg_stream_depth``, and
         ``long_prefill_threshold_tokens`` at ``sp_size`` 1: the prefill
-        pool's admission class), on one device with a KV cache in the activation dtype
+        pool's admission class), the KV tiers and the cluster KV fabric
+        (``host_kv_blocks``, ``cold_tier_dir`` / ``cold_tier_blocks``,
+        ``prefix_pull`` over tcp), on one device with a KV cache in the activation dtype
         or in fp8 (``kv_cache_dtype="fp8"``; any other value raises the
         reference's ``ValueError``), the weights in the activation dtype
         or in int8 (``quantization="int8"``; any other scheme raises
         ``ValueError`` by name, as in the reference). Not served: the
         chained propose-verify round (so the pipeline together with
-        speculation), draft models, several devices (so SP over TP heads),
-        KV tiers and pulls.
+        speculation), draft models, several devices (so SP over TP heads).
         Each refusal names the knob so a reference config that uses it
         fails loudly instead of serving something else."""
         check_quantization(self.model)
@@ -640,8 +641,6 @@ class EngineConfig:
                 "tensor-parallel heads, a rank per card)")
         if max(self.tp_size, self.dp_size, self.ep_size, self.pp_size) > 1:
             unported.append("multi-device parallelism (tp/dp/ep/pp)")
-        if self.host_kv_blocks or self.cold_tier_blocks or self.prefix_pull:
-            unported.append("KV offload tiers and prefix pulls")
         if self.dtype not in ("bfloat16", "float32"):
             unported.append(f"dtype={self.dtype!r}")
         if unported:

@@ -37,6 +37,17 @@ token; the row then enters the decode loop as a local prefill's would
 (``_install_remote``). Past the coordinator's timeout the request falls
 back to a local prefill.
 
+With ``host_kv_blocks`` the allocator offloads evicted HBM blocks to the
+host tier (``kv/host_tier.py``) and restores them on a prefix hit; the
+staged copies are drained once the pass's device work is dispatched. With
+``cold_tier_blocks`` the host tier's evictions spill to the cold tier
+(``kv/cold_tier.py``), and with it or ``prefix_pull`` the cluster KV
+fabric (``kv/fabric.py``) plans prefix pulls, admitted before anything
+else: a request whose prefix a peer (or the cold tier) holds past every
+local tier reserves its blocks and waits in ``pending_pull`` while the
+blocks stream in; a commit registers them and the tail prefills locally,
+any failure falls back to a local prefill with the same stream.
+
 Per-request state tracks paged blocks, chained block hashes (the prefix
 cache), the guided-choice cursor and cooperative cancellation; KV OOM
 preempts a request back to the waiting queue and its re-prefill continues
@@ -44,8 +55,7 @@ the emitted stream.
 
 Not in this slice (later work, refused by ``EngineConfig`` or by the
 serving layer): the chained propose-verify round, draft-model speculation,
-guided JSON, fabric pulls, migration, fault injection, the flight recorder
-and the stall watchdog.
+guided JSON, migration, the flight recorder and the stall watchdog.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from ..protocols.common import (
 )
 from ..runtime.engine import AsyncEngineContext
 from ..tokens import TokenSequence
+from ..telemetry.registry import MetricsRegistry
 from .block_allocator import BlockAllocator, KvEventSink
 from .config import EngineConfig
 from .guided import TrieConstraint, compile_device_table
@@ -207,6 +218,20 @@ class EngineRequest:
     remote_deadline: float = 0.0
     remote_attempted: bool = False
     remote_backoff_until: float = 0.0
+    # cluster-KV-fabric prefix pull: the in-flight pull (a _PendingPull
+    # while queued in pending_pull), one attempt per request (a fallback
+    # must not loop), and whether a committed pull pre-allocated this
+    # request's blocks (``_start_prefill`` then skips the allocation)
+    pull: Optional[object] = None
+    pull_attempted: bool = False
+    pull_ready: bool = False
+    # no re-plan before this monotonic time (a no-plan outcome holds on
+    # the loop's ~1 ms cadence: the ownership view changes on event cadence)
+    pull_backoff_until: float = 0.0
+    # held out of LOCAL admission while another request's in-flight pull
+    # fetches (part of) this prompt's prefix; cleared early by that pull's
+    # commit or fallback, bounded by its deadline
+    pull_hold_until: float = 0.0
 
     def __post_init__(self):
         self.classify_finish()
@@ -333,6 +358,23 @@ class _HostBatchState:
 
 
 @dataclasses.dataclass
+class _PendingPull:
+    """One in-flight prefix pull (a ``pending_pull`` entry).
+
+    The request holds its full prompt allocation; ``targets`` (the pull's
+    destination blocks) are PINNED for the duration so nothing reclaims a
+    slot with a scatter in flight. The scheduler pins at submit and unpins
+    at reap: commit, fallback, cancel and stop all go through
+    ``_release_pull``."""
+
+    plan: object                    # kv.fabric.PullPlan
+    task: asyncio.Task              # the fabric.pull coroutine
+    targets: List[int]              # destination block ids (pinned)
+    hashes: List[int]               # the prompt's full hash chain
+    deadline: float                 # monotonic fallback deadline
+
+
+@dataclasses.dataclass
 class _InflightBurst:
     """One dispatched-but-unreconciled decode burst.
 
@@ -372,12 +414,55 @@ class Scheduler:
         # requests whose prefill runs on a prefill worker (blocks held,
         # waiting for the commit)
         self.pending_remote: List[EngineRequest] = []
+        # the KV tiers' and the fabric's instruments
+        self.registry = MetricsRegistry()
         # KV events (a worker's publisher): stored on registration, removed
-        # on eviction or release, as the reference's allocator emits them
+        # on eviction or release, as the reference's allocator emits them;
+        # the cold pair on the cold tier's spills and evictions
+        sink = events or KvEventSink()
+        tier2 = None
+        if config.host_kv_blocks > 0:
+            from ..kv import KvHostTier
+
+            tier2 = KvHostTier(runner, config.host_kv_blocks)
+        cold = None
+        if config.cold_tier_blocks > 0:
+            from ..kv import KvColdTier
+            from ..ops.host_xxh64 import checksum_for
+
+            # the host tier's evictions survive to disk; residency is
+            # advertised through the cold event hooks
+            cold = KvColdTier(
+                config.cold_tier_dir, config.cold_tier_blocks,
+                registry=self.registry,
+                on_stored=lambda hashes, parent: sink.on_stored_cold(
+                    hashes, parent),
+                on_removed=lambda hashes: sink.on_removed_cold(hashes),
+                checksum=checksum_for(runner.device))
+            tier2.on_evict = cold.offer
         self.allocator = BlockAllocator(
             config.num_kv_blocks, config.kv_block_size,
-            config.enable_prefix_caching, events,
+            config.enable_prefix_caching, sink, tier2=tier2,
         )
+        # the cluster KV fabric: peer prefix pulls and cold rehydration,
+        # built whenever either is configured; the CLI wiring attaches the
+        # peer view (event feed, pull-server descriptors)
+        self.fabric = None
+        if (config.prefix_pull or cold is not None) \
+                and config.enable_prefix_caching:
+            from ..kv import KvFabric
+
+            self.fabric = KvFabric(
+                runner, self.allocator, engine_id=f"eng-{id(self):x}",
+                block_size=config.kv_block_size, cold=cold,
+                peer_pull=config.prefix_pull,
+                min_pull_blocks=config.prefix_pull_min_blocks,
+                pull_timeout_s=config.prefix_pull_timeout_s,
+                registry=self.registry)
+        self.pending_pull: List[EngineRequest] = []
+        # pull outcomes on this engine: commits, and fallbacks by reason
+        self.pull_commits = 0
+        self.pull_fallbacks: Dict[str, int] = {}
         self.waiting: deque = deque()
         self._host = _HostBatchState(config)
         self.slots: List[Optional[EngineRequest]] = [None] * config.max_batch_size
@@ -436,6 +521,12 @@ class Scheduler:
     # ---------- public API ----------
 
     def start(self) -> None:
+        if self.fabric is not None and self.fabric.cold is not None:
+            # restart-warm on every embedding: prime the cold index off the
+            # loop so spilled prefixes survive a restart (refresh() is
+            # idempotent; the CLI's distributed wiring primes it too)
+            self.fabric.hold_task(asyncio.get_running_loop().run_in_executor(
+                None, self.fabric.cold.refresh))
         self._task = asyncio.create_task(self._run())
 
     async def stop(self) -> None:
@@ -447,6 +538,12 @@ class Scheduler:
             self.disagg.cancel(er.request_id)
             self._finish(er, FinishReason.CANCELLED)
         self.pending_remote.clear()
+        for er in self.pending_pull:
+            self._release_pull(er)
+            self._finish(er, FinishReason.CANCELLED)
+        self.pending_pull.clear()
+        if self.fabric is not None:
+            await self.fabric.close()
         if self.disagg is not None:
             await self.disagg.close()
 
@@ -481,7 +578,8 @@ class Scheduler:
             "request_total_slots": self.config.max_batch_size,
             "kv_active_blocks": self.allocator.used,
             "kv_total_blocks": self.allocator.num_blocks,
-            "num_requests_waiting": len(self.waiting) + len(self.pending_remote),
+            "num_requests_waiting": (len(self.waiting) + len(self.pending_remote)
+                                     + len(self.pending_pull)),
             "gpu_cache_usage_perc": self.allocator.usage(),
             "gpu_prefix_cache_hit_rate": (
                 self.prefix_hit_tokens / self.prefix_total_tokens
@@ -511,8 +609,23 @@ class Scheduler:
         if self.config.device_finish_enabled:
             out["decode_burst_chain_length"] = (
                 self._chain_dispatched or self._last_chain_len)
+        if self.allocator.tier2 is not None:
+            out.update(self.allocator.tier2.metrics())
+        if self.fabric is not None and self.fabric.cold is not None:
+            out.update(self.fabric.cold.metrics())
         if self.disagg is not None:
             out.update(self.disagg.metrics())
+        return out
+
+    def fabric_stats(self) -> dict:
+        """The fabric's counters and this engine's pull outcomes (a
+        worker's stats scrape carries them beside ``metrics()``)."""
+        out = dict(self.fabric.stats()) if self.fabric is not None else {}
+        out.update(pull_commits=self.pull_commits,
+                   pull_fallbacks=dict(self.pull_fallbacks),
+                   pending_pull=len(self.pending_pull))
+        if self.fabric is not None and self.fabric.cold is not None:
+            out["cold"] = self.fabric.cold.counts()
         return out
 
     # ---------- helpers ----------
@@ -619,7 +732,22 @@ class Scheduler:
             if self.pending_remote:
                 progressed |= self._reap_remote()
 
-            # remote admission first: a prompt the router sends to the
+            # prefix-pull completions, fallbacks and timeouts
+            if self.pending_pull:
+                progressed |= self._reap_pulls()
+
+            # admission, pulls first: a prefix pull is only a block
+            # reservation and a transfer (no local compute), and a pulled
+            # prefix shrinks the suffix every later decision sees
+            if self.fabric is not None and self.fabric.may_hold_any():
+                for er in list(self.waiting):
+                    if len(self.pending_pull) >= self.config.max_batch_size:
+                        break
+                    if self._try_submit_pull(er):
+                        self.waiting.remove(er)
+                        progressed = True
+
+            # remote admission next: a prompt the router sends to the
             # prefill pool only holds blocks here until its commit
             unrouted = set()
             if self.disagg is not None:
@@ -636,23 +764,29 @@ class Scheduler:
                 unrouted = {id(er) for er in self.waiting} - {id(er) for er in seen}
 
             # local admission: claim a slot + blocks, join the prefill batch.
+            # A request held for an overlapping in-flight prefix pull is
+            # skipped (not admitted to recompute what the pull is about to
+            # install); everyone else keeps FIFO order.
             # Both ladders honour the prefill-batch cap: SP admissions hold
             # their WHOLE prompt's blocks while the single-owner ladder serves
             # one prompt at a time, so an unbounded sp_queue would pin the
             # block pool idle; oversize backlogs wait block-free in `waiting`
             cap = self.config.max_prefill_batch
             while (self.waiting
-                   and id(self.waiting[0]) not in unrouted
                    and len(self.prefilling) < cap
                    and (len(self.sp_queue)
                         + (1 if self.sp_active is not None else 0) < cap)
                    and self._free_slot() is not None):
-                er = self.waiting[0]
+                now_h = time.monotonic()
+                er = next((e for e in self.waiting
+                           if e.pull_hold_until <= now_h), None)
+                if er is None or id(er) in unrouted:
+                    break  # everyone is held on a pull, or not yet routed
                 try:
                     self._start_prefill(er)
                 except MemoryError:
                     break  # no memory — wait for a sequence to finish
-                self.waiting.popleft()
+                self.waiting.remove(er)
                 progressed = True
 
             # one prefill step (≤ max_prefill_tokens_per_step tokens, split
@@ -735,12 +869,19 @@ class Scheduler:
                 await self._drain_pipeline(loop)
                 progressed = True
 
+            # file the staged host-tier offloads now that this pass's device
+            # work is dispatched: the copies overlapped it, so the drain
+            # waits only on a straggler
+            if self.allocator.tier2 is not None:
+                self.allocator.tier2.drain()
+
             if not progressed:
                 self.wake.clear()
                 if not self.waiting and not any(self.slots):
-                    if self.pending_remote:
+                    if self.pending_remote or self.pending_pull:
                         # wake on a commit; the bounded wait keeps the
-                        # remote deadlines checked
+                        # remote and pull deadlines checked even if a
+                        # stalled pull never completes its task
                         try:
                             await asyncio.wait_for(self.wake.wait(), 0.5)
                         except asyncio.TimeoutError:
@@ -768,12 +909,17 @@ class Scheduler:
         tokens_all = er.prompt + er.resume_tokens
         er.ring_tail.clear()
         er.ring_tail.extend(tokens_all[-SUFFIX_RING_W:])
-        if er.want_prompt_lps and not er.prompt_lps_emitted:
+        if er.pull_ready and er.block_ids:
+            # a committed prefix pull already allocated the blocks,
+            # scattered the pulled run and registered it (num_cached covers
+            # local + pulled): only the tail prefills below
+            er.pull_ready = False
+        elif er.want_prompt_lps and not er.prompt_lps_emitted:
             # every prompt position must run through the model — blank the
             # probe's hits so allocation proceeds with zero cached tokens
             probe = self.allocator.probe_prefix(tokens_all)
             er.block_ids, er.num_cached = self.allocator.allocate_prompt(
-                tokens_all, probe=(probe[0], []))
+                tokens_all, probe=(probe[0], [], []))
         else:
             er.block_ids, er.num_cached = self.allocator.allocate_prompt(tokens_all)
         self.prefix_hit_tokens += er.num_cached
@@ -820,6 +966,166 @@ class Scheduler:
         else:
             self.prefilling.append(er)
 
+    # ---------- cluster KV fabric: prefix pull (kv/fabric.py) ----------
+
+    def _try_submit_pull(self, er: EngineRequest) -> bool:
+        """Start a prefix pull for this waiting request?
+
+        Engages when the fabric's ownership view (peer KV events, the cold
+        tier's index) holds a longer prefix run than every local tier. The
+        request reserves its FULL prompt allocation now (as a remote
+        prefill's submit does), pins the pull's targets and waits in
+        ``pending_pull`` while the blocks stream; the loop serves everyone
+        else meanwhile. One attempt per request: any failure falls back to
+        a plain local prefill with the same stream."""
+        if (er.pull_attempted or er.resume_tokens
+                or (er.want_prompt_lps and not er.prompt_lps_emitted)):
+            # a resumed stream re-prefills prompt + resume (no pullable
+            # chain for the generated tail); prompt logprobs need every
+            # position through the model anyway
+            return False
+        if time.monotonic() < er.pull_backoff_until:
+            return False
+        probe = self.allocator.probe_prefix(er.prompt)
+        hashes, local_blocks, host_hashes = probe
+        n_local = len(local_blocks) + len(host_hashes)
+        plan = self.fabric.plan(hashes, n_local, len(er.prompt))
+        if plan is None:
+            # nothing worth pulling now: do not re-hash the prompt on every
+            # pass while the request queues
+            er.pull_backoff_until = time.monotonic() + 0.25
+            return False
+        planned = set(plan.hashes)
+        for other in self.pending_pull:
+            if (other.pull is not None
+                    and not planned.isdisjoint(other.pull.plan.hashes)):
+                # a pull in flight fetches (part of) this run: its commit
+                # registers the prefix for everyone, so HOLD this request
+                # out of local admission until it resolves (commit and
+                # fallback clear the hold early; its deadline bounds it)
+                er.pull_backoff_until = time.monotonic() + 0.05
+                er.pull_hold_until = other.pull.deadline
+                return False
+        try:
+            er.block_ids, er.num_cached = self.allocator.allocate_prompt(
+                er.prompt, probe=probe)
+        except MemoryError:
+            # transient: the pull stays worth trying once memory frees
+            er.pull_backoff_until = time.monotonic() + 0.25
+            return False
+        bs = self.config.kv_block_size
+        if er.num_cached // bs != plan.start_block:
+            # the local hit shrank inside allocate_prompt (a host-tier
+            # capacity eviction raced the probe): the planned run no longer
+            # abuts the cached prefix, so abandon this plan
+            self.allocator.free_blocks(er.block_ids)
+            er.block_ids = []
+            er.num_cached = 0
+            er.pull_backoff_until = time.monotonic() + 0.25
+            return False
+        er.pull_attempted = True
+        targets = er.block_ids[plan.start_block:plan.start_block + plan.blocks]
+        self.allocator.pin_blocks(targets)
+        task = asyncio.get_running_loop().create_task(
+            self.fabric.pull(plan, targets, request_id=er.request_id,
+                             trace_id=er.ctx.trace_id),
+            name=f"kv-pull-{er.request_id[:8]}")
+        task.add_done_callback(lambda _f: self.wake.set())
+        er.pull = _PendingPull(
+            plan=plan, task=task, targets=targets, hashes=hashes,
+            deadline=time.monotonic() + self.fabric.pull_timeout_s)
+        self.pending_pull.append(er)
+        return True
+
+    def _reap_pulls(self) -> bool:
+        """Commit finished pulls; fall back on failures and deadlines."""
+        progressed = False
+        now = time.monotonic()
+        for er in list(self.pending_pull):
+            pp: _PendingPull = er.pull
+            if er.ctx.is_stopped:
+                self.pending_pull.remove(er)
+                self._release_pull(er)
+                self._finish(er, FinishReason.CANCELLED)
+                # requests held on THIS pull must not wait out its deadline
+                self._clear_pull_holds()
+                progressed = True
+            elif pp.task.done():
+                self.pending_pull.remove(er)
+                served, reason = 0, "empty"
+                if not pp.task.cancelled():
+                    try:
+                        served = pp.task.result()
+                    except Exception as e:
+                        reason = "error"
+                        logger.warning("prefix pull failed for %s (%s); local "
+                                       "recompute fallback", er.request_id, e)
+                if served > 0:
+                    self._commit_pull(er, served)
+                else:
+                    self._fallback_pull(er, reason)
+                progressed = True
+            elif now > pp.deadline:
+                # a dead or stalled source never holds the request: cancel
+                # the transfer and recompute locally
+                pp.task.cancel()
+                self.pending_pull.remove(er)
+                self._fallback_pull(er, "timeout")
+                progressed = True
+        return progressed
+
+    def _release_pull(self, er: EngineRequest) -> None:
+        """Unwind a pull's reservation state (task and pins). The blocks
+        stay with the request: a commit registers them, a fallback or a
+        finish frees them."""
+        pp: _PendingPull = er.pull
+        er.pull = None
+        if not pp.task.done():
+            pp.task.cancel()
+        self.allocator.unpin_blocks(pp.targets)
+
+    def _commit_pull(self, er: EngineRequest, served: int) -> None:
+        """A pull landed ``served`` blocks: register the content-addressed
+        prefix (matchable, with its KV events, as if this engine had
+        computed it) and re-queue the request for its tail prefill."""
+        pp: _PendingPull = er.pull
+        self._release_pull(er)
+        bs = self.config.kv_block_size
+        for i in range(served):
+            idx = pp.plan.start_block + i
+            parent = pp.hashes[idx - 1] if idx > 0 else None
+            self.allocator.register_complete(pp.targets[i], pp.hashes[idx], parent)
+        er.num_cached += served * bs
+        er.pull_ready = True
+        er.ctx.add_stage("kv_fabric")
+        self.pull_commits += 1
+        self.waiting.appendleft(er)
+        self._clear_pull_holds()
+        self.wake.set()
+
+    def _clear_pull_holds(self) -> None:
+        """A pull resolved (commit or fallback): release every waiting
+        request held for it; their next pass re-probes the new local state
+        (after a commit the prefix is a local hit)."""
+        for w in self.waiting:
+            w.pull_hold_until = 0.0
+            w.pull_backoff_until = 0.0
+
+    def _fallback_pull(self, er: EngineRequest, reason: str) -> None:
+        """The pull failed, expired or served nothing: release everything
+        and recompute locally. The stream equals the no-fabric run's:
+        nothing was registered, so the allocator's state is that of a fresh
+        admission."""
+        self._release_pull(er)
+        self.allocator.free_blocks(er.block_ids)
+        er.block_ids = []
+        er.num_cached = 0
+        er.ctx.add_stage("pull_fallback")
+        self.pull_fallbacks[reason] = self.pull_fallbacks.get(reason, 0) + 1
+        self.waiting.appendleft(er)
+        self._clear_pull_holds()
+        self.wake.set()
+
     # ---------- disaggregated prefill (decode side) ----------
 
     async def _try_submit_remote(self, er: EngineRequest) -> bool:
@@ -829,6 +1135,10 @@ class Scheduler:
         requests only the local path serves are kept local."""
         if er.remote_attempted:
             return False  # one remote attempt; a fallback prefills locally
+        if er.pull_ready:
+            # a committed prefix pull pre-allocated this request's blocks;
+            # the (now small) tail prefills locally
+            return False
         if time.monotonic() < er.remote_backoff_until:
             return False
         if er.resume_tokens:
@@ -854,7 +1164,9 @@ class Scheduler:
         if not force_long and not self.disagg.decide(len(er.prompt), 0):
             return False
         probe = self.allocator.probe_prefix(er.prompt)
-        prefix_hit = len(probe[1]) * self.config.kv_block_size
+        # host-tier blocks count as hit: restoring them locally is far
+        # cheaper than a remote prefill round trip
+        prefix_hit = self.allocator.cached_tokens(probe)
         if force_long and len(er.prompt) - prefix_hit < threshold:
             force_long = False
         if not force_long and not self.disagg.decide(len(er.prompt), prefix_hit):

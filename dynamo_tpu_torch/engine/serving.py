@@ -17,7 +17,10 @@ the one device; the reference's ``sequence_parallel_size`` flag is this
 config field). ``create`` takes an ``EngineConfig``, or a model card and
 the CLI's flags (``engine_config_from_mdc``). With a ``disagg_factory``
 the engine is a disaggregated decode worker: long prompts prefill on the
-prefill pool and their KV streams back into this cache. Refused by name:
+prefill pool and their KV streams back into this cache. With
+``host_kv_blocks`` / ``cold_tier_blocks`` / ``prefix_pull`` the scheduler
+builds the KV tiers and the cluster KV fabric (``kv/``); the engine's
+``registry`` carries their instruments. Refused by name:
 ``guided_json`` (it needs the tokenizer's piece table) and
 ``guided_choice`` given as text without its token ids. A model card's
 directory (or ``.gguf``) is loaded by the runner (``models/loader.py``);
@@ -89,6 +92,14 @@ def engine_config_from_mdc(mdc, flags=None, extra=None) -> EngineConfig:
         long_prefill_threshold_tokens=getattr(
             flags, "long_prefill_threshold_tokens", 0) or 0,
         disagg_stream_depth=getattr(flags, "disagg_stream_depth", None) or 2,
+        host_kv_blocks=getattr(flags, "host_kv_blocks", 0) or 0,
+        prefix_pull=getattr(flags, "prefix_pull", False),
+        prefix_pull_min_blocks=getattr(
+            flags, "prefix_pull_min_blocks", 2) or 2,
+        prefix_pull_timeout_s=getattr(
+            flags, "prefix_pull_timeout_s", 30.0) or 30.0,
+        cold_tier_dir=getattr(flags, "cold_tier_dir", "") or "",
+        cold_tier_blocks=getattr(flags, "cold_tier_blocks", 0) or 0,
     ))
 
 
@@ -295,6 +306,11 @@ class TorchServingEngine(AsyncEngine):
             for c in child_ctxs:
                 c.stop_generating()
             request.context.merge_stages_from(child_ctxs)
+
+    @property
+    def registry(self):
+        """The scheduler's instruments (the KV tiers' and the fabric's)."""
+        return self.scheduler.registry
 
     def metrics(self) -> dict:
         return self.scheduler.metrics()

@@ -1,8 +1,10 @@
-"""Build and load the port's CUDA kernels (``dynamo_tpu_torch/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``dynamo_tpu_torch/csrc/*.cu``)
+and its one native host routine (``csrc/host_xxh64.cpp``, the cold KV
+tier's checksum).
 
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a build
-takes seconds. Libraries are built at first use into
+takes seconds (nvcc hands the host-only ``.cpp`` to the host compiler). Libraries are built at first use into
 ``dynamo_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
 the source and the ``csrc`` headers it includes, so a changed source or
 header rebuilds and an unchanged one loads the library already there.
@@ -37,6 +39,7 @@ SOURCES = {
     "sampling_epilogue": "sampling_epilogue.cu",
     "mla_decode": "mla_decode.cu",
     "sp_prefix": "sp_prefix.cu",
+    "host_xxh64": "host_xxh64.cpp",
 }
 
 NVCC_FLAGS = [

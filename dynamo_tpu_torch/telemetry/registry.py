@@ -1,9 +1,11 @@
 """The metrics registry and its Prometheus instruments.
 
 The port's copy of ``dynamo_tpu/telemetry/registry.py``, cut to what the
-HTTP front's ``ServiceMetrics`` and the engine's dict gauges use:
-counters, gauges, histograms, dict-returning callback gauges and the text
-exposition (no client library: the format is simple enough to emit).
+HTTP front's ``ServiceMetrics``, the engine's dict gauges and the KV
+tiers use: counters, gauges, histograms, callback gauges (a number, or
+labelled samples, pulled at render), dict-returning callback gauges,
+attached child registries and the text exposition (no client library: the
+format is simple enough to emit).
 """
 
 from __future__ import annotations
@@ -112,6 +114,47 @@ class Histogram:
         return lines
 
 
+class CallbackGauge:
+    """A gauge whose value(s) come from a callback at render time.
+
+    The callback may return a plain number (one unlabelled sample) or an
+    iterable of ``(labels_dict, value)`` pairs (one sample per label set).
+    A broken or non-numeric callback renders nothing; /metrics must never
+    go down with a component.
+    """
+
+    def __init__(self, name: str, help_: str, fn: Callable):
+        self.name = name
+        self.help = help_
+        self.fn = fn
+
+    def render(self) -> List[str]:
+        try:
+            value = self.fn()
+            samples: List[Tuple[Dict[str, str], float]] = []
+            if isinstance(value, bool):
+                return []
+            if isinstance(value, (int, float)):
+                samples = [({}, float(value))]
+            else:
+                for labels, v in value:
+                    if isinstance(v, bool) or not isinstance(v, (int, float)):
+                        continue
+                    samples.append((dict(labels), float(v)))
+        # dynlint: allow(silent-except) - a broken callback must not take /metrics down
+        except Exception:
+            return []
+        if not samples:
+            return []
+        lines = [
+            f"# HELP {self.name} {_escape_help(self.help)}",
+            f"# TYPE {self.name} gauge",
+        ]
+        for labels, v in samples:
+            lines.append(f"{self.name}{format_labels(labels)} {v}")
+        return lines
+
+
 class CallbackGauges:
     """Dict-returning callback → one unlabelled gauge per numeric key.
 
@@ -143,12 +186,15 @@ class CallbackGauges:
 
 
 class MetricsRegistry:
-    """One exposition surface: named instruments, got or created, and
-    dict gauges pulled at every render."""
+    """One exposition surface: named instruments, got or created, dict
+    gauges pulled at every render, and the instruments of ``attach``-ed
+    child registries (a component that owns its registry, such as the
+    cold tier, renders into its owner's scrape)."""
 
     def __init__(self) -> None:
         self._metrics: Dict[str, object] = {}
         self._order: List[object] = []
+        self._children: List["MetricsRegistry"] = []
 
     # ---------- instrument creation ----------
 
@@ -175,13 +221,37 @@ class MetricsRegistry:
     def histogram(self, name: str, help_: str, buckets=DEFAULT_BUCKETS) -> Histogram:
         return self._get_or_create(name, Histogram, help_, buckets)
 
+    def callback_gauge(self, name: str, help_: str, fn: Callable) -> CallbackGauge:
+        existing = self._metrics.get(name)
+        if isinstance(existing, CallbackGauge):
+            existing.fn = fn  # re-bind (a rebuilt component)
+            return existing
+        return self._get_or_create(name, CallbackGauge, help_, fn)
+
     def register_callback_gauges(self, prefix: str, fn: Callable) -> None:
         """Dict-returning callback → ``{prefix}_{key}`` gauges, pulled
         fresh at every render (BYO engines; dynamic names)."""
         self._order.append(CallbackGauges(prefix, fn))
 
-    def render(self) -> str:
+    def attach(self, child: "MetricsRegistry") -> None:
+        """Render ``child``'s instruments as part of this exposition."""
+        if child is self or child in self._children:
+            return
+        self._children.append(child)
+
+    def names(self) -> List[str]:
+        out = list(self._metrics)
+        for child in self._children:
+            out.extend(child.names())
+        return out
+
+    def render_lines(self) -> List[str]:
         lines: List[str] = []
         for metric in self._order:
             lines.extend(metric.render())
-        return "\n".join(lines) + "\n"
+        for child in self._children:
+            lines.extend(child.render_lines())
+        return lines
+
+    def render(self) -> str:
+        return "\n".join(self.render_lines()) + "\n"

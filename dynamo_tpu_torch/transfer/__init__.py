@@ -3,9 +3,11 @@ poison vocabulary for the KV blocks that cross a worker boundary.
 
 The port's copy of ``dynamo_tpu/transfer/`` for the ``disagg`` plane
 (streamed remote prefill, ``disagg/prefill_worker.py`` →
-``disagg/transfer.py``) over the ``tcp`` backend: block bytes ride the
-control connection behind their header. The ``ici`` collective backend
-and the ``fabric`` / ``migration`` planes are not ported.
+``disagg/transfer.py``) and the ``fabric`` plane (prefix pulls,
+``kv/fabric.py``, served by the same ``KvTransferServer``) over the
+``tcp`` backend: block bytes ride the control connection behind their
+header. The ``ici`` collective backend and the ``migration`` plane are
+not ported.
 """
 
 from .framing import (  # noqa: F401

@@ -18,7 +18,11 @@ The port's copy of ``dynamo_tpu/transfer/plane.py`` for the disagg plane:
 - ``negotiate_backend``: the payload path for one peer pair. The port
   serves ``tcp`` only; the ``ici`` collective plane is refused by name.
 
-Not ported: the flight-recorder events and the connection-drop chaos seam.
+- ``maybe_drop_connection``: the ``transfer_conn_drop`` fault seam
+  (``utils/faults.py``), consulted between the chunk frames of a pull
+  serve.
+
+Not ported: the flight-recorder events.
 """
 
 from __future__ import annotations
@@ -37,6 +41,18 @@ logger = logging.getLogger(__name__)
 # is a last resort and LOGS what it evicts
 MAX_DROPPED = 4096
 DROPPED_TTL_S = 600.0
+
+# the fault site a plane's chunk loop consults between frames
+CONN_DROP_FAULT = "transfer_conn_drop"
+
+
+def maybe_drop_connection() -> bool:
+    """The ``transfer_conn_drop`` fault seam: True when the armed fault
+    fires; the caller closes its writer, exercising the far side's
+    fallback. One call per chunk keeps the drop mid-stream-able."""
+    from ..utils import faults
+
+    return faults.fire(CONN_DROP_FAULT)
 
 
 class PoisonSet:

@@ -1387,3 +1387,69 @@ def test_block_ops_on_the_card_round_trip_without_a_host_sync(kv):
     assert torch.equal(vh, v.view(torch.uint8) if kv == "fp8" else v)
     k2, v2 = card.blocks_to_host(*card.gather_blocks_device([0]))
     assert not k2.view(torch.uint8).any() and not v2.view(torch.uint8).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["auto", "fp8"])
+def test_host_tier_round_trip_on_the_card_without_a_host_sync(kv):
+    """The host tier on a card: its slab is pinned; an offload (the gather
+    and the copy into pinned memory) and a restore (the slab's rows into a
+    pinned frame, its copy to the card and the scatter) run under
+    ``set_sync_debug_mode("error")``; the drain waits on the copy's event;
+    the restored blocks are byte-equal to the offloaded ones."""
+    _need_cuda()
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.model_runner import ModelRunner
+    from dynamo_tpu_torch.kv import KvHostTier
+
+    cfg = EngineConfig(
+        model=ModelConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
+                          num_layers=2, num_heads=4, num_kv_heads=2,
+                          max_position_embeddings=512),
+        max_batch_size=2, max_model_len=256, kv_block_size=16,
+        num_kv_blocks=32, kv_cache_dtype=kv)
+    card = ModelRunner(cfg, device="cuda")
+    k0, v0 = card.kv_cache
+    ids = [5, 1, 30]
+    shape = (k0.shape[0], len(ids), *k0.shape[2:])
+    g = torch.Generator().manual_seed(1)
+    k = torch.randn(shape, generator=g).to(k0.dtype)
+    v = torch.randn(shape, generator=g).to(v0.dtype)
+    card.scatter_blocks(ids, *card.stage_blocks(k, v))
+    tier = KvHostTier(card, 4)
+    assert all(s.is_pinned() for s in tier.slabs)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tier.offload_batch([(100 + j, b) for j, b in enumerate(ids)])
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    tier.drain()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tier.restore([100, 101, 102], [7, 8, 9])
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    kh, vh = card.blocks_to_host(*card.gather_blocks_device([7, 8, 9]))
+    assert torch.equal(kh.view(torch.uint8), k.view(torch.uint8))
+    assert torch.equal(vh.view(torch.uint8), v.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_native_xxh64_equals_its_plain_version():
+    """The cold tier's native host checksum (built by ``ops/_build.py``)
+    equals the pure-Python xxh64 of the concatenation at the lengths around
+    its 32-byte stripes and its 8- and 4-byte tails, and at one
+    Llama-3.2-1B bf16 block's 524,288 bytes."""
+    _need_cuda()
+    import numpy as np
+
+    from dynamo_tpu_torch.ops import host_xxh64
+
+    rng = np.random.default_rng(0)
+    for n, cut in ((0, 0), (1, 0), (3, 2), (31, 16), (32, 32), (33, 1),
+                   (100, 37), (4096, 4095), (524288, 262144)):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        for seed in (0, 2**64 - 1):
+            assert host_xxh64.xxh64_pair(data[:cut], data[cut:], seed) == \
+                host_xxh64.xxh64_pair_ref(data[:cut], data[cut:], seed), (n, cut)

@@ -368,11 +368,13 @@ def test_transfer_refuses_another_cache_layout(weights):
 
 
 def test_unported_transfer_paths_are_refused_by_name():
-    """The ici collective backend and prefix pulls are not ported: the
-    negotiation, the client and the server each refuse them by name (the
-    server ends the connection on such a frame, poisoning what it
-    streamed)."""
-    from dynamo_tpu_torch.transfer.framing import pack_frame
+    """The ici collective backend is not ported: the negotiation, the
+    client and the server each refuse it by name (the server ends the
+    connection on its frame, poisoning what it streamed). A prefix pull is
+    served since the cluster KV fabric was ported: a server with no pull
+    source answers it with ``pull_end``, 0 served, and keeps the
+    connection."""
+    from dynamo_tpu_torch.transfer.framing import pack_frame, read_header
     from dynamo_tpu_torch.transfer.plane import negotiate_backend
 
     assert negotiate_backend({"modes": ["tcp", "ici"]}) == "tcp"
@@ -388,21 +390,27 @@ def test_unported_transfer_paths_are_refused_by_name():
             client = await KvTransferClient("127.0.0.1", server.port).connect()
             with pytest.raises(NotImplementedError, match="send_ici_blocks"):
                 await client.send_ici_blocks("r", [1], seq=1)
-            ended = []
-            for frame in ({"type": "ici_blocks", "request_id": "r",
-                           "block_ids": [1], "seq": 1},
-                          {"type": "pull", "hashes": [1]}):
-                c = await KvTransferClient("127.0.0.1", server.port).connect()
-                pack_frame(c.writer, frame)
-                await c.writer.drain()
-                ended.append(await c.reader.read() == b"")  # closed by the server
-                await c.close()
+            c = await KvTransferClient("127.0.0.1", server.port).connect()
+            pack_frame(c.writer, {"type": "ici_blocks", "request_id": "r",
+                                  "block_ids": [1], "seq": 1})
+            await c.writer.drain()
+            ended = await c.reader.read() == b""  # closed by the server
+            await c.close()
+            c = await KvTransferClient("127.0.0.1", server.port).connect()
+            pack_frame(c.writer, {"type": "pull", "hashes": [1]})
+            await c.writer.drain()
+            pulled = await read_header(c.reader)
+            pack_frame(c.writer, {"type": "pull", "hashes": []})
+            await c.writer.drain()
+            again = await read_header(c.reader)  # the connection stays up
+            await c.close()
             await client.close()
-            return ended, "r" in server._poison
+            return ended, "r" in server._poison, pulled, again
         finally:
             await server.close()
 
-    assert _run(main()) == ([True, True], True)
+    end = {"type": "pull_end", "served": 0}
+    assert _run(main()) == (True, True, end, end)
 
 
 # ---------------------------------------------------------------- router
@@ -757,14 +765,22 @@ METRIC_CONFIGS = {
     "plain": {},
     "ngram_spec": dict(spec_ngram_tokens=4, spec_ngram_match=2),
     "chained": dict(decode_pipeline_depth=2, multi_step_decode=4),
+    # the KV tiers and the fabric: a cache small enough that the second
+    # prompt evicts the first into the host tier, whose overflow spills to
+    # the cold tier (each engine gets a directory of its own)
+    "tiers": dict(num_kv_blocks=4, host_kv_blocks=1, cold_tier_dir="<tmp>",
+                  cold_tier_blocks=16, prefix_pull=True),
 }
 
 
-async def _metrics_pair(weights, kw, prompts, disagg):
+async def _metrics_pair(weights, kw, prompts, disagg, tmp=None):
     """The same requests through JaxServingEngine and TorchServingEngine
     (each with its own disagg pair when ``disagg``); their metrics."""
     out = []
+    asked = kw
     for port in (False, True):
+        if asked.get("cold_tier_dir") == "<tmp>":
+            kw = dict(asked, cold_tier_dir=str(tmp / ("port" if port else "ref")))
         hub = (MemoryHub if port else RefHub)()
         Drt = DistributedRuntime if port else RefDrt
         drt, drt_p = Drt.in_process(hub), Drt.in_process(hub)
@@ -818,14 +834,14 @@ TIMED = {"decode_pipeline_bursts", "decode_burst_chain_length"}
 
 
 @pytest.mark.parametrize("name", list(METRIC_CONFIGS) + ["disagg"])
-def test_metrics_keys_match_the_reference(weights, name):
+def test_metrics_keys_match_the_reference(weights, name, tmp_path):
     """``metrics()`` carries the reference's keys under the reference's
     conditions, with its values (exact), beside the port's own counters;
     the four names the port used to rename are gone."""
     kw = METRIC_CONFIGS.get(name, {})
     prompts = [[5, 9, 8, 9, 8, 9, 8, 9, 8, 21, 40, 2], _prompt(20, 16)]
     (want_s, ref), (got_s, port) = _run(_metrics_pair(
-        weights, kw, prompts, disagg=name == "disagg"))
+        weights, kw, prompts, disagg=name == "disagg", tmp=tmp_path))
     assert got_s == want_s
     missing = set(ref) - set(port)
     assert not missing, missing
@@ -839,11 +855,14 @@ def test_metrics_keys_match_the_reference(weights, name):
     assert not {"spec_proposed", "spec_accepted", "pipeline_bursts",
                 "chain_len_last"} & set(port)
     on = {"ngram_spec": "spec_proposed_tokens", "chained": "decode_pipeline_bursts",
-          "disagg": "remote_prefill_completed"}
+          "disagg": "remote_prefill_completed", "tiers": "host_kv_evicted_total"}
     for cfg_name, key in on.items():
         assert (key in port) == (cfg_name == name)
     if name == "disagg":
         assert port["remote_prefill_completed"] == len(prompts)
+    if name == "tiers":
+        # the tiers moved blocks: offloads, a host eviction, a cold spill
+        assert port["host_kv_evicted_total"] > 0 and port["cold_kv_blocks"] > 0
 
 
 # ------------------------------------------------------- the CLI's roles

@@ -274,7 +274,7 @@ def test_config_refuses_unported_features():
                dict(decode_pipeline_depth=2, spec_ngram_tokens=2),
                dict(device_finish="on", decode_pipeline_depth=2,
                     spec_ngram_tokens=4),
-               dict(tp_size=2), dict(host_kv_blocks=8)):
+               dict(tp_size=2)):
         with pytest.raises(NotImplementedError):
             EngineConfig(model=model, **kw)
     # an fp8 KV cache is served (below); a cache dtype the reference does
@@ -291,7 +291,11 @@ def test_config_refuses_unported_features():
                dict(decode_pipeline_depth=2, device_finish="off"),
                dict(device_finish="on", decode_pipeline_depth=2,
                     multi_step_decode=4, guided_device_table=False,
-                    guided_table_max_states=64, device_stop_strings=False)):
+                    guided_table_max_states=64, device_stop_strings=False),
+               # the KV tiers and prefix pulls
+               dict(host_kv_blocks=8), dict(prefix_pull=True),
+               dict(host_kv_blocks=8, cold_tier_dir="/nonexistent",
+                    cold_tier_blocks=8)):
         EngineConfig(model=model, **kw)
     assert EngineConfig(model=model, decode_pipeline_depth=2).device_finish_enabled
     # "on" below the pipeline depth is an error, as in the reference

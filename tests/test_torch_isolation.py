@@ -7,8 +7,9 @@ check runs in a fresh interpreter: a ``sys.meta_path`` finder refuses
 is allowed), and the packages the reference's front stands on that the
 port does not depend on (``aiohttp``, ``pydantic``, ``tokenizers``,
 ``regex``, ``msgpack``, ``safetensors``, ``transformers``, ``gguf``,
-``ml_dtypes``: the checkpoint loader reads safetensors and GGUF files on the
-standard library; ``jinja2``, a
+``ml_dtypes``, ``xxhash``: the checkpoint loader reads safetensors and GGUF
+files on the standard library, and the cold KV tier checksums with the
+port's own xxh64; ``jinja2``, a
 requirement of torch, stays allowed), then every module of
 ``dynamo_tpu_torch`` and ``chip_smoke`` is imported, and CUDA must not have
 been initialised by any import. A static scan of the import statements
@@ -39,7 +40,7 @@ def _port_modules():
 
 REFUSED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "tokenizers",
            "regex", "msgpack", "safetensors", "transformers", "gguf",
-           "ml_dtypes")
+           "ml_dtypes", "xxhash")
 
 
 def _blocked(name: str) -> bool:
@@ -54,7 +55,7 @@ def test_blocked_names_match_exactly():
     assert not _blocked("jaxtyping")
     for name in ("aiohttp.web", "pydantic", "tokenizers.models", "regex",
                  "msgpack", "safetensors.torch", "transformers", "gguf",
-                 "ml_dtypes"):
+                 "ml_dtypes", "xxhash"):
         assert _blocked(name)
     assert not _blocked("jinja2") and not _blocked("regexp")
 
@@ -94,7 +95,13 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.transfer.plane", "dynamo_tpu_torch.disagg.protocols",
             "dynamo_tpu_torch.disagg.router", "dynamo_tpu_torch.disagg.transfer",
             "dynamo_tpu_torch.disagg.coordinator",
-            "dynamo_tpu_torch.disagg.prefill_worker"} <= set(mods)
+            "dynamo_tpu_torch.disagg.prefill_worker",
+            # the KV tiers and the fabric: the wire codec for the cold
+            # files' headers, the port's own xxh64 and fault sites
+            "dynamo_tpu_torch.kv", "dynamo_tpu_torch.kv.host_tier",
+            "dynamo_tpu_torch.kv.cold_tier", "dynamo_tpu_torch.kv.fabric",
+            "dynamo_tpu_torch.ops.host_xxh64",
+            "dynamo_tpu_torch.utils.faults"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -144,6 +151,26 @@ def test_quant_and_mixtral_modules_import_without_jax_or_reference_package():
         assert qw.q.dtype == torch.int8 and qw[1].shape == (8, 4)
         err = (expert_bmm(x, qw) - torch.bmm(x, w)).abs().max()
         assert float(err) < 0.1, float(err)
+    """)
+
+
+def test_kv_tiers_and_faults_import_without_jax_or_reference_package(tmp_path):
+    """``kv/`` and ``utils/faults.py`` alone: neither jax, ``dynamo_tpu``,
+    msgpack nor xxhash comes with them, and a cold-tier block file round
+    trips (wire-codec header, pure-Python xxh64) in that interpreter."""
+    _import_refusing_reference([
+        "dynamo_tpu_torch.kv", "dynamo_tpu_torch.utils.faults",
+    ], f"""
+        import torch
+        from dynamo_tpu_torch.kv import KvColdTier
+        from dynamo_tpu_torch.utils import faults
+        tier = KvColdTier({str(tmp_path)!r}, 4)
+        k = torch.arange(24, dtype=torch.float32).reshape(2, 1, 4, 3)
+        tier.put(9, k, -k)
+        got = tier.get(9)
+        assert torch.equal(got[0], k) and torch.equal(got[1], -k)
+        faults.arm("prefix_pull_stall", "once")
+        assert faults.fire("prefix_pull_stall") and not faults.fire("prefix_pull_stall")
     """)
 
 
