@@ -205,11 +205,37 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    request and no KV block in use, the launch counts the decode, flash and
    epilogue kernels (the epilogue in its plain and ``finish`` forms). The
    edge's TTFT and inter-token gaps a request, the front's share of TTFT
-   and the tokenizer's encode cost a token are printed. Then the CLI
-   itself: ``python3 -m dynamo_tpu_torch.cli.run in=http out=torch`` in a
-   subprocess (on the card by default) answers /health and a chat request
-   and exits 0 on SIGINT.
-15. ``engine_graph`` — the distributed inference graph, each role a
+   and the tokenizer's encode cost a token are printed. The CLI itself
+   (``python3 -m dynamo_tpu_torch.cli.run in=http out=torch`` in a
+   subprocess, on the card by default) runs in ``engine_guided``'s leg C.
+15. ``engine_guided`` — guided JSON and /v1/embeddings behind the front
+   at the full Llama-3.2-1B shapes in bf16, on ``engine_http``'s model
+   directory and tokenizer, each engine built by ``cli.run.build_engine``
+   and served by ``HttpService``. Leg A, on a synchronous engine and then
+   on the chained loop (``decode_pipeline_depth`` 2, 4-step bursts): 4
+   ``json_object`` and 4 ``json_schema`` chats (a required string, an
+   integer, a boolean, an enum and an array of numbers; half greedy, half
+   seeded at 0.8; 128 tokens) beside 2 unguided streams, then a boolean-
+   array grammar small enough for a device table, alone. A reply that
+   finishes ``stop`` parses and validates, one cut at ``length`` is a
+   legal prefix under a fresh grammar walk; greedy guided streams are
+   identical on the two engines; the array grammar's table compiles and
+   launches the epilogue's ``extra_bias`` form on the chained engine.
+   Prints each grammar's table outcome (the engine's compiles and one more
+   at the reference's bound and budget: state count, seconds a state),
+   ``sync_fallback`` by reason, the piece table's seconds, the guided and
+   unguided TTFTs and the unguided streams' largest gap over a sweep on
+   the scheduler's loop. Leg B, on the chained engine: 8 /v1/embeddings
+   requests (strings and token-id lists of 16 to 1,500 tokens) while 2
+   greedy chats decode: unit vectors of 2,048, ``usage`` the prompt
+   tokens, the two shortest within cosine 0.999 of an f32 CPU
+   ``embed_forward`` of the engine's weights, the chats token-identical to
+   their run alone; ``embed_s`` a request. Leg C: the CLI started with the
+   mapped engine flags (``--multi-step-decode 4 --device-finish on
+   --fused-epilogue on`` ...) gives the reference's ``EngineConfig``
+   fields, reaches /health, chains a chat, serves a guided reply and an
+   embedding, and exits 0 on SIGINT.
+16. ``engine_graph`` — the distributed inference graph, each role a
    subprocess on the one card as a user starts it: a dynstore broker, two
    ``--token-level --prefix-pull`` workers (Llama-3.2-1B at full width and
    depth, random weights, ``engine_http``'s synthetic tokenizer; each
@@ -228,7 +254,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    back to a local recompute, streams as above, no pinned block left.
    Prints the followers' TTFT under kv and round-robin routing in turns,
    the routing decision's µs, the events' lag and the pulls' counters.
-16. ``engine_disagg`` — disaggregated prefill and decode on Llama-3.2-1B at
+17. ``engine_disagg`` — disaggregated prefill and decode on Llama-3.2-1B at
    full width and depth. Leg A in one process, over a bf16 and an fp8
    cache: a decode engine whose coordinator talks over a ``MemoryHub`` to
    a prefill worker with a runner of its own on the card; the installed
@@ -236,14 +262,14 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    install free of host syncs, streams equal a local engine's or part at
    a near-tie. Leg B, the CLI roles as subprocesses (broker, a
    ``--remote-prefill`` decode worker, an ``in=prefill`` worker with the
-   SP ladder, a KV-routing processor, a frontend): four turns, remote and
+   SP ladder, a KV-routing processor, a frontend): two turns, remote and
    local by the router's live key, each with 4 streamed chats beside a
    12,000- and a 3,000-word prompt; remote prefills counted, bytes
    reckoned, the SP ladder's launches, no fallback or nack, no block left
    in use. Prints per turn the long prompts' TTFT, the short streams'
    largest gap while they prefilled and the transfer's bytes, frames,
    duration and exposed seconds.
-17. ``engine_kv_tiers`` — the multi-tier KV block manager on Llama-3.2-1B
+18. ``engine_kv_tiers`` — the multi-tier KV block manager on Llama-3.2-1B
    at full width and depth in one process: 1,024 HBM blocks, a 1,024-slot
    pinned host slab and a 2,048-block cold tier; six 6,000-token prompts
    push blocks HBM → host → cold (every dispatch, offload and restore
@@ -255,7 +281,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    pinned or in use, the native xxh64 equal to its plain version. Prints
    the tiers' counters, offload and restore GB/s, the cold tier's MB/s and
    the checksum's share.
-18. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
+19. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
    depth (its published ``config.json``: G 7, qkv biases, V 152,064) with
    seeded random bf16 weights written as a 4-shard HF safetensors
    snapshot (``write_safetensors_snapshot``) and loaded by
@@ -283,7 +309,8 @@ epilogue at V 152,064 with ``engine_load``'s, the fp8 forms with the
 G 5, flash's fp8 form and the prefix partials at G 7 and 5 — with a count
 of 0 and a ``path`` saying so; the decode, flash and
 epilogue entries also carry ``launches_engine_http``, the HTTP path's own
-counts, and ``launches_engine_graph``, the graph's workers'; they and
+counts, ``launches_engine_guided``, the guided path's chained engine's,
+and ``launches_engine_graph``, the graph's workers'; they and
 kernel 6 carry ``launches_engine_disagg``, the disaggregated pair's two
 workers' (decode and flash's fp8 forms: leg A's fp8 pair); decode, flash
 and the epilogue carry ``launches_engine_kv_tiers``, the tiers' engines'
@@ -3027,13 +3054,15 @@ def _reset_launches():
         importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches = 0
     for name in FP8_MODULES:
         importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches_fp8 = 0
-    importlib.import_module("dynamo_tpu_torch.ops.epilogue").launches_finish = 0
+    epilogue = importlib.import_module("dynamo_tpu_torch.ops.epilogue")
+    epilogue.launches_finish = epilogue.launches_extra_bias = 0
 
 
 def _read_launches():
     """Each kernel module's launch count (of its bf16 form where it has an
     fp8 one), the fp8 forms' as ``<module>_fp8``, and the epilogue's
-    ``finish`` form's among its own (``epilogue_finish``)."""
+    ``finish`` and ``extra_bias`` forms' among its own (``epilogue_finish``,
+    ``epilogue_extra_bias``)."""
     import importlib
 
     out = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}").launches
@@ -3041,8 +3070,9 @@ def _read_launches():
     for name in FP8_MODULES:
         out[f"{name}_fp8"] = importlib.import_module(
             f"dynamo_tpu_torch.ops.{name}").launches_fp8
-    out["epilogue_finish"] = importlib.import_module(
-        "dynamo_tpu_torch.ops.epilogue").launches_finish
+    epilogue = importlib.import_module("dynamo_tpu_torch.ops.epilogue")
+    out["epilogue_finish"] = epilogue.launches_finish
+    out["epilogue_extra_bias"] = epilogue.launches_extra_bias
     return out
 
 
@@ -5582,7 +5612,7 @@ def engine_http_phase(torch, dev, smi):
     (``write_model_dir``), the engine built by ``cli.run.build_engine`` and
     served by ``HttpService``, a concurrent wave of HTTP requests from a
     stdlib client, held against a roomy engine over the same directory and
-    seed, then the CLI itself in a subprocess."""
+    seed (the CLI in a subprocess: ``engine_guided``'s leg C)."""
     import dataclasses
     import tempfile
 
@@ -5890,8 +5920,6 @@ def engine_http_phase(torch, dev, smi):
                              f"({launches['epilogue_finish']}) forms must both "
                              "launch on the HTTP path")
 
-    # ---- the CLI itself, on the card by default
-    cli = _cli_run(model_dir, str(extra))
     tmp.cleanup()
     ttfts = [r["ttft_s"] for r in per_request.values() if r["ttft_s"] is not None]
     emit("engine_http", model="Llama-3.2-1B shapes, seeded random bf16 weights, "
@@ -5911,7 +5939,7 @@ def engine_http_phase(torch, dev, smi):
          preemptions=preemptions, ttft_samples=ttft_count,
          kv_active_blocks_after=core_metrics["kv_active_blocks"],
          launches=launches, epilogue_plain=plain,
-         epilogue_finish=launches["epilogue_finish"], cli=cli,
+         epilogue_finish=launches["epilogue_finish"],
          logprob_over_tol=lp_fail, card=smi)
     if lp_fail:
         raise AssertionError(f"logprobs differ from the roomy engine's by more "
@@ -5922,20 +5950,566 @@ def engine_http_phase(torch, dev, smi):
                 sampling_epilogue_finish=launches["epilogue_finish"])
 
 
-def _cli_run(model_dir, extra_path):
+# ------------------------------------------------------------ engine_guided
+
+# guided JSON and /v1/embeddings behind the OpenAI front, on engine_http's
+# model directory and synthetic tokenizer, each engine built by the CLI's
+# builders: a synchronous engine, then the chained loop
+GUIDED_SERVER = dict(max_model_len=2048, num_kv_blocks=1024, max_batch_size=16)
+GUIDED_CHAIN = dict(decode_pipeline_depth=2, multi_step_decode=4)
+# no prefix cache: leg B's chats run twice, and a prefix hit would prefill
+# the second run another way
+GUIDED_EXTRA = dict(max_prefill_tokens_per_step=512, enable_prefix_caching=False)
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string"}, "count": {"type": "integer"},
+    "active": {"type": "boolean"},
+    "color": {"enum": ["red", "green", "blue"]},
+    "scores": {"type": "array", "items": {"type": "number"}}},
+    "required": ["name", "count", "active", "color", "scores"]}
+# a grammar small enough for a device table (24 states): its requests run
+# after the wave, alone, so the chain can take them
+GUIDED_TABLE_SCHEMA = {"type": "array", "items": {"type": "boolean"}}
+GUIDED_NEW_TOKENS = 128
+GUIDED_TEMPERATURE = 0.8
+GUIDED_SEED = 1818
+GUIDED_PROMPT_WORDS = (40, 90, 60, 120, 75, 30, 100, 50)   # the 8 guided
+GUIDED_UNGUIDED_WORDS = (300, 180)                          # the 2 beside them
+GUIDED_TABLE_REQUESTS = 2
+EMBED_INPUT_TOKENS = (16, 40, 120, 300, 600, 900, 1200, 1500)
+EMBED_CHAT_WORDS = (220, 140)
+EMBED_COSINE = 0.999
+EMBED_DIM = FLAGSHIP["hidden_size"]
+GUIDED_CLI_FLAGS = ["--decode-pipeline-depth", "2", "--multi-step-decode", "4",
+                    "--device-finish", "on", "--fused-epilogue", "on",
+                    "--guided-table-max-states", "128", "--spec-ngram-match", "2",
+                    "--no-device-stop-strings"]
+GUIDED_CLI_FIELDS = dict(decode_pipeline_depth=2, multi_step_decode=4,
+                         device_finish="on", fused_epilogue="on",
+                         guided_table_max_states=128, spec_ngram_match=2,
+                         device_stop_strings=False, guided_device_table=True,
+                         spec_ngram_tokens=0, sp_size=1)
+
+
+def _json_valid(obj, schema) -> bool:
+    """``obj`` against the schema subset guided decoding enforces
+    (object/required, string, number, integer, boolean, null, enum,
+    array); no JSON-schema package on the card."""
+    if schema is True or schema == {} or schema is None:
+        return True
+    if "enum" in schema:
+        return any(obj == v and type(obj) is type(v) for v in schema["enum"])
+    t = schema.get("type")
+    if t == "object" or (t is None and "properties" in schema):
+        props = schema.get("properties")
+        return (isinstance(obj, dict)
+                and set(schema.get("required", ())) <= set(obj)
+                and (props is None or (set(obj) <= set(props) and all(
+                    _json_valid(v, props[k]) for k, v in obj.items()))))
+    if t == "array":
+        return isinstance(obj, list) and all(
+            _json_valid(v, schema.get("items", True)) for v in obj)
+    checks = {"string": lambda o: isinstance(o, str),
+              "integer": lambda o: isinstance(o, int) and not isinstance(o, bool),
+              "number": lambda o: isinstance(o, (int, float))
+              and not isinstance(o, bool),
+              "boolean": lambda o: isinstance(o, bool),
+              "null": lambda o: o is None}
+    return checks[t](obj) if t in checks else True
+
+
+def _guided_verdict(text, finish, schema):
+    """A reply that finished ``stop`` parses and validates; one cut at
+    ``length`` is a legal prefix under a fresh walk of the grammar."""
+    from dynamo_tpu_torch.engine.guided import JsonGrammar
+
+    g = JsonGrammar([], schema)
+    state = g.run_piece(g.initial(), text)
+    if finish == "stop":
+        try:
+            obj = json.loads(text)
+        except ValueError as e:
+            raise AssertionError(f"guided reply does not parse: {text!r}: {e}")
+        if not _json_valid(obj, schema if schema is not None
+                           else {"type": "object"}):
+            raise AssertionError(f"guided reply fails its schema: {text!r}")
+        return "valid"
+    if finish != "length" or state is None:
+        raise AssertionError(f"guided reply ({finish}) is no legal prefix: "
+                             f"{text!r}")
+    return "prefix"
+
+
+class _SweepLog:
+    """Times every vocabulary sweep of a JSON grammar
+    (``JsonGrammar.transitions``) by the grammar and the thread it ran on:
+    the scheduler's loop (the main thread), a device-table compile, or the
+    serving build's first sweep (another executor thread)."""
+
+    def __init__(self):
+        import threading
+
+        from dynamo_tpu_torch.engine import guided
+
+        self.records = []
+        self.tls = threading.local()
+        self._guided = guided
+        self._orig = orig = guided.JsonGrammar.transitions
+        log = self
+
+        def timed(grammar, state):
+            t0 = time.monotonic()
+            out = orig(grammar, state)
+            t1 = time.monotonic()
+            where = getattr(log.tls, "where", None) or (
+                "loop" if threading.current_thread() is threading.main_thread()
+                else "build")
+            log.records.append((id(grammar), where, t0, t1, len(out)))
+            return out
+
+        guided.JsonGrammar.transitions = timed
+
+    def restore(self):
+        self._guided.JsonGrammar.transitions = self._orig
+
+    def hook_compiles(self, scheduler, outcomes):
+        """Record each device-table compile: its seconds, sweeps and table
+        (None: past the bound or the budget)."""
+        compile_table = scheduler._compile_guided_table
+        log = self
+
+        def timed(er):
+            log.tls.where = "compile"
+            t0 = time.monotonic()
+            try:
+                table = compile_table(er)
+            finally:
+                log.tls.where = None
+            outcomes.append(dict(
+                grammar=id(er.guided.grammar), seconds=time.monotonic() - t0,
+                n_states=None if table is None else table.n_states,
+                start=t0))
+            return table
+
+        scheduler._compile_guided_table = timed
+
+
+def _guided_requests(words_text):
+    """The leg A wave: 4 json_object and 4 json_schema chats (half greedy,
+    half seeded at GUIDED_TEMPERATURE), beside 2 unguided streams."""
+    def chat(content, **kw):
+        return dict(model="llama-3.2-1b-random", stream=True, logprobs=True,
+                    max_tokens=GUIDED_NEW_TOKENS,
+                    messages=[{"role": "user", "content": content}], **kw)
+
+    reqs = {}
+    for i, n in enumerate(GUIDED_PROMPT_WORDS):
+        kind = "object" if i < 4 else "schema"
+        samp = (dict(temperature=0.0) if i % 2 == 0 else
+                dict(temperature=GUIDED_TEMPERATURE, seed=GUIDED_SEED + i))
+        rf = ({"type": "json_object"} if kind == "object" else
+              {"type": "json_schema", "json_schema": {
+                  "name": "record", "schema": GUIDED_SCHEMA}})
+        reqs[f"{kind}{i}"] = chat(words_text(n), response_format=rf, **samp)
+    for i, n in enumerate(GUIDED_UNGUIDED_WORDS):
+        reqs[f"unguided{i}"] = chat(words_text(n), temperature=0.0,
+                                    ignore_eos=True)
+    return reqs
+
+
+def _guided_schema_of(body):
+    rf = body.get("response_format")
+    if not rf:
+        return "none", None
+    if rf["type"] == "json_object":
+        return "object", None
+    return "schema", rf["json_schema"]["schema"]
+
+
+def _largest_gap_over_sweeps(records, wave_t0, loop_sweeps):
+    """The unguided streams' largest inter-chunk gap that holds the end of
+    a sweep on the scheduler's loop, and their largest gap overall."""
+    worst, overall = 0.0, 0.0
+    for rec in records:
+        times = [wave_t0 + t for t in rec["times"]]
+        for a, b in zip(times, times[1:]):
+            overall = max(overall, b - a)
+            if any(a <= t1 <= b for _, _, _, t1, _ in loop_sweeps):
+                worst = max(worst, b - a)
+    return worst, overall
+
+
+async def _guided_leg_a(torch, model_dir, extra, mode, reqs, table_body, sweeps):
+    """One engine of leg A (``mode`` "sync" or "chained"), served over HTTP:
+    the wave, then the device-table grammar's requests alone. With the
+    chained engine also leg B. Returns the answers and the engine's
+    numbers."""
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
+
+    kw = dict(GUIDED_SERVER, **(GUIDED_CHAIN if mode == "chained" else {}))
+    t0 = time.monotonic()
+    pipe, _ = await run.build_engine("torch", _cli_flags(model_dir, extra, **kw))
+    build_s = time.monotonic() - t0
+    core = pipe.core_engine
+    outcomes = []
+    sweeps.hook_compiles(core.scheduler, outcomes)
+    manager = ModelManager()
+    manager.add_chat_model("llama-3.2-1b-random", pipe)
+    manager.add_completion_model("llama-3.2-1b-random", pipe)
+    service = HttpService(manager, "127.0.0.1", 0)
+    service.metrics.register_callback_gauges("dynamo_engine", core.metrics)
+    await service.start()
+    port = service.port
+    out = dict(mode=mode, build_s=build_s)
+    try:
+        # the wave: unguided streams first (they hold their slots), then
+        # the guided chats at once; the first guided request builds the
+        # piece table and its grammar
+        _reset_launches()
+        n0 = len(sweeps.records)
+        wave_t0 = time.monotonic()
+        sent = {name: asyncio.ensure_future(http_request(
+            port, "POST", "/v1/chat/completions", body,
+            headers={"X-Request-Id": f"{mode}-{name}"}))
+            for name, body in reqs.items()}
+        answers = dict(zip(sent, await _guarded(
+            asyncio.gather(*sent.values()), core)))
+        out["wave_s"] = time.monotonic() - wave_t0
+        out["wave_t0"] = wave_t0
+        out["answers"] = answers
+        out["wave_sweeps"] = sweeps.records[n0:]
+        # the device-table grammar: one request compiles its table, then
+        # GUIDED_TABLE_REQUESTS together, counted from 0
+        table_reqs = [dict(table_body, messages=[{"role": "user", "content": c}])
+                      for c in ("list some flags", "more flags please",
+                                "flags again")]
+        await _guarded(http_request(port, "POST", "/v1/chat/completions",
+                                    table_reqs[0]), core)
+        before = _read_launches()
+        table_answers = await _guarded(asyncio.gather(*(
+            http_request(port, "POST", "/v1/chat/completions", b)
+            for b in table_reqs[1: 1 + GUIDED_TABLE_REQUESTS])), core)
+        after = _read_launches()
+        out["table_answers"] = table_answers
+        out["table_extra_bias"] = (after["epilogue_extra_bias"]
+                                   - before["epilogue_extra_bias"])
+        out["launches"] = after
+        out["metrics"] = core.metrics()
+        out["outcomes"] = outcomes
+        out["grammars"] = {key: id(g) for key, g in core._json_grammars.items()
+                           if not asyncio.isfuture(g)}
+        if mode == "chained":
+            out["bound_checks"] = _guided_bound_checks(core, sweeps)
+        out["piece_table_s"] = core.piece_table_s
+        if mode == "chained":
+            out["leg_b"] = await _guided_leg_b(torch, port, core)
+    finally:
+        await service.stop()
+        await pipe.close()
+    return out
+
+
+def _guided_bound_checks(core, sweeps):
+    """Each grammar of the engine compiled once more, off the engine, at the
+    reference's bound and budget (``max_states`` 256, ``budget_s`` 2.0):
+    whether its table fits, its state count and the seconds it took. The
+    scheduler stops at the first row it cannot chain, so a grammar behind
+    another's fallback is never compiled by the engine itself."""
+    from dynamo_tpu_torch.engine.guided import JsonConstraint, compile_device_table
+
+    out = {}
+    eos = 128009  # write_model_dir's eos_token_id, <|eot_id|>
+    for key, g in core._json_grammars.items():
+        if asyncio.isfuture(g):
+            continue
+        n0 = len(sweeps.records)
+        sweeps.tls.where = "bound_check"
+        t0 = time.monotonic()
+        try:
+            table = compile_device_table(JsonConstraint(g),
+                                         core.config.model.vocab_size, [eos])
+        finally:
+            sweeps.tls.where = None
+        secs = time.monotonic() - t0
+        n = len(sweeps.records) - n0
+        out[id(g)] = dict(
+            outcome="compiled" if table is not None else (
+                "past_budget" if secs >= 2.0 else "past_bound"),
+            n_states=None if table is None else table.n_states,
+            states_swept=n, seconds=secs,
+            seconds_a_state=secs / n if n else None)
+    return out
+
+
+async def _guided_leg_b(torch, port, core):
+    """/v1/embeddings while 2 greedy chat streams decode: the chats first
+    alone, then again beside 8 embedding requests (4 strings, 4 token-id
+    lists of 16 to 1,500 tokens)."""
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+
+    tok = HFTokenizer.from_pretrained_dir(core._model_path)
+    words = _word_ids(tok)
+    rng = np.random.default_rng(GUIDED_SEED + 1)
+
+    def word_ids(n):
+        return [words[int(i)] for i in rng.integers(0, len(words), n)]
+
+    chats = [dict(model="llama-3.2-1b-random", stream=True, logprobs=True,
+                  max_tokens=GUIDED_NEW_TOKENS, temperature=0.0, ignore_eos=True,
+                  messages=[{"role": "user", "content": tok.decode(word_ids(n))}])
+             for n in EMBED_CHAT_WORDS]
+    inputs = [tok.decode(word_ids(n)) if i % 2 == 0 else word_ids(n)
+              for i, n in enumerate(EMBED_INPUT_TOKENS)]
+    alone = await _guarded(asyncio.gather(*(
+        http_request(port, "POST", "/v1/chat/completions", c) for c in chats)),
+        core)
+    streams = [asyncio.ensure_future(http_request(
+        port, "POST", "/v1/chat/completions", c)) for c in chats]
+    while core.metrics()["request_active_slots"] < len(chats):
+        await asyncio.sleep(0.01)
+
+    async def embed(inp):
+        t0 = time.monotonic()
+        ans = await http_request(port, "POST", "/v1/embeddings", dict(
+            model="llama-3.2-1b-random", input=inp))
+        return ans, time.monotonic() - t0
+
+    embeds = await _guarded(asyncio.gather(*(embed(i) for i in inputs)), core)
+    beside = await _guarded(asyncio.gather(*streams), core)
+    ids = [tok.encode(i) if isinstance(i, str) else i for i in inputs]
+    short = [int(i) for i in np.argsort([len(x) for x in ids])[:2]]
+    return dict(alone=alone, beside=beside, embeds=embeds,
+                tokens=[len(x) for x in ids], short=short,
+                reference=_embed_reference(torch, core, [ids[i] for i in short]))
+
+
+def _embed_reference(torch, core, inputs):
+    """``inputs``' vectors from an f32 copy of the engine's weights through
+    the plain route on the CPU (``llama.embed_forward``), L2-normalised."""
+    from dynamo_tpu_torch.models import llama
+
+    runner = core.runner
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float().cpu()
+                for k, v in tree.items()}
+
+    params = f32(runner.params)
+    out = []
+    for ids in inputs:
+        n = len(ids)
+        t = torch.tensor([ids], dtype=torch.int64)
+        pos = torch.arange(n, dtype=torch.int64)[None]
+        v = llama.embed_forward(params, runner.config.model, t, pos,
+                                torch.tensor([n]))[0].numpy().astype(np.float64)
+        out.append(v / np.linalg.norm(v))
+    return out
+
+
+def engine_guided_phase(torch, dev, smi):
+    """Guided JSON and /v1/embeddings on the card (the module docstring's
+    ``engine_guided``)."""
+    import tempfile
+
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+
+    tmp = tempfile.TemporaryDirectory(prefix="engine_guided_")
+    model_dir = write_model_dir(Path(tmp.name) / "llama-3.2-1b-random")
+    extra = Path(tmp.name) / "extra.json"
+    extra.write_text(json.dumps(GUIDED_EXTRA))
+    tok = HFTokenizer.from_pretrained_dir(model_dir)
+    words = _word_ids(tok)
+    rng = np.random.default_rng(GUIDED_SEED)
+
+    def words_text(n):
+        return tok.decode([words[int(i)] for i in rng.integers(0, len(words), n)])
+
+    reqs = _guided_requests(words_text)
+    table_body = dict(model="llama-3.2-1b-random", stream=True, logprobs=True,
+                      max_tokens=GUIDED_NEW_TOKENS, temperature=0.0,
+                      response_format={"type": "json_schema", "json_schema": {
+                          "name": "flags", "schema": GUIDED_TABLE_SCHEMA}})
+    sweeps = _SweepLog()
+    try:
+        legs = {mode: asyncio.run(_guided_leg_a(
+            torch, model_dir, str(extra), mode, reqs, table_body, sweeps))
+            for mode in ("sync", "chained")}
+    finally:
+        sweeps.restore()
+
+    # ---- leg A: validity, determinism, tables, costs
+    verdicts, per_leg = {}, {}
+    for mode, leg in legs.items():
+        recs = {}
+        for name, (status, _, raw, events) in leg["answers"].items():
+            if status != 200:
+                raise AssertionError(f"{mode} {name}: HTTP {status}: {raw[:300]}")
+            recs[name] = _stream_record(events, True)
+            recs[name]["times"] = [t for t, c in events if c and c.get(
+                "choices") and ((c["choices"][0].get("delta") or {}).get("content")
+                                or c["choices"][0].get("logprobs"))]
+            kind, schema = _guided_schema_of(reqs[name])
+            if kind == "none":
+                if (recs[name]["finish"] != "length"
+                        or len(recs[name]["tokens"]) != GUIDED_NEW_TOKENS):
+                    raise AssertionError(f"{mode} {name}: {recs[name]['finish']}, "
+                                         f"{len(recs[name]['tokens'])} tokens")
+                continue
+            verdicts[(mode, name)] = _guided_verdict(
+                recs[name]["text"], recs[name]["finish"], schema)
+        for status, _, raw, events in leg["table_answers"]:
+            if status != 200:
+                raise AssertionError(f"{mode} table request: HTTP {status}")
+            rec = _stream_record(events, True)
+            verdicts[(mode, "table")] = _guided_verdict(
+                rec["text"], rec["finish"], GUIDED_TABLE_SCHEMA)
+        leg["records"] = recs
+        leg["table_texts"] = [_stream_record(e, True)["text"]
+                              for _, _, _, e in leg["table_answers"]]
+    for name, body in reqs.items():
+        if body.get("response_format") and body["temperature"] == 0.0:
+            a, b = legs["sync"]["records"][name], legs["chained"]["records"][name]
+            if (a["tokens"], a["finish"]) != (b["tokens"], b["finish"]):
+                raise AssertionError(
+                    f"{name}: the greedy guided stream differs between the "
+                    f"synchronous and the chained engine: {a['text']!r} vs "
+                    f"{b['text']!r}")
+    if legs["sync"]["table_texts"] != legs["chained"]["table_texts"]:
+        raise AssertionError("the device-table grammar's streams differ: "
+                             f"{legs['sync']['table_texts']} vs "
+                             f"{legs['chained']['table_texts']}")
+    chained = legs["chained"]
+    launches = chained["launches"]
+    _check_launches("guided", launches, ("paged_decode", "paged_flash", "epilogue"))
+    if chained["table_extra_bias"] <= 0:
+        raise AssertionError("the device table's grammar never launched the "
+                             "epilogue's extra_bias form on the chained engine")
+    if legs["sync"]["table_extra_bias"]:
+        raise AssertionError("the synchronous engine launched extra_bias")
+    tables = {}
+    for mode, leg in legs.items():
+        names = {gid: key for key, gid in leg["grammars"].items()}
+        label = {json.dumps({"type": "json_object"}, sort_keys=True): "object"}
+        for key in names.values():
+            spec = json.loads(key)
+            if spec.get("schema") == GUIDED_SCHEMA:
+                label[key] = "schema"
+            elif spec.get("schema") == GUIDED_TABLE_SCHEMA:
+                label[key] = "bool_array"
+        for gid, key in names.items():
+            mine = [r for r in sweeps.records if r[0] == gid]
+            comp = [o for o in leg["outcomes"] if o["grammar"] == gid]
+            tables[f"{mode}/{label.get(key, key)}"] = dict(
+                engine_compiles=[(
+                    "compiled" if o["n_states"] is not None else
+                    ("past_budget" if o["seconds"] >= 2.0 else "past_bound"),
+                    o["n_states"], o["seconds"]) for o in comp],
+                compile_sweeps=sum(1 for r in mine if r[1] == "compile"),
+                at_reference_bound=leg.get("bound_checks", {}).get(gid),
+                sweep_s_a_state=(float(np.mean([r[3] - r[2] for r in mine
+                                                if r[1] != "bound_check"]))
+                                 if mine else None),
+                loop_sweeps=sum(1 for r in mine if r[1] == "loop"),
+                loop_sweep_max_s=max([r[3] - r[2] for r in mine
+                                      if r[1] == "loop"] or [0.0]))
+        loop_sweeps = [r for r in leg["wave_sweeps"] if r[1] == "loop"]
+        unguided = [leg["records"][n] for n in reqs if n.startswith("unguided")]
+        worst, overall = _largest_gap_over_sweeps(unguided, leg["wave_t0"],
+                                                  loop_sweeps)
+        guided_ttfts = {n: leg["records"][n]["ttft_s"] for n in reqs
+                        if not n.startswith("unguided")}
+        first = min(guided_ttfts.values())
+        per_leg[mode] = dict(
+            build_s=leg["build_s"], wave_s=leg["wave_s"],
+            piece_table_s=leg["piece_table_s"],
+            guided_ttft_s=guided_ttfts,
+            unguided_ttft_s=[r["ttft_s"] for r in unguided],
+            first_guided_extra_ttft_s=first - min(r["ttft_s"] for r in unguided),
+            unguided_itl_median_s=float(np.median([r["itl_median_s"]
+                                                   for r in unguided])),
+            unguided_gap_max_s=overall, unguided_gap_over_loop_sweep_s=worst,
+            loop_sweeps=len(loop_sweeps),
+            loop_sweep_s=sum(r[3] - r[2] for r in loop_sweeps),
+            sync_fallback=leg["metrics"].get("sync_fallback"),
+            chain_len_max=leg["metrics"].get("chain_len_max"),
+            table_extra_bias_launches=leg["table_extra_bias"],
+            verdicts={n: v for (m, n), v in verdicts.items() if m == mode})
+
+    # ---- leg B: embeddings beside two decoding chats
+    leg_b = chained["leg_b"]
+    for (a, b) in zip(leg_b["alone"], leg_b["beside"]):
+        ra, rb = _stream_record(a[3], True), _stream_record(b[3], True)
+        if a[0] != 200 or b[0] != 200 or ra["tokens"] != rb["tokens"]:
+            raise AssertionError("a chat stream changed beside the embeddings: "
+                                 f"{ra['text']!r} vs {rb['text']!r}")
+    embed_s, vecs = [], []
+    for ((status, _, raw, _), secs), n_tok in zip(leg_b["embeds"],
+                                                   leg_b["tokens"]):
+        if status != 200:
+            raise AssertionError(f"/v1/embeddings: HTTP {status}: {raw[:300]}")
+        body = json.loads(raw)
+        v = np.asarray(body["data"][0]["embedding"], np.float64)
+        if (v.shape != (EMBED_DIM,) or abs(np.linalg.norm(v) - 1) > 1e-4
+                or not np.isfinite(v).all()):
+            raise AssertionError(f"an embedding of shape {v.shape}, norm "
+                                 f"{np.linalg.norm(v)}")
+        if body["usage"] != {"prompt_tokens": n_tok, "total_tokens": n_tok}:
+            raise AssertionError(f"usage {body['usage']} for {n_tok} tokens")
+        embed_s.append(secs)
+        vecs.append(v)
+    # two short inputs against an f32 copy of the engine's weights on the CPU
+    cos = [float(ref @ vecs[i] / np.linalg.norm(vecs[i]))
+           for i, ref in zip(leg_b["short"], leg_b["reference"])]
+    if min(cos) < EMBED_COSINE:
+        raise AssertionError(f"embeddings against the f32 CPU forward: cosine "
+                             f"{cos} < {EMBED_COSINE}")
+
+    # ---- leg C: the CLI with the mapped engine flags
+    cli = _guided_cli(model_dir, str(extra))
+    tmp.cleanup()
+    emit("engine_guided", model="Llama-3.2-1B shapes, seeded random bf16 "
+         "weights, synthetic 128,256-id byte-level BPE", server=GUIDED_SERVER,
+         chained=GUIDED_CHAIN, legs=per_leg, tables=tables,
+         embed=dict(input_tokens=list(leg_b["tokens"]), embed_s=embed_s,
+                    cosine_vs_cpu_f32=cos, dim=EMBED_DIM,
+                    chats_alone_ttft_s=[_stream_record(a[3], True)["ttft_s"]
+                                        for a in leg_b["alone"]],
+                    chats_beside_gap_max_s=[
+                        _stream_record(b[3], True)["itl_max_s"]
+                        for b in leg_b["beside"]]),
+         launches=launches, cli=cli, card=smi)
+    return dict(paged_decode=launches["paged_decode"],
+                paged_flash=launches["paged_flash"],
+                sampling_epilogue=launches["epilogue"] - launches["epilogue_finish"],
+                sampling_epilogue_finish=launches["epilogue_finish"])
+
+
+def _guided_cli(model_dir, extra_path):
     """``python3 -m dynamo_tpu_torch.cli.run in=http out=torch`` as a user
-    starts it (on the card by default): wait for /health, one chat
-    request, SIGINT, exit code 0."""
+    starts it (on the card by default), with the mapped engine flags: the
+    flags give the reference's EngineConfig fields, and the server reaches
+    /health, chains a chat, serves a guided reply and an embedding, and
+    exits 0 on SIGINT."""
     import signal
 
-    args = [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "in=http",
-            "out=torch", "--model-path", model_dir, "--allow-random-weights",
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.serving import engine_config_from_mdc
+
+    base = ["--model-path", model_dir, "--allow-random-weights",
             "--extra-engine-args", extra_path, "--max-model-len", "2048",
             "--num-kv-blocks", "1024", "--http-host", "127.0.0.1",
-            "--http-port", "0"]
+            "--http-port", "0"] + (["--device", "cpu"]
+                                   if HTTP_DEVICE == "cpu" else [])
+    flags = run.parse_flags(base + GUIDED_CLI_FLAGS)
+    cfg = engine_config_from_mdc(run.load_mdc(flags), flags)
+    fields = {k: getattr(cfg, k) for k in GUIDED_CLI_FIELDS}
+    if fields != GUIDED_CLI_FIELDS:
+        raise AssertionError(f"the CLI's flags gave {fields}")
     t0 = time.monotonic()
-    proc = subprocess.Popen(args, cwd=str(ROOT), stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "in=http",
+         "out=torch"] + base + GUIDED_CLI_FLAGS,
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         line = ""
         while "listening on" not in line:
@@ -5949,21 +6523,43 @@ def _cli_run(model_dir, extra_path):
 
         async def ask():
             h = await http_request(port, "GET", "/health")
-            r = await http_request(port, "POST", "/v1/chat/completions", dict(
-                model="llama-3.2-1b-random", max_tokens=8, temperature=0.0,
+            chat = await http_request(port, "POST", "/v1/chat/completions", dict(
+                model="llama-3.2-1b-random", max_tokens=16, temperature=0.0,
+                ignore_eos=True,
                 messages=[{"role": "user", "content": "hello there"}]))
-            return h, r
-        (h_status, _, _, _), (status, _, raw, _) = asyncio.run(ask())
-        body = json.loads(raw)
-        if h_status != 200 or status != 200 or body["usage"]["completion_tokens"] < 1:
-            raise AssertionError(f"the CLI answered {h_status} / {status}: {raw[:300]}")
+            guided = await http_request(port, "POST", "/v1/chat/completions", dict(
+                model="llama-3.2-1b-random", max_tokens=24, temperature=0.0,
+                response_format={"type": "json_object"},
+                messages=[{"role": "user", "content": "json please"}]))
+            emb = await http_request(port, "POST", "/v1/embeddings", dict(
+                model="llama-3.2-1b-random", input=["hello there", "json"]))
+            m = await http_request(port, "GET", "/metrics")
+            return h, chat, guided, emb, m
+        h, chat, guided_ans, emb, m = asyncio.run(ask())
+        if h[0] != 200 or json.loads(h[2])["status"] != "ok":
+            raise AssertionError(f"/health: {h[0]} {h[2][:200]}")
+        for name, ans in (("chat", chat), ("guided", guided_ans),
+                          ("embeddings", emb)):
+            if ans[0] != 200:
+                raise AssertionError(f"the CLI's {name}: HTTP {ans[0]}: "
+                                     f"{ans[2][:300]}")
+        if json.loads(chat[2])["usage"]["completion_tokens"] < 1:
+            raise AssertionError(f"the CLI's chat: {chat[2][:300]}")
+        gbody = json.loads(guided_ans[2])
+        verdict = _guided_verdict(gbody["choices"][0]["message"]["content"],
+                                  gbody["choices"][0]["finish_reason"], None)
+        bursts = _metric(m[2].decode(), "dynamo_engine_decode_pipeline_bursts")
+        if bursts <= 0:
+            raise AssertionError("the CLI's engine never chained a burst")
+        if len(json.loads(emb[2])["data"]) != 2:
+            raise AssertionError("the CLI's embeddings answer has no 2 rows")
         proc.send_signal(signal.SIGINT)
         rc = proc.wait(timeout=60)
         if rc != 0:
             raise AssertionError(f"the CLI exited {rc} on SIGINT: "
                                  f"{proc.stderr.read()[-3000:]}")
-        return dict(startup_s=startup_s, exit_code=rc,
-                    completion_tokens=body["usage"]["completion_tokens"],
+        return dict(startup_s=startup_s, fields=fields, guided=verdict,
+                    pipeline_bursts=bursts, exit_code=rc,
                     total_s=time.monotonic() - t0)
     finally:
         if proc.poll() is None:
@@ -6170,11 +6766,12 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids):
     launches1 = {i: s["data"]["launches"] for i, s in (await wstats()).items()}
     turns = {"kv": [kv], "round_robin": [], "kv_one_by_one": [],
              "round_robin_one_by_one": []}
-    for mode in ("round_robin", "round_robin", "kv"):  # in turns: kv rr rr kv
+    for mode in ("round_robin", "round_robin"):  # in turns after the kv wave
         turns[mode].append(await wave(mode))
     # the followers one after another: the prefix hit without three
-    # followers meeting in one worker's steps
-    for mode in ("kv", "round_robin", "round_robin", "kv"):
+    # followers meeting in one worker's steps (two kv waves fewer than
+    # before, at once and one by one: the script's time limit)
+    for mode in ("kv", "round_robin", "round_robin"):
         turns[f"{mode}_one_by_one"].append(await wave(mode, at_once=False))
 
     # the cluster KV fabric's counters after the waves: the round-robin
@@ -6275,9 +6872,9 @@ def engine_graph_phase(torch, dev, smi):
     with GRAPH_FOLLOWERS + 1 unique 64-token tails: the leader alone, the
     followers at once once the router's index holds every event the workers
     published (the processor's and the workers' stats scrape: observable
-    state, no sleeps). One kv wave is checked; then rr, rr, kv waves in
-    turns time the followers' TTFT under each mode, and kv, rr, rr, kv
-    waves with the followers sent one by one. Then a seeded sampled
+    state, no sleeps). One kv wave is checked; it and rr, rr waves time the
+    followers' TTFT under each mode, and kv, rr, rr waves with the
+    followers sent one by one. Then a seeded sampled
     request straight to each worker, at once (in turn, the second would
     pull the first's prefix and compute only its tail, on another kernel
     route), a 12,000-token prefill on one, and
@@ -6560,7 +7157,7 @@ DISAGG_WORKER_FLAGS = ["--max-model-len", "16384", "--num-kv-blocks", "2048",
                        "--kv-block-size", "16"]
 DISAGG_PREFILL_EXTRA = dict(sp_size=4, long_prefill_threshold_tokens=4096,
                             max_prefill_tokens_per_step=512)
-DISAGG_TURNS = ("remote", "local", "remote", "local")
+DISAGG_TURNS = ("remote", "local")
 DISAGG_SHORT = (100, 250, 420, 600)   # words of the 4 streamed chats
 DISAGG_SHORT_NEW = 128
 DISAGG_LONG = (12000, 3000)           # words of the two long prompts
@@ -6770,8 +7367,8 @@ async def _disagg_ask(port, body, tok):
 
 
 async def _disagg_traffic(port, store, tok, words_text):
-    """The four turns through the frontend, switched by the router's
-    discovery key, with the workers' stats scraped around each."""
+    """The turns through the frontend (``DISAGG_TURNS``), switched by the
+    router's discovery key, with the workers' stats scraped around each."""
     from dynamo_tpu_torch.disagg import DisaggRouter
     from dynamo_tpu_torch.runtime.client import Client
     from dynamo_tpu_torch.runtime.component import DistributedRuntime
@@ -6897,7 +7494,7 @@ def engine_disagg_phase(torch, dev, smi):
     a prefill worker (``in=prefill``; ``sp_size`` 4 and
     ``long_prefill_threshold_tokens`` 4,096 through
     ``--extra-engine-args``); a KV-routing processor; an ``in=http
-    out=none`` frontend. Four turns, remote, local, remote, local, switched
+    out=none`` frontend. Two turns, remote then local, switched
     by publishing the ``DisaggRouter`` key (1,000 / 100,000) with no role
     restarted: 4 streamed greedy chats of 100-600 words (128 new tokens),
     0.5 s later a 12,000- and a 3,000-word prompt (32 new tokens), then the
@@ -8274,8 +8871,8 @@ def _engine_load(torch, dev, smi, tmp):
 
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
-          "engine_mixtral_int8", "engine_sp", "engine_http", "engine_graph",
-          "engine_disagg", "engine_kv_tiers", "engine_load")
+          "engine_mixtral_int8", "engine_sp", "engine_http", "engine_guided",
+          "engine_graph", "engine_disagg", "engine_kv_tiers", "engine_load")
 
 
 def main(argv=None) -> int:
@@ -8316,9 +8913,11 @@ def main(argv=None) -> int:
          ptxas={n: _ptxas_summary(log) for n, log in _build.build_log.items()})
     torch.cuda.synchronize()
 
-    entries, launches = {}, {}
+    entries, launches, phase_s = {}, {}, {}
     if "kernels" in phases:
+        t0 = time.monotonic()
         entries = kernel_phase(torch, dev)
+        phase_s["kernels"] = time.monotonic() - t0
         torch.cuda.synchronize()
     for name, phase in (("engine", engine_phase),
                         ("engine_chain", engine_chain_phase),
@@ -8333,21 +8932,37 @@ def main(argv=None) -> int:
                                            cell="mixtral_int8")),
                         ("engine_sp", engine_sp_phase)):
         if name in phases:
+            t0 = time.monotonic()
             launches.update(phase(torch, dev, smi))
+            phase_s[name] = time.monotonic() - t0
             torch.cuda.synchronize()
             gc.collect()  # the phase's weights and caches go first
             torch.cuda.empty_cache()
     http_launches = {}
     if "engine_http" in phases:
         # the OpenAI front's path: its own counts, beside the main path's
+        t0 = time.monotonic()
         http_launches = engine_http_phase(torch, dev, smi)
+        phase_s["engine_http"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+    guided_launches = {}
+    if "engine_guided" in phases:
+        # guided JSON and /v1/embeddings behind the front: the chained
+        # engine's own counts
+        t0 = time.monotonic()
+        guided_launches = engine_guided_phase(torch, dev, smi)
+        phase_s["engine_guided"] = time.monotonic() - t0
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
     graph_launches = {}
     if "engine_graph" in phases:
         # the inference graph's workers (subprocesses): their own counts
+        t0 = time.monotonic()
         graph_launches = engine_graph_phase(torch, dev, smi)
+        phase_s["engine_graph"] = time.monotonic() - t0
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
@@ -8355,7 +8970,9 @@ def main(argv=None) -> int:
     if "engine_disagg" in phases:
         # the disaggregated pair (the CLI path's two workers; leg A's fp8
         # forms): their own counts
+        t0 = time.monotonic()
         disagg_launches = engine_disagg_phase(torch, dev, smi)
+        phase_s["engine_disagg"] = time.monotonic() - t0
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
@@ -8363,12 +8980,16 @@ def main(argv=None) -> int:
     if "engine_kv_tiers" in phases:
         # the KV tiers' engines (host restore, cold pull and rehydrate; the
         # e4m3 engine's fp8 forms): their own counts
+        t0 = time.monotonic()
         tiers_launches = engine_kv_tiers_phase(torch, dev, smi)
+        phase_s["engine_kv_tiers"] = time.monotonic() - t0
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
     if "engine_load" in phases:
+        t0 = time.monotonic()
         launches.update(engine_load_phase(torch, dev, smi))
+        phase_s["engine_load"] = time.monotonic() - t0
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
@@ -8376,6 +8997,8 @@ def main(argv=None) -> int:
     kernels = [dict(entry, launches=launches.get(key),
                     **({"launches_engine_http": http_launches[key]}
                        if key in http_launches else {}),
+                    **({"launches_engine_guided": guided_launches[key]}
+                       if key in guided_launches else {}),
                     **({"launches_engine_graph": graph_launches[key]}
                        if key in graph_launches else {}),
                     **({"launches_engine_disagg": disagg_launches[key]}
@@ -8388,7 +9011,8 @@ def main(argv=None) -> int:
     if not partial and any(k["launches"] is None and "path" not in k
                            for k in kernels):
         raise AssertionError(f"a kernel has no launch count: {kernels}")
-    emit("done", seconds=time.monotonic() - t_start, phases=phases)
+    emit("done", seconds=time.monotonic() - t_start, phases=phases,
+         phase_s=phase_s)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, **({"partial": phases} if partial else {}),

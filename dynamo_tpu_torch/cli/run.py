@@ -84,20 +84,16 @@ ENGINES = ("torch", "echo_core", "echo_full", "none", "processor")
 ROUTER_MODES = ("round_robin", "random", "kv")
 GRACEFUL_SHUTDOWN_S = 30.0
 
-# the reference's flags this CLI does not take (each raises by name): the
-# engine knobs among them are EngineConfig fields that --extra-engine-args
-# sets; the rest (multi-device, the ici transfer plane, recovery,
-# planning, tenants, telemetry sidecars) are not ported
+# the reference's flags this CLI does not take (each raises by name):
+# multi-device, draft models, the ici transfer plane, recovery, planning,
+# tenants and telemetry sidecars are not ported
 REFUSED_FLAGS = (
     "--tensor-parallel-size", "--expert-parallel-size",
     "--data-parallel-size", "--pipeline-parallel-size",
-    "--sequence-parallel-size", "--isolate-engine",
+    "--isolate-engine",
     "--engine-heartbeat-s", "--engine-heartbeat-misses",
-    "--engine-init-timeout-s", "--multi-step-decode",
-    "--device-finish", "--fused-epilogue", "--guided-table-max-states",
-    "--no-guided-device-table", "--no-device-stop-strings",
-    "--spec-ngram-tokens",
-    "--spec-draft-model", "--spec-draft-tokens", "--spec-ngram-match",
+    "--engine-init-timeout-s",
+    "--spec-draft-model", "--spec-draft-tokens",
     "--ici-sender-rank", "--ici-receiver-rank", "--num-nodes", "--node-rank",
     "--leader-addr", "--profile-dir", "--profiler-port", "--flight-dir",
     "--watchdog-stall-s", "--self-heal", "--drain-grace-s", "--respawn-max",
@@ -146,6 +142,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSON file of ModelConfig / EngineConfig fields")
     p.add_argument("--decode-pipeline-depth", type=int, default=1,
                    help="2 = dispatch-ahead and chained decode loop")
+    # the engine's decode knobs, as the reference's parser names them
+    p.add_argument("--multi-step-decode", type=int, default=1,
+                   help="decode steps fused per device dispatch (tokens "
+                        "stream in bursts of K; 1 = per-token)")
+    p.add_argument("--device-finish", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="device-resident finish detection: bursts chain back "
+                        "to back and finished rows freeze on the device. "
+                        "auto = follow --decode-pipeline-depth >= 2")
+    p.add_argument("--fused-epilogue", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="the fused sampling epilogue kernel: auto = on a "
+                        "card, the unfused tail on the CPU")
+    p.add_argument("--guided-table-max-states", type=int, default=256,
+                   help="state bound for compiling guided grammars to device "
+                        "transition tables (larger ones keep the host path, "
+                        "counted in sync_fallback)")
+    p.add_argument("--no-guided-device-table", action="store_true",
+                   help="guided rows keep the per-token host mask path")
+    p.add_argument("--no-device-stop-strings", action="store_true",
+                   help="stop-string rows keep the per-burst sync path")
+    p.add_argument("--spec-ngram-tokens", type=int, default=0,
+                   help="ngram speculative decoding: propose up to K tokens "
+                        "per step from the context's own history (greedy "
+                        "requests; 0 = off)")
+    p.add_argument("--spec-ngram-match", type=int, default=3,
+                   help="trailing n-gram length the proposer looks up")
+    p.add_argument("--sequence-parallel-size", type=int, default=1,
+                   help="sequence-parallel ranks of the long-prompt prefill "
+                        "ladder (laid out on the one card)")
     p.add_argument("--quantization", choices=["int8"], default=None)
     p.add_argument("--kv-cache-dtype", choices=["auto", "fp8"],
                    default="auto",
@@ -279,9 +305,13 @@ async def build_engine(engine_spec: str, flags):
         raise SystemExit("out=processor is a worker role: give it "
                          "in=dyn://ns.comp.ep")
     if engine_spec == "echo_full":
+        from ..llm.embeddings import EchoEmbedder
         from ..llm.engines.echo import EchoEngineFull
 
-        return EchoEngineFull(), None
+        engine = EchoEngineFull()
+        # the echo stack serves /v1/embeddings too (hash-seeded vectors)
+        engine.embedder = EchoEmbedder()
+        return engine, None
     from ..llm.backend import Backend
     from ..llm.preprocessor import OpenAIPreprocessor
     from ..llm.tokenizer import HFTokenizer
@@ -300,6 +330,13 @@ async def build_engine(engine_spec: str, flags):
     if hasattr(core, "metrics"):
         # surfaced on /metrics as dynamo_engine_* gauges (run_http)
         pipe.engine_metrics = core.metrics
+    if getattr(core, "embed_ready", False) and hasattr(core, "embed"):
+        # /v1/embeddings rides this engine's cacheless embed trunk
+        from ..llm.embeddings import Embedder
+
+        pipe.embedder = Embedder(
+            tokenizer, core, max_model_len=core.config.max_model_len,
+            vocab_size=core.config.model.vocab_size)
     return pipe, mdc
 
 
@@ -408,7 +445,8 @@ async def run_text(flags, engine, mdc) -> None:
 def _kernel_launches() -> dict:
     """Each kernel wrapper's launch count in this process (its bf16 form's
     where it has an fp8 one, which counts as ``<module>_fp8``; the
-    epilogue's ``finish`` form as ``epilogue_finish``)."""
+    epilogue's ``finish`` and ``extra_bias`` forms as ``epilogue_finish``
+    and ``epilogue_extra_bias``)."""
     import importlib
 
     out = {}
@@ -420,6 +458,8 @@ def _kernel_launches() -> dict:
             out[f"{name}_fp8"] = mod.launches_fp8
         if hasattr(mod, "launches_finish"):
             out[f"{name}_finish"] = mod.launches_finish
+        if hasattr(mod, "launches_extra_bias"):
+            out[f"{name}_extra_bias"] = mod.launches_extra_bias
     return out
 
 

@@ -25,9 +25,10 @@ prefill chunk (``sp_prefill_chunk``: one fixed ``[1, S]`` shape, the ``sp``
 ranks laid out on the one device). The block ops (``gather_blocks_device``,
 ``blocks_to_host``, ``scatter_blocks``) move whole KV blocks of the cache
 pair in and out for the disaggregated transfer, ordered on the runner's
-stream with its programs. Not in this slice (later work): the chained
-propose-verify round, draft-model speculation, embeddings, CUDA graphs and
-compile tracking.
+stream with its programs. ``embed_prompts`` runs the cacheless embed
+trunk for /v1/embeddings (Llama-family dense trunks, as in the reference).
+Not in this slice (later work): the chained propose-verify round,
+draft-model speculation, CUDA graphs and compile tracking.
 """
 
 from __future__ import annotations
@@ -789,6 +790,54 @@ class ModelRunner:
                 gstate = torch.where(adv & guided, gnext, gstate)
         toks_o, lps_o, tvs, tis = (torch.stack(parts) for parts in zip(*outs))
         return toks_o, lps_o, tvs, tis, (toks, pos, gen, done, ring, gstate)
+
+    @property
+    def embed_ready(self) -> bool:
+        """Can this runner serve the embeddings workload? Llama-family GQA
+        dense trunks without sliding windows (``embed_forward`` runs the
+        cacheless dense-attention trunk)."""
+        cfg = self.config.model
+        return (self.arch is llama and not cfg.sliding_window
+                and not cfg.num_experts and not cfg.kv_lora_rank
+                and self.config.pp_size == 1)
+
+    @torch.inference_mode()
+    def embed_prompts(self, prompts) -> np.ndarray:
+        """Batched prefill-only embeddings: prompts → [n, D] float32.
+
+        Rows pad to the PREFILL_ROW_BUCKETS ladder and lengths to the
+        prefill bucket ladder, as the batched prefill does, but through the
+        CACHELESS trunk (``llama.embed_forward``): no block allocation, no
+        KV writes, no decode slot. Blocking (the vectors are read back to
+        the host); callers on an event loop run it in an executor."""
+        if not self.embed_ready:
+            raise ValueError(
+                "embeddings are served by llama-family GQA dense trunks "
+                "only (no MoE/MLA/sliding-window embed path yet)")
+        cfg = self.config
+        out = np.zeros((len(prompts), cfg.model.hidden_size), np.float32)
+        i = 0
+        while i < len(prompts):
+            batch = prompts[i: i + cfg.PREFILL_ROW_BUCKETS[-1]]
+            rows = cfg.prefill_row_bucket(len(batch))
+            bucket = cfg.bucket_for(max(len(p) for p in batch))
+            tokens = np.zeros((rows, bucket), np.int32)
+            positions = np.zeros((rows, bucket), np.int32)
+            valid = np.ones(rows, np.int32)
+            for j, p in enumerate(batch):
+                tokens[j, : len(p)] = p
+                positions[j, : len(p)] = np.arange(len(p))
+                positions[j, len(p):] = len(p) - 1
+                valid[j] = len(p)
+            dev = self._tp(tokens=(tokens, torch.int64),
+                           positions=(positions, torch.int64),
+                           valid=(valid, torch.int64))
+            vecs = self.arch.embed_forward(
+                self.params, cfg.model, dev["tokens"], dev["positions"],
+                dev["valid"])
+            out[i: i + len(batch)] = vecs[: len(batch)].cpu().numpy()
+            i += len(batch)
+        return out
 
     @torch.inference_mode()
     def set_sample_row(self, slot: int, prompt_ids, generated_ids=(),

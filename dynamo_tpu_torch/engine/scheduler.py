@@ -14,9 +14,9 @@ greedy and penalty-free, or, with ``decode_pipeline_depth=2``:
 - a chained burst (``_decode_chained``, ``device_finish``): bursts are
   dispatched back to back off a device-resident carry, finished rows
   freeze on the device (eos, hidden stop ids, ``max_tokens``, the
-  model-len horizon, stop sequences by suffix hash, guided choices by a
-  device transition table) and a queue of in-flight bursts drains
-  asynchronously. Every pass that could not chain is counted under a
+  model-len horizon, stop sequences by suffix hash, guided choices and
+  bounded JSON grammars by a device transition table) and a queue of
+  in-flight bursts drains asynchronously. Every pass that could not chain is counted under a
   named reason (``metrics()["sync_fallback"]``).
 
 A burst's outputs travel to the host through pinned buffers and an event
@@ -49,19 +49,22 @@ blocks stream in; a commit registers them and the tail prefills locally,
 any failure falls back to a local prefill with the same stream.
 
 Per-request state tracks paged blocks, chained block hashes (the prefix
-cache), the guided-choice cursor and cooperative cancellation; KV OOM
+cache), the guided cursor (a choice trie built at admission, or the JSON
+cursor the serving facade attaches, reset and re-walked at admission and
+at a preemption's resume) and cooperative cancellation; KV OOM
 preempts a request back to the waiting queue and its re-prefill continues
 the emitted stream.
 
 Not in this slice (later work, refused by ``EngineConfig`` or by the
 serving layer): the chained propose-verify round, draft-model speculation,
-guided JSON, migration, the flight recorder and the stall watchdog.
+migration, the flight recorder and the stall watchdog.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import json
 import logging
 import time
 from collections import deque
@@ -170,8 +173,9 @@ class EngineRequest:
     # re-prefilled (prompt + resume_tokens) so the stream CONTINUES
     resume_tokens: List[int] = dataclasses.field(default_factory=list)
     # guided decoding: the constraint cursor (a TrieConstraint built at
-    # admission from guided_choice_token_ids) and the token ids its mask
-    # currently allows (for sparse bias edits)
+    # admission from guided_choice_token_ids, or the JsonConstraint the
+    # serving facade attaches) and the token ids its mask currently allows
+    # (for sparse bias edits)
     guided: Optional[object] = None
     guided_allowed: List[int] = dataclasses.field(default_factory=list)
     # telemetry: monotonic time of the last token emission (0 = none yet)
@@ -400,9 +404,10 @@ class Scheduler:
     # the per-burst output buffers stay bounded
     CHAIN_MAX_INFLIGHT = 4
     # compiled guided tables kept for at most this many distinct choice
-    # lists: each is a dense [states, vocab] int32. LRU; eviction is safe
-    # mid-chain because every chained pass re-checks presence before the
-    # dispatch reads the cache (a missing table just recompiles)
+    # lists or JSON specs: each is a dense [states, vocab] int32. LRU;
+    # eviction is safe mid-chain because every chained pass re-checks
+    # presence before the dispatch reads the cache (a missing table just
+    # recompiles)
     GUIDED_TABLE_CACHE = 16
 
     def __init__(self, runner: ModelRunner, config: EngineConfig,
@@ -513,8 +518,8 @@ class Scheduler:
         self.chain_len_max = 0
         self.device_finished_rows = 0
         self.sync_fallback: Dict[str, int] = {}
-        # compiled guided device tables by choice list (None = past the
-        # state bound) and the executor compiles in flight
+        # compiled guided device tables by choice list or JSON spec (None =
+        # past the state bound) and the executor compiles in flight
         self._guided_tables: Dict[tuple, object] = {}
         self._guided_table_futs: Dict[tuple, object] = {}
 
@@ -937,6 +942,9 @@ class Scheduler:
         gids = er.req.sampling_options.guided_choice_token_ids
         if gids:
             er.guided = TrieConstraint(gids)
+        elif er.guided is not None:
+            er.guided.reset()  # a JSON cursor, attached by the serving facade
+        if er.guided is not None:
             for t in er.resume_tokens:
                 if er.guided.advance(int(t)) != "ok":
                     # derailed resume (tokens that never followed the mask:
@@ -2069,10 +2077,21 @@ class Scheduler:
     def _guided_table_key(self, er: EngineRequest) -> tuple:
         if er.guided_key is None:
             eos = tuple(sorted(int(t) for t in (er.req.eos_token_ids or [])))
-            er.guided_key = (
-                "trie",
-                tuple(tuple(int(t) for t in c) for c in er.guided._choice_ids),
-                eos)
+            g = er.guided
+            if isinstance(g, TrieConstraint):
+                er.guided_key = (
+                    "trie", tuple(tuple(int(t) for t in c) for c in g._choice_ids),
+                    eos)
+            else:
+                # a JsonConstraint: keyed by its spec's canonical text (the
+                # serving cache's own key), or by the grammar itself, which
+                # the key then holds alive. Never by id(grammar): the
+                # serving LRU drops grammars, and a new one can take a
+                # dropped one's id and be served its table
+                spec = er.req.sampling_options.guided_json
+                er.guided_key = (
+                    "json", json.dumps(spec, sort_keys=True) if spec
+                    else g.grammar, eos)
         return er.guided_key
 
     def _compile_guided_table(self, er: EngineRequest):
@@ -2348,7 +2367,8 @@ class Scheduler:
 
     def _guided_allowed_ids(self, er: EngineRequest) -> List[int]:
         """Token ids the constraint permits next, plus the eos ids wherever
-        the constrained output may legally end (a terminal trie node)."""
+        the constrained output may legally end (a terminal trie node; a
+        complete top-level JSON value)."""
         v = self.config.model.vocab_size
         ids, at_end = er.guided.allowed()
         allowed = [t for t in ids if 0 <= t < v]

@@ -14,15 +14,22 @@ delta tagged with its choice), on the synchronous path or, with
 device-finish decode loop, and with ``EngineConfig.sp_size > 1`` the
 sequence-parallel prefill ladder for long prompts (its ranks laid out on
 the one device; the reference's ``sequence_parallel_size`` flag is this
-config field). ``create`` takes an ``EngineConfig``, or a model card and
-the CLI's flags (``engine_config_from_mdc``). With a ``disagg_factory``
-the engine is a disaggregated decode worker: long prompts prefill on the
-prefill pool and their KV streams back into this cache. With
-``host_kv_blocks`` / ``cold_tier_blocks`` / ``prefix_pull`` the scheduler
-builds the KV tiers and the cluster KV fabric (``kv/``); the engine's
-``registry`` carries their instruments. Refused by name:
-``guided_json`` (it needs the tokenizer's piece table) and
-``guided_choice`` given as text without its token ids. A model card's
+config field). Guided JSON (``guided_json``: ``json_object`` or a schema)
+walks a ``JsonGrammar`` compiled once per distinct spec over the model
+card's tokenizer (its piece table built once per engine, both in an
+executor thread; a 32-grammar LRU), one ``JsonConstraint`` cursor per
+request or per child of ``n > 1``. ``embed`` serves the cacheless embed
+trunk (``ModelRunner.embed_prompts``, the /v1/embeddings engine half) in
+an executor beside the scheduler's loop. ``create`` takes an
+``EngineConfig``, or a model card and the CLI's flags
+(``engine_config_from_mdc``). With a ``disagg_factory`` the engine is a
+disaggregated decode worker: long prompts prefill on the prefill pool and
+their KV streams back into this cache. With ``host_kv_blocks`` /
+``cold_tier_blocks`` / ``prefix_pull`` the scheduler builds the KV tiers
+and the cluster KV fabric (``kv/``); the engine's ``registry`` carries
+their instruments. Refused by name: ``guided_choice`` given as text
+without its token ids, and ``guided_json`` on an engine built without a
+model card (it holds no tokenizer). A model card's
 directory (or ``.gguf``) is loaded by the runner (``models/loader.py``);
 without a checkpoint it serves seeded random weights only with
 ``allow_random_weights``, as the reference does. Not ported: the stall
@@ -34,23 +41,28 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import json
+import threading
+import time
 import uuid
 from typing import Any, AsyncIterator, Optional
 
 from ..protocols.common import EngineOutput, FinishReason, PreprocessedRequest
 from ..runtime.engine import AsyncEngine, AsyncEngineContext, Context, EngineError
 from ..models.loader import resolve_weights
+from ..llm.tokenizer import HFTokenizer
 from .block_allocator import KvEventSink
 from .config import EngineConfig, ModelConfig
+from .guided import JsonConstraint, JsonGrammar, build_piece_table
 from .model_runner import ModelRunner
 from .scheduler import EngineRequest, Scheduler
 
 
 def engine_config_from_mdc(mdc, flags=None, extra=None) -> EngineConfig:
     """The one place MDC + CLI flags become an EngineConfig (the reference's
-    ``engine_config_from_mdc`` for the flags the port's CLI takes; every
-    other engine knob comes through ``extra``, and the ones the port does
-    not serve are refused by ``EngineConfig`` when set).
+    ``engine_config_from_mdc`` for the flags the port's CLI takes, each with
+    the reference's default and fallback; every other engine knob comes
+    through ``extra``, and the ones the port does not serve are refused by
+    ``EngineConfig`` when set).
 
     ``extra`` is the ``--extra-engine-args`` JSON passthrough: keys naming
     ModelConfig fields override the model config, keys naming EngineConfig
@@ -86,7 +98,20 @@ def engine_config_from_mdc(mdc, flags=None, extra=None) -> EngineConfig:
         or min(mdc.context_length, model_cfg.max_position_embeddings),
         kv_block_size=mdc.kv_block_size,
         num_kv_blocks=getattr(flags, "num_kv_blocks", None) or 2048,
+        # the sequence-parallel prefill ladder's ranks (on the one card)
+        sp_size=getattr(flags, "sequence_parallel_size", 1) or 1,
+        multi_step_decode=getattr(flags, "multi_step_decode", 1) or 1,
         decode_pipeline_depth=getattr(flags, "decode_pipeline_depth", 1) or 1,
+        device_finish=getattr(flags, "device_finish", "auto") or "auto",
+        fused_epilogue=getattr(flags, "fused_epilogue", "auto") or "auto",
+        spec_ngram_tokens=getattr(flags, "spec_ngram_tokens", 0) or 0,
+        spec_ngram_match=getattr(flags, "spec_ngram_match", 3) or 3,
+        # the chain's guided device tables and device-approximate stop
+        # strings
+        guided_device_table=not getattr(flags, "no_guided_device_table", False),
+        guided_table_max_states=getattr(
+            flags, "guided_table_max_states", 256) or 256,
+        device_stop_strings=not getattr(flags, "no_device_stop_strings", False),
         allow_random_weights=getattr(flags, "allow_random_weights", False),
         kv_cache_dtype=getattr(flags, "kv_cache_dtype", "auto") or "auto",
         long_prefill_threshold_tokens=getattr(
@@ -131,11 +156,22 @@ def check_random_weights(model_dir: Optional[str], config: EngineConfig) -> None
 
 
 class TorchServingEngine(AsyncEngine):
+    JSON_GRAMMARS = 32  # the compiled-grammar LRU's bound (distinct specs)
+
     def __init__(self, runner: ModelRunner, scheduler: Scheduler,
                  config: EngineConfig):
         self.runner = runner
         self.scheduler = scheduler
         self.config = config
+        # guided JSON: grammars (and the vocabulary piece table they share)
+        # are compiled once per distinct spec and reused across requests
+        self._model_path: Optional[str] = None
+        self._pieces = None
+        # two specs' first builds run in two executor threads: one of them
+        # builds the piece table, the other waits for it
+        self._pieces_lock = threading.Lock()
+        self.piece_table_s: Optional[float] = None  # the build's seconds
+        self._json_grammars: dict = {}
 
     @classmethod
     async def create(
@@ -186,6 +222,8 @@ class TorchServingEngine(AsyncEngine):
             await loop.run_in_executor(None, runner.warmup)
         scheduler = Scheduler(runner, engine_config, events, disagg=disagg)
         engine = cls(runner, scheduler, engine_config)
+        if mdc is not None:
+            engine._model_path = mdc.model_path  # guided JSON's piece table
         scheduler.start()
         return engine
 
@@ -210,10 +248,6 @@ class TorchServingEngine(AsyncEngine):
         if bad is not None:
             raise EngineError(f"prompt token id {bad} outside vocab [0, {vocab})")
         so = req.sampling_options
-        if so.guided_json:
-            raise EngineError(
-                "guided_json is not served by the PyTorch engine yet (it "
-                "needs the tokenizer's piece table)")
         if so.guided_choice and not so.guided_choice_token_ids:
             raise EngineError(
                 "guided_choice without guided_choice_token_ids is not served "
@@ -233,12 +267,16 @@ class TorchServingEngine(AsyncEngine):
             yield EngineOutput(
                 token_ids=[], finish_reason=FinishReason.LENGTH).to_wire()
             return
+        guided = None
+        if so.guided_json:
+            guided = await self._json_constraint(so.guided_json)
         er = EngineRequest(
             request_id=request.id or uuid.uuid4().hex,
             prompt=list(req.token_ids),
             req=req,
             ctx=request.context,
             out_queue=asyncio.Queue(),
+            guided=guided,
         )
         self.scheduler.add_request(er)
         try:
@@ -268,15 +306,20 @@ class TorchServingEngine(AsyncEngine):
 
         relay = asyncio.ensure_future(relay_stop())
         base_id = request.id or uuid.uuid4().hex
-        children = [EngineRequest(
-            request_id=f"{base_id}#{i}",
-            prompt=list(req.token_ids),
-            req=dataclasses.replace(req, sampling_options=dataclasses.replace(
-                req.sampling_options, n=1,
-                seed=(base_seed + i) if base_seed is not None else None)),
-            ctx=child_ctxs[i],
-            out_queue=asyncio.Queue(),
-        ) for i in range(n)]
+        spec = req.sampling_options.guided_json
+        children = []
+        for i in range(n):
+            children.append(EngineRequest(
+                request_id=f"{base_id}#{i}",
+                prompt=list(req.token_ids),
+                req=dataclasses.replace(req, sampling_options=dataclasses.replace(
+                    req.sampling_options, n=1,
+                    seed=(base_seed + i) if base_seed is not None else None)),
+                ctx=child_ctxs[i],
+                out_queue=asyncio.Queue(),
+                # one cursor per child over the shared grammar
+                guided=await self._json_constraint(spec) if spec else None,
+            ))
         merged: asyncio.Queue = asyncio.Queue()
 
         async def pump(i: int, er: EngineRequest):
@@ -306,6 +349,88 @@ class TorchServingEngine(AsyncEngine):
             for c in child_ctxs:
                 c.stop_generating()
             request.context.merge_stages_from(child_ctxs)
+
+    async def _json_constraint(self, spec: dict) -> JsonConstraint:
+        """Per-request cursor over the (cached) compiled grammar. The first
+        request with a new spec pays the compile and the O(vocab) piece
+        table in an executor thread; the scheduler loop never blocks on
+        it, and followers with the same spec await that build."""
+        key = json.dumps(spec, sort_keys=True)
+        entry = self._json_grammars.get(key)
+        if isinstance(entry, asyncio.Future):
+            # a concurrent first request is already building this spec
+            grammar = await asyncio.shield(entry)
+        else:
+            grammar = entry
+        if grammar is None:
+            if self._model_path is None:
+                raise EngineError(
+                    "guided json requires a tokenizer; this engine was "
+                    "built without a model path")
+            loop = asyncio.get_running_loop()
+
+            def build():
+                with self._pieces_lock:
+                    if self._pieces is None:
+                        t0 = time.perf_counter()
+                        tok = HFTokenizer.from_model_path(self._model_path)
+                        self._pieces = build_piece_table(
+                            tok, self.config.model.vocab_size)
+                        self.piece_table_s = time.perf_counter() - t0
+                schema = (spec.get("schema")
+                          if spec.get("type") == "json_schema" else None)
+                g = JsonGrammar(self._pieces, schema)
+                # the first O(vocab) mask sweep belongs here (executor
+                # thread), not on the event loop, and it doubles as the
+                # expressibility check
+                ids, _at_end = JsonConstraint(g).allowed()
+                if not ids:
+                    raise EngineError(
+                        "guided json: this model's tokenizer cannot "
+                        "express the requested grammar (no legal first "
+                        "token)")
+                return g
+
+            fut = loop.create_future()
+            self._json_grammars[key] = fut  # followers await this build
+            try:
+                grammar = await loop.run_in_executor(None, build)
+            except ValueError as e:
+                err = EngineError(f"guided json: {e}")
+                fut.set_exception(err)
+                fut.exception()  # consumed (no un-retrieved warning)
+                self._json_grammars.pop(key, None)
+                raise err
+            except BaseException as e:
+                fut.set_exception(e)
+                fut.exception()
+                self._json_grammars.pop(key, None)
+                raise
+            fut.set_result(grammar)
+            # bounded LRU over distinct specs: each grammar's mask cache
+            # holds vocabulary-sized lists
+            evictable = [k for k, v in self._json_grammars.items()
+                         if not isinstance(v, asyncio.Future)]
+            while len(self._json_grammars) > self.JSON_GRAMMARS and evictable:
+                self._json_grammars.pop(evictable.pop(0), None)
+            self._json_grammars[key] = grammar  # resolve future → value
+        else:
+            self._json_grammars.pop(key)
+            self._json_grammars[key] = grammar  # LRU touch
+        return JsonConstraint(grammar)
+
+    @property
+    def embed_ready(self) -> bool:
+        return self.runner.embed_ready
+
+    async def embed(self, prompts):
+        """Batched prefill-only embeddings (the /v1/embeddings engine
+        half): [n] token-id lists → [n, D] float32. The cacheless embed
+        trunk reads the weights only (no cache, no sample state), so it
+        runs in an executor thread beside the scheduler loop's own
+        dispatches."""
+        return await asyncio.get_running_loop().run_in_executor(
+            None, self.runner.embed_prompts, prompts)
 
     @property
     def registry(self):

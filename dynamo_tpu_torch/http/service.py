@@ -10,8 +10,8 @@ out; keep-alive between requests. The status codes and error bodies are
 the reference's.
 
 Routes: POST /v1/chat/completions, POST /v1/completions, POST
-/v1/embeddings (501: no embedder yet), GET /v1/models, GET /metrics,
-GET /health. A client that goes away mid-stream stops its request.
+/v1/embeddings (served by an engine that carries an ``embedder``, else
+501), GET /v1/models, GET /metrics, GET /health. A client that goes away mid-stream stops its request.
 
 Discovery (the reference's ``register_model`` / ``ModelWatcher``): a
 worker or processor registers its model under the discovery plane's
@@ -500,9 +500,18 @@ class HttpService:
         )
 
     async def handle_embeddings(self, request: Request, conn: _Connection):
-        """POST /v1/embeddings: validated as the reference validates it,
-        then 501, the reference's answer for an engine without an embedder
-        (the port has none yet)."""
+        """POST /v1/embeddings: the prefill-only workload
+        (``llm/embeddings.py``), OpenAI-shaped request (input: str | [str] |
+        [ids] | [[ids]]) and response (data rows + usage counts). Served
+        when the resolved engine carries an ``embedder``; engines without
+        one (the echo chat engine, a frontend of discovered models) answer
+        501, as in the reference."""
+        import base64
+
+        import numpy as np
+
+        from ..llm.embeddings import EmbeddingError
+
         try:
             body = request.json()
         except (json.JSONDecodeError, UnicodeDecodeError) as e:
@@ -521,12 +530,33 @@ class HttpService:
         name = self.manager.resolve(model)
         if name is None:
             return self._model_not_found(model)
-        return self._error(
-            501,
-            f"model '{model}' does not serve embeddings on this frontend "
-            "(the PyTorch port has no embedder yet)",
-            err_type="not_implemented",
-        )
+        engine = (self.manager.chat_engines.get(name)
+                  or self.manager.completion_engines.get(name))
+        embedder = getattr(engine, "embedder", None)
+        if embedder is None:
+            return self._error(
+                501,
+                f"model '{model}' does not serve embeddings on this "
+                "frontend (embeddings ride the prefill path — route to "
+                "a prefill-pool frontend)",
+                err_type="not_implemented",
+            )
+        try:
+            vectors, ntok = await embedder.embed(body["input"])
+        except EmbeddingError as e:
+            return self._error(400, str(e))
+        data = []
+        for i, vec in enumerate(vectors):
+            emb = (base64.b64encode(np.asarray(vec, np.float32).tobytes()
+                                    ).decode("ascii")
+                   if fmt == "base64" else vec)
+            data.append({"object": "embedding", "index": i, "embedding": emb})
+        return json_response({
+            "object": "list",
+            "data": data,
+            "model": model,
+            "usage": {"prompt_tokens": ntok, "total_tokens": ntok},
+        })
 
     async def handle_models(self, request: Request, conn: _Connection):
         data = [ModelInfo(id=name, **self.manager.metadata.get(name, {}))

@@ -1,9 +1,10 @@
 """OpenAI ↔ internal translation: prompt templating, tokenization, deltas.
 
 The port's copy of ``dynamo_tpu/llm/preprocessor.py``, over the port's
-tokenizer and protocol types; guided JSON (``response_format`` json_object /
-json_schema, the ``guided_json`` extra field) is refused by name: its
-grammar and the vocabulary's piece table are still to port.
+tokenizer and protocol types. Guided JSON (``response_format`` json_object /
+json_schema, the ``guided_json`` extra field) becomes
+``SamplingOptions.guided_json``, its schema compiled at the door so an
+unsupported keyword is a 400, not an engine fault.
 
 Forward: render the model's chat template (jinja2), tokenize, merge model
 defaults into sampling/stop options → ``PreprocessedRequest``.
@@ -23,6 +24,7 @@ from typing import Any, AsyncIterator, List, Optional, Union
 
 import jinja2
 
+from ..engine.guided import compile_schema
 from ..protocols.annotated import (
     ANNOTATION_FORMATTED_PROMPT,
     ANNOTATION_TOKEN_IDS,
@@ -258,10 +260,12 @@ class OpenAIPreprocessor(Operator):
                 spec = {"type": "json_schema", "schema": gj}
         if spec is None:
             return None
-        raise EngineError(
-            "guided JSON (response_format json_object / json_schema, "
-            "guided_json) is not served by the PyTorch port yet: its grammar "
-            "and the vocabulary's piece table are still to port")
+        try:
+            if spec["type"] == "json_schema":
+                compile_schema(spec["schema"])
+        except ValueError as e:
+            raise EngineError(str(e))
+        return spec
 
     def _guided_choice_ids(
         self, choices: Optional[List[str]]

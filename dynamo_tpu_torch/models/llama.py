@@ -25,6 +25,7 @@ from ..ops.attention import (
     alloc_kv_cache,
     attention,
     kv_write_plan,
+    prefill_attention,
     scatter_kv_rows,
 )
 from ..ops.transfer import to_device
@@ -398,6 +399,36 @@ def lm_logits(hidden: torch.Tensor, params: Params, cfg: ModelConfig
     if lm_head is None:
         return hidden @ params["embed"].T
     return dense(hidden, lm_head)
+
+
+def embed_forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,      # [R, S] right-padded prompt rows
+    positions: torch.Tensor,   # [R, S] (pad → repeat last)
+    valid_lens: torch.Tensor,  # [R] real tokens per row
+) -> torch.Tensor:
+    """Prefill-only trunk for the embeddings workload: dense causal
+    self-attention with NO cache reads or writes (the whole context is the
+    prompt; nothing decodes afterwards), the final norm, and the LAST valid
+    position's hidden state as the sequence embedding, the standard
+    decoder-LM pooling. The engine L2-normalizes at the edge. Returns
+    [R, D] float32."""
+    b, s = tokens.shape
+    h_heads, hd = cfg.num_heads, cfg.head_dim
+    hidden = params["embed"][tokens.long()]
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+
+    def attn_fn(x, lp, k_all, v_all, li):
+        q, k, v = qkv_prologue(cfg, x, lp, b, s, cos, sin)
+        attn = prefill_attention(q, k, v, valid_lens)
+        return dense(attn.reshape(b, s, h_heads * hd), lp["wo"]), k_all, v_all
+
+    hidden, _, _ = run_layers(hidden, (None, None), params["layers"], cfg,
+                              attn_fn)
+    hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+    rows = torch.arange(b, device=hidden.device)
+    return hidden[rows, valid_lens.long() - 1].float()
 
 
 def forward(

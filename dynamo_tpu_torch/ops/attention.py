@@ -297,6 +297,52 @@ def paged_attention(
     return out.reshape(b, s, h, d)
 
 
+# the dense prefill's query chunk: each chunk's logits stay within this many
+# elements (f32 softmax: 4 bytes each, beside the activation-dtype logits)
+PREFILL_LOGITS_BUDGET = 1 << 27
+
+
+def prefill_attention(
+    q: torch.Tensor,           # [B, S, H, D]
+    k: torch.Tensor,           # [B, S, KVH, D]
+    v: torch.Tensor,
+    valid_lens: torch.Tensor,  # [B] number of real (non-pad) tokens
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Dense causal self-attention for a prefill without cache reads (the
+    whole context is the in-flight prompt: the embed trunk). The
+    reference's arithmetic: logits in the activation dtype, the causal and
+    valid-length masks at the dtype's minimum, the softmax in f32 cast
+    back, the values' sum in the activation dtype. SDPA rounds differently,
+    so it is not used.
+
+    The queries are walked in chunks of as many rows as keep a chunk's
+    [B, chunk, KVH, G, S] logits within ``PREFILL_LOGITS_BUDGET`` elements
+    (the unchunked logits grow with S²). A query row's softmax reads only
+    its own logits, so a chunk computes the same numbers as the unchunked
+    version."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    groups = h // kvh
+    if scale is None:
+        scale = d ** -0.5
+    query_chunk = max(1, PREFILL_LOGITS_BUDGET // max(1, b * h * s))
+    qg = q.reshape(b, s, kvh, groups, d) * scale
+    k_pos = torch.arange(s, device=q.device)
+    valid = k_pos[None, :] < valid_lens.long()[:, None]     # [B, T]
+    out = torch.empty_like(q)
+    for c0 in range(0, s, query_chunk):
+        c1 = min(s, c0 + query_chunk)
+        logits = torch.einsum("bskgd,btkd->bskgt", qg[:, c0:c1], k)
+        causal = k_pos[None, :] <= k_pos[c0:c1, None]       # [C, T]
+        mask = (causal[None] & valid[:, None, :])[:, :, None, None, :]
+        logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        out[:, c0:c1] = torch.einsum("bskgt,btkd->bskgd", probs, v).reshape(
+            b, c1 - c0, h, d)
+    return out
+
+
 def attention(
     q: torch.Tensor,             # [B, S, H, D]
     k_cache: torch.Tensor,       # stacked [L, N, bs, KVH, D]

@@ -22,7 +22,8 @@ a pad row adds 0.
 
 CPU tensors take ``fused_sampling_epilogue_ref``; CUDA tensors launch the
 kernel (``csrc/sampling_epilogue.cu``) or raise. ``launches`` counts
-kernel launches.
+kernel launches, ``launches_finish`` and ``launches_extra_bias`` those of
+the two forms among them.
 
 The kernel runs one thread-block cluster of ``CLUSTER`` CTAs per batch
 row, each holding a contiguous slice of the row in its shared memory
@@ -49,6 +50,7 @@ from . import _build
 
 launches = 0
 launches_finish = 0   # the launches of the ``finish`` form among them
+launches_extra_bias = 0  # the launches with ``extra_bias`` among them
 
 CLUSTER = 8                # CTAs a row (csrc/sampling_epilogue.cu CS)
 _SMEM_FIXED = 28672        # the kernel's per-CTA state (FIXED_BYTES)
@@ -160,7 +162,7 @@ def fused_sampling_epilogue(
         return fused_sampling_epilogue_ref(
             last_logits, gumbel, samp, counts, seen, bias, sample_slots,
             commit, alias_counts, extra_bias, finish, max_model_len)
-    global launches, launches_finish
+    global launches, launches_finish, launches_extra_bias
     dev = last_logits.device
     if last_logits.dim() != 2:
         raise ValueError("epilogue: last_logits must be [B, V]")
@@ -228,6 +230,8 @@ def fused_sampling_epilogue(
     launches += 1
     if finish is not None:
         launches_finish += 1
+    if extra is not None:
+        launches_extra_bias += 1
     if not alias_counts:
         counts.index_put_((slots, tokens), com.to(counts.dtype), accumulate=True)
     if finish is None:

@@ -250,12 +250,39 @@ def test_preprocessor_refusals_match_the_reference(stages, kind, body):
 
 
 def test_guided_json_is_refused_by_name(stages):
-    _, ppre, _, _ = stages
+    """Guided JSON is served: both preprocessors put the same spec into
+    ``SamplingOptions.guided_json`` (``response_format`` json_object /
+    json_schema, the ``guided_json`` extra field at the top level or in
+    nvext). What stays refused is refused by name, with the reference's
+    message: a schema keyword guided decoding cannot enforce, a
+    ``guided_json`` that is no object, and guided JSON beside
+    ``guided_choice``."""
+    rpre, ppre, _, _ = stages
+    schema = {"type": "object", "properties": {"a": {"type": "integer"}},
+              "required": ["a"]}
     for body in (dict(response_format={"type": "json_object"}),
-                 dict(guided_json={"type": "object"})):
-        with pytest.raises(EngineError, match="guided JSON"):
+                 dict(response_format={"type": "json_schema", "json_schema": {
+                     "name": "s", "schema": schema}}),
+                 dict(guided_json=schema),
+                 dict(nvext={"guided_json": {"type": "object"}})):
+        want = rpre.preprocess_chat(_req(ref_openai, "chat",
+                                         dict(messages=MSGS, **body)))
+        got = ppre.preprocess_chat(_req(port_openai, "chat",
+                                        dict(messages=MSGS, **body)))
+        assert got.sampling_options.guided_json is not None
+        assert got.sampling_options.guided_json == want.sampling_options.guided_json
+        assert got.token_ids == want.token_ids
+    for body in (dict(guided_json={"type": "string", "pattern": "a+"}),
+                 dict(guided_json=["not", "an", "object"]),
+                 dict(response_format={"type": "json_object"},
+                      guided_choice=["a", "b"])):
+        with pytest.raises(RefEngineError) as want:
+            rpre.preprocess_chat(_req(ref_openai, "chat",
+                                      dict(messages=MSGS, **body)))
+        with pytest.raises(EngineError) as got:
             ppre.preprocess_chat(_req(port_openai, "chat",
                                       dict(messages=MSGS, **body)))
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------- backend

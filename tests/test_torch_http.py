@@ -44,6 +44,7 @@ from dynamo_tpu.llm.tokenizer import HFTokenizer as RefTokenizer
 from dynamo_tpu.models import llama as jax_llama
 from dynamo_tpu.protocols import sse
 from dynamo_tpu.runtime.pipeline import build_pipeline as ref_build_pipeline
+from dynamo_tpu_torch.cli import run as port_run
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 from dynamo_tpu_torch.engine.serving import TorchServingEngine
 from dynamo_tpu_torch.http import service as port_service
@@ -258,9 +259,15 @@ ERROR_CASES = [
     ("/v1/completions", {"model": "tiny", "prompt": [[1], [2]]}),
     ("/v1/completions", {"model": "tiny", "prompt": "x", "best_of": 2,
                          "stream": True, "temperature": 1.0}),
-    ("/v1/embeddings", {"model": "tiny", "input": "x"}),
+    # "tiny" carries an embedder (as the reference's echo stack does),
+    # "plain" none: 501
+    ("/v1/embeddings", {"model": "plain", "input": "x"}),
     ("/v1/embeddings", {"model": "nope", "input": "x"}),
     ("/v1/embeddings", {"model": "tiny"}),
+    ("/v1/embeddings", {"model": "tiny", "input": []}),
+    ("/v1/embeddings", {"model": "tiny", "input": {"bad": 1}}),
+    ("/v1/embeddings", {"model": "tiny", "input": "x",
+                        "encoding_format": "hex"}),
     ("/v1/embeddings", b"[1"),
     ("/v1/chat/completions", {"model": "tiny", "messages": MSGS,
                               "response_format": {"type": "xml"}}),
@@ -270,23 +277,29 @@ ERROR_CASES = [
 @pytest.mark.asyncio
 async def test_errors_answer_as_the_reference(model_dir, monkeypatch):
     """Status and error type of each bad request equal the reference's
-    (messages may differ), over the echo core pipeline; an unknown route
-    is a 404 and a wrong method a 405."""
-    from dynamo_tpu.llm.embeddings import EchoEmbedder  # noqa: F401
+    (messages may differ), over the echo core pipeline, whose "tiny" model
+    carries each package's echo embedder and whose "plain" model none; an
+    unknown route is a 404 and a wrong method a 405."""
+    from dynamo_tpu.llm.embeddings import EchoEmbedder as RefEchoEmbedder
+    from dynamo_tpu_torch.llm.embeddings import EchoEmbedder
 
     monkeypatch.setenv("DYN_TOKEN_ECHO_DELAY_MS", "0")
     services = []
-    for svc, card, tok, pre, back, build, echo in (
+    for svc, card, tok, pre, back, build, echo, embedder in (
             (ref_service, RefCard, RefTokenizer, RefPre, RefBackend,
-             ref_build_pipeline, RefEchoCore),
+             ref_build_pipeline, RefEchoCore, RefEchoEmbedder),
             (port_service, ModelDeploymentCard, HFTokenizer, OpenAIPreprocessor,
-             Backend, build_pipeline, EchoEngineCore)):
+             Backend, build_pipeline, EchoEngineCore, EchoEmbedder)):
         t = tok.from_pretrained_dir(model_dir)
         pipe = build([pre(card.from_local_path(model_dir, "tiny"), t), back(t)],
                      echo())
+        pipe.embedder = embedder()
+        plain = build([pre(card.from_local_path(model_dir, "tiny"), t), back(t)],
+                      echo())
         manager = svc.ModelManager()
         manager.add_chat_model("tiny", pipe)
         manager.add_completion_model("tiny", pipe)
+        manager.add_chat_model("plain", plain)
         service = svc.HttpService(manager, host="127.0.0.1", port=0)
         await service.start()
         services.append(service)
@@ -452,3 +465,58 @@ def test_random_weights_need_the_flag_and_a_checkpoint_is_refused(tmp_path):
         check_random_weights(d, cfg)
     with pytest.raises(ValueError, match="matches no ModelConfig"):
         engine_config_from_mdc(mdc, flags, extra={"nope": 1})
+
+
+# ------------------------------------------------------- the CLI's engine flags
+
+MAPPED_FLAGS = {  # flag → the EngineConfig field it sets
+    "--multi-step-decode": "multi_step_decode",
+    "--device-finish": "device_finish",
+    "--fused-epilogue": "fused_epilogue",
+    "--guided-table-max-states": "guided_table_max_states",
+    "--no-guided-device-table": "guided_device_table",
+    "--no-device-stop-strings": "device_stop_strings",
+    "--spec-ngram-tokens": "spec_ngram_tokens",
+    "--spec-ngram-match": "spec_ngram_match",
+    "--sequence-parallel-size": "sp_size",
+}
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--multi-step-decode", "4", "--decode-pipeline-depth", "2",
+     "--device-finish", "on", "--fused-epilogue", "off"],
+    ["--fused-epilogue", "on", "--device-finish", "off"],
+    # explicit zeros take the reference's fallbacks (`or 1`, `or 3`, ...)
+    ["--multi-step-decode", "0", "--guided-table-max-states", "0",
+     "--spec-ngram-tokens", "0", "--spec-ngram-match", "0",
+     "--sequence-parallel-size", "0"],
+    ["--no-guided-device-table", "--no-device-stop-strings",
+     "--guided-table-max-states", "64"],
+    ["--spec-ngram-tokens", "4", "--spec-ngram-match", "2"],
+    ["--sequence-parallel-size", "4", "--long-prefill-threshold-tokens", "64"],
+], ids=["defaults", "chain", "fused", "zeros", "guided", "spec", "sp"])
+def test_cli_engine_flags_map_to_the_reference_fields(tmp_path, argv):
+    from dynamo_tpu.cli import run as ref_run
+    from dynamo_tpu.engine.serving import engine_config_from_mdc as ref_config
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.serving import engine_config_from_mdc
+
+    d, _ = _tiny_model_dir(tmp_path)
+    want = ref_config(RefCard.from_local_path(d), ref_run.build_parser().parse_args(
+        argv + ["--max-model-len", "64"]))
+    got = engine_config_from_mdc(ModelDeploymentCard.from_local_path(d),
+                                 run.parse_flags(argv + ["--max-model-len", "64"]))
+    for flag, field in MAPPED_FLAGS.items():
+        assert flag not in run.REFUSED_FLAGS
+        assert getattr(got, field) == getattr(want, field), (flag, field)
+    assert got.decode_pipeline_depth == want.decode_pipeline_depth
+
+
+@pytest.mark.parametrize("flag", sorted(port_run.REFUSED_FLAGS))
+def test_cli_still_refuses_the_unported_flags_by_name(flag):
+    with pytest.raises(SystemExit, match=flag):
+        port_run.parse_flags([flag, "1"])
+    # draft models are not ported: their flags stay refused
+    assert {"--spec-draft-model", "--spec-draft-tokens"} <= set(
+        port_run.REFUSED_FLAGS)

@@ -7,9 +7,10 @@ check runs in a fresh interpreter: a ``sys.meta_path`` finder refuses
 is allowed), and the packages the reference's front stands on that the
 port does not depend on (``aiohttp``, ``pydantic``, ``tokenizers``,
 ``regex``, ``msgpack``, ``safetensors``, ``transformers``, ``gguf``,
-``ml_dtypes``, ``xxhash``: the checkpoint loader reads safetensors and GGUF
-files on the standard library, and the cold KV tier checksums with the
-port's own xxh64; ``jinja2``, a
+``ml_dtypes``, ``xxhash``, ``jsonschema``: the checkpoint loader reads
+safetensors and GGUF files on the standard library, the cold KV tier
+checksums with the port's own xxh64, and guided JSON walks its own schema
+subset; ``jinja2``, a
 requirement of torch, stays allowed), then every module of
 ``dynamo_tpu_torch`` and ``chip_smoke`` is imported, and CUDA must not have
 been initialised by any import. A static scan of the import statements
@@ -40,7 +41,7 @@ def _port_modules():
 
 REFUSED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "tokenizers",
            "regex", "msgpack", "safetensors", "transformers", "gguf",
-           "ml_dtypes", "xxhash")
+           "ml_dtypes", "xxhash", "jsonschema")
 
 
 def _blocked(name: str) -> bool:
@@ -55,7 +56,7 @@ def test_blocked_names_match_exactly():
     assert not _blocked("jaxtyping")
     for name in ("aiohttp.web", "pydantic", "tokenizers.models", "regex",
                  "msgpack", "safetensors.torch", "transformers", "gguf",
-                 "ml_dtypes", "xxhash"):
+                 "ml_dtypes", "xxhash", "jsonschema.validators"):
         assert _blocked(name)
     assert not _blocked("jinja2") and not _blocked("regexp")
 
@@ -67,7 +68,7 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.ops.paged_decode", "dynamo_tpu_torch.ops.paged_flash",
             "dynamo_tpu_torch.ops.mla_decode", "dynamo_tpu_torch.models.deepseek",
             "dynamo_tpu_torch.models.mixtral", "dynamo_tpu_torch.models.quant",
-            "dynamo_tpu_torch.engine.guided",
+            "dynamo_tpu_torch.engine.guided", "dynamo_tpu_torch.llm.embeddings",
             "dynamo_tpu_torch.ops.transfer", "dynamo_tpu_torch.ops.sp_prefix",
             "dynamo_tpu_torch.parallel.ring_attention",
             "dynamo_tpu_torch.parallel.sequence",
