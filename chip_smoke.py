@@ -136,8 +136,8 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    chained dispatches under the sync guard), and the spec prompts without
    and with ngram speculation (verify launches; equal or parted at a
    near-tie, routing pinned).
-10. ``engine_gemma2`` — gemma-2-9b at full width and depth (42 layers,
-   9.24 B parameters: head_dim 256, attention logits capped at 50 and
+10. ``engine_gemma2`` — gemma-2-9b at full width, its depth cut to 22 of
+   its 42 layers (``GEMMA_LAYERS``; 9.24 B parameters in full: head_dim 256, attention logits capped at 50 and
    final logits at 30, 4,096-token windows on the even layers, sandwich
    norms, GeGLU, a tied 256,000 vocabulary), built by
    ``ModelConfig.from_hf_config`` from its published ``config.json``
@@ -151,8 +151,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the same weight tensors (identical streams, the chained dispatches
    under the sync guard), and the spec prompts without and with ngram
    speculation (verify launches; equal or parted at a near-tie).
-11. ``engine_qwen3moe`` — Qwen3-30B-A3B at full width and depth (48
-   layers, 30.53 B parameters: 128 experts top 8, per-head q/k norms,
+11. ``engine_qwen3moe`` — Qwen3-30B-A3B at full width, its depth cut to
+   12 of its 48 layers (``MOE_LAYERS``; 30.53 B parameters in full: 128
+   experts top 8, per-head q/k norms,
    G 8 at head_dim 128, an untied 151,936 vocabulary), built by
    ``ModelConfig.from_hf_config`` from its published ``config.json``
    values with seeded random bf16 weights and seeded non-unit q/k norms:
@@ -163,8 +164,8 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    same weight tensors (identical streams, the chained dispatches under
    the sync guard), and the spec prompts without and with ngram
    speculation (verify launches; routing pinned).
-12. ``engine_mixtral_int8`` — Mixtral-8x7B at full width and all 32 layers
-   in int8 (46.70 B parameters, 8 experts top 2, G 4 at head_dim 128, a
+12. ``engine_mixtral_int8`` — Mixtral-8x7B at full width, its depth cut to
+   8 of its 32 layers (``MOE_LAYERS``), in int8 (46.70 B parameters in full, 8 experts top 2, G 4 at head_dim 128, a
    32,000 vocabulary), from its published ``config.json`` values with
    ``quantization="int8"``: the weights are quantized slice by slice as
    they are drawn (93 GB in bf16 would not fit), and every ``QUANT_KEYS``
@@ -281,8 +282,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    pinned or in use, the native xxh64 equal to its plain version. Prints
    the tiers' counters, offload and restore GB/s, the cold tier's MB/s and
    the checksum's share.
-19. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width and
-   depth (its published ``config.json``: G 7, qkv biases, V 152,064) with
+19. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width, its
+   depth cut to 7 of its 28 layers (``LOAD_LAYERS``; its published
+   ``config.json``: G 7, qkv biases, V 152,064) with
    seeded random bf16 weights written as a 4-shard HF safetensors
    snapshot (``write_safetensors_snapshot``) and loaded by
    ``ModelRunner(model_dir=...)``: every leaf equal to the drawn one, the
@@ -294,6 +296,25 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    streams equal the in-process engine's or part at a near-tie); then
    Llama-3.2-1B as one GGUF file (Q8_0, ``write_gguf_llama_q8``) served
    by the CLI the same way against an engine given d * q directly.
+20. ``engine_spec`` — the rest of speculation: Llama-3.1-8B at full width
+   and depth (``LLAMA_31_8B``, its published ``config.json``, seeded
+   random bf16 weights) drafted by Llama-3.2-1B, drawn on the card and
+   written as a safetensors snapshot that the draft's runner loads. The
+   engine phase's spec prompts, 64 tokens each, through: the plain
+   synchronous and chained 8B engines; leg A, the synchronous draft engine
+   (K 4); leg B, the chained one (depth 2), with kernel 4 at S 17 held and
+   timed on its 8B cache after the wave; leg D, chained ngram speculation
+   on the 8B; leg C, the 1B drafted by its own snapshot (every rejected
+   proposal at a printed near-tie of a plain forward's logits); leg E, the
+   CLI's engine builder with ``--spec-draft-model`` /
+   ``--spec-draft-tokens`` (fields as the reference maps them). Spec
+   streams equal the non-spec engine's of their mode or part at a printed
+   near-tie; E's against B's. Every round's pieces run under the sync
+   guard (the draft's burst, the device mask between it and the verify,
+   the verify, the staging): kernel 4 launches once a target layer a
+   round, kernel 1 and the epilogue once a draft layer a step and once a
+   step of each draft burst. Prints each leg's acceptance, rounds and
+   decode wall a round.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -314,7 +335,9 @@ and ``launches_engine_graph``, the graph's workers'; they and
 kernel 6 carry ``launches_engine_disagg``, the disaggregated pair's two
 workers' (decode and flash's fp8 forms: leg A's fp8 pair); decode, flash
 and the epilogue carry ``launches_engine_kv_tiers``, the tiers' engines'
-(decode and flash's fp8 forms: the e4m3 engine's); kernel 6's
+(decode and flash's fp8 forms: the e4m3 engine's); decode, flash, verify
+and the epilogue carry ``launches_engine_spec``, the chained draft
+engine's (verify: with the chained ngram engine's); kernel 6's
 fp8 form has the fp8 SP engine's launches); the line before that the
 card's name and power limit.
 """
@@ -4299,6 +4322,9 @@ def engine_gptoss_phase(torch, dev, smi):
 # wave (336 KB of KV a token over 42 layers: 2,560 blocks of 16 tokens hold
 # 40,960 tokens in 14.1 GB)
 GEMMA_ENGINE = dict(max_model_len=8192, num_kv_blocks=2560)
+# a depth cut that keeps the whole script inside its time limit (of 42
+# layers, sliding and global alternating); the widths stay the published ones
+GEMMA_LAYERS = 22
 # the five norms the reference inits to 0 (its 1 + w form, so zeros would
 # leave the weights untested): drawn N(0, 0.1^2)
 GEMMA_NORMS = ("ln1", "ln_post_attn", "ln_pre_mlp", "ln_post_mlp")
@@ -4409,8 +4435,8 @@ def _window_logits(torch, arch, mcfg, params, prompt, device):
 
 
 def engine_gemma2_phase(torch, dev, smi):
-    """gemma-2-9b through ``TorchServingEngine`` at full width and depth
-    (42 layers, 9.24 B parameters), from ``ModelConfig.from_hf_config`` of
+    """gemma-2-9b through ``TorchServingEngine`` at full width, its depth
+    cut to ``GEMMA_LAYERS`` of 42, from ``ModelConfig.from_hf_config`` of
     its published config, with seeded random bf16 weights (every norm
     non-zero), the engines' settings (``ENGINE``) at its 8,192 positions
     (``GEMMA_ENGINE``), one set of weight tensors behind five engines:
@@ -4439,7 +4465,8 @@ def engine_gemma2_phase(torch, dev, smi):
     from dynamo_tpu_torch.models import gemma2
 
     on_card = torch.device(dev).type == "cuda"
-    mcfg = ModelConfig.from_hf_config(GEMMA_2_9B)
+    mcfg = dataclasses.replace(ModelConfig.from_hf_config(GEMMA_2_9B),
+                               num_layers=GEMMA_LAYERS)
     vocab, layers = mcfg.vocab_size, mcfg.num_layers
 
     def config(**kw):
@@ -4631,10 +4658,14 @@ def engine_gemma2_phase(torch, dev, smi):
 
 # The MoE family's cells: Qwen3-30B-A3B in bf16 (seeded non-unit q/k norms
 # [L, 128], as its checkpoint carries them) and Mixtral-8x7B in int8 (its
-# weights quantized slice by slice as they are drawn), each at full width
-# and depth. (published config, quantization, spec engines)
+# weights quantized slice by slice as they are drawn), each at full width,
+# their depth cut to MOE_LAYERS. (published config, quantization, spec
+# engines)
 MOE_CELLS = {"qwen3moe": (QWEN3_30B_A3B, None, True),
              "mixtral_int8": (MIXTRAL_8X7B, "int8", False)}
+# depth cuts that keep the whole script inside its time limit (of 48 and 32
+# layers); the widths stay the published ones
+MOE_LAYERS = {"qwen3moe": 12, "mixtral_int8": 8}
 MOE_QK_NORM_SCALE = 0.2   # q/k norms drawn 1 + N(0, 0.2^2)
 
 
@@ -4698,7 +4729,8 @@ def _dequant_profile(torch, params):
 
 def engine_moe_phase(torch, dev, smi, cell):
     """One MoE-family cell (``MOE_CELLS``) through ``TorchServingEngine`` at
-    full width and depth, from ``ModelConfig.from_hf_config`` of its
+    full width, its depth cut to ``MOE_LAYERS``, from
+    ``ModelConfig.from_hf_config`` of its
     published config, with seeded random weights and the engines' settings
     (``ENGINE``), one set of weight tensors behind every engine:
 
@@ -4731,7 +4763,8 @@ def engine_moe_phase(torch, dev, smi, cell):
     hf, quantization, with_spec = MOE_CELLS[cell]
     on_card = torch.device(dev).type == "cuda"
     mcfg = dataclasses.replace(ModelConfig.from_hf_config(hf),
-                               quantization=quantization)
+                               quantization=quantization,
+                               num_layers=MOE_LAYERS[cell])
     vocab, layers = mcfg.vocab_size, mcfg.num_layers
     # every expert holds every token of a step at this capacity factor
     no_drop = dataclasses.replace(
@@ -8188,6 +8221,9 @@ QWEN_CHAT_TEMPLATE = (
     "<|im_end|>\n{% endfor %}{% if add_generation_prompt %}<|im_start|>"
     "assistant\n{% endif %}")
 LOAD_SHARDS = 4
+# a depth cut that keeps the whole script inside its time limit (of 28
+# layers); the widths stay the published ones
+LOAD_LAYERS = 7
 LOAD_DRAWN_SCALE = 0.1   # qkv biases N(0, 0.1^2), norms 1 + N(0, 0.1^2)
 LOAD_CLI_TIMEOUT_S = 600
 # the CLI's flags (a CPU rehearsal appends "--device", "cpu")
@@ -8570,8 +8606,9 @@ def engine_load_phase(torch, dev, smi):
     """Checkpoints from files, on the card (the port's loader,
     ``models/loader.py``):
 
-    1. Qwen2.5-7B at full width and depth from its published config
-       (``QWEN25_7B``: G 7, qkv biases, V 152,064): weights drawn on the
+    1. Qwen2.5-7B at full width, its depth cut to ``LOAD_LAYERS`` of 28,
+       from its published config (``QWEN25_7B``: G 7, qkv biases, V
+       152,064): weights drawn on the
        card from the seed (non-zero biases, non-unit norms), written as a
        4-shard HF safetensors snapshot (HF names, [out, in], the index file,
        a synthetic 152,064-id ``tokenizer.json`` with Qwen's specials and a
@@ -8626,7 +8663,10 @@ def _engine_load(torch, dev, smi, tmp):
 
     on_card = torch.device(dev).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    hf = dict(QWEN25_7B)
+    # the depth cut (of 28 layers) reaches the snapshot's config.json, so
+    # every engine and CLI here reads the same model
+    hf = dict(QWEN25_7B, num_hidden_layers=LOAD_LAYERS,
+              max_window_layers=LOAD_LAYERS)
     snap = tmp / "qwen2.5-7b-random"
     snap.mkdir()
     (snap / "config.json").write_text(json.dumps(hf, indent=1))
@@ -8869,10 +8909,504 @@ def _engine_load(torch, dev, smi, tmp):
             "paged_verify_qwen25": launches_spec["paged_verify"]}
 
 
+# ------------------------------------------------------------- engine_spec
+
+# Llama-3.1-8B (its published config.json): 32 layers, 32 query heads over
+# 8 KV heads of dim 128, llama3 rope scaling (factor 8), untied 128,256
+# vocabulary: 8.03 B parameters, 16.1 GB in bf16. Drafted by Llama-3.2-1B
+# (FLAGSHIP, the same vocabulary)
+LLAMA_31_8B = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "rope_theta": 500000.0,
+    "rope_scaling": {"rope_type": "llama3", "factor": 8.0,
+                     "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192},
+    "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
+    "tie_word_embeddings": False, "hidden_act": "silu",
+    "attention_bias": False, "bos_token_id": 128000,
+    "eos_token_id": [128001, 128008, 128009], "torch_dtype": "bfloat16",
+}
+SPEC_DRAFT_K = 4
+# leg C's self-draft: the first prompts of the spec wave
+SPEC_SELF_REQUESTS = 4
+SPEC_CHAIN = dict(decode_pipeline_depth=2, multi_step_decode=4)
+SPEC_CLI_TIMEOUT_S = 300
+
+
+def _flagship_hf_config():
+    """FLAGSHIP (Llama-3.2-1B) as its published ``config.json``."""
+    f = FLAGSHIP
+    return {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": f["vocab_size"], "hidden_size": f["hidden_size"],
+        "intermediate_size": f["intermediate_size"],
+        "num_hidden_layers": f["num_layers"],
+        "num_attention_heads": f["num_heads"],
+        "num_key_value_heads": f["num_kv_heads"], "head_dim": f["head_dim"],
+        "rope_theta": f["rope_theta"],
+        "max_position_embeddings": f["max_position_embeddings"],
+        "tie_word_embeddings": f["tie_word_embeddings"],
+        "rope_scaling": f["rope_scaling"], "rms_norm_eps": 1e-5,
+        "hidden_act": "silu", "attention_bias": False,
+        "bos_token_id": 128000, "eos_token_id": 128009,
+        "torch_dtype": "bfloat16"}
+
+
+def _llama_hf_tensors(params, layers):
+    """(HF name, the tensor on the card in HF's [out, in] layout) of a
+    Llama checkpoint; a tied head (no ``lm_head`` leaf) writes none."""
+    out = [("model.embed_tokens.weight", params["embed"]),
+           ("model.norm.weight", params["final_norm"])]
+    if "lm_head" in params:
+        out.append(("lm_head.weight", params["lm_head"].T))
+    lay = params["layers"]
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", lay["ln1"][i]),
+                (p + "post_attention_layernorm.weight", lay["ln2"][i])]
+        for key, name in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                          ("wo", "o_proj")):
+            out.append((p + f"self_attn.{name}.weight", lay[key][i].T))
+        for key, name in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                          ("w_down", "down_proj")):
+            out.append((p + f"mlp.{name}.weight", lay[key][i].T))
+    return out
+
+
+def _guard_spec_rounds(torch, engine, on_card=True):
+    """Wrap the pieces of a propose-verify round so that each runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside raises):
+    the target's ``decode_burst_spec``, the draft's ``decode_burst`` and the
+    device mask between them (the draft's ``live_rows``), and the outputs'
+    staging. Counts, per call, the verify kernel's launches of a round
+    (once a target layer) and the decode kernel's and the epilogue's of a
+    draft burst (once a draft layer a step, once a step), and the
+    synchronous verify steps (``step`` with ``want_greedy``)."""
+    from dynamo_tpu_torch.ops import epilogue, paged_decode, paged_verify
+
+    runner, draft = engine.runner, engine.scheduler.draft
+    t_layers = runner.config.model.num_layers
+    stats = dict(rounds=0, draft_bursts=0, sync_verifies=0, bad=[])
+
+    def guarded(fn):
+        def wrapped(*args, **kw):
+            if not on_card:
+                return fn(*args, **kw)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return wrapped
+
+    spec = runner.decode_burst_spec
+
+    def round_(*args, **kw):
+        v0 = paged_verify.launches
+        out = guarded(spec)(*args, **kw)
+        stats["rounds"] += 1
+        if on_card and paged_verify.launches - v0 != t_layers:
+            stats["bad"].append(("decode_burst_spec", paged_verify.launches - v0))
+        return out
+
+    runner.decode_burst_spec = round_
+    runner.stage_to_host = guarded(runner.stage_to_host)
+    step = runner.step
+
+    def step_(*args, **kw):
+        if kw.get("want_greedy"):
+            stats["sync_verifies"] += 1
+        return step(*args, **kw)
+
+    runner.step = step_
+    if draft is not None:
+        d_layers = draft.config.model.num_layers
+        k1 = draft.config.multi_step_decode
+        burst = draft.decode_burst
+
+        def burst_(*args, **kw):
+            d0, e0 = paged_decode.launches, epilogue.launches
+            out = guarded(burst)(*args, **kw)
+            stats["draft_bursts"] += 1
+            got = (paged_decode.launches - d0, epilogue.launches - e0)
+            if on_card and got != (k1 * d_layers, k1):
+                stats["bad"].append(("draft decode_burst", got))
+            return out
+
+        draft.decode_burst = burst_
+        draft.live_rows = guarded(draft.live_rows)
+    return stats
+
+
+def _record_proposals(engine):
+    """Wrap the synchronous draft round's proposer: per call, each row's
+    history (prompt and emitted tokens, the pending one last) and its
+    proposals."""
+    sched = engine.scheduler
+    propose = sched._draft_propose
+    rounds = []
+
+    async def recorded(loop, active, K):
+        props = await propose(loop, active, K)
+        for er in active:
+            rounds.append((er.prompt, len(er.seq.token_ids) + 1 - len(er.prompt),
+                           props[er.slot]))
+        return props
+
+    sched._draft_propose = recorded
+    return rounds
+
+
+def _rejections_at_near_ties(torch, runner, rounds, requests, results):
+    """Every proposal of a self-draft that the verify rejected, at a
+    near-tie: the round's history and the stream give the first rejected
+    position; there the target's logits from one plain forward of the
+    whole sequence have a top-2 gap under NEAR_TIE of their max |logit|.
+    Returns the records and the counts of rounds and rejections."""
+    streams = {tuple(p): r["tokens"] for (p, _), r in zip(requests, results)}
+    records = []
+    for prompt, n, props in rounds:
+        toks = streams[tuple(prompt)]
+        a = 0
+        while a < len(props) and n + a < len(toks) and toks[n + a] == props[a]:
+            a += 1
+        if a == len(props) or n + a >= len(toks):
+            continue   # all accepted, or the stream ended first
+        lg = _last_logits(torch, runner, prompt + toks[: n + a])
+        top2 = torch.topk(lg, 2)
+        gap = float(top2.values[0] - top2.values[1])
+        rel = gap / float(lg.abs().max())
+        records.append(dict(position=n + a, proposed=props[a],
+                            verified=toks[n + a], top2_gap=gap,
+                            gap_over_max_abs_logit=rel))
+        if not rel < NEAR_TIE:
+            raise AssertionError(
+                f"the self-draft's proposal {props[a]} was rejected for "
+                f"{toks[n + a]} where the top-2 gap is {rel:.4g} of the max "
+                f"|logit| (>= {NEAR_TIE})")
+    return records
+
+
+def _verify_s17(torch, runner, smi):
+    """Kernel 4 at S 17 (K 16) on the 8B target's own cache after a wave:
+    D 128, G 4, eight rows over blocks of that cache, held against the f32
+    plain version on its first and last layer (each a one-layer view), and
+    timed on the first (a CUDA graph's replay, as the kernels phase times
+    it, and eager) beside the plain version and SDPA over the rows' K/V
+    gathered to dense (the kernels phase's yardstick)."""
+    from dynamo_tpu_torch.ops import paged_verify as pv
+
+    F = torch.nn.functional
+
+    k, v = runner.kv_cache
+    L, N, BS, KVH, D = k.shape
+    H, S, B = runner.config.model.num_heads, 17, 8
+    g = torch.Generator(device=k.device).manual_seed(SEED + 17)
+    ctx = torch.tensor([250, 300, 411, 600, 17, 33, 520, 128], dtype=torch.int32,
+                       device=k.device)
+    base = torch.clamp(ctx - S, min=0)
+    nb = -(-int(ctx.max()) // BS)
+    bt = torch.stack([torch.randperm(N, generator=g, device=k.device)[:nb]
+                      for _ in range(B)]).int()
+    q = torch.randn(B, S, H, D, generator=g, device=k.device).bfloat16()
+    errs = {}
+    for layer in (0, L - 1):
+        kl, vl = k[layer: layer + 1], v[layer: layer + 1]
+        errs[f"layer{layer}"] = _verify_check(
+            torch, pv, f"8B S=17 layer {layer}", q, kl, vl, kl.float(),
+            vl.float(), bt, base, ctx, 0)
+    k0, v0 = k[:1], v[:1]
+    ms = graph_ms(lambda: pv.paged_verify_attention(q, k0, v0, bt, base, ctx,
+                                                    layer_idx=0))
+    eager_ms = cuda_ms(lambda: pv.paged_verify_attention(
+        q, k0, v0, bt, base, ctx, layer_idx=0))
+    k0f, v0f = k0.float(), v0.float()
+    plain = cuda_ms(lambda: pv.paged_verify_attention_ref(
+        q.float(), k0f, v0f, bt, base, ctx, 0))
+    T = int(ctx.max())
+    kd = k[0][bt.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+    vd = v[0][bt.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+    kd = kd.repeat_interleave(H // KVH, dim=1).contiguous()
+    vd = vd.repeat_interleave(H // KVH, dim=1).contiguous()
+    qpos = base.long()[:, None, None] + torch.arange(S, device=k.device)[None, :, None]
+    keys = torch.arange(T, device=k.device)[None, None, :]
+    mask = ((keys <= qpos) & (keys < ctx.long()[:, None, None]))[:, None]
+    qd = q.transpose(1, 2).contiguous()
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                             attn_mask=mask))
+    flops = sum(4.0 * D * H * _visible(b + np.arange(c - b), c, 1 << 30).sum()
+                for b, c in zip(base.tolist(), ctx.tolist()))
+    kv_bytes = sum(min(c, b + S) * KVH * D * 2 * 2
+                   for b, c in zip(base.tolist(), ctx.tolist()))
+    bound, by = _bound_ms(flops, 2 * q.numel() * 2 + kv_bytes)
+    return dict(shape=dict(B=B, S=S, H=H, KVH=KVH, D=D, ctx=ctx.tolist()),
+                max_err=errs, ms=ms, eager_ms=eager_ms, plain_ms=plain,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, card=smi)
+
+
+def _wave_summary(res, wall, metrics, stats=None):
+    ttfts = sorted(r["ttft_s"] for r in res)
+    m = metrics
+    out = dict(wall_s=wall, decode_wall_s=wall - ttfts[-1],
+               ttft_s=dict(min=ttfts[0], max=ttfts[-1]),
+               proposed=m.get("spec_proposed_tokens"),
+               accepted=m.get("spec_accepted_tokens"),
+               acceptance=(m["spec_accepted_tokens"] / m["spec_proposed_tokens"]
+                           if m.get("spec_proposed_tokens") else None),
+               decode_steps=m["decode_steps"], chain_len_max=m["chain_len_max"],
+               sync_fallback=m["sync_fallback"])
+    if stats is not None:
+        rounds = stats["rounds"] + stats["sync_verifies"]
+        out.update(rounds=stats["rounds"], sync_verifies=stats["sync_verifies"],
+                   draft_bursts=stats["draft_bursts"],
+                   decode_wall_s_per_round=(out["decode_wall_s"] / rounds
+                                            if rounds else None))
+    return out
+
+
+def engine_spec_phase(torch, dev, smi):
+    """The rest of speculation on the card (the module docstring's
+    ``engine_spec``)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="engine_spec_"))
+    try:
+        return _engine_spec(torch, dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _engine_spec(torch, dev, smi, tmp):
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import (
+        TorchServingEngine,
+        engine_config_from_mdc,
+    )
+    from dynamo_tpu_torch.models import llama
+
+    on_card = torch.device(dev).type == "cuda"
+    rng = np.random.default_rng(SEED)
+    _requests(rng)
+    reqs = _spec_requests(rng)      # the engine phase's spec prompts
+    target = ModelConfig.from_hf_config(LLAMA_31_8B)
+    small = ModelConfig(**FLAGSHIP)
+
+    # the draft: Llama-3.2-1B drawn on the card and written as a snapshot
+    t0 = time.monotonic()
+    draft_dir = tmp / "llama-3.2-1b-draft"
+    draft_dir.mkdir()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    draft_params = llama.init_params(small, gen, torch.bfloat16, dev)
+    snapshot_bytes = write_safetensors_snapshot(
+        draft_dir, _llama_hf_tensors(draft_params, small.num_layers))
+    (draft_dir / "config.json").write_text(json.dumps(_flagship_hf_config()))
+    write_s = time.monotonic() - t0
+    if ModelConfig.from_model_dir(str(draft_dir)) != small:
+        raise AssertionError("the draft directory's config parses to another "
+                             "model than Llama-3.2-1B")
+
+    def config(model, **kw):
+        return EngineConfig(model=model, seed=SEED, **dict(ENGINE, **kw))
+
+    draft_kw = dict(spec_draft_model=str(draft_dir),
+                    spec_draft_tokens=SPEC_DRAFT_K)
+
+    async def serve(cfg, params=None, guard=False, record=False):
+        t0 = time.monotonic()
+        engine = await TorchServingEngine.create(cfg, params=params, device=dev)
+        setup_s = time.monotonic() - t0
+        stats = _guard_spec_rounds(torch, engine, on_card) if guard else None
+        rounds = _record_proposals(engine) if record else None
+        try:
+            _reset_launches()
+            t1 = time.monotonic()
+            res = await _serve(engine, reqs[:SPEC_SELF_REQUESTS] if record
+                               else reqs, SPEC_NEW_TOKENS)
+            wall = time.monotonic() - t1
+            launches = _read_launches()
+            out = dict(res=res, wall=wall, setup_s=setup_s, launches=launches,
+                       metrics=engine.metrics(), stats=stats, rounds=rounds,
+                       params=engine.runner.params)
+            out["summary"] = _wave_summary(res, wall, out["metrics"], stats)
+            out["engine"] = engine
+        except BaseException:
+            await engine.close()
+            raise
+        return out
+
+    async def close(leg):
+        await leg.pop("engine").close()
+
+    async def legs():
+        out = {}
+        # the plain synchronous engine (its params serve every 8B leg)
+        base = await serve(config(target))
+        params = base["params"]
+        await close(base)
+        out["base_sync"] = base
+        # A: the synchronous draft engine
+        a = await serve(config(target, **draft_kw), params, guard=True)
+        a["parted"] = _spec_agreement(torch, a["engine"].runner, reqs,
+                                      base["res"], a["res"])
+        await close(a)
+        out["A"] = a
+        # the plain chained engine, then B: the chained draft engine
+        base_c = await serve(config(target, **SPEC_CHAIN), params)
+        await close(base_c)
+        out["base_chain"] = base_c
+        b = await serve(config(target, **SPEC_CHAIN, **draft_kw), params,
+                        guard=True)
+        b["parted"] = _spec_agreement(torch, b["engine"].runner, reqs,
+                                      base_c["res"], b["res"])
+        b["verify_s17"] = (_verify_s17(torch, b["engine"].runner, smi)
+                           if on_card else None)
+        await close(b)
+        out["B"] = b
+        # D: chained ngram speculation on the 8B
+        d = await serve(config(target, **SPEC_CHAIN, **SPEC), params, guard=True)
+        d["parted"] = _spec_agreement(torch, d["engine"].runner, reqs,
+                                      base_c["res"], d["res"])
+        await close(d)
+        out["D"] = d
+        for leg in out.values():
+            leg.pop("params")
+        del params
+        gc.collect()
+        # C: the 1B drafted by its own snapshot (the target holds the same
+        # leaves the snapshot was written from)
+        c = await serve(config(small, **draft_kw), draft_params, guard=True,
+                        record=True)
+        c["rejections"] = _rejections_at_near_ties(
+            torch, c["engine"].runner, c["rounds"], reqs, c["res"])
+        await close(c)
+        c.pop("params")
+        out["C"] = c
+        return out
+
+    out = asyncio.run(legs())
+    del draft_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # E: the CLI's engine builder with the draft flags
+    target_dir = tmp / "llama-3.1-8b-random"
+    target_dir.mkdir()
+    (target_dir / "config.json").write_text(json.dumps(LLAMA_31_8B))
+    extra = tmp / "extra.json"
+    extra.write_text(json.dumps(dict(
+        max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"])))
+    argv = ["--model-path", str(target_dir), "--allow-random-weights",
+            "--extra-engine-args", str(extra),
+            "--max-model-len", str(ENGINE["max_model_len"]),
+            "--num-kv-blocks", str(ENGINE["num_kv_blocks"]),
+            "--kv-block-size", str(ENGINE["kv_block_size"]),
+            "--max-batch-size", str(ENGINE["max_batch_size"]),
+            "--decode-pipeline-depth", "2", "--multi-step-decode", "4",
+            "--spec-draft-model", str(draft_dir),
+            "--spec-draft-tokens", str(SPEC_DRAFT_K)] + (
+                [] if on_card else ["--device", "cpu"])
+
+    async def cli_leg():
+        flags = run.parse_flags(argv)
+        mdc = run.load_mdc(flags)
+        cfg = engine_config_from_mdc(mdc, flags)
+        fields = {k: getattr(cfg, k) for k in (
+            "spec_draft_model", "spec_draft_tokens", "decode_pipeline_depth",
+            "multi_step_decode", "max_prefill_tokens_per_step")}
+        want = dict(spec_draft_model=str(draft_dir), spec_draft_tokens=SPEC_DRAFT_K,
+                    decode_pipeline_depth=2, multi_step_decode=4,
+                    max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"])
+        if fields != want:
+            raise AssertionError(f"the CLI's draft flags gave {fields}")
+        t0 = time.monotonic()
+        engine = await asyncio.wait_for(run.build_core_engine("torch", flags, mdc),
+                                        SPEC_CLI_TIMEOUT_S)
+        build_s = time.monotonic() - t0
+        try:
+            t1 = time.monotonic()
+            res = await _serve(engine, reqs, SPEC_NEW_TOKENS)
+            wall = time.monotonic() - t1
+            parted = _spec_agreement(torch, engine.runner, reqs,
+                                     out["B"]["res"], res)
+            m = engine.metrics()
+        finally:
+            await engine.close()
+        return dict(fields=fields, build_s=build_s, res=res, parted=parted,
+                    summary=_wave_summary(res, wall, m))
+
+    e = asyncio.run(cli_leg())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    legs_out = dict(out, E=e)
+    emit("engine_spec",
+         target="Llama-3.1-8B at full width and depth, seeded random bf16 "
+         "weights", draft="Llama-3.2-1B from a written safetensors snapshot",
+         config=ENGINE, spec_draft_tokens=SPEC_DRAFT_K, ngram=SPEC,
+         chain=SPEC_CHAIN, requests=len(reqs), new_tokens=SPEC_NEW_TOKENS,
+         snapshot_bytes=snapshot_bytes, snapshot_write_s=write_s,
+         legs={name: dict(leg["summary"], setup_s=leg.get("setup_s"),
+                          streams_equal=(None if "parted" not in leg else
+                                         len(leg["res"]) - len(leg["parted"])),
+                          parted=leg.get("parted"),
+                          rejections=leg.get("rejections"),
+                          launches=leg.get("launches"),
+                          dispatches=({k: v for k, v in leg["stats"].items()}
+                                      if leg.get("stats") else None))
+               for name, leg in legs_out.items()},
+         cli=dict(fields=e["fields"], build_s=e["build_s"]),
+         verify_s17=out["B"]["verify_s17"], card=smi)
+
+    # the checks, after the numbers are out
+    for name, leg in legs_out.items():
+        n = SPEC_SELF_REQUESTS if name == "C" else len(reqs)
+        _check_streams(leg["res"], SPEC_NEW_TOKENS)
+        if len(leg["res"]) != n:
+            raise AssertionError(f"leg {name}: {len(leg['res'])} streams")
+    for name in ("A", "B", "C", "D"):
+        st = out[name]["stats"]
+        if st["bad"]:
+            raise AssertionError(f"leg {name}: a round launched the wrong "
+                                 f"kernel counts: {st['bad'][:4]}")
+    a, b, c, d = (out[k] for k in "ABCD")
+    for name, leg in (("A", a), ("B", b), ("C", c)):
+        if leg["metrics"]["spec_proposed_tokens"] <= 0:
+            raise AssertionError(f"leg {name}: the draft proposed nothing")
+    if a["stats"]["sync_verifies"] <= 0 or a["stats"]["draft_bursts"] <= 0:
+        raise AssertionError(f"leg A ran no synchronous draft round: {a['stats']}")
+    if b["stats"]["rounds"] <= 1 or b["metrics"]["chain_len_max"] <= 1:
+        raise AssertionError(f"leg B: the chain never reached a second round: "
+                             f"{b['stats']} {b['metrics']['chain_len_max']}")
+    if b["stats"]["draft_bursts"] < b["stats"]["rounds"]:
+        raise AssertionError("leg B: a chained round ran without its draft burst")
+    if d["metrics"]["spec_proposed_tokens"] <= 0 or d["stats"]["rounds"] <= 1:
+        raise AssertionError(f"leg D: chained ngram speculation proposed "
+                             f"nothing or never chained: {d['summary']}")
+    if on_card:
+        _check_launches("draft chained", b["launches"],
+                        ("paged_verify", "paged_decode", "epilogue"), layers=16)
+        _check_launches("ngram chained", d["launches"], ("paged_verify",),
+                        layers=LLAMA_31_8B["num_hidden_layers"])
+        _check_launches("draft sync", a["launches"],
+                        ("paged_verify", "paged_decode", "epilogue"), layers=16)
+    return dict(paged_verify=b["launches"]["paged_verify"]
+                + d["launches"]["paged_verify"],
+                paged_decode=b["launches"]["paged_decode"],
+                paged_flash=b["launches"]["paged_flash"],
+                sampling_epilogue=(b["launches"]["epilogue"]
+                                   - b["launches"]["epilogue_finish"]))
+
+
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
           "engine_mixtral_int8", "engine_sp", "engine_http", "engine_guided",
-          "engine_graph", "engine_disagg", "engine_kv_tiers", "engine_load")
+          "engine_graph", "engine_disagg", "engine_kv_tiers", "engine_load",
+          "engine_spec")
 
 
 def main(argv=None) -> int:
@@ -8993,6 +9527,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()
+    spec_launches = {}
+    if "engine_spec" in phases:
+        # the rest of speculation (a drafted Llama-3.1-8B, chained rounds):
+        # the chained draft engine's counts, kernel 4's beside the chained
+        # ngram engine's
+        t0 = time.monotonic()
+        spec_launches = engine_spec_phase(torch, dev, smi)
+        phase_s["engine_spec"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
 
     kernels = [dict(entry, launches=launches.get(key),
                     **({"launches_engine_http": http_launches[key]}
@@ -9004,7 +9549,9 @@ def main(argv=None) -> int:
                     **({"launches_engine_disagg": disagg_launches[key]}
                        if key in disagg_launches else {}),
                     **({"launches_engine_kv_tiers": tiers_launches[key]}
-                       if key in tiers_launches else {}))
+                       if key in tiers_launches else {}),
+                    **({"launches_engine_spec": spec_launches[key]}
+                       if key in spec_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     # a form no cell serves (``path`` says so) has no count: null

@@ -85,15 +85,14 @@ ROUTER_MODES = ("round_robin", "random", "kv")
 GRACEFUL_SHUTDOWN_S = 30.0
 
 # the reference's flags this CLI does not take (each raises by name):
-# multi-device, draft models, the ici transfer plane, recovery, planning,
-# tenants and telemetry sidecars are not ported
+# multi-device, the ici transfer plane, recovery, planning, tenants and
+# telemetry sidecars are not ported
 REFUSED_FLAGS = (
     "--tensor-parallel-size", "--expert-parallel-size",
     "--data-parallel-size", "--pipeline-parallel-size",
     "--isolate-engine",
     "--engine-heartbeat-s", "--engine-heartbeat-misses",
     "--engine-init-timeout-s",
-    "--spec-draft-model", "--spec-draft-tokens",
     "--ici-sender-rank", "--ici-receiver-rank", "--num-nodes", "--node-rank",
     "--leader-addr", "--profile-dir", "--profiler-port", "--flight-dir",
     "--watchdog-stall-s", "--self-heal", "--drain-grace-s", "--respawn-max",
@@ -169,6 +168,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "requests; 0 = off)")
     p.add_argument("--spec-ngram-match", type=int, default=3,
                    help="trailing n-gram length the proposer looks up")
+    p.add_argument("--spec-draft-model", default=None,
+                   help="draft-model speculative decoding: HF dir of a "
+                        "small same-tokenizer model that proposes "
+                        "--spec-draft-tokens per round (one burst) for the "
+                        "target to verify in one forward")
+    p.add_argument("--spec-draft-tokens", type=int, default=0,
+                   help="proposals per draft round (2..16)")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
                    help="sequence-parallel ranks of the long-prompt prefill "
                         "ladder (laid out on the one card)")

@@ -607,12 +607,14 @@ class EngineConfig:
         """Refuse the features the port does not serve yet.
 
         Served: per-token decode steps and K-step bursts
-        (``multi_step_decode``), ngram speculative decoding on the
-        synchronous path, the dispatch-ahead pipeline
+        (``multi_step_decode``), speculative decoding with ngram proposals
+        (``spec_ngram_tokens``) or a draft model's (``spec_draft_model``,
+        ``spec_draft_tokens``), the dispatch-ahead pipeline
         (``decode_pipeline_depth=2``) and the chained device-finish loop
         on top of it (``device_finish``, with ``guided_device_table``,
         ``guided_table_max_states`` and ``device_stop_strings`` as live
-        knobs), sequence-parallel prefill (``sp_size``, its ranks on the
+        knobs; with speculation, its chained propose-verify round),
+        sequence-parallel prefill (``sp_size``, its ranks on the
         one device), disaggregated prefill (``disagg_stream_depth``, and
         ``long_prefill_threshold_tokens`` at ``sp_size`` 1: the prefill
         pool's admission class), the KV tiers and the cluster KV fabric
@@ -621,20 +623,13 @@ class EngineConfig:
         or in fp8 (``kv_cache_dtype="fp8"``; any other value raises the
         reference's ``ValueError``), the weights in the activation dtype
         or in int8 (``quantization="int8"``; any other scheme raises
-        ``ValueError`` by name, as in the reference). Not served: the
-        chained propose-verify round (so the pipeline together with
-        speculation), draft models, several devices (so SP over TP heads).
+        ``ValueError`` by name, as in the reference). Not served: several
+        devices (so SP over TP heads).
         Each refusal names the knob so a reference config that uses it
         fails loudly instead of serving something else."""
         check_quantization(self.model)
         check_kv_cache_dtype(self.kv_cache_dtype)
         unported = []
-        if self.decode_pipeline_depth >= 2 and self.spec_ngram_tokens > 0:
-            unported.append(
-                "decode_pipeline_depth >= 2 with spec_ngram_tokens > 0 (the "
-                "chained propose-verify round)")
-        if self.spec_draft_model:
-            unported.append("spec_draft_model (draft-model speculation)")
         if self.sp_size > 1 and self.tp_size > 1:
             unported.append(
                 "sp_size > 1 with tp_size > 1 (the SP ring over "

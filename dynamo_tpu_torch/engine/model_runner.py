@@ -27,8 +27,14 @@ ranks laid out on the one device). The block ops (``gather_blocks_device``,
 pair in and out for the disaggregated transfer, ordered on the runner's
 stream with its programs. ``embed_prompts`` runs the cacheless embed
 trunk for /v1/embeddings (Llama-family dense trunks, as in the reference).
-Not in this slice (later work): the chained propose-verify round,
-draft-model speculation, CUDA graphs and compile tracking.
+``decode_burst_spec`` is the chained propose-verify round: S = K + 1
+positions through one forward off the chained burst's device carry, the
+proposals drawn on the device from the carry's suffix ring (ngram,
+``_ngram_props``) or handed in as the draft model's burst output (a draft
+runner's ``decode_burst`` takes the target's carry as device tensors), the
+accepted prefix and the correction folded into the carry with the chained
+burst's freeze semantics. Not in this slice (later work): CUDA graphs and
+compile tracking.
 """
 
 from __future__ import annotations
@@ -60,6 +66,33 @@ from .sampling import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def _ngram_props(ring: torch.Tensor, match: int, k: int) -> torch.Tensor:
+    """In-program prompt lookup over the carry's trailing-token ring (the
+    reference's ``_ngram_props``): the latest earlier occurrence of the
+    trailing ``match``-gram whose ``k``-token continuation lies wholly
+    inside the ring, and that continuation ([B, k] int64, -1 where nothing
+    matches). The device analog of ``scheduler.ngram_propose`` bounded to
+    the ring: proposals move acceptance only, never the stream (the verify
+    emits the target's own greedy tokens)."""
+    b, w = ring.shape
+    dev = ring.device
+    tail = ring[:, w - match:]                              # [B, m]
+    s_idx = torch.arange(w - match, device=dev)             # the tail excluded
+    win_idx = s_idx[:, None] + torch.arange(match, device=dev)[None, :]
+    wins = ring[:, win_idx]                                 # [B, S0, m]
+    hit = (wins == tail[:, None, :]).all(-1) & (wins >= 0).all(-1)
+    full = (s_idx + match + k) <= w                         # continuation in the ring
+    cand = hit & full[None, :]
+    s_best = torch.where(cand, s_idx[None, :], -1).max(dim=1).values  # the latest
+    has = s_best >= 0
+    # rows with no match index from 0: held inside the ring (their
+    # proposals are -1 below)
+    cont = (s_best.clamp(min=0)[:, None] + match
+            + torch.arange(k, device=dev)[None, :]).clamp(max=w - 1)
+    props = torch.gather(ring, 1, cont).long()
+    return torch.where(has[:, None] & (props >= 0), props, -1)
 
 
 def resolve_device(device) -> torch.device:
@@ -268,6 +301,11 @@ class ModelRunner:
         self.params = params
         self._reinit_device_state()
         self._build_sp_prefill()
+        # the chained propose-verify round: K proposals (a draft model's or
+        # the ngram lookup's) on the device-finish carry
+        k = config.spec_draft_tokens if config.spec_draft_model \
+            else config.spec_ngram_tokens
+        self._spec_k = k if k > 0 and config.device_finish_enabled else 0
 
     def _build_sp_prefill(self) -> None:
         """The sequence-parallel prefill chunk's gate and fixed shape (the
@@ -315,6 +353,12 @@ class ModelRunner:
         """Several host arrays → device tensors in one transfer
         (``name=(array, dtype)``; see ``to_device_packed``)."""
         return to_device_packed(self.device, **specs)
+
+    def live_rows(self, commit, done) -> torch.Tensor:
+        """The members a chained carry has not frozen, ``commit & ~done``,
+        as a mask on this runner's device: ``done`` may be the carry's
+        device tensor, which is not read on the host."""
+        return self._t(commit, torch.bool) & ~self._t(done, torch.bool)
 
     def stage_to_host(self, *tensors: torch.Tensor) -> HostCopy:
         """Start a dispatched program's outputs on their way to the host."""
@@ -419,7 +463,7 @@ class ModelRunner:
         self,
         tokens0,                   # [B] pending token per row: host array,
                                    # or a device tensor (dispatch-ahead carry)
-        positions0: np.ndarray,    # [B] its position
+        positions0,                # [B] its position: likewise
         block_tables: np.ndarray,  # [B, W] covering positions0 + K
         temperature: np.ndarray,
         top_k: np.ndarray,
@@ -431,7 +475,8 @@ class ModelRunner:
         repetition_penalty: np.ndarray,
         seed_keys: np.ndarray,     # [B, 2] u32 per-row keys
         counters: np.ndarray,      # [B] i32 step counters of the first step
-        commit: np.ndarray,        # [B] row is live (inactive rows inert)
+        commit,                    # [B] row is live (inactive rows inert):
+                                   # host array or device tensor
         want_top: bool = False,
     ) -> Tuple[torch.Tensor, ...]:
         """K = ``multi_step_decode`` single-token steps, each sampled token
@@ -446,18 +491,26 @@ class ModelRunner:
         live: the dispatch-ahead pipeline and the SP handoff take this
         form, and the synchronous scheduler's bursts take
         ``decode_burst_chained``, which freezes it (on a MoE trunk a row's
-        experts depend on the rows before it). Returns (tokens, logprobs,
+        experts depend on the rows before it). A draft model's burst in a
+        chained propose-verify round takes ``tokens0``, ``positions0`` and
+        ``commit`` as device tensors (the target's carry, its live rows)
+        and reads none of them on the host. Returns (tokens, logprobs,
         top_vals, top_ids) as [K, B]-leading device tensors."""
         cfg = self.config.model
         k_steps = self.config.multi_step_decode
         bs = self.config.kv_block_size
-        b = len(positions0)
+        b = block_tables.shape[0]
         temperature = np.asarray(temperature, np.float32)
         samp = SamplingParams.from_host(
             self.device, temperature, top_k, top_p, min_p, presence_penalty,
             frequency_penalty, repetition_penalty)
-        # rows that do not commit never read their noise
-        sampled_rows = np.nonzero((temperature > 0.0) & np.asarray(commit, bool))[0]
+        # rows that do not commit never read their noise; a device commit
+        # mask is not read here, so its sampled rows all draw (a draft's
+        # inert greedy rows draw none)
+        sampled = temperature > 0.0
+        if not isinstance(commit, torch.Tensor):
+            sampled &= np.asarray(commit, bool)
+        sampled_rows = np.nonzero(sampled)[0]
         counters = np.asarray(counters, np.int64)
         d = self._tp(bt=(block_tables, torch.int32), live=(commit, torch.bool),
                      toks=(tokens0, torch.int64), pos=(positions0, torch.int64))
@@ -792,6 +845,113 @@ class ModelRunner:
         return toks_o, lps_o, tvs, tis, (toks, pos, gen, done, ring, gstate)
 
     @property
+    def spec_burst_ready(self) -> bool:
+        """Is the chained propose-verify round served? (Speculation is
+        configured and the device-finish loop is on; the scheduler gates
+        the speculative chain on this.)"""
+        return self._spec_k > 0
+
+    @torch.inference_mode()
+    def decode_burst_spec(
+        self,
+        tokens0,                   # [B] host array (chain start) or device carry
+        positions0,
+        gen0,
+        done0,
+        ring0,                     # [B, SUFFIX_RING_W]
+        gstate0,                   # [B] passed through (spec rows are unguided)
+        block_tables: np.ndarray,  # [B, W]
+        *,
+        commit,                    # [B] bool: host array or device tensor
+        stop_ids: np.ndarray,
+        min_new: np.ndarray,
+        max_new: np.ndarray,
+        stop_hash: np.ndarray,
+        stop_hlen: np.ndarray,
+        proposals=None,            # [B, K] device tensor (a draft's) or None (ngram)
+    ):
+        """One chained propose-verify round (the reference's ``spec_round``
+        in ``_build_spec_burst``).
+
+        S = K + 1 positions per row (the pending token and up to K
+        proposals, -1 proposals riding as token 0) run through ONE forward,
+        whose attention at S <= 32 is the verify kernel on a card; the
+        full head's per-position argmax is the verify. The accepted prefix
+        and the correction then fold into the carry token by token with
+        the chained burst's freeze semantics (``device_finish_mask`` and
+        the stop-sequence candidate on each emitted token, ``ring_push``).
+        Spec rows are greedy and penalty-free, so the round takes no
+        sampling parameters and leaves the sample state alone. Nothing is
+        read on the host.
+
+        Returns ``(toks [S, B], nprop [B], nacc [B], carry)``: -1 pads past
+        each row's acceptance or freeze, the proposals counted per live
+        row, the proposals that verified (even where a finish truncates
+        the emit), and the carry of ``decode_burst_chained``."""
+        if not self.spec_burst_ready:
+            raise RuntimeError(
+                "decode_burst_spec needs speculation (spec_ngram_tokens or "
+                "spec_draft_model) and the device-finish loop")
+        cfg = self.config.model
+        K = self._spec_k
+        S = K + 1
+        bs = self.config.kv_block_size
+        max_len = self.config.max_model_len
+        b = block_tables.shape[0]
+        i32, i64 = torch.int32, torch.int64
+        specs = dict(
+            bt=(block_tables, i32), member=(commit, torch.bool),
+            sids=(stop_ids, i32), mn=(min_new, i32), mx=(max_new, i32),
+            sh=(stop_hash, i64), sl=(stop_hlen, i32),
+            toks=(tokens0, i64), pos=(positions0, i64), gen=(gen0, i32),
+            done=(done0, torch.bool), ring=(ring0, i32), gstate=(gstate0, i64))
+        if proposals is not None:
+            specs["props"] = (proposals, i64)
+        d = self._tp(**specs)
+        bt, member, sids, mn, mx, sh, sl = (
+            d[k] for k in ("bt", "member", "sids", "mn", "mx", "sh", "sl"))
+        toks, pos, gen, done, ring, gstate = (
+            d[k] for k in ("toks", "pos", "gen", "done", "ring", "gstate"))
+        props = (d["props"] if proposals is not None
+                 else _ngram_props(ring, self.config.spec_ngram_match, K))
+        rows = torch.arange(b, device=self.device)
+        live0 = member & ~done
+        valid = props >= 0                                     # [B, K]
+        row_toks = torch.cat([toks[:, None], torch.where(valid, props, 0)], 1)
+        poss = pos[:, None] + torch.arange(S, device=self.device)[None, :]
+        blk = bt[rows[:, None], (poss // bs).clamp(max=bt.shape[1] - 1)]
+        slots = torch.where(live0[:, None], blk.long() * bs + poss % bs, -1)
+        # context pos + S, held within the table for rows that write nothing
+        hidden, self.kv_cache = self.arch.forward(
+            self.params, cfg, row_toks, poss, self.kv_cache, bt, slots,
+            _table_ctx(pos + S - 1, bt, bs), return_hidden=True)
+        greedy = torch.argmax(self.arch.lm_logits(hidden, self.params, cfg),
+                              dim=-1)                          # [B, S]
+        m = valid & (greedy[:, :K] == props)
+        acc = torch.cumprod(m.to(i32), dim=1).sum(dim=1)
+        nprop = torch.where(live0, valid.to(i32).sum(dim=1), 0)
+        # acceptance counts the proposals that verified, even where a
+        # finish truncates the emit below (as the synchronous verify does)
+        nacc = torch.where(live0, acc, 0)
+        outs = []
+        toks_c, pos_c, gen_c, done_c, ring_c = toks, pos, gen, done, ring
+        for j in range(S):
+            t_j = greedy[:, j]
+            emit = live0 & ~done_c & (acc >= j)
+            gen_c = gen_c + emit.to(i32)
+            ring_c = ring_push(ring_c, t_j, emit)
+            hard = device_finish_mask(t_j, gen_c, pos_c, sids, mn, mx, max_len)
+            cand = stop_candidate_mask(ring_c, gen_c, mn, sh, sl)
+            newly = emit & (hard | cand)
+            outs.append(torch.where(emit, t_j, -1))
+            adv = emit & ~newly
+            toks_c = torch.where(adv, t_j, toks_c)
+            pos_c = torch.where(adv, pos_c + 1, pos_c)
+            done_c = done_c | newly
+        return (torch.stack(outs), nprop, nacc,
+                (toks_c, pos_c, gen_c, done_c, ring_c, gstate))
+
+    @property
     def embed_ready(self) -> bool:
         """Can this runner serve the embeddings workload? Llama-family GQA
         dense trunks without sliding windows (``embed_forward`` runs the
@@ -889,13 +1049,14 @@ class ModelRunner:
 
     def warmup(self, decode_batch: Optional[int] = None) -> None:
         """Build the kernels (on a card) and run one inert step per prefill
-        bucket, one decode step, one verify-shaped step (S = the ngram
-        proposal count + 1, or 2), with ``sp_size > 1`` one SP chunk, with
+        bucket, one decode step, one verify-shaped step (S = the ngram or
+        draft proposal count + 1, or 2), with ``sp_size > 1`` one SP chunk, with
         ``multi_step_decode > 1`` or a dispatch-ahead pipeline (or the SP
         ladder's decode handoff) one burst, and with ``multi_step_decode >
         1`` (the synchronous bursts freeze finished rows on the device) or
         device finish one chained burst (with a one-state guided table, so
-        both forms of the epilogue have launched), so no first request pays
+        both forms of the epilogue have launched), with the chained
+        propose-verify round served one round, so no first request pays
         for a kernel build or a first-launch cost. Inert: every slot is the
         drop sentinel and nothing commits, so the cache and the sample
         state keep their values."""
@@ -906,7 +1067,9 @@ class ModelRunner:
         self.set_sample_row(0, [])
         b = decode_batch or self.config.max_batch_size
         w = self.config.blocks_per_seq
-        verify_s = (self.config.spec_ngram_tokens or 1) + 1
+        cfg_e = self.config
+        verify_s = ((cfg_e.spec_draft_tokens if cfg_e.spec_draft_model
+                     else cfg_e.spec_ngram_tokens) or 1) + 1
         shapes = [(b, 1, False), (b, verify_s, True)] + [
             (1, s, False) for s in self.config.prefill_buckets]
         for rows, s, verify in shapes:
@@ -942,6 +1105,17 @@ class ModelRunner:
                     zf, zi, np.ones(b, np.float32),
                     stop_ids=np.full((b, STOP_ID_WIDTH), -1, np.int32),
                     min_new=zi, max_new=zi, gtable=table, **inert)
+        if self.spec_burst_ready:
+            self.decode_burst_spec(
+                zi, zi, zi, np.zeros(b, bool),
+                np.full((b, SUFFIX_RING_W), -1, np.int32), np.full(b, -1, np.int32),
+                np.zeros((b, w), np.int32), commit=np.zeros(b, bool),
+                stop_ids=np.full((b, STOP_ID_WIDTH), -1, np.int32),
+                min_new=zi, max_new=np.ones(b, np.int32),
+                stop_hash=np.zeros((b, STOP_SEQ_WIDTH), np.uint32),
+                stop_hlen=np.zeros((b, STOP_SEQ_WIDTH), np.int32),
+                proposals=(np.full((b, self._spec_k), -1, np.int32)
+                           if cfg_e.spec_draft_model else None))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

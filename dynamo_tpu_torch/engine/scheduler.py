@@ -4,9 +4,12 @@ decode loop.
 The port of ``dynamo_tpu/engine/scheduler.py``: an asyncio loop
 interleaving batched, chunked, bucketed prefills with batched decode over
 a fixed set of slots. A decode pass is one token per step, a fused K-step
-burst (``multi_step_decode``) while no prefill work waits, an ngram
-speculative verify step (``spec_ngram_tokens``) while every active row is
-greedy and penalty-free, or, with ``decode_pipeline_depth=2``:
+burst (``multi_step_decode``) while no prefill work waits, a speculative
+verify step while every active row is greedy and penalty-free (proposals
+from the row's own history, ``spec_ngram_tokens``, or from a draft model's
+K + 1-step burst, ``spec_draft_model``, whose paged cache mirrors the
+target's block ids: every prefill chunk and per-token step replays on the
+draft), or, with ``decode_pipeline_depth=2``:
 
 - a dispatch-ahead burst (``_decode_pipelined``): burst k+1 goes to the
   device before burst k's tokens are read on the host, finishes are
@@ -17,7 +20,12 @@ greedy and penalty-free, or, with ``decode_pipeline_depth=2``:
   model-len horizon, stop sequences by suffix hash, guided choices and
   bounded JSON grammars by a device transition table) and a queue of
   in-flight bursts drains asynchronously. Every pass that could not chain is counted under a
-  named reason (``metrics()["sync_fallback"]``).
+  named reason (``metrics()["sync_fallback"]``);
+- a chained propose-verify round (``_decode_chained_spec``): speculation
+  inside the chained loop, the ngram proposals drawn on the device from the
+  carry's suffix ring or the draft's burst run on the same carry, verified
+  by one S = K + 1-position forward whose accepted prefix folds into the
+  carry, with no host barrier between rounds.
 
 A burst's outputs travel to the host through pinned buffers and an event
 recorded right behind the burst (``ModelRunner.stage_to_host``), so
@@ -56,8 +64,7 @@ preempts a request back to the waiting queue and its re-prefill continues
 the emitted stream.
 
 Not in this slice (later work, refused by ``EngineConfig`` or by the
-serving layer): the chained propose-verify round, draft-model speculation,
-migration, the flight recorder and the stall watchdog.
+serving layer): migration, the flight recorder and the stall watchdog.
 """
 
 from __future__ import annotations
@@ -395,6 +402,10 @@ class _InflightBurst:
     # chained (device-finish) bursts: _apply_burst takes frozen-row
     # semantics (-1 pads skipped, device finishes counted)
     device_finish: bool = False
+    # a chained propose-verify round: [S, B] tokens with -1 pads past each
+    # row's acceptance, and ``out`` carries the per-row proposed and
+    # accepted counts after them (no logprobs: spec rows want none)
+    spec: bool = False
 
 
 class Scheduler:
@@ -411,9 +422,15 @@ class Scheduler:
     GUIDED_TABLE_CACHE = 16
 
     def __init__(self, runner: ModelRunner, config: EngineConfig,
-                 events: Optional[KvEventSink] = None, disagg=None):
+                 events: Optional[KvEventSink] = None, disagg=None,
+                 draft_runner: Optional[ModelRunner] = None):
         self.runner = runner
         self.config = config
+        # draft-model speculation: the draft's paged cache mirrors the
+        # target's block ids (every prefill chunk and per-token step replays
+        # on the draft) and the decode loop proposes with its K + 1-step
+        # burst
+        self.draft = draft_runner
         # Optional[RemotePrefillCoordinator]: conditional remote prefill
         self.disagg = disagg
         # requests whose prefill runs on a prefill worker (blocks held,
@@ -514,6 +531,9 @@ class Scheduler:
         self._chain_pos0: Dict[int, int] = {}
         self._chain_gen0: Dict[int, int] = {}
         self._chain_fp = False
+        # the chain's program family: "plain" bursts or "spec" rounds (a
+        # switch closes the chain at a barrier)
+        self._chain_kind: Optional[str] = None
         self._last_chain_len = 0
         self.chain_len_max = 0
         self.device_finished_rows = 0
@@ -606,7 +626,7 @@ class Scheduler:
             "device_finished_rows": self.device_finished_rows,
             "sync_fallback": dict(self.sync_fallback),
         }
-        if self.config.spec_ngram_tokens:
+        if self.config.spec_ngram_tokens or self.draft is not None:
             out["spec_proposed_tokens"] = self.spec_proposed
             out["spec_accepted_tokens"] = self.spec_accepted
         if self.config.decode_pipeline_depth >= 2:
@@ -808,11 +828,12 @@ class Scheduler:
                 if await self._sp_advance(loop):
                     progressed = True
 
-            # decode every active slot: one token, an ngram speculative
-            # verify, a fused K-step burst, or — with the dispatch-ahead
-            # pipeline — a chained or pipelined burst. Prefill work pins K
-            # to 1 so chunked-prefill interleaving (bounded TTFT) is never
-            # traded for throughput
+            # decode every active slot: one token, a speculative verify
+            # (ngram or draft proposals), a fused K-step burst, or — with
+            # the dispatch-ahead pipeline — a chained propose-verify round,
+            # a chained or a pipelined burst. Prefill work pins K to 1 so
+            # chunked-prefill interleaving (bounded TTFT) is never traded
+            # for throughput
             active = [s for s in self.slots
                       if s is not None and s not in self.prefilling
                       and not self._is_sp(s)]
@@ -823,11 +844,20 @@ class Scheduler:
                 runner_idle = not (self.prefilling or self.waiting
                                    or self.sp_active is not None
                                    or self.sp_queue)
-                spec_now = (self.config.spec_ngram_tokens > 0 and runner_idle
+                speculating = (self.config.spec_ngram_tokens > 0
+                               or self.draft is not None)
+                spec_now = (speculating and runner_idle
                             and all(self._spec_eligible(er) for er in active))
                 chain_on = (self.config.device_finish_enabled
                             and self.config.decode_pipeline_depth >= 2)
-                if not spec_now and self._chain_ok(active, runner_idle):
+                spec_reason = (self._spec_chain_reason(active, runner_idle)
+                               if spec_now and chain_on else None)
+                if spec_now and chain_on and spec_reason is None:
+                    # persistent loop, speculative: propose-verify rounds
+                    # off the device-resident carry, no host barrier
+                    # between the draft's burst and the target's verify
+                    await self._decode_chained_spec(loop, active)
+                elif not spec_now and self._chain_ok(active, runner_idle):
                     # persistent loop: chain the next burst off the device-
                     # resident carry; finished rows freeze on the device
                     # and drain asynchronously
@@ -835,7 +865,8 @@ class Scheduler:
                 else:
                     if chain_on:
                         # every pass that did not chain is named
-                        reason = self._chain_block_reason(active, runner_idle)
+                        reason = (spec_reason if spec_now else
+                                  self._chain_block_reason(active, runner_idle))
                         if reason:
                             self._note_sync_fallback(reason)
                     await self._chain_barrier(loop)
@@ -854,6 +885,8 @@ class Scheduler:
                         if not active:
                             pass
                         elif spec_now:
+                            # the speculative verify (ngram or draft
+                            # proposals) on the synchronous path
                             await self._decode_spec(loop, active)
                         else:
                             k_steps = self.config.multi_step_decode
@@ -1294,8 +1327,9 @@ class Scheduler:
     def _sp_eligible(self, er: EngineRequest) -> bool:
         """Route this admission to the SP ladder? The SP chunk is served
         (``sp_size > 1``, a supported trunk), the uncached suffix reaches
-        the threshold, and the request needs no prompt logprobs (the SP
-        chunk runs no full-S head)."""
+        the threshold, the request needs no prompt logprobs (the SP chunk
+        runs no full-S head), and no draft mirrors the cache (the draft has
+        no SP chunk: its mirror would go stale)."""
         cfg = self.config
         if not (getattr(self.runner, "sp_ready", False)
                 and cfg.long_prefill_threshold_tokens > 0):
@@ -1303,7 +1337,9 @@ class Scheduler:
         suffix = len(er.prefill_tokens) - er.num_cached
         if suffix < cfg.long_prefill_threshold_tokens:
             return False
-        return not (er.want_prompt_lps and not er.prompt_lps_emitted)
+        if er.want_prompt_lps and not er.prompt_lps_emitted:
+            return False
+        return self.draft is None
 
     def _is_sp(self, er: EngineRequest) -> bool:
         return self.sp_active is er or er in self.sp_queue
@@ -1532,6 +1568,16 @@ class Scheduler:
         )
         self.steps += 1
         self.prefill_steps += 1
+        if self.draft is not None:
+            # mirror the chunk on the draft: the same tokens, slots and
+            # (shared) block ids, so the draft's cache holds the whole
+            # context every speculative round assumes. Inert sampling:
+            # nothing commits and nothing reads the outputs
+            dtemp, dtop_k, dtop_p, dkw = self._inert_sampling(rows)
+            self.draft.step(
+                tokens, positions, btab, slot_map, ctx_lens, last_idx,
+                dtemp, dtop_k, dtop_p, sample_slots=sample_slots,
+                commit=np.zeros(rows, bool), want_top=False, **dkw)
 
         finals = []
         for i, (er, start, end, take, final) in enumerate(plan):
@@ -1606,32 +1652,80 @@ class Scheduler:
                 and not er.want_logprobs and er.logprobs_n == 0
                 and not er.req.sampling_options.logit_bias)
 
-    async def _decode_spec(self, loop, active: List[EngineRequest]) -> None:
-        """One speculative decode pass: propose up to K tokens per row from
-        the row's own history (ngram), verify all K + 1 positions in ONE
-        forward, and emit the accepted prefix plus the correction token.
+    @staticmethod
+    def _inert_sampling(n: int):
+        """Greedy, penalty-free sampling arrays for the draft's mirror runs
+        and bursts (nothing reads a sampled output but the proposals):
+        positional (temperature, top_k, top_p) and the keyword tail as one
+        dict."""
+        zf = np.zeros(n, np.float32)
+        zi = np.zeros(n, np.int32)
+        return zf, zi, np.ones(n, np.float32), dict(
+            min_p=zf, presence_penalty=zf, frequency_penalty=zf,
+            repetition_penalty=np.ones(n, np.float32),
+            seed_keys=np.zeros((n, 2), np.uint32), counters=zi)
 
-        Every proposed position's KV is written during the verify; the
-        slots of rejected positions are rewritten when decoding reaches
+    async def _draft_propose(self, loop, active: List[EngineRequest],
+                             K: int) -> dict:
+        """K greedy proposals per row from the draft model's burst.
+
+        ONE extra dispatch per round: the draft's ``multi_step_decode`` is
+        K + 1, so the burst also writes the K-th proposal's KV into the
+        mirror cache (the last sampled token only drives that write and is
+        dropped). Inactive rows run inert."""
+        cfg = self.config
+        b = cfg.max_batch_size
+        w = cfg.kv_width_bucket(max(len(er.block_ids) for er in active))
+        tokens0 = np.zeros(b, np.int32)
+        positions0 = np.zeros(b, np.int32)
+        btab = np.zeros((b, w), np.int32)
+        commit = np.zeros(b, bool)
+        for er in active:
+            i = er.slot
+            tokens0[i] = er.pending_token
+            positions0[i] = er.context_len
+            btab[i, : len(er.block_ids)] = er.block_ids
+            commit[i] = True
+        temp, top_k, top_p, kw = self._inert_sampling(b)
+        toks, *_ = self.draft.decode_burst(
+            tokens0, positions0, btab, temp, top_k, top_p,
+            commit=commit, want_top=False, **kw)
+        staged = self.draft.stage_to_host(toks)
+        tk, = await loop.run_in_executor(None, staged.numpy)
+        self.steps += 1
+        return {er.slot: [int(t) for t in tk[:K, er.slot]] for er in active}
+
+    async def _decode_spec(self, loop, active: List[EngineRequest]) -> None:
+        """One speculative decode pass: propose up to K tokens per row, from
+        the row's own history (ngram) or from the draft model's K + 1-step
+        burst, verify all K + 1 positions in ONE forward, and emit the
+        accepted prefix plus the correction token.
+
+        Every proposed position's KV is written during the verify (and, for
+        draft proposals, into the draft's mirror cache during its burst);
+        the slots of rejected positions are rewritten when decoding reaches
         them again, and block registration only covers positions below the
         host ``context_len``, which advances by accepted tokens only."""
         cfg = self.config
         b = cfg.max_batch_size
         bs = cfg.kv_block_size
-        K = cfg.spec_ngram_tokens
+        K = (cfg.spec_draft_tokens if self.draft is not None
+             else cfg.spec_ngram_tokens)
         S = K + 1
         if any(er.context_len + S + 1 > cfg.max_model_len for er in active):
             # a row is within K of the horizon; it finishes momentarily
             return await self._decode(loop, active, 1)
 
-        # when nothing matches anywhere (non-repetitive output) the K+1-wide
-        # verify would be pure overhead: run the normal decode instead
         props = {}
-        for er in active:
-            history = list(er.seq.token_ids) + [er.pending_token]
-            props[er.slot] = ngram_propose(history, cfg.spec_ngram_match, K)
-        if not any(props.values()):
-            return await self._decode(loop, active, cfg.multi_step_decode)
+        if self.draft is None:
+            # when nothing matches anywhere (non-repetitive output) the
+            # K+1-wide verify would be pure overhead: run the normal decode
+            # instead
+            for er in active:
+                history = list(er.seq.token_ids) + [er.pending_token]
+                props[er.slot] = ngram_propose(history, cfg.spec_ngram_match, K)
+            if not any(props.values()):
+                return await self._decode(loop, active, cfg.multi_step_decode)
 
         for er in list(active):
             if not all(self._ensure_block_for(er, er.context_len + j)
@@ -1641,6 +1735,10 @@ class Scheduler:
                 active.remove(er)
         if not active:
             return
+        if self.draft is not None:
+            # draft proposals: ONE burst of the small model (the blocks are
+            # allocated above, so its mirror writes land in valid slots)
+            props = await self._draft_propose(loop, active, K)
 
         w = cfg.kv_width_bucket(max(len(er.block_ids) for er in active))
         tokens = np.zeros((b, S), np.int32)
@@ -1714,6 +1812,12 @@ class Scheduler:
         # finish within one burst anyway — step per token this pass)
         if k_steps > 1 and any(
                 er.context_len + k_steps + 1 > cfg.max_model_len for er in active):
+            k_steps = 1
+        if self.draft is not None:
+            # plain decode keeps the draft's mirror cache current (the next
+            # speculative round assumes draft KV at every position below
+            # the context), and the mirror steps per token: with a draft,
+            # speculation plays the fused burst's part
             k_steps = 1
         # a row that finishes inside a burst (eos, a hidden stop id, a stop
         # sequence, max_tokens) freezes on the device for the rest of it:
@@ -1793,6 +1897,16 @@ class Scheduler:
                 sample_slots=np.arange(b, dtype=np.int32), commit=commit,
                 want_top=want_top,
             )
+            if self.draft is not None:
+                # mirror the step on the draft (inert sampling): the
+                # speculative rounds assume the draft's cache covers every
+                # position the target has decoded
+                dtemp, dtop_k, dtop_p, dkw = self._inert_sampling(b)
+                self.draft.step(
+                    tokens, positions, btab, slot_map, ctx_lens, last_idx,
+                    dtemp, dtop_k, dtop_p,
+                    sample_slots=np.arange(b, dtype=np.int32),
+                    commit=np.zeros(b, bool), want_top=False, **dkw)
 
         out = self.runner.stage_to_host(next_tokens, lps, top_vals, top_ids)
         toks, lpn, tv, ti = await loop.run_in_executor(None, out.numpy)
@@ -1829,15 +1943,16 @@ class Scheduler:
                      runner_idle: bool) -> bool:
         """May this pass decode dispatch-ahead?
 
-        Guided decoding (per-token host mask edits), speculative decoding,
-        ``n > 1``, prefill / admission work and rows within two bursts of
-        the model-len horizon all force the synchronous path, selected per
-        pass, never mid-burst. A batch-membership surprise (a row active
-        now that was not in the dispatched burst) drains defensively."""
+        Guided decoding (per-token host mask edits), speculative decoding
+        (either proposal source), ``n > 1``, prefill / admission work and
+        rows within two bursts of the model-len horizon all force the
+        synchronous path, selected per pass, never mid-burst. A
+        batch-membership surprise (a row active now that was not in the
+        dispatched burst) drains defensively."""
         cfg = self.config
         if cfg.decode_pipeline_depth < 2 or not runner_idle:
             return False
-        if cfg.spec_ngram_tokens > 0:
+        if self.draft is not None or cfg.spec_ngram_tokens > 0:
             return False
         K = cfg.multi_step_decode
         for er in active:
@@ -1937,8 +2052,16 @@ class Scheduler:
         """Host half of the pipeline: wait for the burst's sampled tokens
         (the decode loop's ONLY host sync, on the burst's own event), emit
         them, run finish checks, and retro-invalidate rows that finished
-        one burst late."""
-        toks, lpn, tv, ti = await loop.run_in_executor(None, infl.out.numpy)
+        one burst late. A propose-verify round also adds its rows'
+        proposed and accepted counts to the speculation metrics."""
+        outs = await loop.run_in_executor(None, infl.out.numpy)
+        if infl.spec:
+            # spec rounds carry no logprobs (spec rows want none), but the
+            # acceptance accounting
+            toks, nprop, nacc = outs
+            lpn = tv = ti = None
+        else:
+            toks, lpn, tv, ti = outs
         for j in range(infl.k_steps):
             for er in infl.active:
                 if er.finish is not None:
@@ -1947,6 +2070,11 @@ class Scheduler:
                 if infl.device_finish and token < 0:
                     if er.chain_fp:
                         continue  # already flagged: resumes at the barrier
+                    if infl.spec and j > 0:
+                        # a round pads past its acceptance: every live row
+                        # still emits its correction at j = 0, so only a
+                        # pad there means a frozen row
+                        continue
                     if er.fin_stop_hash is not None:
                         # the device's suffix-hash stop candidate froze this
                         # row, but the host's EXACT token-suffix check
@@ -1981,8 +2109,10 @@ class Scheduler:
                     self._guided_after_token(er, edit=False)
                 self._emit(
                     er, token,
-                    float(lpn[j, er.slot]) if er.want_logprobs else None,
-                    self._top_row(er, tv[j], ti[j], er.slot),
+                    (float(lpn[j, er.slot])
+                     if lpn is not None and er.want_logprobs else None),
+                    (self._top_row(er, tv[j], ti[j], er.slot)
+                     if tv is not None else None),
                 )
                 if er.finish is not None:
                     if infl.device_finish:
@@ -1992,6 +2122,13 @@ class Scheduler:
                         er.device_frozen = True
                         self.device_finished_rows += 1
                     self._finish_pipelined(er)
+        if infl.spec:
+            for er in infl.active:
+                p = int(nprop[er.slot])
+                if p <= 0:
+                    continue  # a frozen row proposed nothing this round
+                self.spec_proposed += p
+                self.spec_accepted += min(int(nacc[er.slot]), p)
 
     def _finish_pipelined(self, er: EngineRequest, emit: bool = False) -> None:
         """A pipelined row finished (possibly one burst late): truncate the
@@ -2030,8 +2167,8 @@ class Scheduler:
 
     def _chain_block_reason(self, active: List[EngineRequest],
                             runner_idle: bool) -> Optional[str]:
-        """Why can this pass NOT chain a burst off the device carry? None
-        = it can. Stop-sequence rows chain through the suffix-hash
+        """Why can this pass NOT chain a plain burst off the device carry?
+        None = it can. Stop-sequence rows chain through the suffix-hash
         approximation and guided rows through a compiled device table;
         what remains is named here and counted per sync pass
         (``metrics()["sync_fallback"]``)."""
@@ -2047,8 +2184,12 @@ class Scheduler:
             # a suffix-hash false positive froze a row the host must
             # resume: close the chain first (the barrier clears this)
             return "stop_false_positive"
-        if cfg.spec_ngram_tokens > 0:
-            return "speculation"  # the chained propose-verify round
+        if self.draft is not None:
+            # plain chaining would starve the draft's mirror cache for these
+            # rows: a draft engine chains through the propose-verify rounds
+            return "draft_mirror"
+        if self._chain_members and self._chain_kind not in (None, "plain"):
+            return "chain_kind"
         tables = set()
         for er in active:
             if not er.device_checkable:
@@ -2067,6 +2208,45 @@ class Scheduler:
             # separate them
             return "guided_multi_grammar"
         if self._chain_members:
+            member_ids = {id(m) for m in self._chain_members}
+            if any(id(er) not in member_ids for er in active):
+                return "membership"
+        return None
+
+    def _spec_chain_reason(self, active: List[EngineRequest],
+                           runner_idle: bool) -> Optional[str]:
+        """Why can this pass NOT chain propose-verify rounds? None = it can.
+        (The caller established that speculation is configured, the runner
+        is idle and every row is spec-eligible: greedy, penalty-free,
+        unguided.)"""
+        cfg = self.config
+        if not (cfg.device_finish_enabled
+                and cfg.decode_pipeline_depth >= 2):
+            return "disabled"
+        if not runner_idle:
+            return "not_idle"
+        if self._chain_fp:
+            return "stop_false_positive"
+        if not getattr(self.runner, "spec_burst_ready", False):
+            return "spec_program"
+        P = (cfg.spec_draft_tokens if self.draft is not None
+             else cfg.spec_ngram_tokens)
+        n = self._chain_dispatched
+        for er in active:
+            if not er.device_checkable:
+                return er.chain_fallback or "not_checkable"
+            if er.fin_stop_seqs and not cfg.device_stop_strings:
+                return "stop_strings_disabled"
+            # the horizon, bounded by the chain's own dispatch count (the
+            # host's committed context lags the drain queue): the round's
+            # S-position forward stays inside the model length, as the
+            # synchronous verify checks per pass
+            pos0 = self._chain_pos0.get(er.slot, er.context_len)
+            if pos0 + (n + 1) * (P + 1) + 1 > cfg.max_model_len:
+                return "spec_near_horizon"
+        if self._chain_members:
+            if self._chain_kind not in (None, "spec"):
+                return "chain_kind"
             member_ids = {id(m) for m in self._chain_members}
             if any(id(er) not in member_ids for er in active):
                 return "membership"
@@ -2152,12 +2332,13 @@ class Scheduler:
         per row)."""
         await self._apply_burst(loop, self._chain.popleft())
 
-    async def _chain_prologue(self, loop, active):
+    async def _chain_prologue(self, loop, active, kind):
         """The open / validate ladder of a chained pass: reconcile a
-        predating dispatch-ahead burst, open the chain if none is, and
-        resolve the live member list. Returns ``(active, live, members)``
-        or None: None means every fallback already ran and the caller just
-        returns."""
+        predating dispatch-ahead burst, close the chain at a barrier on a
+        switch of its KIND ("plain" bursts or "spec" rounds), open the
+        chain if none is, and resolve the live member list. Returns
+        ``(active, live, members)`` or None: None means every fallback
+        already ran and the caller just returns."""
         if self._inflight is not None:
             # a plain dispatch-ahead burst predates this chain: reconcile
             # it first so the chain starts from fully committed state
@@ -2165,8 +2346,14 @@ class Scheduler:
             active = [er for er in active if er.finish is None]
             if not active:
                 return None
+        if self._chain_members and self._chain_kind not in (None, kind):
+            await self._chain_barrier(loop)
+            active = [er for er in active if er.finish is None]
+            if not active:
+                return None
         if not self._chain_members:
             self._chain_members = list(active)
+            self._chain_kind = kind
             self._chain_carry = None
             self._chain_dispatched = 0
             self._chain_pos0 = {er.slot: er.context_len for er in active}
@@ -2178,14 +2365,15 @@ class Scheduler:
             return None
         return active, live, members
 
-    async def _chain_reserve(self, loop, active, live, advance: int) -> bool:
+    async def _chain_reserve(self, loop, active, live, advance: int,
+                             sync_steps: int) -> bool:
         """Block headroom for the chain's next dispatch: a never-frozen row
         runs through position ``chain_pos0 + (n+1)*advance - 1``; reserve
         one past that (the carry slot), capped at the model-len horizon
         (the device freezes rows there; blocks past it are never touched).
         False = KV OOM: preemption needs fully committed host state, so
         the chain closed at a barrier and the pass already fell back to
-        one sync decode."""
+        one sync decode of ``sync_steps``."""
         cfg = self.config
         n = self._chain_dispatched
         for er in live:
@@ -2196,14 +2384,24 @@ class Scheduler:
                 await self._chain_barrier(loop)
                 rest = [er for er in active if er.finish is None]
                 if rest:
-                    await self._decode(loop, rest, advance)
+                    await self._decode(loop, rest, sync_steps)
                 return False
             self._host.sync_blocks(er)
         return True
 
-    def _chain_fill(self, live):
+    def _chain_masks(self, members, live):
+        """(commit mask, block-table slice) of one chained dispatch."""
+        cfg = self.config
+        commit = np.zeros(cfg.max_batch_size, bool)
+        for er in members:
+            commit[er.slot] = er.finish is None
+        w = cfg.kv_width_bucket(max(len(er.block_ids) for er in live))
+        return commit, self._host.btab[:, :w].copy()
+
+    def _chain_fill(self, live, with_guided: bool):
         """The chain-fill carry from committed host state (the first
-        dispatch of a chain)."""
+        dispatch of a chain). Spec chains carry no guided state (spec rows
+        are unguided)."""
         b = self.config.max_batch_size
         tokens0 = np.zeros(b, np.int32)
         positions0 = np.zeros(b, np.int32)
@@ -2216,7 +2414,7 @@ class Scheduler:
             positions0[er.slot] = er.context_len
             gen0[er.slot] = er.generated
             ring0[er.slot] = ring_init(er.ring_tail)
-            if er.guided is not None:
+            if with_guided and er.guided is not None:
                 gstate0[er.slot] = self._guided_tables[
                     self._guided_table_key(er)].state_id(er.guided)
         return tokens0, positions0, gen0, done0, ring0, gstate0
@@ -2253,24 +2451,21 @@ class Scheduler:
         cfg = self.config
         b = cfg.max_batch_size
         k_steps = max(1, cfg.multi_step_decode)
-        opened = await self._chain_prologue(loop, active)
+        opened = await self._chain_prologue(loop, active, "plain")
         if opened is None:
             return
         active, live, members = opened
         n = self._chain_dispatched
-        if not await self._chain_reserve(loop, active, live, k_steps):
+        if not await self._chain_reserve(loop, active, live, k_steps, k_steps):
             return
 
         hs = self._host
-        commit = np.zeros(b, bool)
+        commit, btab = self._chain_masks(members, live)
         ctrs = np.zeros(b, np.int32)
         for er in members:
-            commit[er.slot] = er.finish is None
             # a row that has not frozen has generated gen0 + n*K tokens
             # when this burst starts; a frozen row's draw is never read
             ctrs[er.slot] = self._chain_gen0[er.slot] + n * k_steps
-        w = cfg.kv_width_bucket(max(len(er.block_ids) for er in live))
-        btab = hs.btab[:, :w].copy()
         want_top = any(er.logprobs_n > 0 for er in members)
         # guided members ride the device transition table: ONE table per
         # chain (_chain_block_reason enforced it), their bias rows reset to
@@ -2289,7 +2484,7 @@ class Scheduler:
                     self._set_plain_bias(er)
                     er.chain_bias_reset = True
         if self._chain_carry is None:
-            carry = self._chain_fill(live)
+            carry = self._chain_fill(live, with_guided=True)
         else:
             carry = self._chain_carry
         tokens0, positions0, gen0, done0, ring0, gstate0 = carry
@@ -2314,6 +2509,69 @@ class Scheduler:
             out=self.runner.stage_to_host(toks, lps, tv, ti),
             k_steps=k_steps, last_tokens=None, device_finish=True,
         ))
+        await self._chain_drain(loop, members)
+
+    async def _decode_chained_spec(self, loop,
+                                   active: List[EngineRequest]) -> None:
+        """One chained propose-verify pass: ONE round dispatched straight
+        off the device-resident carry. The proposals come from the carry's
+        trailing-token ring (ngram, inside the round) or from the draft
+        model's burst on the SAME carry (its tokens and positions, its
+        commit mask gated by the carry's done mask on the device), and one
+        S = K + 1-position forward verifies them; the accepted prefix and
+        the correction commit with the plain chain's freeze semantics. No
+        host barrier between rounds, or between a draft's burst and its
+        verify: the drain reconciles rounds as their outputs reach the
+        host, with each row's proposed and accepted counts."""
+        cfg = self.config
+        b = cfg.max_batch_size
+        P = (cfg.spec_draft_tokens if self.draft is not None
+             else cfg.spec_ngram_tokens)
+        S = P + 1
+        opened = await self._chain_prologue(loop, active, "spec")
+        if opened is None:
+            return
+        active, live, members = opened
+        # headroom: a round advances a never-frozen row by at most S
+        # positions (the accepted prefix and the correction); near-horizon
+        # rounds never dispatch (_spec_chain_reason closes the chain first)
+        if not await self._chain_reserve(loop, active, live, S, 1):
+            return
+
+        hs = self._host
+        commit, btab = self._chain_masks(members, live)
+        if self._chain_carry is None:
+            carry = self._chain_fill(live, with_guided=False)
+        else:
+            carry = self._chain_carry
+        tokens0, positions0, gen0, done0, ring0, gstate0 = carry
+
+        props = None
+        if self.draft is not None:
+            # the draft's round on the SAME carry: its burst takes the
+            # target's device-resident tokens and positions, its live rows
+            # are the members the carry has not frozen
+            dtemp, dtop_k, dtop_p, dkw = self._inert_sampling(b)
+            dtoks, *_ = self.draft.decode_burst(
+                tokens0, positions0, btab, dtemp, dtop_k, dtop_p,
+                commit=self.draft.live_rows(commit, done0),
+                want_top=False, **dkw)
+            props = dtoks[:P].T                  # [B, P] device proposals
+            self.steps += 1
+
+        toks, nprop, nacc, self._chain_carry = self.runner.decode_burst_spec(
+            tokens0, positions0, gen0, done0, ring0, gstate0, btab,
+            commit=commit, stop_ids=hs.stop_ids, min_new=hs.min_new,
+            max_new=hs.max_new, stop_hash=hs.stop_hash,
+            stop_hlen=hs.stop_hlen, proposals=props)
+        self._chain_dispatched += 1
+        self.steps += 1
+        self.decode_steps += 1
+        self.pipeline_bursts += 1
+        self._chain.append(_InflightBurst(
+            active=list(live),
+            out=self.runner.stage_to_host(toks, nprop, nacc),
+            k_steps=S, last_tokens=None, device_finish=True, spec=True))
         await self._chain_drain(loop, members)
 
     def _logit_bias_onto(self, er: EngineRequest, row: np.ndarray) -> np.ndarray:
@@ -2361,6 +2619,7 @@ class Scheduler:
         self._chain_dispatched = 0
         self._chain_pos0 = {}
         self._chain_gen0 = {}
+        self._chain_kind = None
         self._chain_fp = False
 
     # ---------- guided decoding on the synchronous path ----------

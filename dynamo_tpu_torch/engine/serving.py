@@ -27,7 +27,11 @@ disaggregated decode worker: long prompts prefill on the prefill pool and
 their KV streams back into this cache. With ``host_kv_blocks`` /
 ``cold_tier_blocks`` / ``prefix_pull`` the scheduler builds the KV tiers
 and the cluster KV fabric (``kv/``); the engine's ``registry`` carries
-their instruments. Refused by name: ``guided_choice`` given as text
+their instruments. With ``spec_draft_model`` the engine also builds the
+draft's runner (``build_draft_config``: the draft's own model directory,
+the target's cache geometry, a K + 1-step burst) on the target's device,
+warms it up and hands it to the scheduler, whose speculative rounds draw
+their proposals from it. Refused by name: ``guided_choice`` given as text
 without its token ids, and ``guided_json`` on an engine built without a
 model card (it holds no tokenizer). A model card's
 directory (or ``.gguf``) is loaded by the runner (``models/loader.py``);
@@ -106,6 +110,8 @@ def engine_config_from_mdc(mdc, flags=None, extra=None) -> EngineConfig:
         fused_epilogue=getattr(flags, "fused_epilogue", "auto") or "auto",
         spec_ngram_tokens=getattr(flags, "spec_ngram_tokens", 0) or 0,
         spec_ngram_match=getattr(flags, "spec_ngram_match", 3) or 3,
+        spec_draft_model=getattr(flags, "spec_draft_model", None),
+        spec_draft_tokens=getattr(flags, "spec_draft_tokens", 0) or 0,
         # the chain's guided device tables and device-approximate stop
         # strings
         guided_device_table=not getattr(flags, "no_guided_device_table", False),
@@ -146,6 +152,43 @@ def _apply_engine_extra(extra: dict, cfg: EngineConfig) -> EngineConfig:
     if "max_model_len" in extra and "prefill_buckets" not in extra:
         extra = dict(extra, prefill_buckets=None)
     return dataclasses.replace(cfg, **extra)
+
+
+def build_draft_config(target: EngineConfig) -> EngineConfig:
+    """The draft model's EngineConfig for draft-model speculation (the
+    reference's ``build_draft_config``).
+
+    The draft's paged cache MIRRORS the target's block ids (the target's
+    allocator decides for both), so the block geometry is the target's;
+    the draft runs on one device with a K + 1-step burst as its proposal
+    program."""
+    draft_model = ModelConfig.from_model_dir(target.spec_draft_model)
+    if draft_model.vocab_size != target.model.vocab_size:
+        # smaller: target ids are out of range for the draft; larger: the
+        # draft proposes ids the target never accepts
+        raise ValueError(
+            f"draft vocab {draft_model.vocab_size} != target "
+            f"{target.model.vocab_size}: the two must share a tokenizer "
+            "(out-of-range ids are either invalid for the draft or "
+            "never-accepted noise for the target)"
+        )
+    if draft_model.max_position_embeddings < target.max_model_len:
+        raise ValueError(
+            f"draft max_position_embeddings "
+            f"{draft_model.max_position_embeddings} < target max_model_len "
+            f"{target.max_model_len}: past its rope range the draft's "
+            "proposals degrade to noise and every round pays for nothing"
+        )
+    return dataclasses.replace(
+        target,
+        model=draft_model,
+        spec_draft_model=None, spec_draft_tokens=0,  # no recursion
+        tp_size=1, dp_size=1, ep_size=1, pp_size=1,
+        # K + 1 burst steps for K proposals: the last step writes the K-th
+        # proposal's KV into the mirror cache, so a fully accepted round
+        # leaves no hole behind the new context
+        multi_step_decode=target.spec_draft_tokens + 1,
+    )
 
 
 def check_random_weights(model_dir: Optional[str], config: EngineConfig) -> None:
@@ -199,16 +242,31 @@ class TorchServingEngine(AsyncEngine):
         worker's ``KvEventPublisher.as_sink()``). ``disagg_factory(runner)``
         (a coroutine function returning a started
         ``RemotePrefillCoordinator``) turns on conditional remote prefill;
-        draft-model speculation is refused with it, as in the reference."""
+        draft-model speculation is refused with it, as in the reference.
+        With ``spec_draft_model`` the draft's runner is loaded from that
+        directory (``models.loader``) on the same device, beside the
+        target's, and warmed up with it."""
         if engine_config is None:
             if mdc is None:
                 raise ValueError("create needs an engine_config or a model card")
             engine_config = engine_config_from_mdc(mdc, flags)
         model_dir = mdc.model_path if mdc is not None and params is None else None
         loop = asyncio.get_running_loop()
-        runner = await loop.run_in_executor(
+        runner_fut = loop.run_in_executor(
             None, lambda: ModelRunner(engine_config, params=params,
                                       device=device, model_dir=model_dir))
+        draft_runner = None
+        if engine_config.spec_draft_model:
+            # the target's and the draft's builds share nothing: both load
+            # at once
+            draft_config = build_draft_config(engine_config)
+            draft_fut = loop.run_in_executor(
+                None, lambda: ModelRunner(
+                    draft_config, device=device,
+                    model_dir=engine_config.spec_draft_model))
+            runner, draft_runner = await asyncio.gather(runner_fut, draft_fut)
+        else:
+            runner = await runner_fut
         disagg = None
         if disagg_factory is not None:
             if engine_config.spec_draft_model:
@@ -219,8 +277,12 @@ class TorchServingEngine(AsyncEngine):
                     "stale for every remote-prefilled request")
             disagg = await disagg_factory(runner)
         if warmup:
-            await loop.run_in_executor(None, runner.warmup)
-        scheduler = Scheduler(runner, engine_config, events, disagg=disagg)
+            # one after the other: the first builds the kernels
+            for r in (runner, draft_runner):
+                if r is not None:
+                    await loop.run_in_executor(None, r.warmup)
+        scheduler = Scheduler(runner, engine_config, events, disagg=disagg,
+                              draft_runner=draft_runner)
         engine = cls(runner, scheduler, engine_config)
         if mdc is not None:
             engine._model_path = mdc.model_path  # guided JSON's piece table

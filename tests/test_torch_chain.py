@@ -444,6 +444,37 @@ def test_chained_engine_streams_match_jax_engine(weights, probe):
         "not_idle", "guided_table_pending", "membership", "no_rows"}
 
 
+@pytest.mark.parametrize("match", [1, 2])
+def test_chained_spec_engine_finishes_match_jax_engine(weights, probe, match):
+    """The chained propose-verify rounds (ngram proposals drawn from the
+    carry's ring) with every device finish inside a round: eos, max_tokens
+    on and off a round's end, a hidden stop id behind min_tokens, a stop
+    sequence by its suffix hash, and a late arrival that closes the chain.
+    Streams and finish reasons equal the reference's engine, and equal the
+    port's synchronous speculative engine and its plain one."""
+    reqs = [r for r in _finish_requests(probe) if "samp" not in r]
+    cfg_kw = dict(BASE, max_batch_size=8, **LOOP, spec_ngram_tokens=4,
+                  spec_ngram_match=match)
+    want = asyncio.run(_serve_jax(weights, cfg_kw, reqs))
+    got, metrics, used = asyncio.run(_serve_torch(weights, cfg_kw, reqs))
+    assert [(t, f) for t, _, f in got] == [(t, f) for t, f in want]
+    sync, _, _ = asyncio.run(_serve_torch(
+        weights, dict(BASE, max_batch_size=8, spec_ngram_tokens=4,
+                      spec_ngram_match=match), reqs))
+    plain, _, _ = asyncio.run(_serve_torch(weights, dict(BASE, max_batch_size=8),
+                                           reqs))
+    assert [(t, f) for t, _, f in got] == [(t, f) for t, _, f in sync] \
+        == [(t, f) for t, _, f in plain]
+    assert used == 0
+    # rounds chained off the carry, proposals flowed, rows froze on the
+    # device, and the passes that did not chain are named
+    assert metrics["spec_proposed_tokens"] > 0
+    assert metrics["chain_len_max"] > 1
+    assert metrics["device_finished_rows"] > 0
+    assert set(metrics["sync_fallback"]) <= {"not_idle", "membership",
+                                             "no_rows", "spec_near_horizon"}
+
+
 def _mixed_requests(probe):
     """Seeded sampling, penalties, bias, logprobs and guided rows beside
     the device-finished ones."""

@@ -269,13 +269,9 @@ async def test_seeded_sampling_reproduces_and_validation(weights):
 
 def test_config_refuses_unported_features():
     model = ModelConfig(**TINY)
-    for kw in (dict(spec_draft_model="draft", spec_draft_tokens=4),
-               # the chained propose-verify round is a later slice
-               dict(decode_pipeline_depth=2, spec_ngram_tokens=2),
-               dict(device_finish="on", decode_pipeline_depth=2,
-                    spec_ngram_tokens=4),
-               dict(tp_size=2)):
-        with pytest.raises(NotImplementedError):
+    # several devices stay refused by name
+    for kw in (dict(tp_size=2), dict(sp_size=2, tp_size=2)):
+        with pytest.raises(NotImplementedError, match="multi-device"):
             EngineConfig(model=model, **kw)
     # an fp8 KV cache is served (below); a cache dtype the reference does
     # not know raises its ValueError
@@ -294,6 +290,13 @@ def test_config_refuses_unported_features():
                     guided_table_max_states=64, device_stop_strings=False),
                # the KV tiers and prefix pulls
                dict(host_kv_blocks=8), dict(prefix_pull=True),
+               # draft models and the chained propose-verify round
+               dict(spec_draft_model="draft", spec_draft_tokens=4),
+               dict(decode_pipeline_depth=2, spec_ngram_tokens=2),
+               dict(device_finish="on", decode_pipeline_depth=2,
+                    spec_ngram_tokens=4),
+               dict(decode_pipeline_depth=2, spec_draft_model="draft",
+                    spec_draft_tokens=16),
                dict(host_kv_blocks=8, cold_tier_dir="/nonexistent",
                     cold_tier_blocks=8)):
         EngineConfig(model=model, **kw)

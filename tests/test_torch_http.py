@@ -517,6 +517,47 @@ def test_cli_engine_flags_map_to_the_reference_fields(tmp_path, argv):
 def test_cli_still_refuses_the_unported_flags_by_name(flag):
     with pytest.raises(SystemExit, match=flag):
         port_run.parse_flags([flag, "1"])
-    # draft models are not ported: their flags stay refused
-    assert {"--spec-draft-model", "--spec-draft-tokens"} <= set(
-        port_run.REFUSED_FLAGS)
+    # a refused flag is none of the mapped ones (the draft flags are mapped)
+    assert flag not in MAPPED_FLAGS and flag not in DRAFT_FLAGS
+
+
+DRAFT_FLAGS = {"--spec-draft-model": "spec_draft_model",
+               "--spec-draft-tokens": "spec_draft_tokens"}
+
+
+@pytest.mark.parametrize("tokens", [None, "2", "4", "16"])
+@pytest.mark.parametrize("chain", [False, True], ids=["sync", "chain"])
+def test_cli_draft_flags_map_to_the_reference_fields(tmp_path, tokens, chain):
+    """``--spec-draft-model`` and ``--spec-draft-tokens`` set the
+    reference's ``EngineConfig`` fields (a model without tokens is the
+    reference's refusal, with its message), with and without the chained
+    loop."""
+    from dynamo_tpu.cli import run as ref_run
+    from dynamo_tpu.engine.serving import engine_config_from_mdc as ref_config
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.serving import engine_config_from_mdc
+
+    d, _ = _tiny_model_dir(tmp_path)
+    argv = ["--max-model-len", "64", "--spec-draft-model", d]
+    if tokens is not None:
+        argv += ["--spec-draft-tokens", tokens]
+    if chain:
+        argv += ["--decode-pipeline-depth", "2"]
+    ref_flags = ref_run.build_parser().parse_args(argv)
+    port_flags = run.parse_flags(argv)
+    if tokens is None:
+        with pytest.raises(ValueError) as want:
+            ref_config(RefCard.from_local_path(d), ref_flags)
+        with pytest.raises(ValueError, match="spec_draft_tokens in 2..16") as got:
+            engine_config_from_mdc(ModelDeploymentCard.from_local_path(d),
+                                   port_flags)
+        assert str(got.value) == str(want.value)
+        return
+    want = ref_config(RefCard.from_local_path(d), ref_flags)
+    got = engine_config_from_mdc(ModelDeploymentCard.from_local_path(d),
+                                 port_flags)
+    for flag, field in DRAFT_FLAGS.items():
+        assert flag not in run.REFUSED_FLAGS
+        assert getattr(got, field) == getattr(want, field), (flag, field)
+    assert got.spec_draft_model == d and got.spec_draft_tokens == int(tokens)
+    assert got.decode_pipeline_depth == want.decode_pipeline_depth

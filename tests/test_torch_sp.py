@@ -640,8 +640,9 @@ DEEPSEEK = dict(TINY, kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=16,
 @pytest.mark.parametrize("model_kw,engine_kw,err,words", [
     ({}, dict(tp_size=2), NotImplementedError, "tp_size"),
     ({}, dict(pp_size=2), ValueError, "pipeline"),
-    ({}, dict(decode_pipeline_depth=2, spec_ngram_tokens=4),
-     NotImplementedError, "chained propose-verify round"),
+    # the chained propose-verify round is served beside SP, as in the
+    # reference: accepted, and the runner serves both
+    ({}, dict(decode_pipeline_depth=2, spec_ngram_tokens=4), None, None),
     (DEEPSEEK, {}, ValueError, "MLA"),
     (dict(num_experts=4), {}, ValueError, "mixture-of-experts"),
     (dict(sliding_window=64), {}, ValueError, "sliding_window"),
@@ -652,6 +653,11 @@ def test_config_refuses_what_sp_does_not_serve(model_kw, engine_kw, err, words):
     mcfg = ModelConfig(**dict(TINY, **model_kw))
     kw = dict(engine_kw)
     sp = kw.pop("sp_size", 8)
+    if err is None:
+        runner = ModelRunner(EngineConfig(model=mcfg, **_sp_kw(sp, **kw)),
+                             device="cpu")
+        assert runner.sp_ready and runner.spec_burst_ready
+        return
     with pytest.raises(err, match=words):
         EngineConfig(model=mcfg, **_sp_kw(sp, **kw))
     if model_kw:

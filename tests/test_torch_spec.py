@@ -139,6 +139,30 @@ async def _jax_greedy(weights, cfg_kw, prompts, max_tokens):
         await engine.close()
 
 
+async def _jax_spec_metrics(weights, cfg_kw, prompts, max_tokens):
+    """The reference engine's greedy streams and its spec counts."""
+    cfg = JaxEngineConfig(model=JaxModelConfig(**TINY), **cfg_kw)
+    engine = await JaxServingEngine.create(
+        types.SimpleNamespace(model_path=None), engine_config=cfg,
+        params=weights[0], warmup=False)
+
+    async def one(p):
+        req = JaxRequest(token_ids=p, stop_conditions=JaxStop(
+            max_tokens=max_tokens, ignore_eos=True),
+            sampling_options=JaxSampling(temperature=0.0))
+        toks = []
+        async for out in engine.generate(JaxContext(req)):
+            toks.extend(out["token_ids"])
+        return toks
+
+    try:
+        outs = [await one(p) for p in prompts]
+        m = engine.scheduler.metrics()
+        return outs, (m["spec_proposed_tokens"], m["spec_accepted_tokens"])
+    finally:
+        await engine.close()
+
+
 async def _torch_outputs(weights, cfg_kw, requests):
     """Serve ``requests`` ([(prompt, sampling kwargs, output kwargs)])
     concurrently; returns ([(tokens, logprobs)], metrics)."""
@@ -181,6 +205,31 @@ async def test_spec_greedy_streams_match_jax_engine_and_accept(weights):
     assert [t for t, _ in got] == want
     assert metrics["spec_proposed_tokens"] > 0
     assert metrics["spec_accepted_tokens"] > 0
+
+
+@pytest.mark.asyncio
+@pytest.mark.parametrize("match", [1, 2])
+async def test_chained_spec_streams_and_counts_match_jax_engine(weights, match):
+    """ngram speculation inside the chained loop: proposals drawn on the
+    device from the carry's suffix ring, rounds chained with no host
+    barrier. One request at a time (each round's counts then follow the
+    stream alone): streams, proposed and accepted tokens equal the
+    reference's."""
+    cfg_kw = dict(BASE, spec_ngram_tokens=4, spec_ngram_match=match,
+                  decode_pipeline_depth=2)
+    want, want_counts = await _jax_spec_metrics(weights, cfg_kw,
+                                                GREEDY_PROMPTS, 20)
+    got = []
+    for p in GREEDY_PROMPTS:
+        out, metrics = await _torch_outputs(
+            weights, cfg_kw, [(p, dict(temperature=0.0), {}, 20)])
+        got.append((out[0][0], metrics))
+    assert [t for t, _ in got] == want
+    counts = tuple(sum(m[k] for _, m in got) for k in (
+        "spec_proposed_tokens", "spec_accepted_tokens"))
+    assert counts == want_counts
+    assert counts[0] > 0 and counts[1] > 0
+    assert all(m["chain_len_max"] > 1 for _, m in got)
 
 
 @pytest.mark.asyncio
