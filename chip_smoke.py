@@ -110,9 +110,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the logits of a prompt stay within ``FP8_LOGITS_REL_L2`` of the bf16
    cache's; the card's e4m3 writes of ``FP8_WRITE_VALUES`` give the CPU's
    bytes; no KV block stays in use.
-8. ``engine_mla`` — DeepSeek-V2-Lite at full width and depth (27 layers:
-   MLA attention, a dense first layer, 26 routed-MoE layers with 2 shared
-   experts), built by ``ModelConfig.from_hf_config`` from its published
+8. ``engine_mla`` — DeepSeek-V2-Lite at full width, its depth cut to 14
+   of its 27 layers (``MLA_LAYERS``: MLA attention, a dense first layer,
+   then routed-MoE layers with 2 shared experts), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights: wave 1 and the
    prefix-hit wave (streams, the MLA kernel's and the epilogue's launch
    counts, peak memory), the decode step's time and device profile (the
@@ -124,9 +124,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    kernel's fp8 form and the dense S > 1 gather over e4m3 pages). Twins
    within one wave may part there: the reference's expert capacity at a
    decode batch of 8 is 1.
-9. ``engine_gptoss`` — gpt-oss-20b at full width and depth (24 layers,
-   20.9 B parameters: sinks, alternating 128-token windows, 32 experts top
-   4), built by ``ModelConfig.from_hf_config`` from its published
+9. ``engine_gptoss`` — gpt-oss-20b at full width, its depth cut to 12 of
+   its 24 layers (``GPTOSS_LAYERS``; 20.9 B parameters in full: sinks,
+   alternating 128-token windows, 32 experts top 4), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights and seeded
    non-zero sinks and biases: wave 1 and the prefix-hit wave (streams, the
    decode, flash and epilogue launch counts, peak memory), a profiled
@@ -283,7 +283,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the tiers' counters, offload and restore GB/s, the cold tier's MB/s and
    the checksum's share.
 19. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width, its
-   depth cut to 7 of its 28 layers (``LOAD_LAYERS``; its published
+   depth cut to 4 of its 28 layers (``LOAD_LAYERS``; its published
    ``config.json``: G 7, qkv biases, V 152,064) with
    seeded random bf16 weights written as a 4-shard HF safetensors
    snapshot (``write_safetensors_snapshot``) and loaded by
@@ -315,6 +315,35 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    round, kernel 1 and the epilogue once a draft layer a step and once a
    step of each draft burst. Prints each leg's acceptance, rounds and
    decode wall a round.
+21. ``engine_recovery`` — recovery and live migration: Llama-3.1-8B at
+   full width and depth (``RECOVERY_MODEL``, its published ``config.json``,
+   seeded random bf16 weights) behind a source and a peer in one process
+   (one set of weight tensors, 1,024 blocks of 16 each, no prefix cache),
+   wave 1's eight prompts with 64 new tokens (six greedy, two seeded at
+   0.8 / 0.95 with seeds of their own) served undisturbed first. Leg A: a
+   ``RecoveryController`` drain (grace 0.05 s, graceful seize, hot) once
+   every stream has 8 tokens, from a synchronous and then a chained source
+   (depth 2, 4-step bursts): 8 of 8 migrated hot, the blocks the peer's
+   cache holds after each scatter byte-equal to the frames shipped, and the
+   frames byte-equal to the source's cache re-read after its seize (a
+   gather ordered before a burst's write would differ), greedy streams equal
+   the baseline or part at a printed near-tie, the seeded ones bit for bit,
+   the peer's resumed decode under the sync guard, no block in use on
+   either side. Leg B: a source whose stall watchdog samples every 0.1 s
+   against a 2 s deadline; ``decode_burst_hang`` wedges its next decode
+   sync: one ``decode_stall`` trip, a flight artifact holding the 8
+   requests, the hard seize, 8 cold migrations (the peer re-prefills
+   through the flash kernel), the injected respawner between the
+   ``deregister`` and ``register`` hooks, the draining snapshot that keeps
+   the port's ``KvScheduler`` off the source, every stream to its length,
+   no block in use after the release. Leg C: two ``in=http out=torch
+   --self-heal`` CLIs on Llama-3.2-1B, four streamed chats on A, ``POST
+   /admin/drain``: 4 migrated, every stream to ``[DONE]`` with B's
+   undisturbed text (or a near-tie), 503 with Retry-After after, 4
+   committed hot migrations on A's /metrics, and A's SIGUSR2 flight
+   artifact holding 4 handoffs, each before the streams ended. Prints the
+   drains' seconds, the KV bytes and frames, each stream's gap across the
+   hop, the peer's launches of kernels 1–3.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -337,7 +366,9 @@ workers' (decode and flash's fp8 forms: leg A's fp8 pair); decode, flash
 and the epilogue carry ``launches_engine_kv_tiers``, the tiers' engines'
 (decode and flash's fp8 forms: the e4m3 engine's); decode, flash, verify
 and the epilogue carry ``launches_engine_spec``, the chained draft
-engine's (verify: with the chained ngram engine's); kernel 6's
+engine's (verify: with the chained ngram engine's); decode, flash and the
+epilogue carry ``launches_engine_recovery``, the peer's over legs A and B
+(its resumed decode and cold re-prefills); kernel 6's
 fp8 form has the fp8 SP engine's launches); the line before that the
 card's name and power limit.
 """
@@ -373,6 +404,10 @@ FLAGSHIP = dict(
 # and no q_lora, one dense first layer, then 26 MoE layers of 64 routed
 # experts (top 6, softmax, no top-k renormalisation, greedy routing) plus 2
 # shared experts; yarn rope (factor 40, both mscales 0.707); untied
+# depth cuts that keep the whole script inside its time limit (PR 20);
+# the widths stay the published ones
+MLA_LAYERS = 14      # of V2-Lite's 27
+GPTOSS_LAYERS = 12   # of gpt-oss-20b's 24
 V2_LITE = {
     "architectures": ["DeepseekV2ForCausalLM"], "vocab_size": 102400,
     "hidden_size": 2048, "intermediate_size": 10944,
@@ -3860,8 +3895,9 @@ def _decode_step_profile(torch, runner, steps=5,
 
 
 def engine_mla_phase(torch, dev, smi):
-    """DeepSeek-V2-Lite through ``TorchServingEngine`` at full width and
-    depth, from ``ModelConfig.from_hf_config`` of its published config, with
+    """DeepSeek-V2-Lite through ``TorchServingEngine`` at full width, its
+    depth cut to ``MLA_LAYERS`` of 27, from ``ModelConfig.from_hf_config``
+    of its published config, with
     seeded random bf16 weights and the Llama engines' settings (``ENGINE``):
 
     1. the main path (fused epilogue, single-token decode): wave 1 and the
@@ -3888,7 +3924,8 @@ def engine_mla_phase(torch, dev, smi):
     from dynamo_tpu_torch.engine.serving import TorchServingEngine
     from dynamo_tpu_torch.models import deepseek
 
-    mcfg = ModelConfig.from_hf_config(V2_LITE)
+    mcfg = dataclasses.replace(ModelConfig.from_hf_config(V2_LITE),
+                               num_layers=MLA_LAYERS)
     vocab = mcfg.vocab_size
     layers = mcfg.num_layers
 
@@ -4114,8 +4151,8 @@ def _gptoss_params(torch, mcfg, dev):
 
 
 def engine_gptoss_phase(torch, dev, smi):
-    """gpt-oss-20b through ``TorchServingEngine`` at full width and depth
-    (24 layers, 20.9 B parameters), from ``ModelConfig.from_hf_config`` of
+    """gpt-oss-20b through ``TorchServingEngine`` at full width, its depth
+    cut to ``GPTOSS_LAYERS`` of 24 (20.9 B parameters in full), from ``ModelConfig.from_hf_config`` of
     its published config, with seeded random bf16 weights (sinks and biases
     non-zero) and the engines' settings (``ENGINE``), one set of weight
     tensors behind five engines:
@@ -4143,7 +4180,8 @@ def engine_gptoss_phase(torch, dev, smi):
     from dynamo_tpu_torch.models import gptoss
 
     on_card = torch.device(dev).type == "cuda"
-    mcfg = ModelConfig.from_hf_config(GPT_OSS_20B)
+    mcfg = dataclasses.replace(ModelConfig.from_hf_config(GPT_OSS_20B),
+                               num_layers=GPTOSS_LAYERS)
     vocab, layers = mcfg.vocab_size, mcfg.num_layers
     spec_model = dataclasses.replace(mcfg, moe_capacity_factor=GPTOSS_NO_DROP)
 
@@ -5472,12 +5510,12 @@ def _cli_flags(model_dir, extra_path, **kw):
 
 
 async def http_request(port, method, path, body=None, disconnect_after=None,
-                       headers=None):
+                       headers=None, on_event=None):
     """One HTTP/1.1 request over asyncio streams: (status, headers, body,
     events). For an SSE answer ``events`` holds (arrival seconds since the
     request was sent, payload) per ``data:`` event, and ``body`` the raw
     stream; ``disconnect_after`` closes the connection after that many
-    events."""
+    events; ``on_event(seconds, payload)`` sees each event as it arrives."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     data = b"" if body is None else json.dumps(body).encode()
     head = [f"{method} {path} HTTP/1.1", "Host: 127.0.0.1",
@@ -5512,6 +5550,8 @@ async def http_request(port, method, path, body=None, disconnect_after=None,
                             payload = line[6:]
                             events.append((now, None if payload == "[DONE]"
                                            else json.loads(payload)))
+                            if on_event is not None:
+                                on_event(*events[-1])
                 if disconnect_after and len(events) >= disconnect_after:
                     return status, hdrs, raw, events
             return status, hdrs, raw, events
@@ -6612,7 +6652,8 @@ GRAPH_NS = "graph"
 GRAPH_RR_NS = "graph_rr"
 GRAPH_WORKER_FLAGS = ["--max-model-len", "16384", "--num-kv-blocks", "1024",
                       "--kv-block-size", "16"]
-GRAPH_GROUPS, GRAPH_FOLLOWERS = 4, 3
+# two groups a wave (four until PR 20: the script's time limit)
+GRAPH_GROUPS, GRAPH_FOLLOWERS = 2, 3
 GRAPH_PREFIX, GRAPH_TAIL = 1024, 64   # tokens (words of one token each)
 GRAPH_AFTER_KILL = 4
 GRAPH_LONG_PROMPT = 12000
@@ -6799,12 +6840,13 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids):
     launches1 = {i: s["data"]["launches"] for i, s in (await wstats()).items()}
     turns = {"kv": [kv], "round_robin": [], "kv_one_by_one": [],
              "round_robin_one_by_one": []}
-    for mode in ("round_robin", "round_robin"):  # in turns after the kv wave
-        turns[mode].append(await wave(mode))
+    # one round-robin wave after the kv wave, at once and one by one (two kv
+    # waves fewer since PR 18 and two round-robin ones fewer since PR 20:
+    # the script's time limit)
+    turns["round_robin"].append(await wave("round_robin"))
     # the followers one after another: the prefix hit without three
-    # followers meeting in one worker's steps (two kv waves fewer than
-    # before, at once and one by one: the script's time limit)
-    for mode in ("kv", "round_robin", "round_robin"):
+    # followers meeting in one worker's steps
+    for mode in ("kv", "round_robin"):
         turns[f"{mode}_one_by_one"].append(await wave(mode, at_once=False))
 
     # the cluster KV fabric's counters after the waves: the round-robin
@@ -8223,7 +8265,7 @@ QWEN_CHAT_TEMPLATE = (
 LOAD_SHARDS = 4
 # a depth cut that keeps the whole script inside its time limit (of 28
 # layers); the widths stay the published ones
-LOAD_LAYERS = 7
+LOAD_LAYERS = 4
 LOAD_DRAWN_SCALE = 0.1   # qkv biases N(0, 0.1^2), norms 1 + N(0, 0.1^2)
 LOAD_CLI_TIMEOUT_S = 600
 # the CLI's flags (a CPU rehearsal appends "--device", "cpu")
@@ -9402,11 +9444,724 @@ def _engine_spec(torch, dev, smi, tmp):
                                    - b["launches"]["epilogue_finish"]))
 
 
+# --------------------------------------------------------- engine_recovery
+
+# recovery and live migration: Llama-3.1-8B at full width and depth behind a
+# source and a peer in one process (one set of weight tensors, a cache of
+# 1,024 blocks each), the CLI's rolling update on the 1B
+RECOVERY_MODEL = LLAMA_31_8B              # a CPU rehearsal shrinks it
+# no prefix cache: the baseline's and leg A's waves run on one source, and
+# the near-tie checks use the peer's idle cache as scratch
+RECOVERY_ENGINE = dict(ENGINE, enable_prefix_caching=False)
+RECOVERY_CHAIN = dict(decode_pipeline_depth=2, multi_step_decode=4)
+RECOVERY_NEW_TOKENS = 64
+RECOVERY_LIVE = 8            # tokens every stream has when the drain fires
+RECOVERY_SAMPLED = dict(temperature=0.8, top_p=0.95)
+RECOVERY_SEEDS = {3: 2020, 5: 2121}       # wave 1's seeded rows, own seeds
+RECOVERY_GRACE_S = 0.05
+RECOVERY_STALL_S, RECOVERY_INTERVAL_S = 2.0, 0.1
+RECOVERY_TIMEOUT_S = 300
+RECOVERY_DEVICE = "cuda"                  # a CPU rehearsal sets "cpu"
+RECOVERY_CLI_CHATS = (120, 300, 500, 800)  # words of leg C's streamed chats
+RECOVERY_CLI_NEW = 160
+RECOVERY_CLI_GRACE_S = 0.2
+RECOVERY_CLI_EXTRA = dict(max_prefill_tokens_per_step=512)
+RECOVERY_CLI_LIVE = 8        # chunks every chat has when /admin/drain is sent
+
+
+def _recovery_requests(rng):
+    """Wave 1's eight prompts (100–1,500 tokens), 64 new tokens each: six
+    greedy, two seeded sampled with seeds of their own."""
+    wave1, _ = _requests(rng, RECOVERY_MODEL["vocab_size"])
+    return [dict(prompt=p, samp=(dict(RECOVERY_SAMPLED, seed=RECOVERY_SEEDS[i])
+                                 if i in RECOVERY_SEEDS
+                                 else dict(temperature=0.0)),
+                 stop=dict(max_tokens=RECOVERY_NEW_TOKENS, ignore_eos=True))
+            for i, (p, _) in enumerate(wave1)]
+
+
+def _recovery_start(engine, reqs):
+    """Stream ``reqs`` from ``engine`` as token-level consumers reading the
+    relay: per request its tokens, finish reason, each token chunk's
+    arrival and how many chunks came before the ``migrated`` frame."""
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    records = [dict(tokens=[], finish=None, times=[], hop_at=None) for _ in reqs]
+
+    async def one(r, rec):
+        req = PreprocessedRequest(
+            token_ids=r["prompt"], stop_conditions=StopConditions(**r["stop"]),
+            sampling_options=SamplingOptions(**r["samp"]))
+        async for out in engine.generate(Context(req)):
+            if out.get("migrated"):
+                rec["hop_at"] = len(rec["times"])
+                continue
+            if out["token_ids"]:
+                rec["tokens"].extend(out["token_ids"])
+                rec["times"].append(time.monotonic())
+            rec["finish"] = out.get("finish_reason") or rec["finish"]
+
+    tasks = [asyncio.ensure_future(one(r, rec)) for r, rec in zip(reqs, records)]
+    return records, tasks
+
+
+async def _recovery_until(cond, loops, timeout_s=RECOVERY_TIMEOUT_S):
+    """Poll ``cond`` while every scheduler loop of ``loops`` lives: a loop
+    that died (a check that raised inside a dispatch) ends the wait with its
+    exception."""
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        for t in loops:
+            if t is not None and t.done():
+                raise RuntimeError("a scheduler loop ended mid-leg") \
+                    from (t.exception() if not t.cancelled() else None)
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"engine_recovery: no progress in {timeout_s} s")
+        await asyncio.sleep(0.005)
+
+
+def _hop_gap(rec):
+    """A stream's gap across the hop: from its last token chunk before the
+    ``migrated`` frame to its first one after (None without a hop)."""
+    h = rec["hop_at"]
+    if h is None or not 0 < h < len(rec["times"]):
+        return None
+    return rec["times"][h] - rec["times"][h - 1]
+
+
+def _recovery_check_streams(torch, runner, reqs, base, records, leg,
+                            sampled_exact):
+    """Every stream has its length and finish; greedy ones equal the
+    baseline or part at a near-tie (``_spec_agreement``); the seeded ones
+    equal theirs bit for bit (``sampled_exact``) or part only after the
+    hop. Returns the parted records."""
+    res = [dict(tokens=r["tokens"], finish=r["finish"]) for r in records]
+    _check_streams(res, RECOVERY_NEW_TOKENS, RECOVERY_MODEL["vocab_size"])
+    greedy = [i for i, r in enumerate(reqs) if r["samp"]["temperature"] == 0.0]
+    parted = _spec_agreement(torch, runner,
+                             [(reqs[i]["prompt"], None) for i in greedy],
+                             [base[i] for i in greedy], [res[i] for i in greedy])
+    for p in parted:
+        p["request"] = greedy[p["request"]]
+    sampled = []
+    for i in sorted(RECOVERY_SEEDS):
+        a, b = base[i]["tokens"], res[i]["tokens"]
+        if a == b:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        # one token a chunk on the relay: the chunks before the hop are the
+        # tokens the source emitted
+        hop = records[i]["hop_at"] or 0
+        sampled.append(dict(request=i, position=j, tokens_before_hop=hop))
+        if sampled_exact or j < hop:
+            raise AssertionError(f"leg {leg}: seeded stream {i} parts from its "
+                                 f"baseline at {j} (the hop after {hop} tokens)")
+    return parted, sampled
+
+
+async def _recovery_leg_a(torch, src, peer, server, reqs, layers, on_card,
+                          timers):
+    """Leg A on ``src``: an admin drain (graceful seize, hot) into ``peer``
+    once every stream has RECOVERY_LIVE tokens; the frames as shipped, the
+    installed blocks, the source's cache after the drain, the peer's
+    launches and its guarded dispatches."""
+    from dynamo_tpu_torch.recovery import (
+        RecoveryConfig,
+        RecoveryController,
+        migration,
+    )
+
+    ctl = RecoveryController(
+        engine_id="source", scheduler=src.scheduler, runner=src.runner,
+        peers=lambda: [dict(server.descriptor, engine_id="peer")],
+        config=RecoveryConfig(drain_grace_s=RECOVERY_GRACE_S))
+    shipped, ids_q = [], []
+    gather_dev, to_host = src.runner.gather_blocks_device, src.runner.blocks_to_host
+    # the stages' seconds: the source's host copies, the tcp sends and
+    # receives, the peer's scatters (its sink's wrapper adds those)
+    timers.update(to_host_s=0.0, send_s=0.0, recv_s=0.0, scatter_s=0.0)
+
+    def gather(ids):
+        ids_q.append(list(ids))
+        return gather_dev(ids)
+
+    def host(k, v):
+        t0 = time.monotonic()
+        hk, hv = to_host(k, v)
+        timers["to_host_s"] += time.monotonic() - t0
+        # a pageable copy: the pinned frame goes back to the host allocator
+        shipped.append((ids_q.pop(0), hk.clone(), hv.clone()))
+        return hk, hv
+
+    tcp = migration.TcpBackend
+
+    class TimedTcp(tcp):
+        """The plane's tcp backend, its send and receive awaits timed."""
+
+        @staticmethod
+        async def send_blocks(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                return await tcp.send_blocks(*a, **kw)
+            finally:
+                timers["send_s"] += time.monotonic() - t0
+
+        @staticmethod
+        async def recv_blocks(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                return await tcp.recv_blocks(*a, **kw)
+            finally:
+                timers["recv_s"] += time.monotonic() - t0
+
+    src.runner.gather_blocks_device = gather
+    src.runner.blocks_to_host = host
+    migration.TcpBackend = TimedTcp
+    stats = _guard_dispatches(torch, peer.runner, layers, 1, on_card=on_card)
+    records, tasks = _recovery_start(src, reqs)
+    loops = [src.scheduler._task, peer.scheduler._task]
+    try:
+        await _recovery_until(lambda: min(len(r["tokens"]) for r in records)
+                              >= RECOVERY_LIVE, loops)
+        t0 = time.monotonic()
+        summary = await ctl.drain(hard=False)
+        drain_wall = time.monotonic() - t0
+        _reset_launches()  # the peer's resumed decode, counted from here
+        draining = src.metrics()["draining"]
+        del src.runner.gather_blocks_device, src.runner.blocks_to_host
+        # the source's cache after its seize, every dispatch done: the
+        # frames it shipped must hold what its bursts wrote
+        if on_card:
+            torch.cuda.synchronize()
+        regathered = [src.runner.gather_blocks(ids) for ids, _, _ in shipped]
+        await _recovery_until(lambda: all(t.done() for t in tasks),
+                              [peer.scheduler._task])
+        for t in tasks:
+            t.result()
+        launches = _read_launches()
+    finally:
+        for t in tasks:
+            t.cancel()
+        migration.TcpBackend = tcp
+        for name in ("gather_blocks_device", "blocks_to_host"):
+            src.runner.__dict__.pop(name, None)
+        # the peer's guard goes with the leg (the class's methods again)
+        for name in ("decode_burst_chained", "decode_burst", "step",
+                     "stage_to_host"):
+            peer.runner.__dict__.pop(name, None)
+        await ctl.close()
+    same_src = all(_same_bytes(torch, hk, gk) and _same_bytes(torch, hv, gv)
+                   for (_, hk, hv), (gk, gv) in zip(shipped, regathered))
+    return dict(records=records, summary=summary, drain_wall_s=drain_wall,
+                stage_s=dict(timers),
+                registry=ctl.registry.render(), shipped=dict(ctl.shipped),
+                frames_checked=len(shipped), source_bytes_equal=same_src,
+                launches=launches, stats=stats, draining=draining,
+                src_used=src.scheduler.allocator.used,
+                peer_used=peer.scheduler.allocator.used)
+
+
+def engine_recovery_phase(torch, dev, smi):
+    """Recovery and live migration on the card (the module docstring's
+    ``engine_recovery``)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="engine_recovery_"))
+    try:
+        return _engine_recovery(torch, dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _engine_recovery(torch, dev, smi, tmp):
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.kv_router.indexer import OverlapScores
+    from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics
+    from dynamo_tpu_torch.kv_router.scheduler import KvScheduler
+    from dynamo_tpu_torch.recovery import MigrationServer, MigrationSink
+    from dynamo_tpu_torch.utils import faults
+
+    on_card = torch.device(dev).type == "cuda"
+    layers = RECOVERY_MODEL["num_hidden_layers"]
+    reqs = _recovery_requests(np.random.default_rng(SEED))
+    model = ModelConfig.from_hf_config(RECOVERY_MODEL)
+
+    def config(**kw):
+        return EngineConfig(model=model, seed=SEED,
+                            **dict(RECOVERY_ENGINE, **kw))
+
+    def registry_count(text, mode, outcome="committed"):
+        try:
+            return _metric(text, "dynamo_recovery_migrations_total",
+                           f'{{mode="{mode}",outcome="{outcome}"}}')
+        except AssertionError:
+            return 0.0
+
+    async def legs():
+        out = {}
+        t0 = time.monotonic()
+        # the source of the baseline and of leg A's synchronous drain draws
+        # the weights; the peer and every later source share its tensors
+        src = await TorchServingEngine.create(config(), device=dev)
+        params = src.runner.params
+        peer = await TorchServingEngine.create(config(), params=params, device=dev)
+        out["setup_s"] = time.monotonic() - t0
+        sink = MigrationSink(peer.scheduler, peer.runner)
+        installed = []
+        real_scatter = sink.scatter
+        timers = {}
+
+        async def scatter(mig_id, offset, k, v):
+            # the blocks as the peer's cache holds them right after the
+            # scatter, beside the bytes that arrived
+            t0 = time.monotonic()
+            await real_scatter(mig_id, offset, k, v)
+            timers["scatter_s"] += time.monotonic() - t0
+            ids = sink._pending[mig_id][1][offset:offset + k.shape[1]]
+            gk, gv = peer.runner.gather_blocks(ids)
+            installed.append(_same_bytes(torch, k, gk) and _same_bytes(torch, v, gv))
+
+        sink.scatter = scatter
+        server = await MigrationServer(sink).start()
+        try:
+            t1 = time.monotonic()
+            base = await _serve_reqs(src, reqs)
+            out["baseline_wall_s"] = time.monotonic() - t1
+            # A, synchronous source
+            a = await _recovery_leg_a(torch, src, peer, server, reqs, layers,
+                                      on_card, timers)
+            await src.close()
+            a["parted"], a["sampled_parted"] = _recovery_check_streams(
+                torch, peer.runner, reqs, base, a["records"], "A sync", True)
+            a["installed"] = list(installed)
+            installed.clear()
+            out["A_sync"] = a
+            # A, chained source: its graceful seize meets dispatched bursts
+            src = await TorchServingEngine.create(config(**RECOVERY_CHAIN),
+                                                  params=params, device=dev)
+            a = await _recovery_leg_a(torch, src, peer, server, reqs, layers,
+                                      on_card, timers)
+            a["chain_len_max"] = src.metrics()["chain_len_max"]
+            await src.close()
+            a["parted"], a["sampled_parted"] = _recovery_check_streams(
+                torch, peer.runner, reqs, base, a["records"], "A chained", True)
+            a["installed"] = list(installed)
+            out["A_chained"] = a
+            # B: a wedge, the watchdog's trip, the hard seize, cold
+            out["B"] = await _recovery_leg_b(torch, dev, config, params, peer,
+                                             server, reqs, base, tmp, faults)
+        finally:
+            await server.close()
+            await peer.close()
+        return out
+
+    out = asyncio.run(asyncio.wait_for(legs(), 3 * RECOVERY_TIMEOUT_S))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    b = out["B"]
+    sick = ForwardPassMetrics.from_wire(b["sick_metrics"])
+    ks = KvScheduler(block_size=RECOVERY_ENGINE["kv_block_size"])
+    ks.update_metrics("sick", sick)
+    ks.update_metrics("peer", ForwardPassMetrics(
+        request_total_slots=RECOVERY_ENGINE["max_batch_size"],
+        kv_total_blocks=RECOVERY_ENGINE["num_kv_blocks"]))
+    picks = [ks.schedule(64, OverlapScores()).worker_id for _ in range(16)]
+
+    def leg_line(a):
+        gaps = [_hop_gap(r) for r in a["records"]]
+        return dict(summary=a["summary"], drain_wall_s=a["drain_wall_s"],
+                    stage_s=a["stage_s"],
+                    kv_bytes=a["shipped"]["bytes"], kv_frames=a["shipped"]["frames"],
+                    hop_gap_s=gaps, hop_gap_max_s=max(g for g in gaps if g is not None)
+                    if any(g is not None for g in gaps) else None,
+                    installed_frames_byte_equal=sum(a["installed"]),
+                    installed_frames=len(a["installed"]),
+                    source_frames_equal_after_seize=a["source_bytes_equal"],
+                    parted=a["parted"], sampled_parted=a["sampled_parted"],
+                    peer_launches={k: a["launches"][k] for k in (
+                        "paged_decode", "paged_flash", "epilogue")},
+                    peer_dispatches={k: v for k, v in a["stats"].items()
+                                     if k != "bad"},
+                    chain_len_max=a.get("chain_len_max"))
+
+    emit("engine_recovery",
+         model="Llama-3.1-8B at full width and depth (its published "
+         "config.json), seeded random bf16 weights; source and peer in one "
+         "process over one set of weight tensors",
+         config=RECOVERY_ENGINE, requests=len(reqs),
+         new_tokens=RECOVERY_NEW_TOKENS, drain_at_tokens=RECOVERY_LIVE,
+         setup_s=out["setup_s"], baseline_wall_s=out["baseline_wall_s"],
+         leg_a_sync=leg_line(out["A_sync"]),
+         leg_a_chained=leg_line(out["A_chained"]),
+         leg_b=dict(trips=b["trips"], summary=b["summary"],
+                    trip_to_drain_done_s=b["trip_to_done_s"],
+                    artifact_requests=b["artifact_requests"],
+                    hooks=b["hooks"], respawned=b["respawned"],
+                    parted=b["parted"], sampled_parted=b["sampled_parted"],
+                    hop_gap_s=[_hop_gap(r) for r in b["records"]],
+                    peer_launches={k: b["launches"][k] for k in (
+                        "paged_decode", "paged_flash", "epilogue")},
+                    router_picks=sorted(set(picks)),
+                    draining_during_drain=b["draining"]),
+         card=smi)
+
+    # the checks, after the numbers are out
+    for name in ("A_sync", "A_chained"):
+        a = out[name]
+        s = a["summary"]
+        if (s["migrated"], s["failed"]) != (len(reqs), 0):
+            raise AssertionError(f"leg {name}: {s}")
+        if registry_count(a["registry"], "hot") != len(reqs):
+            raise AssertionError(f"leg {name}: not every migration was hot: "
+                                 f"{a['registry']}")
+        if not a["installed"] or not all(a["installed"]):
+            raise AssertionError(f"leg {name}: installed KV differs from the "
+                                 f"frames shipped ({a['installed']})")
+        if not a["source_bytes_equal"]:
+            raise AssertionError(f"leg {name}: a shipped frame differs from the "
+                                 "source's cache after its seize (the gather "
+                                 "read KV before a burst's write)")
+        if a["src_used"] or a["peer_used"]:
+            raise AssertionError(f"leg {name}: blocks left in use: source "
+                                 f"{a['src_used']}, peer {a['peer_used']}")
+        if a["stats"]["bad"] or a["stats"]["step"] <= 0:
+            raise AssertionError(f"leg {name}: the peer's guarded decode: "
+                                 f"{a['stats']}")
+        if not a["draining"]:
+            raise AssertionError(f"leg {name}: the source was not draining")
+    if out["A_chained"]["chain_len_max"] <= 1:
+        raise AssertionError("leg A chained: the source never chained a burst")
+    s = b["summary"]
+    if b["trips"] != ["decode_stall"]:
+        raise AssertionError(f"leg B: trips {b['trips']}")
+    if (s["hard"], s["migrated"], s["failed"], s["respawned"]) != (
+            True, len(reqs), 0, True):
+        raise AssertionError(f"leg B: {s}")
+    if registry_count(b["registry"], "cold") != len(reqs):
+        raise AssertionError(f"leg B: not every migration was cold: "
+                             f"{b['registry']}")
+    if b["hooks"] != ["deregister", "register"] or not b["respawned"]:
+        raise AssertionError(f"leg B: hooks {b['hooks']}, respawned "
+                             f"{b['respawned']}")
+    if b["artifact_requests"] != len(reqs):
+        raise AssertionError(f"leg B: the flight artifact holds "
+                             f"{b['artifact_requests']} requests")
+    if not b["draining"] or not sick.draining or picks != ["peer"] * len(picks):
+        raise AssertionError(f"leg B: the sick worker was routed to: {picks}")
+    if b["src_used"] or b["peer_used"]:
+        raise AssertionError(f"leg B: blocks left in use: source "
+                             f"{b['src_used']}, peer {b['peer_used']}")
+    # C: the CLI's rolling update (its own line)
+    emit("engine_recovery", leg="C", **_recovery_leg_c(torch, dev, tmp),
+         card=smi)
+    launches = {k: out["A_sync"]["launches"][k] + out["A_chained"]["launches"][k]
+                + b["launches"][k] for k in out["A_sync"]["launches"]}
+    if on_card:
+        for name in ("A_sync", "A_chained"):
+            _check_launches(f"recovery {name} peer", out[name]["launches"],
+                            ("paged_decode", "epilogue"), layers=layers)
+        _check_launches("recovery B peer", b["launches"],
+                        ("paged_decode", "paged_flash", "epilogue"),
+                        layers=layers)
+    return dict(paged_decode=launches["paged_decode"],
+                paged_flash=launches["paged_flash"],
+                sampling_epilogue=launches["epilogue"] - launches["epilogue_finish"])
+
+
+async def _recovery_leg_b(torch, dev, config, params, peer, server, reqs, base,
+                          tmp, faults):
+    """Leg B: a source whose stall watchdog samples every 0.1 s with a 2 s
+    deadline; ``decode_burst_hang`` wedges its next decode sync; the trip
+    drives the controller's ladder: the hard seize, cold migration into the
+    peer, the injected respawner between the deregister and register
+    hooks."""
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.recovery import RecoveryConfig, RecoveryController
+    from dynamo_tpu_torch.telemetry.flight import FLIGHT_DIR_ENV
+
+    flight_dir = tmp / "flight"
+    prev_dir = os.environ.get(FLIGHT_DIR_ENV)
+    os.environ[FLIGHT_DIR_ENV] = str(flight_dir)
+    src = await TorchServingEngine.create(
+        config(watchdog_stall_s=RECOVERY_STALL_S,
+               watchdog_interval_s=RECOVERY_INTERVAL_S),
+        params=params, device=dev)
+    src.watchdog.name = "source"
+    hooks, respawned = [], []
+
+    async def respawner():
+        respawned.append(time.monotonic())
+
+    draining = []
+
+    async def deregister():
+        # after the gate: the snapshot a router scrapes says draining
+        hooks.append("deregister")
+        draining.append(src.metrics()["draining"])
+
+    async def register():
+        hooks.append("register")
+
+    ctl = RecoveryController(
+        engine_id="source", scheduler=src.scheduler, runner=src.runner,
+        watchdog=src.watchdog, respawner=respawner, deregister=deregister,
+        register=register,
+        peers=lambda: [dict(server.descriptor, engine_id="peer")],
+        config=RecoveryConfig(drain_grace_s=RECOVERY_GRACE_S,
+                              respawn_backoff_s=0.1)).attach()
+    # the peer's launches from the ladder's start: the wedged source
+    # launches nothing from there
+    ctl.add_drain_listener(lambda info: _reset_launches())
+    records, tasks = _recovery_start(src, reqs)
+    try:
+        await _recovery_until(lambda: min(len(r["tokens"]) for r in records)
+                              >= RECOVERY_LIVE, [src.scheduler._task])
+        faults.arm("decode_burst_hang", "once")
+        await _recovery_until(lambda: bool(ctl.recoveries),
+                              [peer.scheduler._task])
+        trip_t = src.watchdog.trips[0]["time"]
+        done_t = time.time()
+        await _recovery_until(lambda: all(t.done() for t in tasks),
+                              [peer.scheduler._task])
+        for t in tasks:
+            t.result()
+        launches = _read_launches()
+        art = json.loads(Path(src.watchdog.trips[0]["artifact"]).read_text())
+        (table,) = [x["requests"] for x in art["sources"]
+                    if x["name"] == "source"]
+        out = dict(records=records, trips=[t["reason"] for t in src.watchdog.trips],
+                   summary=ctl.recoveries[0], trip_to_done_s=done_t - trip_t,
+                   artifact_requests=len(table), hooks=list(hooks),
+                   respawned=bool(respawned), launches=launches,
+                   registry=ctl.registry.render(),
+                   draining=draining == [True],
+                   sick_metrics=src.metrics())
+    finally:
+        faults.release()
+        for t in tasks:
+            t.cancel()
+        await ctl.close()
+        await src.close()
+        if prev_dir is None:
+            os.environ.pop(FLIGHT_DIR_ENV, None)
+        else:
+            os.environ[FLIGHT_DIR_ENV] = prev_dir
+    out["src_used"] = src.scheduler.allocator.used
+    out["peer_used"] = peer.scheduler.allocator.used
+    out["parted"], out["sampled_parted"] = _recovery_check_streams(
+        torch, peer.runner, reqs, base, records, "B", False)
+    return out
+
+
+def _recovery_leg_c(torch, dev, tmp):
+    """Leg C, the CLI's rolling update on Llama-3.2-1B (``engine_http``'s
+    model directory): B receives migrations (``--migrate-port``), A names B
+    (``--migrate-peers``, ``--drain-grace-s 0.2``, ``--flight-dir``); four
+    streamed greedy chats on A, then ``POST /admin/drain`` on A. The reply
+    says 4 migrated and none failed; every stream runs to ``[DONE]`` with no
+    error and B's undisturbed text (or parts at a near-tie of an in-process
+    engine's logits); a new request to A gets 503 with Retry-After; A's
+    /metrics counts 4 committed hot migrations; A's flight artifact
+    (SIGUSR2) holds a handoff for each stream, every one before the streams
+    ended (the re-bind freed A's relays); both exit 0 on SIGINT."""
+    import signal
+
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+
+    model_dir = write_model_dir(tmp / "llama-3.2-1b-random")
+    extra = tmp / "recovery_extra.json"
+    extra.write_text(json.dumps(RECOVERY_CLI_EXTRA))
+    tok = HFTokenizer.from_pretrained_dir(model_dir)
+    words = _word_ids(tok)
+    rng = np.random.default_rng(SEED + 2)
+
+    def words_text(n):
+        return tok.decode([words[int(i)] for i in rng.integers(0, len(words), n)])
+
+    flight_dir = tmp / "flight_cli"
+    mig_b = _free_port()
+    common = ["dynamo_tpu_torch.cli.run", "in=http", "out=torch",
+              "--model-path", model_dir, "--model-name", "llama",
+              "--allow-random-weights", "--extra-engine-args", str(extra),
+              "--max-model-len", "2048", "--num-kv-blocks", "1024",
+              "--kv-block-size", "16", "--http-host", "127.0.0.1",
+              "--http-port", "0", "--self-heal", "--advertise-host",
+              "127.0.0.1"] + (["--device", "cpu"] if RECOVERY_DEVICE == "cpu"
+                              else [])
+    t0 = time.monotonic()
+    procs = {
+        "B": _spawn_role(common + ["--migrate-port", str(mig_b)], "cli_b", tmp),
+        "A": _spawn_role(common + ["--migrate-peers", f"127.0.0.1:{mig_b}",
+                                   "--drain-grace-s", str(RECOVERY_CLI_GRACE_S),
+                                   "--flight-dir", str(flight_dir)], "cli_a", tmp),
+    }
+    try:
+        deadline = time.monotonic() + HTTP_CLI_TIMEOUT_S
+        ports = {n: int(_await_line(p, "listening on", deadline).strip()
+                        .rsplit(":", 1)[1]) for n, p in procs.items()}
+        startup_s = time.monotonic() - t0
+        bodies = [dict(_graph_chat("llama", words_text(n)),
+                       max_tokens=RECOVERY_CLI_NEW) for n in RECOVERY_CLI_CHATS]
+
+        async def traffic():
+            seen = [0] * len(bodies)
+            ends = [None] * len(bodies)
+
+            def counter(i):
+                def on_event(t, payload):
+                    seen[i] += 1
+                    if payload is None:
+                        ends[i] = time.time()
+                return on_event
+
+            streams = [asyncio.ensure_future(http_request(
+                ports["A"], "POST", "/v1/chat/completions", b,
+                headers={"X-Request-Id": f"recovery-c-{i}"},
+                on_event=counter(i))) for i, b in enumerate(bodies)]
+            while min(seen) < RECOVERY_CLI_LIVE:
+                if any(s.done() for s in streams):
+                    raise AssertionError("leg C: a stream ended before the drain")
+                await asyncio.sleep(0.005)
+            t_drain = time.monotonic()
+            drain = await http_request(ports["A"], "POST", "/admin/drain")
+            drain_s = time.monotonic() - t_drain
+            answers = await asyncio.gather(*streams)
+            refused = await http_request(ports["A"], "POST",
+                                         "/v1/chat/completions",
+                                         dict(bodies[0], stream=False))
+            metrics = (await http_request(ports["A"], "GET", "/metrics"))[2]
+            direct = await asyncio.gather(*(
+                http_request(ports["B"], "POST", "/v1/chat/completions", b)
+                for b in bodies))
+            return drain, drain_s, answers, ends, refused, metrics.decode(), direct
+
+        drain, drain_s, answers, ends, refused, metrics, direct = asyncio.run(
+            asyncio.wait_for(traffic(), RECOVERY_TIMEOUT_S))
+        # A's flight ring, through SIGUSR2 into --flight-dir
+        procs["A"].send_signal(signal.SIGUSR2)
+        t_sig = time.monotonic()
+        while not list(flight_dir.glob("*-sigusr2.json")):
+            if time.monotonic() - t_sig > 60:
+                raise AssertionError("leg C: A wrote no SIGUSR2 artifact")
+            time.sleep(0.05)
+        art = None
+        while art is None and time.monotonic() - t_sig < 60:
+            try:
+                art = json.loads(next(flight_dir.glob("*-sigusr2.json")).read_text())
+            except ValueError:
+                time.sleep(0.05)
+        # each stream's relay end on A (its trace id is the X-Request-Id)
+        handoffs = {e.get("trace_id"): e["wall"] for e in art["events"]
+                    if e["kind"] == "recovery.migrate_handoff"}
+        exits = {}
+        for n, p in procs.items():
+            p.send_signal(signal.SIGINT)
+            exits[n] = p.wait(timeout=60)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for ans in answers:
+        if ans[0] != 200:
+            raise AssertionError(f"leg C: a stream answered {ans[0]}: {ans[2][:300]}")
+        rec = _stream_record(ans[3], True)
+        ann = next(line for line in ans[2].decode().split("\n")
+                   if line.startswith(": "))
+        rec["prompt_ids"] = json.loads(ann[2:])
+        recs.append(rec)
+    direct_recs = [_stream_record(d[3], True) for d in direct]
+    errors = [c for _, c in sum((a[3] for a in answers), [])
+              if c is not None and "error" in c]
+    summary = json.loads(drain[2]) if drain[0] == 200 else drain[2][:300]
+    hot = _metric(metrics, "dynamo_recovery_migrations_total",
+                  '{mode="hot",outcome="committed"}')
+    parted = []
+    for i, (r, d) in enumerate(zip(recs, direct_recs)):
+        if r["tokens"] != d["tokens"]:
+            parted.append(dict(request=i, first_token_diff=next(
+                j for j, (x, y) in enumerate(zip(r["tokens"], d["tokens"]))
+                if x != y)))
+    out = dict(startup_s=startup_s, drain_status=drain[0], drain=summary,
+               drain_http_s=drain_s, streams_done=[a[3][-1][1] is None
+                                                   for a in answers],
+               stream_tokens=[len(r["tokens"]) for r in recs],
+               ttft_s=[r["ttft_s"] for r in recs],
+               itl_max_s=[r["itl_max_s"] for r in recs],
+               refused=(refused[0], refused[1].get("retry-after")),
+               hot_committed=hot, handoffs=len(handoffs),
+               handoff_before_stream_end_s=[
+                   (ends[i] - handoffs[f"recovery-c-{i}"])
+                   if f"recovery-c-{i}" in handoffs and ends[i] else None
+                   for i in range(len(bodies))],
+               parted=parted, exits=exits)
+    if drain[0] != 200 or (summary["migrated"], summary["failed"]) != (4, 0):
+        raise AssertionError(f"leg C: /admin/drain answered {drain[0]}: {summary}")
+    if errors or not all(out["streams_done"]):
+        raise AssertionError(f"leg C: a stream carried an error or no [DONE]: "
+                             f"{errors[:2]}")
+    if any(n != RECOVERY_CLI_NEW for n in out["stream_tokens"]):
+        raise AssertionError(f"leg C: stream lengths {out['stream_tokens']}")
+    if out["refused"] != (503, "1"):
+        raise AssertionError(f"leg C: a request after the drain: {refused[:2]}")
+    if hot != 4.0:
+        raise AssertionError(f"leg C: hot committed migrations {hot}")
+    if not all(d is not None and d > 0 for d in out["handoff_before_stream_end_s"]):
+        raise AssertionError(f"leg C: a relay did not end before its stream: "
+                             f"handoffs {handoffs}, stream ends {ends}")
+    if any(rc != 0 for rc in exits.values()):
+        raise AssertionError(f"leg C: exits {exits}")
+    if parted:
+        out["parted"] = _recovery_cli_near_ties(torch, dev, tok, model_dir,
+                                                extra, bodies, recs, direct_recs,
+                                                parted)
+    return out
+
+
+def _recovery_cli_near_ties(torch, dev, tok, model_dir, extra, bodies, recs,
+                            direct, parted):
+    """A leg C stream that parts from B's undisturbed reply must part at a
+    near-tie of the same weights' logits (an in-process engine built from
+    the CLI's flags: the same seeded draw)."""
+    from dynamo_tpu_torch.cli import run
+
+    flags = run.parse_flags(
+        ["--model-path", model_dir, "--model-name", "llama",
+         "--allow-random-weights", "--extra-engine-args", str(extra),
+         "--max-model-len", "2048", "--num-kv-blocks", "1024",
+         "--kv-block-size", "16"] + (["--device", "cpu"]
+                                     if RECOVERY_DEVICE == "cpu" else []))
+
+    async def check():
+        core = await run.build_core_engine("torch", flags, run.load_mdc(flags))
+        try:
+            reqs = [(recs[p["request"]]["prompt_ids"], None) for p in parted]
+            return _spec_agreement(
+                torch, core.runner, reqs,
+                [dict(tokens=[tok.token_to_id(t) for t in direct[p["request"]]["tokens"]])
+                 for p in parted],
+                [dict(tokens=[tok.token_to_id(t) for t in recs[p["request"]]["tokens"]])
+                 for p in parted])
+        finally:
+            await core.close()
+
+    return asyncio.run(check())
+
+
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
           "engine_mixtral_int8", "engine_sp", "engine_http", "engine_guided",
           "engine_graph", "engine_disagg", "engine_kv_tiers", "engine_load",
-          "engine_spec")
+          "engine_spec", "engine_recovery")
 
 
 def main(argv=None) -> int:
@@ -9539,6 +10294,17 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    recovery_launches = {}
+    if "engine_recovery" in phases:
+        # recovery and live migration (a drained Llama-3.1-8B, the CLI's
+        # rolling update): the peer's resumed decode and re-prefills
+        t0 = time.monotonic()
+        recovery_launches = engine_recovery_phase(torch, dev, smi)
+        phase_s["engine_recovery"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
     kernels = [dict(entry, launches=launches.get(key),
                     **({"launches_engine_http": http_launches[key]}
                        if key in http_launches else {}),
@@ -9551,7 +10317,9 @@ def main(argv=None) -> int:
                     **({"launches_engine_kv_tiers": tiers_launches[key]}
                        if key in tiers_launches else {}),
                     **({"launches_engine_spec": spec_launches[key]}
-                       if key in spec_launches else {}))
+                       if key in spec_launches else {}),
+                    **({"launches_engine_recovery": recovery_launches[key]}
+                       if key in recovery_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     # a form no cell serves (``path`` says so) has no count: null

@@ -41,6 +41,15 @@ server registers under ``kv/fabric.fabric_key``) and pulls a prefix a peer
 holds instead of recomputing it (its ownership view rides the component's
 KV event stream).
 
+Self-healing serving: ``--self-heal`` on an ``out=torch`` engine (``in=http``
+or a ``--token-level`` worker) builds a recovery controller and a migration
+receiver (``--migrate-port``). A stall-watchdog trip (``--watchdog-stall-s``)
+or ``POST /admin/drain`` drains the engine (``--drain-grace-s``) and
+live-migrates its requests to a peer (``--migrate-peers host:port,...``, or
+the component's migration prefix in discovery) over tcp, with a respawn
+ladder (``--respawn-max``, ``--respawn-backoff-s``). Flight artifacts go to
+``--flight-dir`` (or DYN_FLIGHT_DIR) on a trip and on SIGUSR2.
+
 Every other input, output and reference flag is refused by name.
 
 A ``--model-path`` directory holding a safetensors checkpoint, or a
@@ -55,6 +64,8 @@ Examples:
       --allow-random-weights --device cpu --extra-engine-args f32.json
   python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
       --allow-random-weights --kv-cache-dtype fp8
+  python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
+      --self-heal --migrate-port 8391 --migrate-peers 10.0.0.2:8391
   python3 -m dynamo_tpu_torch.cli.run in=dyn://public.backend.generate \\
       out=torch --token-level --model-path <dir> --store-port 4871
   python3 -m dynamo_tpu_torch.cli.run in=dyn://public.processor.chat \\
@@ -85,7 +96,8 @@ ROUTER_MODES = ("round_robin", "random", "kv")
 GRACEFUL_SHUTDOWN_S = 30.0
 
 # the reference's flags this CLI does not take (each raises by name):
-# multi-device, the ici transfer plane, recovery, planning, tenants and
+# multi-device, the ici transfer plane, the supervised subprocess engine
+# (and with it respawn on a child's death), admission, planning, tenants and
 # telemetry sidecars are not ported
 REFUSED_FLAGS = (
     "--tensor-parallel-size", "--expert-parallel-size",
@@ -94,9 +106,7 @@ REFUSED_FLAGS = (
     "--engine-heartbeat-s", "--engine-heartbeat-misses",
     "--engine-init-timeout-s",
     "--ici-sender-rank", "--ici-receiver-rank", "--num-nodes", "--node-rank",
-    "--leader-addr", "--profile-dir", "--profiler-port", "--flight-dir",
-    "--watchdog-stall-s", "--self-heal", "--drain-grace-s", "--respawn-max",
-    "--respawn-backoff-s", "--migrate-peers", "--migrate-port",
+    "--leader-addr", "--profile-dir", "--profiler-port",
     "--admission-limit",
     "--admission-queue-depth", "--admission-queue-timeout-s", "--planner",
     "--planner-interval-s", "--planner-min-replicas",
@@ -249,6 +259,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cold-tier-blocks", type=int, default=0,
                    help="cold-tier capacity in blocks (0 = off; set together "
                         "with --cold-tier-dir)")
+    # the flight recorder and the stall watchdog (telemetry/)
+    p.add_argument("--flight-dir", default="",
+                   help="directory for flight artifacts (watchdog trips, "
+                        "SIGUSR2); also settable via DYN_FLIGHT_DIR")
+    p.add_argument("--watchdog-stall-s", type=float, default=None,
+                   help="stall-watchdog deadline: trip (and dump a flight "
+                        "artifact) when the engine has pending work but its "
+                        "loop heartbeat or dispatch counter has been stale "
+                        "this long (default 30; 0 = off)")
+    # self-healing serving (recovery/): trip → drain → migrate → respawn
+    p.add_argument("--self-heal", action="store_true",
+                   help="automated recovery: watchdog trips drive drain → "
+                        "live request migration to a healthy peer → respawn; "
+                        "also enables POST /admin/drain for zero-downtime "
+                        "rolling updates")
+    p.add_argument("--drain-grace-s", type=float, default=5.0,
+                   help="soft-drain grace: how long committed work may "
+                        "finish on its own before migration starts")
+    p.add_argument("--respawn-max", type=int, default=3,
+                   help="consecutive failed respawns before the recovery "
+                        "controller gives up")
+    p.add_argument("--respawn-backoff-s", type=float, default=1.0,
+                   help="respawn backoff base (doubles per consecutive "
+                        "failure)")
+    p.add_argument("--migrate-peers", default="",
+                   help="comma-separated host:port list of peer migration "
+                        "receivers (in=dyn:// workers discover peers through "
+                        "the discovery plane instead)")
+    p.add_argument("--migrate-port", type=int, default=0,
+                   help="port of this worker's inbound-migration receiver "
+                        "(0 = ephemeral; started only with --self-heal on a "
+                        "torch engine)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -368,6 +410,14 @@ async def run_http(flags, engine, mdc) -> None:
             "dynamo_engine", engine.engine_metrics)
     if getattr(engine, "engine_registry", None) is not None:
         service.metrics.registry.attach(engine.engine_registry)
+    recovery = migserver = None
+    if flags.self_heal and engine is not None:
+        recovery, migserver = await _setup_self_healing(
+            flags, getattr(engine, "core_engine", engine))
+        if recovery is not None:
+            recovery.attach()
+            service.drainer = recovery.admin_drain
+            service.metrics.registry.attach(recovery.registry)
     watcher = drt = None
     if flags.store_port is not None:
         from ..runtime.client import RouterMode
@@ -409,6 +459,10 @@ async def run_http(flags, engine, mdc) -> None:
             await asyncio.sleep(0.1)
     finally:
         await service.stop()
+        if recovery is not None:
+            await recovery.close()
+        if migserver is not None:
+            await migserver.close()
         if watcher is not None:
             await watcher.stop()
             await drt.close()
@@ -489,6 +543,87 @@ def _disagg_factory(flags, drt, component: str):
             router=router, advertise_host=flags.advertise_host).start()
 
     return factory
+
+
+async def _setup_self_healing(flags, core, drt=None, component: str = "backend",
+                              peer_ranker=None, instance_id: str = ""):
+    """``--self-heal`` wiring: a RecoveryController for an in-process torch
+    engine plus a migration receiver for peers draining TOWARD this worker.
+    Returns ``(controller, migration_server)``, both None for an engine with
+    nothing to recover (echo). On a distributed worker (``drt``) the
+    receiver's descriptor is registered lease-scoped under the component's
+    migration prefix (packed with the runtime's wire codec), peers are
+    discovered there, and the drain's deregister / register hooks remove and
+    restore it."""
+    import uuid
+
+    from ..recovery import (
+        MigrationServer,
+        MigrationSink,
+        RecoveryConfig,
+        RecoveryController,
+        migration_key,
+    )
+    from ..runtime.wire import packb, unpackb
+
+    scheduler = getattr(core, "scheduler", None)
+    if scheduler is None:
+        return None, None
+    config = RecoveryConfig(drain_grace_s=flags.drain_grace_s,
+                            respawn_backoff_s=flags.respawn_backoff_s,
+                            max_respawns=flags.respawn_max)
+    engine_id = f"eng-{uuid.uuid4().hex[:12]}"
+    server = await MigrationServer(MigrationSink(scheduler, core.runner),
+                                   host=flags.advertise_host,
+                                   port=flags.migrate_port).start()
+    static_peers = [
+        {"host": hp.rsplit(":", 1)[0], "port": int(hp.rsplit(":", 1)[1]),
+         "engine_id": f"static-{hp}"}
+        for hp in flags.migrate_peers.split(",") if hp.strip()]
+    peers = (lambda: static_peers)
+    deregister = register = None
+    if drt is not None:
+        key = migration_key(flags.namespace, component, engine_id)
+        # worker_id: the KV-event id this worker publishes under, the join
+        # key peer fabrics rank migration targets by
+        desc = packb(dict(server.descriptor, engine_id=engine_id,
+                          **({"worker_id": instance_id} if instance_id else {})))
+        lease = await drt.discovery.primary_lease()
+        await drt.discovery.kv_put(key, desc, lease_id=lease.id)
+        peer_cache: list = list(static_peers)
+
+        async def refresh_peers():
+            kvs = await drt.discovery.kv_get_prefix(
+                migration_key(flags.namespace, component, ""))
+            peer_cache[:] = static_peers + [unpackb(v) for v in kvs.values()]
+
+        async def deregister():
+            # routers already skip this worker through the draining
+            # snapshot; removing the descriptor keeps peers from draining
+            # INTO it. Delete first and unconditionally: a flaky refresh must
+            # neither leave the descriptor registered nor abort the drain
+            await drt.discovery.kv_delete(key)
+            try:
+                await refresh_peers()  # after the delete: self is gone too
+            except Exception:
+                logger.warning("peer refresh failed during drain; using the "
+                               "last known peers", exc_info=True)
+
+        async def register():
+            await drt.discovery.kv_put(key, desc, lease_id=lease.id)
+
+        try:
+            await refresh_peers()
+        except Exception:
+            logger.warning("initial migration-peer discovery failed; starting "
+                           "with the static peers only", exc_info=True)
+        peers = (lambda: peer_cache)
+    controller = RecoveryController(
+        engine_id=engine_id, scheduler=scheduler, runner=core.runner,
+        watchdog=getattr(core, "watchdog", None), peers=peers,
+        deregister=deregister, register=register, config=config,
+        peer_ranker=peer_ranker)
+    return controller, server
 
 
 def _pool_scope_peers(peers: dict, endpoint_records: dict,
@@ -806,9 +941,24 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
         )
         # the cluster KV fabric: pull server, peer view, ownership feed,
         # keyed by the instance id the KV event publisher stamps
-        await _setup_kv_fabric(flags, core, drt=drt, component=comp,
-                               endpoint=endpoint, instance_id=instance_id,
-                               model=model_name)
+        fabric = await _setup_kv_fabric(flags, core, drt=drt, component=comp,
+                                        endpoint=endpoint,
+                                        instance_id=instance_id,
+                                        model=model_name)
+        if flags.self_heal:
+            # watchdog trips drain this worker and migrate its requests to
+            # peers discovered under the component's migration prefix,
+            # ranked by the fabric's ownership view (prefix overlap)
+            recovery, migserver = await _setup_self_healing(
+                flags, core, drt=drt, component=comp,
+                peer_ranker=fabric.rank_peers if fabric is not None else None,
+                instance_id=instance_id)
+            if recovery is not None:
+                recovery.attach()
+                if getattr(core, "registry", None) is not None:
+                    core.registry.attach(recovery.registry)
+                # closed before the engine (closers run in order)
+                closers[-1:-1] = [recovery.close, migserver.close]
         print(f"token-level worker {instance_id} serving {path}", flush=True)
 
     else:
@@ -847,6 +997,18 @@ async def amain(argv: List[str]) -> None:
     logging.basicConfig(
         level=logging.DEBUG if flags.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if flags.flight_dir:
+        # one env var is the single source of truth for every dump site
+        import os
+
+        from ..telemetry.flight import FLIGHT_DIR_ENV
+
+        os.environ[FLIGHT_DIR_ENV] = flags.flight_dir
+    # SIGUSR2 → a flight artifact, on every role: the way to ask "what is
+    # this process doing", even with a wedged event loop
+    from ..telemetry.watchdog import install_signal_dump
+
+    install_signal_dump()
     if flags.remote_prefill and not (src.startswith("dyn://")
                                      and flags.token_level
                                      and engine_spec == "torch"):

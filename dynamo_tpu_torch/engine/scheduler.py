@@ -63,8 +63,19 @@ at a preemption's resume) and cooperative cancellation; KV OOM
 preempts a request back to the waiting queue and its re-prefill continues
 the emitted stream.
 
-Not in this slice (later work, refused by ``EngineConfig`` or by the
-serving layer): migration, the flight recorder and the stall watchdog.
+The drain and watchdog surface (``recovery/``, ``telemetry/watchdog.py``):
+``draining`` gates every admission (local, remote prefill, prefix pull)
+and rides ``metrics()``, so KV routers skip the worker; ``seize`` stops the
+loop, gracefully (its exit barriers reconcile every dispatched burst) or
+hard (the in-flight and chained bursts are abandoned; their tokens were
+never emitted); ``extract_requests`` detaches every live request for the
+recovery controller to migrate or fail; ``admit_migrated`` installs one
+that a draining peer shipped, hot over its scattered KV or cold into the
+waiting queue for a re-prefill of ``prompt + resume_tokens``.
+``last_loop_t`` is stamped at the top of every pass for
+``watchdog_probe``; ``request_table`` is a flight artifact's request
+table. The executor-side host sync of a decode step and of a burst is the
+``decode_burst_hang`` chaos site (``utils/faults.py``).
 """
 
 from __future__ import annotations
@@ -87,7 +98,9 @@ from ..protocols.common import (
 )
 from ..runtime.engine import AsyncEngineContext
 from ..tokens import TokenSequence
+from ..telemetry.flight import flight_recorder
 from ..telemetry.registry import MetricsRegistry
+from ..utils import faults
 from .block_allocator import BlockAllocator, KvEventSink
 from .config import EngineConfig
 from .guided import TrieConstraint, compile_device_table
@@ -138,6 +151,14 @@ def prefill_bucket_cap(cfg: EngineConfig, rows: int = 1) -> Optional[int]:
         return cfg.prefill_buckets[-1]
     allowed = [b for b in cfg.prefill_buckets if rows * b <= budget]
     return allowed[-1] if allowed else None
+
+
+def _host_sync(out: HostCopy):
+    """The executor side of a decode step's or a burst's host sync: wait
+    for its staged outputs. The chaos site ``decode_burst_hang`` wedges THIS
+    thread, the shape of a dead device mid-sync (``utils/faults.py``)."""
+    faults.maybe_hang("decode_burst_hang")
+    return out.numpy()
 
 
 @dataclasses.dataclass
@@ -426,6 +447,9 @@ class Scheduler:
                  draft_runner: Optional[ModelRunner] = None):
         self.runner = runner
         self.config = config
+        # the flight ring the drain surface records into (the process-wide
+        # one unless a test injects its own)
+        self.flight = flight_recorder()
         # draft-model speculation: the draft's paged cache mirrors the
         # target's block ids (every prefill chunk and per-token step replays
         # on the draft) and the decode loop proposes with its K + 1-step
@@ -503,6 +527,14 @@ class Scheduler:
         self._rng = np.random.default_rng(config.seed)
         self._task: Optional[asyncio.Task] = None
         self._stopping = False
+        # drain gate (recovery/): True stops ALL admission (local slot
+        # claims, remote-prefill submits, prefix pulls) while committed work
+        # proceeds; exported in metrics() so the KV router skips this worker
+        self.draining = False
+        # watchdog heartbeat: stamped at the top of EVERY loop pass, so a
+        # loop wedged INSIDE a pass (a dead device's host sync) goes stale
+        # while a healthy but waiting loop stays fresh
+        self.last_loop_t = time.monotonic()
         # telemetry (ForwardPassMetrics analog)
         self.prefix_hit_tokens = 0
         self.prefix_total_tokens = 0
@@ -572,7 +604,10 @@ class Scheduler:
         if self.disagg is not None:
             await self.disagg.close()
 
-    def add_request(self, er: EngineRequest) -> None:
+    def _prepare_request(self, er: EngineRequest) -> None:
+        """Per-request host fields shared by local admission and a migrated
+        admission (everything but the PRNG key, which a migrated request
+        brings along)."""
         so = er.req.sampling_options
         (er.temperature, er.top_k, er.top_p, er.min_p, er.presence_penalty,
          er.frequency_penalty, er.repetition_penalty) = host_row(so)
@@ -581,6 +616,10 @@ class Scheduler:
         er.want_logprobs = er.req.output_options.logprobs is not None
         er.logprobs_n = int(er.req.output_options.logprobs or 0)
         er.want_prompt_lps = er.req.output_options.prompt_logprobs is not None
+
+    def add_request(self, er: EngineRequest) -> None:
+        self._prepare_request(er)
+        so = er.req.sampling_options
         if so.seed is not None:
             # per-request key: seeded sampling is reproducible AND isolated
             # from batchmates (each row draws from its own generator)
@@ -594,9 +633,10 @@ class Scheduler:
     def metrics(self) -> dict:
         """The reference's keys under the reference's conditions (each
         feature's counters only while the feature is on; ``draining``
-        always, False until recovery is ported; the coordinator's
-        ``remote_prefill_*`` keys with a disagg coordinator), beside the
-        port's own counters that no reference key carries."""
+        always: KV routers exclude a draining worker from every decision;
+        the coordinator's ``remote_prefill_*`` keys with a disagg
+        coordinator), beside the port's own counters that no reference key
+        carries."""
         active = sum(1 for s in self.slots if s is not None)
         out = {
             "request_active_slots": active,
@@ -610,7 +650,7 @@ class Scheduler:
                 self.prefix_hit_tokens / self.prefix_total_tokens
                 if self.prefix_total_tokens else 0.0
             ),
-            "draining": False,
+            "draining": self.draining,
             # the counts behind the rate: a router's scrape reads which
             # worker served a prefix from its cache
             "prefix_hit_tokens": self.prefix_hit_tokens,
@@ -651,6 +691,213 @@ class Scheduler:
                    pending_pull=len(self.pending_pull))
         if self.fabric is not None and self.fabric.cold is not None:
             out["cold"] = self.fabric.cold.counts()
+        return out
+
+    # ---------- drain / migration surface (recovery/) ----------
+
+    def set_draining(self, draining: bool = True) -> None:
+        """Gate admission: committed work proceeds, nothing new starts. The
+        flag rides the metrics() snapshot so KV routers skip this worker,
+        and the watchdog treats a draining engine as stopping (gated queued
+        work must not read as starvation)."""
+        self.draining = draining
+        self.wake.set()
+
+    async def seize(self, hard: bool = False, timeout_s: float = 5.0) -> None:
+        """Stop the loop for a drain.
+
+        Graceful (``hard=False``) lets the loop run its exit barriers: every
+        dispatched burst (the dispatch-ahead one, every chained one)
+        reconciles and streams its tokens; past ``timeout_s`` it escalates
+        to a cancel (a half-wedged loop must not hang the drain). Hard
+        cancels at once: a loop wedged inside a pass (the watchdog-trip
+        case) would never finish a barrier. Un-reconciled device work is
+        abandoned: its tokens were never emitted, so the committed host
+        state a migration packages stays exact."""
+        self._stopping = True
+        self.draining = True
+        self.wake.set()
+        task, self._task = self._task, None
+        if task is not None:
+            if not hard:
+                try:
+                    await asyncio.wait_for(asyncio.shield(task), timeout_s)
+                except asyncio.TimeoutError:
+                    logger.warning("graceful seize timed out after %.1fs; "
+                                   "cancelling the scheduler loop", timeout_s)
+                    hard = True
+            if hard and not task.done():
+                task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+            except Exception:
+                logger.exception("scheduler loop raised during seize")
+        if self._inflight is not None or self._chain:
+            self.flight.record("scheduler.burst_abandon",
+                               inflight=self._inflight is not None,
+                               chained=len(self._chain))
+        self._inflight = None
+        self._chain.clear()
+        self._chain_members = []
+        self._chain_carry = None
+        self._chain_dispatched = 0
+        self._chain_pos0 = {}
+        self._chain_gen0 = {}
+        self._chain_kind = None
+        self._chain_fp = False
+
+    def extract_requests(self) -> List[EngineRequest]:
+        """Detach every live request (slots, the prefill batch, the SP
+        ladder, the waiting queue, pending remote prefills and prefix pulls)
+        WITHOUT finishing its stream: the recovery controller migrates or
+        fails each one. Requests keep their block lists; the caller releases
+        them (after a hot migration shipped the KV). Call after ``seize``."""
+        out: List[EngineRequest] = []
+        for i, er in enumerate(self.slots):
+            if er is None:
+                continue
+            self.slots[i] = None
+            er.slot = -1
+            out.append(er)
+        self.prefilling.clear()
+        # SP mid-prefill requests migrate cold (partial KV never ships); a
+        # dispatched chunk only writes their own blocks
+        self.sp_queue.clear()
+        self.sp_active = None
+        while self.waiting:
+            out.append(self.waiting.popleft())
+        for er in self.pending_remote:
+            if self.disagg is not None:
+                self.disagg.cancel(er.request_id, reason="drain")
+            er.remote_future = None
+            out.append(er)
+        self.pending_remote.clear()
+        for er in self.pending_pull:
+            # the in-flight pull aborts; the request migrates cold (its
+            # blocks hold no registered KV: packaging frees them)
+            self._release_pull(er)
+            out.append(er)
+        self.pending_pull.clear()
+        for er in out:
+            self.flight.record("scheduler.extract", request_id=er.request_id,
+                               trace_id=er.ctx.trace_id, generated=er.generated,
+                               blocks=len(er.block_ids))
+        return out
+
+    def admit_migrated(self, er: EngineRequest, committed_tokens: List[int],
+                       block_ids: List[int]) -> bool:
+        """Admit a request a draining peer migrated here.
+
+        Hot (``block_ids`` non-empty, their KV already scattered): the row
+        enters the decode loop directly, as a committed remote prefill's
+        does, except that nothing is emitted here: every token up to and
+        including the pending one already streamed from the source. Cold:
+        it joins the waiting queue and the preemption-resume path
+        re-prefills ``prompt + resume_tokens``, continuing the stream.
+        Returns False (the caller frees the blocks and nacks) when no slot
+        is free at install time."""
+        self._prepare_request(er)
+        if er.base_key is None:
+            # a source state without the per-request key: a fresh one
+            # (sampled continuations part from the undisturbed stream,
+            # greedy ones do not)
+            er.base_key = self._rng.integers(0, 2**32, size=2, dtype=np.uint32)
+        er.ctx.add_stage("migration.resume")
+        self.flight.record("scheduler.migrate_in", request_id=er.request_id,
+                           trace_id=er.ctx.trace_id, hot=bool(block_ids),
+                           generated=er.generated)
+        if not block_ids:
+            # cold: never a remote prefill for a resumed stream (the remote
+            # path would restart from the prompt alone)
+            er.remote_attempted = bool(er.resume_tokens)
+            self.waiting.append(er)
+            self.wake.set()
+            return True
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        er.slot = slot
+        er.block_ids = list(block_ids)
+        er.context_len = len(committed_tokens)
+        er.num_cached = 0
+        er.resume_tokens = []
+        er.seq = TokenSequence(committed_tokens, block_size=self.config.kv_block_size)
+        er.registered_blocks = 0
+        # every fallible step runs BEFORE the slot publishes: a failed
+        # install leaves this scheduler as it was (the host row written
+        # here is inert while the slot stays empty)
+        self._host.install(er)
+        # penalty and noise state: presence of the prompt plus counts of
+        # every generated token, the pending one included (sampled and
+        # emitted; only its KV write is still owed). ``er.generated`` came
+        # with the state: the noise counters continue, not restart
+        tail = list(committed_tokens)
+        if er.pending_token >= 0:
+            tail.append(er.pending_token)
+        er.ring_tail.clear()
+        er.ring_tail.extend(tail[-SUFFIX_RING_W:])
+        self.runner.set_sample_row(
+            slot, er.prompt, tail[len(er.prompt):],
+            logit_bias=er.req.sampling_options.logit_bias)
+        # completed prefix blocks become matchable here too: a migrated
+        # prefix seeds this worker's prefix cache
+        self._register_completed_blocks(er)
+        self.slots[slot] = er
+        self.wake.set()
+        return True
+
+    # ---------- watchdog surface (telemetry/watchdog.py) ----------
+
+    def watchdog_probe(self) -> dict:
+        """The liveness snapshot the stall watchdog samples: the heartbeat
+        of the last loop pass, the dispatch counter and the pending work by
+        kind (local waiting, remote-prefill and prefix-pull waits, active
+        slots)."""
+        return {
+            "heartbeat_t": self.last_loop_t,
+            "steps": self.steps,
+            "queue_depth": len(self.waiting),
+            "pending_remote": len(self.pending_remote),
+            # pull waits own their deadline (fallback to local), so the
+            # watchdog must not read them as starvation
+            "pending_pull": len(self.pending_pull),
+            "active": sum(1 for s in self.slots if s is not None),
+            # a draining engine's gated queue is recovery's, not a stall
+            "stopping": self._stopping or self.draining,
+        }
+
+    def request_table(self) -> List[dict]:
+        """The active requests for a flight artifact: every slot's occupant
+        plus the waiting, pending-remote and pending-pull queues."""
+        out = []
+        for i, er in enumerate(self.slots):
+            if er is None:
+                continue
+            out.append({
+                "state": ("prefilling" if er in self.prefilling
+                          else "sp_prefilling" if self._is_sp(er)
+                          else "decoding"),
+                "slot": i,
+                "request_id": er.request_id,
+                "trace_id": er.ctx.trace_id,
+                "prompt_tokens": len(er.prompt),
+                "generated": er.generated,
+                "context_len": er.context_len,
+                "blocks": len(er.block_ids),
+                "guided": er.guided is not None,
+            })
+        for state, ers in (("waiting", list(self.waiting)),
+                           ("pending_remote", self.pending_remote),
+                           ("pending_pull", self.pending_pull)):
+            out.extend({
+                "state": state,
+                "request_id": er.request_id,
+                "trace_id": er.ctx.trace_id,
+                "prompt_tokens": len(er.prompt),
+                "generated": er.generated,
+            } for er in ers)
         return out
 
     # ---------- helpers ----------
@@ -740,6 +987,9 @@ class Scheduler:
         loop = asyncio.get_running_loop()
         while not self._stopping:
             progressed = False
+            # watchdog heartbeat (telemetry/watchdog.py): a wedge INSIDE this
+            # pass (a host sync on a dead device) leaves it stale
+            self.last_loop_t = time.monotonic()
 
             # drop cancelled requests (client disconnects / kills)
             for er in list(self.waiting):
@@ -764,7 +1014,8 @@ class Scheduler:
             # admission, pulls first: a prefix pull is only a block
             # reservation and a transfer (no local compute), and a pulled
             # prefix shrinks the suffix every later decision sees
-            if self.fabric is not None and self.fabric.may_hold_any():
+            if (self.fabric is not None and not self.draining
+                    and self.fabric.may_hold_any()):
                 for er in list(self.waiting):
                     if len(self.pending_pull) >= self.config.max_batch_size:
                         break
@@ -775,7 +1026,7 @@ class Scheduler:
             # remote admission next: a prompt the router sends to the
             # prefill pool only holds blocks here until its commit
             unrouted = set()
-            if self.disagg is not None:
+            if self.disagg is not None and not self.draining:
                 seen = list(self.waiting)
                 for er in seen:
                     if len(self.pending_remote) >= self.config.max_batch_size:
@@ -798,6 +1049,7 @@ class Scheduler:
             # block pool idle; oversize backlogs wait block-free in `waiting`
             cap = self.config.max_prefill_batch
             while (self.waiting
+                   and not self.draining
                    and len(self.prefilling) < cap
                    and (len(self.sp_queue)
                         + (1 if self.sp_active is not None else 0) < cap)
@@ -1909,7 +2161,7 @@ class Scheduler:
                     commit=np.zeros(b, bool), want_top=False, **dkw)
 
         out = self.runner.stage_to_host(next_tokens, lps, top_vals, top_ids)
-        toks, lpn, tv, ti = await loop.run_in_executor(None, out.numpy)
+        toks, lpn, tv, ti = await loop.run_in_executor(None, _host_sync, out)
         self.steps += 1
         self.decode_steps += 1
         if k_steps == 1:
@@ -2054,7 +2306,7 @@ class Scheduler:
         them, run finish checks, and retro-invalidate rows that finished
         one burst late. A propose-verify round also adds its rows'
         proposed and accepted counts to the speculation metrics."""
-        outs = await loop.run_in_executor(None, infl.out.numpy)
+        outs = await loop.run_in_executor(None, _host_sync, infl.out)
         if infl.spec:
             # spec rounds carry no logprobs (spec rows want none), but the
             # acceptance accounting

@@ -36,8 +36,13 @@ without its token ids, and ``guided_json`` on an engine built without a
 model card (it holds no tokenizer). A model card's
 directory (or ``.gguf``) is loaded by the runner (``models/loader.py``);
 without a checkpoint it serves seeded random weights only with
-``allow_random_weights``, as the reference does. Not ported: the stall
-watchdog.
+``allow_random_weights``, as the reference does. With
+``watchdog_stall_s > 0`` (the default 30; the CLI's ``--watchdog-stall-s``,
+an explicit 0 turns it off) ``create`` attaches a ``StallWatchdog``
+(``telemetry/watchdog.py``) to the scheduler's probe and request table, in
+the scheduler's registry; ``close`` stops it first. A draining or stopping
+engine refuses new work with ``EngineDrainingError`` (the HTTP edge's 503
+with Retry-After).
 """
 
 from __future__ import annotations
@@ -51,7 +56,13 @@ import uuid
 from typing import Any, AsyncIterator, Optional
 
 from ..protocols.common import EngineOutput, FinishReason, PreprocessedRequest
-from ..runtime.engine import AsyncEngine, AsyncEngineContext, Context, EngineError
+from ..runtime.engine import (
+    AsyncEngine,
+    AsyncEngineContext,
+    Context,
+    EngineDrainingError,
+    EngineError,
+)
 from ..models.loader import resolve_weights
 from ..llm.tokenizer import HFTokenizer
 from .block_allocator import KvEventSink
@@ -131,6 +142,10 @@ def engine_config_from_mdc(mdc, flags=None, extra=None) -> EngineConfig:
             flags, "prefix_pull_timeout_s", 30.0) or 30.0,
         cold_tier_dir=getattr(flags, "cold_tier_dir", "") or "",
         cold_tier_blocks=getattr(flags, "cold_tier_blocks", 0) or 0,
+        # no `or` fallback: an explicit 0 must DISABLE the watchdog, not
+        # restore the default deadline
+        watchdog_stall_s=(30.0 if getattr(flags, "watchdog_stall_s", None) is None
+                          else flags.watchdog_stall_s),
     ))
 
 
@@ -215,6 +230,8 @@ class TorchServingEngine(AsyncEngine):
         self._pieces_lock = threading.Lock()
         self.piece_table_s: Optional[float] = None  # the build's seconds
         self._json_grammars: dict = {}
+        # the stall watchdog (telemetry/watchdog.py), attached by create()
+        self.watchdog = None
 
     @classmethod
     async def create(
@@ -287,11 +304,31 @@ class TorchServingEngine(AsyncEngine):
         if mdc is not None:
             engine._model_path = mdc.model_path  # guided JSON's piece table
         scheduler.start()
+        if engine_config.watchdog_stall_s > 0:
+            from ..telemetry.watchdog import StallWatchdog
+
+            # in the scheduler's registry, so the trip counter and the loop
+            # lag gauge render in the engine's scrape; registered as a dump
+            # source, so SIGUSR2 includes this engine's probe and requests
+            engine.watchdog = StallWatchdog(
+                probe=scheduler.watchdog_probe,
+                requests=scheduler.request_table,
+                registry=scheduler.registry,
+                flight=scheduler.flight,
+                interval_s=engine_config.watchdog_interval_s,
+                stall_s=engine_config.watchdog_stall_s,
+            ).start()
         return engine
 
     async def generate(self, request: Context[Any]) -> AsyncIterator[dict]:
-        if self.scheduler._stopping:
-            raise EngineError("engine is closed")
+        if self.scheduler.draining or self.scheduler._stopping:
+            # a draining engine's admission is gated and its extraction has
+            # run (or will): a request queued now would sit in a seized
+            # scheduler forever. The retryable error (HTTP: 503 with
+            # Retry-After) sends it back to the pool
+            raise EngineDrainingError(
+                "engine is draining (recovery or rolling update); retry "
+                "against the worker pool")
         payload = request.payload
         req = (
             payload
@@ -503,4 +540,8 @@ class TorchServingEngine(AsyncEngine):
         return self.scheduler.metrics()
 
     async def close(self) -> None:
+        # the watchdog first: a slow drain in scheduler.stop() must not read
+        # as a stall and dump a spurious artifact mid-shutdown
+        if self.watchdog is not None:
+            await self.watchdog.stop()
         await self.scheduler.stop()

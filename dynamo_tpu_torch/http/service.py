@@ -11,7 +11,12 @@ the reference's.
 
 Routes: POST /v1/chat/completions, POST /v1/completions, POST
 /v1/embeddings (served by an engine that carries an ``embedder``, else
-501), GET /v1/models, GET /metrics, GET /health. A client that goes away mid-stream stops its request.
+501), GET /v1/models, GET /metrics, GET /health, and POST
+/admin/drain[?mode=migrate|fail][&respawn=1] (the rolling update through
+the ``drainer`` the CLI's ``--self-heal`` attaches, a recovery
+controller's ``admin_drain``; 501 without one). A client that goes away
+mid-stream stops its request; a draining engine's request is a 503 with
+Retry-After.
 
 Discovery (the reference's ``register_model`` / ``ModelWatcher``): a
 worker or processor registers its model under the discovery plane's
@@ -19,8 +24,8 @@ worker or processor registers its model under the discovery plane's
 ``ModelWatcher`` adds a routed ``Client`` for each registration and drops
 it when the registration goes (the worker's lease expired). Not ported
 yet: the model registry's fleet cards (``register_model``'s ``card``, so
-aliases, tenants and per-model pools), admission, quotas and pools, and
-the /debug, /admin and /fleet routes.
+aliases, tenants and per-model pools), admission, quotas and pools, the
+/debug and /fleet routes, and /admin's model management.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import urllib.parse
 from typing import Any, AsyncIterator, Dict, Optional, Tuple
 
 from ..protocols import sse
@@ -103,9 +109,10 @@ class Request:
     """One parsed HTTP request."""
 
     def __init__(self, method: str, path: str, headers: Dict[str, str],
-                 body: bytes):
+                 body: bytes, query: Optional[Dict[str, str]] = None):
         self.method, self.path, self.headers, self.body = (
             method, path, headers, body)
+        self.query = query or {}  # the last value of each query parameter
 
     def json(self) -> Any:
         return json.loads(self.body.decode("utf-8") if self.body else "")
@@ -210,8 +217,9 @@ class _Connection:
                 body = await self.reader.readexactly(n)
         except asyncio.IncompleteReadError as e:
             raise _ClientGone() from e
-        path = target.split("?", 1)[0]
-        return Request(method.upper(), path, headers, body)
+        path, _, qs = target.partition("?")
+        query = dict(urllib.parse.parse_qsl(qs, keep_blank_values=True))
+        return Request(method.upper(), path, headers, body, query)
 
 
 class HttpService:
@@ -233,7 +241,12 @@ class HttpService:
             ("GET", "/v1/models"): self.handle_models,
             ("GET", "/metrics"): self.handle_metrics,
             ("GET", "/health"): self.handle_health,
+            ("POST", "/admin/drain"): self.handle_admin_drain,
         }
+        # zero-downtime rolling updates: drain and live-migrate the in-flight
+        # requests to peers (recovery/controller.py). Set by the CLI when
+        # --self-heal builds a RecoveryController; /admin/drain is 501 without
+        self.drainer = None  # async (mode, respawn) -> summary dict
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()
 
@@ -570,6 +583,22 @@ class HttpService:
     async def handle_health(self, request: Request, conn: _Connection):
         return json_response(
             {"status": "ok", "models": self.manager.model_names()})
+
+
+    async def handle_admin_drain(self, request: Request, conn: _Connection):
+        """POST /admin/drain[?mode=migrate|fail][&respawn=1]: stop
+        admission, let committed bursts finish, live-migrate the rest to
+        healthy peers and (optionally) respawn. Returns the drain's summary
+        (requests finished, migrated and failed; seconds)."""
+        if self.drainer is None:
+            return json_response({"error": "no recovery controller attached "
+                                           "(serve with --self-heal)"},
+                                 status=501)
+        mode = request.query.get("mode", "migrate")
+        if mode not in ("migrate", "fail"):
+            return json_response({"error": f"bad mode {mode!r}"}, status=400)
+        respawn = request.query.get("respawn") in ("1", "true", "yes")
+        return json_response(await self.drainer(mode=mode, respawn=respawn))
 
 
 class _StreamDisconnect(Exception):

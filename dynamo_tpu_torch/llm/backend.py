@@ -5,9 +5,11 @@ path (text deltas in). Reference analog: lib/llm/src/backend.rs:87-385 —
 incremental DecodeStream plus the "jail" that buffers partial matches of
 stop sequences so a stop string is never partially surfaced to the client.
 
-The port's copy of ``dynamo_tpu/llm/backend.py``; it follows the engine
-stream as it comes (the reference's re-bind across live migrations waits
-for the port's migration plane).
+The port's copy of ``dynamo_tpu/llm/backend.py``. It follows the engine
+stream through ``recovery.migration.follow_migrated_stream``: on a live
+migration's ``migrated`` control frame it attaches directly to the peer,
+so the draining source worker can exit instead of relaying the stream to
+its end.
 """
 
 from __future__ import annotations
@@ -142,7 +144,13 @@ class Backend(Operator):
         # synchronously at the break.
         from contextlib import aclosing
 
-        engine_stream = next_engine.generate(request)
+        # re-bind across live migrations: a `migrated` control frame
+        # (recovery/migration.py) makes the wrapper attach directly to the
+        # peer; the stream's tokens are the same either way
+        from ..recovery.migration import follow_migrated_stream
+
+        engine_stream = follow_migrated_stream(
+            next_engine.generate(request), ctx=request.context)
         async with aclosing(engine_stream):
             async for out in engine_stream:
                 if isinstance(out, dict):  # off the wire

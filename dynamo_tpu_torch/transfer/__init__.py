@@ -19,6 +19,7 @@ from .framing import (  # noqa: F401
     read_exact,
     read_header,
     torch_dtype,
+    widen_stream,
 )
 from .plane import FramePipe, PoisonSet, negotiate_backend  # noqa: F401
 from .tcp import TcpBackend  # noqa: F401

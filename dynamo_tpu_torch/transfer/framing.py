@@ -17,6 +17,7 @@ so callers run it in an executor.
 from __future__ import annotations
 
 import asyncio
+import socket
 import struct
 from typing import Optional, Sequence, Tuple
 
@@ -25,6 +26,8 @@ import torch
 from ..runtime.wire import packb, unpackb
 
 MAX_HEADER = 1 << 20
+# what one event-loop turn may move on a bulk connection (widen_stream)
+WIDE_IO_BYTES = 16 << 20
 
 # the dtypes a KV cache holds, by the name the header carries
 DTYPES = {
@@ -56,6 +59,26 @@ def torch_dtype(name: str) -> torch.dtype:
 
 async def read_exact(reader: asyncio.StreamReader, n: int) -> bytes:
     return await reader.readexactly(n)
+
+
+def widen_stream(writer: asyncio.StreamWriter) -> None:
+    """Let one event-loop turn move up to ``WIDE_IO_BYTES`` of a bulk
+    connection:
+    the socket's send and receive buffers (the kernel caps them at its own
+    maximum) and the transport's read size. asyncio's selector transport
+    reads 256 KiB a turn, so a loop that runs a decode pass between turns
+    (a peer receiving a migration while it decodes) reads a frame at a few
+    MiB/s. The wire is unchanged; a transport without a read size keeps
+    its own."""
+    sock = writer.get_extra_info("socket")
+    if sock is not None:
+        for opt in (socket.SO_RCVBUF, socket.SO_SNDBUF):
+            try:
+                sock.setsockopt(socket.SOL_SOCKET, opt, WIDE_IO_BYTES)
+            except OSError:
+                pass
+    if hasattr(writer.transport, "max_size"):
+        writer.transport.max_size = WIDE_IO_BYTES
 
 
 def pack_frame(writer: asyncio.StreamWriter, header: dict, *payloads) -> None:

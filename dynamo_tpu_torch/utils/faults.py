@@ -3,6 +3,7 @@
 The port's copy of ``dynamo_tpu/utils/faults.py``. ``DYN_FAULT`` names
 injection *sites* compiled into the paths they sabotage::
 
+    DYN_FAULT=decode_burst_hang:once            # wedge the next decode sync
     DYN_FAULT=transfer_conn_drop:once           # drop the next pull serve
     DYN_FAULT=prefix_pull_stall:0.1             # stall 10% of prefix pulls
 
@@ -13,6 +14,9 @@ sites with ``release()``.
 
 Sites wired in the port:
 
+- ``decode_burst_hang`` — the scheduler's decode host sync blocks (in its
+  executor thread) until ``release()``: the shape of a dead device, and
+  the wedge the stall watchdog's ``decode_stall`` trip exists to catch.
 - ``transfer_conn_drop`` — the pull-SERVING side of the cluster KV fabric
   dies mid-serve (``disagg/transfer.py``): the puller must fall back to a
   local recompute with nothing registered.
@@ -21,9 +25,9 @@ Sites wired in the port:
   it and fall back to a local recompute, byte-identically, with zero
   leaked blocks on either side.
 
-The reference also records every fire in its flight ring
-(``fault.injected``); the port has no flight recorder yet, so a fire is
-logged (WARNING) and counted in ``fired_total`` only.
+Every fire is recorded in the flight ring (``fault.injected``), logged
+(WARNING) and counted in ``fired_total``, so a chaos run's artifact shows
+which failures were synthetic.
 """
 
 from __future__ import annotations
@@ -116,6 +120,9 @@ def fire(site: str) -> bool:
         elif random.random() >= spec:
             return False
         fired_total[site] = fired_total.get(site, 0) + 1
+    from ..telemetry.flight import flight_recorder
+
+    flight_recorder().record("fault.injected", site=site)
     logger.warning("FAULT INJECTED [%s]", site)
     return True
 

@@ -432,7 +432,7 @@ def test_cli_without_device_raises_on_a_machine_without_a_card(tmp_path):
     (["in=stdin", "out=torch"], "in=stdin"),
     (["in=http", "out=jax"], "out=jax"),
     (["in=http", "out=torch", "--kv-transfer", "ici"], "--kv-transfer"),
-    (["in=http", "out=torch", "--self-heal"], "--self-heal"),
+    (["in=http", "out=torch", "--isolate-engine"], "--isolate-engine"),
 ])
 def test_cli_refuses_unported_inputs_outputs_and_flags_by_name(args, needle):
     proc = _cli(args)

@@ -102,7 +102,12 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.kv", "dynamo_tpu_torch.kv.host_tier",
             "dynamo_tpu_torch.kv.cold_tier", "dynamo_tpu_torch.kv.fabric",
             "dynamo_tpu_torch.ops.host_xxh64",
-            "dynamo_tpu_torch.utils.faults"} <= set(mods)
+            "dynamo_tpu_torch.utils.faults",
+            # recovery: the flight ring, the watchdog, the migration plane
+            "dynamo_tpu_torch.telemetry.flight",
+            "dynamo_tpu_torch.telemetry.watchdog",
+            "dynamo_tpu_torch.recovery", "dynamo_tpu_torch.recovery.migration",
+            "dynamo_tpu_torch.recovery.controller"} <= set(mods)
     _import_refusing_reference(mods)
 
 
