@@ -66,7 +66,12 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    bf16, and timed beside it (the bound with one byte a K/V element; no
    PyTorch call reads e4m3 pages, so SDPA over the upcast caches stands
    beside it); kernel 6's fp8 form the same way at the SP call's shapes
-   (Llama-3.2-1B's heads, D 64) and at G 7 (``ODD_GROUPS``). Flash
+   (Llama-3.2-1B's heads, D 64) and at G 7 (``ODD_GROUPS``); and decode,
+   verify and flash at Phi-3-mini's attention (``_phi3_cases``: H = KVH =
+   32, head_dim 96; decode at B 8 over contexts up to 4,097 and the split
+   edges, verify at S 5 with a pad row, flash at the batched chunk and the
+   5,120-token prompt's last 512-token step, decode and flash also with
+   Phi-3-mini-4k's window of 2,047), bf16 and fp8. Flash
    and the prefix partials (one tensor-core core) are also held at head_dim
    128 (H 32, KVH 8), and flash also at the dense ladder's long step of
    ``engine_sp`` (S 512 at position 11,776, ctx 12,000: the query tiles
@@ -124,7 +129,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    kernel's fp8 form and the dense S > 1 gather over e4m3 pages). Twins
    within one wave may part there: the reference's expert capacity at a
    decode batch of 8 is 1.
-9. ``engine_gptoss`` — gpt-oss-20b at full width, its depth cut to 12 of
+9. ``engine_gptoss`` — gpt-oss-20b at full width, its depth cut to 8 of
    its 24 layers (``GPTOSS_LAYERS``; 20.9 B parameters in full: sinks,
    alternating 128-token windows, 32 experts top 4), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights and seeded
@@ -136,7 +141,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    chained dispatches under the sync guard), and the spec prompts without
    and with ngram speculation (verify launches; equal or parted at a
    near-tie, routing pinned).
-10. ``engine_gemma2`` — gemma-2-9b at full width, its depth cut to 22 of
+10. ``engine_gemma2`` — gemma-2-9b at full width, its depth cut to 14 of
    its 42 layers (``GEMMA_LAYERS``; 9.24 B parameters in full: head_dim 256, attention logits capped at 50 and
    final logits at 30, 4,096-token windows on the even layers, sandwich
    norms, GeGLU, a tied 256,000 vocabulary), built by
@@ -296,8 +301,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    streams equal the in-process engine's or part at a near-tie); then
    Llama-3.2-1B as one GGUF file (Q8_0, ``write_gguf_llama_q8``) served
    by the CLI the same way against an engine given d * q directly.
-20. ``engine_spec`` — the rest of speculation: Llama-3.1-8B at full width
-   and depth (``LLAMA_31_8B``, its published ``config.json``, seeded
+20. ``engine_spec`` — the rest of speculation: Llama-3.1-8B at full width,
+   its depth cut to 16 of 32 layers (``LLAMA_8B_CUT``; ``LLAMA_31_8B``,
+   its published ``config.json``, seeded
    random bf16 weights) drafted by Llama-3.2-1B, drawn on the card and
    written as a safetensors snapshot that the draft's runner loads. The
    engine phase's spec prompts, 64 tokens each, through: the plain
@@ -316,7 +322,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    step of each draft burst. Prints each leg's acceptance, rounds and
    decode wall a round.
 21. ``engine_recovery`` — recovery and live migration: Llama-3.1-8B at
-   full width and depth (``RECOVERY_MODEL``, its published ``config.json``,
+   full width, 16 of its 32 layers (``RECOVERY_MODEL``, its published ``config.json``,
    seeded random bf16 weights) behind a source and a peer in one process
    (one set of weight tensors, 1,024 blocks of 16 each, no prefix cache),
    wave 1's eight prompts with 64 new tokens (six greedy, two seeded at
@@ -344,6 +350,26 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    artifact holding 4 handoffs, each before the streams ended. Prints the
    drains' seconds, the KV bytes and frames, each stream's gap across the
    hop, the peer's launches of kernels 1–3.
+22. ``engine_phi3`` — Phi-3-mini-128k-instruct at full width and all 32
+   layers (``PHI3_MINI_128K``, its published ``config.json`` with factor
+   lists of the published length drawn from the seed: longrope, head_dim
+   96, 32 KV heads, a window past every context), seeded random bf16
+   weights written as a safetensors snapshot under Phi-3's names (fused
+   ``qkv_proj`` and ``gate_up_proj``) beside a SentencePiece
+   ``tokenizer.model`` only (32,000 pieces with the 256 byte pieces,
+   written by ``spm_model_bytes``), loaded by the port's loader (every
+   leaf equal), served: a wave with a 5,120-token prompt (long profile)
+   and a 4,090-token one that crosses 4,096 while it decodes, the
+   prefix-hit wave, 4-step bursts and the chained loop (identical
+   streams, every chained dispatch under the sync guard), ngram spec
+   (equal or parted at a near-tie), an fp8 KV engine (only fp8 forms
+   launch; logits within ``FP8_LOGITS_REL_L2`` of the bf16 cache's);
+   ``sp_size`` 2 refused by the window; 2-layer logits against the CPU
+   in f32 with the original window cut to 64 (short and long rows in one
+   batch); one text request through the CLI (its SentencePiece reader:
+   the stream equals the in-process one's, its text the reader's decode).
+   Prints the peak memory, the KV bytes a token, the load's GB/s and a
+   profiled decode step's D-96 decode kernel share.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -355,7 +381,8 @@ paths' launches, the softcap forms and the epilogue at V 256,000 with the
 gemma-2 paths', the head_dim-128 forms and the epilogue at V 151,936 and
 32,000 with the Qwen3-MoE and Mixtral paths', the G 7 forms and the
 epilogue at V 152,064 with ``engine_load``'s, the fp8 forms with the
-``engine_fp8`` paths' and the MLA fp8 engine's; the forms no cell runs —
+``engine_fp8`` paths' and the MLA fp8 engine's, the head_dim-96 forms
+(bf16 and fp8) with ``engine_phi3``'s; the forms no cell runs —
 G 5, flash's fp8 form and the prefix partials at G 7 and 5 — with a count
 of 0 and a ``path`` saying so; the decode, flash and
 epilogue entries also carry ``launches_engine_http``, the HTTP path's own
@@ -404,10 +431,10 @@ FLAGSHIP = dict(
 # and no q_lora, one dense first layer, then 26 MoE layers of 64 routed
 # experts (top 6, softmax, no top-k renormalisation, greedy routing) plus 2
 # shared experts; yarn rope (factor 40, both mscales 0.707); untied
-# depth cuts that keep the whole script inside its time limit (PR 20);
-# the widths stay the published ones
+# depth cuts that keep the whole script inside its time limit; the widths
+# stay the published ones
 MLA_LAYERS = 14      # of V2-Lite's 27
-GPTOSS_LAYERS = 12   # of gpt-oss-20b's 24
+GPTOSS_LAYERS = 8    # of gpt-oss-20b's 24
 V2_LITE = {
     "architectures": ["DeepseekV2ForCausalLM"], "vocab_size": 102400,
     "hidden_size": 2048, "intermediate_size": 10944,
@@ -496,6 +523,33 @@ MIXTRAL_8X7B = {
     "rope_theta": 1000000.0, "rms_norm_eps": 1e-5, "sliding_window": None,
     "tie_word_embeddings": False, "hidden_act": "silu",
     "bos_token_id": 1, "eos_token_id": 2,
+}
+# Phi-3-mini-128k-instruct (its published config.json, every field but the
+# factor lists): 32 layers, 32 query heads over 32 KV heads of dim 96 (G 1),
+# intermediate 8,192, longrope from 4,096 to 131,072 positions, a sliding
+# window of 262,144 (past every context), untied 32,064 vocabulary: 3.82 B
+# parameters, 7.64 GB in bf16. The published 48-entry short_factor and
+# long_factor lists are not in the repository: lists of their length are
+# drawn from the seed (short in [1, 1.2), long log-uniform in [1, 64), each
+# ascending, the published lists' shape) until that config.json is.
+_PHI3_RNG = np.random.default_rng(50)
+PHI3_MINI_128K = {
+    "architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+    "vocab_size": 32064, "hidden_size": 3072, "intermediate_size": 8192,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "max_position_embeddings": 131072,
+    "original_max_position_embeddings": 4096, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-5, "sliding_window": 262144,
+    "tie_word_embeddings": False, "hidden_act": "silu",
+    "attention_bias": False, "attention_dropout": 0.0, "embd_pdrop": 0.0,
+    "resid_pdrop": 0.0, "bos_token_id": 1, "eos_token_id": 32000,
+    "pad_token_id": 32000, "torch_dtype": "bfloat16",
+    "rope_scaling": {
+        "type": "longrope",
+        "short_factor": [float(x) for x in
+                         np.sort(1.0 + 0.2 * _PHI3_RNG.random(48))],
+        "long_factor": [float(x) for x in np.sort(np.exp(
+            _PHI3_RNG.uniform(0.0, np.log(64.0), 48)))]},
 }
 ENGINE = dict(max_batch_size=8, max_model_len=2048, kv_block_size=16,
               num_kv_blocks=1024, dtype="bfloat16",
@@ -833,6 +887,7 @@ def kernel_phase(torch, dev):
         entries.update(_moe_attention_cases(torch, dev, family))
     entries.update(_odd_group_cases(torch, dev, entries))
     entries.update(_fp8_cases(torch, dev))
+    entries.update(_phi3_cases(torch, dev))
     # kernel 3 at gpt-oss-20b's vocabulary of 201,088, gemma-2-9b's of
     # 256,000, Qwen3-30B-A3B's of 151,936 and Mixtral-8x7B's of 32,000
     for fam, model in (("gptoss", GPT_OSS_20B), ("gemma2", GEMMA_2_9B),
@@ -2132,6 +2187,220 @@ def _moe_attention_cases(torch, dev, family):
     return out
 
 
+# Phi-3-mini's attention in the kernels phase: H = KVH = 32 (G 1), head_dim
+# 96 (kernels 1, 2 and 4 at D 96, rows padded to 128 columns in shared
+# memory), over a 2-layer cache of PHI3_PAGES pages of 16 and the engine's
+# 8,192-key block tables
+PHI3_PAGES, PHI3_TABLE = 4096, 512
+# decode: contexts up to 4k and one past 4,096, where longrope turns long
+PHI3_DECODE_CTX = [1, 15, 16, 17, 513, 2048, 4096, 4097]
+PHI3_WINDOW = 2047  # Phi-3-mini-4k's sliding window
+PHI3_FLASH_ROWS = [(0, 128), (384, 512), (1024, 1100), None]
+# the 5,120-token prompt's last 512-token prefill chunk
+PHI3_LONG_STEP = (4608, 5120)
+
+
+def _phi3_cases(torch, dev):
+    """Kernels 1, 4 and 2 at Phi-3-mini's attention (H 32, KVH 32, D 96:
+    one query head a KV head), bf16 and fp8, each call held against its f32
+    plain version at ATOL / RTOL (decode and verify twice, bit-identical;
+    the fp8 forms bit for bit against the bf16 forms over the upcast cache,
+    ``_fp8_form``):
+
+    - decode at B 8 over ``PHI3_DECODE_CTX`` (up to 4,097 keys), at the
+      split edges, and with Phi-3-mini-4k's window of 2,047;
+    - verify at S 5 (the spec engine's K + 1) over the same rows and a pad
+      row;
+    - flash at the engine's batched chunk (4 rows at S 128, a pad row) and
+      the 5,120-token prompt's last 512-token step (``PHI3_LONG_STEP``),
+      both also with the window of 2,047.
+
+    Each timed call gives its graph replay, the plain version's time, the
+    bound and an SDPA yardstick over pre-gathered dense keys. Returns the
+    kernels-line entries (their launches: ``engine_phi3``'s)."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_flash as pf
+    from dynamo_tpu_torch.ops import paged_verify as pv
+
+    F = torch.nn.functional
+    H = KVH = PHI3_MINI_128K["num_key_value_heads"]
+    D = PHI3_MINI_128K["hidden_size"] // H
+    L, N, BS, W, layer = 2, PHI3_PAGES, 16, PHI3_TABLE, 1
+    NW = pd.NO_WINDOW
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    k = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(L, N, BS, KVH, D, generator=g, device=dev).bfloat16()
+    k32, v32 = k.float(), v.float()
+    bt = torch.randperm(N, generator=g, device=dev)[:8 * W].reshape(8, W).int()
+    ctx_l = PHI3_DECODE_CTX
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    shape = dict(H=H, KVH=KVH, D=D, bs=BS, L=L, layer=layer, table_pages=W)
+    out, errs = {}, {}
+
+    def entry(kernel, source, core, replaces, e, ms, plain_ms, lib_ms,
+              bound, by, **extra):
+        return dict(name=f"{kernel}[phi3 D96]", route="cuda", source=source,
+                    core=core, replaces=replaces, max_abs_err=max(e.values()),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms, **extra)
+
+    def sdpa_ms(q, btab, base, cc, S, window):
+        T = int(max(cc.tolist()))
+        B = q.shape[0]
+        kd = k[layer][btab.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+        vd = v[layer][btab.long()].reshape(B, -1, KVH, D)[:, :T].transpose(1, 2)
+        mask = _visible_mask(torch, base, cc, S, T, window)[:, None]
+        qd = q.transpose(1, 2).contiguous()
+        return graph_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd.contiguous(), vd.contiguous(), attn_mask=mask))
+
+    # ---- decode
+    ctx_e = torch.tensor(DECODE_EDGE_CTX, dtype=torch.int32, device=dev)
+    q = torch.randn(8, 1, H, D, generator=g, device=dev).bfloat16()
+    for name, cc, window in (("edges", ctx_e, NW), ("engine", ctx, NW),
+                             (f"window{PHI3_WINDOW}", ctx, PHI3_WINDOW)):
+        errs[name] = _decode_check(torch, pd, f"[phi3] {name}", q, k, v, k32,
+                                   v32, bt, cc, layer, window)
+    timed = {}
+    for name, window in (("engine", NW), ("window", PHI3_WINDOW)):
+        timed[name] = dict(
+            ms=graph_ms(lambda: pd.paged_decode_attention(
+                q, k, v, bt, ctx, layer_idx=layer, window=window)),
+            plain_ms=cuda_ms(lambda: pd.paged_decode_attention_ref(
+                q.float(), k32, v32, bt, ctx, layer, None, window),
+                iters=5, warmup=1),
+            library_ms=sdpa_ms(q, bt, ctx - 1, ctx, 1, window),
+            **dict(zip(("bound_ms", "bound_by"), _attn_bound(
+                D, H, KVH, q, [c - 1 for c in ctx_l], ctx_l, 1, window))))
+    timed["engine"]["ms_layers_rotated"] = _layers_ms(
+        lambda li: pd.paged_decode_attention(q, k, v, bt, ctx, layer_idx=li),
+        L, graph_ms)
+    ctas = _split_ctas(ctx_l, W * BS, KVH)
+    emit("kernels", kernel="paged_decode[phi3 D96]",
+         shape=dict(shape, B=8, ctx=ctx_l, edges=DECODE_EDGE_CTX,
+                    window=PHI3_WINDOW),
+         max_err=errs, bit_identical=True, timed=timed, ctas=ctas[0],
+         live_ctas=ctas[1])
+    t = timed["engine"]
+    out["paged_decode_d96"] = entry(
+        "paged_decode_attention", "dynamo_tpu_torch/csrc/paged_decode.cu",
+        "dynamo_tpu_torch/csrc/paged_splitkv.cuh",
+        "dynamo_tpu/ops/pallas_decode.py:742", errs, t["ms"], t["plain_ms"],
+        t["library_ms"], t["bound_ms"], t["bound_by"],
+        window_2047=timed["window"])
+
+    # ---- verify at S 5: the engine's decode rows and a pad row
+    errs = {}
+    btv = torch.cat([bt, torch.zeros_like(bt[:1])])
+    ctxv = torch.tensor(ctx_l + [1], dtype=torch.int32, device=dev)
+    S = 5
+    base = torch.clamp(ctxv - S, min=0)
+    qv = torch.randn(9, S, H, D, generator=g, device=dev).bfloat16()
+    errs["S5"] = _verify_check(torch, pv, "[phi3] S=5", qv, k, v, k32, v32,
+                               btv, base, ctxv, layer)
+    ms = graph_ms(lambda: pv.paged_verify_attention(qv, k, v, btv, base, ctxv,
+                                                    layer_idx=layer))
+    plain_ms = cuda_ms(lambda: pv.paged_verify_attention_ref(
+        qv.float(), k32, v32, btv, base, ctxv, layer), iters=5, warmup=1)
+    lib_ms = sdpa_ms(qv, btv, base, ctxv, S, NW)
+    bound, by = _attn_bound(D, H, KVH, qv, base.tolist(), ctxv.tolist(), S, NW)
+    emit("kernels", kernel="paged_verify[phi3 D96]",
+         shape=dict(shape, B=9, S=S, ctx=ctxv.tolist(),
+                    pad_row="base 0, ctx 1, table 0"),
+         max_err=errs, bit_identical=True, kernel_ms=ms, plain_ms=plain_ms,
+         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    out["paged_verify_d96"] = entry(
+        "paged_verify_attention", "dynamo_tpu_torch/csrc/paged_verify.cu",
+        "dynamo_tpu_torch/csrc/paged_splitkv.cuh",
+        "dynamo_tpu/ops/pallas_decode.py:634", errs, ms, plain_ms, lib_ms,
+        bound, by)
+
+    # ---- flash: the engine's batched chunk and the long prompt's last step
+    errs, flash_in, timed = {}, {}, {}
+    for name, S, rows in (("batch4_s128", 128, PHI3_FLASH_ROWS),
+                          ("long_step", 512, [PHI3_LONG_STEP])):
+        B = len(rows)
+        pad = torch.tensor([r is None for r in rows], device=dev)
+        rows = [r or (0, 1) for r in rows]
+        qf = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+        basep = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+        ctxp = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+        btp = bt[:B].clone()
+        btp[pad] = 0
+        flash_in[name] = (qf, btp, basep, ctxp, S, rows)
+        for window in (NW, PHI3_WINDOW):
+            errs[f"{name}_w{window}"] = _flash_check(
+                torch, pf, f"[phi3] {name} window={window}", k, v, k32, v32,
+                layer, qf, btp, basep, ctxp, rows, window)
+            timed[f"{name}_w{window}"] = dict(
+                ms=graph_ms(lambda: pf.paged_flash_attention(
+                    qf, k, v, btp, basep, ctxp, layer_idx=layer,
+                    window=window)),
+                plain_ms=cuda_ms(lambda: pf.paged_flash_attention_ref(
+                    qf.float(), k32, v32, btp, basep, ctxp, layer, None,
+                    window), iters=3, warmup=1),
+                library_ms=sdpa_ms(qf, btp, basep, ctxp, S, window),
+                **dict(zip(("bound_ms", "bound_by"), _attn_bound(
+                    D, H, KVH, qf, basep.tolist(), ctxp.tolist(), S, window))))
+    emit("kernels", kernel="paged_flash[phi3 D96]",
+         shape=dict(shape, batch4_s128=PHI3_FLASH_ROWS,
+                    long_step=PHI3_LONG_STEP, window=PHI3_WINDOW),
+         max_err=errs, timed=timed)
+    t, tl = timed[f"batch4_s128_w{NW}"], timed[f"long_step_w{NW}"]
+    out["paged_flash_d96"] = entry(
+        "paged_flash_attention", "dynamo_tpu_torch/csrc/paged_flash.cu",
+        "dynamo_tpu_torch/csrc/paged_attn_tc.cuh",
+        "dynamo_tpu/ops/pallas_attention.py:254", errs, t["ms"], t["plain_ms"],
+        t["library_ms"], t["bound_ms"], t["bound_by"], long_step=tl,
+        window_2047=dict(batch4_s128=timed[f"batch4_s128_w{PHI3_WINDOW}"],
+                         long_step=timed[f"long_step_w{PHI3_WINDOW}"]))
+
+    # ---- the fp8 forms over e4m3 caches of the same values' shape
+    del k32, v32
+    k8, v8 = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+    del k, v
+    torch.cuda.empty_cache()
+    kb, vb = k8.to(torch.bfloat16), v8.to(torch.bfloat16)
+    k32, v32 = kb.float(), vb.float()
+    kw = dict(layer_idx=layer, window=NW, sinks=None, softcap=0.0,
+              scale=D ** -0.5)
+    forms = {}
+    forms["decode"] = _fp8_form(torch, "decode", "phi3", q, k8, v8, kb, vb,
+                                k32, v32, bt, [c - 1 for c in ctx_l], ctx_l, kw)
+    forms["verify"] = _fp8_form(torch, "verify", "phi3", qv, k8, v8, kb, vb,
+                                k32, v32, btv, base.tolist(), ctxv.tolist(), kw)
+    for name in ("batch4_s128", "long_step"):
+        qf, btp, basep, ctxp, _, _ = flash_in[name]
+        forms[f"flash_{name}"] = _fp8_form(
+            torch, "flash", f"phi3 {name}", qf, k8, v8, kb, vb, k32, v32,
+            btp, basep.tolist(), ctxp.tolist(), kw)
+    emit("kernels", kernel="fp8_forms[phi3 D96]", **forms)
+    for kind, mod, src, core, line, form in (
+            ("decode", "paged_decode", "paged_decode.cu", "paged_splitkv.cuh",
+             "dynamo_tpu/ops/pallas_decode.py:742", "decode"),
+            ("verify", "paged_verify", "paged_verify.cu", "paged_splitkv.cuh",
+             "dynamo_tpu/ops/pallas_decode.py:634", "verify"),
+            ("flash", "paged_flash", "paged_flash.cu", "paged_attn_tc.cuh",
+             "dynamo_tpu/ops/pallas_attention.py:254", "flash_batch4_s128")):
+        r = forms[form]
+        out[f"{mod}_d96_fp8"] = dict(
+            name=f"{mod}_attention[phi3 D96 fp8]", route="cuda",
+            source=f"dynamo_tpu_torch/csrc/{src}",
+            core=f"dynamo_tpu_torch/csrc/{core}",
+            upcast="dynamo_tpu_torch/csrc/kv_fp8.cuh", replaces=line,
+            **{key: r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "sdpa_over_upcast_bf16_ms", "bf16_form_ms")},
+            **({"long_step": {key: forms["flash_long_step"][key] for key in (
+                "max_abs_err", "ms", "bf16_form_ms", "plain_ms", "bound_ms",
+                "bound_by", "sdpa_over_upcast_bf16_ms")}}
+               if kind == "flash" else {}))
+    del k8, v8, kb, vb, k32, v32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 # GQA groups that leave spare rows in a tensor-core CTA (kernels 2 and 6):
 # Qwen2.5-7B's 28 query heads over 4 KV heads (G 7: flash holds 9 positions,
 # 63 of 64 rows; the prefix partials 18, 126 of 128) and Qwen2.5-32B's 40
@@ -2901,11 +3170,11 @@ def _requests(rng, vocab=FLAGSHIP["vocab_size"]):
     return wave1, wave2
 
 
-def _spec_requests(rng):
+def _spec_requests(rng, vocab=FLAGSHIP["vocab_size"]):
     """Eight greedy requests whose 200-600-token prompts repeat a random
-    pattern of 3 to 40 tokens: the ngram lookup finds continuations in
-    them (whether the random-weight model accepts them is its own)."""
-    vocab = FLAGSHIP["vocab_size"]
+    pattern of 3 to 40 tokens below ``vocab``: the ngram lookup finds
+    continuations in them (whether the random-weight model accepts them is
+    its own)."""
     out = []
     for n, period in zip((200, 260, 330, 390, 450, 510, 560, 600),
                          (3, 7, 12, 20, 5, 33, 40, 9)):
@@ -4361,8 +4630,9 @@ def engine_gptoss_phase(torch, dev, smi):
 # 40,960 tokens in 14.1 GB)
 GEMMA_ENGINE = dict(max_model_len=8192, num_kv_blocks=2560)
 # a depth cut that keeps the whole script inside its time limit (of 42
-# layers, sliding and global alternating); the widths stay the published ones
-GEMMA_LAYERS = 22
+# layers, sliding and global alternating); the widths stay the published
+# ones
+GEMMA_LAYERS = 14
 # the five norms the reference inits to 0 (its 1 + w form, so zeros would
 # leave the weights untested): drawn N(0, 0.1^2)
 GEMMA_NORMS = ("ln1", "ln_post_attn", "ln_pre_mlp", "ln_post_mlp")
@@ -8558,10 +8828,10 @@ class RssPeak:
 
 
 async def _cli_completions(port, model, batch, new_tokens, vocab_ids):
-    """``batch`` ((prompt ids, sampling kwargs) pairs) as streamed
-    /v1/completions requests with token-id prompts, ``new_tokens`` each,
-    sent at once; per request its token ids (the logprob entries' token
-    strings through ``vocab_ids``), finish reason and TTFT."""
+    """``batch`` ((prompt, sampling kwargs) pairs; a prompt of token ids or
+    a text) as streamed /v1/completions requests, ``new_tokens`` each, sent
+    at once; per request its token ids (the logprob entries' token strings
+    through ``vocab_ids``), finish reason, TTFT and streamed text."""
     async def one(prompt, samp):
         status, _, raw, events = await http_request(
             port, "POST", "/v1/completions", dict(
@@ -8571,16 +8841,18 @@ async def _cli_completions(port, model, batch, new_tokens, vocab_ids):
             raise AssertionError(f"the CLI answered {status}: {raw[:300]}")
         rec = _stream_record(events, chat=False)
         return dict(tokens=[vocab_ids[t] for t in rec["tokens"]],
-                    finish=rec["finish"], ttft_s=rec["ttft_s"])
+                    finish=rec["finish"], ttft_s=rec["ttft_s"],
+                    text=rec["text"])
     return await asyncio.gather(*(one(p, s) for p, s in batch))
 
 
-def _cli_serve(model_path, model_name, extra, waves, vocab_ids):
+def _cli_serve(model_path, model_name, extra, waves, vocab_ids,
+               flags=LOAD_CLI_FLAGS):
     """``python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path
     <model_path>`` (no ``--allow-random-weights``: the checkpoint is loaded)
-    in a subprocess on the card: each of ``waves`` ((batch, new tokens)
-    pairs) in turn over HTTP (``_cli_completions``), then SIGINT and exit
-    code 0. Returns the waves'
+    in a subprocess on the card, with the engine flags ``flags``: each of
+    ``waves`` ((batch, new tokens) pairs) in turn over HTTP
+    (``_cli_completions``), then SIGINT and exit code 0. Returns the waves'
     records, the seconds to /health answering (the load included) and the
     child's sampled resident set from its start to /health."""
     import signal
@@ -8592,7 +8864,7 @@ def _cli_serve(model_path, model_name, extra, waves, vocab_ids):
     args = [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "in=http",
             "out=torch", "--model-path", model_path, "--model-name", model_name,
             "--extra-engine-args", tmp.name, "--http-host", "127.0.0.1",
-            "--http-port", "0", *LOAD_CLI_FLAGS]
+            "--http-port", "0", *flags]
     t0 = time.monotonic()
     proc = subprocess.Popen(args, cwd=str(ROOT), stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -8970,6 +9242,10 @@ LLAMA_31_8B = {
     "attention_bias": False, "bos_token_id": 128000,
     "eos_token_id": [128001, 128008, 128009], "torch_dtype": "bfloat16",
 }
+# the 8B of engine_spec and engine_recovery: its depth cut to keep the whole
+# script inside its time limit, widths kept
+LLAMA_8B_LAYERS = 16
+LLAMA_8B_CUT = dict(LLAMA_31_8B, num_hidden_layers=LLAMA_8B_LAYERS)
 SPEC_DRAFT_K = 4
 # leg C's self-draft: the first prompts of the spec wave
 SPEC_SELF_REQUESTS = 4
@@ -9235,7 +9511,7 @@ def _engine_spec(torch, dev, smi, tmp):
     rng = np.random.default_rng(SEED)
     _requests(rng)
     reqs = _spec_requests(rng)      # the engine phase's spec prompts
-    target = ModelConfig.from_hf_config(LLAMA_31_8B)
+    target = ModelConfig.from_hf_config(LLAMA_8B_CUT)
     small = ModelConfig(**FLAGSHIP)
 
     # the draft: Llama-3.2-1B drawn on the card and written as a snapshot
@@ -9338,7 +9614,7 @@ def _engine_spec(torch, dev, smi, tmp):
     # E: the CLI's engine builder with the draft flags
     target_dir = tmp / "llama-3.1-8b-random"
     target_dir.mkdir()
-    (target_dir / "config.json").write_text(json.dumps(LLAMA_31_8B))
+    (target_dir / "config.json").write_text(json.dumps(LLAMA_8B_CUT))
     extra = tmp / "extra.json"
     extra.write_text(json.dumps(dict(
         max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"])))
@@ -9387,8 +9663,8 @@ def _engine_spec(torch, dev, smi, tmp):
 
     legs_out = dict(out, E=e)
     emit("engine_spec",
-         target="Llama-3.1-8B at full width and depth, seeded random bf16 "
-         "weights", draft="Llama-3.2-1B from a written safetensors snapshot",
+         target=f"Llama-3.1-8B at full width, {LLAMA_8B_LAYERS} of its 32 "
+         "layers, seeded random bf16 weights", draft="Llama-3.2-1B from a written safetensors snapshot",
          config=ENGINE, spec_draft_tokens=SPEC_DRAFT_K, ngram=SPEC,
          chain=SPEC_CHAIN, requests=len(reqs), new_tokens=SPEC_NEW_TOKENS,
          snapshot_bytes=snapshot_bytes, snapshot_write_s=write_s,
@@ -9433,7 +9709,7 @@ def _engine_spec(torch, dev, smi, tmp):
         _check_launches("draft chained", b["launches"],
                         ("paged_verify", "paged_decode", "epilogue"), layers=16)
         _check_launches("ngram chained", d["launches"], ("paged_verify",),
-                        layers=LLAMA_31_8B["num_hidden_layers"])
+                        layers=LLAMA_8B_LAYERS)
         _check_launches("draft sync", a["launches"],
                         ("paged_verify", "paged_decode", "epilogue"), layers=16)
     return dict(paged_verify=b["launches"]["paged_verify"]
@@ -9446,10 +9722,11 @@ def _engine_spec(torch, dev, smi, tmp):
 
 # --------------------------------------------------------- engine_recovery
 
-# recovery and live migration: Llama-3.1-8B at full width and depth behind a
-# source and a peer in one process (one set of weight tensors, a cache of
-# 1,024 blocks each), the CLI's rolling update on the 1B
-RECOVERY_MODEL = LLAMA_31_8B              # a CPU rehearsal shrinks it
+# recovery and live migration: Llama-3.1-8B at full width (its depth cut,
+# LLAMA_8B_LAYERS) behind a source and a peer in one process (one set of
+# weight tensors, a cache of 1,024 blocks each), the CLI's rolling update on
+# the 1B
+RECOVERY_MODEL = LLAMA_8B_CUT             # a CPU rehearsal shrinks it
 # no prefix cache: the baseline's and leg A's waves run on one source, and
 # the near-tie checks use the peer's idle cache as scratch
 RECOVERY_ENGINE = dict(ENGINE, enable_prefix_caching=False)
@@ -9793,8 +10070,9 @@ def _engine_recovery(torch, dev, smi, tmp):
                     chain_len_max=a.get("chain_len_max"))
 
     emit("engine_recovery",
-         model="Llama-3.1-8B at full width and depth (its published "
-         "config.json), seeded random bf16 weights; source and peer in one "
+         model=f"Llama-3.1-8B at full width, {RECOVERY_MODEL['num_hidden_layers']} "
+         "of its 32 layers (its published config.json), seeded random bf16 "
+         "weights; source and peer in one "
          "process over one set of weight tensors",
          config=RECOVERY_ENGINE, requests=len(reqs),
          new_tokens=RECOVERY_NEW_TOKENS, drain_at_tokens=RECOVERY_LIVE,
@@ -10157,11 +10435,460 @@ def _recovery_cli_near_ties(torch, dev, tok, model_dir, extra, bodies, recs,
     return asyncio.run(check())
 
 
+# ------------------------------------------------------------ engine_phi3
+
+# the SentencePiece vocabulary written beside the Phi-3 snapshot: Llama-2 /
+# Phi-3's 32,000 pieces (the published model holds 32,064 embedding rows;
+# ids from 32,000 have no piece)
+PHI3_SPM_PIECES = 32000
+SPM_MAX_CHARS = 12     # the longest synthetic merge, in characters
+# the engine: 8,192 positions (two long prompts and six short ones fit one
+# wave), blocks for its prompts and a prefix-hit wave
+PHI3_ENGINE = dict(max_model_len=8192, num_kv_blocks=1536)
+PHI3_NEW_TOKENS = 16
+PHI3_LONG_PROMPT = 5120   # past original 4,096 from its first token
+PHI3_CROSSING = 4090      # crosses 4,096 while it decodes
+PHI3_ORIGINAL_CUT = 64    # the logits check's original window (widths kept)
+PHI3_NORM_SCALE = 0.1     # norms drawn 1 + N(0, 0.1^2)
+# the CLI's flags and engine args (a CPU rehearsal appends "--device",
+# "cpu" and an f32 dtype)
+PHI3_CLI_FLAGS = ["--max-model-len", "8192", "--num-kv-blocks", "512",
+                  "--kv-block-size", "16"]
+PHI3_CLI_EXTRA = dict(max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"])
+PHI3_CLI_WORDS = 200      # the CLI request's prompt: words of the vocabulary
+PHI3_CLI_TEXT_TAIL = " café, naïve 日本語 ✓ 😀\n\tend"  # byte fallback
+
+
+def synthetic_spm_pieces(n=PHI3_SPM_PIECES, seed=SEED):
+    """A SentencePiece BPE vocabulary in Llama-2 / Phi-3's layout, as
+    (piece, score, type) triples: ``<unk>`` (UNKNOWN 2), ``<s>`` and
+    ``</s>`` (CONTROL 3), the 256 byte pieces ``<0x00>``..``<0xFF>`` (BYTE
+    6), then NORMAL (1) pieces: ▁ and the printable ASCII characters, then
+    merges drawn from ``seed``, each the concatenation of two earlier
+    NORMAL pieces of at most ``SPM_MAX_CHARS`` characters (words grow by a
+    letter after ▁ or a letter, so text of such words encodes as a piece
+    a word), scored by rank (SentencePiece BPE's merge order)."""
+    rng = np.random.default_rng(seed)
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+    normal = ["▁"] + [chr(c) for c in range(33, 127)]
+    letters = [c for c in normal if c.isalpha()]
+    words = ["▁"] + letters
+    seen = set(normal)
+    while len(pieces) + len(normal) < n:
+        for word, u, v in rng.random((4096, 3)):
+            if word < 0.6:
+                t = words[int(u * len(words))] + letters[int(v * len(letters))]
+            else:
+                t = normal[int(u * len(normal))] + normal[int(v * len(normal))]
+            if len(t) > SPM_MAX_CHARS or t in seen or t.isdigit():
+                continue
+            seen.add(t)
+            normal.append(t)
+            if word < 0.6:
+                words.append(t)
+            if len(pieces) + len(normal) == n:
+                break
+    return pieces + [(t, -float(i), 1) for i, t in enumerate(normal)]
+
+
+def spm_model_bytes(pieces, model_type=2, unk_id=0) -> bytes:
+    """A SentencePiece ``ModelProto`` in protobuf's wire format, written
+    here without a protobuf package: ``pieces`` (field 1: ``piece`` 1,
+    ``score`` 2 as fixed32, ``type`` 3), ``trainer_spec`` (field 2:
+    ``model_type`` 3, ``unk_id`` 40) and a ``normalizer_spec`` (field 3:
+    ``name`` 1, ``add_dummy_prefix`` 3, ``remove_extra_whitespaces`` 4), as
+    a Llama-2 / Phi-3 ``tokenizer.model`` carries."""
+    import struct
+
+    def varint(x):
+        x &= (1 << 64) - 1
+        out = bytearray()
+        while True:
+            out.append((x & 0x7F) | (0x80 if x > 0x7F else 0))
+            x >>= 7
+            if not out[-1] & 0x80:
+                return bytes(out)
+
+    def field(num, wire, payload):
+        if wire == 2:
+            payload = varint(len(payload)) + payload
+        return varint(num << 3 | wire) + payload
+
+    out = bytearray()
+    for piece, score, kind in pieces:
+        out += field(1, 2, field(1, 2, piece.encode())
+                     + field(2, 5, struct.pack("<f", score))
+                     + field(3, 0, varint(kind)))
+    out += field(2, 2, field(3, 0, varint(model_type))
+                 + field(40, 0, varint(unk_id)))
+    out += field(3, 2, field(1, 2, b"identity") + field(3, 0, varint(1))
+                 + field(4, 0, varint(0)))
+    return bytes(out)
+
+
+def _phi3_hf_tensors(torch, params, layers):
+    """(HF name, the tensor on the card in HF's [out, in] layout) of a
+    Phi-3 checkpoint: the fused ``qkv_proj`` (q, k, v rows) and
+    ``gate_up_proj`` (gate, up rows), as Phi-3 stores them."""
+    lay = params["layers"]
+    out = [("model.embed_tokens.weight", params["embed"]),
+           ("model.norm.weight", params["final_norm"]),
+           ("lm_head.weight", params["lm_head"].T)]
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", lay["ln1"][i]),
+                (p + "post_attention_layernorm.weight", lay["ln2"][i]),
+                (p + "self_attn.qkv_proj.weight",
+                 torch.cat([lay[k][i].T for k in ("wq", "wk", "wv")])),
+                (p + "self_attn.o_proj.weight", lay["wo"][i].T),
+                (p + "mlp.gate_up_proj.weight",
+                 torch.cat([lay["w_gate"][i].T, lay["w_up"][i].T])),
+                (p + "mlp.down_proj.weight", lay["w_down"][i].T)]
+    return out
+
+
+def _phi3_cli_text(pieces):
+    """The CLI request's prompt: ``PHI3_CLI_WORDS`` words of the
+    vocabulary's ▁-led pieces, then ``PHI3_CLI_TEXT_TAIL`` (characters no
+    piece holds: they encode through the byte pieces)."""
+    rng = np.random.default_rng(SEED + 51)
+    words = [p[1:] for p, _, kind in pieces
+             if kind == 1 and p.startswith("▁") and len(p) > 1
+             and "▁" not in p[1:]]
+    picks = rng.integers(0, len(words), PHI3_CLI_WORDS)
+    return " ".join(words[i] for i in picks) + PHI3_CLI_TEXT_TAIL
+
+
+def engine_phi3_phase(torch, dev, smi):
+    """Phi-3-mini-128k-instruct at full width and all 32 layers
+    (``PHI3_MINI_128K``: longrope, head_dim 96, G 1, a window past every
+    context) from files, on the card:
+
+    1. weights drawn on the card from the seed (norms 1 + N(0, 0.1^2)),
+       written as a 4-shard safetensors snapshot under Phi-3's own names
+       (fused ``qkv_proj`` and ``gate_up_proj``) beside a SentencePiece
+       ``tokenizer.model`` only (``synthetic_spm_pieces`` through
+       ``spm_model_bytes``; no ``tokenizer.json``), loaded by the port's
+       loader (every leaf equal to the drawn one);
+    2. the main path over the loaded leaves (fused epilogue, single-token
+       decode): wave 1 (six of ``_requests``' prompts with their twins,
+       beside one of ``PHI3_LONG_PROMPT`` tokens, long from its first
+       token, and one of ``PHI3_CROSSING`` that crosses 4,096 while it
+       decodes) and the prefix-hit wave 2, launches counted from 0 just
+       before and read just after; a profiled decode step at contexts up to
+       4,097; the spec prompts' streams without speculation; the logits of
+       a batched prefill step and a decode step at full width and 2 layers
+       against the CPU in f32, ``original_max_position_embeddings`` cut to
+       ``PHI3_ORIGINAL_CUT`` so short and long rows share a batch (the one
+       cut; widths kept);
+    3. ``multi_step_decode=4`` and the chained loop (``CHAIN``, every
+       dispatch under the sync guard): wave 1 must stream identically;
+    4. ngram speculation (``SPEC``): equal, or parted at a printed
+       near-tie;
+    5. an fp8 (e4m3) KV engine with ngram speculation: wave 1 and the spec
+       prompts through the fp8 forms (no bf16 form launches), its last
+       logits of a prompt within ``FP8_LOGITS_REL_L2`` of the bf16 main
+       engine's;
+    6. an ``sp_size`` 2 engine on this config refused by name (the window);
+    7. one text request through the CLI's HTTP front over the snapshot
+       (``in=http out=torch``, its tokenizer the SentencePiece reader): its
+       stream equals the in-process engine's on the reader's ids (or parts
+       at a near-tie), and its text is the reader's decode of its ids.
+
+    The numbers are printed before the checks run: the device's peak
+    memory, the KV bytes a token, the load's GB/s, the decode step's
+    D-96 decode kernel share."""
+    import dataclasses
+    import tempfile
+
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.model_runner import ModelRunner
+    from dynamo_tpu_torch.engine.serving import (
+        TorchServingEngine,
+        engine_config_from_mdc,
+    )
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+    from dynamo_tpu_torch.models import llama
+
+    on_card = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    hf = PHI3_MINI_128K
+    mcfg = ModelConfig.from_hf_config(hf)
+    layers, vocab = mcfg.num_layers, mcfg.vocab_size
+    kv_bytes_token = layers * 2 * mcfg.num_kv_heads * mcfg.head_dim * 2
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = Path(tmp) / "phi-3-mini-128k-random"
+        snap.mkdir()
+        (snap / "config.json").write_text(json.dumps(hf, indent=1))
+        pieces = synthetic_spm_pieces()
+        (snap / "tokenizer.model").write_bytes(spm_model_bytes(pieces))
+        flags = run.parse_flags(["--model-path", str(snap),
+                                 "--max-model-len",
+                                 str(PHI3_ENGINE["max_model_len"]),
+                                 "--num-kv-blocks",
+                                 str(PHI3_ENGINE["num_kv_blocks"])])
+        mdc = run.load_mdc(flags)
+        cfg = dataclasses.replace(
+            engine_config_from_mdc(mdc, flags, extra=dict(
+                max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"],
+                dtype=ENGINE["dtype"])), seed=SEED)
+        tok = HFTokenizer.from_pretrained_dir(str(snap))
+
+        # ---- 1. draw, write, load
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        drawn = llama.init_params(mcfg, gen, torch.bfloat16, dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 52)
+        for t in (drawn["layers"]["ln1"], drawn["layers"]["ln2"],
+                  drawn["final_norm"]):
+            t.copy_(1 + torch.randn(t.shape, generator=g, device=dev)
+                    * PHI3_NORM_SCALE)
+        n_params = sum(t.numel() for grp in drawn.values()
+                       for t in (grp.values() if isinstance(grp, dict) else [grp]))
+        param_bytes = _tree_bytes(drawn)
+        sync()
+        t0 = time.monotonic()
+        written = write_safetensors_snapshot(
+            snap, _phi3_hf_tensors(torch, drawn, layers))
+        write_s = time.monotonic() - t0
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        sync()
+        t0 = time.monotonic()
+        runner = ModelRunner(cfg, device=dev, model_dir=str(snap))
+        sync()
+        load_s = time.monotonic() - t0
+        loaded = runner.params
+
+        def flat(p):
+            return dict(p["layers"], **{k: v for k, v in p.items()
+                                        if k != "layers"})
+        unequal = sorted(k for k, v in flat(drawn).items()
+                         if k not in flat(loaded) or not torch.equal(
+                             v.float(), flat(loaded)[k].float()))
+        del drawn
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # ---- 2.-5. the engines over the loaded leaves
+        rng = np.random.default_rng(SEED)
+        base1, wave2 = _requests(rng, vocab)
+        long_prompt = [int(t) for t in rng.integers(0, vocab, PHI3_LONG_PROMPT)]
+        crossing = [int(t) for t in rng.integers(0, vocab, PHI3_CROSSING)]
+        greedy = dict(temperature=0.0)
+        wave1 = base1[:6] + [(long_prompt, greedy), (crossing, greedy)]
+        spec_reqs = _spec_requests(rng, vocab)
+        cli_text = _phi3_cli_text(pieces)
+        cli_ids = tok.encode(cli_text)
+
+        async def serve(kw, batches, count=False, guarded=False, main=False):
+            gc.collect()
+            engine = await TorchServingEngine.create(
+                dataclasses.replace(cfg, **kw), params=loaded, device=dev)
+            stats = (_guard_dispatches(torch, engine.runner, layers, 4,
+                                       on_card) if guarded else None)
+            out = dict(res=[], walls=[])
+            try:
+                if count:
+                    _reset_launches()
+                for batch, new_tokens in batches:
+                    t0 = time.monotonic()
+                    out["res"].append(await _serve(engine, batch, new_tokens))
+                    out["walls"].append(time.monotonic() - t0)
+                out["launches"] = _read_launches() if count else None
+                out["metrics"] = dict(
+                    engine.metrics(), dispatches=stats,
+                    blocks_in_use=engine.scheduler.allocator.used)
+                out["logits"] = _last_logits(torch, engine.runner,
+                                             wave1[4][0][:100])
+                if main:
+                    out["spec_base"] = await _serve(engine, spec_reqs,
+                                                    SPEC_NEW_TOKENS)
+                    (out["cli_base"],) = await _serve(
+                        engine, [(cli_ids, greedy)], NEW_TOKENS)
+                    out["step"] = (_decode_step_profile(
+                        torch, engine.runner, ctx=PHI3_DECODE_CTX)
+                        if on_card else None)
+            finally:
+                await engine.close()
+            return out
+
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        waves = [(wave1, PHI3_NEW_TOKENS), (wave2, PHI3_NEW_TOKENS)]
+        main = asyncio.run(serve({}, waves, count=True, main=True))
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        step = main["step"]
+        cut = dataclasses.replace(mcfg, num_layers=2, rope_scaling=dict(
+            mcfg.rope_scaling, original_max_position_embeddings=PHI3_ORIGINAL_CUT))
+        logits = _check_logits(
+            torch, cfg, llama, cut, runner.device,
+            dict(loaded, layers={k: v[:2] for k, v in loaded["layers"].items()}),
+            wave1[4][0][:100], wave1[2][0][:40])
+        k4 = asyncio.run(serve(dict(multi_step_decode=4), waves[:1], count=True))
+        chained = asyncio.run(serve(CHAIN, waves[:1], count=True, guarded=True))
+        spec = asyncio.run(serve(SPEC, [(spec_reqs, SPEC_NEW_TOKENS)],
+                                 count=True))
+        parted = _spec_agreement(torch, runner, spec_reqs, main["spec_base"],
+                                 spec["res"][0])
+        fp8 = asyncio.run(serve(dict(SPEC, kv_cache_dtype="fp8"),
+                                [waves[0], (spec_reqs, SPEC_NEW_TOKENS)],
+                                count=True))
+        try:
+            EngineConfig(model=mcfg, **dict(
+                ENGINE, **PHI3_ENGINE, sp_size=2,
+                long_prefill_threshold_tokens=4096))
+            sp_refusal = None
+        except ValueError as e:
+            sp_refusal = str(e)
+
+        # ---- 7. the CLI over the snapshot
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        vocab_ids = {p: i for i, (p, _, _) in enumerate(pieces)}
+        vocab_ids.update({str(i): i for i in range(len(pieces), vocab)})
+        (cli_res,), cli = _cli_serve(
+            str(snap), "phi-3-mini-128k-random", PHI3_CLI_EXTRA,
+            [([(cli_text, greedy)], NEW_TOKENS)], vocab_ids,
+            flags=PHI3_CLI_FLAGS)
+        cli_greedy = _held_greedy(torch, runner, [(cli_ids, greedy)],
+                                  [main["cli_base"]], cli_res, "phi-3 CLI")
+        cli_decoded = tok.decode(cli_res[0]["tokens"])
+    del runner, loaded
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    res1, res2 = main["res"]
+    lg8, lgb = fp8["logits"], main["logits"]
+    fp8_logits = dict(rel_l2=float((lg8 - lgb).norm() / lgb.norm()),
+                      argmax_equal=int(lg8.argmax()) == int(lgb.argmax()),
+                      limit_rel_l2=FP8_LOGITS_REL_L2)
+    ttfts = sorted(r["ttft_s"] for r in res1)
+
+    def same(a, b):
+        return sum(x["tokens"] == y["tokens"] for x, y in zip(a, b))
+    emit("engine_phi3", model="Phi-3-mini-128k-instruct (published config.json, "
+         "factor lists drawn from the seed), seeded random bf16 weights, "
+         "non-unit norms, from a safetensors snapshot with a SentencePiece "
+         "tokenizer.model", layers=layers, vocab=vocab, parameters=n_params,
+         parameter_bytes=param_bytes, kv_bytes_per_token=kv_bytes_token,
+         config=dict(ENGINE, **PHI3_ENGINE),
+         snapshot=dict(written_bytes=written, write_s=write_s, load_s=load_s,
+                       load_gb_per_s=param_bytes / load_s / 1e9,
+                       leaves_unequal=unequal,
+                       tokenizer_pieces=len(pieces)),
+         requests=len(res1) + len(res2), new_tokens=PHI3_NEW_TOKENS,
+         wave1_prompt_tokens=sum(len(p) for p, _ in wave1),
+         wave1_wall_s=main["walls"][0],
+         wave1_output_tokens_per_s=len(res1) * PHI3_NEW_TOKENS / main["walls"][0],
+         ttft_s=dict(min=ttfts[0], median=ttfts[len(ttfts) // 2], max=ttfts[-1],
+                     long_prompt=res1[6]["ttft_s"], crossing=res1[7]["ttft_s"]),
+         peak_memory_bytes=peak, launches=main["launches"],
+         metrics=main["metrics"], decode_step=step,
+         logits_vs_cpu_f32_2_layers=dict(logits,
+                                         original_cut=PHI3_ORIGINAL_CUT),
+         burst=dict(k=4, streams_equal=same(res1, k4["res"][0]),
+                    wave1_wall_s=k4["walls"][0], launches=k4["launches"]),
+         chained=dict(k=4, streams_equal=same(res1, chained["res"][0]),
+                      wave1_wall_s=chained["walls"][0],
+                      **{k: chained["metrics"][k] for k in (
+                          "decode_steps", "decode_pipeline_bursts",
+                          "chain_len_max", "sync_fallback", "dispatches",
+                          "blocks_in_use")},
+                      launches=chained["launches"]),
+         spec=dict(**SPEC, requests=len(spec_reqs),
+                   proposed=spec["metrics"]["spec_proposed_tokens"],
+                   accepted=spec["metrics"]["spec_accepted_tokens"],
+                   streams_equal=same(main["spec_base"], spec["res"][0]),
+                   parted=parted, launches=spec["launches"]),
+         fp8=dict(wave1_streams_equal=same(res1, fp8["res"][0]),
+                  spec_proposed=fp8["metrics"]["spec_proposed_tokens"],
+                  logits_vs_bf16_kv=fp8_logits, launches=fp8["launches"],
+                  blocks_in_use=fp8["metrics"]["blocks_in_use"]),
+         sp_size_2_refused=sp_refusal,
+         cli=dict(cli, prompt_tokens=len(cli_ids),
+                  round_trip=tok.decode(cli_ids) == cli_text,
+                  greedy_equal=cli_greedy[0], greedy_parted=cli_greedy[1],
+                  text_is_decode=_held_text(cli_res[0]["text"], cli_decoded)),
+         card=smi)
+
+    if unequal:
+        raise AssertionError(f"phi-3: loaded leaves differ from the drawn: "
+                             f"{unequal}")
+    _check_streams(res1 + res2, PHI3_NEW_TOKENS, vocab)
+    _check_streams(k4["res"][0] + chained["res"][0] + fp8["res"][0],
+                   PHI3_NEW_TOKENS, vocab)
+    _check_streams(main["spec_base"] + spec["res"][0] + fp8["res"][1],
+                   SPEC_NEW_TOKENS, vocab)
+    if res1[0]["tokens"] != res1[1]["tokens"] or res1[2]["tokens"] != res1[3]["tokens"]:
+        raise AssertionError("phi-3: repeated requests in one wave streamed "
+                             "differently")
+    tokens1 = [r["tokens"] for r in res1]
+    for name, r in (("multi_step_decode=4", k4), ("chained", chained)):
+        if [x["tokens"] for x in r["res"][0]] != tokens1:
+            raise AssertionError(f"phi-3: wave 1 on the {name} engine streams "
+                                 "differently from the K=1 engine")
+    m = chained["metrics"]
+    if m["dispatches"]["bad"] or m["chain_len_max"] <= 1 or m["blocks_in_use"]:
+        raise AssertionError(f"phi-3 chained engine: {m}")
+    if main["metrics"]["gpu_prefix_cache_hit_rate"] <= 0:
+        raise AssertionError("phi-3: the shared-prefix request missed the "
+                             "prefix cache")
+    if spec["metrics"]["spec_proposed_tokens"] <= 0:
+        raise AssertionError("phi-3: ngram speculation proposed nothing")
+    if not fp8_logits["rel_l2"] <= FP8_LOGITS_REL_L2:
+        raise AssertionError(f"phi-3 fp8: logits {fp8_logits}")
+    if fp8["metrics"]["blocks_in_use"]:
+        raise AssertionError("phi-3 fp8: KV blocks still in use")
+    if sp_refusal is None or "sliding_window" not in sp_refusal:
+        raise AssertionError(f"phi-3: sp_size 2 was not refused by the "
+                             f"window: {sp_refusal!r}")
+    if tok.decode(cli_ids) != cli_text:
+        raise AssertionError("phi-3: the SentencePiece reader's decode of its "
+                             "encode is not the text")
+    if not _held_text(cli_res[0]["text"], cli_decoded):
+        raise AssertionError(f"phi-3 CLI: streamed {cli_res[0]['text']!r}, the "
+                             f"reader decodes {cli_decoded!r}")
+    if on_card:
+        _check_launches("phi-3 main", main["launches"],
+                        ("paged_decode", "paged_flash", "epilogue"), layers)
+        _check_launches("phi-3 burst", k4["launches"],
+                        ("paged_decode", "epilogue"), layers)
+        _check_launches("phi-3 chained", chained["launches"],
+                        ("paged_decode", "epilogue"), layers)
+        _check_launches("phi-3 spec", spec["launches"], ("paged_verify",),
+                        layers)
+        _check_launches("phi-3 fp8", fp8["launches"],
+                        ("paged_decode_fp8", "paged_flash_fp8",
+                         "paged_verify_fp8"), layers)
+        bf16 = {k: fp8["launches"][k] for k in ("paged_decode", "paged_flash",
+                                                 "paged_verify")}
+        if any(bf16.values()):
+            raise AssertionError(f"phi-3 fp8 path launched a bf16 form: {bf16}")
+        if main["launches"]["mla_decode"] or main["launches"]["sp_prefix"]:
+            raise AssertionError(f"the phi-3 path launched a foreign kernel: "
+                                 f"{main['launches']}")
+        if not step["decode_kernel_ms"] > 0:
+            raise AssertionError(f"phi-3: the profiled decode step shows no "
+                                 f"decode kernel: {step['top_kernels_ms']}")
+    return dict(paged_decode_d96=main["launches"]["paged_decode"],
+                paged_flash_d96=main["launches"]["paged_flash"],
+                paged_verify_d96=spec["launches"]["paged_verify"],
+                paged_decode_d96_fp8=fp8["launches"]["paged_decode_fp8"],
+                paged_flash_d96_fp8=fp8["launches"]["paged_flash_fp8"],
+                paged_verify_d96_fp8=fp8["launches"]["paged_verify_fp8"])
+
+
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
           "engine_mixtral_int8", "engine_sp", "engine_http", "engine_guided",
           "engine_graph", "engine_disagg", "engine_kv_tiers", "engine_load",
-          "engine_spec", "engine_recovery")
+          "engine_spec", "engine_recovery", "engine_phi3")
 
 
 def main(argv=None) -> int:
@@ -10301,6 +11028,14 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         recovery_launches = engine_recovery_phase(torch, dev, smi)
         phase_s["engine_recovery"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "engine_phi3" in phases:
+        # Phi-3-mini-128k from its snapshot: the D-96 forms' counts
+        t0 = time.monotonic()
+        launches.update(engine_phi3_phase(torch, dev, smi))
+        phase_s["engine_phi3"] = time.monotonic() - t0
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.empty_cache()

@@ -77,6 +77,15 @@
 // warpgroups and CTAs on the SM. See PERF.md for the measured share of the
 // bound.
 //
+// head_dim 96 (Phi-3-mini; the flash kernel only). A row's second 64-column
+// half is 32 columns: each tile keeps it as a full 128-byte line (D 128's
+// footprint), of which the copies write chunks 0-3 (before the swizzle)
+// and no copy reads past column 95 of the cache, so the descriptors and
+// `swz` are those of D 128. Q K^T is 6 k-steps of m64n64k16 (the last two
+// in the second half); P V is m64n64k16 on V's columns 0-63 plus m64n32k16
+// on 64-95, each with its own descriptor, as D 256 does with two
+// m64n128k16. 115,712 bytes of shared memory, as at 128.
+//
 // fp8 caches (kFp8; e4m3 K and V; the flash kernel's fp8 form). The ring
 // holds kStages e4m3 tiles of K and of V beside one bf16 K and one bf16 V
 // tile: after the barrier that publishes tile it, every thread upcasts
@@ -117,14 +126,22 @@ __host__ __device__ constexpr int cta_threads() {
   return 128 * kWG;
 }
 
+// the columns a bf16 row takes in shared memory: whole 64-column halves of
+// 128-byte lines (96 -> 128; 64, 128 and 256 as they are)
+template <int D>
+__host__ __device__ constexpr int pitch() {
+  return (D + 63) / 64 * 64;
+}
+
 // Q, then kStages K tiles, then kStages V tiles; +1 KB to align the base.
 // kFp8: Q, one bf16 K and one bf16 V tile, then kStages e4m3 K tiles and
-// kStages e4m3 V tiles
+// kStages e4m3 V tiles (e4m3 rows unpadded)
 template <int D, int kWG, bool kFp8 = false>
 __host__ __device__ constexpr int smem_bytes() {
-  return kFp8 ? (cta_rows<kWG>() + 2 * kKeys) * D * 2 +
+  return kFp8 ? (cta_rows<kWG>() + 2 * kKeys) * pitch<D>() * 2 +
                     2 * kStages * kKeys * D + 1024
-              : (cta_rows<kWG>() + 2 * kStages * kKeys) * D * 2 + 1024;
+              : (cta_rows<kWG>() + 2 * kStages * kKeys) * pitch<D>() * 2 +
+                    1024;
 }
 
 // ------------------------------------------------------------------ PTX
@@ -226,6 +243,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
         "n"(kTransB));
 }
 
+// the same with N = 32
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(kTransB));
+}
+
 // the same with N = 128
 template <int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
@@ -284,13 +318,19 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 
 // O (64 x D) += P (64 x 16, registers) * V's 16 rows at `vrow` of a stage
 // (N-major: the transpose bit; its 64-column groups kKeys * 128 bytes
-// apart): one m64nDk16 product up to D 128, two m64n128k16 at D 256, each
-// on its half of the columns and of the accumulator
+// apart): one m64nDk16 product at D 64 and 128; at 96 m64n64k16 on
+// columns 0-63 and m64n32k16 on 64-95; two m64n128k16 at D 256; each on
+// its part of the columns and of the accumulator
 template <int D>
 __device__ __forceinline__ void pv_wgmma(float (&o)[D / 8][4],
                                          const uint32_t (&a)[4],
                                          uint32_t vrow) {
-  if constexpr (D <= 128) {
+  if constexpr (D == 96) {
+    wgmma_rs<1>(*reinterpret_cast<float(*)[8][4]>(&o[0]), a,
+                desc_sw128(vrow, kKeys * 128, 1024));
+    wgmma_rs<1>(*reinterpret_cast<float(*)[4][4]>(&o[8]), a,
+                desc_sw128(vrow + kKeys * 128, kKeys * 128, 1024));
+  } else if constexpr (D <= 128) {
     wgmma_rs<1>(o, a, desc_sw128(vrow, kKeys * 128, 1024));
   } else {
 #pragma unroll
@@ -348,11 +388,14 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
   constexpr int CH = D / 8;    // 16-byte chunks per row
   constexpr int KS = D / 16;   // k-steps of Q K^T
   constexpr int DT = D / 8;    // 8-column output tiles
-  constexpr uint32_t kTile = kKeys * D * 2;
+  constexpr uint32_t kTile = kKeys * pitch<D>() * 2;
   constexpr uint32_t kTile8 = kKeys * D;     // an e4m3 tile
   constexpr int CH8 = D / 16;                // 16-byte chunks per e4m3 row
   constexpr int kBufs = kFp8 ? 1 : kStages;  // bf16 K (and V) tiles
   constexpr int kRows = cta_rows<kWG>(), kThreads = cta_threads<kWG>();
+  // every thread makes the same number of a tile's 16-byte copies
+  static_assert(kKeys * CH % kThreads == 0 && kKeys * CH8 % kThreads == 0,
+                "a tile's copies must divide among the CTA's threads");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad = lane >> 2, t4 = lane & 3;
 
@@ -373,7 +416,7 @@ __device__ __forceinline__ void attend(const Problem& p, int base, int window,
 
   const uint32_t base_s = smem_u32(smem_raw);
   const uint32_t q_s = (base_s + 1023u) & ~1023u;
-  const uint32_t k_s = q_s + kRows * D * 2;
+  const uint32_t k_s = q_s + kRows * pitch<D>() * 2;
   const uint32_t v_s = k_s + kBufs * kTile;
   const uint32_t k8_s = v_s + kBufs * kTile;  // the e4m3 rings (kFp8)
   const uint32_t v8_s = k8_s + kStages * kTile8;

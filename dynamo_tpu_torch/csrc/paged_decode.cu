@@ -84,8 +84,8 @@ int decode(const void* q, const void* k, const void* v, const void* bt,
 // size (G <= 128, 16 at head_dim 256); it allocates the workspace `ws` (f32, B * KVH * nsplit
 // * G * (D + 2)) and passes its device's counter buffer `cnt` (>= B * KVH
 // ints, zero between calls), both unused when nsplit == 1. `sinks` is f32
-// [H] or nullptr. `softcap` > 0 caps the scores (0 = off). head_dim 64, 128
-// and 256 are instantiated. q and out are bf16; k and v are bf16 here ...
+// [H] or nullptr. `softcap` > 0 caps the scores (0 = off). head_dim 64, 96,
+// 128 and 256 are instantiated. q and out are bf16; k and v are bf16 here ...
 extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* bt, const void* ctx,
                                  const void* sinks, void* out, void* ws,

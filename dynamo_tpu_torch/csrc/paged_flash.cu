@@ -157,6 +157,9 @@ int flash(const void* q, const void* k, const void* v, const void* bt,
   if (D == 64)
     return launch<64, kFp8>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH,
                             N, bs, W, layer, window, scale, softcap, s);
+  if (D == 96)
+    return launch<96, kFp8>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH,
+                            N, bs, W, layer, window, scale, softcap, s);
   if (D == 128)
     return launch<128, kFp8>(q, k, v, bt, base, ctx, sinks, out, B, S, H, KVH,
                              N, bs, W, layer, window, scale, softcap, s);
@@ -170,7 +173,7 @@ int flash(const void* q, const void* k, const void* v, const void* bt,
 
 // Returns cudaGetLastError() after the launch (0 = launched). The wrapper
 // has checked types, shapes, contiguity, 16-byte alignment, that head_dim
-// is 64, 128 or 256 (the three instantiations) and that the group size
+// is 64, 96, 128 or 256 (the four instantiations) and that the group size
 // G = H / KVH is at most 64. `sinks` is f32 [H] or nullptr; `softcap` > 0 caps
 // the scores (0 = off). q and out are bf16; k and v are bf16 here ...
 extern "C" int paged_flash_bf16(const void* q, const void* k, const void* v,

@@ -89,6 +89,17 @@
 // (ops/splitkv.py refuses a larger split by name; two stages ran 4-5%
 // slower). At 64 and 128 all of it stays as it was.
 //
+// head_dim 96 (Phi-3-mini, Phi-3.5-mini). A row is 12 chunks of 16 bytes,
+// and the XOR swizzle by row % 8 sends chunk c to c ^ (row % 8), which
+// reaches 15: the bf16 tiles (Q, K, V) keep each row in `pitch<96>()` =
+// 128 columns, whole 128-byte lines, so the swizzled chunks stay inside
+// their row; chunks 12-15 of a row's logical width are never written or
+// read, and no copy reads past column 95 of the cache. Q K^T is 6 k-steps
+// of mma.sync.m16n8k16, P V 12 n-tiles, ldmatrix reads 6 16 x 16 blocks a
+// row. The e4m3 stages of the fp8 form keep their rows unpadded (96 bytes,
+// 6 chunks). A decode CTA at Phi-3's G = 1 has one live row in its 16-row
+// tile: right, and it still reads each live K/V byte once.
+//
 // fp8 caches (kFp8; e4m3 K and V, the reference's kv_cache_dtype="fp8").
 // The ring holds kStages e4m3 tiles of K and of V (half the bytes of a
 // bf16 stage), and one bf16 K and one bf16 V tile: after the barrier that
@@ -243,20 +254,28 @@ __device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a,
   *reinterpret_cast<uint2*>(dst) = v;
 }
 
-// byte offset of 16-byte chunk `chunk` of row `row` in a tile of rows of
-// D bf16: chunks XOR-swizzled by row % 8, so the 8 rows an ldmatrix reads
-// at one chunk index fall on 8 distinct bank groups
+// the columns a bf16 tile row takes in shared memory: D rounded up to whole
+// 128-byte lines (64 columns), so the swizzle below stays inside the row
+// (96 -> 128; 64, 128 and 256 as they are)
+template <int D>
+__host__ __device__ constexpr int pitch() {
+  return (D + 63) / 64 * 64;
+}
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a bf16 tile: rows
+// of pitch<D>() columns, chunks XOR-swizzled by row % 8, so the 8 rows an
+// ldmatrix reads at one chunk index fall on 8 distinct bank groups
 template <int D>
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return (uint32_t)(row * (D * 2) + ((chunk ^ (row & 7)) << 4));
+  return (uint32_t)(row * (pitch<D>() * 2) + ((chunk ^ (row & 7)) << 4));
 }
 
 // the K and V rings: kStages bf16 tiles each, or (kFp8) one bf16 tile
-// each and kStages e4m3 tiles each
+// each and kStages e4m3 tiles each (e4m3 rows unpadded)
 template <int D, bool kFp8>
 __host__ __device__ constexpr int ring_bytes() {
-  return kFp8 ? 2 * kKeys * D * 2 + 2 * kStages * kKeys * D
-              : 2 * kStages * kKeys * D * 2;
+  return kFp8 ? 2 * kKeys * pitch<D>() * 2 + 2 * kStages * kKeys * D
+              : 2 * kStages * kKeys * pitch<D>() * 2;
 }
 
 // dynamic shared memory: Q (16 M rows), the K and V rings, the merge's row
@@ -264,7 +283,8 @@ __host__ __device__ constexpr int ring_bytes() {
 // (ops/splitkv.py smem_bytes mirrors it)
 template <int D, int M, bool kFp8>
 __host__ __device__ constexpr int smem_fixed() {
-  return 16 * M * D * 2 + ring_bytes<D, kFp8>() + 2 * kMaxRows * 4 + 16;
+  return 16 * M * pitch<D>() * 2 + ring_bytes<D, kFp8>() + 2 * kMaxRows * 4 +
+         16;
 }
 template <int D, int M, bool kFp8>
 inline size_t smem_bytes(int chunk, int bs) {
@@ -293,9 +313,14 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   constexpr int CH = D / 8;            // 16-byte chunks per row
   constexpr int DT = D / 8;            // 8-column output tiles
   constexpr int ROWS = 16 * M;
-  constexpr uint32_t kTile = kKeys * D * 2;
+  constexpr uint32_t kTile = kKeys * pitch<D>() * 2;
   constexpr uint32_t kTile8 = kKeys * D;  // an e4m3 tile
   constexpr int CH8 = D / 16;          // 16-byte chunks per e4m3 row
+  // a tile's 16-byte copies, and the rounds of NT threads that make them
+  // (at D 96 and 8 warps, 384 e4m3 copies: the last round is half used)
+  constexpr int kCopies = kKeys * CH, kCopies8 = kKeys * CH8;
+  constexpr int kRounds = (kCopies + NT - 1) / NT;
+  constexpr int kRounds8 = (kCopies8 + NT - 1) / NT;
   constexpr int kBufs = kFp8 ? 1 : kStages;  // bf16 K (and V) tiles
   constexpr int DS = D + 4;            // f32 row stride of the warps' dump
   constexpr bool kHoldQ = D <= 128;    // Q's fragments in registers
@@ -334,13 +359,13 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   const int key_end = min(k_hi + 1, (split + 1) * p.chunk);
 
   const uint32_t q_s = smem_u32(smem);
-  const uint32_t k_s = q_s + ROWS * D * 2;
+  const uint32_t k_s = q_s + ROWS * pitch<D>() * 2;
   const uint32_t v_s = k_s + kBufs * kTile;
   const uint32_t k8_s = v_s + kBufs * kTile;  // the e4m3 rings (kFp8)
   const uint32_t v8_s = k8_s + kStages * kTile8;
   auto sm = [&](uint32_t a) { return smem + (a - q_s); };  // generic pointer
-  float* stat_s =
-      reinterpret_cast<float*>(smem + ROWS * D * 2 + ring_bytes<D, kFp8>());
+  float* stat_s = reinterpret_cast<float*>(smem + ROWS * pitch<D>() * 2 +
+                                           ring_bytes<D, kFp8>());
   int* flag_s = reinterpret_cast<int*>(stat_s + 2 * kMaxRows);
   int* pages_s = flag_s + 4;
 
@@ -378,8 +403,9 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
     const int t0 = t_first + it * kKeys;
     if constexpr (kFp8) {  // 16 e4m3 a copy, rows unswizzled
 #pragma unroll
-      for (int j = 0; j < kKeys * CH8 / NT; ++j) {
+      for (int j = 0; j < kRounds8; ++j) {
         const int i = tid + j * NT;
+        if (kCopies8 % NT && i >= kCopies8) break;
         const int r = i / CH8, c = i % CH8;
         const int pos = t0 + r;
         const bool ok = pos >= key_begin && pos < key_end;
@@ -396,8 +422,9 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
       return;
     }
 #pragma unroll
-    for (int j = 0; j < kKeys * CH / NT; ++j) {
+    for (int j = 0; j < kRounds; ++j) {
       const int i = tid + j * NT;
+      if (kCopies % NT && i >= kCopies) break;
       const int r = i / CH, c = i % CH;
       const int pos = t0 + r;
       const bool ok = pos >= key_begin && pos < key_end;
@@ -416,8 +443,9 @@ __global__ void __launch_bounds__(cta_threads(M)) splitkv_kernel(
   // row r is bf16 chunks 2c and 2c + 1, at their swizzled places
   auto upcast_tile = [&](int stage) {
 #pragma unroll
-    for (int j = 0; j < kKeys * CH8 / NT; ++j) {
+    for (int j = 0; j < kRounds8; ++j) {
       const int i = tid + j * NT;
+      if (kCopies8 % NT && i >= kCopies8) break;
       const int r = i / CH8, c = i % CH8;
       const uint32_t src = stage * kTile8 + r * D + c * 16;
       kv_fp8::upcast16(sm(k8_s + src), sm(k_s + swz<D>(r, 2 * c)),
@@ -771,8 +799,10 @@ inline int launch_any(const Params& p, int B, int D, int nsplit, bool fp8,
   if (D == DD && m == MM)    \
     return (int)launch_form<DD, MM>(p, B, nsplit, fp8, stream);
   SPLITKV_CASE(64, 1) SPLITKV_CASE(64, 2) SPLITKV_CASE(64, 4)
-  SPLITKV_CASE(64, 8) SPLITKV_CASE(128, 1) SPLITKV_CASE(128, 2)
-  SPLITKV_CASE(128, 4) SPLITKV_CASE(128, 8) SPLITKV_CASE(256, 1)
+  SPLITKV_CASE(64, 8) SPLITKV_CASE(96, 1) SPLITKV_CASE(96, 2)
+  SPLITKV_CASE(96, 4) SPLITKV_CASE(96, 8) SPLITKV_CASE(128, 1)
+  SPLITKV_CASE(128, 2) SPLITKV_CASE(128, 4) SPLITKV_CASE(128, 8)
+  SPLITKV_CASE(256, 1)
 #undef SPLITKV_CASE
   return (int)cudaErrorInvalidValue;
 }

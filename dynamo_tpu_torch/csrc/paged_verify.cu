@@ -88,7 +88,7 @@ int verify(const void* q, const void* k, const void* v, const void* bt,
 // * Sq * G * (D + 2)) and passes its device's counter buffer `cnt`
 // (>= B * parts * KVH ints, zero between calls), both unused when
 // nsplit == 1. `sinks` is f32 [H] or nullptr. `softcap` > 0 caps the
-// scores (0 = off). head_dim 64, 128 and 256 are instantiated. q and out
+// scores (0 = off). head_dim 64, 96, 128 and 256 are instantiated. q and out
 // are bf16; k and v are bf16 here ...
 extern "C" int paged_verify_bf16(const void* q, const void* k, const void* v,
                                  const void* bt, const void* base,

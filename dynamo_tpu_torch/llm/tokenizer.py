@@ -22,7 +22,10 @@ character, for the forms the served families use:
   ``single_word``), split out before pre-tokenization, the non-normalized
   ones on the raw text and the normalized ones on the normalized pieces;
 - the ``TemplateProcessing`` post-processor (with ``ByteLevel`` and
-  ``Sequence`` around it), for ``add_special_tokens=True`` only.
+  ``Sequence`` around it), for ``add_special_tokens=True`` only;
+- a SentencePiece ``tokenizer.model`` (``tokenizer_from_spm``: its
+  protobuf read by a wire-format decoder of its own, then the Unigram or
+  BPE tokenizer the reference rebuilds from it).
 
 Anything else raises ``NotImplementedError`` by name. Regexes are
 Oniguruma's (the engine ``tokenizers`` runs): ``\\p{..}``, ``\\P{..}``,
@@ -753,8 +756,9 @@ class Unigram:
 
 
 # SentencePiece piece types (sentencepiece.proto; GGUF's token_type reuses
-# them): the ones the tokenizer treats apart from normal pieces
-SPM_UNKNOWN, SPM_CONTROL, SPM_USER_DEFINED = 2, 3, 4
+# them): NORMAL (also a piece's type when the field is absent), and the
+# ones the tokenizer treats apart from normal pieces
+SPM_NORMAL, SPM_UNKNOWN, SPM_CONTROL, SPM_USER_DEFINED = 1, 2, 3, 4
 
 
 def spm_added_tokens(tokens, types) -> List[dict]:
@@ -777,15 +781,48 @@ def spm_added_tokens(tokens, types) -> List[dict]:
 def spm_unigram_spec(tokens, scores, types, unk_id=None) -> dict:
     """The ``tokenizer.json`` of a SentencePiece-semantics Unigram tokenizer
     (the reference's ``build_unigram_tokenizer``): the ▁ whitespace
-    convention (prepend ▁, spaces to ▁; on the way out ▁ to a space, byte
-    fallback, fuse, one leading space stripped), byte fallback, and the
-    SPM added tokens."""
+    convention (``_spm_surface``), byte fallback, and the SPM added
+    tokens."""
     if unk_id is None:
         unk_id = next((i for i, t in enumerate(types) if t == SPM_UNKNOWN), 0)
+    return dict(_spm_surface(tokens, types), model={
+        "type": "Unigram", "unk_id": int(unk_id),
+        "vocab": [[t, float(sc)] for t, sc in zip(tokens, scores)],
+        "byte_fallback": True})
+
+
+def spm_bpe_spec(tokens, types, unk_id=None) -> dict:
+    """The ``tokenizer.json`` of a SentencePiece BPE model (``model_type``
+    2; the reference's ``_build_spm_bpe_tokenizer``): byte fallback, fused
+    unknowns, the ▁ surface and the SPM added tokens. SentencePiece keeps
+    no merges, only the pieces ranked by id, so they are recovered as the
+    reference does: every split of a NORMAL piece whose two halves are both
+    pieces, ordered by the merged piece's id, then within a piece by the
+    id of its later half."""
+    vocab = {t: i for i, t in enumerate(tokens)}
+    merges = []
+    for piece, piece_id in vocab.items():
+        if len(piece) < 2 or types[piece_id] != SPM_NORMAL:
+            continue
+        local = [(piece[:i], piece[i:]) for i in range(1, len(piece))
+                 if piece[:i] in vocab and piece[i:] in vocab]
+        local.sort(key=lambda ab: max(vocab[ab[0]], vocab[ab[1]]))
+        merges.extend(((piece_id, j), ab) for j, ab in enumerate(local))
+    if unk_id is None:
+        unk_id = next((i for i, t in enumerate(types) if t == SPM_UNKNOWN), 0)
+    return dict(_spm_surface(tokens, types), model={
+        "type": "BPE", "vocab": vocab,
+        "merges": [list(ab) for _, ab in sorted(merges)],
+        "unk_token": tokens[int(unk_id)], "fuse_unk": True,
+        "byte_fallback": True})
+
+
+def _spm_surface(tokens, types) -> dict:
+    """The SentencePiece surface of a ``tokenizer.json`` (the reference's
+    ``_set_spm_surface``): prepend ▁ and spaces to ▁ on the way in; on the
+    way out ▁ to a space, byte fallback, fuse, one leading space stripped;
+    and the SPM added tokens."""
     return {
-        "model": {"type": "Unigram", "unk_id": int(unk_id),
-                  "vocab": [[t, float(sc)] for t, sc in zip(tokens, scores)],
-                  "byte_fallback": True},
         "normalizer": {"type": "Sequence", "normalizers": [
             {"type": "Prepend", "prepend": "▁"},
             {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
@@ -795,6 +832,125 @@ def spm_unigram_spec(tokens, scores, types, unk_id=None) -> dict:
             {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
         "added_tokens": spm_added_tokens(tokens, types),
     }
+
+
+# ------------------------------------------------- SentencePiece protobuf
+
+class SpmModelError(ValueError):
+    """A ``tokenizer.model`` that is not a readable SentencePiece
+    ``ModelProto``."""
+
+
+def _varint(buf: bytes, at: int) -> Tuple[int, int]:
+    """(value, next offset) of the base-128 varint at ``at``."""
+    out = shift = 0
+    while True:
+        if at >= len(buf) or shift > 63:
+            raise SpmModelError(f"truncated varint at byte {at}")
+        b = buf[at]
+        at += 1
+        out |= (b & 0x7F) << shift
+        shift += 7
+        if b < 0x80:
+            return out, at
+
+
+def _fields(buf: bytes):
+    """(field number, wire type, value) of each field of a message: an int
+    for a varint (0), bytes for a fixed64 (1), a length-delimited field (2)
+    or a fixed32 (5). Groups and unknown wire types raise."""
+    at = 0
+    while at < len(buf):
+        key, at = _varint(buf, at)
+        field, wire = key >> 3, key & 7
+        if field == 0:
+            raise SpmModelError(f"field number 0 at byte {at}")
+        if wire == 0:
+            value, at = _varint(buf, at)
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            if at + n > len(buf):
+                raise SpmModelError(f"truncated fixed field {field}")
+            value, at = buf[at:at + n], at + n
+        elif wire == 2:
+            n, at = _varint(buf, at)
+            if at + n > len(buf):
+                raise SpmModelError(f"field {field} runs past the end "
+                                    f"({n} bytes at byte {at})")
+            value, at = buf[at:at + n], at + n
+        else:
+            raise SpmModelError(f"wire type {wire} (field {field}) is not "
+                                "used by sentencepiece_model.proto")
+        yield field, wire, value
+
+
+def _int32(v: int) -> int:
+    """A varint read as protobuf's int32 / enum (negatives take 10 bytes)."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def read_spm_model(data: bytes):
+    """A SentencePiece ``ModelProto`` from its wire format: (pieces as
+    (piece, score, type) triples, the trainer spec's ``model_type`` and
+    ``unk_id``, each None without a ``trainer_spec``). Read: ``pieces``
+    (field 1: ``piece`` 1, ``score`` 2 as a fixed32 float, ``type`` 3) and
+    ``trainer_spec`` (field 2: ``model_type`` 3, ``unk_id`` 40, defaults
+    UNIGRAM and 0); every other field is skipped by its wire type."""
+    import struct
+
+    pieces, model_type, unk_id = [], None, None
+    for field, wire, value in _fields(data):
+        if field == 1 and wire == 2:
+            piece, score, kind = "", 0.0, SPM_NORMAL
+            for f, w, v in _fields(value):
+                if f == 1 and w == 2:
+                    try:
+                        piece = v.decode("utf-8")
+                    except UnicodeDecodeError as e:
+                        raise SpmModelError(f"piece {len(pieces)}: {e}") from e
+                elif f == 2 and w == 5:
+                    score = struct.unpack("<f", v)[0]
+                elif f == 3 and w == 0:
+                    kind = _int32(v)
+            pieces.append((piece, score, kind))
+        elif field == 2 and wire == 2:
+            model_type, unk_id = 1, 0
+            for f, w, v in _fields(value):
+                if f == 3 and w == 0:
+                    model_type = _int32(v)
+                elif f == 40 and w == 0:
+                    unk_id = _int32(v)
+    if not pieces:
+        raise SpmModelError("no pieces")
+    return pieces, model_type, unk_id
+
+
+def tokenizer_from_spm(path: str) -> "Tokenizer":
+    """The tokenizer of a SentencePiece ``tokenizer.model`` (the reference's
+    ``tokenizer_from_spm``, which reads the protobuf through transformers'
+    schema; here ``read_spm_model``): ``model_type`` 1 (Unigram, also
+    without a trainer spec) through ``spm_unigram_spec``, 2 (BPE) through
+    ``spm_bpe_spec``; any other type raises with the reference's words, and
+    a file that is no ``ModelProto`` raises ``SpmModelError`` naming it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        pieces, model_type, unk_id = read_spm_model(data)
+    except SpmModelError as e:
+        raise SpmModelError(f"{path} is not a SentencePiece model: {e}") from e
+    tokens = [p for p, _, _ in pieces]
+    scores = [s for _, s, _ in pieces]
+    types = [t for _, _, t in pieces]
+    model_type = 1 if model_type is None else model_type
+    if model_type == 2:
+        return Tokenizer(spm_bpe_spec(tokens, types, unk_id))
+    if model_type != 1:
+        raise ValueError(
+            f"unsupported SentencePiece model_type {model_type} in {path} "
+            "(supported: 1=unigram, 2=bpe)"
+        )
+    return Tokenizer(spm_unigram_spec(tokens, scores, types, unk_id))
 
 
 # --------------------------------------------------------------- tokenizer
@@ -1010,10 +1166,10 @@ class HFTokenizer:
         path = os.path.join(model_dir, "tokenizer.json")
         if os.path.exists(path):
             return cls.from_file(path)
-        if os.path.exists(os.path.join(model_dir, "tokenizer.model")):
-            raise NotImplementedError(
-                f"{model_dir} has only a SentencePiece tokenizer.model: that "
-                "reader is not ported yet (tokenizer.json only)")
+        spm = os.path.join(model_dir, "tokenizer.model")
+        if os.path.exists(spm):
+            # SentencePiece-only snapshots (original Llama / Mistral exports)
+            return cls(tokenizer_from_spm(spm))
         raise FileNotFoundError(
             f"no tokenizer.json or tokenizer.model under {model_dir}"
         )

@@ -89,14 +89,17 @@ def rope_frequencies(
     with HF ``rope_scaling`` applied: default, "linear", "llama3" and
     "yarn" (DeepSeek-V2/V3: interpolated and extrapolated frequencies
     blended over the beta_fast/beta_slow correction range, and the mscale
-    attention factor that cos/sin carry). Longrope belongs to a later
-    family's slice and raises, as does any unknown type."""
+    attention factor that cos/sin carry). "longrope" / "su" (Phi-3) gives
+    both profiles, [2, hd/2] (``longrope_frequencies``): the row's profile
+    is chosen in ``rope_cos_sin``. An unknown type raises."""
     inv_freq = 1.0 / (
         theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim)
     )
     if not scaling:
         return inv_freq, 1.0
     kind = scaling.get("rope_type") or scaling.get("type")
+    if kind in ("longrope", "su"):
+        return longrope_frequencies(head_dim, theta, scaling)
     factor = float(scaling.get("factor", 1.0))
     if kind in (None, "default"):
         return inv_freq, 1.0
@@ -151,6 +154,38 @@ def rope_frequencies(
     raise NotImplementedError(f"rope_scaling type {kind!r} is not ported yet")
 
 
+def longrope_frequencies(head_dim: int, theta: float, scaling: dict
+                         ) -> Tuple[torch.Tensor, float]:
+    """Phi-3 longrope (the reference's ``_longrope_frequencies``,
+    transformers' ``_compute_longrope_parameters``): (inverse frequencies
+    [2, hd/2] f32 on the CPU, row 0 the short profile ``1 / (short_factor *
+    theta^(2i/hd))`` and row 1 the long one; the attention factor
+    ``sqrt(1 + ln(factor) / ln(original))`` with ``factor = maxpos /
+    original``, or the config's own ``attention_factor``). The attention
+    factor rides cos/sin whatever the profile, as HF applies it. A missing
+    field raises with the reference's words."""
+    missing = [k for k in ("short_factor", "long_factor") if k not in scaling]
+    if missing or "original_max_position_embeddings" not in scaling:
+        raise ValueError(
+            f"longrope rope_scaling needs short_factor/long_factor and "
+            f"original_max_position_embeddings (missing: "
+            f"{missing + [k for k in ['original_max_position_embeddings'] if k not in scaling]}); "
+            "ModelConfig.from_hf_config injects the window fields from "
+            "the checkpoint config"
+        )
+    original = scaling["original_max_position_embeddings"]
+    maxpos = scaling.get("max_position_embeddings", original)
+    factor = maxpos / original
+    attn_factor = scaling.get("attention_factor") or (
+        1.0 if factor <= 1.0
+        else math.sqrt(1.0 + math.log(factor) / math.log(original)))
+    base_pow = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                         / head_dim)
+    ext = torch.tensor([scaling["short_factor"], scaling["long_factor"]],
+                       dtype=torch.float32)
+    return 1.0 / (ext * base_pow), float(attn_factor)
+
+
 _ROPE_TABLES: Dict[tuple, Tuple[torch.Tensor, float]] = {}
 
 
@@ -168,11 +203,28 @@ def _rope_table(head_dim: int, theta: float, scaling: Optional[dict], device):
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
-                 scaling: Optional[dict] = None):
+                 scaling: Optional[dict] = None, seq_basis=None):
     """(cos, sin) [B, S, 1, hd/2] f32 for ``positions`` [B, S] — computed
-    once per forward and shared by every layer's q and k."""
+    once per forward and shared by every layer's q and k.
+
+    Longrope picks each row's profile from ``seq_basis``, the row's covered
+    context ([B] tensor, or one int for every row; without it, each row's
+    max position + 1): long when ``seq_basis > original``. The choice stays
+    on the device (a ``torch.where`` over the cached [2, hd/2] table), so a
+    chained burst's carry is never read on the host. A key roped while its
+    row was short keeps that rotation as the row grows, as in the reference
+    and HF."""
     inv_freq, attn_factor = _rope_table(head_dim, theta, scaling,
                                         positions.device)
+    if inv_freq.dim() == 2:  # longrope: [B, 1, hd/2] by each row's profile
+        original = scaling["original_max_position_embeddings"]
+        if seq_basis is None:
+            seq_basis = positions.amax(dim=-1) + 1
+        if not isinstance(seq_basis, torch.Tensor):
+            inv_freq = inv_freq[1 if int(seq_basis) > original else 0]
+        else:
+            is_long = (seq_basis > original)[:, None, None]
+            inv_freq = torch.where(is_long, inv_freq[1], inv_freq[0])
     angles = positions.float()[..., None] * inv_freq
     cos = torch.cos(angles)[:, :, None, :] * attn_factor
     sin = torch.sin(angles)[:, :, None, :] * attn_factor
@@ -189,9 +241,10 @@ def apply_rope_cs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               scaling: Optional[dict] = None) -> torch.Tensor:
-    """x: [B, S, H, D]; positions: [B, S]. HF-style half-rotation RoPE."""
-    cos, sin = rope_cos_sin(positions, x.shape[-1], theta, scaling)
+               scaling: Optional[dict] = None, seq_basis=None) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S]. HF-style half-rotation RoPE
+    (``seq_basis``: longrope's per-row covered context, ``rope_cos_sin``)."""
+    cos, sin = rope_cos_sin(positions, x.shape[-1], theta, scaling, seq_basis)
     return apply_rope_cs(x, cos, sin)
 
 
@@ -380,7 +433,7 @@ def sp_decoder_forward(
     b, s = tokens.shape
     hidden = params["embed"][tokens.long()]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                            cfg.rope_scaling)
+                            cfg.rope_scaling, seq_basis=context_len)
     k_all = kv_cache[0]
     plan = kv_write_plan(slot_mapping, k_all.shape[1] * k_all.shape[2])
     attn_fn = make_sp_gqa_attn_fn(cfg, b, s, cos, sin, plan, block_tables,
@@ -417,7 +470,8 @@ def embed_forward(
     b, s = tokens.shape
     h_heads, hd = cfg.num_heads, cfg.head_dim
     hidden = params["embed"][tokens.long()]
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling,
+                            seq_basis=valid_lens)
 
     def attn_fn(x, lp, k_all, v_all, li):
         q, k, v = qkv_prologue(cfg, x, lp, b, s, cos, sin)
@@ -450,7 +504,9 @@ def forward(
     b, s = tokens.shape
     h_heads, hd = cfg.num_heads, cfg.head_dim
     hidden = params["embed"][tokens.long()]
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+    # longrope's per-row profile: the context lengths the kernels read
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling,
+                            seq_basis=context_lens)
     k_all, v_all = kv_cache
     plan = kv_write_plan(slot_mapping, k_all.shape[1] * k_all.shape[2])
     window = cfg.sliding_window or None

@@ -39,9 +39,9 @@ from .attention import (
 launches = 0
 launches_fp8 = 0
 
-# the head_dims the kernel instantiates (Llama-3.2-1B has 64; Llama-3-8B,
-# Qwen and Mistral 128; Gemma-2-9b 256)
-_HEAD_DIMS = (64, 128, 256)
+# the head_dims the kernel instantiates (Llama-3.2-1B has 64; Phi-3-mini
+# 96; Llama-3-8B, Qwen and Mistral 128; Gemma-2-9b 256)
+_HEAD_DIMS = (64, 96, 128, 256)
 
 
 def paged_decode_attention_ref(

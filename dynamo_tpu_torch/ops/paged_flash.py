@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, splitkv
 from .attention import (
     NO_WINDOW,
     kernel_form,
@@ -38,9 +38,9 @@ from .attention import (
 launches = 0
 launches_fp8 = 0
 
-# the head_dims the library instantiates (Llama-3.2-1B: 64; 128 for the
-# 8B/70B-class models; Gemma-2-9b 256)
-_HEAD_DIMS = (64, 128, 256)
+# the head_dims the library instantiates (Llama-3.2-1B: 64; Phi-3-mini 96;
+# 128 for the 8B/70B-class models; Gemma-2-9b 256)
+_HEAD_DIMS = (64, 96, 128, 256)
 _ROWS_PER_CTA = 64  # query rows (position, group head) per CTA in the kernel
 
 
@@ -49,9 +49,12 @@ def smem_bytes(head_dim: int, warpgroups: int = 1) -> int:
     (``paged_attn_tc.cuh`` ``smem_bytes<D, kWG>``): Q's 64 rows a warpgroup
     and three 64-key K and V stages in bf16, plus 1 KB to align. Flash runs
     one warpgroup (230,400 bytes at head_dim 256, within the card's
-    232,448), the prefix partials two (``sp_prefix``: 263,168 at 256). The
-    fp8 form holds one bf16 K and V tile beside three e4m3 stages, less."""
-    return (64 * warpgroups + 6 * 64) * head_dim * 2 + 1024
+    232,448), the prefix partials two (``sp_prefix``: 263,168 at 256). A
+    row takes whole 64-column halves of 128-byte lines
+    (``paged_attn_tc.cuh`` ``pitch<D>``, the split-KV core's rule too:
+    ``splitkv.pitch``; 96 lays out as 128). The fp8 form holds one bf16 K
+    and V tile beside three e4m3 stages, less."""
+    return (64 * warpgroups + 6 * 64) * splitkv.pitch(head_dim) * 2 + 1024
 
 
 def paged_flash_attention_ref(

@@ -43,9 +43,9 @@ launches_fp8 = 0
 # largest query tail the verify kernel serves; longer chunks take the flash
 # kernel (the reference's VERIFY_MAX_S; spec rounds are K + 1 <= 17)
 VERIFY_MAX_S = 32
-# the head_dims the kernel instantiates (Llama-3.2-1B has 64; Llama-3-8B,
-# Qwen and Mistral 128; Gemma-2-9b 256)
-_HEAD_DIMS = (64, 128, 256)
+# the head_dims the kernel instantiates (Llama-3.2-1B has 64; Phi-3-mini
+# 96; Llama-3-8B, Qwen and Mistral 128; Gemma-2-9b 256)
+_HEAD_DIMS = (64, 96, 128, 256)
 
 
 def paged_verify_attention_ref(

@@ -59,7 +59,10 @@ MASK_VALUE = -1e30
 
 # the head_dims the library instantiates (Llama-3.2-1B: 64; 128 for the
 # 8B/70B-class models). Not 256: a CTA of two warpgroups would need
-# 263,168 bytes of shared memory (``paged_flash.smem_bytes(256, 2)``)
+# 263,168 bytes of shared memory (``paged_flash.smem_bytes(256, 2)``). Not
+# 96 yet: the SP gate refuses windowed trunks (``engine/config.py``
+# ``check_sp_trunk``) and every published Phi-3-mini config has a window,
+# so no served config reaches that form (ROADMAP queue 2)
 _HEAD_DIMS = (64, 128)
 _ROWS_PER_CTA = 128  # (query position, group head) rows per CTA in the kernel
 

@@ -74,12 +74,23 @@ def smem_bytes(head_dim: int, rows: int, chunk: int, bs: int,
     (``paged_splitkv.cuh`` ``smem_bytes``): Q padded to 16-row tiles, the
     three-stage K and V rings of 64-key tiles (``kv_bytes`` 1, the fp8
     form: three e4m3 stages and one bf16 tile each), the merge's row
-    statistics and flag, and the chunk's block-table entries."""
+    statistics and flag, and the chunk's block-table entries. A bf16 row
+    of Q, K or V takes ``pitch(head_dim)`` columns (96 lays out as 128);
+    an e4m3 row its own width."""
     tiles = 1 if rows <= 16 else 2 if rows <= 32 else 4 if rows <= 64 else 8
-    tile = TILE_KEYS * head_dim
-    ring = 2 * (tile * 2 + 3 * tile) if kv_bytes == 1 else 2 * 3 * tile * 2
-    return (16 * tiles * head_dim * 2 + ring
+    tile = TILE_KEYS * pitch(head_dim)
+    tile8 = TILE_KEYS * head_dim
+    ring = 2 * (tile * 2 + 3 * tile8) if kv_bytes == 1 else 2 * 3 * tile * 2
+    return (16 * tiles * pitch(head_dim) * 2 + ring
             + 2 * MAX_ROWS * 4 + 16 + (chunk // bs + 2) * 4)
+
+
+def pitch(head_dim: int) -> int:
+    """The columns a bf16 tile row takes in the core's shared memory:
+    ``head_dim`` rounded up to whole 128-byte lines of 64 columns
+    (``paged_splitkv.cuh`` ``pitch<D>``), so the chunks' XOR swizzle by
+    row % 8 stays inside the row. 96 -> 128; 64, 128 and 256 unchanged."""
+    return -(-head_dim // 64) * 64
 
 
 def check_fits(kernel: str, head_dim: int, rows: int, chunk: int,

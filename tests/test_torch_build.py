@@ -185,15 +185,42 @@ def test_splitkv_rows_a_cta_by_head_dim():
 
 
 def test_guards_refuse_head_dim_96_by_name():
+    """The SP-prefix guard still refuses head_dim 96 by name (no served
+    config reaches that form); the decode, verify and flash guards take 96
+    (Phi-3-mini) and refuse a head_dim outside (64, 96, 128, 256), say 80,
+    by name."""
     q, k, v, bt, base, ctx = _flash_inputs(96)
     with pytest.raises(NotImplementedError, match="head_dim 96"):
-        paged_flash._check_cuda_inputs(q, k, v, bt, base, ctx)
-    with pytest.raises(NotImplementedError, match="head_dim 96"):
         sp_prefix._check_cuda_inputs(q, k, v, bt, 17, 2)
-    with pytest.raises(NotImplementedError, match="head_dim 96"):
+    paged_flash._check_cuda_inputs(q, k, v, bt, base, ctx)
+    paged_decode._check_cuda_inputs(q[:, :1].contiguous(), k, v, bt, ctx)
+    paged_verify._check_cuda_inputs(q[:, :5].contiguous(), k, v, bt, base, ctx)
+    q, k, v, bt, base, ctx = _flash_inputs(80)
+    with pytest.raises(NotImplementedError, match="head_dim 80"):
+        paged_flash._check_cuda_inputs(q, k, v, bt, base, ctx)
+    with pytest.raises(NotImplementedError, match="head_dim 80"):
         paged_decode._check_cuda_inputs(q[:, :1].contiguous(), k, v, bt, ctx)
-    with pytest.raises(NotImplementedError, match="head_dim 96"):
+    with pytest.raises(NotImplementedError, match="head_dim 80"):
         paged_verify._check_cuda_inputs(q[:, :5].contiguous(), k, v, bt, base, ctx)
+
+
+@pytest.mark.parametrize("d,rows,kv_bytes,want", [
+    # bf16 rows of 96 columns take 128 in shared memory: Q 16 rows, three
+    # K and V stages, the stats and flag, 256 / 16 + 2 table entries
+    (96, 1, 2, 16 * 128 * 2 + 6 * 64 * 128 * 2 + 1040 + 18 * 4),
+    # fp8: one bf16 K and V tile (padded), three e4m3 stages of 96 bytes
+    (96, 1, 1, 16 * 128 * 2 + 2 * (64 * 128 * 2 + 3 * 64 * 96) + 1040 + 72),
+    (96, 32, 2, 32 * 128 * 2 + 6 * 64 * 128 * 2 + 1040 + 72),
+    (128, 1, 2, 16 * 128 * 2 + 6 * 64 * 128 * 2 + 1040 + 72),
+    (64, 1, 1, 16 * 64 * 2 + 2 * (64 * 64 * 2 + 3 * 64 * 64) + 1040 + 72),
+])
+def test_splitkv_smem_counts_the_padded_layout(d, rows, kv_bytes, want):
+    """The host's byte count is the kernel's layout: a count below it would
+    under-allocate dynamic shared memory and corrupt the result silently."""
+    assert splitkv.smem_bytes(d, rows, 256, 16, kv_bytes) == want
+    splitkv.check_fits("decode kernel", d, rows, 256, 16, kv_bytes)
+    assert splitkv.pitch(d) == (128 if d == 96 else d)
+    assert paged_flash.smem_bytes(d) == 448 * splitkv.pitch(d) * 2 + 1024
 
 
 def test_sp_prefix_guard_refuses_head_dim_256_by_name():
@@ -232,11 +259,13 @@ def test_splitkv_smem_fits_every_accepted_shape(d, bs, kv_bytes):
             widest = max(widest, need)
     assert widest <= splitkv.SMEM_LIMIT
     # the layout of the header at 16 rows over 256-key splits of 16-token
-    # pages: Q, the K and V rings, statistics, flag, 18 table entries
-    ring = (2 * 64 * d * 2 + 2 * 3 * 64 * d if kv_bytes == 1
-            else 2 * 3 * 64 * d * 2)
+    # pages: Q, the K and V rings, statistics, flag, 18 table entries; bf16
+    # rows take whole 64-column lines (96 -> 128), e4m3 rows their width
+    p = splitkv.pitch(d)
+    ring = (2 * 64 * p * 2 + 2 * 3 * 64 * d if kv_bytes == 1
+            else 2 * 3 * 64 * p * 2)
     assert splitkv.smem_bytes(d, 16, 256, 16, kv_bytes) == (
-        32 * d + ring + 1024 + 16 + 18 * 4)
+        32 * p + ring + 1024 + 16 + 18 * 4)
 
 
 def test_splitkv_shape_past_the_shared_memory_raises_by_name():

@@ -62,13 +62,14 @@ SPLIT_EDGE_CTX = [0, 255, 256, 257, 511, 513, 700, 768]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("h", [2, 8, 16, 256])  # G 1, 4, 8, 128 over two KV heads
 @pytest.mark.parametrize("window", [paged_decode.NO_WINDOW, 300])
 def test_decode_kernel_split_edges(d, h, window):
     """Contexts at the splits' edges, a window that crosses a split, group
-    sizes 1, 4, 8 and 128 (one to eight 16-row tiles), head_dim 64 and 128;
-    two calls bit-identical."""
+    sizes 1, 4, 8 and 128 (one to eight 16-row tiles), head_dim 64, 96
+    (rows padded to 128 columns in shared memory) and 128; two calls
+    bit-identical."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(3)
     k, v = _cache(g, blocks=400, d=d)
@@ -91,14 +92,14 @@ def test_decode_kernel_split_edges(d, h, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("h,s", [(2, 32), (8, 5), (8, 32), (16, 16)])
 @pytest.mark.parametrize("window", [paged_verify.NO_WINDOW, 300])
 def test_verify_kernel_split_edges(d, h, s, window):
     """Verify tails that end one key under, at and over a 256-key split,
     start at one or cross one, a pad row; a window that crosses a split;
-    group sizes 1, 4 and 8 up to 128 rows a CTA, head_dim 64 and 128; two
-    calls bit-identical."""
+    group sizes 1, 4 and 8 up to 128 rows a CTA, head_dim 64, 96 and 128;
+    two calls bit-identical."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(4)
     k, v = _cache(g, blocks=400, d=d)
@@ -147,6 +148,20 @@ def test_flash_kernel_matches_plain_version(s, rows):
 def test_flash_kernel_matches_plain_version_d128(s, rows):
     """head_dim 128, the library's second instantiation."""
     _flash_case(s, rows, d=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,rows", [
+    (64, [(20, 84)]),
+    (32, [(0, 32), (20, 52), (48, 60), None]),
+    (128, [(0, 96), (10, 90), (0, 60), None]),
+])
+@pytest.mark.parametrize("h,kvh", [(8, 2), (4, 4)])  # G 4, and G 1 (Phi-3)
+@pytest.mark.parametrize("window", [paged_flash.NO_WINDOW, 47])
+def test_flash_kernel_matches_plain_version_d96(s, rows, h, kvh, window):
+    """head_dim 96 (Phi-3-mini): the second 64-column half of a row is 32
+    columns, P V one m64n64k16 and one m64n32k16 a 16-key step."""
+    _flash_case(s, rows, d=96, h=h, kvh=kvh, window=window)
 
 
 @pytest.mark.cuda
@@ -782,7 +797,7 @@ def test_flash_kernel_sinks(window):
 # Gemma-2's logit softcap: q scaled so the scores are ~N(0, 4^2) and a cap
 # of 5 binds (tanh of most scores is far from linear); head_dim 256 with
 # and without it (gemma-2-9b), 64 and 128 with it
-SOFTCAP_FORMS = [(64, 5.0), (128, 5.0), (256, 5.0), (256, 0.0)]
+SOFTCAP_FORMS = [(64, 5.0), (96, 5.0), (128, 5.0), (256, 5.0), (256, 0.0)]
 
 
 def _softcap_q(g, shape):
@@ -1075,7 +1090,7 @@ FP8_FORMS = {"plain": {}, "window_sinks": dict(window=300, sinks=True),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", list(FP8_FORMS))
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("kind", ["decode", "verify", "flash"])
 def test_fp8_forms_equal_the_bf16_forms_over_the_upcast_cache(kind, d, form):
     """Each attention kernel's fp8 form over e4m3 caches returns bit for bit
@@ -1198,7 +1213,7 @@ ODD_GROUPS = [(14, 2), (10, 2)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,kvh", ODD_GROUPS)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("window", [paged_flash.NO_WINDOW, 20])
 def test_flash_kernel_groups_that_leave_spare_rows(h, kvh, d, window):
     """A batched step (from 0, a prefix hit, a padded tail, a pad row) at

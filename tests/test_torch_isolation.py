@@ -7,10 +7,11 @@ check runs in a fresh interpreter: a ``sys.meta_path`` finder refuses
 is allowed), and the packages the reference's front stands on that the
 port does not depend on (``aiohttp``, ``pydantic``, ``tokenizers``,
 ``regex``, ``msgpack``, ``safetensors``, ``transformers``, ``gguf``,
-``ml_dtypes``, ``xxhash``, ``jsonschema``: the checkpoint loader reads
-safetensors and GGUF files on the standard library, the cold KV tier
-checksums with the port's own xxh64, and guided JSON walks its own schema
-subset; ``jinja2``, a
+``ml_dtypes``, ``xxhash``, ``jsonschema``, ``google.protobuf``: the
+checkpoint loader reads safetensors and GGUF files on the standard
+library, the cold KV tier checksums with the port's own xxh64, guided JSON
+walks its own schema subset, and the SentencePiece reader decodes a
+``tokenizer.model``'s wire format itself; ``jinja2``, a
 requirement of torch, stays allowed), then every module of
 ``dynamo_tpu_torch`` and ``chip_smoke`` is imported, and CUDA must not have
 been initialised by any import. A static scan of the import statements
@@ -41,11 +42,13 @@ def _port_modules():
 
 REFUSED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "tokenizers",
            "regex", "msgpack", "safetensors", "transformers", "gguf",
-           "ml_dtypes", "xxhash", "jsonschema")
+           "ml_dtypes", "xxhash", "jsonschema", "google.protobuf")
 
 
 def _blocked(name: str) -> bool:
-    return name.split(".")[0] in REFUSED
+    """``name`` is a refused package or one of its modules (a dotted entry
+    refuses that subpackage only: ``google.protobuf``, not ``google``)."""
+    return any(name == r or name.startswith(r + ".") for r in REFUSED)
 
 
 def test_blocked_names_match_exactly():
@@ -56,9 +59,11 @@ def test_blocked_names_match_exactly():
     assert not _blocked("jaxtyping")
     for name in ("aiohttp.web", "pydantic", "tokenizers.models", "regex",
                  "msgpack", "safetensors.torch", "transformers", "gguf",
-                 "ml_dtypes", "xxhash", "jsonschema.validators"):
+                 "ml_dtypes", "xxhash", "jsonschema.validators",
+                 "google.protobuf", "google.protobuf.message"):
         assert _blocked(name)
     assert not _blocked("jinja2") and not _blocked("regexp")
+    assert not _blocked("google") and not _blocked("google.protobufx")
 
 
 def test_port_imports_without_jax_or_reference_package():
@@ -180,15 +185,34 @@ def test_kv_tiers_and_faults_import_without_jax_or_reference_package(tmp_path):
     """)
 
 
+def test_sentencepiece_reader_imports_without_protobuf(tmp_path):
+    """``llm/tokenizer.py`` alone reads a ``tokenizer.model`` (written by
+    ``chip_smoke.spm_model_bytes``) in an interpreter that refuses
+    ``google.protobuf`` and ``transformers``: the round trip holds."""
+    import chip_smoke
+
+    path = tmp_path / "tokenizer.model"
+    path.write_bytes(chip_smoke.spm_model_bytes(
+        chip_smoke.synthetic_spm_pieces(1000, seed=5)))
+    _import_refusing_reference(["dynamo_tpu_torch.llm.tokenizer"], f"""
+        from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+        tok = HFTokenizer.from_pretrained_dir({str(tmp_path)!r})
+        text = "abc déf 日本 1 2"
+        assert tok.decode(tok.encode(text)) == text
+    """)
+
+
 def _import_refusing_reference(mods, then=""):
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
-        for m in list(sys.modules):
-            if m.split(".")[0] in {REFUSED!r} and m.split(".")[0] != "dynamo_tpu":
-                del sys.modules[m]
 
         def blocked(name):
-            return name.split(".")[0] in {REFUSED!r}
+            return any(name == r or name.startswith(r + ".")
+                       for r in {REFUSED!r})
+
+        for m in list(sys.modules):
+            if blocked(m) and m.split(".")[0] != "dynamo_tpu":
+                del sys.modules[m]
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -249,7 +273,8 @@ def test_dynstore_runs_as_a_module_without_msgpack():
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in {REFUSED!r}:
+                if any(name == r or name.startswith(r + ".")
+                       for r in {REFUSED!r}):
                     raise ImportError("refused import of " + name)
                 return None
 

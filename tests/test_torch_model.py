@@ -125,9 +125,22 @@ def test_rope_frequencies_match_jax():
         np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-6)
         assert ta == ja
     # yarn is served since the MLA slice (tests/test_torch_mla.py covers
-    # its variants); longrope belongs to a later family's slice
+    # its variants); longrope (Phi-3) gives both profiles, each the
+    # reference's (tests/test_torch_phi3.py covers the per-row choice), and
+    # an unknown type still raises
+    longrope = {"rope_type": "longrope", "original_max_position_embeddings": 16,
+                "max_position_embeddings": 64,
+                "short_factor": [1.0 + 0.01 * i for i in range(32)],
+                "long_factor": [2.0 + 0.5 * i for i in range(32)]}
+    tf, ta = llama.rope_frequencies(64, 1e4, longrope)
+    for row, seq in ((0, 16), (1, 17)):
+        jf, ja = jax_llama._longrope_frequencies(64, 1e4, longrope,
+                                                 jnp.arange(seq)[None])
+        np.testing.assert_allclose(tf[row].numpy(), np.asarray(jf)[0, 0],
+                                   rtol=1e-6)
+        assert ta == ja
     with pytest.raises(NotImplementedError):
-        llama.rope_frequencies(64, 1e4, {"rope_type": "longrope", "factor": 4.0})
+        llama.rope_frequencies(64, 1e4, {"rope_type": "dynamic", "factor": 4.0})
 
 
 def _jax_noise(keys, counters, v):

@@ -81,7 +81,7 @@ def test_paged_attention_matches_jax(window):
     np.testing.assert_allclose(got2.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("head_dim", [D, 128])  # 128: the kernel's second width
+@pytest.mark.parametrize("head_dim", [D, 96, 128])  # 96 Phi-3, 128 the 8B class
 @pytest.mark.parametrize("window", [None, 6])
 def test_decode_plain_version_matches_pallas_interpret(window, head_dim):
     rng = np.random.default_rng(2)
@@ -101,7 +101,7 @@ def test_decode_plain_version_matches_pallas_interpret(window, head_dim):
     assert paged_decode.launches == 0  # CPU tensors never launch the kernel
 
 
-@pytest.mark.parametrize("head_dim", [D, 128])  # 128: the kernel's second width
+@pytest.mark.parametrize("head_dim", [D, 96, 128])  # 96 Phi-3, 128 the 8B class
 @pytest.mark.parametrize("window", [None, 7])
 def test_flash_plain_version_matches_pallas_interpret(window, head_dim):
     rng = np.random.default_rng(3)

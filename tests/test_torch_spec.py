@@ -58,7 +58,7 @@ BASE = dict(max_batch_size=4, max_model_len=128, kv_block_size=8,
             num_kv_blocks=64, dtype="float32")
 
 
-@pytest.mark.parametrize("head_dim", [D, 128])  # 128: the kernel's second width
+@pytest.mark.parametrize("head_dim", [D, 96, 128])  # 96 Phi-3, 128 the 8B class
 @pytest.mark.parametrize("s", [2, 5, 17, 32])
 @pytest.mark.parametrize("window", [None, 6])
 def test_verify_plain_version_matches_pallas_interpret(s, window, head_dim):

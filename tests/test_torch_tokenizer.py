@@ -326,13 +326,19 @@ def test_post_processor_raises_only_with_special_tokens():
 
 
 def test_sentencepiece_only_directory_and_gguf_raise_by_name(tmp_path):
-    """A SentencePiece ``tokenizer.model`` alone still raises by name (its
-    protobuf reader is not ported); a GGUF file's tokenizer loads."""
+    """A directory with only a SentencePiece ``tokenizer.model`` loads
+    through the port's protobuf reader, and a corrupt one raises by name
+    (``SpmModelError`` naming the file); a GGUF file's tokenizer loads."""
     from test_torch_gguf import ARR, STR, write_gguf
 
-    (tmp_path / "tokenizer.model").write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="tokenizer.model"):
-        port.HFTokenizer.from_pretrained_dir(str(tmp_path))
+    (tmp_path / "tokenizer.model").write_bytes(_spm_proto(1).SerializeToString())
+    tok = port.HFTokenizer.from_pretrained_dir(str(tmp_path))
+    assert tok.decode(tok.encode("hello world")) == "hello world"
+    for corrupt in (b"\x00", b"\x0a\x05ab", b"\x0a\x80", b"\x0b",
+                    b"\x12\x02\x18\x02"):
+        (tmp_path / "tokenizer.model").write_bytes(corrupt)
+        with pytest.raises(port.SpmModelError, match="tokenizer.model"):
+            port.HFTokenizer.from_pretrained_dir(str(tmp_path))
     path = str(tmp_path / "m.gguf")
     write_gguf(path, [("general.architecture", STR, "llama"),
                       ("tokenizer.ggml.model", STR, "gpt2"),
@@ -342,6 +348,143 @@ def test_sentencepiece_only_directory_and_gguf_raise_by_name(tmp_path):
     assert tok.encode("abab") == [2, 2] and tok.decode([2, 0]) == "aba"
     with pytest.raises(FileNotFoundError):
         port.HFTokenizer.from_pretrained_dir(str(tmp_path / "missing"))
+
+
+# -------------------------------------------------- SentencePiece models
+
+SPM_PIECES = [
+    ("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3),
+    ("<|user|>", 0.0, 4), ("<|end|>", 0.0, 3), ("<mask>", 0.0, 4),
+] + [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)] + [
+    ("▁", -1.0, 1), ("h", -2.0, 1), ("e", -2.0, 1), ("l", -2.0, 1),
+    ("o", -2.0, 1), ("w", -2.0, 1), ("r", -2.0, 1), ("d", -2.0, 1),
+    ("a", -2.5, 1), ("t", -2.5, 1), ("é", -3.0, 1), ("1", -3.0, 1),
+    ("he", -3.0, 1), ("ll", -3.5, 1), ("llo", -4.0, 1), ("hello", -5.0, 1),
+    ("▁hello", -5.5, 1), ("▁w", -6.0, 1), ("or", -6.0, 1), ("▁wor", -7.0, 1),
+    ("ld", -7.0, 1), ("▁world", -8.0, 1), ("at", -8.5, 1), ("▁at", -9.0, 1),
+    ("▁t", -9.0, 1), ("ello", -9.5, 1), ("▁he", -10.0, 1), ("lo", -10.0, 1),
+    ("▁é", -11.0, 1), ("é1", -12.0, 1), ("▁▁", -12.5, 1),
+]
+SPM_TEXTS = [
+    "hello world", "hello  world  ", " leading space", "héllo wörld",
+    "日本語のテキスト", "emoji 😀 🎉", "tab\tand\nnewline\r\n", "<|user|>hi<|end|>",
+    "x<mask>y <s> </s> <unk>", "", "▁▁ already", "at at at", "é1é1 é", "1234567",
+    "\x00\x7f\u200b", "a" * 40, "hello<|user|> world",
+]
+
+
+def _spm_proto(model_type, pieces=SPM_PIECES, unk_id=0, trainer=True):
+    """A ``ModelProto`` written by ``google.protobuf`` through transformers'
+    bundled schema (the reference's own reader), with a normalizer spec and
+    self-test data the readers must skip."""
+    from transformers.convert_slow_tokenizer import import_protobuf
+
+    proto = import_protobuf().ModelProto()
+    for piece, score, kind in pieces:
+        p = proto.pieces.add()
+        p.piece, p.score, p.type = piece, score, kind
+    if trainer:
+        proto.trainer_spec.model_type = model_type
+        proto.trainer_spec.unk_id = unk_id
+        proto.trainer_spec.vocab_size = len(pieces)
+        proto.trainer_spec.byte_fallback = True
+    proto.normalizer_spec.name = "identity"
+    proto.normalizer_spec.add_dummy_prefix = True
+    sample = proto.self_test_data.samples.add()
+    sample.input, sample.expected = "hello", "▁hello"
+    return proto
+
+
+@pytest.mark.parametrize("model_type,trainer", [(1, True), (2, True),
+                                                (1, False)],
+                         ids=["unigram", "bpe", "no_trainer_spec"])
+def test_spm_reader_matches_reference(tmp_path, model_type, trainer):
+    """``tokenizer_from_spm`` against the reference's (protobuf through
+    transformers' schema, ``tokenizers``) on Unigram and BPE models with
+    byte fallback, CONTROL, USER_DEFINED and UNKNOWN pieces: the same ids
+    for text with non-ASCII characters and bytes outside the vocabulary,
+    and the same text back (both ``skip_special_tokens``)."""
+    from dynamo_tpu.llm.tokenizer import tokenizer_from_spm
+
+    path = tmp_path / "tokenizer.model"
+    path.write_bytes(_spm_proto(model_type, trainer=trainer).SerializeToString())
+    ref, tok = tokenizer_from_spm(str(path)), port.tokenizer_from_spm(str(path))
+    assert tok.get_vocab_size() == ref.get_vocab_size()
+    for text in SPM_TEXTS:
+        ids = tok.encode(text, add_special_tokens=False)
+        assert ids == ref.encode(text, add_special_tokens=False).ids, repr(text)
+        for skip in (True, False):
+            assert tok.decode(ids, skip_special_tokens=skip) == ref.decode(
+                ids, skip_special_tokens=skip), repr(text)
+    for i in range(len(SPM_PIECES)):
+        assert tok.id_to_token(i) == ref.id_to_token(i)
+
+
+@given(text=TEXT)
+@SETTINGS
+def test_spm_bpe_reader_matches_reference_on_any_text(text):
+    ref, tok = _SPM_BPE_PAIR
+    assert tok.encode(text, add_special_tokens=False) == ref.encode(
+        text, add_special_tokens=False).ids
+    ids = ref.encode(text, add_special_tokens=False).ids
+    assert tok.decode(ids) == ref.decode(ids)
+
+
+def _spm_bpe_pair():
+    import tempfile
+
+    from dynamo_tpu.llm.tokenizer import tokenizer_from_spm
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/tokenizer.model"
+        with open(path, "wb") as f:
+            f.write(_spm_proto(2).SerializeToString())
+        return tokenizer_from_spm(path), port.tokenizer_from_spm(path)
+
+
+_SPM_BPE_PAIR = _spm_bpe_pair()
+
+
+def test_spm_reader_refuses_other_model_types_with_the_reference_words(tmp_path):
+    from dynamo_tpu.llm.tokenizer import tokenizer_from_spm
+
+    path = tmp_path / "tokenizer.model"
+    path.write_bytes(_spm_proto(3).SerializeToString())  # WORD
+    with pytest.raises(ValueError) as want:
+        tokenizer_from_spm(str(path))
+    with pytest.raises(ValueError) as got:
+        port.tokenizer_from_spm(str(path))
+    assert str(got.value) == str(want.value)
+
+
+def test_chip_smoke_spm_writer_is_read_by_protobuf(tmp_path):
+    """``chip_smoke.spm_model_bytes`` (the card's ``tokenizer.model``
+    writer, no protobuf package there) parsed by ``google.protobuf``: every
+    piece, score and type, the trainer and normalizer specs; and both
+    readers build the same tokenizer from its bytes."""
+    from transformers.convert_slow_tokenizer import import_protobuf
+
+    from dynamo_tpu.llm.tokenizer import tokenizer_from_spm
+
+    pieces = chip_smoke.synthetic_spm_pieces(2000, seed=3)
+    data = chip_smoke.spm_model_bytes(pieces, model_type=2, unk_id=0)
+    proto = import_protobuf().ModelProto()
+    proto.ParseFromString(data)
+    assert [(p.piece, p.score, int(p.type)) for p in proto.pieces] == [
+        (p, np.float32(s), k) for p, s, k in pieces]
+    assert (proto.trainer_spec.model_type, proto.trainer_spec.unk_id) == (2, 0)
+    assert proto.normalizer_spec.name == "identity"
+    assert proto.SerializeToString() == data
+    assert port.read_spm_model(data) == ([(p, float(np.float32(s)), k)
+                                          for p, s, k in pieces], 2, 0)
+    path = tmp_path / "tokenizer.model"
+    path.write_bytes(data)
+    ref, tok = tokenizer_from_spm(str(path)), port.tokenizer_from_spm(str(path))
+    text = chip_smoke._phi3_cli_text(pieces)
+    ids = tok.encode(text, add_special_tokens=False)
+    assert ids == ref.encode(text, add_special_tokens=False).ids
+    assert tok.decode(ids) == ref.decode(ids) == text
+    assert len(chip_smoke.synthetic_spm_pieces()) == chip_smoke.PHI3_SPM_PIECES
 
 
 def test_bytes_to_unicode_and_chip_smoke_alphabet_agree():
