@@ -170,7 +170,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the sync guard), and the spec prompts without and with ngram
    speculation (verify launches; routing pinned).
 12. ``engine_mixtral_int8`` — Mixtral-8x7B at full width, its depth cut to
-   8 of its 32 layers (``MOE_LAYERS``), in int8 (46.70 B parameters in full, 8 experts top 2, G 4 at head_dim 128, a
+   4 of its 32 layers (``MOE_LAYERS``), in int8 (46.70 B parameters in full, 8 experts top 2, G 4 at head_dim 128, a
    32,000 vocabulary), from its published ``config.json`` values with
    ``quantization="int8"``: the weights are quantized slice by slice as
    they are drawn (93 GB in bf16 would not fit), and every ``QUANT_KEYS``
@@ -211,7 +211,17 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    request and no KV block in use, the launch counts the decode, flash and
    epilogue kernels (the epilogue in its plain and ``finish`` forms). The
    edge's TTFT and inter-token gaps a request, the front's share of TTFT
-   and the tokenizer's encode cost a token are printed. The CLI itself
+   and the tokenizer's encode cost a token are printed. The front runs
+   with its telemetry on (a trace store, SLO targets, a profile directory,
+   the engine's registry attached): each request's ``/debug/requests/{id}``
+   has its stage marks in order and a ``first_token`` mark that agrees with
+   the client's TTFT within the front's share; /metrics carries the
+   device-time histogram, the decode busy ratio and a roofline fraction in
+   (0, 1], and SLO verdicts that sum to the finished requests; a
+   ``/debug/profile`` window taken from the wave's start holds kernels 1, 2
+   and 3 by name. Prints the busy gauge beside the profile's kernel-busy
+   share and the estimator over the same window, the roofline gauge and
+   the compile tracker's startup and late first dispatches. The CLI itself
    (``python3 -m dynamo_tpu_torch.cli.run in=http out=torch`` in a
    subprocess, on the card by default) runs in ``engine_guided``'s leg C.
 15. ``engine_guided`` — guided JSON and /v1/embeddings behind the front
@@ -260,6 +270,10 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    back to a local recompute, streams as above, no pinned block left.
    Prints the followers' TTFT under kv and round-robin routing in turns,
    the routing decision's µs, the events' lag and the pulls' counters.
+   The workers and the kv processor run ``--metrics-port`` sidecars and
+   the kv frontend ``--hub``: before the kill, ``/fleet/workers`` lists
+   both workers up with their KV use and busy ratio, and the processor's
+   sidecar renders the aggregator's per-worker gauges.
 17. ``engine_disagg`` — disaggregated prefill and decode on Llama-3.2-1B at
    full width and depth. Leg A in one process, over a bf16 and an fp8
    cache: a decode engine whose coordinator talks over a ``MemoryHub`` to
@@ -274,7 +288,11 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    reckoned, the SP ladder's launches, no fallback or nack, no block left
    in use. Prints per turn the long prompts' TTFT, the short streams'
    largest gap while they prefilled and the transfer's bytes, frames,
-   duration and exposed seconds.
+   duration and exposed seconds. Each remote long prompt's trace nests the
+   prefill worker's span set inside the decode engine's, inside the
+   processor's, each hop's offset inside its error bound (half the round
+   trip; the queued prefill hop's, its round trip), and its
+   ``/debug/trace/{id}`` names all four sources.
 18. ``engine_kv_tiers`` — the multi-tier KV block manager on Llama-3.2-1B
    at full width and depth in one process: 1,024 HBM blocks, a 1,024-slot
    pinned host slab and a 2,048-block cold tier; six 6,000-token prompts
@@ -342,15 +360,21 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    through the flash kernel), the injected respawner between the
    ``deregister`` and ``register`` hooks, the draining snapshot that keeps
    the port's ``KvScheduler`` off the source, every stream to its length,
-   no block in use after the release. Leg C: two ``in=http out=torch
+   no block in use after the release; an incident recorder wired as
+   ``--incident-dir`` wires it folds the trip and the drain into exactly
+   one bundle (manifest, flight, history, traces) that a front's
+   ``/debug/incidents`` lists. Leg C: two ``in=http out=torch
    --self-heal`` CLIs on Llama-3.2-1B, four streamed chats on A, ``POST
    /admin/drain``: 4 migrated, every stream to ``[DONE]`` with B's
    undisturbed text (or a near-tie), 503 with Retry-After after, 4
    committed hot migrations on A's /metrics, and A's SIGUSR2 flight
-   artifact holding 4 handoffs, each before the streams ended. Prints the
+   artifact holding 4 handoffs, each before the streams ended; each
+   re-bound stream's trace on A carries the peer's spans from ``mig_end``
+   (``migration.resume`` onward) inside the attach hop's offset bound.
+   Prints the
    drains' seconds, the KV bytes and frames, each stream's gap across the
    hop, the peer's launches of kernels 1–3.
-22. ``engine_phi3`` — Phi-3-mini-128k-instruct at full width and all 32
+22. ``engine_phi3`` — Phi-3-mini-128k-instruct at full width and 16 of 32
    layers (``PHI3_MINI_128K``, its published ``config.json`` with factor
    lists of the published length drawn from the seed: longrope, head_dim
    96, 32 KV heads, a window past every context), seeded random bf16
@@ -4973,7 +4997,7 @@ MOE_CELLS = {"qwen3moe": (QWEN3_30B_A3B, None, True),
              "mixtral_int8": (MIXTRAL_8X7B, "int8", False)}
 # depth cuts that keep the whole script inside its time limit (of 48 and 32
 # layers); the widths stay the published ones
-MOE_LAYERS = {"qwen3moe": 12, "mixtral_int8": 8}
+MOE_LAYERS = {"qwen3moe": 12, "mixtral_int8": 4}
 MOE_QK_NORM_SCALE = 0.2   # q/k norms drawn 1 + N(0, 0.2^2)
 
 
@@ -5754,6 +5778,25 @@ HTTP_DISCONNECT_AFTER = 4      # chunks read before the client goes away
 HTTP_CLI_TIMEOUT_S = 300
 HTTP_WAVE_TIMEOUT_S = 240
 HTTP_DEVICE = "cuda"           # a CPU rehearsal sets "cpu"
+# the telemetry the front runs with in engine_http: the trace store's bound,
+# the SLO targets (each finished request gets a verdict, met or not), a
+# torch.profiler window taken from the wave's start (prefill, first tokens
+# and decode steps all land in it) and the kernels it must hold: kernel 1
+# (the split-KV core's __global__), kernel 2 and kernel 3
+HTTP_TRACE_CAPACITY = 64
+HTTP_SLO_TTFT_MS = 2000.0
+HTTP_SLO_ITL_MS = 250.0
+HTTP_PROFILE_S = 2.0
+HTTP_PROFILE_KERNELS = {"paged_decode": "splitkv_kernel",
+                        "paged_flash": "paged_flash_tc_kernel",
+                        "sampling_epilogue": "sampling_epilogue_kernel"}
+# a trace's first_token mark against the client's TTFT: the client's also
+# covers the request's way in, the detokenizer and the SSE write, the
+# front's share (the client's TTFT less the engine's, PERF.md §5: 0.02-0.16
+# s on the card), and the hop from the scheduler's first_token stamp to the
+# engine's output stream (measured per request: the loop finishes its pass
+# first); the difference may exceed their sum by this much
+HTTP_TRACE_TTFT_SLACK_S = 0.05
 
 
 def _word_ids(tok):
@@ -5969,6 +6012,7 @@ def engine_http_phase(torch, dev, smi):
         CompletionRequest,
     )
     from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.telemetry.slo import SloTracker
 
     tmp = tempfile.TemporaryDirectory(prefix="engine_http_")
     t0 = time.monotonic()
@@ -6079,8 +6123,16 @@ def engine_http_phase(torch, dev, smi):
             manager = ModelManager()
             manager.add_chat_model("llama-3.2-1b-random", pipe)
             manager.add_completion_model("llama-3.2-1b-random", pipe)
-            service = HttpService(manager, "127.0.0.1", 0)
+            # the front as the CLI builds it with --trace-capacity,
+            # --slo-ttft-ms, --slo-itl-ms and --profile-dir: the engine's
+            # registry (scheduler, first dispatches, device time) attached
+            service = HttpService(
+                manager, "127.0.0.1", 0, profile_dir=str(Path(tmp.name) / "prof"),
+                slo=SloTracker(ttft_s=HTTP_SLO_TTFT_MS / 1e3,
+                               itl_s=HTTP_SLO_ITL_MS / 1e3),
+                trace_capacity=HTTP_TRACE_CAPACITY)
             service.metrics.register_callback_gauges("dynamo_engine", core.metrics)
+            service.metrics.registry.attach(core.registry)
             await service.start()
             port = service.port
             try:
@@ -6097,9 +6149,25 @@ def engine_http_phase(torch, dev, smi):
                     port, "POST", "/v1/chat/completions", disconnect,
                     disconnect_after=HTTP_DISCONNECT_AFTER,
                     headers={"X-Request-Id": "disconnect"})
+                # a profiler window from the wave's start, concurrent with it
+                sent["profile"] = http_request(
+                    port, "GET", f"/debug/profile?seconds={HTTP_PROFILE_S}")
+                # the event loop's largest stall over the wave (a capture
+                # must not freeze the server it measures)
+                lag = {"max": 0.0}
+
+                async def probe_lag():
+                    while True:
+                        t = time.monotonic()
+                        await asyncio.sleep(0.01)
+                        lag["max"] = max(lag["max"], time.monotonic() - t - 0.01)
+
+                lag_task = asyncio.ensure_future(probe_lag())
                 answers = dict(zip(sent, await _guarded(
                     asyncio.gather(*sent.values()), core)))
+                lag_task.cancel()
                 dropped = answers.pop("disconnect")
+                profile = answers.pop("profile")
                 wave_s = time.monotonic() - t_wave
                 for _ in range(600):  # the dropped request is reaped
                     m = core.metrics()
@@ -6108,6 +6176,25 @@ def engine_http_phase(torch, dev, smi):
                     await asyncio.sleep(0.05)
                 launches = _read_launches()
                 _, _, metrics_raw, _ = await http_request(port, "GET", "/metrics")
+                traces = {}
+                for name in reqs:
+                    status, _, raw, _ = await http_request(
+                        port, "GET", f"/debug/requests/{name}")
+                    traces[name] = json.loads(raw) if status == 200 else None
+                # per request: the scheduler's first_token stamp to the
+                # moment the engine's stream yielded it (same clock)
+                hops = {}
+                for name, rec in engine_times.items():
+                    firsts = [t for ctx in rec.get("contexts", [])
+                              for s, t in ctx.stages if s == "first_token"]
+                    if firsts and "first" in rec:
+                        hops[name] = rec["first"] - min(firsts)
+                telemetry = dict(
+                    profile=profile, t_wave=t_wave, traces=traces, hops=hops,
+                    loop_lag_max_s=lag["max"],
+                    prepare_s=getattr(service, "profiler_prepare_s", None),
+                    window=list(core.runner.device_time._window),
+                    compiles=list(core.runner.compiles.records))
             finally:
                 await service.stop()
             core_metrics = core.metrics()
@@ -6157,11 +6244,12 @@ def engine_http_phase(torch, dev, smi):
         finally:
             await roomy.close()
         return (models, health, answers, dropped, wave_s, launches,
-                metrics_raw.decode(), core_metrics, engine_times, roomy_out)
+                metrics_raw.decode(), core_metrics, engine_times, roomy_out,
+                telemetry)
 
     prompt_lens, chosen_logits = {}, {}
     (models, health, answers, dropped, wave_s, launches, metrics_text,
-     core_metrics, engine_times, roomy_out) = asyncio.run(main())
+     core_metrics, engine_times, roomy_out, telemetry) = asyncio.run(main())
 
     # ---- checks
     if json.loads(health)["status"] != "ok" or json.loads(models)["data"][0][
@@ -6263,8 +6351,11 @@ def engine_http_phase(torch, dev, smi):
                              f"({launches['epilogue_finish']}) forms must both "
                              "launch on the HTTP path")
 
+    tel = _http_telemetry_checks(telemetry, metrics_text, per_request, reqs,
+                                 on_card=HTTP_DEVICE == "cuda")
     tmp.cleanup()
     ttfts = [r["ttft_s"] for r in per_request.values() if r["ttft_s"] is not None]
+    emit("engine_http_telemetry", card=smi, **tel)
     emit("engine_http", model="Llama-3.2-1B shapes, seeded random bf16 weights, "
          "synthetic 128,256-id byte-level BPE", server=HTTP_SERVER,
          roomy_kv_blocks=HTTP_ROOMY_BLOCKS, http_requests=served,
@@ -6291,6 +6382,113 @@ def engine_http_phase(torch, dev, smi):
                 paged_flash=launches["paged_flash"],
                 sampling_epilogue=plain,
                 sampling_epilogue_finish=launches["epilogue_finish"])
+
+
+def _windowed_busy(samples, t0, t1, phase=None):
+    """The device-time estimator's busy share over [t0, t1] from its
+    rolling samples ``(t, phase, busy, bubble, bytes)``: the gauge's own
+    arithmetic, restricted to the profiler's window."""
+    rows = [s for s in samples if t0 <= s[0] <= t1
+            and (phase is None or s[1] == phase)]
+    busy, bubble = sum(s[2] for s in rows), sum(s[3] for s in rows)
+    return busy / (busy + bubble) if busy + bubble > 0 else None
+
+
+def _http_telemetry_checks(tel, metrics_text, per_request, reqs, on_card):
+    """engine_http's telemetry checks: each request's trace (its stage
+    marks in order, its first_token mark against the client's TTFT), the
+    device-time family, the busy ratio and the roofline on /metrics, the
+    SLO verdicts summing to the finished requests, the profiler capture
+    (kernels 1, 2 and 3 by name on a card) beside the busy gauge, and the
+    compile tracker's startup and late counts."""
+    order = ("admission", "prefill", "first_token", "completion")
+    ttft_gaps = {}
+    for name, trace in tel["traces"].items():
+        if trace is None or trace["status"] != "success":
+            raise AssertionError(f"{name}: no successful trace: {trace}")
+        marks = {}
+        for span in trace["spans"]:
+            base = span["name"].split("#")[0]
+            marks.setdefault(base, span["offset_s"] + span["duration_s"])
+        # a stop-string finish cancels the engine request from the
+        # detokenizer: the trace may close before the scheduler's
+        # "completion" mark (as in the reference)
+        missing = [m for m in order[:3] if m not in marks]
+        present = [marks[m] for m in order if m in marks]
+        if missing or present != sorted(present):
+            raise AssertionError(f"{name}: stage marks out of order or "
+                                 f"missing {missing}: {trace['spans']}")
+        edge = per_request.get(name, {})
+        client, share = edge.get("ttft_s"), edge.get("front_ttft_share_s")
+        hop = tel["hops"].get(name)
+        if client is not None and share is not None and hop is not None:
+            gap = client - marks["first_token"]
+            ttft_gaps[name] = dict(gap=gap, front_share=share, hop=hop)
+            if not (-HTTP_TRACE_TTFT_SLACK_S <= gap
+                    <= share + hop + HTTP_TRACE_TTFT_SLACK_S):
+                raise AssertionError(
+                    f"{name}: the trace's first_token mark "
+                    f"{marks['first_token']:.4f} s vs the client's TTFT "
+                    f"{client:.4f} s (front share {share:.4f} s, emit to "
+                    f"stream {hop:.4f} s)")
+    busy = _metric(metrics_text, "dynamo_engine_device_busy_ratio",
+                   '{phase="decode"}')
+    roof = _metric(metrics_text, "dynamo_engine_roofline_fraction")
+    dt_count = sum(float(line.rpartition(" ")[2]) for line in
+                   metrics_text.splitlines() if line.startswith(
+                       "dynamo_engine_device_time_seconds_count{"))
+    if not (0.0 < busy <= 1.0 and 0.0 < roof <= 1.0 and dt_count > 0):
+        raise AssertionError(f"device time on /metrics: busy {busy}, "
+                             f"roofline {roof}, {dt_count} observations")
+    def slo(met):
+        labels = f'{{met="{met}",slo="request"}}'
+        key = "dynamo_slo_attainment_total" + labels
+        return (_metric(metrics_text, "dynamo_slo_attainment_total", labels)
+                if key in metrics_text else 0.0)
+
+    verdicts = slo("true") + slo("false")
+    if verdicts != len(reqs):
+        raise AssertionError(f"SLO verdicts {verdicts} for {len(reqs)} "
+                             "finished requests")
+    status, _, raw, _ = tel["profile"]
+    if status != 200:
+        raise AssertionError(f"/debug/profile: HTTP {status}: {raw[:400]}")
+    prof = json.loads(raw)
+    summary = prof["summary"]
+    found = {k: sum(v["launches"] for n, v in summary["kernels"].items()
+                    if want in n)
+             for k, want in HTTP_PROFILE_KERNELS.items()}
+    if on_card and not all(found.values()):
+        raise AssertionError(f"the profile lacks a kernel: {found} of "
+                             f"{sorted(summary['kernels'])[:20]}")
+    # the capture window starts with the request (an executor picks it up
+    # within milliseconds of the wave's start)
+    t0 = tel["t_wave"]
+    t1 = t0 + HTTP_PROFILE_S
+    compiles = tel["compiles"]
+    return dict(
+        busy_ratio_gauge_decode=busy, roofline_fraction_gauge=roof,
+        device_time_observations=dt_count,
+        window_busy_estimator=dict(
+            all=_windowed_busy(tel["window"], t0, t1),
+            decode=_windowed_busy(tel["window"], t0, t1, "decode")),
+        profiler=dict(window_s=summary["window_s"],
+                      kernel_busy_share=summary["kernel_busy_share"],
+                      kernel_launches=summary["kernel_launches"],
+                      kernels_found=found,
+                      top=dict(list(summary["kernels"].items())[:6])),
+        slo_verdicts=verdicts, wave_loop_lag_max_s=tel["loop_lag_max_s"],
+        profile_stages_s=summary.get("stages_s"),
+        profiler_prepare_s=tel["prepare_s"],
+        slo_met=slo("true"),
+        trace_ttft_gap_s=ttft_gaps,
+        first_dispatches=dict(
+            startup=sum(r["phase"] == "startup" for r in compiles),
+            late=sum(r["phase"] == "late" for r in compiles),
+            late_programs=sorted({r["program"] for r in compiles
+                                  if r["phase"] == "late"}),
+            late_max_s=max([r["duration_s"] for r in compiles
+                            if r["phase"] == "late"], default=0.0)))
 
 
 # ------------------------------------------------------------ engine_guided
@@ -6940,6 +7138,10 @@ GRAPH_DEVICE = "cuda"                 # a CPU rehearsal sets "cpu"
 # fault the puller must fall back from)
 GRAPH_PULL_FLAGS = ["--prefix-pull"]
 GRAPH_PULL_FAULT = {"DYN_FAULT": "transfer_conn_drop:once"}
+# the fleet view: each worker and the kv processor serve a --metrics-port
+# sidecar (advertised in discovery), the kv frontend runs the hub
+GRAPH_HUB_INTERVAL_S = 0.5
+GRAPH_FLEET_TIMEOUT_S = 30
 
 
 def _free_port() -> int:
@@ -7001,7 +7203,31 @@ async def _graph_ask(port, body, tok):
     return rec
 
 
-async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids):
+async def _graph_fleet(port, sidecars):
+    """The kv frontend's hub sees both workers up, with their KV use and
+    busy ratio, and the kv processor's sidecar renders the aggregator's
+    per-worker gauges: polled (the hub scrapes on its cadence), never
+    slept on."""
+    deadline = time.monotonic() + GRAPH_FLEET_TIMEOUT_S
+    rows, text = [], ""
+    while time.monotonic() < deadline:
+        _, _, raw, _ = await http_request(port, "GET", "/fleet/workers")
+        rows = json.loads(raw)["workers"]
+        up = [w for w in rows if w["role"] == "decode_engine" and w["up"]
+              and w["kv_usage_ratio"] is not None
+              and w["busy_ratio"] is not None]
+        _, _, raw, _ = await http_request(sidecars["processor"], "GET", "/metrics")
+        text = raw.decode()
+        per_worker = [line for line in text.splitlines() if line.startswith(
+            "dynamo_kv_router_worker_kv_total_blocks{")]
+        if len(up) == 2 and len(per_worker) == 2:
+            return dict(ok=True, rows=rows, router_gauges=per_worker)
+        await asyncio.sleep(GRAPH_HUB_INTERVAL_S)
+    return dict(ok=False, rows=rows, router_text=text[-2000:])
+
+
+async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
+                         sidecars=None):
     """The graph's traffic and checks, from a client of the broker of its
     own (the workers' and the processor's stats scrape, a watch on the
     workers' registrations) and an HTTP client of the frontend."""
@@ -7166,6 +7392,8 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids):
         await asyncio.sleep(0.05)
     expiries_before_kill = list(deletes)
     router_before_kill = await pstats()
+    fleet = (await _graph_fleet(ports["kv"], sidecars)
+             if sidecars is not None else None)
 
     # worker1 dies (SIGKILL): its connection drops and the broker expires its
     # lease; requests go on, on the survivor
@@ -7197,7 +7425,7 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids):
                 served_after_kill=served(before, after),
                 blocks_after_kill=blocks_after, router=router,
                 router_before_kill=router_before_kill, victim=victim,
-                survivor=survivor)
+                survivor=survivor, fleet=fleet)
 
 
 def engine_graph_phase(torch, dev, smi):
@@ -7283,25 +7511,34 @@ def engine_graph_phase(torch, dev, smi):
                     raise AssertionError(f"dynstore did not start: "
                                          f"{_role_tail(procs['dynstore'])}")
                 time.sleep(0.05)
+        sidecars = {name: _free_port()
+                    for name in ("worker0", "worker1", "processor")}
         for i in range(2):
             procs[f"worker{i}"] = _spawn_role(
                 ["dynamo_tpu_torch.cli.run", f"in={worker_ep}", "out=torch",
                  "--token-level", "--namespace", GRAPH_NS,
                  "--allow-random-weights", "--device", GRAPH_DEVICE,
+                 "--metrics-port", str(sidecars[f"worker{i}"]),
                  *GRAPH_WORKER_FLAGS, *GRAPH_PULL_FLAGS, *common],
                 f"worker{i}", tmp.name, env=GRAPH_PULL_FAULT)
         modes = (("kv", "processor", GRAPH_NS),
                  ("round_robin", "processor_rr", GRAPH_RR_NS))
         for mode, comp, ns in modes:
+            # the kv pair carries the fleet view: the processor's sidecar
+            # and the frontend's hub (the workers register in GRAPH_NS)
+            kv = mode == "kv"
             procs[f"processor_{mode}"] = _spawn_role(
                 ["dynamo_tpu_torch.cli.run", f"in=dyn://{GRAPH_NS}.{comp}.chat",
                  "out=processor", "--worker-endpoint", worker_ep,
-                 "--router-mode", mode, "--namespace", ns, *common],
+                 "--router-mode", mode, "--namespace", ns, *common,
+                 *(["--metrics-port", str(sidecars["processor"])] if kv else [])],
                 f"processor_{mode}", tmp.name)
             procs[f"frontend_{mode}"] = _spawn_role(
                 ["dynamo_tpu_torch.cli.run", "in=http", "out=none",
                  "--store-port", str(store), "--namespace", ns,
-                 "--http-host", "127.0.0.1", "--http-port", "0"],
+                 "--http-host", "127.0.0.1", "--http-port", "0",
+                 *(["--hub", "--hub-interval-s", str(GRAPH_HUB_INTERVAL_S)]
+                   if kv else [])],
                 f"frontend_{mode}", tmp.name)
         worker_ids, ports = {}, {}
         for i in range(2):
@@ -7313,7 +7550,8 @@ def engine_graph_phase(torch, dev, smi):
             ports[mode] = int(line.strip().rsplit(":", 1)[1])
         startup_s = time.monotonic() - t0
         out = asyncio.run(asyncio.wait_for(
-            _graph_traffic(ports, store, tok, words_text, procs, worker_ids),
+            _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
+                           sidecars),
             GRAPH_TIMEOUT_S))
         exits = {}
         for name in reversed(list(procs)):  # the frontends first, the broker last
@@ -7414,9 +7652,18 @@ def engine_graph_phase(torch, dev, smi):
                    requests_done_s=out["recovered_s"],
                    served=out["served_after_kill"]),
          kv_blocks_in_use=out["blocks"], kv_blocks_after_kill=out["blocks_after_kill"],
+         fleet=dict(ok=out["fleet"]["ok"], workers=[
+             {k: w.get(k) for k in ("name", "role", "up", "kv_usage_ratio",
+                                    "busy_ratio", "roofline_fraction",
+                                    "draining", "model")}
+             for w in out["fleet"]["rows"]],
+             router_gauges=out["fleet"].get("router_gauges")),
          exits=exits, card=smi)
 
     # ---- checks
+    if not out["fleet"]["ok"]:
+        raise AssertionError(f"graph: the hub's /fleet/workers or the router's "
+                             f"sidecar fell short: {out['fleet']}")
     bad = [(g["leader"], g["followers"]) for g in wave1
            if len(g["leader"]) != 1 or g["followers"].get(g["leader"][0]) != GRAPH_FOLLOWERS]
     if bad:
@@ -7693,13 +7940,14 @@ def _kv_block_bytes(kv):
     return DISAGG_BLOCK_BYTES // 2 if kv == "fp8" else DISAGG_BLOCK_BYTES
 
 
-async def _disagg_ask(port, body, tok):
-    """One chat request: its stream record, the prompt ids the front
-    annotated, the token ids, and each chunk's arrival on this process's
-    monotonic clock."""
+async def _disagg_ask(port, body, tok, rid=None):
+    """One chat request (with ``X-Request-Id: rid`` when given): its stream
+    record, the prompt ids the front annotated, the token ids, and each
+    chunk's arrival on this process's monotonic clock."""
     t0 = time.monotonic()
     status, _, raw, events = await http_request(
-        port, "POST", "/v1/chat/completions", body)
+        port, "POST", "/v1/chat/completions", body,
+        headers={"X-Request-Id": rid} if rid else None)
     if status != 200:
         raise AssertionError(f"disagg: HTTP {status}: {raw[:400]}")
     rec = _stream_record(events, True)
@@ -7755,16 +8003,25 @@ async def _disagg_traffic(port, store, tok, words_text):
             for n in DISAGG_SHORT]
         await asyncio.sleep(DISAGG_LONG_AFTER_S)
         mid_text = words_text(DISAGG_LONG[1])
+        rids = [f"{mode}-long{i}" for i in range(2)]
         longs = await asyncio.gather(
-            _disagg_ask(port, body(words_text(DISAGG_LONG[0]), DISAGG_LONG_NEW), tok),
-            _disagg_ask(port, body(mid_text, DISAGG_LONG_NEW), tok))
+            _disagg_ask(port, body(words_text(DISAGG_LONG[0]), DISAGG_LONG_NEW),
+                        tok, rids[0]),
+            _disagg_ask(port, body(mid_text, DISAGG_LONG_NEW), tok, rids[1]))
         shorts = await asyncio.gather(*shorts)
         # the 3,000-word prompt again: its prefix hit on the decode side
         # leaves a suffix under the threshold, so it prefills locally
         again = await _disagg_ask(port, body(mid_text, DISAGG_LONG_NEW), tok)
         d1, p1 = await stats(dclient), await stats(pclient)
+        traces = {}
+        for rid in rids:  # the raw span sets and the stitched timeline
+            _, _, raw, _ = await http_request(port, "GET",
+                                              f"/debug/requests/{rid}")
+            _, _, stitched, _ = await http_request(port, "GET",
+                                                   f"/debug/trace/{rid}")
+            traces[rid] = (json.loads(raw), json.loads(stitched))
         turns.append(dict(mode=mode, shorts=shorts, longs=longs, again=again,
-                          d0=d0, d1=d1, p0=p0, p1=p1))
+                          d0=d0, d1=d1, p0=p0, p1=p1, traces=traces))
     blocks = {}
     for _ in range(100):  # finished streams are reaped first
         d, p = await stats(dclient), await stats(pclient)
@@ -7777,6 +8034,34 @@ async def _disagg_traffic(port, store, tok, words_text):
     await drt.close()
     return dict(turns=turns, blocks=blocks, d_first=d_first, p_first=p_first,
                 d_last=d, p_last=p)
+
+
+def _disagg_trace_hops(trace):
+    """A remote-prefill request's span sets: the chain frontend → processor
+    → decode engine → prefill worker, each hop's offset and round trip.
+    Raises unless the prefill worker's set nests inside the decode engine's
+    and every offset lies inside its error bound: half the round trip for
+    the dial-back hops (NTP-style), the round trip for the queued prefill
+    hop (its offset comes from the commit's return leg alone; the bound is
+    that leg's transit, inside the round trip). One host: the true offset
+    is 0."""
+    hops, node = [], {"children": trace.get("remote") or []}
+    for want in ("processor", "decode_engine", "prefill_worker"):
+        child = next((c for c in node.get("children") or []
+                      if c.get("source") == want), None)
+        if child is None:
+            raise AssertionError(f"disagg: no {want} span set under "
+                                 f"{node.get('source', 'frontend')}: {trace}")
+        bound = child["rtt_s"] if want == "prefill_worker" else child["rtt_s"] / 2
+        if abs(child["offset_s"]) > bound + 1e-3:
+            raise AssertionError(f"disagg: the {want} hop's offset "
+                                 f"{child['offset_s']} exceeds its bound "
+                                 f"{bound} (rtt {child['rtt_s']})")
+        hops.append(dict(source=want, offset_s=child["offset_s"],
+                         rtt_s=child["rtt_s"],
+                         marks=[n for n, _ in child["spans"]]))
+        node = child
+    return hops
 
 
 def _disagg_turn_line(t):
@@ -7974,6 +8259,12 @@ def engine_disagg_phase(torch, dev, smi):
     tmp.cleanup()
 
     lines = [_disagg_turn_line(t) for t in out["turns"]]
+    trace_hops = {rid: _disagg_trace_hops(raw)
+                  for t in out["turns"] if t["mode"] == "remote"
+                  for rid, (raw, _) in t["traces"].items()}
+    stitched_sources = {rid: [s["source"] for s in st["sources"]]
+                        for t in out["turns"] if t["mode"] == "remote"
+                        for rid, (_, st) in t["traces"].items()}
     d_first, d_last = out["d_first"], out["d_last"]
     p_first, p_last = out["p_first"], out["p_last"]
     launches = {}
@@ -7994,7 +8285,8 @@ def engine_disagg_phase(torch, dev, smi):
          nacks=dict(decode=d_last["kv_transfer_nacks"],
                     prefill=p_last["nacks_total"]),
          max_live_host_frames=p_last["max_live_host_frames"],
-         launches=per_role, exits=exits,
+         launches=per_role, exits=exits, trace_hops=trace_hops,
+         stitched_sources=stitched_sources,
          seconds=dict(leg_a=t_leg_b - t_phase, leg_b=t_inproc - t_leg_b,
                       inproc_check=time.monotonic() - t_inproc),
          card=smi)
@@ -9744,6 +10036,9 @@ RECOVERY_CLI_NEW = 160
 RECOVERY_CLI_GRACE_S = 0.2
 RECOVERY_CLI_EXTRA = dict(max_prefill_tokens_per_step=512)
 RECOVERY_CLI_LIVE = 8        # chunks every chat has when /admin/drain is sent
+# leg B's incident capture: the trip-to-capture delay, so the drain that
+# follows the trip folds into the same bundle
+RECOVERY_INCIDENT_SETTLE_S = 1.0
 
 
 def _recovery_requests(rng):
@@ -10088,7 +10383,8 @@ def _engine_recovery(torch, dev, smi, tmp):
                     peer_launches={k: b["launches"][k] for k in (
                         "paged_decode", "paged_flash", "epilogue")},
                     router_picks=sorted(set(picks)),
-                    draining_during_drain=b["draining"]),
+                    draining_during_drain=b["draining"],
+                    incident=b["incident"]),
          card=smi)
 
     # the checks, after the numbers are out
@@ -10120,6 +10416,13 @@ def _engine_recovery(torch, dev, smi, tmp):
     s = b["summary"]
     if b["trips"] != ["decode_stall"]:
         raise AssertionError(f"leg B: trips {b['trips']}")
+    inc = b["incident"]
+    if (inc["captures"] != 1 or inc["reasons"] != ["decode_stall"]
+            or inc["files"] != ["flight.json", "history.json", "manifest.json",
+                                "traces.json"]
+            or inc["listed"] != [inc["bundle"]]
+            or not inc.get("history_series")):
+        raise AssertionError(f"leg B: the wedge's incident bundle: {inc}")
     if (s["hard"], s["migrated"], s["failed"], s["respawned"]) != (
             True, len(reqs), 0, True):
         raise AssertionError(f"leg B: {s}")
@@ -10162,8 +10465,18 @@ async def _recovery_leg_b(torch, dev, config, params, peer, server, reqs, base,
     peer, the injected respawner between the deregister and register
     hooks."""
     from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
     from dynamo_tpu_torch.recovery import RecoveryConfig, RecoveryController
     from dynamo_tpu_torch.telemetry.flight import FLIGHT_DIR_ENV
+    from dynamo_tpu_torch.telemetry.history import (
+        LocalHistorySampler,
+        MetricHistory,
+    )
+    from dynamo_tpu_torch.telemetry.incidents import (
+        IncidentConfig,
+        IncidentRecorder,
+        load_bundle_dir,
+    )
 
     flight_dir = tmp / "flight"
     prev_dir = os.environ.get(FLIGHT_DIR_ENV)
@@ -10198,6 +10511,20 @@ async def _recovery_leg_b(torch, dev, config, params, peer, server, reqs, base,
     # the peer's launches from the ladder's start: the wedged source
     # launches nothing from there
     ctl.add_drain_listener(lambda info: _reset_launches())
+    # the incident recorder as the CLI's --incident-dir wires it: the
+    # watchdog's trip and the ladder's drain fold into one bundle, which
+    # carries the source's metric history; a front lists it
+    incidents = IncidentRecorder(
+        IncidentConfig(out_dir=str(tmp / "incidents"),
+                       settle_s=RECOVERY_INCIDENT_SETTLE_S),
+        history=MetricHistory(window_s=600.0))
+    incidents.watch_watchdog(src.watchdog)
+    incidents.watch_recovery(ctl)
+    sampler = LocalHistorySampler(src.scheduler.registry,
+                                  history=incidents.history,
+                                  interval_s=0.1).start()
+    front = await HttpService(ModelManager(), "127.0.0.1", 0,
+                              incidents=incidents).start()
     records, tasks = _recovery_start(src, reqs)
     try:
         await _recovery_until(lambda: min(len(r["tokens"]) for r in records)
@@ -10212,6 +10539,23 @@ async def _recovery_leg_b(torch, dev, config, params, peer, server, reqs, base,
         for t in tasks:
             t.result()
         launches = _read_launches()
+        await _recovery_until(lambda: bool(incidents.captures),
+                              [peer.scheduler._task])
+        await asyncio.sleep(RECOVERY_INCIDENT_SETTLE_S)  # a second would land
+        _, _, listed, _ = await http_request(front.port, "GET",
+                                             "/debug/incidents")
+        bundles = list(incidents.bundles)
+        incident = dict(
+            captures=incidents.captures, suppressed=incidents.suppressed,
+            reasons=[b["reason"] for b in bundles],
+            files=sorted(os.listdir(bundles[0]["path"])) if bundles else [],
+            listed=[b["bundle"] for b in json.loads(listed)["bundles"]],
+            bundle=bundles[0]["bundle"] if bundles else None)
+        if bundles:
+            loaded = load_bundle_dir(bundles[0]["path"])
+            incident["flight_events"] = len(loaded["flight"]["events"])
+            incident["history_series"] = len(loaded["history"]["series"])
+            incident["traces"] = len(loaded["traces"])
         art = json.loads(Path(src.watchdog.trips[0]["artifact"]).read_text())
         (table,) = [x["requests"] for x in art["sources"]
                     if x["name"] == "source"]
@@ -10221,11 +10565,14 @@ async def _recovery_leg_b(torch, dev, config, params, peer, server, reqs, base,
                    respawned=bool(respawned), launches=launches,
                    registry=ctl.registry.render(),
                    draining=draining == [True],
-                   sick_metrics=src.metrics())
+                   sick_metrics=src.metrics(), incident=incident)
     finally:
         faults.release()
         for t in tasks:
             t.cancel()
+        await sampler.stop()
+        await incidents.stop()
+        await front.stop()
         await ctl.close()
         await src.close()
         if prev_dir is None:
@@ -10312,6 +10659,11 @@ def _recovery_leg_c(torch, dev, tmp):
             drain = await http_request(ports["A"], "POST", "/admin/drain")
             drain_s = time.monotonic() - t_drain
             answers = await asyncio.gather(*streams)
+            # each re-bound stream's trace on A: the peer's spans arrive
+            # with mig_end on the direct connection
+            traces = [json.loads((await http_request(
+                ports["A"], "GET", f"/debug/requests/recovery-c-{i}"))[2])
+                for i in range(len(bodies))]
             refused = await http_request(ports["A"], "POST",
                                          "/v1/chat/completions",
                                          dict(bodies[0], stream=False))
@@ -10319,10 +10671,11 @@ def _recovery_leg_c(torch, dev, tmp):
             direct = await asyncio.gather(*(
                 http_request(ports["B"], "POST", "/v1/chat/completions", b)
                 for b in bodies))
-            return drain, drain_s, answers, ends, refused, metrics.decode(), direct
+            return (drain, drain_s, answers, ends, refused, metrics.decode(),
+                    direct, traces)
 
-        drain, drain_s, answers, ends, refused, metrics, direct = asyncio.run(
-            asyncio.wait_for(traffic(), RECOVERY_TIMEOUT_S))
+        (drain, drain_s, answers, ends, refused, metrics, direct,
+         traces) = asyncio.run(asyncio.wait_for(traffic(), RECOVERY_TIMEOUT_S))
         # A's flight ring, through SIGUSR2 into --flight-dir
         procs["A"].send_signal(signal.SIGUSR2)
         t_sig = time.monotonic()
@@ -10381,7 +10734,14 @@ def _recovery_leg_c(torch, dev, tmp):
                    (ends[i] - handoffs[f"recovery-c-{i}"])
                    if f"recovery-c-{i}" in handoffs and ends[i] else None
                    for i in range(len(bodies))],
-               parted=parted, exits=exits)
+               parted=parted, exits=exits,
+               peer_spans=[_peer_span_set(t) for t in traces])
+    if not all(p and "migration.resume" in p["marks"]
+               and abs(p["offset_s"]) <= p["rtt_s"] / 2 + 1e-3
+               for p in out["peer_spans"]):
+        raise AssertionError(f"leg C: a migrated stream's trace lacks the "
+                             f"peer's spans or their offset bound: "
+                             f"{out['peer_spans']}")
     if drain[0] != 200 or (summary["migrated"], summary["failed"]) != (4, 0):
         raise AssertionError(f"leg C: /admin/drain answered {drain[0]}: {summary}")
     if errors or not all(out["streams_done"]):
@@ -10403,6 +10763,20 @@ def _recovery_leg_c(torch, dev, tmp):
                                                 extra, bodies, recs, direct_recs,
                                                 parted)
     return out
+
+
+def _peer_span_set(trace):
+    """The migration peer's span set in a completed trace (searched through
+    nested hops), or None."""
+    stack = list(trace.get("remote") or [])
+    while stack:
+        rs = stack.pop()
+        if rs.get("source") == "migration_peer":
+            return dict(offset_s=rs.get("offset_s", 0.0),
+                        rtt_s=rs.get("rtt_s", 0.0),
+                        marks=[n for n, _ in rs.get("spans") or []])
+        stack.extend(rs.get("children") or [])
+    return None
 
 
 def _recovery_cli_near_ties(torch, dev, tok, model_dir, extra, bodies, recs,
@@ -10446,6 +10820,7 @@ SPM_MAX_CHARS = 12     # the longest synthetic merge, in characters
 # wave), blocks for its prompts and a prefix-hit wave
 PHI3_ENGINE = dict(max_model_len=8192, num_kv_blocks=1536)
 PHI3_NEW_TOKENS = 16
+PHI3_LAYERS = 16          # of Phi-3-mini's 32 (a depth cut; widths kept)
 PHI3_LONG_PROMPT = 5120   # past original 4,096 from its first token
 PHI3_CROSSING = 4090      # crosses 4,096 while it decodes
 PHI3_ORIGINAL_CUT = 64    # the logits check's original window (widths kept)
@@ -10614,7 +10989,7 @@ def engine_phi3_phase(torch, dev, smi):
 
     on_card = torch.device(dev).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    hf = PHI3_MINI_128K
+    hf = dict(PHI3_MINI_128K, num_hidden_layers=PHI3_LAYERS)
     mcfg = ModelConfig.from_hf_config(hf)
     layers, vocab = mcfg.num_layers, mcfg.vocab_size
     kv_bytes_token = layers * 2 * mcfg.num_kv_heads * mcfg.head_dim * 2

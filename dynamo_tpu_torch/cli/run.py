@@ -50,7 +50,21 @@ the component's migration prefix in discovery) over tcp, with a respawn
 ladder (``--respawn-max``, ``--respawn-backoff-s``). Flight artifacts go to
 ``--flight-dir`` (or DYN_FLIGHT_DIR) on a trip and on SIGUSR2.
 
-Every other input, output and reference flag is refused by name.
+Telemetry: ``--trace-capacity`` / ``--trace-ttl-s`` bound the front's
+completed-trace store (``/debug/requests``, ``/debug/trace/{id}``);
+``--slo-ttft-ms`` / ``--slo-itl-ms`` judge each request at the edge
+(``dynamo_slo_*``); ``--profile-dir`` serves ``GET /debug/profile`` (a
+``torch.profiler`` capture); ``--metrics-port`` starts a /metrics sidecar on
+a processor, a token-level worker or a prefill worker, advertised in
+discovery for a fleet hub; ``--hub`` (``--hub-interval-s``,
+``--hub-target role=url``) scrapes the fleet into ``/fleet/metrics`` and
+``/fleet/workers``; ``--incident-dir`` (or DYN_INCIDENT_DIR,
+``--incident-cooldown-s``, ``--incident-profile-s``) captures an incident
+bundle on a watchdog trip, a recovery drain, an SLO floor breach or a burst
+of late first dispatches, listed at ``GET /debug/incidents``.
+
+Every other input, output and reference flag is refused by name
+(``--profiler-port`` with its reason: torch has no profiler server).
 
 A ``--model-path`` directory holding a safetensors checkpoint, or a
 ``.gguf`` file, is loaded (``models/loader.py``); a directory without one
@@ -98,7 +112,7 @@ GRACEFUL_SHUTDOWN_S = 30.0
 # the reference's flags this CLI does not take (each raises by name):
 # multi-device, the ici transfer plane, the supervised subprocess engine
 # (and with it respawn on a child's death), admission, planning, tenants and
-# telemetry sidecars are not ported
+# the jax profiler server are not ported
 REFUSED_FLAGS = (
     "--tensor-parallel-size", "--expert-parallel-size",
     "--data-parallel-size", "--pipeline-parallel-size",
@@ -106,19 +120,25 @@ REFUSED_FLAGS = (
     "--engine-heartbeat-s", "--engine-heartbeat-misses",
     "--engine-init-timeout-s",
     "--ici-sender-rank", "--ici-receiver-rank", "--num-nodes", "--node-rank",
-    "--leader-addr", "--profile-dir", "--profiler-port",
+    "--leader-addr", "--profiler-port",
     "--admission-limit",
     "--admission-queue-depth", "--admission-queue-timeout-s", "--planner",
     "--planner-interval-s", "--planner-min-replicas",
     "--planner-max-replicas", "--planner-cooldown-s",
-    "--planner-deployment", "--api-store-url", "--slo-ttft-ms",
-    "--slo-itl-ms", "--hub", "--hub-interval-s", "--hub-target",
-    "--incident-dir", "--incident-cooldown-s", "--incident-profile-s",
-    "--trace-ttl-s", "--trace-capacity", "--served-alias", "--model-tenants",
+    "--planner-deployment", "--api-store-url",
+    "--served-alias", "--model-tenants",
     "--tenant-rps", "--tenant-tps", "--tenant-burst-s", "--tenant-quotas",
     "--pool-scale-to-zero-idle-s", "--pool-cold-start-deadline-s",
-    "--pool-cooldown-s", "--metrics-port",
+    "--pool-cooldown-s",
 )
+# why a refused flag has no port at all (the others wait for their slice)
+REFUSED_WHY = {
+    "--profiler-port": (
+        "the reference's flag starts jax's profiler gRPC server "
+        "(utils/profiling.enable_profiler_server) and torch has no "
+        "counterpart; capture a trace with --profile-dir and GET "
+        "/debug/profile instead"),
+}
 
 
 def parse_io(args: List[str]):
@@ -291,6 +311,46 @@ def build_parser() -> argparse.ArgumentParser:
                    help="port of this worker's inbound-migration receiver "
                         "(0 = ephemeral; started only with --self-heal on a "
                         "torch engine)")
+    # telemetry (telemetry/, utils/profiling.py)
+    p.add_argument("--trace-capacity", type=int, default=None,
+                   help="completed-trace store bound in entries (LRU; default "
+                        "DYN_TRACE_CAPACITY or 512)")
+    p.add_argument("--trace-ttl-s", type=float, default=None,
+                   help="completed-trace age bound in seconds (0 = no age "
+                        "bound; default DYN_TRACE_TTL_S or 600)")
+    p.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                   help="time-to-first-token SLO target: per-request "
+                        "attainment and goodput on /metrics (0 = unjudged)")
+    p.add_argument("--slo-itl-ms", type=float, default=0.0,
+                   help="inter-token latency SLO target, judged on each "
+                        "request's worst gap (0 = unjudged)")
+    p.add_argument("--profile-dir", default="",
+                   help="serve GET /debug/profile?seconds=N: a torch.profiler "
+                        "capture (CPU and CUDA activity) into this directory")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="a /metrics sidecar on a processor, token-level worker "
+                        "or prefill worker (0 = off); advertised in discovery "
+                        "for a fleet hub")
+    p.add_argument("--hub", action="store_true",
+                   help="run a fleet telemetry hub in this frontend: scrape "
+                        "--hub-target and the discovery-registered metrics "
+                        "sidecars, serve /fleet/metrics and /fleet/workers")
+    p.add_argument("--hub-interval-s", type=float, default=2.0,
+                   help="hub scrape cadence")
+    p.add_argument("--hub-target", action="append", default=None,
+                   help="a static hub target, role=url (repeatable); the url "
+                        "gains /metrics when it lacks it")
+    p.add_argument("--incident-dir", default="",
+                   help="capture incident bundles into this directory (also "
+                        "DYN_INCIDENT_DIR): on a watchdog trip, a recovery "
+                        "drain, an SLO floor breach or a late-dispatch burst; "
+                        "listed at GET /debug/incidents")
+    p.add_argument("--incident-cooldown-s", type=float, default=60.0,
+                   help="per-reason incident capture cooldown")
+    p.add_argument("--incident-profile-s", type=float, default=0.0,
+                   help="include a torch.profiler window of this many seconds "
+                        "in each incident bundle (skipped while another "
+                        "capture is in flight)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -300,8 +360,9 @@ def parse_flags(rest: List[str]):
         name = a.split("=", 1)[0]
         if name in REFUSED_FLAGS:
             raise SystemExit(
-                f"{name} is not served by the PyTorch port's CLI (an engine "
-                "field goes through --extra-engine-args)")
+                f"{name} is not served by the PyTorch port's CLI ("
+                + REFUSED_WHY.get(name, "an engine field goes through "
+                                        "--extra-engine-args") + ")")
     flags = build_parser().parse_args(rest)
     if flags.kv_transfer != "tcp":
         raise SystemExit(
@@ -388,6 +449,97 @@ async def build_engine(engine_spec: str, flags):
     return pipe, mdc
 
 
+def _build_slo(flags):
+    """--slo-ttft-ms / --slo-itl-ms → an SloTracker (None without either)."""
+    if flags.slo_ttft_ms <= 0 and flags.slo_itl_ms <= 0:
+        return None
+    from ..telemetry.slo import SloTracker
+
+    return SloTracker(
+        ttft_s=flags.slo_ttft_ms / 1e3 if flags.slo_ttft_ms > 0 else None,
+        itl_s=flags.slo_itl_ms / 1e3 if flags.slo_itl_ms > 0 else None)
+
+
+def _build_hub(flags):
+    """--hub → a FleetHub over the static --hub-target list (discovery
+    targets attach later, once a DistributedRuntime exists)."""
+    if not flags.hub:
+        return None
+    from ..telemetry.hub import FleetHub, parse_target_flag
+
+    return FleetHub(
+        targets=[parse_target_flag(t) for t in (flags.hub_target or [])],
+        interval_s=flags.hub_interval_s)
+
+
+def _advertise_model(registry, name: str) -> None:
+    """Stamp the served model on a registry (the fleet hub's ``model``)."""
+    registry.gauge("dynamo_registry_model_info",
+                   "Model this process serves, labelled model=").set(
+                       1.0, model=name)
+
+
+async def _setup_incidents(flags, registry=None, watchdog=None,
+                           recovery=None, slo=None, compiles=None):
+    """DYN_INCIDENT_DIR / --incident-dir → an IncidentRecorder wired to
+    every degradation edge this process emits, plus a local history
+    sampler so bundles carry the metric curve INTO the incident. Returns
+    (recorder, sampler), both None without a directory."""
+    from ..telemetry.incidents import (
+        IncidentConfig,
+        IncidentRecorder,
+        incident_dir,
+        late_compile_probe,
+        slo_probe,
+    )
+
+    if not incident_dir():
+        return None, None
+    from ..telemetry.history import LocalHistorySampler, MetricHistory
+
+    recorder = IncidentRecorder(
+        IncidentConfig(cooldown_s=flags.incident_cooldown_s,
+                       profile_s=flags.incident_profile_s),
+        history=MetricHistory(window_s=600.0))
+    if watchdog is not None:
+        recorder.watch_watchdog(watchdog)
+    if recovery is not None:
+        recorder.watch_recovery(recovery)
+    if slo is not None:
+        recorder.add_probe(slo_probe(slo))
+    if compiles is not None:
+        recorder.add_probe(late_compile_probe(compiles))
+    if flags.incident_profile_s > 0:
+        # a bundle's profile window starts on the loop: initialise CUPTI now
+        from ..utils.profiling import prepare_profiler
+
+        prepare_profiler()
+    sampler = None
+    if registry is not None:
+        sampler = LocalHistorySampler(registry, history=recorder.history,
+                                      interval_s=5.0).start()
+    recorder.start()
+    return recorder, sampler
+
+
+async def advertise_sidecar(drt, flags, mserver, role: str,
+                            instance: str) -> None:
+    """Register a process's /metrics sidecar in discovery so a fleet hub
+    finds it without static targets; the lease-scoped key vanishes with the
+    worker."""
+    if mserver is None:
+        return
+    from ..telemetry.hub import register_metrics_endpoint
+
+    try:
+        await register_metrics_endpoint(
+            drt, flags.namespace, role, instance,
+            f"http://{flags.advertise_host}:{mserver.port}/metrics")
+    except Exception:
+        logger.warning("metrics-sidecar discovery registration failed; hub "
+                       "scrapes need --hub-target", exc_info=True)
+
+
 async def run_http(flags, engine, mdc) -> None:
     """Serve until SIGINT / SIGTERM: the first drains in-flight requests
     (up to ``GRACEFUL_SHUTDOWN_S``), a second exits at once."""
@@ -404,7 +556,22 @@ async def run_http(flags, engine, mdc) -> None:
             model_type="both" if mdc is not None else "chat",
             max_model_len=mdc.context_length if mdc is not None else None,
         )
-    service = HttpService(manager, flags.http_host, flags.http_port)
+    slo = _build_slo(flags)
+    hub = _build_hub(flags)
+    service = HttpService(
+        manager, flags.http_host, flags.http_port,
+        profile_dir=flags.profile_dir or None, slo=slo,
+        trace_ttl_s=flags.trace_ttl_s, trace_capacity=flags.trace_capacity,
+        hub=hub)
+    if engine is not None:
+        _advertise_model(
+            service.metrics.registry,
+            flags.model_name or (mdc.display_name if mdc else "echo"))
+    if hub is not None:
+        # the frontend scrapes ITSELF (the engine's registries attach into
+        # the service's, so one local scrape covers every layer of this
+        # process) beside the remote targets
+        hub.add_local("frontend", "frontend", service.metrics.registry)
     if hasattr(engine, "engine_metrics"):
         service.metrics.register_callback_gauges(
             "dynamo_engine", engine.engine_metrics)
@@ -418,12 +585,29 @@ async def run_http(flags, engine, mdc) -> None:
             recovery.attach()
             service.drainer = recovery.admin_drain
             service.metrics.registry.attach(recovery.registry)
+    # the incident recorder: wired to every degradation edge this process
+    # emits (the engine's watchdog, the recovery ladder, the SLO floor,
+    # late first dispatches)
+    core = getattr(engine, "core_engine", engine) if engine is not None else None
+    incidents, inc_sampler = await _setup_incidents(
+        flags, registry=service.metrics.registry,
+        watchdog=getattr(core, "watchdog", None), recovery=recovery, slo=slo,
+        compiles=getattr(getattr(core, "runner", None), "compiles", None))
+    if incidents is not None:
+        service.incidents = incidents
+        service.metrics.registry.attach(incidents.registry)
     watcher = drt = None
     if flags.store_port is not None:
         from ..runtime.client import RouterMode
         from ..runtime.component import DistributedRuntime
 
         drt = await DistributedRuntime.connect(flags.store_host, flags.store_port)
+        if hub is not None:
+            # scrape every sidecar the workers registered in discovery, on
+            # top of the static targets
+            from ..telemetry.hub import discovery_targets
+
+            hub.discover = discovery_targets(drt, flags.namespace)
         # the frontend routes each model's OpenAI-level instances (a
         # processor's, or workers'); "kv" picks round-robin here: a
         # KV-aware pick needs token ids, which only a processor has
@@ -433,6 +617,8 @@ async def run_http(flags, engine, mdc) -> None:
     elif engine is None:
         raise SystemExit("out=none serves the models it discovers: give it "
                          "--store-port")
+    if hub is not None:
+        hub.start()
     await service.start()
     print(f"listening on http://{flags.http_host}:{service.port}", flush=True)
     stop_event = asyncio.Event()
@@ -458,6 +644,12 @@ async def run_http(flags, engine, mdc) -> None:
                and loop.time() < deadline and not force_event.is_set()):
             await asyncio.sleep(0.1)
     finally:
+        if hub is not None:
+            await hub.stop()
+        if inc_sampler is not None:
+            await inc_sampler.stop()
+        if incidents is not None:
+            await incidents.stop()
         await service.stop()
         if recovery is not None:
             await recovery.close()
@@ -778,6 +970,8 @@ async def run_prefill(flags) -> None:
     runner = await loop.run_in_executor(None, lambda: ModelRunner(
         engine_config, device=flags.device, model_dir=mdc.model_path))
     await loop.run_in_executor(None, runner.warmup)
+    # first dispatches from here on are late ones (the storm signal)
+    runner.compiles.mark_serving_started()
     worker = PrefillWorker(drt, runner, engine_config, namespace=flags.namespace)
 
     async def no_requests(payload, ctx):
@@ -785,10 +979,16 @@ async def run_prefill(flags) -> None:
         yield  # an async generator, as endpoint handlers are
 
     endpoint = drt.namespace(flags.namespace).component("prefill").endpoint("stats")
+    instance_id = f"prefill-{uuid.uuid4().hex[:12]}"
     serving = await endpoint.serve(
-        no_requests, instance_id=f"prefill-{uuid.uuid4().hex[:12]}",
+        no_requests, instance_id=instance_id,
         stats_handler=lambda: dict(worker.metrics(),
                                    launches=_kernel_launches()))
+    from ..telemetry.server import maybe_start_metrics_server
+
+    mserver = await maybe_start_metrics_server(worker.registry,
+                                               flags.metrics_port)
+    await advertise_sidecar(drt, flags, mserver, "prefill_worker", instance_id)
     task = asyncio.ensure_future(worker.run())
     print(f"prefill worker consuming {worker.queue.name}", flush=True)
     stop_event = asyncio.Event()
@@ -810,14 +1010,17 @@ async def run_prefill(flags) -> None:
         except asyncio.CancelledError:
             pass
         await serving.stop()
+        if mserver is not None:
+            await mserver.stop()
         await worker.close()
         await drt.close()
 
 
 async def run_worker(flags, engine_spec: str, path: str) -> None:
     """Distributed worker roles (in=dyn://ns.comp.ep), the reference's
-    ``run_worker`` without its sidecars (metrics port, self-healing,
-    incidents):
+    ``run_worker``; ``--metrics-port`` starts each role's /metrics sidecar
+    (advertised in discovery for a fleet hub) and ``--incident-dir`` an
+    incident recorder on a token-level worker:
 
     - default: full OpenAI-level worker (preprocess+engine+detokenize here)
     - --token-level: engine worker serving PreprocessedRequests, publishing
@@ -832,6 +1035,7 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
     from ..http.service import parse_endpoint_path, register_model
     from ..runtime.component import DistributedRuntime
     from ..runtime.engine import Context
+    from ..telemetry.server import maybe_start_metrics_server
 
     if flags.store_port is None:
         raise SystemExit("in=dyn:// requires --store-port")
@@ -892,6 +1096,16 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
             stats_handler=router.stats if router is not None else None)
         await register_model(drt, flags.namespace, name, path, model_type="both",
                              mdc={"context_length": mdc.context_length})
+        if router is not None:
+            # the router's own surface: per-worker scraped load and the
+            # routing decisions
+            _advertise_model(router.registry, name)
+            mserver = await maybe_start_metrics_server(router.registry,
+                                                       flags.metrics_port)
+            await advertise_sidecar(drt, flags, mserver, "processor",
+                                    f"processor-{uuid.uuid4().hex[:12]}")
+            if mserver is not None:
+                closers.append(mserver.stop)
         print(f"processor serving {path} (model={name} → {flags.worker_endpoint})", flush=True)
 
     elif flags.token_level:
@@ -959,6 +1173,30 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
                     core.registry.attach(recovery.registry)
                 # closed before the engine (closers run in order)
                 closers[-1:-1] = [recovery.close, migserver.close]
+        else:
+            recovery = None
+        reg = getattr(core, "registry", None)
+        # incident bundles at trip time: the engine worker is where wedges
+        # happen, and its evidence must reach the disk before a respawn
+        incidents, inc_sampler = await _setup_incidents(
+            flags, registry=reg, watchdog=getattr(core, "watchdog", None),
+            recovery=recovery,
+            compiles=getattr(getattr(core, "runner", None), "compiles", None))
+        if incidents is not None:
+            if reg is not None:
+                reg.attach(incidents.registry)
+            closers[0:0] = [incidents.stop]
+            if inc_sampler is not None:
+                closers[0:0] = [inc_sampler.stop]
+        # the engine's whole registry (scheduler, runner trackers, KV tiers,
+        # recovery) on the sidecar; an echo core carries none
+        if reg is not None:
+            _advertise_model(reg, model_name)
+        mserver = await maybe_start_metrics_server(reg, flags.metrics_port)
+        await advertise_sidecar(drt, flags, mserver, "decode_engine",
+                                instance_id)
+        if mserver is not None:
+            closers[0:0] = [mserver.stop]
         print(f"token-level worker {instance_id} serving {path}", flush=True)
 
     else:
@@ -973,6 +1211,12 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
             drt, flags.namespace, name, path, model_type=model_type,
             mdc={"context_length": mdc.context_length} if mdc else None,
         )
+        mserver = await maybe_start_metrics_server(
+            getattr(engine, "engine_registry", None), flags.metrics_port)
+        await advertise_sidecar(drt, flags, mserver, "worker",
+                                f"worker-{uuid.uuid4().hex[:12]}")
+        if mserver is not None:
+            closers[0:0] = [mserver.stop]
         print(f"worker serving {path} (model={name})", flush=True)
 
     stop_event = asyncio.Event()
@@ -1004,6 +1248,13 @@ async def amain(argv: List[str]) -> None:
         from ..telemetry.flight import FLIGHT_DIR_ENV
 
         os.environ[FLIGHT_DIR_ENV] = flags.flight_dir
+    if flags.incident_dir:
+        # likewise the incident recorder's
+        import os
+
+        from ..telemetry.incidents import INCIDENT_DIR_ENV
+
+        os.environ[INCIDENT_DIR_ENV] = flags.incident_dir
     # SIGUSR2 → a flight artifact, on every role: the way to ask "what is
     # this process doing", even with a wedged event loop
     from ..telemetry.watchdog import install_signal_dump

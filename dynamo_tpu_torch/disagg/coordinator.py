@@ -5,8 +5,10 @@ decode worker: decide local or remote per request (the router's verdict
 with the queue depth), enqueue a ``RemotePrefillRequest`` for blocks the
 scheduler allocated, receive the blocks on the transfer server, and hand
 the scheduler a future that resolves when the prefill worker commits the
-first token. Not ported: the tracing spans (stage marks and stitched
-remote spans wait for telemetry); the counters stay, in ``metrics()``.
+first token. At the commit the request's trace gets its ``kv_transfer``
+mark and the prefill worker's span set (it rides the commit frame), folded
+with a clock offset from the commit's return leg (``telemetry/stitch.py``);
+the counters are in ``metrics()``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ class RemotePrefillCoordinator:
             authorize=self._authorize, host=advertise_host,
             layout=cache_layout(runner))
         self._pending: Dict[str, asyncio.Future] = {}
+        # the request contexts (stage marks, remote spans) and the submit
+        # wall stamps the commit's span fold needs
+        self._ctx: Dict[str, object] = {}
+        self._submit_wall: Dict[str, float] = {}
         self._queue_depth = 0
         self._depth_refresh_s = depth_refresh_s
         self._depth_task: Optional[asyncio.Task] = None
@@ -98,11 +104,14 @@ class RemotePrefillCoordinator:
                      repetition_penalty: float = 1.0,
                      seed: Optional[int] = None, want_logprobs: bool = False,
                      logprobs_n: int = 0, logit_bias: Optional[dict] = None,
-                     trace_id: str = "") -> asyncio.Future:
+                     trace_id: str = "", ctx=None) -> asyncio.Future:
         """Enqueue the prompt; returns a future of (first_token, logprob,
-        top)."""
+        top). ``ctx`` (the request's AsyncEngineContext) gets the
+        ``kv_transfer`` mark and the prefill worker's spans at the commit."""
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._pending[request_id] = fut
+        if ctx is not None:
+            self._ctx[request_id] = ctx
         try:
             await self.queue.push(RemotePrefillRequest(
                 request_id=request_id, engine_id=self.engine_id,
@@ -118,8 +127,10 @@ class RemotePrefillCoordinator:
         except BaseException:
             # nothing is coming: do not keep authorizing frames for it
             self._pending.pop(request_id, None)
+            self._ctx.pop(request_id, None)
             self._count_failure("submit")
             raise
+        self._submit_wall[request_id] = time.time()
         self.remote_submitted += 1
         self._queue_depth += 1  # optimistic until the next refresh
         return fut
@@ -127,6 +138,8 @@ class RemotePrefillCoordinator:
     def cancel(self, request_id: str, reason: str = "cancelled") -> None:
         """Stop accepting frames for a request (cancel, timeout fallback)."""
         fut = self._pending.pop(request_id, None)
+        self._ctx.pop(request_id, None)
+        self._submit_wall.pop(request_id, None)
         if fut is not None:
             self._count_failure(reason)
             fut.cancel()
@@ -158,9 +171,31 @@ class RemotePrefillCoordinator:
                 logprob: Optional[float], top: Optional[dict] = None,
                 spans: Optional[dict] = None) -> None:
         fut = self._pending.pop(request_id, None)
+        ctx = self._ctx.pop(request_id, None)
+        submit_wall = self._submit_wall.pop(request_id, None)
         if fut is None or fut.done():
             logger.warning("commit for unknown request %s", request_id)
             return
+        if ctx is not None:
+            # closing-mark semantics (telemetry/tracing.py): the span from
+            # the submit-side "admission" mark to here is the remote compute
+            # and the streamed KV transfer
+            ctx.add_stage("kv_transfer")
+            if spans and submit_wall is not None:
+                # the forward "leg" is a QUEUE submit (the worker dequeues
+                # whenever it gets there), so the offset comes from the
+                # commit's return leg alone (queued_forward)
+                from ..telemetry.stitch import remote_span_set
+
+                ctx.add_remote_spans(remote_span_set(
+                    spans.get("source", "prefill_worker"),
+                    spans.get("spans") or [],
+                    spans.get("recv_at", 0.0),
+                    spans.get("resp_sent_at", 0.0),
+                    submit_wall, time.time(),
+                    children=spans.get("children") or [],
+                    queued_forward=True,
+                ))
         self.remote_completed += 1
         fut.set_result((first_token, logprob, top))
 

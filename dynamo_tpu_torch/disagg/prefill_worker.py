@@ -29,8 +29,14 @@ Sampling noise: a seeded request's first token is drawn with
 a seeded stream is the same remote or local; an unseeded one draws from
 this worker's own generator.
 
-Not ported: the ici payload pump, the stitched-trace span export and the
-metrics registry (the counters are in ``metrics()``).
+Telemetry: each prefill stamps ``prefill.dequeue`` → ``prefill.compute``
+→ ``prefill.transfer`` on its own context and exports them on the commit
+frame (the decode side folds them into the request's stitched trace);
+``registry`` renders ``metrics()``'s counters as
+``dynamo_prefill_worker_*`` gauges beside the runner's compile and
+device-time series (the ``--metrics-port`` sidecar's exposition).
+
+Not ported: the ici payload pump.
 """
 
 from __future__ import annotations
@@ -47,7 +53,9 @@ from ..engine.block_allocator import BlockAllocator
 from ..engine.model_runner import build_prefill_arrays
 from ..engine.sampling import seed_to_key
 from ..engine.scheduler import prefill_bucket_cap
+from ..runtime.engine import AsyncEngineContext
 from ..runtime.wire import unpackb
+from ..telemetry.registry import MetricsRegistry
 from ..tokens import compute_block_hashes
 from ..transfer.plane import FramePipe, negotiate_backend
 from .protocols import PrefillQueue, RemotePrefillRequest
@@ -86,6 +94,15 @@ class PrefillWorker:
         self.prefix_total_tokens = 0
         self.max_live_host_frames = 0
         self.transfers = collections.deque(maxlen=TRANSFER_HISTORY)
+        # the sidecar's exposition: the counters of metrics() as gauges,
+        # and the runner's first-dispatch and device-time series
+        self.registry = MetricsRegistry()
+        self.registry.register_callback_gauges("dynamo_prefill_worker",
+                                               self.metrics)
+        for tracker in (getattr(runner, "compiles", None),
+                        getattr(runner, "device_time", None)):
+            if tracker is not None:
+                self.registry.attach(tracker.registry)
 
     # ---------- main loop ----------
 
@@ -134,6 +151,10 @@ class PrefillWorker:
         bs = cfg.kv_block_size
         prompt = rpr.token_ids
         loop = asyncio.get_running_loop()
+        # this hop's trace: the marks ride the commit frame back to the
+        # decode side, which stitches them into the request's timeline
+        ctx = AsyncEngineContext(trace_id=rpr.trace_id or rpr.request_id)
+        ctx.add_stage("prefill.dequeue")
         block_ids, num_cached = self.allocator.allocate_prompt(prompt)
         pipe: Optional[FramePipe] = None
         t_start = time.monotonic()
@@ -214,15 +235,29 @@ class PrefillWorker:
             top = ({int(t): float(v) for t, v in zip(top_ids[0], top_vals[0])}
                    if want_top else None)
             t_compute_done = time.monotonic()
+            # closing-mark semantics: dequeue → here is the chunked compute
+            # (the final chunk's token read included)
+            ctx.add_stage("prefill.compute")
             # feed the local prefix cache so later prompts skip this work
             parent = None
             for i, h in enumerate(compute_block_hashes(prompt, bs)):
                 self.allocator.register_complete(block_ids[i], h, parent)
                 parent = h
             nbytes = await pipe.drain()
+            # every frame is on the wire: the transfer tail that compute
+            # did not hide closes here
+            ctx.add_stage("prefill.transfer")
             committed = await client.send_commit(
                 rpr.request_id, token, lp if rpr.want_logprobs else None,
-                top=top)
+                top=top,
+                spans={
+                    "source": "prefill_worker",
+                    "spans": ctx.export_spans(),
+                    # the offset pair: the decode side's submit stamp is
+                    # the send; these two are this worker's
+                    "recv_at": ctx.wall(ctx.stages[0][1]),
+                    "resp_sent_at": time.time(),
+                })
             t_done = time.monotonic()
             if not committed:
                 # the receiver dropped a frame and nacked: the decode side

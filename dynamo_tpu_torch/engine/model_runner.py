@@ -33,12 +33,23 @@ proposals drawn on the device from the carry's suffix ring (ngram,
 ``_ngram_props``) or handed in as the draft model's burst output (a draft
 runner's ``decode_burst`` takes the target's carry as device tensors), the
 accepted prefix and the correction folded into the carry with the chained
-burst's freeze semantics. Not in this slice (later work): CUDA graphs and
-compile tracking.
+burst's freeze semantics.
+
+Telemetry: every entry point runs through ``compiles.track(program, key)``
+(``telemetry/flight.CompileTracker``) with the reference's program names
+and shape-bucket keys, built from host ints; the first dispatch of a key
+is the card's first-time cost (cuBLAS planning, allocator growth, a kernel
+form's build or load). ``device_time`` (``telemetry/device_time.py``)
+carries the roofline's byte model: the weights' bytes and the cache's
+bytes per token (the real cache, without its spare row); the scheduler
+feeds it at its host reconciliation seams. Not in this slice (later
+work): CUDA graphs.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import logging
 from typing import List, Optional, Tuple
 
@@ -50,6 +61,8 @@ from ..models.loader import load_checkpoint_params, resolve_weights
 from ..ops.attention import FP8, _bytes, check_attention_impl
 from ..ops.epilogue import fused_sampling_epilogue
 from ..ops.transfer import to_device, to_device_packed
+from ..telemetry.device_time import DeviceTimeTracker
+from ..telemetry.flight import CompileTracker
 from .config import EngineConfig, check_kv_cache_dtype, check_quantization
 from .sampling import (
     STOP_ID_WIDTH,
@@ -248,6 +261,45 @@ class HostCopy:
         return [t.numpy() for t in self.tensors()]
 
 
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a params or cache tree (dicts, sequences,
+    quantized weights' int8 data and scales)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return sum(tensor_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return 0
+
+
+def _tracked(program_key):
+    """Run a runner method under ``self.compiles.track(*program_key(self,
+    *args, **kwargs))``: the program name and its shape-bucket key, from
+    host ints only (reading a device tensor there would sync)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            with self.compiles.track(*program_key(self, *args, **kwargs)):
+                return fn(self, *args, **kwargs)
+        return wrapper
+    return deco
+
+
+# the reference's compiled-program ladders, which key the first dispatches
+# of the block ops and the sparse bias edit (eager PyTorch pads nothing)
+BLOCK_OP_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+BIAS_EDIT_BUCKETS = (8, 32, 128)
+
+
+def _bucket(n: int, ladder) -> int:
+    """The first rung of ``ladder`` holding ``n`` (its top past it)."""
+    return next((b for b in ladder if n <= b), ladder[-1])
+
+
 def _table_ctx(pos: torch.Tensor, bt: torch.Tensor, bs: int) -> torch.Tensor:
     """A burst step's context lengths, ``pos + 1``, held within the block
     table: a row that does not commit (frozen, or no longer a member) can
@@ -300,6 +352,19 @@ class ModelRunner:
             params = quant.quantize_params(params)
         self.params = params
         self._reinit_device_state()
+        # first dispatches by (program, shape-bucket key); the scheduler or
+        # the prefill worker attaches its registry and flips it to serving
+        self.compiles = CompileTracker()
+        # live device time and the roofline's byte model: per decode step
+        # the weights once plus each live row's KV context, the cache's
+        # bytes per token counted from its real tensors (no lane padding,
+        # the spare row excluded: the tensors are views without it)
+        self.param_bytes = float(tensor_bytes(self.params))
+        self.kv_bytes_per_token = tensor_bytes(self.kv_cache) / max(
+            1, config.num_kv_blocks * config.kv_block_size)
+        self.device_time = DeviceTimeTracker(
+            param_bytes=self.param_bytes,
+            kv_bytes_per_token=self.kv_bytes_per_token)
         self._build_sp_prefill()
         # the chained propose-verify round: K proposals (a draft model's or
         # the ngram lookup's) on the device-finish carry
@@ -370,6 +435,9 @@ class ModelRunner:
                                       and sample_slots.max() < n):
             raise ValueError(f"sample slots outside [0, {n})")
 
+    @_tracked(lambda self, tokens, positions, block_tables, *a, **k: (
+        "prefill" if tokens.shape[1] > 1 else "decode",
+        f"b{tokens.shape[0]}_s{tokens.shape[1]}_w{block_tables.shape[1]}"))
     @torch.inference_mode()
     def step(
         self,
@@ -458,6 +526,8 @@ class ModelRunner:
             fused=self.fused_epilogue, unique_slots=False)
         return next_tokens, lps, top_vals, top_ids, prompt_lps, greedy_all
 
+    @_tracked(lambda self, tokens0, positions0, block_tables, *a, **k: (
+        "decode_burst", f"b{block_tables.shape[0]}_w{block_tables.shape[1]}"))
     @torch.inference_mode()
     def decode_burst(
         self,
@@ -578,6 +648,8 @@ class ModelRunner:
             repetition_penalty=repetition_penalty, seed_keys=seed_keys,
             counters=counters, sample_slot=sample_slot, want_top=want_top)
 
+    @_tracked(lambda self, tokens, positions, slot_map, btab, *a, **k: (
+        "prefill_sp", f"s{tokens.shape[1]}_w{btab.shape[1]}"))
     @torch.inference_mode()
     def _sp_dispatch(self, tokens, positions, slot_map, btab, chunk_start: int,
                      context_len: int, last: int, *, tail: bool,
@@ -648,6 +720,8 @@ class ModelRunner:
             raise ValueError(f"block ids outside [0, {n}): {ids.tolist()}")
         return self._t(ids)
 
+    @_tracked(lambda self, block_ids: (
+        "kv_gather", f"n{_bucket(len(block_ids), BLOCK_OP_BUCKETS)}"))
     @torch.inference_mode()
     def gather_blocks_device(self, block_ids) -> Tuple[torch.Tensor, torch.Tensor]:
         """The cache pair's blocks ``block_ids`` as device tensors
@@ -686,6 +760,8 @@ class ModelRunner:
             return k, v
         return k.pin_memory(), v.pin_memory()
 
+    @_tracked(lambda self, block_ids, *a: (
+        "kv_scatter", f"n{_bucket(len(block_ids), BLOCK_OP_BUCKETS)}"))
     @torch.inference_mode()
     def scatter_blocks(self, block_ids, k_blocks: torch.Tensor,
                        v_blocks: torch.Tensor) -> None:
@@ -714,6 +790,10 @@ class ModelRunner:
                 return s
         return self.GUIDED_STATE_BUCKETS[-1]
 
+    @_tracked(lambda self, t0, p0, g0, d0, block_tables, *a, gtable=None,
+              **k: ("decode_burst_df",
+                    f"b{block_tables.shape[0]}_w{block_tables.shape[1]}"
+                    f"_g{0 if gtable is None else gtable.shape[0]}"))
     @torch.inference_mode()
     def decode_burst_chained(
         self,
@@ -851,6 +931,9 @@ class ModelRunner:
         the speculative chain on this.)"""
         return self._spec_k > 0
 
+    @_tracked(lambda self, t0, p0, g0, d0, r0, gs0, block_tables, **k: (
+        "decode_burst_spec",
+        f"b{block_tables.shape[0]}_w{block_tables.shape[1]}"))
     @torch.inference_mode()
     def decode_burst_spec(
         self,
@@ -992,13 +1075,16 @@ class ModelRunner:
             dev = self._tp(tokens=(tokens, torch.int64),
                            positions=(positions, torch.int64),
                            valid=(valid, torch.int64))
-            vecs = self.arch.embed_forward(
-                self.params, cfg.model, dev["tokens"], dev["positions"],
-                dev["valid"])
+            with self.compiles.track("embed", f"r{rows}_s{bucket}"):
+                vecs = self.arch.embed_forward(
+                    self.params, cfg.model, dev["tokens"], dev["positions"],
+                    dev["valid"])
             out[i: i + len(batch)] = vecs[: len(batch)].cpu().numpy()
             i += len(batch)
         return out
 
+    @_tracked(lambda self, *a, **k: (
+        "sample_row", f"v{self.config.model.vocab_size}"))
     @torch.inference_mode()
     def set_sample_row(self, slot: int, prompt_ids, generated_ids=(),
                        logit_bias=None, guided_mask=None) -> None:
@@ -1027,6 +1113,8 @@ class ModelRunner:
         seen[slot].copy_(self._t(seen_row, torch.bool))
         bias[slot].copy_(self._t(bias_row, torch.float32))
 
+    @_tracked(lambda self, *a: (
+        "guided_mask", f"v{self.config.model.vocab_size}"))
     @torch.inference_mode()
     def set_bias_row(self, slot: int, bias_row: np.ndarray) -> None:
         """Replace ONE slot's sampler bias row (guided decoding's token
@@ -1034,6 +1122,8 @@ class ModelRunner:
         self.sample_state[2][slot].copy_(
             self._t(np.asarray(bias_row, np.float32), torch.float32))
 
+    @_tracked(lambda self, slot, ids, vals: (
+        "guided_mask_edit", f"n{_bucket(len(ids), BIAS_EDIT_BUCKETS)}"))
     @torch.inference_mode()
     def edit_bias_entries(self, slot: int, ids, vals) -> bool:
         """Sparse update of ONE slot's bias row: ``row[ids] = vals``. A

@@ -427,6 +427,12 @@ class _InflightBurst:
     # row's acceptance, and ``out`` carries the per-row proposed and
     # accepted counts after them (no logprobs: spec rows want none)
     spec: bool = False
+    # device-time accounting (telemetry/device_time.py): the dispatch time,
+    # and the HBM bytes this burst must stream and the tokens it samples,
+    # fixed at dispatch
+    dispatch_t: float = 0.0
+    read_bytes: float = 0.0
+    tokens: int = 0
 
 
 class Scheduler:
@@ -574,10 +580,58 @@ class Scheduler:
         # past the state bound) and the executor compiles in flight
         self._guided_tables: Dict[tuple, object] = {}
         self._guided_table_futs: Dict[tuple, object] = {}
+        # the runner's first-dispatch series and live device time render in
+        # this scrape; observations feed at the loop's EXISTING host
+        # reconciliation seams (executor host syncs, HostCopy readiness
+        # probes), never an added sync (test doubles carry no trackers)
+        for tracker in (getattr(runner, "compiles", None),
+                        getattr(runner, "device_time", None)):
+            if tracker is not None:
+                self.registry.attach(tracker.registry)
+        self.device_time = getattr(runner, "device_time", None)
+        self._register_gauges()
+
+    def _register_gauges(self) -> None:
+        """The reference's load gauges, by its names (a worker's
+        ``--metrics-port`` sidecar renders them; the fleet hub's per-worker
+        rows read them). Render callbacks run off the loop: they count over
+        ``list()`` snapshots."""
+        reg = self.registry
+        active = lambda: sum(1 for s in list(self.slots) if s is not None)  # noqa: E731
+        for name, help_, fn in (
+            ("dynamo_kv_active_blocks", "KV blocks in use",
+             lambda: self.allocator.used),
+            ("dynamo_kv_block_usage_ratio", "used / total KV blocks",
+             self.allocator.usage),
+            ("dynamo_scheduler_active_slots",
+             "Batch slots currently decoding or prefilling", active),
+            ("dynamo_scheduler_slot_occupancy_ratio",
+             "active_slots / total_slots",
+             lambda: active() / max(1, self.config.max_batch_size)),
+            ("dynamo_scheduler_waiting_requests",
+             "Admission queue depth (local waiting + pending remote prefill "
+             "+ pending prefix pulls)",
+             lambda: (len(self.waiting) + len(self.pending_remote)
+                      + len(self.pending_pull))),
+            ("dynamo_scheduler_draining_info",
+             "1 while this engine is gated for drain/recovery (admission "
+             "refused, routers skip it)", lambda: float(self.draining)),
+            ("dynamo_kv_prefix_hit_ratio",
+             "Prompt tokens served from the prefix cache / all prompt tokens",
+             lambda: (self.prefix_hit_tokens / self.prefix_total_tokens
+                      if self.prefix_total_tokens else 0.0)),
+        ):
+            reg.callback_gauge(name, help_, fn)
 
     # ---------- public API ----------
 
     def start(self) -> None:
+        # any first dispatch past this point interrupts live serving: the
+        # tracker tags it "late" (the recompile-storm signal)
+        for r in (self.runner, self.draft):
+            compiles = getattr(r, "compiles", None)
+            if compiles is not None:
+                compiles.mark_serving_started()
         if self.fabric is not None and self.fabric.cold is not None:
             # restart-warm on every embedding: prime the cold index off the
             # loop so spilled prefixes survive a restart (refresh() is
@@ -1167,6 +1221,10 @@ class Scheduler:
 
             if not progressed:
                 self.wake.clear()
+                # about to sleep: request-starved idle is not a pipeline
+                # bubble of the device-time estimator
+                if self.device_time is not None:
+                    self.device_time.idle()
                 if not self.waiting and not any(self.slots):
                     if self.pending_remote or self.pending_pull:
                         # wake on a commit; the bounded wait keeps the
@@ -1481,7 +1539,8 @@ class Scheduler:
                 frequency_penalty=er.frequency_penalty,
                 repetition_penalty=er.repetition_penalty, seed=so.seed,
                 want_logprobs=er.want_logprobs, logprobs_n=er.logprobs_n,
-                logit_bias=so.logit_bias, trace_id=er.ctx.trace_id or "")
+                logit_bias=so.logit_bias, trace_id=er.ctx.trace_id or "",
+                ctx=er.ctx)  # the kv_transfer mark is stamped at the commit
         except Exception:
             # queue unreachable: release and let the local path take it
             logger.exception("remote prefill submit failed for %s; going "
@@ -1653,6 +1712,13 @@ class Scheduler:
             self.sp_active = None
         return True
 
+    def _sp_kernel_route(self) -> bool:
+        """Does the SP chunk's prefix attention take kernel 6 (a card) or
+        the plain gather route (the CPU)? The device-time byte model
+        counts one pass over the prefix for the kernel, three for the
+        gather."""
+        return self.runner.device.type == "cuda"
+
     async def _sp_finish(self, loop, er: EngineRequest, outs) -> None:
         """Early decode handoff and drain of a finished SP ladder.
 
@@ -1663,6 +1729,9 @@ class Scheduler:
         executor sync drains both; emission follows the dense path's rules
         (tokens past a finish are discarded with the request's blocks)."""
         cfg = self.config
+        # the final chunk was dispatched just now: the ladder's device-time
+        # window closes at this drain
+        t_final = time.monotonic()
         next_tokens, lps, top_vals, top_ids = outs
         pf = self.runner.stage_to_host(next_tokens, lps, top_vals, top_ids)
         hs = self._host
@@ -1688,6 +1757,7 @@ class Scheduler:
             commit = np.zeros(b, bool)
             commit[er.slot] = True
             temp = np.where(commit, hs.temp, 0.0).astype(np.float32)
+            t_burst = time.monotonic()
             toks, lpb, tvb, tib = self.runner.decode_burst(
                 self.runner.handoff_tokens(next_tokens, er.slot), pos0, btab,
                 temp, hs.top_k, hs.top_p,
@@ -1708,6 +1778,20 @@ class Scheduler:
             return out
 
         synced = await loop.run_in_executor(None, _sync)
+        t_done = time.monotonic()
+        dt = self.device_time
+        if dt is not None:
+            chunks = -(-(er.context_len - er.num_cached)
+                       // max(1, self.runner.sp_chunk_tokens))
+            dt.observe("prefill_sp", "prefill", t_final, t_done,
+                       read_bytes=dt.sp_prefill_read_bytes(
+                           chunks, er.context_len,
+                           kernel=self._sp_kernel_route()))
+            if burst is not None:
+                dt.observe("decode_burst", "decode", t_burst, t_done,
+                           read_bytes=dt.decode_read_bytes(
+                               k_steps, er.context_len),
+                           tokens=k_steps)
         toks_pf, lps_pf, tv_pf, ti_pf = synced[:4]
         er.ctx.add_stage("prefill")
         token = int(toks_pf[0])
@@ -1809,6 +1893,7 @@ class Scheduler:
                 targets[i, : len(nxt)] = nxt
                 n_tgts[i] = max(0, min(take, len(er.prompt) - 1 - start))
 
+        t0 = time.monotonic()
         next_tokens, lps, top_vals, top_ids, plps, _ = self.runner.step(
             tokens, positions, btab, slot_map, ctx_lens, last_idx,
             temp, top_k, top_p,
@@ -1861,6 +1946,11 @@ class Scheduler:
             return (*staged.numpy(), plists)
 
         toks, lpn, tv, ti, plists = await loop.run_in_executor(None, _to_host)
+        if self.device_time is not None:
+            # non-final chunks never sync; their device time folds into this
+            # observation through the serialized-interval estimator
+            self.device_time.observe("prefill", "prefill", t0,
+                                     time.monotonic())
         for i in finals:
             er = plan[i][0]
             self.prefilling.remove(er)
@@ -2015,6 +2105,7 @@ class Scheduler:
             last_idx[i] = len(row) - 1
 
         zf, zi = np.zeros(b, np.float32), np.zeros(b, np.int32)
+        t_dispatch = time.monotonic()
         *_, greedy_all = self.runner.step(
             tokens, positions, btab, slot_map, ctx_lens, last_idx,
             zf, zi, np.ones(b, np.float32),
@@ -2026,6 +2117,14 @@ class Scheduler:
             want_top=False, want_greedy=True,
         )
         ga = await loop.run_in_executor(None, lambda: greedy_all.cpu().numpy())
+        dt = self.device_time
+        if dt is not None:
+            # the verify forward is one decode-shaped step over S positions:
+            # the weights once and each row's (ctx + S) KV
+            dt.observe("spec_verify", "decode", t_dispatch, time.monotonic(),
+                       read_bytes=dt.decode_read_bytes(
+                           1, sum(er.context_len + S for er in active)),
+                       tokens=len(active))
         self.steps += 1
         self.decode_steps += 1
 
@@ -2123,6 +2222,7 @@ class Scheduler:
         temp = np.where(commit, hs.temp, 0.0).astype(np.float32)
         want_top = any(er.logprobs_n > 0 for er in active)
 
+        t_dispatch = time.monotonic()
         if k_steps > 1:
             # the chained burst's device finish, from committed host state:
             # frozen rows emit -1 pads
@@ -2162,6 +2262,13 @@ class Scheduler:
 
         out = self.runner.stage_to_host(next_tokens, lps, top_vals, top_ids)
         toks, lpn, tv, ti = await loop.run_in_executor(None, _host_sync, out)
+        dt = self.device_time
+        if dt is not None:
+            dt.observe("decode_burst" if k_steps > 1 else "decode", "decode",
+                       t_dispatch, time.monotonic(),
+                       read_bytes=dt.decode_read_bytes(
+                           k_steps, sum(er.context_len for er in active)),
+                       tokens=k_steps * len(active))
         self.steps += 1
         self.decode_steps += 1
         if k_steps == 1:
@@ -2277,6 +2384,7 @@ class Scheduler:
             tokens0 = infl.last_tokens  # device-resident carry
         want_top = any(er.logprobs_n > 0 for er in active)
 
+        t_dispatch = time.monotonic()
         toks, lps, tv, ti = self.runner.decode_burst(
             tokens0, positions0, btab, hs.temp, hs.top_k, hs.top_p,
             min_p=hs.min_p, presence_penalty=hs.pres,
@@ -2287,10 +2395,16 @@ class Scheduler:
         self.steps += 1
         self.decode_steps += 1
         self.pipeline_bursts += 1
+        dt = self.device_time
         self._inflight = _InflightBurst(
             active=list(active),
             out=self.runner.stage_to_host(toks, lps, tv, ti),
             k_steps=k_steps, last_tokens=toks[k_steps - 1],
+            dispatch_t=t_dispatch,
+            read_bytes=dt.decode_read_bytes(
+                k_steps, sum(er.context_len + ahead for er in active),
+            ) if dt is not None else 0.0,
+            tokens=k_steps * len(active),
         )
         if infl is not None:
             # burst k+1 is on the device: reconcile burst k while it runs
@@ -2300,13 +2414,25 @@ class Scheduler:
                 # Reconcile it now instead of leaving an orphan in flight
                 await self._drain_pipeline(loop)
 
-    async def _apply_burst(self, loop, infl: _InflightBurst) -> None:
+    async def _apply_burst(self, loop, infl: _InflightBurst,
+                           ready_hint: Optional[float] = None) -> None:
         """Host half of the pipeline: wait for the burst's sampled tokens
         (the decode loop's ONLY host sync, on the burst's own event), emit
         them, run finish checks, and retro-invalidate rows that finished
         one burst late. A propose-verify round also adds its rows'
-        proposed and accepted counts to the speculation metrics."""
+        proposed and accepted counts to the speculation metrics.
+
+        ``ready_hint`` is the moment a ``HostCopy.ready()`` probe saw the
+        outputs land (the chain's row drain): the device-time observation
+        prefers it to the post-sync stamp, so drain lag is not charged as
+        device time."""
         outs = await loop.run_in_executor(None, _host_sync, infl.out)
+        if self.device_time is not None and infl.dispatch_t:
+            self.device_time.observe(
+                "decode_burst_df" if infl.device_finish else "decode_burst",
+                "decode", infl.dispatch_t,
+                ready_hint if ready_hint is not None else time.monotonic(),
+                read_bytes=infl.read_bytes, tokens=infl.tokens)
         if infl.spec:
             # spec rounds carry no logprobs (spec rows want none), but the
             # acceptance accounting
@@ -2579,10 +2705,11 @@ class Scheduler:
 
     # ---------- the chain ----------
 
-    async def _apply_chain_head(self, loop) -> None:
+    async def _apply_chain_head(self, loop,
+                                ready_hint: Optional[float] = None) -> None:
         """Reconcile the oldest queued chained burst (FIFO: token order
         per row)."""
-        await self._apply_burst(loop, self._chain.popleft())
+        await self._apply_burst(loop, self._chain.popleft(), ready_hint)
 
     async def _chain_prologue(self, loop, active, kind):
         """The open / validate ladder of a chained pass: reconcile a
@@ -2678,7 +2805,9 @@ class Scheduler:
         every member finished (anything still queued is frozen
         over-decode)."""
         while self._chain and self._chain[0].out.ready():
-            await self._apply_chain_head(loop)
+            # ready() is an event query, never a sync: its time is the
+            # device-time observation's ready stamp
+            await self._apply_chain_head(loop, ready_hint=time.monotonic())
         while len(self._chain) >= self.CHAIN_MAX_INFLIGHT:
             await self._apply_chain_head(loop)
         if all(er.finish is not None for er in members):
@@ -2741,6 +2870,7 @@ class Scheduler:
             carry = self._chain_carry
         tokens0, positions0, gen0, done0, ring0, gstate0 = carry
 
+        t_dispatch = time.monotonic()
         toks, lps, tv, ti, self._chain_carry = self.runner.decode_burst_chained(
             tokens0, positions0, gen0, done0, btab,
             hs.temp, hs.top_k, hs.top_p,
@@ -2756,10 +2886,17 @@ class Scheduler:
         self.steps += 1
         self.decode_steps += 1
         self.pipeline_bursts += 1
+        dt = self.device_time
         self._chain.append(_InflightBurst(
             active=list(live),
             out=self.runner.stage_to_host(toks, lps, tv, ti),
             k_steps=k_steps, last_tokens=None, device_finish=True,
+            dispatch_t=t_dispatch,
+            read_bytes=dt.decode_read_bytes(k_steps, sum(
+                min(self._chain_pos0[er.slot] + n * k_steps,
+                    cfg.max_model_len) for er in live),
+            ) if dt is not None else 0.0,
+            tokens=k_steps * len(live),
         ))
         await self._chain_drain(loop, members)
 
@@ -2798,6 +2935,8 @@ class Scheduler:
             carry = self._chain_carry
         tokens0, positions0, gen0, done0, ring0, gstate0 = carry
 
+        n = self._chain_dispatched
+        t_dispatch = time.monotonic()
         props = None
         if self.draft is not None:
             # the draft's round on the SAME carry: its burst takes the
@@ -2820,10 +2959,18 @@ class Scheduler:
         self.steps += 1
         self.decode_steps += 1
         self.pipeline_bursts += 1
+        dt = self.device_time
         self._chain.append(_InflightBurst(
             active=list(live),
             out=self.runner.stage_to_host(toks, nprop, nacc),
-            k_steps=S, last_tokens=None, device_finish=True, spec=True))
+            k_steps=S, last_tokens=None, device_finish=True, spec=True,
+            dispatch_t=t_dispatch,
+            # one S-position forward: the weights once, each row's KV
+            read_bytes=dt.decode_read_bytes(1, sum(
+                min(self._chain_pos0[er.slot] + n * S + S, cfg.max_model_len)
+                for er in live),
+            ) if dt is not None else 0.0,
+            tokens=len(live)))
         await self._chain_drain(loop, members)
 
     def _logit_bias_onto(self, er: EngineRequest, row: np.ndarray) -> np.ndarray:

@@ -2,12 +2,9 @@
 
 The port's copy of ``dynamo_tpu/http/service.py`` (``ModelManager``,
 ``HttpService``). The reference serves through aiohttp, which the port
-does not depend on; this module speaks the HTTP/1.1 subset the routes
-need itself: a request line, headers and a ``Content-Length`` (or chunked)
-body in; a ``Content-Length`` JSON body, or an SSE stream sent with
-``Transfer-Encoding: chunked`` (as aiohttp's ``StreamResponse`` sends it),
-out; keep-alive between requests. The status codes and error bodies are
-the reference's.
+does not depend on; the service is a ``RouteServer`` of ``http/server.py``
+(the port's own HTTP/1.1 on asyncio streams). The status codes and error
+bodies are the reference's.
 
 Routes: POST /v1/chat/completions, POST /v1/completions, POST
 /v1/embeddings (served by an engine that carries an ``embedder``, else
@@ -18,14 +15,24 @@ controller's ``admin_drain``; 501 without one). A client that goes away
 mid-stream stops its request; a draining engine's request is a 503 with
 Retry-After.
 
+Telemetry routes (``telemetry/``): GET /debug/requests[?limit=N] and
+/debug/requests/{id} (completed traces: span breakdowns of the ingress
+trace id, which honours ``X-Request-Id``), /debug/trace/{id} (the same
+request's spans from every process it crossed, stitched onto one clock),
+/debug/flight[?save=1][&request=<id>] (the flight artifact on demand),
+/debug/incidents[?id=<bundle>] (incident bundles; 501 without a recorder),
+/debug/profile?seconds=N (a ``torch.profiler`` capture; served only with
+a ``profile_dir``), and /fleet/metrics and /fleet/workers (the fleet
+hub's rollups; 501 without a hub).
+
 Discovery (the reference's ``register_model`` / ``ModelWatcher``): a
 worker or processor registers its model under the discovery plane's
 ``{namespace}/models/`` prefix, lease-scoped, and a frontend's
 ``ModelWatcher`` adds a routed ``Client`` for each registration and drops
 it when the registration goes (the worker's lease expired). Not ported
 yet: the model registry's fleet cards (``register_model``'s ``card``, so
-aliases, tenants and per-model pools), admission, quotas and pools, the
-/debug and /fleet routes, and /admin's model management.
+aliases, tenants and per-model pools), admission, quotas and pools, and
+/admin's model management.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-import urllib.parse
 from typing import Any, AsyncIterator, Dict, Optional, Tuple
 
 from ..protocols import sse
@@ -58,16 +64,20 @@ from ..runtime.engine import (
     EngineError,
 )
 from ..runtime.wire import packb, unpackb
+from ..telemetry.tracing import TraceRecorder
 from .metrics import ServiceMetrics
+from .server import (
+    Connection,
+    Request,
+    Response,
+    RouteServer,
+    StreamResponse,
+    error_response,
+    json_response,
+)
 
 logger = logging.getLogger(__name__)
 
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-            405: "Method Not Allowed", 500: "Internal Server Error",
-            501: "Not Implemented", 502: "Bad Gateway",
-            503: "Service Unavailable"}
-MAX_HEADER_BYTES = 64 * 1024
-MAX_BODY_BYTES = 64 * 1024 * 1024
 MODEL_REGISTRY_PREFIX = "models/"  # under the http namespace
 
 
@@ -105,237 +115,93 @@ class ModelManager:
         return sorted(set(self.chat_engines) | set(self.completion_engines))
 
 
-class Request:
-    """One parsed HTTP request."""
-
-    def __init__(self, method: str, path: str, headers: Dict[str, str],
-                 body: bytes, query: Optional[Dict[str, str]] = None):
-        self.method, self.path, self.headers, self.body = (
-            method, path, headers, body)
-        self.query = query or {}  # the last value of each query parameter
-
-    def json(self) -> Any:
-        return json.loads(self.body.decode("utf-8") if self.body else "")
-
-
-class Response:
-    """A whole response: status, headers, body."""
-
-    def __init__(self, body: bytes = b"", status: int = 200,
-                 content_type: str = "application/json; charset=utf-8",
-                 headers: Optional[Dict[str, str]] = None):
-        self.body, self.status = body, status
-        self.headers = {"Content-Type": content_type, **(headers or {})}
-
-
-def json_response(obj: Any, status: int = 200,
-                  headers: Optional[Dict[str, str]] = None) -> Response:
-    return Response(json.dumps(obj).encode(), status, headers=headers)
-
-
-def _status_line(status: int) -> bytes:
-    return f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}\r\n".encode()
-
-
-class _ClientGone(Exception):
-    """The connection closed while a request was being read or answered."""
-
-
-class StreamResponse:
-    """A chunked response written as it is produced (the SSE stream)."""
-
-    def __init__(self, conn: "_Connection", headers: Dict[str, str]):
-        self._conn = conn
-        self.headers = headers
-        self.status = 200
-
-    async def prepare(self) -> None:
-        self._conn.streaming = True
-        head = _status_line(200) + b"".join(
-            f"{k}: {v}\r\n".encode() for k, v in self.headers.items())
-        await self._conn.send(head + b"Transfer-Encoding: chunked\r\n\r\n")
-
-    async def write(self, data: bytes) -> None:
-        if data:
-            await self._conn.send(b"%x\r\n%s\r\n" % (len(data), data))
-
-    async def write_eof(self) -> None:
-        await self._conn.send(b"0\r\n\r\n")
-        self._conn.streaming = False
-
-
-class _Connection:
-    def __init__(self, reader: asyncio.StreamReader,
-                 writer: asyncio.StreamWriter):
-        self.reader, self.writer = reader, writer
-        self.streaming = False  # a chunked answer's head went out
-
-    async def send(self, data: bytes) -> None:
-        """Write and drain; a peer that closed its side raises
-        ``ConnectionResetError`` (the reference's aiohttp does the same)."""
-        if self.writer.is_closing() or self.reader.at_eof():
-            raise ConnectionResetError("client disconnected")
-        self.writer.write(data)
-        await self.writer.drain()
-
-    async def read_request(self) -> Optional[Request]:
-        try:
-            head = await self.reader.readuntil(b"\r\n\r\n")
-        except asyncio.IncompleteReadError as e:
-            if e.partial.strip():
-                raise _ClientGone() from e
-            return None
-        except asyncio.LimitOverrunError as e:
-            raise ValueError("request header too large") from e
-        lines = head.decode("latin-1").split("\r\n")
-        try:
-            method, target, _version = lines[0].split(" ", 2)
-        except ValueError as e:
-            raise ValueError(f"bad request line {lines[0]!r}") from e
-        headers: Dict[str, str] = {}
-        for line in lines[1:]:
-            if not line:
-                continue
-            name, _, value = line.partition(":")
-            headers[name.strip().lower()] = value.strip()
-        body = b""
-        try:
-            if headers.get("transfer-encoding", "").lower() == "chunked":
-                parts = []
-                while True:
-                    size = int((await self.reader.readline()).split(b";")[0], 16)
-                    if size == 0:
-                        await self.reader.readline()
-                        break
-                    parts.append(await self.reader.readexactly(size))
-                    await self.reader.readexactly(2)
-                body = b"".join(parts)
-            elif "content-length" in headers:
-                n = int(headers["content-length"])
-                if n > MAX_BODY_BYTES:
-                    raise ValueError("request body too large")
-                body = await self.reader.readexactly(n)
-        except asyncio.IncompleteReadError as e:
-            raise _ClientGone() from e
-        path, _, qs = target.partition("?")
-        query = dict(urllib.parse.parse_qsl(qs, keep_blank_values=True))
-        return Request(method.upper(), path, headers, body, query)
-
-
-class HttpService:
+class HttpService(RouteServer):
     def __init__(
         self,
         manager: Optional[ModelManager] = None,
         host: str = "0.0.0.0",
         port: int = 8080,
         metrics_prefix: str = "dynamo",
+        profile_dir: Optional[str] = None,
+        slo=None,        # telemetry.slo.SloTracker
+        trace_ttl_s: Optional[float] = None,
+        trace_capacity: Optional[int] = None,
+        hub=None,        # telemetry.hub.FleetHub
+        incidents=None,  # telemetry.incidents.IncidentRecorder
     ):
+        super().__init__(host, port)
         self.manager = manager or ModelManager()
-        self.host = host
-        self.port = port
         self.metrics = ServiceMetrics(metrics_prefix)
-        self.routes = {
-            ("POST", "/v1/chat/completions"): self.handle_chat,
-            ("POST", "/v1/completions"): self.handle_completions,
-            ("POST", "/v1/embeddings"): self.handle_embeddings,
-            ("GET", "/v1/models"): self.handle_models,
-            ("GET", "/metrics"): self.handle_metrics,
-            ("GET", "/health"): self.handle_health,
-            ("POST", "/admin/drain"): self.handle_admin_drain,
-        }
+        # optional SLO attainment + goodput accounting: per-request TTFT /
+        # worst-ITL verdicts at the edge (telemetry/slo.py)
+        if slo is not None:
+            self.metrics.slo = slo
+            self.metrics.registry.attach(slo.registry)
+        # completed request traces: ingress-assigned trace ids (honoring
+        # X-Request-Id) → span breakdowns at GET /debug/requests/{id},
+        # cluster-stitched timelines at GET /debug/trace/{id}. Bounded by
+        # max-entries LRU AND TTL (evictions counted on
+        # dynamo_trace_evicted_total)
+        self.traces = TraceRecorder(
+            capacity=trace_capacity, ttl_s=trace_ttl_s,
+            registry=self.metrics.registry)
+        self.profile_dir = profile_dir
+        for method, path, handler in (
+            ("POST", "/v1/chat/completions", self.handle_chat),
+            ("POST", "/v1/completions", self.handle_completions),
+            ("POST", "/v1/embeddings", self.handle_embeddings),
+            ("GET", "/v1/models", self.handle_models),
+            ("GET", "/metrics", self.handle_metrics),
+            ("GET", "/health", self.handle_health),
+            ("GET", "/debug/requests", self.handle_debug_requests),
+            ("GET", "/debug/requests/{rid}", self.handle_debug_request),
+            ("GET", "/debug/trace/{rid}", self.handle_debug_trace),
+            ("GET", "/debug/flight", self.handle_flight),
+            ("POST", "/admin/drain", self.handle_admin_drain),
+            ("GET", "/fleet/metrics", self.handle_fleet_metrics),
+            ("GET", "/fleet/workers", self.handle_fleet_workers),
+            ("GET", "/debug/incidents", self.handle_incidents),
+        ):
+            self.add_route(method, path, handler)
+        if profile_dir:
+            # opt-in only: a capture costs device time and writes disk
+            self.add_route("GET", "/debug/profile", self.handle_profile)
+            self._profile_lock = asyncio.Lock()
         # zero-downtime rolling updates: drain and live-migrate the in-flight
         # requests to peers (recovery/controller.py). Set by the CLI when
         # --self-heal builds a RecoveryController; /admin/drain is 501 without
         self.drainer = None  # async (mode, respawn) -> summary dict
-        self._server: Optional[asyncio.AbstractServer] = None
-        self._conns: set = set()
+        # fleet telemetry hub + incident recorder (telemetry/hub.py,
+        # telemetry/incidents.py): wired by the CLI (--hub, --incident-dir);
+        # their routes answer 501 while off, so an operator learns the flag
+        self.hub = hub
+        self.incidents = incidents
+        if hub is not None:
+            self.metrics.registry.attach(hub.registry)
+        if incidents is not None:
+            self.metrics.registry.attach(incidents.registry)
 
-    # ---------- lifecycle ----------
+    async def start(self) -> "HttpService":
+        if self.profile_dir:
+            # CUPTI initialises at a process's first profiler start, on the
+            # loop's thread: pay it before serving, not inside a capture
+            from ..utils.profiling import prepare_profiler
 
-    async def start(self) -> None:
-        self._server = await asyncio.start_server(
-            self._serve_connection, self.host, self.port,
-            limit=MAX_HEADER_BYTES)
-        if self.port == 0:
-            self.port = self._server.sockets[0].getsockname()[1]
+            self.profiler_prepare_s = prepare_profiler()
+        await super().start()
         logger.info("http service on %s:%d", self.host, self.port)
-
-    async def stop_accepting(self) -> None:
-        """Close the listening socket but keep in-flight connections alive
-        (the first phase of graceful shutdown: drain without accepting)."""
-        if self._server is not None:
-            self._server.close()
-            self._server = None
+        return self
 
     async def stop(self) -> None:
-        await self.stop_accepting()
-        tasks = list(self._conns)
-        for t in tasks:
-            t.cancel()
-        await asyncio.gather(*tasks, return_exceptions=True)
-
-    async def _serve_connection(self, reader, writer) -> None:
-        task = asyncio.current_task()
-        self._conns.add(task)
-        conn = _Connection(reader, writer)
-        try:
-            while True:
-                try:
-                    request = await conn.read_request()
-                except ValueError as e:
-                    await self._send(conn, self._error(400, str(e)), False)
-                    return
-                if request is None:
-                    return
-                keep = request.headers.get("connection", "").lower() != "close"
-                handler = self.routes.get((request.method, request.path))
-                if handler is None:
-                    known = any(p == request.path for _, p in self.routes)
-                    resp = Response(
-                        b"405: Method Not Allowed" if known else b"404: Not Found",
-                        405 if known else 404, "text/plain; charset=utf-8")
-                else:
-                    try:
-                        resp = await handler(request, conn)
-                    except ConnectionResetError:
-                        return
-                    except Exception as e:  # noqa: BLE001 — the 500 answer
-                        logger.exception("unhandled error in %s", request.path)
-                        resp = self._error(500, str(e), "internal_error")
-                if isinstance(resp, StreamResponse):
-                    if not keep:
-                        return
-                    continue
-                if conn.streaming:
-                    # a failure after the stream's head went out: the
-                    # connection cannot carry another answer
-                    return
-                await self._send(conn, resp, keep)
-                if not keep:
-                    return
-        except (_ClientGone, ConnectionResetError, BrokenPipeError):
-            pass
-        finally:
-            self._conns.discard(task)
-            writer.close()
-
-    @staticmethod
-    async def _send(conn: _Connection, resp: Response, keep: bool) -> None:
-        headers = dict(resp.headers, **{
-            "Content-Length": str(len(resp.body)),
-            "Connection": "keep-alive" if keep else "close"})
-        head = _status_line(resp.status) + b"".join(
-            f"{k}: {v}\r\n".encode() for k, v in headers.items())
-        await conn.send(head + b"\r\n" + resp.body)
+        await super().stop()
+        # close() joins the trace writer thread: off the loop, so a hung
+        # JSONL filesystem cannot stall the rest of shutdown
+        await asyncio.get_running_loop().run_in_executor(
+            None, self.traces.close)
 
     # ---------- helpers ----------
 
-    @staticmethod
-    def _error(status: int, message: str, err_type: str = "invalid_request_error"):
-        return json_response(
-            {"error": {"message": message, "type": err_type, "code": status}},
-            status=status,
-        )
+    _error = staticmethod(error_response)
 
     @staticmethod
     def _model_not_found(model: str):
@@ -352,7 +218,7 @@ class HttpService:
         )
 
     async def _handle_inference(
-        self, request: Request, conn: _Connection, request_cls,
+        self, request: Request, conn: Connection, request_cls,
         engines: Dict[str, AsyncEngine], chunk_cls, aggregate,
     ):
         try:
@@ -433,10 +299,12 @@ class HttpService:
         finally:
             ctx.context.stop_generating()
             timer.finish(status)
+            self.traces.record(ctx.trace_id, name, status, ctx.stages,
+                               ctx=ctx.context)
 
     async def _stream_sse(
         self,
-        conn: _Connection,
+        conn: Connection,
         ctx: Context,
         first: Any,
         chunks: AsyncIterator[Any],
@@ -500,19 +368,19 @@ class HttpService:
 
     # ---------- routes ----------
 
-    async def handle_chat(self, request: Request, conn: _Connection):
+    async def handle_chat(self, request: Request, conn: Connection):
         return await self._handle_inference(
             request, conn, ChatCompletionRequest, self.manager.chat_engines,
             ChatCompletionChunk, aggregate_chat_stream,
         )
 
-    async def handle_completions(self, request: Request, conn: _Connection):
+    async def handle_completions(self, request: Request, conn: Connection):
         return await self._handle_inference(
             request, conn, CompletionRequest, self.manager.completion_engines,
             CompletionResponse, aggregate_completion_stream,
         )
 
-    async def handle_embeddings(self, request: Request, conn: _Connection):
+    async def handle_embeddings(self, request: Request, conn: Connection):
         """POST /v1/embeddings: the prefill-only workload
         (``llm/embeddings.py``), OpenAI-shaped request (input: str | [str] |
         [ids] | [[ids]]) and response (data rows + usage counts). Served
@@ -571,21 +439,21 @@ class HttpService:
             "usage": {"prompt_tokens": ntok, "total_tokens": ntok},
         })
 
-    async def handle_models(self, request: Request, conn: _Connection):
+    async def handle_models(self, request: Request, conn: Connection):
         data = [ModelInfo(id=name, **self.manager.metadata.get(name, {}))
                 for name in self.manager.model_names()]
         return json_response(ModelList(data=data).model_dump(exclude_none=True))
 
-    async def handle_metrics(self, request: Request, conn: _Connection):
+    async def handle_metrics(self, request: Request, conn: Connection):
         return Response(self.metrics.render().encode(),
                         content_type="text/plain; charset=utf-8")
 
-    async def handle_health(self, request: Request, conn: _Connection):
+    async def handle_health(self, request: Request, conn: Connection):
         return json_response(
             {"status": "ok", "models": self.manager.model_names()})
 
 
-    async def handle_admin_drain(self, request: Request, conn: _Connection):
+    async def handle_admin_drain(self, request: Request, conn: Connection):
         """POST /admin/drain[?mode=migrate|fail][&respawn=1]: stop
         admission, let committed bursts finish, live-migrate the rest to
         healthy peers and (optionally) respawn. Returns the drain's summary
@@ -599,6 +467,144 @@ class HttpService:
             return json_response({"error": f"bad mode {mode!r}"}, status=400)
         respawn = request.query.get("respawn") in ("1", "true", "yes")
         return json_response(await self.drainer(mode=mode, respawn=respawn))
+
+
+    # ---------- telemetry routes ----------
+
+    @staticmethod
+    def _no_trace(rid: str) -> Response:
+        return json_response(
+            {"error": f"no completed trace for request id {rid!r} "
+                      "(unknown, evicted, or still in flight)"},
+            status=404)
+
+    async def handle_debug_requests(self, request: Request, conn: Connection):
+        """GET /debug/requests?limit=N: the most recent completed traces
+        (newest last), for finding an id when the client picked none."""
+        try:
+            limit = int(request.query.get("limit", "20"))
+        except ValueError:
+            return json_response({"error": "bad limit"}, status=400)
+        return json_response(
+            {"traces": self.traces.recent(max(1, min(limit, 200)))})
+
+    async def handle_debug_request(self, request: Request, conn: Connection):
+        """GET /debug/requests/{id}: one completed request's span breakdown
+        (stage names, offsets, durations). Send the request with an
+        X-Request-Id header to pick the id."""
+        rid = request.match_info["rid"]
+        trace = self.traces.get(rid)
+        if trace is None:
+            return self._no_trace(rid)
+        return json_response(trace)
+
+    async def handle_debug_trace(self, request: Request, conn: Connection):
+        """GET /debug/trace/{id}: the request X-ray. Every process's spans
+        (frontend, router hop, decode engine, prefill worker, migration
+        peer) on ONE clock-adjusted axis, with each hop's offset and rtt
+        and the unattributed gaps."""
+        from ..telemetry.stitch import stitched_timeline, timeline_gaps
+
+        rid = request.match_info["rid"]
+        trace = self.traces.get(rid)
+        if trace is None:
+            return self._no_trace(rid)
+        stitched = stitched_timeline(trace)
+        return json_response({
+            "request_id": trace["request_id"],
+            "model": trace.get("model"),
+            "status": trace.get("status"),
+            "total_s": trace.get("total_s"),
+            "sources": stitched["sources"],
+            "timeline": stitched["timeline"],
+            "gaps": timeline_gaps(stitched["timeline"], min_gap_s=0.0005),
+        })
+
+    async def handle_flight(self, request: Request, conn: Connection):
+        """GET /debug/flight[?save=1][&request=<id>]: the flight artifact
+        on demand (ring events, optionally of one request; all-thread
+        stacks; every registered engine's probe, request table and metrics;
+        recent traces). ``save=1`` also writes it to DYN_FLIGHT_DIR."""
+        from ..telemetry.watchdog import (
+            build_flight_artifact,
+            write_flight_artifact,
+        )
+
+        loop = asyncio.get_running_loop()
+        # stack walking and metrics rendering off the loop: this is the
+        # route an operator calls when the loop is ailing
+        artifact = await loop.run_in_executor(
+            None, lambda: build_flight_artifact(reason="debug_endpoint"))
+        if request.query.get("save"):
+            # persist the whole dump before any filtering of the answer
+            artifact["artifact_path"] = await loop.run_in_executor(
+                None, lambda: write_flight_artifact(artifact))
+        rid = request.query.get("request")
+        if rid:
+            artifact["events"] = [
+                e for e in artifact["events"]
+                if e.get("request_id") == rid or e.get("trace_id") == rid]
+            artifact["filtered_to_request"] = rid
+        return json_response(artifact, default=str)
+
+    async def handle_fleet_metrics(self, request: Request, conn: Connection):
+        """GET /fleet/metrics: cluster rollups (sum/max/avg by role, counter
+        rates) from the fleet hub's scraped histories."""
+        if self.hub is None:
+            return json_response(
+                {"error": "no fleet hub attached (serve with --hub)"},
+                status=501)
+        return await self.hub.handle_fleet_metrics(request, conn)
+
+    async def handle_fleet_workers(self, request: Request, conn: Connection):
+        """GET /fleet/workers: per-worker KV, busy, roofline, SLO and drain
+        rows."""
+        if self.hub is None:
+            return json_response(
+                {"error": "no fleet hub attached (serve with --hub)"},
+                status=501)
+        return await self.hub.handle_fleet_workers(request, conn)
+
+    async def handle_incidents(self, request: Request, conn: Connection):
+        """GET /debug/incidents[?id=]: list or fetch incident bundles."""
+        if self.incidents is None:
+            return json_response(
+                {"error": "no incident recorder attached (set "
+                          "DYN_INCIDENT_DIR or --incident-dir)"},
+                status=501)
+        return await self.incidents.handle_debug_incidents(request, conn)
+
+    async def handle_profile(self, request: Request, conn: Connection):
+        """GET /debug/profile?seconds=N: a ``torch.profiler`` capture of
+        live traffic (CPU and, on a card, CUDA activity) into the profile
+        directory; the answer names the trace and sums its kernels."""
+        from ..utils.profiling import (
+            CaptureBusyError,
+            capture_trace_async,
+            read_summary,
+        )
+
+        try:
+            seconds = float(request.query.get("seconds", "2"))
+        except ValueError:
+            return json_response({"error": "bad seconds"}, status=400)
+        if seconds != seconds:  # NaN survives min/max clamping
+            return json_response({"error": "bad seconds"}, status=400)
+        seconds = min(max(seconds, 0.1), 60.0)
+        # one capture per process: a concurrent one gets a clean 409
+        if self._profile_lock.locked():
+            return json_response(
+                {"error": "a capture is already in flight"}, status=409)
+        async with self._profile_lock:
+            try:
+                trace_dir = await capture_trace_async(
+                    self.profile_dir, seconds)
+            except CaptureBusyError as e:
+                # the process-wide lock is held by a capture that did not
+                # come through this route (an incident bundle's window)
+                return json_response({"error": str(e)}, status=409)
+        return json_response({"trace_dir": trace_dir, "seconds": seconds,
+                              "summary": read_summary(trace_dir)})
 
 
 class _StreamDisconnect(Exception):

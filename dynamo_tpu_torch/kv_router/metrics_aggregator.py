@@ -3,9 +3,9 @@
 Reference analog: lib/llm/src/kv_router/metrics_aggregator.rs — 100ms poll
 loop with a short scrape timeout feeding a ProcessedEndpoints snapshot.
 
-The port's copy of ``dynamo_tpu/kv_router/metrics_aggregator.py``, without
-``register_into`` (the per-worker gauges of the router's metrics sidecar,
-which the port does not serve yet).
+The port's copy of ``dynamo_tpu/kv_router/metrics_aggregator.py``;
+``register_into`` renders the per-worker snapshot on the router's registry
+(a processor's ``--metrics-port`` sidecar).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..runtime.client import Client
 from .protocols import ForwardPassMetrics
@@ -81,6 +81,40 @@ class KvMetricsAggregator:
             # successful scrape (e.g. died before their first poll)
             self.on_sync(live)
         return self.endpoints
+
+    def register_into(self, registry, prefix: str = "dynamo") -> None:
+        """Expose the per-worker snapshot as labelled gauges on a
+        MetricsRegistry (the router-side /metrics surface)."""
+
+        def per_worker(field: str) -> Callable[[], List[Tuple[dict, float]]]:
+            # renders off the loop while the poll loop inserts and expires
+            # workers: iterate a snapshot
+            def collect():
+                return [({"instance": iid}, float(getattr(m, field)))
+                        for iid, m in list(self.endpoints.items())]
+            return collect
+
+        for name, help_, field in (
+            ("kv_active_blocks",
+             "Worker's in-use KV blocks (scraped ForwardPassMetrics)",
+             "kv_active_blocks"),
+            ("kv_total_blocks", "Worker's KV capacity in blocks (scraped)",
+             "kv_total_blocks"),
+            ("active_slots", "Worker's busy batch slots (scraped)",
+             "request_active_slots"),
+            ("waiting_requests", "Worker's admission-queue depth (scraped)",
+             "num_requests_waiting"),
+            ("prefix_hit_ratio", "Worker's prefix-cache hit rate (scraped)",
+             "gpu_prefix_cache_hit_rate"),
+        ):
+            registry.callback_gauge(f"{prefix}_kv_router_worker_{name}",
+                                    help_, per_worker(field))
+        registry.callback_gauge(
+            f"{prefix}_kv_router_worker_staleness_seconds",
+            "Age of the worker's last successful stats scrape",
+            lambda: [({"instance": iid}, time.monotonic() - t)
+                     for iid, t in list(self.last_update.items())],
+        )
 
     def stop(self) -> None:
         if self._task:

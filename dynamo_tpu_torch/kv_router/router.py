@@ -6,11 +6,10 @@ KVHitRateEvents so observability tooling can track routing quality.
 
 Reference analog: lib/llm/src/kv_router.rs:66-169.
 
-The port's copy of ``dynamo_tpu/kv_router/router.py``. Not carried: the
-flight recorder's pick event and the router's metrics registry (its
-decision counters and the aggregator's per-worker gauges, rendered by the
-reference's processor sidecar, which the port does not serve) and the
-``num_shards`` option (the one-tree index is the only one a caller
+The port's copy of ``dynamo_tpu/kv_router/router.py``. Its ``registry``
+carries the decision counters and the aggregator's per-worker gauges (a
+processor's ``--metrics-port`` sidecar renders it). Not carried: the
+flight recorder's pick event and the ``num_shards`` option (the one-tree index is the only one a caller
 builds). Added:
 ``stats()``, what a processor's stats scrape answers: the index's size
 and events, the decisions, each decision's time and each event's lag from
@@ -30,6 +29,7 @@ from ..runtime.component import Component
 from ..runtime.wire import unpackb
 from ..tokens import compute_block_hashes
 from .indexer import KvIndexer
+from ..telemetry.registry import MetricsRegistry
 from .metrics_aggregator import KvMetricsAggregator
 from .protocols import KV_EVENT_SUBJECT, KV_HIT_RATE_EVENT, RouterEvent
 from .scheduler import KvScheduler, SchedulingDecision
@@ -86,6 +86,29 @@ class KvRouter:
         self.decision_us = _Stat()   # index lookup + cost function
         self.event_lag_ms = _Stat()  # publisher hook -> applied here
         self.decisions = 0
+        # the router's own observability surface: per-worker scraped load
+        # (active blocks, prefix hit rate, scrape staleness) and the routing
+        # decision counters
+        self.registry = MetricsRegistry()
+        self.aggregator.register_into(self.registry)
+        self._decisions = self.registry.counter(
+            "dynamo_kv_router_decisions_total",
+            "Scheduling decisions, labelled by chosen worker",
+        )
+        self._overlap_blocks = self.registry.counter(
+            "dynamo_kv_router_overlap_blocks_total",
+            "Prefix-overlap blocks credited to chosen workers",
+        )
+        self._stale_skips = self.registry.counter(
+            "dynamo_kv_router_stale_worker_skips_total",
+            "Workers excluded from a scheduling decision because their "
+            "load snapshot exceeded the staleness bound",
+        )
+        self._draining_skips = self.registry.counter(
+            "dynamo_kv_router_draining_worker_skips_total",
+            "Workers excluded from a scheduling decision because their "
+            "load snapshot carried the recovery-drain flag",
+        )
 
     def _on_worker_gone(self, worker_id: str) -> None:
         self.scheduler.remove_worker(worker_id)
@@ -134,6 +157,12 @@ class KvRouter:
             len(token_ids), overlap, pool=self.model_pool(model))
         self.decision_us.add((time.perf_counter() - t0) * 1e6)
         self.decisions += 1
+        # the scheduler counts exclusions; the series mirror its totals
+        self._stale_skips.set_sample(float(self.scheduler.stale_skips))
+        self._draining_skips.set_sample(float(self.scheduler.draining_skips))
+        self._decisions.inc(worker=str(decision.worker_id))
+        self._overlap_blocks.inc(decision.matched_blocks,
+                                 worker=str(decision.worker_id))
         try:
             await self.component.namespace.publish_event(
                 KV_HIT_RATE_EVENT,

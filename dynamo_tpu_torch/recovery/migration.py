@@ -593,10 +593,23 @@ class MigrationServer:
 # ---------------------------------------------------------------------------
 
 
-def _peer_spans(header: dict) -> dict:
-    """The peer's span set off a ``mig_end`` frame, as it arrived (the port
-    carries no clock-offset estimate, as ``runtime/client.py``)."""
+def _hop_offset(sent_at: float, ack: dict):
+    """The hop's clock offset and network round trip from a begin (or
+    attach) and its ack (``telemetry/stitch.estimate_offset``); (0, 0) when
+    the ack carries no stamps."""
+    if not ack.get("recv_at"):
+        return 0.0, 0.0
+    from ..telemetry.stitch import estimate_offset
+
+    return estimate_offset(sent_at, ack["recv_at"],
+                           ack.get("sent_at", ack["recv_at"]), time.time())
+
+
+def _peer_spans(header: dict, offset: float, rtt: float) -> dict:
+    """The peer's span set off a ``mig_end`` frame, with the hop's offset
+    estimate from the begin / ack pair."""
     return {"source": "migration_peer", "spans": header.get("spans") or [],
+            "offset_s": round(offset, 6), "rtt_s": round(rtt, 6),
             "children": header.get("children") or []}
 
 
@@ -636,9 +649,10 @@ async def migrate_request(
                              backend=backend, peer=f"{host}:{port}",
                              trace_id=state.trace_id)
     try:
+        begin_sent = time.time()
         pack_frame(writer, {
             "type": "mig_begin", "state": state.to_wire(),
-            "nblocks": len(block_ids), "sent_at": time.time(),
+            "nblocks": len(block_ids), "sent_at": begin_sent,
             "backend": backend,
         })
         await writer.drain()
@@ -646,6 +660,9 @@ async def migrate_request(
         if ack is None or not ack.get("ok"):
             raise MigrationRejected((ack or {}).get(
                 "reason", "peer closed during begin"))
+        # the per-hop clock offset, applied to the peer's span export when
+        # mig_end delivers it
+        offset, rtt = _hop_offset(begin_sent, ack)
         for i in range(0, len(block_ids), MIGRATE_CHUNK_BLOCKS):
             if maybe_drop_connection():
                 writer.close()
@@ -681,12 +698,12 @@ async def migrate_request(
         "recovery.migrate", request_id=er.request_id,
         trace_id=er.ctx.trace_id, peer=f"{host}:{port}", hot=state.hot,
         blocks=len(block_ids), generated=int(state.generated))
-    return loop.create_task(_relay(reader, writer, er),
+    return loop.create_task(_relay(reader, writer, er, offset, rtt),
                             name=f"mig-relay-{er.request_id[:8]}")
 
 
 async def _relay(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
-                 er) -> None:
+                 er, offset: float = 0.0, rtt: float = 0.0) -> None:
     """Forward the peer's resumed outputs into the original out_queue: the
     client's stream continues without a break. A client disconnect reaches
     the peer as this connection closing."""
@@ -708,7 +725,7 @@ async def _relay(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
                     EngineOutput.from_wire(header.get("payload") or {}))
             elif mtype == "mig_end":
                 if header.get("spans"):
-                    er.ctx.add_remote_spans(_peer_spans(header))
+                    er.ctx.add_remote_spans(_peer_spans(header, offset, rtt))
                 er.out_queue.put_nowait(None)
                 ended = True
                 return
@@ -746,7 +763,8 @@ async def _relay(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
 # ---------------------------------------------------------------------------
 
 
-async def _fold_end_spans(reader, ctx, timeout_s: float = 0.25) -> None:
+async def _fold_end_spans(reader, ctx, offset: float, rtt: float,
+                          timeout_s: float = 0.25) -> None:
     """Bounded read-ahead for the ``mig_end`` behind a finish frame; folds
     the peer's span export into ``ctx``. Best effort: a peer that never
     sends it costs ``timeout_s``, nothing else."""
@@ -756,24 +774,27 @@ async def _fold_end_spans(reader, ctx, timeout_s: float = 0.25) -> None:
             ConnectionResetError, OSError):
         return
     if end and end.get("type") == "mig_end" and end.get("spans") and ctx is not None:
-        ctx.add_remote_spans(_peer_spans(end))
+        ctx.add_remote_spans(_peer_spans(end, offset, rtt))
 
 
 async def _open_attach(info: dict):
     """Dial the peer and bind to a migrated request's resumed stream.
-    Returns ``(reader, writer)`` after the attach ack."""
+    Returns ``(reader, writer, offset, rtt)`` after the attach ack: the wall
+    pair is the hop's clock-offset estimate for the span fold."""
     reader, writer = await asyncio.wait_for(
         asyncio.open_connection(info["host"], info["port"]), CONNECT_TIMEOUT_S)
     try:
+        sent_at = time.time()
         pack_frame(writer, {"type": "mig_attach",
                             "resume_id": info["resume_id"],
-                            "sent_at": time.time()})
+                            "sent_at": sent_at})
         await writer.drain()
         ack = await read_header(reader, "migration")
         if ack is None or not ack.get("ok"):
             raise MigrationRejected((ack or {}).get(
                 "reason", "peer closed during attach"))
-        return reader, writer
+        offset, rtt = _hop_offset(sent_at, ack)
+        return reader, writer, offset, rtt
     except BaseException:
         writer.close()
         raise
@@ -815,7 +836,7 @@ async def follow_migrated_stream(stream, ctx=None):
         # attach to)
         while attach_task is not None:
             try:
-                reader, writer = await attach_task
+                reader, writer, offset, rtt = await attach_task
             except asyncio.CancelledError:
                 raise
             except Exception as e:
@@ -845,13 +866,14 @@ async def follow_migrated_stream(stream, ctx=None):
                             # finish frame: read it BEFORE yielding, because a
                             # detokenizing consumer breaks (and acloses this)
                             # at the finish chunk
-                            await _fold_end_spans(reader, ctx)
+                            await _fold_end_spans(reader, ctx, offset, rtt)
                             yield out
                             return
                         yield out
                     elif mtype == "mig_end":
                         if header.get("spans") and ctx is not None:
-                            ctx.add_remote_spans(_peer_spans(header))
+                            ctx.add_remote_spans(
+                                _peer_spans(header, offset, rtt))
                         break  # a chained migration's attach_task continues
                     elif mtype == "mig_error":
                         yield EngineOutput(token_ids=[],

@@ -231,13 +231,18 @@ class Client(AsyncEngine):
                     receiver.kill()
             rs = receiver.remote_spans
             if rs is not None:
-                # the worker's exported spans, as its end frame carried
-                # them (the reference also estimates a clock offset here,
-                # telemetry/stitch.py, which the port does not carry)
-                request.context.add_remote_spans(dict(
-                    source=rs.get("source", "worker"),
-                    spans=rs.get("spans") or [],
-                    children=rs.get("children") or []))
+                # fold the worker's exported spans into this request's
+                # trace with an NTP-style offset estimated from the
+                # send/receive wall pairs: the stitched-timeline hop
+                from ..telemetry.stitch import remote_span_set
+
+                request.context.add_remote_spans(remote_span_set(
+                    rs.get("source", "worker"), rs.get("spans") or [],
+                    rs.get("recv_at", 0.0), rs.get("resp_sent_at", 0.0),
+                    getattr(receiver, "req_sent_at", 0.0),
+                    receiver.resp_recv_at,
+                    children=rs.get("children") or [],
+                ))
 
     async def direct(self, payload: Any, instance_id: str) -> ResponseReceiver:
         receiver = await self.open_stream(payload, instance_id)

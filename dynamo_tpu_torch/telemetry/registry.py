@@ -50,6 +50,12 @@ class Counter:
         key = tuple(sorted(labels.items()))
         self.values[key] = self.values.get(key, 0.0) + amount
 
+    def set_sample(self, value: float, **labels: str) -> None:
+        """Overwrite a series with a snapshot of another object's monotonic
+        total (the federation pattern), NOT for first-party counting, which
+        goes through ``inc``."""
+        self.values[tuple(sorted(labels.items()))] = value
+
     def _type(self) -> str:
         return "counter"
 

@@ -5,7 +5,8 @@ the engine stuck right now": an asyncio task that samples the scheduler's
 loop heartbeat, the event loop's own lag and queue depth against
 throughput, and on a trip dumps a **flight artifact** (the flight ring of
 ``telemetry/flight.py``, all-thread stacks, a metrics snapshot and the
-active request table) to ``DYN_FLIGHT_DIR`` while counting
+active request table, and the recent completed traces of every live
+``TraceRecorder``) to ``DYN_FLIGHT_DIR`` while counting
 ``dynamo_watchdog_trips_total{reason}``. The same dump is written on
 ``SIGUSR2`` (``install_signal_dump``).
 
@@ -28,9 +29,6 @@ After a trip the watchdog re-arms only once the tripping condition
 clears, so a persistent wedge produces one artifact, not one per sampling
 interval. It holds its task handle and cancels it on ``stop()``; every
 filesystem write runs in an executor.
-
-Not in this slice: the artifact's ``traces`` section (the reference's
-recent request traces) waits for the port's tracing.
 """
 
 from __future__ import annotations
@@ -102,6 +100,16 @@ def build_flight_artifact(reason: str = "on_demand",
                            wd.name, e)
             entry["error"] = repr(e)
         sources.append(entry)
+    # recent completed request traces (with their stitched remote span
+    # sets): a request's X-ray can be rendered from the artifact alone
+    from . import tracing
+
+    traces: List[dict] = []
+    for rec in tracing.recorders():
+        try:
+            traces.extend(rec.recent(32))
+        except Exception:
+            logger.debug("trace recorder snapshot failed", exc_info=True)
     return {
         "version": 1,
         "reason": reason,
@@ -112,6 +120,7 @@ def build_flight_artifact(reason: str = "on_demand",
         "dropped_events": dropped,
         "threads": _thread_stacks(),
         "sources": sources,
+        "traces": traces,
     }
 
 

@@ -983,3 +983,95 @@ def test_cli_disagg_roles_on_the_cpu(tmp_path):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def test_cli_disagg_trace_stitches_every_role_on_the_cpu(tmp_path):
+    """The disaggregated CLI roles with telemetry on: a chat request sent
+    with an ``X-Request-Id`` has a ``/debug/trace/{id}`` whose sources are
+    the frontend, the processor, the decode engine and the prefill worker,
+    each hop's offset inside its error bound (one host: the true offset is
+    0), and the prefill worker's sidecar counts the prefill."""
+    import aiohttp
+
+    d = make_model_dir(tmp_path, config_overrides=dict(
+        hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, vocab_size=512))
+    extra = Path(d) / "f32.json"
+    extra.write_text(json.dumps({"dtype": "float32"}))
+    store, side = _free_port(), _free_port()
+    common = ["--model-path", d, "--model-name", "tiny", "--store-port",
+              str(store), "--namespace", "trc"]
+    engine = ["--device", "cpu", "--allow-random-weights", "--extra-engine-args",
+              str(extra), "--max-model-len", "128", "--num-kv-blocks", "64",
+              "--kv-block-size", "8"]
+    procs = []
+    deadline = time.monotonic() + 180
+    try:
+        procs.append(_spawn(["dynamo_tpu_torch.runtime.transports.dynstore",
+                             "--host", "127.0.0.1", "--port", str(store)]))
+        time.sleep(0.5)
+        procs.append(_spawn(["dynamo_tpu_torch.cli.run", "in=prefill",
+                             "out=torch", "--metrics-port", str(side),
+                             *common, *engine]))
+        procs.append(_spawn(["dynamo_tpu_torch.cli.run",
+                             "in=dyn://trc.backend.generate", "out=torch",
+                             "--token-level", "--remote-prefill",
+                             "--max-local-prefill-length", "0",
+                             *common, *engine]))
+        _wait_line(procs[1], "prefill worker consuming", deadline)
+        _wait_line(procs[2], "token-level worker", deadline)
+        procs.append(_spawn(["dynamo_tpu_torch.cli.run",
+                             "in=dyn://trc.processor.chat", "out=processor",
+                             "--worker-endpoint", "dyn://trc.backend.generate",
+                             "--router-mode", "kv", "--kv-block-size", "8",
+                             *common]))
+        _wait_line(procs[-1], "processor serving", deadline)
+        procs.append(_spawn(["dynamo_tpu_torch.cli.run", "in=http", "out=none",
+                             "--store-port", str(store), "--namespace", "trc",
+                             "--trace-capacity", "16",
+                             "--http-host", "127.0.0.1", "--http-port", "0"]))
+        line = _wait_line(procs[-1], "listening on", deadline)
+        port = int(line.strip().rsplit(":", 1)[1])
+
+        async def ask():
+            async with aiohttp.ClientSession() as s:
+                for _ in range(200):
+                    async with s.get(f"http://127.0.0.1:{port}/v1/models") as r:
+                        if (await r.json())["data"]:
+                            break
+                    await asyncio.sleep(0.05)
+                body = dict(model="tiny", stream=True, max_tokens=5,
+                            temperature=0.0, ignore_eos=True,
+                            messages=[{"role": "user", "content": "x y z"}])
+                async with s.post(f"http://127.0.0.1:{port}/v1/chat/completions",
+                                  json=body,
+                                  headers={"X-Request-Id": "trace-1"}) as r:
+                    await r.text()
+                async with s.get(f"http://127.0.0.1:{port}/debug/trace/trace-1") as r:
+                    trace = await r.json()
+                async with s.get(f"http://127.0.0.1:{port}/debug/requests") as r:
+                    recent = await r.json()
+                async with s.get(f"http://127.0.0.1:{side}/metrics") as r:
+                    text = await r.text()
+            return trace, recent, text
+
+        trace, recent, text = asyncio.run(asyncio.wait_for(ask(), 120))
+        sources = {h["source"]: h for h in trace["sources"]}
+        assert set(sources) == {"frontend", "processor", "decode_engine",
+                                "prefill_worker"}, trace
+        for name, hop in sources.items():
+            # composed offsets: each hop's error bound is its round trip
+            assert abs(hop["offset_s"]) <= 0.5 + hop["rtt_s"], (name, hop)
+        names = {(r["source"], r["name"]) for r in trace["timeline"]}
+        assert ("decode_engine", "kv_transfer") in names
+        assert ("prefill_worker", "prefill.compute") in names
+        assert [t["request_id"] for t in recent["traces"]] == ["trace-1"]
+        assert "dynamo_prefill_worker_prefills_total 1.0" in text
+        for proc in reversed(procs):
+            proc.send_signal(signal.SIGINT)
+            assert proc.wait(timeout=60) == 0, proc.stderr.read()
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()

@@ -461,3 +461,91 @@ def test_cli_roles_serve_the_graph_on_the_cpu(tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+
+
+def test_cli_metrics_sidecars_and_the_fleet_hub_on_the_cpu(tmp_path):
+    """Two ``--token-level`` workers and a KV-routing processor, each with a
+    ``--metrics-port`` sidecar advertised in discovery, and an ``in=http
+    out=none --hub`` frontend: ``/fleet/workers`` lists both workers up
+    with their KV use and busy ratio, and the processor's sidecar renders
+    the aggregator's per-worker gauges (``register_into``)."""
+    d, extra = _tiny_dir(tmp_path)
+    store = _free_port()
+    common = ["--model-path", d, "--model-name", "tiny", "--store-port",
+              str(store), "--namespace", "hub"]
+    engine = ["--device", "cpu", "--allow-random-weights", "--extra-engine-args",
+              extra, "--max-model-len", "128", "--num-kv-blocks", "64",
+              "--kv-block-size", "8"]
+    side = [_free_port() for _ in range(3)]
+    procs = []
+    deadline = time.monotonic() + 180
+    try:
+        procs.append(_spawn(["dynamo_tpu_torch.runtime.transports.dynstore",
+                             "--host", "127.0.0.1", "--port", str(store)]))
+        time.sleep(0.5)
+        for port in side[:2]:
+            procs.append(_spawn(["dynamo_tpu_torch.cli.run",
+                                 "in=dyn://hub.backend.generate", "out=torch",
+                                 "--token-level", "--metrics-port", str(port),
+                                 *common, *engine]))
+        for p in procs[1:]:
+            _wait_line(p, "token-level worker", deadline)
+        procs.append(_spawn(["dynamo_tpu_torch.cli.run",
+                             "in=dyn://hub.processor.chat", "out=processor",
+                             "--worker-endpoint", "dyn://hub.backend.generate",
+                             "--router-mode", "kv", "--kv-block-size", "8",
+                             "--metrics-port", str(side[2]), *common]))
+        _wait_line(procs[-1], "processor serving", deadline)
+        procs.append(_spawn(["dynamo_tpu_torch.cli.run", "in=http", "out=none",
+                             "--store-port", str(store), "--namespace", "hub",
+                             "--hub", "--hub-interval-s", "0.2",
+                             "--http-host", "127.0.0.1", "--http-port", "0"]))
+        line = _wait_line(procs[-1], "listening on", deadline)
+        port = int(line.strip().rsplit(":", 1)[1])
+
+        async def ask():
+            async with aiohttp.ClientSession() as s:
+                for _ in range(200):
+                    async with s.get(f"http://127.0.0.1:{port}/v1/models") as r:
+                        if (await r.json())["data"]:
+                            break
+                    await asyncio.sleep(0.05)
+                _, finish = await _post(s, port, _chat("hub", "x", 5))
+                rows = []
+                for _ in range(300):
+                    async with s.get(f"http://127.0.0.1:{port}/fleet/workers") as r:
+                        rows = (await r.json())["workers"]
+                    up = [w for w in rows if w["role"] == "decode_engine"
+                          and w["up"] and w["kv_usage_ratio"] is not None]
+                    if len(up) == 2 and any(w["role"] == "processor" and w["up"]
+                                            for w in rows):
+                        break
+                    await asyncio.sleep(0.1)
+                text = ""
+                for _ in range(100):
+                    async with s.get(f"http://127.0.0.1:{side[2]}/metrics") as r:
+                        text = await r.text()
+                    if text.count("dynamo_kv_router_worker_kv_total_blocks{") == 2:
+                        break
+                    await asyncio.sleep(0.1)
+            return finish, rows, text
+
+        finish, rows, text = asyncio.run(asyncio.wait_for(ask(), 120))
+        assert finish == "length"
+        workers = [w for w in rows if w["role"] == "decode_engine"]
+        assert len(workers) == 2 and all(w["up"] for w in workers), rows
+        for w in workers:
+            assert w["kv_usage_ratio"] is not None and w["busy_ratio"] is not None
+            assert w["model"] == "tiny" and w["draining"] is False
+            assert w["url"].endswith("/metrics")
+        assert any(w["role"] == "processor" and w["up"] for w in rows)
+        assert text.count("dynamo_kv_router_worker_kv_total_blocks{") == 2
+        assert "dynamo_kv_router_decisions_total{" in text
+        for p in reversed(procs):
+            p.send_signal(signal.SIGINT)
+            assert p.wait(timeout=60) == 0, p.stderr.read()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()

@@ -561,3 +561,156 @@ def test_cli_draft_flags_map_to_the_reference_fields(tmp_path, tokens, chain):
         assert getattr(got, field) == getattr(want, field), (flag, field)
     assert got.spec_draft_model == d and got.spec_draft_tokens == int(tokens)
     assert got.decode_pipeline_depth == want.decode_pipeline_depth
+
+
+# ---------- the telemetry routes and flags ----------
+
+TELEMETRY_FLAGS = {  # flag → (value given, the parsed field)
+    "--trace-capacity": ("16", "trace_capacity"),
+    "--trace-ttl-s": ("30", "trace_ttl_s"),
+    "--slo-ttft-ms": ("250", "slo_ttft_ms"),
+    "--slo-itl-ms": ("40", "slo_itl_ms"),
+    "--profile-dir": ("/tmp/prof", "profile_dir"),
+    "--metrics-port": ("9400", "metrics_port"),
+    "--hub": (None, "hub"),
+    "--hub-interval-s": ("0.5", "hub_interval_s"),
+    "--hub-target": ("decode=127.0.0.1:9400", "hub_target"),
+    "--incident-dir": ("/tmp/inc", "incident_dir"),
+    "--incident-cooldown-s": ("12", "incident_cooldown_s"),
+    "--incident-profile-s": ("2", "incident_profile_s"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(TELEMETRY_FLAGS))
+def test_cli_telemetry_flags_parse_as_the_reference(flag):
+    """Each telemetry flag the port serves parses to the reference's field
+    and value, default and given."""
+    from dynamo_tpu.cli import run as ref_run
+
+    value, field = TELEMETRY_FLAGS[flag]
+    argv = [flag] + ([value] if value is not None else [])
+    assert flag not in port_run.REFUSED_FLAGS
+    for args in ([], argv):
+        got = port_run.parse_flags(args)
+        want = ref_run.build_parser().parse_args(args)
+        assert getattr(got, field) == getattr(want, field), (flag, args)
+
+
+def test_cli_refuses_the_profiler_port_with_its_reason():
+    with pytest.raises(SystemExit) as e:
+        port_run.parse_flags(["--profiler-port", "9012"])
+    msg = str(e.value)
+    assert "--profiler-port" in msg and "torch has no counterpart" in msg
+    assert "--profile-dir" in msg
+
+
+async def _telemetry_answers(svc_mod, full, **svc_kw):
+    """The same echo requests (two with an X-Request-Id) through one
+    service; the debug routes' answers."""
+    manager = svc_mod.ModelManager()
+    manager.add_chat_model("echo", full())
+    service = svc_mod.HttpService(manager, host="127.0.0.1", port=0, **svc_kw)
+    await service.start()
+    out = {}
+    try:
+        async with aiohttp.ClientSession() as s:
+            url = f"http://127.0.0.1:{service.port}"
+            for i, stream in enumerate((False, True, True)):
+                headers = {"X-Request-Id": f"rid-{i}"} if i < 2 else {}
+                async with s.post(url + "/v1/chat/completions", headers=headers,
+                                  json=dict(model="echo", messages=MSGS,
+                                            stream=stream)) as r:
+                    await r.read()
+            for name, path in (("request", "/debug/requests/rid-1"),
+                               ("recent", "/debug/requests?limit=2"),
+                               ("trace", "/debug/trace/rid-0"),
+                               ("unknown", "/debug/trace/nope"),
+                               ("bad_limit", "/debug/requests?limit=x"),
+                               ("flight", "/debug/flight?request=rid-0"),
+                               ("fleet", "/fleet/metrics"),
+                               ("incidents", "/debug/incidents")):
+                async with s.get(url + path) as r:
+                    out[name] = (r.status, await r.json())
+            async with s.get(url + "/metrics") as r:
+                out["metrics"] = await r.text()
+    finally:
+        await service.stop()
+    return out
+
+
+@pytest.fixture(scope="module")
+def telemetry_answers():
+    os.environ["DYN_TOKEN_ECHO_DELAY_MS"] = "0"
+    try:
+        return [asyncio.run(_telemetry_answers(
+                    mod, full, slo=slo_mod.SloTracker(ttft_s=5.0, itl_s=5.0)))
+                for mod, full, slo_mod in (
+                    (ref_service, RefEchoFull, __import__(
+                        "dynamo_tpu.telemetry.slo", fromlist=["x"])),
+                    (port_service, EchoEngineFull, __import__(
+                        "dynamo_tpu_torch.telemetry.slo", fromlist=["x"])))]
+    finally:
+        os.environ.pop("DYN_TOKEN_ECHO_DELAY_MS", None)
+
+
+def _shape(name, status, body):
+    """What must agree across the services for one route's answer."""
+    if name == "request":
+        return status, sorted(body), [s["name"] for s in body["spans"]]
+    if name == "recent":  # the third request's id is a fresh uuid
+        ids = [t["request_id"] for t in body["traces"]]
+        return status, ids[:1], len(ids)
+    if name == "trace":
+        return (status, sorted(body), body["sources"],
+                [(r["source"], r["name"]) for r in body["timeline"]])
+    if name == "flight":
+        return (status, sorted(body), body["filtered_to_request"],
+                body["events"])
+    return status, body
+
+
+@pytest.mark.parametrize("name", ["request", "recent", "trace", "unknown",
+                                  "bad_limit", "flight", "fleet", "incidents"])
+def test_debug_routes_answer_as_the_reference(telemetry_answers, name):
+    ref, port = telemetry_answers
+    assert _shape(name, *port[name]) == _shape(name, *ref[name])
+
+
+def test_slo_counters_sum_to_the_finished_requests(telemetry_answers):
+    def slo_lines(text):
+        return sorted(line for line in text.splitlines()
+                      if line.startswith(("dynamo_slo_", "dynamo_trace_store")))
+
+    ref, port = telemetry_answers
+    assert slo_lines(port["metrics"]) == slo_lines(ref["metrics"])
+    assert ('dynamo_slo_attainment_total{met="true",slo="request"} 3.0'
+            in port["metrics"])
+
+
+@pytest.mark.asyncio
+async def test_debug_profile_is_served_only_with_a_profile_dir(tmp_path):
+    plain = port_service.HttpService(port_service.ModelManager(),
+                                     host="127.0.0.1", port=0)
+    prof = port_service.HttpService(port_service.ModelManager(),
+                                    host="127.0.0.1", port=0,
+                                    profile_dir=str(tmp_path))
+    await plain.start()
+    await prof.start()
+    try:
+        async with aiohttp.ClientSession() as s:
+            async with s.get(f"http://127.0.0.1:{plain.port}/debug/profile") as r:
+                off = r.status
+            async with s.get(f"http://127.0.0.1:{prof.port}/debug/profile"
+                             "?seconds=abc") as r:
+                bad = r.status
+            async with s.get(f"http://127.0.0.1:{prof.port}/debug/profile"
+                             "?seconds=0.1") as r:
+                ok = (r.status, await r.json())
+    finally:
+        await plain.stop()
+        await prof.stop()
+    assert off == 404 and bad == 400
+    status, body = ok
+    assert status == 200 and body["seconds"] == 0.1
+    assert body["trace_dir"].startswith(str(tmp_path))
+    assert body["summary"]["cuda"] is False

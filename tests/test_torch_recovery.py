@@ -1251,3 +1251,89 @@ def test_cli_self_heal_drains_a_streamed_chat_to_a_peer(tmp_path):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def test_wedge_autoproduces_one_incident_bundle(weights, tmp_path):
+    """``decode_burst_hang`` wedges a CPU engine under an incident recorder
+    wired as the CLI wires it (the watchdog's trips, the recovery ladder's
+    drains, a local history sampler): the trip and the drain that follows
+    fold into EXACTLY ONE bundle (manifest, flight, history and traces),
+    which carries the wedged request and lists at /debug/incidents."""
+    from dynamo_tpu_torch.telemetry.history import (
+        LocalHistorySampler,
+        MetricHistory,
+    )
+    from dynamo_tpu_torch.telemetry.incidents import (
+        IncidentConfig,
+        IncidentRecorder,
+        load_bundle_dir,
+    )
+    from dynamo_tpu_torch.telemetry.tracing import TraceRecorder
+
+    async def go():
+        src = await _engine(weights[1])
+        dst = await _engine(weights[1])
+        server = await MigrationServer(MigrationSink(dst.scheduler,
+                                                     dst.runner)).start()
+        wd = StallWatchdog(probe=src.scheduler.watchdog_probe,
+                           requests=src.scheduler.request_table,
+                           registry=src.scheduler.registry,
+                           flight=src.scheduler.flight, interval_s=0.02,
+                           stall_s=0.15).start()
+        ctl = RecoveryController(
+            engine_id="src", scheduler=src.scheduler, runner=src.runner,
+            watchdog=wd,
+            peers=lambda: [{"host": server.host, "port": server.port,
+                            "engine_id": "dst"}],
+            config=RecoveryConfig(drain_grace_s=0.05, respawn_backoff_s=0.01),
+            flight=src.scheduler.flight).attach()
+        recorder = IncidentRecorder(
+            IncidentConfig(out_dir=str(tmp_path), settle_s=1.0),
+            history=MetricHistory(window_s=600.0))
+        recorder.watch_watchdog(wd)
+        recorder.watch_recovery(ctl)
+        sampler = LocalHistorySampler(src.scheduler.registry,
+                                      history=recorder.history,
+                                      interval_s=0.03).start()
+        tracer = TraceRecorder(capacity=8, jsonl_path="")
+        ctx = Context(_req(PROMPTS[1]))
+        toks, armed = [], False
+        try:
+            async for out in src.generate(ctx):
+                toks.extend(out["token_ids"])
+                if len(toks) >= LIVE and not armed:
+                    armed = True
+                    faults.arm("decode_burst_hang", "once")
+            tracer.record(ctx.context.trace_id, "m", "success",
+                          list(ctx.context.stages), ctx=ctx.context)
+            for _ in range(200):
+                if recorder.captures:
+                    break
+                await asyncio.sleep(0.05)
+            await asyncio.sleep(0.3)  # a second capture would land by now
+            return (toks, list(recorder.bundles), recorder.suppressed,
+                    recorder.list_bundles(), ctx.context.trace_id,
+                    [t["reason"] for t in wd.trips])
+        finally:
+            faults.release()
+            await sampler.stop()
+            await recorder.stop()
+            tracer.close()
+            await wd.stop()
+            await ctl.close()
+            await server.close()
+            await dst.close()
+            await src.close()
+
+    toks, bundles, suppressed, listed, trace_id, trips = _run(go())
+    assert len(toks) == NEW and trips == ["decode_stall"]
+    (manifest,) = bundles
+    assert manifest["reason"] == "decode_stall" and suppressed >= 1
+    assert sorted(os.listdir(manifest["path"])) == [
+        "flight.json", "history.json", "manifest.json", "traces.json"]
+    bundle = load_bundle_dir(manifest["path"])
+    kinds = {e["kind"] for e in bundle["flight"]["events"]}
+    assert "watchdog.trip" in kinds
+    assert bundle["history"]["series"]
+    assert trace_id in [t["request_id"] for t in bundle["traces"]]
+    assert [m["bundle"] for m in listed] == [manifest["bundle"]]

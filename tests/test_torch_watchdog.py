@@ -301,7 +301,8 @@ def test_trip_writes_a_parsable_artifact(tmp_path, monkeypatch):
     assert src["probe"]["steps"] == 9
     assert src["requests"] == [{"state": "decoding", "request_id": "wedged"}]
     assert "dynamo_watchdog_trips_total" in src["metrics"]
-    assert "traces" not in art  # the trace section waits for tracing
+    # the trace section: every live TraceRecorder's recent traces
+    assert isinstance(art["traces"], list)
     assert port_watchdog._SOURCES == []  # stop() unregistered it
 
 
