@@ -286,7 +286,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    local by the router's live key, each with 4 streamed chats beside a
    12,000- and a 3,000-word prompt; remote prefills counted, bytes
    reckoned, the SP ladder's launches, no fallback or nack, no block left
-   in use. Prints per turn the long prompts' TTFT, the short streams'
+   in use, and the prefill worker's ``--metrics-port`` sidecar's
+   ``dynamo_transfer_bytes_total{plane="disagg",backend="tcp"}`` equal to
+   its ``transfers`` bytes. Prints per turn the long prompts' TTFT, the short streams'
    largest gap while they prefilled and the transfer's bytes, frames,
    duration and exposed seconds. Each remote long prompt's trace nests the
    prefill worker's span set inside the decode engine's, inside the
@@ -353,7 +355,8 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    gather ordered before a burst's write would differ), greedy streams equal
    the baseline or part at a printed near-tie, the seeded ones bit for bit,
    the peer's resumed decode under the sync guard, no block in use on
-   either side. Leg B: a source whose stall watchdog samples every 0.1 s
+   either side, the controller's ``dynamo_transfer_bytes_total{plane=
+   "migration",backend="tcp"}`` equal to the bytes it shipped. Leg B: a source whose stall watchdog samples every 0.1 s
    against a 2 s deadline; ``decode_burst_hang`` wedges its next decode
    sync: one ``decode_stall`` trip, a flight artifact holding the 8
    requests, the hard seize, 8 cold migrations (the peer re-prefills
@@ -394,6 +397,32 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the stream equals the in-process one's, its text the reader's decode).
    Prints the peak memory, the KV bytes a token, the load's GB/s and a
    profiled decode step's D-96 decode kernel share.
+23. ``engine_isolated`` — the supervised engine child: a seeded
+   Llama-3.2-1B snapshot (full width and depth, bf16, written here beside
+   ``engine_http``'s tokenizer) served by ``python3 -m
+   dynamo_tpu_torch.cli.run in=http out=torch --isolate-engine
+   --self-heal`` (heartbeat 0.5 s, 6 misses): the CLI process opens no
+   CUDA context, its ``@torch`` child loads the snapshot and the kernel
+   libraries the build phase made. (a) Wave 1's eight prompts, greedy, 32
+   tokens each, as streamed /v1/completions: every stream equals an
+   in-process ``TorchServingEngine``'s over the same snapshot (or parts at
+   a near-tie), kernels 1-3 launched by the child (its counts read from
+   its pongs on /metrics before and after the wave). (b) SIGKILL of the
+   child once every stream of the same wave has 4 chunks: each stream ends
+   with an error chunk and ``[DONE]`` inside the heartbeat bound, /health
+   answers 200 throughout, the recovery ladder respawns the child and the
+   next request streams the same tokens. (c) SIGSTOP: a request to the
+   frozen child fails with the heartbeat's error, the child is killed and
+   reaped and respawned. (d) ``POST /admin/drain?respawn=1`` restarts the
+   live child. The restart counter reads one each of disconnect,
+   heartbeat and manual; the largest gap between pongs stays below the
+   bound; SIGINT ends the CLI with 0 and no child left. (e) ``in=batch:``
+   over a 16-line JSONL through an isolated child: 16 records of 32
+   tokens, each with a first token, and the summary on stderr. Prints
+   every spawn's seconds to ``ready`` and the child's free card memory
+   before its load, kill to ready and to the next first token, the
+   heartbeat trip, the edge's TTFT and gaps through the child and the
+   largest pong gaps.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -419,7 +448,8 @@ and the epilogue carry ``launches_engine_kv_tiers``, the tiers' engines'
 and the epilogue carry ``launches_engine_spec``, the chained draft
 engine's (verify: with the chained ngram engine's); decode, flash and the
 epilogue carry ``launches_engine_recovery``, the peer's over legs A and B
-(its resumed decode and cold re-prefills); kernel 6's
+(its resumed decode and cold re-prefills), and ``launches_engine_isolated``,
+the supervised child's over ``engine_isolated``'s wave; kernel 6's
 fp8 form has the fp8 SP engine's launches); the line before that the
 card's name and power limit.
 """
@@ -8169,6 +8199,7 @@ def engine_disagg_phase(torch, dev, smi):
         return tok.decode([words[int(i)] for i in rng.integers(0, len(words), n)])
 
     store = _free_port()
+    prefill_metrics = _free_port()
     common = ["--model-path", model_dir, "--model-name", "llama",
               "--store-port", str(store), "--namespace", DISAGG_NS,
               "--kv-block-size", "16"]
@@ -8200,7 +8231,8 @@ def engine_disagg_phase(torch, dev, smi):
              str(DISAGG_QUEUE), *engine_flags, *common], "decode", tmp.name)
         procs["prefill"] = _spawn_role(
             ["dynamo_tpu_torch.cli.run", "in=prefill", "out=torch",
-             "--extra-engine-args", str(extra), *engine_flags, *common],
+             "--extra-engine-args", str(extra), "--metrics-port",
+             str(prefill_metrics), *engine_flags, *common],
             "prefill", tmp.name)
         procs["processor"] = _spawn_role(
             ["dynamo_tpu_torch.cli.run", f"in=dyn://{DISAGG_NS}.processor.chat",
@@ -8219,6 +8251,13 @@ def engine_disagg_phase(torch, dev, smi):
         startup_s = time.monotonic() - t0
         out = asyncio.run(asyncio.wait_for(
             _disagg_traffic(port, store, tok, words_text), DISAGG_TIMEOUT_S))
+        # the unified transfer family on the prefill worker's sidecar
+        import urllib.request
+
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{prefill_metrics}/metrics", timeout=30) as r:
+            family_bytes = _metric(r.read().decode(), "dynamo_transfer_bytes_total",
+                                   '{backend="tcp",plane="disagg"}')
         exits = {}
         for name in reversed(list(procs)):  # the frontend first, the broker last
             p = procs[name]
@@ -8285,6 +8324,8 @@ def engine_disagg_phase(torch, dev, smi):
          nacks=dict(decode=d_last["kv_transfer_nacks"],
                     prefill=p_last["nacks_total"]),
          max_live_host_frames=p_last["max_live_host_frames"],
+         transfer_family_bytes=family_bytes,
+         transfer_bytes_total=p_last["transfer_bytes_total"],
          launches=per_role, exits=exits, trace_hops=trace_hops,
          stitched_sources=stitched_sources,
          seconds=dict(leg_a=t_leg_b - t_phase, leg_b=t_inproc - t_leg_b,
@@ -8322,6 +8363,12 @@ def engine_disagg_phase(torch, dev, smi):
         raise AssertionError(f"disagg: a fallback or a nack: {d_last} {p_last}")
     if any(out["blocks"].values()):
         raise AssertionError(f"disagg: KV blocks left in use: {out['blocks']}")
+    if not (family_bytes == p_last["transfer_bytes_total"]
+            == sum(t["bytes"] for t in p_last["transfers"]) > 0):
+        raise AssertionError(
+            f"disagg: dynamo_transfer_bytes_total {family_bytes} against the "
+            f"prefill worker's {p_last['transfer_bytes_total']} (transfers "
+            f"{[t['bytes'] for t in p_last['transfers']]})")
     if any(rc != 0 for rc in exits.values()):
         raise AssertionError(f"disagg: exit codes {exits}: {logs}")
     if DISAGG_DEVICE == "cuda" and not all(launches.values()):
@@ -10352,6 +10399,9 @@ def _engine_recovery(torch, dev, smi, tmp):
         return dict(summary=a["summary"], drain_wall_s=a["drain_wall_s"],
                     stage_s=a["stage_s"],
                     kv_bytes=a["shipped"]["bytes"], kv_frames=a["shipped"]["frames"],
+                    transfer_family_bytes=_metric(
+                        a["registry"], "dynamo_transfer_bytes_total",
+                        '{backend="tcp",plane="migration"}'),
                     hop_gap_s=gaps, hop_gap_max_s=max(g for g in gaps if g is not None)
                     if any(g is not None for g in gaps) else None,
                     installed_frames_byte_equal=sum(a["installed"]),
@@ -10396,6 +10446,12 @@ def _engine_recovery(torch, dev, smi, tmp):
         if registry_count(a["registry"], "hot") != len(reqs):
             raise AssertionError(f"leg {name}: not every migration was hot: "
                                  f"{a['registry']}")
+        family = _metric(a["registry"], "dynamo_transfer_bytes_total",
+                         '{backend="tcp",plane="migration"}')
+        if not family == a["shipped"]["bytes"] > 0:
+            raise AssertionError(f"leg {name}: dynamo_transfer_bytes_total "
+                                 f"{family} against {a['shipped']['bytes']} "
+                                 "bytes shipped")
         if not a["installed"] or not all(a["installed"]):
             raise AssertionError(f"leg {name}: installed KV differs from the "
                                  f"frames shipped ({a['installed']})")
@@ -11259,11 +11315,405 @@ def engine_phi3_phase(torch, dev, smi):
                 paged_verify_d96_fp8=fp8["launches"]["paged_verify_fp8"])
 
 
+
+# ---------------------------------------------------------------------------
+# engine_isolated: the supervised engine child behind the CLI
+# ---------------------------------------------------------------------------
+
+ISOLATED_HEARTBEAT_S = 0.5     # a pong every half second ...
+ISOLATED_MISSES = 6            # ... a wedge trips after ~3 s
+ISOLATED_FLAGS = ["--max-model-len", str(ENGINE["max_model_len"]),
+                  "--num-kv-blocks", str(ENGINE["num_kv_blocks"]),
+                  "--kv-block-size", str(ENGINE["kv_block_size"]),
+                  "--max-batch-size", str(ENGINE["max_batch_size"])]
+ISOLATED_EXTRA = dict(max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"])
+ISOLATED_LIVE = 4              # chunks every stream has when the child is killed
+ISOLATED_BATCH = 16            # lines of the in=batch: file
+ISOLATED_BATCH_WORDS = (40, 400)
+ISOLATED_START_TIMEOUT_S = 300
+ISOLATED_TIMEOUT_S = 300
+ISOLATED_DEVICE = "cuda"       # a CPU rehearsal sets "cpu"
+
+
+def _spawn_records(log_path):
+    """Each spawn the CLI's engine host logged (its JSON record: pid,
+    ``ready_s``, the child's free card memory before its load), in order."""
+    out = []
+    for line in Path(log_path).read_text(errors="replace").splitlines():
+        if "engine subprocess for @torch up (pid" in line:
+            out.append(json.loads(line.split("): ", 1)[1]))
+    return out
+
+
+def _await_spawns(proc, n, deadline):
+    """Wait for the CLI's ``n``-th child spawn; returns the records."""
+    while True:
+        recs = _spawn_records(proc.log)
+        if len(recs) >= n:
+            return recs
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"isolated: spawn {n} never came "
+                                 f"(rc {proc.poll()}): {_role_tail(proc)}")
+        time.sleep(0.02)
+
+
+def _gone(pid) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def _child_launches(text):
+    """The child's kernel launch counts as its last pong reported them
+    (``dynamo_engine_launches_<kernel>`` on the CLI's /metrics)."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("dynamo_engine_launches_"):
+            key, _, value = line.rpartition(" ")
+            out[key[len("dynamo_engine_launches_"):]] = int(float(value))
+    return out
+
+
+async def _isolated_wave(port, reqs, vocab_ids, live=None, on_live=None):
+    """``reqs`` as streamed /v1/completions sent at once; with ``live``,
+    ``on_live()`` runs once every stream has that many events. Returns per
+    request its record (tokens, finish, TTFT, gaps, an error chunk, when
+    the stream ended) and ``on_live``'s result."""
+    seen = [0] * len(reqs)
+    ended = [None] * len(reqs)
+
+    def counter(i):
+        def on_event(t, payload):
+            seen[i] += 1
+            if payload is None:
+                ended[i] = time.monotonic()
+        return on_event
+
+    streams = [asyncio.ensure_future(http_request(
+        port, "POST", "/v1/completions", dict(
+            model="llama", prompt=p, max_tokens=NEW_TOKENS, stream=True,
+            logprobs=0, ignore_eos=True, **s), on_event=counter(i)))
+        for i, (p, s) in enumerate(reqs)]
+    hook = None
+    if live is not None:
+        while min(seen) < live:
+            if any(s.done() for s in streams):
+                raise AssertionError("isolated: a stream ended before the kill")
+            await asyncio.sleep(0.002)
+        hook = await on_live()
+    out = []
+    for i, (status, _, raw, events) in enumerate(await asyncio.gather(*streams)):
+        if status != 200:
+            # an error before the stream's first chunk: the answer is the
+            # error, with no stream behind it
+            out.append(dict(status=status, error=json.loads(raw).get("error"),
+                            ended=time.monotonic(), tokens=[], done=False))
+            continue
+        rec = _stream_record(events, chat=False)
+        rec["tokens"] = [vocab_ids[t] for t in rec["tokens"]]
+        rec["error"] = next((c["error"] for _, c in events
+                             if c is not None and "error" in c), None)
+        rec["status"] = status
+        rec["done"] = bool(events) and events[-1][1] is None
+        rec["ended"] = ended[i]
+        out.append(rec)
+    return out, hook
+
+
+def engine_isolated_phase(torch, dev, smi):
+    """The supervised engine child on the card (the module docstring's
+    ``engine_isolated``)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="engine_isolated_"))
+    try:
+        return _engine_isolated(torch, dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _engine_isolated(torch, dev, smi, tmp):
+    import signal
+
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+    from dynamo_tpu_torch.models import llama
+
+    on_card = torch.device(dev).type == "cuda"
+    small = ModelConfig(**FLAGSHIP)
+    layers = small.num_layers
+    # the seeded Llama-3.2-1B snapshot: engine_http's directory (config,
+    # tokenizer, chat template) with the weights drawn on the card
+    t0 = time.monotonic()
+    model_dir = Path(write_model_dir(tmp / "llama-3.2-1b-snapshot"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    params = llama.init_params(small, gen, torch.bfloat16, dev)
+    snapshot_bytes = write_safetensors_snapshot(
+        model_dir, _llama_hf_tensors(params, layers))
+    del params
+    write_s = time.monotonic() - t0
+    vocab_ids = json.loads((model_dir / "tokenizer.json").read_text(
+        encoding="utf-8"))["model"]["vocab"]
+    extra = tmp / "extra.json"
+    extra.write_text(json.dumps(ISOLATED_EXTRA))
+    dev_flags = ["--device", "cpu"] if ISOLATED_DEVICE == "cpu" else []
+    engine_flags = ["--model-path", str(model_dir), "--model-name", "llama",
+                    "--extra-engine-args", str(extra), *ISOLATED_FLAGS, *dev_flags]
+    wave1, _ = _requests(np.random.default_rng(SEED))
+    greedy = dict(temperature=0.0)
+    reqs = [(p, greedy) for p, _ in wave1]
+
+    # the in-process engine over the same snapshot: the streams to hold
+    flags = run.parse_flags(engine_flags)
+
+    async def baseline():
+        engine = await TorchServingEngine.create(
+            mdc=run.load_mdc(flags), flags=flags, device=flags.device)
+        try:
+            return engine.runner, await _serve(engine, reqs)
+        finally:
+            await engine.close()
+
+    # the runner stays for the near-tie reads of a parted stream
+    base_runner, base = asyncio.run(baseline())
+    _check_streams(base, NEW_TOKENS)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    cli = ["dynamo_tpu_torch.cli.run", "in=http", "out=torch", *engine_flags,
+           "--http-host", "127.0.0.1", "--http-port", "0", "--isolate-engine",
+           "--self-heal", "--engine-heartbeat-s", str(ISOLATED_HEARTBEAT_S),
+           "--engine-heartbeat-misses", str(ISOLATED_MISSES),
+           "--respawn-backoff-s", "0.2"]
+    t_start = time.monotonic()
+    proc = _spawn_role(cli, "cli_isolated", tmp)
+    out = dict(snapshot_bytes=snapshot_bytes, snapshot_write_s=write_s)
+    try:
+        deadline = time.monotonic() + ISOLATED_START_TIMEOUT_S
+        port = int(_await_line(proc, "listening on", deadline).strip()
+                   .rsplit(":", 1)[1])
+        out["cli_listening_s"] = time.monotonic() - t_start
+
+        async def get(path):
+            return await http_request(port, "GET", path)
+
+        async def scrape():
+            # a pong at least once after the last request
+            await asyncio.sleep(3 * ISOLATED_HEARTBEAT_S)
+            return (await get("/metrics"))[2].decode()
+
+        async def legs():
+            legs_out = {}
+            # (a) the wave, counted from the child's pongs before and after
+            before = _child_launches(await scrape())
+            t1 = time.monotonic()
+            wave, _ = await _isolated_wave(port, reqs, vocab_ids)
+            legs_out["wave_s"] = time.monotonic() - t1
+            text = await scrape()
+            after = _child_launches(text)
+            legs_out["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+            legs_out["gap_a"] = _metric(text, "dynamo_engine_heartbeat_gap_max_seconds")
+            legs_out["wave"] = wave
+
+            # (b) SIGKILL mid-wave; /health polled all the while
+            health = []
+
+            async def poll_health():
+                while True:
+                    health.append((await get("/health"))[0])
+                    await asyncio.sleep(0.05)
+
+            poller = asyncio.ensure_future(poll_health())
+            pid = _spawn_records(proc.log)[-1]["pid"]
+
+            async def kill():
+                t = time.monotonic()
+                os.kill(pid, signal.SIGKILL)
+                return t
+
+            killed, t_kill = await _isolated_wave(
+                port, reqs, vocab_ids, live=ISOLATED_LIVE, on_live=kill)
+            recs = await asyncio.get_running_loop().run_in_executor(
+                None, _await_spawns, proc, 2,
+                time.monotonic() + ISOLATED_TIMEOUT_S)
+            t_up = time.monotonic()
+            t2 = time.monotonic()
+            again, _ = await _isolated_wave(port, reqs[1:2], vocab_ids)
+            legs_out["kill"] = dict(
+                streams=killed, t_kill=t_kill, pid=pid,
+                ready_after_kill_s=t_up - t_kill,
+                first_token_after_kill_s=t2 - t_kill + again[0]["ttft_s"],
+                again=again[0], spawn=recs[1], old_gone=_gone(pid))
+            # (c) SIGSTOP: the heartbeat trips, the child is killed, reaped
+            # and respawned; a request sent to the frozen child fails
+            legs_out["gap_b"] = _metric(await scrape(),
+                                        "dynamo_engine_heartbeat_gap_max_seconds")
+            pid = recs[-1]["pid"]
+            os.kill(pid, signal.SIGSTOP)
+            t_stop = time.monotonic()
+            stopped, _ = await _isolated_wave(port, reqs[1:2], vocab_ids)
+            recs = await asyncio.get_running_loop().run_in_executor(
+                None, _await_spawns, proc, 3,
+                time.monotonic() + ISOLATED_TIMEOUT_S)
+            t_up = time.monotonic()
+            again, _ = await _isolated_wave(port, reqs[1:2], vocab_ids)
+            legs_out["wedge"] = dict(
+                stream=stopped[0], pid=pid,
+                trip_s=stopped[0]["ended"] - t_stop,
+                ready_after_stop_s=t_up - t_stop, again=again[0],
+                spawn=recs[2], old_gone=_gone(pid))
+            # (d) the rolling restart of a live child
+            legs_out["gap_c"] = _metric(await scrape(),
+                                        "dynamo_engine_heartbeat_gap_max_seconds")
+            pid = recs[-1]["pid"]
+            t3 = time.monotonic()
+            status, _, raw, _ = await http_request(
+                port, "POST", "/admin/drain?respawn=1")
+            drain_s = time.monotonic() - t3
+            recs = _spawn_records(proc.log)
+            again, _ = await _isolated_wave(port, reqs[1:2], vocab_ids)
+            legs_out["drain"] = dict(status=status, summary=json.loads(raw),
+                                     seconds=drain_s, again=again[0],
+                                     spawns=len(recs), old_gone=_gone(pid))
+            poller.cancel()
+            legs_out["health"] = health
+            legs_out["metrics"] = (await get("/metrics"))[2].decode()
+            return legs_out
+
+        got = asyncio.run(asyncio.wait_for(legs(), ISOLATED_TIMEOUT_S))
+        proc.send_signal(signal.SIGINT)
+        out["exit_code"] = proc.wait(timeout=60)
+        spawns = _spawn_records(proc.log)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    # ---- checks of legs (a) to (d)
+    def held(label, records, idx):
+        _check_streams(records, NEW_TOKENS)
+        return _held_greedy(torch, base_runner, [reqs[i] for i in idx],
+                            [base[i] for i in idx], records, label)
+
+    equal, parted, _, _ = held("isolated wave", got["wave"], range(len(reqs)))
+    kill = got["kill"]
+    errors = [r["error"] for r in kill["streams"]]
+    if not all(errors) or not all(r["done"] for r in kill["streams"]):
+        raise AssertionError(f"isolated: a killed stream ended without an error "
+                             f"chunk and [DONE]: {errors}")
+    end_s = [r["ended"] - kill["t_kill"] for r in kill["streams"]]
+    bound = ISOLATED_HEARTBEAT_S * ISOLATED_MISSES
+    if max(end_s) > bound:
+        raise AssertionError(f"isolated: killed streams ended {end_s} s after "
+                             f"the kill (bound {bound} s)")
+    if any(s != 200 for s in got["health"]) or not got["health"]:
+        raise AssertionError(f"isolated: /health answered {set(got['health'])}")
+    wedge, drain = got["wedge"], got["drain"]
+    if "heartbeat" not in str(wedge["stream"]["error"]):
+        raise AssertionError(f"isolated: the frozen child's request ended "
+                             f"{wedge['stream']['error']!r}")
+    if drain["status"] != 200 or not drain["summary"].get("respawned") \
+            or drain["spawns"] != 4:
+        raise AssertionError(f"isolated: the rolling restart answered "
+                             f"{drain['status']} {drain['summary']}, spawns "
+                             f"{drain['spawns']}")
+    for leg in ("kill", "wedge", "drain"):
+        if not got[leg]["old_gone"]:
+            raise AssertionError(f"isolated: the {leg} leg's old child lives on")
+        held(f"isolated {leg}", [got[leg]["again"]], [1])
+    text = got["metrics"]
+    restarts = {r: _metric(text, "dynamo_engine_restarts_total",
+                           f'{{reason="{r}"}}')
+                for r in ("disconnect", "heartbeat", "manual")}
+    respawns = _metric(text, "dynamo_recovery_actions_total",
+                       '{action="respawn",outcome="ok"}')
+    if restarts != {"disconnect": 1.0, "heartbeat": 1.0, "manual": 1.0} \
+            or respawns != 3.0:
+        raise AssertionError(f"isolated: restarts {restarts}, ladder respawns "
+                             f"{respawns}")
+    if out["exit_code"] != 0 or not _gone(spawns[-1]["pid"]):
+        raise AssertionError(f"isolated: the CLI exited {out['exit_code']}; "
+                             f"last child gone {_gone(spawns[-1]['pid'])}")
+    launches = got["launches"]
+    _check_launches("isolated", launches, ("paged_decode", "paged_flash",
+                                           "epilogue"), layers=layers)
+    gaps = [got["gap_a"], got["gap_b"], got["gap_c"]]
+    if max(gaps) >= bound:
+        raise AssertionError(f"isolated: a pong gap of {max(gaps)} s reached "
+                             f"the heartbeat bound {bound} s")
+
+    # ---- (e) in=batch: through an isolated child
+    tok = HFTokenizer.from_pretrained_dir(str(model_dir))
+    words = _word_ids(tok)
+    rng = np.random.default_rng(SEED + 23)
+    lo, hi = ISOLATED_BATCH_WORDS
+    batch_file = tmp / "batch.jsonl"
+    batch_file.write_text("".join(json.dumps(dict(
+        messages=[{"role": "user", "content": tok.decode(
+            [words[int(i)] for i in rng.integers(0, len(words), int(n))])}],
+        max_tokens=NEW_TOKENS, temperature=0.0, ignore_eos=True)) + "\n"
+        for n in rng.integers(lo, hi, ISOLATED_BATCH)))
+    t4 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.cli.run",
+         f"in=batch:{batch_file}", "out=torch", *engine_flags,
+         "--isolate-engine"], cwd=str(ROOT), capture_output=True, text=True,
+        timeout=ISOLATED_TIMEOUT_S)
+    batch_s = time.monotonic() - t4
+    records = [json.loads(line) for line in res.stdout.splitlines()
+               if line.startswith("{")]
+    (tmp / "batch.log").write_text(res.stderr)
+    batch_spawns = _spawn_records(tmp / "batch.log")
+    if res.returncode != 0 or len(records) != ISOLATED_BATCH or not all(
+            r["ttft_s"] > 0 and r["completion_tokens"] == NEW_TOKENS
+            for r in records) or "batch summary:" not in res.stderr:
+        raise AssertionError(f"isolated: in=batch: rc {res.returncode}, "
+                             f"{len(records)} records: {res.stderr[-3000:]}")
+    if not batch_spawns or not _gone(batch_spawns[-1]["pid"]):
+        raise AssertionError("isolated: the batch CLI's child lives on")
+    del base_runner
+
+    fields = dict(
+        out, wave_equal=equal, wave_parted=parted, wave_s=got["wave_s"],
+        launches=launches,
+        ttft_s=[r["ttft_s"] for r in got["wave"]],
+        itl_median_s=[r["itl_median_s"] for r in got["wave"]],
+        itl_max_s=[r["itl_max_s"] for r in got["wave"]],
+        spawn_ready_s=[s["ready_s"] for s in spawns],
+        spawn_import_s=[s.get("import_s") for s in spawns],
+        spawn_card_s=[s.get("card_s") for s in spawns],
+        spawn_engine_s=[s.get("engine_s") for s in spawns],
+        spawn_card_free_bytes=[s.get("card_free_bytes") for s in spawns],
+        kill_streams_end_s=end_s,
+        kill_to_ready_s=kill["ready_after_kill_s"],
+        kill_to_first_token_s=kill["first_token_after_kill_s"],
+        wedge_trip_s=wedge["trip_s"], wedge_to_ready_s=wedge["ready_after_stop_s"],
+        drain_s=drain["seconds"], drain=drain["summary"],
+        pong_gap_max_s=gaps, health_polls=len(got["health"]),
+        restarts=restarts, batch_s=batch_s,
+        batch_spawn=batch_spawns[-1], batch_ttft_s=[r["ttft_s"] for r in records],
+        batch_summary=json.loads(res.stderr.split("batch summary: ", 1)[1]
+                                 .splitlines()[0]),
+        nvidia_smi=smi)
+    emit("engine_isolated", **fields)
+    # the child's plain epilogue form (the finish form runs on the chained
+    # loop only)
+    return dict(paged_decode=launches["paged_decode"],
+                paged_flash=launches["paged_flash"],
+                sampling_epilogue=launches["epilogue"]
+                - launches.get("epilogue_finish", 0))
+
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
           "engine_mixtral_int8", "engine_sp", "engine_http", "engine_guided",
           "engine_graph", "engine_disagg", "engine_kv_tiers", "engine_load",
-          "engine_spec", "engine_recovery", "engine_phi3")
+          "engine_spec", "engine_recovery", "engine_phi3", "engine_isolated")
 
 
 def main(argv=None) -> int:
@@ -11415,6 +11865,17 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    isolated_launches = {}
+    if "engine_isolated" in phases:
+        # the supervised engine child behind the CLI: the child's counts
+        # over the wave, read from its pongs
+        t0 = time.monotonic()
+        isolated_launches = engine_isolated_phase(torch, dev, smi)
+        phase_s["engine_isolated"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
     kernels = [dict(entry, launches=launches.get(key),
                     **({"launches_engine_http": http_launches[key]}
                        if key in http_launches else {}),
@@ -11429,7 +11890,9 @@ def main(argv=None) -> int:
                     **({"launches_engine_spec": spec_launches[key]}
                        if key in spec_launches else {}),
                     **({"launches_engine_recovery": recovery_launches[key]}
-                       if key in recovery_launches else {}))
+                       if key in recovery_launches else {}),
+                    **({"launches_engine_isolated": isolated_launches[key]}
+                       if key in isolated_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     # a form no cell serves (``path`` says so) has no count: null

@@ -1,12 +1,31 @@
 """serve CLI: ``python3 -m dynamo_tpu_torch.cli.run in=<src> out=<engine> [flags]``.
 
 The port's copy of ``dynamo_tpu/cli/run.py``. One process serving the
-OpenAI front: ``in=http`` (the HTTP service) or ``in=text`` (a prompt on
-stdin) over ``out=torch`` (``TorchServingEngine`` behind the preprocessor
-and the detokenizing backend), ``out=echo_core`` (the same stages over the
-token echo engine) or ``out=echo_full`` (the OpenAI-level echo). The engine
-runs on the card unless ``--device cpu`` asks for the CPU; without a card
-the default raises, it does not fall back.
+OpenAI front: ``in=http`` (the HTTP service), ``in=text`` or ``in=stdin``
+(prompts read from stdin) or ``in=batch:<file.jsonl>`` (one JSON record a
+request on stdout, TTFT, the gaps and token counts, the summary on stderr:
+``cli/batch.py``) over ``out=torch`` (``TorchServingEngine`` behind the
+preprocessor and the detokenizing backend), ``out=echo_core`` (the same
+stages over the token echo engine), ``out=echo_full`` (the OpenAI-level
+echo), ``out=pystr:<file.py>`` (a user's OpenAI-level engine) or
+``out=pytok:<file.py>`` (a user's token-level engine behind the
+preprocessor and backend; ``llm/engines/python_file.py``). The engine runs
+on the card unless ``--device cpu`` asks for the CPU; without a card the
+default raises, it does not fall back. A ``--model-path`` that is no local
+directory or ``.gguf`` file goes to ``models/hub.resolve_model_path``.
+
+The supervised engine child: ``--isolate-engine`` hosts ``out=torch``
+(the ``@torch`` engine, built in the child from this process's flags),
+``pystr:`` or ``pytok:`` in a child process
+(``llm/engines/subprocess_host.py``): heartbeats every
+``--engine-heartbeat-s`` (a child that misses ``--engine-heartbeat-misses``
+pongs is killed), an init deadline of ``--engine-init-timeout-s``, in-flight
+requests failed cleanly when the child dies, and a respawn on the next
+request or, with ``--self-heal``, at once through the recovery ladder
+(``POST /admin/drain?respawn=1`` restarts a live child). This process
+never opens the card then; the child does. ``--remote-prefill`` is refused
+with it (the coordinator needs the runner in process), as in the
+reference.
 
 The distributed inference graph, over a dynstore broker (``python3 -m
 dynamo_tpu_torch.runtime.transports.dynstore --port P``, then
@@ -65,6 +84,8 @@ of late first dispatches, listed at ``GET /debug/incidents``.
 
 Every other input, output and reference flag is refused by name
 (``--profiler-port`` with its reason: torch has no profiler server).
+``cli/llmctl.py`` registers models for a front; ``cli/metrics.py`` is the
+namespace metrics aggregator.
 
 A ``--model-path`` directory holding a safetensors checkpoint, or a
 ``.gguf`` file, is loaded (``models/loader.py``); a directory without one
@@ -80,6 +101,11 @@ Examples:
       --allow-random-weights --kv-cache-dtype fp8
   python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
       --self-heal --migrate-port 8391 --migrate-peers 10.0.0.2:8391
+  python3 -m dynamo_tpu_torch.cli.run in=http out=torch --model-path <dir> \\
+      --isolate-engine --self-heal
+  python3 -m dynamo_tpu_torch.cli.run in=batch:prompts.jsonl out=torch \\
+      --model-path <dir> --isolate-engine
+  python3 -m dynamo_tpu_torch.cli.run in=http out=pystr:engine.py
   python3 -m dynamo_tpu_torch.cli.run in=dyn://public.backend.generate \\
       out=torch --token-level --model-path <dir> --store-port 4871
   python3 -m dynamo_tpu_torch.cli.run in=dyn://public.processor.chat \\
@@ -104,21 +130,20 @@ from typing import List
 
 logger = logging.getLogger(__name__)
 
-INPUTS = ("http", "text")  # and dyn://ns.comp.ep and prefill (worker roles)
+# and batch:<file>, and the worker roles dyn://ns.comp.ep and prefill
+INPUTS = ("http", "text", "stdin")
+# and the Python-file engines pystr:<file> and pytok:<file>
 ENGINES = ("torch", "echo_core", "echo_full", "none", "processor")
+PY_ENGINES = ("pystr:", "pytok:")
 ROUTER_MODES = ("round_robin", "random", "kv")
 GRACEFUL_SHUTDOWN_S = 30.0
 
 # the reference's flags this CLI does not take (each raises by name):
-# multi-device, the ici transfer plane, the supervised subprocess engine
-# (and with it respawn on a child's death), admission, planning, tenants and
+# multi-device, the ici transfer plane, admission, planning, tenants and
 # the jax profiler server are not ported
 REFUSED_FLAGS = (
     "--tensor-parallel-size", "--expert-parallel-size",
     "--data-parallel-size", "--pipeline-parallel-size",
-    "--isolate-engine",
-    "--engine-heartbeat-s", "--engine-heartbeat-misses",
-    "--engine-init-timeout-s",
     "--ici-sender-rank", "--ici-receiver-rank", "--num-nodes", "--node-rank",
     "--leader-addr", "--profiler-port",
     "--admission-limit",
@@ -215,6 +240,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "halves the decode KV stream and doubles cache "
                         "capacity")
     p.add_argument("--num-kv-blocks", type=int, default=2048)
+    # the supervised engine child (llm/engines/subprocess_host.py)
+    p.add_argument("--isolate-engine", action="store_true",
+                   help="host the engine (out=torch, pystr:, pytok:) in a "
+                        "supervised subprocess (heartbeat + respawn; a dead "
+                        "or wedged engine fails its requests instead of the "
+                        "whole worker)")
+    p.add_argument("--engine-heartbeat-s", type=float, default=5.0,
+                   help="isolated-engine heartbeat interval; the child's event "
+                        "loop must answer within heartbeat x misses")
+    p.add_argument("--engine-heartbeat-misses", type=int, default=6,
+                   help="consecutive missed pongs before the isolated engine "
+                        "is killed as wedged")
+    p.add_argument("--engine-init-timeout-s", type=float, default=120.0,
+                   help="isolated-engine spawn + initialize() deadline (a "
+                        "first start on a fresh tree builds the kernels "
+                        "inside it)")
     p.add_argument("--allow-random-weights", action="store_true",
                    help="serve seeded random weights from a model directory "
                         "without a checkpoint")
@@ -368,14 +409,22 @@ def parse_flags(rest: List[str]):
         raise SystemExit(
             f"--kv-transfer {flags.kv_transfer} is not served by the PyTorch "
             "port (served: tcp; the ici collective plane is not ported)")
+    if flags.isolate_engine and flags.remote_prefill:
+        raise SystemExit(
+            "--isolate-engine is incompatible with --remote-prefill: the "
+            "disagg coordinator needs in-process access to the runner's KV "
+            "cache")
     return flags
 
 
 def load_mdc(flags):
     from ..llm.model_card import ModelDeploymentCard
+    from ..models.hub import resolve_model_path
 
     if not flags.model_path:
         raise SystemExit("this mode requires --model-path")
+    # a hub id is taken wherever a path is; a local path passes through
+    flags.model_path = resolve_model_path(flags.model_path)
     if flags.model_path.endswith(".gguf"):
         from ..llm.gguf import mdc_from_gguf
 
@@ -386,30 +435,90 @@ def load_mdc(flags):
     )
 
 
-async def build_core_engine(engine_spec: str, flags, mdc):
-    """Token-level engine (PreprocessedRequest → EngineOutput stream)."""
+def _supervision(flags) -> dict:
+    """The supervised child's heartbeat and init deadline, from the flags."""
+    return dict(heartbeat_interval_s=flags.engine_heartbeat_s,
+                heartbeat_misses=flags.engine_heartbeat_misses,
+                init_timeout_s=flags.engine_init_timeout_s)
+
+
+def wire_flags(flags) -> dict:
+    """The flag namespace as the plain dict a ``@torch`` child is built
+    from, with ``isolate_engine`` cleared (the child spawns no child)."""
+    wire = {k: v for k, v in vars(flags).items()
+            if v is None or isinstance(v, (str, int, float, bool, list, dict))}
+    wire["isolate_engine"] = False
+    return wire
+
+
+async def _load_python_engine(path: str, flags):
+    """A Python-file engine, in process or (``--isolate-engine``) hosted in
+    a supervised child with heartbeats and respawn."""
+    from ..engine.serving import load_extra_engine_args
+
+    if flags.isolate_engine:
+        from ..llm.engines.subprocess_host import SubprocessEngine
+
+        return await SubprocessEngine.load(
+            path, load_extra_engine_args(flags), **_supervision(flags))
+    from ..llm.engines.python_file import PythonFileEngine
+
+    return await PythonFileEngine.load(path, load_extra_engine_args(flags))
+
+
+async def build_core_engine(engine_spec: str, flags, mdc, events=None,
+                            disagg_factory=None):
+    """Token-level engine (PreprocessedRequest → EngineOutput stream).
+    ``events`` receives the allocator's KV events (a hosted child's replay
+    through the host); ``disagg_factory`` turns on remote prefill."""
     if engine_spec == "echo_core":
         from ..llm.engines.echo import EchoEngineCore
 
         return EchoEngineCore()
+    if engine_spec.startswith("pytok:"):
+        return await _load_python_engine(engine_spec[len("pytok:"):], flags)
     if engine_spec == "torch":
+        if flags.isolate_engine:
+            # the engine in a supervised child: heartbeats catch a wedged
+            # loop, a dead child fails its requests cleanly, and the next
+            # request (or the recovery ladder) respawns it
+            from ..llm.engines.subprocess_host import (
+                TORCH_ENGINE,
+                SubprocessEngine,
+            )
+
+            return await SubprocessEngine.load(
+                TORCH_ENGINE, {"flags": wire_flags(flags)}, events=events,
+                **_supervision(flags))
         from ..engine.serving import TorchServingEngine
 
         return await TorchServingEngine.create(
-            mdc=mdc, flags=flags, device=flags.device)
+            mdc=mdc, flags=flags, device=flags.device, events=events,
+            disagg_factory=disagg_factory)
     raise SystemExit(f"unknown core engine {engine_spec!r}")
+
+
+def _served(engine_spec: str) -> bool:
+    return engine_spec in ENGINES or engine_spec.startswith(PY_ENGINES)
+
+
+def _refuse_output(engine_spec: str) -> None:
+    raise SystemExit(
+        f"out={engine_spec} is not served by the PyTorch port (served: "
+        f"{', '.join(ENGINES)}, pystr:<file>, pytok:<file>)")
 
 
 async def build_engine(engine_spec: str, flags):
     """Returns (openai_engine, mdc_or_None). The engine accepts
     ChatCompletionRequest/CompletionRequest contexts and yields chunks."""
-    if engine_spec not in ENGINES:
-        raise SystemExit(
-            f"out={engine_spec} is not served by the PyTorch port (served: "
-            f"{', '.join(ENGINES)})")
+    if not _served(engine_spec):
+        _refuse_output(engine_spec)
     if engine_spec == "none":
         # pure frontend: models come exclusively from the discovery watcher
         return None, None
+    if engine_spec.startswith("pystr:"):
+        # a user's OpenAI-level engine
+        return await _load_python_engine(engine_spec[len("pystr:"):], flags), None
     if engine_spec == "processor":
         raise SystemExit("out=processor is a worker role: give it "
                          "in=dyn://ns.comp.ep")
@@ -433,6 +542,10 @@ async def build_engine(engine_spec: str, flags):
         [OpenAIPreprocessor(mdc, tokenizer), Backend(tokenizer)], core
     )
     pipe.core_engine = core
+    if getattr(core, "host_registry", None) is not None:
+        # a supervised child's host: the restart counter and the heartbeat
+        # gap beside the child's dict gauges
+        pipe.host_registry = core.host_registry
     if getattr(core, "registry", None) is not None:
         # the KV tiers' and the fabric's instruments, on the same /metrics
         pipe.engine_registry = core.registry
@@ -577,6 +690,8 @@ async def run_http(flags, engine, mdc) -> None:
             "dynamo_engine", engine.engine_metrics)
     if getattr(engine, "engine_registry", None) is not None:
         service.metrics.registry.attach(engine.engine_registry)
+    if getattr(engine, "host_registry", None) is not None:
+        service.metrics.registry.attach(engine.host_registry)
     recovery = migserver = None
     if flags.self_heal and engine is not None:
         recovery, migserver = await _setup_self_healing(
@@ -715,6 +830,19 @@ def _kernel_launches() -> dict:
     return out
 
 
+def _launches_of(engine_spec: str, core):
+    """The kernel launch counts a worker's stats report: this process's
+    for an in-process torch engine, the child's (``launches_<kernel>`` of
+    its last pong) for a supervised one, none otherwise."""
+    if engine_spec != "torch":
+        return dict
+    if hasattr(core, "add_down_listener"):
+        return lambda: {k[len("launches_"):]: v
+                        for k, v in core.metrics().items()
+                        if k.startswith("launches_")}
+    return _kernel_launches
+
+
 def _disagg_factory(flags, drt, component: str):
     """A ``--remote-prefill`` decode worker's coordinator factory (None
     without the flag): the router's thresholds from the flags, live-tunable
@@ -742,7 +870,11 @@ async def _setup_self_healing(flags, core, drt=None, component: str = "backend",
     """``--self-heal`` wiring: a RecoveryController for an in-process torch
     engine plus a migration receiver for peers draining TOWARD this worker.
     Returns ``(controller, migration_server)``, both None for an engine with
-    nothing to recover (echo). On a distributed worker (``drt``) the
+    nothing to recover (echo). A supervised child (``--isolate-engine``)
+    gets the respawn ladder only, driven by its deaths, and no receiver:
+    its drain and migration would run inside the child's own stack, as in
+    the reference; ``respawn()`` (not a lazy spawn) makes ``POST
+    /admin/drain?respawn=1`` restart a LIVE child. On a distributed worker (``drt``) the
     receiver's descriptor is registered lease-scoped under the component's
     migration prefix (packed with the runtime's wire codec), peers are
     discovered there, and the drain's deregister / register hooks remove and
@@ -758,13 +890,19 @@ async def _setup_self_healing(flags, core, drt=None, component: str = "backend",
     )
     from ..runtime.wire import packb, unpackb
 
-    scheduler = getattr(core, "scheduler", None)
-    if scheduler is None:
-        return None, None
     config = RecoveryConfig(drain_grace_s=flags.drain_grace_s,
                             respawn_backoff_s=flags.respawn_backoff_s,
                             max_respawns=flags.respawn_max)
     engine_id = f"eng-{uuid.uuid4().hex[:12]}"
+    if hasattr(core, "add_down_listener"):
+        # the controller ignores the down event of its own drain's kill
+        controller = RecoveryController(engine_id=engine_id,
+                                        respawner=core.respawn, config=config)
+        core.add_down_listener(controller.on_child_down)
+        return controller, None
+    scheduler = getattr(core, "scheduler", None)
+    if scheduler is None:
+        return None, None
     server = await MigrationServer(MigrationSink(scheduler, core.runner),
                                    host=flags.advertise_host,
                                    port=flags.migrate_port).start()
@@ -1041,10 +1179,8 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
         raise SystemExit("in=dyn:// requires --store-port")
     if engine_spec == "none":
         raise SystemExit("out=none is only valid with in=http (pure frontend)")
-    if engine_spec not in ENGINES:
-        raise SystemExit(
-            f"out={engine_spec} is not served by the PyTorch port (served: "
-            f"{', '.join(ENGINES)})")
+    if not _served(engine_spec):
+        _refuse_output(engine_spec)
     ns_name, comp, ep_name = parse_endpoint_path(path)
     drt = await DistributedRuntime.connect(flags.store_host, flags.store_port)
     endpoint = drt.namespace(ns_name).component(comp).endpoint(ep_name)
@@ -1115,15 +1251,9 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
         instance_id = f"w-{uuid.uuid4().hex[:12]}"
         publisher = KvEventPublisher(endpoint.component, instance_id)
         publisher.start()
-        if engine_spec == "torch":
-            from ..engine.serving import TorchServingEngine
-
-            core = await TorchServingEngine.create(
-                mdc=mdc, flags=flags, device=flags.device,
-                events=publisher.as_sink(),
-                disagg_factory=_disagg_factory(flags, drt, comp))
-        else:
-            core = await build_core_engine(engine_spec, flags, mdc)
+        core = await build_core_engine(
+            engine_spec, flags, mdc, events=publisher.as_sink(),
+            disagg_factory=_disagg_factory(flags, drt, comp))
         closers.append(core.close)
 
         async def handler(payload, ctx):
@@ -1131,7 +1261,7 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
                 yield out
 
         base_metrics = core.metrics if hasattr(core, "metrics") else dict
-        launches = _kernel_launches if engine_spec == "torch" else dict
+        launches = _launches_of(engine_spec, core)
 
         scheduler = getattr(core, "scheduler", None)
 
@@ -1171,8 +1301,10 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
                 recovery.attach()
                 if getattr(core, "registry", None) is not None:
                     core.registry.attach(recovery.registry)
-                # closed before the engine (closers run in order)
-                closers[-1:-1] = [recovery.close, migserver.close]
+                # closed before the engine (closers run in order); a
+                # supervised child's ladder has no migration receiver
+                closers[-1:-1] = [recovery.close] + (
+                    [migserver.close] if migserver is not None else [])
         else:
             recovery = None
         reg = getattr(core, "registry", None)
@@ -1273,13 +1405,20 @@ async def amain(argv: List[str]) -> None:
             raise SystemExit(f"in=prefill serves out=torch, not out={engine_spec}")
         await run_prefill(flags)
         return
-    if src not in INPUTS:
+    if src not in INPUTS and not src.startswith("batch:"):
         raise SystemExit(
             f"in={src} is not served by the PyTorch port (served: "
-            f"{', '.join(INPUTS)})")
+            f"{', '.join(INPUTS)}, batch:<file>)")
     engine, mdc = await build_engine(engine_spec, flags)
     if src == "http":
         await run_http(flags, engine, mdc)
+    elif src.startswith("batch:"):
+        from .batch import run_batch
+
+        try:
+            await run_batch(flags, engine, mdc, src[len("batch:"):])
+        finally:
+            await engine.close()
     else:
         await run_text(flags, engine, mdc)
 

@@ -34,7 +34,10 @@ Telemetry: each prefill stamps ``prefill.dequeue`` → ``prefill.compute``
 frame (the decode side folds them into the request's stitched trace);
 ``registry`` renders ``metrics()``'s counters as
 ``dynamo_prefill_worker_*`` gauges beside the runner's compile and
-device-time series (the ``--metrics-port`` sidecar's exposition).
+device-time series and the ``dynamo_transfer_*`` family
+(``plane="disagg"``: each transfer's bytes, duration and exposed seconds,
+the open channels; the bytes equal ``transfer_bytes_total``), the
+``--metrics-port`` sidecar's exposition.
 
 Not ported: the ici payload pump.
 """
@@ -57,7 +60,12 @@ from ..runtime.engine import AsyncEngineContext
 from ..runtime.wire import unpackb
 from ..telemetry.registry import MetricsRegistry
 from ..tokens import compute_block_hashes
-from ..transfer.plane import FramePipe, negotiate_backend
+from ..transfer.plane import (
+    FramePipe,
+    TransferMetrics,
+    negotiate_backend,
+    record_open,
+)
 from .protocols import PrefillQueue, RemotePrefillRequest
 from .transfer import KvTransferClient, cache_layout, layout_mismatch, transfer_key
 
@@ -99,6 +107,7 @@ class PrefillWorker:
         self.registry = MetricsRegistry()
         self.registry.register_callback_gauges("dynamo_prefill_worker",
                                                self.metrics)
+        self._xfer = TransferMetrics(self.registry, plane="disagg")
         for tracker in (getattr(runner, "compiles", None),
                         getattr(runner, "device_time", None)):
             if tracker is not None:
@@ -133,6 +142,7 @@ class PrefillWorker:
                              "redelivery", rpr.request_id)
             stale = self._clients.pop(rpr.engine_id, None)
             if stale is not None:
+                self._xfer.channel_closed("tcp")
                 await stale.close()
             return True
         ack()
@@ -259,6 +269,10 @@ class PrefillWorker:
                     "resp_sent_at": time.time(),
                 })
             t_done = time.monotonic()
+            if pipe.first_frame_t is not None:
+                self._xfer.observe_duration(t_done - pipe.first_frame_t, "tcp")
+                self._xfer.observe_exposed(max(0.0, t_done - t_compute_done),
+                                           "tcp")
             if not committed:
                 # the receiver dropped a frame and nacked: the decode side
                 # prefills locally after its timeout; the work is done here
@@ -270,6 +284,7 @@ class PrefillWorker:
             self.sp_prefills += int(use_sp)
             self.prefill_tokens += len(prompt) - num_cached
             self.transfer_bytes += nbytes
+            self._xfer.add_bytes(nbytes, "tcp")
             self.transfer_frames += pipe.frames
             self.prefix_hit_tokens += num_cached
             self.prefix_total_tokens += len(prompt)
@@ -395,6 +410,8 @@ class PrefillWorker:
                 f"refusing to send to {engine_id}: its KV cache layout differs "
                 f"from this worker's: {bad}")
         client = await KvTransferClient(desc["host"], desc["port"]).connect()
+        record_open("disagg", "tcp", peer=engine_id)
+        self._xfer.channel_opened("tcp")
         self._clients[engine_id] = client
         return client
 
@@ -418,5 +435,6 @@ class PrefillWorker:
     async def close(self) -> None:
         self.stop()
         for client in self._clients.values():
+            self._xfer.channel_closed("tcp")
             await client.close()
         self._clients.clear()

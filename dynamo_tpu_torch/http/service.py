@@ -669,6 +669,11 @@ async def register_model(
     )
 
 
+async def unregister_model(drt, namespace: str, name: str,
+                           model_type: str = "chat") -> None:
+    await drt.discovery.kv_delete(model_registry_key(namespace, model_type, name))
+
+
 async def list_models(drt, namespace: str) -> list:
     kvs = await drt.discovery.kv_get_prefix(f"{namespace}/{MODEL_REGISTRY_PREFIX}")
     return [unpackb(v) for v in kvs.values()]

@@ -27,9 +27,11 @@ nothing, so the allocator's state is exactly the no-fabric state.
 
 Only the tcp payload path exists: the ici collective plane (``set_ici``,
 a device-to-device frame, its negotiation) is refused by name, as the
-port's ``--kv-transfer ici`` is. The reference's flight events and
-``dynamo_transfer_*`` family are not ported; the fabric keeps plain
-counters (``stats()``) and its pull counter in the registry.
+port's ``--kv-transfer ici`` is. Each pull records the ``dynamo_transfer_*``
+family (``plane="fabric"``; backend ``tcp`` for a peer, ``local`` for a
+cold rehydrate) and a peer pull's ``transfer.open`` flight event; the
+fabric also keeps plain counters (``stats()``: the same bytes) and its
+pull counter in the registry.
 
 Fault sites: ``transfer_conn_drop`` (the serving side dies mid-stream)
 and ``prefix_pull_stall`` (the pulling side stalls until the scheduler's
@@ -50,7 +52,7 @@ import torch
 
 from ..ops.attention import _bytes
 from ..transfer.framing import dtype_name, pack_frame, read_header
-from ..transfer.plane import negotiate_backend
+from ..transfer.plane import TransferMetrics, negotiate_backend, record_open
 from ..transfer.tcp import TcpBackend
 from ..utils import faults
 
@@ -216,7 +218,8 @@ class KvFabric:
             "Prefix pulls, labelled source=peer|cold and outcome="
             "committed|failed|empty (failed/empty fall back to local "
             "recompute, byte-identically)")
-        # plain counters in place of the reference's transfer family
+        self._xfer = TransferMetrics(registry, plane="fabric")
+        # plain counters beside the transfer family (the stats scrape's)
         self.pull_bytes = {"tcp": 0, "local": 0}
         self.pull_seconds = 0.0
         self.serves = 0
@@ -405,6 +408,7 @@ class KvFabric:
         t0 = time.monotonic()
         outcome = "failed"
         served = 0
+        backend = "local" if plan.source == "cold" else plan.backend
         try:
             if plan.source == "cold":
                 served = await self._pull_cold(plan, block_ids)
@@ -415,6 +419,7 @@ class KvFabric:
         finally:
             seconds = time.monotonic() - t0
             self._pulls.inc(source=plan.source, outcome=outcome)
+            self._xfer.observe_duration(seconds, backend)
             self.pull_seconds += seconds
             self.recent.append(dict(
                 request_id=request_id, source=plan.source,
@@ -455,7 +460,9 @@ class KvFabric:
             # the cache-mutating scatter on the loop: it orders with the
             # scheduler's own dispatches over the shared cache
             self.runner.scatter_blocks(block_ids[served:served + n], k, v)
-            self.pull_bytes["local"] += _nbytes(k) + _nbytes(v)
+            nbytes = _nbytes(k) + _nbytes(v)
+            self.pull_bytes["local"] += nbytes
+            self._xfer.add_bytes(nbytes, "local")
             served += n
             if n < len(chunk):
                 break
@@ -464,6 +471,8 @@ class KvFabric:
     async def _pull_peer(self, plan: PullPlan, block_ids: List[int]) -> int:
         loop = asyncio.get_running_loop()
         reader, writer = await asyncio.open_connection(plan.host, plan.port)
+        record_open("fabric", "tcp", peer=plan.worker_id or "")
+        self._xfer.channel_opened("tcp")
         try:
             pack_frame(writer, {
                 "type": "pull",
@@ -492,13 +501,16 @@ class KvFabric:
                     k, v = await loop.run_in_executor(
                         None, self.runner.stage_blocks, k, v)
                     self.runner.scatter_blocks(block_ids[served:served + n], k, v)
-                    self.pull_bytes["tcp"] += _nbytes(k) + _nbytes(v)
+                    nbytes = _nbytes(k) + _nbytes(v)
+                    self.pull_bytes["tcp"] += nbytes
+                    self._xfer.add_bytes(nbytes, "tcp")
                     served += n
                 elif ftype == "pull_end":
                     return min(served, int(frame.get("served", served)))
                 else:
                     raise ValueError(f"unknown pull frame {ftype!r}")
         finally:
+            self._xfer.channel_closed("tcp")
             writer.close()
 
 

@@ -20,15 +20,20 @@ order:
    migration plane (``recovery/migration.py``): hot (the KV rides along)
    when the device is trusted, cold (the peer re-prefills) when it is not.
    A request no peer accepts fails with a terminal error frame.
-5. **respawn**: rebuild the engine through an injected factory with
-   exponential backoff and a consecutive-failure budget; success
-   re-registers in discovery (the factory's new scheduler takes traffic).
+5. **respawn**: rebuild the engine through the ``respawner`` with
+   exponential backoff and a consecutive-failure budget: a supervised
+   child's ``SubprocessEngine.respawn`` (``--isolate-engine``: the CLI
+   gives such an engine the respawn-only ladder, run from its
+   ``add_down_listener`` on a child's death) or a factory; success
+   re-registers in discovery (a factory's new scheduler takes traffic).
 
 The same ladder without the hard seize is ``POST /admin/drain``: the
-zero-downtime rolling update. Migrations ride tcp: the reference's ici
-backend and its transfer-metrics family (``dynamo_transfer_*``) are not
-ported; the KV bytes and frames a drain shipped are ``shipped``. Nor is
-the admission controller the reference gates beside the scheduler.
+zero-downtime rolling update (``respawn=1`` restarts a live child).
+Migrations ride tcp and record the ``dynamo_transfer_*`` family
+(``plane="migration"``) in this controller's registry beside ``shipped``,
+the KV bytes and frames a drain shipped; the reference's ici backend is
+refused by name. The admission controller the reference gates beside the
+scheduler is not ported.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from typing import Awaitable, Callable, List, Optional
 from ..protocols.common import EngineOutput, FinishReason
 from ..telemetry.flight import FlightRecorder, flight_recorder
 from ..telemetry.registry import MetricsRegistry
-from ..transfer.plane import negotiate_backend
+from ..transfer.plane import TransferMetrics, negotiate_backend
 from .migration import (
     ICI_REFUSED,
     migrate_request,
@@ -119,7 +124,9 @@ class RecoveryController:
             "dynamo_recovery_drain_duration_seconds",
             "One drain ladder end to end: admission gate through migrations "
             "(respawn excluded: it has its own backoff)")
-        # the KV payload the migrations shipped (tcp block frames)
+        # the KV payload the migrations shipped (tcp block frames), on the
+        # unified transfer family and as plain counts
+        self._xfer = TransferMetrics(self.registry, plane="migration")
         self.shipped = {"bytes": 0, "frames": 0}
         self._recover_task: Optional[asyncio.Task] = None
         self._relays: set = set()
@@ -272,7 +279,7 @@ class RecoveryController:
                     peer["host"], peer["port"], er, state,
                     gather=self.runner.gather_blocks_device if state.hot else None,
                     to_host=self.runner.blocks_to_host if state.hot else None,
-                    counts=self.shipped)
+                    counts=self.shipped, metrics=self._xfer)
             except asyncio.CancelledError:
                 raise
             except Exception as e:

@@ -78,7 +78,7 @@ from ..protocols.common import EngineOutput, FinishReason, PreprocessedRequest
 from ..runtime.engine import AsyncEngineContext
 from ..telemetry.flight import flight_recorder
 from ..transfer.framing import WIDE_IO_BYTES, pack_frame, read_header, widen_stream
-from ..transfer.plane import maybe_drop_connection
+from ..transfer.plane import maybe_drop_connection, record_open
 from ..transfer.tcp import TcpBackend
 
 logger = logging.getLogger(__name__)
@@ -622,6 +622,7 @@ async def migrate_request(
     to_host: Optional[Callable] = None,  # (k, v) -> host (k, v), executor
     ici=None,
     counts: Optional[dict] = None,
+    metrics=None,                        # TransferMetrics(plane="migration")
 ) -> asyncio.Task:
     """Ship one request to a peer and return the spawned relay task.
 
@@ -636,7 +637,9 @@ async def migrate_request(
     cases nothing was installed remotely and the caller may try another
     peer. On success the request's blocks are the caller's to free; the
     returned task relays the peer's outputs into ``er.out_queue`` until the
-    stream ends (the caller holds it and cancels it on shutdown)."""
+    stream ends (the caller holds it and cancels it on shutdown).
+    ``metrics`` records the channel, the bytes ``counts`` gains and the
+    transfer's seconds on the ``dynamo_transfer_*`` family."""
     if ici is not None:
         raise NotImplementedError(ICI_REFUSED)
     block_ids = list(er.block_ids) if state.hot else []
@@ -645,9 +648,11 @@ async def migrate_request(
         asyncio.open_connection(host, port), CONNECT_TIMEOUT_S)
     widen_stream(writer)
     loop = asyncio.get_running_loop()
-    flight_recorder().record("transfer.open", plane="migration",
-                             backend=backend, peer=f"{host}:{port}",
-                             trace_id=state.trace_id)
+    t0 = time.monotonic()
+    record_open("migration", backend, peer=f"{host}:{port}",
+                trace_id=state.trace_id)
+    if metrics is not None:
+        metrics.channel_opened(backend)
     try:
         begin_sent = time.time()
         pack_frame(writer, {
@@ -675,13 +680,19 @@ async def migrate_request(
             if counts is not None:
                 counts["bytes"] = counts.get("bytes", 0) + nbytes
                 counts["frames"] = counts.get("frames", 0) + 1
+            if metrics is not None:
+                metrics.add_bytes(nbytes, backend)
         pack_frame(writer, {"type": "mig_commit"})
         await writer.drain()
         ack = await read_header(reader, "migration")
         if ack is None or not ack.get("ok"):
             raise MigrationRejected((ack or {}).get(
                 "reason", "peer closed during commit"))
+        if metrics is not None:
+            metrics.observe_duration(time.monotonic() - t0, backend)
     except BaseException:
+        if metrics is not None:
+            metrics.channel_closed(backend)
         writer.close()
         raise
     # committed: the peer owns the request now. Stamp the hop, offer the
@@ -698,12 +709,14 @@ async def migrate_request(
         "recovery.migrate", request_id=er.request_id,
         trace_id=er.ctx.trace_id, peer=f"{host}:{port}", hot=state.hot,
         blocks=len(block_ids), generated=int(state.generated))
-    return loop.create_task(_relay(reader, writer, er, offset, rtt),
+    return loop.create_task(_relay(reader, writer, er, offset, rtt,
+                                   metrics=metrics, backend=backend),
                             name=f"mig-relay-{er.request_id[:8]}")
 
 
 async def _relay(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
-                 er, offset: float = 0.0, rtt: float = 0.0) -> None:
+                 er, offset: float = 0.0, rtt: float = 0.0,
+                 metrics=None, backend: str = "tcp") -> None:
     """Forward the peer's resumed outputs into the original out_queue: the
     client's stream continues without a break. A client disconnect reaches
     the peer as this connection closing."""
@@ -750,6 +763,8 @@ async def _relay(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
     finally:
         cancel_task.cancel()
         writer.close()
+        if metrics is not None:
+            metrics.channel_closed(backend)
         if not ended and not er.ctx.is_stopped:
             # the peer (or its connection) died mid-stream: the client must
             # see a terminal frame, not silence

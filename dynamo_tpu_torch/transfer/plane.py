@@ -1,7 +1,9 @@
-"""Transfer-plane core: the poison set, the bounded frame pipe and the
-backend negotiation.
+"""Transfer-plane core: the poison set, the bounded frame pipe, the
+unified ``dynamo_transfer_*`` family and the backend negotiation.
 
-The port's copy of ``dynamo_tpu/transfer/plane.py`` for the disagg plane:
+The port's copy of ``dynamo_tpu/transfer/plane.py``; the per-plane
+handlers (``disagg/prefill_worker.py``, ``kv/fabric.py``,
+``recovery/migration.py``) compose these pieces:
 
 - ``PoisonSet``: request ids whose payload stream can no longer be
   trusted (a frame lost, unauthorized, of another cache layout, or a
@@ -10,19 +12,19 @@ The port's copy of ``dynamo_tpu/transfer/plane.py`` for the disagg plane:
   TTL and a logged cap bound it.
 - ``FramePipe``: the conveyor between a chunk loop and one wire pump;
   ``maxsize=1`` plus the pump's one-frame lookahead bound live host
-  frames at two regardless of sequence length. Its counters (bytes,
-  frames, ``first_frame_t``, ``max_live_host_frames``) are what the
-  reference's ``TransferMetrics`` family records; the port keeps them as
-  plain counters in the owners' ``metrics()`` (it has no metrics
-  registry yet).
+  frames at two regardless of sequence length.
+- ``TransferMetrics``: the ``dynamo_transfer_*`` instruments (bytes,
+  duration, exposed seconds, open channels), labelled ``{plane,
+  backend}``, the reference's names and help text. The owners' stats
+  dicts (the prefill worker's ``transfers``, the fabric's ``pull_bytes``,
+  the controller's ``shipped``) count the same bytes beside them.
+- ``record_open``: the ``transfer.open`` flight event (one channel dialled,
+  with its backend).
 - ``negotiate_backend``: the payload path for one peer pair. The port
   serves ``tcp`` only; the ``ici`` collective plane is refused by name.
-
 - ``maybe_drop_connection``: the ``transfer_conn_drop`` fault seam
   (``utils/faults.py``), consulted between the chunk frames of a pull
   serve.
-
-Not ported: the flight-recorder events.
 """
 
 from __future__ import annotations
@@ -44,6 +46,16 @@ DROPPED_TTL_S = 600.0
 
 # the fault site a plane's chunk loop consults between frames
 CONN_DROP_FAULT = "transfer_conn_drop"
+
+
+def record_open(plane: str, backend: str, peer: str = "",
+                trace_id: Optional[str] = None) -> None:
+    """``transfer.open`` flight event: one channel dialled (or adopted)
+    with its payload backend."""
+    from ..telemetry.flight import flight_recorder
+
+    flight_recorder().record("transfer.open", plane=plane, backend=backend,
+                             peer=peer or None, trace_id=trace_id)
 
 
 def maybe_drop_connection() -> bool:
@@ -141,6 +153,59 @@ class FramePipe:
                 await self.task
             except asyncio.CancelledError:
                 pass
+
+
+class TransferMetrics:
+    """The unified ``dynamo_transfer_*`` instrument family.
+
+    One instance per component registry; every sample carries ``plane``
+    (disagg|fabric|migration) and ``backend`` (tcp, or ``local`` for the
+    fabric's cold-tier rehydrates, which move bytes without a wire)."""
+
+    def __init__(self, registry, plane: Optional[str] = None):
+        self.plane = plane
+        self._bytes = registry.counter(
+            "dynamo_transfer_bytes_total",
+            "KV payload bytes moved across the unified transfer plane, "
+            "labelled plane=disagg|fabric|migration and backend=tcp|ici|"
+            "local")
+        self._duration = registry.histogram(
+            "dynamo_transfer_duration_seconds",
+            "One transfer end to end (first frame enqueued/dialled → "
+            "commit acked or last block installed), labelled "
+            "{plane, backend}")
+        self._exposed = registry.histogram(
+            "dynamo_transfer_exposed_seconds",
+            "Non-overlapped transfer tail: wire time AFTER the covering "
+            "compute finished (commit RTT included; 0 = fully hidden "
+            "behind compute), labelled {plane, backend}")
+        self._channels = registry.gauge(
+            "dynamo_transfer_channels",
+            "Open transfer channels (control connections), labelled "
+            "{plane, backend}")
+
+    def _labels(self, backend: str, plane: Optional[str]) -> dict:
+        return {"plane": plane or self.plane or "?", "backend": backend}
+
+    def add_bytes(self, n: int, backend: str,
+                  plane: Optional[str] = None) -> None:
+        self._bytes.inc(n, **self._labels(backend, plane))
+
+    def observe_duration(self, seconds: float, backend: str,
+                         plane: Optional[str] = None) -> None:
+        self._duration.observe(seconds, **self._labels(backend, plane))
+
+    def observe_exposed(self, seconds: float, backend: str,
+                        plane: Optional[str] = None) -> None:
+        self._exposed.observe(seconds, **self._labels(backend, plane))
+
+    def channel_opened(self, backend: str,
+                       plane: Optional[str] = None) -> None:
+        self._channels.inc(1, **self._labels(backend, plane))
+
+    def channel_closed(self, backend: str,
+                       plane: Optional[str] = None) -> None:
+        self._channels.dec(1, **self._labels(backend, plane))
 
 
 def negotiate_backend(descriptor: Optional[dict], ici=None,

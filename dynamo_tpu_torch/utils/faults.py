@@ -3,6 +3,7 @@
 The port's copy of ``dynamo_tpu/utils/faults.py``. ``DYN_FAULT`` names
 injection *sites* compiled into the paths they sabotage::
 
+    DYN_FAULT=child_exit:once                   # the engine child dies
     DYN_FAULT=decode_burst_hang:once            # wedge the next decode sync
     DYN_FAULT=transfer_conn_drop:once           # drop the next pull serve
     DYN_FAULT=prefix_pull_stall:0.1             # stall 10% of prefix pulls
@@ -14,6 +15,9 @@ sites with ``release()``.
 
 Sites wired in the port:
 
+- ``child_exit`` — a supervised engine child (``llm/engines/
+  subprocess_host.py``) exits hard (``os._exit``) as a request arrives:
+  the host must fail the stream and respawn.
 - ``decode_burst_hang`` — the scheduler's decode host sync blocks (in its
   executor thread) until ``release()``: the shape of a dead device, and
   the wedge the stall watchdog's ``decode_stall`` trip exists to catch.

@@ -1468,3 +1468,58 @@ def test_native_xxh64_equals_its_plain_version():
         for seed in (0, 2**64 - 1):
             assert host_xxh64.xxh64_pair(data[:cut], data[cut:], seed) == \
                 host_xxh64.xxh64_pair_ref(data[:cut], data[cut:], seed), (n, cut)
+
+
+@pytest.mark.cuda
+def test_isolated_torch_child_serves_on_the_card(tmp_path):
+    """``--isolate-engine``'s ``@torch`` child on the card: the host (this
+    process opens no CUDA context for it) spawns the child, which reads its
+    free card memory before it loads, builds or loads the kernel libraries
+    in its warmup, serves a greedy stream through kernels 1-3 (their
+    launches ride the pongs) and exits on close."""
+    _need_cuda()
+    import asyncio
+    import json
+
+    import chip_smoke
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.llm.engines.subprocess_host import (
+        TORCH_ENGINE,
+        SubprocessEngine,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    spec = chip_smoke.synthetic_tokenizer(vocab_size=1000, n_special=8)
+    (tmp_path / "tokenizer.json").write_text(json.dumps(spec), encoding="utf-8")
+    (tmp_path / "config.json").write_text(json.dumps(dict(
+        model_type="llama", vocab_size=1000, hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, head_dim=64, max_position_embeddings=512,
+        bos_token_id=992, eos_token_id=993)))
+    flags = run.parse_flags([
+        "--model-path", str(tmp_path), "--allow-random-weights",
+        "--max-model-len", "256", "--num-kv-blocks", "64", "--isolate-engine"])
+
+    async def serve():
+        eng = await SubprocessEngine.load(
+            TORCH_ENGINE, {"flags": run.wire_flags(flags)},
+            heartbeat_interval_s=0.5, init_timeout_s=300.0)
+        try:
+            payload = {"token_ids": list(range(10, 50)),
+                       "stop_conditions": {"max_tokens": 8},
+                       "sampling_options": {"temperature": 0.0}}
+            toks = [t async for c in eng.generate(Context(payload))
+                    for t in c.get("token_ids", [])]
+            for _ in range(100):
+                if eng.metrics().get("launches_paged_decode"):
+                    break
+                await asyncio.sleep(0.1)
+            return toks, dict(eng.metrics()), eng.spawns[0]
+        finally:
+            await eng.close()
+
+    toks, metrics, spawn = asyncio.run(serve())
+    assert len(toks) == 8
+    assert 0 < spawn["card_free_bytes"] <= spawn["card_total_bytes"]
+    for kernel in ("paged_decode", "paged_flash", "epilogue"):
+        assert metrics[f"launches_{kernel}"] > 0, metrics

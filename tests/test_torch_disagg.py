@@ -1075,3 +1075,39 @@ def test_cli_disagg_trace_stitches_every_role_on_the_cpu(tmp_path):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def _family(text, name, labels):
+    """One sample of a rendered exposition (0.0 when absent)."""
+    for line in text.splitlines():
+        if line.startswith(f"{name}{{") and all(
+                f'{k}="{v}"' in line for k, v in labels.items()):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def test_prefill_worker_records_the_transfer_family(weights):
+    """The prefill worker's ``dynamo_transfer_*{plane="disagg",
+    backend="tcp"}``: the bytes equal its ``transfer_bytes_total`` and the
+    sum of its ``transfers`` records, one duration and one exposed sample a
+    prefill, one channel open while the client is held, none after close."""
+    prompts = [_prompt(30, 11), _prompt(40, 12)]
+
+    async def main():
+        async with _Pair(weights[1], worker_kw=CHUNKED) as pair:
+            for p in prompts:
+                await _tokens(pair.engine, p)
+            open_text = pair.worker.registry.render()
+            worker = pair.worker
+        return open_text, worker.registry.render(), worker.metrics()
+
+    open_text, closed_text, m = _run(main())
+    labels = {"plane": "disagg", "backend": "tcp"}
+    got = _family(open_text, "dynamo_transfer_bytes_total", labels)
+    assert got == m["transfer_bytes_total"] > 0
+    assert got == sum(t["bytes"] for t in m["transfers"])
+    for hist in ("dynamo_transfer_duration_seconds",
+                 "dynamo_transfer_exposed_seconds"):
+        assert _family(open_text, f"{hist}_count", labels) == 2.0
+    assert _family(open_text, "dynamo_transfer_channels", labels) == 1.0
+    assert _family(closed_text, "dynamo_transfer_channels", labels) == 0.0

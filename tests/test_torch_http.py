@@ -378,10 +378,10 @@ def _tiny_model_dir(tmp_path):
     return d, str(extra)
 
 
-def _cli(args, **kw):
+def _cli(args, module="dynamo_tpu_torch.cli.run", **kw):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     return subprocess.Popen(
-        [sys.executable, "-m", "dynamo_tpu_torch.cli.run", *args],
+        [sys.executable, "-m", module, *args],
         cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, **kw)
 
@@ -428,14 +428,18 @@ def test_cli_without_device_raises_on_a_machine_without_a_card(tmp_path):
     assert "listening on" not in out
 
 
-@pytest.mark.parametrize("args,needle", [
-    (["in=stdin", "out=torch"], "in=stdin"),
-    (["in=http", "out=jax"], "out=jax"),
-    (["in=http", "out=torch", "--kv-transfer", "ici"], "--kv-transfer"),
-    (["in=http", "out=torch", "--isolate-engine"], "--isolate-engine"),
+@pytest.mark.parametrize("module,args,needle", [
+    ("dynamo_tpu_torch.cli.run",
+     ["in=http", "out=torch", "--isolate-engine", "--remote-prefill"],
+     "--isolate-engine is incompatible with --remote-prefill"),
+    ("dynamo_tpu_torch.cli.run", ["in=http", "out=jax"], "out=jax"),
+    ("dynamo_tpu_torch.cli.run",
+     ["in=http", "out=torch", "--kv-transfer", "ici"], "--kv-transfer"),
+    ("dynamo_tpu_torch.cli.llmctl", ["deploy", "list"], "llmctl deploy"),
 ])
-def test_cli_refuses_unported_inputs_outputs_and_flags_by_name(args, needle):
-    proc = _cli(args)
+def test_cli_refuses_unported_inputs_outputs_and_flags_by_name(module, args,
+                                                               needle):
+    proc = _cli(args, module=module)
     out, err = proc.communicate(timeout=60)
     assert proc.returncode != 0 and needle in err
 
@@ -519,6 +523,30 @@ def test_cli_still_refuses_the_unported_flags_by_name(flag):
         port_run.parse_flags([flag, "1"])
     # a refused flag is none of the mapped ones (the draft flags are mapped)
     assert flag not in MAPPED_FLAGS and flag not in DRAFT_FLAGS
+
+
+SUPERVISION_FLAGS = {  # flag → (a value, the attribute it sets)
+    "--isolate-engine": (None, "isolate_engine"),
+    "--engine-heartbeat-s": ("0.25", "engine_heartbeat_s"),
+    "--engine-heartbeat-misses": ("3", "engine_heartbeat_misses"),
+    "--engine-init-timeout-s": ("45", "engine_init_timeout_s"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(SUPERVISION_FLAGS))
+def test_cli_supervision_flags_parse_to_the_reference_values(flag):
+    """The four flags of the supervised engine child, served since the
+    port hosts it: each parses to the reference parser's value, and its
+    default is the reference's (5.0 s, 6 misses, 120 s)."""
+    from dynamo_tpu.cli import run as ref_run
+
+    value, attr = SUPERVISION_FLAGS[flag]
+    argv = [flag] if value is None else [flag, value]
+    assert flag not in port_run.REFUSED_FLAGS
+    got, want = port_run.parse_flags(argv), ref_run.build_parser().parse_args(argv)
+    assert getattr(got, attr) == getattr(want, attr)
+    assert getattr(port_run.parse_flags([]), attr) == getattr(
+        ref_run.build_parser().parse_args([]), attr)
 
 
 DRAFT_FLAGS = {"--spec-draft-model": "spec_draft_model",

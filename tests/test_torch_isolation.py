@@ -112,7 +112,15 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.telemetry.flight",
             "dynamo_tpu_torch.telemetry.watchdog",
             "dynamo_tpu_torch.recovery", "dynamo_tpu_torch.recovery.migration",
-            "dynamo_tpu_torch.recovery.controller"} <= set(mods)
+            "dynamo_tpu_torch.recovery.controller",
+            # the supervised engine child, the Python-file engines and the
+            # CLI's tools: their wire is the port's codec, their HTTP the
+            # port's own server
+            "dynamo_tpu_torch.llm.engines.subprocess_host",
+            "dynamo_tpu_torch.llm.engines.python_file",
+            "dynamo_tpu_torch.cli.batch", "dynamo_tpu_torch.cli.llmctl",
+            "dynamo_tpu_torch.cli.metrics",
+            "dynamo_tpu_torch.models.hub"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -308,3 +316,86 @@ def test_dynstore_runs_as_a_module_without_msgpack():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_engine_child_runs_as_a_module_without_jax_or_reference_package(tmp_path):
+    """``python -m dynamo_tpu_torch.llm.engines.subprocess_host @torch``,
+    spawned by the port's host with a ``sitecustomize`` that installs the
+    refusing finder in the child: the child builds the torch engine from
+    the CLI's flags, serves a greedy stream and answers a ping, and at its
+    exit holds no refused module and no CUDA context."""
+    import asyncio
+    import json
+
+    from fixtures import make_model_dir
+
+    from dynamo_tpu_torch.cli import run as port_run
+    from dynamo_tpu_torch.llm.engines.subprocess_host import (
+        TORCH_ENGINE,
+        SubprocessEngine,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    site = tmp_path / "site"
+    site.mkdir()
+    report = tmp_path / "child_modules.json"
+    (site / "sitecustomize.py").write_text(textwrap.dedent(f"""
+        import atexit, importlib.abc, json, sys
+
+        def blocked(name):
+            return any(name == r or name.startswith(r + ".")
+                       for r in {REFUSED!r})
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if blocked(name):
+                    raise ImportError("refused import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+
+        def _report():
+            torch = sys.modules.get("torch")
+            with open({str(report)!r}, "w") as f:
+                json.dump({{"blocked": sorted(m for m in sys.modules
+                                               if blocked(m)),
+                           "engine": "dynamo_tpu_torch.engine.serving"
+                                     in sys.modules,
+                           "cuda": bool(torch is not None
+                                        and torch.cuda.is_initialized())}}, f)
+
+        atexit.register(_report)
+    """))
+    d = make_model_dir(tmp_path, config_overrides=dict(
+        hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, vocab_size=512))
+    extra = tmp_path / "f32.json"
+    extra.write_text(json.dumps({"dtype": "float32"}))
+    flags = port_run.parse_flags([
+        "--model-path", d, "--device", "cpu", "--allow-random-weights",
+        "--extra-engine-args", str(extra), "--max-model-len", "64",
+        "--num-kv-blocks", "16", "--kv-block-size", "8", "--isolate-engine"])
+    env = dict(os.environ, PYTHONPATH=str(site), CUDA_VISIBLE_DEVICES="")
+
+    async def main():
+        eng = await SubprocessEngine.load(
+            TORCH_ENGINE, {"flags": port_run.wire_flags(flags)}, child_env=env,
+            heartbeat_interval_s=0.1)
+        try:
+            payload = {"token_ids": [3, 7, 11],
+                       "stop_conditions": {"max_tokens": 3},
+                       "sampling_options": {"temperature": 0.0}}
+            toks = [t async for c in eng.generate(Context(payload))
+                    for t in c.get("token_ids", [])]
+            for _ in range(100):
+                if eng.metrics():
+                    break
+                await asyncio.sleep(0.05)
+            return toks, eng.metrics()
+        finally:
+            await eng.close()
+
+    toks, metrics = asyncio.run(asyncio.wait_for(main(), 120))
+    assert len(toks) == 3 and metrics
+    got = json.loads(report.read_text())
+    assert got == {"blocked": [], "engine": True, "cuda": False}, got

@@ -628,3 +628,35 @@ def test_cli_worker_wiring_pulls_between_two_workers(weights):
     assert set(peers) == {"w-a"} and peers["w-a"]["modes"] == ["tcp", "pull"]
     assert out == base
     assert stats["pull_commits"] == 1 and stats["pinned_blocks"] == 0
+
+
+def _family(text, name, labels):
+    """One sample of a rendered exposition (0.0 when absent)."""
+    for line in text.splitlines():
+        if line.startswith(f"{name}{{") and all(
+                f'{k}="{v}"' in line for k, v in labels.items()):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def test_peer_pull_records_the_transfer_family(weights):
+    """A peer pull's ``dynamo_transfer_*{plane="fabric",backend="tcp"}`` in
+    the puller's registry: the bytes equal ``pull_bytes["tcp"]``, one
+    duration sample, the channel closed after the pull."""
+
+    async def main():
+        a, b = await _pair(weights)
+        try:
+            await _tokens(a, PROMPT_A)
+            await _tokens(b, PROMPT_B)
+            return b.scheduler.fabric.registry.render(), dict(
+                b.scheduler.fabric.pull_bytes)
+        finally:
+            await a.close()
+            await b.close()
+
+    text, pulled = _run(main())
+    labels = {"plane": "fabric", "backend": "tcp"}
+    assert _family(text, "dynamo_transfer_bytes_total", labels) == pulled["tcp"] > 0
+    assert _family(text, "dynamo_transfer_duration_seconds_count", labels) == 1.0
+    assert _family(text, "dynamo_transfer_channels", labels) == 0.0

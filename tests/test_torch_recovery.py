@@ -1337,3 +1337,28 @@ def test_wedge_autoproduces_one_incident_bundle(weights, tmp_path):
     assert bundle["history"]["series"]
     assert trace_id in [t["request_id"] for t in bundle["traces"]]
     assert [m["bundle"] for m in listed] == [manifest["bundle"]]
+
+
+def _family(text, name, labels):
+    """One sample of a rendered exposition (0.0 when absent)."""
+    for line in text.splitlines():
+        if line.startswith(f"{name}{{") and all(
+                f'{k}="{v}"' in line for k, v in labels.items()):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def test_hot_drain_records_the_transfer_family(weights):
+    """A hot drain's ``dynamo_transfer_*{plane="migration",backend="tcp"}``
+    in the controller's registry: the bytes equal ``shipped``'s, one
+    duration sample a committed migration, every channel closed once the
+    relays ended."""
+    out = _run(_drain_scenario(weights[1], sampled=False))
+    labels = {"plane": "migration", "backend": "tcp"}
+    text = out["registry"]
+    assert out["summary"]["migrated"] == len(PROMPTS)
+    assert (_family(text, "dynamo_transfer_bytes_total", labels)
+            == out["shipped"]["bytes"] > 0)
+    assert (_family(text, "dynamo_transfer_duration_seconds_count", labels)
+            == len(PROMPTS))
+    assert _family(text, "dynamo_transfer_channels", labels) == 0.0
