@@ -115,7 +115,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the logits of a prompt stay within ``FP8_LOGITS_REL_L2`` of the bf16
    cache's; the card's e4m3 writes of ``FP8_WRITE_VALUES`` give the CPU's
    bytes; no KV block stays in use.
-8. ``engine_mla`` — DeepSeek-V2-Lite at full width, its depth cut to 14
+8. ``engine_mla`` — DeepSeek-V2-Lite at full width, its depth cut to 7
    of its 27 layers (``MLA_LAYERS``: MLA attention, a dense first layer,
    then routed-MoE layers with 2 shared experts), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights: wave 1 and the
@@ -129,7 +129,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    kernel's fp8 form and the dense S > 1 gather over e4m3 pages). Twins
    within one wave may part there: the reference's expert capacity at a
    decode batch of 8 is 1.
-9. ``engine_gptoss`` — gpt-oss-20b at full width, its depth cut to 8 of
+9. ``engine_gptoss`` — gpt-oss-20b at full width, its depth cut to 4 of
    its 24 layers (``GPTOSS_LAYERS``; 20.9 B parameters in full: sinks,
    alternating 128-token windows, 32 experts top 4), built by ``ModelConfig.from_hf_config`` from its published
    ``config.json`` values with seeded random bf16 weights and seeded
@@ -141,7 +141,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    chained dispatches under the sync guard), and the spec prompts without
    and with ngram speculation (verify launches; equal or parted at a
    near-tie, routing pinned).
-10. ``engine_gemma2`` — gemma-2-9b at full width, its depth cut to 14 of
+10. ``engine_gemma2`` — gemma-2-9b at full width, its depth cut to 7 of
    its 42 layers (``GEMMA_LAYERS``; 9.24 B parameters in full: head_dim 256, attention logits capped at 50 and
    final logits at 30, 4,096-token windows on the even layers, sandwich
    norms, GeGLU, a tied 256,000 vocabulary), built by
@@ -157,7 +157,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    under the sync guard), and the spec prompts without and with ngram
    speculation (verify launches; equal or parted at a near-tie).
 11. ``engine_qwen3moe`` — Qwen3-30B-A3B at full width, its depth cut to
-   12 of its 48 layers (``MOE_LAYERS``; 30.53 B parameters in full: 128
+   6 of its 48 layers (``MOE_LAYERS``; 30.53 B parameters in full: 128
    experts top 8, per-head q/k norms,
    G 8 at head_dim 128, an untied 151,936 vocabulary), built by
    ``ModelConfig.from_hf_config`` from its published ``config.json``
@@ -170,7 +170,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the sync guard), and the spec prompts without and with ngram
    speculation (verify launches; routing pinned).
 12. ``engine_mixtral_int8`` — Mixtral-8x7B at full width, its depth cut to
-   4 of its 32 layers (``MOE_LAYERS``), in int8 (46.70 B parameters in full, 8 experts top 2, G 4 at head_dim 128, a
+   2 of its 32 layers (``MOE_LAYERS``), in int8 (46.70 B parameters in full, 8 experts top 2, G 4 at head_dim 128, a
    32,000 vocabulary), from its published ``config.json`` values with
    ``quantization="int8"``: the weights are quantized slice by slice as
    they are drawn (93 GB in bf16 would not fit), and every ``QUANT_KEYS``
@@ -273,7 +273,19 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    The workers and the kv processor run ``--metrics-port`` sidecars and
    the kv frontend ``--hub``: before the kill, ``/fleet/workers`` lists
    both workers up with their KV use and busy ratio, and the processor's
-   sidecar renders the aggregator's per-worker gauges.
+   sidecar renders the aggregator's per-worker gauges. The native host
+   core and the edge's fleet controls, a line each: (a) the kv router
+   indexes over the C++ tree (its decision µs); (b) the 12,000-token
+   prompt's batched hash equal natively and plainly (both times); after
+   the kill, on the kv frontend (admission limit 5, a queue of one a
+   class, a tenant bucket, a 2 s cold-start deadline) and the kv
+   processor's card (an alias, three tenants): (c) a burst across
+   X-Priority classes, granted high before normal before low, the 429s
+   with Retry-After equal to the admission counter, every admitted stream
+   whole; (d) one tenant over its bucket shed, another served; (e) the
+   alias echoed as the canonical model, an outside tenant's 404 the
+   unknown model's, a registered pool without a worker a 503 + Retry-After
+   past the deadline, then removed.
 17. ``engine_disagg`` — disaggregated prefill and decode on Llama-3.2-1B at
    full width and depth. Leg A in one process, over a bf16 and an fp8
    cache: a decode engine whose coordinator talks over a ``MemoryHub`` to
@@ -308,7 +320,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    the tiers' counters, offload and restore GB/s, the cold tier's MB/s and
    the checksum's share.
 19. ``engine_load`` — checkpoints from files: Qwen2.5-7B at full width, its
-   depth cut to 4 of its 28 layers (``LOAD_LAYERS``; its published
+   depth cut to 2 of its 28 layers (``LOAD_LAYERS``; its published
    ``config.json``: G 7, qkv biases, V 152,064) with
    seeded random bf16 weights written as a 4-shard HF safetensors
    snapshot (``write_safetensors_snapshot``) and loaded by
@@ -322,7 +334,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    Llama-3.2-1B as one GGUF file (Q8_0, ``write_gguf_llama_q8``) served
    by the CLI the same way against an engine given d * q directly.
 20. ``engine_spec`` — the rest of speculation: Llama-3.1-8B at full width,
-   its depth cut to 16 of 32 layers (``LLAMA_8B_CUT``; ``LLAMA_31_8B``,
+   its depth cut to 8 of 32 layers (``LLAMA_8B_CUT``; ``LLAMA_31_8B``,
    its published ``config.json``, seeded
    random bf16 weights) drafted by Llama-3.2-1B, drawn on the card and
    written as a safetensors snapshot that the draft's runner loads. The
@@ -342,7 +354,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    step of each draft burst. Prints each leg's acceptance, rounds and
    decode wall a round.
 21. ``engine_recovery`` — recovery and live migration: Llama-3.1-8B at
-   full width, 16 of its 32 layers (``RECOVERY_MODEL``, its published ``config.json``,
+   full width, 8 of its 32 layers (``RECOVERY_MODEL``, its published ``config.json``,
    seeded random bf16 weights) behind a source and a peer in one process
    (one set of weight tensors, 1,024 blocks of 16 each, no prefix cache),
    wave 1's eight prompts with 64 new tokens (six greedy, two seeded at
@@ -377,7 +389,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    Prints the
    drains' seconds, the KV bytes and frames, each stream's gap across the
    hop, the peer's launches of kernels 1–3.
-22. ``engine_phi3`` — Phi-3-mini-128k-instruct at full width and 16 of 32
+22. ``engine_phi3`` — Phi-3-mini-128k-instruct at full width and 8 of 32
    layers (``PHI3_MINI_128K``, its published ``config.json`` with factor
    lists of the published length drawn from the seed: longrope, head_dim
    96, 32 KV heads, a window past every context), seeded random bf16
@@ -460,6 +472,7 @@ import asyncio
 import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -487,8 +500,8 @@ FLAGSHIP = dict(
 # shared experts; yarn rope (factor 40, both mscales 0.707); untied
 # depth cuts that keep the whole script inside its time limit; the widths
 # stay the published ones
-MLA_LAYERS = 14      # of V2-Lite's 27
-GPTOSS_LAYERS = 8    # of gpt-oss-20b's 24
+MLA_LAYERS = 7       # of V2-Lite's 27
+GPTOSS_LAYERS = 4    # of gpt-oss-20b's 24
 V2_LITE = {
     "architectures": ["DeepseekV2ForCausalLM"], "vocab_size": 102400,
     "hidden_size": 2048, "intermediate_size": 10944,
@@ -4686,7 +4699,7 @@ GEMMA_ENGINE = dict(max_model_len=8192, num_kv_blocks=2560)
 # a depth cut that keeps the whole script inside its time limit (of 42
 # layers, sliding and global alternating); the widths stay the published
 # ones
-GEMMA_LAYERS = 14
+GEMMA_LAYERS = 7
 # the five norms the reference inits to 0 (its 1 + w form, so zeros would
 # leave the weights untested): drawn N(0, 0.1^2)
 GEMMA_NORMS = ("ln1", "ln_post_attn", "ln_pre_mlp", "ln_post_mlp")
@@ -5027,7 +5040,7 @@ MOE_CELLS = {"qwen3moe": (QWEN3_30B_A3B, None, True),
              "mixtral_int8": (MIXTRAL_8X7B, "int8", False)}
 # depth cuts that keep the whole script inside its time limit (of 48 and 32
 # layers); the widths stay the published ones
-MOE_LAYERS = {"qwen3moe": 12, "mixtral_int8": 4}
+MOE_LAYERS = {"qwen3moe": 6, "mixtral_int8": 2}
 MOE_QK_NORM_SCALE = 0.2   # q/k norms drawn 1 + N(0, 0.2^2)
 
 
@@ -7172,6 +7185,27 @@ GRAPH_PULL_FAULT = {"DYN_FAULT": "transfer_conn_drop:once"}
 # sidecar (advertised in discovery), the kv frontend runs the hub
 GRAPH_HUB_INTERVAL_S = 0.5
 GRAPH_FLEET_TIMEOUT_S = 30
+# the edge's fleet controls on the kv frontend (legs c-e), above the waves'
+# concurrency (four requests at once after the kill) so the checks above
+# see what they saw without them; tenant-less traffic is the default tenant
+GRAPH_ADMISSION_LIMIT, GRAPH_ADMISSION_DEPTH = 5, 1
+# leg c: the fillers' lengths stagger their releases, one grant each
+GRAPH_FILLER_TOKENS = (48, 80, 112, 144, 176)
+GRAPH_QUEUED_TOKENS = 8
+GRAPH_TENANTS = "default,burst,steady"
+# leg d: "burst" may send one request per 20 s (a bucket of one); "steady"
+# keeps the default (unlimited) quota
+GRAPH_QUOTAS = {"burst": {"requests_per_s": 0.05, "burst_s": 20.0}}
+GRAPH_ALIAS = "llama-fast"
+GRAPH_COLD_DEADLINE_S = 2.0
+GRAPH_FRONT_FLAGS = [
+    "--admission-limit", str(GRAPH_ADMISSION_LIMIT),
+    "--admission-queue-depth", str(GRAPH_ADMISSION_DEPTH),
+    "--admission-queue-timeout-s", "120",
+    "--pool-scale-to-zero-idle-s", "3600",
+    "--pool-cold-start-deadline-s", str(GRAPH_COLD_DEADLINE_S)]
+# leg b: the batched hash of engine_sp's 12,000-token prompt, on the host
+GRAPH_HASH_TOKENS = 12000
 
 
 def _free_port() -> int:
@@ -7254,6 +7288,248 @@ async def _graph_fleet(port, sidecars):
             return dict(ok=True, rows=rows, router_gauges=per_worker)
         await asyncio.sleep(GRAPH_HUB_INTERVAL_S)
     return dict(ok=False, rows=rows, router_text=text[-2000:])
+
+
+def _metric0(text, name, labels=""):
+    """A sample's value, 0.0 while the series is not on /metrics yet."""
+    try:
+        return _metric(text, name, labels)
+    except AssertionError:
+        return 0.0
+
+
+async def _graph_fleet_legs(port, words_text):
+    """Legs c-e on the kv frontend (its processor's card: GRAPH_ALIAS,
+    tenants GRAPH_TENANTS; the front: GRAPH_FRONT_FLAGS and GRAPH_QUOTAS):
+    the priority burst, the tenants' buckets, the alias, the invisible
+    model and a registered pool without a worker."""
+
+    async def metrics():
+        return (await http_request(port, "GET", "/metrics"))[2].decode()
+
+    async def ask(body, headers=None):
+        t0 = time.monotonic()
+        status, hdrs, raw, events = await http_request(
+            port, "POST", "/v1/chat/completions", body, headers=headers)
+        out = dict(status=status, retry_after=hdrs.get("retry-after"),
+                   sent=t0, elapsed_s=time.monotonic() - t0)
+        if status == 200:
+            rec = _stream_record(events, True)
+            out.update(tokens=len(rec["tokens"]), finish=rec["finish"],
+                       first=t0 + rec["ttft_s"], models=sorted(
+                           {c.get("model") for _, c in events if c}))
+        else:
+            out["body"] = json.loads(raw)
+        return out
+
+    def chat(n_tokens, model="llama"):
+        body = _graph_chat(model, words_text(24))
+        body["max_tokens"] = n_tokens
+        return body
+
+    async def until(pred, what, timeout_s=30.0):
+        deadline = time.monotonic() + timeout_s
+        while True:
+            text = await metrics()
+            if pred(text):
+                return text
+            if time.monotonic() > deadline:
+                raise AssertionError(f"graph: {what} never held")
+            await asyncio.sleep(0.005)
+
+    def gauge(text, name, **labels):
+        lab = ",".join(f'{k}="{v}"' for k, v in labels.items())
+        return _metric0(text, name, "{" + lab + "}" if lab else "")
+
+    # ---- c: a burst past the limit and the queues, across X-Priority classes
+    before = await metrics()
+    fillers = [asyncio.ensure_future(ask(chat(n), {"X-Priority": "normal"}))
+               for n in GRAPH_FILLER_TOKENS]
+    await until(lambda t: gauge(t, "dynamo_planner_inflight_requests")
+                == GRAPH_ADMISSION_LIMIT, "the fillers' admission")
+    queued = {}
+    for cls in ("low", "normal", "high"):  # enqueued lowest first; the
+        # shortest filler outlasts the queueing, so each release grants one
+        queued[cls] = asyncio.ensure_future(ask(
+            chat(GRAPH_QUEUED_TOKENS), {"X-Priority": cls}))
+        await until(lambda t, c=cls: gauge(
+            t, "dynamo_planner_admission_queue_depth_requests", priority=c)
+            == GRAPH_ADMISSION_DEPTH, f"{cls} queued")
+    turned = [await ask(chat(GRAPH_QUEUED_TOKENS), {"X-Priority": cls})
+              for cls in ("low", "normal", "high")]
+    held = await metrics()  # no filler released a slot before this point
+    held = dict(inflight=gauge(held, "dynamo_planner_inflight_requests"),
+                queued=[gauge(held, "dynamo_planner_admission_queue_depth_requests",
+                              priority=c) for c in ("low", "normal", "high")])
+    fill = await asyncio.gather(*fillers)
+    grants = {cls: await t for cls, t in queued.items()}
+    after = await metrics()
+    counts = {f"{o}:{c}": gauge(after, "dynamo_planner_admissions_total",
+                                outcome=o, priority=c)
+              - gauge(before, "dynamo_planner_admissions_total",
+                      outcome=o, priority=c)
+              for o in ("admitted", "queue_full", "shed", "timeout")
+              for c in ("low", "normal", "high")}
+    admission = dict(fillers=fill, queued=grants, turned=turned, counts=counts,
+                     burst=len(fill) + len(grants) + len(turned), held=held)
+
+    # ---- d: one tenant over its bucket, another served in full
+    before = after
+    tenants = await asyncio.gather(*(
+        [ask(chat(NEW_TOKENS), {"X-Tenant": "burst"}) for _ in range(3)]
+        + [ask(chat(NEW_TOKENS), {"X-Tenant": "steady"}) for _ in range(3)]))
+    after = await metrics()
+    quota = dict(
+        burst=tenants[:3], steady=tenants[3:],
+        quota_sheds=gauge(after, "dynamo_planner_admissions_total",
+                          outcome="quota", tenant="burst")
+        - gauge(before, "dynamo_planner_admissions_total",
+                outcome="quota", tenant="burst"),
+        bucket_sheds=gauge(after, "dynamo_registry_tenant_sheds_total",
+                           bucket="requests", tenant="burst"),
+        steady_sheds=gauge(after, "dynamo_planner_admissions_total",
+                           outcome="quota", tenant="steady"))
+
+    # ---- e: the alias, the invisible model, a pool without a worker
+    reg = dict(alias=await ask(chat(8, GRAPH_ALIAS)),
+               outsider=await ask(chat(8), {"X-Tenant": "outsider"}),
+               unknown=await ask(chat(8, "no-such-model")))
+    models = [m["id"] for m in json.loads(
+        (await http_request(port, "GET", "/v1/models"))[2])["data"]]
+    reg["models_outsider"] = [m["id"] for m in json.loads((await http_request(
+        port, "GET", "/v1/models", headers={"X-Tenant": "outsider"}))[2])["data"]]
+    card = {"name": "cold-llama", "endpoint": f"dyn://{GRAPH_NS}.cold_pool.chat",
+            "model_type": "both"}
+    status, _, raw, _ = await http_request(port, "POST", "/admin/models", card)
+    reg["add"] = (status, json.loads(raw))
+
+    async def listed():
+        _, _, raw, _ = await http_request(port, "GET", "/v1/models")
+        return [m["id"] for m in json.loads(raw)["data"]]
+
+    deadline = time.monotonic() + 30
+    while "cold-llama" not in await listed():
+        if time.monotonic() > deadline:
+            raise AssertionError("graph: the registered card never bound")
+        await asyncio.sleep(0.02)
+    reg["cold"] = await ask(chat(8, "cold-llama"))
+    reg["pools"] = json.loads((await http_request(
+        port, "GET", "/admin/pools"))[2])["pools"]
+    reg["admin_models"] = [c["name"] for c in json.loads((await http_request(
+        port, "GET", "/admin/models"))[2])["models"]]
+    status, _, raw, _ = await http_request(port, "DELETE",
+                                           "/admin/models/cold-llama")
+    reg["remove"] = (status, json.loads(raw))
+    deadline = time.monotonic() + 30
+    while "cold-llama" in await listed():
+        if time.monotonic() > deadline:
+            raise AssertionError("graph: the removed card stayed bound")
+        await asyncio.sleep(0.02)
+    reg["removed"] = await ask(chat(8, "cold-llama"))
+    reg["models"] = models
+    return dict(admission=admission, quota=quota, registry=reg)
+
+
+def _check_graph_fleet_legs(legs, router, smi):
+    """Print legs a, c, d and e of the fleet controls, a line each, and
+    fail on the first leg whose condition fails."""
+    # ---- a: the router's native tree (the followers' check stays above)
+    emit("engine_graph_router_native", indexer_tree=router["indexer_tree"],
+         decision_us_mean=router["decision_us"]["mean"],
+         decision_us_max=router["decision_us"]["max"],
+         decisions=router["decisions"], indexer_blocks=router["indexer_blocks"],
+         card=smi)
+    if router["indexer_tree"] != "native":
+        raise AssertionError(f"graph: the kv router indexes over "
+                             f"{router['indexer_tree']}, not the native tree")
+
+    # ---- c: the burst
+    adm = legs["admission"]
+    admitted = adm["fillers"] + list(adm["queued"].values())
+    first = {cls: r["first"] for cls, r in adm["queued"].items()}
+    counts = adm["counts"]
+    emit("engine_graph_admission", burst=adm["burst"],
+         limit=GRAPH_ADMISSION_LIMIT, queue_depth=GRAPH_ADMISSION_DEPTH,
+         turned=[(r["status"], r["retry_after"], r["body"]["error"]["type"])
+                 for r in adm["turned"] if r["status"] != 200],
+         grant_order=sorted(first, key=first.get),
+         queued_wait_s={c: round(r["first"] - r["sent"], 4)
+                        for c, r in adm["queued"].items()},
+         counts={k: v for k, v in counts.items() if v},
+         admitted_tokens=[r.get("tokens") for r in admitted], card=smi)
+    if adm["burst"] <= GRAPH_ADMISSION_LIMIT + GRAPH_ADMISSION_DEPTH:
+        raise AssertionError("graph: the burst does not pass the limit")
+    if adm["held"] != dict(inflight=GRAPH_ADMISSION_LIMIT,
+                           queued=[GRAPH_ADMISSION_DEPTH] * 3):
+        raise AssertionError(f"graph: a slot came free before the burst was "
+                             f"queued and turned away: {adm['held']}")
+    bad = [r for r in adm["turned"] if r["status"] != 429
+           or not r["retry_after"] or r["body"]["error"]["type"] != "overloaded"]
+    if bad:
+        raise AssertionError(f"graph: the turned-away requests: {bad}")
+    n_429 = sum(v for k, v in counts.items() if not k.startswith("admitted"))
+    if n_429 != len(adm["turned"]) or counts["queue_full:low"] != 1:
+        raise AssertionError(f"graph: 429s {len(adm['turned'])} against the "
+                             f"admission counter {counts}")
+    if sum(v for k, v in counts.items() if k.startswith("admitted")) != len(admitted):
+        raise AssertionError(f"graph: {len(admitted)} admitted against {counts}")
+    if sorted(first, key=first.get) != ["high", "normal", "low"]:
+        raise AssertionError(f"graph: grants not by priority: {first}")
+    want = list(GRAPH_FILLER_TOKENS) + [GRAPH_QUEUED_TOKENS] * 3
+    got = [(r["status"], r.get("tokens"), r.get("finish")) for r in admitted]
+    if got != [(200, n, "length") for n in want]:
+        raise AssertionError(f"graph: admitted streams {got}, want {want}")
+
+    # ---- d: the tenants
+    q = legs["quota"]
+    burst = sorted((r["status"], r.get("retry_after")) for r in q["burst"])
+    emit("engine_graph_tenants", quotas=GRAPH_QUOTAS, burst=burst,
+         steady=[(r["status"], r.get("tokens")) for r in q["steady"]],
+         quota_sheds=q["quota_sheds"], bucket_sheds=q["bucket_sheds"],
+         card=smi)
+    if (burst[0][0] != 200 or [b[0] for b in burst[1:]] != [429, 429]
+            or not all(b[1] for b in burst[1:]) or q["quota_sheds"] != 2
+            or q["bucket_sheds"] != 2):
+        raise AssertionError(f"graph: the burst tenant: {burst} {q}")
+    if (any((r["status"], r.get("tokens"), r.get("finish"))
+            != (200, NEW_TOKENS, "length") for r in q["steady"])
+            or q["steady_sheds"]):
+        raise AssertionError(f"graph: the steady tenant: {q['steady']}")
+
+    # ---- e: the registry and the pools
+    reg = legs["registry"]
+    unknown = json.dumps(reg["unknown"]["body"])
+    emit("engine_graph_registry", alias=(reg["alias"]["status"],
+                                         reg["alias"].get("models")),
+         outsider=(reg["outsider"]["status"], reg["outsider"]["body"]),
+         models=reg["models"], models_outsider=reg["models_outsider"],
+         add=reg["add"], admin_models=reg["admin_models"],
+         cold=(reg["cold"]["status"], reg["cold"]["retry_after"],
+               reg["cold"]["elapsed_s"]),
+         pools=[{k: r[k] for k in ("model", "workers", "cold_starting")}
+                for r in reg["pools"]],
+         remove=reg["remove"], removed=reg["removed"]["status"], card=smi)
+    if (reg["alias"]["status"] != 200 or reg["alias"]["models"] != ["llama"]
+            or reg["alias"]["tokens"] != 8):
+        raise AssertionError(f"graph: the alias: {reg['alias']}")
+    if (reg["outsider"]["status"] != 404 or json.dumps(
+            reg["outsider"]["body"]).replace("'llama'", "'no-such-model'")
+            != unknown or reg["models_outsider"] != []):
+        raise AssertionError(f"graph: the outsider tenant: {reg['outsider']} "
+                             f"{reg['models_outsider']}")
+    cold = reg["cold"]
+    if (reg["add"] != (200, {"registered": "cold-llama"})
+            or cold["status"] != 503 or cold["retry_after"] != "5"
+            or cold["elapsed_s"] < GRAPH_COLD_DEADLINE_S
+            or cold["body"]["error"]["type"] != "service_unavailable"):
+        raise AssertionError(f"graph: the cold pool: {reg['add']} {cold}")
+    if ({r["model"]: r["workers"] for r in reg["pools"]}
+            != {"cold-llama": 0, "llama": 1}):
+        raise AssertionError(f"graph: /admin/pools {reg['pools']}")
+    if (reg["remove"] != (200, {"removed": "cold-llama"})
+            or reg["removed"]["status"] != 404):
+        raise AssertionError(f"graph: the removal: {reg['remove']} "
+                             f"{reg['removed']}")
 
 
 async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
@@ -7441,6 +7717,9 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
     after = await wstats()
     blocks_after = {i: s["data"]["kv_active_blocks"] for i, s in after.items()}
     router = await pstats()
+    # the edge's fleet controls on the kv frontend (legs c-e), after every
+    # check above has read its state (the survivor serves them)
+    fleet_legs = await _graph_fleet_legs(ports["kv"], words_text)
     watch_task.cancel()
     watcher.cancel()
     await wclient.close()
@@ -7455,7 +7734,7 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
                 served_after_kill=served(before, after),
                 blocks_after_kill=blocks_after, router=router,
                 router_before_kill=router_before_kill, victim=victim,
-                survivor=survivor, fleet=fleet)
+                survivor=survivor, fleet=fleet, fleet_legs=fleet_legs)
 
 
 def engine_graph_phase(torch, dev, smi):
@@ -7503,7 +7782,26 @@ def engine_graph_phase(torch, dev, smi):
     no worker keeps a pinned block. Prints the followers' TTFT by mode, the
     routing decision's µs, the events' lag, the workers' kernel launches on
     the checked wave, and the pulls' counts, blocks, bytes and seconds
-    beside the kv wave leaders' TTFT (a local prefill of the prefix)."""
+    beside the kv wave leaders' TTFT (a local prefill of the prefix).
+
+    The native host core and the edge's fleet controls, a line each:
+    (a) ``engine_graph_router_native``: the kv processor's router indexes
+    over the native C++ tree (its decision µs, mean and max); (b)
+    ``engine_graph_hash_native``: the batched hash of a 12,000-token
+    prompt is equal natively and plainly on the card's host (both times);
+    (c) ``engine_graph_admission``: a burst past ``--admission-limit`` +
+    ``--admission-queue-depth`` across X-Priority classes on the kv
+    frontend: the 429s carry Retry-After and equal the admission counter's
+    rejections, the queued high, normal and low requests are granted in
+    that order, every admitted stream has its length; (d)
+    ``engine_graph_tenants``: the "burst" tenant over its
+    ``--tenant-quotas`` bucket is shed (429 + Retry-After, the quota
+    outcome counted) while "steady" is served in full; (e)
+    ``engine_graph_registry``: the served alias routes to and is echoed as
+    "llama", a tenant outside ``--model-tenants`` gets the unknown model's
+    404, a card ``POST /admin/models`` registers for a pool without a
+    worker answers 503 + Retry-After after ``--pool-cold-start-deadline-s``,
+    ``/admin/pools`` lists both pools, and ``DELETE`` makes it a 404."""
     import tempfile
 
     from dynamo_tpu_torch.cli import run
@@ -7519,9 +7817,37 @@ def engine_graph_phase(torch, dev, smi):
     def words_text(n):
         return tok.decode([words[int(i)] for i in rng.integers(0, len(words), n)])
 
+    # leg b: the batched hash of a 12,000-token prompt, natively and plainly,
+    # on the card's host
+    from dynamo_tpu_torch import native, tokens
+
+    ids = np.random.default_rng(GRAPH_SEED + 1).integers(
+        0, 128256, GRAPH_HASH_TOKENS).tolist()
+    native.load()  # built with the kernels (ops/_build.build)
+
+    def best_ms(fn, n):
+        times = []
+        for _ in range(n):
+            t = time.perf_counter()
+            out = fn(ids, 16)
+            times.append((time.perf_counter() - t) * 1e3)
+        return out, float(np.median(times))
+
+    nat, nat_ms = best_ms(tokens.compute_block_hashes, 20)
+    plain, plain_ms = best_ms(tokens.compute_block_hashes_plain, 3)
+    emit("engine_graph_hash_native", prompt_tokens=len(ids), blocks=len(nat),
+         equal=nat == plain, native_ms=nat_ms, plain_ms=plain_ms,
+         note="host times (the card's host CPU), median of 20 and 3 calls",
+         card=smi)
+    if nat != plain or len(nat) != GRAPH_HASH_TOKENS // 16:
+        raise AssertionError("graph: the native block hashes differ from the "
+                             "plain loop's")
+
     store = _free_port()
     common = ["--model-path", model_dir, "--model-name", "llama",
               "--store-port", str(store), "--kv-block-size", "16"]
+    quotas = Path(tmp.name) / "quotas.json"
+    quotas.write_text(json.dumps(GRAPH_QUOTAS))
     worker_ep = f"dyn://{GRAPH_NS}.backend.generate"
     procs = {}
     t0 = time.monotonic()
@@ -7557,17 +7883,22 @@ def engine_graph_phase(torch, dev, smi):
             # the kv pair carries the fleet view: the processor's sidecar
             # and the frontend's hub (the workers register in GRAPH_NS)
             kv = mode == "kv"
+            # and the fleet controls: the processor's card (an alias, the
+            # tenants that see it), the frontend's admission, quotas, pools
             procs[f"processor_{mode}"] = _spawn_role(
                 ["dynamo_tpu_torch.cli.run", f"in=dyn://{GRAPH_NS}.{comp}.chat",
                  "out=processor", "--worker-endpoint", worker_ep,
                  "--router-mode", mode, "--namespace", ns, *common,
-                 *(["--metrics-port", str(sidecars["processor"])] if kv else [])],
+                 *(["--metrics-port", str(sidecars["processor"]),
+                    "--served-alias", GRAPH_ALIAS,
+                    "--model-tenants", GRAPH_TENANTS] if kv else [])],
                 f"processor_{mode}", tmp.name)
             procs[f"frontend_{mode}"] = _spawn_role(
                 ["dynamo_tpu_torch.cli.run", "in=http", "out=none",
                  "--store-port", str(store), "--namespace", ns,
                  "--http-host", "127.0.0.1", "--http-port", "0",
-                 *(["--hub", "--hub-interval-s", str(GRAPH_HUB_INTERVAL_S)]
+                 *(["--hub", "--hub-interval-s", str(GRAPH_HUB_INTERVAL_S),
+                    *GRAPH_FRONT_FLAGS, "--tenant-quotas", str(quotas)]
                    if kv else [])],
                 f"frontend_{mode}", tmp.name)
         worker_ids, ports = {}, {}
@@ -7691,6 +8022,7 @@ def engine_graph_phase(torch, dev, smi):
          exits=exits, card=smi)
 
     # ---- checks
+    _check_graph_fleet_legs(out["fleet_legs"], out["router"], smi)
     if not out["fleet"]["ok"]:
         raise AssertionError(f"graph: the hub's /fleet/workers or the router's "
                              f"sidecar fell short: {out['fleet']}")
@@ -8874,7 +9206,7 @@ QWEN_CHAT_TEMPLATE = (
 LOAD_SHARDS = 4
 # a depth cut that keeps the whole script inside its time limit (of 28
 # layers); the widths stay the published ones
-LOAD_LAYERS = 4
+LOAD_LAYERS = 2
 LOAD_DRAWN_SCALE = 0.1   # qkv biases N(0, 0.1^2), norms 1 + N(0, 0.1^2)
 LOAD_CLI_TIMEOUT_S = 600
 # the CLI's flags (a CPU rehearsal appends "--device", "cpu")
@@ -9583,7 +9915,7 @@ LLAMA_31_8B = {
 }
 # the 8B of engine_spec and engine_recovery: its depth cut to keep the whole
 # script inside its time limit, widths kept
-LLAMA_8B_LAYERS = 16
+LLAMA_8B_LAYERS = 8
 LLAMA_8B_CUT = dict(LLAMA_31_8B, num_hidden_layers=LLAMA_8B_LAYERS)
 SPEC_DRAFT_K = 4
 # leg C's self-draft: the first prompts of the spec wave
@@ -10045,12 +10377,15 @@ def _engine_spec(torch, dev, smi, tmp):
         raise AssertionError(f"leg D: chained ngram speculation proposed "
                              f"nothing or never chained: {d['summary']}")
     if on_card:
+        # the draft's passes run its 1B's layers, the target's its cut 8B's:
+        # every attention count is a whole number of both (their gcd)
+        both = math.gcd(LLAMA_8B_LAYERS, FLAGSHIP["num_layers"])
         _check_launches("draft chained", b["launches"],
-                        ("paged_verify", "paged_decode", "epilogue"), layers=16)
+                        ("paged_verify", "paged_decode", "epilogue"), layers=both)
         _check_launches("ngram chained", d["launches"], ("paged_verify",),
                         layers=LLAMA_8B_LAYERS)
         _check_launches("draft sync", a["launches"],
-                        ("paged_verify", "paged_decode", "epilogue"), layers=16)
+                        ("paged_verify", "paged_decode", "epilogue"), layers=both)
     return dict(paged_verify=b["launches"]["paged_verify"]
                 + d["launches"]["paged_verify"],
                 paged_decode=b["launches"]["paged_decode"],
@@ -10876,7 +11211,7 @@ SPM_MAX_CHARS = 12     # the longest synthetic merge, in characters
 # wave), blocks for its prompts and a prefix-hit wave
 PHI3_ENGINE = dict(max_model_len=8192, num_kv_blocks=1536)
 PHI3_NEW_TOKENS = 16
-PHI3_LAYERS = 16          # of Phi-3-mini's 32 (a depth cut; widths kept)
+PHI3_LAYERS = 8           # of Phi-3-mini's 32 (a depth cut; widths kept)
 PHI3_LONG_PROMPT = 5120   # past original 4,096 from its first token
 PHI3_CROSSING = 4090      # crosses 4,096 while it decodes
 PHI3_ORIGINAL_CUT = 64    # the logits check's original window (widths kept)

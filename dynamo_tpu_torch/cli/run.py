@@ -82,8 +82,21 @@ discovery for a fleet hub; ``--hub`` (``--hub-interval-s``,
 bundle on a watchdog trip, a recovery drain, an SLO floor breach or a burst
 of late first dispatches, listed at ``GET /debug/incidents``.
 
+The fleet controls at the HTTP edge: ``--admission-limit`` (with
+``--admission-queue-depth``, ``--admission-queue-timeout-s``) admits by
+``X-Priority`` class into a bounded concurrency limit; ``--tenant-rps``,
+``--tenant-tps``, ``--tenant-burst-s`` and ``--tenant-quotas FILE.json``
+give each ``X-Tenant`` its token buckets; a front with ``--store-port``
+serves ``/admin/models`` (``RegistryAdmin``) and, with
+``--pool-scale-to-zero-idle-s`` (``--pool-cold-start-deadline-s``,
+``--pool-cooldown-s``), gates a cold model's requests on its pool and
+answers ``/admin/pools``. A processor or OpenAI-level worker publishes its
+model card with ``--served-alias`` (repeatable) and ``--model-tenants``.
+
 Every other input, output and reference flag is refused by name
-(``--profiler-port`` with its reason: torch has no profiler server).
+(``--profiler-port`` with its reason: torch has no profiler server; the
+``--planner*`` flags, ``--planner-deployment`` and ``--api-store-url`` wait
+for the planner and deploy slices).
 ``cli/llmctl.py`` registers models for a front; ``cli/metrics.py`` is the
 namespace metrics aggregator.
 
@@ -139,30 +152,37 @@ ROUTER_MODES = ("round_robin", "random", "kv")
 GRACEFUL_SHUTDOWN_S = 30.0
 
 # the reference's flags this CLI does not take (each raises by name):
-# multi-device, the ici transfer plane, admission, planning, tenants and
-# the jax profiler server are not ported
+# multi-device, the ici transfer plane, the closed-loop planner, its
+# api-store record and the jax profiler server are not ported
 REFUSED_FLAGS = (
     "--tensor-parallel-size", "--expert-parallel-size",
     "--data-parallel-size", "--pipeline-parallel-size",
     "--ici-sender-rank", "--ici-receiver-rank", "--num-nodes", "--node-rank",
     "--leader-addr", "--profiler-port",
-    "--admission-limit",
-    "--admission-queue-depth", "--admission-queue-timeout-s", "--planner",
-    "--planner-interval-s", "--planner-min-replicas",
+    "--planner", "--planner-interval-s", "--planner-min-replicas",
     "--planner-max-replicas", "--planner-cooldown-s",
     "--planner-deployment", "--api-store-url",
-    "--served-alias", "--model-tenants",
-    "--tenant-rps", "--tenant-tps", "--tenant-burst-s", "--tenant-quotas",
-    "--pool-scale-to-zero-idle-s", "--pool-cold-start-deadline-s",
-    "--pool-cooldown-s",
 )
-# why a refused flag has no port at all (the others wait for their slice)
+_PLANNER_WHY = (
+    "the closed-loop SLA planner (planner/signals.py, policy.py, "
+    "planner.py, actuation.py) is not ported yet; the edge's admission "
+    "control is (--admission-limit)")
+_STORE_WHY = (
+    "the api-store deployment record needs deploy/store_source.ApiStoreClient,"
+    " which is not ported yet; a cold pool's requests wait out "
+    "--pool-cold-start-deadline-s for a worker started elsewhere")
+# why a refused flag is refused (the others wait for their slice)
 REFUSED_WHY = {
     "--profiler-port": (
         "the reference's flag starts jax's profiler gRPC server "
         "(utils/profiling.enable_profiler_server) and torch has no "
         "counterpart; capture a trace with --profile-dir and GET "
         "/debug/profile instead"),
+    **{f: _PLANNER_WHY for f in (
+        "--planner", "--planner-interval-s", "--planner-min-replicas",
+        "--planner-max-replicas", "--planner-cooldown-s")},
+    "--planner-deployment": _STORE_WHY,
+    "--api-store-url": _STORE_WHY,
 }
 
 
@@ -320,6 +340,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cold-tier-blocks", type=int, default=0,
                    help="cold-tier capacity in blocks (0 = off; set together "
                         "with --cold-tier-dir)")
+    # HTTP-edge admission control (planner/admission.py)
+    p.add_argument("--admission-limit", type=int, default=0,
+                   help="HTTP-edge admission control: max concurrently "
+                        "admitted requests; overflow queues per priority "
+                        "class (X-Priority: high|normal|low), dequeued "
+                        "highest-first, shed with 429 + Retry-After on "
+                        "saturation or deadline (0 = admission off)")
+    p.add_argument("--admission-queue-depth", type=int, default=64,
+                   help="per-priority-class admission queue bound")
+    p.add_argument("--admission-queue-timeout-s", type=float, default=10.0,
+                   help="queue-wait deadline before a queued request is "
+                        "shed with 429")
+    # the multi-model multi-tenant fleet (registry/)
+    p.add_argument("--served-alias", action="append", default=None,
+                   metavar="ALIAS",
+                   help="extra name this model answers to (repeatable); "
+                        "rides the model card workers publish at startup, "
+                        "resolved by registry-aware frontends")
+    p.add_argument("--model-tenants", default=None,
+                   help="comma-separated tenant allow list for this model's "
+                        "card (unset = public; tenant-scoped models are "
+                        "invisible — 404 — to other tenants)")
+    p.add_argument("--tenant-rps", type=float, default=0.0,
+                   help="per-tenant requests/s token bucket (X-Tenant header; "
+                        "unknown/garbage degrades to the 'default' tenant; "
+                        "0 = unlimited). Exceeding tenants are shed with 429 "
+                        "+ Retry-After while other tenants are untouched")
+    p.add_argument("--tenant-tps", type=float, default=0.0,
+                   help="per-tenant streamed-tokens/s token bucket (charged "
+                        "by actual streamed tokens; overdraft delays the "
+                        "tenant's next admission; 0 = unlimited)")
+    p.add_argument("--tenant-burst-s", type=float, default=2.0,
+                   help="token-bucket capacity in seconds of rate")
+    p.add_argument("--tenant-quotas", default=None, metavar="FILE.json",
+                   help="per-tenant overrides: {tenant: {requests_per_s, "
+                        "tokens_per_s, burst_s}}")
+    p.add_argument("--pool-scale-to-zero-idle-s", type=float, default=0.0,
+                   help="drain a model's pool to zero replicas after this "
+                        "long without a request (0 = off); the next request "
+                        "for the cold model waits for a worker to join")
+    p.add_argument("--pool-cold-start-deadline-s", type=float, default=30.0,
+                   help="how long a request for a cold model waits for a "
+                        "worker to join the pool before shedding with 503 + "
+                        "Retry-After")
+    p.add_argument("--pool-cooldown-s", type=float, default=30.0,
+                   help="per-model pool action pacing (scale-to-zero / "
+                        "cold-start decisions)")
     # the flight recorder and the stall watchdog (telemetry/)
     p.add_argument("--flight-dir", default="",
                    help="directory for flight artifacts (watchdog trips, "
@@ -585,6 +652,70 @@ def _build_hub(flags):
         interval_s=flags.hub_interval_s)
 
 
+def _model_card(flags, mdc, endpoint_path: str, model_type: str = "both"):
+    """The fleet card a worker publishes at startup (registry/cards.py):
+    name and pool endpoint, family and context from the deployment card,
+    aliases and tenant visibility from the flags."""
+    from ..registry.cards import card_from_mdc
+
+    tenants = None
+    if flags.model_tenants is not None:
+        tenants = [t.strip() for t in flags.model_tenants.split(",")
+                   if t.strip()]
+    return card_from_mdc(
+        mdc, endpoint_path, name=flags.model_name or mdc.display_name,
+        model_type=model_type, aliases=flags.served_alias or [],
+        tenants=tenants)
+
+
+def _build_admission(flags):
+    """--admission-* → the edge's AdmissionController, or None."""
+    if flags.admission_limit <= 0:
+        return None
+    from ..planner import AdmissionConfig, AdmissionController
+
+    return AdmissionController(AdmissionConfig(
+        limit=flags.admission_limit,
+        queue_depth=flags.admission_queue_depth,
+        queue_timeout_s=flags.admission_queue_timeout_s))
+
+
+def _build_quotas(flags, admissions_registry=None):
+    """--tenant-* → a TenantQuotas gate for the HTTP edge, or None.
+    ``admissions_registry`` shares the admission controller's counter
+    family, so outcome="quota" rides the same instrument."""
+    if (flags.tenant_rps <= 0 and flags.tenant_tps <= 0
+            and not flags.tenant_quotas):
+        return None
+    from ..registry.tenants import TenantQuotas
+
+    quotas = TenantQuotas.from_flags(
+        flags.tenant_rps, flags.tenant_tps,
+        overrides_path=flags.tenant_quotas, burst_s=flags.tenant_burst_s)
+    if admissions_registry is not None:
+        quotas.bind_admissions(admissions_registry)
+    return quotas
+
+
+def _build_pools(flags, manager, watcher):
+    """The multi-model frontend's pool manager: scale-to-zero for idle
+    pools and the cold-start gate for requests that find their pool empty,
+    or None without --pool-scale-to-zero-idle-s. No spawner or drainer is
+    wired (the api-store backend waits for the deploy slice): a cold
+    request waits out the deadline for a worker started elsewhere."""
+    if flags.pool_scale_to_zero_idle_s <= 0:
+        return None
+    from ..registry import PoolConfig, PoolManager, PoolPolicy, PoolPolicyConfig
+
+    return PoolManager(
+        manager.registry, watcher.pool_size,
+        config=PoolConfig(
+            cold_start_deadline_s=flags.pool_cold_start_deadline_s),
+        policy=PoolPolicy(PoolPolicyConfig(
+            idle_to_zero_s=flags.pool_scale_to_zero_idle_s,
+            cooldown_s=flags.pool_cooldown_s)))
+
+
 def _advertise_model(registry, name: str) -> None:
     """Stamp the served model on a registry (the fleet hub's ``model``)."""
     registry.gauge("dynamo_registry_model_info",
@@ -671,11 +802,13 @@ async def run_http(flags, engine, mdc) -> None:
         )
     slo = _build_slo(flags)
     hub = _build_hub(flags)
+    admission = _build_admission(flags)
     service = HttpService(
         manager, flags.http_host, flags.http_port,
-        profile_dir=flags.profile_dir or None, slo=slo,
+        profile_dir=flags.profile_dir or None, admission=admission, slo=slo,
         trace_ttl_s=flags.trace_ttl_s, trace_capacity=flags.trace_capacity,
-        hub=hub)
+        hub=hub, quotas=_build_quotas(
+            flags, admission.registry if admission is not None else None))
     if engine is not None:
         _advertise_model(
             service.metrics.registry,
@@ -695,7 +828,7 @@ async def run_http(flags, engine, mdc) -> None:
     recovery = migserver = None
     if flags.self_heal and engine is not None:
         recovery, migserver = await _setup_self_healing(
-            flags, getattr(engine, "core_engine", engine))
+            flags, getattr(engine, "core_engine", engine), admission=admission)
         if recovery is not None:
             recovery.attach()
             service.drainer = recovery.admin_drain
@@ -711,7 +844,7 @@ async def run_http(flags, engine, mdc) -> None:
     if incidents is not None:
         service.incidents = incidents
         service.metrics.registry.attach(incidents.registry)
-    watcher = drt = None
+    watcher = drt = pools = None
     if flags.store_port is not None:
         from ..runtime.client import RouterMode
         from ..runtime.component import DistributedRuntime
@@ -729,6 +862,14 @@ async def run_http(flags, engine, mdc) -> None:
         watcher = ModelWatcher(drt, manager, flags.namespace,
                                RouterMode(flags.router_mode))
         await watcher.start()
+        # POST/DELETE /admin/models write the records workers publish
+        from ..registry.registry import RegistryAdmin
+
+        service.registry_admin = RegistryAdmin(drt, flags.namespace)
+        pools = _build_pools(flags, manager, watcher)
+        if pools is not None:
+            service.attach_pools(pools)
+            pools.start(spawn=drt.runtime.spawn)
     elif engine is None:
         raise SystemExit("out=none serves the models it discovers: give it "
                          "--store-port")
@@ -761,6 +902,8 @@ async def run_http(flags, engine, mdc) -> None:
     finally:
         if hub is not None:
             await hub.stop()
+        if pools is not None:
+            await pools.stop()
         if inc_sampler is not None:
             await inc_sampler.stop()
         if incidents is not None:
@@ -866,7 +1009,8 @@ def _disagg_factory(flags, drt, component: str):
 
 
 async def _setup_self_healing(flags, core, drt=None, component: str = "backend",
-                              peer_ranker=None, instance_id: str = ""):
+                              peer_ranker=None, instance_id: str = "",
+                              admission=None):
     """``--self-heal`` wiring: a RecoveryController for an in-process torch
     engine plus a migration receiver for peers draining TOWARD this worker.
     Returns ``(controller, migration_server)``, both None for an engine with
@@ -878,7 +1022,8 @@ async def _setup_self_healing(flags, core, drt=None, component: str = "backend",
     receiver's descriptor is registered lease-scoped under the component's
     migration prefix (packed with the runtime's wire codec), peers are
     discovered there, and the drain's deregister / register hooks remove and
-    restore it."""
+    restore it. ``admission`` (the edge's AdmissionController) closes beside
+    the scheduler on a drain and reopens on a successful respawn."""
     import uuid
 
     from ..recovery import (
@@ -897,7 +1042,8 @@ async def _setup_self_healing(flags, core, drt=None, component: str = "backend",
     if hasattr(core, "add_down_listener"):
         # the controller ignores the down event of its own drain's kill
         controller = RecoveryController(engine_id=engine_id,
-                                        respawner=core.respawn, config=config)
+                                        respawner=core.respawn,
+                                        admission=admission, config=config)
         core.add_down_listener(controller.on_child_down)
         return controller, None
     scheduler = getattr(core, "scheduler", None)
@@ -951,8 +1097,8 @@ async def _setup_self_healing(flags, core, drt=None, component: str = "backend",
     controller = RecoveryController(
         engine_id=engine_id, scheduler=scheduler, runner=core.runner,
         watchdog=getattr(core, "watchdog", None), peers=peers,
-        deregister=deregister, register=register, config=config,
-        peer_ranker=peer_ranker)
+        deregister=deregister, register=register, admission=admission,
+        config=config, peer_ranker=peer_ranker)
     return controller, server
 
 
@@ -1231,7 +1377,8 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
             metadata={"model": name},
             stats_handler=router.stats if router is not None else None)
         await register_model(drt, flags.namespace, name, path, model_type="both",
-                             mdc={"context_length": mdc.context_length})
+                             mdc={"context_length": mdc.context_length},
+                             card=_model_card(flags, mdc, path))
         if router is not None:
             # the router's own surface: per-worker scraped load and the
             # routing decisions
@@ -1342,6 +1489,8 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
         await register_model(
             drt, flags.namespace, name, path, model_type=model_type,
             mdc={"context_length": mdc.context_length} if mdc else None,
+            card=_model_card(flags, mdc, path, model_type)
+            if mdc is not None else None,
         )
         mserver = await maybe_start_metrics_server(
             getattr(engine, "engine_registry", None), flags.metrics_port)

@@ -25,8 +25,9 @@ logger = logging.getLogger(__name__)
 
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 409: "Conflict",
-            500: "Internal Server Error", 501: "Not Implemented",
-            502: "Bad Gateway", 503: "Service Unavailable"}
+            429: "Too Many Requests", 500: "Internal Server Error",
+            501: "Not Implemented", 502: "Bad Gateway",
+            503: "Service Unavailable"}
 MAX_HEADER_BYTES = 64 * 1024
 MAX_BODY_BYTES = 64 * 1024 * 1024
 
@@ -136,6 +137,13 @@ class Connection:
             raise ConnectionResetError("client disconnected")
         self.writer.write(data)
         await self.writer.drain()
+
+    async def wait_closed(self, poll_s: float = 0.05) -> None:
+        """Return once the peer has closed its side (read EOF with nothing
+        buffered) or the writer closed. A handler races it against a wait
+        that holds no stream to write to (a queued admission)."""
+        while not (self.reader.at_eof() or self.writer.is_closing()):
+            await asyncio.sleep(poll_s)
 
     async def read_request(self) -> Optional[Request]:
         try:

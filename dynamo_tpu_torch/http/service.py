@@ -8,12 +8,25 @@ bodies are the reference's.
 
 Routes: POST /v1/chat/completions, POST /v1/completions, POST
 /v1/embeddings (served by an engine that carries an ``embedder``, else
-501), GET /v1/models, GET /metrics, GET /health, and POST
-/admin/drain[?mode=migrate|fail][&respawn=1] (the rolling update through
-the ``drainer`` the CLI's ``--self-heal`` attaches, a recovery
-controller's ``admin_drain``; 501 without one). A client that goes away
-mid-stream stops its request; a draining engine's request is a 503 with
-Retry-After.
+501), GET /v1/models (filtered by the caller's ``X-Tenant``), GET
+/metrics, GET /health, and POST /admin/drain[?mode=migrate|fail][&respawn=1]
+(the rolling update through the ``drainer`` the CLI's ``--self-heal``
+attaches, a recovery controller's ``admin_drain``; 501 without one). A
+client that goes away mid-stream stops its request; a draining engine's
+request is a 503 with Retry-After.
+
+The fleet controls (``registry/``, ``planner/admission.py``): an inference
+request is resolved through the model registry's cards (served aliases to
+the canonical name, echoed downstream; a model invisible to the caller's
+``X-Tenant`` is the unknown model's 404), then held to its tenant's token
+buckets (429 + Retry-After), then to its pool's cold-start deadline (503 +
+Retry-After), then to "no live workers" (503, Retry-After 5), then
+admitted by its ``X-Priority`` class (429 + Retry-After); a queued request
+whose client goes away gives its place back. Streamed tokens are charged to
+the tenant where the SLO goodput counter counts them. GET /admin/models
+lists every card, POST /admin/models registers one and DELETE
+/admin/models/{name} removes it (through a ``RegistryAdmin``; 501 without
+one), GET /admin/pools gives the pool manager's rows (501 without one).
 
 Telemetry routes (``telemetry/``): GET /debug/requests[?limit=N] and
 /debug/requests/{id} (completed traces: span breakdowns of the ingress
@@ -29,10 +42,9 @@ Discovery (the reference's ``register_model`` / ``ModelWatcher``): a
 worker or processor registers its model under the discovery plane's
 ``{namespace}/models/`` prefix, lease-scoped, and a frontend's
 ``ModelWatcher`` adds a routed ``Client`` for each registration and drops
-it when the registration goes (the worker's lease expired). Not ported
-yet: the model registry's fleet cards (``register_model``'s ``card``, so
-aliases, tenants and per-model pools), admission, quotas and pools, and
-/admin's model management.
+it when the registration goes (the worker's lease expired); a registration
+that carries a fleet card (``register_model``'s ``card``) puts the card in
+the manager's registry and binds a client to that model's pool.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import json
 import logging
 from typing import Any, AsyncIterator, Dict, Optional, Tuple
 
+from ..planner.admission import AdmissionRejected, parse_priority
 from ..protocols import sse
 from ..protocols.annotated import Annotated
 from ..protocols.openai import (
@@ -54,7 +67,11 @@ from ..protocols.openai import (
     aggregate_chat_stream,
     aggregate_completion_stream,
 )
-from ..runtime.client import Client, RouterMode
+from ..registry.cards import ModelCard
+from ..registry.pools import ColdStartTimeout
+from ..registry.registry import ModelRegistry
+from ..registry.tenants import TENANT_HEADER, parse_tenant
+from ..runtime.client import Client, NoInstancesError, RouterMode
 from ..runtime.discovery import WatchEventType
 from ..runtime.engine import (
     AsyncEngine,
@@ -63,6 +80,7 @@ from ..runtime.engine import (
     EngineDrainingError,
     EngineError,
 )
+from ..runtime.network import ResponseStreamError
 from ..runtime.wire import packb, unpackb
 from ..telemetry.tracing import TraceRecorder
 from .metrics import ServiceMetrics
@@ -82,17 +100,25 @@ MODEL_REGISTRY_PREFIX = "models/"  # under the http namespace
 
 
 class ModelManager:
-    """name → engine maps for chat and completion models."""
+    """name → engine maps for chat and completion models, as a live view
+    over the model registry (``registry/registry.py``): served aliases and
+    tenant visibility resolve through the registered cards; engines
+    without cards (local single-model serving) stay public under their
+    exact name."""
 
-    def __init__(self) -> None:
+    def __init__(self, registry=None) -> None:
         self.chat_engines: Dict[str, AsyncEngine] = {}
         self.completion_engines: Dict[str, AsyncEngine] = {}
         self.metadata: Dict[str, dict] = {}  # name → /v1/models extras
+        self.registry = registry or ModelRegistry()
 
     def set_metadata(self, name: str, **meta) -> None:
         self.metadata.setdefault(name, {}).update(
             {k: v for k, v in meta.items() if v is not None}
         )
+
+    def set_card(self, card) -> None:
+        self.registry.put(card)
 
     def add_chat_model(self, name: str, engine: AsyncEngine) -> None:
         self.chat_engines[name] = engine
@@ -104,15 +130,32 @@ class ModelManager:
         self.chat_engines.pop(name, None)
         self.completion_engines.pop(name, None)
         self.metadata.pop(name, None)  # a re-registration starts clean
+        self.registry.remove(name)
 
-    def resolve(self, model: str) -> Optional[str]:
-        """Requested name → served name, or None."""
+    def resolve(self, model: str, tenant: Optional[str] = None
+                ) -> Optional[str]:
+        """Requested name or alias → canonical pool name, or None (unknown
+        OR invisible to the tenant: the same answer, so tenants cannot
+        probe each other's catalogs). Card-less engine names resolve to
+        themselves and are public."""
+        if self.registry.lookup(model) is not None:
+            return self.registry.resolve(model, tenant)
         if model in self.chat_engines or model in self.completion_engines:
             return model
         return None
 
-    def model_names(self) -> list:
+    def served_names(self) -> list:
+        """Every model with an engine, visibility-blind: the operator's
+        surface (/health), never a tenant-facing catalog."""
         return sorted(set(self.chat_engines) | set(self.completion_engines))
+
+    def model_names(self, tenant: Optional[str] = None) -> list:
+        names = set(self.chat_engines) | set(self.completion_engines)
+        if not self.registry.cards:
+            return sorted(names)
+        return sorted(name for name in names
+                      if (card := self.registry.card(name)) is None
+                      or card.visible_to(tenant))
 
 
 class HttpService(RouteServer):
@@ -123,15 +166,34 @@ class HttpService(RouteServer):
         port: int = 8080,
         metrics_prefix: str = "dynamo",
         profile_dir: Optional[str] = None,
+        admission=None,  # planner.admission.AdmissionController
         slo=None,        # telemetry.slo.SloTracker
         trace_ttl_s: Optional[float] = None,
         trace_capacity: Optional[int] = None,
         hub=None,        # telemetry.hub.FleetHub
         incidents=None,  # telemetry.incidents.IncidentRecorder
+        quotas=None,     # registry.tenants.TenantQuotas
+        pools=None,      # registry.pools.PoolManager
     ):
         super().__init__(host, port)
         self.manager = manager or ModelManager()
         self.metrics = ServiceMetrics(metrics_prefix)
+        # HTTP-edge admission control (priority classes, bounded queues,
+        # load shedding): the actuated end of the planner
+        self.admission = admission
+        if admission is not None:
+            self.metrics.registry.attach(admission.registry)
+        # X-Tenant → per-tenant token buckets, checked BEFORE the priority
+        # queues so one tenant's spike sheds that tenant at the door
+        self.quotas = quotas
+        if quotas is not None:
+            self.metrics.registry.attach(quotas.registry)
+        # per-model pools: the cold-start gate and the scale-to-zero loop;
+        # None = a model must be warm to serve
+        self.pools = None
+        if pools is not None:
+            self.attach_pools(pools)
+        self.metrics.registry.attach(self.manager.registry.registry)
         # optional SLO attainment + goodput accounting: per-request TTFT /
         # worst-ITL verdicts at the edge (telemetry/slo.py)
         if slo is not None:
@@ -158,6 +220,10 @@ class HttpService(RouteServer):
             ("GET", "/debug/trace/{rid}", self.handle_debug_trace),
             ("GET", "/debug/flight", self.handle_flight),
             ("POST", "/admin/drain", self.handle_admin_drain),
+            ("GET", "/admin/models", self.handle_admin_models),
+            ("POST", "/admin/models", self.handle_admin_model_add),
+            ("DELETE", "/admin/models/{name}", self.handle_admin_model_remove),
+            ("GET", "/admin/pools", self.handle_admin_pools),
             ("GET", "/fleet/metrics", self.handle_fleet_metrics),
             ("GET", "/fleet/workers", self.handle_fleet_workers),
             ("GET", "/debug/incidents", self.handle_incidents),
@@ -171,6 +237,10 @@ class HttpService(RouteServer):
         # requests to peers (recovery/controller.py). Set by the CLI when
         # --self-heal builds a RecoveryController; /admin/drain is 501 without
         self.drainer = None  # async (mode, respawn) -> summary dict
+        # dynamic model management (registry/registry.RegistryAdmin): set by
+        # the CLI when a discovery plane exists; /admin/models' writes 501
+        # without one
+        self.registry_admin = None
         # fleet telemetry hub + incident recorder (telemetry/hub.py,
         # telemetry/incidents.py): wired by the CLI (--hub, --incident-dir);
         # their routes answer 501 while off, so an operator learns the flag
@@ -180,6 +250,13 @@ class HttpService(RouteServer):
             self.metrics.registry.attach(hub.registry)
         if incidents is not None:
             self.metrics.registry.attach(incidents.registry)
+
+    def attach_pools(self, pools) -> None:
+        """Attach a PoolManager after construction (the CLI builds it once
+        the model watcher exists): it gates requests and its instruments
+        join this service's exposition."""
+        self.pools = pools
+        self.metrics.registry.attach(pools.registry)
 
     async def start(self) -> "HttpService":
         if self.profile_dir:
@@ -217,9 +294,58 @@ class HttpService(RouteServer):
             status=404,
         )
 
+    @staticmethod
+    def _overloaded(e) -> Response:
+        """429 + Retry-After for an ``AdmissionRejected`` (priority class
+        or tenant quota)."""
+        return json_response(
+            {"error": {"message": str(e), "type": "overloaded", "code": 429}},
+            status=429, headers={"Retry-After": e.retry_after_header})
+
+    def _resolve_tenant(self, request: Request) -> str:
+        """X-Tenant → tenant id (absent or garbage degrades to the default
+        tenant, the X-Priority contract). Identity always parses, so card
+        visibility works on a quota-less front; the quota gate also counts
+        garbage headers."""
+        header = request.headers.get(TENANT_HEADER.lower())
+        if self.quotas is not None:
+            return self.quotas.resolve(header)
+        return parse_tenant(header)
+
+    async def _acquire(self, priority: int, rid: str, conn: Connection) -> None:
+        """The priority admission, raced against the client going away: a
+        queued request whose connection closed is cancelled out of the
+        queue (a grant that landed first is released), and the handler
+        ends as a disconnect."""
+        acquire = asyncio.ensure_future(
+            self.admission.acquire(priority, request_id=rid))
+        gone = asyncio.ensure_future(conn.wait_closed())
+        try:
+            await asyncio.wait({acquire, gone},
+                               return_when=asyncio.FIRST_COMPLETED)
+        except asyncio.CancelledError:
+            # the handler itself is cancelled (the server stops)
+            if (acquire.done() and not acquire.cancelled()
+                    and acquire.exception() is None):
+                self.admission.release()
+            acquire.cancel()
+            raise
+        finally:
+            gone.cancel()
+        if not acquire.done():
+            acquire.cancel()
+            try:
+                await acquire
+            except asyncio.CancelledError:
+                raise ConnectionResetError("client disconnected") from None
+            self.admission.release()  # granted as the client left
+            raise ConnectionResetError("client disconnected")
+        acquire.result()  # admitted, or AdmissionRejected
+
     async def _handle_inference(
         self, request: Request, conn: Connection, request_cls,
         engines: Dict[str, AsyncEngine], chunk_cls, aggregate,
+        kind: str = "chat",
     ):
         try:
             body = request.json()
@@ -227,15 +353,69 @@ class HttpService(RouteServer):
         except (json.JSONDecodeError, UnicodeDecodeError, ValueError) as e:
             return self._error(400, f"invalid request: {e}")
 
-        name = self.manager.resolve(api_req.model)
+        tenant = self._resolve_tenant(request)
+        # alias → canonical pool name, tenant visibility enforced (unknown
+        # and invisible answer alike)
+        name = self.manager.resolve(api_req.model, tenant)
         if name is None:
             return self._model_not_found(api_req.model)
+        card = self.manager.registry.card(name)
+        if card is not None and card.model_type not in (kind, "both"):
+            # registered for the other endpoint kind: a 404 for this API
+            return self._model_not_found(api_req.model)
+        if name != api_req.model:
+            # downstream hops key on the canonical pool name: an alias stops
+            # at the edge (responses echo the resolved model)
+            api_req.model = name
+        rid = (request.headers.get("x-request-id") or "").strip()[:128]
+        if self.quotas is not None:
+            try:
+                self.quotas.admit(tenant, request_id=rid)
+            except AdmissionRejected as e:
+                return self._overloaded(e)
+        if self.pools is not None:
+            self.pools.note_request(name)
+            if card is not None:
+                # a cold pool holds the request up to its deadline, then
+                # sheds it with 503 + Retry-After
+                try:
+                    await self.pools.await_capacity(name)
+                except ColdStartTimeout as e:
+                    return json_response(
+                        {"error": {"message": str(e),
+                                   "type": "service_unavailable",
+                                   "code": 503}},
+                        status=503,
+                        headers={"Retry-After": str(max(1, int(e.retry_after_s)))})
         engine = engines.get(name)
         if engine is None:
+            if card is not None:
+                # a card without a worker and no cold-start path: transient
+                return json_response(
+                    {"error": {"message": f"model '{api_req.model}' has "
+                               "no live workers",
+                               "type": "service_unavailable", "code": 503}},
+                    status=503, headers={"Retry-After": "5"})
             return self._model_not_found(api_req.model)
-        rid = (request.headers.get("x-request-id") or "").strip()[:128]
+        admitted = False
+        if self.admission is not None:
+            priority = parse_priority(request.headers.get("x-priority"))
+            try:
+                await self._acquire(priority, rid, conn)
+                admitted = True
+            except AdmissionRejected as e:
+                return self._overloaded(e)
+        # per-model accounting keys on the canonical name
         timer = self.metrics.track(name)
         status = "error"
+        # the tenant's token bucket is charged by the streamed tokens, at the
+        # sites the SLO goodput counter counts them
+        charge = None
+        if self.quotas is not None:
+            quotas = self.quotas
+
+            def charge(n: int) -> None:
+                quotas.charge_tokens(tenant, n)
         # the client's X-Request-Id is the trace id (correlation only: the
         # engine-side request id stays a fresh UUID)
         ctx = Context(api_req, AsyncEngineContext(trace_id=rid or None))
@@ -251,7 +431,7 @@ class HttpService(RouteServer):
                 first = None
             if api_req.stream:
                 resp, status = await self._stream_sse(conn, ctx, first, stream,
-                                                      timer)
+                                                      timer, charge)
                 return resp
 
             def _check_annotated(chunk):
@@ -272,7 +452,10 @@ class HttpService(RouteServer):
                     continue  # annotations are stream-only side channel
                 d = _as_dict(chunk)
                 if _has_payload(d):
-                    timer.token(_payload_tokens(d))
+                    n = _payload_tokens(d)
+                    timer.token(n)
+                    if charge is not None:
+                        charge(n)
                 chunks.append(chunk_cls.model_validate(d))
             status = "success"
             return json_response(
@@ -287,7 +470,13 @@ class HttpService(RouteServer):
             )
         except (EngineError, ValueError) as e:
             return self._error(400, str(e))
-        except asyncio.TimeoutError as e:
+        except NoInstancesError as e:
+            # an empty pool is transient (workers churn, scale-to-zero)
+            return json_response(
+                {"error": {"message": str(e), "type": "service_unavailable",
+                           "code": 503}},
+                status=503, headers={"Retry-After": "5"})
+        except (ResponseStreamError, asyncio.TimeoutError) as e:
             return self._error(502, str(e), "engine_error")
         except _StreamDisconnect:
             status = "disconnect"
@@ -297,6 +486,8 @@ class HttpService(RouteServer):
             status = "disconnect"
             raise
         finally:
+            if admitted:
+                self.admission.release()
             ctx.context.stop_generating()
             timer.finish(status)
             self.traces.record(ctx.trace_id, name, status, ctx.stages,
@@ -309,6 +500,7 @@ class HttpService(RouteServer):
         first: Any,
         chunks: AsyncIterator[Any],
         timer,
+        charge=None,  # the tenant's token-bucket charge (registry/tenants.py)
     ) -> Tuple[StreamResponse, str]:
         resp = StreamResponse(conn, {
             "Content-Type": "text/event-stream",
@@ -337,7 +529,10 @@ class HttpService(RouteServer):
                 return False
             d = _as_dict(chunk)
             if _has_payload(d):
-                timer.token(_payload_tokens(d))
+                n = _payload_tokens(d)
+                timer.token(n)
+                if charge is not None:
+                    charge(n)
             await resp.write(sse.encode_event(d))
             return False
 
@@ -359,7 +554,7 @@ class HttpService(RouteServer):
             # client went away — stop generation upstream
             ctx.context.stop_generating()
             raise _StreamDisconnect()
-        except EngineError as e:
+        except (EngineError, ResponseStreamError, NoInstancesError) as e:
             # mid-stream failure: emit an error event, then end the stream
             await resp.write(sse.encode_event({"error": {"message": str(e)}}))
             await resp.write(sse.encode_done())
@@ -371,13 +566,13 @@ class HttpService(RouteServer):
     async def handle_chat(self, request: Request, conn: Connection):
         return await self._handle_inference(
             request, conn, ChatCompletionRequest, self.manager.chat_engines,
-            ChatCompletionChunk, aggregate_chat_stream,
+            ChatCompletionChunk, aggregate_chat_stream, kind="chat",
         )
 
     async def handle_completions(self, request: Request, conn: Connection):
         return await self._handle_inference(
             request, conn, CompletionRequest, self.manager.completion_engines,
-            CompletionResponse, aggregate_completion_stream,
+            CompletionResponse, aggregate_completion_stream, kind="completions",
         )
 
     async def handle_embeddings(self, request: Request, conn: Connection):
@@ -408,7 +603,7 @@ class HttpService(RouteServer):
         if fmt not in ("float", "base64"):
             return self._error(
                 400, "encoding_format must be 'float' or 'base64'")
-        name = self.manager.resolve(model)
+        name = self.manager.resolve(model, self._resolve_tenant(request))
         if name is None:
             return self._model_not_found(model)
         engine = (self.manager.chat_engines.get(name)
@@ -440,8 +635,23 @@ class HttpService(RouteServer):
         })
 
     async def handle_models(self, request: Request, conn: Connection):
-        data = [ModelInfo(id=name, **self.manager.metadata.get(name, {}))
-                for name in self.manager.model_names()]
+        """GET /v1/models: enriched by the cards (family, context length,
+        aliases, owned_by) and filtered by the caller's tenant; card-less
+        engines keep their metadata-only rows."""
+        tenant = self._resolve_tenant(request)
+        data = []
+        for name in self.manager.model_names(tenant):
+            meta = dict(self.manager.metadata.get(name, {}))
+            card = self.manager.registry.card(name)
+            if card is not None:
+                meta.setdefault("model_type", card.model_type)
+                if card.context_length:
+                    meta.setdefault("max_model_len", card.context_length)
+                data.append(ModelInfo(
+                    id=name, owned_by=card.owned_by, family=card.family,
+                    aliases=card.aliases or None, **meta))
+            else:
+                data.append(ModelInfo(id=name, **meta))
         return json_response(ModelList(data=data).model_dump(exclude_none=True))
 
     async def handle_metrics(self, request: Request, conn: Connection):
@@ -449,8 +659,9 @@ class HttpService(RouteServer):
                         content_type="text/plain; charset=utf-8")
 
     async def handle_health(self, request: Request, conn: Connection):
+        # the operator's surface: every served model, visibility-blind
         return json_response(
-            {"status": "ok", "models": self.manager.model_names()})
+            {"status": "ok", "models": self.manager.served_names()})
 
 
     async def handle_admin_drain(self, request: Request, conn: Connection):
@@ -467,6 +678,62 @@ class HttpService(RouteServer):
             return json_response({"error": f"bad mode {mode!r}"}, status=400)
         respawn = request.query.get("respawn") in ("1", "true", "yes")
         return json_response(await self.drainer(mode=mode, respawn=respawn))
+
+    # ---------- model management routes ----------
+
+    @staticmethod
+    def _no_registry_admin() -> Response:
+        return json_response(
+            {"error": "no registry admin attached (serve with a discovery "
+                      "plane: --store-port)"}, status=501)
+
+    async def handle_admin_models(self, request: Request, conn: Connection):
+        """GET /admin/models: every registered card, unfiltered (the
+        operator's surface, not the tenant-scoped /v1/models)."""
+        return json_response({
+            "models": [card.to_wire() for _, card in
+                       sorted(self.manager.registry.cards.items())]})
+
+    async def handle_admin_model_add(self, request: Request, conn: Connection):
+        """POST /admin/models: register a model card (a ModelCard wire dict,
+        name and endpoint required); the front's watcher binds the route,
+        no restart."""
+        if self.registry_admin is None:
+            return self._no_registry_admin()
+        try:
+            body = request.json()
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object (a card)")
+            card = ModelCard.from_wire(body)
+            if not card.name or not card.endpoint:
+                raise ValueError("name and endpoint are required")
+            await self.registry_admin.add(card)
+        except (json.JSONDecodeError, UnicodeDecodeError, ValueError,
+                TypeError) as e:
+            return self._error(400, f"invalid model card: {e}")
+        return json_response({"registered": card.name})
+
+    async def handle_admin_model_remove(self, request: Request,
+                                        conn: Connection):
+        """DELETE /admin/models/{name}: unregister; the route unbinds as the
+        watcher sees the delete."""
+        if self.registry_admin is None:
+            return self._no_registry_admin()
+        name = request.match_info["name"]
+        card = self.manager.registry.card(name)
+        await self.registry_admin.remove(
+            name, card.model_type if card is not None else None)
+        return json_response({"removed": name})
+
+    async def handle_admin_pools(self, request: Request, conn: Connection):
+        """GET /admin/pools: per-model pool rows (live workers, idle age,
+        cold-start state: what the scale-to-zero policy sees)."""
+        if self.pools is None:
+            return json_response(
+                {"error": "no pool manager attached (serve with "
+                          "--pool-scale-to-zero-idle-s or a cold-start "
+                          "backend)"}, status=501)
+        return json_response({"pools": self.pools.snapshot()})
 
 
     # ---------- telemetry routes ----------
@@ -650,17 +917,21 @@ async def register_model(
     model_type: str = "chat",
     mdc: Optional[dict] = None,
     lease_scoped: bool = True,
+    card=None,  # registry.cards.ModelCard: the fleet card riding along
 ) -> None:
     """Register a served model in the discovery plane (llmctl analog).
 
     ``endpoint_path`` is a dyn://ns.comp.ep address whose workers accept
     OpenAI-level requests (preprocessing is worker-side, as in the
-    reference's v0.1.1 layout). The reference's ``card`` (the fleet card
-    of its model registry) is not taken: the registry is not ported.
+    reference's v0.1.1 layout). With ``card`` the record carries the fleet
+    card (family, aliases, tenant visibility, cold-start material) a
+    registry-aware front serves and pools by.
     """
     entry = {"name": name, "endpoint": endpoint_path, "model_type": model_type}
     if mdc:
         entry["mdc"] = mdc
+    if card is not None:
+        entry["card"] = card.to_wire()
     lease = await drt.discovery.primary_lease() if lease_scoped else None
     await drt.discovery.kv_put(
         model_registry_key(namespace, model_type, name),
@@ -689,10 +960,10 @@ def parse_endpoint_path(path: str):
 
 
 class ModelWatcher:
-    """Hot-add/remove models from discovery-plane registrations. The
-    reference's fleet cards (aliases, tenants, per-model pools) are left
-    out: every registration serves the whole endpoint, as a card-less one
-    does there."""
+    """Hot-add/remove models from discovery-plane registrations. A
+    registration with a fleet card binds its client to that model's pool
+    (instances whose metadata names the model); a card-less one serves the
+    whole endpoint."""
 
     def __init__(
         self,
@@ -736,7 +1007,17 @@ class ModelWatcher:
         name = entry["name"]
         ns, comp, ep = parse_endpoint_path(entry["endpoint"])
         endpoint = self.drt.namespace(ns).component(comp).endpoint(ep)
-        client = await Client(endpoint, self.router_mode).start()
+        card = None
+        if entry.get("card"):
+            try:
+                card = ModelCard.from_wire(entry["card"])
+            except (TypeError, ValueError):
+                logger.warning("malformed model card for %s ignored (serving "
+                               "by the entry's fields only)", name,
+                               exc_info=True)
+        client = await Client(endpoint, self.router_mode,
+                              model=card.name if card is not None else None
+                              ).start()
         previous = self._clients.pop(name, None)
         if previous is not None:
             # re-registration PUT: release the old client's watch task
@@ -752,11 +1033,19 @@ class ModelWatcher:
             model_type=model_type,
             max_model_len=(entry.get("mdc") or {}).get("context_length"),
         )
+        if card is not None:
+            self.manager.set_card(card)
         if model_type in ("chat", "both"):
             self.manager.add_chat_model(name, client)
         if model_type in ("completions", "both"):
             self.manager.add_completion_model(name, client)
         logger.info("model %s → %s registered (%s)", name, entry["endpoint"], model_type)
+
+    def pool_size(self, name: str) -> int:
+        """Live workers in one model's pool: what the pool manager's
+        cold-start gate and scale-to-zero policy read."""
+        client = self._clients.get(name)
+        return 0 if client is None else len(client.eligible_ids())
 
     def _handle_delete(self, key: str) -> None:
         name = key.rsplit("/", 1)[-1]

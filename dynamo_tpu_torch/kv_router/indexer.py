@@ -12,9 +12,12 @@ Stored/Removed, remove_worker, and a sharded variant. The single-threaded
 actor there becomes a plain asyncio-confined object here (one event loop ==
 one thread); ``ShardedKvIndexer`` partitions workers for scale.
 
-The port's copy of ``dynamo_tpu/kv_router/indexer.py``: the pure-Python
-``RadixTree`` only. The reference's C++ tree (``_NativeTreeAdapter`` over
-``dynamo_tpu/native``) is a host extension and is not carried.
+The port's copy of ``dynamo_tpu/kv_router/indexer.py``. ``KvIndexer`` and
+``ShardedKvIndexer`` index over the native core's C++ tree
+(``dynamo_tpu_torch/native``, ``_NativeTreeAdapter``) as the reference's
+do; ``RadixTree`` below is its plain version, chosen by
+``use_native=False``. A native build that fails raises: the plain tree is
+never a quiet fallback.
 """
 
 from __future__ import annotations
@@ -171,17 +174,56 @@ class RadixTree:
         return len(self.lookup)
 
 
+class _NativeTreeAdapter:
+    """``RadixTree``'s surface over the native core's C++ tree: the
+    production path (prefix matching runs on every scheduling decision;
+    the reference runs it on a dedicated Rust actor thread,
+    indexer.rs:499-663)."""
+
+    native = True
+
+    def __init__(self, expiration_s: Optional[float]):
+        from ..native import NativeRadixTree
+
+        self._tree = NativeRadixTree(expiration_s)
+
+    def apply_event(self, event: RouterEvent) -> None:
+        if event.stored is not None:
+            self._tree.apply_stored(event.worker_id, event.stored.parent_hash,
+                                    event.stored.block_hashes)
+        if event.removed is not None:
+            self._tree.apply_removed(event.worker_id, event.removed.block_hashes)
+
+    def find_matches(self, block_hashes: List[int],
+                     early_exit: bool = False) -> OverlapScores:
+        scores, freqs = self._tree.find_matches(block_hashes, early_exit)
+        return OverlapScores(scores=scores, frequencies=freqs)
+
+    def remove_worker(self, worker_id: str) -> None:
+        self._tree.remove_worker(worker_id)
+
+    def clear_expired(self) -> int:
+        return self._tree.clear_expired()
+
+    def __len__(self) -> int:
+        return len(self._tree)
+
+
 class KvIndexer:
-    """Event-consuming index (the actor surface of the reference) over the
-    pure-Python ``RadixTree``."""
+    """Event-consuming index (the actor surface of the reference).
+
+    ``use_native``: True (default) takes the C++ tree, False the plain
+    ``RadixTree``."""
 
     def __init__(
         self,
         block_size: int = 16,
         expiration_s: Optional[float] = None,
+        use_native: bool = True,
     ):
         self.block_size = block_size
-        self.tree = RadixTree(expiration_s)
+        self.tree = (_NativeTreeAdapter(expiration_s) if use_native
+                     else RadixTree(expiration_s))
         self.events_applied = 0
         self.worker_ids: set = set()  # every worker ever seen in events
         # cold-tier ownership (RouterEvent tier="cold"), kept BESIDE the

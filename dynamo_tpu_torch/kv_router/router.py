@@ -182,6 +182,8 @@ class KvRouter:
         the timings (decision µs, event lag ms)."""
         return dict(
             indexer_blocks=len(self.indexer.tree),
+            indexer_tree=("native" if getattr(self.indexer.tree, "native", False)
+                          else "python"),
             events_applied=self.indexer.events_applied,
             workers_with_metrics=sorted(self.scheduler.workers),
             decisions=self.decisions,

@@ -1,6 +1,8 @@
-"""Build and load the port's CUDA kernels (``dynamo_tpu_torch/csrc/*.cu``)
-and its one native host routine (``csrc/host_xxh64.cpp``, the cold KV
-tier's checksum).
+"""Build and load the port's CUDA kernels (``dynamo_tpu_torch/csrc/*.cu``),
+its native host routine (``csrc/host_xxh64.cpp``, the cold KV tier's
+checksum) and its native host core (``csrc/indexer.cc`` + ``csrc/capi.cc``:
+the batched block hash, the KV router's radix tree and the external-engine
+KV event ABI, loaded by ``dynamo_tpu_torch/native``).
 
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a build
@@ -10,6 +12,14 @@ the source and the ``csrc`` headers it includes, so a changed source or
 header rebuilds and an unchanged one loads the library already there.
 ``build()`` starts one ``nvcc`` per missing source, all at once, and
 waits for them together.
+
+The host core is plain C++ with no CUDA in it: ``HOST_SOURCES`` compiles
+with the host compiler (``$CXX``, default ``c++``; ``CXX_FLAGS``) into one
+library, named by a hash of its sources, the headers they include, the
+compiler and the flags, and renamed into place when done (several
+processes may race its first build). It builds on any machine with a C++17
+compiler, this one's CPU tests included. A failed build raises with the
+compiler's output: nothing falls back to the plain Python versions.
 
 Nothing here runs at import time: the module imports on a machine without
 ``nvcc`` (the CPU tests), and only a kernel launch on a CUDA tensor builds.
@@ -47,6 +57,12 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
+# host libraries (no CUDA): name → the sources under csrc/ compiled together
+HOST_SOURCES = {
+    "native": ("indexer.cc", "capi.cc"),
+}
+CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-shared", "-Wall", "-Wextra"]
+
 _libs: Dict[str, ctypes.CDLL] = {}
 # per kernel: seconds its build took in this process (0.0 = loaded from
 # an earlier build) and nvcc's output (the -Xptxas=-v register/spill report)
@@ -68,6 +84,11 @@ def nvcc() -> str:
     )
 
 
+def cxx() -> str:
+    """The host compiler of ``HOST_SOURCES``: ``$CXX``, else ``c++``."""
+    return os.environ.get("CXX") or "c++"
+
+
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
@@ -86,18 +107,34 @@ def _sources(path: Path, seen: List[Path]) -> List[Path]:
 
 def library_path(name: str) -> Path:
     """The library of kernel ``name``, named by a hash of its source, the
-    headers it includes and the flags: an edited header rebuilds."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources(CSRC / SOURCES[name], []):
+    headers it includes and the flags: an edited header rebuilds. A host
+    library's hash also covers its compiler."""
+    if name in HOST_SOURCES:
+        h = hashlib.sha256(" ".join([cxx(), *CXX_FLAGS]).encode())
+        seen: List[Path] = []
+        for src in HOST_SOURCES[name]:
+            _sources(CSRC / src, seen)
+    else:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        seen = _sources(CSRC / SOURCES[name], [])
+    for path in seen:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _command(name: str, out: Path) -> List[str]:
+    if name in HOST_SOURCES:
+        return [cxx(), *CXX_FLAGS, "-I", str(CSRC), "-o", str(out),
+                *(str(CSRC / src) for src in HOST_SOURCES[name])]
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / SOURCES[name])]
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Build every named kernel whose library is missing, one ``nvcc``
-    process per source, all started together. Returns seconds per kernel
-    (0.0 for one already built). Raises with nvcc's output on failure."""
-    names = list(SOURCES if names is None else names)
+    """Build every named library whose file is missing (all kernels and
+    host libraries by default), one compiler process per library, all
+    started together. Returns seconds per library (0.0 for one already
+    built). Raises with the compiler's output on failure."""
+    names = list([*SOURCES, *HOST_SOURCES] if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.monotonic()
@@ -107,21 +144,31 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             build_seconds.setdefault(name, 0.0)
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ), tmp, out)
+        cmd = _command(name, tmp)
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        except OSError as e:  # the compiler itself is missing
+            for started, _, _ in procs.values():
+                started.kill()
+                started.wait()
+            raise RuntimeError(
+                f"{name}: cannot run {cmd[0]!r} ({e}); the port builds "
+                f"{name} from csrc/ at first use") from e
+        procs[name] = (proc, tmp, out)
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         build_log[name] = log
         build_seconds[name] = time.monotonic() - t0
         if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name} ({' '.join(proc.args)} exit "
+                          f"{proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return {n: build_seconds[n] for n in names}
 
 

@@ -32,8 +32,9 @@ zero-downtime rolling update (``respawn=1`` restarts a live child).
 Migrations ride tcp and record the ``dynamo_transfer_*`` family
 (``plane="migration"``) in this controller's registry beside ``shipped``,
 the KV bytes and frames a drain shipped; the reference's ici backend is
-refused by name. The admission controller the reference gates beside the
-scheduler is not ported.
+refused by name. An ``admission`` controller (the HTTP edge's,
+``planner/admission.py``) is gated beside the scheduler: closed at a
+drain's first step, reopened when a respawn succeeds.
 """
 
 from __future__ import annotations
@@ -97,11 +98,13 @@ class RecoveryController:
         peer_ranker: Optional[Callable[[List[dict], List[int]],
                                        List[dict]]] = None,
         ici=None,
+        admission=None,  # planner.admission.AdmissionController
     ):
         if ici is not None:
             raise NotImplementedError(ICI_REFUSED)
         self.engine_id = engine_id
         self.scheduler = scheduler
+        self.admission = admission
         self.runner = runner
         self.watchdog = watchdog
         self.peers = peers
@@ -218,6 +221,8 @@ class RecoveryController:
         # 1. gate: no new work here, no new routing decisions toward here
         if sched is not None:
             sched.set_draining(True)
+        if self.admission is not None:
+            self.admission.set_draining(True)
         await self._hook("deregister", self.deregister)
         if sched is not None:
             # 2. soft grace: committed work may finish on its own (a wedged
@@ -384,6 +389,8 @@ class RecoveryController:
                 # operates on the live scheduler
                 self.scheduler = result
             await self._hook("register", self.register)
+            if self.admission is not None:
+                self.admission.set_draining(False)
             return True
 
     async def _hook(self, name: str, fn) -> None:

@@ -10,8 +10,12 @@ Every KV-cache block is identified by two hashes:
 
 The port's copy of ``dynamo_tpu/tokens.py``. The hashes are bit-equal to the
 reference package's (the KV router consumes them), but XXH64 is computed by
-the pure-Python implementation below instead of the ``xxhash`` package, and
-there is no native accelerator hook.
+the pure-Python implementation below instead of the ``xxhash`` package.
+The batched ``compute_block_hashes`` (the router's, the block allocator's,
+the KV fabric's and the prefill worker's hot path) runs in the native host
+core (``dynamo_tpu_torch/native``, built with the host compiler at first
+use); ``compute_block_hashes_plain`` is its plain version. A native build
+that fails raises: nothing sends the batched hash to the plain loop then.
 """
 
 from __future__ import annotations
@@ -122,6 +126,17 @@ def chain_hash(parent_sequence_hash: Optional[int], block_hash: int) -> int:
     return xxh64_intdigest(buf)
 
 
+def full_block_ids(token_ids: Sequence[int], block_size: int) -> np.ndarray:
+    """The ids of the complete blocks as contiguous uint32, the bytes both
+    batched hashes read. The ragged tail is dropped before the conversion,
+    so an id outside uint32 there is ignored by both; one inside a complete
+    block is refused by both alike (numpy's ``OverflowError`` for a Python
+    int; an integer array's values wrap as ``astype`` wraps them)."""
+    n_full = len(token_ids) // block_size
+    return np.ascontiguousarray(token_ids[: n_full * block_size],
+                                dtype=np.uint32)
+
+
 def compute_block_hashes(
     token_ids: Sequence[int], block_size: int, seed: int = ROUTER_SEED
 ) -> List[int]:
@@ -129,12 +144,23 @@ def compute_block_hashes(
 
     This is the hot path used by the KV router on every scheduling decision
     (reference: lib/llm/src/kv_router/indexer.rs:123 compute_block_hash_for_seq):
-    only full blocks are hashed; the ragged tail is ignored.
+    only full blocks are hashed; the ragged tail is ignored. Runs in the
+    native core (``native.compute_block_hashes``).
     """
-    n_full = len(token_ids) // block_size
+    from . import native
+
+    return native.compute_block_hashes(token_ids, block_size, seed)
+
+
+def compute_block_hashes_plain(
+    token_ids: Sequence[int], block_size: int, seed: int = ROUTER_SEED
+) -> List[int]:
+    """The plain version of ``compute_block_hashes``: the pure-Python
+    XXH64 block by block."""
+    arr = full_block_ids(token_ids, block_size)
+    n_full = len(arr) // block_size
     out: List[int] = []
     parent: Optional[int] = None
-    arr = np.asarray(token_ids[: n_full * block_size], dtype=np.uint32)
     for i in range(n_full):
         bh = xxh64_intdigest(
             arr[i * block_size : (i + 1) * block_size].tobytes(), seed=seed

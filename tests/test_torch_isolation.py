@@ -120,7 +120,16 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.llm.engines.python_file",
             "dynamo_tpu_torch.cli.batch", "dynamo_tpu_torch.cli.llmctl",
             "dynamo_tpu_torch.cli.metrics",
-            "dynamo_tpu_torch.models.hub"} <= set(mods)
+            "dynamo_tpu_torch.models.hub",
+            # the native host core, the edge's admission and the registry:
+            # ctypes over the port's own C++, records in the port's codec
+            "dynamo_tpu_torch.native", "dynamo_tpu_torch.kv_router.recorder",
+            "dynamo_tpu_torch.planner", "dynamo_tpu_torch.planner.admission",
+            "dynamo_tpu_torch.registry", "dynamo_tpu_torch.registry.cards",
+            "dynamo_tpu_torch.registry.registry",
+            "dynamo_tpu_torch.registry.tenants",
+            "dynamo_tpu_torch.registry.policy",
+            "dynamo_tpu_torch.registry.pools"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -244,6 +253,31 @@ def _import_refusing_reference(mods, then=""):
                          capture_output=True, text=True, timeout=120, env=env)
     assert res.returncode == 0, res.stderr[-4000:]
     assert f"imported {len(mods)}" in res.stdout
+
+
+def test_native_planner_and_registry_import_without_jax_or_reference_package():
+    """``native``, ``planner``, ``registry`` and the recorder alone: neither
+    jax, ``dynamo_tpu`` nor msgpack comes with them, and in that
+    interpreter the native core hashes and indexes (built with the host
+    compiler if it is missing) and a card packs in the port's codec."""
+    _import_refusing_reference([
+        "dynamo_tpu_torch.native", "dynamo_tpu_torch.planner",
+        "dynamo_tpu_torch.registry", "dynamo_tpu_torch.kv_router.recorder",
+    ], """
+        from dynamo_tpu_torch import tokens
+        from dynamo_tpu_torch.kv_router.indexer import KvIndexer
+        from dynamo_tpu_torch.registry import ModelCard, ModelRegistry
+        from dynamo_tpu_torch.runtime.wire import packb, unpackb
+        ids = list(range(64))
+        assert (tokens.compute_block_hashes(ids, 16)
+                == tokens.compute_block_hashes_plain(ids, 16))
+        assert type(KvIndexer().tree).__name__ == "_NativeTreeAdapter"
+        card = ModelCard(name="m", aliases=["a"], tenants=["t"])
+        assert ModelCard.from_wire(unpackb(packb(card.to_wire()))) == card
+        reg = ModelRegistry()
+        reg.put(card)
+        assert reg.resolve("a", "t") == "m" and reg.resolve("a") is None
+    """)
 
 
 def test_static_scan_finds_no_jax_or_reference_imports():
