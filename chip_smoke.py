@@ -285,7 +285,20 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    whole; (d) one tenant over its bucket shed, another served; (e) the
    alias echoed as the canonical model, an outside tenant's 404 the
    unknown model's, a registered pool without a worker a 503 + Retry-After
-   past the deadline, then removed.
+   past the deadline, then removed. Then the planner and the deployment
+   plane around the survivor, each new role a subprocess: (f) the
+   api-store, ``llmctl deploy`` of the graph's spec and the operator
+   against a stand-in API server inside this script (the machine has no
+   cluster): every child rendered, ``nvidia.com/gpu: 1`` on the decode
+   Deployment, the port's modules in every command, ``Reconciled True``,
+   and a ``tpus`` spec's ``Reconciled False`` naming the field; (g)
+   ``in=planner`` under a burst that leaves more than 4 requests waiting:
+   the record's decode replicas 1 → 2 (at most 3), applied by the
+   operator, every stream whole, then back to 1; (h) a ``--planner``
+   frontend whose SLO the burst misses: ``low`` shed with Retry-After,
+   ``high`` served, a cold pool's replicas written into the record and
+   rendered, the planner's instruments on its /metrics; (i) ``in=hub``
+   lists the survivor's sidecar.
 17. ``engine_disagg`` — disaggregated prefill and decode on Llama-3.2-1B at
    full width and depth. Leg A in one process, over a bf16 and an fp8
    cache: a decode engine whose coordinator talks over a ``MemoryHub`` to
@@ -429,7 +442,7 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    live child. The restart counter reads one each of disconnect,
    heartbeat and manual; the largest gap between pongs stays below the
    bound; SIGINT ends the CLI with 0 and no child left. (e) ``in=batch:``
-   over a 16-line JSONL through an isolated child: 16 records of 32
+   over a 4-line JSONL through an isolated child: 4 records of 32
    tokens, each with a first token, and the summary on stderr. Prints
    every spawn's seconds to ``ready`` and the child's free card memory
    before its load, kill to ready and to the next first token, the
@@ -7532,8 +7545,593 @@ def _check_graph_fleet_legs(legs, router, smi):
                              f"{reg['removed']}")
 
 
+# ---- legs f-i: the planner and the deployment plane around the survivor
+# (after leg e; each new role a subprocess as a user starts it)
+GRAPH_DEPLOYMENT = "graph"
+GRAPH_PLANNER_FLAGS = ["--planner-interval-s", "0.5", "--planner-cooldown-s",
+                       "1", "--planner-max-replicas", "3"]
+GRAPH_PLANNER_MAX = 3
+GRAPH_OPERATOR_INTERVAL_S = 0.5
+# leg g: a burst through leg h's frontend that leaves more than the policy's
+# decode_waiting_up (4) requests waiting on the survivor (max batch 8)
+GRAPH_BURST, GRAPH_BURST_TOKENS = 32, 48
+GRAPH_DEPLOY_TIMEOUT_S = 60
+GRAPH_SCALE_DOWN_TIMEOUT_S = 45
+# leg h: a TTFT target every request misses, an admission limit above the
+# burst, a cold pool's deadline
+GRAPH_EDGE_FLAGS = ["--planner", "--planner-interval-s", "0.5",
+                    "--admission-limit", "64", "--slo-ttft-ms", "1",
+                    "--pool-cold-start-deadline-s", "2"]
+GRAPH_COLD_MODEL = "cold-pool-llama"
+
+
+class _KubeStandIn:
+    """A minimal stand-in for the Kubernetes API server, inside this
+    process: the REST the port's ``KubeApiClient`` uses for an operator's
+    children (server-side-apply ``PATCH``, label-selector lists, ``DELETE``
+    of Deployments and Services), each request logged with its wall time.
+    The card's machine has no cluster: the operator's loop ends here."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        self.objects, self.log = {}, []
+        self.lock = threading.Lock()
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _answer(self, status, obj):
+                body = json.dumps(obj).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _route(self):
+                import urllib.parse
+
+                path, _, qs = self.path.partition("?")
+                parts = [p for p in path.split("/") if p]
+                if "namespaces" not in parts:
+                    return None
+                i = parts.index("namespaces")
+                ns, plural = parts[i + 1], parts[i + 2]
+                name = parts[i + 3] if len(parts) > i + 3 else None
+                return ns, plural, name, dict(urllib.parse.parse_qsl(qs))
+
+            def _handle(self):
+                route = self._route()
+                n = int(self.headers.get("Content-Length") or 0)
+                body = json.loads(self.rfile.read(n)) if n else None
+                if route is None or route[1] not in ("deployments", "services"):
+                    return self._answer(404, {"reason": "NotFound"})
+                ns, plural, name, query = route
+                key = (plural, ns, name)
+                with outer.lock:
+                    outer.log.append(dict(
+                        t=time.time(), method=self.command, plural=plural,
+                        name=name, replicas=((body or {}).get("spec") or {})
+                        .get("replicas") if plural == "deployments" else None))
+                    if self.command == "PATCH" and name:
+                        if query.get("force") != "true":
+                            return self._answer(409, {"reason": "Conflict"})
+                        outer.objects[key] = body
+                        return self._answer(200, body)
+                    if self.command == "DELETE" and name:
+                        if outer.objects.pop(key, None) is None:
+                            return self._answer(404, {"reason": "NotFound"})
+                        return self._answer(200, {"status": "Success"})
+                    if self.command == "GET" and name is None:
+                        want = dict(p.split("=", 1) for p in query.get(
+                            "labelSelector", "").split(",") if "=" in p)
+                        items = [
+                            {k: v for k, v in o.items()
+                             if k not in ("kind", "apiVersion")}
+                            for (pl, ons, _), o in outer.objects.items()
+                            if pl == plural and ons == ns and all(
+                                (o["metadata"].get("labels") or {}).get(k) == v
+                                for k, v in want.items())]
+                        return self._answer(200, {"items": items})
+                return self._answer(405, {"reason": "MethodNotAllowed"})
+
+            do_GET = do_PATCH = do_DELETE = do_POST = do_PUT = _handle
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def deployment(self, name, namespace="default"):
+        with self.lock:
+            return self.objects.get(("deployments", namespace, name))
+
+    def names(self):
+        with self.lock:
+            return sorted(f"{pl}/{n}" for pl, _, n in self.objects)
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def _graph_deploy_spec(model_dir):
+    """The graph as it runs, in the port's example spec's words
+    (``dynamo_tpu_torch/deploy/example-disagg.json``, read without yaml):
+    dynstore, frontend, the kv processor, one ``decode`` service on one card
+    and the planner, in the graph's namespace."""
+    spec = json.loads((ROOT / "dynamo_tpu_torch" / "deploy"
+                       / "example-disagg.json").read_text())
+    ex = spec["services"]
+    worker_ep = f"dyn://{GRAPH_NS}.backend.generate"
+    spec.update(namespace=GRAPH_NS, modelName="llama", services={
+        "dynstore": {"role": "dynstore"},
+        "frontend": {"role": "frontend", "extraArgs": GRAPH_FRONT_FLAGS},
+        "processor": dict(ex["processor"], modelPath=model_dir, extraArgs=[
+            "--router-mode", "kv", "--worker-endpoint", worker_ep]),
+        "decode": {"role": "decode", "replicas": 1, "gpus": 1,
+                   "gpuProduct": ex["decode"]["gpuProduct"],
+                   "modelPath": model_dir, "extraArgs": GRAPH_WORKER_FLAGS},
+        "planner": dict(ex["planner"], extraArgs=[
+            "--api-store-url", "http://dynamo-api-store:8790",
+            "--planner-deployment", GRAPH_DEPLOYMENT, *GRAPH_PLANNER_FLAGS]),
+    })
+    return spec
+
+
+def _spawn_deploy_roles(store, procs, logdir):
+    """The roles of legs f-i, started beside the graph's own (their start
+    overlaps the workers' load): the api-store, the operator against the
+    stand-in API server, ``in=planner``, the ``--planner`` frontend and the
+    hub. Returns what the legs need of them."""
+    standin = _KubeStandIn()
+    api_port, planner_port = _free_port(), _free_port()
+    url = f"http://127.0.0.1:{api_port}"
+    common = ["--store-port", str(store), "--namespace", GRAPH_NS]
+    store_flags = ["--api-store-url", url, "--planner-deployment",
+                   GRAPH_DEPLOYMENT]
+    procs["api_store"] = _spawn_role(
+        ["dynamo_tpu_torch.deploy.api_store", "--host", "127.0.0.1", "--port",
+         str(api_port), "--db", str(Path(logdir) / "api_store.sqlite")],
+        "api_store", logdir)
+    procs["operator"] = _spawn_role(
+        ["dynamo_tpu_torch.deploy.operator_main", "--api-store-url", url,
+         "--kube-client", "api", "--kube-api-url",
+         f"http://127.0.0.1:{standin.port}",
+         "--interval", str(GRAPH_OPERATOR_INTERVAL_S)], "operator", logdir)
+    # no record exists before leg f: the planner's scale actions find no
+    # deployment and are rolled back until then
+    procs["planner"] = _spawn_role(
+        ["dynamo_tpu_torch.cli.run", "in=planner", "out=none",
+         "--worker-endpoint", f"dyn://{GRAPH_NS}.backend.generate", *common,
+         *store_flags, *GRAPH_PLANNER_FLAGS, "--metrics-port",
+         str(planner_port)], "planner", logdir)
+    procs["frontend_planner"] = _spawn_role(
+        ["dynamo_tpu_torch.cli.run", "in=http", "out=none", *common,
+         "--http-host", "127.0.0.1", "--http-port", "0", *GRAPH_EDGE_FLAGS,
+         *store_flags], "frontend_planner", logdir)
+    procs["hub"] = _spawn_role(
+        ["dynamo_tpu_torch.cli.run", "in=hub", "out=none", *common,
+         "--http-host", "127.0.0.1", "--http-port", "0",
+         "--hub-interval-s", str(GRAPH_HUB_INTERVAL_S)], "hub", logdir)
+    return dict(standin=standin, url=url, planner_port=planner_port)
+
+
+async def _graph_deploy_legs(store, words_text, procs, survivor, wstats,
+                             logdir, model_dir, standin, url, planner_port):
+    """Legs f-i over the roles ``_spawn_deploy_roles`` started: ``llmctl
+    deploy``, the operator's children at the stand-in, ``in=planner``
+    scaling the record under a burst through the ``--planner`` frontend
+    (leg h), the edge's SLO shed and cold pool, and ``in=hub``. Returns
+    what the checks read."""
+    from dynamo_tpu_torch.deploy.operator import render_manifests
+    from dynamo_tpu_torch.deploy.store_source import ApiStoreClient, record_to_cr
+    from dynamo_tpu_torch.registry.pools import pool_service_name
+
+    loop = asyncio.get_running_loop()
+
+    def bg(fn, *args):
+        return loop.run_in_executor(None, fn, *args)
+
+    t_legs = time.monotonic()
+    deadline = time.monotonic() + GRAPH_START_TIMEOUT_S
+    client = ApiStoreClient(url)
+    done = asyncio.Event()  # ends the burst's watcher
+    try:
+        await bg(_await_line, procs["api_store"], "api-store listening", deadline)
+
+        # ---- f: llmctl deploy create / list / get, the operator's children
+        spec = _graph_deploy_spec(model_dir)
+        spec_path = Path(logdir) / "graph.json"
+        spec_path.write_text(json.dumps(spec))
+
+        def llmctl(*argv):
+            res = subprocess.run(
+                [sys.executable, "-m", "dynamo_tpu_torch.cli.llmctl", "deploy",
+                 *argv, "--api-store", url], cwd=str(ROOT), capture_output=True,
+                text=True, timeout=120)
+            if res.returncode != 0:
+                raise AssertionError(f"llmctl deploy {argv}: rc "
+                                     f"{res.returncode}: {res.stderr[-2000:]}")
+            return res.stdout
+
+        created = await bg(llmctl, "create", GRAPH_DEPLOYMENT, "-f", str(spec_path))
+        # a spec that still asks for a TPU: refused by name at reconcile
+        tpu_spec = {"services": {"decode": {"role": "decode", "tpus": 1}}}
+        await bg(client.create, "graph-tpu", tpu_spec)
+        want = sorted(f"{m['kind'].lower()}s/{m['metadata']['name']}"
+                      for m in render_manifests(record_to_cr(
+                          {"name": GRAPH_DEPLOYMENT, "spec": spec})))
+        t0 = time.monotonic()
+        while True:
+            rec = await bg(client.get, GRAPH_DEPLOYMENT)
+            tpu = await bg(client.get, "graph-tpu")
+            conds = [((r or {}).get("status") or {}).get("conditions") or [{}]
+                     for r in (rec, tpu)]
+            if (standin.names() == want and conds[0][0].get("status") == "True"
+                    and conds[1][0].get("status") == "False"):
+                break
+            if time.monotonic() - t0 > GRAPH_DEPLOY_TIMEOUT_S:
+                raise AssertionError(
+                    f"graph: the operator did not reconcile the record: stand-in "
+                    f"{standin.names()} (want {want}), conditions {conds}: "
+                    f"{_role_tail(procs['operator'])}")
+            await asyncio.sleep(0.1)
+        reconciled_s = time.monotonic() - t0
+        listed = await bg(llmctl, "list")
+        got = json.loads(await bg(llmctl, "get", GRAPH_DEPLOYMENT))
+        await bg(client.delete, "graph-tpu")
+        with standin.lock:
+            children = {f"{pl}/{n}": json.loads(json.dumps(o))
+                        for (pl, _, n), o in standin.objects.items()}
+        deploy = dict(created=created.strip(), listed=listed.strip().splitlines(),
+                      got_status=got["status"], tpu_status=conds[1][0],
+                      want=want, children=children, reconciled_s=reconciled_s)
+
+        # ---- g and h: the planner roles up, the frontend found the model
+        await bg(_await_line, procs["planner"], "planner observing", deadline)
+        line = await bg(_await_line, procs["frontend_planner"], "listening on",
+                        deadline)
+        edge = int(line.strip().rsplit(":", 1)[1])
+        for _ in range(600):
+            _, _, raw, _ = await http_request(edge, "GET", "/v1/models")
+            if "llama" in [m["id"] for m in json.loads(raw)["data"]]:
+                break
+            await asyncio.sleep(0.1)
+        else:
+            raise AssertionError("graph: the planner frontend found no model")
+
+        async def planner_metrics():
+            return (await http_request(planner_port, "GET", "/metrics"))[2].decode()
+
+        async def edge_metrics():
+            return (await http_request(edge, "GET", "/metrics"))[2].decode()
+
+        # the api-store's round trip (a record GET from this process)
+        rtts = []
+        for _ in range(20):
+            t = time.perf_counter()
+            await bg(client.get, GRAPH_DEPLOYMENT)
+            rtts.append((time.perf_counter() - t) * 1e3)
+        cyc0 = (time.monotonic(), _metric0(await planner_metrics(),
+                                           "dynamo_planner_cycles_total"))
+
+        # ---- g: the burst; watch the survivor's queue, the record and the
+        # stand-in while it runs
+        seen = dict(first_waiting=None, max_waiting=0, record=[], applied=[],
+                    last=None, shed=None)
+
+        async def watch():
+            while not done.is_set():
+                now = time.monotonic()
+                st = (await wstats()).get(survivor)  # None: a scrape timed out
+                w = st["data"]["num_requests_waiting"] if st else 0
+                if st:
+                    seen["last"] = (st["data"]["request_active_slots"], w)
+                seen["max_waiting"] = max(seen["max_waiting"], w)
+                if w > 0 and seen["first_waiting"] is None:
+                    seen["first_waiting"] = now
+                r = (await bg(client.get, GRAPH_DEPLOYMENT))["spec"]["services"]
+                n = r["decode"]["replicas"]
+                if not seen["record"] or seen["record"][-1][1] != n:
+                    seen["record"].append((now, n))
+                if seen["shed"] is None and _metric0(
+                        await edge_metrics(), "dynamo_planner_shed_level_depth") >= 1:
+                    seen["shed"] = now
+                dep = standin.deployment(f"{GRAPH_DEPLOYMENT}-decode")
+                a = dep["spec"]["replicas"] if dep else None
+                if not seen["applied"] or seen["applied"][-1][1] != a:
+                    seen["applied"].append((now, a))
+                await asyncio.sleep(0.05)
+
+        def burst_body():
+            body = _graph_chat("llama", words_text(48))
+            body["max_tokens"] = GRAPH_BURST_TOKENS
+            return body
+
+        launches0 = (await wstats())[survivor]["data"]["launches"]
+        watcher = asyncio.ensure_future(watch())
+        t_burst = time.monotonic()
+        burst = await asyncio.gather(*(http_request(
+            edge, "POST", "/v1/chat/completions", burst_body())
+            for _ in range(GRAPH_BURST)))
+        burst_s = time.monotonic() - t_burst
+        launches1 = (await wstats())[survivor]["data"]["launches"]
+        streams = []
+        # each stream's last chunk, from the burst's send
+        first_done = min(events[-1][0] for _, _, _, events in burst if events)
+        for status, _, raw, events in burst:
+            if status != 200:
+                raise AssertionError(f"graph: a burst request: HTTP {status}: "
+                                     f"{raw[:300]}")
+            rec_ = _stream_record(events, True)
+            streams.append((len(rec_["tokens"]), rec_["finish"]))
+        # the operator applies the record's last number
+        t0 = time.monotonic()
+        while (seen["applied"][-1][1] != seen["record"][-1][1]
+               and time.monotonic() - t0 < 10):
+            await asyncio.sleep(0.05)
+        pm = await planner_metrics()
+        cyc1 = (time.monotonic(), _metric0(pm, "dynamo_planner_cycles_total"))
+        ups = _metric0(pm, "dynamo_planner_actions_total",
+                       '{applied="true",kind="scale_up"}')
+        # the operator's pass that applied the scale-up: its list to its patch
+        log = list(standin.log)
+        patch = next((e for e in log if e["method"] == "PATCH"
+                      and e["name"] == f"{GRAPH_DEPLOYMENT}-decode"
+                      and (e["replicas"] or 0) >= 2), None)
+        listing = (max((e["t"] for e in log if e["method"] == "GET"
+                        and e["plural"] == "deployments"
+                        and e["t"] <= patch["t"]), default=None)
+                   if patch else None)
+        up_rec = next(((t, n) for t, n in seen["record"] if n >= 2), None)
+        up_app = next(((t, n) for t, n in seen["applied"] if n and n >= 2), None)
+        planner_leg = dict(
+            streams=streams, burst=GRAPH_BURST, burst_s=burst_s,
+            max_waiting=seen["max_waiting"],
+            record=[n for _, n in seen["record"]],
+            applied=[n for _, n in seen["applied"]], scale_ups=ups,
+            waiting_to_patch_s=(up_app[0] - seen["first_waiting"]
+                                if up_app and seen["first_waiting"] else None),
+            burst_to_patch_s=up_app[0] - t_burst if up_app else None,
+            burst_to_record_s=up_rec[0] - t_burst if up_rec else None,
+            record_to_patch_s=(up_app[0] - up_rec[0]
+                               if up_app and up_rec else None),
+            operator_list_to_patch_s=(patch["t"] - listing
+                                      if patch and listing else None),
+            planner_cycle_s=((cyc1[0] - cyc0[0]) / (cyc1[1] - cyc0[1])
+                             if cyc1[1] > cyc0[1] else None),
+            api_store_rtt_ms=dict(median=float(np.median(rtts)),
+                                  max=float(np.max(rtts))),
+            launches={k: launches1[k] - launches0.get(k, 0) for k in launches1})
+
+        # ---- h: the SLO floor sheds low, high is served; the cold pool
+        t0 = time.monotonic()
+        em = await edge_metrics()
+        while _metric0(em, "dynamo_planner_shed_level_depth") < 1:
+            if time.monotonic() - t0 > 15:
+                raise AssertionError(f"graph: the SLO shed never rose: "
+                                     f"{_role_tail(procs['frontend_planner'])}")
+            await asyncio.sleep(0.1)
+            em = await edge_metrics()
+        shed_s = (seen["shed"] if seen["shed"] is not None
+                  else time.monotonic()) - t_burst
+
+        async def ask(model, prio, n=8):
+            body = _graph_chat(model, words_text(16))
+            body["max_tokens"] = n
+            t = time.monotonic()
+            status, hdrs, raw, events = await http_request(
+                edge, "POST", "/v1/chat/completions", body,
+                headers={"X-Priority": prio} if prio else None)
+            out = dict(status=status, retry_after=hdrs.get("retry-after"),
+                       elapsed_s=time.monotonic() - t)
+            if status == 200:
+                r = _stream_record(events, True)
+                out.update(tokens=len(r["tokens"]), finish=r["finish"])
+            else:
+                out["body"] = json.loads(raw)
+            return out
+
+        low, high = await ask("llama", "low"), await ask("llama", "high")
+        card = {"name": GRAPH_COLD_MODEL, "model_type": "both",
+                "endpoint": f"dyn://{GRAPH_NS}.cold_pool.chat"}
+        status, _, raw, _ = await http_request(edge, "POST", "/admin/models", card)
+        if status != 200:
+            raise AssertionError(f"graph: /admin/models {status}: {raw[:300]}")
+        for _ in range(300):
+            _, _, raw, _ = await http_request(edge, "GET", "/v1/models")
+            if GRAPH_COLD_MODEL in [m["id"] for m in json.loads(raw)["data"]]:
+                break
+            await asyncio.sleep(0.05)
+        t_pool = time.monotonic()
+        cold = await ask(GRAPH_COLD_MODEL, "high")
+        pool = pool_service_name(GRAPH_COLD_MODEL)
+        t0 = time.monotonic()
+        while True:
+            services = (await bg(client.get, GRAPH_DEPLOYMENT))["spec"]["services"]
+            pool_dep = standin.deployment(f"{GRAPH_DEPLOYMENT}-{pool}")
+            if pool in services and pool_dep is not None:
+                break
+            if time.monotonic() - t0 > 15:
+                raise AssertionError(f"graph: the cold pool's record or "
+                                     f"Deployment never came: {services} "
+                                     f"{standin.names()}")
+            await asyncio.sleep(0.1)
+        await http_request(edge, "DELETE", f"/admin/models/{GRAPH_COLD_MODEL}")
+        em = await edge_metrics()
+        edge_leg = dict(
+            shed_level=_metric0(em, "dynamo_planner_shed_level_depth"),
+            shed_after_burst_s=shed_s, first_stream_done_s=first_done,
+            admission_actions=_metric0(em, "dynamo_planner_actions_total",
+                                       '{applied="true",kind="admission"}'),
+            planner_on_metrics=[n for n in ("dynamo_planner_cycles_total",
+                                            "dynamo_planner_shed_level_depth",
+                                            "dynamo_planner_actions_total")
+                                if n in em],
+            low=low, high=high, cold=cold, pool=pool,
+            pool_record=services[pool],
+            pool_deployment_replicas=pool_dep["spec"]["replicas"])
+
+        # ---- i: the stand-alone hub lists the survivor's sidecar
+        line = await bg(_await_line, procs["hub"], "fleet hub on", deadline)
+        hub_port = int(line.split()[3].rsplit(":", 1)[1])
+        rows = []
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < GRAPH_FLEET_TIMEOUT_S:
+            _, _, raw, _ = await http_request(hub_port, "GET", "/fleet/workers")
+            rows = json.loads(raw)["workers"]
+            if any(w["role"] == "decode_engine" and w["up"] for w in rows):
+                break
+            await asyncio.sleep(GRAPH_HUB_INTERVAL_S)
+        hub_leg = dict(rows=[{k: w.get(k) for k in ("name", "role", "up",
+                                                    "kv_usage_ratio")}
+                             for w in rows])
+
+        # ---- g, last: the hysteresis brings decode back to 1
+        t0 = time.monotonic()
+        while (seen["record"][-1][1] != 1 or seen["applied"][-1][1] != 1):
+            if time.monotonic() - t0 > GRAPH_SCALE_DOWN_TIMEOUT_S:
+                break
+            await asyncio.sleep(0.1)
+        done.set()
+        await watcher
+        planner_leg.update(
+            record_after=[n for _, n in seen["record"]],
+            applied_after=[n for _, n in seen["applied"]],
+            record_t=[(round(t - t_burst, 3), n) for t, n in seen["record"]],
+            pool_t=round(t_pool - t_burst, 3),
+            scale_down_s=next((t - t_burst - burst_s for t, n in seen["applied"]
+                               if n == 1 and t > t_burst + burst_s), None),
+            scale_downs=_metric0(await planner_metrics(),
+                                 "dynamo_planner_actions_total",
+                                 '{applied="true",kind="scale_down"}'),
+            survivor_active_waiting=seen["last"])
+        return dict(deploy=deploy, planner=planner_leg, edge=edge_leg,
+                    hub=hub_leg, survivor=survivor,
+                    legs_s=time.monotonic() - t_legs)
+    finally:
+        done.set()
+
+
+def _check_graph_deploy_legs(legs, smi):
+    """Print legs f-i, a line each, then fail on the first condition that
+    fails (every line is printed first: a failed leg's neighbours still
+    say what they saw)."""
+    d, p, e = legs["deploy"], legs["planner"], legs["edge"]
+    deps = {n: o for n, o in d["children"].items() if n.startswith("deployments/")}
+    cmds = {n: o["spec"]["template"]["spec"]["containers"][0]["command"]
+            for n, o in deps.items()}
+    decode = deps.get(f"deployments/{GRAPH_DEPLOYMENT}-decode")
+    res = (decode or {}).get("spec", {}).get("template", {}).get("spec", {}).get(
+        "containers", [{}])[0].get("resources")
+    cond = (d["got_status"] or {}).get("conditions", [{}])[0]
+    emit("engine_graph_deploy", created=d["created"], listed=d["listed"],
+         children=sorted(d["children"]), decode_resources=res,
+         commands={n: " ".join(c[2:5]) for n, c in cmds.items()},
+         status=cond, tpu_status={k: d["tpu_status"].get(k)
+                                  for k in ("status", "reason", "message")},
+         reconciled_s=d["reconciled_s"],
+         note="the operator's loop ends at a stand-in API server inside "
+              "chip_smoke.py: the card's machine has no cluster", card=smi)
+    emit("engine_graph_planner", burst=p["burst"], tokens=GRAPH_BURST_TOKENS,
+         burst_s=p["burst_s"], max_waiting=p["max_waiting"],
+         record_replicas=p["record_after"], applied_replicas=p["applied_after"],
+         scale_ups=p["scale_ups"], scale_downs=p["scale_downs"],
+         waiting_to_patch_s=p["waiting_to_patch_s"],
+         burst_to_record_s=p["burst_to_record_s"],
+         burst_to_patch_s=p["burst_to_patch_s"],
+         record_to_patch_s=p["record_to_patch_s"],
+         operator_list_to_patch_s=p["operator_list_to_patch_s"],
+         planner_cycle_s=p["planner_cycle_s"],
+         api_store_rtt_ms=p["api_store_rtt_ms"],
+         scale_down_after_burst_s=p["scale_down_s"],
+         record_replicas_by_s=p["record_t"], cold_pool_at_s=p["pool_t"],
+         survivor_active_waiting_after=p["survivor_active_waiting"],
+         kernel_launches_burst=p["launches"], card=smi)
+    emit("engine_graph_planner_edge", shed_level=e["shed_level"],
+         shed_after_burst_s=e["shed_after_burst_s"],
+         first_stream_done_s=e["first_stream_done_s"],
+         admission_actions=e["admission_actions"],
+         low=(e["low"]["status"], e["low"]["retry_after"]),
+         high=(e["high"]["status"], e["high"].get("tokens")),
+         cold=(e["cold"]["status"], e["cold"]["retry_after"],
+               e["cold"]["elapsed_s"]),
+         pool=e["pool"], pool_record=e["pool_record"],
+         pool_deployment_replicas=e["pool_deployment_replicas"],
+         planner_on_metrics=e["planner_on_metrics"], card=smi)
+    rows = legs["hub"]["rows"]
+    emit("engine_graph_hub", rows=rows, survivor=legs["survivor"],
+         legs_s=legs["legs_s"], card=smi)
+
+    # ---- f
+    if sorted(d["children"]) != d["want"]:
+        raise AssertionError(f"graph: the stand-in holds {sorted(d['children'])}, "
+                             f"want {d['want']}")
+    if res != {"requests": {"nvidia.com/gpu": "1"},
+               "limits": {"nvidia.com/gpu": "1"}}:
+        raise AssertionError(f"graph: the decode Deployment's resources: {res}")
+    for n, c in cmds.items():
+        mod = ("dynamo_tpu_torch.runtime.transports.dynstore"
+               if n.endswith("-dynstore") else "dynamo_tpu_torch.cli.run")
+        if c[2] != mod or any("out=jax" in a or a.startswith("dynamo_tpu.")
+                              for a in c):
+            raise AssertionError(f"graph: {n} runs {c}")
+    if "out=torch" not in cmds[f"deployments/{GRAPH_DEPLOYMENT}-decode"]:
+        raise AssertionError("graph: the decode Deployment does not run out=torch")
+    if (cond.get("type"), cond.get("status")) != ("Reconciled", "True"):
+        raise AssertionError(f"graph: the record's status {d['got_status']}")
+    t = d["tpu_status"]
+    if t.get("status") != "False" or "'tpus'" not in t.get("message", ""):
+        raise AssertionError(f"graph: the tpus spec's status {t}")
+    # ---- g
+    if p["max_waiting"] <= 4:
+        raise AssertionError(f"graph: the burst left {p['max_waiting']} waiting")
+    if p["scale_ups"] < 1:
+        raise AssertionError("graph: the planner's actions show no decode scale-up")
+    rec = p["record_after"]
+    if rec[:2] != [1, 2] or max(rec) > GRAPH_PLANNER_MAX:
+        raise AssertionError(f"graph: the record's decode replicas {rec}")
+    applied = [n for n in p["applied_after"] if n is not None]
+    if 2 not in applied or max(applied) > GRAPH_PLANNER_MAX:
+        raise AssertionError(f"graph: the stand-in's decode replicas {applied}")
+    bad = [s for s in p["streams"] if s != (GRAPH_BURST_TOKENS, "length")]
+    if bad:
+        raise AssertionError(f"graph: burst streams {bad}")
+    if GRAPH_DEVICE == "cuda" and not all(p["launches"].get(k) for k in (
+            "paged_decode", "paged_flash", "epilogue")):
+        raise AssertionError(f"graph: the burst's launches {p['launches']}")
+    # ---- h
+    if e["shed_level"] < 1 or e["admission_actions"] < 1:
+        raise AssertionError(f"graph: the SLO floor raised no shed level: {e}")
+    if e["low"]["status"] != 429 or not e["low"]["retry_after"]:
+        raise AssertionError(f"graph: the low request was not shed: {e['low']}")
+    if (e["high"]["status"], e["high"].get("tokens")) != (200, 8):
+        raise AssertionError(f"graph: the high request: {e['high']}")
+    if (e["pool_record"].get("replicas") != 1
+            or e["pool_record"].get("role") != "decode"
+            or e["pool_deployment_replicas"] != 1 or e["cold"]["status"] != 503):
+        raise AssertionError(f"graph: the cold pool: {e}")
+    if len(e["planner_on_metrics"]) != 3:
+        raise AssertionError(f"graph: the planner's instruments on the "
+                             f"frontend's /metrics: {e['planner_on_metrics']}")
+    # ---- i
+    if not any(w["role"] == "decode_engine" and w["up"]
+               and legs["survivor"] in (w["name"] or "") for w in rows):
+        raise AssertionError(f"graph: in=hub does not list the survivor's "
+                             f"sidecar: {rows}")
+    # ---- g, last: the hysteresis back to 1
+    if rec[-1] != 1 or applied[-1] != 1:
+        raise AssertionError(f"graph: no scale-down back to 1 within "
+                             f"{GRAPH_SCALE_DOWN_TIMEOUT_S} s: {rec} {applied}")
+
 async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
-                         sidecars=None):
+                         sidecars, deploy):
     """The graph's traffic and checks, from a client of the broker of its
     own (the workers' and the processor's stats scrape, a watch on the
     workers' registrations) and an HTTP client of the frontend."""
@@ -7720,6 +8318,9 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
     # the edge's fleet controls on the kv frontend (legs c-e), after every
     # check above has read its state (the survivor serves them)
     fleet_legs = await _graph_fleet_legs(ports["kv"], words_text)
+    # the planner and the deployment plane around the survivor (legs f-i)
+    deploy_legs = await _graph_deploy_legs(
+        store, words_text, procs, survivor, wstats, **deploy)
     watch_task.cancel()
     watcher.cancel()
     await wclient.close()
@@ -7734,7 +8335,8 @@ async def _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
                 served_after_kill=served(before, after),
                 blocks_after_kill=blocks_after, router=router,
                 router_before_kill=router_before_kill, victim=victim,
-                survivor=survivor, fleet=fleet, fleet_legs=fleet_legs)
+                survivor=survivor, fleet=fleet, fleet_legs=fleet_legs,
+                deploy_legs=deploy_legs)
 
 
 def engine_graph_phase(torch, dev, smi):
@@ -7801,7 +8403,34 @@ def engine_graph_phase(torch, dev, smi):
     "llama", a tenant outside ``--model-tenants`` gets the unknown model's
     404, a card ``POST /admin/models`` registers for a pool without a
     worker answers 503 + Retry-After after ``--pool-cold-start-deadline-s``,
-    ``/admin/pools`` lists both pools, and ``DELETE`` makes it a 404."""
+    ``/admin/pools`` lists both pools, and ``DELETE`` makes it a 404.
+
+    The planner and the deployment plane, each new role a subprocess as a
+    user starts it, a line each: (f) ``engine_graph_deploy``: ``python3 -m
+    dynamo_tpu_torch.deploy.api_store`` (file-backed), ``llmctl deploy
+    create|list|get`` of the graph's spec (read from the port's JSON
+    example: dynstore, frontend, the kv processor, a ``decode`` service with
+    ``gpus: 1``, the planner), ``deploy.operator_main --api-store-url ...
+    --kube-client api`` against ``_KubeStandIn`` (the card's machine has no
+    cluster): the stand-in holds every rendered child, the decode
+    Deployment requests ``nvidia.com/gpu: 1``, every command runs the
+    port's module (the decode's ``out=torch``), the record reads
+    ``Reconciled True``, and a record with ``tpus`` reads ``Reconciled
+    False`` naming the field; (g) ``engine_graph_planner``: ``in=planner``
+    with the record's actuator; a burst of GRAPH_BURST streams through leg
+    h's frontend leaves more than 4 waiting on the survivor, the planner
+    scales decode 1 → 2 (never past 3), the operator applies it, every
+    stream has its length, then the window and the 4x cooldown bring it
+    back to 1; the seconds from the first waiting request to the applied
+    patch, the planner's cycle, the api-store's round trip, the operator's
+    list-to-patch and the burst's kernel launches are printed; (h)
+    ``engine_graph_planner_edge``: an ``in=http out=none --planner``
+    frontend with a TTFT target the burst misses: its shed level rises, a
+    ``low`` request is shed with Retry-After while ``high`` is served, a
+    request for a cold pool's card writes ``pool-<slug>`` replicas 1 into
+    the record and the operator renders its Deployment, the planner's
+    instruments are on its /metrics; (i) ``engine_graph_hub``: ``in=hub``
+    lists the survivor's sidecar on /fleet/workers."""
     import tempfile
 
     from dynamo_tpu_torch.cli import run
@@ -7849,7 +8478,7 @@ def engine_graph_phase(torch, dev, smi):
     quotas = Path(tmp.name) / "quotas.json"
     quotas.write_text(json.dumps(GRAPH_QUOTAS))
     worker_ep = f"dyn://{GRAPH_NS}.backend.generate"
-    procs = {}
+    procs, deploy = {}, None
     t0 = time.monotonic()
     try:
         procs["dynstore"] = _spawn_role(
@@ -7901,6 +8530,8 @@ def engine_graph_phase(torch, dev, smi):
                     *GRAPH_FRONT_FLAGS, "--tenant-quotas", str(quotas)]
                    if kv else [])],
                 f"frontend_{mode}", tmp.name)
+        deploy = dict(_spawn_deploy_roles(store, procs, tmp.name),
+                      logdir=tmp.name, model_dir=str(model_dir))
         worker_ids, ports = {}, {}
         for i in range(2):
             line = _await_line(procs[f"worker{i}"], "token-level worker", deadline)
@@ -7912,7 +8543,7 @@ def engine_graph_phase(torch, dev, smi):
         startup_s = time.monotonic() - t0
         out = asyncio.run(asyncio.wait_for(
             _graph_traffic(ports, store, tok, words_text, procs, worker_ids,
-                           sidecars),
+                           sidecars, deploy),
             GRAPH_TIMEOUT_S))
         exits = {}
         for name in reversed(list(procs)):  # the frontends first, the broker last
@@ -7925,6 +8556,8 @@ def engine_graph_phase(torch, dev, smi):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        if deploy is not None:
+            deploy["standin"].stop()
     logs = {name: _role_tail(p) for name, p in procs.items()}
 
     # ---- the same greedy requests on an in-process engine over the directory
@@ -8023,6 +8656,13 @@ def engine_graph_phase(torch, dev, smi):
 
     # ---- checks
     _check_graph_fleet_legs(out["fleet_legs"], out["router"], smi)
+    try:
+        _check_graph_deploy_legs(out["deploy_legs"], smi)
+    except AssertionError:
+        for name in ("planner", "frontend_planner", "operator"):
+            print(f"--- {name}'s log, its end:\n{logs.get(name, '')}",
+                  file=sys.stderr)
+        raise
     if not out["fleet"]["ok"]:
         raise AssertionError(f"graph: the hub's /fleet/workers or the router's "
                              f"sidecar fell short: {out['fleet']}")
@@ -11663,7 +12303,7 @@ ISOLATED_FLAGS = ["--max-model-len", str(ENGINE["max_model_len"]),
                   "--max-batch-size", str(ENGINE["max_batch_size"])]
 ISOLATED_EXTRA = dict(max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"])
 ISOLATED_LIVE = 4              # chunks every stream has when the child is killed
-ISOLATED_BATCH = 16            # lines of the in=batch: file
+ISOLATED_BATCH = 4             # lines of the in=batch: file
 ISOLATED_BATCH_WORDS = (40, 400)
 ISOLATED_START_TIMEOUT_S = 300
 ISOLATED_TIMEOUT_S = 300

@@ -1,24 +1,30 @@
-"""llmctl: manage the models the HTTP frontend serves from discovery.
+"""llmctl: manage the models the HTTP frontend serves and the graph
+deployments of the api-store.
 
 The port's copy of ``dynamo_tpu/cli/llmctl.py``: ``http add`` writes the
 ModelEntry record (``{name, endpoint, model_type}`` under
 ``<ns>/models/<type>/<name>``, not lease-scoped, so it outlives this
 short-lived process) that the front's ``ModelWatcher`` reads; ``http
-remove`` deletes it; ``http list`` prints them.
+remove`` deletes it; ``http list`` prints them. ``deploy
+create|update|get|list|delete`` manage the api-store's deployment records
+(``deploy/store_source.ApiStoreClient``), which the operator reconciles.
 
     python3 -m dynamo_tpu_torch.cli.llmctl --store-port 4871 http add chat-models m8b dyn://public.backend.generate
     python3 -m dynamo_tpu_torch.cli.llmctl --store-port 4871 http list
     python3 -m dynamo_tpu_torch.cli.llmctl --store-port 4871 http remove chat-models m8b
+    python3 -m dynamo_tpu_torch.cli.llmctl deploy create graph -f graph.json --api-store http://127.0.0.1:8790
+    python3 -m dynamo_tpu_torch.cli.llmctl deploy list --api-store http://127.0.0.1:8790
 
-The reference's ``deploy`` plane (graph deployments through the
-api-store) is refused by name: it waits for the port of
-``deploy/store_source.ApiStoreClient``.
+A spec file is JSON (YAML too where the ``yaml`` package is installed).
+``--from-artifact`` is refused by name: it renders the spec from a graph
+artifact, which needs ``sdk/build.py``, not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import sys
 from typing import List
@@ -38,10 +44,10 @@ KINDS = {
     "models": "both",
 }
 
-DEPLOY_REFUSED = (
-    "llmctl deploy is not served by the PyTorch port: graph deployments go "
-    "through the api-store client (deploy/store_source.ApiStoreClient), "
-    "which is not ported yet")
+FROM_ARTIFACT_REFUSED = (
+    "llmctl deploy --from-artifact is not served by the PyTorch port: it "
+    "renders the spec from a graph artifact (sdk/build.py), which is not "
+    "ported yet; give the spec with -f")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,9 +67,95 @@ def build_parser() -> argparse.ArgumentParser:
     rm.add_argument("kind", choices=sorted(KINDS))
     rm.add_argument("name")
     hsub.add_parser("list")
-    dep = sub.add_parser("deploy", help="refused: " + DEPLOY_REFUSED)
-    dep.add_argument("rest", nargs=argparse.REMAINDER)
+    dep = sub.add_parser(
+        "deploy", help="manage graph deployments via the api-store")
+    # shared by every deploy leaf so the flag works in any position
+    store_opt = argparse.ArgumentParser(add_help=False)
+    store_opt.add_argument("--api-store", default="http://127.0.0.1:8790",
+                           help="api-store base URL")
+    dsub = dep.add_subparsers(dest="action", required=True)
+    dc = dsub.add_parser("create", parents=[store_opt],
+                         help="register a graph deployment spec")
+    dc.add_argument("name")
+    dc.add_argument("-f", "--file",
+                    help="JSON (or YAML) deployment spec — the CR spec: "
+                         "{services: {...}, modelName: ...}")
+    dc.add_argument("--from-artifact", metavar="TARBALL",
+                    help="refused: " + FROM_ARTIFACT_REFUSED)
+    du = dsub.add_parser("update", parents=[store_opt])
+    du.add_argument("name")
+    du.add_argument("-f", "--file")
+    du.add_argument("--from-artifact", metavar="TARBALL")
+    dg = dsub.add_parser("get", parents=[store_opt])
+    dg.add_argument("name")
+    dsub.add_parser("list", parents=[store_opt])
+    dd = dsub.add_parser("delete", parents=[store_opt])
+    dd.add_argument("name")
     return p
+
+
+def _load_spec(path: str) -> dict:
+    """A spec file: JSON, or YAML where the ``yaml`` package exists."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError as e:
+        try:
+            import yaml
+        except ImportError:
+            raise SystemExit(
+                f"{path} is not JSON ({e}) and the yaml package is not "
+                f"installed to read it as YAML: give a JSON spec") from None
+        return yaml.safe_load(text)
+
+
+def run_deploy(args) -> int:
+    """The deploy-plane commands (synchronous; no distributed runtime)."""
+    from ..deploy.store_source import ApiStoreClient
+
+    if getattr(args, "from_artifact", None):
+        raise SystemExit(FROM_ARTIFACT_REFUSED)
+    client = ApiStoreClient(args.api_store)
+
+    def _resolve_spec() -> dict:
+        if not args.file:
+            raise SystemExit("one of -f/--file or --from-artifact is required")
+        return _load_spec(args.file)
+
+    if args.action == "create":
+        spec = _resolve_spec()
+        rec = client.create(args.name, spec)
+        ver = (spec.get("artifact") or {}).get("version")
+        print(f"created deployment {rec['name']}"
+              + (f" (artifact {ver})" if ver else ""))
+        return 0
+    if args.action == "update":
+        rec = client.update(args.name, _resolve_spec())
+        print(f"updated deployment {rec['name']}")
+        return 0
+    if args.action == "get":
+        rec = client.get(args.name)
+        if rec is None:
+            print(f"deployment {args.name!r} not found")
+            return 1
+        print(json.dumps(rec, indent=2))
+        return 0
+    if args.action == "list":
+        records = client.list()
+        if not records:
+            print("(no deployments)")
+        for rec in records:
+            conds = (rec.get("status") or {}).get("conditions") or []
+            health = conds[0]["status"] if conds else "-"
+            print(f"{rec['name']:30s} reconciled={health:6s} "
+                  f"services={len(rec['spec'].get('services') or {})}")
+        return 0
+    if args.action == "delete":
+        client.delete(args.name)
+        print(f"deleted deployment {args.name}")
+        return 0
+    return 2
 
 
 async def run(args, drt: DistributedRuntime) -> int:
@@ -96,7 +188,7 @@ async def run(args, drt: DistributedRuntime) -> int:
 async def amain(argv: List[str]) -> int:
     args = build_parser().parse_args(argv)
     if args.plane == "deploy":
-        raise SystemExit(DEPLOY_REFUSED)
+        return run_deploy(args)
     if args.store_port is None:
         print("--store-port is required for the http plane")
         return 2
@@ -108,7 +200,9 @@ async def amain(argv: List[str]) -> int:
 
 
 def main() -> None:
-    logging.basicConfig(level=logging.WARNING)
+    from ..utils.logging import setup_logging
+
+    setup_logging(logging.WARNING)
     raise SystemExit(asyncio.run(amain(sys.argv[1:])))
 
 

@@ -158,7 +158,8 @@ async def amain(argv: List[str]) -> None:
 
 
 def main() -> None:
-    logging.basicConfig(level=logging.INFO)
+    from ..utils.logging import setup_logging
+    setup_logging(logging.INFO)
     try:
         asyncio.run(amain(sys.argv[1:]))
     except KeyboardInterrupt:

@@ -93,11 +93,28 @@ serves ``/admin/models`` (``RegistryAdmin``) and, with
 answers ``/admin/pools``. A processor or OpenAI-level worker publishes its
 model card with ``--served-alias`` (repeatable) and ``--model-tenants``.
 
+The closed-loop SLA planner (``planner/``): ``in=http --planner``
+(``--planner-interval-s``, ``--planner-min-replicas``,
+``--planner-max-replicas``, ``--planner-cooldown-s``) runs the planner in
+the front, fed by its admission snapshot, its SLO tracker, an in-process
+engine's load and the hub's fleet signals, and actuating the admission
+shed level; ``in=planner --worker-endpoint dyn://... --store-port P``
+runs it as a role of its own over the workers' scraped load and the
+prefill queue's depth, actuating the disagg router's thresholds through
+discovery and, with ``--api-store-url`` and ``--planner-deployment``, the
+per-role replica counts of that api-store record (the operator,
+``python3 -m dynamo_tpu_torch.deploy.operator_main``, applies them). A
+front given both also writes a cold pool's ``pool-<slug>`` replicas into
+the record (``registry.StorePoolBackend``). ``in=hub`` serves a
+stand-alone fleet hub (``/metrics``, ``/fleet/metrics``,
+``/fleet/workers``, ``/debug/incidents``) over ``--hub-target`` and the
+discovery-registered sidecars of ``--namespace``.
+
 Every other input, output and reference flag is refused by name
 (``--profiler-port`` with its reason: torch has no profiler server; the
-``--planner*`` flags, ``--planner-deployment`` and ``--api-store-url`` wait
-for the planner and deploy slices).
-``cli/llmctl.py`` registers models for a front; ``cli/metrics.py`` is the
+multi-card flags wait for the multi-card slice).
+``cli/llmctl.py`` registers models for a front and manages the api-store's
+deployment records (``llmctl deploy``); ``cli/metrics.py`` is the
 namespace metrics aggregator.
 
 A ``--model-path`` directory holding a safetensors checkpoint, or a
@@ -130,6 +147,10 @@ Examples:
       --store-port 4871
   python3 -m dynamo_tpu_torch.cli.run in=prefill out=torch \\
       --model-path <dir> --store-port 4871
+  python3 -m dynamo_tpu_torch.cli.run in=planner \\
+      --worker-endpoint dyn://public.backend.generate --store-port 4871 \\
+      --api-store-url http://127.0.0.1:8790 --planner-deployment graph
+  python3 -m dynamo_tpu_torch.cli.run in=hub --store-port 4871 --http-port 9100
 """
 
 from __future__ import annotations
@@ -143,8 +164,8 @@ from typing import List
 
 logger = logging.getLogger(__name__)
 
-# and batch:<file>, and the worker roles dyn://ns.comp.ep and prefill
-INPUTS = ("http", "text", "stdin")
+# and batch:<file>, and the roles dyn://ns.comp.ep, prefill and planner
+INPUTS = ("http", "text", "stdin", "hub")
 # and the Python-file engines pystr:<file> and pytok:<file>
 ENGINES = ("torch", "echo_core", "echo_full", "none", "processor")
 PY_ENGINES = ("pystr:", "pytok:")
@@ -152,25 +173,14 @@ ROUTER_MODES = ("round_robin", "random", "kv")
 GRACEFUL_SHUTDOWN_S = 30.0
 
 # the reference's flags this CLI does not take (each raises by name):
-# multi-device, the ici transfer plane, the closed-loop planner, its
-# api-store record and the jax profiler server are not ported
+# multi-device, the ici transfer plane and the jax profiler server are not
+# ported
 REFUSED_FLAGS = (
     "--tensor-parallel-size", "--expert-parallel-size",
     "--data-parallel-size", "--pipeline-parallel-size",
     "--ici-sender-rank", "--ici-receiver-rank", "--num-nodes", "--node-rank",
     "--leader-addr", "--profiler-port",
-    "--planner", "--planner-interval-s", "--planner-min-replicas",
-    "--planner-max-replicas", "--planner-cooldown-s",
-    "--planner-deployment", "--api-store-url",
 )
-_PLANNER_WHY = (
-    "the closed-loop SLA planner (planner/signals.py, policy.py, "
-    "planner.py, actuation.py) is not ported yet; the edge's admission "
-    "control is (--admission-limit)")
-_STORE_WHY = (
-    "the api-store deployment record needs deploy/store_source.ApiStoreClient,"
-    " which is not ported yet; a cold pool's requests wait out "
-    "--pool-cold-start-deadline-s for a worker started elsewhere")
 # why a refused flag is refused (the others wait for their slice)
 REFUSED_WHY = {
     "--profiler-port": (
@@ -178,11 +188,6 @@ REFUSED_WHY = {
         "(utils/profiling.enable_profiler_server) and torch has no "
         "counterpart; capture a trace with --profile-dir and GET "
         "/debug/profile instead"),
-    **{f: _PLANNER_WHY for f in (
-        "--planner", "--planner-interval-s", "--planner-min-replicas",
-        "--planner-max-replicas", "--planner-cooldown-s")},
-    "--planner-deployment": _STORE_WHY,
-    "--api-store-url": _STORE_WHY,
 }
 
 
@@ -352,6 +357,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--admission-queue-timeout-s", type=float, default=10.0,
                    help="queue-wait deadline before a queued request is "
                         "shed with 429")
+    # the closed-loop SLA planner (planner/) and its api-store record
+    p.add_argument("--planner", action="store_true",
+                   help="in=http: run an in-process planner loop that "
+                        "tightens/relaxes admission (and the disagg "
+                        "split) from the engine's own load signals")
+    p.add_argument("--planner-interval-s", type=float, default=2.0,
+                   help="planner observe→decide→actuate cadence")
+    p.add_argument("--planner-min-replicas", type=int, default=1)
+    p.add_argument("--planner-max-replicas", type=int, default=8)
+    p.add_argument("--planner-cooldown-s", type=float, default=30.0,
+                   help="scale-up cooldown per role (scale-down waits "
+                        "4x this)")
+    p.add_argument("--planner-deployment", default=None,
+                   help="in=planner: api-store deployment record whose "
+                        "per-role replica counts the planner patches "
+                        "(the operator applies them via --api-store-url); "
+                        "in=http: the record a cold pool's replicas go to")
+    p.add_argument("--api-store-url", default=None,
+                   help="in=planner: api-store base URL for replica "
+                        "actuation; in=http: with --planner-deployment, "
+                        "the cold pools' spawner")
     # the multi-model multi-tenant fleet (registry/)
     p.add_argument("--served-alias", action="append", default=None,
                    metavar="ALIAS",
@@ -699,21 +725,82 @@ def _build_quotas(flags, admissions_registry=None):
 
 def _build_pools(flags, manager, watcher):
     """The multi-model frontend's pool manager: scale-to-zero for idle
-    pools and the cold-start gate for requests that find their pool empty,
-    or None without --pool-scale-to-zero-idle-s. No spawner or drainer is
-    wired (the api-store backend waits for the deploy slice): a cold
-    request waits out the deadline for a worker started elsewhere."""
-    if flags.pool_scale_to_zero_idle_s <= 0:
-        return None
-    from ..registry import PoolConfig, PoolManager, PoolPolicy, PoolPolicyConfig
+    pools and the cold-start gate for requests that find their pool empty.
+    With --api-store-url and --planner-deployment its spawner and drainer
+    patch the pool's ``pool-<slug>`` replicas into that api-store record
+    (``StorePoolBackend``; the operator reconciles the patch); without a
+    backend, a cold request waits out the deadline for a worker started
+    elsewhere. None when neither is asked for."""
+    from ..registry import (
+        PoolConfig,
+        PoolManager,
+        PoolPolicy,
+        PoolPolicyConfig,
+        StorePoolBackend,
+    )
 
+    backend = None
+    if flags.api_store_url and flags.planner_deployment:
+        from ..deploy.store_source import ApiStoreClient
+
+        backend = StorePoolBackend(
+            ApiStoreClient(flags.api_store_url), flags.planner_deployment)
+    if backend is None and flags.pool_scale_to_zero_idle_s <= 0:
+        return None
     return PoolManager(
         manager.registry, watcher.pool_size,
+        spawner=backend.spawn if backend is not None else None,
+        drainer=backend.drain if backend is not None else None,
         config=PoolConfig(
             cold_start_deadline_s=flags.pool_cold_start_deadline_s),
         policy=PoolPolicy(PoolPolicyConfig(
             idle_to_zero_s=flags.pool_scale_to_zero_idle_s,
             cooldown_s=flags.pool_cooldown_s)))
+
+
+def _planner_policy(flags, **kw):
+    """The --planner-* flags → an SlaPolicy (scale-down waits 4x the
+    scale-up cooldown, as in the reference)."""
+    from ..planner import PolicyConfig, SlaPolicy
+
+    return SlaPolicy(PolicyConfig(
+        min_replicas=flags.planner_min_replicas,
+        max_replicas=flags.planner_max_replicas,
+        scale_up_cooldown_s=flags.planner_cooldown_s,
+        scale_down_cooldown_s=flags.planner_cooldown_s * 4), **kw)
+
+
+def _build_front_planner(flags, engine, admission, slo, hub):
+    """--planner on ``in=http``: an in-process planner whose sources are the
+    edge's admission snapshot, its SLO tracker, an in-process engine's load
+    and the hub's fleet signals, and whose actuator is the edge's admission
+    shed level and limit. None without the flag."""
+    if not flags.planner:
+        return None
+    from ..planner import (
+        LocalActuator,
+        Planner,
+        PlannerConfig,
+        engine_metrics_source,
+        slo_source,
+    )
+
+    planner = Planner(_planner_policy(flags),
+                      config=PlannerConfig(interval_s=flags.planner_interval_s))
+    if admission is not None:
+        planner.add_source(admission.snapshot)
+        planner.add_actuator(LocalActuator(admission=admission))
+    if slo is not None:
+        # user-visible latency: the policy sheds on SLO attainment, not on
+        # queue proxies alone
+        planner.add_source(slo_source(slo))
+    if engine is not None and hasattr(engine, "engine_metrics"):
+        planner.add_source(engine_metrics_source(engine.engine_metrics))
+    if hub is not None:
+        # fleet-level saturation: the scraped pool's busy, KV and SLO
+        # rollups beside this process's own view
+        planner.add_source(hub.signal_source())
+    return planner
 
 
 def _advertise_model(registry, name: str) -> None:
@@ -833,6 +920,10 @@ async def run_http(flags, engine, mdc) -> None:
             recovery.attach()
             service.drainer = recovery.admin_drain
             service.metrics.registry.attach(recovery.registry)
+    planner = _build_front_planner(flags, engine, admission, slo, hub)
+    if planner is not None:
+        service.metrics.attach_registry(planner.registry)
+        planner.start()
     # the incident recorder: wired to every degradation edge this process
     # emits (the engine's watchdog, the recovery ladder, the SLO floor,
     # late first dispatches)
@@ -900,6 +991,8 @@ async def run_http(flags, engine, mdc) -> None:
                and loop.time() < deadline and not force_event.is_set()):
             await asyncio.sleep(0.1)
     finally:
+        if planner is not None:
+            planner.stop()
         if hub is not None:
             await hub.stop()
         if pools is not None:
@@ -1231,6 +1324,17 @@ async def _setup_kv_fabric(flags, core, drt=None, component: str = "backend",
     return fabric
 
 
+def _stop_on_signals(loop) -> asyncio.Event:
+    """An event SIGINT and SIGTERM set (a role's clean shutdown)."""
+    stop_event = asyncio.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            loop.add_signal_handler(sig, stop_event.set)
+        except (NotImplementedError, RuntimeError):
+            pass
+    return stop_event
+
+
 async def run_prefill(flags) -> None:
     """The prefill worker role (``in=prefill out=torch``): consumes the
     namespace's prefill queue and streams each prompt's KV to the decode
@@ -1275,12 +1379,7 @@ async def run_prefill(flags) -> None:
     await advertise_sidecar(drt, flags, mserver, "prefill_worker", instance_id)
     task = asyncio.ensure_future(worker.run())
     print(f"prefill worker consuming {worker.queue.name}", flush=True)
-    stop_event = asyncio.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        try:
-            loop.add_signal_handler(sig, stop_event.set)
-        except (NotImplementedError, RuntimeError):
-            pass
+    stop_event = _stop_on_signals(loop)
     try:
         await asyncio.wait([task, asyncio.ensure_future(stop_event.wait())],
                            return_when=asyncio.FIRST_COMPLETED)
@@ -1297,6 +1396,174 @@ async def run_prefill(flags) -> None:
         if mserver is not None:
             await mserver.stop()
         await worker.close()
+        await drt.close()
+
+
+async def run_hub(flags) -> None:
+    """The stand-alone fleet hub (``in=hub``), the reference's ``run_hub``:
+    scrape every --hub-target and discovery-registered metrics sidecar of
+    ``--namespace`` into history rings and serve /metrics (the hub's own
+    instruments and rollups), /fleet/metrics, /fleet/workers and
+    /debug/incidents on ``--http-port``."""
+    from ..http.server import json_response
+    from ..runtime.component import DistributedRuntime
+    from ..telemetry.hub import FleetHub, discovery_targets, parse_target_flag
+    from ..telemetry.incidents import IncidentRecorder, incident_dir
+    from ..telemetry.server import MetricsServer
+
+    targets = [parse_target_flag(s) for s in (flags.hub_target or [])]
+    discover = None
+    drt = None
+    if flags.store_port is not None:
+        drt = await DistributedRuntime.connect(flags.store_host,
+                                               flags.store_port)
+        discover = discovery_targets(drt, flags.namespace)
+    if not targets and discover is None:
+        raise SystemExit(
+            "in=hub needs scrape targets: --hub-target role=url and/or "
+            "--store-port for discovery-registered sidecars")
+    hub = FleetHub(targets=targets, discover=discover,
+                   interval_s=flags.hub_interval_s)
+    routes = [
+        ("GET", "/fleet/metrics", hub.handle_fleet_metrics),
+        ("GET", "/fleet/workers", hub.handle_fleet_workers),
+    ]
+    if incident_dir():
+        # the listing and fetch surface only: triggers live in the engine
+        # processes that own the evidence
+        routes.append(("GET", "/debug/incidents",
+                       IncidentRecorder().handle_debug_incidents))
+    else:
+        # the frontend's 501 with its hint: an operator learns the flag
+        async def _incidents_off(request, conn=None):
+            return json_response(
+                {"error": "no incident recorder attached (set "
+                          "DYN_INCIDENT_DIR or --incident-dir)"}, status=501)
+
+        routes.append(("GET", "/debug/incidents", _incidents_off))
+    server = await MetricsServer(hub.registry, flags.http_host,
+                                 flags.http_port, routes=routes).start()
+    hub.start()
+    print(f"fleet hub on http://{flags.http_host}:{server.port} "
+          f"({len(targets)} static target(s)"
+          f"{', discovery-driven' if discover else ''})", flush=True)
+    stop_event = _stop_on_signals(asyncio.get_running_loop())
+    try:
+        await stop_event.wait()
+    finally:
+        await hub.stop()
+        await server.stop()
+        if drt is not None:
+            await drt.close()
+
+
+async def run_planner(flags) -> None:
+    """The stand-alone SLA planner (``in=planner``), the reference's
+    ``run_planner``: scrape the worker pool's load and the prefill queue's
+    depth, run the policy, and actuate the disagg router's thresholds
+    through discovery and, with --api-store-url and --planner-deployment,
+    the per-role replica counts of that api-store record (the operator
+    reconciles it). ``--metrics-port`` serves the planner's instruments
+    (and, with ``--hub``, the fleet routes beside them)."""
+    from ..disagg.protocols import PrefillQueue
+    from ..http.service import parse_endpoint_path
+    from ..kv_router.metrics_aggregator import KvMetricsAggregator
+    from ..planner import (
+        LocalActuator,
+        Planner,
+        PlannerConfig,
+        StoreScaleActuator,
+        aggregator_source,
+    )
+    from ..runtime.client import Client, RouterMode
+    from ..runtime.component import DistributedRuntime
+    from ..telemetry.server import maybe_start_metrics_server
+
+    if flags.store_port is None:
+        raise SystemExit("in=planner requires --store-port")
+    if not flags.worker_endpoint:
+        raise SystemExit(
+            "in=planner requires --worker-endpoint "
+            "(the decode workers to observe)")
+    drt = await DistributedRuntime.connect(flags.store_host, flags.store_port)
+    wns, wcomp, wep = parse_endpoint_path(flags.worker_endpoint)
+    client = Client(drt.namespace(wns).component(wcomp).endpoint(wep),
+                    RouterMode.ROUND_ROBIN)
+    await client.start()
+    aggregator = KvMetricsAggregator(client)
+    aggregator.start()
+    planner = Planner(
+        _planner_policy(
+            flags, initial_local_prefill_length=flags.max_local_prefill_length,
+            initial_prefill_queue_size=flags.max_prefill_queue_size),
+        config=PlannerConfig(interval_s=flags.planner_interval_s))
+    planner.add_source(aggregator_source(aggregator))
+
+    # the prefill queue's depth, polled as the decode side's coordinator
+    # polls it: the dict starts EMPTY and empties again on a failure, since
+    # a fabricated 0 would read as "queue drained" and steer the rebalance
+    # the wrong way exactly when the messaging plane is down
+    queue = PrefillQueue(drt.messaging, flags.namespace)
+    depth: dict = {}
+
+    async def _depth_loop() -> None:
+        while True:
+            try:
+                depth["prefill.queue_depth"] = float(await queue.depth())
+            except Exception:
+                depth.clear()
+                logger.debug("prefill queue depth refresh failed",
+                             exc_info=True)
+            await asyncio.sleep(1.0)
+
+    depth_task = drt.runtime.spawn(_depth_loop())
+    planner.add_source(lambda: depth)
+    planner.add_actuator(LocalActuator(
+        discovery=drt.discovery, namespace=flags.namespace,
+        model_name=flags.model_name))
+    if flags.api_store_url and flags.planner_deployment:
+        from ..deploy.store_source import ApiStoreClient
+
+        planner.add_actuator(StoreScaleActuator(
+            ApiStoreClient(flags.api_store_url), flags.planner_deployment))
+    else:
+        logger.warning(
+            "in=planner without --api-store-url/--planner-deployment: "
+            "scale actions will be decided and logged but not actuated")
+    hub = _build_hub(flags)
+    routes = None
+    if hub is not None:
+        # a fleet hub riding the planner: the discovery-registered sidecars
+        # feed fleet-level saturation into the policy, and /fleet/* is
+        # served beside the planner's own exposition
+        from ..telemetry.hub import discovery_targets
+
+        hub.discover = discovery_targets(drt, flags.namespace)
+        planner.add_source(hub.signal_source())
+        planner.registry.attach(hub.registry)
+        routes = [
+            ("GET", "/fleet/metrics", hub.handle_fleet_metrics),
+            ("GET", "/fleet/workers", hub.handle_fleet_workers),
+        ]
+        hub.start(spawn=drt.runtime.spawn)
+    mserver = await maybe_start_metrics_server(
+        planner.registry, flags.metrics_port, routes=routes)
+    planner.start(spawn=drt.runtime.spawn)
+    print(f"planner observing {flags.worker_endpoint} "
+          f"every {flags.planner_interval_s:.1f}s"
+          f"{' + fleet hub' if hub else ''}", flush=True)
+    stop_event = _stop_on_signals(asyncio.get_running_loop())
+    try:
+        await stop_event.wait()
+    finally:
+        planner.stop()
+        depth_task.cancel()
+        if hub is not None:
+            await hub.stop()
+        if mserver is not None:
+            await mserver.stop()
+        aggregator.stop()
+        await client.close()
         await drt.close()
 
 
@@ -1500,13 +1767,7 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
             closers[0:0] = [mserver.stop]
         print(f"worker serving {path} (model={name})", flush=True)
 
-    stop_event = asyncio.Event()
-    loop = asyncio.get_running_loop()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        try:
-            loop.add_signal_handler(sig, stop_event.set)
-        except (NotImplementedError, RuntimeError):
-            pass
+    stop_event = _stop_on_signals(asyncio.get_running_loop())
     try:
         await stop_event.wait()
     finally:
@@ -1519,9 +1780,8 @@ async def run_worker(flags, engine_spec: str, path: str) -> None:
 async def amain(argv: List[str]) -> None:
     src, engine_spec, rest = parse_io(argv)
     flags = parse_flags(rest)
-    logging.basicConfig(
-        level=logging.DEBUG if flags.verbose else logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from ..utils.logging import setup_logging
+    setup_logging(logging.DEBUG if flags.verbose else logging.INFO)
     if flags.flight_dir:
         # one env var is the single source of truth for every dump site
         import os
@@ -1554,10 +1814,17 @@ async def amain(argv: List[str]) -> None:
             raise SystemExit(f"in=prefill serves out=torch, not out={engine_spec}")
         await run_prefill(flags)
         return
+    if src == "planner":
+        await run_planner(flags)
+        return
+    if src == "hub":
+        await run_hub(flags)
+        return
     if src not in INPUTS and not src.startswith("batch:"):
         raise SystemExit(
             f"in={src} is not served by the PyTorch port (served: "
-            f"{', '.join(INPUTS)}, batch:<file>)")
+            f"{', '.join(INPUTS)}, planner, prefill, dyn://ns.comp.ep, "
+            f"batch:<file>)")
     engine, mdc = await build_engine(engine_spec, flags)
     if src == "http":
         await run_http(flags, engine, mdc)

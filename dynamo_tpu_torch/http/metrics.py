@@ -50,6 +50,11 @@ class ServiceMetrics:
         pulled fresh at every /metrics render."""
         self.registry.register_callback_gauges(prefix, fn)
 
+    def attach_registry(self, registry: MetricsRegistry) -> None:
+        """Merge another component's registry into this exposition (the
+        in-process engine's, the recovery ladder's, the planner's)."""
+        self.registry.attach(registry)
+
     def inflight_total(self) -> float:
         """Sum of in-flight requests across models (graceful-drain gate)."""
         return sum(self.inflight.values.values())

@@ -23,7 +23,7 @@ from typing import Any, Awaitable, Callable, Dict, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
+_REASONS = {200: "OK", 201: "Created", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 409: "Conflict",
             429: "Too Many Requests", 500: "Internal Server Error",
             501: "Not Implemented", 502: "Bad Gateway",

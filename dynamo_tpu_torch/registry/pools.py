@@ -22,11 +22,11 @@ api-store record a standalone operator reconciles, or a subprocess
 respawn — :class:`KubePoolBackend` / :class:`StorePoolBackend` package
 the replica-patch pair.
 
-The port's copy of ``dynamo_tpu/registry/pools.py``. The CLI wires no
-spawner yet (``--api-store-url`` waits for the deploy slice), so a cold
-pool's requests wait out the deadline for a worker started elsewhere;
-``KubePoolBackend`` / ``StorePoolBackend`` take their reconciler or store
-client from the caller.
+The port's copy of ``dynamo_tpu/registry/pools.py``. The CLI wires
+``StorePoolBackend`` over ``deploy/store_source.ApiStoreClient`` when a
+front has ``--api-store-url`` and ``--planner-deployment``; without them a
+cold pool's requests wait out the deadline for a worker started
+elsewhere.
 """
 
 from __future__ import annotations

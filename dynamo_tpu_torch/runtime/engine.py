@@ -142,7 +142,7 @@ class Context(Generic[T]):
         shared AsyncEngineContext, so they survive ``map`` AND are visible
         to token-level layers (the scheduler) that never see this wrapper;
         the frontend logs/records the per-stage latency breakdown at
-        completion (utils/logging.py stage_summary, telemetry/tracing.py)."""
+        completion (telemetry/tracing.py)."""
         self.context.add_stage(name)
 
     @property

@@ -770,9 +770,8 @@ def main() -> None:
     parser.add_argument("--port", type=int, default=DEFAULT_PORT)
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args()
-    logging.basicConfig(
-        level=logging.DEBUG if args.verbose else logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from ...utils.logging import setup_logging
+    setup_logging(logging.DEBUG if args.verbose else logging.INFO)
     server = DynStoreServer(args.host, args.port)
     try:
         asyncio.run(server.serve_forever())

@@ -54,8 +54,7 @@ def span_breakdown(stages: List[Tuple[str, float]],
     closing mark is what makes "prefill took 41ms" land under
     ``prefill`` rather than under whatever mark happened to precede it.
     The first mark anchors t=0; the tail from the last mark to ``end``
-    (default: now) is reported as ``egress``. The structured twin of
-    ``utils.logging.stage_summary``.
+    (default: now) is reported as ``egress``.
     """
     if not stages:
         return []

@@ -3,7 +3,8 @@
 isolated ``@torch`` child, over a tiny checkpoint against the reference's
 JAX engine; ``in=stdin``; ``llmctl http add|list|remove`` (the same key
 and record as the reference's, read back by the port's front);
-``llmctl deploy`` refused by name; the namespace aggregator
+``llmctl deploy`` against the port's api-store (``--from-artifact``
+refused by name); the namespace aggregator
 (``cli/metrics.py``: the same exposition for the same stats and events);
 ``models/hub.resolve_model_path``; the ``dynamo_transfer_*`` family (the
 reference's names, help text and labels); and the CLI's wiring of an
@@ -58,6 +59,20 @@ def _run(coro, timeout=120):
 
 def _records(text):
     return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+@pytest.fixture(autouse=True)
+def _keep_root_logging():
+    """``cli.run.amain`` installs the process logging config (its root
+    handler and level); a test that calls it in-process gives the worker's
+    root logger back as it found it."""
+    import logging
+
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    yield
+    root.handlers[:] = handlers
+    root.setLevel(level)
 
 
 # ------------------------------------------------------------------ in=batch:
@@ -264,9 +279,15 @@ def test_llmctl_writes_the_reference_record_and_the_front_lists_it(capsys):
 
 
 def test_llmctl_deploy_is_refused_by_name():
-    with pytest.raises(SystemExit, match="deploy") as ei:
-        _run(port_llmctl.amain(["deploy", "list", "--api-store", "http://x:1"]))
-    assert "ApiStoreClient" in str(ei.value)
+    """``llmctl deploy`` is served since the deploy slice; what stays
+    refused by name is ``--from-artifact`` (its spec comes from
+    ``sdk/build.py``, not ported), on create and update alike, before any
+    store is dialled."""
+    for action in ("create", "update"):
+        with pytest.raises(SystemExit, match="deploy --from-artifact") as ei:
+            _run(port_llmctl.amain(["deploy", action, "g", "--from-artifact",
+                                    "g.tgz", "--api-store", "http://x:1"]))
+        assert "sdk/build.py" in str(ei.value)
 
 
 # ------------------------------------------------------------ the aggregator
@@ -412,3 +433,449 @@ async def test_cli_wires_an_isolated_core_as_the_reference_does():
     for attr in ("isolate_engine", "engine_heartbeat_s", "engine_heartbeat_misses",
                  "engine_init_timeout_s"):
         assert getattr(pflags, attr) == getattr(rflags, attr)
+
+
+# ------------------------------------------- the planner and deploy slice
+
+PLANNER_FLAGS = {  # flag → a value (None: a switch), the parsed field
+    "--planner": (None, "planner"),
+    "--planner-interval-s": ("0.5", "planner_interval_s"),
+    "--planner-min-replicas": ("2", "planner_min_replicas"),
+    "--planner-max-replicas": ("3", "planner_max_replicas"),
+    "--planner-cooldown-s": ("1", "planner_cooldown_s"),
+    "--planner-deployment": ("graph", "planner_deployment"),
+    "--api-store-url": ("http://127.0.0.1:8790", "api_store_url"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(PLANNER_FLAGS))
+def test_cli_planner_flags_parse_as_the_reference(flag):
+    """The seven flags the port refused until the planner and deploy slice:
+    each parses to the reference parser's value, given and by default."""
+    value, field = PLANNER_FLAGS[flag]
+    assert flag not in port_run.REFUSED_FLAGS
+    for argv in ([], [flag] if value is None else [flag, value]):
+        got = port_run.parse_flags(argv)
+        want = ref_run.build_parser().parse_args(argv)
+        assert getattr(got, field) == getattr(want, field), (flag, argv)
+    # the policy the flags build: the reference's (down waits 4x up)
+    argv = ["--planner-min-replicas", "2", "--planner-max-replicas", "5",
+            "--planner-cooldown-s", "3"]
+    cfg = port_run._planner_policy(port_run.parse_flags(argv)).config
+    assert (cfg.min_replicas, cfg.max_replicas, cfg.scale_up_cooldown_s,
+            cfg.scale_down_cooldown_s) == (2, 5, 3.0, 12.0)
+
+
+@pytest.mark.parametrize("src,argv", [
+    ("planner", []),
+    ("planner", ["--store-port", "1"]),
+    ("hub", []),
+], ids=["planner_store", "planner_workers", "hub_targets"])
+def test_cli_planner_and_hub_refuse_with_the_reference_words(src, argv):
+    runner = {"planner": "run_planner", "hub": "run_hub"}[src]
+    with pytest.raises(SystemExit) as want:
+        _run(getattr(ref_run, runner)(ref_run.build_parser().parse_args(argv)))
+    with pytest.raises(SystemExit) as got:
+        _run(port_run.amain([f"in={src}", "out=none", *argv]))
+    assert str(got.value) == str(want.value)
+    assert src in port_run.INPUTS or src == "planner"
+
+
+def _spec_file(tmp_path, spec, name="spec.json"):
+    path = tmp_path / name
+    path.write_text(json.dumps(spec))
+    return str(path)
+
+
+def test_llmctl_deploy_round_trip_against_the_port_api_store(tmp_path, capsys):
+    """create, list, get, update, delete through the port's llmctl against
+    the port's api-store, and the reference's llmctl against it too: the
+    same output, line for line."""
+    from dynamo_tpu_torch.deploy.api_store import ApiStoreService, DeploymentStore
+
+    spec = {"modelName": "llama", "services": {
+        "decode": {"role": "decode", "gpus": 1},
+        "planner": {"role": "planner"}}}
+    f1 = _spec_file(tmp_path, spec)
+    f2 = _spec_file(tmp_path, dict(spec, modelName="llama2"), "spec2.json")
+
+    async def session(mod, name):
+        svc = ApiStoreService(DeploymentStore(":memory:"), "127.0.0.1", 0)
+        await svc.start()
+        loop = asyncio.get_running_loop()
+        store = ["--api-store", f"http://127.0.0.1:{svc.port}"]
+        rcs = []
+        try:
+            for argv in (["create", name, "-f", f1], ["list"], ["get", name],
+                         ["update", name, "-f", f2], ["delete", name],
+                         ["get", name], ["list"]):
+                args = mod.build_parser().parse_args(["deploy", *argv, *store])
+                rcs.append(await loop.run_in_executor(None, mod.run_deploy, args))
+        finally:
+            await svc.stop()
+        return rcs
+
+    port_rcs = _run(session(port_llmctl, "graph"))
+    port_out = capsys.readouterr().out
+    ref_rcs = _run(session(ref_llmctl, "graph"))
+    ref_out = capsys.readouterr().out
+
+    def scrub(text):  # the records' timestamps differ between the runs
+        return [line for line in text.splitlines()
+                if '"created"' not in line and '"updated"' not in line]
+
+    assert port_rcs == ref_rcs == [0, 0, 0, 0, 0, 1, 0]
+    assert scrub(port_out) == scrub(ref_out)
+    assert "created deployment graph" in port_out
+    assert "reconciled=-      services=2" in port_out
+    assert "(no deployments)" in port_out
+
+
+def test_llmctl_deploy_yaml_spec_needs_the_package(tmp_path, monkeypatch):
+    path = tmp_path / "spec.yaml"
+    path.write_text("services:\n  decode:\n    role: decode\n    gpus: 1\n")
+    want = {"services": {"decode": {"role": "decode", "gpus": 1}}}
+    assert port_llmctl._load_spec(str(path)) == want
+    assert port_llmctl._load_spec(_spec_file(tmp_path, want)) == want
+    monkeypatch.setitem(sys.modules, "yaml", None)  # as on the card's machine
+    with pytest.raises(SystemExit, match="yaml package is not installed"):
+        port_llmctl._load_spec(str(path))
+    assert port_llmctl._load_spec(_spec_file(tmp_path, want)) == want
+
+
+def test_service_metrics_attach_registry_as_the_reference():
+    from dynamo_tpu.http.metrics import ServiceMetrics as RefMetrics
+    from dynamo_tpu_torch.http.metrics import ServiceMetrics
+
+    out = []
+    for metrics_cls, reg_cls in ((ServiceMetrics, MetricsRegistry),
+                                 (RefMetrics, RefRegistry)):
+        m = metrics_cls()
+        child = reg_cls()
+        child.counter("dynamo_planner_cycles_total", "cycles").inc(3)
+        child.gauge("dynamo_planner_replica_target_replicas", "t").set(2, role="decode")
+        m.attach_registry(child)
+        text = m.render()
+        out.append(sorted(line for line in text.splitlines()
+                          if line.startswith("dynamo_planner_")))
+    assert out[0] == out[1] == [
+        "dynamo_planner_cycles_total 3.0",
+        'dynamo_planner_replica_target_replicas{role="decode"} 2']
+
+
+@pytest.mark.asyncio
+async def test_in_hub_lists_a_static_target_as_the_reference():
+    """``in=hub`` as a user starts it: its /fleet/workers row for a static
+    --hub-target has the reference hub's keys and values for the same
+    target; SIGINT exits 0."""
+    import signal
+
+    from dynamo_tpu.telemetry.hub import FleetHub as RefHub
+    from dynamo_tpu.telemetry.hub import parse_target_flag as ref_target
+    from dynamo_tpu_torch.http.server import HttpError, http_get
+    from dynamo_tpu_torch.telemetry.server import MetricsServer
+
+    reg = MetricsRegistry()
+    reg.gauge("dynamo_kv_block_usage_ratio", "usage").set(0.25)
+    target = await MetricsServer(reg, "127.0.0.1", 0).start()
+    spec = f"decode=http://127.0.0.1:{target.port}"
+    loop = asyncio.get_running_loop()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "in=hub", "out=none",
+         "--hub-target", spec, "--hub-interval-s", "0.2",
+         "--http-host", "127.0.0.1", "--http-port", "0"],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    try:
+        line = await loop.run_in_executor(None, proc.stdout.readline)
+        assert line.startswith("fleet hub on http://127.0.0.1:"), proc.stderr.read()
+        port = int(line.split()[3].rsplit(":", 1)[1])
+        for _ in range(100):
+            rows = json.loads(await http_get(
+                f"http://127.0.0.1:{port}/fleet/workers", 5.0))["workers"]
+            if rows and rows[0]["up"]:
+                break
+            await asyncio.sleep(0.1)
+        with pytest.raises(HttpError) as off:  # no incident dir: the hint
+            await http_get(f"http://127.0.0.1:{port}/debug/incidents", 5.0)
+        text = (await http_get(f"http://127.0.0.1:{port}/metrics", 5.0)).decode()
+        ref_hub = RefHub(targets=[ref_target(spec)], interval_s=0.2)
+        await ref_hub.scrape_once()
+        want = ref_hub.fleet_workers()["workers"]
+        proc.send_signal(signal.SIGINT)
+        rc = await loop.run_in_executor(None, proc.wait, 30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        await target.stop()
+    assert rc == 0
+    assert len(rows) == len(want) == 1 and rows[0]["up"]
+    assert sorted(rows[0]) == sorted(want[0])
+    for key in ("name", "role", "up", "kv_usage_ratio"):
+        assert rows[0][key] == want[0][key], key
+    assert rows[0]["kv_usage_ratio"] == 0.25
+    assert off.value.status == 501 and b"--incident-dir" in off.value.body
+    assert "dynamo_hub_" in text
+
+
+@pytest.mark.asyncio
+async def test_in_planner_patches_the_record_from_the_workers_load():
+    """``in=planner`` over a worker whose stats report 8 waiting requests
+    and a port api-store record: the decode replicas go 1 → 2 (and never
+    past --planner-max-replicas), the prefill queue's depth never reads a
+    fabricated 0, and SIGINT-free cancellation closes the role."""
+    from dynamo_tpu_torch.deploy.api_store import ApiStoreService, DeploymentStore
+    from dynamo_tpu_torch.deploy.store_source import ApiStoreClient
+    from dynamo_tpu_torch.kv_router.publisher import KvMetricsPublisher
+
+    server = DynStoreServer(port=0)
+    await server.start()
+    svc = ApiStoreService(DeploymentStore(":memory:"), "127.0.0.1", 0)
+    await svc.start()
+    loop = asyncio.get_running_loop()
+    url = f"http://127.0.0.1:{svc.port}"
+    client = ApiStoreClient(url)
+    await loop.run_in_executor(None, client.create, "graph", {"services": {
+        "decode": {"role": "decode", "replicas": 1, "gpus": 1}}})
+    drt = await DistributedRuntime.connect(port=server.port)
+    load = {"request_active_slots": 8, "request_total_slots": 8,
+            "num_requests_waiting": 8, "kv_active_blocks": 10,
+            "kv_total_blocks": 100}
+
+    async def no_requests(payload, ctx):
+        raise RuntimeError("stats only")
+        yield
+
+    ep = drt.namespace("graph").component("backend").endpoint("generate")
+    serving = await ep.serve(no_requests,
+                             stats_handler=KvMetricsPublisher(lambda: load).stats_handler)
+    flags = port_run.parse_flags([
+        "--worker-endpoint", "dyn://graph.backend.generate",
+        "--store-port", str(server.port), "--namespace", "graph",
+        "--api-store-url", url, "--planner-deployment", "graph",
+        "--planner-interval-s", "0.1", "--planner-cooldown-s", "0.3",
+        "--planner-max-replicas", "3"])
+    task = asyncio.ensure_future(port_run.run_planner(flags))
+    seen = []
+    try:
+        for _ in range(200):
+            rec = await loop.run_in_executor(None, client.get, "graph")
+            n = rec["spec"]["services"]["decode"]["replicas"]
+            if not seen or seen[-1] != n:
+                seen.append(n)
+            if n == 3:
+                break
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(0.5)  # at the maximum: no further patch
+        rec = await loop.run_in_executor(None, client.get, "graph")
+    finally:
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        await serving.stop()
+        await drt.close()
+        await svc.stop()
+        await server.stop()
+    assert seen[:3] == [1, 2, 3]
+    assert rec["spec"]["services"]["decode"] == {"role": "decode",
+                                                 "replicas": 3, "gpus": 1}
+
+
+def test_front_planner_sheds_low_when_the_slo_misses():
+    """``in=http out=echo_full --planner`` with an SLO every request misses:
+    attainment under its floor raises the shed level through the front's
+    LocalActuator; a low-class request is then shed with 429 and
+    Retry-After while a high one is served, and the planner's instruments
+    are on the front's /metrics (``attach_registry``)."""
+    import http.client
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "in=http",
+         "out=echo_full", "--http-host", "127.0.0.1", "--http-port", "0",
+         "--planner", "--planner-interval-s", "0.1", "--admission-limit", "4",
+         "--slo-ttft-ms", "0.001"],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+    def ask(port, method, path, body=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        out = r.status, r.getheader("Retry-After"), r.read().decode()
+        conn.close()
+        return out
+
+    chat = {"model": "echo", "messages": [{"role": "user", "content": "a b c"}]}
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("listening on"), proc.stderr.read()
+        port = int(line.strip().rsplit(":", 1)[1])
+        for _ in range(3):
+            assert ask(port, "POST", "/v1/chat/completions", chat)[0] == 200
+        import time
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            text = ask(port, "GET", "/metrics")[2]
+            if "dynamo_planner_shed_level_depth 1" in text:
+                break
+            time.sleep(0.05)
+        low = ask(port, "POST", "/v1/chat/completions", chat, {"X-Priority": "low"})
+        high = ask(port, "POST", "/v1/chat/completions", chat, {"X-Priority": "high"})
+        text = ask(port, "GET", "/metrics")[2]
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert "dynamo_planner_shed_level_depth 1" in text
+    assert 'dynamo_planner_actions_total{applied="true",kind="admission"}' in text
+    assert low[0] == 429 and low[1]
+    assert high[0] == 200
+
+
+@pytest.mark.asyncio
+async def test_front_pools_write_a_cold_pool_into_the_record():
+    """--api-store-url with --planner-deployment on a front: the pool
+    manager's spawner writes ``pool-<slug>`` replicas 1 into the record
+    (and its drainer 0), as the reference's front does, and the port's
+    operator renders that pool's Deployment from the record."""
+    from dynamo_tpu.registry.cards import ModelCard as RefCard
+    from dynamo_tpu_torch.deploy.api_store import ApiStoreService, DeploymentStore
+    from dynamo_tpu_torch.deploy.operator import render_manifests
+    from dynamo_tpu_torch.deploy.store_source import ApiStoreClient, record_to_cr
+    from dynamo_tpu_torch.registry.cards import ModelCard
+
+    class Watcher:
+        def pool_size(self, name):
+            return 0
+
+    records = {}
+    for name, mod, card_cls in (("port", port_run, ModelCard),
+                                ("ref", ref_run, RefCard)):
+        svc = ApiStoreService(DeploymentStore(":memory:"), "127.0.0.1", 0)
+        await svc.start()
+        loop = asyncio.get_running_loop()
+        url = f"http://127.0.0.1:{svc.port}"
+        try:
+            client = ApiStoreClient(url)
+            await loop.run_in_executor(None, client.create, "graph",
+                                       {"services": {}})
+            argv = ["--api-store-url", url, "--planner-deployment", "graph"]
+            flags = (port_run.parse_flags(argv) if name == "port"
+                     else ref_run.build_parser().parse_args(argv))
+            manager = (ModelManager() if name == "port"
+                       else __import__("dynamo_tpu.http.service", fromlist=["x"])
+                       .ModelManager())
+            pools = mod._build_pools(flags, manager, Watcher())
+            assert pools is not None and pools.spawner is not None
+            card = card_cls(name="Cold Llama", endpoint="dyn://graph.cold.chat",
+                            model_path="/models/cold")
+            await pools.spawner(card)
+            up = await loop.run_in_executor(None, client.get, "graph")
+            await pools.drainer("Cold Llama")
+            down = await loop.run_in_executor(None, client.get, "graph")
+            records[name] = (up["spec"], down["spec"])
+        finally:
+            await svc.stop()
+    assert records["port"] == records["ref"]
+    up, down = records["port"]
+    (svc_name,) = up["services"]
+    assert svc_name.startswith("pool-") and up["services"][svc_name]["replicas"] == 1
+    assert down["services"][svc_name]["replicas"] == 0
+    names = [m["metadata"]["name"] for m in render_manifests(
+        record_to_cr({"name": "graph", "spec": up}))]
+    assert f"graph-{svc_name}" in names
+
+
+# ------------------------------------------------------------------ logging
+
+
+def _json_log_line(proc, needle, timeout=60):
+    """The first stderr line of ``proc`` that holds ``needle``, parsed as
+    one JSON object (a plain-text line fails the parse)."""
+    import threading
+
+    found = []
+
+    def read():
+        for line in proc.stderr:
+            if needle in line:
+                found.append(line)
+                return
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    reader.join(timeout)
+    assert found, f"no line with {needle!r} on stderr"
+    return json.loads(found[0])
+
+
+@pytest.mark.parametrize("role", ["dynstore", "cli_run"])
+def test_entry_points_log_jsonl_under_the_operator_env(role):
+    """``DYN_LOGGING_JSONL=1`` (the operator writes it into every pod it
+    renders) makes the port's dynstore and ``cli.run`` log one JSON object
+    a line with the reference formatter's keys; the dynstore's line is the
+    reference dynstore's up to the package name and the port, and
+    ``DYN_LOG=warn`` keeps its INFO line out."""
+    import signal
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", DYN_LOGGING_JSONL="1")
+
+    def spawn(module, *argv, env=env):
+        return subprocess.Popen(
+            [sys.executable, "-m", module, *argv], cwd=str(REPO), env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def stop(proc):
+        proc.send_signal(signal.SIGINT)
+        try:
+            return proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    store = spawn("dynamo_tpu_torch.runtime.transports.dynstore",
+                  "--host", "127.0.0.1", "--port", "0")
+    try:
+        line = _json_log_line(store, "dynstore listening on")
+        port = int(line["message"].rsplit(":", 1)[1])
+        if role == "dynstore":
+            ref = spawn("dynamo_tpu.runtime.transports.dynstore",
+                        "--host", "127.0.0.1", "--port", "0",
+                        env=dict(env, JAX_PLATFORMS="cpu"))
+            try:
+                want = _json_log_line(ref, "dynstore listening on")
+            finally:
+                stop(ref)
+            quiet = spawn("dynamo_tpu_torch.runtime.transports.dynstore",
+                          "--host", "127.0.0.1", "--port", "0",
+                          env=dict(env, DYN_LOG="warn"))
+            import time
+            time.sleep(2.0)
+            assert stop(quiet) == 0
+            assert "dynstore listening" not in quiet.stderr.read()
+            assert sorted(line) == sorted(want) == [
+                "level", "message", "target", "time"]
+            assert line["level"] == want["level"] == "INFO"
+            assert line["target"] == want["target"].replace(
+                "dynamo_tpu.", "dynamo_tpu_torch.", 1)
+            assert (line["message"].rsplit(":", 1)[0]
+                    == want["message"].rsplit(":", 1)[0])
+        else:
+            cli = spawn("dynamo_tpu_torch.cli.run", "in=planner", "out=none",
+                        "--store-port", str(port), "--worker-endpoint",
+                        "dyn://logs.backend.generate")
+            try:
+                line = _json_log_line(cli, "in=planner without --api-store-url")
+            finally:
+                assert stop(cli) == 0
+            assert sorted(line) == ["level", "message", "target", "time"]
+            # run as ``-m``, the CLI's own logger is ``__main__``
+            assert (line["level"], line["target"]) == ("WARNING", "__main__")
+    finally:
+        assert stop(store) == 0

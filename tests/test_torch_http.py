@@ -435,7 +435,8 @@ def test_cli_without_device_raises_on_a_machine_without_a_card(tmp_path):
     ("dynamo_tpu_torch.cli.run", ["in=http", "out=jax"], "out=jax"),
     ("dynamo_tpu_torch.cli.run",
      ["in=http", "out=torch", "--kv-transfer", "ici"], "--kv-transfer"),
-    ("dynamo_tpu_torch.cli.llmctl", ["deploy", "list"], "llmctl deploy"),
+    ("dynamo_tpu_torch.cli.llmctl",
+     ["deploy", "create", "g", "--from-artifact", "g.tgz"], "llmctl deploy"),
 ])
 def test_cli_refuses_unported_inputs_outputs_and_flags_by_name(module, args,
                                                                needle):

@@ -129,7 +129,19 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.registry.registry",
             "dynamo_tpu_torch.registry.tenants",
             "dynamo_tpu_torch.registry.policy",
-            "dynamo_tpu_torch.registry.pools"} <= set(mods)
+            "dynamo_tpu_torch.registry.pools",
+            # the closed-loop planner and the deployment plane: urllib,
+            # sqlite3 and the port's own HTTP core, no aiohttp
+            "dynamo_tpu_torch.planner.signals", "dynamo_tpu_torch.planner.policy",
+            "dynamo_tpu_torch.planner.planner",
+            "dynamo_tpu_torch.planner.actuation",
+            "dynamo_tpu_torch.deploy", "dynamo_tpu_torch.deploy.operator",
+            "dynamo_tpu_torch.deploy.store_source",
+            "dynamo_tpu_torch.deploy.api_store",
+            "dynamo_tpu_torch.deploy.kube_api", "dynamo_tpu_torch.deploy.watch",
+            "dynamo_tpu_torch.deploy.leader",
+            "dynamo_tpu_torch.deploy.operator_main",
+            "dynamo_tpu_torch.utils.logging"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -277,6 +289,37 @@ def test_native_planner_and_registry_import_without_jax_or_reference_package():
         reg = ModelRegistry()
         reg.put(card)
         assert reg.resolve("a", "t") == "m" and reg.resolve("a") is None
+    """)
+
+
+def test_planner_and_deploy_import_without_jax_or_reference_package():
+    """The planner and the deployment plane alone: neither jax,
+    ``dynamo_tpu``, aiohttp nor yaml comes with them, and in that
+    interpreter the policy decides, the operator renders a GPU worker and
+    the api-store's sqlite store round-trips a record."""
+    _import_refusing_reference([
+        "dynamo_tpu_torch.planner", "dynamo_tpu_torch.deploy",
+        "dynamo_tpu_torch.deploy.api_store", "dynamo_tpu_torch.deploy.kube_api",
+        "dynamo_tpu_torch.deploy.watch", "dynamo_tpu_torch.deploy.leader",
+        "dynamo_tpu_torch.deploy.operator_main",
+        "dynamo_tpu_torch.deploy.store_source", "dynamo_tpu_torch.utils.logging",
+    ], """
+        from dynamo_tpu_torch.planner import SignalStore, SlaPolicy
+        from dynamo_tpu_torch.deploy import render_manifests
+        from dynamo_tpu_torch.deploy.api_store import DeploymentStore
+        s = SignalStore(clock=lambda: 0.0)
+        s.observe("decode.slot_busy_ratio", 1.0)
+        (a,) = SlaPolicy(clock=lambda: 0.0).decide(s, {"decode": 1})
+        assert (a.role, a.target_replicas) == ("decode", 2)
+        cr = {"metadata": {"name": "g"}, "spec": {"services": {
+            "decode": {"role": "decode", "gpus": 1}}}}
+        (dep,) = [m for m in render_manifests(cr)
+                  if m["metadata"]["name"] == "g-decode"]
+        res = dep["spec"]["template"]["spec"]["containers"][0]["resources"]
+        assert res["limits"] == {"nvidia.com/gpu": "1"}
+        store = DeploymentStore(":memory:")
+        assert store.put("g", {"a": 1})["spec"] == {"a": 1}
+        assert "yaml" not in sys.modules
     """)
 
 
