@@ -448,6 +448,29 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    before its load, kill to ready and to the next first token, the
    heartbeat trip, the edge's TTFT and gaps through the child and the
    largest pong gaps.
+24. ``engine_sdk`` — the graph SDK (``dynamo_tpu_torch/sdk``) over the
+   example graphs (``dynamo_tpu_torch/examples/llm``), a seeded
+   Llama-3.2-1B snapshot (full width and depth, bf16) beside
+   ``engine_http``'s tokenizer, batch 8, 1,024 blocks of 16. (a)
+   ``serve_graph_inprocess`` of the agg_router graph (Frontend →
+   Processor → Router → Worker, ``engine: torch`` on the card): 8 chats,
+   greedy, 32 tokens each, over the Frontend's HTTP, kernels 1-3 counted
+   from 0; every stream has its length and finish reason and equals the
+   same prompts' stream through ``cli/run.py in=http out=torch`` (or parts
+   at a near-tie of the Worker's logits). (b) The agg graph under
+   ``GraphSupervisor``: one ``python -m dynamo_tpu_torch.sdk.worker`` a
+   service over a dynstore, the Worker's ``CUDA_VISIBLE_DEVICES`` from the
+   ``GpuAllocator`` and ``""`` for the others; 4 chats, then the group torn
+   down: no child lives on, the card's free memory is back. (c) ``python
+   -m dynamo_tpu_torch.sdk.build`` of the agg graph, ``--inspect``, ``llmctl
+   deploy create --from-artifact`` into an api-store, the operator against
+   ``_KubeStandIn``: the Worker's Deployment requests ``nvidia.com/gpu: 1``
+   and the record's status carries ``artifactVersion``. (d) Under
+   ``DYN_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT=2`` the CLI's front and the
+   supervised Frontend, each SIGTERMed with a 1,024-token stream in
+   flight, exit 2 s (plus teardown) later with the stream cut. Prints the
+   graph's TTFT (min, median, max) and tokens/s, each spawn's seconds to
+   its first served endpoint and the seconds to exit.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -474,7 +497,8 @@ and the epilogue carry ``launches_engine_spec``, the chained draft
 engine's (verify: with the chained ngram engine's); decode, flash and the
 epilogue carry ``launches_engine_recovery``, the peer's over legs A and B
 (its resumed decode and cold re-prefills), and ``launches_engine_isolated``,
-the supervised child's over ``engine_isolated``'s wave; kernel 6's
+the supervised child's over ``engine_isolated``'s wave, and
+``launches_engine_sdk``, the in-process agg_router graph's Worker's; kernel 6's
 fp8 form has the fp8 SP engine's launches); the line before that the
 card's name and power limit.
 """
@@ -489,6 +513,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -12397,6 +12422,38 @@ async def _isolated_wave(port, reqs, vocab_ids, live=None, on_live=None):
     return out, hook
 
 
+_SNAPSHOTS = {}   # the seeded 1B snapshot: written once a run, then shared
+
+
+def flagship_snapshot(torch, dev):
+    """The seeded Llama-3.2-1B snapshot (full width and depth, bf16, seed
+    SEED + 3) in engine_http's directory layout (config, tokenizer, chat
+    template), written once a run into a directory removed at exit:
+    ``engine_isolated`` and ``engine_sdk`` serve the same one. Returns
+    (directory, bytes written, seconds the write took; 0 once written)."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.models import llama
+
+    if "dir" in _SNAPSHOTS:
+        return _SNAPSHOTS["dir"], _SNAPSHOTS["bytes"], 0.0
+    root = Path(tempfile.mkdtemp(prefix="flagship_snapshot_"))
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    t0 = time.monotonic()
+    mcfg = ModelConfig(**FLAGSHIP)
+    model_dir = Path(write_model_dir(root / "llama-3.2-1b-snapshot"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    params = llama.init_params(mcfg, gen, torch.bfloat16, dev)
+    written = write_safetensors_snapshot(
+        model_dir, _llama_hf_tensors(params, mcfg.num_layers))
+    del params
+    _SNAPSHOTS.update(dir=model_dir, bytes=written)
+    return model_dir, written, time.monotonic() - t0
+
+
 def engine_isolated_phase(torch, dev, smi):
     """The supervised engine child on the card (the module docstring's
     ``engine_isolated``)."""
@@ -12417,21 +12474,12 @@ def _engine_isolated(torch, dev, smi, tmp):
     from dynamo_tpu_torch.engine.config import ModelConfig
     from dynamo_tpu_torch.engine.serving import TorchServingEngine
     from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
-    from dynamo_tpu_torch.models import llama
 
     on_card = torch.device(dev).type == "cuda"
-    small = ModelConfig(**FLAGSHIP)
-    layers = small.num_layers
+    layers = ModelConfig(**FLAGSHIP).num_layers
     # the seeded Llama-3.2-1B snapshot: engine_http's directory (config,
     # tokenizer, chat template) with the weights drawn on the card
-    t0 = time.monotonic()
-    model_dir = Path(write_model_dir(tmp / "llama-3.2-1b-snapshot"))
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    params = llama.init_params(small, gen, torch.bfloat16, dev)
-    snapshot_bytes = write_safetensors_snapshot(
-        model_dir, _llama_hf_tensors(params, layers))
-    del params
-    write_s = time.monotonic() - t0
+    model_dir, snapshot_bytes, write_s = flagship_snapshot(torch, dev)
     vocab_ids = json.loads((model_dir / "tokenizer.json").read_text(
         encoding="utf-8"))["model"]["vocab"]
     extra = tmp / "extra.json"
@@ -12684,11 +12732,430 @@ def _engine_isolated(torch, dev, smi, tmp):
                 sampling_epilogue=launches["epilogue"]
                 - launches.get("epilogue_finish", 0))
 
+# engine_sdk: the graph SDK on the card. Leg (a) serves the agg_router
+# graph in this process; leg (b) the agg graph one process a service;
+# leg (c) builds its artifact and deploys it; leg (d) SIGTERMs a front
+# with a stream in flight under a 2 s drain
+SDK_GRAPH = "dynamo_tpu_torch.examples.llm.graphs.agg_router:Frontend"
+SDK_AGG = "dynamo_tpu_torch.examples.llm.graphs.agg:Frontend"
+SDK_PROMPTS = (400, 100, 730, 250, 960, 60, 1210, 420)  # words of the 8 chats
+SDK_SUPERVISED = 4              # leg (b)'s chats: the first four
+SDK_LONG_TOKENS = 1024          # leg (d)'s stream, far past the drain
+SDK_DRAIN_S = 2.0               # DYN_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT of (d)
+SDK_EXIT_SLACK_S = 3.0          # SIGTERM to exit past the drain: teardown
+SDK_WORKER = {"engine": "torch", "max-model-len": 2048, "num-kv-blocks": 1024,
+              "kv-block-size": 16, "max-batch-size": 8}
+SDK_EXTRA = dict(max_prefill_tokens_per_step=ENGINE["max_prefill_tokens_per_step"])
+SDK_DEVICE = "cuda"             # a CPU rehearsal sets "cpu"
+SDK_DEPLOYMENT = "sdk-agg"
+SDK_START_TIMEOUT_S = 300
+SDK_TIMEOUT_S = 300
+SDK_MEM_SLACK = 256 << 20       # free card memory a torn-down group may keep
+SDK_SEED = 2626
+
+
+def engine_sdk_phase(torch, dev, smi):
+    """The graph SDK on the card (the module docstring's ``engine_sdk``)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="engine_sdk_"))
+    try:
+        return _engine_sdk(torch, dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _sdk_config(model_dir, extra, http_port, router_mode):
+    """The graph's service config (``dynamo_tpu_torch/examples/llm/
+    configs/agg_router.json``'s shape) over the snapshot."""
+    return {
+        "Common": {"model-path": str(model_dir), "model-name": "llama"},
+        "Frontend": {"http-host": "127.0.0.1", "http-port": http_port},
+        "Processor": {"router-mode": router_mode,
+                      "common-configs": ["model-path", "model-name"]},
+        "Router": {"block-size": SDK_WORKER["kv-block-size"]},
+        "Worker": dict(SDK_WORKER, **{
+            "extra-engine-args": str(extra), "device": SDK_DEVICE,
+            "common-configs": ["model-path", "model-name"]}),
+    }
+
+
+async def _sdk_model_listed(port, deadline):
+    """Poll a front's /v1/models until the watcher lists "llama"."""
+    while True:
+        try:
+            _, _, raw, _ = await http_request(port, "GET", "/v1/models")
+            if "llama" in [m["id"] for m in json.loads(raw)["data"]]:
+                return
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"sdk: the front on {port} never listed the model")
+        await asyncio.sleep(0.05)
+
+
+async def _sdk_drain(port, body, pid, is_gone):
+    """Open ``body``'s stream on the front at ``port``, SIGTERM ``pid`` at
+    its first chunk, and time the front's exit: (seconds, tokens the
+    stream got, whether it ended with [DONE])."""
+    import signal
+
+    first, events = asyncio.Event(), []
+
+    def seen(t, c):
+        events.append((t, c))
+        first.set()
+
+    stream = asyncio.ensure_future(http_request(
+        port, "POST", "/v1/chat/completions", body, on_event=seen))
+    await asyncio.wait_for(first.wait(), SDK_TIMEOUT_S)
+    t0 = time.monotonic()
+    os.kill(pid, signal.SIGTERM)
+    while not is_gone():
+        if time.monotonic() - t0 > SDK_TIMEOUT_S:
+            raise AssertionError("sdk: a SIGTERMed front never exited")
+        await asyncio.sleep(0.01)
+    exit_s = time.monotonic() - t0
+    try:
+        await asyncio.wait_for(stream, 30)
+    except (OSError, ValueError, asyncio.IncompleteReadError):
+        pass  # the front went away mid-stream: a cut chunked body
+    rec = _stream_record(events, True)
+    return exit_s, len(rec["tokens"]), any(c is None for _, c in events)
+
+
+def _engine_sdk(torch, dev, smi, tmp):
+    import socket
+
+    from dynamo_tpu_torch.deploy.store_source import ApiStoreClient
+    from dynamo_tpu_torch.llm.tokenizer import HFTokenizer
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.transports.memory import MemoryHub
+    from dynamo_tpu_torch.sdk import (
+        GpuAllocator,
+        GraphSupervisor,
+        ServiceConfig,
+        graph_services,
+    )
+    from dynamo_tpu_torch.sdk.serving import serve_graph_inprocess, stop_graph
+    from dynamo_tpu_torch.sdk.worker import load_graph_root
+
+    on_card = torch.device(dev).type == "cuda"
+    model_dir, snapshot_bytes, write_s = flagship_snapshot(torch, dev)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    # the card's free memory before any leg: every process of the phase
+    # gives its share back by the end
+    free_before = torch.cuda.mem_get_info()[0] if on_card else 0
+    extra = tmp / "extra.json"
+    extra.write_text(json.dumps(SDK_EXTRA))
+    tok = HFTokenizer.from_pretrained_dir(str(model_dir))
+    words = _word_ids(tok)
+    rng = np.random.default_rng(SDK_SEED)
+
+    def words_text(n):
+        return tok.decode([words[int(i)] for i in rng.integers(0, len(words), n)])
+
+    bodies = [_graph_chat("llama", words_text(n)) for n in SDK_PROMPTS]
+    long_body = dict(_graph_chat("llama", words_text(40)),
+                     max_tokens=SDK_LONG_TOKENS)
+    drain_env = {"DYN_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT": str(SDK_DRAIN_S)}
+    out = dict(snapshot_bytes=snapshot_bytes, snapshot_write_s=write_s)
+    store_port, http_port, api_port = _free_port(), _free_port(), _free_port()
+    cfg_file = tmp / "agg.json"
+    cfg_file.write_text(json.dumps(_sdk_config(model_dir, extra, http_port,
+                                               "round_robin")))
+    deadline = time.monotonic() + SDK_START_TIMEOUT_S
+    roles, sup, log = {}, None, None
+    served, watching = {}, threading.Event()  # service → monotonic serve time
+    standin = _KubeStandIn()
+    url = f"http://127.0.0.1:{api_port}"
+    try:
+        # what runs beside leg a: the same engine behind the CLI's front
+        # (under leg d's drain), the supervised graph's broker, and leg c's
+        # api-store and operator (their starts overlap leg a's)
+        roles["cli"] = _spawn_role(
+            ["dynamo_tpu_torch.cli.run", "in=http", "out=torch", "--model-path",
+             str(model_dir), "--model-name", "llama", "--extra-engine-args",
+             str(extra), "--device", SDK_DEVICE, "--http-host", "127.0.0.1",
+             "--http-port", "0", *[a for k, v in SDK_WORKER.items()
+                                   if k != "engine"
+                                   for a in (f"--{k}", str(v))]],
+            "cli_front", tmp, env=drain_env)
+        roles["dynstore"] = _spawn_role(
+            ["dynamo_tpu_torch.runtime.transports.dynstore", "--host",
+             "127.0.0.1", "--port", str(store_port)], "sdk_dynstore", tmp)
+        roles["api_store"] = _spawn_role(
+            ["dynamo_tpu_torch.deploy.api_store", "--host", "127.0.0.1",
+             "--port", str(api_port), "--db", str(tmp / "api_store.sqlite")],
+            "sdk_api_store", tmp)
+        roles["operator"] = _spawn_role(
+            ["dynamo_tpu_torch.deploy.operator_main", "--api-store-url", url,
+             "--kube-client", "api", "--kube-api-url",
+             f"http://127.0.0.1:{standin.port}",
+             "--interval", str(GRAPH_OPERATOR_INTERVAL_S)], "sdk_operator", tmp)
+        cli = roles["cli"]
+
+        def start_supervised():
+            """(b) the agg graph, one process a service, started once leg
+            a's wave is measured (its Worker's load overlaps the rest of
+            leg a)."""
+            nonlocal sup, log
+            while True:  # the broker listens before any service dials it
+                try:
+                    socket.create_connection(("127.0.0.1", store_port), 1).close()
+                    break
+                except OSError:
+                    if (roles["dynstore"].poll() is not None
+                            or time.monotonic() > deadline):
+                        raise AssertionError(f"sdk: dynstore did not start: "
+                                             f"{_role_tail(roles['dynstore'])}")
+                    time.sleep(0.05)
+            agg_root = load_graph_root(SDK_AGG)
+            log = open(tmp / "supervised.log", "w")
+            env_before = {k: os.environ.get(k) for k in (*drain_env, "PYTHONPATH")}
+            os.environ.update(drain_env, PYTHONPATH=os.pathsep.join(
+                p for p in (str(ROOT), env_before["PYTHONPATH"]) if p))
+            sup = GraphSupervisor(
+                SDK_AGG, agg_root, store_port=store_port,
+                config_file=str(cfg_file), stdout=log,
+                allocator=GpuAllocator() if on_card else GpuAllocator(total_gpus=1))
+            try:
+                sup.start()
+            finally:
+                for k, v in env_before.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+
+            def watch():
+                # each service prints its line once it serves: stamp it
+                watching.set()
+                while watching.is_set() and len(served) < len(sup.started):
+                    for line in (tmp / "supervised.log").read_text().splitlines():
+                        if line.startswith("serving "):
+                            served.setdefault(line.split()[1], time.monotonic())
+                    time.sleep(0.02)
+
+            threading.Thread(target=watch, daemon=True).start()
+
+        # ---- (a) agg_router in this process, then the CLI on the same prompts
+        async def leg_a():
+            root = load_graph_root(SDK_GRAPH)
+            drt = DistributedRuntime.in_process(MemoryHub())
+            cfg = ServiceConfig(_sdk_config(model_dir, extra, 0, "kv"))
+            t = time.monotonic()
+            drt2, handles, objs = await serve_graph_inprocess(root, drt, config=cfg)
+            res = dict(graph_up_s=time.monotonic() - t)
+            try:
+                port = objs["Frontend"].http.port
+                await _sdk_model_listed(port, deadline)
+                _reset_launches()
+                t = time.monotonic()
+                res["graph"] = await asyncio.wait_for(asyncio.gather(
+                    *(_graph_ask(port, b, tok) for b in bodies)), SDK_TIMEOUT_S)
+                res["graph_wall_s"] = time.monotonic() - t
+                res["launches"] = _read_launches()
+                res["router_decisions"] = objs["Router"].router.stats()
+                # the one-graph-a-process rule: agg links its own chain
+                for svc in graph_services(root):
+                    svc.unlink_all()
+                start_supervised()
+                line = await asyncio.get_running_loop().run_in_executor(
+                    None, _await_line, cli, "listening on", deadline)
+                cli_port = int(line.strip().rsplit(":", 1)[1])
+                res["cli"] = await asyncio.wait_for(asyncio.gather(
+                    *(_graph_ask(cli_port, b, tok) for b in bodies)), SDK_TIMEOUT_S)
+                # the graph's Worker is idle: its cache is the near-ties'
+                # scratch
+                res["parted"] = _spec_agreement(
+                    torch, objs["Worker"].engine.runner,
+                    [(r["prompt_ids"], None) for r in res["graph"]],
+                    [dict(tokens=r["ids"]) for r in res["cli"]],
+                    [dict(tokens=r["ids"]) for r in res["graph"]])
+                # ---- (d) the CLI's front, SIGTERMed with a long stream in
+                # flight
+                res["cli_drain"] = await _sdk_drain(
+                    cli_port, long_body, cli.pid, lambda: cli.poll() is not None)
+                res["cli_rc"] = cli.returncode
+            finally:
+                await stop_graph(drt2, handles, objs)
+            return res
+
+        a = asyncio.run(asyncio.wait_for(leg_a(), SDK_TIMEOUT_S + SDK_START_TIMEOUT_S))
+        if on_card:
+            torch.cuda.synchronize()
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # ---- (b) the supervised agg graph: each service's first served
+        # endpoint, 4 chats, then (d) its Frontend SIGTERMed mid-stream
+        started = {name: (gpus, t) for name, gpus, t in sup.started.values()}
+        pids = {sup.started[pid][0]: pid for pid in sup.started}
+        while len(served) < len(started):
+            dead = {p: rc for p, rc in sup.poll().items() if rc is not None}
+            if dead or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"sdk: supervised services {sorted(started)} served "
+                    f"{sorted(served)}; exited {dead}: "
+                    f"{(tmp / 'supervised.log').read_text()[-3000:]}")
+            time.sleep(0.05)
+        spawn_s = {name: served[name] - started[name][1] for name in started}
+
+        async def leg_b():
+            await _sdk_model_listed(http_port, deadline)
+            recs = await asyncio.wait_for(asyncio.gather(
+                *(_graph_ask(http_port, body, tok)
+                  for body in bodies[:SDK_SUPERVISED])), SDK_TIMEOUT_S)
+            drain = await _sdk_drain(http_port, long_body, pids["Frontend"],
+                                     lambda: _reaped(sup, pids["Frontend"]))
+            return recs, drain
+
+        b_recs, b_drain = asyncio.run(leg_b())
+        frontend_rc = sup.poll()[pids["Frontend"]]
+        sup.stop()
+
+        # ---- (c) build the artifact, deploy it through the api-store and
+        # the operator against the stand-in API server
+        def module(*argv):
+            res = subprocess.run([sys.executable, "-m", *argv], cwd=str(ROOT),
+                                 capture_output=True, text=True, timeout=120)
+            if res.returncode != 0:
+                raise AssertionError(f"sdk: {argv[:2]}: rc {res.returncode}: "
+                                     f"{res.stderr[-2000:]}")
+            return res.stdout
+
+        t = time.monotonic()
+        built = module("dynamo_tpu_torch.sdk.build", SDK_AGG, "-f",
+                       str(cfg_file), "-o", str(tmp / "artifacts")).strip()
+        build_s = time.monotonic() - t
+        tarball = built.rsplit(" -> ", 1)[1]
+        manifest = json.loads(module("dynamo_tpu_torch.sdk.build", "--inspect",
+                                     tarball))
+        _await_line(roles["api_store"], "api-store listening", deadline)
+        created = module("dynamo_tpu_torch.cli.llmctl", "deploy", "create",
+                         SDK_DEPLOYMENT, "--from-artifact", tarball,
+                         "--api-store", url).strip()
+        client = ApiStoreClient(url)
+        t = time.monotonic()
+        worker_name = f"{SDK_DEPLOYMENT}-worker"
+        while True:
+            rec = client.get(SDK_DEPLOYMENT)
+            status = (rec or {}).get("status") or {}
+            conds = status.get("conditions") or [{}]
+            with standin.lock:
+                worker = next((o for (pl, _, n), o in standin.objects.items()
+                               if pl == "deployments" and n == worker_name), None)
+            if worker and conds[0].get("status") == "True" \
+                    and status.get("artifactVersion"):
+                break
+            if time.monotonic() - t > GRAPH_DEPLOY_TIMEOUT_S:
+                raise AssertionError(
+                    f"sdk: the operator did not reconcile the artifact's "
+                    f"record: {standin.names()}, status {status}: "
+                    f"{_role_tail(roles['operator'])}")
+            time.sleep(0.1)
+        deployed_s = time.monotonic() - t
+        children = standin.names()
+    finally:
+        watching.clear()
+        if sup is not None:
+            sup.stop()
+        if log is not None:
+            log.close()
+        for p in roles.values():
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        standin.stop()
+    left = [name for name, pid in pids.items() if not _gone(pid)]
+    free_after = torch.cuda.mem_get_info()[0] if on_card else 0
+
+    # ---- the checks
+    for label, recs in (("graph", a["graph"]), ("cli", a["cli"]),
+                        ("supervised", b_recs)):
+        _check_streams([dict(tokens=r["ids"], finish=r["finish"])
+                        for r in recs], NEW_TOKENS)
+    if [r["prompt_ids"] for r in a["graph"]] != [r["prompt_ids"] for r in a["cli"]]:
+        raise AssertionError("sdk: the graph and the CLI tokenised a prompt "
+                             "differently")
+    launches = a["launches"]
+    _check_launches("sdk", launches, ("paged_decode", "paged_flash", "epilogue"))
+    for label, (exit_s, got, finished), rc in (
+            ("the CLI front", a["cli_drain"], a["cli_rc"]),
+            ("the supervised Frontend", b_drain, frontend_rc)):
+        if (finished or got >= SDK_LONG_TOKENS or rc != 0
+                or not SDK_DRAIN_S <= exit_s < SDK_DRAIN_S + SDK_EXIT_SLACK_S):
+            raise AssertionError(
+                f"sdk: {label} exited {exit_s:.3f} s after SIGTERM (rc {rc}) "
+                f"with its stream at {got} tokens, finished {finished}; the "
+                f"drain is {SDK_DRAIN_S} s")
+    if started["Worker"][0] in ("", None) or any(
+            gpus != "" for name, (gpus, _) in started.items() if name != "Worker"):
+        raise AssertionError(f"sdk: CUDA_VISIBLE_DEVICES by service "
+                             f"{ {n: g for n, (g, _) in started.items()} }")
+    if left or free_after < free_before - SDK_MEM_SLACK:
+        raise AssertionError(f"sdk: after the teardown {left} live on; free "
+                             f"card memory {free_after} of {free_before} before")
+    container = worker["spec"]["template"]["spec"]["containers"][0]
+    limits = (container.get("resources") or {}).get("limits")
+    if (limits != {"nvidia.com/gpu": "1"}
+            or status["artifactVersion"] != manifest["version"]
+            or status.get("artifactName") != manifest["name"]
+            or "dynamo_tpu_torch.cli.run" not in container["command"]
+            or manifest["services"]["Worker"]["resources"] != {"gpu": 1}):
+        raise AssertionError(f"sdk: the artifact's Worker rendered {container}; "
+                             f"status {status}; manifest {manifest['services']}")
+
+    ttft = sorted(r["ttft_s"] for r in a["graph"])
+    fields = dict(
+        out, graph_up_s=a["graph_up_s"], launches=launches,
+        graph_ttft_s=dict(min=ttft[0], median=float(np.median(ttft)),
+                          max=ttft[-1]),
+        graph_tokens_per_s=sum(len(r["ids"]) for r in a["graph"])
+        / a["graph_wall_s"], graph_wall_s=a["graph_wall_s"],
+        equal_to_cli=sum(g["ids"] == c["ids"] for g, c in zip(a["graph"], a["cli"])),
+        parted=a["parted"], router=a["router_decisions"],
+        cli_drain_exit_s=a["cli_drain"][0],
+        cli_drain_stream_tokens=a["cli_drain"][1],
+        supervised_spawn_s=spawn_s,
+        supervised_cuda_visible={n: g for n, (g, _) in started.items()},
+        supervised_ttft_s=[r["ttft_s"] for r in b_recs],
+        supervised_equal_to_cli=sum(
+            r["ids"] == c["ids"] for r, c in zip(b_recs, a["cli"])),
+        supervised_drain_exit_s=b_drain[0],
+        supervised_drain_stream_tokens=b_drain[1],
+        card_free_before=free_before, card_free_after=free_after,
+        artifact=f"{manifest['name']}:{manifest['version']}", build_s=build_s,
+        llmctl=created, deployed_s=deployed_s, children=children,
+        worker_limits=limits, nvidia_smi=smi)
+    emit("engine_sdk", **fields)
+    return dict(paged_decode=launches["paged_decode"],
+                paged_flash=launches["paged_flash"],
+                sampling_epilogue=launches["epilogue"]
+                - launches.get("epilogue_finish", 0))
+
+
+def _reaped(sup, pid):
+    """Whether the supervised child ``pid`` has exited (its Popen reaped)."""
+    proc = next(p for p in sup.procs if p.pid == pid)
+    return proc.poll() is not None
+
+
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
           "engine_mixtral_int8", "engine_sp", "engine_http", "engine_guided",
           "engine_graph", "engine_disagg", "engine_kv_tiers", "engine_load",
-          "engine_spec", "engine_recovery", "engine_phi3", "engine_isolated")
+          "engine_spec", "engine_recovery", "engine_phi3", "engine_isolated",
+          "engine_sdk")
 
 
 def main(argv=None) -> int:
@@ -12851,6 +13318,16 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    sdk_launches = {}
+    if "engine_sdk" in phases:
+        # the graph SDK: the in-process agg_router graph's Worker counts
+        t0 = time.monotonic()
+        sdk_launches = engine_sdk_phase(torch, dev, smi)
+        phase_s["engine_sdk"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
     kernels = [dict(entry, launches=launches.get(key),
                     **({"launches_engine_http": http_launches[key]}
                        if key in http_launches else {}),
@@ -12867,7 +13344,9 @@ def main(argv=None) -> int:
                     **({"launches_engine_recovery": recovery_launches[key]}
                        if key in recovery_launches else {}),
                     **({"launches_engine_isolated": isolated_launches[key]}
-                       if key in isolated_launches else {}))
+                       if key in isolated_launches else {}),
+                    **({"launches_engine_sdk": sdk_launches[key]}
+                       if key in sdk_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     # a form no cell serves (``path`` says so) has no count: null

@@ -15,9 +15,12 @@ create|update|get|list|delete`` manage the api-store's deployment records
     python3 -m dynamo_tpu_torch.cli.llmctl deploy create graph -f graph.json --api-store http://127.0.0.1:8790
     python3 -m dynamo_tpu_torch.cli.llmctl deploy list --api-store http://127.0.0.1:8790
 
+    python3 -m dynamo_tpu_torch.cli.llmctl deploy create graph --from-artifact agg-ab12cd34ef56.dyn.tar.gz --api-store http://127.0.0.1:8790
+
 A spec file is JSON (YAML too where the ``yaml`` package is installed).
-``--from-artifact`` is refused by name: it renders the spec from a graph
-artifact, which needs ``sdk/build.py``, not ported yet.
+``--from-artifact`` renders the spec from a graph artifact
+(``sdk/build.py``: ``deployment_spec(inspect_artifact(tarball))``); ``-f``
+alone gives the spec, or with it overlays fields on the rendered one.
 """
 
 from __future__ import annotations
@@ -43,12 +46,6 @@ KINDS = {
     "completion-models": "completions",
     "models": "both",
 }
-
-FROM_ARTIFACT_REFUSED = (
-    "llmctl deploy --from-artifact is not served by the PyTorch port: it "
-    "renders the spec from a graph artifact (sdk/build.py), which is not "
-    "ported yet; give the spec with -f")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="llmctl")
@@ -81,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="JSON (or YAML) deployment spec — the CR spec: "
                          "{services: {...}, modelName: ...}")
     dc.add_argument("--from-artifact", metavar="TARBALL",
-                    help="refused: " + FROM_ARTIFACT_REFUSED)
+                    help="render the spec from a built graph artifact "
+                         "(python -m dynamo_tpu_torch.sdk.build); -f then "
+                         "overlays fields on it")
     du = dsub.add_parser("update", parents=[store_opt])
     du.add_argument("name")
     du.add_argument("-f", "--file")
@@ -114,14 +113,36 @@ def run_deploy(args) -> int:
     """The deploy-plane commands (synchronous; no distributed runtime)."""
     from ..deploy.store_source import ApiStoreClient
 
-    if getattr(args, "from_artifact", None):
-        raise SystemExit(FROM_ARTIFACT_REFUSED)
     client = ApiStoreClient(args.api_store)
 
     def _resolve_spec() -> dict:
-        if not args.file:
+        """--from-artifact renders the spec from the manifest; -f (alone or
+        on top) gives or overlays the spec's fields."""
+        artifact = getattr(args, "from_artifact", None)
+        if not artifact and not args.file:
             raise SystemExit("one of -f/--file or --from-artifact is required")
-        return _load_spec(args.file)
+        spec: dict = {}
+        if artifact:
+            import tarfile
+
+            from ..sdk.allocator import AllocationError
+            from ..sdk.build import deployment_spec, inspect_artifact
+
+            try:
+                spec = deployment_spec(inspect_artifact(artifact))
+            except (OSError, ValueError, tarfile.TarError,
+                    AllocationError) as e:
+                # an unreadable artifact, or one that asks for a tpu
+                raise SystemExit(
+                    f"llmctl deploy --from-artifact {artifact}: {e}") from None
+        if args.file:
+            overlay = _load_spec(args.file)
+            services = {**spec.get("services", {}),
+                        **overlay.get("services", {})}
+            spec = {**spec, **overlay}
+            if services:
+                spec["services"] = services
+        return spec
 
     if args.action == "create":
         spec = _resolve_spec()

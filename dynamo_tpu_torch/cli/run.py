@@ -170,7 +170,6 @@ INPUTS = ("http", "text", "stdin", "hub")
 ENGINES = ("torch", "echo_core", "echo_full", "none", "processor")
 PY_ENGINES = ("pystr:", "pytok:")
 ROUTER_MODES = ("round_robin", "random", "kv")
-GRACEFUL_SHUTDOWN_S = 30.0
 
 # the reference's flags this CLI does not take (each raises by name):
 # multi-device, the ici transfer plane and the jax profiler server are not
@@ -873,7 +872,8 @@ async def advertise_sidecar(drt, flags, mserver, role: str,
 
 async def run_http(flags, engine, mdc) -> None:
     """Serve until SIGINT / SIGTERM: the first drains in-flight requests
-    (up to ``GRACEFUL_SHUTDOWN_S``), a second exits at once."""
+    (up to ``RuntimeSettings.graceful_shutdown_timeout``, 30 s unless the
+    runtime settings say otherwise), a second exits at once."""
     from ..http.service import HttpService, ModelManager, ModelWatcher
 
     manager = ModelManager()
@@ -968,6 +968,12 @@ async def run_http(flags, engine, mdc) -> None:
         hub.start()
     await service.start()
     print(f"listening on http://{flags.http_host}:{service.port}", flush=True)
+    # SIGTERM drains in-flight requests for up to the runtime settings'
+    # grace period (DYN_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT, DYN_RUNTIME_*,
+    # DYN_CONFIG_PATH and /opt/dynamo/*/runtime.toml, as the reference)
+    from ..utils.config import RuntimeSettings
+
+    settings = RuntimeSettings.from_settings()
     stop_event = asyncio.Event()
     force_event = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -986,7 +992,7 @@ async def run_http(flags, engine, mdc) -> None:
     try:
         await stop_event.wait()
         await service.stop_accepting()
-        deadline = loop.time() + GRACEFUL_SHUTDOWN_S
+        deadline = loop.time() + settings.graceful_shutdown_timeout
         while (service.metrics.inflight_total() > 0
                and loop.time() < deadline and not force_event.is_set()):
             await asyncio.sleep(0.1)

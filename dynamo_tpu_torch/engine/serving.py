@@ -514,8 +514,11 @@ class TorchServingEngine(AsyncEngine):
                 self._json_grammars.pop(evictable.pop(0), None)
             self._json_grammars[key] = grammar  # resolve future → value
         else:
-            self._json_grammars.pop(key)
-            self._json_grammars[key] = grammar  # LRU touch
+            # LRU touch; another spec's build may have evicted the key while
+            # this follower awaited its leader's (the reference's
+            # ``pop(key)`` raises KeyError there)
+            self._json_grammars.pop(key, None)
+            self._json_grammars[key] = grammar
         return JsonConstraint(grammar)
 
     @property

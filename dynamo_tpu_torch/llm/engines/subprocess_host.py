@@ -365,7 +365,11 @@ class SubprocessEngine(AsyncEngine):
                         "heartbeats", kind="heartbeat")
                     return
         except (ConnectionResetError, BrokenPipeError, OSError):
-            await self._on_child_down("engine process disconnected")
+            # during close() the child closes its socket as it exits: a
+            # ping that meets it is no death to kill the child for (it may
+            # still be closing its engine)
+            if not self._closed:
+                await self._on_child_down("engine process disconnected")
 
     async def _on_child_down(self, reason: str,
                              kind: str = "disconnect") -> None:

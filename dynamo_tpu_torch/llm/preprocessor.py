@@ -24,7 +24,6 @@ from typing import Any, AsyncIterator, List, Optional, Union
 
 import jinja2
 
-from ..engine.guided import compile_schema
 from ..protocols.annotated import (
     ANNOTATION_FORMATTED_PROMPT,
     ANNOTATION_TOKEN_IDS,
@@ -260,6 +259,10 @@ class OpenAIPreprocessor(Operator):
                 spec = {"type": "json_schema", "schema": gj}
         if spec is None:
             return None
+        # the schema compiler lives beside the engine (torch): imported
+        # here, so a processor or a front imports no torch
+        from ..engine.guided import compile_schema
+
         try:
             if spec["type"] == "json_schema":
                 compile_schema(spec["schema"])

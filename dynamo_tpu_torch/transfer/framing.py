@@ -19,24 +19,21 @@ from __future__ import annotations
 import asyncio
 import socket
 import struct
-from typing import Optional, Sequence, Tuple
-
-import torch
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 
 from ..runtime.wire import packb, unpackb
+
+if TYPE_CHECKING:
+    import torch
 
 MAX_HEADER = 1 << 20
 # what one event-loop turn may move on a bulk connection (widen_stream)
 WIDE_IO_BYTES = 16 << 20
 
-# the dtypes a KV cache holds, by the name the header carries
-DTYPES = {
-    "float32": torch.float32,
-    "bfloat16": torch.bfloat16,
-    "float16": torch.float16,
-    "float8_e4m3fn": torch.float8_e4m3fn,
-    "uint8": torch.uint8,
-}
+# the dtypes a KV cache holds, by the name the header carries (torch's
+# own names; torch is imported where a tensor is packed or viewed, so a
+# front that only follows streams never imports it)
+DTYPES = ("float32", "bfloat16", "float16", "float8_e4m3fn", "uint8")
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -50,11 +47,12 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a wire name; an unknown name raises by name."""
-    try:
-        return DTYPES[name]
-    except KeyError:
+    import torch
+
+    if name not in DTYPES:
         raise ValueError(f"unknown block dtype {name!r} on the wire "
-                         f"(served: {', '.join(DTYPES)})") from None
+                         f"(served: {', '.join(DTYPES)})")
+    return getattr(torch, name)
 
 
 async def read_exact(reader: asyncio.StreamReader, n: int) -> bytes:
@@ -106,6 +104,8 @@ async def read_header(reader: asyncio.StreamReader,
 
 
 def _raw(t: torch.Tensor) -> bytes:
+    import torch
+
     return t.contiguous().view(-1).view(torch.uint8).numpy().tobytes()
 
 
@@ -119,6 +119,8 @@ def encode_blocks(k: torch.Tensor, v: torch.Tensor
 
 
 def _view(raw: bytes, shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+    import torch
+
     # a bytearray is writable: torch.frombuffer wants a writable buffer
     flat = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
     return flat.view(dtype).reshape(tuple(shape))

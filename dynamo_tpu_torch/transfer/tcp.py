@@ -8,11 +8,12 @@ executor; headers alone ride the loop.
 from __future__ import annotations
 
 import asyncio
-from typing import Optional, Tuple
-
-import torch
+from typing import TYPE_CHECKING, Optional, Tuple
 
 from .framing import decode_blocks, encode_blocks, pack_frame, read_exact
+
+if TYPE_CHECKING:
+    import torch
 
 
 class TcpBackend:

@@ -3,8 +3,8 @@
 isolated ``@torch`` child, over a tiny checkpoint against the reference's
 JAX engine; ``in=stdin``; ``llmctl http add|list|remove`` (the same key
 and record as the reference's, read back by the port's front);
-``llmctl deploy`` against the port's api-store (``--from-artifact``
-refused by name); the namespace aggregator
+``llmctl deploy`` against the port's api-store (an artifact that asks
+for ``tpu`` refused by name); the namespace aggregator
 (``cli/metrics.py``: the same exposition for the same stats and events);
 ``models/hub.resolve_model_path``; the ``dynamo_transfer_*`` family (the
 reference's names, help text and labels); and the CLI's wiring of an
@@ -278,16 +278,32 @@ def test_llmctl_writes_the_reference_record_and_the_front_lists_it(capsys):
     assert "dyn://ns1.backend.generate" in out.split("added")[1]
 
 
-def test_llmctl_deploy_is_refused_by_name():
-    """``llmctl deploy`` is served since the deploy slice; what stays
-    refused by name is ``--from-artifact`` (its spec comes from
-    ``sdk/build.py``, not ported), on create and update alike, before any
-    store is dialled."""
+def test_llmctl_deploy_is_refused_by_name(tmp_path):
+    """``llmctl deploy --from-artifact`` is served since the SDK slice; what
+    stays refused by name is an artifact whose manifest asks for ``tpu``
+    (the reference's resource; the port serves NVIDIA cards), on create and
+    update alike, before any store is dialled."""
+    import tarfile
+
+    from dynamo_tpu_torch.sdk.build import SCHEMA
+
+    manifest = {"schema": SCHEMA, "name": "g", "version": "0" * 12,
+                "graph_target": "graphs:Frontend", "config": {},
+                "services": {"Worker": {
+                    "class": "Worker", "role": "worker", "namespace": "public",
+                    "workers": 1, "resources": {"tpu": 1}, "endpoints": [],
+                    "links": []}}}
+    data = json.dumps(manifest).encode()
+    tgz = tmp_path / "g.dyn.tar.gz"
+    with tarfile.open(tgz, "w:gz") as tar:
+        info = tarfile.TarInfo("manifest.json")
+        info.size = len(data)
+        tar.addfile(info, io.BytesIO(data))
     for action in ("create", "update"):
         with pytest.raises(SystemExit, match="deploy --from-artifact") as ei:
             _run(port_llmctl.amain(["deploy", action, "g", "--from-artifact",
-                                    "g.tgz", "--api-store", "http://x:1"]))
-        assert "sdk/build.py" in str(ei.value)
+                                    str(tgz), "--api-store", "http://x:1"]))
+        assert "'tpu'" in str(ei.value) and "'gpu'" in str(ei.value)
 
 
 # ------------------------------------------------------------ the aggregator

@@ -886,3 +886,88 @@ async def _serve_one(engine, r):
         toks.extend(out["token_ids"])
         finish = out.get("finish_reason") or finish
     return toks, finish
+
+
+class _HeldExecutor:
+    """A default executor whose jobs run only when the test says so, in the
+    order it says, on the loop's thread: the grammar builds of
+    ``_json_constraint`` then complete in a fixed order."""
+
+    def __new__(cls):
+        import concurrent.futures
+
+        class Held(concurrent.futures.ThreadPoolExecutor):
+            def __init__(self):
+                super().__init__(max_workers=1)
+                self.held = {}
+
+            def submit(self, fn, *args, **kwargs):
+                fut = concurrent.futures.Future()
+                self.held[fn] = (fut, args, kwargs)
+                return fut
+
+            def finish(self, fn):
+                fut, args, kwargs = self.held.pop(fn)
+                fut.set_result(fn(*args, **kwargs))
+
+        return Held()
+
+
+def _follower_touch_outcome(engine_cls):
+    """Drive the order that evicts a follower's key: X's leader and its
+    follower, 31 other builds pending (futures, never evictable), Z's build;
+    X's build finishes (nothing evictable, X stays), then Z's in the same
+    loop pass evicts X before the follower wakes and touches it. Returns the
+    follower's outcome."""
+    import threading
+
+    engine = engine_cls.__new__(engine_cls)
+    engine._json_grammars = {}
+    engine._model_path = "pieces-preset"
+    engine._pieces = PIECES
+    engine._pieces_lock = threading.Lock()
+    engine.piece_table_s = None
+    spec = lambda schema: {"type": "json_schema", "schema": schema}  # noqa: E731
+    x, z = spec(SCHEMAS[1]), spec(SCHEMAS[2])
+    others = [spec({"type": "object", "title": f"p{i}"}) for i in range(31)]
+
+    async def go():
+        loop = asyncio.get_running_loop()
+        held = _HeldExecutor()
+        loop.set_default_executor(held)
+        leader = asyncio.ensure_future(engine._json_constraint(x))
+        await asyncio.sleep(0)
+        (build_x,) = held.held
+        follower = asyncio.ensure_future(engine._json_constraint(x))
+        pending = [asyncio.ensure_future(engine._json_constraint(s))
+                   for s in others]
+        await asyncio.sleep(0)
+        builds_p = [fn for fn in held.held if fn is not build_x]
+        last = asyncio.ensure_future(engine._json_constraint(z))
+        await asyncio.sleep(0)
+        (build_z,) = [fn for fn in held.held
+                      if fn is not build_x and fn not in builds_p]
+        assert len(engine._json_grammars) == 33
+        held.finish(build_x)
+        held.finish(build_z)
+        await asyncio.gather(leader, last)
+        out = (await asyncio.gather(follower, return_exceptions=True))[0]
+        for fn in builds_p:
+            held.finish(fn)
+        await asyncio.gather(*pending)
+        return out
+
+    return asyncio.run(go())
+
+
+def test_follower_lru_touch_survives_its_key_evicted():
+    """A follower that awaited its leader's build touches the LRU entry
+    after a third spec's build evicted it: the reference's ``pop(key)``
+    raises ``KeyError``, the port's serves the follower."""
+    from dynamo_tpu.engine.serving import JaxServingEngine
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+
+    ref = _follower_touch_outcome(JaxServingEngine)
+    assert isinstance(ref, KeyError), ref
+    port = _follower_touch_outcome(TorchServingEngine)
+    assert isinstance(port, guided.JsonConstraint), port

@@ -23,6 +23,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
@@ -141,7 +142,18 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.deploy.kube_api", "dynamo_tpu_torch.deploy.watch",
             "dynamo_tpu_torch.deploy.leader",
             "dynamo_tpu_torch.deploy.operator_main",
-            "dynamo_tpu_torch.utils.logging"} <= set(mods)
+            "dynamo_tpu_torch.utils.logging",
+            # runtime settings and the graph SDK with its example graphs
+            "dynamo_tpu_torch.utils.config", "dynamo_tpu_torch.sdk",
+            "dynamo_tpu_torch.sdk.config", "dynamo_tpu_torch.sdk.service",
+            "dynamo_tpu_torch.sdk.worker", "dynamo_tpu_torch.sdk.allocator",
+            "dynamo_tpu_torch.sdk.serving", "dynamo_tpu_torch.sdk.build",
+            "dynamo_tpu_torch.examples.hello_world",
+            "dynamo_tpu_torch.examples.llm.components",
+            "dynamo_tpu_torch.examples.llm.graphs.agg",
+            "dynamo_tpu_torch.examples.llm.graphs.agg_router",
+            "dynamo_tpu_torch.examples.llm.graphs.disagg",
+            "dynamo_tpu_torch.examples.llm.graphs.disagg_router"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -323,6 +335,173 @@ def test_planner_and_deploy_import_without_jax_or_reference_package():
     """)
 
 
+SDK_MODULES = [
+    "dynamo_tpu_torch.utils.config", "dynamo_tpu_torch.sdk",
+    "dynamo_tpu_torch.sdk.build", "dynamo_tpu_torch.examples.hello_world",
+    "dynamo_tpu_torch.examples.llm.components",
+    "dynamo_tpu_torch.examples.llm.graphs.agg_router",
+    "dynamo_tpu_torch.llm.processor", "dynamo_tpu_torch.llm.preprocessor",
+    "dynamo_tpu_torch.http.service", "dynamo_tpu_torch.kv_router.router",
+    # a stream's first chunk through a processor: the detokenizer follows
+    # migrations, whose frames pack tensors only when KV moves
+    "dynamo_tpu_torch.llm.backend", "dynamo_tpu_torch.recovery.migration",
+    "dynamo_tpu_torch.transfer",
+]
+
+
+def test_sdk_and_examples_import_without_jax_reference_package_or_torch():
+    """The runtime settings, the SDK, the example graphs and what a
+    Frontend, Processor or Router service runs, its first stream included:
+    neither jax, ``dynamo_tpu`` nor yaml, and not torch either (a spawned
+    service that serves no model pays no torch import, before or at its
+    first request). In that interpreter the agg_router graph
+    composes, the runtime settings read their default and the Worker asks
+    for a card."""
+    _import_refusing_reference(SDK_MODULES, """
+        from dynamo_tpu_torch.sdk import graph_services
+        from dynamo_tpu_torch.examples.llm import components as C
+        from dynamo_tpu_torch.utils.config import RuntimeSettings
+        assert [s.name for s in graph_services(C.Frontend)] == [
+            "Frontend", "Processor", "Router", "Worker"]
+        assert RuntimeSettings.from_settings().graceful_shutdown_timeout == 30.0
+        assert C.Worker.spec.resources == {"gpu": 1}
+        assert "torch" not in sys.modules and "yaml" not in sys.modules
+    """)
+
+
+def test_sdk_worker_runs_as_a_module_without_jax_or_reference_package():
+    """``python -m dynamo_tpu_torch.sdk.worker`` serving the hello-world
+    Backend in an interpreter that refuses jax, ``dynamo_tpu`` and the
+    packages the port does not use: a client streams through it, SIGTERM
+    ends it with 0, and it never imported torch."""
+    import asyncio
+    import signal
+    import socket
+
+    from dynamo_tpu_torch.examples import hello_world
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.sdk import DynamoClient
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    store = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.runtime.transports.dynstore",
+         "--host", "127.0.0.1", "--port", str(port)], cwd=str(REPO))
+    script = textwrap.dedent(f"""
+        import importlib.abc, runpy, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if any(name == r or name.startswith(r + ".")
+                       for r in {REFUSED!r}):
+                    raise ImportError("refused import of " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        sys.path.insert(0, {str(REPO)!r})
+        sys.argv = ["worker", "dynamo_tpu_torch.examples.hello_world:Frontend",
+                    "--service", "Backend", "--store-port", "{port}"]
+        runpy.run_module("dynamo_tpu_torch.sdk.worker", run_name="__main__")
+        assert "torch" not in sys.modules, "the worker imported torch"
+    """)
+    proc = None
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", port), 1).close()
+                break
+            except OSError:
+                assert time.monotonic() < deadline, "the dynstore never listened"
+                time.sleep(0.05)
+        proc = subprocess.Popen([sys.executable, "-c", script], cwd=str(REPO),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+        async def ask():
+            drt = await DistributedRuntime.connect("127.0.0.1", port)
+            try:
+                client = await DynamoClient(hello_world.Backend, drt).start()
+                await client.wait_ready(timeout=60)
+                return [i async for i in client.generate({"text": "p,q"})]
+            finally:
+                await drt.close()
+
+        assert asyncio.run(asyncio.wait_for(ask(), 90)) == [
+            {"text": "back-p"}, {"text": "back-q"}]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, proc.stderr.read()[-3000:]
+        assert "serving Backend dyn://hello.Backend.generate" in proc.stdout.read()
+    finally:
+        for p in (proc, store):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+DEPLOY = PKG / "deploy"
+
+
+def _deploy_texts():
+    helm = sorted((DEPLOY / "helm").rglob("*.yaml"))
+    return {str(p.relative_to(REPO)): p.read_text()
+            for p in helm + [DEPLOY / "docker-compose.yml"]}
+
+
+def test_helm_chart_and_compose_run_the_ports_modules():
+    """The port's Helm chart and compose file run ``python -m`` modules of
+    ``dynamo_tpu_torch`` that exist, and none of the JAX package; the
+    compose worker serves ``out=torch`` on an ``nvidia.com/gpu`` device;
+    the chart's RBAC names the port's CRD (group and plural of
+    ``deploy/crd.yaml``), and the operator it runs renders
+    ``nvidia.com/gpu`` requests."""
+    import re
+
+    import yaml
+
+    texts = _deploy_texts()
+    assert {"dynamo_tpu_torch/deploy/docker-compose.yml",
+            "dynamo_tpu_torch/deploy/helm/dynamo-tpu-torch/templates/operator.yaml",
+            "dynamo_tpu_torch/deploy/helm/dynamo-tpu-torch/templates/api-store.yaml",
+            "dynamo_tpu_torch/deploy/helm/dynamo-tpu-torch/templates/rbac.yaml",
+            "dynamo_tpu_torch/deploy/helm/dynamo-tpu-torch/Chart.yaml",
+            "dynamo_tpu_torch/deploy/helm/dynamo-tpu-torch/values.yaml"} <= set(texts)
+    run = []
+    for name, text in texts.items():
+        assert not re.search(r"\bdynamo_tpu\.", text), name
+        run += re.findall(r"-m\s+(dynamo_tpu_torch[\w.]*)", text)
+        run += re.findall(r"-\s+-m\s*\n\s*-\s+(dynamo_tpu_torch[\w.]*)", text)
+        run += re.findall(r"^\s*-\s+(dynamo_tpu_torch\.[\w.]*)\s*$", text,
+                          re.M)
+    assert {"dynamo_tpu_torch.deploy.api_store",
+            "dynamo_tpu_torch.deploy.operator_main",
+            "dynamo_tpu_torch.runtime.transports.dynstore",
+            "dynamo_tpu_torch.cli.run", "dynamo_tpu_torch.cli.metrics"} <= set(run)
+    for mod in run:
+        path = REPO.joinpath(*mod.split("."))
+        assert path.with_suffix(".py").exists() or (path / "__init__.py").exists(), mod
+
+    compose = yaml.safe_load(texts["dynamo_tpu_torch/deploy/docker-compose.yml"])
+    worker = compose["services"]["worker"]
+    assert "out=torch" in worker["command"]
+    (dev,) = worker["deploy"]["resources"]["reservations"]["devices"]
+    assert dev["device_ids"] == ["nvidia.com/gpu=0"] and dev["capabilities"] == ["gpu"]
+    for svc in ("frontend", "processor", "dynstore", "metrics-aggregator"):
+        assert "deploy" not in compose["services"][svc], svc
+
+    crd = yaml.safe_load((DEPLOY / "crd.yaml").read_text())
+    rbac = texts["dynamo_tpu_torch/deploy/helm/dynamo-tpu-torch/templates/rbac.yaml"]
+    assert f'apiGroups: ["{crd["spec"]["group"]}"]' in rbac
+    plural = crd["spec"]["names"]["plural"]
+    assert f'"{plural}", "{plural}/status"' in rbac
+
+    from dynamo_tpu_torch.deploy import operator
+
+    assert operator.GPU_RESOURCE == "nvidia.com/gpu"
+    assert (operator.GROUP, operator.PLURAL) == (crd["spec"]["group"], plural)
+
+
 def test_static_scan_finds_no_jax_or_reference_imports():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = []
@@ -434,7 +613,7 @@ def test_engine_child_runs_as_a_module_without_jax_or_reference_package(tmp_path
         def _report():
             torch = sys.modules.get("torch")
             with open({str(report)!r}, "w") as f:
-                json.dump({{"blocked": sorted(m for m in sys.modules
+                json.dump({{"blocked": sorted(m for m in list(sys.modules)
                                                if blocked(m)),
                            "engine": "dynamo_tpu_torch.engine.serving"
                                      in sys.modules,
@@ -453,7 +632,6 @@ def test_engine_child_runs_as_a_module_without_jax_or_reference_package(tmp_path
         "--extra-engine-args", str(extra), "--max-model-len", "64",
         "--num-kv-blocks", "16", "--kv-block-size", "8", "--isolate-engine"])
     env = dict(os.environ, PYTHONPATH=str(site), CUDA_VISIBLE_DEVICES="")
-
     async def main():
         eng = await SubprocessEngine.load(
             TORCH_ENGINE, {"flags": port_run.wire_flags(flags)}, child_env=env,

@@ -525,10 +525,12 @@ def test_wedge_trips_seizes_hard_migrates_cold_and_respawns(weights, baseline):
         dst = await _engine(weights[1])
         server = await MigrationServer(MigrationSink(dst.scheduler,
                                                      dst.runner)).start()
+        # started once the wedge is in place (below): a healthy pass on a
+        # loaded host can outlast stall_s and trip it before the fault
         wd = StallWatchdog(probe=src.scheduler.watchdog_probe,
                            requests=src.scheduler.request_table,
                            flight=src.scheduler.flight, interval_s=0.02,
-                           stall_s=0.15).start()
+                           stall_s=0.15)
         hooks, respawned = [], []
 
         async def respawner():
@@ -560,9 +562,17 @@ def test_wedge_trips_seizes_hard_migrates_cold_and_respawns(weights, baseline):
             while min(len(g[0]) for g in got) < LIVE:
                 await asyncio.sleep(0.002)
             faults.arm("decode_burst_hang", "once")
-            await asyncio.gather(*tasks)
+            # the decode sync has hung (the site fired in its executor
+            # thread): from here the heartbeat goes stale
+            while not faults.fired_total.get("decode_burst_hang"):
+                await asyncio.sleep(0.002)
+            wd.start()
             while not ctl.recoveries:
                 await asyncio.sleep(0.01)
+            # the trip's work is done; the migrated streams' re-prefill
+            # beside this loop must not read as a lag trip
+            await wd.stop()
+            await asyncio.gather(*tasks)
             sick = ForwardPassMetrics.from_wire(src.metrics())
             out = dict(streams=[tuple(g) for g in got],
                        trips=[t["reason"] for t in wd.trips],

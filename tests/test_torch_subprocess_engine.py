@@ -504,3 +504,40 @@ async def test_torch_child_matches_the_jax_child_and_survives_a_wedge(model_dir)
         assert 'reason="heartbeat"' in port.host_registry.render()
     finally:
         await asyncio.gather(port.close(), ref.close())
+
+
+SLOW_EXIT_ENGINE = """
+import atexit, os, time
+
+def _last_words():
+    # the child's own teardown, after its socket is closed
+    time.sleep(1.0)
+    with open(os.environ["EXIT_MARKER"], "w") as f:
+        f.write("exited on its own")
+
+atexit.register(_last_words)
+
+async def generate(request):
+    yield {"token_ids": [1], "finish_reason": "stop"}
+"""
+
+
+@pytest.mark.asyncio
+async def test_close_lets_a_slow_child_exit_on_its_own(tmp_path):
+    """``close()`` asks the child to exit and waits for it; the child
+    closes its socket before its interpreter's teardown (here a 1 s
+    ``atexit``). The reference's heartbeat loop reads the ping that meets
+    the closed socket as a death and SIGKILLs the child mid-teardown (its
+    marker never lands); the port's host lets it finish."""
+    got = {}
+    for name, cls in (("ref", RefEngine), ("port", SubprocessEngine)):
+        marker = tmp_path / f"{name}.marker"
+        eng = await cls.load(write_engine(tmp_path, SLOW_EXIT_ENGINE),
+                             child_env=child_env(EXIT_MARKER=str(marker)),
+                             heartbeat_interval_s=0.05)
+        assert await _collect(eng, {"token_ids": []}) == [1]
+        pid = eng._proc.pid  # the reference's host has no ``pid``
+        await eng.close()
+        assert await _wait_gone(pid)
+        got[name] = marker.exists()
+    assert got == {"ref": False, "port": True}
