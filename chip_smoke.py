@@ -442,8 +442,9 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    live child. The restart counter reads one each of disconnect,
    heartbeat and manual; the largest gap between pongs stays below the
    bound; SIGINT ends the CLI with 0 and no child left. (e) ``in=batch:``
-   over a 4-line JSONL through an isolated child: 4 records of 32
-   tokens, each with a first token, and the summary on stderr. Prints
+   over a 4-line JSONL through an isolated child, a CLI started beside the
+   baseline and legs (a)-(d): 4 records of 32 tokens, each with a first
+   token, and the summary on stderr. Prints
    every spawn's seconds to ``ready`` and the child's free card memory
    before its load, kill to ready and to the next first token, the
    heartbeat trip, the edge's TTFT and gaps through the child and the
@@ -471,6 +472,31 @@ nothing of JAX or of the JAX package. Phases, each printed as a JSON line:
    flight, exit 2 s (plus teardown) later with the stream cut. Prints the
    graph's TTFT (min, median, max) and tokens/s, each spawn's seconds to
    its first served endpoint and the seconds to exit.
+25. ``fleet_sim`` — the fleet simulator (``dynamo_tpu_torch/sim``, a host
+   program: the port's admission, tenants, pools, KV scheduler, planner
+   and recovery ladder on a virtual clock against byte-model workers).
+   (a) Right after the build, before any engine phase has loaded the
+   host: ``python3 -m dynamo_tpu_torch.cli.fleetsim`` for each scenario at
+   its full virtual duration, each in a fresh interpreter: ``rag``,
+   ``long_context``, ``tenant_spike`` and ``chaos`` (900 s) at once, then
+   ``diurnal`` (1,800 s) alone twice, the second run under ``--speedup
+   1000``, both with the same report; each exits 0 (its SLO floor met).
+   The other processes busy over a second are printed before these runs
+   and again when the phase's other legs start, after the engine phases.
+   (b) The byte model against the card: the 1B from
+   ``flagship_snapshot`` in an in-process engine, 8 rows of 480-token
+   prompts decoding 64 tokens in synchronous 4-step bursts (kernels 2 in
+   the prefill, 1 and 3 in the bursts, counted from 0), each burst timed
+   by CUDA events and by the engine's ``DeviceTimeTracker``, beside what
+   a ``SimWorker`` with the 1B's weight and KV bytes charges for the same
+   rows at 3.35 TB/s; every request written by the port's trace
+   recorder. (c) ``--scenario replay --trace`` of that file completes
+   every request, ``--scenario rag_pod`` exits non-zero naming its
+   refusal, and diurnal runs once more, ungated, with leg (a)'s report:
+   its speed on the host the engine phases leave. Prints a line a
+   scenario (attainment against its floor, sheds by tenant and priority,
+   scale events, the speedup), the bursts' ms a step against the charge
+   and their ratio, and the replay.
 
 Every check raises on failure, so any failed phase ends the run with a
 non-zero exit. The last line is the machine-readable result
@@ -498,7 +524,8 @@ engine's (verify: with the chained ngram engine's); decode, flash and the
 epilogue carry ``launches_engine_recovery``, the peer's over legs A and B
 (its resumed decode and cold re-prefills), and ``launches_engine_isolated``,
 the supervised child's over ``engine_isolated``'s wave, and
-``launches_engine_sdk``, the in-process agg_router graph's Worker's; kernel 6's
+``launches_engine_sdk``, the in-process agg_router graph's Worker's, and
+``launches_fleet_sim``, ``fleet_sim``'s burst engine's; kernel 6's
 fp8 form has the fp8 SP engine's launches); the line before that the
 card's name and power limit.
 """
@@ -511,6 +538,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -12461,13 +12489,18 @@ def engine_isolated_phase(torch, dev, smi):
     import tempfile
 
     tmp = Path(tempfile.mkdtemp(prefix="engine_isolated_"))
+    procs = []  # the in=batch: CLI, which runs beside the legs
     try:
-        return _engine_isolated(torch, dev, smi, tmp)
+        return _engine_isolated(torch, dev, smi, tmp, procs)
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _engine_isolated(torch, dev, smi, tmp):
+def _engine_isolated(torch, dev, smi, tmp, procs):
     import signal
 
     from dynamo_tpu_torch.cli import run
@@ -12490,6 +12523,35 @@ def _engine_isolated(torch, dev, smi, tmp):
     wave1, _ = _requests(np.random.default_rng(SEED))
     greedy = dict(temperature=0.0)
     reqs = [(p, greedy) for p, _ in wave1]
+
+    # (e) in=batch: through an isolated child, a CLI of its own that runs
+    # beside the baseline and the supervised CLI's first spawn (the phase's
+    # time; read at the end)
+    tok = HFTokenizer.from_pretrained_dir(str(model_dir))
+    words = _word_ids(tok)
+    rng = np.random.default_rng(SEED + 23)
+    lo, hi = ISOLATED_BATCH_WORDS
+    batch_file = tmp / "batch.jsonl"
+    batch_file.write_text("".join(json.dumps(dict(
+        messages=[{"role": "user", "content": tok.decode(
+            [words[int(i)] for i in rng.integers(0, len(words), int(n))])}],
+        max_tokens=NEW_TOKENS, temperature=0.0, ignore_eos=True)) + "\n"
+        for n in rng.integers(lo, hi, ISOLATED_BATCH)))
+    t4 = time.monotonic()
+    with open(tmp / "batch.log", "w") as log:
+        batch = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.cli.run",
+             f"in=batch:{batch_file}", "out=torch", *engine_flags,
+             "--isolate-engine"], cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=log, text=True)
+    procs.append(batch)
+    batch_exit = []   # its exit's time, stamped while the legs run
+
+    def stamp_exit():
+        batch.wait()
+        batch_exit.append(time.monotonic())
+
+    threading.Thread(target=stamp_exit, daemon=True).start()
 
     # the in-process engine over the same snapshot: the streams to hold
     flags = run.parse_flags(engine_flags)
@@ -12671,33 +12733,18 @@ def _engine_isolated(torch, dev, smi, tmp):
         raise AssertionError(f"isolated: a pong gap of {max(gaps)} s reached "
                              f"the heartbeat bound {bound} s")
 
-    # ---- (e) in=batch: through an isolated child
-    tok = HFTokenizer.from_pretrained_dir(str(model_dir))
-    words = _word_ids(tok)
-    rng = np.random.default_rng(SEED + 23)
-    lo, hi = ISOLATED_BATCH_WORDS
-    batch_file = tmp / "batch.jsonl"
-    batch_file.write_text("".join(json.dumps(dict(
-        messages=[{"role": "user", "content": tok.decode(
-            [words[int(i)] for i in rng.integers(0, len(words), int(n))])}],
-        max_tokens=NEW_TOKENS, temperature=0.0, ignore_eos=True)) + "\n"
-        for n in rng.integers(lo, hi, ISOLATED_BATCH)))
-    t4 = time.monotonic()
-    res = subprocess.run(
-        [sys.executable, "-m", "dynamo_tpu_torch.cli.run",
-         f"in=batch:{batch_file}", "out=torch", *engine_flags,
-         "--isolate-engine"], cwd=str(ROOT), capture_output=True, text=True,
-        timeout=ISOLATED_TIMEOUT_S)
-    batch_s = time.monotonic() - t4
-    records = [json.loads(line) for line in res.stdout.splitlines()
+    # ---- (e) the in=batch: CLI started beside legs (a)-(d)
+    stdout, _ = batch.communicate(timeout=ISOLATED_TIMEOUT_S)
+    batch_s = (batch_exit[0] if batch_exit else time.monotonic()) - t4
+    stderr = (tmp / "batch.log").read_text()
+    records = [json.loads(line) for line in stdout.splitlines()
                if line.startswith("{")]
-    (tmp / "batch.log").write_text(res.stderr)
     batch_spawns = _spawn_records(tmp / "batch.log")
-    if res.returncode != 0 or len(records) != ISOLATED_BATCH or not all(
+    if batch.returncode != 0 or len(records) != ISOLATED_BATCH or not all(
             r["ttft_s"] > 0 and r["completion_tokens"] == NEW_TOKENS
-            for r in records) or "batch summary:" not in res.stderr:
-        raise AssertionError(f"isolated: in=batch: rc {res.returncode}, "
-                             f"{len(records)} records: {res.stderr[-3000:]}")
+            for r in records) or "batch summary:" not in stderr:
+        raise AssertionError(f"isolated: in=batch: rc {batch.returncode}, "
+                             f"{len(records)} records: {stderr[-3000:]}")
     if not batch_spawns or not _gone(batch_spawns[-1]["pid"]):
         raise AssertionError("isolated: the batch CLI's child lives on")
     del base_runner
@@ -12721,7 +12768,7 @@ def _engine_isolated(torch, dev, smi, tmp):
         pong_gap_max_s=gaps, health_polls=len(got["health"]),
         restarts=restarts, batch_s=batch_s,
         batch_spawn=batch_spawns[-1], batch_ttft_s=[r["ttft_s"] for r in records],
-        batch_summary=json.loads(res.stderr.split("batch summary: ", 1)[1]
+        batch_summary=json.loads(stderr.split("batch summary: ", 1)[1]
                                  .splitlines()[0]),
         nvidia_smi=smi)
     emit("engine_isolated", **fields)
@@ -13150,12 +13197,379 @@ def _reaped(sup, pid):
     return proc.poll() is not None
 
 
+# fleet_sim: the fleet simulator (``dynamo_tpu_torch/sim``, a host program
+# that drives the port's control plane on a virtual clock) run as a user
+# runs it, and its byte model read against the card. Leg (a) runs every
+# scenario through ``python3 -m dynamo_tpu_torch.cli.fleetsim`` at its full
+# virtual duration, each in a fresh interpreter; leg (b) times the 1B's
+# decode bursts beside what a SimWorker charges for the same rows.
+FLEET_SCENARIOS = ("diurnal", "rag", "long_context", "tenant_spike", "chaos")
+FLEET_SPEEDUP = 1000.0         # diurnal's gate: the reference's usage line
+FLEET_ROWS = 8                 # leg (b)'s rows ...
+FLEET_PROMPT = 480             # ... their prompts' tokens ...
+FLEET_NEW = 65                 # ... and new tokens: 16 bursts over ~512
+FLEET_BURST_K = 4              # decode steps a burst
+FLEET_WARM_NEW = 9             # the warm wave's new tokens (2 bursts)
+FLEET_HBM_GBPS = HBM_BYTES_PER_S / 1e9
+FLEET_TIMEOUT_S = 120
+FLEET_DEVICE = "cuda"          # a CPU rehearsal sets "cpu"
+FLEET_SEED = 2727
+
+
+def _busy_processes(seconds=1.0):
+    """The processes on this machine (this one aside) that used CPU over
+    ``seconds``, in cores, busiest first (read from ``/proc``)."""
+    def sample():
+        ticks = {}
+        for d in os.listdir("/proc"):
+            if not d.isdigit():
+                continue
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue  # exited between the listing and the read
+            rest = stat[stat.rindex(")") + 2:].split()
+            ticks[int(d)] = (stat[stat.index("(") + 1:stat.rindex(")")],
+                             int(rest[11]) + int(rest[12]))  # utime + stime
+        return ticks
+
+    before = sample()
+    time.sleep(seconds)
+    hz = os.sysconf("SC_CLK_TCK")
+    used = sorted(((t - before[pid][1], pid, comm)
+                   for pid, (comm, t) in sample().items()
+                   if pid in before and pid != os.getpid()), reverse=True)
+    return [dict(pid=pid, comm=comm, cores=dt / hz / seconds)
+            for dt, pid, comm in used if dt > 0]
+
+
+def fleet_scenarios_leg(smi):
+    """Leg (a) of ``fleet_sim``: every scenario through the CLI. ``main``
+    runs it right after the build, before any engine phase: the CLI's
+    ``--speedup`` gate reads the host's speed, and after the engine phases
+    the same runs came in slower (PERF.md §5). Returns its seconds and
+    diurnal's report."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="fleet_sim_"))
+    procs = []  # every CLI run, stopped if a check raises beside them
+    try:
+        return _fleet_scenarios(smi, tmp, procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fleet_sim_phase(torch, dev, smi, scenarios):
+    """The byte model against the card and the replay (the module
+    docstring's ``fleet_sim``, legs (b) and (c); ``scenarios`` is leg
+    (a)'s seconds and diurnal's report, from before the engine phases)."""
+    import shutil
+    import tempfile
+
+    emit("fleet_sim_host", when="after the engine phases",
+         busy_processes=_busy_processes(), nvidia_smi=smi)
+    tmp = Path(tempfile.mkdtemp(prefix="fleet_sim_"))
+    procs = []  # every CLI run, stopped if a check raises beside them
+    try:
+        return _fleet_sim(torch, dev, smi, tmp, procs, scenarios)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fleetsim_cli(tmp, procs, tag, *args):
+    """Start ``python3 -m dynamo_tpu_torch.cli.fleetsim`` with ``args`` and
+    its report at ``tmp/<tag>.json``; returns (process, report path)."""
+    out = tmp / f"{tag}.json"
+    procs.append(subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.cli.fleetsim", *args,
+         "--json-out", str(out)],
+        cwd=str(ROOT), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True))
+    return procs[-1], out
+
+
+def _fleetsim_result(tag, proc, out):
+    """Wait for one CLI run; it must exit 0. Returns its report and the
+    speedup it printed to stderr."""
+    try:
+        _, err = proc.communicate(timeout=FLEET_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"fleetsim {tag} ran past {FLEET_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"fleetsim {tag} exited {proc.returncode}: "
+                             f"{err[-2000:]}")
+    m = re.search(r"in ([0-9.]+) wall s .* ([0-9]+)x realtime", err)
+    if m is None:
+        raise AssertionError(f"fleetsim {tag} printed no speedup: {err[-500:]}")
+    return json.loads(out.read_text()), float(m.group(1)), float(m.group(2))
+
+
+def _fleet_line(name, rep, wall_s, speedup):
+    t = rep["totals"]
+    scale = [e for e in rep["timeline"] if e["kind"] == "scale"]
+    return dict(
+        scenario=name, virtual_s=rep["duration_s"], wall_s=wall_s,
+        speedup=speedup, offered=t["offered"], outcomes=t["outcomes"],
+        slo_attainment=t["slo_attainment"], slo_floor=rep["slo_floor"],
+        capacity_qps=rep["capacity"]["capacity_qps"],
+        shed_by_tenant={k: v["shed"] for k, v in rep["shed_by_tenant"].items()},
+        shed_by_priority={k: v["shed"]
+                          for k, v in rep["shed_by_priority"].items()},
+        scale_events=len(scale),
+        scale_up=sum(e["direction"] == "up" for e in scale),
+        timeline_kinds=sorted({e["kind"] for e in rep["timeline"]}),
+        recoveries=len(rep["recoveries"]), resubmits=t["resubmits"])
+
+
+def _fleet_bursts(torch, dev, tmp, trace_path):
+    """Leg (b): the 1B from ``flagship_snapshot`` behind an in-process
+    engine in 4-step bursts (the synchronous loop: each burst alone on the
+    card). A warm wave, then 8 rows of 480-token prompts decode 64 tokens;
+    each burst is timed by CUDA events around the runner's
+    ``decode_burst_chained`` and by the engine's live
+    ``DeviceTimeTracker`` (its ``observe``). Every request is written to
+    ``trace_path`` by the port's trace recorder. Returns the full-batch
+    bursts' (events ms, tracker busy ms, tracker read bytes), the runner's
+    byte model, the launches and the streams."""
+    from dynamo_tpu_torch.cli import run
+    from dynamo_tpu_torch.engine.serving import TorchServingEngine
+    from dynamo_tpu_torch.telemetry.tracing import TraceRecorder
+
+    on_card = torch.device(dev).type == "cuda"
+    model_dir, _, write_s = flagship_snapshot(torch, dev)
+    extra = tmp / "extra.json"
+    extra.write_text(json.dumps(ISOLATED_EXTRA))
+    flags = run.parse_flags([
+        "--model-path", str(model_dir), "--model-name", "llama",
+        "--extra-engine-args", str(extra), *ISOLATED_FLAGS,
+        "--multi-step-decode", str(FLEET_BURST_K),
+        *(["--device", "cpu"] if FLEET_DEVICE == "cpu" else [])])
+    rng = np.random.default_rng(FLEET_SEED)
+    vocab = FLAGSHIP["vocab_size"]
+    greedy = dict(temperature=0.0)
+    warm = [(rng.integers(0, vocab, FLEET_PROMPT).tolist(), greedy)
+            for _ in range(FLEET_ROWS)]
+    wave = [(rng.integers(0, vocab, FLEET_PROMPT).tolist(), greedy)
+            for _ in range(FLEET_ROWS)]
+    recorder = TraceRecorder(capacity=64, jsonl_path=str(trace_path))
+
+    async def main():
+        t0 = time.monotonic()
+        engine = await TorchServingEngine.create(
+            mdc=run.load_mdc(flags), flags=flags, device=flags.device)
+        setup_s = time.monotonic() - t0
+        runner = engine.runner
+        tracker = runner.device_time
+        bursts, observed = [], []
+        burst, observe = runner.decode_burst_chained, tracker.observe
+
+        def timed_burst(*a, **kw):
+            if not on_card:
+                t = time.perf_counter()
+                out = burst(*a, **kw)
+                bursts.append((t, time.perf_counter()))
+                return out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = burst(*a, **kw)
+            end.record()
+            bursts.append((start, end))
+            return out
+
+        def seen(program, phase, dispatch_t, ready_t, read_bytes=0.0,
+                 tokens=0):
+            busy = observe(program, phase, dispatch_t, ready_t,
+                           read_bytes=read_bytes, tokens=tokens)
+            if program.startswith("decode_burst"):
+                observed.append((busy, read_bytes, tokens))
+            return busy
+
+        async def served(batch, new_tokens, tag):
+            t = time.monotonic()
+            res = await _guarded(_serve(engine, batch, new_tokens), engine)
+            for i, r in enumerate(res):
+                ttft = r["ttft_s"] or 0.0
+                recorder.record(f"{tag}-{i}", "sim-model", "completed",
+                                [("ingress", t), ("first_token", t + ttft)],
+                                end=time.monotonic())
+            return res
+
+        try:
+            warm_res = await served(warm, FLEET_WARM_NEW, "warm")
+            runner.decode_burst_chained, tracker.observe = timed_burst, seen
+            _reset_launches()
+            t1 = time.monotonic()
+            res = await served(wave, FLEET_NEW, "wave")
+            wall = time.monotonic() - t1
+            launches = _read_launches()
+        finally:
+            runner.decode_burst_chained, tracker.observe = burst, observe
+            await engine.close()
+            recorder.close()
+        if on_card:
+            torch.cuda.synchronize()
+            times = [s.elapsed_time(e) for s, e in bursts]
+        else:
+            times = [(e - s) * 1e3 for s, e in bursts]
+        full = FLEET_BURST_K * FLEET_ROWS
+        rows = [(ms, busy * 1e3, nbytes)
+                for ms, (busy, nbytes, tokens) in zip(times, observed)
+                if tokens == full]
+        return dict(setup_s=setup_s, write_s=write_s, wall_s=wall,
+                    warm=warm_res, res=res, rows=rows, bursts=len(times),
+                    observed=len(observed), launches=launches,
+                    param_bytes=runner.param_bytes,
+                    kv_bytes_per_token=runner.kv_bytes_per_token,
+                    tracker_gbps=tracker.peak_bytes_per_s / 1e9)
+
+    return asyncio.run(main())
+
+
+def _fleet_scenarios(smi, tmp, procs):
+    from dynamo_tpu_torch.sim.scenarios import SCENARIOS
+
+    emit("fleet_sim_host", when="before the engine phases",
+         busy_processes=_busy_processes(), nvidia_smi=smi)
+    # four scenarios at once, then diurnal alone twice: the two
+    # processes' reports must be the same, and the second run carries the
+    # speedup gate (the first run's speedup is printed beside it: a shared
+    # host's speed moves from run to run)
+    t0 = time.monotonic()
+    runs = {name: _fleetsim_cli(tmp, procs, name, "--scenario", name)
+            for name in FLEET_SCENARIOS if name != "diurnal"}
+    lines = [_fleet_line(name, *_fleetsim_result(name, proc, out))
+             for name, (proc, out) in runs.items()]
+    warm = _fleetsim_result("diurnal", *_fleetsim_cli(
+        tmp, procs, "diurnal_warm", "--scenario", "diurnal"))
+    proc, out = _fleetsim_cli(tmp, procs, "diurnal", "--scenario", "diurnal",
+                              "--speedup", str(FLEET_SPEEDUP))
+    rep, wall_s, speedup = _fleetsim_result("diurnal", proc, out)
+    if json.dumps(rep, sort_keys=True) != json.dumps(warm[0], sort_keys=True):
+        raise AssertionError("diurnal's two runs gave different reports")
+    lines.append(dict(_fleet_line("diurnal", rep, wall_s, speedup),
+                      first_run_speedup=warm[2]))
+    scenarios_s = time.monotonic() - t0
+    for line in lines:
+        # each at its full horizon; diurnal's speedup gated by its exit 0
+        if line["virtual_s"] != SCENARIOS[line["scenario"]].duration_s:
+            raise AssertionError(f"a shortened run: {line}")
+        emit("fleet_sim_scenario", **line, nvidia_smi=smi)
+    return scenarios_s, rep
+
+
+def _fleet_sim(torch, dev, smi, tmp, procs, scenarios):
+    from dynamo_tpu_torch.sim.worker import SimWorker, WorkerSpec
+
+    # (b) the byte model against the card; its requests are the trace the
+    # replay reads
+    t0 = time.monotonic()
+    trace = tmp / "traces.jsonl"
+    b = _fleet_bursts(torch, dev, tmp, trace)
+    bursts_s = time.monotonic() - t0
+    _check_streams(b["warm"], FLEET_WARM_NEW)
+    _check_streams(b["res"], FLEET_NEW)
+    _check_launches("fleet_sim", b["launches"],
+                    ("paged_decode", "paged_flash", "epilogue"))
+    if len(b["rows"]) < 8 or b["bursts"] != b["observed"]:
+        raise AssertionError(
+            f"{len(b['rows'])} full bursts of {b['bursts']} timed, "
+            f"{b['observed']} observed")
+    worker = SimWorker("card", "llama-3.2-1b", WorkerSpec(
+        param_bytes=b["param_bytes"], kv_bytes_per_token=b["kv_bytes_per_token"],
+        hbm_gbps=FLEET_HBM_GBPS, burst_steps=FLEET_BURST_K), clock=lambda: 0.0)
+    step_ms, busy_ms, charge_ms, ctx = [], [], [], []
+    for ms, busy, nbytes in b["rows"]:
+        per_step = nbytes / FLEET_BURST_K
+        ctx_sum = (per_step - b["param_bytes"]) / b["kv_bytes_per_token"]
+        charge = worker.tracker.decode_read_bytes(FLEET_BURST_K, ctx_sum) \
+            / worker.tracker.peak_bytes_per_s
+        step_ms.append(ms / FLEET_BURST_K)
+        busy_ms.append(busy / FLEET_BURST_K)
+        charge_ms.append(charge * 1e3 / FLEET_BURST_K)
+        ctx.append(ctx_sum / FLEET_ROWS)
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    ratio = med(step_ms) / med(charge_ms)
+    if not (0.0 < med(charge_ms) < med(step_ms)):
+        raise AssertionError(f"a step faster than its bytes at the peak: "
+                             f"{med(step_ms)} ms against {med(charge_ms)}")
+    emit("fleet_sim_bytes", model="Llama-3.2-1B (flagship_snapshot)",
+         rows=FLEET_ROWS, burst_steps=FLEET_BURST_K,
+         full_bursts=len(b["rows"]), context_tokens_mean=med(ctx),
+         step_ms_events=dict(min=min(step_ms), median=med(step_ms),
+                             max=max(step_ms)),
+         step_ms_tracker_busy=dict(min=min(busy_ms), median=med(busy_ms),
+                                   max=max(busy_ms)),
+         simworker_charge_ms_per_step=med(charge_ms),
+         simworker_gbps=FLEET_HBM_GBPS, tracker_gbps=b["tracker_gbps"],
+         param_bytes=b["param_bytes"],
+         kv_bytes_per_token=b["kv_bytes_per_token"],
+         ratio_events_to_charge=ratio,
+         ratio_busy_to_charge=med(busy_ms) / med(charge_ms),
+         wave_tokens_per_s=FLEET_ROWS * FLEET_NEW / b["wall_s"],
+         engine_setup_s=b["setup_s"], snapshot_write_s=b["write_s"],
+         launches={k: b["launches"][k]
+                   for k in ("paged_decode", "paged_flash", "epilogue")},
+         nvidia_smi=smi)
+
+    # (c) the replay of leg (b)'s trace, the refused scenario, and diurnal
+    # once more on the host the engine phases leave (ungated: its speed
+    # beside leg (a)'s, its report the same)
+    t0 = time.monotonic()
+    replay = _fleetsim_cli(tmp, procs, "replay", "--scenario", "replay",
+                           "--trace", str(trace))
+    pod = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.cli.fleetsim",
+         "--scenario", "rag_pod"], cwd=str(ROOT), capture_output=True,
+        text=True, timeout=FLEET_TIMEOUT_S)
+    rep, wall_s, speedup = _fleetsim_result("replay", *replay)
+    n_trace = len(trace.read_text().splitlines())
+    if n_trace != 2 * FLEET_ROWS or \
+            rep["totals"]["outcomes"] != {"completed": n_trace}:
+        raise AssertionError(f"the replay of {n_trace} traces: "
+                             f"{rep['totals']['outcomes']}")
+    if pod.returncode == 0 or "rag_pod" not in pod.stderr \
+            or "refused" not in pod.stderr:
+        raise AssertionError(f"rag_pod was not refused by name: "
+                             f"{pod.returncode} {pod.stderr[-500:]}")
+    scenarios_s, diurnal = scenarios
+    late, _, late_speedup = _fleetsim_result("diurnal_late", *_fleetsim_cli(
+        tmp, procs, "diurnal_late", "--scenario", "diurnal"))
+    if json.dumps(late, sort_keys=True) != json.dumps(diurnal, sort_keys=True):
+        raise AssertionError("diurnal's report changed after the engine "
+                             "phases")
+    emit("fleet_sim_replay", **_fleet_line("replay", rep, wall_s, speedup),
+         traces=n_trace, rag_pod_exit=pod.returncode,
+         rag_pod_refusal=pod.stderr.strip().splitlines()[-1],
+         diurnal_speedup_after_engine_phases=late_speedup,
+         scenarios_s=scenarios_s, bursts_s=bursts_s,
+         replay_s=time.monotonic() - t0, nvidia_smi=smi)
+    return dict(paged_decode=b["launches"]["paged_decode"],
+                paged_flash=b["launches"]["paged_flash"],
+                sampling_epilogue=b["launches"]["epilogue"])
+
+
 PHASES = ("kernels", "engine", "engine_chain", "engine_fp8", "engine_mla",
           "engine_gptoss", "engine_gemma2", "engine_qwen3moe",
           "engine_mixtral_int8", "engine_sp", "engine_http", "engine_guided",
           "engine_graph", "engine_disagg", "engine_kv_tiers", "engine_load",
           "engine_spec", "engine_recovery", "engine_phi3", "engine_isolated",
-          "engine_sdk")
+          "engine_sdk", "fleet_sim")
 
 
 def main(argv=None) -> int:
@@ -13197,6 +13611,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     entries, launches, phase_s = {}, {}, {}
+    fleet_scenarios = None
+    if "fleet_sim" in phases:
+        # the simulator's scenarios (host processes, no kernel) on the
+        # host before any engine phase has run on it
+        t0 = time.monotonic()
+        fleet_scenarios = fleet_scenarios_leg(smi)
+        phase_s["fleet_sim_scenarios"] = time.monotonic() - t0
     if "kernels" in phases:
         t0 = time.monotonic()
         entries = kernel_phase(torch, dev)
@@ -13328,6 +13749,17 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    fleet_launches = {}
+    if "fleet_sim" in phases:
+        # the fleet simulator's scenarios (host processes) and its byte
+        # model against the 1B's bursts: the burst engine's counts
+        t0 = time.monotonic()
+        fleet_launches = fleet_sim_phase(torch, dev, smi, fleet_scenarios)
+        phase_s["fleet_sim"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
     kernels = [dict(entry, launches=launches.get(key),
                     **({"launches_engine_http": http_launches[key]}
                        if key in http_launches else {}),
@@ -13346,7 +13778,9 @@ def main(argv=None) -> int:
                     **({"launches_engine_isolated": isolated_launches[key]}
                        if key in isolated_launches else {}),
                     **({"launches_engine_sdk": sdk_launches[key]}
-                       if key in sdk_launches else {}))
+                       if key in sdk_launches else {}),
+                    **({"launches_fleet_sim": fleet_launches[key]}
+                       if key in fleet_launches else {}))
                for key, entry in entries.items()]
     partial = len(phases) < len(PHASES)
     # a form no cell serves (``path`` says so) has no count: null

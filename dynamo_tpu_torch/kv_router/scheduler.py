@@ -13,7 +13,12 @@ metrics refreshes.
 The port's copy of ``dynamo_tpu/kv_router/scheduler.py``. Ties break with
 an explicit ``random.Random`` (``rng``) instead of the module's global
 choice: seeded, it makes the reference's choice under ``random.seed`` of
-the same seed.
+the same seed. The pull hint scans the overlap's workers in the overlap's
+own order, where the reference scans a set of worker ids
+(``dynamo_tpu/kv_router/scheduler.py:200``): a set of strings iterates in
+an order that changes with the process's hash seed, so the reference
+gives tied owners' hint to a different worker from one process to the
+next, and the fleet simulator's reports with it.
 """
 
 from __future__ import annotations
@@ -162,7 +167,6 @@ class KvScheduler:
 
         best: List[str] = []
         best_logit = -float("inf")
-        details = {}
         for wid, state in candidates.items():
             if self.require_free_slot and (
                 state.metrics.request_active_slots + state.predicted_active
@@ -183,7 +187,6 @@ class KvScheduler:
                 - state.cache_usage(self.block_size)
                 - state.normalized_active()
             )
-            details[wid] = (logit, matched)
             if logit > best_logit + 1e-9:
                 best, best_logit = [wid], logit
             elif abs(logit - best_logit) <= 1e-9:
@@ -204,7 +207,7 @@ class KvScheduler:
         # chosen worker's fabric can pull the difference from it
         # (kv/fabric.py) instead of recomputing
         best_owner, best_owned, best_key = None, 0, (0.0, 0)
-        for wid in set(overlap.scores) | set(overlap.cold_scores):
+        for wid in dict.fromkeys([*overlap.scores, *overlap.cold_scores]):
             if pool is not None and wid not in pool:
                 # another model's worker: its "overlap" is a token-hash
                 # coincidence, not pullable KV for this model

@@ -171,10 +171,18 @@ class DeviceTimeTracker:
         """One program completion: dispatch and host-observed ready
         times (monotonic). Returns the busy seconds attributed."""
         last = self._last_ready_t
-        start = dispatch_t if last is None else max(dispatch_t, last)
-        busy = max(0.0, ready_t - start)
-        bubble = max(0.0, start - last) if last is not None else 0.0
-        self._last_ready_t = max(ready_t, last or ready_t)
+        if last is None:
+            start, bubble = dispatch_t, 0.0
+            self._last_ready_t = ready_t
+        else:
+            # max() spelled out: this runs once a program on the hot path
+            start = last if last > dispatch_t else dispatch_t
+            bubble = start - last if start > last else 0.0
+            if not last:
+                self._last_ready_t = ready_t
+            elif ready_t > last:
+                self._last_ready_t = ready_t
+        busy = ready_t - start if ready_t > start else 0.0
         self.observations += 1
         self.busy_s[phase] = self.busy_s.get(phase, 0.0) + busy
         if bubble:

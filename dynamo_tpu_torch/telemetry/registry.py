@@ -10,6 +10,7 @@ format is simple enough to emit).
 
 from __future__ import annotations
 
+from bisect import bisect_left
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
@@ -47,7 +48,9 @@ class Counter:
         self.values: Dict[Tuple[Tuple[str, str], ...], float] = {}
 
     def inc(self, amount: float = 1.0, **labels: str) -> None:
-        key = tuple(sorted(labels.items()))
+        # a series' key: its labels in name order (one needs no sort)
+        key = (tuple(sorted(labels.items())) if len(labels) > 1
+               else tuple(labels.items()))
         self.values[key] = self.values.get(key, 0.0) + amount
 
     def set_sample(self, value: float, **labels: str) -> None:
@@ -82,22 +85,30 @@ class Gauge(Counter):
 
 class Histogram:
     def __init__(self, name: str, help_: str, buckets=DEFAULT_BUCKETS):
+        if any(a >= b for a, b in zip(buckets, buckets[1:])):
+            # as Prometheus's clients require; it lets observe() bisect
+            raise ValueError(f"histogram {name}: buckets must ascend: "
+                             f"{buckets}")
         self.name = name
         self.help = help_
         self.buckets = buckets
+        # per series: how many observations fell first under each bound
+        # (cumulated into the ``le`` buckets when rendered)
         self.counts: Dict[Tuple[Tuple[str, str], ...], List[int]] = {}
         self.sums: Dict[Tuple[Tuple[str, str], ...], float] = {}
         self.totals: Dict[Tuple[Tuple[str, str], ...], int] = {}
 
     def observe(self, value: float, **labels: str) -> None:
-        key = tuple(sorted(labels.items()))
-        if key not in self.counts:
-            self.counts[key] = [0] * len(self.buckets)
+        key = (tuple(sorted(labels.items())) if len(labels) > 1
+               else tuple(labels.items()))
+        counts = self.counts.get(key)
+        if counts is None:
+            # one slot past the last bound for values above it (and NaN)
+            counts = self.counts[key] = [0] * (len(self.buckets) + 1)
             self.sums[key] = 0.0
             self.totals[key] = 0
-        for i, b in enumerate(self.buckets):
-            if value <= b:
-                self.counts[key][i] += 1
+        counts[bisect_left(self.buckets, value)
+               if value == value else len(self.buckets)] += 1
         self.sums[key] += value
         self.totals[key] += 1
 
@@ -108,9 +119,11 @@ class Histogram:
         ]
         for key in sorted(self.counts):
             labels = dict(key)
+            below = 0
             for i, b in enumerate(self.buckets):
+                below += self.counts[key][i]
                 lines.append(
-                    f"{self.name}_bucket{format_labels({**labels, 'le': str(b)})} {self.counts[key][i]}"
+                    f"{self.name}_bucket{format_labels({**labels, 'le': str(b)})} {below}"
                 )
             lines.append(
                 f"{self.name}_bucket{format_labels({**labels, 'le': '+Inf'})} {self.totals[key]}"

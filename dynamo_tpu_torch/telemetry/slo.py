@@ -143,10 +143,21 @@ class SloTracker:
         when no request completed inside the window — the policy skips
         a blind signal instead of acting on a stale one."""
         now = self.clock()
-        rows = [r for r in self._window if r[0] >= now - self.window_s]
-        if not rows:
+        cutoff = now - self.window_s
+        # one pass over the window: verdict counts and SLO-met tokens
+        n = met = ttft_met = itl_met = met_tokens = 0
+        for t, ttft_ok, itl_ok, ok, tokens in self._window:
+            if t >= cutoff:
+                n += 1
+                if ttft_ok:
+                    ttft_met += 1
+                if itl_ok:
+                    itl_met += 1
+                if ok:
+                    met += 1
+                    met_tokens += tokens
+        if not n:
             return {}
-        n = len(rows)
         # goodput rate over the OBSERVATION SPAN, not the gap since the
         # oldest surviving sample: a single request completing 1 ms
         # before the poll must read as tokens-over-elapsed-serving-time,
@@ -162,13 +173,11 @@ class SloTracker:
             # truth, and with the deque full it's never a 1-sample spike
             span = max(now - self._window[0][0], 1e-9)
         out = {
-            "slo.attainment": sum(1 for r in rows if r[3]) / n,
-            "slo.goodput_tokens_per_s": (
-                sum(r[4] for r in rows if r[3]) / span
-            ),
+            "slo.attainment": met / n,
+            "slo.goodput_tokens_per_s": met_tokens / span,
         }
         if self.ttft_s is not None:
-            out["slo.ttft_attainment"] = sum(1 for r in rows if r[1]) / n
+            out["slo.ttft_attainment"] = ttft_met / n
         if self.itl_s is not None:
-            out["slo.itl_attainment"] = sum(1 for r in rows if r[2]) / n
+            out["slo.itl_attainment"] = itl_met / n
         return out

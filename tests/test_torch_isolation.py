@@ -153,7 +153,13 @@ def test_port_imports_without_jax_or_reference_package():
             "dynamo_tpu_torch.examples.llm.graphs.agg",
             "dynamo_tpu_torch.examples.llm.graphs.agg_router",
             "dynamo_tpu_torch.examples.llm.graphs.disagg",
-            "dynamo_tpu_torch.examples.llm.graphs.disagg_router"} <= set(mods)
+            "dynamo_tpu_torch.examples.llm.graphs.disagg_router",
+            # the fleet simulator and its CLI
+            "dynamo_tpu_torch.sim", "dynamo_tpu_torch.sim.clock",
+            "dynamo_tpu_torch.sim.workload", "dynamo_tpu_torch.sim.metrics",
+            "dynamo_tpu_torch.sim.worker", "dynamo_tpu_torch.sim.fleet",
+            "dynamo_tpu_torch.sim.report", "dynamo_tpu_torch.sim.scenarios",
+            "dynamo_tpu_torch.cli.fleetsim"} <= set(mods)
     _import_refusing_reference(mods)
 
 
@@ -367,6 +373,51 @@ def test_sdk_and_examples_import_without_jax_reference_package_or_torch():
         assert C.Worker.spec.resources == {"gpu": 1}
         assert "torch" not in sys.modules and "yaml" not in sys.modules
     """)
+
+
+def test_fleet_simulator_runs_without_jax_reference_package_or_torch():
+    """``dynamo_tpu_torch.sim`` and ``python3 -m dynamo_tpu_torch.cli.fleetsim
+    --list`` in an interpreter that refuses jax, ``dynamo_tpu``, the packages
+    the port does not use and torch too (a torch import would eat the CLI's
+    ``--speedup`` gate): the listing prints and a short chaos run
+    completes in that interpreter."""
+    script = textwrap.dedent(f"""
+        import contextlib, importlib.abc, io, runpy, sys
+
+        def blocked(name):
+            return any(name == r or name.startswith(r + ".")
+                       for r in {REFUSED + ("torch",)!r})
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if blocked(name):
+                    raise ImportError("refused import of " + name)
+                return None
+
+        for m in [m for m in sys.modules if blocked(m)]:
+            del sys.modules[m]
+        sys.meta_path.insert(0, Refuse())
+        sys.path.insert(0, {str(REPO)!r})
+        from dynamo_tpu_torch.sim import run_scenario
+        rep = run_scenario("chaos", seed=0, duration_s=200.0)
+        assert rep["totals"]["outcomes"]["completed"] > 0, rep["totals"]
+        sys.argv = ["fleetsim", "--list"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_module("dynamo_tpu_torch.cli.fleetsim",
+                                 run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, e.code
+        assert "diurnal" in out.getvalue() and "rag_pod" not in out.getvalue()
+        bad = sorted(m for m in sys.modules if blocked(m))
+        assert not bad, bad
+        print("fleetsim ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "fleetsim ok" in res.stdout
 
 
 def test_sdk_worker_runs_as_a_module_without_jax_or_reference_package():

@@ -136,6 +136,34 @@ def test_registry_exposition_parses_equal_to_the_reference():
             == _families(ref_expo.parse_exposition(_drive_registry(ref_registry))))
 
 
+@pytest.mark.parametrize("buckets", [port_registry.DEFAULT_BUCKETS,
+                                     port_dt.DEVICE_TIME_BUCKETS, (1, 2, 4, 8)],
+                         ids=["default", "device_time", "ints"])
+def test_histogram_renders_the_reference_text(buckets):
+    """Observations on and between the bounds, below the first, past the
+    last, at +-inf and NaN, under no, one and two labels: the port's
+    histogram (which bisects its bounds) renders the reference's text."""
+    rng = np.random.default_rng(5)
+    edges = [*buckets, 0, -1.0, 1e9, float("inf"), float("-inf"), float("nan")]
+    port = port_registry.Histogram("dyn_h", "help", buckets)
+    ref = ref_registry.Histogram("dyn_h", "help", buckets)
+    labels = [{}, {"phase": "decode"}, {"program": "p", "phase": "prefill"}]
+    for i in range(600):
+        value = (edges[i % len(edges)] if i % 3 == 0
+                 else float(rng.uniform(-0.1, 1.2) * buckets[-1]))
+        lab = labels[i % len(labels)]
+        port.observe(value, **lab)
+        ref.observe(value, **lab)
+    assert port.render() == ref.render()
+
+
+def test_histogram_refuses_buckets_that_do_not_ascend():
+    with pytest.raises(ValueError, match="ascend"):
+        port_registry.Histogram("dyn_h", "help", (0.1, 0.05, 1.0))
+    with pytest.raises(ValueError, match="ascend"):
+        port_registry.Histogram("dyn_h", "help", (1, 1, 2))
+
+
 # ---------- tracing ----------
 
 SPAN_CASES = {
